@@ -1,0 +1,164 @@
+"""The port's GPT-3 decode path (youku_mplug_tpu_torch.models.gpt3)
+against the JAX package at fp32 on the tiny flagship config, weights
+through the bridge.
+
+Covers prefill (front-padded [pad | queries | prompt] chunk written at
+row 0, valid_from and the clamped position offset) and decode (per-sample
+cache_len, new row written before attention, inclusive mask bounds), the
+cache contents ([K | V] rows straight from the qkv projection) and the
+fp32 logits.  Tolerance 1e-4 (fp32; parameters redrawn at std 0.2 so
+every bias and layer matters).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from __graft_entry__ import _flagship_cfg
+from youku_mplug_tpu.models import gpt3 as jgpt3
+from youku_mplug_tpu.models.generation import _build_prefix as j_prefix
+from youku_mplug_tpu.runtime.precision import FP32_POLICY as J_FP32
+from youku_mplug_tpu_torch import bridge
+from youku_mplug_tpu_torch.config import flagship_config
+from youku_mplug_tpu_torch.models import gpt3 as tgpt3
+from youku_mplug_tpu_torch.models.generation import _build_prefix as t_prefix
+from youku_mplug_tpu_torch.runtime.precision import FP32_POLICY
+
+torch.set_num_threads(1)
+TOL = 1e-4
+PAD = 2
+
+
+def redraw(tree, rng, std=0.2):
+    def leaf(path, x):
+        z = rng.normal(size=x.shape).astype(np.float32)
+        return 1.0 + 0.1 * z if str(path[-1].key).endswith("scale") \
+            else std * z
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=tol, atol=tol)
+
+
+def _models(rng):
+    cfg = _flagship_cfg(tiny=True).text
+    jlm = jgpt3.GPT3LM(cfg, policy=J_FP32)
+    shapes = jax.eval_shape(lambda: jlm.init(
+        jax.random.key(0), jnp.zeros((1, 4), jnp.int32)))["params"]
+    params = redraw(shapes, rng)
+    tlm = bridge.load_jax_params(
+        tgpt3.GPT3LM(flagship_config(tiny=True).text, FP32_POLICY), params)
+    return jlm, params, tlm
+
+
+def test_prefill_then_decode_matches_jax():
+    rng = np.random.default_rng(0)
+    jlm, params, tlm = _models(rng)
+    b, p, nq, h = 3, 8, 4, 64
+    prompt = rng.integers(3, 256, size=(b, p)).astype(np.int32)
+    plen = np.array([8, 5, 1], np.int32)
+    qe = rng.normal(size=(b, nq, h)).astype(np.float32)
+
+    variables = {"params": params}
+    embeds, vf, po = j_prefix(jlm, params, jnp.asarray(prompt),
+                              jnp.asarray(plen), jnp.asarray(qe), PAD)
+    t_embeds, t_vf, t_po = t_prefix(tlm, _t(prompt).long(), _t(plen),
+                                    _t(qe), PAD)
+    _close(t_embeds, embeds, 0)
+    assert t_vf.tolist() == list(np.asarray(vf)) == [0, 3, 7]
+
+    step = jax.jit(lambda p_, e, c, cl, v, o: jlm.apply(
+        {"params": p_}, e, c, cl, v, o, method=jgpt3.GPT3LM.decode_step))
+    jcache = jlm.apply(variables, b, 20, method=jgpt3.GPT3LM.init_cache)
+    tcache = tlm.init_cache(b, 20)
+    assert tuple(tcache.shape) == jcache.shape == (2, b, 128, 128)
+
+    # prefill: scalar cache_len 0 (rows 0 .. nq+p-1 of every sample)
+    jl, jcache = step(params, embeds, jcache, jnp.int32(0), vf, po)
+    tl, tcache = tlm.decode_step(t_embeds, tcache, 0, t_vf, t_po)
+    assert tl.dtype == torch.float32
+    _close(tl, jl)
+    _close(tcache, jcache)
+
+    # decode: per-sample cache_len; teacher-forced with JAX's choices
+    cache_len = np.full((b,), nq + p, np.int32)
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for _ in range(3):
+        emb = jlm.apply(variables, jnp.asarray(tok)[:, None],
+                        method=jgpt3.GPT3LM.embed)
+        jl, jcache = step(params, emb, jcache, jnp.asarray(cache_len), vf, po)
+        t_emb = tlm.embed(_t(tok)[:, None].long())
+        tl, tcache = tlm.decode_step(t_emb, tcache, _t(cache_len), t_vf,
+                                     t_po)
+        _close(tl, jl)
+        _close(tcache, jcache)
+        cache_len += 1
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+
+
+def test_layer_with_cache_matches_jax():
+    """One GPT3Layer (attention + MLP) with its cache: a prefill chunk at
+    row 0, then a decode row at per-sample positions."""
+    rng = np.random.default_rng(1)
+    cfg = _flagship_cfg(tiny=True).text
+    jlayer = jgpt3.GPT3Layer(cfg, policy=J_FP32)
+    b, m, s, h = 2, 16, 5, cfg.hidden_size
+    x = rng.normal(size=(b, s, h)).astype(np.float32)
+    cache = np.zeros((b, m, 2 * h), np.float32)
+    vf = np.array([0, 2], np.int32)
+    shapes = jax.eval_shape(lambda: jlayer.init(
+        jax.random.key(0), jnp.asarray(x), jnp.asarray(cache), 0,
+        jnp.asarray(vf)))["params"]
+    params = redraw(shapes, rng)
+    stacked = jax.tree.map(lambda a: a[None], params)
+    tlayer = bridge.load_jax_params(
+        tgpt3.GPT3Layer(flagship_config(tiny=True).text, 1, torch.float32),
+        stacked)
+    tcache = _t(cache)[None]
+
+    run = jax.jit(lambda p_, x_, c, cl, v: jlayer.apply(
+        {"params": p_}, x_, c, cl, v))
+    jy, jc = run(params, jnp.asarray(x), jnp.asarray(cache), 0,
+                 jnp.asarray(vf))
+    ty = tlayer(_t(x), 0, tcache, 0, _t(vf))
+    _close(ty, jy)
+    _close(tcache[0], jc)
+    # the cache row is the [K | V] half of the qkv projection
+    x1 = rng.normal(size=(b, 1, h)).astype(np.float32)
+    cl = np.array([5, 9], np.int32)
+    jy, jc = run(params, jnp.asarray(x1), jc, jnp.asarray(cl),
+                 jnp.asarray(vf))
+    ty = tlayer(_t(x1), 0, tcache, _t(cl), _t(vf))
+    _close(ty, jy)
+    _close(tcache[0], jc)
+
+
+def test_tied_logits_are_fp32_of_bf16_products():
+    rng = np.random.default_rng(2)
+    emb = rng.normal(size=(50, 16)).astype(np.float32)
+    hid = rng.normal(size=(3, 16)).astype(np.float32)
+    te = tgpt3.TiedEmbedding(50, 16, torch.float32)
+    te.embedding.data.copy_(_t(emb))
+    got = te.attend(_t(hid).to(torch.bfloat16))
+    assert got.dtype == torch.float32
+    want = jnp.einsum("bh,vh->bv", jnp.asarray(hid, jnp.bfloat16),
+                      jnp.asarray(emb, jnp.bfloat16),
+                      preferred_element_type=jnp.float32)
+    _close(got, want, 1e-5)
+
+
+def test_config_from_json_matches_jax():
+    path = "configs/models/config_gpt3_1.3B.json"
+    j, t = jgpt3.GPT3Config.from_json_file(path), \
+        tgpt3.GPT3Config.from_json_file(path)
+    for f in ("vocab_size", "hidden_size", "ffn_dim", "num_hidden_layers",
+              "num_attention_heads", "max_position_embeddings",
+              "layernorm_epsilon", "head_dim"):
+        assert getattr(t, f) == getattr(j, f), f

@@ -1,0 +1,78 @@
+"""The port imports without jax, and its kernel wrappers take their plain
+versions only for CPU tensors (never a silent fallback)."""
+
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from youku_mplug_tpu_torch.ops import decode_attention as dec
+from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(1)
+
+_NO_JAX = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    sys.modules["jax"] = None       # any import of jax now raises
+    sys.modules["flax"] = None
+    import youku_mplug_tpu_torch as pkg
+    names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
+                                                   pkg.__name__ + ".")]
+    for name in names:
+        importlib.import_module(name)
+    assert "youku_mplug_tpu_torch.cli.serve" in names
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "jaxlib", "flax",
+                                           "youku_mplug_tpu")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print(len(names))
+""")
+
+
+def test_package_imports_without_jax():
+    out = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 15
+
+
+def test_wrappers_use_plain_versions_on_cpu_without_launching():
+    rng = np.random.default_rng(0)
+    counters = (fa.flash_attention_packed, fa.flash_attention,
+                dec.decode_attention)
+    before = [f.launches for f in counters]
+    x = torch.from_numpy(rng.normal(size=(2, 16, 128)).astype(np.float32))
+    out = fa.flash_attention_packed(x, x, x, 2, period=4)
+    assert out.shape == x.shape and out.device.type == "cpu"
+    q4 = x.unflatten(-1, (2, 64)).transpose(1, 2)
+    assert fa.flash_attention(q4, q4, q4, kv_len=9).shape == q4.shape
+    ckv = torch.from_numpy(rng.normal(size=(1, 2, 8, 256)).astype(
+        np.float32))
+    assert dec.decode_attention(x[:, 0], ckv, 2, 0,
+                                torch.tensor([3, 7])).shape == (2, 128)
+    assert [f.launches for f in counters] == before == [0, 0, 0]
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    x = torch.empty(2, 16, 128, device="meta")
+    with pytest.raises(RuntimeError, match="no attention kernel"):
+        fa.flash_attention_packed(x, x, x, 2)
+    with pytest.raises(RuntimeError, match="no decode attention kernel"):
+        dec.decode_attention(x[:, 0], torch.empty(1, 2, 8, 256,
+                                                  device="meta"), 2, 0, 3)
+
+
+def test_serve_cli_refuses_cuda_without_a_card():
+    from youku_mplug_tpu_torch.cli import serve
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    args = serve.serve_parser().parse_args([
+        "--config", "configs/pretrain_tiny.yaml", "--synthetic_data",
+        "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.build(args)

@@ -1,0 +1,203 @@
+"""The port's video encoder (youku_mplug_tpu_torch.models.vision/tasks)
+against the JAX package at fp32 on the tiny flagship config, with weights
+carried over by the bridge.
+
+Parameters are redrawn from numpy (std 0.2, LayerNorm scales near one)
+so no weight is zero: the JAX init zeroes ``temporal_fc`` past block 1,
+``bias_k``/``bias_v`` and the biases, which would hide a broken period
+mask, fold or extra key.  Tolerance 1e-4 (fp32, sums in another order).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from __graft_entry__ import _flagship_cfg
+from youku_mplug_tpu.models import tasks as jtasks
+from youku_mplug_tpu.models.gpt3 import GPT3LM
+from youku_mplug_tpu.models import vision as jvision
+from youku_mplug_tpu.runtime.precision import FP32_POLICY as J_FP32
+from youku_mplug_tpu_torch import bridge
+from youku_mplug_tpu_torch.config import flagship_config
+from youku_mplug_tpu_torch.models import vision as tvision
+from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+from youku_mplug_tpu_torch.runtime.precision import FP32_POLICY
+
+torch.set_num_threads(1)
+TOL = 1e-4
+
+
+def redraw(tree, rng, std=0.2):
+    """Same tree of shapes, every leaf drawn: LayerNorm scales 1 + N(0, 0.1),
+    everything else N(0, std)."""
+    def leaf(path, x):
+        name = str(path[-1].key)
+        z = rng.normal(size=x.shape).astype(np.float32)
+        return 1.0 + 0.1 * z if name.endswith("scale") else std * z
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=tol, atol=tol)
+
+
+def _init(module, *args, method=None):
+    """The module's parameter shapes (no values: they are redrawn)."""
+    return jax.eval_shape(lambda: module.init(jax.random.key(0), *args,
+                                              method=method))["params"]
+
+
+def test_encode_video_matches_jax_through_bridge():
+    cfg = _flagship_cfg(tiny=True)
+    v = cfg.vision
+    rng = np.random.default_rng(0)
+    video = rng.normal(size=(2, 3, v.num_frames, v.img_size,
+                             v.img_size)).astype(np.float32)
+    jm = jtasks.MPLUGVideo(cfg, policy=J_FP32)
+    enc = _init(jm, jnp.asarray(video),
+                method=jtasks.MPLUGVideo.encode_queries)
+    dec = _init(GPT3LM(cfg.text, policy=J_FP32), jnp.zeros((1, 4), jnp.int32))
+    params = redraw(dict(enc, text_decoder=dec), rng)
+    want = jax.jit(lambda p, x: jm.apply(
+        {"params": p}, x, method=jtasks.MPLUGVideo.encode_video))(
+            params, jnp.asarray(video))
+    tm = bridge.load_jax_params(
+        MPLUGVideo(flagship_config(tiny=True), FP32_POLICY), params)
+    got = tm.encode_video(_t(video))
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        _close(g, w)
+
+
+@pytest.mark.parametrize("period,fold", [(0, False), (2, True)])
+def test_vision_attention_matches_jax(period, fold):
+    """Spatial (no mask) and temporal (period mask + fp32 temporal_fc
+    fold) attention; q and v carry biases, k none."""
+    rng = np.random.default_rng(1)
+    c, n, s = 32, 4, 8
+    x = rng.normal(size=(3, s, c)).astype(np.float32)
+    jmod = jvision.VisionAttention(c, n, block_period=period,
+                                   attn_impl="xla")
+    params = redraw(_init(jmod, jnp.asarray(x)), rng)
+    post = rng.normal(size=(c, c)).astype(np.float32) * 0.2
+    pb = rng.normal(size=(c,)).astype(np.float32) * 0.2
+    kw = {"post_kernel": post, "post_bias": pb} if fold else {}
+    want = jmod.apply({"params": params}, jnp.asarray(x),
+                      **{k: jnp.asarray(v) for k, v in kw.items()})
+    tmod = bridge.load_jax_params(tvision.VisionAttention(c, n), params)
+    got = tmod(_t(x), period=period, **{k: _t(v) for k, v in kw.items()})
+    _close(got, want)
+    assert "k_bias" not in dict(tmod.named_parameters())
+
+
+def test_space_time_block_matches_jax():
+    """Shared cls updated as the mean over frames; n-major tokens; g=4
+    patches x 2 frames per temporal call (period 2)."""
+    cfg = _flagship_cfg(tiny=True).vision
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(2, 4, cfg.num_frames, cfg.embed_dim)).astype(
+        np.float32)
+    cls = rng.normal(size=(2, cfg.embed_dim)).astype(np.float32)
+    jmod = jvision.SpaceTimeBlock(cfg, layer_id=2)
+    params = redraw(_init(jmod, jnp.asarray(x), jnp.asarray(cls)), rng)
+    wx, wcls = jmod.apply({"params": params}, jnp.asarray(x),
+                          jnp.asarray(cls))
+    tcfg = flagship_config(tiny=True).vision
+    tmod = bridge.load_jax_params(tvision.SpaceTimeBlock(tcfg), params)
+    gx, gcls = tmod(_t(x), _t(cls))
+    _close(gx, wx)
+    _close(gcls, wcls)
+
+
+def test_attention_pool_matches_jax():
+    """bias_k/bias_v add one key; the residual base is the normed
+    queries."""
+    rng = np.random.default_rng(3)
+    d, n = 32, 4
+    qs = rng.normal(size=(2, 5, d)).astype(np.float32)
+    ks = rng.normal(size=(2, 9, d)).astype(np.float32)
+    jmod = jvision.AttentionPool(d, n, mlp_ratio=2.0)
+    params = redraw(_init(jmod, jnp.asarray(qs), jnp.asarray(ks)), rng)
+    want = jax.jit(jmod.apply)({"params": params}, jnp.asarray(qs),
+                               jnp.asarray(ks))
+    tmod = bridge.load_jax_params(
+        tvision.AttentionPool(d, n, mlp_ratio=2.0), params)
+    _close(tmod(_t(qs), _t(ks)), want)
+
+
+def test_temporal_group_matches_jax_geometry():
+    # flagship: 196 patches x 8 frames -> 14 patches per call, S = 112
+    assert tvision.temporal_group(196, 8) == 14
+    assert tvision.temporal_group(4, 2) == 4
+    assert tvision.temporal_group(7, 128) == 1
+
+
+def test_bridge_rejects_leftovers_missing_and_bad_shapes():
+    mod = tvision.Mlp(4, 8)
+    good = {"fc1_kernel": np.zeros((4, 8)), "fc1_bias": np.zeros(8),
+            "fc2_kernel": np.zeros((8, 4)), "fc2_bias": np.zeros(4)}
+    bridge.load_jax_params(mod, good)
+    with pytest.raises(KeyError, match="no port parameter"):
+        bridge.load_jax_params(mod, dict(good, extra=np.zeros(1)))
+    with pytest.raises(KeyError, match="not in the JAX tree"):
+        bridge.load_jax_params(mod, {k: v for k, v in good.items()
+                                     if k != "fc2_bias"})
+    with pytest.raises(ValueError, match="shape"):
+        bridge.load_jax_params(mod, dict(good, fc2_bias=np.zeros(5)))
+    assert bridge.port_name("visual_encoder/blocks_11/attn/q_bias") == \
+        "visual_encoder.blocks.11.attn.q_bias"
+
+
+def test_seeded_init_is_deterministic_and_nonzero():
+    cfg = flagship_config(tiny=True)
+    a = bridge.seeded_init(MPLUGVideo(cfg, FP32_POLICY), 3)
+    b = bridge.seeded_init(MPLUGVideo(cfg, FP32_POLICY), 3)
+    names = dict(a.named_parameters())
+    for (name, pa), (_, pb) in zip(a.named_parameters(),
+                                   b.named_parameters()):
+        assert torch.equal(pa, pb), name
+        if name.endswith("scale"):  # LayerNorm scales
+            assert torch.all(pa == 1), name
+        elif name.endswith("bias") and name[:-4] + "scale" in names:
+            assert torch.all(pa == 0), name  # LayerNorm biases
+        else:
+            assert torch.all(pa != 0), name
+    blk = a.visual_encoder.blocks[1]
+    assert blk.temporal_fc_kernel.abs().mean() > 0.01  # not zero-init
+
+
+def test_vision_config_rejects_clip_towers():
+    with pytest.raises(NotImplementedError):
+        dataclasses.replace(flagship_config().vision, clip_model=True)
+
+
+def test_fold_runs_in_fp32_before_the_cast():
+    """fp32 weights, bf16 activations: the temporal_fc fold P @ T is taken
+    in fp32 and only then cast.  With T = inv(P) the fp32 fold is the
+    identity; folding bf16-rounded factors is off by ~2^-8 * cond(P),
+    which the tolerance below would catch."""
+    rng = np.random.default_rng(4)
+    c, n = 32, 4
+    x = rng.normal(size=(3, 8, c)).astype(np.float32)
+    jmod = jvision.VisionAttention(c, n, block_period=2, attn_impl="xla")
+    params = redraw(_init(jmod, jnp.asarray(x)), rng)
+    inv = np.linalg.inv(params["proj_kernel"].reshape(c, c).astype(
+        np.float64)).astype(np.float32)
+    pb = rng.normal(size=(c,)).astype(np.float32) * 0.2
+    want = jmod.apply({"params": params}, jnp.asarray(x, jnp.bfloat16),
+                      post_kernel=jnp.asarray(inv),
+                      post_bias=jnp.asarray(pb))
+    tmod = bridge.load_jax_params(tvision.VisionAttention(c, n), params)
+    got = tmod(_t(x).to(torch.bfloat16), period=2, post_kernel=_t(inv),
+               post_bias=_t(pb))
+    assert got.dtype == torch.bfloat16
+    _close(got.float(), np.asarray(want, np.float32), 1e-2)

@@ -1,0 +1,104 @@
+"""Weights for the port: load a JAX parameter tree, or a seeded init.
+
+``load_jax_params`` turns the JAX package's parameter tree (nested dicts
+of numpy arrays, e.g. ``jax.device_get(params)``) into the port's modules.
+The port keeps the JAX names and shapes, so the mapping is a rename:
+``a/b/c`` -> ``a.b.c``, and flax's ``blocks_<i>`` -> ``blocks.<i>``.  It
+raises on any JAX leaf it does not consume, on any port parameter it
+leaves unfilled, and on any shape mismatch.
+
+``seeded_init`` fills every parameter from one ``torch.Generator``: normals
+of std 0.02 everywhere (biases, cls/pos/temporal embeddings, ``bias_k``,
+``temporal_fc`` of every block included, so no path through the model is
+zeroed out), LayerNorm scales one and LayerNorm biases zero.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict
+
+import numpy as np
+import torch
+from torch import nn
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    flat = {}
+    for key, value in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(value, dict):
+            flat.update(_flatten(value, path))
+        else:
+            flat[path] = value
+    return flat
+
+
+def port_name(jax_path: str) -> str:
+    """JAX tree path -> the port's parameter name."""
+    return re.sub(r"(^|/)blocks_(\d+)(?=/|$)", r"\1blocks/\2",
+                  jax_path).replace("/", ".")
+
+
+def _to_tensor(x) -> torch.Tensor:
+    a = np.asarray(x)
+    if a.dtype.name == "bfloat16":  # ml_dtypes arrays from jax
+        a = a.astype(np.float32)
+    return torch.from_numpy(a.copy())  # C-contiguous, 0-d stays 0-d
+
+
+@torch.no_grad()
+def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+    """Copy a JAX parameter tree into ``module`` (cast to each parameter's
+    dtype and device).  Returns ``module``."""
+    params = dict(module.named_parameters())
+    flat = {port_name(k): (k, v) for k, v in _flatten(tree).items()}
+    unused = sorted(k for name, (k, _) in flat.items() if name not in params)
+    if unused:
+        raise KeyError(f"JAX leaves with no port parameter: {unused}")
+    missing = sorted(set(params) - set(flat))
+    if missing:
+        raise KeyError(f"port parameters not in the JAX tree: {missing}")
+    for name, p in params.items():
+        jax_path, value = flat[name]
+        src = _to_tensor(value)
+        if tuple(src.shape) != tuple(p.shape):
+            raise ValueError(f"{jax_path}: JAX shape {tuple(src.shape)} != "
+                             f"port shape {tuple(p.shape)}")
+        p.copy_(src.to(dtype=p.dtype, device=p.device))
+    return module
+
+
+def _is_norm_scale(name: str) -> bool:
+    return name.split(".")[-1].endswith("scale")
+
+
+def _is_norm_bias(name: str, names) -> bool:
+    leaf = name.split(".")[-1]
+    if not leaf.endswith("bias"):
+        return False
+    scale = name[:len(name) - len(leaf)] + leaf[:-len("bias")] + "scale"
+    return scale in names
+
+
+@torch.no_grad()
+def seeded_init(module: nn.Module, seed: int, std: float = 0.02
+                ) -> nn.Module:
+    """Fill every parameter of ``module`` from a generator seeded with
+    ``seed``, on the parameters' own device (see module docstring)."""
+    params = dict(module.named_parameters())
+    gens = {}
+    for name in sorted(params):
+        p = params[name]
+        if _is_norm_scale(name):
+            p.fill_(1.0)
+        elif _is_norm_bias(name, params):
+            p.zero_()
+        else:
+            gen = gens.get(p.device)
+            if gen is None:
+                gen = gens[p.device] = torch.Generator(
+                    device=p.device).manual_seed(seed)
+            p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
+                                dtype=torch.float32) * std)
+    return module

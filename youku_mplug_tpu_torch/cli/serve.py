@@ -1,0 +1,172 @@
+"""Caption serving CLI: continuous-batching engine over the port's model.
+
+Counterpart of ``youku_mplug_tpu/cli/serve.py``: clips are encoded to
+query prefixes in batches, then requests are admitted a trickle at a time
+to the slot pool and every engine step decodes one token for all
+in-flight requests.  Weights come from a seeded init (checkpoint loading,
+real video files and text decoding are not ported yet, so results carry
+token ids).
+
+Usage (synthetic smoke, GPU):
+    python -m youku_mplug_tpu_torch.cli.serve \
+        --config configs/caption/serve_gpt3_1.3B_flagship.yaml \
+        --synthetic_data --num_requests 16 --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from youku_mplug_tpu_torch.bridge import seeded_init
+from youku_mplug_tpu_torch.config import load_config
+from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
+from youku_mplug_tpu_torch.models.generation import GenerationConfig
+from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+from youku_mplug_tpu_torch.models.tokenizer import ToyTokenizer
+from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+from youku_mplug_tpu_torch.runtime.precision import BF16_POLICY
+from youku_mplug_tpu_torch.serving.engine import ServingEngine
+
+
+def serve_parser():
+    p = argparse.ArgumentParser(
+        description="caption serving (continuous batching)")
+    p.add_argument("--config", required=True)
+    p.add_argument("--output_dir", default="./output")
+    p.add_argument("--seed", type=int, default=42,
+                   help="seed of the weight init")
+    p.add_argument("--synthetic_data", action="store_true",
+                   help="procedural videos (the only source ported so far)")
+    p.add_argument("--device", default="cpu", help="cpu | cuda[:i]")
+    p.add_argument("--num_slots", type=int, default=8)
+    p.add_argument("--serve_max_len", type=int, default=0,
+                   help="KV capacity per slot (0: queries+prompt+new)")
+    p.add_argument("--num_requests", type=int, default=16)
+    p.add_argument("--admit_per_step", type=int, default=2,
+                   help="max new requests admitted per engine step "
+                        "(simulates a steady arrival process)")
+    return p
+
+
+def _clip_batches(cfg, num_frames: int, size: int):
+    """Batches of uint8 (B, T, H, W, C) synthetic clips and their ids, in
+    order, dropping the last partial batch (the JAX loader's contract)."""
+    ds = SyntheticVideoDataset(length=cfg.get("synthetic_length", 32),
+                               num_frames=num_frames, size=size)
+    bs = cfg.batch_size
+    for start in range(0, len(ds) - bs + 1, bs):
+        items = [ds[i] for i in range(start, start + bs)]
+        yield (np.stack([it["video"] for it in items]),
+               [it["video_id"] for it in items])
+
+
+def _tokenizer(cfg, vocab_size: int) -> ToyTokenizer:
+    model_dir = cfg.get("text_decoder", "")
+    if model_dir and os.path.exists(os.path.join(model_dir,
+                                                 "tokenizer.json")):
+        raise NotImplementedError("the JiebaBPE tokenizer is not ported yet")
+    return ToyTokenizer(vocab_size=vocab_size)
+
+
+def build(args):
+    """-> (run config, model on the device, device).  Raises when the
+    requested device is absent: nothing falls back to the CPU."""
+    if not args.synthetic_data:
+        raise NotImplementedError("only --synthetic_data is ported yet")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is visible")
+    cfg = load_config(args.config)
+    with device:
+        model = MPLUGVideo(cfg.model, BF16_POLICY)
+    seeded_init(model, args.seed)
+    return cfg, model.eval(), device
+
+
+def run(args, cfg, model, device):
+    """Serve ``args.num_requests`` synthetic clips.  Returns
+    (stats, per-request results, the engine)."""
+    lm = model.text_decoder
+    tok = _tokenizer(cfg, cfg.model.text.vocab_size)
+    max_new = int(cfg.get("max_new_tokens", 32))
+    nq = cfg.model.num_learnable_token
+    # the JAX CLI's prompt: tokenized prompt minus its trailing eos
+    ids = tok.tokenize(cfg.prompt)[:cfg.max_length]
+    prompt_len = len(ids) - 1
+    prompt_vec = ids[:max(prompt_len, 1)]
+    bucket = max(8, 1 << (max(prompt_len, 1) - 1).bit_length())
+    max_len = args.serve_max_len or (nq + bucket + max_new + 1)
+    gen_cfg = GenerationConfig(max_new_tokens=max_new, do_sample=False,
+                               eos_id=tok.eos_id, pad_id=tok.pad_id)
+    engine = ServingEngine(lm, num_slots=args.num_slots, max_len=max_len,
+                           prefill_buckets=(bucket,), config=gen_cfg)
+
+    pending = []  # (video_id, query_embeds row)
+    results, submit_t, finish_t = {}, {}, {}
+    served = 0
+    t_start = time.perf_counter()
+    for clips, vids in _clip_batches(cfg, cfg.num_frames, cfg.image_res):
+        with torch.inference_mode():
+            video = normalize_clip(torch.from_numpy(clips).to(device),
+                                   dtype=model.policy.compute_dtype)
+            qe = model.encode_queries(video)
+        pending.extend(zip(vids, qe))
+        while pending and served < args.num_requests:
+            # admit a trickle per step, decode everything in flight
+            for _ in range(min(args.admit_per_step, len(pending))):
+                if served >= args.num_requests:
+                    break
+                vid, q = pending.pop(0)
+                rid = engine.submit(prompt_vec, query_embeds=q,
+                                    max_new_tokens=max_new)
+                submit_t[rid] = time.perf_counter()
+                results[rid] = {"video_id": str(vid)}
+                served += 1
+            for fin in engine.step():
+                finish_t[fin.rid] = time.perf_counter()
+                results[fin.rid]["tokens"] = fin.tokens
+        if served >= args.num_requests:
+            break
+    for fin in engine.run_to_completion():
+        finish_t[fin.rid] = time.perf_counter()
+        results[fin.rid]["tokens"] = fin.tokens
+    wall = time.perf_counter() - t_start
+
+    out = []
+    for rid, r in sorted(results.items()):
+        toks = r.get("tokens", [])
+        out.append({"video_id": r["video_id"], "tokens": toks,
+                    "n_tokens": len(toks),
+                    "latency_s": finish_t.get(rid, 0) - submit_t.get(rid, 0)})
+    lat = [o["latency_s"] for o in out if o["latency_s"] > 0]
+    stats = {
+        "requests": len(out),
+        "wall_s": round(wall, 3),
+        "tokens_per_sec": round(sum(o["n_tokens"] for o in out)
+                                / max(wall, 1e-9), 2),
+        "latency_p50_s": round(float(np.percentile(lat, 50)), 4) if lat
+        else None,
+        "latency_p95_s": round(float(np.percentile(lat, 95)), 4) if lat
+        else None,
+    }
+    return stats, out, engine
+
+
+def main(args):
+    cfg, model, device = build(args)
+    stats, out, _ = run(args, cfg, model, device)
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(os.path.join(args.output_dir, "serve_results.json"), "w") as f:
+        json.dump(out, f)
+    print("* Serve stats:", json.dumps(stats), flush=True)
+    return stats
+
+
+if __name__ == "__main__":
+    main(serve_parser().parse_args())

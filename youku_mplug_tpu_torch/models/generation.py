@@ -1,0 +1,60 @@
+"""Generation config and the front-padded query-prefix layout.
+
+Counterpart of ``youku_mplug_tpu/models/generation.py`` for what the
+serving engine needs (``GenerationConfig``, ``_build_prefix``); batched
+``generate`` and beam search are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class GenerationConfig:
+    max_new_tokens: int = 100
+    eos_id: int = 7
+    pad_id: int = 7
+    do_sample: bool = False
+    temperature: float = 1.0
+
+
+def _build_prefix(model, prompt_ids: torch.Tensor, prompt_len: torch.Tensor,
+                  query_embeds, pad_id: int):
+    """Front-padded prefill embeddings.
+
+    Layout per sample: [pad x k_i | queries (nq) | prompt tokens (len_i)]
+    with k_i = P - len_i, so every sample's last prompt token lands at the
+    same position.  Pad rows are zero embeddings.  Returns
+    (embeds [B, nq+P, H], valid_from [B], pos_offset [B]); both are k."""
+    b, p = prompt_ids.shape
+    dev = prompt_ids.device
+    nq = 0 if query_embeds is None else query_embeds.shape[1]
+    k = (p - prompt_len).to(torch.long)  # [B]
+
+    # right-align the tokens within the P-wide buffer
+    j = torch.arange(p, device=dev)[None, :]
+    src = (j - k[:, None]).clamp(0, p - 1)
+    shifted = torch.where(j >= k[:, None], prompt_ids.gather(1, src),
+                          torch.full_like(prompt_ids, pad_id))
+    tok_emb = model.embed(shifted)
+    h = tok_emb.shape[-1]
+    total = nq + p
+    jj = torch.arange(total, device=dev)[None, :, None]
+    kk = k[:, None, None]
+
+    tok_idx = (torch.arange(total, device=dev)[None, :] - nq).clamp(0, p - 1)
+    tok_part = tok_emb.gather(1, tok_idx.expand(b, total)[..., None]
+                              .expand(b, total, h))
+    zero = torch.zeros((), dtype=tok_emb.dtype, device=dev)
+    if query_embeds is None:
+        return torch.where(jj < kk, zero, tok_part), k, k
+    q_idx = (torch.arange(total, device=dev)[None, :] - k[:, None]).clamp(
+        0, nq - 1)
+    q_part = query_embeds.to(tok_emb.dtype).gather(
+        1, q_idx[..., None].expand(b, total, h))
+    embeds = torch.where(jj < kk, zero,
+                         torch.where(jj < kk + nq, q_part, tok_part))
+    return embeds, k, k

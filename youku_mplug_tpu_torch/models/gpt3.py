@@ -1,0 +1,263 @@
+"""GPT-3 decoder for serving: prefill and decode over the stacked cache.
+
+Counterpart of ``youku_mplug_tpu/models/gpt3.py`` (the cache path).
+Parameters keep the JAX names and shapes — fused ``qkv_kernel
+[H, 3, n, d]``, ``out_kernel [n, d, H]`` — and the JAX package's scanned
+layer stack stays a leading ``[L]`` dimension on every layer parameter;
+the layers run as a Python loop that indexes it.
+
+Numerics: fp32 layernorms, fp32 attention softmax, tanh-GELU, fp32 logits
+from the tied embedding.  The cache is ``[L, B, M, 2*hidden]`` with rows
+[K | V] taken straight from the qkv projection's output (``qkv[..., n*d:]``);
+the new rows are written in place before attention reads them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+from typing import Optional, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from youku_mplug_tpu_torch.ops import kv_cache as kvc
+from youku_mplug_tpu_torch.ops.attention import NEG_INF, mha_reference
+from youku_mplug_tpu_torch.ops.decode_attention import decode_attention
+from youku_mplug_tpu_torch.ops.layernorm import layer_norm
+from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
+
+
+@dataclasses.dataclass(frozen=True)
+class GPT3Config:
+    """Decoder hyperparameters; JSON layout of configs/models/
+    config_gpt3_*.json (the fields the serving path reads)."""
+
+    vocab_size: int = 25600
+    hidden_size: int = 768
+    ffn_hidden_size: Optional[int] = None
+    num_hidden_layers: int = 12
+    num_attention_heads: int = 12
+    max_position_embeddings: int = 2048
+    layernorm_epsilon: float = 1e-12
+
+    @property
+    def ffn_dim(self) -> int:
+        return self.ffn_hidden_size or 4 * self.hidden_size
+
+    @property
+    def head_dim(self) -> int:
+        assert self.hidden_size % self.num_attention_heads == 0
+        return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_json_file(cls, path: str, **overrides) -> "GPT3Config":
+        with open(path) as f:
+            raw = json.load(f)
+        mapped = dict(
+            vocab_size=raw.get("vocab_size", 25600),
+            hidden_size=raw.get("hidden_size", 768),
+            ffn_hidden_size=raw.get("ffn_hidden_size"),
+            num_hidden_layers=raw.get("num_hidden_layers", 12),
+            num_attention_heads=raw.get("num_attention_heads", 12),
+            max_position_embeddings=raw.get("max_position_embeddings", 2048),
+            layernorm_epsilon=raw.get("layernorm_epsilon", 1e-12),
+        )
+        mapped.update(overrides)
+        return cls(**mapped)
+
+
+def _param(*shape, dtype) -> nn.Parameter:
+    return nn.Parameter(torch.empty(*shape, dtype=dtype), requires_grad=False)
+
+
+CacheLen = Union[int, torch.Tensor]
+
+
+class GPT3Attention(nn.Module):
+    """Self-attention with a fused QKV projection and the stacked cache.
+    Parameters carry a leading [L] layer dimension."""
+
+    def __init__(self, cfg: GPT3Config, num_layers: int, dtype):
+        super().__init__()
+        n, d, h = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
+        self.n, self.d, self.h = n, d, h
+        self.qkv_kernel = _param(num_layers, h, 3, n, d, dtype=dtype)
+        self.qkv_bias = _param(num_layers, 3, n, d, dtype=dtype)
+        self.out_kernel = _param(num_layers, n, d, h, dtype=dtype)
+        self.out_bias = _param(num_layers, h, dtype=dtype)
+
+    def forward(self, x, lidx: int, cache: torch.Tensor, cache_len: CacheLen,
+                valid_from: Optional[torch.Tensor] = None):
+        """x [B, S, H] -> [B, S, H].  Writes this chunk's K|V rows into
+        layer ``lidx`` of ``cache`` at ``cache_len`` (int, or [B] per-sample
+        positions), then attends to keys ``valid_from <= j <= position``.
+        S == 1 reads the cache in place through the decode kernel; a
+        longer chunk (prefill) runs plain attention over the layer view."""
+        n, d, h = self.n, self.d, self.h
+        nd = n * d
+        b, s, _ = x.shape
+        dt = x.dtype
+        qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
+        qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
+        kvc.cache_write(cache, qkv[..., nd:], cache_len, lidx)  # rows [K | V]
+        if s == 1:
+            out = decode_attention(qkv[:, 0, :nd], cache, n, lidx, cache_len,
+                                   valid_from)[:, None]
+        else:
+            ckv = kvc.layer_slice(cache, lidx)  # [B, M, 2nd] view
+            m = ckv.shape[1]
+            q = qkv[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
+            ck = ckv[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
+            cv = ckv[..., nd:].unflatten(-1, (n, d)).transpose(1, 2)
+            ki = torch.arange(m, device=x.device)
+            steps = torch.arange(s, device=x.device)
+            if isinstance(cache_len, int):
+                qi = (cache_len + steps)[None, :, None]          # [1, S, 1]
+            else:
+                qi = (cache_len.to(x.device)[:, None, None]
+                      + steps[None, :, None])
+            allowed = ki[None, None, :] <= qi                    # [B|1, S, M]
+            if valid_from is not None:
+                allowed = allowed & (ki[None, None, :]
+                                     >= valid_from[:, None, None])
+            bias = torch.zeros(allowed.shape, dtype=torch.float32,
+                               device=x.device).masked_fill(~allowed, NEG_INF)
+            out = mha_reference(q, ck, cv, bias=bias[:, None])
+            out = out.transpose(1, 2).reshape(b, s, nd)
+        y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
+        return y + self.out_bias[lidx].to(dt)
+
+
+class GPT3MLP(nn.Module):
+    def __init__(self, cfg: GPT3Config, num_layers: int, dtype):
+        super().__init__()
+        h, f = cfg.hidden_size, cfg.ffn_dim
+        self.fc1_kernel = _param(num_layers, h, f, dtype=dtype)
+        self.fc1_bias = _param(num_layers, f, dtype=dtype)
+        self.fc2_kernel = _param(num_layers, f, h, dtype=dtype)
+        self.fc2_bias = _param(num_layers, h, dtype=dtype)
+
+    def forward(self, x, lidx: int):
+        dt = x.dtype
+        y = x @ self.fc1_kernel[lidx].to(dt)
+        # fused bias + tanh-approx gelu (megatron bias_gelu contract)
+        y = F.gelu(y + self.fc1_bias[lidx].to(dt), approximate="tanh")
+        return y @ self.fc2_kernel[lidx].to(dt) + self.fc2_bias[lidx].to(dt)
+
+
+class GPT3Layer(nn.Module):
+    """Pre-LN decoder layer; ``forward(x, lidx, ...)`` runs layer lidx of
+    the stack."""
+
+    def __init__(self, cfg: GPT3Config, num_layers: int, dtype):
+        super().__init__()
+        h = cfg.hidden_size
+        self.eps = cfg.layernorm_epsilon
+        self.ln1_scale = _param(num_layers, h, dtype=dtype)
+        self.ln1_bias = _param(num_layers, h, dtype=dtype)
+        self.ln2_scale = _param(num_layers, h, dtype=dtype)
+        self.ln2_bias = _param(num_layers, h, dtype=dtype)
+        self.attn = GPT3Attention(cfg, num_layers, dtype)
+        self.mlp = GPT3MLP(cfg, num_layers, dtype)
+
+    def forward(self, x, lidx: int, cache, cache_len, valid_from=None):
+        a = layer_norm(x, self.ln1_scale[lidx], self.ln1_bias[lidx],
+                       eps=self.eps)
+        x = x + self.attn(a, lidx, cache, cache_len, valid_from)
+        m = layer_norm(x, self.ln2_scale[lidx], self.ln2_bias[lidx],
+                       eps=self.eps)
+        return x + self.mlp(m, lidx)
+
+
+class GPT3Decoder(nn.Module):
+    """Position embedding + the layer stack + final layernorm."""
+
+    def __init__(self, cfg: GPT3Config, policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        dt = policy.param_dtype
+        self.cfg = cfg
+        self.position_embeddings = _param(cfg.max_position_embeddings,
+                                          cfg.hidden_size, dtype=dt)
+        self.layers = GPT3Layer(cfg, cfg.num_hidden_layers, dt)
+        self.ln_f_scale = _param(cfg.hidden_size, dtype=dt)
+        self.ln_f_bias = _param(cfg.hidden_size, dtype=dt)
+
+    def forward(self, input_embeds, positions, *, cache, cache_len,
+                valid_from=None):
+        x = input_embeds + F.embedding(positions, self.position_embeddings
+                                       ).to(input_embeds.dtype)
+        for lidx in range(self.cfg.num_hidden_layers):
+            x = self.layers(x, lidx, cache, cache_len, valid_from)
+        return layer_norm(x, self.ln_f_scale, self.ln_f_bias,
+                          eps=self.cfg.layernorm_epsilon)
+
+
+class TiedEmbedding(nn.Module):
+    """Token embedding [V, H] with the tied logits head."""
+
+    def __init__(self, num_embeddings: int, features: int, dtype):
+        super().__init__()
+        self.embedding = _param(num_embeddings, features, dtype=dtype)
+
+    def encode(self, tokens, dtype):
+        return F.embedding(tokens, self.embedding).to(dtype)
+
+    def attend(self, hidden):
+        """fp32 logits: bf16 products are exact in fp32, so this equals a
+        bf16 matmul with fp32 accumulation and fp32 output."""
+        emb = self.embedding.to(hidden.dtype)
+        return hidden.float() @ emb.float().t()
+
+
+class GPT3LM(nn.Module):
+    """Tied-embedding LM over the decoder: the serving entry points."""
+
+    def __init__(self, cfg: GPT3Config, policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        self.cfg, self.policy = cfg, policy
+        self.word_embeddings = TiedEmbedding(cfg.vocab_size, cfg.hidden_size,
+                                             policy.param_dtype)
+        self.decoder = GPT3Decoder(cfg, policy)
+
+    def embed(self, tokens):
+        return self.word_embeddings.encode(tokens, self.policy.compute_dtype)
+
+    def logits(self, hidden):
+        return self.word_embeddings.attend(hidden)
+
+    def init_cache(self, batch: int, max_len: int, device=None):
+        """Stacked cache [L, B, M, 2*hidden], M rounded up to a multiple of
+        128 as in the JAX package (the extra rows are never attended)."""
+        cfg = self.cfg
+        max_len = -(-max_len // 128) * 128
+        return kvc.make_cache(cfg.num_hidden_layers, batch, max_len,
+                              cfg.hidden_size, self.policy.compute_dtype,
+                              device=device)
+
+    def decode_step(self, input_embeds, cache, cache_len: CacheLen,
+                    valid_from=None, position_offset=None):
+        """Run a chunk (prefill: S > 1; decode: S = 1) through the decoder,
+        updating ``cache`` in place.  Returns (fp32 vocab logits of the
+        last position [B, V], cache).
+
+        cache_len: int (every sample writes at the same position) or [B]
+        per-sample write positions; valid_from [B]: first valid cache
+        position per sample; position_offset [B]: subtracted from the
+        absolute positions (clamped at 0) so each sample's first real
+        token gets position 0."""
+        b, s, _ = input_embeds.shape
+        dev = input_embeds.device
+        steps = torch.arange(s, device=dev)
+        if isinstance(cache_len, int):
+            positions = (cache_len + steps)[None].expand(b, s)
+        else:
+            positions = cache_len.to(dev).long()[:, None] + steps[None]
+        if position_offset is not None:
+            positions = (positions - position_offset.to(dev)[:, None]
+                         ).clamp_min(0)
+        hidden = self.decoder(input_embeds.to(self.policy.compute_dtype),
+                              positions, cache=cache, cache_len=cache_len,
+                              valid_from=valid_from)
+        return self.logits(hidden[:, -1]), cache

@@ -1,0 +1,107 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+The sources in ``youku_mplug_tpu_torch/csrc/*.cu`` have a plain C interface
+and are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
+library, loaded with ``ctypes``.  The build happens at the first kernel
+launch of a process (never at import), into
+``build/kernels/<hash of sources and flags>/`` at the repository root, so a
+fresh checkout builds everything on first use and an edited source never
+loads a stale library.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parents[1]
+_SOURCES = ("flash_fwd.cu", "decode_attention.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+BUILD_ROOT = _PKG.parent / "build" / "kernels"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_F = ctypes.c_float
+_SIGNATURES = {
+    "ymt_flash_fwd_bf16": [_P] * 5 + [_I] * 5 + [_LL] * 12 + [_F, _I, _P],
+    "ymt_decode_attention_bf16": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _LL,
+                                  _F, _P],
+}
+
+
+def _nvcc() -> str:
+    for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if home and (Path(home) / "bin" / "nvcc").exists():
+            return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA "
+                           "kernels are built from source at first use")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in _SOURCES:
+        h.update(name.encode())
+        h.update((_PKG / "csrc" / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _library_path() -> Path:
+    return BUILD_ROOT / _digest() / "libymt_kernels.so"
+
+
+def build() -> tuple[Path, float, str]:
+    """Compile the kernels unless this exact build exists.  Returns
+    (library path, seconds spent compiling, nvcc's resource report)."""
+    so = _library_path()
+    if so.exists():
+        return so, 0.0, (so.parent / "nvcc.log").read_text()
+    so.parent.mkdir(parents=True, exist_ok=True)
+    srcs = [str(_PKG / "csrc" / name) for name in _SOURCES]
+    t0 = time.perf_counter()
+    # compile to a private name, then rename: a concurrent process never
+    # sees (or loads) a half-written library
+    with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        out = Path(tmp) / so.name
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), *srcs],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stdout}\n{proc.stderr}")
+        (so.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+        os.replace(out, so)
+    return so, time.perf_counter() - t0, (so.parent / "nvcc.log").read_text()
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    so, _, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_launch(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
