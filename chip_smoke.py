@@ -2,27 +2,48 @@
 
     python3 chip_smoke.py
 
-Phases (each prints one line; any failure exits nonzero before the last
-line is printed):
+Phases (each prints one line or a few; any failure exits nonzero before
+the last line is printed):
 
-1. device and build: require CUDA, print the card's name and power limit,
-   build the hand-written kernels from youku_mplug_tpu_torch/csrc/;
+1. device and build: require CUDA (one card: the first visible one),
+   print the card's name and power limit, build the hand-written kernels
+   from youku_mplug_tpu_torch/csrc/ (one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version, in bf16, at the shapes
-   the serving path gives it, with both times from CUDA events;
-3. the slice: the serve CLI's path at the flagship model's full width
-   (configs/caption/serve_gpt3_1.3B_flagship.yaml, seeded weights),
+   the serving and training paths give it, with both times from CUDA
+   events: the forward (K1 none / period / causal, K4) at the serving
+   shapes, then at each of the four training shapes (vision spatial,
+   grouped temporal with period 8, decoder causal, AttentionPool
+   head-major, plus a small kv_len case) the forward's o and lse and the
+   backward's dq and dk/dv kernels on that forward's output, and decode
+   (K5);
+3. the serve slice: the serve CLI's path at the flagship model's full
+   width (configs/caption/serve_gpt3_1.3B_flagship.yaml, seeded weights),
    16 requests over synthetic clips, 8 slots, 32 new tokens, greedy;
-   every kernel's launch counter must rise and every logit be finite;
+   the forward and decode kernels' launch counters must rise and every
+   logit be finite;
 4. teacher-forced check: the video encoder and the first decode steps
    again with the plain versions in place of the kernels, fed the same
    inputs and tokens; query features and logits within a stated
    tolerance, greedy agreement printed;
-5. a JSON line describing each kernel, then the result line.
+5. the train slice: the pretrain CLI's path (run_pretrain.setup and
+   train_one_epoch) on configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml
+   at full width, synthetic clips, seeded weights: 2 warm-up and 5 timed
+   steps; loss and grad_norm finite, no skipped step, trainable leaves
+   moved, the frozen bf16 decoder bitwise unchanged, the forward, dq and
+   dk/dv launch counters risen;
+6. plain replay: the first training batch on the trained weights, loss
+   and gradients with the kernels and again with their plain versions
+   (flash_fwd_plain, flash_bwd_plain) patched in; loss and every
+   trainable leaf's gradient (relative L2) within the stated tolerances;
+7. a JSON line describing each kernel, the card's line, then the result
+   line.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,9 +62,30 @@ FLAGSHIP_YAML = os.path.join(REPO, "configs", "caption",
 # different points
 KERNEL_TOL = 2.0 ** -6
 LSE_TOL = 1e-3           # fp32 log-sum-exp, fp32 accumulation on both sides
+# backward kernels, relative L2 of each of dq, dk, dv against the plain
+# backward on the same (q, k, v, o, lse, dO): p and dS are rounded to
+# bf16 from fp32 values that differ in the last bits (the kernel's
+# __expf), and the outputs are bf16, so two bf16 ulps (2^-8 each)
+BWD_TOL = 2.0 ** -7
 QUERY_TOL = 0.1          # query features after 12 vision blocks, bf16
 LOGIT_TOL = 0.1          # fp32 logits after 24 decoder layers, bf16
 FORCED_STEPS = 4
+# plain replay of one train step (bf16 compute, fp32 master weights): the
+# kernels and their plain versions round o, p and dS to bf16 from fp32
+# values that differ in the last bits; the flips are carried through 12
+# vision blocks, AttentionPool and 24 decoder layers forward and back
+REPLAY_LOSS_TOL = 1e-2   # |loss_kernels - loss_plain|, loss ~ ln(51200)
+# per trainable leaf: |g_kernels - g_plain| <= REPLAY_GRAD_TOL x
+# max(|g_plain|, REPLAY_GRAD_FLOOR x |whole gradient|) (L2 norms).  The
+# floor holds a leaf whose exact gradient nearly cancels to an absolute
+# bound: AttentionPool's k_bias shifts every key but the appended bias
+# key, and softmax ignores a shift of all keys, so its gradient is a small
+# residue of large terms and its bf16 rounding noise is of its own size.
+REPLAY_GRAD_TOL = 0.05
+REPLAY_GRAD_FLOOR = 1e-3
+TRAIN_YAML = os.path.join(REPO, "configs", "pretrain",
+                          "pretrain_gpt3_1.3B_flagship.yaml")
+WARMUP_STEPS, TIMED_STEPS = 2, 5
 SPIN_CYCLES = 200_000_000  # >= 0.1 s at the H100's 1.98 GHz boost clock
 
 
@@ -79,6 +121,12 @@ def within(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool((diff <= KERNEL_TOL * (1 + want.float().abs())).all())
 
 
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    want = want.float()
+    return ((got.float() - want).norm()
+            / want.norm().clamp_min(1e-30)).item()
+
+
 def phase_device_and_build():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -102,6 +150,77 @@ def phase_device_and_build():
     return card
 
 
+def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout):
+    """One training-shape check, in the layouts the model hands the
+    kernels (packed slices of one qkv projection, or head views of
+    AttentionPool's projections): the forward kernel's o and lse against
+    flash_fwd_plain, then the dq and dk/dv kernels against
+    flash_bwd_plain on the same (q, k, v, o, lse, dO); all with both
+    times."""
+    nd = n * 64
+    if layout == "packed":
+        qkv = rand(b, sq, 3 * nd)
+        parts = (qkv[..., :nd], qkv[..., nd:2 * nd], qkv[..., 2 * nd:])
+    else:
+        parts = (rand(b, sq, nd), rand(b, sk, nd), rand(b, sk, nd))
+    q, k, v = (t.unflatten(-1, (n, 64)).transpose(1, 2) for t in parts)
+    kw = dict(scale=0.125, causal=causal, period=period, kv_len=kv_len)
+    shape = (f"[{b},{sq},{n}x64] kv {sk}"
+             + (" causal" if causal else "")
+             + (f" period {period}" if period else "")
+             + (f" kv_len {kv_len}" if kv_len is not None else "")
+             + f" {layout}")
+    o = fa._head_major_empty(q)
+    lse = fa.flash_fwd_cuda(q, k, v, o, **kw)
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, **kw)
+    fwd_err, lse_err = err(o, want_o), err(lse, want_lse)
+    if not (within(o, want_o) and lse_err <= LSE_TOL):
+        fail(f"forward {shape}: max err {fwd_err} (tol {KERNEL_TOL}), lse "
+             f"{lse_err} (tol {LSE_TOL})")
+    fwd = {"shape": shape + " (train)", "max_abs_err": fwd_err,
+           "lse_err": lse_err,
+           "ms": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, o, **kw), 20),
+           "plain_ms": time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw),
+                               20)}
+    do = fa._head_major_empty(q).copy_(rand(b, n, sq, 64))
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    got = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    errs = {name: rel_l2(g, w) for name, g, w in zip(("dq", "dk", "dv"),
+                                                     got, want)}
+    abs_err = {name: err(g, w) for name, g, w in zip(("dq", "dk", "dv"),
+                                                     got, want)}
+    if max(errs.values()) > BWD_TOL or not all(
+            torch.isfinite(g).all() for g in got):
+        fail(f"backward {shape}: relative L2 {errs} (tol {BWD_TOL})")
+    if kv_len is not None and (got[1][:, :, kv_len:].any()
+                               or got[2][:, :, kv_len:].any()):
+        fail(f"backward {shape}: keys past kv_len got a gradient")
+    dq, dk, dv = (fa._head_major_empty(t) for t in (q, k, v))
+    iters = 20
+    dq_ms = time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                                 dq, **kw), iters)
+    dkv_ms = time_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                   dk, dv, **kw), iters)
+    plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw),
+                       iters)
+    return {"shape": shape, "layout": layout, "fwd": fwd, "rel_l2": errs,
+            "max_abs_err": abs_err, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
+            "plain_ms": plain_ms}
+
+
+# (rows, Sq, Sk, heads, causal, period, kv_len, layout); the first four
+# are the flagship train step's shapes (16 clips x 8 frames; 16 clips x
+# 14 temporal groups; 16 x (128 queries + 80 tokens); AttentionPool's 128
+# queries over 1 + 8 x 196 tokens and the bias key)
+BWD_SHAPES = [(128, 197, 197, 12, False, 0, None, "packed"),
+              (224, 112, 112, 12, False, 8, None, "packed"),
+              (16, 208, 208, 32, True, 0, None, "packed"),
+              (16, 128, 1570, 12, False, 0, None, "heads"),
+              (2, 65, 130, 1, False, 0, 70, "heads")]
+
+
 def phase_kernels(dev):
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
@@ -112,35 +231,42 @@ def phase_kernels(dev):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
     report = []
-    # K1: vision spatial [B*T, 197, 12*64] and temporal [B*14, 112, 12*64]
-    # period 8, q/k/v as views of one qkv projection (B = 8 clips)
+    # K1: vision spatial [B*T, 197, 12*64], temporal [B*14, 112, 12*64]
+    # period 8 (B = 8 clips serving, 16 training), decoder training
+    # [16, 208, 32*64] causal; q/k/v as views of one qkv projection
     per_shape = []
-    for rows, s, period in ((64, 197, 0), (112, 112, 8)):
-        qkv = rand(rows, s, 3 * 768)
-        q, k, v = qkv[..., :768], qkv[..., 768:1536], qkv[..., 1536:]
-        got = fa.flash_attention_packed(q, k, v, 12, period=period)
-        want = fa.flash_attention_packed_plain(q, k, v, 12, period=period)
-        views = [t.unflatten(-1, (12, 64)).transpose(1, 2)
+    for rows, s, n, period, causal in ((64, 197, 12, 0, False),
+                                       (112, 112, 12, 8, False),
+                                       (16, 208, 32, 0, True)):
+        nd = n * 64
+        qkv = rand(rows, s, 3 * nd)
+        q, k, v = qkv[..., :nd], qkv[..., nd:2 * nd], qkv[..., 2 * nd:]
+        kw = dict(period=period, causal=causal)
+        got = fa.flash_attention_packed(q, k, v, n, **kw)
+        want = fa.flash_attention_packed_plain(q, k, v, n, **kw)
+        views = [t.unflatten(-1, (n, 64)).transpose(1, 2)
                  for t in (q, k, v)]
         lse = fa.flash_fwd_cuda(*views, torch.empty_like(views[0]),
-                                scale=0.125, period=period)
-        _, want_lse = fa.flash_fwd_plain(*views, scale=0.125, period=period)
+                                scale=0.125, **kw)
+        _, want_lse = fa.flash_fwd_plain(*views, scale=0.125, **kw)
         e, e_lse = err(got, want), err(lse, want_lse)
+        shape = (f"[{rows},{s},{n}x64] period {period}"
+                 + (" causal (train)" if causal else " (serve)"))
         if not (within(got, want) and e_lse <= LSE_TOL):
-            fail(f"K1 [{rows},{s},12x64] period {period}: max err {e} "
-                 f"(tol {KERNEL_TOL}), lse {e_lse} (tol {LSE_TOL})")
-        ms = time_ms(lambda: fa.flash_attention_packed(
-            q, k, v, 12, period=period), 20)
+            fail(f"K1 {shape}: max err {e} (tol {KERNEL_TOL}), lse {e_lse} "
+                 f"(tol {LSE_TOL})")
+        ms = time_ms(lambda: fa.flash_attention_packed(q, k, v, n, **kw), 20)
         plain_ms = time_ms(lambda: fa.flash_attention_packed_plain(
-            q, k, v, 12, period=period), 20)
-        per_shape.append({"shape": f"[{rows},{s},12x64] period {period}",
-                          "max_abs_err": e, "lse_err": e_lse, "ms": ms,
-                          "plain_ms": plain_ms})
+            q, k, v, n, **kw), 20)
+        per_shape.append({"shape": shape, "max_abs_err": e, "lse_err": e_lse,
+                          "ms": ms, "plain_ms": plain_ms})
     report.append({
-        "name": "K1 flash_attention_packed (vision spatial + temporal)",
+        "name": "K1 flash_attention_packed (vision spatial + temporal, "
+                "decoder causal)",
         "route": "cuda", "source": "youku_mplug_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "youku_mplug_tpu/ops/flash_attention.py:426",
-        "wrapper": fa.flash_attention_packed,
+        "wrapper": fa.flash_attention_packed, "paths": ("serve", "train"),
+        "key": "K1",
         "max_abs_err": max(p["max_abs_err"] for p in per_shape),
         "ms": sum(p["ms"] for p in per_shape),
         "plain_ms": sum(p["plain_ms"] for p in per_shape),
@@ -161,9 +287,49 @@ def phase_kernels(dev):
         "name": "K4 flash_attention (AttentionPool)", "route": "cuda",
         "source": "youku_mplug_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "youku_mplug_tpu/ops/flash_attention.py:59",
-        "wrapper": fa.flash_attention, "max_abs_err": e, "lse_err": e_lse,
-        "ms": time_ms(lambda: fa.flash_attention(q, k, v), 20),
-        "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v), 20)})
+        "wrapper": fa.flash_attention, "paths": ("serve", "train"),
+        "key": "K4",
+        "per_shape": [{
+            "shape": "[8,128,12x64] kv 1570 heads (serve)",
+            "max_abs_err": e, "lse_err": e_lse,
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v), 20),
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                                20)}]})
+
+    # the forward again, then K2/K3 and K4b (the backward), at the
+    # training shapes: K1's packed cases, K4's head-major ones
+    cases = [_bwd_case(rand, fa, *c) for c in BWD_SHAPES]
+    train_cases = cases[:4]
+    for entry, layout in ((report[0], "packed"), (report[1], "heads")):
+        entry["per_shape"] += [c["fwd"] for c in cases
+                               if c["layout"] == layout]
+        entry["max_abs_err"] = max(p["max_abs_err"]
+                                   for p in entry["per_shape"])
+        entry["ms"] = sum(p["ms"] for p in entry["per_shape"])
+        entry["plain_ms"] = sum(p["plain_ms"] for p in entry["per_shape"])
+    for kind, wrapper, line, key in (
+            ("dq", fa.flash_bwd_dq_cuda, 723, "dq_ms"),
+            ("dkv", fa.flash_bwd_dkv_cuda, 791, "dkv_ms")):
+        grads = ("dq",) if kind == "dq" else ("dk", "dv")
+        report.append({
+            "name": f"K2/K3 + K4b backward {kind} kernel "
+                    f"(flash_bwd_{kind}_cuda; also replaces "
+                    f"flash_attention.py:{148 if kind == 'dq' else 195})",
+            "route": "cuda",
+            "source": "youku_mplug_tpu_torch/csrc/flash_bwd.cu",
+            "replaces": f"youku_mplug_tpu/ops/flash_attention.py:{line}",
+            "wrapper": wrapper, "paths": ("train",), "key": kind,
+            "max_abs_err": max(c["max_abs_err"][gname] for c in cases
+                               for gname in grads),
+            "ms": sum(c[key] for c in train_cases),
+            # the plain backward computes dq, dk and dv together
+            "plain_ms": sum(c["plain_ms"] for c in train_cases),
+            "per_shape": [{"shape": c["shape"],
+                           "rel_l2": {gn: c["rel_l2"][gn] for gn in grads},
+                           "max_abs_err": max(c["max_abs_err"][gn]
+                                              for gn in grads),
+                           "ms": c[key], "plain_ms": c["plain_ms"]}
+                          for c in cases]})
 
     # K5: decode, q [8, 32*64] (view of a qkv row), cache [24,8,256,4096],
     # mixed lengths; slot 3 has no live key and must read zeros
@@ -184,16 +350,38 @@ def phase_kernels(dev):
         "name": "K5 decode_attention (decoder decode step)", "route": "cuda",
         "source": "youku_mplug_tpu_torch/csrc/decode_attention.cu",
         "replaces": "youku_mplug_tpu/ops/decode_attention.py:56",
-        "wrapper": dec.decode_attention, "max_abs_err": e,
+        "wrapper": dec.decode_attention, "paths": ("serve",), "key": "K5",
+        "max_abs_err": e,
         "ms": time_ms(lambda: dec.decode_attention(q, ckv, 32, 23, clen,
                                                    vfrom), 200),
         "plain_ms": time_ms(lambda: dec.decode_attention_plain(
             q, ckv, 32, 23, clen, vfrom), 200)})
     for r in report:
-        print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.3g} "
-              f"(tol {KERNEL_TOL:.3g} x (1 + |plain|)) | kernel "
-              f"{r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms", flush=True)
+        print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.3g} | "
+              f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms",
+              flush=True)
+        for p in r.get("per_shape", []):
+            print(f"[kernel]   {p['shape']}: "
+                  + json.dumps({k: v for k, v in p.items() if k != "shape"}),
+                  flush=True)
+    print(f"[kernel] tolerances: forward elementwise {KERNEL_TOL:.3g} x "
+          f"(1 + |plain|), lse {LSE_TOL}, backward relative L2 "
+          f"{BWD_TOL:.3g} per gradient", flush=True)
     return report
+
+
+def _reset_counts(report):
+    for r in report:
+        r["wrapper"].launches = 0
+
+
+def _read_counts(report, path):
+    for r in report:
+        r.setdefault("launches_by_path", {})[path] = r["wrapper"].launches
+    missing = [r["name"] for r in report
+               if path in r["paths"] and r["launches_by_path"][path] == 0]
+    if missing:
+        fail(f"the {path} path never launched: {missing}")
 
 
 def phase_slice(report, out_dir):
@@ -209,22 +397,17 @@ def phase_slice(report, out_dir):
     cfg, model, device = serve.build(args)
     serve.run(args_for(2), cfg, model, device)  # warm-up (cuBLAS, caches)
     torch.cuda.synchronize()
-    for r in report:
-        r["wrapper"].launches = 0
+    _reset_counts(report)
     stats, out, engine = serve.run(args, cfg, model, device)
     torch.cuda.synchronize()
-    for r in report:
-        r["launches"] = r["wrapper"].launches
+    _read_counts(report, "serve")
     if stats["requests"] != 16 or any(not o["tokens"] for o in out):
         fail(f"slice served {stats['requests']} requests: {out}")
-    missing = [r["name"] for r in report if r["launches"] == 0]
-    if missing:
-        fail(f"the serving path never launched: {missing}")
     if engine.nonfinite_logits:
         fail(f"{engine.nonfinite_logits} logit rows were not finite")
     n_tok = sum(o["n_tokens"] for o in out)
     print(f"[slice] {json.dumps(stats)} | {n_tok} tokens | launches "
-          f"{[r['launches'] for r in report]} | peak memory "
+          f"{[r['launches_by_path']['serve'] for r in report]} | peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return cfg, model, stats
 
@@ -302,7 +485,122 @@ def phase_teacher_forced(cfg, model):
         fail("teacher-forced check out of tolerance")
 
 
+def phase_train(report, out_dir):
+    """The pretrain CLI's path at full width; returns its runner."""
+    from youku_mplug_tpu_torch.cli import run_pretrain
+
+    args = run_pretrain.base_parser().parse_args([
+        "--config", TRAIN_YAML, "--output_dir", out_dir, "--synthetic_data",
+        "--max_steps", str(WARMUP_STEPS + TIMED_STEPS), "--device", "cuda"])
+    t0 = time.perf_counter()
+    runner = run_pretrain.setup(args)
+    train_step = run_pretrain.build_train_step(runner)
+    state = runner.state
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    trainable0 = {k: p.detach().clone() for k, p in state.trainable.items()}
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    history = run_pretrain.train_one_epoch(runner, train_step, 0)
+    torch.cuda.synchronize()
+    _read_counts(report, "train")
+    peak = torch.cuda.max_memory_allocated()
+    if len(history) != WARMUP_STEPS + TIMED_STEPS:
+        fail(f"train slice ran {len(history)} steps")
+    bad = [h for h in history if not (math.isfinite(h["loss"])
+                                      and math.isfinite(h["grad_norm"]))
+           or h["skipped_nonfinite"] != 0]
+    if bad:
+        fail(f"non-finite or skipped train steps: {bad}")
+    moved = sum(not torch.equal(p.detach(), trainable0[k])
+                for k, p in state.trainable.items())
+    if moved == 0:
+        fail("no trainable leaf moved")
+    changed = [k for k, p in state.frozen.items()
+               if not torch.equal(p.detach(), frozen0[k])]
+    if changed or any(p.dtype != torch.bfloat16
+                      for p in state.frozen.values()):
+        fail(f"the frozen decoder changed: {changed[:5]}")
+    timed = history[WARMUP_STEPS:]
+    step_s = sum(h["step_time"] for h in timed) / len(timed)
+    stats = {"steps": len(history), "setup_s": round(setup_s, 2),
+             "step_ms": step_s * 1e3,
+             "step_ms_each": [h["step_time"] * 1e3 for h in timed],
+             "clips_per_s": runner.cfg.batch_size / step_s,
+             "loss": [h["loss"] for h in history],
+             "grad_norm": [h["grad_norm"] for h in history],
+             "lr": [h["lr"] for h in history],
+             "trainable_leaves_moved": f"{moved}/{len(state.trainable)}",
+             "frozen_leaves_unchanged": len(frozen0),
+             "peak_memory_gib": peak / 2 ** 30,
+             "launches": {r["key"]: r["launches_by_path"]["train"]
+                          for r in report}}
+    print(f"[train] {json.dumps(stats)}", flush=True)
+    return runner, stats
+
+
+def phase_replay(runner):
+    """Loss and trainable gradients of one batch with the kernels, then
+    with the wrappers taking their plain versions on the card."""
+    from youku_mplug_tpu_torch.cli import run_pretrain
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    runner.loader.set_epoch(0)
+    batch = run_pretrain.make_batch(runner, next(iter(runner.loader)))
+    loss_fn = run_pretrain.make_loss_fn(runner.model)
+    params = runner.state.trainable
+
+    def loss_and_grads():
+        for p in params.values():
+            p.grad = None
+        out = loss_fn(batch)
+        out["loss"].backward()
+        grads = {k: p.grad for k, p in params.items() if p.grad is not None}
+        for p in params.values():
+            p.grad = None
+        return out["loss"].item(), grads
+
+    loss_k, grads_k = loss_and_grads()
+    counts = (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches,
+              fa.flash_attention_packed.launches, fa.flash_attention.launches)
+    with mock.patch.object(fa, "_on_cpu", lambda t: True):
+        loss_p, grads_p = loss_and_grads()
+    if counts != (fa.flash_bwd_dq_cuda.launches,
+                  fa.flash_bwd_dkv_cuda.launches,
+                  fa.flash_attention_packed.launches,
+                  fa.flash_attention.launches):
+        fail("the plain replay launched a kernel")
+    if set(grads_k) != set(grads_p):
+        fail(f"gradient leaves differ: {set(grads_k) ^ set(grads_p)}")
+    whole = torch.stack([g.float().norm() for g in grads_p.values()]).norm()
+    rows = []
+    for k in grads_k:
+        diff = (grads_k[k].float() - grads_p[k].float()).norm().item()
+        norm = grads_p[k].float().norm().item()
+        bound = max(norm, REPLAY_GRAD_FLOOR * whole.item())
+        rows.append((diff / bound, diff / max(norm, 1e-30), norm, k))
+    rows.sort(reverse=True)
+    finite = math.isfinite(loss_k) and all(
+        torch.isfinite(g).all() for g in grads_k.values())
+    rel = sorted(r[1] for r in rows)
+    print(f"[replay] loss kernels {loss_k:.6f} plain {loss_p:.6f} (tol "
+          f"{REPLAY_LOSS_TOL}) | {len(rows)} leaves, whole gradient norm "
+          f"{whole.item():.4g}: relative L2 median {rel[len(rel) // 2]:.4g}"
+          f", max {rel[-1]:.4g} | gated error max {rows[0][0]:.4g} (tol "
+          f"{REPLAY_GRAD_TOL}, floor {REPLAY_GRAD_FLOOR} x whole) | worst: "
+          + ", ".join(f"{k} gated {g:.3g} rel {r:.3g} norm {n:.3g}"
+                      for g, r, n, k in rows[:4]), flush=True)
+    if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL \
+            or rows[0][0] > REPLAY_GRAD_TOL:
+        fail("plain replay out of tolerance")
+
+
 def main():
+    # one card: the first visible one (set before CUDA initializes)
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ("0" if visible is None
+                                          else visible.split(",")[0])
     sys.path.insert(0, REPO)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -313,11 +611,21 @@ def main():
     with tempfile.TemporaryDirectory() as out_dir:
         cfg, model, _ = phase_slice(report, out_dir)
     phase_teacher_forced(cfg, model)
-    kernels = [{k: r[k] for k in ("name", "route", "source", "replaces",
-                                  "launches", "max_abs_err", "ms",
-                                  "plain_ms")} | (
-        {"per_shape": r["per_shape"]} if "per_shape" in r else {})
-        for r in report]
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        runner, _ = phase_train(report, out_dir)
+        phase_replay(runner)
+    kernels = []
+    for r in report:
+        entry = {k: r[k] for k in ("name", "route", "source", "replaces")}
+        entry["launches"] = sum(r["launches_by_path"].values())
+        entry |= {k: r[k] for k in ("max_abs_err", "ms", "plain_ms")}
+        entry["launches_by_path"] = r["launches_by_path"]
+        if "per_shape" in r:
+            entry["per_shape"] = r["per_shape"]
+        kernels.append(entry)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -10,9 +10,12 @@ fp32 logits.  Tolerance 1e-4 (fp32; parameters redrawn at std 0.2 so
 every bias and layer matters).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from __graft_entry__ import _flagship_cfg
@@ -162,3 +165,70 @@ def test_config_from_json_matches_jax():
               "num_attention_heads", "max_position_embeddings",
               "layernorm_epsilon", "head_dim"):
         assert getattr(t, f) == getattr(j, f), f
+
+
+def test_config_keeps_dropout_from_json():
+    """The JSON's hidden/attention dropout (0.1 for 1.3B) and init std are
+    read as the JAX package reads them, not dropped."""
+    path = "configs/models/config_gpt3_1.3B.json"
+    j, t = jgpt3.GPT3Config.from_json_file(path), \
+        tgpt3.GPT3Config.from_json_file(path)
+    for f in ("hidden_dropout", "attention_dropout", "init_method_std",
+              "remat", "ce_chunk"):
+        assert getattr(t, f) == getattr(j, f), f
+    assert (t.hidden_dropout, t.attention_dropout) == (0.1, 0.1)
+
+
+def test_training_with_dropout_raises_until_it_is_ported():
+    cfg = tgpt3.GPT3Config(vocab_size=32, hidden_size=16,
+                           num_hidden_layers=1, num_attention_heads=2,
+                           max_position_embeddings=16)
+    lm = bridge.seeded_init(tgpt3.GPT3LM(cfg, FP32_POLICY), 0)
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        lm.train()(tokens=tokens)
+    assert lm.eval()(tokens=tokens)["last_hidden_state"].shape == (1, 4, 16)
+
+
+@pytest.mark.parametrize("remat,ce_chunk", [(False, 0), (True, 4)])
+def test_lm_forward_loss_and_input_grads_match_jax(remat, ce_chunk):
+    """The no-cache training forward: hidden states, per-position losses,
+    the masked mean over losses[:, :-1], and the gradient that flows
+    through the frozen decoder to the input embeddings.  Padded positions
+    stay keys (only the loss mask drops them)."""
+    rng = np.random.default_rng(3)
+    cfg = dataclasses.replace(_flagship_cfg(tiny=True).text, remat=remat,
+                              ce_chunk=ce_chunk)
+    jlm = jgpt3.GPT3LM(cfg, policy=J_FP32)
+    shapes = jax.eval_shape(lambda: jlm.init(
+        jax.random.key(0), jnp.zeros((1, 4), jnp.int32)))["params"]
+    params = redraw(shapes, rng)
+    tcfg = dataclasses.replace(flagship_config(tiny=True).text, remat=remat,
+                               ce_chunk=ce_chunk)
+    tlm = bridge.load_jax_params(tgpt3.GPT3LM(tcfg, FP32_POLICY), params)
+    b, s, h = 2, 12, cfg.hidden_size
+    emb = rng.normal(size=(b, s, h)).astype(np.float32)
+    labels = rng.integers(0, 256, size=(b, s)).astype(np.int32)
+    mask = np.ones((b, s - 1), np.int32)
+    mask[1, 6:] = 0
+
+    def jfn(e):
+        out = jlm.apply({"params": params}, input_embeds=e,
+                        labels=jnp.asarray(labels),
+                        loss_mask=jnp.asarray(mask))
+        return out["loss"], out
+    (_, jout), jgrad = jax.value_and_grad(jfn, has_aux=True)(
+        jnp.asarray(emb))
+    leaf = _t(emb).requires_grad_()
+    out = tlm(input_embeds=leaf, labels=_t(labels).long(),
+              loss_mask=_t(mask))
+    out["loss"].backward()
+    for key in ("last_hidden_state", "losses", "loss"):
+        _close(out[key].detach(), jout[key])
+    _close(leaf.grad, jgrad)
+    assert all(p.grad is None for p in tlm.parameters())  # frozen
+    # a padded position still changes later positions' hidden states
+    emb2 = emb.copy()
+    emb2[1, 8] += 1.0
+    out2 = tlm(input_embeds=_t(emb2))["last_hidden_state"]
+    assert not torch.allclose(out2[1, 9:], out["last_hidden_state"][1, 9:])

@@ -23,7 +23,11 @@ _NO_JAX = textwrap.dedent("""
                                                    pkg.__name__ + ".")]
     for name in names:
         importlib.import_module(name)
-    assert "youku_mplug_tpu_torch.cli.serve" in names
+    for name in ("cli.serve", "cli.run_pretrain", "cli.profile_train",
+                 "optim.factory",
+                 "train.state", "train.trainer", "ops.cross_entropy",
+                 "data.loader"):
+        assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
                                            "youku_mplug_tpu")
@@ -43,7 +47,8 @@ def test_package_imports_without_jax():
 def test_wrappers_use_plain_versions_on_cpu_without_launching():
     rng = np.random.default_rng(0)
     counters = (fa.flash_attention_packed, fa.flash_attention,
-                dec.decode_attention)
+                dec.decode_attention, fa.flash_bwd_dq_cuda,
+                fa.flash_bwd_dkv_cuda)
     before = [f.launches for f in counters]
     x = torch.from_numpy(rng.normal(size=(2, 16, 128)).astype(np.float32))
     out = fa.flash_attention_packed(x, x, x, 2, period=4)
@@ -54,7 +59,10 @@ def test_wrappers_use_plain_versions_on_cpu_without_launching():
         np.float32))
     assert dec.decode_attention(x[:, 0], ckv, 2, 0,
                                 torch.tensor([3, 7])).shape == (2, 128)
-    assert [f.launches for f in counters] == before == [0, 0, 0]
+    leaf = q4.clone().requires_grad_()
+    fa.flash_attention(leaf, leaf, leaf, causal=True).sum().backward()
+    assert leaf.grad.shape == q4.shape
+    assert [f.launches for f in counters] == before == [0] * 5
 
 
 def test_wrappers_refuse_devices_without_a_kernel():

@@ -10,6 +10,7 @@ card and skip where there is none.
 import functools
 import unittest.mock as mock
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -173,6 +174,27 @@ def test_dot_product_attention_dispatch(sq, bias, flash):
     _close(got, want, 1e-5)
 
 
+@pytest.mark.parametrize("causal,sq", [(True, 128), (True, 64)])
+def test_dot_product_attention_sends_causal_to_flash(causal, sq):
+    """Causal attention follows JAX's dispatch rule: the flash kernel from
+    one 128-row query block on (it used to stay on mha_reference)."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+    from youku_mplug_tpu_torch.ops.attention import dot_product_attention
+
+    rng = np.random.default_rng(19)
+    q, k, v = (rng.normal(size=(1, 2, sq, 16)).astype(np.float32)
+               for _ in range(3))
+    with mock.patch.object(fa, "flash_attention",
+                           wraps=fa.flash_attention) as spy:
+        got = dot_product_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert spy.called == (sq >= 128)
+    if spy.called:
+        assert spy.call_args.kwargs["causal"] is True
+    want = jmha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                causal=causal)
+    _close(got, want, 1e-5)
+
+
 @pytest.mark.parametrize("per_sample", [False, True])
 def test_cache_write_in_place_matches_jax(per_sample):
     rng = np.random.default_rng(9)
@@ -188,6 +210,194 @@ def test_cache_write_in_place_matches_jax(per_sample):
     assert out.data_ptr() == tc.data_ptr()  # updated in place
     _close(tc, want, 0)
     assert tkv.layer_slice(tc, 1).data_ptr() == tc[1].data_ptr()  # a view
+
+
+def _packed_to_heads(a, n):
+    b, s, nd = a.shape
+    return _t(a).unflatten(-1, (n, nd // n)).transpose(1, 2)
+
+
+def _heads_to_packed(t):
+    b, n, s, d = t.shape
+    return t.transpose(1, 2).reshape(b, s, n * d)
+
+
+def test_flash_causal_plain_matches_pallas_interpret():
+    """K1 (_fwd_kernel_packed), causal mode at the decoder's ragged
+    length (no-pad whole-sequence block)."""
+    rng = np.random.default_rng(11)
+    b, s, n, d = 2, 40, 2, 64
+    q, k, v = (rng.normal(size=(b, s, n * d)).astype(np.float32)
+               for _ in range(3))
+    with _interpret():
+        want = jfa.flash_attention_packed(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), n, causal=True)
+    got = flash_attention_packed(_t(q), _t(k), _t(v), n, causal=True)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("causal,period", [(False, 0), (False, 8),
+                                           (True, 0)])
+def test_flash_bwd_plain_matches_pallas_vjp_packed(causal, period):
+    """K2/K3 (_bwd_dq_kernel_packed / _bwd_dkv_kernel_packed): jax.vjp of
+    the Pallas packed kernel in interpret mode against flash_bwd_plain
+    on the same q, k, v, dO (n*d = 128)."""
+    from youku_mplug_tpu_torch.ops.flash_attention import flash_bwd_plain
+
+    rng = np.random.default_rng(12 + period + causal)
+    b, s, n, d = 2, 48, 2, 64
+    q, k, v, do = (rng.normal(size=(b, s, n * d)).astype(np.float32)
+                   for _ in range(4))
+    with _interpret():
+        out, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention_packed(
+            q_, k_, v_, n, causal=causal, period=period),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+    q4, k4, v4, do4 = (_packed_to_heads(a, n) for a in (q, k, v, do))
+    kw = dict(scale=d ** -0.5, causal=causal, period=period)
+    o4, lse = flash_fwd_plain(q4, k4, v4, **kw)
+    _close(_heads_to_packed(o4), out)
+    got = flash_bwd_plain(q4, k4, v4, o4, lse, do4, **kw)
+    for g, w in zip(got, want):
+        _close(_heads_to_packed(g), w)
+
+
+@pytest.mark.parametrize("kv_len", [None, 131])
+def test_flash_bwd_plain_matches_pallas_vjp_head_major(kv_len):
+    """K4b (_bwd_dq_kernel / _bwd_dkv_kernel via flash_attention's VJP),
+    AttentionPool's unpadded path and the padded static-kv_len path; keys
+    at or past kv_len get exactly zero dk and dv."""
+    from youku_mplug_tpu_torch.ops.flash_attention import flash_bwd_plain
+
+    rng = np.random.default_rng(13)
+    b, h, sq, sk, d = 2, 2, 128, 150, 64
+    q, do = (rng.normal(size=(b, h, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(b, h, sk, d)).astype(np.float32)
+            for _ in range(2))
+    with _interpret():
+        _, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention(
+            q_, k_, v_, kv_len=kv_len), jnp.asarray(q), jnp.asarray(k),
+            jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+    kw = dict(scale=d ** -0.5, kv_len=kv_len)
+    o, lse = flash_fwd_plain(_t(q), _t(k), _t(v), **kw)
+    got = flash_bwd_plain(_t(q), _t(k), _t(v), o, lse, _t(do), **kw)
+    for g, w in zip(got, want):
+        _close(g, w)
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any()
+        assert not got[2][:, :, kv_len:].any()
+
+
+@pytest.mark.parametrize("causal,kv_len", [(False, None), (True, None),
+                                           (False, 9)])
+def test_flash_bwd_plain_matches_autograd_of_mha_reference(causal, kv_len):
+    from youku_mplug_tpu_torch.ops.flash_attention import flash_bwd_plain
+
+    rng = np.random.default_rng(14)
+    q, k, v, do = (_t(rng.normal(size=(2, 3, 16, 8)).astype(np.float32))
+                   for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    kl = None if kv_len is None else torch.full((2,), kv_len)
+    tmha(*leaves, causal=causal, kv_len=kl, scale=0.3).backward(do)
+    o, lse = flash_fwd_plain(q, k, v, scale=0.3, causal=causal,
+                             kv_len=kv_len)
+    got = flash_bwd_plain(q, k, v, o, lse, do, scale=0.3, causal=causal,
+                          kv_len=kv_len)
+    for g, leaf in zip(got, leaves):
+        _close(g, leaf.grad, 1e-5)
+
+
+def test_flash_autograd_function_uses_plain_backward_on_cpu():
+    """The wrappers' autograd Function: gradients equal autograd of the
+    plain forward, and nothing launches on the CPU."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(15)
+    x = _t(rng.normal(size=(2, 24, 3 * 128)).astype(np.float32))
+    g = _t(rng.normal(size=(2, 24, 128)).astype(np.float32))
+    grads = []
+    for fn in (flash_attention_packed, flash_attention_packed_plain):
+        leaf = x.clone().requires_grad_()
+        fn(leaf[..., :128], leaf[..., 128:256], leaf[..., 256:], 2,
+           causal=True).backward(g)
+        grads.append(leaf.grad)
+    _close(grads[0], grads[1], 1e-5)
+    q4 = x[..., :128].unflatten(-1, (2, 64)).transpose(1, 2)
+    leaf = q4.clone().requires_grad_()
+    flash_attention(leaf, leaf, leaf, kv_len=20).sum().backward()
+    assert leaf.grad.shape == q4.shape
+    assert (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches) \
+        == (0, 0)
+
+
+def test_layer_norm_backward_matches_jax_vjp():
+    """The custom backward (saves x, mean, rstd) against the JAX custom
+    VJP, fp32 and bf16 inputs."""
+    from youku_mplug_tpu.ops.layernorm import layer_norm as jln_
+
+    rng = np.random.default_rng(16)
+    x = rng.normal(size=(3, 5, 32)).astype(np.float32) * 3 + 1
+    sc, bi = (rng.normal(size=(32,)).astype(np.float32) for _ in range(2))
+    g = rng.normal(size=x.shape).astype(np.float32)
+    _, vjp = jax.vjp(lambda *a: jln_(*a, eps=1e-6), jnp.asarray(x),
+                     jnp.asarray(sc), jnp.asarray(bi))
+    want = vjp(jnp.asarray(g))
+    leaves = [_t(a).requires_grad_() for a in (x, sc, bi)]
+    tln(*leaves, eps=1e-6).backward(_t(g))
+    for leaf, w in zip(leaves, want):
+        _close(leaf.grad, w, 1e-4)
+    xb = _t(x).to(torch.bfloat16).requires_grad_()
+    y = tln(xb, _t(sc), _t(bi), eps=1e-6)
+    assert y.dtype == torch.bfloat16
+    y.float().backward(_t(g))
+    assert xb.grad.dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("smoothing", [0.0, 0.1])
+def test_cross_entropy_matches_jax(smoothing):
+    from youku_mplug_tpu.ops.cross_entropy import (
+        cross_entropy_with_logits as jce,
+    )
+    from youku_mplug_tpu_torch.ops.cross_entropy import (
+        cross_entropy_with_logits,
+    )
+
+    rng = np.random.default_rng(17)
+    logits = rng.normal(size=(4, 6, 50)).astype(np.float32) * 3
+    labels = rng.integers(0, 50, size=(4, 6)).astype(np.int32)
+    _close(cross_entropy_with_logits(_t(logits), _t(labels), smoothing),
+           jce(jnp.asarray(logits), jnp.asarray(labels), smoothing), 1e-5)
+
+
+def test_lm_cross_entropy_chunked_and_dense_match_jax():
+    """Dense (the flagship's S = 208 with chunk 32: 208 % 32 != 0) and
+    chunked under checkpoint: values and hidden-state gradients."""
+    from youku_mplug_tpu.ops.cross_entropy import (
+        lm_cross_entropy as jlm,
+        masked_mean_loss as jmm,
+    )
+    from youku_mplug_tpu_torch.ops.cross_entropy import (
+        lm_cross_entropy,
+        masked_mean_loss,
+    )
+
+    rng = np.random.default_rng(18)
+    hid = rng.normal(size=(2, 16, 8)).astype(np.float32)
+    emb = rng.normal(size=(30, 8)).astype(np.float32)
+    lab = rng.integers(0, 30, size=(2, 16)).astype(np.int32)
+    mask = (rng.random(size=(2, 16)) > 0.3).astype(np.int32)
+    for chunk in (0, 4, 5):
+        fn = lambda h_: jmm(jlm(h_, jnp.asarray(emb), jnp.asarray(lab),
+                                chunk=chunk), jnp.asarray(mask))
+        want, want_g = jax.value_and_grad(fn)(jnp.asarray(hid))
+        leaf = _t(hid).requires_grad_()
+        got = masked_mean_loss(lm_cross_entropy(leaf, _t(emb), _t(lab),
+                                                chunk=chunk), _t(mask))
+        got.backward()
+        _close(got.detach(), want, 1e-5)
+        _close(leaf.grad, want_g, 1e-5)
 
 
 # ---------------------------------------------------------------------------
@@ -273,3 +483,110 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         flash_attention_packed(x, x, x, 2)  # d = 32
     with pytest.raises(TypeError, match="bf16"):
         flash_attention_packed(x.float(), x.float(), x.float(), 1)
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm()
+            / want.float().norm().clamp_min(1e-30)).item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,s,n", [(2, 208, 4),   # decoder training
+                                      (3, 100, 1),   # ragged, one head
+                                      (2, 1, 2)])    # one token
+def test_cuda_flash_causal_matches_plain(cuda_device, rows, s, n):
+    """K1 causal: query tile i walks key tiles 0..i only."""
+    rng = np.random.default_rng(s + n)
+    nd = n * 64
+    qkv = _bf16(rng, rows, s, 3 * nd, device=cuda_device)
+    q, k, v = qkv[..., :nd], qkv[..., nd:2 * nd], qkv[..., 2 * nd:]
+    got = flash_attention_packed(q, k, v, n, causal=True)
+    _bf16_close(got, flash_attention_packed_plain(q, k, v, n, causal=True))
+    views = [t.unflatten(-1, (n, 64)).transpose(1, 2) for t in (q, k, v)]
+    lse = flash_fwd_cuda(*views, torch.empty_like(views[0]), scale=0.125,
+                         causal=True)
+    _, want_lse = flash_fwd_plain(*views, scale=0.125, causal=True)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+
+
+# (q rows, Sq, Sk, heads, causal, period, kv_len, layout): the four
+# training shapes at a reduced batch, plus edge cases
+BWD_CASES = [
+    (2, 197, 197, 2, False, 0, None, "packed"),   # vision spatial
+    (2, 112, 112, 2, False, 8, None, "packed"),   # grouped temporal
+    (2, 208, 208, 4, True, 0, None, "packed"),    # decoder
+    (2, 128, 1571, 2, False, 0, None, "heads"),   # AttentionPool
+    (2, 65, 130, 1, False, 0, 70, "heads"),       # static kv_len
+    (2, 100, 100, 1, False, 3, None, "packed"),   # period off the tiles
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,sk,n,causal,period,kv_len,layout", BWD_CASES)
+def test_cuda_flash_bwd_matches_plain(cuda_device, b, sq, sk, n, causal,
+                                      period, kv_len, layout):
+    """dq and dk/dv kernels against flash_bwd_plain on the same (q, k, v,
+    o, lse, dO): relative L2 within 2^-7 (bf16 p and dS rounded at
+    slightly different fp32 values, bf16 outputs), keys past kv_len
+    exactly zero."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(sq + sk)
+    nd = n * 64
+    qp = _bf16(rng, b, sq, 3 * nd, device=cuda_device)
+    kvp = qp if sq == sk else _bf16(rng, b, sk, 3 * nd, device=cuda_device)
+    q, k, v = (_t.unflatten(-1, (n, 64)).transpose(1, 2) for _t in
+               (qp[..., :nd], kvp[..., nd:2 * nd], kvp[..., 2 * nd:]))
+    kw = dict(scale=0.125, causal=causal, period=period, kv_len=kv_len)
+    o = torch.empty(b, sq, n, 64, dtype=torch.bfloat16,
+                    device=cuda_device).transpose(1, 2)
+    lse = flash_fwd_cuda(q, k, v, o, **kw)
+    do = _bf16(rng, b, n, sq, 64, device=cuda_device)
+    before = (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches)
+    got = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches) \
+        == (before[0] + 1, before[1] + 1)
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == torch.bfloat16
+        assert torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= 2.0 ** -7, (name, _rel_l2(g, w))
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any()
+        assert not got[2][:, :, kv_len:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_bwd_causal_keys_without_later_queries(cuda_device):
+    """Causal: dk and dv of key j take only queries i >= j, so with dO
+    zero from query 150 on, keys 150.. get exactly zero gradient."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(21)
+    q, k, v = (_bf16(rng, 2, 2, 208, 64, device=cuda_device)
+               for _ in range(3))
+    o = torch.empty_like(q)
+    lse = flash_fwd_cuda(q, k, v, o, scale=0.125, causal=True)
+    do = _bf16(rng, 2, 2, 208, 64, device=cuda_device)
+    do[:, :, 150:] = 0
+    _, dk, dv = fa.flash_bwd_cuda(q, k, v, o, lse, do, scale=0.125,
+                                  causal=True)
+    assert not dk[:, :, 150:].any() and not dv[:, :, 150:].any()
+    assert dk[:, :, :150].abs().sum() > 0
+
+
+@pytest.mark.cuda
+def test_cuda_flash_autograd_matches_plain_autograd(cuda_device):
+    """The autograd Function (kernels both ways) against autograd of the
+    plain forward, through a packed causal call."""
+    rng = np.random.default_rng(22)
+    qkv = _bf16(rng, 2, 208, 3 * 128, device=cuda_device)
+    g_out = _bf16(rng, 2, 208, 128, device=cuda_device)
+    grads = []
+    for fn in (flash_attention_packed, flash_attention_packed_plain):
+        x = qkv.clone().requires_grad_()
+        out = fn(x[..., :128], x[..., 128:256], x[..., 256:], 2, causal=True)
+        out.backward(g_out)
+        grads.append(x.grad)
+    assert _rel_l2(grads[0], grads[1]) <= 2.0 ** -6

@@ -201,3 +201,42 @@ def test_fold_runs_in_fp32_before_the_cast():
                post_bias=_t(pb))
     assert got.dtype == torch.bfloat16
     _close(got.float(), np.asarray(want, np.float32), 1e-2)
+
+
+@pytest.mark.parametrize("policy,stride", [("sixth", 6), ("half", 2),
+                                           ("third:names", 3),
+                                           ("nothing", 1)])
+def test_grad_ckpt_stride_and_same_gradients(policy, stride):
+    """Blocks i % stride == 0 run under checkpoint (the JAX package's
+    stride rule); the gradients do not change."""
+    import unittest.mock as mock
+
+    cfg = dataclasses.replace(flagship_config(tiny=True).vision, depth=3)
+    assert dataclasses.replace(cfg, remat_policy=policy).remat_stride == \
+        stride
+    rng = np.random.default_rng(5)
+    video = _t(rng.normal(size=(2, 3, cfg.num_frames, cfg.img_size,
+                                cfg.img_size)).astype(np.float32))
+    grads = []
+    for ckpt in (False, True):
+        enc = bridge.seeded_init(tvision.TimeSformer(dataclasses.replace(
+            cfg, grad_ckpt=ckpt, remat_policy=policy), FP32_POLICY), 1)
+        for p in enc.parameters():
+            p.requires_grad_(True)
+        with mock.patch.object(tvision, "checkpoint",
+                               wraps=tvision.checkpoint) as spy:
+            enc(video)[1].square().sum().backward()
+        assert spy.call_count == (len(range(0, 3, stride)) if ckpt else 0)
+        grads.append([p.grad for p in enc.parameters()])
+    for g0, g1 in zip(*grads):
+        _close(g1, g0, 1e-5)
+
+
+def test_vision_dropout_raises_in_training_only():
+    cfg = dataclasses.replace(flagship_config(tiny=True).vision,
+                              drop_path=0.1)
+    enc = bridge.seeded_init(tvision.TimeSformer(cfg, FP32_POLICY), 0)
+    video = torch.zeros(1, 3, cfg.num_frames, cfg.img_size, cfg.img_size)
+    with pytest.raises(NotImplementedError, match="drop-path"):
+        enc.train()(video)
+    assert enc.eval()(video)[1].shape[0] == 1

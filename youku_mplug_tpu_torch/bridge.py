@@ -1,16 +1,24 @@
-"""Weights for the port: load a JAX parameter tree, or a seeded init.
+"""Weights for the port: load a JAX parameter tree, export one, or a
+seeded init.
 
 ``load_jax_params`` turns the JAX package's parameter tree (nested dicts
 of numpy arrays, e.g. ``jax.device_get(params)``) into the port's modules.
 The port keeps the JAX names and shapes, so the mapping is a rename:
 ``a/b/c`` -> ``a.b.c``, and flax's ``blocks_<i>`` -> ``blocks.<i>``.  It
 raises on any JAX leaf it does not consume, on any port parameter it
-leaves unfilled, and on any shape mismatch.
+leaves unfilled, and on any shape mismatch.  Each leaf is cast to its
+parameter's dtype, so a model split by ``train.state.create_train_state``
+takes trainable leaves as fp32 master weights and frozen ones in bf16;
+``requires_grad`` is the split's and is left as it is.
+``jax_path`` is the inverse rename and ``to_jax_tree`` the inverse load
+(port parameters -> a JAX-named tree of numpy arrays).
 
 ``seeded_init`` fills every parameter from one ``torch.Generator``: normals
 of std 0.02 everywhere (biases, cls/pos/temporal embeddings, ``bias_k``,
-``temporal_fc`` of every block included, so no path through the model is
-zeroed out), LayerNorm scales one and LayerNorm biases zero.
+``temporal_fc`` of every block and the contrastive projections included,
+so no path through the model is zeroed out), LayerNorm scales one,
+LayerNorm biases zero, and the contrastive temperature ``temp`` its
+configured value (``module.cfg.temp``, else 0.07).
 """
 
 from __future__ import annotations
@@ -38,6 +46,26 @@ def port_name(jax_path: str) -> str:
     """JAX tree path -> the port's parameter name."""
     return re.sub(r"(^|/)blocks_(\d+)(?=/|$)", r"\1blocks/\2",
                   jax_path).replace("/", ".")
+
+
+def jax_path(port_param_name: str) -> str:
+    """The port's parameter name -> the JAX tree path (``port_name``'s
+    inverse)."""
+    return re.sub(r"(^|\.)blocks\.(\d+)(?=\.|$)", r"\1blocks_\2",
+                  port_param_name).replace(".", "/")
+
+
+def to_jax_tree(module: nn.Module) -> Dict[str, Any]:
+    """The module's parameters as a nested dict of fp32 numpy arrays under
+    the JAX names."""
+    tree: Dict[str, Any] = {}
+    for name, p in module.named_parameters():
+        *parents, leaf = jax_path(name).split("/")
+        node = tree
+        for key in parents:
+            node = node.setdefault(key, {})
+        node[leaf] = p.detach().float().cpu().numpy()
+    return tree
 
 
 def _to_tensor(x) -> torch.Tensor:
@@ -90,7 +118,9 @@ def seeded_init(module: nn.Module, seed: int, std: float = 0.02
     gens = {}
     for name in sorted(params):
         p = params[name]
-        if _is_norm_scale(name):
+        if name == "temp":
+            p.fill_(getattr(getattr(module, "cfg", None), "temp", 0.07))
+        elif _is_norm_scale(name):
             p.fill_(1.0)
         elif _is_norm_bias(name, params):
             p.zero_()

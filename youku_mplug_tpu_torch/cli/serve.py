@@ -28,7 +28,7 @@ from youku_mplug_tpu_torch.config import load_config
 from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
-from youku_mplug_tpu_torch.models.tokenizer import ToyTokenizer
+from youku_mplug_tpu_torch.models.tokenizer import load_tokenizer
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
 from youku_mplug_tpu_torch.runtime.precision import BF16_POLICY
 from youku_mplug_tpu_torch.serving.engine import ServingEngine
@@ -66,14 +66,6 @@ def _clip_batches(cfg, num_frames: int, size: int):
                [it["video_id"] for it in items])
 
 
-def _tokenizer(cfg, vocab_size: int) -> ToyTokenizer:
-    model_dir = cfg.get("text_decoder", "")
-    if model_dir and os.path.exists(os.path.join(model_dir,
-                                                 "tokenizer.json")):
-        raise NotImplementedError("the JiebaBPE tokenizer is not ported yet")
-    return ToyTokenizer(vocab_size=vocab_size)
-
-
 def build(args):
     """-> (run config, model on the device, device).  Raises when the
     requested device is absent: nothing falls back to the CPU."""
@@ -93,7 +85,8 @@ def run(args, cfg, model, device):
     """Serve ``args.num_requests`` synthetic clips.  Returns
     (stats, per-request results, the engine)."""
     lm = model.text_decoder
-    tok = _tokenizer(cfg, cfg.model.text.vocab_size)
+    tok = load_tokenizer(cfg.get("text_decoder", ""),
+                         cfg.model.text.vocab_size)
     max_new = int(cfg.get("max_new_tokens", 32))
     nq = cfg.model.num_learnable_token
     # the JAX CLI's prompt: tokenized prompt minus its trailing eos

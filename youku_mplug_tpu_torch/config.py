@@ -1,9 +1,12 @@
-"""Config loading for the serving path: the JAX package's YAML/JSON
-contract (``youku_mplug_tpu/config.py``), limited to the keys serving
-reads — ``text_cfg``, ``visual_cfg``, ``text_overrides``,
-``visual_overrides``, ``num_frames``, ``num_learnable_token``, ``prompt``,
-``max_new_tokens``, ``batch_size``, ``max_length``, ``image_res`` and
-``synthetic_length`` (the last three via ``RunConfig.get``)."""
+"""Config loading: the JAX package's YAML/JSON contract
+(``youku_mplug_tpu/config.py``), for the keys serving and pretraining read
+— ``text_cfg``, ``visual_cfg``, ``text_overrides``, ``visual_overrides``,
+``num_frames``, ``num_learnable_token``, ``use_contrastive``,
+``embed_dim``, ``temp``, ``freeze_vit``, ``freeze_text_decoder``, the
+``optimizer`` and ``schedular`` blocks, ``update_freq``, ``epochs``,
+``prompt``, ``max_new_tokens``, ``batch_size``, ``max_length``,
+``image_res`` and ``synthetic_length`` (the last ones via
+``RunConfig.get``)."""
 
 from __future__ import annotations
 
@@ -16,20 +19,45 @@ import yaml
 from youku_mplug_tpu_torch.models.gpt3 import GPT3Config
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideoConfig
 from youku_mplug_tpu_torch.models.vision import VisionConfig
+from youku_mplug_tpu_torch.optim.factory import OptimizerConfig
 
 
 @dataclasses.dataclass
 class RunConfig:
     raw: Dict[str, Any]
     model: MPLUGVideoConfig
+    optimizer: OptimizerConfig = OptimizerConfig()
     batch_size: int = 8
     max_length: int = 80
     num_frames: int = 8
     image_res: int = 224
     prompt: str = ""
+    epochs: int = 10
+    update_freq: int = 1
 
     def get(self, key, default=None):
         return self.raw.get(key, default)
+
+
+def _optimizer_config(raw, model: MPLUGVideoConfig) -> OptimizerConfig:
+    opt = dict(raw.get("optimizer", {}))
+    sched = dict(raw.get("schedular", raw.get("scheduler", {})))
+    return OptimizerConfig(
+        opt=str(opt.get("opt", "adamw")).lower(),
+        lr=float(opt.get("lr", 1e-4)),
+        min_lr=float(sched.get("min_lr", 1e-6)),
+        weight_decay=float(opt.get("weight_decay", 0.05)),
+        opt_betas=tuple(opt.get("opt_betas", (0.9, 0.999))),
+        opt_eps=float(opt.get("opt_eps", 1e-8)),
+        clip_grad=(float(opt["clip_grad"]) if opt.get("clip_grad")
+                   else None),
+        warmup_steps=int(sched.get("warmup_steps", -1)),
+        warmup_epochs=max(float(sched.get("warmup_epochs", 0) or 0), 0),
+        epochs=int(sched.get("epochs", raw.get("epochs", 10))),
+        sched_type=str(sched.get("lr_sched_type", "cos")
+                       ).replace("cosine", "cos"),
+        freeze_text_decoder=model.freeze_text_decoder,
+        freeze_vit=model.freeze_vit)
 
 
 def load_config(yaml_path: str,
@@ -65,21 +93,31 @@ def load_config(yaml_path: str,
         vision = dataclasses.replace(vision, **raw["visual_overrides"])
     model = MPLUGVideoConfig(
         vision=vision, text=text,
-        num_learnable_token=int(raw.get("num_learnable_token", 256)))
+        num_learnable_token=int(raw.get("num_learnable_token", 256)),
+        use_contrastive=bool(raw.get("use_contrastive", False)),
+        contrastive_embed_dim=int(raw.get("embed_dim", 256)),
+        temp=float(raw.get("temp", 0.07)),
+        freeze_vit=bool(raw.get("freeze_vit", False)),
+        freeze_text_decoder=bool(raw.get("freeze_text_decoder", True)))
+    sched = dict(raw.get("schedular", raw.get("scheduler", {})))
     return RunConfig(
-        raw=raw, model=model,
+        raw=raw, model=model, optimizer=_optimizer_config(raw, model),
         batch_size=int(raw.get("batch_size", 8)),
         max_length=int(raw.get("max_length", 80)),
         num_frames=num_frames,
         image_res=int(raw.get("image_res", vision.img_size)),
-        prompt=str(raw.get("prompt", "") or ""))
+        prompt=str(raw.get("prompt", "") or ""),
+        epochs=int(sched.get("epochs", raw.get("epochs", 10))),
+        update_freq=int(raw.get("update_freq", 1)))
 
 
 def flagship_config(tiny: bool = False) -> MPLUGVideoConfig:
     """The repo's flagship model (``__graft_entry__._flagship_cfg``):
-    TimeSformer ViT-B/16 (12 heads of 64, 8 frames at 224 px), 128
-    learnable queries, GPT-3 1.3B (24 layers, hidden 2048, 32 heads of
-    64, vocab 51200).  ``tiny``: the same structure at test size."""
+    TimeSformer ViT-B/16 (12 heads of 64, 8 frames at 224 px, every sixth
+    block checkpointed), 128 learnable queries, GPT-3 1.3B (24 layers,
+    hidden 2048, 32 heads of 64, vocab 51200, no dropout, every layer
+    checkpointed, CE chunk 32).  ``tiny``: the same structure at test
+    size."""
     if tiny:
         return MPLUGVideoConfig(
             vision=VisionConfig(img_size=32, patch_size=16, embed_dim=64,
@@ -87,14 +125,17 @@ def flagship_config(tiny: bool = False) -> MPLUGVideoConfig:
                                 mlp_ratio=2.0),
             text=GPT3Config(vocab_size=256, hidden_size=64,
                             num_hidden_layers=2, num_attention_heads=4,
-                            max_position_embeddings=256),
-            num_learnable_token=8)
+                            max_position_embeddings=256, hidden_dropout=0.0,
+                            attention_dropout=0.0),
+            num_learnable_token=8, contrastive_embed_dim=32)
     return MPLUGVideoConfig(
         vision=VisionConfig(img_size=224, patch_size=16, embed_dim=768,
                             depth=12, num_heads=12, num_frames=8,
-                            mlp_ratio=4.0),
+                            mlp_ratio=4.0, grad_ckpt=True,
+                            remat_policy="sixth"),
         text=GPT3Config(vocab_size=51200, hidden_size=2048,
                         num_hidden_layers=24, num_attention_heads=32,
                         max_position_embeddings=2048,
-                        layernorm_epsilon=1e-5),
+                        layernorm_epsilon=1e-5, hidden_dropout=0.0,
+                        attention_dropout=0.0, remat=True, ce_chunk=32),
         num_learnable_token=128)

@@ -1,9 +1,10 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in, fp32 softmax.
 //
 // Replaces two Pallas TPU kernels of youku_mplug_tpu/ops/flash_attention.py:
-//   - _fwd_kernel_packed (packed [B, S, n*d] layout; mask modes none and
-//     period, i.e. (qi // p) == (ki // p)),
-//   - _fwd_kernel (head-major [B, H, S, D] with a static kv_len key mask).
+//   - _fwd_kernel_packed (packed [B, S, n*d] layout; mask modes none,
+//     period, i.e. (qi // p) == (ki // p), and causal, qi >= ki),
+//   - _fwd_kernel (head-major [B, H, S, D] with a static kv_len key mask,
+//     and the same causal mode).
 // Both compute O = softmax(Q K^T * scale) V with an fp32 online softmax and
 // write O plus the fp32 log-sum-exp.  The packed layout is only a strided
 // view of [B, S, n, d], so one kernel serves both: the caller passes the
@@ -14,12 +15,14 @@
 // the score and PV products are small, so the kernel is bound by the
 // latency of staging K/V tiles through shared memory and by the softmax
 // arithmetic on the CUDA cores, not by HBM bytes (each K/V tile is read
-// once per 64-row query tile, and Q/O once).  The design keeps the [Sq, Sk]
+// once per 64-row query tile, and Q/O once).  The decoder's causal
+// attention (S = 208) is the same shape of work at half the key tiles.  The design keeps the [Sq, Sk]
 // score matrix out of device memory (the point of the Pallas kernel too),
 // runs both products on the tensor cores (WMMA 16x16x16 bf16 -> fp32), and
 // masks the ragged sequence edge in-kernel instead of padding copies.  In
 // period mode it walks only the key tiles that hold the query tile's own
-// period groups, where the TPU kernel swept the whole sequence.  TMA,
+// period groups, where the TPU kernel swept the whole sequence; in causal
+// mode query tile i walks key tiles 0..i only, as the TPU kernel does.  TMA,
 // wgmma and a multi-stage K/V ring are left for a later version.
 //
 // Block: one (query tile of 64 rows, head, batch); 4 warps, 16 query rows
@@ -80,7 +83,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  long long q_sh, long long q_ss, long long k_sb,
                  long long k_sh, long long k_ss, long long v_sb,
                  long long v_sh, long long v_ss, long long o_sb,
-                 long long o_sh, long long o_ss, float scale, int period) {
+                 long long o_sh, long long o_ss, float scale, int period,
+                 int causal) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
@@ -90,11 +94,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
 
-  // Keys this tile can see: [0, kv_len), narrowed in period mode to the
-  // period groups of rows q0 .. q_last.
+  // Keys this tile can see: [0, kv_len), narrowed in causal mode to keys
+  // up to q_last and in period mode to the period groups of rows q0 ..
+  // q_last.
+  const int q_last = min(q0 + kBQ, Sq) - 1;
   int k_lo = 0, k_hi = kv_len;
+  if (causal) k_hi = min(k_hi, q_last + 1);
   if (period > 0) {
-    const int q_last = min(q0 + kBQ, Sq) - 1;
     k_lo = (q0 / period) * period;
     k_hi = min(k_hi, (q_last / period + 1) * period);
   }
@@ -148,7 +154,8 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     for (int c = 0; c < 32; ++c) {
       const int col = half * 32 + c;
       const int ki = kt0 + col;
-      const bool ok = ki < kv_len && (period == 0 || ki / period == qg);
+      const bool ok = ki < kv_len && (!causal || ki <= qi) &&
+                      (period == 0 || ki / period == qg);
       const float x = ok ? s_w[r * kLds + col] * scale : -INFINITY;
       sv[c] = x;
       mx = fmaxf(mx, x);
@@ -225,13 +232,15 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 // C entry point (loaded with ctypes).  Strides are in elements; lse is a
 // contiguous fp32 [B, H, Sq] buffer.  Keys at or past kv_len are masked
 // (the caller passes kv_len = Sk for no key mask); period > 0 selects the
-// block-diagonal period mask.  Returns cudaGetLastError() after the launch.
+// block-diagonal period mask and causal != 0 the causal mask (Sq == Sk).
+// Returns cudaGetLastError() after the launch.
 extern "C" int ymt_flash_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int Sq, int Sk, int kv_len, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
-    long long o_sh, long long o_ss, float scale, int period, void* stream) {
+    long long o_sh, long long o_ss, float scale, int period, int causal,
+    void* stream) {
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -247,6 +256,6 @@ extern "C" int ymt_flash_fwd_bf16(
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
       static_cast<float*>(lse), H, Sq, Sk, kv_len, q_sb, q_sh, q_ss, k_sb,
-      k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, period);
+      k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, period, causal);
   return (int)cudaGetLastError();
 }

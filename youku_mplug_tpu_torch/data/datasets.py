@@ -1,8 +1,9 @@
-"""Synthetic clips for smoke runs and tests.
+"""Synthetic clips and captions for smoke runs and tests.
 
-The clips of ``youku_mplug_tpu.data.datasets.SyntheticVideoDataset``, bit
-for bit (the same per-index numpy generator), without importing the JAX
-package.  Decoding real video files is not ported yet.
+The samples of ``youku_mplug_tpu.data.datasets.SyntheticVideoDataset``,
+bit for bit (the same per-index numpy generator, the same caption, label
+and id fields), without importing the JAX package.  Decoding real video
+files is not ported yet.
 """
 
 from __future__ import annotations
@@ -11,13 +12,18 @@ import numpy as np
 
 
 class SyntheticVideoDataset:
-    """Procedural uint8 (T, H, W, 3) clips, one per index."""
+    """Procedural uint8 (T, H, W, 3) clips with a caption, one per
+    index."""
 
     def __init__(self, length: int = 64, num_frames: int = 8,
-                 size: int = 224):
+                 size: int = 224, num_classes: int = 5):
         self.length = length
         self.num_frames = num_frames
         self.size = size
+        self.num_classes = num_classes
+
+    def set_epoch(self, epoch):
+        pass
 
     def __len__(self):
         return self.length
@@ -28,4 +34,9 @@ class SyntheticVideoDataset:
         base = rng.integers(0, 255, size=(1, s, s, 3), dtype=np.uint8)
         drift = np.arange(t, dtype=np.int16)[:, None, None, None] * 3
         clip = ((base.astype(np.int16) + drift) % 256).astype(np.uint8)
-        return {"video": clip, "video_id": str(index)}
+        label = index % self.num_classes
+        return {"video": clip,
+                "text": f"synthetic clip {index} class {label}",
+                "label": label, "match_id": index, "index": index,
+                "golden": [f"synthetic clip {index}"],
+                "video_id": str(index)}

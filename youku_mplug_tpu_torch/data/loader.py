@@ -1,0 +1,55 @@
+"""Single-process batch loader in ``ShardedLoader``'s order.
+
+Counterpart of ``youku_mplug_tpu.data.loader.ShardedLoader`` on one host
+(which there reads the process index from jax), with the options the
+pretrain loop uses: the epoch's order is
+``np.random.default_rng(seed * 100_003 + epoch).permutation(n)``, the
+last partial batch is dropped, and samples are collated the same way
+(arrays stacked, ints to int32, floats to float32, anything else kept
+as a list).  No worker threads: the host makes each batch between two
+train steps.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Iterator, List
+
+import numpy as np
+
+
+def collate(samples: List[dict]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key in samples[0]:
+        vals = [s[key] for s in samples]
+        if isinstance(vals[0], np.ndarray):
+            out[key] = np.stack(vals)
+        elif isinstance(vals[0], (int, np.integer)):
+            out[key] = np.asarray(vals, np.int32)
+        elif isinstance(vals[0], float):
+            out[key] = np.asarray(vals, np.float32)
+        else:
+            out[key] = vals
+    return out
+
+
+class Loader:
+    def __init__(self, dataset, batch_size: int, *, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        order = np.random.default_rng(
+            self.seed * 100_003 + self.epoch).permutation(len(self.dataset))
+        for i in range(len(self)):
+            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
+            yield collate([self.dataset[int(j)] for j in idx])

@@ -1,13 +1,18 @@
-"""GPT-3 decoder for serving: prefill and decode over the stacked cache.
+"""GPT-3 decoder: the full-sequence training forward, and prefill and
+decode over the stacked cache for serving.
 
-Counterpart of ``youku_mplug_tpu/models/gpt3.py`` (the cache path).
+Counterpart of ``youku_mplug_tpu/models/gpt3.py``.
 Parameters keep the JAX names and shapes — fused ``qkv_kernel
 [H, 3, n, d]``, ``out_kernel [n, d, H]`` — and the JAX package's scanned
 layer stack stays a leading ``[L]`` dimension on every layer parameter;
 the layers run as a Python loop that indexes it.
 
 Numerics: fp32 layernorms, fp32 attention softmax, tanh-GELU, fp32 logits
-from the tied embedding.  The cache is ``[L, B, M, 2*hidden]`` with rows
+from the tied embedding.  Training runs the whole sequence through the
+causal flash kernel (padded text positions stay keys; only the loss mask
+drops them), each layer under ``torch.utils.checkpoint`` when
+``remat``; dropout is not ported, so training with a dropout rate above
+0 raises.  The cache is ``[L, B, M, 2*hidden]`` with rows
 [K | V] taken straight from the qkv projection's output (``qkv[..., n*d:]``);
 the new rows are written in place before attention reads them.
 """
@@ -21,10 +26,16 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
 from youku_mplug_tpu_torch.ops.attention import NEG_INF, mha_reference
+from youku_mplug_tpu_torch.ops.cross_entropy import (
+    lm_cross_entropy,
+    masked_mean_loss,
+)
 from youku_mplug_tpu_torch.ops.decode_attention import decode_attention
+from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
@@ -32,7 +43,8 @@ from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 @dataclasses.dataclass(frozen=True)
 class GPT3Config:
     """Decoder hyperparameters; JSON layout of configs/models/
-    config_gpt3_*.json (the fields the serving path reads)."""
+    config_gpt3_*.json (the fields the serving and training paths
+    read)."""
 
     vocab_size: int = 25600
     hidden_size: int = 768
@@ -41,6 +53,11 @@ class GPT3Config:
     num_attention_heads: int = 12
     max_position_embeddings: int = 2048
     layernorm_epsilon: float = 1e-12
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+    init_method_std: float = 0.02
+    remat: bool = False  # checkpoint each layer in training
+    ce_chunk: int = 0    # sequence chunk of the LM loss (0: dense)
 
     @property
     def ffn_dim(self) -> int:
@@ -63,6 +80,9 @@ class GPT3Config:
             num_attention_heads=raw.get("num_attention_heads", 12),
             max_position_embeddings=raw.get("max_position_embeddings", 2048),
             layernorm_epsilon=raw.get("layernorm_epsilon", 1e-12),
+            hidden_dropout=raw.get("hidden_dropout_prob", 0.1),
+            attention_dropout=raw.get("attention_probs_dropout_prob", 0.1),
+            init_method_std=raw.get("initializer_range", 0.02),
         )
         mapped.update(overrides)
         return cls(**mapped)
@@ -88,12 +108,15 @@ class GPT3Attention(nn.Module):
         self.out_kernel = _param(num_layers, n, d, h, dtype=dtype)
         self.out_bias = _param(num_layers, h, dtype=dtype)
 
-    def forward(self, x, lidx: int, cache: torch.Tensor, cache_len: CacheLen,
+    def forward(self, x, lidx: int, cache: Optional[torch.Tensor] = None,
+                cache_len: CacheLen = 0,
                 valid_from: Optional[torch.Tensor] = None):
-        """x [B, S, H] -> [B, S, H].  Writes this chunk's K|V rows into
+        """x [B, S, H] -> [B, S, H].  Without a cache: causal attention over
+        the whole sequence, q/k/v packed slices of the qkv projection into
+        the flash kernel.  With one: writes this chunk's K|V rows into
         layer ``lidx`` of ``cache`` at ``cache_len`` (int, or [B] per-sample
-        positions), then attends to keys ``valid_from <= j <= position``.
-        S == 1 reads the cache in place through the decode kernel; a
+        positions), then attends to keys ``valid_from <= j <= position``;
+        S == 1 reads the cache in place through the decode kernel, a
         longer chunk (prefill) runs plain attention over the layer view."""
         n, d, h = self.n, self.d, self.h
         nd = n * d
@@ -101,33 +124,43 @@ class GPT3Attention(nn.Module):
         dt = x.dtype
         qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
         qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
-        kvc.cache_write(cache, qkv[..., nd:], cache_len, lidx)  # rows [K | V]
-        if s == 1:
-            out = decode_attention(qkv[:, 0, :nd], cache, n, lidx, cache_len,
-                                   valid_from)[:, None]
+        if cache is None:
+            out = flash_attention_packed(qkv[..., :nd], qkv[..., nd:2 * nd],
+                                         qkv[..., 2 * nd:], n, causal=True)
         else:
-            ckv = kvc.layer_slice(cache, lidx)  # [B, M, 2nd] view
-            m = ckv.shape[1]
-            q = qkv[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
-            ck = ckv[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
-            cv = ckv[..., nd:].unflatten(-1, (n, d)).transpose(1, 2)
-            ki = torch.arange(m, device=x.device)
-            steps = torch.arange(s, device=x.device)
-            if isinstance(cache_len, int):
-                qi = (cache_len + steps)[None, :, None]          # [1, S, 1]
-            else:
-                qi = (cache_len.to(x.device)[:, None, None]
-                      + steps[None, :, None])
-            allowed = ki[None, None, :] <= qi                    # [B|1, S, M]
-            if valid_from is not None:
-                allowed = allowed & (ki[None, None, :]
-                                     >= valid_from[:, None, None])
-            bias = torch.zeros(allowed.shape, dtype=torch.float32,
-                               device=x.device).masked_fill(~allowed, NEG_INF)
-            out = mha_reference(q, ck, cv, bias=bias[:, None])
-            out = out.transpose(1, 2).reshape(b, s, nd)
+            kvc.cache_write(cache, qkv[..., nd:], cache_len, lidx)  # [K | V]
+            out = self._cache_attention(qkv, lidx, cache, cache_len,
+                                        valid_from)
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
         return y + self.out_bias[lidx].to(dt)
+
+    def _cache_attention(self, qkv, lidx, cache, cache_len, valid_from):
+        n, d = self.n, self.d
+        nd = n * d
+        b, s, _ = qkv.shape
+        if s == 1:
+            return decode_attention(qkv[:, 0, :nd], cache, n, lidx, cache_len,
+                                    valid_from)[:, None]
+        ckv = kvc.layer_slice(cache, lidx)  # [B, M, 2nd] view
+        m = ckv.shape[1]
+        q = qkv[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
+        ck = ckv[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
+        cv = ckv[..., nd:].unflatten(-1, (n, d)).transpose(1, 2)
+        ki = torch.arange(m, device=qkv.device)
+        steps = torch.arange(s, device=qkv.device)
+        if isinstance(cache_len, int):
+            qi = (cache_len + steps)[None, :, None]              # [1, S, 1]
+        else:
+            qi = (cache_len.to(qkv.device)[:, None, None]
+                  + steps[None, :, None])
+        allowed = ki[None, None, :] <= qi                        # [B|1, S, M]
+        if valid_from is not None:
+            allowed = allowed & (ki[None, None, :]
+                                 >= valid_from[:, None, None])
+        bias = torch.zeros(allowed.shape, dtype=torch.float32,
+                           device=qkv.device).masked_fill(~allowed, NEG_INF)
+        out = mha_reference(q, ck, cv, bias=bias[:, None])
+        return out.transpose(1, 2).reshape(b, s, nd)
 
 
 class GPT3MLP(nn.Module):
@@ -162,7 +195,7 @@ class GPT3Layer(nn.Module):
         self.attn = GPT3Attention(cfg, num_layers, dtype)
         self.mlp = GPT3MLP(cfg, num_layers, dtype)
 
-    def forward(self, x, lidx: int, cache, cache_len, valid_from=None):
+    def forward(self, x, lidx: int, cache=None, cache_len=0, valid_from=None):
         a = layer_norm(x, self.ln1_scale[lidx], self.ln1_bias[lidx],
                        eps=self.eps)
         x = x + self.attn(a, lidx, cache, cache_len, valid_from)
@@ -184,12 +217,23 @@ class GPT3Decoder(nn.Module):
         self.ln_f_scale = _param(cfg.hidden_size, dtype=dt)
         self.ln_f_bias = _param(cfg.hidden_size, dtype=dt)
 
-    def forward(self, input_embeds, positions, *, cache, cache_len,
+    def forward(self, input_embeds, positions, *, cache=None, cache_len=0,
                 valid_from=None):
+        cfg = self.cfg
+        if cache is None and self.training and (
+                cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
+            raise NotImplementedError(
+                f"dropout (hidden {cfg.hidden_dropout}, attention "
+                f"{cfg.attention_dropout}) is not ported yet: train with "
+                "hidden_dropout = attention_dropout = 0")
         x = input_embeds + F.embedding(positions, self.position_embeddings
                                        ).to(input_embeds.dtype)
-        for lidx in range(self.cfg.num_hidden_layers):
-            x = self.layers(x, lidx, cache, cache_len, valid_from)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
+        for lidx in range(cfg.num_hidden_layers):
+            if remat:
+                x = checkpoint(self.layers, x, lidx, use_reentrant=False)
+            else:
+                x = self.layers(x, lidx, cache, cache_len, valid_from)
         return layer_norm(x, self.ln_f_scale, self.ln_f_bias,
                           eps=self.cfg.layernorm_epsilon)
 
@@ -212,7 +256,8 @@ class TiedEmbedding(nn.Module):
 
 
 class GPT3LM(nn.Module):
-    """Tied-embedding LM over the decoder: the serving entry points."""
+    """Tied-embedding LM over the decoder: the training forward with the
+    masked-mean LM loss, and the serving entry points."""
 
     def __init__(self, cfg: GPT3Config, policy: Policy = DEFAULT_POLICY):
         super().__init__()
@@ -226,6 +271,31 @@ class GPT3LM(nn.Module):
 
     def logits(self, hidden):
         return self.word_embeddings.attend(hidden)
+
+    def forward(self, tokens=None, input_embeds=None, labels=None,
+                loss_mask=None, positions=None):
+        """Full-sequence causal forward.  Returns ``last_hidden_state``;
+        with ``labels`` (already shifted) the fp32 per-position
+        ``losses`` [B, S]; with a ``loss_mask`` too, ``loss``: the masked
+        mean over ``losses[:, :-1]`` (the last position is dropped)."""
+        if input_embeds is None:
+            input_embeds = self.embed(tokens)
+        else:
+            input_embeds = input_embeds.to(self.policy.compute_dtype)
+        b, s, _ = input_embeds.shape
+        if positions is None:
+            positions = torch.arange(s, device=input_embeds.device
+                                     )[None].expand(b, s)
+        hidden = self.decoder(input_embeds, positions)
+        out = {"last_hidden_state": hidden}
+        if labels is not None:
+            losses = lm_cross_entropy(
+                hidden, self.word_embeddings.embedding, labels,
+                chunk=self.cfg.ce_chunk)
+            out["losses"] = losses
+            if loss_mask is not None:
+                out["loss"] = masked_mean_loss(losses[:, :-1], loss_mask)
+        return out
 
     def init_cache(self, batch: int, max_len: int, device=None):
         """Stacked cache [L, B, M, 2*hidden], M rounded up to a multiple of

@@ -1,7 +1,8 @@
 """Video encoder: TimeSformer (divided space-time attention) and the
 AttentionPool visual abstractor.
 
-Counterpart of ``youku_mplug_tpu/models/vision.py`` (inference forward).
+Counterpart of ``youku_mplug_tpu/models/vision.py`` (forward; training
+through autograd, with the attention backward on the flash kernels).
 Parameters keep the JAX package's names and shapes, so loading a JAX tree
 is a rename (``youku_mplug_tpu_torch/bridge.py``).  The behaviours a port
 can lose silently, all kept here:
@@ -15,6 +16,13 @@ can lose silently, all kept here:
   output projection in fp32 before the cast to the compute dtype;
 - AttentionPool appends learnable ``bias_k`` / ``bias_v`` as one extra
   key, and its residual base is the *normed* queries.
+
+Under ``grad_ckpt`` the blocks ``i % stride == 0`` run under
+``torch.utils.checkpoint`` (stride 2/3/6/12 for ``remat_policy``
+half/third/sixth/twelfth, else 1), as the JAX package remats them; its
+named-save inner policies are XLA's and are not ported (a checkpointed
+block recomputes everything).  Dropout and drop-path are not ported:
+training with a rate above 0 raises.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from youku_mplug_tpu_torch.ops.attention import dot_product_attention
 from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
@@ -35,8 +44,8 @@ from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 @dataclasses.dataclass(frozen=True)
 class VisionConfig:
-    """The serving-relevant fields of the JAX ``VisionConfig`` (same JSON
-    contract, configs/models/{vit,clip}-*.json)."""
+    """The fields of the JAX ``VisionConfig`` that serving and training
+    read (same JSON contract, configs/models/{vit,clip}-*.json)."""
 
     img_size: int = 224
     patch_size: int = 16
@@ -49,6 +58,11 @@ class VisionConfig:
     gelu: str = "tanh"  # "tanh" | "erf" | "quick"
     clip_model: bool = False
     ln_eps: float = 1e-6
+    drop_path: float = 0.0
+    drop_rate: float = 0.0
+    attn_drop_rate: float = 0.0
+    grad_ckpt: bool = False
+    remat_policy: str = "nothing"  # "half" | "third" | "sixth" | "twelfth"
 
     def __post_init__(self):
         if self.clip_model:
@@ -59,6 +73,13 @@ class VisionConfig:
     @property
     def num_patches(self) -> int:
         return (self.img_size // self.patch_size) ** 2
+
+    @property
+    def remat_stride(self) -> int:
+        """Checkpoint every stride-th block under ``grad_ckpt``
+        (``vision.py:594-601`` of the JAX package)."""
+        key = self.remat_policy.split(":", 1)[0]
+        return {"half": 2, "third": 3, "sixth": 6, "twelfth": 12}.get(key, 1)
 
     @classmethod
     def from_json_file(cls, path: str, **overrides) -> "VisionConfig":
@@ -239,6 +260,12 @@ class TimeSformer(nn.Module):
         self.norm = LayerNormFP32(d, cfg.ln_eps, dt)
 
     def forward(self, video):
+        cfg = self.cfg
+        if self.training and (cfg.drop_path > 0 or cfg.drop_rate > 0
+                              or cfg.attn_drop_rate > 0):
+            raise NotImplementedError(
+                "vision dropout / drop-path is not ported yet: train with "
+                "drop_path = drop_rate = attn_drop_rate = 0")
         b, c, t, hh, ww = video.shape
         d = self.cfg.embed_dim
         p = self.cfg.patch_size
@@ -254,8 +281,12 @@ class TimeSformer(nn.Module):
                + self.pos_embed[:, :1, :]).to(x.dtype)[:, 0]
 
         x = x.reshape(b, t, n_p, d).transpose(1, 2)  # n-major for the blocks
-        for blk in self.blocks:
-            x, cls = blk(x, cls)
+        remat = cfg.grad_ckpt and torch.is_grad_enabled()
+        for i, blk in enumerate(self.blocks):
+            if remat and i % cfg.remat_stride == 0:
+                x, cls = checkpoint(blk, x, cls, use_reentrant=False)
+            else:
+                x, cls = blk(x, cls)
         x = x.transpose(1, 2).reshape(b, t * n_p, d)  # back to time-major
         tokens = self.norm(torch.cat([cls[:, None, :], x], dim=1))
         return tokens[:, 0], tokens

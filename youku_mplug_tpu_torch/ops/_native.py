@@ -1,8 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
 The sources in ``youku_mplug_tpu_torch/csrc/*.cu`` have a plain C interface
-and are compiled by ``nvcc`` for Hopper (``sm_90a``) into one shared
-library, loaded with ``ctypes``.  The build happens at the first kernel
+and are compiled by ``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` per
+source, all started together, then linked into one shared library loaded
+with ``ctypes``.  The build happens at the first kernel
 launch of a process (never at import), into
 ``build/kernels/<hash of sources and flags>/`` at the repository root, so a
 fresh checkout builds everything on first use and an edited source never
@@ -24,9 +25,10 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCES = ("flash_fwd.cu", "decode_attention.cu")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas=-v")
 BUILD_ROOT = _PKG.parent / "build" / "kernels"
 
 _P = ctypes.c_void_p
@@ -34,7 +36,11 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "ymt_flash_fwd_bf16": [_P] * 5 + [_I] * 5 + [_LL] * 12 + [_F, _I, _P],
+    "ymt_flash_fwd_bf16": [_P] * 5 + [_I] * 5 + [_LL] * 12 + [_F, _I, _I, _P],
+    "ymt_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 5 + [_LL] * 15
+    + [_F, _I, _I, _P],
+    "ymt_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 18
+    + [_F, _I, _I, _P],
     "ymt_decode_attention_bf16": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _LL,
                                   _F, _P],
 }
@@ -70,18 +76,30 @@ def build() -> tuple[Path, float, str]:
     if so.exists():
         return so, 0.0, (so.parent / "nvcc.log").read_text()
     so.parent.mkdir(parents=True, exist_ok=True)
-    srcs = [str(_PKG / "csrc" / name) for name in _SOURCES]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
     # compile to a private name, then rename: a concurrent process never
     # sees (or loads) a half-written library
     with tempfile.TemporaryDirectory(dir=so.parent) as tmp:
+        objs = [Path(tmp) / (name + ".o") for name in _SOURCES]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(_PKG / "csrc" / name), "-o",
+             str(obj)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for name, obj in zip(_SOURCES, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(name, proc.returncode, log) for name, proc, log
+                  in zip(_SOURCES, procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
         out = Path(tmp) / so.name
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(out), *srcs],
-                              capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stdout}\n{proc.stderr}")
-        (so.parent / "nvcc.log").write_text(proc.stdout + proc.stderr)
+        link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(out),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}\n{link.stderr}")
+        (so.parent / "nvcc.log").write_text("".join(logs))
         os.replace(out, so)
     return so, time.perf_counter() - t0, (so.parent / "nvcc.log").read_text()
 

@@ -51,16 +51,18 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           scale: Optional[float] = None) -> torch.Tensor:
     """Dispatched attention. q, k, v: [B, H, S, D].
 
-    Non-causal, unbiased attention with at least one 128-row query block
-    and at most a static ``kv_len`` goes to the flash kernel
+    Unbiased attention, causal or not, with at least one 128-row query
+    block and at most a static ``kv_len`` goes to the flash kernel
     (``flash_attention``; the same rule under which the JAX package uses
-    its Pallas kernel).  Everything else runs ``mha_reference``."""
-    use_flash = (bias is None and not causal and q.shape[2] >= 128
+    its Pallas kernel, which also requires Sq == Sk when causal).
+    Everything else runs ``mha_reference``."""
+    use_flash = (bias is None and q.shape[2] >= 128
                  and not isinstance(kv_len, torch.Tensor))
     if use_flash:
         from youku_mplug_tpu_torch.ops.flash_attention import flash_attention
 
-        return flash_attention(q, k, v, kv_len=kv_len, scale=scale)
+        return flash_attention(q, k, v, causal=causal, kv_len=kv_len,
+                               scale=scale)
     if isinstance(kv_len, int):
         kv_len = torch.full((q.shape[0],), kv_len, device=q.device)
     return mha_reference(q, k, v, causal=causal, kv_len=kv_len, bias=bias,

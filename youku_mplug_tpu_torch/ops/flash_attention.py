@@ -1,21 +1,26 @@
-"""Flash attention forward on a hand-written Hopper kernel.
+"""Flash attention, forward and backward, on hand-written Hopper kernels.
 
-Counterpart of ``youku_mplug_tpu/ops/flash_attention.py`` (forward only).
-Two public wrappers share one strided CUDA kernel
-(``csrc/flash_fwd.cu``), because the packed ``[B, S, n*d]`` layout is only
-a strided view of ``[B, S, n, d]``:
+Counterpart of ``youku_mplug_tpu/ops/flash_attention.py``.  Three strided
+CUDA kernels serve both public wrappers, because the packed
+``[B, S, n*d]`` layout is only a strided view of ``[B, S, n, d]``:
 
-- ``flash_attention_packed`` replaces ``_fwd_kernel_packed`` (the vision
-  tower's spatial attention, mask mode none, and its grouped temporal
-  attention, mask mode ``period``);
-- ``flash_attention`` replaces ``_fwd_kernel`` (head-major ``[B, H, S, D]``
-  with a static ``kv_len``; AttentionPool's cross-attention).
+- the forward (``csrc/flash_fwd.cu``) replaces ``_fwd_kernel_packed``
+  (mask modes none, ``period`` and causal: the vision tower's spatial and
+  grouped temporal attention, the decoder's training attention) and
+  ``_fwd_kernel`` (head-major ``[B, H, S, D]``, static ``kv_len``, causal;
+  AttentionPool's cross-attention);
+- the backward (``csrc/flash_bwd.cu``: a dq kernel and a dk/dv kernel)
+  replaces ``_bwd_dq_kernel[_packed]`` and ``_bwd_dkv_kernel[_packed]``,
+  the FlashAttention-2 recipe with p rebuilt from (q, k, lse).
 
-Each wrapper runs its plain PyTorch version (``*_plain``) for CPU
-tensors and launches the kernel for CUDA tensors, or raises; it never
-falls back.  ``<wrapper>.launches`` counts kernel launches.  Causal masks,
-ALiBi and the backward kernels belong to the training slice and are not
-here.
+Both wrappers go through a ``torch.autograd.Function`` that saves
+(q, k, v, o, lse) where a gradient is wanted.  Each runs its
+plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_plain``) for CPU
+tensors and launches the kernels for CUDA tensors, or raises; it never
+falls back.  ``<wrapper>.launches`` counts
+kernel launches: ``flash_attention_packed`` and ``flash_attention`` the
+forward's, ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda`` the
+backward's.  ALiBi is not ported yet.
 """
 
 from __future__ import annotations
@@ -26,31 +31,63 @@ import torch
 
 from youku_mplug_tpu_torch.ops import _native
 
-HEAD_DIM = 64  # the one head width the kernel is built for
+HEAD_DIM = 64  # the one head width the kernels are built for
+
+
+def _allowed(sq: int, sk: int, *, causal: bool, period: int,
+             kv_len: Optional[int], device) -> torch.Tensor:
+    """[Sq, Sk] bool: the keys each query may see."""
+    qi = torch.arange(sq, device=device)[:, None]
+    ki = torch.arange(sk, device=device)[None, :]
+    allowed = torch.ones(sq, sk, dtype=torch.bool, device=device)
+    if kv_len is not None:
+        allowed = allowed & (ki < kv_len)
+    if period > 0:
+        allowed = allowed & ((qi // period) == (ki // period))
+    if causal:
+        allowed = allowed & (ki <= qi)
+    return allowed
 
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, period: int = 0,
+                    scale: float, causal: bool = False, period: int = 0,
                     kv_len: Optional[int] = None):
-    """Plain version of the kernel. q [B,H,Sq,D], k/v [B,H,Sk,D] ->
-    (o [B,H,Sq,D] in q.dtype, lse [B,H,Sq] fp32).  Keys at or past
+    """Plain version of the forward kernel. q [B,H,Sq,D], k/v [B,H,Sk,D]
+    -> (o [B,H,Sq,D] in q.dtype, lse [B,H,Sq] fp32).  Keys at or past
     ``kv_len`` are masked; ``period > 0`` keeps only keys with
-    ``qi // period == ki // period``."""
-    sq, sk = q.shape[2], k.shape[2]
+    ``qi // period == ki // period``; ``causal`` keeps ``ki <= qi``."""
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
-    ki = torch.arange(sk, device=q.device)
-    allowed = torch.ones(sq, sk, dtype=torch.bool, device=q.device)
-    if kv_len is not None:
-        allowed = allowed & (ki < kv_len)[None, :]
-    if period > 0:
-        qi = torch.arange(sq, device=q.device)
-        allowed = allowed & ((qi[:, None] // period)
-                             == (ki[None, :] // period))
+    allowed = _allowed(q.shape[2], k.shape[2], causal=causal, period=period,
+                       kv_len=kv_len, device=q.device)
     s = s.masked_fill(~allowed, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
     return o, lse
+
+
+def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float,
+                    causal: bool = False, period: int = 0,
+                    kv_len: Optional[int] = None):
+    """Plain version of the backward kernels (the FlashAttention-2 recipe,
+    ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``): p = exp(s - lse),
+    dp = dO V^T, dS = p * (dp - delta) * scale with delta = rowsum(dO * O)
+    in fp32; p and dS are cast to the input dtype before their products,
+    which accumulate in fp32.  Same layouts and masks as
+    ``flash_fwd_plain``; returns (dq, dk, dv) in the input dtypes."""
+    dt = q.dtype
+    allowed = _allowed(q.shape[2], k.shape[2], causal=causal, period=period,
+                       kv_len=kv_len, device=q.device)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
+    delta = (do.float() * o.float()).sum(-1)
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = p * (dp - delta[..., None]) * scale
+    p_in, ds_in = p.to(dt).float(), ds.to(dt).float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p_in, do.float())
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds_in, k.float())
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds_in, q.float())
+    return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_operand(name: str, t: torch.Tensor, device) -> None:
@@ -60,37 +97,138 @@ def _check_operand(name: str, t: torch.Tensor, device) -> None:
     if t.shape[-1] != HEAD_DIM:
         raise ValueError(f"flash kernel: head dim must be {HEAD_DIM}; got "
                          f"{t.shape[-1]}")
-    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:-1]) \
-            or t.data_ptr() % 16:
+    if not _strides_ok(t):
         raise ValueError(f"flash kernel: {name} needs a contiguous head dim, "
                          f"16-byte aligned rows; got strides {t.stride()}")
 
 
-def flash_fwd_cuda(q, k, v, o, *, scale: float, period: int = 0,
-                   kv_len: Optional[int] = None) -> torch.Tensor:
-    """Launch the kernel on [B,H,S,64] views (any batch/head/sequence
-    strides), writing ``o`` in place.  Returns the fp32 lse [B,H,Sq]."""
+def _strides_ok(t: torch.Tensor) -> bool:
+    return (t.stride(-1) == 1 and not any(s % 8 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def _check_shapes(q, k, v, *outs, causal: bool) -> None:
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    if k.shape != (b, h, sk, HEAD_DIM) or v.shape != k.shape:
+        raise ValueError(f"flash kernel: shapes q {tuple(q.shape)} k "
+                         f"{tuple(k.shape)} v {tuple(v.shape)}")
+    if causal and sq != sk:
+        raise ValueError("causal flash attention requires Sq == Sk")
+    for t, like in outs:
+        if t.shape != like.shape:
+            raise ValueError(f"flash kernel: output {tuple(t.shape)} != "
+                             f"{tuple(like.shape)}")
+
+
+def _strides(*ts) -> list:
+    return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
+
+
+def _kv(kv_len: Optional[int], sk: int) -> int:
+    return sk if kv_len is None else min(int(kv_len), sk)
+
+
+def flash_fwd_cuda(q, k, v, o, *, scale: float, causal: bool = False,
+                   period: int = 0, kv_len: Optional[int] = None
+                   ) -> torch.Tensor:
+    """Launch the forward kernel on [B,H,S,64] views (any batch/head/
+    sequence strides), writing ``o`` in place.  Returns the fp32 lse
+    [B,H,Sq]."""
     b, h, sq, _ = q.shape
     sk = k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
         _check_operand(name, t, q.device)
-    if k.shape != (b, h, sk, HEAD_DIM) or v.shape != k.shape \
-            or o.shape != q.shape:
-        raise ValueError(f"flash kernel: shapes q {tuple(q.shape)} k "
-                         f"{tuple(k.shape)} v {tuple(v.shape)} o "
-                         f"{tuple(o.shape)}")
+    _check_shapes(q, k, v, (o, q), causal=causal)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return lse
-    kv = sk if kv_len is None else min(int(kv_len), sk)
-    strides = [s for t in (q, k, v, o) for s in
-               (t.stride(0), t.stride(1), t.stride(2))]
     err = _native.library().ymt_flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, h, sq, sk, kv, *strides, float(scale),
-        int(period), _native.stream_handle(q))
+        lse.data_ptr(), b, h, sq, sk, _kv(kv_len, sk), *_strides(q, k, v, o),
+        float(scale), int(period), int(causal), _native.stream_handle(q))
     _native.check_launch(err, "ymt_flash_fwd_bf16")
     return lse
+
+
+def _check_bwd(q, k, v, do, lse, delta, grads, causal):
+    """``grads``: (gradient, the operand whose shape it has) pairs."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        _check_operand(name, t, q.device)
+    for t, _ in grads:
+        _check_operand("gradient", t, q.device)
+    b, h, sq, _ = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or t.shape != (b, h, sq) \
+                or not t.is_contiguous() or t.device != q.device:
+            raise ValueError(f"flash kernel: {name} must be contiguous fp32 "
+                             f"{(b, h, sq)}; got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    _check_shapes(q, k, v, (do, q), *grads, causal=causal)
+
+
+def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, *, scale: float,
+                      causal: bool = False, period: int = 0,
+                      kv_len: Optional[int] = None) -> None:
+    """Launch the dq kernel (one block per 64-query tile, looping over key
+    tiles), writing ``dq`` [B,H,Sq,64] in place."""
+    _check_bwd(q, k, v, do, lse, delta, ((dq, q),), causal)
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    err = _native.library().ymt_flash_bwd_dq_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk,
+        _kv(kv_len, sk), *_strides(q, k, v, do, dq), float(scale),
+        int(period), int(causal), _native.stream_handle(q))
+    _native.check_launch(err, "ymt_flash_bwd_dq_bf16")
+    flash_bwd_dq_cuda.launches += 1
+
+
+flash_bwd_dq_cuda.launches = 0
+
+
+def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, *, scale: float,
+                       causal: bool = False, period: int = 0,
+                       kv_len: Optional[int] = None) -> None:
+    """Launch the dk/dv kernel (one block per 64-key tile, looping over
+    query tiles), writing ``dk`` and ``dv`` [B,H,Sk,64] in place."""
+    _check_bwd(q, k, v, do, lse, delta, ((dk, k), (dv, v)), causal)
+    b, h, sq, _ = q.shape
+    sk = k.shape[2]
+    err = _native.library().ymt_flash_bwd_dkv_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
+        sq, sk, _kv(kv_len, sk), *_strides(q, k, v, do, dk, dv),
+        float(scale), int(period), int(causal), _native.stream_handle(q))
+    _native.check_launch(err, "ymt_flash_bwd_dkv_bf16")
+    flash_bwd_dkv_cuda.launches += 1
+
+
+flash_bwd_dkv_cuda.launches = 0
+
+
+def _head_major_empty(like: torch.Tensor) -> torch.Tensor:
+    """An uninitialised [B, H, S, D] tensor in [B, S, H, D] storage: callers
+    merge heads back (or autograd un-transposes the gradient) for free."""
+    b, h, s, d = like.shape
+    return torch.empty(b, s, h, d, dtype=like.dtype,
+                       device=like.device).transpose(1, 2)
+
+
+def flash_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
+                   causal: bool = False, period: int = 0,
+                   kv_len: Optional[int] = None):
+    """The backward on the card: delta = rowsum(dO * O) in fp32 (a torch
+    op, as the JAX package leaves it to XLA), then the dq kernel and the
+    dk/dv kernel.  Returns (dq, dk, dv) in [B, S, H, D] storage."""
+    if not _strides_ok(do):
+        do = do.contiguous()
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    dq, dk, dv = (_head_major_empty(t) for t in (q, k, v))
+    kw = dict(scale=scale, causal=causal, period=period, kv_len=kv_len)
+    flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, **kw)
+    flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, **kw)
+    return dq, dk, dv
 
 
 def _on_cpu(t: torch.Tensor) -> bool:
@@ -101,63 +239,92 @@ def _on_cpu(t: torch.Tensor) -> bool:
     raise RuntimeError(f"no attention kernel for device {t.device}")
 
 
-def flash_attention_packed_plain(q, k, v, n_heads: int, *, period: int = 0,
+class _Flash(torch.autograd.Function):
+    """Attention over [B, H, S, D] views with the flash backward.  Saves
+    (q, k, v, o, lse); the plain versions run for CPU tensors, the kernels
+    for CUDA tensors (each forward launch adds one to
+    ``counter.launches``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kw, counter):
+        if _on_cpu(q):
+            o, lse = flash_fwd_plain(q, k, v, **kw)
+        else:
+            o = _head_major_empty(q)
+            lse = flash_fwd_cuda(q, k, v, o, **kw)
+            counter.launches += 1
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_bwd_plain if _on_cpu(q) else flash_bwd_cuda
+        dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.kw)
+        return dq, dk, dv, None, None
+
+
+def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """[B, S, n*d] -> a [B, n, S, d] view."""
+    return t.unflatten(-1, (n_heads, t.shape[-1] // n_heads)).transpose(1, 2)
+
+
+def flash_attention_packed_plain(q, k, v, n_heads: int, *,
+                                 causal: bool = False, period: int = 0,
                                  scale: Optional[float] = None):
-    """Plain version of ``flash_attention_packed`` (same arguments)."""
+    """Plain version of ``flash_attention_packed`` (same arguments; plain
+    torch ops, so autograd differentiates it directly)."""
     b, sq, nd = q.shape
     d = nd // n_heads
-    q4, k4, v4 = (t.unflatten(-1, (n_heads, d)).transpose(1, 2)
-                  for t in (q, k, v))
-    o4, _ = flash_fwd_plain(q4, k4, v4, scale=scale or d ** -0.5,
+    o4, _ = flash_fwd_plain(*(_heads(t, n_heads) for t in (q, k, v)),
+                            scale=scale or d ** -0.5, causal=causal,
                             period=period)
     return o4.transpose(1, 2).reshape(b, sq, nd)
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           n_heads: int, *, period: int = 0,
+                           n_heads: int, *, causal: bool = False,
+                           period: int = 0,
                            scale: Optional[float] = None) -> torch.Tensor:
-    """Non-causal attention over packed [B, S, n_heads*d] q/k/v (views of
-    a wider projection are fine); ``period > 0`` is the block-diagonal
-    mask of the grouped temporal attention.  Returns [B, Sq, n_heads*d]."""
-    if _on_cpu(q):
-        return flash_attention_packed_plain(q, k, v, n_heads, period=period,
-                                            scale=scale)
+    """Attention over packed [B, S, n_heads*d] q/k/v (views of a wider
+    projection are fine); ``period > 0`` is the block-diagonal mask of the
+    grouped temporal attention, ``causal`` the decoder's mask (Sq == Sk).
+    Returns [B, Sq, n_heads*d]."""
     b, sq, nd = q.shape
     d = nd // n_heads
-    q4, k4, v4 = (t.unflatten(-1, (n_heads, d)).transpose(1, 2)
-                  for t in (q, k, v))
-    out = torch.empty(b, sq, nd, dtype=q.dtype, device=q.device)
-    flash_fwd_cuda(q4, k4, v4, out.unflatten(-1, (n_heads, d)).transpose(1, 2),
-                   scale=scale or d ** -0.5, period=period)
-    flash_attention_packed.launches += 1
-    return out
+    o4 = _Flash.apply(*(_heads(t, n_heads) for t in (q, k, v)),
+                      dict(scale=scale or d ** -0.5, causal=bool(causal),
+                           period=int(period), kv_len=None),
+                      flash_attention_packed)
+    return o4.transpose(1, 2).reshape(b, sq, nd)
 
 
 flash_attention_packed.launches = 0
 
 
-def flash_attention_plain(q, k, v, *, kv_len: Optional[int] = None,
+def flash_attention_plain(q, k, v, *, causal: bool = False,
+                          kv_len: Optional[int] = None,
                           scale: Optional[float] = None):
     """Plain version of ``flash_attention`` (same arguments)."""
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError("causal flash attention requires Sq == Sk")
     return flash_fwd_plain(q, k, v, scale=scale or q.shape[-1] ** -0.5,
-                           kv_len=kv_len)[0]
+                           causal=causal, kv_len=kv_len)[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    kv_len: Optional[int] = None,
+                    causal: bool = False, kv_len: Optional[int] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Non-causal attention over head-major [B, H, S, D] (any strides with
-    a contiguous D).  ``kv_len`` (static int): keys at or past it are
-    masked.  Returns [B, H, Sq, D]."""
-    if _on_cpu(q):
-        return flash_attention_plain(q, k, v, kv_len=kv_len, scale=scale)
-    b, h, sq, d = q.shape
-    # [B, Sq, H, D] storage: callers merge heads back with a free reshape
-    out = torch.empty(b, sq, h, d, dtype=q.dtype,
-                      device=q.device).transpose(1, 2)
-    flash_fwd_cuda(q, k, v, out, scale=scale or d ** -0.5, kv_len=kv_len)
-    flash_attention.launches += 1
-    return out
+    """Attention over head-major [B, H, S, D] (any strides with a
+    contiguous D).  ``kv_len`` (static int): keys at or past it are
+    masked; ``causal`` requires Sq == Sk.  Returns [B, H, Sq, D]."""
+    if causal and q.shape[2] != k.shape[2]:
+        raise ValueError("causal flash attention requires Sq == Sk")
+    return _Flash.apply(q, k, v, dict(scale=scale or q.shape[-1] ** -0.5,
+                                      causal=bool(causal), period=0,
+                                      kv_len=kv_len), flash_attention)
 
 
 flash_attention.launches = 0

@@ -1,0 +1,81 @@
+"""The train step: gradient accumulation, global-norm clipping and the
+non-finite skip.
+
+Counterpart of ``youku_mplug_tpu/train/trainer.py``.  One step:
+
+- ``update_freq > 1`` splits the batch's leading dim into that many
+  micro-batches, sums their gradients and divides by ``update_freq``
+  (the loss and scalar metrics are micro-batch means);
+- ``grad_norm`` is the global L2 norm over the trainable leaves, taken
+  before clipping;
+- a non-finite loss or ``grad_norm`` skips the update whole: parameters,
+  the optimizer's moments and its update count stay as they were (the
+  step counter still advances);
+- otherwise the gradients are clipped to ``clip_grad`` (optax's
+  ``g / norm * clip`` when ``norm >= clip``) and the optimizer steps.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import torch
+
+from youku_mplug_tpu_torch.train.state import TrainState
+
+
+def _split(batch: Dict, parts: int):
+    """Dict of [B, ...] arrays or tensors -> ``parts`` dicts of
+    micro-batches."""
+    micro = [{} for _ in range(parts)]
+    for key, value in batch.items():
+        if value.shape[0] % parts:
+            raise ValueError(f"batch dim {value.shape[0]} not divisible by "
+                             f"update_freq {parts}")
+        size = value.shape[0] // parts
+        for i in range(parts):
+            micro[i][key] = value[i * size:(i + 1) * size]
+    return micro
+
+
+def make_train_step(loss_fn: Callable, update_freq: int = 1):
+    """loss_fn(batch) -> dict with a scalar ``loss`` tensor (+ scalar
+    metrics).  Returns train_step(state, batch) -> metrics (floats)."""
+
+    def train_step(state: TrainState, batch) -> Dict[str, float]:
+        params = list(state.trainable.values())
+        for p in params:
+            p.grad = None
+        micro = [batch] if update_freq <= 1 else _split(batch, update_freq)
+        outs = []
+        for mb in micro:
+            out = loss_fn(mb)
+            out["loss"].backward()
+            outs.append({k: v.detach() for k, v in out.items()
+                         if isinstance(v, torch.Tensor) and v.dim() == 0})
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        if len(micro) > 1:
+            torch._foreach_div_(grads, float(len(micro)))
+        metrics = {k: torch.stack([o[k] for o in outs]).mean()
+                   for k in outs[0]}
+        grad_norm = torch.linalg.vector_norm(torch.stack(
+            [torch.linalg.vector_norm(g.float()) for g in grads]))
+        finite = bool(torch.isfinite(metrics["loss"])
+                      & torch.isfinite(grad_norm))
+        clip = state.optimizer.config.clip_grad
+        if finite:
+            if clip and grad_norm >= clip:
+                torch._foreach_mul_(grads, (clip / grad_norm).item())
+            for p, g in zip(params, grads):
+                p.grad = g
+            state.optimizer.step()
+        for p in params:
+            p.grad = None
+        state.step += 1
+        result = {k: float(v) for k, v in metrics.items()}
+        result["grad_norm"] = float(grad_norm)
+        result["skipped_nonfinite"] = 0.0 if finite else 1.0
+        return result
+
+    return train_step
