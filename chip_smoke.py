@@ -9,13 +9,15 @@ the last line is printed):
    print the card's name and power limit, build the hand-written kernels
    from youku_mplug_tpu_torch/csrc/ (one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version, in bf16, at the shapes
-   the serving and training paths give it, with both times from CUDA
-   events: the forward (K1 none / period / causal, K4) at the serving
-   shapes, then at each of the four training shapes (vision spatial,
-   grouped temporal with period 8, decoder causal, AttentionPool
-   head-major, plus a small kv_len case) the forward's o and lse and the
-   backward's dq and dk/dv kernels on that forward's output, and decode
-   (K5);
+   the serving, training and instruct paths give it, with both times from
+   CUDA events: the forward (K1 none / period / causal, K4) at the
+   serving shapes and K1 at the CLIP ViT-L/14 frame shape, then at each
+   of the four training shapes (vision spatial, grouped temporal with
+   period 8, decoder causal, AttentionPool head-major, plus a small
+   kv_len case) the forward's o and lse and the backward's dq and dk/dv
+   kernels on that forward's output, and decode (K5: head dim 64; head
+   dim 128 with the ALiBi ladder at BloomZ-7B1's cache, at a head count
+   past a power of two, and without ALiBi);
 3. the serve slice: the serve CLI's path at the flagship model's full
    width (configs/caption/serve_gpt3_1.3B_flagship.yaml, seeded weights),
    16 requests over synthetic clips, 8 slots, 32 new tokens, greedy;
@@ -35,12 +37,23 @@ the last line is printed):
    and gradients with the kernels and again with their plain versions
    (flash_fwd_plain, flash_bwd_plain) patched in; loss and every
    trainable leaf's gradient (relative L2) within the stated tolerances;
-7. a JSON line describing each kernel, the card's line, then the result
+7. the instruct slice: the run_instruct CLI's serving function at the
+   full width and depth of configs/instruct/serve_bloomz_7b_flagship.yaml
+   (per-frame CLIP ViT-L/14, the Owl abstractor, BloomZ-7B1; seeded
+   weights built on the card), 16 synthetic requests, 8 slots, 64 new
+   tokens, greedy; the K1 and K5-ALiBi launch counters must rise and
+   every logit be finite; tokens/s, p50/p95, peak memory and the decode
+   step's time;
+8. instruct teacher-forced check: the clips' media features and the
+   first decode steps again with the plain versions of K1 and K5 fed the
+   same inputs and tokens, within the stated tolerances;
+9. a JSON line describing each kernel, the card's line, then the result
    line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -86,6 +99,17 @@ REPLAY_GRAD_FLOOR = 1e-3
 TRAIN_YAML = os.path.join(REPO, "configs", "pretrain",
                           "pretrain_gpt3_1.3B_flagship.yaml")
 WARMUP_STEPS, TIMED_STEPS = 2, 5
+OWL_YAML = os.path.join(REPO, "configs", "instruct",
+                        "serve_bloomz_7b_flagship.yaml")
+OWL_REQUESTS, OWL_SLOTS = 16, 8
+# instruct teacher-forced check, max |kernels - plain| over max |plain|,
+# for the media features (24 ViT-L blocks, 6 abstractor layers and
+# visual_fc) and the fp32 logits (30 Bloom layers), all in bf16: each
+# attention call's output differs by a few bf16 ulps (2^-8 relative) as
+# the two versions round at different points; ~30 such independent flips
+# through residual streams and LayerNorms add up to about sqrt(30) x 2^-8
+# ~ 2% of the largest value, and the bound leaves three times that
+OWL_REL_TOL = 2.0 ** -4
 SPIN_CYCLES = 200_000_000  # >= 0.1 s at the H100's 1.98 GHz boost clock
 
 
@@ -221,6 +245,25 @@ BWD_SHAPES = [(128, 197, 197, 12, False, 0, None, "packed"),
               (2, 65, 130, 1, False, 0, 70, "heads")]
 
 
+def _decode_case(dec, q, ckv, n, clen, vfrom, slopes, shape):
+    """One K5 check on the last layer of ``ckv``: the kernel against
+    decode_attention_plain on the same inputs, slot 3 (no live key)
+    reading zeros; both times over 200 calls."""
+    lidx = ckv.shape[0] - 1
+    kw = dict(alibi_slopes=slopes)
+    got = dec.decode_attention(q, ckv, n, lidx, clen, vfrom, **kw)
+    want = dec.decode_attention_plain(q, ckv, n, lidx, clen, vfrom, **kw)
+    e, empty = err(got, want), got[3].abs().max().item()
+    if not within(got, want) or empty != 0:
+        fail(f"K5 {shape}: max err {e} (tol {KERNEL_TOL}); empty slot max "
+             f"{empty}")
+    return {"shape": shape, "max_abs_err": e,
+            "ms": time_ms(lambda: dec.decode_attention(
+                q, ckv, n, lidx, clen, vfrom, **kw), 200),
+            "plain_ms": time_ms(lambda: dec.decode_attention_plain(
+                q, ckv, n, lidx, clen, vfrom, **kw), 200)}
+
+
 def phase_kernels(dev):
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
@@ -233,11 +276,15 @@ def phase_kernels(dev):
     report = []
     # K1: vision spatial [B*T, 197, 12*64], temporal [B*14, 112, 12*64]
     # period 8 (B = 8 clips serving, 16 training), decoder training
-    # [16, 208, 32*64] causal; q/k/v as views of one qkv projection
+    # [16, 208, 32*64] causal, the instruct path's CLIP ViT-L/14 frames
+    # [16 clips x 8 frames, 1 + 16*16, 16*64]; q/k/v as views of one qkv
+    # projection
     per_shape = []
-    for rows, s, n, period, causal in ((64, 197, 12, 0, False),
-                                       (112, 112, 12, 8, False),
-                                       (16, 208, 32, 0, True)):
+    for rows, s, n, period, causal, path in (
+            (64, 197, 12, 0, False, "serve"),
+            (112, 112, 12, 8, False, "serve"),
+            (16, 208, 32, 0, True, "train"),
+            (128, 257, 16, 0, False, "instruct")):
         nd = n * 64
         qkv = rand(rows, s, 3 * nd)
         q, k, v = qkv[..., :nd], qkv[..., nd:2 * nd], qkv[..., 2 * nd:]
@@ -251,7 +298,7 @@ def phase_kernels(dev):
         _, want_lse = fa.flash_fwd_plain(*views, scale=0.125, **kw)
         e, e_lse = err(got, want), err(lse, want_lse)
         shape = (f"[{rows},{s},{n}x64] period {period}"
-                 + (" causal (train)" if causal else " (serve)"))
+                 + (" causal" if causal else "") + f" ({path})")
         if not (within(got, want) and e_lse <= LSE_TOL):
             fail(f"K1 {shape}: max err {e} (tol {KERNEL_TOL}), lse {e_lse} "
                  f"(tol {LSE_TOL})")
@@ -262,10 +309,11 @@ def phase_kernels(dev):
                           "ms": ms, "plain_ms": plain_ms})
     report.append({
         "name": "K1 flash_attention_packed (vision spatial + temporal, "
-                "decoder causal)",
+                "decoder causal, CLIP ViT-L frames)",
         "route": "cuda", "source": "youku_mplug_tpu_torch/csrc/flash_fwd.cu",
         "replaces": "youku_mplug_tpu/ops/flash_attention.py:426",
-        "wrapper": fa.flash_attention_packed, "paths": ("serve", "train"),
+        "wrapper": fa.flash_attention_packed,
+        "paths": ("serve", "train", "instruct"),
         "key": "K1",
         "max_abs_err": max(p["max_abs_err"] for p in per_shape),
         "ms": sum(p["ms"] for p in per_shape),
@@ -340,22 +388,43 @@ def phase_kernels(dev):
                         dtype=torch.int32, device=dev)
     vfrom = torch.tensor([0, 0, 5, 151, 0, 100, 99, 3], dtype=torch.int32,
                          device=dev)
-    got = dec.decode_attention(q, ckv, 32, 23, clen, vfrom)
-    want = dec.decode_attention_plain(q, ckv, 32, 23, clen, vfrom)
-    e = err(got, want)
-    if not within(got, want) or got[3].abs().max().item() != 0:
-        fail(f"K5 decode: max err {e}; empty slot max "
-             f"{got[3].abs().max().item()}")
+    k5 = [_decode_case(dec, q, ckv, 32, clen, vfrom, None,
+                       "[24,8,256,2x32x64] d 64 (serve)")]
+    # K5 at head dim 128: BloomZ-7B1's decode step (32 heads with the
+    # ALiBi ladder, cache [30, 8, 256, 2*32*128]; q a head-strided view of
+    # the head-major fused row [B, n, 3, d], as models/bloom.py passes it),
+    # 40 heads (the ladder's half steps past 32) and the d = 128 build
+    # without ALiBi; same lengths
+    alibi = []
+    for n, layers, slopes in ((32, 30, True), (40, 2, True),
+                              (32, 2, False)):
+        qh = rand(8, n, 3, 128)[:, :, 0, :]
+        cache = rand(layers, 8, 256, 2 * n * 128)
+        case = _decode_case(
+            dec, qh, cache, n, clen, vfrom,
+            dec.alibi_slopes(n) if slopes else None,
+            f"[{layers},8,256,2x{n}x128] d 128"
+            + (" ALiBi" if slopes else "")
+            + (" (instruct)" if (n, slopes) == (32, True) else ""))
+        (alibi if slopes else k5).append(case)
+        del cache
     report.append({
         "name": "K5 decode_attention (decoder decode step)", "route": "cuda",
         "source": "youku_mplug_tpu_torch/csrc/decode_attention.cu",
         "replaces": "youku_mplug_tpu/ops/decode_attention.py:56",
         "wrapper": dec.decode_attention, "paths": ("serve",), "key": "K5",
-        "max_abs_err": e,
-        "ms": time_ms(lambda: dec.decode_attention(q, ckv, 32, 23, clen,
-                                                   vfrom), 200),
-        "plain_ms": time_ms(lambda: dec.decode_attention_plain(
-            q, ckv, 32, 23, clen, vfrom), 200)})
+        "max_abs_err": max(c["max_abs_err"] for c in k5),
+        "ms": k5[0]["ms"], "plain_ms": k5[0]["plain_ms"], "per_shape": k5})
+    report.append({
+        "name": "K5 decode_attention, ALiBi ladder, head dim 128 (Bloom "
+                "decode step)", "route": "cuda",
+        "source": "youku_mplug_tpu_torch/csrc/decode_attention.cu",
+        "replaces": "youku_mplug_tpu/ops/decode_attention.py:56",
+        "wrapper": dec.decode_attention, "counter": "alibi_launches",
+        "paths": ("instruct",), "key": "K5-ALiBi",
+        "max_abs_err": max(c["max_abs_err"] for c in alibi),
+        "ms": alibi[0]["ms"], "plain_ms": alibi[0]["plain_ms"],
+        "per_shape": alibi})
     for r in report:
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.3g} | "
               f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms",
@@ -372,12 +441,13 @@ def phase_kernels(dev):
 
 def _reset_counts(report):
     for r in report:
-        r["wrapper"].launches = 0
+        setattr(r["wrapper"], r.get("counter", "launches"), 0)
 
 
 def _read_counts(report, path):
     for r in report:
-        r.setdefault("launches_by_path", {})[path] = r["wrapper"].launches
+        r.setdefault("launches_by_path", {})[path] = getattr(
+            r["wrapper"], r.get("counter", "launches"))
     missing = [r["name"] for r in report
                if path in r["paths"] and r["launches_by_path"][path] == 0]
     if missing:
@@ -412,24 +482,21 @@ def phase_slice(report, out_dir):
     return cfg, model, stats
 
 
-def _forced_decode(model, cfg, qe, tokens=None):
-    """Prefill 8 requests (prompt + query prefix) through the serving
-    engine, then FORCED_STEPS decode steps.  Returns (logits per step,
-    tokens fed): greedy from these logits, or ``tokens`` when given."""
-    from youku_mplug_tpu_torch.models.generation import GenerationConfig
+def _forced_decode(lm, requests, max_len, bucket, gen_cfg, tokens=None):
+    """Prefill the requests ((prompt ids, submit kwargs), one slot each)
+    through the serving engine, then FORCED_STEPS decode steps.  Returns
+    (logits per step, tokens fed): greedy from these logits, or
+    ``tokens`` when given."""
     from youku_mplug_tpu_torch.serving.engine import ServingEngine
 
-    lm = model.text_decoder
-    eng = ServingEngine(lm, num_slots=8, max_len=128 + 8 + 33,
-                        prefill_buckets=(8,),
-                        config=GenerationConfig(max_new_tokens=64, eos_id=2,
-                                                pad_id=2))
-    for i in range(8):
-        eng.submit([1], query_embeds=qe[i])
+    eng = ServingEngine(lm, num_slots=len(requests), max_len=max_len,
+                        prefill_buckets=(bucket,), config=gen_cfg)
+    for ids, kw in requests:
+        eng.submit(ids, **kw)
     eng._admit()
     fed = [torch.from_numpy(eng.last_token.copy()).long()]
     logits = []
-    dev = qe.device
+    dev = eng.device
     with torch.inference_mode():
         for step in range(FORCED_STEPS):
             tok = fed[-1] if tokens is None else tokens[step]
@@ -450,12 +517,19 @@ def phase_teacher_forced(cfg, model):
     from youku_mplug_tpu_torch.ops import flash_attention as fa
     from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
 
+    from youku_mplug_tpu_torch.models.generation import GenerationConfig
+
     ds = SyntheticVideoDataset(8, cfg.num_frames, cfg.image_res)
     clips = torch.stack([torch.from_numpy(ds[i]["video"]) for i in range(8)])
     with torch.inference_mode():
         video = normalize_clip(clips.cuda(), dtype=torch.bfloat16)
         qe = model.encode_queries(video)
-    logits, tokens = _forced_decode(model, cfg, qe)
+    # prompt [1] after the 128 query rows, bucket 8
+    requests = [([1], {"query_embeds": qe[i]}) for i in range(8)]
+    gen_cfg = GenerationConfig(max_new_tokens=64, eos_id=2, pad_id=2)
+    forced = dict(lm=model.text_decoder, requests=requests,
+                  max_len=128 + 8 + 33, bucket=8, gen_cfg=gen_cfg)
+    logits, tokens = _forced_decode(**forced)
     plain = (mock.patch.object(vision, "flash_attention_packed",
                                fa.flash_attention_packed_plain),
              mock.patch.object(fa, "flash_attention",
@@ -467,7 +541,7 @@ def phase_teacher_forced(cfg, model):
     try:
         with torch.inference_mode():
             qe_plain = model.encode_queries(video)
-        logits_plain, _ = _forced_decode(model, cfg, qe, tokens)
+        logits_plain, _ = _forced_decode(**forced, tokens=tokens)
     finally:
         for p in plain:
             p.stop()
@@ -596,6 +670,145 @@ def phase_replay(runner):
         fail("plain replay out of tolerance")
 
 
+OWL_QUESTIONS = ("What is in the video?", "What happens next?",
+                 "Describe the scene in detail.", "Who is speaking?",
+                 "Is it day or night?", "What colour is the car?",
+                 "How many people are there?", "Where was this filmed?")
+
+
+def phase_instruct(report, out_dir):
+    """The run_instruct CLI's serving path at full width and depth;
+    returns (model, instruct batch, clips)."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    jsonl = os.path.join(out_dir, "requests.jsonl")
+    with open(jsonl, "w") as f:
+        for i in range(OWL_REQUESTS):
+            f.write(json.dumps({
+                "video": f"clip{i}.mp4",
+                "question": OWL_QUESTIONS[i % len(OWL_QUESTIONS)]
+                + " " * (i // len(OWL_QUESTIONS))}) + "\n")
+    args = run_instruct.parser().parse_args([
+        "--config", OWL_YAML, "--synthetic_data", "--engine",
+        "--input_jsonl", jsonl, "--num_slots", str(OWL_SLOTS),
+        "--device", "cuda", "--output_dir", out_dir])
+    t0 = time.perf_counter()
+    cfg, raw, model, device = run_instruct.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    _, batch, clips = run_instruct.prepare(args, cfg, raw, device,
+                                           model.policy.compute_dtype)
+    gen_cfg = run_instruct.generation_config(args, cfg, raw)
+    # warm-up (cuBLAS handles, the allocator): two requests, 4 tokens
+    run_instruct.serve_instruct(
+        model, clips[:2], {k: v[:2] for k, v in batch.items()},
+        dataclasses.replace(gen_cfg, max_new_tokens=4), num_slots=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    seqs, stats, engine = run_instruct.serve_instruct(
+        model, clips, batch, gen_cfg, num_slots=args.num_slots)
+    torch.cuda.synchronize()
+    _read_counts(report, "instruct")
+    if stats["requests"] != OWL_REQUESTS \
+            or not (seqs != gen_cfg.pad_id).any(1).all():
+        fail(f"instruct slice served {stats['requests']} requests: "
+             f"{seqs.tolist()}")
+    if engine.nonfinite_logits:
+        fail(f"{engine.nonfinite_logits} instruct logit rows were not "
+             "finite")
+
+    # one decode step of all 8 slots at the run's last lengths, with the
+    # host sync the engine makes per step; the tied logits alone
+    state = [engine._dev(a) for a in (engine.cache_len, engine.valid_from,
+                                      engine.pos_offset, engine.last_token)]
+    for _ in range(3):
+        engine._decode_impl(*state).cpu()
+    t1 = time.perf_counter()
+    for _ in range(20):
+        engine._decode_impl(*state).cpu()
+    step_ms = (time.perf_counter() - t1) / 20 * 1e3
+    lm = model.text_decoder
+    hidden = torch.randn(OWL_SLOTS, cfg.text.hidden_size, device=device,
+                         dtype=torch.bfloat16)
+    with torch.inference_mode():
+        logits_ms = time_ms(lambda: lm.logits(hidden), 50)
+    stats.update({
+        "build_s": build_s, "params": n_params,
+        "prompt_len": [int(x) for x in batch["prompt_len"][:2]],
+        "decode_step_ms": step_ms, "tied_logits_ms": logits_ms,
+        "launches": {r["key"]: r["launches_by_path"]["instruct"]
+                     for r in report}})
+    print(f"[instruct] {json.dumps(stats)} | first answer "
+          f"{seqs[0][:8].tolist()}", flush=True)
+    return model, batch, clips
+
+
+def phase_instruct_forced(model, batch, clips):
+    """The first OWL_SLOTS clips' media features, and FORCED_STEPS decode
+    steps from their spliced prompts, with the kernels and again with the
+    plain versions of K1 (the ViT) and K5 (the Bloom decode step) patched
+    in, fed the same inputs and tokens."""
+    from youku_mplug_tpu_torch.models import bloom, vision
+    from youku_mplug_tpu_torch.models.generation import GenerationConfig
+    from youku_mplug_tpu_torch.ops import decode_attention as dec
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    n = OWL_SLOTS
+    dev = clips.device
+    text = model.cfg.text
+    ids = torch.as_tensor(batch["input_ids"][:n], device=dev).long()
+    mask = torch.as_tensor(batch["media_mask"][:n], device=dev)
+    plen = [int(x) for x in batch["prompt_len"][:n]]
+    with torch.inference_mode():
+        media = model.encode_video(clips[:n])
+        embeds = model.spliced_embeds(ids, mask, media)
+    bucket = 8
+    while bucket < max(plen):
+        bucket *= 2
+    requests = [(batch["input_ids"][i, :plen[i]].tolist(),
+                 {"prompt_embeds": embeds[i, :plen[i]]}) for i in range(n)]
+    forced = dict(lm=model.text_decoder, requests=requests,
+                  max_len=bucket + FORCED_STEPS + 2, bucket=bucket,
+                  gen_cfg=GenerationConfig(max_new_tokens=64,
+                                           eos_id=text.eos_id,
+                                           pad_id=text.pad_id))
+    logits, tokens = _forced_decode(**forced)
+    counts = (fa.flash_attention_packed.launches,
+              dec.decode_attention.alibi_launches)
+    plain = (mock.patch.object(vision, "flash_attention_packed",
+                               fa.flash_attention_packed_plain),
+             mock.patch.object(bloom, "decode_attention",
+                               dec.decode_attention_plain))
+    for p in plain:
+        p.start()
+    try:
+        with torch.inference_mode():
+            media_plain = model.encode_video(clips[:n])
+        logits_plain, _ = _forced_decode(**forced, tokens=tokens)
+    finally:
+        for p in plain:
+            p.stop()
+    if counts != (fa.flash_attention_packed.launches,
+                  dec.decode_attention.alibi_launches):
+        fail("the instruct plain replay launched a kernel")
+    e_m = err(media, media_plain)
+    e_l = max(err(a, b) for a, b in zip(logits, logits_plain))
+    top_m = media_plain.float().abs().max().item()
+    top_l = max(x.abs().max().item() for x in logits_plain)
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(logits, logits_plain))
+    finite = all(torch.isfinite(x).all() for x in logits + logits_plain)
+    print(f"[instruct teacher-forced] media features max err {e_m:.4g} of "
+          f"max |plain| {top_m:.4g} | logits over {FORCED_STEPS} steps max "
+          f"err {e_l:.4g} of max |plain| {top_l:.4g} (tol {OWL_REL_TOL:.4g} "
+          f"x max |plain|) | greedy agreement {agree}/{FORCED_STEPS * n}",
+          flush=True)
+    if not finite or e_m > OWL_REL_TOL * top_m or e_l > OWL_REL_TOL * top_l:
+        fail("instruct teacher-forced check out of tolerance")
+
+
 def main():
     # one card: the first visible one (set before CUDA initializes)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -617,6 +830,12 @@ def main():
     with tempfile.TemporaryDirectory() as out_dir:
         runner, _ = phase_train(report, out_dir)
         phase_replay(runner)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        model, batch, clips = phase_instruct(report, out_dir)
+    phase_instruct_forced(model, batch, clips)
     kernels = []
     for r in report:
         entry = {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -1,0 +1,181 @@
+"""The port's Bloom decoder (youku_mplug_tpu_torch.models.bloom) against
+the JAX package at fp32 on the CPU, weights carried over by the bridge:
+the ALiBi ladder, the config's JSON aliases, prefill + decode logits and
+cache rows of ``BloomLM.decode_step`` (a power-of-two and a
+non-power-of-two head count, whose slopes take the half-step ladder),
+and the serving engine's greedy tokens for requests submitted as
+pre-built prompt embeddings.
+
+Parameters are redrawn from numpy (std 0.2, LayerNorm scales near one)
+so every bias and layer matters.  Tolerance 1e-4 (fp32, sums taken in
+another order).
+"""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from youku_mplug_tpu.models import bloom as jbloom
+from youku_mplug_tpu.models.generation import GenerationConfig as JGen
+from youku_mplug_tpu.models.generation import _build_prefix as j_prefix
+from youku_mplug_tpu.runtime.precision import FP32_POLICY as J_FP32
+from youku_mplug_tpu.serving.engine import ServingEngine as JEngine
+from youku_mplug_tpu_torch import bridge
+from youku_mplug_tpu_torch.models import bloom as tbloom
+from youku_mplug_tpu_torch.models.generation import GenerationConfig
+from youku_mplug_tpu_torch.models.generation import _build_prefix as t_prefix
+from youku_mplug_tpu_torch.runtime.precision import FP32_POLICY
+from youku_mplug_tpu_torch.serving.engine import ServingEngine
+
+torch.set_num_threads(1)
+TOL = 1e-4
+V, H, L = 97, 48, 2
+EOS, PAD = 2, 3
+
+
+def redraw(tree, rng, std=0.2):
+    def leaf(path, x):
+        z = rng.normal(size=x.shape).astype(np.float32)
+        return 1.0 + 0.1 * z if str(path[-1].key).endswith("scale") \
+            else std * z
+    return jax.tree_util.tree_map_with_path(leaf, tree)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=tol, atol=tol)
+
+
+def _models(rng, n_heads):
+    jcfg = jbloom.BloomConfig(vocab_size=V, hidden_size=H,
+                              num_hidden_layers=L,
+                              num_attention_heads=n_heads, attn_impl="xla",
+                              decode_attn_impl="gather")
+    jlm = jbloom.BloomLM(jcfg, policy=J_FP32)
+    params = redraw(jax.eval_shape(lambda: jlm.init(
+        jax.random.key(0), tokens=jnp.zeros((1, 4), jnp.int32)))["params"],
+        rng)
+    tcfg = tbloom.BloomConfig(vocab_size=V, hidden_size=H,
+                              num_hidden_layers=L,
+                              num_attention_heads=n_heads)
+    tlm = bridge.load_jax_params(tbloom.BloomLM(tcfg, FP32_POLICY), params)
+    return jlm, params, tlm
+
+
+@pytest.mark.parametrize("n", [1, 4, 6, 8, 12, 32, 40])
+def test_alibi_slopes_match_jax(n):
+    np.testing.assert_array_equal(tbloom.alibi_slopes(n),
+                                  jbloom.alibi_slopes(n))
+
+
+def test_config_reads_the_json_aliases_as_jax(tmp_path):
+    raw = {"vocab_size": 300, "n_embed": 64, "n_layer": 3, "n_head": 8,
+           "layer_norm_epsilon": 1e-6, "initializer_range": 0.01,
+           "apply_residual_connection_post_layernorm": True,
+           "eos_token_id": 5, "pad_token_id": 6}
+    path = tmp_path / "bloom.json"
+    path.write_text(json.dumps(raw))
+    for p in (str(path), "configs/models/config_bloom_7b1.json"):
+        got = tbloom.BloomConfig.from_json_file(p)
+        want = jbloom.BloomConfig.from_json_file(p)
+        for f in dataclasses.fields(got):
+            assert getattr(got, f.name) == getattr(want, f.name), (p, f.name)
+    assert tbloom.BloomConfig.from_json_file(str(path)).hidden_size == 64
+
+
+@pytest.mark.parametrize("n_heads", [4, 6])
+def test_prefill_then_decode_matches_jax(n_heads):
+    """Front-padded prefill from pre-built prompt embeddings (written at
+    row 0, ALiBi plus the valid_from mask), then decode steps at
+    per-sample positions; logits and cache rows against JAX."""
+    rng = np.random.default_rng(n_heads)
+    jlm, params, tlm = _models(rng, n_heads)
+    b, p = 3, 8
+    prompt = rng.integers(4, V, size=(b, p)).astype(np.int32)
+    plen = np.array([8, 5, 1], np.int32)
+    pe = rng.normal(size=(b, p, H)).astype(np.float32)
+    embeds, vf, po = j_prefix(jlm, params, jnp.asarray(prompt),
+                              jnp.asarray(plen), None, PAD,
+                              prompt_embeds=jnp.asarray(pe))
+    t_embeds, t_vf, t_po = t_prefix(tlm, _t(prompt).long(), _t(plen), None,
+                                    PAD, prompt_embeds=_t(pe))
+    _close(t_embeds, embeds, 0)
+    assert t_vf.tolist() == np.asarray(vf).tolist() == [0, 3, 7]
+
+    variables = {"params": params}
+    cache = jlm.apply(variables, b, 20, method=jbloom.BloomLM.init_cache)
+    step = jax.jit(lambda e, c, cl, v: jlm.apply(
+        variables, e, c, cl, v, method=jbloom.BloomLM.decode_step))
+    want, cache = step(embeds, cache, jnp.int32(0), vf)
+    t_cache = tlm.init_cache(b, 20)
+    assert tuple(t_cache.shape) == cache.shape == (L, b, 128, 2 * H)
+    got, _ = tlm.decode_step(t_embeds, t_cache, 0, t_vf, t_po)
+    _close(got, want)
+    _close(t_cache[:, :, :p], np.asarray(cache)[:, :, :p])
+
+    cache_len = np.full((b,), p, np.int32)
+    for _ in range(3):
+        tok = rng.integers(4, V, size=(b, 1)).astype(np.int32)
+        emb = jlm.apply(variables, jnp.asarray(tok),
+                        method=jbloom.BloomLM.embed)
+        want, cache = step(emb, cache, jnp.asarray(cache_len), vf)
+        got, _ = tlm.decode_step(tlm.embed(_t(tok).long()), t_cache,
+                                 _t(cache_len), t_vf, t_po)
+        _close(got, want)
+        cache_len += 1
+    _close(t_cache, np.asarray(cache))
+
+
+def _drive(engine, requests):
+    """Two requests, two steps, then the rest: later requests join a
+    batch already in flight."""
+    fin = []
+    for ids, pe in requests[:2]:
+        engine.submit(ids, prompt_embeds=pe)
+    for _ in range(2):
+        fin.extend(engine.step())
+    for ids, pe in requests[2:]:
+        engine.submit(ids, prompt_embeds=pe)
+    fin.extend(engine.run_to_completion())
+    return {f.rid: f.tokens for f in fin}
+
+
+def test_engine_tokens_with_prompt_embeds_match_jax_engine():
+    rng = np.random.default_rng(7)
+    jlm, params, tlm = _models(rng, 6)
+    requests = [(list(rng.integers(4, V, size=n)),
+                 rng.normal(size=(n, H)).astype(np.float32))
+                for n in (3, 8, 1, 5)]
+    kw = dict(num_slots=2, max_len=30, prefill_buckets=(8,))
+    jeng = JEngine(jlm, jax.tree.map(jnp.asarray, params),
+                   config=JGen(max_new_tokens=7, eos_id=EOS, pad_id=PAD,
+                               beam_size=1), **kw)
+    teng = ServingEngine(tlm, config=GenerationConfig(
+        max_new_tokens=7, eos_id=EOS, pad_id=PAD), **kw)
+    want = _drive(jeng, requests)
+    got = _drive(teng, [(ids, _t(pe)) for ids, pe in requests])
+    assert got == want
+    assert len(got) == len(requests)
+    assert len({tuple(t) for t in got.values()}) > 1  # not degenerate
+    assert teng.nonfinite_logits == 0
+    with pytest.raises(ValueError, match="rows"):
+        teng.submit([5, 6], prompt_embeds=torch.zeros(3, H))
+
+
+def test_lora_and_the_no_cache_forward_raise():
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        tbloom.BloomConfig(lora_rank=8)
+    lm = tbloom.BloomLM(tbloom.BloomConfig(
+        vocab_size=V, hidden_size=H, num_hidden_layers=1,
+        num_attention_heads=4), FP32_POLICY)
+    with pytest.raises(NotImplementedError, match="no-cache"):
+        lm(torch.zeros(1, 4, dtype=torch.long))

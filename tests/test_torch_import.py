@@ -24,7 +24,8 @@ _NO_JAX = textwrap.dedent("""
     for name in names:
         importlib.import_module(name)
     for name in ("cli.serve", "cli.run_pretrain", "cli.profile_train",
-                 "optim.factory",
+                 "cli.run_instruct", "models.bloom", "models.owl",
+                 "data.instruct", "optim.factory",
                  "train.state", "train.trainer", "ops.cross_entropy",
                  "data.loader"):
         assert "youku_mplug_tpu_torch." + name in names, name
@@ -59,10 +60,15 @@ def test_wrappers_use_plain_versions_on_cpu_without_launching():
         np.float32))
     assert dec.decode_attention(x[:, 0], ckv, 2, 0,
                                 torch.tensor([3, 7])).shape == (2, 128)
+    alibi_before = dec.decode_attention.alibi_launches
+    assert dec.decode_attention(
+        x[:, 0], ckv, 2, 0, torch.tensor([3, 7]),
+        alibi_slopes=dec.alibi_slopes(2)).shape == (2, 128)
     leaf = q4.clone().requires_grad_()
     fa.flash_attention(leaf, leaf, leaf, causal=True).sum().backward()
     assert leaf.grad.shape == q4.shape
     assert [f.launches for f in counters] == before == [0] * 5
+    assert dec.decode_attention.alibi_launches == alibi_before == 0
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -84,3 +90,15 @@ def test_serve_cli_refuses_cuda_without_a_card():
         "--device", "cuda"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.build(args)
+
+
+def test_instruct_cli_refuses_cuda_without_a_card():
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    args = run_instruct.parser().parse_args([
+        "--config", "configs/instruct/serve_owl_tiny.yaml",
+        "--synthetic_data", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_instruct.build(args)

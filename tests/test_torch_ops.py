@@ -26,6 +26,7 @@ from youku_mplug_tpu.ops.preprocess import normalize_clip as jnorm
 from youku_mplug_tpu_torch.ops import kv_cache as tkv
 from youku_mplug_tpu_torch.ops.attention import mha_reference as tmha
 from youku_mplug_tpu_torch.ops.decode_attention import (
+    alibi_slopes,
     decode_attention,
     decode_attention_plain,
 )
@@ -117,6 +118,51 @@ def test_decode_plain_matches_pallas_interpret():
     _close(got, want)
     assert not got[4].any()
     _close(got[3], ckv[1, 3, 40, n * d:], 1e-6)  # one live key: its V row
+
+
+@pytest.mark.parametrize("d,n", [(64, 4), (128, 4), (128, 6)])
+def test_decode_alibi_plain_matches_pallas_interpret(d, n):
+    """K5 with the ALiBi ladder (the Bloom decoder): head dim 64 and 128,
+    a power-of-two head count and one past it (the half-step ladder);
+    the bias slope_h * j at absolute key positions over a cache long
+    enough (M 128) that it reaches tens; per-sample bounds and a slot
+    with no live key."""
+    rng = np.random.default_rng(d + n)
+    L, B, M = 2, 4, 128
+    q = rng.normal(size=(B, n * d)).astype(np.float32)
+    ckv = rng.normal(size=(L, B, M, 2 * n * d)).astype(np.float32)
+    clen = np.array([5, 100, 127, 3], np.int32)
+    vfrom = np.array([0, 7, 64, 9], np.int32)  # slot 3: no live key
+    slopes = alibi_slopes(n)
+    want = jdec.decode_attention(jnp.asarray(q), jnp.asarray(ckv), n,
+                                 jnp.int32(1), jnp.asarray(clen),
+                                 jnp.asarray(vfrom), alibi_slopes=slopes,
+                                 interpret=True)
+    got = decode_attention(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom),
+                           alibi_slopes=slopes)
+    _close(got, want)
+    assert not got[3].any()
+    # the bias moves the answer: without it the same call differs
+    unbiased = decode_attention(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom))
+    assert (unbiased - got).abs().max() > 10 * TOL
+    # a head-strided q (the head-major fused row [B, n, 3, d]) reads the
+    # same as its contiguous copy
+    fused = np.stack([q.reshape(B, n, d)] * 3, axis=2)
+    view = _t(fused)[:, :, 0, :]
+    torch.testing.assert_close(
+        decode_attention(view, _t(ckv), n, 1, _t(clen), _t(vfrom),
+                         alibi_slopes=slopes), got)
+
+
+def test_decode_rejects_slopes_off_the_ladder():
+    """The kernel generates the slopes from the head index, so the wrapper
+    takes the standard ladder only (the JAX wrapper's check)."""
+    q = torch.zeros(1, 4 * 64)
+    ckv = torch.zeros(1, 1, 64, 2 * 4 * 64)
+    with pytest.raises(ValueError, match="ladder"):
+        decode_attention(q, ckv, 4, 0, 3, alibi_slopes=alibi_slopes(4) * 2)
+    with pytest.raises(ValueError, match="ladder"):
+        decode_attention(q, ckv, 4, 0, 3, alibi_slopes=alibi_slopes(8))
 
 
 def test_layer_norm_and_normalize_clip_match_jax():
@@ -474,6 +520,33 @@ def test_cuda_decode_matches_plain(cuda_device):
     _bf16_close(got, decode_attention_plain(q, ckv, 4, 2, clen, vfrom))
     assert not got[3].any()
     torch.testing.assert_close(got[4], ckv[2, 4, 40, 4 * 64:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,alibi", [(4, False), (4, True), (12, True)])
+def test_cuda_decode_d128_matches_plain(cuda_device, n, alibi):
+    """K5 at head dim 128 (Bloom), with and without the ALiBi ladder (12
+    heads: the half-step ladder past 8); q a head-strided view of the
+    head-major fused row [B, n, 3, d], as the Bloom decoder passes it;
+    the per-variant launch counter rises."""
+    rng = np.random.default_rng(n + alibi)
+    d = 128
+    q = _bf16(rng, 5, n, 3, d, device=cuda_device)[:, :, 0, :]
+    ckv = _bf16(rng, 3, 5, 256, 2 * n * d, device=cuda_device)
+    clen = torch.tensor([0, 100, 255, 3, 40], dtype=torch.int32,
+                        device=cuda_device)
+    vfrom = torch.tensor([0, 7, 130, 9, 40], dtype=torch.int32,
+                         device=cuda_device)  # slot 3: no live key
+    slopes = alibi_slopes(n) if alibi else None
+    counter = "alibi_launches" if alibi else "launches"
+    before = getattr(decode_attention, counter)
+    got = decode_attention(q, ckv, n, 2, clen, vfrom, alibi_slopes=slopes)
+    torch.cuda.synchronize()
+    assert getattr(decode_attention, counter) == before + 1
+    _bf16_close(got, decode_attention_plain(q, ckv, n, 2, clen, vfrom,
+                                            alibi_slopes=slopes))
+    assert not got[3].any()
+    torch.testing.assert_close(got[4], ckv[2, 4, 40, n * d:])
 
 
 @pytest.mark.cuda

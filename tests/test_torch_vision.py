@@ -176,8 +176,61 @@ def test_seeded_init_is_deterministic_and_nonzero():
 
 
 def test_vision_config_rejects_clip_towers():
-    with pytest.raises(NotImplementedError):
-        dataclasses.replace(flagship_config().vision, clip_model=True)
+    """A CLIP tower runs as the plain VisionTransformer; the clip_model
+    TimeSformer (its norm_pre) and vision LoRA are not ported and
+    raise."""
+    cfg = dataclasses.replace(flagship_config(tiny=True).vision,
+                              clip_model=True)
+    with pytest.raises(NotImplementedError, match="TimeSformer"):
+        tvision.TimeSformer(cfg, FP32_POLICY)
+    with pytest.raises(NotImplementedError, match="LoRA"):
+        dataclasses.replace(cfg, lora_rank=4)
+    assert tvision.VisionTransformer(cfg, FP32_POLICY).norm_pre is not None
+
+
+@pytest.mark.parametrize("clip,gelu", [(True, "quick"), (False, "tanh")])
+def test_vision_transformer_matches_jax(clip, gelu):
+    """The per-frame ViT of mPLUG-Owl: the CLIP form (bias-free patch
+    embedding, norm_pre over [cls; patches], quick GELU), and the plain
+    form; 1 + 4 tokens per image through two pre-LN blocks."""
+    rng = np.random.default_rng(6)
+    kw = dict(img_size=16, patch_size=8, embed_dim=32, depth=2, num_heads=4,
+              clip_model=clip, gelu=gelu)
+    images = rng.normal(size=(3, 3, 16, 16)).astype(np.float32)
+    jmod = jvision.VisionTransformer(jvision.VisionConfig(**kw,
+                                                          attn_impl="xla"),
+                                     policy=J_FP32)
+    params = redraw(_init(jmod, jnp.asarray(images)), rng)
+    want_cls, want = jmod.apply({"params": params}, jnp.asarray(images))
+    tmod = bridge.load_jax_params(tvision.VisionTransformer(
+        tvision.VisionConfig(**kw), FP32_POLICY), params)
+    got_cls, got = tmod(_t(images))
+    assert tuple(got.shape) == want.shape == (3, 5, 32)
+    _close(got, want)
+    _close(got_cls, want_cls)
+    assert ("bias" in params["patch_embed"]) == (not clip)
+
+
+@pytest.mark.parametrize("gelu", ["tanh", "erf", "quick"])
+def test_mlp_gelu_flavour_matches_jax(gelu):
+    """The GELU flavour per config: tanh (the flagship), erf, and CLIP's
+    quick GELU x * sigmoid(1.702 x) (the Owl tower).  Inputs (std 2) and
+    weights (std 0.5) are wide enough that the tolerance tells each
+    flavour from the others (tanh and erf differ by at most 5e-4 before
+    the second matmul, which carries that to about 6x the tolerance)."""
+    rng = np.random.default_rng(7)
+    x = 2 * rng.normal(size=(4, 16)).astype(np.float32)
+    jmod = jvision.Mlp(16, 32, gelu=gelu)
+    params = redraw(_init(jmod, jnp.asarray(x)), rng, std=0.5)
+    want = jmod.apply({"params": params}, jnp.asarray(x))
+    got = bridge.load_jax_params(tvision.Mlp(16, 32, gelu=gelu),
+                                 params)(_t(x))
+    _close(got, want)
+    others = [jvision.Mlp(16, 32, gelu=g).apply({"params": params},
+                                                jnp.asarray(x))
+              for g in ("tanh", "erf", "quick") if g != gelu]
+    assert not any(np.allclose(np.asarray(o), np.asarray(want), rtol=TOL,
+                               atol=TOL) for o in others)
 
 
 def test_fold_runs_in_fp32_before_the_cast():

@@ -4,7 +4,9 @@ seeded init.
 ``load_jax_params`` turns the JAX package's parameter tree (nested dicts
 of numpy arrays, e.g. ``jax.device_get(params)``) into the port's modules.
 The port keeps the JAX names and shapes, so the mapping is a rename:
-``a/b/c`` -> ``a.b.c``, and flax's ``blocks_<i>`` -> ``blocks.<i>``.  It
+``a/b/c`` -> ``a.b.c``, and flax's ``blocks_<i>`` / ``layers_<i>`` ->
+``blocks.<i>`` / ``layers.<i>`` (a scanned stack, ``decoder/layers``,
+stays one name with a leading ``[L]`` dimension).  It
 raises on any JAX leaf it does not consume, on any port parameter it
 leaves unfilled, and on any shape mismatch.  Each leaf is cast to its
 parameter's dtype, so a model split by ``train.state.create_train_state``
@@ -44,14 +46,14 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
 
 def port_name(jax_path: str) -> str:
     """JAX tree path -> the port's parameter name."""
-    return re.sub(r"(^|/)blocks_(\d+)(?=/|$)", r"\1blocks/\2",
+    return re.sub(r"(^|/)(blocks|layers)_(\d+)(?=/|$)", r"\1\2/\3",
                   jax_path).replace("/", ".")
 
 
 def jax_path(port_param_name: str) -> str:
     """The port's parameter name -> the JAX tree path (``port_name``'s
     inverse)."""
-    return re.sub(r"(^|\.)blocks\.(\d+)(?=\.|$)", r"\1blocks_\2",
+    return re.sub(r"(^|\.)(blocks|layers)\.(\d+)(?=\.|$)", r"\1\2_\3",
                   port_param_name).replace(".", "/")
 
 
@@ -109,6 +111,9 @@ def _is_norm_bias(name: str, names) -> bool:
     return scale in names
 
 
+_DRAW_VALUES = 1 << 26  # 256 MB of fp32
+
+
 @torch.no_grad()
 def seeded_init(module: nn.Module, seed: int, std: float = 0.02
                 ) -> nn.Module:
@@ -129,6 +134,12 @@ def seeded_init(module: nn.Module, seed: int, std: float = 0.02
             if gen is None:
                 gen = gens[p.device] = torch.Generator(
                     device=p.device).manual_seed(seed)
-            p.copy_(torch.randn(p.shape, generator=gen, device=p.device,
-                                dtype=torch.float32) * std)
+            # draw in slabs of at most _DRAW_VALUES values: the fp32
+            # temporary of one draw stays small beside a 7B model
+            rows = max(1, _DRAW_VALUES // max(1, p[0].numel())) \
+                if p.dim() else 1
+            for part in (p.split(rows) if p.dim() else (p,)):
+                part.copy_(torch.randn(part.shape, generator=gen,
+                                       device=p.device,
+                                       dtype=torch.float32) * std)
     return module

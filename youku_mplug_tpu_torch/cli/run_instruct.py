@@ -1,0 +1,253 @@
+"""mPLUG-Video BloomZ-7B video-instruct serving on the port.
+
+Counterpart of ``youku_mplug_tpu/cli/run_instruct.py`` (inference through
+the engine): Human/AI prompts with one ``<|video|>`` placeholder are
+expanded to the media positions, the clips are encoded (per-frame CLIP
+ViT, visual abstractor, ``visual_fc`` and ``vit_eos``) and spliced into
+the prompt embeddings in one batch, and every request is admitted to the
+continuous-batching engine's slot pool as slots free, the Bloom decoder
+decoding greedily over the stacked bf16 cache.
+
+Serving always runs through the engine: the batched ``generate`` is not
+ported, so ``--engine`` is accepted for the JAX runner's command lines
+and changes nothing.  Weights come from a seeded init; instruct training
+(``--train``), checkpoint import (``--hf_checkpoint``, ``--serving_ckpt``),
+real video files and sampling are not ported yet (ROADMAP.md, Queue 1),
+and each raises; HF tokenizer files (the JAX runner's ``--tokenizer``) are
+not ported either.  Results carry token ids (the synthetic runs' hash
+tokenizer has no text).
+
+Usage (GPU; ``--device cpu`` runs a tiny config on the CPU):
+    python -m youku_mplug_tpu_torch.cli.run_instruct \\
+        --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
+        --synthetic_data --engine --device cuda
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+from youku_mplug_tpu_torch.bridge import seeded_init
+from youku_mplug_tpu_torch.config import load_owl_config
+from youku_mplug_tpu_torch.data.instruct import (
+    VIDEO_PLACEHOLDER,
+    WhitespaceTokenizer,
+    build_instruct_batch,
+    format_prompt,
+)
+from youku_mplug_tpu_torch.models.generation import GenerationConfig
+from youku_mplug_tpu_torch.models.owl import MPLUGOwlVideo
+from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+from youku_mplug_tpu_torch.runtime.precision import BF16_POLICY
+from youku_mplug_tpu_torch.serving.engine import ServingEngine
+
+_NOT_PORTED = {
+    "train": "instruct training (--train) is not ported yet",
+    "hf_checkpoint": "HF checkpoint import (--hf_checkpoint) is not ported "
+                     "yet",
+    "serving_ckpt": "serving checkpoints (--serving_ckpt) are not ported yet",
+}
+
+
+def parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        description="mPLUG-Video BloomZ video-instruct serving (PyTorch)")
+    p.add_argument("--config", required=True, help="YAML run config")
+    p.add_argument("--output_dir", default="./output")
+    p.add_argument("--input_jsonl", default="",
+                   help="rows {'video': path, 'question': text} (or "
+                        "'prompt' for a pre-formatted conversation)")
+    p.add_argument("--video", default="", help="one-off video path")
+    p.add_argument("--question", default="", help="one-off question")
+    p.add_argument("--synthetic_data", action="store_true",
+                   help="seeded random clips in place of video files")
+    p.add_argument("--seed", type=int, default=42,
+                   help="seed of the weight init and the synthetic clips")
+    p.add_argument("--max_new_tokens", type=int, default=0,
+                   help="override the config's max_new_tokens")
+    p.add_argument("--engine", action="store_true",
+                   help="serve through the continuous-batching engine (the "
+                        "only serving path of the port)")
+    p.add_argument("--num_slots", type=int, default=4,
+                   help="engine slot-pool size")
+    p.add_argument("--device", default="cpu", help="cpu | cuda[:i]")
+    p.add_argument("--train", action="store_true", help="not ported")
+    p.add_argument("--hf_checkpoint", default="", help="not ported")
+    p.add_argument("--serving_ckpt", default="", help="not ported")
+    return p
+
+
+def build(args):
+    """-> (model config, raw YAML dict, model on the device, device).
+    Raises for what is not ported and when the requested device is
+    absent: nothing falls back to the CPU."""
+    for flag, msg in _NOT_PORTED.items():
+        if getattr(args, flag):
+            raise NotImplementedError(f"{msg} (ROADMAP.md, Queue 1)")
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda but no CUDA device is visible")
+    cfg, raw = load_owl_config(args.config)
+    if raw.get("do_sample"):
+        raise NotImplementedError(
+            "sampling (do_sample) is not ported yet; greedy only")
+    if int(raw.get("beam_size", 1)) > 1:
+        raise ValueError("the engine serves beam_size=1 (greedy)")
+    with device:  # built and seeded on the device: no host copy of 7B
+        model = MPLUGOwlVideo(cfg, BF16_POLICY)
+    seeded_init(model, args.seed)
+    return cfg, raw, model.eval(), device
+
+
+def load_rows(args):
+    """The requests: the jsonl rows, or one row from --question (or a
+    default question under --synthetic_data)."""
+    if args.input_jsonl:
+        with open(args.input_jsonl) as f:
+            rows = [json.loads(line) for line in f if line.strip()]
+    elif args.question or args.synthetic_data:
+        rows = [{"video": args.video,
+                 "question": args.question or "What is in the video?"}]
+    else:
+        rows = []
+    if not rows:
+        raise SystemExit("nothing to do: pass --input_jsonl or --question")
+    return rows
+
+
+def load_videos(args, raw_cfg, rows) -> np.ndarray:
+    """[B, T, H, W, C] uint8 clips, one per row: under --synthetic_data
+    drawn from ``np.random.default_rng(seed)`` exactly as the JAX runner
+    draws them; decoding video files is not ported yet."""
+    t = int(raw_cfg.get("num_frames", 8))
+    res = int(raw_cfg.get("image_res", 224))
+    if not args.synthetic_data:
+        raise NotImplementedError("decoding video files is not ported yet; "
+                                  "use --synthetic_data")
+    rng = np.random.default_rng(args.seed)
+    return rng.integers(0, 255, size=(len(rows), t, res, res, 3),
+                        dtype=np.uint8)
+
+
+def generation_config(args, cfg, raw_cfg) -> GenerationConfig:
+    return GenerationConfig(
+        max_new_tokens=args.max_new_tokens
+        or int(raw_cfg.get("max_new_tokens", 128)),
+        eos_id=cfg.text.eos_id, pad_id=cfg.text.pad_id, do_sample=False)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def serve_instruct(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
+                   gen_cfg: GenerationConfig, *, num_slots: int = 4):
+    """Instruct inference through the continuous-batching engine (the JAX
+    runner's ``serve_instruct``): encode and splice every request in one
+    batch, submit them all, and admit each to the slot pool as slots free.
+    The prefill bucket is the next power of two >= the longest prompt
+    (from 8); the cache holds bucket + max_new_tokens + 2 rows.
+
+    clips: normalized [B, C, T, H, W] on the model's device; batch: the
+    ``build_instruct_batch`` dict.  Returns (sequences [B, max_new_tokens]
+    int32 right-padded with pad_id, stats, the engine)."""
+    dev = clips.device
+    input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
+    media_mask = torch.as_tensor(batch["media_mask"], device=dev)
+    prompt_len = np.asarray(batch["prompt_len"])
+    b = input_ids.shape[0]
+
+    t0 = time.perf_counter()
+    qf = model.encode_video(clips)
+    embeds = model.spliced_embeds(input_ids, media_mask, qf)
+    _sync(dev)
+    t_encoded = time.perf_counter()
+
+    bucket = 8
+    while bucket < int(prompt_len.max()):
+        bucket *= 2
+    engine = ServingEngine(
+        model.text_decoder, num_slots=min(num_slots, b),
+        max_len=bucket + gen_cfg.max_new_tokens + 2,
+        prefill_buckets=(bucket,), config=gen_cfg)
+    row_of = {}
+    for i in range(b):
+        n = int(prompt_len[i])
+        rid = engine.submit(batch["input_ids"][i, :n].tolist(),
+                            prompt_embeds=embeds[i, :n])
+        row_of[rid] = i
+    seqs = np.full((b, gen_cfg.max_new_tokens), gen_cfg.pad_id, np.int32)
+    done_at = {}
+    steps = 0
+    while not engine.idle:
+        for fin in engine.step():
+            toks = fin.tokens[:gen_cfg.max_new_tokens]
+            seqs[row_of[fin.rid], :len(toks)] = toks
+            done_at[fin.rid] = time.perf_counter()
+        steps += 1
+    wall = time.perf_counter() - t0
+    lat = [done_at[rid] - t0 for rid in sorted(done_at)]
+    n_tok = int((seqs != gen_cfg.pad_id).sum())
+    stats = {
+        "requests": b, "new_tokens": n_tok, "engine_steps": steps,
+        "wall_s": wall, "encode_s": t_encoded - t0,
+        "tokens_per_sec": n_tok / max(wall, 1e-9),
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p95_s": float(np.percentile(lat, 95)),
+        "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                            if dev.type == "cuda" else None),
+        "nonfinite_logits": engine.nonfinite_logits,
+    }
+    return seqs, stats, engine
+
+
+def prepare(args, cfg, raw_cfg, device, compute_dtype):
+    """-> (rows, instruct batch, normalized clips on the device)."""
+    rows = load_rows(args)
+    prompts = [r.get("prompt") or format_prompt(r["question"])
+               for r in rows]
+    for p in prompts:
+        if VIDEO_PLACEHOLDER not in p:
+            raise ValueError(f"prompt lacks {VIDEO_PLACEHOLDER}: {p[:80]!r}")
+    tok = WhitespaceTokenizer(cfg.text.vocab_size, eos_id=cfg.text.eos_id,
+                              pad_id=cfg.text.pad_id)
+    batch = build_instruct_batch(prompts, tok, cfg.num_media_tokens,
+                                 pad_id=cfg.text.pad_id)
+    video = load_videos(args, raw_cfg, rows)
+    clips = normalize_clip(torch.from_numpy(video).to(device),
+                           dtype=compute_dtype)
+    return rows, batch, clips
+
+
+def main(args):
+    cfg, raw_cfg, model, device = build(args)
+    rows, batch, clips = prepare(args, cfg, raw_cfg, device,
+                                 model.policy.compute_dtype)
+    seqs, stats, _ = serve_instruct(model, clips, batch,
+                                    generation_config(args, cfg, raw_cfg),
+                                    num_slots=args.num_slots)
+    tok = WhitespaceTokenizer(cfg.text.vocab_size)
+    results = []
+    for r, seq in zip(rows, seqs):
+        keep = seq[(seq != cfg.text.pad_id) & (seq != cfg.text.eos_id)]
+        results.append({**{k: v for k, v in r.items() if k != "prompt"},
+                        "tokens": keep.tolist(),
+                        "answer": tok.decode(keep)})
+    os.makedirs(args.output_dir, exist_ok=True)
+    with open(os.path.join(args.output_dir, "instruct_results.json"),
+              "w") as f:
+        json.dump(results, f, ensure_ascii=False, indent=1)
+    print("* Instruct stats:", json.dumps(stats), flush=True)
+    return results, stats
+
+
+if __name__ == "__main__":
+    main(parser().parse_args())

@@ -6,7 +6,8 @@
 ``optimizer`` and ``schedular`` blocks, ``update_freq``, ``epochs``,
 ``prompt``, ``max_new_tokens``, ``batch_size``, ``max_length``,
 ``image_res`` and ``synthetic_length`` (the last ones via
-``RunConfig.get``)."""
+``RunConfig.get``); and ``load_owl_config``, the mPLUG-Owl instruct YAML
+of ``youku_mplug_tpu/cli/run_instruct.py``."""
 
 from __future__ import annotations
 
@@ -16,7 +17,12 @@ from typing import Any, Dict, Optional
 
 import yaml
 
+from youku_mplug_tpu_torch.models.bloom import BloomConfig
 from youku_mplug_tpu_torch.models.gpt3 import GPT3Config
+from youku_mplug_tpu_torch.models.owl import (
+    MPLUGOwlVideoConfig,
+    OwlAbstractorConfig,
+)
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideoConfig
 from youku_mplug_tpu_torch.models.vision import VisionConfig
 from youku_mplug_tpu_torch.optim.factory import OptimizerConfig
@@ -139,3 +145,36 @@ def flagship_config(tiny: bool = False) -> MPLUGVideoConfig:
                         layernorm_epsilon=1e-5, hidden_dropout=0.0,
                         attention_dropout=0.0, remat=True, ce_chunk=32),
         num_learnable_token=128)
+
+
+def load_owl_config(path: str) -> tuple:
+    """Instruct YAML -> (MPLUGOwlVideoConfig, raw dict), as the JAX
+    package's ``cli/run_instruct.load_owl_config`` reads it: the Bloom
+    (``bloom_model_json``) and vision (``vision_model_json``) JSONs
+    resolve next to the YAML first, then as given; ``text_overrides``,
+    ``vision_overrides`` and ``abstractor`` fill the rest, and the vision
+    GELU is quick (the CLIP-lineage tower) unless the YAML says
+    otherwise."""
+    with open(path) as f:
+        raw = yaml.safe_load(f) or {}
+    base = os.path.dirname(os.path.abspath(path))
+
+    def resolve(p):
+        if p and not os.path.isabs(p):
+            for cand in (os.path.join(base, p), p):
+                if os.path.exists(cand):
+                    return cand
+        return p
+
+    text_kw = dict(raw.get("text_overrides") or {})
+    tj = resolve(raw.get("bloom_model_json", ""))
+    text = (BloomConfig.from_json_file(tj, **text_kw) if tj
+            else BloomConfig(**text_kw))
+    vis_kw = dict(raw.get("vision_overrides") or {})
+    vis_kw.setdefault("gelu", "quick")
+    vj = resolve(raw.get("vision_model_json", ""))
+    vision = (VisionConfig.from_json_file(vj, **vis_kw) if vj
+              else VisionConfig(**vis_kw))
+    abstractor = OwlAbstractorConfig(**(raw.get("abstractor") or {}))
+    return MPLUGOwlVideoConfig(vision=vision, abstractor=abstractor,
+                               text=text), raw

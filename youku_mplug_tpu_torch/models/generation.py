@@ -22,13 +22,16 @@ class GenerationConfig:
 
 
 def _build_prefix(model, prompt_ids: torch.Tensor, prompt_len: torch.Tensor,
-                  query_embeds, pad_id: int):
+                  query_embeds, pad_id: int, prompt_embeds=None):
     """Front-padded prefill embeddings.
 
     Layout per sample: [pad x k_i | queries (nq) | prompt tokens (len_i)]
     with k_i = P - len_i, so every sample's last prompt token lands at the
-    same position.  Pad rows are zero embeddings.  Returns
-    (embeds [B, nq+P, H], valid_from [B], pos_offset [B]); both are k."""
+    same position.  Pad rows are zero embeddings.  prompt_embeds
+    [B, P, H]: pre-built prompt embeddings (video features spliced in,
+    models/owl.py) that replace the token-embedding lookup, right-aligned
+    the same way.  Returns (embeds [B, nq+P, H], valid_from [B],
+    pos_offset [B]); both are k."""
     b, p = prompt_ids.shape
     dev = prompt_ids.device
     nq = 0 if query_embeds is None else query_embeds.shape[1]
@@ -37,9 +40,16 @@ def _build_prefix(model, prompt_ids: torch.Tensor, prompt_len: torch.Tensor,
     # right-align the tokens within the P-wide buffer
     j = torch.arange(p, device=dev)[None, :]
     src = (j - k[:, None]).clamp(0, p - 1)
-    shifted = torch.where(j >= k[:, None], prompt_ids.gather(1, src),
-                          torch.full_like(prompt_ids, pad_id))
-    tok_emb = model.embed(shifted)
+    if prompt_embeds is not None:
+        h = prompt_embeds.shape[-1]
+        tok_emb = prompt_embeds.gather(1, src[..., None].expand(b, p, h))
+        tok_emb = torch.where((j >= k[:, None])[..., None], tok_emb,
+                              torch.zeros((), dtype=tok_emb.dtype,
+                                          device=dev))
+    else:
+        shifted = torch.where(j >= k[:, None], prompt_ids.gather(1, src),
+                              torch.full_like(prompt_ids, pad_id))
+        tok_emb = model.embed(shifted)
     h = tok_emb.shape[-1]
     total = nq + p
     jj = torch.arange(total, device=dev)[None, :, None]

@@ -249,9 +249,17 @@ class TiedEmbedding(nn.Module):
         return F.embedding(tokens, self.embedding).to(dtype)
 
     def attend(self, hidden):
-        """fp32 logits: bf16 products are exact in fp32, so this equals a
-        bf16 matmul with fp32 accumulation and fp32 output."""
+        """fp32 logits of a product with fp32 accumulation, as the JAX
+        package computes them.  bf16 hidden states on the card take one
+        bf16 x bf16 product with an fp32 output (no fp32 copy of the
+        [V, H] table per call: 4 GB at Bloom's 250880 x 4096); elsewhere
+        the fp32 product of the same values, which equals it because bf16
+        products are exact in fp32."""
         emb = self.embedding.to(hidden.dtype)
+        if hidden.is_cuda and hidden.dtype == torch.bfloat16:
+            y = torch.mm(hidden.reshape(-1, hidden.shape[-1]), emb.t(),
+                         out_dtype=torch.float32)
+            return y.reshape(*hidden.shape[:-1], y.shape[-1])
         return hidden.float() @ emb.float().t()
 
 

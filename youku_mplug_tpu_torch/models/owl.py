@@ -1,0 +1,195 @@
+"""mPLUG-Owl video instruct model (mPLUG-Video BloomZ-7B): per-frame CLIP
+ViT -> visual abstractor -> ``visual_fc`` (+ ``vit_eos``) -> features
+spliced into the Bloom token embeddings at the ``<|video|>`` positions.
+
+Counterpart of ``youku_mplug_tpu/models/owl.py`` for serving
+(``encode_video``, ``spliced_embeds``); ``instruct_loss`` waits for the
+training slice.  Parameter names and shapes follow the JAX tree, so the
+bridge loads it by rename.  What the port keeps:
+
+- frames fold into the batch for one ViT sweep ([B*T, 1 + N, D]);
+- the abstractor adds a learnable per-frame temporal embedding before
+  flattening the frames, runs its queries against [normed queries ;
+  normed frame features] (the 64 queries are below the flash kernel's
+  one 128-row block, so plain attention, as in the JAX package), adds the
+  attention output onto the NORMED queries (the external model's
+  trained-in quirk), has a gated-SiLU MLP with its LayerNorm on the
+  intermediate width, and no final LayerNorm;
+- ``splice_media``: the k-th media position takes the k-th media
+  feature (a cumulative-index gather).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from youku_mplug_tpu_torch.models.bloom import BloomConfig, BloomLM
+from youku_mplug_tpu_torch.models.tasks import Dense
+from youku_mplug_tpu_torch.models.vision import (
+    LayerNormFP32,
+    VisionConfig,
+    VisionTransformer,
+    _mm,
+    _param,
+)
+from youku_mplug_tpu_torch.ops.attention import dot_product_attention
+from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
+
+
+@dataclasses.dataclass(frozen=True)
+class OwlAbstractorConfig:
+    """mPLUG-Owl visual abstractor (ViT-L width defaults)."""
+
+    hidden_size: int = 1024
+    num_layers: int = 6
+    num_heads: int = 16
+    intermediate_size: int = 2816
+    num_queries: int = 64
+    ln_eps: float = 1e-6
+    init_std: float = 0.02
+    max_frames: int = 32
+
+
+class OwlAbstractorMlp(nn.Module):
+    """``w2(ffn_ln(silu(w1 x) * w3 x))``: the LayerNorm on the
+    intermediate width."""
+
+    def __init__(self, dim: int, hidden: int, ln_eps: float, dtype):
+        super().__init__()
+        for name, shape in (("w1", (dim, hidden)), ("w3", (dim, hidden)),
+                            ("w2", (hidden, dim))):
+            setattr(self, f"{name}_kernel", _param(*shape, dtype=dtype))
+            setattr(self, f"{name}_bias", _param(shape[1], dtype=dtype))
+        self.ffn_ln = LayerNormFP32(hidden, ln_eps, dtype)
+
+    def forward(self, x):
+        dt = x.dtype
+        h = (F.silu(_mm(x, self.w1_kernel) + self.w1_bias.to(dt))
+             * (_mm(x, self.w3_kernel) + self.w3_bias.to(dt)))
+        return _mm(self.ffn_ln(h), self.w2_kernel) + self.w2_bias.to(dt)
+
+
+class OwlAbstractorLayer(nn.Module):
+    """Queries attend [normed queries ; normed visual features]; the
+    residual base is the normed queries; then the gated MLP."""
+
+    def __init__(self, cfg: OwlAbstractorConfig, dtype):
+        super().__init__()
+        d = cfg.hidden_size
+        self.n = cfg.num_heads
+        self.norm_q = LayerNormFP32(d, cfg.ln_eps, dtype)
+        self.norm_kv = LayerNormFP32(d, cfg.ln_eps, dtype)
+        for name in ("q", "k", "v", "out"):
+            setattr(self, f"{name}_kernel", _param(d, d, dtype=dtype))
+            setattr(self, f"{name}_bias", _param(d, dtype=dtype))
+        self.norm_mlp = LayerNormFP32(d, cfg.ln_eps, dtype)
+        self.mlp = OwlAbstractorMlp(d, cfg.intermediate_size, cfg.ln_eps,
+                                    dtype)
+
+    def forward(self, x, visual):
+        b, nq, d = x.shape
+        q_in = self.norm_q(x)
+        kv = torch.cat([q_in, self.norm_kv(visual)], dim=1)
+        dt = q_in.dtype
+        q = _mm(q_in, self.q_kernel) + self.q_bias.to(dt)
+        k = _mm(kv, self.k_kernel) + self.k_bias.to(dt)
+        v = _mm(kv, self.v_kernel) + self.v_bias.to(dt)
+
+        def heads(t):  # [B, S, d] -> [B, n, S, d/n] view
+            return t.unflatten(-1, (self.n, d // self.n)).transpose(1, 2)
+
+        out = dot_product_attention(heads(q), heads(k), heads(v))
+        out = out.transpose(1, 2).reshape(b, nq, d)
+        x = q_in + (_mm(out, self.out_kernel) + self.out_bias.to(dt))
+        return x + self.mlp(self.norm_mlp(x))
+
+
+class OwlVisualAbstractor(nn.Module):
+    """``forward(frame_feats [B, T, N, Dv])`` -> [B, num_queries, D]."""
+
+    def __init__(self, cfg: OwlAbstractorConfig, vision_dim: int, dtype):
+        super().__init__()
+        d = cfg.hidden_size
+        self.temporal_embed = _param(cfg.max_frames, vision_dim, dtype=dtype)
+        if vision_dim != d:
+            self.in_proj = Dense(vision_dim, d, dtype)
+        self.query_embeds = _param(1, cfg.num_queries, d, dtype=dtype)
+        self.layers = nn.ModuleList(OwlAbstractorLayer(cfg, dtype)
+                                    for _ in range(cfg.num_layers))
+
+    def forward(self, frame_feats):
+        b, t, npatch, dv = frame_feats.shape
+        dt = frame_feats.dtype
+        x = frame_feats + self.temporal_embed[:t][None, :, None, :].to(dt)
+        x = x.reshape(b, t * npatch, dv)
+        if hasattr(self, "in_proj"):
+            x = self.in_proj(x)
+        q = self.query_embeds.to(dt).expand(b, -1, -1)
+        for layer in self.layers:
+            q = layer(q, x)
+        return q
+
+
+@dataclasses.dataclass(frozen=True)
+class MPLUGOwlVideoConfig:
+    # quick GELU: the external vision tower is CLIP-lineage
+    vision: VisionConfig = VisionConfig(
+        img_size=224, patch_size=14, embed_dim=1024, depth=24,
+        num_heads=16, clip_model=True, gelu="quick")
+    abstractor: OwlAbstractorConfig = OwlAbstractorConfig()
+    text: BloomConfig = BloomConfig()
+
+    @property
+    def num_media_tokens(self) -> int:
+        """Positions one video fills in the prompt: the queries, plus the
+        ``vit_eos`` token."""
+        return self.abstractor.num_queries + 1
+
+
+def splice_media(tok_emb, query_features, media_mask):
+    """tok_emb [B, S, H], query_features [B, nq, H], media_mask [B, S]
+    (exactly nq ones per row): the k-th marked position takes the k-th
+    query feature; the others keep their token embedding."""
+    qidx = (media_mask.long().cumsum(1) - 1).clamp(
+        0, query_features.shape[1] - 1)
+    gathered = query_features.to(tok_emb.dtype).gather(
+        1, qidx[..., None].expand(-1, -1, tok_emb.shape[-1]))
+    return torch.where(media_mask[..., None].bool(), gathered, tok_emb)
+
+
+class MPLUGOwlVideo(nn.Module):
+    """Per-frame ViT -> visual abstractor -> Bloom decoder."""
+
+    def __init__(self, cfg: MPLUGOwlVideoConfig,
+                 policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        self.cfg, self.policy = cfg, policy
+        dt = policy.param_dtype
+        self.visual_encoder = VisionTransformer(cfg.vision, policy)
+        self.abstractor = OwlVisualAbstractor(cfg.abstractor,
+                                              cfg.vision.embed_dim, dt)
+        self.visual_fc = Dense(cfg.abstractor.hidden_size,
+                               cfg.text.hidden_size, dt)
+        self.vit_eos = _param(1, 1, cfg.text.hidden_size, dtype=dt)
+        self.text_decoder = BloomLM(cfg.text, policy)
+
+    def encode_video(self, video):
+        """video [B, C, T, H, W] -> media features [B, num_media_tokens,
+        H_text] (the queries, then ``vit_eos``)."""
+        b, c, t, hh, ww = video.shape
+        frames = video.transpose(1, 2).reshape(b * t, c, hh, ww)
+        _, feats = self.visual_encoder(frames)
+        q = self.abstractor(feats.reshape(b, t, *feats.shape[1:]))
+        q = self.visual_fc(q)
+        return torch.cat([q, self.vit_eos.to(q.dtype).expand(b, 1, -1)],
+                         dim=1)
+
+    def spliced_embeds(self, input_ids, media_mask, query_features):
+        """Raw prompt embeddings [B, S, H] with the media features at the
+        media positions."""
+        return splice_media(self.text_decoder.embed(input_ids),
+                            query_features, media_mask)

@@ -1,5 +1,6 @@
-"""Video encoder: TimeSformer (divided space-time attention) and the
-AttentionPool visual abstractor.
+"""Vision encoders: TimeSformer (divided space-time attention), the plain
+(CLIP-style) ViT that mPLUG-Owl runs per frame, and the AttentionPool
+visual abstractor.
 
 Counterpart of ``youku_mplug_tpu/models/vision.py`` (forward; training
 through autograd, with the attention backward on the flash kernels).
@@ -15,14 +16,18 @@ can lose silently, all kept here:
   block-diagonal mask, and ``temporal_fc`` is folded into the temporal
   output projection in fp32 before the cast to the compute dtype;
 - AttentionPool appends learnable ``bias_k`` / ``bias_v`` as one extra
-  key, and its residual base is the *normed* queries.
+  key, and its residual base is the *normed* queries;
+- a ``clip_model`` tower has a bias-free patch embedding and a
+  ``norm_pre`` LayerNorm over [cls; patches] before the blocks; the MLP's
+  GELU is tanh, erf or CLIP's quick GELU as the config says.
 
 Under ``grad_ckpt`` the blocks ``i % stride == 0`` run under
 ``torch.utils.checkpoint`` (stride 2/3/6/12 for ``remat_policy``
 half/third/sixth/twelfth, else 1), as the JAX package remats them; its
 named-save inner policies are XLA's and are not ported (a checkpointed
 block recomputes everything).  Dropout and drop-path are not ported:
-training with a rate above 0 raises.
+training with a rate above 0 raises.  The clip_model TimeSformer (its
+``norm_pre``) and vision LoRA are not ported either.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ class VisionConfig:
     num_frames: int = 4
     gelu: str = "tanh"  # "tanh" | "erf" | "quick"
     clip_model: bool = False
+    lora_rank: int = 0
     ln_eps: float = 1e-6
     drop_path: float = 0.0
     drop_rate: float = 0.0
@@ -65,10 +71,9 @@ class VisionConfig:
     remat_policy: str = "nothing"  # "half" | "third" | "sixth" | "twelfth"
 
     def __post_init__(self):
-        if self.clip_model:
+        if self.lora_rank:
             raise NotImplementedError(
-                "clip_model towers (norm_pre, bias-free patch embed) are not "
-                "ported yet")
+                f"vision LoRA (lora_rank {self.lora_rank}) is not ported yet")
 
     @property
     def num_patches(self) -> int:
@@ -225,14 +230,16 @@ class SpaceTimeBlock(nn.Module):
 
 
 class PatchEmbed(nn.Module):
-    """Patchify as one matmul over folded patches; kernel [3*p*p, D]."""
+    """Patchify as one matmul over folded patches; kernel [3*p*p, D];
+    no bias for a CLIP tower (its conv1 has none)."""
 
     def __init__(self, cfg: VisionConfig, dtype=torch.float32):
         super().__init__()
         self.p = cfg.patch_size
         self.kernel = _param(cfg.in_chans * self.p * self.p, cfg.embed_dim,
                              dtype=dtype)
-        self.bias = _param(cfg.embed_dim, dtype=dtype)
+        self.bias = (None if cfg.clip_model
+                     else _param(cfg.embed_dim, dtype=dtype))
 
     def forward(self, x):  # [B, C, H, W] -> [B, N, D]
         b, c, hh, ww = x.shape
@@ -240,7 +247,8 @@ class PatchEmbed(nn.Module):
         gh, gw = hh // p, ww // p
         x = x.reshape(b, c, gh, p, gw, p).permute(0, 2, 4, 1, 3, 5)
         x = x.reshape(b, gh * gw, c * p * p)
-        return _mm(x, self.kernel) + self.bias.to(x.dtype)
+        y = _mm(x, self.kernel)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 class TimeSformer(nn.Module):
@@ -249,6 +257,10 @@ class TimeSformer(nn.Module):
 
     def __init__(self, cfg: VisionConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
+        if cfg.clip_model:
+            raise NotImplementedError(
+                "the clip_model TimeSformer (norm_pre over [cls; tokens]) is "
+                "not ported yet; VisionTransformer takes CLIP towers")
         self.cfg, self.policy = cfg, policy
         d, dt = cfg.embed_dim, policy.param_dtype
         self.patch_embed = PatchEmbed(cfg, dt)
@@ -290,6 +302,59 @@ class TimeSformer(nn.Module):
         x = x.transpose(1, 2).reshape(b, t * n_p, d)  # back to time-major
         tokens = self.norm(torch.cat([cls[:, None, :], x], dim=1))
         return tokens[:, 0], tokens
+
+
+class PlainBlock(nn.Module):
+    """Pre-LN ViT block: x + attn(norm1 x), then + mlp(norm2 x)."""
+
+    def __init__(self, cfg: VisionConfig, dtype=torch.float32):
+        super().__init__()
+        c = cfg.embed_dim
+        self.norm1 = LayerNormFP32(c, cfg.ln_eps, dtype)
+        self.attn = VisionAttention(c, cfg.num_heads, dtype)
+        self.norm2 = LayerNormFP32(c, cfg.ln_eps, dtype)
+        self.mlp = Mlp(c, int(c * cfg.mlp_ratio), cfg.gelu, dtype)
+
+    def forward(self, x):
+        x = x + self.attn(self.norm1(x))
+        return x + self.mlp(self.norm2(x))
+
+
+class VisionTransformer(nn.Module):
+    """Plain image ViT (mPLUG-Owl's per-frame CLIP ViT-L/14):
+    forward(images [B, C, H, W]) -> (cls [B, D], tokens [B, 1 + N, D]).
+    Attention over the 1 + N tokens runs the packed flash kernel."""
+
+    def __init__(self, cfg: VisionConfig, policy: Policy = DEFAULT_POLICY):
+        super().__init__()
+        self.cfg, self.policy = cfg, policy
+        d, dt = cfg.embed_dim, policy.param_dtype
+        self.patch_embed = PatchEmbed(cfg, dt)
+        self.cls_token = _param(1, 1, d, dtype=dt)
+        self.pos_embed = _param(1, cfg.num_patches + 1, d, dtype=dt)
+        if cfg.clip_model:
+            self.norm_pre = LayerNormFP32(d, cfg.ln_eps, dt)
+        self.blocks = nn.ModuleList(PlainBlock(cfg, dt)
+                                    for _ in range(cfg.depth))
+        self.norm = LayerNormFP32(d, cfg.ln_eps, dt)
+
+    def forward(self, images):
+        cfg = self.cfg
+        if self.training and (cfg.drop_path > 0 or cfg.drop_rate > 0
+                              or cfg.attn_drop_rate > 0):
+            raise NotImplementedError(
+                "vision dropout / drop-path is not ported yet: train with "
+                "drop_path = drop_rate = attn_drop_rate = 0")
+        x = self.patch_embed(images.to(self.policy.compute_dtype))
+        b, _, d = x.shape
+        x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, d), x], dim=1)
+        x = x + self.pos_embed.to(x.dtype)
+        if cfg.clip_model:
+            x = self.norm_pre(x)
+        for blk in self.blocks:
+            x = blk(x)
+        x = self.norm(x)
+        return x[:, 0], x
 
 
 class AttentionPool(nn.Module):

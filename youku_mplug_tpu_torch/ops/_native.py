@@ -41,8 +41,8 @@ _SIGNATURES = {
     + [_F, _I, _I, _P],
     "ymt_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 18
     + [_F, _I, _I, _P],
-    "ymt_decode_attention_bf16": [_P, _LL, _P, _P, _P, _P, _I, _I, _I, _LL,
-                                  _F, _P],
+    "ymt_decode_attention_bf16": [_P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
+                                  _LL, _F, _I, _I, _P],
 }
 
 

@@ -1,27 +1,66 @@
 """Decode attention over the stacked packed KV cache, read in place.
 
 Counterpart of ``youku_mplug_tpu/ops/decode_attention.py`` for the bf16
-cache without ALiBi: one query token per sample attends to layer
-``layer_idx`` of the stacked cache ``[L, B, M, 2*n*d]`` (rows = [K | V]),
-over the live keys ``valid_from[b] <= j <= cache_len[b]``; the caller
-writes the new token's row at ``cache_len[b]`` first.  A sample with no
-live key gets zeros.
+cache, with and without the ALiBi ladder (the Bloom decoder): one query
+token per sample attends to layer ``layer_idx`` of the stacked cache
+``[L, B, M, 2*n*d]`` (rows = [K | V]), over the live keys
+``valid_from[b] <= j <= cache_len[b]``; the caller writes the new token's
+row at ``cache_len[b]`` first.  A sample with no live key gets zeros.
+With ``alibi_slopes`` the score of key j is ``scale * q.k + slope_h * j``.
 
 The wrapper runs ``decode_attention_plain`` for CPU tensors and launches
-the CUDA kernel (``csrc/decode_attention.cu``) for CUDA tensors, or
-raises; ``decode_attention.launches`` counts kernel launches.  The int8
-cache with per-head scales and the ALiBi ladder are not ported yet.
+the CUDA kernel (``csrc/decode_attention.cu``, head dim 64 or 128) for
+CUDA tensors, or raises.  ``decode_attention.launches`` counts kernel
+launches without ALiBi, ``decode_attention.alibi_launches`` those with
+it.  The int8 cache with per-head scales is not ported yet.
 """
 
 from __future__ import annotations
 
+import functools
+import math
 from typing import Optional, Union
 
+import numpy as np
 import torch
 
 from youku_mplug_tpu_torch.ops import _native
 
-HEAD_DIM = 64  # the one head width the kernel is built for
+HEAD_DIMS = (64, 128)  # the head widths the kernel is built for
+
+
+def alibi_slopes(num_heads: int) -> np.ndarray:
+    """Per-head ALiBi slopes, fp32 [n]: the geometric ladder 2^(-8i/c)
+    for c the largest power of two <= n, then the interleaved half-step
+    ladder for the remaining heads (HF ``build_alibi_tensor``; the JAX
+    package's ``models/bloom.py:alibi_slopes``)."""
+    closest = 2 ** math.floor(math.log2(num_heads))
+    base = 2.0 ** (-(2.0 ** -(math.log2(closest) - 3)))
+    slopes = base ** np.arange(1, 1 + closest, dtype=np.float64)
+    if closest != num_heads:
+        extra_base = 2.0 ** (-(2.0 ** -(math.log2(2 * closest) - 3)))
+        n_rem = min(closest, num_heads - closest)
+        extra = extra_base ** np.arange(1, 1 + 2 * n_rem, 2,
+                                        dtype=np.float64)
+        slopes = np.concatenate([slopes, extra])
+    return slopes.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=64)
+def _is_ladder(n_heads: int, raw: bytes) -> bool:
+    a = np.frombuffer(raw, np.float32)
+    return a.shape == (n_heads,) and bool(
+        np.allclose(a, alibi_slopes(n_heads), rtol=1e-6))
+
+
+def _check_ladder(slopes, n_heads: int) -> None:
+    """Raise unless ``slopes`` is the standard ladder of ``n_heads``: the
+    kernel generates the slopes from the head index (the JAX kernel's
+    check, decode_attention.py:257-265)."""
+    raw = np.ascontiguousarray(slopes, np.float32).tobytes()
+    if not _is_ladder(n_heads, raw):
+        raise ValueError("decode attention only supports the standard ALiBi "
+                         f"ladder of {n_heads} heads")
 
 
 def _per_sample(x: Union[int, torch.Tensor], b: int, device) -> torch.Tensor:
@@ -31,11 +70,15 @@ def _per_sample(x: Union[int, torch.Tensor], b: int, device) -> torch.Tensor:
 
 def decode_attention_plain(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
                            layer_idx: int, cache_len, valid_from=None, *,
-                           scale: Optional[float] = None) -> torch.Tensor:
-    """Plain version of the kernel (fp32 scores, probabilities and
-    accumulation). q [B, n*d]; ckv [L, B, M, 2*n*d]; returns [B, n*d] in
-    q.dtype."""
-    b, nd = q.shape
+                           scale: Optional[float] = None,
+                           alibi_slopes=None) -> torch.Tensor:
+    """Plain version of the kernel (fp32 scores, bias, probabilities and
+    accumulation). q [B, n*d] or [B, n, d]; ckv [L, B, M, 2*n*d];
+    alibi_slopes: optional [n] per-head slopes (any values); returns
+    [B, n*d] in q.dtype."""
+    b = q.shape[0]
+    q = q.reshape(b, -1)
+    nd = q.shape[1]
     m = ckv.shape[2]
     d = nd // n_heads
     if scale is None:
@@ -45,10 +88,14 @@ def decode_attention_plain(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
     v = layer[..., nd:].unflatten(-1, (n_heads, d)).float()
     s = torch.einsum("bnd,bmnd->bnm", q.float().unflatten(-1, (n_heads, d)),
                      k) * scale
+    j = torch.arange(m, device=q.device)
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(np.asarray(alibi_slopes, np.float32),
+                                 device=q.device)
+        s = s + slopes[:, None] * j.float()
     cl = _per_sample(cache_len, b, q.device)
     vf = _per_sample(0 if valid_from is None else valid_from, b, q.device)
-    j = torch.arange(m, device=q.device)[None, :]
-    allowed = ((j >= vf[:, None]) & (j <= cl[:, None]))[:, None, :]
+    allowed = ((j[None] >= vf[:, None]) & (j[None] <= cl[:, None]))[:, None]
     s = s.masked_fill(~allowed, float("-inf"))
     mx = s.amax(-1, keepdim=True)
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
@@ -60,43 +107,65 @@ def decode_attention_plain(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
 
 def decode_attention(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
                      layer_idx: int, cache_len, valid_from=None, *,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     alibi_slopes=None) -> torch.Tensor:
     """Single-token attention against layer ``layer_idx`` of the stacked
-    packed cache.  q: [B, n*d] (a row-strided view is fine); ckv:
-    [L, B, M, 2*n*d]; cache_len / valid_from: int or [B].  Returns
-    [B, n*d] in q.dtype."""
+    packed cache.  q: [B, n*d] or [B, n, d] (any batch and head strides
+    with a contiguous d: views of a fused qkv row are fine); ckv:
+    [L, B, M, 2*n*d]; cache_len / valid_from: int or [B]; alibi_slopes:
+    optional [n] slopes, which must be the standard ladder
+    (``alibi_slopes(n)``).  Returns [B, n*d] in q.dtype."""
+    if alibi_slopes is not None:
+        _check_ladder(alibi_slopes, n_heads)
     if q.device.type == "cpu":
         return decode_attention_plain(q, ckv, n_heads, layer_idx, cache_len,
-                                      valid_from, scale=scale)
+                                      valid_from, scale=scale,
+                                      alibi_slopes=alibi_slopes)
     if q.device.type != "cuda":
         raise RuntimeError(f"no decode attention kernel for {q.device}")
     n_layers, b, m, nd2 = ckv.shape
     nd = nd2 // 2
+    d = nd // n_heads
     if q.dtype != torch.bfloat16 or ckv.dtype != torch.bfloat16 \
             or ckv.device != q.device:
         raise TypeError("decode kernel: q and the cache must be bf16 on one "
                         f"device; got {q.dtype}/{ckv.dtype} on "
                         f"{q.device}/{ckv.device}")
-    if nd != n_heads * HEAD_DIM or q.shape != (b, nd):
-        raise ValueError(f"decode kernel: needs head dim {HEAD_DIM} and q "
-                         f"[{b}, {nd}]; got q {tuple(q.shape)}, n={n_heads}")
-    if not ckv.is_contiguous() or q.stride(1) != 1 or q.stride(0) % 2:
-        raise ValueError("decode kernel: needs a contiguous cache and q rows")
+    q3 = q.unflatten(-1, (n_heads, d)) if q.dim() == 2 else q
+    if d not in HEAD_DIMS or nd != n_heads * d \
+            or q3.shape != (b, n_heads, d):
+        raise ValueError(f"decode kernel: needs head dim in {HEAD_DIMS} and "
+                         f"q [{b}, {nd}] or [{b}, {n_heads}, {d}]; got q "
+                         f"{tuple(q.shape)}, n={n_heads}, cache "
+                         f"{tuple(ckv.shape)}")
+    per = d // 32  # bf16 values one lane loads at once
+    if not ckv.is_contiguous() or q3.stride(2) != 1 \
+            or q3.stride(0) % per or q3.stride(1) % per \
+            or q3.data_ptr() % (2 * per):
+        raise ValueError("decode kernel: needs a contiguous cache and q "
+                         f"heads aligned to {2 * per} bytes; got q strides "
+                         f"{q3.stride()}")
     if not 0 <= layer_idx < n_layers:
         raise IndexError(f"layer {layer_idx} of {n_layers}")
     if scale is None:
-        scale = HEAD_DIM ** -0.5
+        scale = d ** -0.5
     cl = _per_sample(cache_len, b, q.device).contiguous()
     vf = _per_sample(0 if valid_from is None else valid_from, b,
                      q.device).contiguous()
     out = torch.empty(b, nd, dtype=q.dtype, device=q.device)
+    alibi = alibi_slopes is not None
     err = _native.library().ymt_decode_attention_bf16(
-        q.data_ptr(), q.stride(0), ckv.data_ptr(), out.data_ptr(),
-        cl.data_ptr(), vf.data_ptr(), b, n_heads, m,
-        layer_idx * b * m * nd2, float(scale), _native.stream_handle(q))
+        q3.data_ptr(), q3.stride(0), q3.stride(1), ckv.data_ptr(),
+        out.data_ptr(), cl.data_ptr(), vf.data_ptr(), b, n_heads, m,
+        layer_idx * b * m * nd2, float(scale), d, int(alibi),
+        _native.stream_handle(q))
     _native.check_launch(err, "ymt_decode_attention_bf16")
-    decode_attention.launches += 1
+    if alibi:
+        decode_attention.alibi_launches += 1
+    else:
+        decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.alibi_launches = 0

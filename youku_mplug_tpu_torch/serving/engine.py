@@ -1,10 +1,11 @@
-"""Continuous-batching serving engine for the GPT-3 decoder.
+"""Continuous-batching serving engine for the GPT-3 and Bloom decoders.
 
 Counterpart of ``youku_mplug_tpu/serving/engine.py`` (single-step
 scheduling, greedy decoding): a fixed pool of slots shares one stacked KV
 cache [L, num_slots, M, 2*hidden]; every slot sits at its own sequence
 length.  Prefill runs one request's front-padded [queries | prompt] chunk
-into its slot, writing the slot's rows of the cache in place; decode
+(or its pre-built prompt embeddings, the Owl instruct path) into its
+slot, writing the slot's rows of the cache in place; decode
 advances ALL slots one token in one step (inactive slots compute too and
 are ignored on the host — their repeated write lands at a masked
 position and is overwritten when the slot is reused).  Requests are
@@ -18,7 +19,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import itertools
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -27,6 +28,7 @@ from youku_mplug_tpu_torch.models.generation import (
     GenerationConfig,
     _build_prefix,
 )
+from youku_mplug_tpu_torch.models.bloom import BloomLM
 from youku_mplug_tpu_torch.models.gpt3 import GPT3LM
 
 
@@ -55,7 +57,8 @@ class ServingEngine:
             print(fin.rid, fin.tokens)
     """
 
-    def __init__(self, model: GPT3LM, *, num_slots: int = 8,
+    def __init__(self, model: Union[GPT3LM, BloomLM], *,
+                 num_slots: int = 8,
                  max_len: int = 256,
                  prefill_buckets: Sequence[int] = (8, 16, 32, 64),
                  config: GenerationConfig = GenerationConfig()):
@@ -97,15 +100,17 @@ class ServingEngine:
 
     @torch.inference_mode()
     def _prefill_impl(self, slot: int, prompt_ids: torch.Tensor,
-                      prompt_len: torch.Tensor, query_embeds):
+                      prompt_len: torch.Tensor, query_embeds,
+                      prompt_embeds=None):
         """Run one request's prompt into its slot's cache rows (in place,
         through a view of the slot).  prompt_ids [1, P] right-padded;
-        prompt_len [1]; query_embeds [1, nq, H] or None.  Returns
+        prompt_len [1]; query_embeds [1, nq, H] or None; prompt_embeds
+        [1, P, H] or None (pre-built prompt embeddings).  Returns
         (first_token, valid_from) as tensors."""
         sub = self.cache[:, slot:slot + 1]
         embeds, valid_from, pos_offset = _build_prefix(
             self.model, prompt_ids, prompt_len, query_embeds,
-            self.config.pad_id)
+            self.config.pad_id, prompt_embeds)
         logits, _ = self.model.decode_step(embeds, sub, 0, valid_from,
                                            pos_offset)
         return self._pick(logits)[0], valid_from[0]
@@ -123,12 +128,21 @@ class ServingEngine:
     # ------------------------------------------------------------------
 
     def submit(self, prompt_ids: Sequence[int], query_embeds=None,
-               max_new_tokens: Optional[int] = None) -> int:
+               max_new_tokens: Optional[int] = None,
+               prompt_embeds=None) -> int:
         """Enqueue a request. prompt_ids: true tokens (no padding);
-        query_embeds: optional [nq, H] visual prefix.  Returns the id."""
+        query_embeds: optional [nq, H] visual prefix; prompt_embeds:
+        optional [len(prompt_ids), H] pre-built prompt embeddings that
+        replace the token-embedding lookup (media features spliced in).
+        Returns the id."""
+        if prompt_embeds is not None \
+                and prompt_embeds.shape[0] != len(prompt_ids):
+            raise ValueError(f"prompt_embeds has {prompt_embeds.shape[0]} "
+                             f"rows for {len(prompt_ids)} prompt ids")
         rid = next(self._rid)
         self._queue.append((rid, list(prompt_ids), query_embeds,
-                            max_new_tokens or self.config.max_new_tokens))
+                            max_new_tokens or self.config.max_new_tokens,
+                            prompt_embeds))
         return rid
 
     def _bucket(self, n: int) -> int:
@@ -142,16 +156,23 @@ class ServingEngine:
         for slot in range(self.num_slots):
             if self._slots[slot] is not None or not self._queue:
                 continue
-            rid, ids, qe, max_new = self._queue.popleft()
+            rid, ids, qe, max_new, pe = self._queue.popleft()
             p = self._bucket(len(ids))
             nq = 0 if qe is None else qe.shape[0]
             padded = np.full((1, p), self.config.pad_id, np.int64)
             padded[0, :len(ids)] = ids
             qe_dev = None if qe is None else torch.as_tensor(
                 qe, device=self.device)[None]
+            pe_dev = None
+            if pe is not None:
+                # right-padded to the bucket; _build_prefix right-aligns by
+                # the true length and zeroes the padding
+                pe = torch.as_tensor(pe, device=self.device)
+                pe_dev = pe.new_zeros(1, p, pe.shape[-1])
+                pe_dev[0, :len(ids)] = pe
             first, vf = self._prefill_impl(
                 slot, self._dev(padded),
-                torch.tensor([len(ids)], device=self.device), qe_dev)
+                torch.tensor([len(ids)], device=self.device), qe_dev, pe_dev)
             first = int(first)
             # the slot's length is the bucket width, not the true length
             self.cache_len[slot] = nq + p
