@@ -9,15 +9,18 @@ the last line is printed):
    print the card's name and power limit, build the hand-written kernels
    from youku_mplug_tpu_torch/csrc/ (one nvcc per source, in parallel);
 2. each kernel against its plain PyTorch version, in bf16, at the shapes
-   the serving, training and instruct paths give it, with both times from
-   CUDA events: the forward (K1 none / period / causal, K4) at the
-   serving shapes and K1 at the CLIP ViT-L/14 frame shape, then at each
-   of the four training shapes (vision spatial, grouped temporal with
-   period 8, decoder causal, AttentionPool head-major, plus a small
-   kv_len case) the forward's o and lse and the backward's dq and dk/dv
-   kernels on that forward's output, and decode (K5: head dim 64; head
-   dim 128 with the ALiBi ladder at BloomZ-7B1's cache, at a head count
-   past a power of two, and without ALiBi);
+   the serving, training and instruct paths give it, with the kernel's,
+   the plain version's and F.scaled_dot_product_attention's times from
+   CUDA events and the bound from this run's inputs: the forward (K1
+   none / period, K4) at the serving shapes and K1 at the CLIP ViT-L/14
+   frame shapes, then at each of the four training shapes (vision
+   spatial, grouped temporal with period 8, decoder causal,
+   AttentionPool head-major, plus a small kv_len case) and the five
+   ALiBi / head dim 128 shapes (Bloom training [8, 105, 32x128], S 768,
+   40 heads, d 64, d 128 without ALiBi) the forward's o and lse and the
+   backward's dq and dk/dv kernels on that forward's output, and decode
+   (K5: head dim 64; head dim 128 with the ALiBi ladder at BloomZ-7B1's
+   cache, at a head count past a power of two, and without ALiBi);
 3. the serve slice: the serve CLI's path at the flagship model's full
    width (configs/caption/serve_gpt3_1.3B_flagship.yaml, seeded weights),
    16 requests over synthetic clips, 8 slots, 32 new tokens, greedy;
@@ -47,8 +50,22 @@ the last line is printed):
 8. instruct teacher-forced check: the clips' media features and the
    first decode steps again with the plain versions of K1 and K5 fed the
    same inputs and tokens, within the stated tolerances;
-9. a JSON line describing each kernel, the card's line, then the result
-   line.
+9. the instruct-train slice: the run_instruct CLI's --train path
+   (train_setup and run_pretrain.train_one_epoch) at the full width and
+   depth of configs/instruct/train_bloomz_7b_flagship.yaml (frozen bf16
+   ViT-L/14 and BloomZ-7B1 with rank-8 fp32 LoRA, trainable abstractor,
+   visual_fc and vit_eos; batch 8, S 105), 8 steps: loss and grad_norm
+   finite, no skipped step, the frozen weights bitwise unchanged, every
+   trainable leaf (every adapter included) moved, and per step 30
+   launches each of K1, dq and dk/dv with ALiBi, 24 of K1 (the ViT), no
+   other; step ms, clips/s, peak memory;
+10. instruct-train plain replay: the first batch of the instruct-train
+   run with every wrapper plain (loss gated), then with Bloom's attention
+   plain and the frozen ViT on its kernel in both runs (loss and every
+   trainable gradient gated as in phase 6);
+11. a JSON line describing each kernel (errors, times of the kernel, its
+   plain version and the SDPA library call, the bound, launches per
+   path, each shape), the card's line, then the result line.
 """
 
 from __future__ import annotations
@@ -58,6 +75,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -102,6 +120,9 @@ WARMUP_STEPS, TIMED_STEPS = 2, 5
 OWL_YAML = os.path.join(REPO, "configs", "instruct",
                         "serve_bloomz_7b_flagship.yaml")
 OWL_REQUESTS, OWL_SLOTS = 16, 8
+OWL_TRAIN_YAML = os.path.join(REPO, "configs", "instruct",
+                              "train_bloomz_7b_flagship.yaml")
+OWL_TRAIN_STEPS = 8
 # instruct teacher-forced check, max |kernels - plain| over max |plain|,
 # for the media features (24 ViT-L blocks, 6 abstractor layers and
 # visual_fc) and the fp32 logits (30 Bloom layers), all in bf16: each
@@ -111,6 +132,10 @@ OWL_REQUESTS, OWL_SLOTS = 16, 8
 # ~ 2% of the largest value, and the bound leaves three times that
 OWL_REL_TOL = 2.0 ** -4
 SPIN_CYCLES = 200_000_000  # >= 0.1 s at the H100's 1.98 GHz boost clock
+# the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
+# (the bounds in the kernel report)
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
 
 
 def fail(msg: str):
@@ -167,33 +192,126 @@ def phase_device_and_build():
 
     so, seconds, log = _native.build()
     _native.library()
-    usage = " ; ".join(line.split("info    : ")[-1]
-                       for line in log.splitlines() if "registers" in line)
+    # nvcc -Xptxas -v: per template instance, its registers and spills
+    usage, entry, spill = [], "?", ""
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
+                          r"decode_attn)_kernelILi(\d+)ELb([01])E", line)
+            entry = (f"{m[1]}<{m[2]},{'alibi' if m[3] == '1' else 'plain'}>"
+                     if m else "?")
+        elif "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            spill = f"spills {m[1]}/{m[2]} B" if m else line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)[1]
+            usage.append(f"{entry} {regs} regs, {spill}")
     print(f"[build] {os.path.relpath(so, REPO)} in {seconds:.1f} s "
-          f"(sm_90a) | {usage}", flush=True)
+          f"(sm_90a) | " + " ; ".join(usage), flush=True)
     return card
 
 
-def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout):
+def _bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    products at the bf16 dense peak and the bytes at the HBM rate."""
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops_ms": t_ops, "bytes_ms": t_bytes}
+
+
+def _attn_bounds(fa, b, h, sq, sk, d, causal, period, kv_len):
+    """Bounds of the forward, the dq kernel and the dk/dv kernel on these
+    inputs: the products over the (query, key) pairs the mask leaves
+    (QK^T and PV forward; S, dP and dQ for dq; S^T, dP^T, dV and dK for
+    dk/dv; 2 operations per multiply-add), each bf16 operand read once
+    and each output written once, lse and delta in fp32."""
+    pairs = b * h * int(fa._allowed(sq, sk, causal=causal, period=period,
+                                    kv_len=kv_len, device="cpu").sum())
+    row = 2 * d * b * h  # bytes of one bf16 row over all (sample, head)
+    stat = 4 * b * h * sq
+    return {"fwd": _bound(4 * pairs * d, row * (2 * sq + 2 * sk) + stat),
+            "dq": _bound(6 * pairs * d, row * (3 * sq + 2 * sk) + 2 * stat),
+            "dkv": _bound(8 * pairs * d,
+                          row * (2 * sq + 4 * sk) + 2 * stat)}
+
+
+def _sdpa_kwargs(fa, q, k, causal, period, kv_len, slopes):
+    """The library yardstick's mask for these inputs: is_causal, a bool
+    mask, or (ALiBi) the float bias with -inf where the mask drops a key,
+    in q's dtype as SDPA takes it."""
+    sq, sk = q.shape[2], k.shape[2]
+    if slopes is None and period == 0 and kv_len is None:
+        return {"is_causal": causal}
+    allowed = fa._allowed(sq, sk, causal=causal, period=period,
+                          kv_len=kv_len, device=q.device)
+    if slopes is None:
+        return {"attn_mask": allowed}
+    bias = slopes[:, None, None] * torch.arange(sk, device=q.device,
+                                                dtype=torch.float32)
+    return {"attn_mask": bias.masked_fill(~allowed, float("-inf"))[None]
+            .to(q.dtype)}
+
+
+def _library_ms(q, k, v, mask_kw, do=None):
+    """F.scaled_dot_product_attention on the same inputs: the forward's
+    ms, and with ``do`` also the backward's (forward + backward through
+    autograd, less the forward; leaves are contiguous copies)."""
+    import torch.nn.functional as F
+
+    fwd = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, **mask_kw),
+                  20)
+    if do is None:
+        return fwd, None
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd_bwd():
+        out = F.scaled_dot_product_attention(*leaves, **mask_kw)
+        torch.autograd.grad(out, leaves, do)
+
+    with torch.no_grad():
+        fwd_leaves = time_ms(lambda: F.scaled_dot_product_attention(
+            *leaves, **mask_kw), 20)
+    return fwd, max(time_ms(fwd_bwd, 20) - fwd_leaves, 0.0)
+
+
+def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
+              d=64, alibi=False, path="train", on_path=True):
     """One training-shape check, in the layouts the model hands the
-    kernels (packed slices of one qkv projection, or head views of
-    AttentionPool's projections): the forward kernel's o and lse against
+    kernels (packed slices of one qkv projection, head views of Bloom's
+    head-major fused projection, or head views of AttentionPool's
+    projections): the forward kernel's o and lse against
     flash_fwd_plain, then the dq and dk/dv kernels against
-    flash_bwd_plain on the same (q, k, v, o, lse, dO); all with both
-    times."""
-    nd = n * 64
+    flash_bwd_plain on the same (q, k, v, o, lse, dO); all with the
+    kernel's, the plain version's and the library call's times and the
+    bound."""
+    from youku_mplug_tpu_torch.ops import decode_attention as dec
+
+    nd = n * d
     if layout == "packed":
         qkv = rand(b, sq, 3 * nd)
-        parts = (qkv[..., :nd], qkv[..., nd:2 * nd], qkv[..., 2 * nd:])
+        parts = [qkv[..., :nd], qkv[..., nd:2 * nd], qkv[..., 2 * nd:]]
+        parts = [t.unflatten(-1, (n, d)) for t in parts]
+    elif layout == "head-major":
+        qkv5 = rand(b, sq, n, 3, d)
+        parts = [qkv5[..., i, :] for i in range(3)]
     else:
-        parts = (rand(b, sq, nd), rand(b, sk, nd), rand(b, sk, nd))
-    q, k, v = (t.unflatten(-1, (n, 64)).transpose(1, 2) for t in parts)
-    kw = dict(scale=0.125, causal=causal, period=period, kv_len=kv_len)
-    shape = (f"[{b},{sq},{n}x64] kv {sk}"
-             + (" causal" if causal else "")
+        parts = [rand(b, s, nd).unflatten(-1, (n, d))
+                 for s in (sq, sk, sk)]
+    q, k, v = (t.transpose(1, 2) for t in parts)
+    slopes = (torch.from_numpy(dec.alibi_slopes(n)).to(q.device)
+              if alibi else None)
+    kw = dict(scale=d ** -0.5, causal=causal, period=period, kv_len=kv_len,
+              alibi_slopes=slopes)
+    shape = (f"[{b},{sq},{n}x{d}] kv {sk}"
+             + (" causal" if causal else "") + (" ALiBi" if alibi else "")
              + (f" period {period}" if period else "")
              + (f" kv_len {kv_len}" if kv_len is not None else "")
-             + f" {layout}")
+             + f" {layout} ({path})")
+    bounds = _attn_bounds(fa, b, n, sq, sk, d, causal, period, kv_len)
+    mask_kw = _sdpa_kwargs(fa, q, k, causal, period, kv_len, slopes)
     o = fa._head_major_empty(q)
     lse = fa.flash_fwd_cuda(q, k, v, o, **kw)
     want_o, want_lse = fa.flash_fwd_plain(q, k, v, **kw)
@@ -201,12 +319,14 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout):
     if not (within(o, want_o) and lse_err <= LSE_TOL):
         fail(f"forward {shape}: max err {fwd_err} (tol {KERNEL_TOL}), lse "
              f"{lse_err} (tol {LSE_TOL})")
-    fwd = {"shape": shape + " (train)", "max_abs_err": fwd_err,
+    do = fa._head_major_empty(q).copy_(rand(b, n, sq, d))
+    lib_fwd, lib_bwd = _library_ms(q, k, v, mask_kw, do)
+    fwd = {"shape": shape, "on_path": on_path, "max_abs_err": fwd_err,
            "lse_err": lse_err,
            "ms": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, o, **kw), 20),
            "plain_ms": time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw),
-                               20)}
-    do = fa._head_major_empty(q).copy_(rand(b, n, sq, 64))
+                               20),
+           "library_ms": lib_fwd, **bounds["fwd"]}
     delta = (do.float() * o.float()).sum(-1).contiguous()
     got = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
     want = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
@@ -229,26 +349,56 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout):
                                                    dk, dv, **kw), iters)
     plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw),
                        iters)
-    return {"shape": shape, "layout": layout, "fwd": fwd, "rel_l2": errs,
-            "max_abs_err": abs_err, "dq_ms": dq_ms, "dkv_ms": dkv_ms,
-            "plain_ms": plain_ms}
+
+    def bwd_row(kind, ms, grads):
+        return {"shape": shape, "on_path": on_path,
+                "rel_l2": {gn: errs[gn] for gn in grads},
+                "max_abs_err": max(abs_err[gn] for gn in grads), "ms": ms,
+                "plain_ms": plain_ms, "library_ms": lib_bwd,
+                **bounds[kind]}
+
+    return {"layout": layout, "fwd": fwd,
+            "dq": bwd_row("dq", dq_ms, ("dq",)),
+            "dkv": bwd_row("dkv", dkv_ms, ("dk", "dv"))}
 
 
-# (rows, Sq, Sk, heads, causal, period, kv_len, layout); the first four
-# are the flagship train step's shapes (16 clips x 8 frames; 16 clips x
-# 14 temporal groups; 16 x (128 queries + 80 tokens); AttentionPool's 128
-# queries over 1 + 8 x 196 tokens and the bias key)
+# (rows, Sq, Sk, heads, causal, period, kv_len, layout, head dim, ALiBi,
+# path, on the path); the first four are the flagship train step's shapes
+# (16 clips x 8 frames; 16 clips x 14 temporal groups; 16 x (128 queries
+# + 80 tokens); AttentionPool's 128 queries over 1 + 8 x 196 tokens and
+# the bias key), then a small kv_len case
 BWD_SHAPES = [(128, 197, 197, 12, False, 0, None, "packed"),
               (224, 112, 112, 12, False, 8, None, "packed"),
               (16, 208, 208, 32, True, 0, None, "packed"),
               (16, 128, 1570, 12, False, 0, None, "heads"),
-              (2, 65, 130, 1, False, 0, 70, "heads")]
+              (2, 65, 130, 1, False, 0, 70, "heads", 64, False, "train",
+               False)]
+# Bloom's training attention, ALiBi causal at head dim 128 on head views
+# of the head-major fused projection: the instruct-train step's [8, 105,
+# 32x128] (a 99-token prompt with the 65 media positions, 5 answer words
+# and eos: a ragged second tile), the YAML's max_length 768 (12 causal
+# tiles, biases up to ~645), 40 heads (the half-step ladder), ALiBi at
+# d = 64 (packed), and the d = 128 build without ALiBi
+ALIBI_SHAPES = [
+    (8, 105, 105, 32, True, 0, None, "head-major", 128, True,
+     "instruct_train", True),
+    (2, 768, 768, 32, True, 0, None, "head-major", 128, True,
+     "max_length", False),
+    (2, 256, 256, 40, True, 0, None, "head-major", 128, True, "40 heads",
+     False),
+    (2, 208, 208, 32, True, 0, None, "packed", 64, True, "d 64", False),
+    (2, 256, 256, 32, True, 0, None, "head-major", 128, False,
+     "d 128 without ALiBi", False)]
 
 
-def _decode_case(dec, q, ckv, n, clen, vfrom, slopes, shape):
+def _decode_case(dec, q, ckv, n, clen, vfrom, slopes, shape, on_path):
     """One K5 check on the last layer of ``ckv``: the kernel against
     decode_attention_plain on the same inputs, slot 3 (no live key)
-    reading zeros; both times over 200 calls."""
+    reading zeros; the kernel's and plain times over 200 calls, SDPA over
+    the live cache view with the same mask and bias, and the bound (the
+    live K and V rows read once, q read and o written once)."""
+    import torch.nn.functional as F
+
     lidx = ckv.shape[0] - 1
     kw = dict(alibi_slopes=slopes)
     got = dec.decode_attention(q, ckv, n, lidx, clen, vfrom, **kw)
@@ -257,11 +407,55 @@ def _decode_case(dec, q, ckv, n, clen, vfrom, slopes, shape):
     if not within(got, want) or empty != 0:
         fail(f"K5 {shape}: max err {e} (tol {KERNEL_TOL}); empty slot max "
              f"{empty}")
-    return {"shape": shape, "max_abs_err": e,
+    b, m = ckv.shape[1], ckv.shape[2]
+    nd = ckv.shape[3] // 2
+    d = nd // n
+    live = int((torch.minimum(clen, torch.tensor(m - 1, device=clen.device))
+                - vfrom + 1).clamp_min(0).sum())
+    layer = ckv[lidx]
+    qh = q.reshape(b, n, 1, d)
+    kh = layer[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
+    vh = layer[..., nd:].unflatten(-1, (n, d)).transpose(1, 2)
+    j = torch.arange(m, device=q.device)
+    allowed = ((j[None] >= vfrom[:, None]) & (j[None] <= clen[:, None]))
+    bias = torch.zeros(b, n, 1, m, device=q.device)
+    if slopes is not None:
+        bias = bias + torch.as_tensor(slopes, device=q.device)[
+            None, :, None, None] * j.float()
+    bias = bias.masked_fill(~allowed[:, None, None], float("-inf")).to(
+        q.dtype)
+    return {"shape": shape, "on_path": on_path, "max_abs_err": e,
             "ms": time_ms(lambda: dec.decode_attention(
                 q, ckv, n, lidx, clen, vfrom, **kw), 200),
             "plain_ms": time_ms(lambda: dec.decode_attention_plain(
-                q, ckv, n, lidx, clen, vfrom, **kw), 200)}
+                q, ckv, n, lidx, clen, vfrom, **kw), 200),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=bias), 200),
+            **_bound(4 * live * n * d, 2 * 2 * live * nd + 2 * 2 * b * nd)}
+
+
+def _entry(name, source, replaces, wrapper, paths, key, per_shape,
+           counter="launches"):
+    """A kernel's report entry.  The error is the worst over every shape;
+    the times and bounds are sums over the shapes its paths run."""
+    on = [p for p in per_shape if p["on_path"]]
+    ops, nbytes = sum(p["ops_ms"] for p in on), sum(p["bytes_ms"] for p in on)
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "wrapper": wrapper, "counter": counter,
+            "paths": paths, "key": key,
+            "max_abs_err": max(p["max_abs_err"] for p in per_shape),
+            "ms": sum(p["ms"] for p in on),
+            "plain_ms": sum(p["plain_ms"] for p in on),
+            "bound_ms": sum(p["bound_ms"] for p in on),
+            "bound_by": "operations" if ops >= nbytes else "bytes",
+            "library_ms": sum(p["library_ms"] for p in on),
+            "per_shape": per_shape}
+
+
+FWD_SRC = "youku_mplug_tpu_torch/csrc/flash_fwd.cu"
+BWD_SRC = "youku_mplug_tpu_torch/csrc/flash_bwd.cu"
+DEC_SRC = "youku_mplug_tpu_torch/csrc/decode_attention.cu"
+TPU_FLASH = "youku_mplug_tpu/ops/flash_attention.py"
 
 
 def phase_kernels(dev):
@@ -273,22 +467,20 @@ def phase_kernels(dev):
     def rand(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(torch.bfloat16)
 
-    report = []
-    # K1: vision spatial [B*T, 197, 12*64], temporal [B*14, 112, 12*64]
-    # period 8 (B = 8 clips serving, 16 training), decoder training
-    # [16, 208, 32*64] causal, the instruct path's CLIP ViT-L/14 frames
-    # [16 clips x 8 frames, 1 + 16*16, 16*64]; q/k/v as views of one qkv
-    # projection
-    per_shape = []
-    for rows, s, n, period, causal, path in (
-            (64, 197, 12, 0, False, "serve"),
-            (112, 112, 12, 8, False, "serve"),
-            (16, 208, 32, 0, True, "train"),
-            (128, 257, 16, 0, False, "instruct")):
+    # K1 forward alone: vision spatial [B*T, 197, 12*64], temporal
+    # [B*14, 112, 12*64] period 8 (B = 8 clips serving), the CLIP
+    # ViT-L/14 frames [16 clips x 8 frames, 1 + 16*16, 16*64] of instruct
+    # serving and [8 x 8, 257, 16*64] of instruct training; q/k/v as
+    # views of one qkv projection
+    k1 = []
+    for rows, s, n, period, path in ((64, 197, 12, 0, "serve"),
+                                     (112, 112, 12, 8, "serve"),
+                                     (128, 257, 16, 0, "instruct"),
+                                     (64, 257, 16, 0, "instruct_train")):
         nd = n * 64
         qkv = rand(rows, s, 3 * nd)
         q, k, v = qkv[..., :nd], qkv[..., nd:2 * nd], qkv[..., 2 * nd:]
-        kw = dict(period=period, causal=causal)
+        kw = dict(period=period)
         got = fa.flash_attention_packed(q, k, v, n, **kw)
         want = fa.flash_attention_packed_plain(q, k, v, n, **kw)
         views = [t.unflatten(-1, (n, 64)).transpose(1, 2)
@@ -297,28 +489,21 @@ def phase_kernels(dev):
                                 scale=0.125, **kw)
         _, want_lse = fa.flash_fwd_plain(*views, scale=0.125, **kw)
         e, e_lse = err(got, want), err(lse, want_lse)
-        shape = (f"[{rows},{s},{n}x64] period {period}"
-                 + (" causal" if causal else "") + f" ({path})")
+        shape = (f"[{rows},{s},{n}x64] period {period} ({path})")
         if not (within(got, want) and e_lse <= LSE_TOL):
             fail(f"K1 {shape}: max err {e} (tol {KERNEL_TOL}), lse {e_lse} "
                  f"(tol {LSE_TOL})")
-        ms = time_ms(lambda: fa.flash_attention_packed(q, k, v, n, **kw), 20)
-        plain_ms = time_ms(lambda: fa.flash_attention_packed_plain(
-            q, k, v, n, **kw), 20)
-        per_shape.append({"shape": shape, "max_abs_err": e, "lse_err": e_lse,
-                          "ms": ms, "plain_ms": plain_ms})
-    report.append({
-        "name": "K1 flash_attention_packed (vision spatial + temporal, "
-                "decoder causal, CLIP ViT-L frames)",
-        "route": "cuda", "source": "youku_mplug_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "youku_mplug_tpu/ops/flash_attention.py:426",
-        "wrapper": fa.flash_attention_packed,
-        "paths": ("serve", "train", "instruct"),
-        "key": "K1",
-        "max_abs_err": max(p["max_abs_err"] for p in per_shape),
-        "ms": sum(p["ms"] for p in per_shape),
-        "plain_ms": sum(p["plain_ms"] for p in per_shape),
-        "per_shape": per_shape})
+        lib, _ = _library_ms(*views, _sdpa_kwargs(fa, views[0], views[1],
+                                                  False, period, None, None))
+        k1.append({
+            "shape": shape, "on_path": True, "max_abs_err": e,
+            "lse_err": e_lse,
+            "ms": time_ms(lambda: fa.flash_attention_packed(q, k, v, n, **kw),
+                          20),
+            "plain_ms": time_ms(lambda: fa.flash_attention_packed_plain(
+                q, k, v, n, **kw), 20),
+            "library_ms": lib,
+            **_attn_bounds(fa, rows, n, s, s, 64, False, period, None)["fwd"]})
 
     # K4: AttentionPool, q [8,12,128,64], k/v [8,12,1570,64] (head views)
     q = rand(8, 128, 768).unflatten(-1, (12, 64)).transpose(1, 2)
@@ -331,65 +516,61 @@ def phase_kernels(dev):
                                                            scale=0.125)[1])
     if not (within(got, want) and e_lse <= LSE_TOL):
         fail(f"K4 AttentionPool: max err {e}, lse {e_lse}")
-    report.append({
-        "name": "K4 flash_attention (AttentionPool)", "route": "cuda",
-        "source": "youku_mplug_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "youku_mplug_tpu/ops/flash_attention.py:59",
-        "wrapper": fa.flash_attention, "paths": ("serve", "train"),
-        "key": "K4",
-        "per_shape": [{
-            "shape": "[8,128,12x64] kv 1570 heads (serve)",
-            "max_abs_err": e, "lse_err": e_lse,
-            "ms": time_ms(lambda: fa.flash_attention(q, k, v), 20),
-            "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
-                                20)}]})
+    k4 = [{"shape": "[8,128,12x64] kv 1570 heads (serve)", "on_path": True,
+           "max_abs_err": e, "lse_err": e_lse,
+           "ms": time_ms(lambda: fa.flash_attention(q, k, v), 20),
+           "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
+                               20),
+           "library_ms": _library_ms(q, k, v, {})[0],
+           **_attn_bounds(fa, 8, 12, 128, 1570, 64, False, 0, None)["fwd"]}]
 
-    # the forward again, then K2/K3 and K4b (the backward), at the
-    # training shapes: K1's packed cases, K4's head-major ones
+    # the forward again, then the backward kernels, at the training shapes
+    # (K1 packed and K4 head-major) and at Bloom's ALiBi shapes
     cases = [_bwd_case(rand, fa, *c) for c in BWD_SHAPES]
-    train_cases = cases[:4]
-    for entry, layout in ((report[0], "packed"), (report[1], "heads")):
-        entry["per_shape"] += [c["fwd"] for c in cases
-                               if c["layout"] == layout]
-        entry["max_abs_err"] = max(p["max_abs_err"]
-                                   for p in entry["per_shape"])
-        entry["ms"] = sum(p["ms"] for p in entry["per_shape"])
-        entry["plain_ms"] = sum(p["plain_ms"] for p in entry["per_shape"])
-    for kind, wrapper, line, key in (
-            ("dq", fa.flash_bwd_dq_cuda, 723, "dq_ms"),
-            ("dkv", fa.flash_bwd_dkv_cuda, 791, "dkv_ms")):
-        grads = ("dq",) if kind == "dq" else ("dk", "dv")
-        report.append({
-            "name": f"K2/K3 + K4b backward {kind} kernel "
-                    f"(flash_bwd_{kind}_cuda; also replaces "
-                    f"flash_attention.py:{148 if kind == 'dq' else 195})",
-            "route": "cuda",
-            "source": "youku_mplug_tpu_torch/csrc/flash_bwd.cu",
-            "replaces": f"youku_mplug_tpu/ops/flash_attention.py:{line}",
-            "wrapper": wrapper, "paths": ("train",), "key": kind,
-            "max_abs_err": max(c["max_abs_err"][gname] for c in cases
-                               for gname in grads),
-            "ms": sum(c[key] for c in train_cases),
-            # the plain backward computes dq, dk and dv together
-            "plain_ms": sum(c["plain_ms"] for c in train_cases),
-            "per_shape": [{"shape": c["shape"],
-                           "rel_l2": {gn: c["rel_l2"][gn] for gn in grads},
-                           "max_abs_err": max(c["max_abs_err"][gn]
-                                              for gn in grads),
-                           "ms": c[key], "plain_ms": c["plain_ms"]}
-                          for c in cases]})
+    alibi_cases = [_bwd_case(rand, fa, *c) for c in ALIBI_SHAPES]
+    no_alibi_128 = alibi_cases.pop()
+    k1 += [c["fwd"] for c in cases if c["layout"] == "packed"]
+    k1.append(no_alibi_128["fwd"])
+    k4 += [c["fwd"] for c in cases if c["layout"] == "heads"]
+    report = [
+        _entry("K1 flash_attention_packed (vision spatial + temporal, "
+               "decoder causal, CLIP ViT-L frames)", FWD_SRC,
+               f"{TPU_FLASH}:426", fa.flash_attention_packed,
+               ("serve", "train", "instruct", "instruct_train"), "K1", k1),
+        _entry("K4 flash_attention (AttentionPool)", FWD_SRC,
+               f"{TPU_FLASH}:59", fa.flash_attention, ("serve", "train"),
+               "K4", k4)]
+    for kind, wrapper, line, line_hm in (
+            ("dq", fa.flash_bwd_dq_cuda, 723, 148),
+            ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
+        report.append(_entry(
+            f"K2/K3 + K4b backward {kind} kernel (flash_bwd_{kind}_cuda; "
+            f"also replaces flash_attention.py:{line_hm})", BWD_SRC,
+            f"{TPU_FLASH}:{line}", wrapper, ("train",), kind,
+            [c[kind] for c in cases] + [no_alibi_128[kind]]))
+    report.append(_entry(
+        "K1 flash_attention_packed, ALiBi causal (Bloom training, head dim "
+        "128)", FWD_SRC, f"{TPU_FLASH}:426", fa.flash_attention_packed,
+        ("instruct_train",), "K1-ALiBi", [c["fwd"] for c in alibi_cases],
+        counter="alibi_launches"))
+    for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 723),
+                                ("dkv", fa.flash_bwd_dkv_cuda, 791)):
+        report.append(_entry(
+            f"K{2 if kind == 'dq' else 3} backward {kind} kernel, ALiBi "
+            f"causal (Bloom training, head dim 128)", BWD_SRC,
+            f"{TPU_FLASH}:{line}", wrapper, ("instruct_train",),
+            f"{kind}-ALiBi", [c[kind] for c in alibi_cases],
+            counter="alibi_launches"))
 
     # K5: decode, q [8, 32*64] (view of a qkv row), cache [24,8,256,4096],
     # mixed lengths; slot 3 has no live key and must read zeros
     qkv = rand(8, 3 * 2048)
-    q = qkv[:, :2048]
-    ckv = rand(24, 8, 256, 4096)
     clen = torch.tensor([0, 17, 136, 150, 200, 255, 100, 60],
                         dtype=torch.int32, device=dev)
     vfrom = torch.tensor([0, 0, 5, 151, 0, 100, 99, 3], dtype=torch.int32,
                          device=dev)
-    k5 = [_decode_case(dec, q, ckv, 32, clen, vfrom, None,
-                       "[24,8,256,2x32x64] d 64 (serve)")]
+    k5 = [_decode_case(dec, qkv[:, :2048], rand(24, 8, 256, 4096), 32, clen,
+                       vfrom, None, "[24,8,256,2x32x64] d 64 (serve)", True)]
     # K5 at head dim 128: BloomZ-7B1's decode step (32 heads with the
     # ALiBi ladder, cache [30, 8, 256, 2*32*128]; q a head-strided view of
     # the head-major fused row [B, n, 3, d], as models/bloom.py passes it),
@@ -400,54 +581,52 @@ def phase_kernels(dev):
                               (32, 2, False)):
         qh = rand(8, n, 3, 128)[:, :, 0, :]
         cache = rand(layers, 8, 256, 2 * n * 128)
+        on_path = (n, slopes) == (32, True)
         case = _decode_case(
             dec, qh, cache, n, clen, vfrom,
             dec.alibi_slopes(n) if slopes else None,
             f"[{layers},8,256,2x{n}x128] d 128"
             + (" ALiBi" if slopes else "")
-            + (" (instruct)" if (n, slopes) == (32, True) else ""))
+            + (" (instruct)" if on_path else ""), on_path)
         (alibi if slopes else k5).append(case)
         del cache
-    report.append({
-        "name": "K5 decode_attention (decoder decode step)", "route": "cuda",
-        "source": "youku_mplug_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "youku_mplug_tpu/ops/decode_attention.py:56",
-        "wrapper": dec.decode_attention, "paths": ("serve",), "key": "K5",
-        "max_abs_err": max(c["max_abs_err"] for c in k5),
-        "ms": k5[0]["ms"], "plain_ms": k5[0]["plain_ms"], "per_shape": k5})
-    report.append({
-        "name": "K5 decode_attention, ALiBi ladder, head dim 128 (Bloom "
-                "decode step)", "route": "cuda",
-        "source": "youku_mplug_tpu_torch/csrc/decode_attention.cu",
-        "replaces": "youku_mplug_tpu/ops/decode_attention.py:56",
-        "wrapper": dec.decode_attention, "counter": "alibi_launches",
-        "paths": ("instruct",), "key": "K5-ALiBi",
-        "max_abs_err": max(c["max_abs_err"] for c in alibi),
-        "ms": alibi[0]["ms"], "plain_ms": alibi[0]["plain_ms"],
-        "per_shape": alibi})
+    k5[-1]["on_path"] = False  # no path runs d = 128 without ALiBi
+    report.append(_entry("K5 decode_attention (decoder decode step)",
+                         DEC_SRC, "youku_mplug_tpu/ops/decode_attention.py:56",
+                         dec.decode_attention, ("serve",), "K5", k5))
+    report.append(_entry(
+        "K5 decode_attention, ALiBi ladder, head dim 128 (Bloom decode "
+        "step)", DEC_SRC, "youku_mplug_tpu/ops/decode_attention.py:56",
+        dec.decode_attention, ("instruct",), "K5-ALiBi", alibi,
+        counter="alibi_launches"))
     for r in report:
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.3g} | "
-              f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms",
-              flush=True)
-        for p in r.get("per_shape", []):
+              f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+              f"library {r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} "
+              f"ms ({r['bound_by']})", flush=True)
+        for p in r["per_shape"]:
             print(f"[kernel]   {p['shape']}: "
                   + json.dumps({k: v for k, v in p.items() if k != "shape"}),
                   flush=True)
     print(f"[kernel] tolerances: forward elementwise {KERNEL_TOL:.3g} x "
           f"(1 + |plain|), lse {LSE_TOL}, backward relative L2 "
-          f"{BWD_TOL:.3g} per gradient", flush=True)
+          f"{BWD_TOL:.3g} per gradient; library = "
+          "F.scaled_dot_product_attention with the same mask (and ALiBi "
+          "as a float bias), the backward's as forward + backward less "
+          "the forward; bound = max(products / 989 TFLOP/s, bytes / 3.35 "
+          "TB/s)", flush=True)
     return report
 
 
 def _reset_counts(report):
     for r in report:
-        setattr(r["wrapper"], r.get("counter", "launches"), 0)
+        setattr(r["wrapper"], r["counter"], 0)
 
 
 def _read_counts(report, path):
     for r in report:
         r.setdefault("launches_by_path", {})[path] = getattr(
-            r["wrapper"], r.get("counter", "launches"))
+            r["wrapper"], r["counter"])
     missing = [r["name"] for r in report
                if path in r["paths"] and r["launches_by_path"][path] == 0]
     if missing:
@@ -614,15 +793,27 @@ def phase_train(report, out_dir):
     return runner, stats
 
 
-def phase_replay(runner):
-    """Loss and trainable gradients of one batch with the kernels, then
-    with the wrappers taking their plain versions on the card."""
-    from youku_mplug_tpu_torch.cli import run_pretrain
+def _flash_counts(fa):
+    return [getattr(f, c) for f in (fa.flash_bwd_dq_cuda,
+                                    fa.flash_bwd_dkv_cuda,
+                                    fa.flash_attention_packed,
+                                    fa.flash_attention)
+            for c in ("launches", "alibi_launches")]
+
+
+def _replay(runner, make_batch, make_loss_fn, tag, plain_when=None):
+    """Loss and trainable gradients of the first batch with the kernels,
+    then with the wrappers taking their plain versions on the card for
+    the calls ``plain_when(q)`` picks (all when None); the batch and
+    loss are built by the CLI functions the run used.  Fails if a call
+    that should be plain launched a kernel.  Returns (loss with the
+    kernels, loss plain, finite, whole gradient norm, per-leaf rows
+    (gated error, relative L2, norm, leaf) worst first)."""
     from youku_mplug_tpu_torch.ops import flash_attention as fa
 
     runner.loader.set_epoch(0)
-    batch = run_pretrain.make_batch(runner, next(iter(runner.loader)))
-    loss_fn = run_pretrain.make_loss_fn(runner.model)
+    batch = make_batch(runner, next(iter(runner.loader)))
+    loss_fn = make_loss_fn(runner.model)
     params = runner.state.trainable
 
     def loss_and_grads():
@@ -636,38 +827,73 @@ def phase_replay(runner):
         return out["loss"].item(), grads
 
     loss_k, grads_k = loss_and_grads()
-    counts = (fa.flash_bwd_dq_cuda.launches, fa.flash_bwd_dkv_cuda.launches,
-              fa.flash_attention_packed.launches, fa.flash_attention.launches)
-    with mock.patch.object(fa, "_on_cpu", lambda t: True):
+    counts = _flash_counts(fa)
+    with mock.patch.object(fa, "_on_cpu", plain_when or (lambda t: True)):
         loss_p, grads_p = loss_and_grads()
-    if counts != (fa.flash_bwd_dq_cuda.launches,
-                  fa.flash_bwd_dkv_cuda.launches,
-                  fa.flash_attention_packed.launches,
-                  fa.flash_attention.launches):
-        fail("the plain replay launched a kernel")
+    after = _flash_counts(fa)
+    # all plain: no counter moves; else no ALiBi counter (the plain
+    # calls are Bloom's, head dim 128)
+    keep = slice(None) if plain_when is None else slice(1, None, 2)
+    if counts[keep] != after[keep]:
+        fail(f"the {tag} launched a kernel it should not")
     if set(grads_k) != set(grads_p):
         fail(f"gradient leaves differ: {set(grads_k) ^ set(grads_p)}")
-    whole = torch.stack([g.float().norm() for g in grads_p.values()]).norm()
+    whole = torch.stack([g.float().norm() for g in grads_p.values()]
+                        ).norm().item()
     rows = []
     for k in grads_k:
         diff = (grads_k[k].float() - grads_p[k].float()).norm().item()
         norm = grads_p[k].float().norm().item()
-        bound = max(norm, REPLAY_GRAD_FLOOR * whole.item())
+        bound = max(norm, REPLAY_GRAD_FLOOR * whole)
         rows.append((diff / bound, diff / max(norm, 1e-30), norm, k))
     rows.sort(reverse=True)
     finite = math.isfinite(loss_k) and all(
         torch.isfinite(g).all() for g in grads_k.values())
     rel = sorted(r[1] for r in rows)
-    print(f"[replay] loss kernels {loss_k:.6f} plain {loss_p:.6f} (tol "
+    print(f"[{tag}] loss kernels {loss_k:.6f} plain {loss_p:.6f} (tol "
           f"{REPLAY_LOSS_TOL}) | {len(rows)} leaves, whole gradient norm "
-          f"{whole.item():.4g}: relative L2 median {rel[len(rel) // 2]:.4g}"
+          f"{whole:.4g}: relative L2 median {rel[len(rel) // 2]:.4g}"
           f", max {rel[-1]:.4g} | gated error max {rows[0][0]:.4g} (tol "
           f"{REPLAY_GRAD_TOL}, floor {REPLAY_GRAD_FLOOR} x whole) | worst: "
           + ", ".join(f"{k} gated {g:.3g} rel {r:.3g} norm {n:.3g}"
                       for g, r, n, k in rows[:4]), flush=True)
+    return loss_k, loss_p, finite, whole, rows
+
+
+def phase_replay(runner, make_batch, make_loss_fn):
+    """The pretrain step: every wrapper plain; loss and every trainable
+    leaf's gradient within the replay tolerances."""
+    loss_k, loss_p, finite, _, rows = _replay(runner, make_batch,
+                                              make_loss_fn, "replay")
     if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL \
             or rows[0][0] > REPLAY_GRAD_TOL:
         fail("plain replay out of tolerance")
+
+
+def phase_instruct_replay(runner):
+    """The instruct-train step, twice.  First every wrapper plain: the
+    loss within REPLAY_LOSS_TOL.  The gradients of that replay are
+    printed but not gated leaf by leaf: the frozen ViT's forward alone,
+    taken plain, moves the abstractor's gradients by ~5% (its features
+    differ by bf16 roundings, ~2% of their scale, which the instruct
+    teacher-forced check bounds), whatever the Bloom kernels do.  Then
+    the gated replay: Bloom's attention (head dim 128: K1, dq and dk/dv
+    with ALiBi) plain, the ViT on its kernel in both runs, so both see
+    the same features; loss and every trainable leaf's gradient within
+    the replay tolerances."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    fns = (run_instruct.make_instruct_batch, run_instruct.make_loss_fn)
+    loss_k, loss_p, finite, _, _ = _replay(
+        runner, *fns, "instruct-train replay, every wrapper plain")
+    if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL:
+        fail("instruct-train plain replay out of tolerance")
+    loss_k, loss_p, finite, _, rows = _replay(
+        runner, *fns, "instruct-train replay, Bloom attention plain",
+        plain_when=lambda t: t.shape[-1] == 128)
+    if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL \
+            or rows[0][0] > REPLAY_GRAD_TOL:
+        fail("instruct-train replay of Bloom's attention out of tolerance")
 
 
 OWL_QUESTIONS = ("What is in the video?", "What happens next?",
@@ -809,12 +1035,102 @@ def phase_instruct_forced(model, batch, clips):
         fail("instruct teacher-forced check out of tolerance")
 
 
+def phase_instruct_train(report, out_dir):
+    """The run_instruct CLI's training path (``--train``) at the full
+    width and depth of configs/instruct/train_bloomz_7b_flagship.yaml:
+    OWL_TRAIN_STEPS steps of batch 8; returns (runner, stats)."""
+    from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
+
+    args = run_instruct.parser().parse_args([
+        "--config", OWL_TRAIN_YAML, "--train", "--synthetic_data",
+        "--max_steps", str(OWL_TRAIN_STEPS), "--device", "cuda",
+        "--output_dir", out_dir])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    runner = run_instruct.train_setup(args)
+    train_step = run_instruct.build_train_step(runner)
+    state = runner.state
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    # copies for the bitwise check, held through the steps: their bytes
+    # come off the steps' peak
+    held = torch.cuda.memory_allocated()
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    trainable0 = {k: p.detach().clone() for k, p in state.trainable.items()}
+    held = torch.cuda.memory_allocated() - held
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    history = run_pretrain.train_one_epoch(runner, train_step, 0,
+                                           run_instruct.make_instruct_batch)
+    torch.cuda.synchronize()
+    _read_counts(report, "instruct_train")
+    peak = torch.cuda.max_memory_allocated() - held
+    if len(history) != OWL_TRAIN_STEPS:
+        fail(f"instruct-train slice ran {len(history)} steps")
+    bad = [h for h in history if not (math.isfinite(h["loss"])
+                                      and math.isfinite(h["grad_norm"]))
+           or h["skipped_nonfinite"] != 0]
+    if bad:
+        fail(f"non-finite or skipped instruct-train steps: {bad}")
+    changed = [k for k, p in state.frozen.items()
+               if not torch.equal(p.detach(), frozen0[k])]
+    if changed or any(p.dtype != torch.bfloat16
+                      for p in state.frozen.values()):
+        fail(f"the frozen ViT / Bloom base changed: {changed[:5]}")
+    roots = {k.split("/")[0] for k in state.frozen}
+    if roots != {"visual_encoder", "text_decoder"} or any(
+            "lora_" in k for k in state.frozen):
+        fail(f"unexpected frozen leaves: {sorted(roots)}")
+    still = [k for k, p in state.trainable.items()
+             if torch.equal(p.detach(), trainable0[k])]
+    lora = [k for k in state.trainable if "lora_" in k]
+    if still or len(lora) != 8 or any(
+            p.dtype != torch.float32 for p in state.trainable.values()):
+        fail(f"trainable leaves that did not move: {still[:8]}; LoRA "
+             f"leaves {lora}")
+    layers = runner.model.cfg.text.num_hidden_layers
+    depth = runner.model.cfg.vision.depth
+    per_step = {r["key"]: r["launches_by_path"]["instruct_train"]
+                / OWL_TRAIN_STEPS for r in report}
+    want = {"K1-ALiBi": layers, "dq-ALiBi": layers, "dkv-ALiBi": layers,
+            "K1": depth}
+    if any(per_step[k] != v for k, v in want.items()) or any(
+            per_step[k] for k in per_step if k not in want):
+        fail(f"launches per step {per_step}, expected {want} and no other "
+             "(the frozen ViT takes no backward)")
+    step_s = [h["step_time"] for h in history]
+    batch = runner.cfg.batch_size
+    stats = {"steps": len(history), "setup_s": setup_s,
+             "step_ms": sum(step_s) / len(step_s) * 1e3,
+             "step_ms_each": [t * 1e3 for t in step_s],
+             "step_ms_after_first": sum(step_s[1:]) / (len(step_s) - 1)
+             * 1e3,
+             "clips_per_s": batch / (sum(step_s[1:]) / (len(step_s) - 1)),
+             "loss": [h["loss"] for h in history],
+             "grad_norm": [h["grad_norm"] for h in history],
+             "lr": [h["lr"] for h in history],
+             "trainable_leaves_moved": len(trainable0),
+             "frozen_leaves_unchanged": len(frozen0),
+             "trainable_params": sum(p.numel()
+                                     for p in state.trainable.values()),
+             "frozen_params": sum(p.numel() for p in state.frozen.values()),
+             "peak_memory_gib": peak / 2 ** 30,
+             "setup_peak_memory_gib": setup_peak / 2 ** 30,
+             "launches_per_step": per_step}
+    print(f"[instruct-train] {json.dumps(stats)}", flush=True)
+    del frozen0, trainable0
+    return runner, stats
+
+
 def main():
     # one card: the first visible one (set before CUDA initializes)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = ("0" if visible is None
                                           else visible.split(",")[0])
     sys.path.insert(0, REPO)
+    from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
@@ -829,21 +1145,27 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         runner, _ = phase_train(report, out_dir)
-        phase_replay(runner)
+        phase_replay(runner, run_pretrain.make_batch,
+                     run_pretrain.make_loss_fn)
     del runner
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         model, batch, clips = phase_instruct(report, out_dir)
     phase_instruct_forced(model, batch, clips)
+    del model, batch, clips
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        runner, _ = phase_instruct_train(report, out_dir)
+        phase_instruct_replay(runner)
     kernels = []
     for r in report:
         entry = {k: r[k] for k in ("name", "route", "source", "replaces")}
         entry["launches"] = sum(r["launches_by_path"].values())
-        entry |= {k: r[k] for k in ("max_abs_err", "ms", "plain_ms")}
-        entry["launches_by_path"] = r["launches_by_path"]
-        if "per_shape" in r:
-            entry["per_shape"] = r["per_shape"]
+        entry |= {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "launches_by_path", "per_shape")}
         kernels.append(entry)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)

@@ -3,8 +3,10 @@ the JAX package at fp32 on the CPU, weights carried over by the bridge:
 the ALiBi ladder, the config's JSON aliases, prefill + decode logits and
 cache rows of ``BloomLM.decode_step`` (a power-of-two and a
 non-power-of-two head count, whose slopes take the half-step ladder),
-and the serving engine's greedy tokens for requests submitted as
-pre-built prompt embeddings.
+the serving engine's greedy tokens for requests submitted as pre-built
+prompt embeddings, the no-cache training forward (hidden states, per-
+position losses and the masked loss, with and without rank-2 LoRA on
+all four projections) and ``merge_lora``.
 
 Parameters are redrawn from numpy (std 0.2, LayerNorm scales near one)
 so every bias and layer matters.  Tolerance 1e-4 (fp32, sums taken in
@@ -55,18 +57,21 @@ def _close(got, want, tol=TOL):
                                rtol=tol, atol=tol)
 
 
-def _models(rng, n_heads):
+def _models(rng, n_heads, lora_rank=0):
+    """JAX and port Bloom LMs with the same redrawn weights (LoRA ``b``
+    non-zero too)."""
     jcfg = jbloom.BloomConfig(vocab_size=V, hidden_size=H,
                               num_hidden_layers=L,
                               num_attention_heads=n_heads, attn_impl="xla",
-                              decode_attn_impl="gather")
+                              decode_attn_impl="gather", lora_rank=lora_rank)
     jlm = jbloom.BloomLM(jcfg, policy=J_FP32)
     params = redraw(jax.eval_shape(lambda: jlm.init(
         jax.random.key(0), tokens=jnp.zeros((1, 4), jnp.int32)))["params"],
         rng)
     tcfg = tbloom.BloomConfig(vocab_size=V, hidden_size=H,
                               num_hidden_layers=L,
-                              num_attention_heads=n_heads)
+                              num_attention_heads=n_heads,
+                              lora_rank=lora_rank)
     tlm = bridge.load_jax_params(tbloom.BloomLM(tcfg, FP32_POLICY), params)
     return jlm, params, tlm
 
@@ -172,10 +177,102 @@ def test_engine_tokens_with_prompt_embeds_match_jax_engine():
 
 
 def test_lora_and_the_no_cache_forward_raise():
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tbloom.BloomConfig(lora_rank=8)
+    """What still raises: a LoRA target Bloom does not have, and training
+    the no-cache forward with dropout (not ported)."""
+    with pytest.raises(ValueError, match="unknown LoRA targets"):
+        tbloom.BloomConfig(lora_rank=8, lora_targets=("qkv", "proj"))
+    assert tbloom.BloomConfig(lora_targets=["out"]).lora_targets == ("out",)
     lm = tbloom.BloomLM(tbloom.BloomConfig(
         vocab_size=V, hidden_size=H, num_hidden_layers=1,
-        num_attention_heads=4), FP32_POLICY)
-    with pytest.raises(NotImplementedError, match="no-cache"):
-        lm(torch.zeros(1, 4, dtype=torch.long))
+        num_attention_heads=4, hidden_dropout=0.1), FP32_POLICY)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        lm.train()(torch.zeros(1, 4, dtype=torch.long))
+    lm.eval()(torch.zeros(1, 4, dtype=torch.long))  # evaluation is fine
+
+
+def _train_inputs(rng, b=3, s=70):
+    """Tokens, shifted labels and a ragged loss mask; S spans two 64-row
+    tiles of the flash kernels."""
+    tokens = rng.integers(4, V, size=(b, s)).astype(np.int32)
+    labels = np.concatenate([tokens[:, 1:], tokens[:, :1]], axis=1)
+    mask = (rng.random((b, s - 1)) < 0.6).astype(np.int32)
+    return tokens, labels, mask
+
+
+@pytest.mark.parametrize("n_heads,lora_rank", [(4, 0), (4, 2), (6, 2)])
+def test_no_cache_forward_and_loss_match_jax(n_heads, lora_rank):
+    """BloomLM.forward (the flash path with ALiBi, LoRA deltas on qkv,
+    out, fc1 and fc2) against BloomLM.__call__ at fp32: hidden states,
+    per-position losses and the masked mean loss; LoRA moves the loss."""
+    rng = np.random.default_rng(10 * n_heads + lora_rank)
+    jlm, params, tlm = _models(rng, n_heads, lora_rank)
+    tokens, labels, mask = _train_inputs(rng)
+    want = jlm.apply({"params": params}, tokens=jnp.asarray(tokens),
+                     labels=jnp.asarray(labels),
+                     loss_mask=jnp.asarray(mask))
+    got = tlm(tokens=_t(tokens).long(), labels=_t(labels).long(),
+              loss_mask=_t(mask))
+    for key in ("last_hidden_state", "losses", "loss"):
+        _close(got[key].detach(), want[key])
+    if lora_rank:
+        names = dict(tlm.named_parameters())
+        assert names["decoder.layers.mlp.lora_fc2_b"].shape == (L, 2, H)
+        assert names["decoder.layers.attn.lora_qkv_a"].shape == (L, H, 2)
+        no_b = jax.tree_util.tree_map_with_path(
+            lambda p, x: np.zeros_like(x) if str(p[-1].key).startswith(
+                "lora_") and str(p[-1].key).endswith("_b") else x, params)
+        no_lora = jlm.apply({"params": no_b}, tokens=jnp.asarray(tokens),
+                            labels=jnp.asarray(labels),
+                            loss_mask=jnp.asarray(mask))
+        assert abs(float(no_lora["loss"]) - float(want["loss"])) > 1e-3
+
+
+def test_merge_lora_matches_jax_and_the_unmerged_model():
+    """merge_lora folds each adapter into its kernel as JAX's does, and a
+    rank-0 model on the merged tree gives the adapted model's logits."""
+    from youku_mplug_tpu.ops.lora import merge_lora as j_merge
+    from youku_mplug_tpu_torch.ops.lora import merge_lora
+
+    rng = np.random.default_rng(5)
+    jlm, params, tlm = _models(rng, 4, lora_rank=2)
+    want = j_merge(params, 2, 16.0)
+    got = merge_lora(bridge.to_jax_tree(tlm), 2, 16.0)
+    flat_w = dict(jax.tree_util.tree_leaves_with_path(want))
+    flat_g = dict(jax.tree_util.tree_leaves_with_path(got))
+    assert set(map(jax.tree_util.keystr, flat_w)) == \
+        set(map(jax.tree_util.keystr, flat_g))
+    assert not any("lora_" in jax.tree_util.keystr(k) for k in flat_g)
+    for k, w in flat_w.items():
+        _close(np.asarray(flat_g[k]), w)
+    rank0 = bridge.load_jax_params(tbloom.BloomLM(tbloom.BloomConfig(
+        vocab_size=V, hidden_size=H, num_hidden_layers=L,
+        num_attention_heads=4), FP32_POLICY), got)
+    tokens, _, _ = _train_inputs(rng)
+    hidden = tlm(tokens=_t(tokens).long())["last_hidden_state"]
+    merged_hidden = rank0(tokens=_t(tokens).long())["last_hidden_state"]
+    _close(rank0.logits(merged_hidden).detach(),
+           tlm.logits(hidden).detach())
+    assert merge_lora(got, 0) is got
+    bad = {"attn": {"lora_proj2_a": np.zeros((2, 2)),
+                    "lora_proj2_b": np.zeros((2, 2))}}
+    with pytest.raises(ValueError, match="no merge target"):
+        merge_lora(bad, 2)
+
+
+def test_seeded_init_zeroes_lora_b_and_draws_a_at_the_init_std():
+    """A fresh adapter is a no-op (b = 0, as JAX's lora_pair inits it);
+    a draws at the decoder's init_method_std."""
+    lm = tbloom.BloomLM(tbloom.BloomConfig(
+        vocab_size=V, hidden_size=64, num_hidden_layers=2,
+        num_attention_heads=4, lora_rank=4, init_method_std=0.5),
+        FP32_POLICY)
+    bridge.seeded_init(lm, 0)
+    names = dict(lm.named_parameters())
+    lora = {k: p for k, p in names.items() if ".lora_" in k}
+    assert len(lora) == 8
+    for k, p in lora.items():
+        if k.endswith("_b"):
+            assert not p.any(), k
+        else:
+            assert 0.4 < float(p.std()) < 0.6, k
+    assert 0.015 < float(names["decoder.layers.attn.qkv_kernel"].std()) < 0.025

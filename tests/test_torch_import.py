@@ -25,7 +25,7 @@ _NO_JAX = textwrap.dedent("""
         importlib.import_module(name)
     for name in ("cli.serve", "cli.run_pretrain", "cli.profile_train",
                  "cli.run_instruct", "models.bloom", "models.owl",
-                 "data.instruct", "optim.factory",
+                 "data.instruct", "optim.factory", "ops.lora", "config",
                  "train.state", "train.trainer", "ops.cross_entropy",
                  "data.loader"):
         assert "youku_mplug_tpu_torch." + name in names, name
@@ -102,3 +102,32 @@ def test_instruct_cli_refuses_cuda_without_a_card():
         "--synthetic_data", "--device", "cuda"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         run_instruct.build(args)
+
+
+_CLIS = {  # module -> (parser, build, a tiny config)
+    "serve": ("serve_parser", "build", "configs/pretrain_tiny.yaml"),
+    "run_pretrain": ("base_parser", "setup",
+                     "configs/pretrain/pretrain_tiny_no_dropout.yaml"),
+    "run_instruct": ("parser", "build",
+                     "configs/instruct/serve_owl_tiny.yaml"),
+}
+
+
+@pytest.mark.parametrize("cli", sorted(_CLIS))
+def test_cli_default_device_is_cuda_and_a_missing_card_raises(cli):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU; without a card, building raises (no fallback)."""
+    import importlib
+
+    mod = importlib.import_module(f"youku_mplug_tpu_torch.cli.{cli}")
+    parser, build, config = _CLIS[cli]
+    argv = ["--config", config, "--synthetic_data"]
+    args = getattr(mod, parser)().parse_args(argv)
+    assert args.device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        getattr(mod, build)(args)
+    if cli == "run_instruct":
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            mod.train_setup(mod.parser().parse_args(argv + ["--train"]))

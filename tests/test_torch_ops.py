@@ -355,6 +355,68 @@ def test_flash_bwd_plain_matches_autograd_of_mha_reference(causal, kv_len):
         _close(g, leaf.grad, 1e-5)
 
 
+@pytest.mark.parametrize("d,n,s,ladder", [
+    (64, 4, 100, True),     # d = 64, two heads per Pallas strip
+    (64, 6, 72, True),      # the half-step ladder past 4 heads
+    (128, 4, 100, True),    # Bloom's head dim
+    (128, 3, 40, True),     # half-step ladder at d = 128
+    (128, 2, 70, False),    # any per-head slopes, not a ladder
+])
+def test_flash_alibi_plain_matches_pallas_interpret(d, n, s, ladder):
+    """K1 / K2 / K3 with ALiBi (Bloom's training attention): the packed
+    causal forward and its jax.vjp in interpret mode against the port's
+    wrapper (the plain forward and flash_bwd_plain through the autograd
+    Function) on the same numpy inputs; S not a multiple of 64."""
+    rng = np.random.default_rng(100 * d + s)
+    b = 2
+    q, k, v, do = (rng.normal(size=(b, s, n * d)).astype(np.float32)
+                   for _ in range(4))
+    slopes = alibi_slopes(n) if ladder else rng.uniform(
+        0.05, 1.0, size=n).astype(np.float32)
+    with _interpret():
+        out, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention_packed(
+            q_, k_, v_, n, causal=True, alibi_slopes=slopes),
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+    leaves = [_t(a).requires_grad_() for a in (q, k, v)]
+    got = flash_attention_packed(*leaves, n, causal=True,
+                                 alibi_slopes=torch.from_numpy(slopes))
+    _close(got.detach(), out)
+    got.backward(_t(do))
+    for leaf, w in zip(leaves, want):
+        _close(leaf.grad, w)
+    # the bias matters at these shapes: without it the output differs
+    assert not np.allclose(flash_attention_packed_plain(
+        *map(_t, (q, k, v)), n, causal=True).numpy(), np.asarray(out),
+        atol=1e-2)
+
+
+def test_lora_delta_matches_jax():
+    """(x @ a) @ b * alpha / r in the compute dtype; None without a
+    pair."""
+    from youku_mplug_tpu.ops.lora import lora_delta as j_delta
+    from youku_mplug_tpu_torch.ops.lora import lora_delta
+
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 5, 12)).astype(np.float32)
+    a = rng.normal(size=(12, 3)).astype(np.float32)
+    b = rng.normal(size=(3, 20)).astype(np.float32)
+    want = j_delta((jnp.asarray(a), jnp.asarray(b)), jnp.asarray(x), 3, 16.0,
+                   jnp.float32)
+    _close(lora_delta((_t(a), _t(b)), _t(x), 3, 16.0, torch.float32), want,
+           1e-5)
+    assert lora_delta(None, _t(x), 3, 16.0, torch.float32) is None
+
+
+def test_flash_alibi_requires_causal_and_one_slope_per_head():
+    x = torch.zeros(1, 8, 128)
+    with pytest.raises(ValueError, match="requires causal"):
+        flash_attention_packed(x, x, x, 1, alibi_slopes=[0.5])
+    with pytest.raises(ValueError, match="1 values"):
+        flash_attention_packed(x, x, x, 1, causal=True,
+                               alibi_slopes=[0.5, 0.25])
+
+
 def test_flash_autograd_function_uses_plain_backward_on_cpu():
     """The wrappers' autograd Function: gradients equal autograd of the
     plain forward, and nothing launches on the CPU."""
@@ -631,22 +693,96 @@ def test_cuda_flash_bwd_matches_plain(cuda_device, b, sq, sk, n, causal,
 
 
 @pytest.mark.cuda
-def test_cuda_flash_bwd_causal_keys_without_later_queries(cuda_device):
+@pytest.mark.parametrize("d,alibi", [(64, False), (128, True)])
+def test_cuda_flash_bwd_causal_keys_without_later_queries(cuda_device, d,
+                                                          alibi):
     """Causal: dk and dv of key j take only queries i >= j, so with dO
-    zero from query 150 on, keys 150.. get exactly zero gradient."""
+    zero from query 150 on, keys 150.. get exactly zero gradient (with
+    the ALiBi bias too)."""
     from youku_mplug_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(21)
-    q, k, v = (_bf16(rng, 2, 2, 208, 64, device=cuda_device)
+    q, k, v = (_bf16(rng, 2, 2, 208, d, device=cuda_device)
                for _ in range(3))
+    kw = dict(scale=d ** -0.5, causal=True, alibi_slopes=torch.tensor(
+        [0.5, 0.25], device=cuda_device) if alibi else None)
     o = torch.empty_like(q)
-    lse = flash_fwd_cuda(q, k, v, o, scale=0.125, causal=True)
-    do = _bf16(rng, 2, 2, 208, 64, device=cuda_device)
+    lse = flash_fwd_cuda(q, k, v, o, **kw)
+    do = _bf16(rng, 2, 2, 208, d, device=cuda_device)
     do[:, :, 150:] = 0
-    _, dk, dv = fa.flash_bwd_cuda(q, k, v, o, lse, do, scale=0.125,
-                                  causal=True)
+    _, dk, dv = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
     assert not dk[:, :, 150:].any() and not dv[:, :, 150:].any()
     assert dk[:, :, :150].abs().sum() > 0
+
+
+# (rows, S, heads, head dim, ALiBi): Bloom training [8, 105, 32x128]
+# (reduced batch) with a ragged tail tile, the max_length 768 of
+# configs/instruct (many causal tiles, biases to ~645), 40 heads (the
+# half-step ladder), ALiBi at d = 64, d = 128 without ALiBi, and a
+# three-row sequence (one tile, mostly masked; at S = 1 dq and dk are
+# exactly zero and a relative error means nothing)
+ALIBI_CASES = [(2, 105, 32, 128, True), (1, 768, 4, 128, True),
+               (1, 256, 40, 128, True), (2, 208, 4, 64, True),
+               (2, 256, 4, 128, False), (2, 3, 2, 128, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,s,n,d,alibi", ALIBI_CASES)
+def test_cuda_flash_alibi_and_d128_match_plain(cuda_device, rows, s, n, d,
+                                               alibi):
+    """K1, dq and dk/dv at head dim 128 and with ALiBi, on packed views
+    of one head-major qkv projection: forward o and lse, then the
+    backward kernels against flash_bwd_plain on the same (q, k, v, o,
+    lse, dO); each variant's launch counter rises."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(s + n + d)
+    qkv5 = _bf16(rng, rows, s, n, 3, d, device=cuda_device)
+    q, k, v = (qkv5[..., i, :].transpose(1, 2) for i in range(3))
+    slopes = (torch.from_numpy(alibi_slopes(n)).to(cuda_device) if alibi
+              else None)
+    kw = dict(scale=d ** -0.5, causal=True, alibi_slopes=slopes)
+    counter = "alibi_launches" if alibi else "launches"
+    wrappers = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    before = [getattr(f, counter) for f in wrappers]
+    o = fa._head_major_empty(q)
+    lse = flash_fwd_cuda(q, k, v, o, **kw)
+    want_o, want_lse = flash_fwd_plain(q, k, v, **kw)
+    _bf16_close(o, want_o)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    do = _bf16(rng, rows, n, s, d, device=cuda_device)
+    got = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(f, counter) for f in wrappers] == [x + 1 for x in before]
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= 2.0 ** -7, (name, _rel_l2(g, w))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_alibi_autograd_counts_its_launches(cuda_device):
+    """The packed wrapper with ALiBi: forward and backward launch the ALiBi
+    builds (alibi_launches), never the plain-mask ones."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(23)
+    x = _bf16(rng, 2, 105, 3 * 256, device=cuda_device).requires_grad_()
+    slopes = torch.from_numpy(alibi_slopes(2)).to(cuda_device)
+    fns = (fa.flash_attention_packed, fa.flash_bwd_dq_cuda,
+           fa.flash_bwd_dkv_cuda)
+    plain_before = [f.launches for f in fns]
+    alibi_before = [f.alibi_launches for f in fns]
+    out = flash_attention_packed(x[..., :256], x[..., 256:512], x[..., 512:],
+                                 2, causal=True, alibi_slopes=slopes)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert [f.launches for f in fns] == plain_before
+    assert [f.alibi_launches for f in fns] == [a + 1 for a in alibi_before]
+    want = flash_attention_packed_plain(x[..., :256], x[..., 256:512],
+                                        x[..., 512:], 2, causal=True,
+                                        alibi_slopes=slopes)
+    _bf16_close(out, want)
 
 
 @pytest.mark.cuda

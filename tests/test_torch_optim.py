@@ -74,6 +74,48 @@ def test_masks_match_jax_on_the_tiny_tree(trees, kind):
     assert got == _flat(want)
 
 
+@pytest.mark.parametrize("freeze_text_decoder,freeze_vit",
+                         [(True, True), (True, False), (False, True)])
+def test_freeze_mask_trains_lora_like_jax_on_an_owl_tree(
+        freeze_text_decoder, freeze_vit):
+    """The tiny Owl with rank-2 LoRA: path by path the port's freeze and
+    decay masks equal JAX's; the adapters train inside the frozen
+    decoder."""
+    from youku_mplug_tpu.models import owl as jowl
+    from youku_mplug_tpu.models.bloom import BloomConfig as JBloomConfig
+    from youku_mplug_tpu.models.vision import VisionConfig as JVisionConfig
+    from youku_mplug_tpu_torch.models import owl as towl
+    from youku_mplug_tpu_torch.models.bloom import BloomConfig
+    from youku_mplug_tpu_torch.models.vision import VisionConfig
+
+    v = dict(img_size=16, patch_size=8, embed_dim=32, depth=1, num_heads=4,
+             clip_model=True, gelu="quick")
+    a = dict(hidden_size=32, num_layers=2, num_heads=4, intermediate_size=64,
+             num_queries=4, max_frames=8)
+    t = dict(vocab_size=128, hidden_size=32, num_hidden_layers=2,
+             num_attention_heads=4, lora_rank=2)
+    jm = jowl.MPLUGOwlVideo(jowl.MPLUGOwlVideoConfig(
+        vision=JVisionConfig(**v), abstractor=jowl.OwlAbstractorConfig(**a),
+        text=JBloomConfig(**t)))
+    ids = jnp.zeros((1, 8), jnp.int32)
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.key(0), jnp.zeros((1, 3, 2, 16, 16)), ids, ids, ids,
+        ids))["params"]
+    tm = towl.MPLUGOwlVideo(towl.MPLUGOwlVideoConfig(
+        vision=VisionConfig(**v), abstractor=towl.OwlAbstractorConfig(**a),
+        text=BloomConfig(**t)), FP32_POLICY)
+    named = {bridge.jax_path(n): p for n, p in tm.named_parameters()}
+    assert set(named) == set(_flat(shapes))
+    got = tf.freeze_mask(named, freeze_text_decoder, freeze_vit)
+    assert got == _flat(jf.freeze_mask(shapes, freeze_text_decoder,
+                                       freeze_vit))
+    assert tf.decay_mask(named) == _flat(jf.decay_mask(shapes))
+    lora = [k for k in named if "lora_" in k]
+    assert len(lora) == 8 and not any(got[k] for k in lora)
+    assert got["text_decoder/decoder/layers/attn/qkv_kernel"] == \
+        freeze_text_decoder
+
+
 def test_decay_exclusions(trees):
     """No decay for rank <= 1 leaves or for pos_embed / cls_token /
     temporal_embed / *bias* names, AttentionPool's rank-3 bias_k and

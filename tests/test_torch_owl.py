@@ -1,14 +1,18 @@
-"""The port's mPLUG-Owl video-instruct serving path against the JAX
-package at fp32 on the CPU, weights carried over by the bridge: the
+"""The port's mPLUG-Owl video-instruct paths against the JAX package at
+fp32 on the CPU, weights carried over by the bridge.  Serving: the
 visual abstractor, ``encode_video`` and the media splice, the prompt
 batch (ids and masks), greedy tokens of ``serve_instruct``, the synthetic
 clips, the config loaders, a CPU run of the port's ``run_instruct`` CLI,
-and a bridge round trip of the whole Owl tree.
+and a bridge round trip of the whole Owl tree.  Training: the targets,
+the (question, answer) batch with truncation, ``instruct_loss`` and the
+gradient of every trainable leaf with rank-2 LoRA (``lora_*_b``
+non-zero, so ``lora_*_a`` gets a gradient), a three-step AdamW
+trajectory, the training YAML, and ``run_instruct --train`` on the CPU.
 
 Geometry of tests/test_owl.py (ViT 32 wide, abstractor 2 layers of 4
 heads, 4 queries, Bloom 2 layers); parameters redrawn from numpy (std
 0.2, LayerNorm scales near one).  Tolerance 1e-4 (fp32, sums taken in
-another order).
+another order); 2e-5 on parameters after Adam steps of lr 1e-3.
 """
 
 import argparse
@@ -68,11 +72,11 @@ def _close(got, want, tol=TOL):
                                rtol=tol, atol=tol)
 
 
-def tiny_cfgs():
+def tiny_cfgs(lora_rank=0):
     """(JAX config, port config) of the same tiny model."""
     v = TINY["vision_overrides"]
     a = TINY["abstractor"]
-    t = TINY["text_overrides"]
+    t = dict(TINY["text_overrides"], lora_rank=lora_rank)
     j = jowl.MPLUGOwlVideoConfig(
         vision=JVisionConfig(**v, gelu="quick", attn_impl="xla"),
         abstractor=jowl.OwlAbstractorConfig(**a),
@@ -249,7 +253,7 @@ def test_run_instruct_cli_runs_on_cpu(tmp_path):
     args = tcli.parser().parse_args([
         "--config", str(path), "--output_dir", str(tmp_path / "out"),
         "--synthetic_data", "--input_jsonl", str(jsonl), "--engine",
-        "--num_slots", "2"])
+        "--num_slots", "2", "--device", "cpu"])
     results, stats = tcli.main(args)
     assert [r["video"] for r in results] == ["a.mp4", "b.mp4"]
     assert all(1 <= len(r["tokens"]) <= 3 for r in results)
@@ -257,13 +261,15 @@ def test_run_instruct_cli_runs_on_cpu(tmp_path):
                        .read_text())
     assert saved == results
     assert stats["requests"] == 2 and stats["nonfinite_logits"] == 0
-    for flag in (["--train"], ["--serving_ckpt", "x"]):
+    for flag in (["--hf_checkpoint", "x"], ["--serving_ckpt", "x"]):
         with pytest.raises(NotImplementedError, match="not ported"):
             tcli.build(tcli.parser().parse_args(
-                ["--config", str(path), "--synthetic_data"] + flag))
+                ["--config", str(path), "--synthetic_data", "--device",
+                 "cpu"] + flag))
     path.write_text(yaml.safe_dump(dict(TINY, do_sample=True)))
     with pytest.raises(NotImplementedError, match="sampling"):
-        tcli.build(tcli.parser().parse_args(["--config", str(path)]))
+        tcli.build(tcli.parser().parse_args(["--config", str(path),
+                                             "--device", "cpu"]))
 
 
 def test_bridge_round_trip_of_the_owl_tree(owl):
@@ -285,3 +291,280 @@ def test_bridge_round_trip_of_the_owl_tree(owl):
     assert "visual_encoder.patch_embed.bias" not in names  # CLIP conv1
     assert names["text_decoder.decoder.layers.attn.qkv_kernel"].shape == \
         (2, 32, 4, 3, 8)
+
+
+# ---------------------------------------------------------------------------
+# instruct training
+# ---------------------------------------------------------------------------
+
+TRAIN_YAML = "configs/instruct/train_bloomz_7b_flagship.yaml"
+PAIRS = [("what is this ?", "a small cat sits on a mat"),
+         ("Human: <|video|> describe it", "dog"),
+         ("who is there", "two people walk by the river at night")]
+
+
+def _lora_models(seed):
+    """(JAX model, redrawn params, port model, train batch, clips) of the
+    tiny Owl with rank-2 LoRA; every lora_*_b is non-zero."""
+    jcfg, tcfg = tiny_cfgs(lora_rank=2)
+    rng = np.random.default_rng(seed)
+    jm = jowl.MPLUGOwlVideo(jcfg, policy=J_FP32)
+    batch = tinstruct.build_instruct_train_batch(
+        PAIRS, tinstruct.WhitespaceTokenizer(V), NM, pad_id=3, eos_id=2)
+    video = rng.normal(size=(3, 3, 2, 16, 16)).astype(np.float32)
+    ids = jnp.asarray(batch["input_ids"])
+    shapes = jax.eval_shape(lambda: jm.init(
+        jax.random.key(0), jnp.asarray(video), ids, jnp.ones_like(ids),
+        jnp.asarray(batch["media_mask"]), jnp.zeros_like(ids)))["params"]
+    params = redraw(shapes, rng)
+    tm = bridge.load_jax_params(towl.MPLUGOwlVideo(tcfg, FP32_POLICY),
+                                params)
+    return jm, params, tm, dict(batch, video=video)
+
+
+def _jloss(jm):
+    def loss_fn(p, b, rng=None, step=None):
+        return jm.apply({"params": p}, b["video"], b["input_ids"],
+                        b["attention_mask"], b["media_mask"],
+                        b["prompt_mask"],
+                        method=jowl.MPLUGOwlVideo.instruct_loss)
+    return loss_fn
+
+
+def _tloss(tm):
+    def loss_fn(b):
+        return tm.instruct_loss(*(_t(b[k]) for k in (
+            "video", "input_ids", "attention_mask", "media_mask",
+            "prompt_mask")))
+    return loss_fn
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        out.update(_flat(v, path) if isinstance(v, dict) else {path: v})
+    return out
+
+
+def test_instruct_targets_match_jax():
+    rng = np.random.default_rng(8)
+    ids = rng.integers(4, V, size=(3, 9)).astype(np.int32)
+    attn = (np.arange(9)[None] < np.array([[9], [6], [3]])).astype(np.int32)
+    media = np.zeros((3, 9), np.int32)
+    media[:, 1:3] = 1
+    prompt = (np.arange(9)[None] < np.array([[5], [4], [3]])).astype(
+        np.int32)
+    want = jowl.instruct_targets(*map(jnp.asarray, (ids, attn, media,
+                                                    prompt)))
+    got = towl.instruct_targets(*map(_t, (ids, attn, media, prompt)))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    assert got[1].shape == (3, 8) and got[1][0].tolist() == [0] * 4 + [1] * 4
+
+
+def test_instruct_train_batch_matches_jax():
+    """Every field, with and without the max_length truncation (answers
+    cut to fit, eos kept), the error of a prompt that leaves no room, and
+    the runner's make_instruct_batch over synthetic captions."""
+    tok = tinstruct.WhitespaceTokenizer(V)
+    for max_length in (0, 41, 38):  # the prompts hold 36 and 8 tokens
+        got = tinstruct.build_instruct_train_batch(
+            PAIRS, tok, NM, pad_id=3, eos_id=2, max_length=max_length)
+        want = jinstruct.build_instruct_train_batch(
+            PAIRS, jinstruct.WhitespaceTokenizer(V), NM, pad_id=3, eos_id=2,
+            max_length=max_length)
+        assert set(got) == set(want)
+        for key in want:
+            assert got[key].dtype == want[key].dtype == np.int32
+            np.testing.assert_array_equal(got[key], want[key])
+        assert got["input_ids"].shape[1] == (max_length or 44)
+    cut = tinstruct.build_instruct_train_batch(
+        PAIRS[:1], tok, NM, pad_id=3, eos_id=2, max_length=40)
+    assert cut["attention_mask"].sum() == 40 and cut["input_ids"][0, 39] == 2
+    for mod in (tinstruct, jinstruct):
+        with pytest.raises(ValueError, match="no room"):
+            mod.build_instruct_train_batch(
+                PAIRS[:1], mod.WhitespaceTokenizer(V), NM, pad_id=3,
+                eos_id=2, max_length=10)
+    raw = {"text": ["synthetic clip 3 class 3", "a"],
+           "video": np.zeros((2, 2, 16, 16, 3), np.uint8)}
+    _, tcfg = tiny_cfgs()
+    runner = argparse.Namespace(
+        model=argparse.Namespace(cfg=tcfg), tokenizer=tok,
+        cfg=argparse.Namespace(max_length=40), device=torch.device("cpu"))
+    got = tcli.make_instruct_batch(runner, raw)
+    jrunner = argparse.Namespace(model=argparse.Namespace(cfg=tiny_cfgs()[0]),
+                                 tokenizer=jinstruct.WhitespaceTokenizer(V),
+                                 cfg={"max_length": 40})
+    want = jcli.make_instruct_batch(jrunner, raw)
+    assert set(got) == set(want)
+    for key in want:
+        np.testing.assert_array_equal(np.asarray(got[key]),
+                                      np.asarray(want[key]))
+
+
+def test_instruct_loss_and_grads_match_jax():
+    """instruct_loss and the gradient of every trainable leaf (the
+    abstractor, visual_fc, vit_eos, and the LoRA adapters inside the
+    frozen decoder) against jax.value_and_grad at fp32; the frozen ViT
+    builds no autograd graph."""
+    from youku_mplug_tpu_torch.optim.factory import OptimizerConfig
+
+    jm, params, tm, batch = _lora_models(11)
+    jb = jax.tree.map(jnp.asarray, batch)
+    (jloss, jgrads) = jax.jit(jax.value_and_grad(
+        lambda p: _jloss(jm)(p, jb)["loss"]))(params)
+    from youku_mplug_tpu_torch.train.state import create_train_state
+
+    state, _, _ = create_train_state(tm, OptimizerConfig(freeze_vit=True))
+    frames = _t(batch["video"]).transpose(1, 2).flatten(0, 1)
+    assert tm.visual_encoder(frames)[1].grad_fn is None
+    out = _tloss(tm)(batch)
+    out["loss"].backward()
+    _close(out["loss"].detach(), jloss)
+    jflat = _flat(jgrads)
+    lora = [k for k in state.trainable if "lora_" in k]
+    assert len(lora) == 8 and all(k.startswith("text_decoder/") for k in lora)
+    assert {k.split("/")[0] for k in state.trainable} == {
+        "abstractor", "visual_fc", "vit_eos", "text_decoder"}
+    assert {k.split("/")[0] for k in state.frozen} == {
+        "visual_encoder", "text_decoder"}
+    for path, p in state.trainable.items():
+        assert p.grad is not None, path
+        _close(p.grad, jflat[path])
+        assert p.grad.abs().sum() > 0, path  # lora_*_a too: b is non-zero
+    assert all(p.grad is None for p in state.frozen.values())
+
+
+def _opt_kwargs():
+    return dict(lr=1e-3, min_lr=1e-5, weight_decay=0.01,
+                opt_betas=(0.9, 0.98), opt_eps=1e-6, clip_grad=0.05,
+                warmup_steps=2, epochs=1, niter_per_ep=10, freeze_vit=True)
+
+
+def test_instruct_adamw_trajectory_matches_jax():
+    """Three steps: the first at lr schedule(0) = 0 (nothing moves), then
+    two that move; clipping at 0.05 is active.  Losses, grad norms and
+    every trainable leaf after each step against JAX's create_train_state
+    + make_train_step; the frozen ViT and Bloom base stay bitwise."""
+    from youku_mplug_tpu.optim.factory import OptimizerConfig as JOpt
+    from youku_mplug_tpu.train.state import create_train_state as j_state
+    from youku_mplug_tpu.train.trainer import make_train_step as j_step
+    from youku_mplug_tpu_torch.optim.factory import OptimizerConfig
+    from youku_mplug_tpu_torch.train.state import create_train_state
+    from youku_mplug_tpu_torch.train.trainer import make_train_step
+
+    jm, params, tm, batch = _lora_models(12)
+    batches = []
+    for i in range(3):
+        b = dict(batch)
+        b["video"] = np.random.default_rng(20 + i).normal(
+            size=batch["video"].shape).astype(np.float32)
+        batches.append(b)
+    jst, tx, _ = j_state(params, JOpt(**_opt_kwargs()))
+    jtrain = jax.jit(j_step(_jloss(jm), tx))
+    state, opt, _ = create_train_state(tm, OptimizerConfig(**_opt_kwargs()))
+    ttrain = make_train_step(_tloss(tm))
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    start = {k: p.detach().clone() for k, p in state.trainable.items()}
+    for i, b in enumerate(batches):
+        jst, jmet = jtrain(jst, jax.tree.map(jnp.asarray, b),
+                           jax.random.key(0))
+        met = ttrain(state, b)
+        assert met["skipped_nonfinite"] == float(jmet["skipped_nonfinite"])\
+            == 0.0
+        _close(met["loss"], jmet["loss"])
+        _close(met["grad_norm"], jmet["grad_norm"])
+        assert met["grad_norm"] > 0.05  # clipping is active
+        jflat = _flat(jax.device_get(jst.trainable))
+        for path, p in state.trainable.items():
+            _close(p.detach(), jflat[path], 2e-5)
+            if i == 0:
+                assert torch.equal(p.detach(), start[path]), path
+    assert opt.count == 3 and state.step == 3
+    moved = [k for k, p in state.trainable.items()
+             if not torch.equal(p.detach(), start[k])]
+    assert set(moved) == set(state.trainable)  # lora_*_a and *_b included
+    for k, p in state.frozen.items():
+        assert torch.equal(p.detach(), frozen0[k]), k
+
+
+def test_train_yaml_loads_as_the_jax_runner_reads_it():
+    """configs/instruct/train_bloomz_7b_flagship.yaml: the model and
+    training blocks of configs/instruct_bloomz_7b.yaml plus
+    synthetic_length 64; the optimizer the JAX train_main builds from it;
+    and the original YAML's do_sample does not stop training."""
+    from youku_mplug_tpu.optim.factory import OptimizerConfig as JOpt
+    from youku_mplug_tpu_torch.config import instruct_train_config
+
+    cfg, raw = load_owl_config(TRAIN_YAML)
+    with open("configs/instruct_bloomz_7b.yaml") as f:
+        ref = yaml.safe_load(f)
+    for key in ("vision_overrides", "abstractor", "num_frames", "image_res",
+                "text_overrides", "batch_size", "epochs", "max_length",
+                "optimizer"):
+        assert raw[key] == ref[key], key
+    assert raw["synthetic_length"] == 64
+    jcfg, _ = jcli.load_owl_config(TRAIN_YAML)
+    for part in ("vision", "abstractor", "text"):
+        _same_fields(getattr(cfg, part), getattr(jcfg, part), part)
+    assert (cfg.text.lora_rank, cfg.text.lora_alpha, cfg.text.lora_targets,
+            cfg.text.head_dim) == (8, 16.0, ("qkv", "out", "fc1", "fc2"),
+                                   128)
+    tcfg = instruct_train_config(raw)
+    opt_kw = dict(raw["optimizer"])
+    want = JOpt(**opt_kw, epochs=3, niter_per_ep=1000,
+                freeze_text_decoder=True, freeze_vit=True)
+    _same_fields(tcfg.optimizer, want, "optimizer")
+    assert (tcfg.batch_size, tcfg.epochs, tcfg.max_length,
+            tcfg.synthetic_length, tcfg.update_freq) == (8, 3, 768, 64, 1)
+    assert (tcfg.optimizer.lr, tcfg.optimizer.weight_decay,
+            tcfg.optimizer.clip_grad, tcfg.optimizer.warmup_steps) == \
+        (1e-4, 0.01, 1.0, 50)
+    _, ref_raw = load_owl_config("configs/instruct_bloomz_7b.yaml")
+    assert ref_raw["do_sample"] and instruct_train_config(ref_raw) == \
+        dataclasses.replace(tcfg, synthetic_length=16)
+
+
+def test_run_instruct_train_cli_on_cpu(tmp_path, capsys):
+    """run_instruct --train on the CPU at the tiny size, bf16 compute:
+    two steps, finite losses, every adapter trained (the b's leave zero,
+    the a's move from the second step on), the abstractor trained, the
+    ViT and Bloom base frozen in bf16 and unchanged, log.txt written; a
+    YAML with do_sample still trains."""
+    from youku_mplug_tpu_torch.bridge import seeded_init
+
+    path = tmp_path / "train.yaml"
+    path.write_text(yaml.safe_dump(dict(
+        TINY, text_overrides=dict(TINY["text_overrides"], lora_rank=2),
+        do_sample=True, batch_size=2, epochs=1, synthetic_length=4,
+        max_length=40, optimizer={"lr": 1e-3, "clip_grad": 1.0})))
+    out = tmp_path / "out"
+    args = tcli.parser().parse_args([
+        "--config", str(path), "--train", "--synthetic_data", "--device",
+        "cpu", "--seed", "3", "--output_dir", str(out)])
+    runner = tcli.main(args)
+    assert len(runner.history) == 2
+    for h in runner.history:
+        assert np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+        assert h["skipped_nonfinite"] == 0 and h["step_time"] > 0
+    state = runner.state
+    fresh = towl.MPLUGOwlVideo(load_owl_config(str(path))[0])
+    seeded_init(fresh, 3)
+    fresh = {bridge.jax_path(k): p for k, p in fresh.named_parameters()}
+    for k, p in state.frozen.items():
+        assert p.dtype == torch.bfloat16, k
+        assert torch.equal(p.detach(), fresh[k].to(torch.bfloat16)), k
+    lora = {k: p for k, p in state.trainable.items() if "lora_" in k}
+    assert len(lora) == 8
+    for k, p in state.trainable.items():
+        assert p.dtype == torch.float32
+        assert not torch.equal(p.detach(), fresh[k]), k
+        if k.endswith("_b") and "lora_" in k:
+            assert not fresh[k].any()  # zero at the start
+    log = [json.loads(line) for line in (out / "log.txt").read_text()
+           .splitlines()]
+    assert len(log) == 1 and np.isfinite(log[0]["loss"])
+    printed = capsys.readouterr().out
+    assert "saves no weights" in printed and "step 2:" in printed

@@ -65,6 +65,15 @@ def test_profile_train_refuses_the_cpu():
 
     args = run_pretrain.base_parser().parse_args([
         "--config", "configs/pretrain/pretrain_tiny_no_dropout.yaml",
-        "--synthetic_data"])
+        "--synthetic_data", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="needs --device cuda"):
+        pt.main(args)
+
+
+def test_profile_train_takes_the_instruct_step_and_refuses_the_cpu():
+    args = pt.parser().parse_args([
+        "--config", "configs/instruct/train_bloomz_7b_flagship.yaml",
+        "--instruct", "--synthetic_data", "--device", "cpu"])
+    assert args.instruct
     with pytest.raises(RuntimeError, match="needs --device cuda"):
         pt.main(args)

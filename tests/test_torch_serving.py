@@ -98,7 +98,8 @@ def test_engine_prefill_bookkeeping():
 def test_serve_cli_runs_on_cpu(tmp_path):
     args = serve.serve_parser().parse_args([
         "--config", "configs/pretrain_tiny.yaml", "--synthetic_data",
-        "--num_requests", "3", "--output_dir", str(tmp_path)])
+        "--num_requests", "3", "--output_dir", str(tmp_path), "--device",
+        "cpu"])
     stats = serve.main(args)
     assert set(stats) == {"requests", "wall_s", "tokens_per_sec",
                           "latency_p50_s", "latency_p95_s"}

@@ -315,7 +315,7 @@ def test_run_pretrain_cli_two_steps_on_cpu(tmp_path, capsys):
     out = tmp_path / "out"
     args = run_pretrain.base_parser().parse_args([
         "--config", TINY_YAML, "--output_dir", str(out), "--synthetic_data",
-        "--max_steps", "2", "--seed", "1"])
+        "--max_steps", "2", "--seed", "1", "--device", "cpu"])
     runner = run_pretrain.main(args)
     assert len(runner.history) == 2
     for step, h in enumerate(runner.history, start=1):

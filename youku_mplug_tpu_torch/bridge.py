@@ -17,10 +17,13 @@ takes trainable leaves as fp32 master weights and frozen ones in bf16;
 
 ``seeded_init`` fills every parameter from one ``torch.Generator``: normals
 of std 0.02 everywhere (biases, cls/pos/temporal embeddings, ``bias_k``,
-``temporal_fc`` of every block and the contrastive projections included,
-so no path through the model is zeroed out), LayerNorm scales one,
-LayerNorm biases zero, and the contrastive temperature ``temp`` its
-configured value (``module.cfg.temp``, else 0.07).
+``temporal_fc`` of every block, the contrastive projections and the
+LoRA ``lora_*_a`` included, the latter at its module's
+``lora_init_std``, so no path through the model is zeroed out),
+LayerNorm scales one, LayerNorm biases zero, every LoRA ``lora_*_b``
+zero (a fresh adapter is a no-op, as the JAX package inits it, so
+training starts from the base model), and the contrastive temperature
+``temp`` its configured value (``module.cfg.temp``, else 0.07).
 """
 
 from __future__ import annotations
@@ -111,6 +114,11 @@ def _is_norm_bias(name: str, names) -> bool:
     return scale in names
 
 
+def _is_lora_b(name: str) -> bool:
+    leaf = name.split(".")[-1]
+    return leaf.startswith("lora_") and leaf.endswith("_b")
+
+
 _DRAW_VALUES = 1 << 26  # 256 MB of fp32
 
 
@@ -120,6 +128,11 @@ def seeded_init(module: nn.Module, seed: int, std: float = 0.02
     """Fill every parameter of ``module`` from a generator seeded with
     ``seed``, on the parameters' own device (see module docstring)."""
     params = dict(module.named_parameters())
+    stds = {f"{prefix}.{leaf}" if prefix else leaf: m.lora_init_std
+            for prefix, m in module.named_modules()
+            if hasattr(m, "lora_init_std")
+            for leaf, _ in m.named_parameters(recurse=False)
+            if leaf.startswith("lora_")}
     gens = {}
     for name in sorted(params):
         p = params[name]
@@ -127,7 +140,7 @@ def seeded_init(module: nn.Module, seed: int, std: float = 0.02
             p.fill_(getattr(getattr(module, "cfg", None), "temp", 0.07))
         elif _is_norm_scale(name):
             p.fill_(1.0)
-        elif _is_norm_bias(name, params):
+        elif _is_norm_bias(name, params) or _is_lora_b(name):
             p.zero_()
         else:
             gen = gens.get(p.device)
@@ -141,5 +154,6 @@ def seeded_init(module: nn.Module, seed: int, std: float = 0.02
             for part in (p.split(rows) if p.dim() else (p,)):
                 part.copy_(torch.randn(part.shape, generator=gen,
                                        device=p.device,
-                                       dtype=torch.float32) * std)
+                                       dtype=torch.float32)
+                           * stds.get(name, std))
     return module

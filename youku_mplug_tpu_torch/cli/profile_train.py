@@ -1,7 +1,9 @@
-"""Where the pretrain step's time goes on the card.
+"""Where a train step's time goes on the card.
 
 Runs the pretrain CLI's path (``run_pretrain.setup``, its loader, batches
-and train step): ``WARMUP`` steps, ``TIMED`` steps on the host clock
+and train step), or with ``--instruct`` the instruct CLI's ``--train``
+path (``run_instruct.train_setup``, ``make_instruct_batch`` and its
+train step): ``WARMUP`` steps, ``TIMED`` steps on the host clock
 without the profiler, then ``PROFILED`` steps under ``torch.profiler``.
 A step is timed as the CLI times it: batch upload, train step, device
 sync; the host makes each batch's clips before.  It prints one JSON
@@ -19,7 +21,10 @@ lost events it reads low.
 Usage (GPU):
     python -m youku_mplug_tpu_torch.cli.profile_train \
         --config configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml \
-        --synthetic_data --device cuda --output_dir out
+        --synthetic_data --output_dir out
+    python -m youku_mplug_tpu_torch.cli.profile_train --instruct \
+        --config configs/instruct/train_bloomz_7b_flagship.yaml \
+        --synthetic_data --output_dir out
 """
 
 from __future__ import annotations
@@ -34,11 +39,11 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from youku_mplug_tpu_torch.cli import run_pretrain
+from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
 
 STEP_SPAN = "train_step"
-# warm-up, unprofiled and profiled steps: 8 in all, the flagship YAML's
-# 128 synthetic clips in batches of 16
+# warm-up, unprofiled and profiled steps: 8 in all, the flagship YAMLs'
+# 128 synthetic clips in batches of 16 and 64 in batches of 8
 WARMUP, TIMED, PROFILED = 2, 5, 1
 # (category, substrings of the kernel name), first match wins
 CATEGORIES = (
@@ -108,12 +113,25 @@ def summarize(events: List[Dict], n_steps: int, top: int = 12) -> Dict:
     }
 
 
+def parser():
+    p = run_pretrain.base_parser("Profile a train step (PyTorch)")
+    p.add_argument("--instruct", action="store_true",
+                   help="profile run_instruct --train (an instruct YAML)")
+    return p
+
+
 def main(args) -> Dict:
     if torch.device(args.device).type != "cuda":
         raise RuntimeError("profile_train needs --device cuda")
     args.max_steps = WARMUP + TIMED + PROFILED
-    runner = run_pretrain.setup(args)
-    train_step = run_pretrain.build_train_step(runner)
+    if getattr(args, "instruct", False):
+        runner = run_instruct.train_setup(args)
+        train_step = run_instruct.build_train_step(runner)
+        make_batch = run_instruct.make_instruct_batch
+    else:
+        runner = run_pretrain.setup(args)
+        train_step = run_pretrain.build_train_step(runner)
+        make_batch = run_pretrain.make_batch
     dev = runner.device
     runner.loader.set_epoch(0)
     batches = iter(runner.loader)
@@ -125,7 +143,7 @@ def main(args) -> Dict:
     def step(raw):
         """One step as ``train_one_epoch`` times it: batch upload, train
         step, device sync (the host makes the clips before)."""
-        train_step(runner.state, run_pretrain.make_batch(runner, raw))
+        train_step(runner.state, make_batch(runner, raw))
         torch.cuda.synchronize(dev)
 
     for _ in range(WARMUP):
@@ -166,5 +184,4 @@ def main(args) -> Dict:
 
 
 if __name__ == "__main__":
-    main(run_pretrain.base_parser("Profile the pretrain step (PyTorch)")
-         .parse_args())
+    main(parser().parse_args())

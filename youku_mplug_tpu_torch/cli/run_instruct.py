@@ -1,31 +1,44 @@
-"""mPLUG-Video BloomZ-7B video-instruct serving on the port.
+"""mPLUG-Video BloomZ-7B video instruct on the port: serving, and
+instruction finetuning with ``--train``.
 
-Counterpart of ``youku_mplug_tpu/cli/run_instruct.py`` (inference through
-the engine): Human/AI prompts with one ``<|video|>`` placeholder are
-expanded to the media positions, the clips are encoded (per-frame CLIP
-ViT, visual abstractor, ``visual_fc`` and ``vit_eos``) and spliced into
-the prompt embeddings in one batch, and every request is admitted to the
-continuous-batching engine's slot pool as slots free, the Bloom decoder
-decoding greedily over the stacked bf16 cache.
+Counterpart of ``youku_mplug_tpu/cli/run_instruct.py``.  Serving
+(inference through the engine): Human/AI prompts with one ``<|video|>``
+placeholder are expanded to the media positions, the clips are encoded
+(per-frame CLIP ViT, visual abstractor, ``visual_fc`` and ``vit_eos``)
+and spliced into the prompt embeddings in one batch, and every request is
+admitted to the continuous-batching engine's slot pool as slots free, the
+Bloom decoder decoding greedily over the stacked bf16 cache.  Serving
+always runs through the engine: the batched ``generate`` is not ported,
+so ``--engine`` is accepted for the JAX runner's command lines and
+changes nothing.
 
-Serving always runs through the engine: the batched ``generate`` is not
-ported, so ``--engine`` is accepted for the JAX runner's command lines
-and changes nothing.  Weights come from a seeded init; instruct training
-(``--train``), checkpoint import (``--hf_checkpoint``, ``--serving_ckpt``),
-real video files and sampling are not ported yet (ROADMAP.md, Queue 1),
-and each raises; HF tokenizer files (the JAX runner's ``--tokenizer``) are
-not ported either.  Results carry token ids (the synthetic runs' hash
-tokenizer has no text).
+Training (``--train``, the mPLUG-Owl finetune recipe): synthetic clips
+with their captions as answers to a fixed question, the response-masked
+LM loss, a frozen ViT and a frozen bf16 Bloom whose LoRA adapters train
+in fp32 beside the abstractor, ``visual_fc`` and ``vit_eos``, AdamW; one
+JSON line per step (``--log_freq``) and one ``log.txt`` line per epoch,
+through ``run_pretrain``'s epoch loop.  No weights are saved.
 
-Usage (GPU; ``--device cpu`` runs a tiny config on the CPU):
+Weights come from a seeded init; checkpoint import (``--hf_checkpoint``,
+``--serving_ckpt``), real video files, jsonl training data and sampling
+are not ported yet (ROADMAP.md, Queue 1), and each raises; HF tokenizer
+files (the JAX runner's ``--tokenizer``) are not ported either.  Results
+carry token ids (the synthetic runs' hash tokenizer has no text).
+
+Usage (the card is the default device; ``--device cpu`` runs a tiny
+config on the CPU):
     python -m youku_mplug_tpu_torch.cli.run_instruct \\
         --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
-        --synthetic_data --engine --device cuda
+        --synthetic_data --engine
+    python -m youku_mplug_tpu_torch.cli.run_instruct --train \\
+        --config configs/instruct/train_bloomz_7b_flagship.yaml \\
+        --synthetic_data --max_steps 8 --output_dir out
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -34,21 +47,36 @@ import numpy as np
 import torch
 
 from youku_mplug_tpu_torch.bridge import seeded_init
-from youku_mplug_tpu_torch.config import load_owl_config
+from youku_mplug_tpu_torch.cli import run_pretrain
+from youku_mplug_tpu_torch.config import (
+    InstructTrainConfig,
+    instruct_train_config,
+    load_owl_config,
+)
+from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
 from youku_mplug_tpu_torch.data.instruct import (
     VIDEO_PLACEHOLDER,
     WhitespaceTokenizer,
     build_instruct_batch,
+    build_instruct_train_batch,
     format_prompt,
 )
+from youku_mplug_tpu_torch.data.loader import Loader
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.owl import MPLUGOwlVideo
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
-from youku_mplug_tpu_torch.runtime.precision import BF16_POLICY
+from youku_mplug_tpu_torch.runtime.precision import (
+    BF16_POLICY,
+    DEFAULT_POLICY,
+)
 from youku_mplug_tpu_torch.serving.engine import ServingEngine
+from youku_mplug_tpu_torch.train.state import create_train_state
+from youku_mplug_tpu_torch.train.trainer import make_train_step
+
+# the question each synthetic caption answers (the JAX runner's)
+SYNTHETIC_QUESTION = "What is shown in the video ?"
 
 _NOT_PORTED = {
-    "train": "instruct training (--train) is not ported yet",
     "hf_checkpoint": "HF checkpoint import (--hf_checkpoint) is not ported "
                      "yet",
     "serving_ckpt": "serving checkpoints (--serving_ckpt) are not ported yet",
@@ -76,23 +104,39 @@ def parser() -> argparse.ArgumentParser:
                         "only serving path of the port)")
     p.add_argument("--num_slots", type=int, default=4,
                    help="engine slot-pool size")
-    p.add_argument("--device", default="cpu", help="cpu | cuda[:i]")
-    p.add_argument("--train", action="store_true", help="not ported")
+    p.add_argument("--device", default="cuda",
+                   help="cuda[:i] (default), or cpu")
     p.add_argument("--hf_checkpoint", default="", help="not ported")
     p.add_argument("--serving_ckpt", default="", help="not ported")
+    # ---- instruction finetuning -------------------------------------
+    p.add_argument("--train", action="store_true",
+                   help="instruction-finetune instead of serving: "
+                        "response-masked LM loss, frozen ViT and Bloom "
+                        "(+LoRA when text_overrides.lora_rank > 0), "
+                        "trainable abstractor / visual_fc / vit_eos")
+    p.add_argument("--max_steps", type=int, default=-1,
+                   help="cap steps per epoch (smoke runs)")
+    p.add_argument("--log_freq", type=int, default=1,
+                   help="print every log_freq-th step's metrics")
     return p
 
 
-def build(args):
-    """-> (model config, raw YAML dict, model on the device, device).
-    Raises for what is not ported and when the requested device is
-    absent: nothing falls back to the CPU."""
+def _device(args) -> torch.device:
+    """The requested device; raises for what is not ported and when the
+    device is absent: nothing falls back to the CPU."""
     for flag, msg in _NOT_PORTED.items():
-        if getattr(args, flag):
+        if getattr(args, flag, ""):
             raise NotImplementedError(f"{msg} (ROADMAP.md, Queue 1)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is visible")
+    return device
+
+
+def build(args):
+    """-> (model config, raw YAML dict, model on the device, device) for
+    serving."""
+    device = _device(args)
     cfg, raw = load_owl_config(args.config)
     if raw.get("do_sample"):
         raise NotImplementedError(
@@ -227,7 +271,88 @@ def prepare(args, cfg, raw_cfg, device, compute_dtype):
     return rows, batch, clips
 
 
+def build_train_loader(args, tcfg: InstructTrainConfig, res: int) -> Loader:
+    """Synthetic clips (``synthetic_length`` of them) in the JAX runner's
+    shuffled order; jsonl training data is not ported yet."""
+    if not args.synthetic_data:
+        raise NotImplementedError(
+            "instruct training reads --synthetic_data only; jsonl datasets "
+            "and video decoding are not ported yet (ROADMAP.md, Queue 1)")
+    ds = SyntheticVideoDataset(length=tcfg.synthetic_length,
+                               num_frames=tcfg.num_frames, size=res)
+    return Loader(ds, tcfg.batch_size, seed=args.seed)
+
+
+def train_setup(args) -> run_pretrain.Runner:
+    """Config, loader, seeded model on the device, the trainable/frozen
+    split (frozen leaves in bf16; LoRA adapters stay fp32 and train) and
+    AdamW, whose schedule spans ``min(len(loader), max_steps)`` updates
+    per epoch."""
+    device = _device(args)
+    cfg, raw = load_owl_config(args.config)
+    tcfg = instruct_train_config(raw)
+    loader = build_train_loader(args, tcfg, cfg.vision.img_size)
+    niter = len(loader) if args.max_steps <= 0 else min(len(loader),
+                                                        args.max_steps)
+    tcfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
+        tcfg.optimizer, niter_per_ep=max(niter, 1)))
+    with device:  # built and seeded on the device
+        model = MPLUGOwlVideo(cfg, DEFAULT_POLICY)
+    seeded_init(model, args.seed)
+    state, _, schedule = create_train_state(
+        model, tcfg.optimizer, frozen_dtype=DEFAULT_POLICY.compute_dtype)
+    os.makedirs(args.output_dir, exist_ok=True)
+    print("checkpoints, resume and TensorBoard are not ported yet: this "
+          "run saves no weights", flush=True)
+    tok = WhitespaceTokenizer(cfg.text.vocab_size, eos_id=cfg.text.eos_id,
+                              pad_id=cfg.text.pad_id)
+    return run_pretrain.Runner(args=args, cfg=tcfg, device=device,
+                               model=model.train(), tokenizer=tok,
+                               state=state, schedule=schedule, loader=loader)
+
+
+def make_instruct_batch(runner: run_pretrain.Runner, raw):
+    """Loader rows -> ``instruct_loss`` inputs on the device: each
+    synthetic caption is the answer to ``SYNTHETIC_QUESTION``."""
+    text = runner.model.cfg.text
+    batch = build_instruct_train_batch(
+        [(SYNTHETIC_QUESTION, caption) for caption in raw["text"]],
+        runner.tokenizer, runner.model.cfg.num_media_tokens,
+        pad_id=text.pad_id, eos_id=text.eos_id,
+        max_length=runner.cfg.max_length)
+    dev = runner.device
+    out = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    out["input_ids"] = out["input_ids"].long()
+    out["video"] = torch.from_numpy(raw["video"]).to(dev)
+    return out
+
+
+def make_loss_fn(model: MPLUGOwlVideo):
+    def loss_fn(batch):
+        video = normalize_clip(batch["video"],
+                               dtype=model.policy.compute_dtype)
+        return model.instruct_loss(video, batch["input_ids"],
+                                   batch["attention_mask"],
+                                   batch["media_mask"], batch["prompt_mask"])
+    return loss_fn
+
+
+def build_train_step(runner: run_pretrain.Runner):
+    return make_train_step(make_loss_fn(runner.model),
+                           update_freq=runner.cfg.update_freq)
+
+
+def train_main(args) -> run_pretrain.Runner:
+    """Instruction finetuning: every epoch of the YAML through
+    ``run_pretrain``'s epoch loop (see the module docstring)."""
+    runner = train_setup(args)
+    return run_pretrain.train_epochs(runner, build_train_step(runner),
+                                     make_instruct_batch)
+
+
 def main(args):
+    if args.train:
+        return train_main(args)
     cfg, raw_cfg, model, device = build(args)
     rows, batch, clips = prepare(args, cfg, raw_cfg, device,
                                  model.policy.compute_dtype)

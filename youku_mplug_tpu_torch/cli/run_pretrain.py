@@ -56,17 +56,20 @@ def base_parser(description: str = "mPLUG-Video pretraining (PyTorch)"):
                    help="cap steps per epoch (smoke runs)")
     p.add_argument("--synthetic_data", action="store_true",
                    help="procedural videos (the only source ported so far)")
-    p.add_argument("--device", default="cpu", help="cpu | cuda[:i]")
+    p.add_argument("--device", default="cuda",
+                   help="cuda[:i] (default), or cpu")
     return p
 
 
 @dataclasses.dataclass
 class Runner:
+    """What the epoch loop needs; ``run_instruct`` fills it with the Owl
+    model, its training config and the instruct tokenizer."""
     args: Any
-    cfg: RunConfig
+    cfg: Any  # RunConfig here; config.InstructTrainConfig for instruct
     device: torch.device
-    model: MPLUGVideo
-    tokenizer: BatchTokenizer
+    model: Any
+    tokenizer: Any
     state: TrainState
     schedule: Callable[[int], float]
     loader: Loader
@@ -137,13 +140,17 @@ def build_train_step(runner: Runner):
                            update_freq=runner.cfg.update_freq)
 
 
-def train_one_epoch(runner: Runner, train_step, epoch: int
+def train_one_epoch(runner: Runner, train_step, epoch: int,
+                    make_batch: Callable = make_batch
                     ) -> List[Dict[str, float]]:
-    """One pass over the loader (at most --max_steps batches).  Returns
-    each step's metrics with ``lr`` (the schedule at the step counter, as
-    the JAX loop logs it) and ``step_time`` (host seconds, ending in a
-    device sync)."""
+    """One pass over the loader (at most --max_steps batches), each raw
+    batch turned into the loss's inputs by ``make_batch(runner, raw)``.
+    Prints every ``--log_freq``-th step's metrics (every step by default)
+    and returns each step's, with ``lr`` (the schedule at the step
+    counter, as the JAX loop logs it) and ``step_time`` (host seconds,
+    batch upload included, ending in a device sync)."""
     args = runner.args
+    log_freq = max(getattr(args, "log_freq", 1), 1)
     runner.loader.set_epoch(epoch)
     history = []
     for it, raw in enumerate(runner.loader):
@@ -157,9 +164,10 @@ def train_one_epoch(runner: Runner, train_step, epoch: int
         metrics["step_time"] = time.perf_counter() - t0
         metrics["lr"] = runner.schedule(runner.state.step)
         history.append(metrics)
-        print(f"Epoch [{epoch}] step {runner.state.step}: "
-              + json.dumps({k: round(v, 6) for k, v in metrics.items()}),
-              flush=True)
+        if (it + 1) % log_freq == 0:
+            print(f"Epoch [{epoch}] step {runner.state.step}: "
+                  + json.dumps({k: round(v, 6)
+                                for k, v in metrics.items()}), flush=True)
         if metrics["skipped_nonfinite"] > 0:
             print(f"===== non-finite loss at step {runner.state.step} "
                   f"=====", flush=True)
@@ -171,18 +179,24 @@ def write_log(args, entry: dict):
         f.write(json.dumps(entry, ensure_ascii=False) + "\n")
 
 
-def main(args) -> Runner:
-    runner = setup(args)
-    train_step = build_train_step(runner)
+def train_epochs(runner: Runner, train_step,
+                 make_batch: Callable = make_batch) -> Runner:
+    """Every epoch of ``runner.cfg.epochs``, each ending in one
+    ``log.txt`` line of its step means."""
     for epoch in range(runner.cfg.epochs):
         t0 = time.time()
-        history = train_one_epoch(runner, train_step, epoch)
+        history = train_one_epoch(runner, train_step, epoch, make_batch)
         runner.history.extend(history)
         means = {k: float(np.mean([h[k] for h in history]))
                  for k in (history[0] if history else {})}
-        write_log(args, {"epoch": epoch, **means,
-                         "epoch_time": time.time() - t0})
+        write_log(runner.args, {"epoch": epoch, **means,
+                                "epoch_time": time.time() - t0})
     return runner
+
+
+def main(args) -> Runner:
+    runner = setup(args)
+    return train_epochs(runner, build_train_step(runner))
 
 
 if __name__ == "__main__":

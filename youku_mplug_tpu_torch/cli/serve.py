@@ -43,7 +43,8 @@ def serve_parser():
                    help="seed of the weight init")
     p.add_argument("--synthetic_data", action="store_true",
                    help="procedural videos (the only source ported so far)")
-    p.add_argument("--device", default="cpu", help="cpu | cuda[:i]")
+    p.add_argument("--device", default="cuda",
+                   help="cuda[:i] (default), or cpu")
     p.add_argument("--num_slots", type=int, default=8)
     p.add_argument("--serve_max_len", type=int, default=0,
                    help="KV capacity per slot (0: queries+prompt+new)")

@@ -6,8 +6,9 @@
 ``optimizer`` and ``schedular`` blocks, ``update_freq``, ``epochs``,
 ``prompt``, ``max_new_tokens``, ``batch_size``, ``max_length``,
 ``image_res`` and ``synthetic_length`` (the last ones via
-``RunConfig.get``); and ``load_owl_config``, the mPLUG-Owl instruct YAML
-of ``youku_mplug_tpu/cli/run_instruct.py``."""
+``RunConfig.get``); and ``load_owl_config`` / ``instruct_train_config``,
+the mPLUG-Owl instruct YAML of ``youku_mplug_tpu/cli/run_instruct.py``
+(the model blocks, and the training keys its ``train_main`` reads)."""
 
 from __future__ import annotations
 
@@ -178,3 +179,44 @@ def load_owl_config(path: str) -> tuple:
     abstractor = OwlAbstractorConfig(**(raw.get("abstractor") or {}))
     return MPLUGOwlVideoConfig(vision=vision, abstractor=abstractor,
                                text=text), raw
+
+
+@dataclasses.dataclass(frozen=True)
+class InstructTrainConfig:
+    """The training keys of an instruct YAML, with the JAX runner's
+    defaults (``youku_mplug_tpu/cli/run_instruct.py`` ``train_main`` and
+    ``build_train_loader``).  ``optimizer`` still needs its
+    ``niter_per_ep``, which the loader decides."""
+
+    optimizer: OptimizerConfig
+    batch_size: int = 2
+    epochs: int = 3
+    max_length: int = 0
+    update_freq: int = 1
+    synthetic_length: int = 16
+    num_frames: int = 8
+
+
+def instruct_train_config(raw: Dict[str, Any]) -> InstructTrainConfig:
+    """The raw instruct YAML -> its training keys: the ``optimizer`` block
+    as given (lr 1e-4 by default, the rest ``OptimizerConfig``'s
+    defaults), ``epochs`` for the schedule, and ``freeze_vit`` /
+    ``freeze_text_decoder`` both True unless the YAML says otherwise."""
+    epochs = int(raw.get("epochs", 3))
+    opt_kw = dict(raw.get("optimizer") or {})
+    opt_kw.setdefault("lr", 1e-4)
+    for k in ("epochs", "niter_per_ep", "freeze_text_decoder",
+              "freeze_vit"):
+        opt_kw.pop(k, None)
+    if "opt_betas" in opt_kw:
+        opt_kw["opt_betas"] = tuple(opt_kw["opt_betas"])
+    optimizer = OptimizerConfig(
+        **opt_kw, epochs=epochs,
+        freeze_text_decoder=bool(raw.get("freeze_text_decoder", True)),
+        freeze_vit=bool(raw.get("freeze_vit", True)))
+    return InstructTrainConfig(
+        optimizer=optimizer, batch_size=int(raw.get("batch_size", 2)),
+        epochs=epochs, max_length=int(raw.get("max_length", 0)),
+        update_freq=int(raw.get("update_freq", 1)),
+        synthetic_length=int(raw.get("synthetic_length", 16)),
+        num_frames=int(raw.get("num_frames", 8)))

@@ -3,7 +3,8 @@
 The prompt helpers of ``youku_mplug_tpu/data/instruct.py``, copied
 because that module's package imports the JAX loader: the Human/AI
 conversation template with one ``<|video|>`` placeholder, its expansion
-into ``num_media_tokens`` media positions, the right-padded batch, and
+into ``num_media_tokens`` media positions, the right-padded serving
+batch, the (question, answer) training batch with its prompt mask, and
 the whitespace hash tokenizer of synthetic runs (the ids depend on
 Python's string hash, so they are the JAX package's within one process).
 """
@@ -74,6 +75,52 @@ def build_instruct_batch(prompts: Sequence[str], tokenizer,
         prompt_len[i] = len(ids)
     return {"input_ids": input_ids, "media_mask": media_mask,
             "prompt_len": prompt_len}
+
+
+def build_instruct_train_batch(examples: Sequence[Tuple[str, str]],
+                               tokenizer, num_queries: int, pad_id: int,
+                               eos_id: int, max_length: int = 0):
+    """(question-or-prompt, answer) pairs -> rows ``[prompt (media
+    expanded) ; answer ; eos]`` right-padded.  Returns dict(input_ids,
+    attention_mask, media_mask, prompt_mask), all [B, S] int32;
+    ``prompt_mask`` covers the instruction span (media included), so only
+    the answer and its eos are supervised.  ``max_length > 0`` truncates
+    answers (never the prompt) to fit, and raises when the prompt alone
+    leaves no room for one."""
+    rows = []
+    for q, a in examples:
+        prompt = q if VIDEO_PLACEHOLDER in q else format_prompt(q)
+        p_ids, p_media = expand_video_prompt(prompt, tokenizer, num_queries)
+        if sum(p_media) != num_queries:
+            raise ValueError(
+                f"prompt must contain exactly one {VIDEO_PLACEHOLDER}: "
+                f"{prompt[:80]!r}")
+        a_ids = list(tokenizer.encode(a, add_special_tokens=False))
+        a_ids.append(eos_id)
+        if max_length and len(p_ids) + len(a_ids) > max_length:
+            keep = max_length - len(p_ids)
+            if keep < 1:
+                raise ValueError(
+                    f"prompt is {len(p_ids)} tokens, leaving no room for "
+                    f"an answer under max_length={max_length}: {q[:80]!r}")
+            a_ids = a_ids[:keep - 1] + [eos_id]
+        rows.append((p_ids, p_media, a_ids))
+
+    s_max = max(len(p) + len(a) for p, _, a in rows)
+    b = len(rows)
+    input_ids = np.full((b, s_max), pad_id, np.int32)
+    attention = np.zeros((b, s_max), np.int32)
+    media_mask = np.zeros((b, s_max), np.int32)
+    prompt_mask = np.zeros((b, s_max), np.int32)
+    for i, (p_ids, p_media, a_ids) in enumerate(rows):
+        n_p, n = len(p_ids), len(p_ids) + len(a_ids)
+        input_ids[i, :n_p] = p_ids
+        input_ids[i, n_p:n] = a_ids
+        attention[i, :n] = 1
+        media_mask[i, :n_p] = p_media
+        prompt_mask[i, :n_p] = 1
+    return {"input_ids": input_ids, "attention_mask": attention,
+            "media_mask": media_mask, "prompt_mask": prompt_mask}
 
 
 class WhitespaceTokenizer:

@@ -1,7 +1,8 @@
-"""Bloom decoder (the BloomZ-7B LM of mPLUG-Owl video instruct): prefill
-and decode over the stacked packed cache, for serving.
+"""Bloom decoder (the BloomZ-7B LM of mPLUG-Owl video instruct): the
+full-sequence training forward, and prefill and decode over the stacked
+packed cache for serving.
 
-Counterpart of ``youku_mplug_tpu/models/bloom.py`` (the cached branch).
+Counterpart of ``youku_mplug_tpu/models/bloom.py``.
 Parameters keep the JAX names and shapes, so loading a JAX tree is a
 rename (``bridge.py``): the fused QKV is HEAD-MAJOR, ``qkv_kernel
 [H, n, 3, d]`` (rows of the fused output are [q | k | v] per head), the
@@ -15,13 +16,24 @@ input embeddings (``skip_emb_ln`` skips it); pre-LN blocks whose residual
 is the block input unless ``apply_residual_post_ln``; tanh GELU; fp32
 layernorms, softmax and logits from the tied embedding.
 
+Training (no cache): causal attention over the whole sequence through
+the flash kernels with ALiBi, q/k/v handed as [B, S, n, d] head views of
+the fused projection (no copy); ``BloomLM.forward`` returns the tied-
+embedding LM losses and their masked mean.  Dropout is not ported, so
+training with a dropout rate above 0 raises.
+
+LoRA (``lora_rank > 0``): each target projection (``qkv``, ``out``,
+``fc1``, ``fc2``) gains ``lora_<name>_a [L, in, r]`` and ``lora_<name>_b
+[L, r, out]`` and adds ``(x @ a) @ b * alpha / r`` to its output, before
+its bias (the qkv delta lands on the flat head-major lanes before the
+reshape), in training and serving alike.
+
 Cache: ``[L, B, M, 2*n*d]`` rows [K | V] repacked from the head-major
 projection.  A decode step (S = 1) reads it in place through the ALiBi
 decode kernel, handed q as a [B, n, d] head-strided view of the fused
 row; a longer chunk (prefill) runs plain attention over the layer view
 with the ALiBi bias plus the ``valid_from``/causal mask as an additive
-fp32 minimum.  The no-cache forward (training; flash attention with
-ALiBi) and LoRA are not ported yet.
+fp32 minimum.
 """
 
 from __future__ import annotations
@@ -37,14 +49,22 @@ from torch import nn
 from youku_mplug_tpu_torch.models.gpt3 import CacheLen, TiedEmbedding, _param
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
 from youku_mplug_tpu_torch.ops.attention import NEG_INF, mha_reference
+from youku_mplug_tpu_torch.ops.cross_entropy import (
+    lm_cross_entropy,
+    masked_mean_loss,
+)
 from youku_mplug_tpu_torch.ops.decode_attention import (
     alibi_slopes,
     decode_attention,
 )
+from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
+from youku_mplug_tpu_torch.ops.lora import lora_delta
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 __all__ = ["BloomConfig", "BloomLM", "alibi_slopes"]
+
+LORA_TARGETS = ("qkv", "out", "fc1", "fc2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,12 +85,16 @@ class BloomConfig:
     eos_id: int = 2
     pad_id: int = 3
     lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: tuple = LORA_TARGETS
 
     def __post_init__(self):
-        if self.lora_rank:
-            raise NotImplementedError(
-                f"LoRA (lora_rank {self.lora_rank}) is not ported yet: serve "
-                "the merged-adapter form (text_overrides.lora_rank: 0)")
+        # a YAML list becomes the tuple the JAX config holds
+        object.__setattr__(self, "lora_targets", tuple(self.lora_targets))
+        unknown = set(self.lora_targets) - set(LORA_TARGETS)
+        if unknown:
+            raise ValueError(f"unknown LoRA targets {sorted(unknown)}; the "
+                             f"Bloom projections are {LORA_TARGETS}")
 
     @property
     def ffn_dim(self) -> int:
@@ -105,44 +129,89 @@ class BloomConfig:
         return cls(**mapped)
 
 
-class BloomAttention(nn.Module):
-    """ALiBi self-attention over the stacked cache; head-major fused QKV.
-    Parameters carry a leading [L] layer dimension."""
+class _LoRA(nn.Module):
+    """The adapters of one stacked module: ``lora_<name>_{a,b}`` with a
+    leading [L] for each of ``cfg.lora_targets`` among ``shapes`` (name ->
+    (in, out)); ``delta(name, lidx, x)`` is layer lidx's delta or None."""
+
+    def _add_lora(self, cfg: BloomConfig, num_layers: int, dtype, shapes):
+        self.lora_rank, self.lora_alpha = cfg.lora_rank, cfg.lora_alpha
+        self.lora_init_std = cfg.init_method_std  # of lora_*_a (bridge)
+        if cfg.lora_rank <= 0:
+            return
+        for name, (i, o) in shapes.items():
+            if name in cfg.lora_targets:
+                setattr(self, f"lora_{name}_a",
+                        _param(num_layers, i, cfg.lora_rank, dtype=dtype))
+                setattr(self, f"lora_{name}_b",
+                        _param(num_layers, cfg.lora_rank, o, dtype=dtype))
+
+    def delta(self, name: str, lidx: int, x: torch.Tensor):
+        a = getattr(self, f"lora_{name}_a", None)
+        if a is None:
+            return None
+        b = getattr(self, f"lora_{name}_b")
+        return lora_delta((a[lidx], b[lidx]), x, self.lora_rank,
+                          self.lora_alpha, x.dtype)
+
+
+def _plus(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
+    return y if delta is None else y + delta
+
+
+class BloomAttention(_LoRA):
+    """ALiBi self-attention, head-major fused QKV: the training forward
+    without a cache, prefill and decode with one.  Parameters carry a
+    leading [L] layer dimension."""
 
     def __init__(self, cfg: BloomConfig, num_layers: int, dtype):
         super().__init__()
         n, d, h = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
         self.n, self.d, self.h = n, d, h
         self.slopes = alibi_slopes(n)
+        # the flash kernels read the slopes from an fp32 device array
+        self.register_buffer("slopes_fp32", torch.tensor(self.slopes),
+                             persistent=False)
         self.qkv_kernel = _param(num_layers, h, n, 3, d, dtype=dtype)
         self.qkv_bias = _param(num_layers, n, 3, d, dtype=dtype)
         self.out_kernel = _param(num_layers, n, d, h, dtype=dtype)
         self.out_bias = _param(num_layers, h, dtype=dtype)
+        self._add_lora(cfg, num_layers, dtype,
+                       {"qkv": (h, 3 * n * d), "out": (n * d, h)})
 
-    def forward(self, x, lidx: int, cache: torch.Tensor, cache_len: CacheLen,
+    def forward(self, x, lidx: int, cache: Optional[torch.Tensor] = None,
+                cache_len: CacheLen = 0,
                 valid_from: Optional[torch.Tensor] = None):
-        """x [B, S, H] -> [B, S, H].  Writes this chunk's K|V rows into
-        layer ``lidx`` of ``cache`` at ``cache_len`` (int, or [B]
-        per-sample positions), then attends to keys ``valid_from <= j <=
-        position``."""
+        """x [B, S, H] -> [B, S, H].  Without a cache: causal ALiBi
+        attention over the whole sequence through the flash kernels.  With
+        one: writes this chunk's K|V rows into layer ``lidx`` of ``cache``
+        at ``cache_len`` (int, or [B] per-sample positions), then attends
+        to keys ``valid_from <= j <= position``."""
         n, d, h = self.n, self.d, self.h
         nd = n * d
         b, s, _ = x.shape
         dt = x.dtype
         qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
         qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
+        qkv = _plus(qkv, self.delta("qkv", lidx, x))
         qkv5 = qkv.unflatten(-1, (n, 3, d))  # head-major [B, S, n, 3, d]
-        kvp = torch.cat([qkv5[..., 1, :].reshape(b, s, nd),
-                         qkv5[..., 2, :].reshape(b, s, nd)], dim=-1)
-        kvc.cache_write(cache, kvp, cache_len, lidx)  # [K | V] rows
-        if s == 1:
-            out = decode_attention(qkv5[:, 0, :, 0, :], cache, n, lidx,
-                                   cache_len, valid_from,
-                                   alibi_slopes=self.slopes)[:, None]
+        if cache is None:
+            out = flash_attention_packed(
+                qkv5[..., 0, :], qkv5[..., 1, :], qkv5[..., 2, :], n,
+                causal=True, alibi_slopes=self.slopes_fp32)
         else:
-            out = self._prefill_attention(qkv5, lidx, cache, cache_len,
-                                          valid_from)
+            kvp = torch.cat([qkv5[..., 1, :].reshape(b, s, nd),
+                             qkv5[..., 2, :].reshape(b, s, nd)], dim=-1)
+            kvc.cache_write(cache, kvp, cache_len, lidx)  # [K | V] rows
+            if s == 1:
+                out = decode_attention(qkv5[:, 0, :, 0, :], cache, n, lidx,
+                                       cache_len, valid_from,
+                                       alibi_slopes=self.slopes)[:, None]
+            else:
+                out = self._prefill_attention(qkv5, lidx, cache, cache_len,
+                                              valid_from)
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
+        y = _plus(y, self.delta("out", lidx, out))
         return y + self.out_bias[lidx].to(dt)
 
     def _prefill_attention(self, qkv5, lidx, cache, cache_len, valid_from):
@@ -174,7 +243,7 @@ class BloomAttention(nn.Module):
         return out.transpose(1, 2).reshape(b, s, nd)
 
 
-class BloomMLP(nn.Module):
+class BloomMLP(_LoRA):
     def __init__(self, cfg: BloomConfig, num_layers: int, dtype):
         super().__init__()
         h, f = cfg.hidden_size, cfg.ffn_dim
@@ -182,13 +251,16 @@ class BloomMLP(nn.Module):
         self.fc1_bias = _param(num_layers, f, dtype=dtype)
         self.fc2_kernel = _param(num_layers, f, h, dtype=dtype)
         self.fc2_bias = _param(num_layers, h, dtype=dtype)
+        self._add_lora(cfg, num_layers, dtype, {"fc1": (h, f), "fc2": (f, h)})
 
     def forward(self, x, lidx: int):
         dt = x.dtype
-        y = x @ self.fc1_kernel[lidx].to(dt)
+        y = _plus(x @ self.fc1_kernel[lidx].to(dt), self.delta("fc1", lidx, x))
         # BloomGelu is the tanh-approximate GELU
         y = F.gelu(y + self.fc1_bias[lidx].to(dt), approximate="tanh")
-        return y @ self.fc2_kernel[lidx].to(dt) + self.fc2_bias[lidx].to(dt)
+        out = _plus(y @ self.fc2_kernel[lidx].to(dt),
+                    self.delta("fc2", lidx, y))
+        return out + self.fc2_bias[lidx].to(dt)
 
 
 class BloomLayer(nn.Module):
@@ -207,7 +279,8 @@ class BloomLayer(nn.Module):
         self.attn = BloomAttention(cfg, num_layers, dtype)
         self.mlp = BloomMLP(cfg, num_layers, dtype)
 
-    def forward(self, x, lidx: int, cache, cache_len, valid_from=None):
+    def forward(self, x, lidx: int, cache=None, cache_len: CacheLen = 0,
+                valid_from=None):
         a = layer_norm(x, self.ln1_scale[lidx], self.ln1_bias[lidx],
                        eps=self.eps)
         x = (a if self.post_ln_residual else x) + self.attn(
@@ -233,21 +306,29 @@ class BloomDecoder(nn.Module):
         self.ln_f_scale = _param(h, dtype=dt)
         self.ln_f_bias = _param(h, dtype=dt)
 
-    def forward(self, input_embeds, *, cache, cache_len: CacheLen,
+    def forward(self, input_embeds, *, cache=None, cache_len: CacheLen = 0,
                 valid_from=None, skip_emb_ln: bool = False):
-        eps = self.cfg.layernorm_epsilon
+        cfg = self.cfg
+        if cache is None and self.training and (
+                cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
+            raise NotImplementedError(
+                f"dropout (hidden {cfg.hidden_dropout}, attention "
+                f"{cfg.attention_dropout}) is not ported yet: train with "
+                "hidden_dropout = attention_dropout = 0")
+        eps = cfg.layernorm_epsilon
         x = input_embeds
         if not skip_emb_ln:
             x = layer_norm(x, self.emb_ln_scale, self.emb_ln_bias, eps=eps)
-        for lidx in range(self.cfg.num_hidden_layers):
+        for lidx in range(cfg.num_hidden_layers):
             x = self.layers(x, lidx, cache, cache_len, valid_from)
         return layer_norm(x, self.ln_f_scale, self.ln_f_bias, eps=eps)
 
 
 class BloomLM(nn.Module):
-    """Tied-embedding Bloom LM with the serving surface of ``GPT3LM``
-    (``embed`` / ``logits`` / ``init_cache`` / ``decode_step``), so the
-    serving engine drives either."""
+    """Tied-embedding Bloom LM: the training forward with the masked-mean
+    LM loss, and the serving surface of ``GPT3LM`` (``embed`` / ``logits``
+    / ``init_cache`` / ``decode_step``), so the serving engine drives
+    either."""
 
     def __init__(self, cfg: BloomConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
@@ -264,10 +345,25 @@ class BloomLM(nn.Module):
     def logits(self, hidden):
         return self.word_embeddings.attend(hidden)
 
-    def forward(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the no-cache Bloom forward (training: flash attention with "
-            "ALiBi) is not ported yet; serve through decode_step")
+    def forward(self, tokens=None, input_embeds=None, labels=None,
+                loss_mask=None):
+        """Full-sequence causal forward (JAX ``BloomLM.__call__``).  Returns
+        ``last_hidden_state``; with ``labels`` (already shifted) the fp32
+        per-position ``losses`` [B, S]; with a ``loss_mask`` too, ``loss``:
+        the masked mean over ``losses[:, :-1]``."""
+        if input_embeds is None:
+            input_embeds = self.embed(tokens)
+        else:
+            input_embeds = input_embeds.to(self.policy.compute_dtype)
+        hidden = self.decoder(input_embeds)
+        out = {"last_hidden_state": hidden}
+        if labels is not None:
+            losses = lm_cross_entropy(hidden, self.word_embeddings.embedding,
+                                      labels)
+            out["losses"] = losses
+            if loss_mask is not None:
+                out["loss"] = masked_mean_loss(losses[:, :-1], loss_mask)
+        return out
 
     def init_cache(self, batch: int, max_len: int, device=None):
         """Stacked cache [L, B, M, 2*hidden], M rounded up to a multiple of

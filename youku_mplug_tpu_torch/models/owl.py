@@ -2,10 +2,11 @@
 ViT -> visual abstractor -> ``visual_fc`` (+ ``vit_eos``) -> features
 spliced into the Bloom token embeddings at the ``<|video|>`` positions.
 
-Counterpart of ``youku_mplug_tpu/models/owl.py`` for serving
-(``encode_video``, ``spliced_embeds``); ``instruct_loss`` waits for the
-training slice.  Parameter names and shapes follow the JAX tree, so the
-bridge loads it by rename.  What the port keeps:
+Counterpart of ``youku_mplug_tpu/models/owl.py``: ``encode_video`` and
+``spliced_embeds`` for serving, ``instruct_loss`` (the response-masked
+LM loss of instruction finetuning) for training.  Parameter names and
+shapes follow the JAX tree, so the bridge loads it by rename.  What the
+port keeps:
 
 - frames fold into the batch for one ViT sweep ([B*T, 1 + N, D]);
 - the abstractor adds a learnable per-frame temporal embedding before
@@ -16,7 +17,10 @@ bridge loads it by rename.  What the port keeps:
   trained-in quirk), has a gated-SiLU MLP with its LayerNorm on the
   intermediate width, and no final LayerNorm;
 - ``splice_media``: the k-th media position takes the k-th media
-  feature (a cumulative-index gather).
+  feature (a cumulative-index gather);
+- in training, a frozen vision tower (no parameter that wants a
+  gradient, and the clips want none) builds no autograd graph, so it
+  launches no backward kernel.
 """
 
 from __future__ import annotations
@@ -161,6 +165,17 @@ def splice_media(tok_emb, query_features, media_mask):
     return torch.where(media_mask[..., None].bool(), gathered, tok_emb)
 
 
+def instruct_targets(input_ids, attention_mask, media_mask, prompt_mask):
+    """Shifted labels [B, S] (column 0 wraps to the end) and the loss mask
+    [B, S-1]: only targets that are real text outside the media span and
+    the instruction prompt (the answer and its eos) are supervised, in
+    the ``losses[:, :-1] x loss_mask`` convention of ``BloomLM``."""
+    labels = torch.cat([input_ids[:, 1:], input_ids[:, :1]], dim=1)
+    keep = (attention_mask[:, 1:] * (1 - media_mask[:, 1:])
+            * (1 - prompt_mask[:, 1:])).int()
+    return labels, keep
+
+
 class MPLUGOwlVideo(nn.Module):
     """Per-frame ViT -> visual abstractor -> Bloom decoder."""
 
@@ -193,3 +208,19 @@ class MPLUGOwlVideo(nn.Module):
         media positions."""
         return splice_media(self.text_decoder.embed(input_ids),
                             query_features, media_mask)
+
+    def instruct_loss(self, video, input_ids, attention_mask, media_mask,
+                      prompt_mask):
+        """Instruction-tuning LM loss over the answer tokens: {"loss"}."""
+        embeds = self.spliced_embeds(input_ids, media_mask,
+                                     self.encode_video(video))
+        labels, loss_mask = instruct_targets(input_ids, attention_mask,
+                                             media_mask, prompt_mask)
+        out = self.text_decoder(input_embeds=embeds, labels=labels,
+                                loss_mask=loss_mask)
+        return {"loss": out["loss"]}
+
+    def forward(self, video, input_ids, attention_mask, media_mask,
+                prompt_mask):
+        return self.instruct_loss(video, input_ids, attention_mask,
+                                  media_mask, prompt_mask)

@@ -36,11 +36,13 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "ymt_flash_fwd_bf16": [_P] * 5 + [_I] * 5 + [_LL] * 12 + [_F, _I, _I, _P],
+    # ... scale, period, causal, head_dim, slopes (or null), stream
+    "ymt_flash_fwd_bf16": [_P] * 5 + [_I] * 5 + [_LL] * 12
+    + [_F, _I, _I, _I, _P, _P],
     "ymt_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 5 + [_LL] * 15
-    + [_F, _I, _I, _P],
+    + [_F, _I, _I, _I, _P, _P],
     "ymt_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 18
-    + [_F, _I, _I, _P],
+    + [_F, _I, _I, _I, _P, _P],
     "ymt_decode_attention_bf16": [_P, _LL, _LL, _P, _P, _P, _P, _I, _I, _I,
                                   _LL, _F, _I, _I, _P],
 }

@@ -5,22 +5,29 @@ CUDA kernels serve both public wrappers, because the packed
 ``[B, S, n*d]`` layout is only a strided view of ``[B, S, n, d]``:
 
 - the forward (``csrc/flash_fwd.cu``) replaces ``_fwd_kernel_packed``
-  (mask modes none, ``period`` and causal: the vision tower's spatial and
-  grouped temporal attention, the decoder's training attention) and
-  ``_fwd_kernel`` (head-major ``[B, H, S, D]``, static ``kv_len``, causal;
-  AttentionPool's cross-attention);
+  (mask modes none, ``period`` and causal, the last optionally with the
+  ALiBi bias: the vision tower's spatial and grouped temporal attention,
+  the decoders' training attention) and ``_fwd_kernel`` (head-major
+  ``[B, H, S, D]``, static ``kv_len``, causal; AttentionPool's
+  cross-attention);
 - the backward (``csrc/flash_bwd.cu``: a dq kernel and a dk/dv kernel)
   replaces ``_bwd_dq_kernel[_packed]`` and ``_bwd_dkv_kernel[_packed]``,
   the FlashAttention-2 recipe with p rebuilt from (q, k, lse).
+
+Each kernel is built for head dim 64 and 128, with and without ALiBi.
+ALiBi (``alibi_slopes``: any fp32 per-head values, as the JAX flash takes
+them) adds ``slope_h * key_index`` in fp32 to the scaled score before the
+mask, in the forward and when the backward rebuilds p; it requires
+``causal``.
 
 Both wrappers go through a ``torch.autograd.Function`` that saves
 (q, k, v, o, lse) where a gradient is wanted.  Each runs its
 plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_plain``) for CPU
 tensors and launches the kernels for CUDA tensors, or raises; it never
-falls back.  ``<wrapper>.launches`` counts
-kernel launches: ``flash_attention_packed`` and ``flash_attention`` the
-forward's, ``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda`` the
-backward's.  ALiBi is not ported yet.
+falls back.  ``<wrapper>.launches`` counts kernel launches without ALiBi
+and ``<wrapper>.alibi_launches`` those with it: ``flash_attention_packed``
+and ``flash_attention`` the forward's, ``flash_bwd_dq_cuda`` and
+``flash_bwd_dkv_cuda`` the backward's.
 """
 
 from __future__ import annotations
@@ -31,7 +38,7 @@ import torch
 
 from youku_mplug_tpu_torch.ops import _native
 
-HEAD_DIM = 64  # the one head width the kernels are built for
+HEAD_DIMS = (64, 128)  # the head widths the kernels are built for
 
 
 def _allowed(sq: int, sk: int, *, causal: bool, period: int,
@@ -49,14 +56,26 @@ def _allowed(sq: int, sk: int, *, causal: bool, period: int,
     return allowed
 
 
+def _scores(q, k, scale: float, alibi_slopes) -> torch.Tensor:
+    """fp32 [B, H, Sq, Sk] scaled scores, plus slope_h * key_index."""
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if alibi_slopes is not None:
+        slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                                 device=q.device)
+        ki = torch.arange(k.shape[2], device=q.device, dtype=torch.float32)
+        s = s + slopes[:, None, None] * ki
+    return s
+
+
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = False, period: int = 0,
-                    kv_len: Optional[int] = None):
+                    kv_len: Optional[int] = None, alibi_slopes=None):
     """Plain version of the forward kernel. q [B,H,Sq,D], k/v [B,H,Sk,D]
     -> (o [B,H,Sq,D] in q.dtype, lse [B,H,Sq] fp32).  Keys at or past
     ``kv_len`` are masked; ``period > 0`` keeps only keys with
-    ``qi // period == ki // period``; ``causal`` keeps ``ki <= qi``."""
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    ``qi // period == ki // period``; ``causal`` keeps ``ki <= qi``;
+    ``alibi_slopes`` [H] adds ``slope_h * ki`` before the mask."""
+    s = _scores(q, k, scale, alibi_slopes)
     allowed = _allowed(q.shape[2], k.shape[2], causal=causal, period=period,
                        kv_len=kv_len, device=q.device)
     s = s.masked_fill(~allowed, float("-inf"))
@@ -68,17 +87,18 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float,
                     causal: bool = False, period: int = 0,
-                    kv_len: Optional[int] = None):
+                    kv_len: Optional[int] = None, alibi_slopes=None):
     """Plain version of the backward kernels (the FlashAttention-2 recipe,
-    ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``): p = exp(s - lse),
-    dp = dO V^T, dS = p * (dp - delta) * scale with delta = rowsum(dO * O)
-    in fp32; p and dS are cast to the input dtype before their products,
-    which accumulate in fp32.  Same layouts and masks as
-    ``flash_fwd_plain``; returns (dq, dk, dv) in the input dtypes."""
+    ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``): p = exp(s - lse) with the
+    forward's bias in s, dp = dO V^T, dS = p * (dp - delta) * scale with
+    delta = rowsum(dO * O) in fp32; p and dS are cast to the input dtype
+    before their products, which accumulate in fp32.  Same layouts, masks
+    and ALiBi as ``flash_fwd_plain``; returns (dq, dk, dv) in the input
+    dtypes."""
     dt = q.dtype
     allowed = _allowed(q.shape[2], k.shape[2], causal=causal, period=period,
                        kv_len=kv_len, device=q.device)
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    s = _scores(q, k, scale, alibi_slopes)
     p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
     delta = (do.float() * o.float()).sum(-1)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
@@ -94,9 +114,9 @@ def _check_operand(name: str, t: torch.Tensor, device) -> None:
     if t.device != device or t.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel: {name} must be bf16 on {device}; got "
                         f"{t.dtype} on {t.device}")
-    if t.shape[-1] != HEAD_DIM:
-        raise ValueError(f"flash kernel: head dim must be {HEAD_DIM}; got "
-                         f"{t.shape[-1]}")
+    if t.shape[-1] not in HEAD_DIMS:
+        raise ValueError(f"flash kernel: head dim must be one of "
+                         f"{HEAD_DIMS}; got {t.shape[-1]}")
     if not _strides_ok(t):
         raise ValueError(f"flash kernel: {name} needs a contiguous head dim, "
                          f"16-byte aligned rows; got strides {t.stride()}")
@@ -108,9 +128,9 @@ def _strides_ok(t: torch.Tensor) -> bool:
 
 
 def _check_shapes(q, k, v, *outs, causal: bool) -> None:
-    b, h, sq, _ = q.shape
+    b, h, sq, d = q.shape
     sk = k.shape[2]
-    if k.shape != (b, h, sk, HEAD_DIM) or v.shape != k.shape:
+    if k.shape != (b, h, sk, d) or v.shape != k.shape:
         raise ValueError(f"flash kernel: shapes q {tuple(q.shape)} k "
                          f"{tuple(k.shape)} v {tuple(v.shape)}")
     if causal and sq != sk:
@@ -121,6 +141,23 @@ def _check_shapes(q, k, v, *outs, causal: bool) -> None:
                              f"{tuple(like.shape)}")
 
 
+def _slopes_ptr(alibi_slopes, q: torch.Tensor, causal: bool):
+    """The kernels' slopes argument: None, or the address of an fp32
+    contiguous [H] tensor on q's device."""
+    if alibi_slopes is None:
+        return None
+    if not causal:
+        raise ValueError("ALiBi flash attention requires causal")
+    h = q.shape[1]
+    if not (isinstance(alibi_slopes, torch.Tensor)
+            and alibi_slopes.dtype == torch.float32
+            and alibi_slopes.device == q.device
+            and alibi_slopes.shape == (h,) and alibi_slopes.is_contiguous()):
+        raise ValueError(f"flash kernel: alibi_slopes must be a contiguous "
+                         f"fp32 [{h}] tensor on {q.device}")
+    return alibi_slopes.data_ptr()
+
+
 def _strides(*ts) -> list:
     return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
 
@@ -129,24 +166,34 @@ def _kv(kv_len: Optional[int], sk: int) -> int:
     return sk if kv_len is None else min(int(kv_len), sk)
 
 
+def _count(fn, alibi_slopes) -> None:
+    if alibi_slopes is None:
+        fn.launches += 1
+    else:
+        fn.alibi_launches += 1
+
+
 def flash_fwd_cuda(q, k, v, o, *, scale: float, causal: bool = False,
-                   period: int = 0, kv_len: Optional[int] = None
+                   period: int = 0, kv_len: Optional[int] = None,
+                   alibi_slopes: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """Launch the forward kernel on [B,H,S,64] views (any batch/head/
-    sequence strides), writing ``o`` in place.  Returns the fp32 lse
-    [B,H,Sq]."""
-    b, h, sq, _ = q.shape
+    """Launch the forward kernel on [B,H,S,D] views, D 64 or 128 (any
+    batch/head/sequence strides), writing ``o`` in place.  Returns the
+    fp32 lse [B,H,Sq]."""
+    b, h, sq, d = q.shape
     sk = k.shape[2]
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
         _check_operand(name, t, q.device)
     _check_shapes(q, k, v, (o, q), causal=causal)
+    slopes = _slopes_ptr(alibi_slopes, q, causal)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return lse
     err = _native.library().ymt_flash_fwd_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, h, sq, sk, _kv(kv_len, sk), *_strides(q, k, v, o),
-        float(scale), int(period), int(causal), _native.stream_handle(q))
+        float(scale), int(period), int(causal), d, slopes,
+        _native.stream_handle(q))
     _native.check_launch(err, "ymt_flash_fwd_bf16")
     return lse
 
@@ -169,42 +216,49 @@ def _check_bwd(q, k, v, do, lse, delta, grads, causal):
 
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, *, scale: float,
                       causal: bool = False, period: int = 0,
-                      kv_len: Optional[int] = None) -> None:
+                      kv_len: Optional[int] = None,
+                      alibi_slopes: Optional[torch.Tensor] = None) -> None:
     """Launch the dq kernel (one block per 64-query tile, looping over key
-    tiles), writing ``dq`` [B,H,Sq,64] in place."""
+    tiles), writing ``dq`` [B,H,Sq,D] in place."""
     _check_bwd(q, k, v, do, lse, delta, ((dq, q),), causal)
-    b, h, sq, _ = q.shape
+    slopes = _slopes_ptr(alibi_slopes, q, causal)
+    b, h, sq, d = q.shape
     sk = k.shape[2]
     err = _native.library().ymt_flash_bwd_dq_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk,
         _kv(kv_len, sk), *_strides(q, k, v, do, dq), float(scale),
-        int(period), int(causal), _native.stream_handle(q))
+        int(period), int(causal), d, slopes, _native.stream_handle(q))
     _native.check_launch(err, "ymt_flash_bwd_dq_bf16")
-    flash_bwd_dq_cuda.launches += 1
+    _count(flash_bwd_dq_cuda, alibi_slopes)
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.alibi_launches = 0
 
 
 def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, *, scale: float,
                        causal: bool = False, period: int = 0,
-                       kv_len: Optional[int] = None) -> None:
+                       kv_len: Optional[int] = None,
+                       alibi_slopes: Optional[torch.Tensor] = None) -> None:
     """Launch the dk/dv kernel (one block per 64-key tile, looping over
-    query tiles), writing ``dk`` and ``dv`` [B,H,Sk,64] in place."""
+    query tiles), writing ``dk`` and ``dv`` [B,H,Sk,D] in place."""
     _check_bwd(q, k, v, do, lse, delta, ((dk, k), (dv, v)), causal)
-    b, h, sq, _ = q.shape
+    slopes = _slopes_ptr(alibi_slopes, q, causal)
+    b, h, sq, d = q.shape
     sk = k.shape[2]
     err = _native.library().ymt_flash_bwd_dkv_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
         sq, sk, _kv(kv_len, sk), *_strides(q, k, v, do, dk, dv),
-        float(scale), int(period), int(causal), _native.stream_handle(q))
+        float(scale), int(period), int(causal), d, slopes,
+        _native.stream_handle(q))
     _native.check_launch(err, "ymt_flash_bwd_dkv_bf16")
-    flash_bwd_dkv_cuda.launches += 1
+    _count(flash_bwd_dkv_cuda, alibi_slopes)
 
 
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.alibi_launches = 0
 
 
 def _head_major_empty(like: torch.Tensor) -> torch.Tensor:
@@ -217,7 +271,8 @@ def _head_major_empty(like: torch.Tensor) -> torch.Tensor:
 
 def flash_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
                    causal: bool = False, period: int = 0,
-                   kv_len: Optional[int] = None):
+                   kv_len: Optional[int] = None,
+                   alibi_slopes: Optional[torch.Tensor] = None):
     """The backward on the card: delta = rowsum(dO * O) in fp32 (a torch
     op, as the JAX package leaves it to XLA), then the dq kernel and the
     dk/dv kernel.  Returns (dq, dk, dv) in [B, S, H, D] storage."""
@@ -225,7 +280,8 @@ def flash_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
         do = do.contiguous()
     delta = (do.float() * o.float()).sum(-1).contiguous()
     dq, dk, dv = (_head_major_empty(t) for t in (q, k, v))
-    kw = dict(scale=scale, causal=causal, period=period, kv_len=kv_len)
+    kw = dict(scale=scale, causal=causal, period=period, kv_len=kv_len,
+              alibi_slopes=alibi_slopes)
     flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, **kw)
     flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, **kw)
     return dq, dk, dv
@@ -242,8 +298,8 @@ def _on_cpu(t: torch.Tensor) -> bool:
 class _Flash(torch.autograd.Function):
     """Attention over [B, H, S, D] views with the flash backward.  Saves
     (q, k, v, o, lse); the plain versions run for CPU tensors, the kernels
-    for CUDA tensors (each forward launch adds one to
-    ``counter.launches``)."""
+    for CUDA tensors (each forward launch adds one to ``counter.launches``,
+    or to ``counter.alibi_launches`` with ALiBi)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw, counter):
@@ -252,7 +308,7 @@ class _Flash(torch.autograd.Function):
         else:
             o = _head_major_empty(q)
             lse = flash_fwd_cuda(q, k, v, o, **kw)
-            counter.launches += 1
+            _count(counter, kw["alibi_slopes"])
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = kw
         return o
@@ -267,41 +323,69 @@ class _Flash(torch.autograd.Function):
 
 
 def _heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """[B, S, n*d] -> a [B, n, S, d] view."""
-    return t.unflatten(-1, (n_heads, t.shape[-1] // n_heads)).transpose(1, 2)
+    """[B, S, n*d] (or [B, S, n, d] head views) -> a [B, n, S, d] view."""
+    if t.dim() == 3:
+        t = t.unflatten(-1, (n_heads, t.shape[-1] // n_heads))
+    return t.transpose(1, 2)
+
+
+def _head_dim(q: torch.Tensor, n_heads: int) -> int:
+    return q.shape[-1] if q.dim() == 4 else q.shape[-1] // n_heads
+
+
+def _alibi(alibi_slopes, n_heads: int, causal: bool, device):
+    """The slopes as an fp32 [n] tensor on ``device`` (no copy when they
+    are one already), or None."""
+    if alibi_slopes is None:
+        return None
+    if not causal:
+        raise ValueError("ALiBi flash attention requires causal")
+    slopes = torch.as_tensor(alibi_slopes, dtype=torch.float32,
+                             device=device)
+    if slopes.shape != (n_heads,):
+        raise ValueError(f"alibi_slopes must have {n_heads} values; got "
+                         f"{tuple(slopes.shape)}")
+    return slopes.contiguous()
 
 
 def flash_attention_packed_plain(q, k, v, n_heads: int, *,
                                  causal: bool = False, period: int = 0,
-                                 scale: Optional[float] = None):
+                                 scale: Optional[float] = None,
+                                 alibi_slopes=None):
     """Plain version of ``flash_attention_packed`` (same arguments; plain
     torch ops, so autograd differentiates it directly)."""
-    b, sq, nd = q.shape
-    d = nd // n_heads
-    o4, _ = flash_fwd_plain(*(_heads(t, n_heads) for t in (q, k, v)),
-                            scale=scale or d ** -0.5, causal=causal,
-                            period=period)
-    return o4.transpose(1, 2).reshape(b, sq, nd)
+    b, sq = q.shape[:2]
+    d = _head_dim(q, n_heads)
+    o4, _ = flash_fwd_plain(
+        *(_heads(t, n_heads) for t in (q, k, v)), scale=scale or d ** -0.5,
+        causal=causal, period=period,
+        alibi_slopes=_alibi(alibi_slopes, n_heads, causal, q.device))
+    return o4.transpose(1, 2).reshape(b, sq, n_heads * d)
 
 
 def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            n_heads: int, *, causal: bool = False,
-                           period: int = 0,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           period: int = 0, scale: Optional[float] = None,
+                           alibi_slopes=None) -> torch.Tensor:
     """Attention over packed [B, S, n_heads*d] q/k/v (views of a wider
-    projection are fine); ``period > 0`` is the block-diagonal mask of the
-    grouped temporal attention, ``causal`` the decoder's mask (Sq == Sk).
-    Returns [B, Sq, n_heads*d]."""
-    b, sq, nd = q.shape
-    d = nd // n_heads
+    projection are fine), or [B, S, n_heads, d] head views (Bloom's
+    head-major fused projection, taken without a copy); ``period > 0`` is
+    the block-diagonal mask of the grouped temporal attention, ``causal``
+    the decoder's mask (Sq == Sk), ``alibi_slopes`` [n_heads] Bloom's bias
+    (requires causal).  Returns [B, Sq, n_heads*d]."""
+    b, sq = q.shape[:2]
+    d = _head_dim(q, n_heads)
     o4 = _Flash.apply(*(_heads(t, n_heads) for t in (q, k, v)),
                       dict(scale=scale or d ** -0.5, causal=bool(causal),
-                           period=int(period), kv_len=None),
+                           period=int(period), kv_len=None,
+                           alibi_slopes=_alibi(alibi_slopes, n_heads, causal,
+                                               q.device)),
                       flash_attention_packed)
-    return o4.transpose(1, 2).reshape(b, sq, nd)
+    return o4.transpose(1, 2).reshape(b, sq, n_heads * d)
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.alibi_launches = 0
 
 
 def flash_attention_plain(q, k, v, *, causal: bool = False,
@@ -324,7 +408,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("causal flash attention requires Sq == Sk")
     return _Flash.apply(q, k, v, dict(scale=scale or q.shape[-1] ** -0.5,
                                       causal=bool(causal), period=0,
-                                      kv_len=kv_len), flash_attention)
+                                      kv_len=kv_len, alibi_slopes=None),
+                        flash_attention)
 
 
 flash_attention.launches = 0
+flash_attention.alibi_launches = 0

@@ -9,7 +9,8 @@ freeze:
   ``pos_embed``, ``cls_token``, ``temporal_embed`` or ``bias`` (which
   takes AttentionPool's rank-3 ``bias_k`` / ``bias_v`` too);
 - the text decoder is frozen (and the non-temporal vision tower under
-  ``freeze_vit``); frozen leaves get no optimizer state;
+  ``freeze_vit``), except its LoRA adapters (``lora_`` in the path),
+  which train; frozen leaves get no optimizer state;
 - a per-update cosine or linear schedule with linear warmup from 0.
 
 The JAX package's per-leaf lr scales (0.1 on a CLIP vision tower, regex
@@ -67,8 +68,10 @@ def decay_mask(params: Dict[str, torch.Tensor]) -> Dict[str, bool]:
 def freeze_mask(params: Dict[str, torch.Tensor], freeze_text_decoder=True,
                 freeze_vit=False) -> Dict[str, bool]:
     """JAX path -> True where the leaf is frozen (``freeze_vit`` spares
-    temporal/time leaves)."""
+    temporal/time leaves; LoRA adapters always train)."""
     def rule(path):
+        if "lora_" in path:
+            return False
         if freeze_text_decoder and "text_decoder" in path:
             return True
         return (freeze_vit and "visual_encoder" in path
