@@ -20,7 +20,13 @@ the last line is printed):
    40 heads, d 64, d 128 without ALiBi) the forward's o and lse and the
    backward's dq and dk/dv kernels on that forward's output, and decode
    (K5: head dim 64; head dim 128 with the ALiBi ladder at BloomZ-7B1's
-   cache, at a head count past a power of two, and without ALiBi);
+   cache, at a head count past a power of two, and without ALiBi), the
+   int8-cache decode (K5 int8 at the caption cache [24,8,256,2x32x64],
+   BloomZ-7B1's [30,8,256,2x32x128] with ALiBi, 40 heads; beside each the
+   bf16 kernel's time at the same shape) and the fused quantize-and-
+   scatter cache write (K6 at 2nd 4096 and 8192, strided and contiguous
+   rows, rows 0 and M-1, the other rows preset: bitwise equal on both
+   leaves, the other rows untouched);
 3. the serve slice: the serve CLI's path at the flagship model's full
    width (configs/caption/serve_gpt3_1.3B_flagship.yaml, seeded weights),
    16 requests over synthetic clips, 8 slots, 32 new tokens, greedy;
@@ -30,6 +36,10 @@ the last line is printed):
    again with the plain versions in place of the kernels, fed the same
    inputs and tokens; query features and logits within a stated
    tolerance, greedy agreement printed;
+4b. the caption int8-KV slice: phases 3 and 4 again on
+   configs/caption/serve_gpt3_1.3B_int8kv.yaml (bf16 weights, int8
+   cache): per decode step 24 launches each of K5 int8 and K6 and none of
+   the bf16 K5; the replay with the plain int8 decode and plain write;
 5. the train slice: the pretrain CLI's path (run_pretrain.setup and
    train_one_epoch) on configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml
    at full width, synthetic clips, seeded weights: 2 warm-up and 5 timed
@@ -50,6 +60,14 @@ the last line is printed):
 8. instruct teacher-forced check: the clips' media features and the
    first decode steps again with the plain versions of K1 and K5 fed the
    same inputs and tokens, within the stated tolerances;
+8b. the instruct int8 slice: run_instruct.build with --int8 on
+   configs/instruct/serve_bloomz_7b_int8.yaml (seeded as phase 7, then
+   the decoder's kernels and tied embedding quantized in place), 16
+   requests, 8 slots, 64 tokens: per decode step 30 launches each of K5
+   int8 with ALiBi and K6, no bf16 K5; tokens/s, p50/p95, decode step,
+   peak memory, weight and cache bytes; its teacher-forced plain replay
+   within OWL_REL_TOL; and, as a readout only, its teacher-forced logits
+   and greedy agreement against phase 8's bf16 model on the same seed;
 9. the instruct-train slice: the run_instruct CLI's --train path
    (train_setup and run_pretrain.train_one_epoch) at the full width and
    depth of configs/instruct/train_bloomz_7b_flagship.yaml (frozen bf16
@@ -123,6 +141,10 @@ OWL_REQUESTS, OWL_SLOTS = 16, 8
 OWL_TRAIN_YAML = os.path.join(REPO, "configs", "instruct",
                               "train_bloomz_7b_flagship.yaml")
 OWL_TRAIN_STEPS = 8
+INT8KV_YAML = os.path.join(REPO, "configs", "caption",
+                           "serve_gpt3_1.3B_int8kv.yaml")
+OWL_INT8_YAML = os.path.join(REPO, "configs", "instruct",
+                             "serve_bloomz_7b_int8.yaml")
 # instruct teacher-forced check, max |kernels - plain| over max |plain|,
 # for the media features (24 ViT-L blocks, 6 abstractor layers and
 # visual_fc) and the fp32 logits (30 Bloom layers), all in bf16: each
@@ -132,9 +154,12 @@ OWL_TRAIN_STEPS = 8
 # ~ 2% of the largest value, and the bound leaves three times that
 OWL_REL_TOL = 2.0 ** -4
 SPIN_CYCLES = 200_000_000  # >= 0.1 s at the H100's 1.98 GHz boost clock
-# the H100 SXM's published dense bf16 tensor-core rate and HBM3 bandwidth
-# (the bounds in the kernel report)
+# the H100 SXM's published dense bf16 and int8 tensor-core rates, fp32
+# rate outside the tensor cores and HBM3 bandwidth (the bounds in the
+# kernel report)
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
+PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -197,9 +222,12 @@ def phase_device_and_build():
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
-                          r"decode_attn)_kernelILi(\d+)ELb([01])E", line)
-            entry = (f"{m[1]}<{m[2]},{'alibi' if m[3] == '1' else 'plain'}>"
-                     if m else "?")
+                          r"decode_attn)_kernelILi(\d+)ELb([01])E"
+                          r"(?:Lb([01])E)?", line)
+            entry = (f"{m[1]}<{m[2]},{'alibi' if m[3] == '1' else 'plain'}"
+                     f"{',int8' if m[4] == '1' else ''}>" if m
+                     else "quantize_scatter" if "quantize_scatter" in line
+                     else "?")
         elif "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -212,10 +240,12 @@ def phase_device_and_build():
     return card
 
 
-def _bound(flops: float, nbytes: float) -> dict:
+def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS
+           ) -> dict:
     """The least time the card could take for the work: the larger of the
-    products at the bf16 dense peak and the bytes at the HBM rate."""
-    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    operations at ``peak`` (the bf16 dense rate unless said) and the bytes
+    at the HBM rate."""
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -391,27 +421,47 @@ ALIBI_SHAPES = [
      "d 128 without ALiBi", False)]
 
 
-def _decode_case(dec, q, ckv, n, clen, vfrom, slopes, shape, on_path):
+def _decode_case(dec, q, ckv, n, clen, vfrom, slopes, shape, on_path,
+                 kv_scales=None, ckv_bf16=None):
     """One K5 check on the last layer of ``ckv``: the kernel against
     decode_attention_plain on the same inputs, slot 3 (no live key)
     reading zeros; the kernel's and plain times over 200 calls, SDPA over
     the live cache view with the same mask and bias, and the bound (the
-    live K and V rows read once, q read and o written once)."""
+    live K and V rows read once, q read and o written once).  With
+    ``kv_scales`` (an int8 cache) no library call computes the function
+    (``library_ms`` null); ``bf16_ms`` times the bf16 kernel on
+    ``ckv_bf16``, the same cache dequantized, and each live row's bytes
+    are its int8 lanes and 8 bytes of scales per head."""
     import torch.nn.functional as F
 
     lidx = ckv.shape[0] - 1
-    kw = dict(alibi_slopes=slopes)
+    int8 = kv_scales is not None
+    kw = dict(alibi_slopes=slopes, kv_scales=kv_scales)
+    tag = "K5 int8" if int8 else "K5"
     got = dec.decode_attention(q, ckv, n, lidx, clen, vfrom, **kw)
     want = dec.decode_attention_plain(q, ckv, n, lidx, clen, vfrom, **kw)
     e, empty = err(got, want), got[3].abs().max().item()
     if not within(got, want) or empty != 0:
-        fail(f"K5 {shape}: max err {e} (tol {KERNEL_TOL}); empty slot max "
-             f"{empty}")
+        fail(f"{tag} {shape}: max err {e} (tol {KERNEL_TOL}); empty slot "
+             f"max {empty}")
     b, m = ckv.shape[1], ckv.shape[2]
     nd = ckv.shape[3] // 2
     d = nd // n
     live = int((torch.minimum(clen, torch.tensor(m - 1, device=clen.device))
                 - vfrom + 1).clamp_min(0).sum())
+    row_bytes = 2 * nd * ckv.element_size() + (8 * n if int8 else 0)
+    case = {"shape": shape, "on_path": on_path, "max_abs_err": e,
+            "ms": time_ms(lambda: dec.decode_attention(
+                q, ckv, n, lidx, clen, vfrom, **kw), 200),
+            "plain_ms": time_ms(lambda: dec.decode_attention_plain(
+                q, ckv, n, lidx, clen, vfrom, **kw), 200),
+            **_bound(4 * live * n * d, live * row_bytes + 2 * 2 * b * nd,
+                     PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)}
+    if int8:
+        case["library_ms"] = None
+        case["bf16_ms"] = time_ms(lambda: dec.decode_attention(
+            q, ckv_bf16, n, lidx, clen, vfrom, alibi_slopes=slopes), 200)
+        return case
     layer = ckv[lidx]
     qh = q.reshape(b, n, 1, d)
     kh = layer[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
@@ -424,14 +474,59 @@ def _decode_case(dec, q, ckv, n, clen, vfrom, slopes, shape, on_path):
             None, :, None, None] * j.float()
     bias = bias.masked_fill(~allowed[:, None, None], float("-inf")).to(
         q.dtype)
-    return {"shape": shape, "on_path": on_path, "max_abs_err": e,
-            "ms": time_ms(lambda: dec.decode_attention(
-                q, ckv, n, lidx, clen, vfrom, **kw), 200),
-            "plain_ms": time_ms(lambda: dec.decode_attention_plain(
-                q, ckv, n, lidx, clen, vfrom, **kw), 200),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                qh, kh, vh, attn_mask=bias), 200),
-            **_bound(4 * live * n * d, 2 * 2 * live * nd + 2 * 2 * b * nd)}
+    case["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=bias), 200)
+    return case
+
+
+def _write_case(kvc, rand, n_layers, m, n, d, strided, shape, on_path):
+    """One K6 check: quantize_scatter_write against its plain version on
+    the same rows ([8, 2nd] bf16, a strided view of a qkv row as GPT-3
+    passes it or contiguous as Bloom's) into copies of one int8 cache whose
+    rows are preset non-zero, at rows including 0 and M-1 of the last
+    layer: both leaves bitwise equal, no other row touched.  Times over
+    200 calls of the kernel, the plain version and the bf16 cache's
+    indexed assignment at the same shape; the bound reads the bf16 rows
+    and writes the int8 rows and their 2n scales once."""
+    b, w = 8, 2 * n * d
+    g = torch.Generator(device="cuda").manual_seed(w + strided)
+    src = rand(b, 3 * n * d if strided else w)
+    rows = src[:, n * d:] if strided else src
+    idx = torch.tensor([0, m - 1, 17, 100, 3, m - 2, 128, 0],
+                       dtype=torch.int32, device="cuda")
+    lidx = n_layers - 1
+    base = {"kv": torch.randint(-127, 128, (n_layers, b, m, w),
+                                generator=g, device="cuda",
+                                dtype=torch.int8),
+            "scale": torch.rand(n_layers, b, m, 2 * n, generator=g,
+                                device="cuda") + 0.5}
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    kvc.quantize_scatter_write(got, rows, idx, lidx)
+    kvc.quantize_scatter_write_plain(want, rows, idx, lidx)
+    torch.cuda.synchronize()
+    same = all(torch.equal(got[k], want[k]) for k in got)
+    touched = {tuple(t) for t in (got["kv"] != base["kv"]).any(-1)
+               .nonzero().tolist()}
+    if not same or not touched <= {(lidx, i, int(idx[i])) for i in range(b)}:
+        diff = {k: int((got[k] != want[k]).sum()) for k in got}
+        fail(f"K6 {shape}: elements differing from plain {diff}; rows "
+             f"touched {sorted(touched)[:10]}")
+    del base, want
+    flat = torch.zeros(n_layers, b, m, w, dtype=torch.bfloat16,
+                       device="cuda")
+    case = {"shape": shape, "on_path": on_path, "max_abs_err": 0.0,
+            "bitwise_equal": True, "library_ms": None,
+            "ms": time_ms(lambda: kvc.quantize_scatter_write(
+                got, rows, idx, lidx), 200),
+            "plain_ms": time_ms(lambda: kvc.quantize_scatter_write_plain(
+                got, rows, idx, lidx), 200),
+            "bf16_ms": time_ms(lambda: kvc.cache_write(
+                flat, rows[:, None], idx, lidx), 200),
+            **_bound(4 * b * w, b * (2 * w + w + 8 * n) + 4 * b,
+                     PEAK_FP32_FLOPS)}
+    del got, flat
+    return case
 
 
 def _entry(name, source, replaces, wrapper, paths, key, per_shape,
@@ -440,6 +535,7 @@ def _entry(name, source, replaces, wrapper, paths, key, per_shape,
     the times and bounds are sums over the shapes its paths run."""
     on = [p for p in per_shape if p["on_path"]]
     ops, nbytes = sum(p["ops_ms"] for p in on), sum(p["bytes_ms"] for p in on)
+    library = [p["library_ms"] for p in on]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "wrapper": wrapper, "counter": counter,
             "paths": paths, "key": key,
@@ -448,19 +544,22 @@ def _entry(name, source, replaces, wrapper, paths, key, per_shape,
             "plain_ms": sum(p["plain_ms"] for p in on),
             "bound_ms": sum(p["bound_ms"] for p in on),
             "bound_by": "operations" if ops >= nbytes else "bytes",
-            "library_ms": sum(p["library_ms"] for p in on),
+            "library_ms": None if None in library else sum(library),
             "per_shape": per_shape}
 
 
 FWD_SRC = "youku_mplug_tpu_torch/csrc/flash_fwd.cu"
 BWD_SRC = "youku_mplug_tpu_torch/csrc/flash_bwd.cu"
 DEC_SRC = "youku_mplug_tpu_torch/csrc/decode_attention.cu"
+KV_SRC = "youku_mplug_tpu_torch/csrc/kv_cache.cu"
 TPU_FLASH = "youku_mplug_tpu/ops/flash_attention.py"
+TPU_DEC = "youku_mplug_tpu/ops/decode_attention.py"
 
 
 def phase_kernels(dev):
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
+    from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -536,10 +635,11 @@ def phase_kernels(dev):
         _entry("K1 flash_attention_packed (vision spatial + temporal, "
                "decoder causal, CLIP ViT-L frames)", FWD_SRC,
                f"{TPU_FLASH}:426", fa.flash_attention_packed,
-               ("serve", "train", "instruct", "instruct_train"), "K1", k1),
+               ("serve", "train", "instruct", "instruct_train",
+                "serve_int8kv", "instruct_int8"), "K1", k1),
         _entry("K4 flash_attention (AttentionPool)", FWD_SRC,
-               f"{TPU_FLASH}:59", fa.flash_attention, ("serve", "train"),
-               "K4", k4)]
+               f"{TPU_FLASH}:59", fa.flash_attention,
+               ("serve", "train", "serve_int8kv"), "K4", k4)]
     for kind, wrapper, line, line_hm in (
             ("dq", fa.flash_bwd_dq_cuda, 723, 148),
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
@@ -599,22 +699,76 @@ def phase_kernels(dev):
         "step)", DEC_SRC, "youku_mplug_tpu/ops/decode_attention.py:56",
         dec.decode_attention, ("instruct",), "K5-ALiBi", alibi,
         counter="alibi_launches"))
+
+    # K5 int8: the caption int8-KV cache [24, 8, 256, 2x32x64] (q a view
+    # of a qkv row), BloomZ-7B1's [30, 8, 256, 2x32x128] with ALiBi (q a
+    # head-strided view of the head-major row) and 40 heads with ALiBi;
+    # the cache is random bf16 rows quantized, the same lengths as K5
+    int8 = {False: [], True: []}
+    for n, d, layers, alibi_on, path in ((32, 64, 24, False, "serve_int8kv"),
+                                          (32, 128, 30, True,
+                                           "instruct_int8"),
+                                          (40, 128, 2, True, None)):
+        rows = rand(layers, 8, 256, 2 * n * d)
+        ckv, scales = kvc.quantize_rows(rows, n)
+        del rows
+        ckv_bf16 = kvc.dequantize_rows(ckv, scales, n, torch.bfloat16)
+        q = (rand(8, 3 * n * d)[:, :n * d] if d == 64
+             else rand(8, n, 3, d)[:, :, 0, :])
+        int8[alibi_on].append(_decode_case(
+            dec, q, ckv, n, clen, vfrom,
+            dec.alibi_slopes(n) if alibi_on else None,
+            f"[{layers},8,256,2x{n}x{d}] int8 d {d}"
+            + (" ALiBi" if alibi_on else "") + (f" ({path})" if path
+                                                 else ""),
+            path is not None, kv_scales=scales, ckv_bf16=ckv_bf16))
+        del ckv, scales, ckv_bf16
+    dec_int8 = f"{TPU_DEC}:56 (quantized=True, :58-68, :126-127, :142)"
+    report.append(_entry("K5 decode_attention, int8 cache (caption int8-KV "
+                         "decode step, head dim 64)", DEC_SRC, dec_int8,
+                         dec.decode_attention, ("serve_int8kv",), "K5-int8",
+                         int8[False], counter="int8_launches"))
+    report.append(_entry(
+        "K5 decode_attention, int8 cache, ALiBi ladder, head dim 128 (Bloom "
+        "int8 decode step)", DEC_SRC, dec_int8, dec.decode_attention,
+        ("instruct_int8",), "K5-int8-ALiBi", int8[True],
+        counter="int8_alibi_launches"))
+    # K6: one decode step's rows into the caption cache [24, 8, 256, 4096]
+    # (GPT-3's strided K|V view of the qkv row) and BloomZ-7B1's
+    # [30, 8, 256, 8192] (Bloom's contiguous repacked rows), and each in
+    # the other layout
+    k6 = [_write_case(kvc, rand, *c) for c in (
+        (24, 256, 32, 64, True, "[24,8,256,2x32x64] strided (serve_int8kv)",
+         True),
+        (30, 256, 32, 128, False,
+         "[30,8,256,2x32x128] contiguous (instruct_int8)", True),
+        (24, 256, 32, 64, False, "[24,8,256,2x32x64] contiguous", False),
+        (30, 256, 32, 128, True, "[30,8,256,2x32x128] strided", False))]
+    report.append(_entry(
+        "K6 quantize_scatter_write (int8 cache write of a decode step, "
+        "fused with quantize_rows)", KV_SRC,
+        "youku_mplug_tpu/ops/kv_cache.py:93 (cache_scatter_write :110, "
+        "pallas_call :171)", kvc.quantize_scatter_write,
+        ("serve_int8kv", "instruct_int8"), "K6", k6))
     for r in report:
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.3g} | "
               f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
-              f"library {r['library_ms']:.4f} ms | bound {r['bound_ms']:.4f} "
+              f"library {lib} | bound {r['bound_ms']:.4f} "
               f"ms ({r['bound_by']})", flush=True)
         for p in r["per_shape"]:
             print(f"[kernel]   {p['shape']}: "
                   + json.dumps({k: v for k, v in p.items() if k != "shape"}),
                   flush=True)
     print(f"[kernel] tolerances: forward elementwise {KERNEL_TOL:.3g} x "
-          f"(1 + |plain|), lse {LSE_TOL}, backward relative L2 "
-          f"{BWD_TOL:.3g} per gradient; library = "
+          f"(1 + |plain|) (K5 int8 too), lse {LSE_TOL}, backward relative "
+          f"L2 {BWD_TOL:.3g} per gradient, K6 bitwise; library = "
           "F.scaled_dot_product_attention with the same mask (and ALiBi "
           "as a float bias), the backward's as forward + backward less "
-          "the forward; bound = max(products / 989 TFLOP/s, bytes / 3.35 "
-          "TB/s)", flush=True)
+          "the forward, none for K5 int8 and K6; bound = max(operations / "
+          "989 TFLOP/s bf16, 1979 TOP/s int8 (K5 int8) or 67 TFLOP/s fp32 "
+          "(K6), bytes / 3.35 TB/s)", flush=True)
     return report
 
 
@@ -633,12 +787,83 @@ def _read_counts(report, path):
         fail(f"the {path} path never launched: {missing}")
 
 
-def phase_slice(report, out_dir):
+class _DecodeSteps:
+    """Counts the serving engine's decode steps while it is entered."""
+
+    def __enter__(self):
+        from youku_mplug_tpu_torch.serving.engine import ServingEngine
+
+        self.steps = 0
+        orig = ServingEngine._decode_impl
+
+        def counted(engine, *args):
+            self.steps += 1
+            return orig(engine, *args)
+
+        self._patch = mock.patch.object(ServingEngine, "_decode_impl",
+                                        counted)
+        self._patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._patch.stop()
+
+
+def _decode_step_ms(engine, iters=20, traced=3):
+    """One decode step of every slot at the run's last lengths, with the
+    host sync the engine makes per step: its ms on the host clock, and
+    from ``traced`` steps under torch.profiler (profile_train's summary)
+    the device's kernel ms, launches and idle share per step and the
+    kernel ms by category."""
+    from youku_mplug_tpu_torch.cli import profile_train
+
+    state = [engine._dev(a) for a in (engine.cache_len, engine.valid_from,
+                                      engine.pos_offset, engine.last_token)]
+    for _ in range(3):
+        engine._decode_impl(*state).cpu()
+    t1 = time.perf_counter()
+    for _ in range(iters):
+        engine._decode_impl(*state).cpu()
+    host = (time.perf_counter() - t1) / iters * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(traced):
+            with torch.profiler.record_function(profile_train.STEP_SPAN):
+                engine._decode_impl(*state).cpu()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "decode_step_trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    summary = profile_train.summarize(events, traced, top=6)
+    return host, {k: summary[k] for k in (
+        "kernel_ms_per_step", "launches_per_step", "idle_share",
+        "ms_per_step_by_category", "top_kernels_ms_per_step")}
+
+
+def _per_step(report, path, steps, want):
+    """Launches per decode step of the run on ``path``: each kernel key of
+    ``want`` exactly that many, every other decode kernel (K5, K5 int8,
+    K6 entries) none."""
+    got = {r["key"]: r["launches_by_path"][path] / max(steps, 1)
+           for r in report if r["key"].startswith(("K5", "K6"))}
+    if steps == 0 or any(got[k] != v for k, v in want.items()) or any(
+            v for k, v in got.items() if k not in want):
+        fail(f"{path}: launches per decode step {got} over {steps} steps, "
+             f"expected {want} and no other decode kernel")
+    return got
+
+
+def phase_slice(report, out_dir, yaml=FLAGSHIP_YAML, path="serve"):
+    """The serve CLI's path on ``yaml``: 16 requests; the decode kernels'
+    launches per decode step checked (24 layers: K5, or K5 int8 and K6
+    with an int8 cache)."""
     from youku_mplug_tpu_torch.cli import serve
 
     def args_for(n):
         return serve.serve_parser().parse_args([
-            "--config", FLAGSHIP_YAML, "--synthetic_data",
+            "--config", yaml, "--synthetic_data",
             "--num_requests", str(n), "--num_slots", "8", "--device", "cuda",
             "--output_dir", out_dir])
 
@@ -646,18 +871,32 @@ def phase_slice(report, out_dir):
     cfg, model, device = serve.build(args)
     serve.run(args_for(2), cfg, model, device)  # warm-up (cuBLAS, caches)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     _reset_counts(report)
-    stats, out, engine = serve.run(args, cfg, model, device)
-    torch.cuda.synchronize()
-    _read_counts(report, "serve")
+    with _DecodeSteps() as steps:
+        stats, out, engine = serve.run(args, cfg, model, device)
+        torch.cuda.synchronize()
+    _read_counts(report, path)
     if stats["requests"] != 16 or any(not o["tokens"] for o in out):
         fail(f"slice served {stats['requests']} requests: {out}")
     if engine.nonfinite_logits:
         fail(f"{engine.nonfinite_logits} logit rows were not finite")
+    layers = cfg.model.text.num_hidden_layers
+    int8 = cfg.model.text.kv_cache_dtype == "int8"
+    per_step = _per_step(report, path, steps.steps,
+                         {"K5-int8": layers, "K6": layers} if int8
+                         else {"K5": layers})
+    from youku_mplug_tpu_torch.ops import kv_cache as kvc
+
+    peak = torch.cuda.max_memory_allocated()
+    step_ms, step_trace = _decode_step_ms(engine)
     n_tok = sum(o["n_tokens"] for o in out)
-    print(f"[slice] {json.dumps(stats)} | {n_tok} tokens | launches "
-          f"{[r['launches_by_path']['serve'] for r in report]} | peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"[slice {path}] {json.dumps(stats)} | {n_tok} tokens | "
+          f"decode step {step_ms:.2f} ms, traced {json.dumps(step_trace)} | "
+          f"{steps.steps} decode steps, launches per step {per_step} | "
+          f"cache {kvc.leaves(engine.cache)[0].dtype} "
+          f"{kvc.nbytes(engine.cache) / 2**20:.1f} MiB | peak memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
     return cfg, model, stats
 
 
@@ -689,11 +928,24 @@ def _forced_decode(lm, requests, max_len, bucket, gen_cfg, tokens=None):
     return logits, fed[:FORCED_STEPS]
 
 
-def phase_teacher_forced(cfg, model):
+def _decode_kernel_counts():
+    from youku_mplug_tpu_torch.ops import decode_attention as dec
+    from youku_mplug_tpu_torch.ops import kv_cache as kvc
+
+    return [getattr(dec.decode_attention, c) for c in (
+        "launches", "alibi_launches", "int8_launches",
+        "int8_alibi_launches")] + [kvc.quantize_scatter_write.launches]
+
+
+def phase_teacher_forced(cfg, model, tag="teacher-forced"):
+    """The caption model's query features and FORCED_STEPS decode steps,
+    with the kernels and again with the plain versions of K1, K4, K5 (bf16
+    or int8) and K6 patched in, fed the same inputs and tokens."""
     from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
     from youku_mplug_tpu_torch.models import gpt3, vision
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
+    from youku_mplug_tpu_torch.ops import kv_cache as kvc
     from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
 
     from youku_mplug_tpu_torch.models.generation import GenerationConfig
@@ -709,12 +961,15 @@ def phase_teacher_forced(cfg, model):
     forced = dict(lm=model.text_decoder, requests=requests,
                   max_len=128 + 8 + 33, bucket=8, gen_cfg=gen_cfg)
     logits, tokens = _forced_decode(**forced)
+    counts = _decode_kernel_counts()
     plain = (mock.patch.object(vision, "flash_attention_packed",
                                fa.flash_attention_packed_plain),
              mock.patch.object(fa, "flash_attention",
                                fa.flash_attention_plain),
              mock.patch.object(gpt3, "decode_attention",
-                               dec.decode_attention_plain))
+                               dec.decode_attention_plain),
+             mock.patch.object(kvc, "quantize_scatter_write",
+                               kvc.quantize_scatter_write_plain))
     for p in plain:
         p.start()
     try:
@@ -724,18 +979,20 @@ def phase_teacher_forced(cfg, model):
     finally:
         for p in plain:
             p.stop()
+    if counts != _decode_kernel_counts():
+        fail(f"the {tag} plain replay launched a decode kernel")
     e_q = err(qe, qe_plain)
     e_l = max(err(a, b) for a, b in zip(logits, logits_plain))
     agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
                 for a, b in zip(logits, logits_plain))
     total = FORCED_STEPS * 8
     finite = all(torch.isfinite(x).all() for x in logits + logits_plain)
-    print(f"[teacher-forced] query features max err {e_q:.4g} (tol "
+    print(f"[{tag}] query features max err {e_q:.4g} (tol "
           f"{QUERY_TOL}) | logits over {FORCED_STEPS} steps max err "
           f"{e_l:.4g} (tol {LOGIT_TOL}) | greedy agreement {agree}/{total}",
           flush=True)
     if not finite or e_q > QUERY_TOL or e_l > LOGIT_TOL:
-        fail("teacher-forced check out of tolerance")
+        fail(f"{tag} check out of tolerance")
 
 
 def phase_train(report, out_dir):
@@ -902,10 +1159,15 @@ OWL_QUESTIONS = ("What is in the video?", "What happens next?",
                  "How many people are there?", "Where was this filmed?")
 
 
-def phase_instruct(report, out_dir):
-    """The run_instruct CLI's serving path at full width and depth;
-    returns (model, instruct batch, clips)."""
+def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
+                   int8=False):
+    """The run_instruct CLI's serving path on ``yaml`` at full width and
+    depth (``int8``: with --int8, the decoder's kernels and tied embedding
+    quantized after the seeded init); the decode kernels' launches per
+    decode step checked (30 layers: K5 ALiBi, or K5 int8 ALiBi and K6
+    with an int8 cache).  Returns (model, instruct batch, clips)."""
     from youku_mplug_tpu_torch.cli import run_instruct
+    from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
     jsonl = os.path.join(out_dir, "requests.jsonl")
     with open(jsonl, "w") as f:
@@ -915,13 +1177,16 @@ def phase_instruct(report, out_dir):
                 "question": OWL_QUESTIONS[i % len(OWL_QUESTIONS)]
                 + " " * (i // len(OWL_QUESTIONS))}) + "\n")
     args = run_instruct.parser().parse_args([
-        "--config", OWL_YAML, "--synthetic_data", "--engine",
+        "--config", yaml, "--synthetic_data", "--engine",
         "--input_jsonl", jsonl, "--num_slots", str(OWL_SLOTS),
-        "--device", "cuda", "--output_dir", out_dir])
+        "--device", "cuda", "--output_dir", out_dir]
+        + (["--int8"] if int8 else []))
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, raw, model, device = run_instruct.build(args)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
     _, batch, clips = run_instruct.prepare(args, cfg, raw, device,
                                            model.policy.compute_dtype)
@@ -933,10 +1198,16 @@ def phase_instruct(report, out_dir):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(report)
-    seqs, stats, engine = run_instruct.serve_instruct(
-        model, clips, batch, gen_cfg, num_slots=args.num_slots)
-    torch.cuda.synchronize()
-    _read_counts(report, "instruct")
+    with _DecodeSteps() as steps:
+        seqs, stats, engine = run_instruct.serve_instruct(
+            model, clips, batch, gen_cfg, num_slots=args.num_slots)
+        torch.cuda.synchronize()
+    _read_counts(report, path)
+    layers = cfg.text.num_hidden_layers
+    per_step = _per_step(report, path, steps.steps,
+                         {"K5-int8-ALiBi": layers, "K6": layers}
+                         if kvc.is_quantized(engine.cache)
+                         else {"K5-ALiBi": layers})
     if stats["requests"] != OWL_REQUESTS \
             or not (seqs != gen_cfg.pad_id).any(1).all():
         fail(f"instruct slice served {stats['requests']} requests: "
@@ -945,41 +1216,45 @@ def phase_instruct(report, out_dir):
         fail(f"{engine.nonfinite_logits} instruct logit rows were not "
              "finite")
 
-    # one decode step of all 8 slots at the run's last lengths, with the
-    # host sync the engine makes per step; the tied logits alone
-    state = [engine._dev(a) for a in (engine.cache_len, engine.valid_from,
-                                      engine.pos_offset, engine.last_token)]
-    for _ in range(3):
-        engine._decode_impl(*state).cpu()
-    t1 = time.perf_counter()
-    for _ in range(20):
-        engine._decode_impl(*state).cpu()
-    step_ms = (time.perf_counter() - t1) / 20 * 1e3
+    # one decode step of all 8 slots at the run's last lengths; the tied
+    # logits alone
+    step_ms, step_trace = _decode_step_ms(engine)
     lm = model.text_decoder
     hidden = torch.randn(OWL_SLOTS, cfg.text.hidden_size, device=device,
                          dtype=torch.bfloat16)
     with torch.inference_mode():
         logits_ms = time_ms(lambda: lm.logits(hidden), 50)
     stats.update({
-        "build_s": build_s, "params": n_params,
+        "build_s": build_s, "build_peak_memory_gib": build_peak / 2 ** 30,
+        "params": n_params,
+        "int8_params": sum(p.numel() for p in model.parameters()
+                           if p.dtype == torch.int8),
         "prompt_len": [int(x) for x in batch["prompt_len"][:2]],
-        "decode_step_ms": step_ms, "tied_logits_ms": logits_ms,
-        "launches": {r["key"]: r["launches_by_path"]["instruct"]
+        "decode_steps": steps.steps, "launches_per_step": per_step,
+        "decode_step_ms": step_ms, "decode_step_traced": step_trace,
+        "tied_logits_ms": logits_ms,
+        "launches": {r["key"]: r["launches_by_path"][path]
                      for r in report}})
-    print(f"[instruct] {json.dumps(stats)} | first answer "
+    print(f"[{path}] {json.dumps(stats)} | first answer "
           f"{seqs[0][:8].tolist()}", flush=True)
     return model, batch, clips
 
 
-def phase_instruct_forced(model, batch, clips):
+def phase_instruct_forced(model, batch, clips,
+                          tag="instruct teacher-forced", reference=None):
     """The first OWL_SLOTS clips' media features, and FORCED_STEPS decode
     steps from their spliced prompts, with the kernels and again with the
-    plain versions of K1 (the ViT) and K5 (the Bloom decode step) patched
-    in, fed the same inputs and tokens."""
+    plain versions of K1 (the ViT), K5 (bf16 or int8, the Bloom decode
+    step) and K6 patched in, fed the same inputs and tokens.  With
+    ``reference`` (another model's (logits, tokens) of this phase), also a
+    readout, not a gate: this model's logits fed the reference's tokens
+    against the reference's.  Returns (logits, tokens) with the
+    kernels."""
     from youku_mplug_tpu_torch.models import bloom, vision
     from youku_mplug_tpu_torch.models.generation import GenerationConfig
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
+    from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
     n = OWL_SLOTS
     dev = clips.device
@@ -1001,12 +1276,13 @@ def phase_instruct_forced(model, batch, clips):
                                            eos_id=text.eos_id,
                                            pad_id=text.pad_id))
     logits, tokens = _forced_decode(**forced)
-    counts = (fa.flash_attention_packed.launches,
-              dec.decode_attention.alibi_launches)
+    counts = [fa.flash_attention_packed.launches] + _decode_kernel_counts()
     plain = (mock.patch.object(vision, "flash_attention_packed",
                                fa.flash_attention_packed_plain),
              mock.patch.object(bloom, "decode_attention",
-                               dec.decode_attention_plain))
+                               dec.decode_attention_plain),
+             mock.patch.object(kvc, "quantize_scatter_write",
+                               kvc.quantize_scatter_write_plain))
     for p in plain:
         p.start()
     try:
@@ -1016,9 +1292,9 @@ def phase_instruct_forced(model, batch, clips):
     finally:
         for p in plain:
             p.stop()
-    if counts != (fa.flash_attention_packed.launches,
-                  dec.decode_attention.alibi_launches):
-        fail("the instruct plain replay launched a kernel")
+    if counts != [fa.flash_attention_packed.launches] \
+            + _decode_kernel_counts():
+        fail(f"the {tag} plain replay launched a kernel")
     e_m = err(media, media_plain)
     e_l = max(err(a, b) for a, b in zip(logits, logits_plain))
     top_m = media_plain.float().abs().max().item()
@@ -1026,13 +1302,28 @@ def phase_instruct_forced(model, batch, clips):
     agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
                 for a, b in zip(logits, logits_plain))
     finite = all(torch.isfinite(x).all() for x in logits + logits_plain)
-    print(f"[instruct teacher-forced] media features max err {e_m:.4g} of "
+    print(f"[{tag}] media features max err {e_m:.4g} of "
           f"max |plain| {top_m:.4g} | logits over {FORCED_STEPS} steps max "
           f"err {e_l:.4g} of max |plain| {top_l:.4g} (tol {OWL_REL_TOL:.4g} "
           f"x max |plain|) | greedy agreement {agree}/{FORCED_STEPS * n}",
           flush=True)
     if not finite or e_m > OWL_REL_TOL * top_m or e_l > OWL_REL_TOL * top_l:
-        fail("instruct teacher-forced check out of tolerance")
+        fail(f"{tag} check out of tolerance")
+    if reference is not None:
+        ref_logits, ref_tokens = reference
+        fed, _ = _forced_decode(**forced, tokens=ref_tokens)
+        e_r = max(err(a, b) for a, b in zip(fed, ref_logits))
+        top_r = max(x.abs().max().item() for x in ref_logits)
+        agree_r = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                      for a, b in zip(fed, ref_logits))
+        rel = [((a.float() - b.float()).norm() / b.float().norm()).item()
+               for a, b in zip(fed, ref_logits)]
+        print(f"[{tag}] readout (not a gate) against the bf16 model of the "
+              f"same seed, fed its tokens: logits max err {e_r:.4g} of max "
+              f"|bf16| {top_r:.4g}, relative L2 per step "
+              f"{[round(r, 5) for r in rel]} | greedy agreement "
+              f"{agree_r}/{FORCED_STEPS * n}", flush=True)
+    return logits, tokens
 
 
 def phase_instruct_train(report, out_dir):
@@ -1144,6 +1435,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
+        cfg, model, _ = phase_slice(report, out_dir, INT8KV_YAML,
+                                    "serve_int8kv")
+    phase_teacher_forced(cfg, model, "int8-KV teacher-forced")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
         runner, _ = phase_train(report, out_dir)
         phase_replay(runner, run_pretrain.make_batch,
                      run_pretrain.make_loss_fn)
@@ -1152,8 +1450,16 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         model, batch, clips = phase_instruct(report, out_dir)
-    phase_instruct_forced(model, batch, clips)
+    bf16 = phase_instruct_forced(model, batch, clips)
     del model, batch, clips
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        model, batch, clips = phase_instruct(report, out_dir, OWL_INT8_YAML,
+                                             "instruct_int8", int8=True)
+    phase_instruct_forced(model, batch, clips,
+                          "instruct int8 teacher-forced", reference=bf16)
+    del model, batch, clips, bf16
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:

@@ -276,3 +276,135 @@ def test_seeded_init_zeroes_lora_b_and_draws_a_at_the_init_std():
         else:
             assert 0.4 < float(p.std()) < 0.6, k
     assert 0.015 < float(names["decoder.layers.attn.qkv_kernel"].std()) < 0.025
+
+
+# ---------------------------------------------------------------------------
+# int8 serving: int8 decoder weights and an int8 cache
+# ---------------------------------------------------------------------------
+
+
+def _int8_models(rng, n_heads, lora_rank=0):
+    """Bloom LMs with kv_cache_dtype int8 and the kernels and tied
+    embedding quantized by the JAX function (LoRA adapters stay float)."""
+    from youku_mplug_tpu.ops.quant import quantize_gpt3_decoder
+
+    jcfg = jbloom.BloomConfig(vocab_size=V, hidden_size=H,
+                              num_hidden_layers=L,
+                              num_attention_heads=n_heads, attn_impl="xla",
+                              decode_attn_impl="gather", lora_rank=lora_rank,
+                              kv_cache_dtype="int8")
+    jlm = jbloom.BloomLM(jcfg, policy=J_FP32)
+    params = redraw(jax.eval_shape(lambda: jlm.init(
+        jax.random.key(0), tokens=jnp.zeros((1, 4), jnp.int32)))["params"],
+        rng)
+    q, scales = quantize_gpt3_decoder(params, include_embedding=True)
+    tcfg = tbloom.BloomConfig(vocab_size=V, hidden_size=H,
+                              num_hidden_layers=L,
+                              num_attention_heads=n_heads,
+                              lora_rank=lora_rank, kv_cache_dtype="int8")
+    tlm = bridge.load_jax_params(tbloom.BloomLM(tcfg, FP32_POLICY),
+                                 jax.device_get(q),
+                                 qscales=jax.device_get(scales))
+    return jlm, {"params": q, "qscales": scales}, tlm
+
+
+@pytest.mark.parametrize("n_heads,lora_rank", [(4, 0), (6, 2)])
+def test_int8_prefill_then_decode_matches_jax(n_heads, lora_rank):
+    """int8 kernels (scales on the head-major qkv lanes, LoRA deltas
+    added before the biases), an int8 tied embedding and an int8 cache:
+    prefill from prompt embeddings, then decode steps at per-sample
+    positions (the plain fused write and the plain int8 ALiBi decode
+    attention); logits and the dequantized cache against JAX."""
+    from youku_mplug_tpu.ops import kv_cache as jkv
+    from youku_mplug_tpu_torch.ops import kv_cache as tkv
+
+    rng = np.random.default_rng(10 + n_heads)
+    jlm, jvars, tlm = _int8_models(rng, n_heads, lora_rank)
+    b, p = 3, 8
+    prompt = rng.integers(4, V, size=(b, p)).astype(np.int32)
+    plen = np.array([8, 5, 1], np.int32)
+    pe = rng.normal(size=(b, p, H)).astype(np.float32)
+    embeds, vf, po = j_prefix(jlm, jvars, jnp.asarray(prompt),
+                              jnp.asarray(plen), None, PAD,
+                              prompt_embeds=jnp.asarray(pe))
+    t_embeds, t_vf, t_po = t_prefix(tlm, _t(prompt).long(), _t(plen), None,
+                                    PAD, prompt_embeds=_t(pe))
+
+    def dq_j(c):
+        return np.asarray(jkv.dequantize_rows(c["kv"], c["scale"], n_heads,
+                                              jnp.float32))
+
+    def dq_t(c):
+        return tkv.dequantize_rows(c["kv"], c["scale"], n_heads,
+                                   torch.float32).numpy()
+
+    cache = jlm.apply(jvars, b, 20, method=jbloom.BloomLM.init_cache)
+    step = jax.jit(lambda e, c, cl, v: jlm.apply(
+        jvars, e, c, cl, v, method=jbloom.BloomLM.decode_step))
+    want, cache = step(embeds, cache, jnp.int32(0), vf)
+    t_cache = tlm.init_cache(b, 20)
+    assert t_cache["kv"].dtype == torch.int8
+    got, _ = tlm.decode_step(t_embeds, t_cache, 0, t_vf, t_po)
+    _close(got, want)
+    _close(dq_t(t_cache), dq_j(cache))
+    cache_len = np.full((b,), p, np.int32)
+    for _ in range(3):
+        tok = rng.integers(4, V, size=(b, 1)).astype(np.int32)
+        emb = jlm.apply(jvars, jnp.asarray(tok), method=jbloom.BloomLM.embed)
+        want, cache = step(emb, cache, jnp.asarray(cache_len), vf)
+        got, _ = tlm.decode_step(tlm.embed(_t(tok).long()), t_cache,
+                                 _t(cache_len), t_vf, t_po)
+        _close(got, want)
+        cache_len += 1
+    _close(dq_t(t_cache), dq_j(cache))
+
+
+@pytest.mark.parametrize("include_embedding", [False, True])
+def test_quantize_bloom_decoder_tree_and_module_match_jax(include_embedding):
+    """Bloom's head-major qkv [L, H, n, 3, d] and the other kernels: the
+    tree function and the in-place module quantizer both equal JAX's."""
+    from youku_mplug_tpu.ops import quant as jquant
+    from youku_mplug_tpu_torch.ops import quant as tquant
+
+    rng = np.random.default_rng(11)
+    _, params, tlm = _models(rng, 4, lora_rank=2)
+    jq, js = jquant.quantize_gpt3_decoder(params, include_embedding)
+    tq, ts = tquant.quantize_gpt3_decoder(params, include_embedding)
+    for want_tree, got_tree in ((jq, tq), (js, ts)):
+        want = dict(jax.tree_util.tree_leaves_with_path(want_tree))
+        got = dict(jax.tree_util.tree_leaves_with_path(got_tree))
+        assert set(got) == set(want)
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k].numpy(), np.asarray(v))
+    assert js["decoder"]["layers"]["attn"]["qkv_kernel"].shape == \
+        (L, 1, 4, 3, H // 4)
+    tquant.quantize_decoder_(tlm, include_embedding)
+    named = dict(tlm.named_parameters()) | dict(tlm.named_buffers())
+    for tree, suffix in ((jq, ""), (js, tquant.SCALE_SUFFIX)):
+        for k, v in jax.tree_util.tree_leaves_with_path(tree):
+            name = bridge.port_name("/".join(p.key for p in k)) + suffix
+            np.testing.assert_array_equal(named[name].detach().numpy(),
+                                          np.asarray(v))
+    assert named["decoder.layers.attn.lora_qkv_a"].dtype == torch.float32
+
+
+def test_int8_engine_tokens_with_prompt_embeds_match_jax_engine():
+    """The engine over int8 weights and an int8 cache: prefill through a
+    slot view of both cache leaves, decode through the plain fused write
+    and the plain int8 ALiBi decode attention; JAX's greedy tokens."""
+    rng = np.random.default_rng(12)
+    jlm, jvars, tlm = _int8_models(rng, 6)
+    requests = [(list(rng.integers(4, V, size=n)),
+                 rng.normal(size=(n, H)).astype(np.float32))
+                for n in (3, 8, 1, 5)]
+    kw = dict(num_slots=2, max_len=30, prefill_buckets=(8,))
+    jeng = JEngine(jlm, jax.tree.map(jnp.asarray, jvars),
+                   config=JGen(max_new_tokens=7, eos_id=EOS, pad_id=PAD,
+                               beam_size=1), **kw)
+    teng = ServingEngine(tlm, config=GenerationConfig(
+        max_new_tokens=7, eos_id=EOS, pad_id=PAD), **kw)
+    want = _drive(jeng, requests)
+    got = _drive(teng, [(ids, _t(pe)) for ids, pe in requests])
+    assert got == want
+    assert len({tuple(t) for t in got.values()}) > 1  # not degenerate
+    assert teng.nonfinite_logits == 0

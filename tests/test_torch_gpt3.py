@@ -232,3 +232,196 @@ def test_lm_forward_loss_and_input_grads_match_jax(remat, ce_chunk):
     emb2[1, 8] += 1.0
     out2 = tlm(input_embeds=_t(emb2))["last_hidden_state"]
     assert not torch.allclose(out2[1, 9:], out["last_hidden_state"][1, 9:])
+
+
+# ---------------------------------------------------------------------------
+# int8 serving: int8 decoder weights and an int8 cache
+# ---------------------------------------------------------------------------
+
+
+def _int8_models(rng, include_embedding=True):
+    """The tiny decoder with kv_cache_dtype int8, its tree quantized by the
+    JAX function and loaded with its qscales."""
+    from youku_mplug_tpu.ops.quant import quantize_gpt3_decoder
+
+    cfg = dataclasses.replace(_flagship_cfg(tiny=True).text,
+                              kv_cache_dtype="int8")
+    jlm = jgpt3.GPT3LM(cfg, policy=J_FP32)
+    shapes = jax.eval_shape(lambda: jlm.init(
+        jax.random.key(0), jnp.zeros((1, 4), jnp.int32)))["params"]
+    q, scales = quantize_gpt3_decoder(redraw(shapes, rng), include_embedding)
+    tcfg = dataclasses.replace(flagship_config(tiny=True).text,
+                               kv_cache_dtype="int8")
+    tlm = bridge.load_jax_params(tgpt3.GPT3LM(tcfg, FP32_POLICY),
+                                 jax.device_get(q),
+                                 qscales=jax.device_get(scales))
+    return jlm, {"params": q, "qscales": scales}, tlm
+
+
+def _dequant_cache(cache, n):
+    """Both forms of an int8 cache as fp32 [L, B, M, 2*hidden] rows."""
+    if isinstance(cache, dict) and isinstance(cache["kv"], torch.Tensor):
+        from youku_mplug_tpu_torch.ops import kv_cache as tkv
+
+        return tkv.dequantize_rows(cache["kv"], cache["scale"], n,
+                                   torch.float32).numpy()
+    from youku_mplug_tpu.ops import kv_cache as jkv
+
+    return np.asarray(jkv.dequantize_rows(cache["kv"], cache["scale"], n,
+                                          jnp.float32))
+
+
+def test_int8_prefill_then_decode_matches_jax():
+    """int8 kernels, int8 tied embedding and an int8 cache: prefill (the
+    layer read back dequantized) and three decode steps (per-sample rows
+    through the plain fused write, the plain int8 decode attention)
+    against JAX's decode_step with the qscales collection."""
+    rng = np.random.default_rng(4)
+    jlm, jvars, tlm = _int8_models(rng)
+    assert tlm.decoder.layers.attn.qkv_kernel.dtype == torch.int8
+    assert tlm.word_embeddings.embedding.dtype == torch.int8
+    n = tlm.cfg.num_attention_heads
+    b, p, nq, h = 3, 8, 4, 64
+    prompt = rng.integers(3, 256, size=(b, p)).astype(np.int32)
+    plen = np.array([8, 5, 1], np.int32)
+    qe = rng.normal(size=(b, nq, h)).astype(np.float32)
+    embeds, vf, po = j_prefix(jlm, jvars, jnp.asarray(prompt),
+                              jnp.asarray(plen), jnp.asarray(qe), PAD)
+    t_embeds, t_vf, t_po = t_prefix(tlm, _t(prompt).long(), _t(plen),
+                                    _t(qe), PAD)
+    _close(t_embeds, embeds)  # int8 rows dequantized on lookup
+
+    step = jax.jit(lambda v_, e, c, cl, vf_, o: jlm.apply(
+        v_, e, c, cl, vf_, o, method=jgpt3.GPT3LM.decode_step))
+    jcache = jlm.apply(jvars, b, 20, method=jgpt3.GPT3LM.init_cache)
+    tcache = tlm.init_cache(b, 20)
+    assert {k: tuple(v.shape) for k, v in tcache.items()} == \
+        {k: v.shape for k, v in jcache.items()}
+    jl, jcache = step(jvars, embeds, jcache, jnp.int32(0), vf, po)
+    tl, tcache = tlm.decode_step(t_embeds, tcache, 0, t_vf, t_po)
+    _close(tl, jl)
+    _close(_dequant_cache(tcache, n), _dequant_cache(jcache, n))
+    cache_len = np.full((b,), nq + p, np.int32)
+    tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+    for _ in range(3):
+        emb = jlm.apply(jvars, jnp.asarray(tok)[:, None],
+                        method=jgpt3.GPT3LM.embed)
+        jl, jcache = step(jvars, emb, jcache, jnp.asarray(cache_len), vf, po)
+        t_emb = tlm.embed(_t(tok)[:, None].long())
+        tl, tcache = tlm.decode_step(t_emb, tcache, _t(cache_len), t_vf,
+                                     t_po)
+        _close(tl, jl)
+        _close(_dequant_cache(tcache, n), _dequant_cache(jcache, n))
+        cache_len += 1
+        tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
+
+
+@pytest.mark.parametrize("include_embedding", [False, True])
+def test_quantize_gpt3_decoder_tree_and_module_match_jax(include_embedding):
+    """The tree function equals JAX's (int8 leaves exact, scales in JAX's
+    shapes); quantizing the loaded float module in place gives the same
+    int8 parameters and scale buffers, and decoder_bytes counts both."""
+    from youku_mplug_tpu.ops import quant as jquant
+    from youku_mplug_tpu_torch.ops import quant as tquant
+
+    rng = np.random.default_rng(5)
+    _, params, tlm = _models(rng)
+    jq, js = jquant.quantize_gpt3_decoder(params, include_embedding)
+    tq, ts = tquant.quantize_gpt3_decoder(params, include_embedding)
+    jflat = dict(jax.tree_util.tree_leaves_with_path(jq))
+    tflat = dict(jax.tree_util.tree_leaves_with_path(tq))
+    assert set(jflat) == set(tflat)
+    for k, v in jflat.items():
+        np.testing.assert_array_equal(tflat[k].numpy(), np.asarray(v))
+        assert str(tflat[k].dtype).removeprefix("torch.") == str(v.dtype)
+    sflat = dict(jax.tree_util.tree_leaves_with_path(ts))
+    assert set(sflat) == set(dict(jax.tree_util.tree_leaves_with_path(js)))
+    for k, v in jax.tree_util.tree_leaves_with_path(js):
+        np.testing.assert_array_equal(sflat[k].numpy(), np.asarray(v))
+
+    float_bytes = tquant.decoder_bytes(tlm)
+    tquant.quantize_decoder_(tlm, include_embedding)
+    params_t = dict(tlm.named_parameters())
+    for k, v in jax.tree_util.tree_leaves_with_path(jq):
+        name = bridge.port_name("/".join(p.key for p in k))
+        np.testing.assert_array_equal(params_t[name].detach().numpy(),
+                                      np.asarray(v))
+    owner_scales = {n.removesuffix(tquant.SCALE_SUFFIX): b
+                    for n, b in tlm.named_buffers()
+                    if n.endswith(tquant.SCALE_SUFFIX)}
+    assert len(owner_scales) == len(sflat) == 4 + include_embedding
+    for k, v in jax.tree_util.tree_leaves_with_path(js):
+        name = bridge.port_name("/".join(p.key for p in k))
+        np.testing.assert_array_equal(owner_scales[name].numpy(),
+                                      np.asarray(v))
+    assert tquant.decoder_bytes(tlm) == jquant.decoder_bytes(jq) \
+        + jquant.decoder_bytes(js)
+    assert tquant.decoder_bytes(tlm) < (0.4 if include_embedding else 0.5) \
+        * float_bytes  # fp32 position embeddings and biases stay
+    with pytest.raises(TypeError, match="quantize after"):
+        bridge.seeded_init(tlm, 0)
+    with pytest.raises(ValueError, match="int8 already"):
+        tquant.quantize_decoder_(tlm, include_embedding)
+
+
+def test_int8_bridge_is_strict():
+    """An int8 leaf without its scale, a scale for a float leaf or of the
+    wrong shape, and a scale naming no parameter all raise."""
+    from youku_mplug_tpu.ops.quant import quantize_gpt3_decoder
+
+    rng = np.random.default_rng(6)
+    _, params, _ = _models(rng)
+    q, scales = jax.device_get(quantize_gpt3_decoder(params))
+
+    def fresh():
+        return tgpt3.GPT3LM(flagship_config(tiny=True).text, FP32_POLICY)
+
+    with pytest.raises(TypeError, match="without qscales"):
+        bridge.load_jax_params(fresh(), q)
+    bad = jax.tree.map(lambda a: a, scales)
+    bad["word_embeddings"] = {"embedding": np.ones((256, 1), np.float32)}
+    with pytest.raises(TypeError, match="not int8"):
+        bridge.load_jax_params(fresh(), q, qscales=bad)
+    bad = jax.tree.map(lambda a: a, scales)
+    bad["decoder"]["layers"]["mlp"]["fc1_kernel"] = np.ones((2, 64, 1),
+                                                           np.float32)
+    with pytest.raises(ValueError, match="scale shape"):
+        bridge.load_jax_params(fresh(), q, qscales=bad)
+    bad = jax.tree.map(lambda a: a, scales)
+    bad["decoder"]["nowhere"] = np.ones((1,), np.float32)
+    with pytest.raises(KeyError, match="no port parameter"):
+        bridge.load_jax_params(fresh(), q, qscales=bad)
+
+
+def test_int8_tied_embedding_matches_jax():
+    """Per-row int8 table: lookups dequantize the gathered rows, the tied
+    logits scale each vocab row's product, the training table
+    dequantizes; all against JAX's TiedEmbedding with the qscales
+    collection."""
+    from youku_mplug_tpu.ops.quant import quantize_gpt3_decoder
+    from youku_mplug_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(7)
+    emb = (rng.normal(size=(97, 32)) * np.linspace(0.1, 3.0, 97)[:, None]
+           ).astype(np.float32)
+    q, s = jax.device_get(quantize_gpt3_decoder(
+        {"word_embeddings": {"embedding": emb}}, include_embedding=True))
+    qe, se = q["word_embeddings"]["embedding"], s["word_embeddings"][
+        "embedding"]
+    jmod = jgpt3.TiedEmbedding(97, 32)
+    jvars = {"params": {"embedding": qe}, "qscales": {"embedding": se}}
+    tmod = tgpt3.TiedEmbedding(97, 32, torch.float32)
+    tmod.embedding.data.copy_(_t(emb))
+    quant.quantize_decoder_(tmod, include_embedding=True)
+    assert tmod.embedding.dtype == torch.int8
+    tokens = rng.integers(0, 97, (2, 5))
+    hidden = rng.normal(size=(2, 5, 32)).astype(np.float32)
+    _close(tmod.encode(_t(tokens), torch.float32),
+           jmod.apply(jvars, jnp.asarray(tokens), jnp.float32,
+                      method=jgpt3.TiedEmbedding.encode), 1e-6)
+    _close(tmod.attend(_t(hidden)),
+           jmod.apply(jvars, jnp.asarray(hidden),
+                      method=jgpt3.TiedEmbedding.attend), 1e-5)
+    _close(tmod.table(torch.float32),
+           jmod.apply(jvars, jnp.float32, method=jgpt3.TiedEmbedding.table),
+           1e-6)

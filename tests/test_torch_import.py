@@ -27,7 +27,7 @@ _NO_JAX = textwrap.dedent("""
                  "cli.run_instruct", "models.bloom", "models.owl",
                  "data.instruct", "optim.factory", "ops.lora", "config",
                  "train.state", "train.trainer", "ops.cross_entropy",
-                 "data.loader"):
+                 "data.loader", "ops.kv_cache", "ops.quant"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -78,6 +78,39 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(RuntimeError, match="no decode attention kernel"):
         dec.decode_attention(x[:, 0], torch.empty(1, 2, 8, 256,
                                                   device="meta"), 2, 0, 3)
+
+
+def test_int8_wrappers_use_plain_versions_on_cpu_and_refuse_others():
+    """K5 int8 and the fused quantize-and-scatter write (K6): plain on CPU
+    tensors, no launch counted; a device without a kernel raises."""
+    from youku_mplug_tpu_torch.ops import kv_cache as kvc
+
+    rng = np.random.default_rng(1)
+    names = ("int8_launches", "int8_alibi_launches", "launches",
+             "alibi_launches")
+    before = [getattr(dec.decode_attention, c) for c in names] + [
+        kvc.quantize_scatter_write.launches]
+    cache = kvc.make_cache(1, 2, 8, 128, torch.float32, num_heads=2,
+                           quantized=True)
+    rows = torch.from_numpy(rng.normal(size=(2, 256)).astype(np.float32))
+    kvc.quantize_scatter_write(cache, rows, torch.tensor([3, 7]), 0)
+    assert cache["kv"][0, :, [3, 7]].any()
+    assert int(cache["scale"].count_nonzero()) == 2 * 4  # 2 rows x 2n
+    q = rows[:, :128]
+    for slopes in (None, dec.alibi_slopes(2)):
+        out = dec.decode_attention(q, cache["kv"], 2, 0, torch.tensor([3, 7]),
+                                   alibi_slopes=slopes,
+                                   kv_scales=cache["scale"])
+        assert out.shape == (2, 128) and out.device.type == "cpu"
+    assert [getattr(dec.decode_attention, c) for c in names] + [
+        kvc.quantize_scatter_write.launches] == before == [0] * 5
+    meta = {k: v.to("meta") for k, v in cache.items()}
+    with pytest.raises(RuntimeError, match="no cache-write kernel"):
+        kvc.quantize_scatter_write(meta, rows.to("meta"),
+                                   torch.tensor([3, 7], device="meta"), 0)
+    with pytest.raises(RuntimeError, match="no decode attention kernel"):
+        dec.decode_attention(q.to("meta"), meta["kv"], 2, 0, 3,
+                             kv_scales=meta["scale"])
 
 
 def test_serve_cli_refuses_cuda_without_a_card():

@@ -72,11 +72,12 @@ def _close(got, want, tol=TOL):
                                rtol=tol, atol=tol)
 
 
-def tiny_cfgs(lora_rank=0):
+def tiny_cfgs(lora_rank=0, kv_cache_dtype="auto"):
     """(JAX config, port config) of the same tiny model."""
     v = TINY["vision_overrides"]
     a = TINY["abstractor"]
-    t = dict(TINY["text_overrides"], lora_rank=lora_rank)
+    t = dict(TINY["text_overrides"], lora_rank=lora_rank,
+             kv_cache_dtype=kv_cache_dtype)
     j = jowl.MPLUGOwlVideoConfig(
         vision=JVisionConfig(**v, gelu="quick", attn_impl="xla"),
         abstractor=jowl.OwlAbstractorConfig(**a),
@@ -198,6 +199,44 @@ def test_serve_instruct_tokens_match_jax(owl):
     assert engine.num_slots == 2
 
 
+def test_int8_serve_instruct_tokens_match_jax(owl):
+    """int8 Bloom kernels, an int8 tied embedding (the splice looks its
+    rows up dequantized) and an int8 cache: the same greedy tokens as the
+    JAX runner's serve_instruct(..., qscales=), with the port model
+    loaded from the JAX int8 tree and again quantized in place from the
+    float one (the --int8 path)."""
+    from youku_mplug_tpu.ops.quant import quantize_gpt3_decoder
+    from youku_mplug_tpu_torch.ops import quant
+
+    _, params, _, batch, video = owl
+    jcfg, tcfg = tiny_cfgs(kv_cache_dtype="int8")
+    jm = jowl.MPLUGOwlVideo(jcfg, policy=J_FP32)
+    qdec, scales = jax.device_get(quantize_gpt3_decoder(
+        params["text_decoder"], include_embedding=True))
+    qparams = dict(params, text_decoder=qdec)
+    want = jcli.serve_instruct(
+        jm, jax.tree.map(jnp.asarray, qparams), jnp.asarray(video), batch,
+        JGen(max_new_tokens=6, eos_id=2, pad_id=3, beam_size=1),
+        num_slots=2, qscales=jax.tree.map(jnp.asarray, scales))
+    loaded = bridge.load_jax_params(towl.MPLUGOwlVideo(tcfg, FP32_POLICY),
+                                    qparams,
+                                    qscales={"text_decoder": scales})
+    quantized = bridge.load_jax_params(
+        towl.MPLUGOwlVideo(tcfg, FP32_POLICY), params)
+    quant.quantize_decoder_(quantized.text_decoder, include_embedding=True)
+    for tm in (loaded, quantized):
+        got, stats, engine = tcli.serve_instruct(
+            tm, _t(video), batch,
+            GenerationConfig(max_new_tokens=6, eos_id=2, pad_id=3),
+            num_slots=2)
+        np.testing.assert_array_equal(got, want)
+        assert stats["kv_cache_dtype"] == "int8"
+        assert stats["decoder_weight_bytes"] == quant.decoder_bytes(
+            tm.text_decoder)
+        assert stats["cache_bytes"] == 2 * 2 * 128 * (64 + 8 * 4)
+    assert len({tuple(r) for r in got}) > 1  # not degenerate
+
+
 def test_synthetic_clips_match_jax():
     args = argparse.Namespace(synthetic_data=True, seed=5)
     raw = {"num_frames": 2, "image_res": 16}
@@ -229,6 +268,23 @@ def test_loaders_agree_on_the_flagship_yaml():
     assert got.text.lora_rank == 0
     assert (raw["do_sample"], raw["beam_size"], raw["max_new_tokens"],
             raw["num_frames"]) == (False, 1, 64, 8)
+
+
+def test_loaders_agree_on_the_int8_yaml():
+    """The int8 YAML is the flagship with kv_cache_dtype int8, as both
+    loaders read it."""
+    got, raw = load_owl_config("configs/instruct/serve_bloomz_7b_int8.yaml")
+    want, jraw = jcli.load_owl_config(
+        "configs/instruct/serve_bloomz_7b_int8.yaml")
+    assert raw == jraw
+    for part in ("vision", "abstractor", "text"):
+        _same_fields(getattr(got, part), getattr(want, part), part)
+    flag, flag_raw = load_owl_config(FLAGSHIP_YAML)
+    assert got.text.kv_cache_dtype == want.text.kv_cache_dtype == "int8"
+    assert got == dataclasses.replace(flag, text=dataclasses.replace(
+        flag.text, kv_cache_dtype="int8"))
+    assert {k: v for k, v in raw.items() if k != "text_overrides"} == \
+        {k: v for k, v in flag_raw.items() if k != "text_overrides"}
 
 
 def test_owl_config_resolves_to_quick_gelu(tmp_path):
@@ -266,6 +322,17 @@ def test_run_instruct_cli_runs_on_cpu(tmp_path):
             tcli.build(tcli.parser().parse_args(
                 ["--config", str(path), "--synthetic_data", "--device",
                  "cpu"] + flag))
+    # int8 weights (--int8) and an int8 cache (the YAML)
+    path.write_text(yaml.safe_dump(dict(
+        TINY, max_new_tokens=3, text_overrides=dict(
+            TINY["text_overrides"], kv_cache_dtype="int8"))))
+    results, stats = tcli.main(tcli.parser().parse_args([
+        "--config", str(path), "--output_dir", str(tmp_path / "int8"),
+        "--synthetic_data", "--input_jsonl", str(jsonl), "--int8",
+        "--num_slots", "2", "--device", "cpu"]))
+    assert stats["kv_cache_dtype"] == "int8" and stats["requests"] == 2
+    assert stats["nonfinite_logits"] == 0
+    assert all(1 <= len(r["tokens"]) <= 3 for r in results)
     path.write_text(yaml.safe_dump(dict(TINY, do_sample=True)))
     with pytest.raises(NotImplementedError, match="sampling"):
         tcli.build(tcli.parser().parse_args(["--config", str(path),

@@ -10,6 +10,7 @@ import json
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from __graft_entry__ import _flagship_cfg
@@ -149,3 +150,76 @@ def test_prompt_ids_and_clips_match_jax():
     for i in (0, 5):
         np.testing.assert_array_equal(ours[i]["video"], theirs[i]["video"])
         assert ours[i]["video_id"] == theirs[i]["video_id"]
+
+
+INT8KV_YAML = "configs/caption/serve_gpt3_1.3B_int8kv.yaml"
+
+
+def test_int8_cache_engine_tokens_match_jax_engine():
+    """The caption engine with kv_cache_dtype int8 (float weights): the
+    prefill writes both leaves through a slot view, each decode step one
+    quantized row per slot (the plain fused write) read by the plain
+    int8 decode attention; JAX's engine gives the same greedy tokens."""
+    rng = np.random.default_rng(1)
+    cfg = dataclasses.replace(_flagship_cfg(tiny=True).text,
+                              kv_cache_dtype="int8")
+    jlm = jgpt3.GPT3LM(cfg, policy=J_FP32)
+    params = redraw(jax.eval_shape(lambda: jlm.init(
+        jax.random.key(0), jnp.zeros((1, 4), jnp.int32)))["params"], rng)
+    tcfg = dataclasses.replace(flagship_config(tiny=True).text,
+                               kv_cache_dtype="int8")
+    tlm = bridge.load_jax_params(tgpt3.GPT3LM(tcfg, FP32_POLICY), params)
+    nq, h = 4, cfg.hidden_size
+    requests = [(list(rng.integers(3, cfg.vocab_size, size=n)),
+                 rng.normal(size=(nq, h)).astype(np.float32))
+                for n in (3, 8, 1, 5, 6)]
+    kw = dict(num_slots=3, max_len=40, prefill_buckets=(8,))
+    jeng = JEngine(jlm, jax.tree.map(jnp.asarray, params),
+                   config=JGen(max_new_tokens=9, eos_id=EOS, pad_id=EOS),
+                   **kw)
+    teng = ServingEngine(tlm, config=GenerationConfig(
+        max_new_tokens=9, eos_id=EOS, pad_id=EOS), **kw)
+    assert teng.cache["kv"].dtype == torch.int8
+    want = _drive(jeng, requests)
+    got = _drive(teng, requests)
+    assert got == want
+    assert len({tuple(t) for t in got.values()}) > 1  # not degenerate
+    assert teng.nonfinite_logits == 0
+
+
+def test_int8kv_yaml_is_the_flagship_with_an_int8_cache():
+    """Both loaders read the int8-KV YAML as the flagship serve YAML with
+    kv_cache_dtype int8, and nothing else changed."""
+    from youku_mplug_tpu.config import load_config as j_load_config
+
+    got, flag = load_config(INT8KV_YAML), load_config(FLAGSHIP_YAML)
+    assert got.model.text.kv_cache_dtype == "int8"
+    assert got.model == dataclasses.replace(flag.model, text=(
+        dataclasses.replace(flag.model.text, kv_cache_dtype="int8")))
+    assert {k: v for k, v in got.raw.items() if k != "text_overrides"} == \
+        {k: v for k, v in flag.raw.items()}
+    jcfg = j_load_config(INT8KV_YAML).model
+    for part in ("vision", "text"):
+        tp = getattr(got.model, part)
+        for f in dataclasses.fields(tp):
+            assert getattr(tp, f.name) == getattr(getattr(jcfg, part),
+                                                  f.name), (part, f.name)
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        tgpt3.GPT3Config(kv_cache_dtype="fp8")
+
+
+def test_serve_cli_with_an_int8_cache_runs_on_cpu(tmp_path):
+    import yaml
+
+    raw = yaml.safe_load(open("configs/pretrain_tiny.yaml"))
+    raw["text_overrides"]["kv_cache_dtype"] = "int8"
+    path = tmp_path / "int8kv.yaml"
+    path.write_text(yaml.safe_dump(raw))
+    args = serve.serve_parser().parse_args([
+        "--config", str(path), "--synthetic_data", "--num_requests", "3",
+        "--output_dir", str(tmp_path), "--device", "cpu"])
+    cfg, model, device = serve.build(args)
+    stats, out, engine = serve.run(args, cfg, model, device)
+    assert stats["requests"] == 3 and engine.cache["kv"].dtype == torch.int8
+    assert all(1 <= r["n_tokens"] <= 32 for r in out)
+    assert engine.nonfinite_logits == 0

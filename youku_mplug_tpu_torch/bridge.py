@@ -13,7 +13,10 @@ parameter's dtype, so a model split by ``train.state.create_train_state``
 takes trainable leaves as fp32 master weights and frozen ones in bf16;
 ``requires_grad`` is the split's and is left as it is.
 ``jax_path`` is the inverse rename and ``to_jax_tree`` the inverse load
-(port parameters -> a JAX-named tree of numpy arrays).
+(port parameters -> a JAX-named tree of numpy arrays).  An int8 tree
+comes with its ``qscales`` (the layout ``tools/export_serving.py --int8``
+writes, rooted where the tree is): each leaf with a scale loads as an int8
+parameter with its scale buffer (``ops/quant.py``).
 
 ``seeded_init`` fills every parameter from one ``torch.Generator``: normals
 of std 0.02 everywhere (biases, cls/pos/temporal embeddings, ``bias_k``,
@@ -23,17 +26,20 @@ LoRA ``lora_*_a`` included, the latter at its module's
 LayerNorm scales one, LayerNorm biases zero, every LoRA ``lora_*_b``
 zero (a fresh adapter is a no-op, as the JAX package inits it, so
 training starts from the base model), and the contrastive temperature
-``temp`` its configured value (``module.cfg.temp``, else 0.07).
+``temp`` its configured value (``module.cfg.temp``, else 0.07).  It
+draws float weights only: quantize after it, never before.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+from youku_mplug_tpu_torch.ops import quant
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
@@ -80,12 +86,44 @@ def _to_tensor(x) -> torch.Tensor:
     return torch.from_numpy(a.copy())  # C-contiguous, 0-d stays 0-d
 
 
+def _int8_leaves(module: nn.Module, params, flat, qscales) -> None:
+    """Turn each parameter that ``qscales`` names into an int8 parameter
+    with its scale buffer (values filled by the caller's copy)."""
+    for name, (path, s) in ((port_name(k), (k, v))
+                            for k, v in _flatten(qscales).items()):
+        p = params.get(name)
+        if p is None:
+            raise KeyError(f"qscales leaf with no port parameter: {path}")
+        if name not in flat or np.asarray(flat[name][1]).dtype != np.int8:
+            raise TypeError(f"{path}: a scale for a leaf that is not int8")
+        leaf = name.rsplit(".", 1)[-1]
+        axes = quant.reduce_axes(leaf, p.dim(), include_embedding=True)
+        want = tuple(1 if i in (axes or ()) else n
+                     for i, n in enumerate(p.shape))
+        if axes is None or tuple(np.shape(s)) != want:
+            raise ValueError(f"{path}: scale shape {tuple(np.shape(s))}, "
+                             f"expected {want if axes else 'none'}")
+        owner = module.get_submodule(name.rsplit(".", 1)[0]) \
+            if "." in name else module
+        quant.set_int8(owner, leaf,
+                       torch.empty(p.shape, dtype=torch.int8,
+                                   device=p.device),
+                       _to_tensor(s).to(dtype=torch.float32,
+                                        device=p.device))
+        params[name] = getattr(owner, leaf)
+
+
 @torch.no_grad()
-def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+def load_jax_params(module: nn.Module, tree: Dict[str, Any],
+                    qscales: Optional[Dict[str, Any]] = None) -> nn.Module:
     """Copy a JAX parameter tree into ``module`` (cast to each parameter's
-    dtype and device).  Returns ``module``."""
+    dtype and device).  With ``qscales``, the leaves they name load as
+    int8 parameters with their scales; an int8 leaf without a scale
+    raises.  Returns ``module``."""
     params = dict(module.named_parameters())
     flat = {port_name(k): (k, v) for k, v in _flatten(tree).items()}
+    if qscales:
+        _int8_leaves(module, params, flat, qscales)
     unused = sorted(k for name, (k, _) in flat.items() if name not in params)
     if unused:
         raise KeyError(f"JAX leaves with no port parameter: {unused}")
@@ -95,6 +133,8 @@ def load_jax_params(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     for name, p in params.items():
         jax_path, value = flat[name]
         src = _to_tensor(value)
+        if src.dtype == torch.int8 and p.dtype != torch.int8:
+            raise TypeError(f"{jax_path}: an int8 leaf without qscales")
         if tuple(src.shape) != tuple(p.shape):
             raise ValueError(f"{jax_path}: JAX shape {tuple(src.shape)} != "
                              f"port shape {tuple(p.shape)}")
@@ -128,6 +168,10 @@ def seeded_init(module: nn.Module, seed: int, std: float = 0.02
     """Fill every parameter of ``module`` from a generator seeded with
     ``seed``, on the parameters' own device (see module docstring)."""
     params = dict(module.named_parameters())
+    quantized = sorted(k for k, p in params.items() if p.dtype == torch.int8)
+    if quantized:
+        raise TypeError(f"seeded_init draws float weights; int8 parameters "
+                        f"{quantized[:3]}: quantize after the init")
     stds = {f"{prefix}.{leaf}" if prefix else leaf: m.lora_init_std
             for prefix, m in module.named_modules()
             if hasattr(m, "lora_init_std")

@@ -7,10 +7,15 @@ placeholder are expanded to the media positions, the clips are encoded
 (per-frame CLIP ViT, visual abstractor, ``visual_fc`` and ``vit_eos``)
 and spliced into the prompt embeddings in one batch, and every request is
 admitted to the continuous-batching engine's slot pool as slots free, the
-Bloom decoder decoding greedily over the stacked bf16 cache.  Serving
-always runs through the engine: the batched ``generate`` is not ported,
-so ``--engine`` is accepted for the JAX runner's command lines and
-changes nothing.
+Bloom decoder decoding greedily over the stacked cache: bf16, or int8 with
+per-(token, head) scales when the YAML sets ``text_overrides:
+{kv_cache_dtype: int8}`` (``configs/instruct/serve_bloomz_7b_int8.yaml``).
+``--int8`` serves int8 decoder weights: the kernels and the tied embedding
+quantized in place after the seeded init, the form the JAX package's
+``tools/export_serving.py --int8 --int8_embedding`` writes (serving
+checkpoints themselves are not ported).  Serving always runs through the
+engine: the batched ``generate`` is not ported, so ``--engine`` is
+accepted for the JAX runner's command lines and changes nothing.
 
 Training (``--train``, the mPLUG-Owl finetune recipe): synthetic clips
 with their captions as answers to a fixed question, the response-masked
@@ -30,6 +35,9 @@ config on the CPU):
     python -m youku_mplug_tpu_torch.cli.run_instruct \\
         --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
         --synthetic_data --engine
+    python -m youku_mplug_tpu_torch.cli.run_instruct \\
+        --config configs/instruct/serve_bloomz_7b_int8.yaml \\
+        --synthetic_data --engine --int8
     python -m youku_mplug_tpu_torch.cli.run_instruct --train \\
         --config configs/instruct/train_bloomz_7b_flagship.yaml \\
         --synthetic_data --max_steps 8 --output_dir out
@@ -64,6 +72,8 @@ from youku_mplug_tpu_torch.data.instruct import (
 from youku_mplug_tpu_torch.data.loader import Loader
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.owl import MPLUGOwlVideo
+from youku_mplug_tpu_torch.ops import kv_cache as kvc
+from youku_mplug_tpu_torch.ops import quant
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
 from youku_mplug_tpu_torch.runtime.precision import (
     BF16_POLICY,
@@ -106,6 +116,11 @@ def parser() -> argparse.ArgumentParser:
                    help="engine slot-pool size")
     p.add_argument("--device", default="cuda",
                    help="cuda[:i] (default), or cpu")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 decoder kernels and tied embedding, quantized "
+                        "in place after the seeded init (what the JAX "
+                        "package's export_serving --int8 --int8_embedding "
+                        "writes)")
     p.add_argument("--hf_checkpoint", default="", help="not ported")
     p.add_argument("--serving_ckpt", default="", help="not ported")
     # ---- instruction finetuning -------------------------------------
@@ -146,6 +161,8 @@ def build(args):
     with device:  # built and seeded on the device: no host copy of 7B
         model = MPLUGOwlVideo(cfg, BF16_POLICY)
     seeded_init(model, args.seed)
+    if args.int8:
+        quant.quantize_decoder_(model.text_decoder, include_embedding=True)
     return cfg, raw, model.eval(), device
 
 
@@ -202,7 +219,8 @@ def serve_instruct(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
 
     clips: normalized [B, C, T, H, W] on the model's device; batch: the
     ``build_instruct_batch`` dict.  Returns (sequences [B, max_new_tokens]
-    int32 right-padded with pad_id, stats, the engine)."""
+    int32 right-padded with pad_id, stats, the engine); the stats name
+    the cache's dtype and the decoder's weight and cache bytes."""
     dev = clips.device
     input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
     media_mask = torch.as_tensor(batch["media_mask"], device=dev)
@@ -249,6 +267,10 @@ def serve_instruct(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
         "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
                             if dev.type == "cuda" else None),
         "nonfinite_logits": engine.nonfinite_logits,
+        "kv_cache_dtype": str(kvc.leaves(engine.cache)[0].dtype
+                              ).removeprefix("torch."),
+        "cache_bytes": kvc.nbytes(engine.cache),
+        "decoder_weight_bytes": quant.decoder_bytes(model.text_decoder),
     }
     return seqs, stats, engine
 

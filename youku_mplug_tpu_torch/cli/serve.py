@@ -5,11 +5,15 @@ query prefixes in batches, then requests are admitted a trickle at a time
 to the slot pool and every engine step decodes one token for all
 in-flight requests.  Weights come from a seeded init (checkpoint loading,
 real video files and text decoding are not ported yet, so results carry
-token ids).
+token ids).  A YAML with ``text_overrides: {kv_cache_dtype: int8}``
+serves over the int8 KV cache (``ops/kv_cache.py``).
 
 Usage (synthetic smoke, GPU):
     python -m youku_mplug_tpu_torch.cli.serve \
         --config configs/caption/serve_gpt3_1.3B_flagship.yaml \
+        --synthetic_data --num_requests 16 --device cuda
+    python -m youku_mplug_tpu_torch.cli.serve \
+        --config configs/caption/serve_gpt3_1.3B_int8kv.yaml \
         --synthetic_data --num_requests 16 --device cuda
 """
 

@@ -1,9 +1,10 @@
 // Single-token decode attention over the stacked packed KV cache, for
-// Hopper (sm_90a), bf16 cache, fp32 online softmax, head dim 64 or 128,
-// optionally with the ALiBi bias of the Bloom decoder.
+// Hopper (sm_90a), bf16 or int8 cache, fp32 online softmax, head dim 64 or
+// 128, optionally with the ALiBi bias of the Bloom decoder.
 //
 // Replaces the Pallas TPU kernel youku_mplug_tpu/ops/decode_attention.py
-// (_kernel, wrapper decode_attention) for the bf16 cache, with and
+// (_kernel, wrapper decode_attention) for the bf16 cache and for the int8
+// cache with per-(token, head) scales (quantized=True), each with and
 // without its ALiBi ladder.  The cache is [L, B, M, 2*n*d] with each row
 // = [K | V] lanes; the kernel reads layer `lidx` in place (no layer copy)
 // and only the live keys valid_from[b] <= j <= cache_len[b] of each
@@ -26,13 +27,26 @@
 // step so their K and V loads are in flight together and the running
 // softmax rescales once per step.
 //
+// int8 cache: the rows hold int8 lanes and a second array [L, B, M, 2*n]
+// holds one fp32 scale per (row, head of the 2n K and V heads), with its
+// own layer offset.  The dequant follows the TPU kernel's order
+// (decode_attention.py:123-142): score = (q . k_int8) * scale *
+// k_scale[j, h], the ALiBi bias added after the K scale; l sums the
+// unscaled p; the accumulator takes (p * v_scale[j, h]) * v_int8.  The
+// rows never expand to a float copy in memory: an int8 row moves half the
+// bytes of a bf16 one, plus 8 bytes of scales per (row, head).
+//
 // Block: one (head, sample); 4 warps stride over the live keys; lane l
 // owns head features kPer*l .. kPer*l + kPer - 1 (kPer = D / 32: two at
-// d = 64, four at d = 128, read as one 4- or 8-byte load).  Warps merge
+// d = 64, four at d = 128, read as one 4- or 8-byte load; int8: one 2- or
+// 4-byte load).  Warps merge
 // their partial softmax states through shared memory at the end.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -61,6 +75,23 @@ __device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
   }
 }
 
+// kPer consecutive int8 values at p (aligned to kPer bytes) -> fp32
+template <int kPer>
+__device__ __forceinline__ void load_row(const int8_t* p, float* out) {
+  if constexpr (kPer == 2) {
+    const char2 c = *reinterpret_cast<const char2*>(p);
+    out[0] = c.x;
+    out[1] = c.y;
+  } else {
+    static_assert(kPer == 4, "head dim 64 or 128");
+    const char4 c = *reinterpret_cast<const char4*>(p);
+    out[0] = c.x;
+    out[1] = c.y;
+    out[2] = c.z;
+    out[3] = c.w;
+  }
+}
+
 template <int kPer>
 __device__ __forceinline__ void store_row(__nv_bfloat16* p, const float* v) {
   if constexpr (kPer == 2) {
@@ -80,20 +111,28 @@ __device__ __forceinline__ float alibi_slope(int h, int n) {
   return exp2f(e);
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kInt8>
 __global__ void __launch_bounds__(kWarps * 32)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
-                   long long q_sh, const __nv_bfloat16* __restrict__ ckv,
+                   long long q_sh, const void* __restrict__ ckv,
+                   const float* __restrict__ kv_scales,
                    __nv_bfloat16* __restrict__ out,
                    const int* __restrict__ cache_len,
                    const int* __restrict__ valid_from, int n, int M,
-                   long long layer_offset, float scale) {
+                   long long layer_offset, long long scale_layer_offset,
+                   float scale) {
+  using T = std::conditional_t<kInt8, int8_t, __nv_bfloat16>;
   constexpr int kPer = D / 32;
   const int h = blockIdx.x, b = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const long long nd = (long long)n * D;
   const long long row_stride = 2 * nd;
-  const __nv_bfloat16* base = ckv + layer_offset + (long long)b * M * row_stride;
+  const T* base = static_cast<const T*>(ckv) + layer_offset +
+                  (long long)b * M * row_stride;
+  // the (row, head) scales of sample b: K at column h, V at n + h
+  const float* sc = kInt8 ? kv_scales + scale_layer_offset +
+                                (long long)b * M * 2 * n + h
+                          : nullptr;
 
   float qf[kPer];
   load_row<kPer>(q + b * q_sb + h * q_sh + kPer * lane, qf);
@@ -107,13 +146,17 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
   for (int j0 = lo + warp * kRows; j0 <= hi; j0 += kWarps * kRows) {
     // all K and V loads of the step first (rows past hi re-read row hi
     // and are masked below), so their latencies overlap
-    float kf[kRows][kPer], vf[kRows][kPer];
+    float kf[kRows][kPer], vf[kRows][kPer], ks[kRows], vs[kRows];
 #pragma unroll
     for (int t = 0; t < kRows; ++t) {
       const int j = min(j0 + t, hi);
-      const __nv_bfloat16* row = base + j * row_stride + h * D + kPer * lane;
+      const T* row = base + j * row_stride + h * D + kPer * lane;
       load_row<kPer>(row, kf[t]);
       load_row<kPer>(row + nd, vf[t]);
+      if (kInt8) {
+        ks[t] = sc[(long long)j * 2 * n];
+        vs[t] = sc[(long long)j * 2 * n + n];
+      }
     }
     float s[kRows];
 #pragma unroll
@@ -135,7 +178,9 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
     float x[kRows], m_new = m;
 #pragma unroll
     for (int t = 0; t < kRows; ++t) {
-      x[t] = j0 + t <= hi ? s[t] * scale : -INFINITY;
+      float st = s[t] * scale;
+      if (kInt8) st *= ks[t];  // K dequant, before the bias
+      x[t] = j0 + t <= hi ? st : -INFINITY;
       if (kAlibi) x[t] += slope * (float)(j0 + t);
       m_new = fmaxf(m_new, x[t]);
     }
@@ -147,8 +192,9 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
     for (int t = 0; t < kRows; ++t) {
       const float p = __expf(x[t] - m_new);
       l += p;
+      const float pv = kInt8 ? p * vs[t] : p;  // V dequant folds into p
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[i] += p * vf[t][i];
+      for (int i = 0; i < kPer; ++i) acc[i] += pv * vf[t][i];
     }
     m = m_new;
   }
@@ -184,46 +230,58 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
   }
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kInt8>
 void launch(const void* q, long long q_sb, long long q_sh, const void* ckv,
-            void* out, const void* cache_len, const void* valid_from, int B,
-            int n, int M, long long layer_offset, float scale,
+            const void* kv_scales, void* out, const void* cache_len,
+            const void* valid_from, int B, int n, int M,
+            long long layer_offset, long long scale_layer_offset, float scale,
             cudaStream_t stream) {
   dim3 grid(n, B);
-  decode_attn_kernel<D, kAlibi><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), q_sb, q_sh,
-      static_cast<const __nv_bfloat16*>(ckv),
-      static_cast<__nv_bfloat16*>(out), static_cast<const int*>(cache_len),
-      static_cast<const int*>(valid_from), n, M, layer_offset, scale);
+  decode_attn_kernel<D, kAlibi, kInt8><<<grid, kWarps * 32, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), q_sb, q_sh, ckv,
+      static_cast<const float*>(kv_scales), static_cast<__nv_bfloat16*>(out),
+      static_cast<const int*>(cache_len), static_cast<const int*>(valid_from),
+      n, M, layer_offset, scale_layer_offset, scale);
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes).  q: [B, n, head_dim] bf16 with
 // batch stride q_sb and head stride q_sh (elements; the head dim
-// contiguous); ckv: contiguous [L, B, M, 2*n*head_dim] bf16; out:
-// contiguous [B, n*head_dim] bf16; cache_len, valid_from: int32 [B] on the
-// device; layer_offset = lidx * B * M * 2*n*head_dim; head_dim 64 or 128;
-// alibi != 0 adds the standard ALiBi ladder.  Returns cudaGetLastError(),
-// or cudaErrorInvalidValue for a head dim it was not built for.
-extern "C" int ymt_decode_attention_bf16(const void* q, long long q_sb,
-                                         long long q_sh, const void* ckv,
-                                         void* out, const void* cache_len,
-                                         const void* valid_from, int B, int n,
-                                         int M, long long layer_offset,
-                                         float scale, int head_dim, int alibi,
-                                         void* stream) {
+// contiguous); ckv: contiguous [L, B, M, 2*n*head_dim], bf16, or int8 when
+// kv_scales is not null; kv_scales: null, or contiguous fp32 [L, B, M,
+// 2*n]; out: contiguous [B, n*head_dim] bf16; cache_len, valid_from: int32
+// [B] on the device; layer_offset = lidx * B * M * 2*n*head_dim,
+// scale_layer_offset = lidx * B * M * 2*n; head_dim 64 or 128; alibi != 0
+// adds the standard ALiBi ladder.  Returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a head dim it was not built for.
+extern "C" int ymt_decode_attention(const void* q, long long q_sb,
+                                    long long q_sh, const void* ckv,
+                                    const void* kv_scales, void* out,
+                                    const void* cache_len,
+                                    const void* valid_from, int B, int n,
+                                    int M, long long layer_offset,
+                                    long long scale_layer_offset, float scale,
+                                    int head_dim, int alibi, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-#define YMT_DECODE(D, A)                                                      \
-  launch<D, A>(q, q_sb, q_sh, ckv, out, cache_len, valid_from, B, n, M,      \
-               layer_offset, scale, s)
+  const bool int8 = kv_scales != nullptr;
+#define YMT_DECODE(D, A, Q)                                                   \
+  launch<D, A, Q>(q, q_sb, q_sh, ckv, kv_scales, out, cache_len, valid_from, \
+                  B, n, M, layer_offset, scale_layer_offset, scale, s)
+#define YMT_DECODE_D(D)                                                       \
+  if (int8) {                                                                 \
+    alibi ? YMT_DECODE(D, true, true) : YMT_DECODE(D, false, true);           \
+  } else {                                                                    \
+    alibi ? YMT_DECODE(D, true, false) : YMT_DECODE(D, false, false);         \
+  }
   if (head_dim == 64) {
-    alibi ? YMT_DECODE(64, true) : YMT_DECODE(64, false);
+    YMT_DECODE_D(64)
   } else if (head_dim == 128) {
-    alibi ? YMT_DECODE(128, true) : YMT_DECODE(128, false);
+    YMT_DECODE_D(128)
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef YMT_DECODE_D
 #undef YMT_DECODE
   return (int)cudaGetLastError();
 }

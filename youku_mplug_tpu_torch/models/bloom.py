@@ -34,6 +34,12 @@ decode kernel, handed q as a [B, n, d] head-strided view of the fused
 row; a longer chunk (prefill) runs plain attention over the layer view
 with the ALiBi bias plus the ``valid_from``/causal mask as an additive
 fp32 minimum.
+
+int8 serving, as in ``models/gpt3.py``: a quantized decoder scales each
+product's output channels (the qkv scales on the head-major lanes) before
+its LoRA delta and bias; with ``kv_cache_dtype: int8`` prefill reads the
+written layer back dequantized and decode runs the int8 ALiBi decode
+kernel.
 """
 
 from __future__ import annotations
@@ -46,7 +52,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from youku_mplug_tpu_torch.models.gpt3 import CacheLen, TiedEmbedding, _param
+from youku_mplug_tpu_torch.models.gpt3 import (
+    KV_CACHE_DTYPES,
+    CacheLen,
+    TiedEmbedding,
+    _init_cache,
+    _param,
+    qscaled,
+)
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
 from youku_mplug_tpu_torch.ops.attention import NEG_INF, mha_reference
 from youku_mplug_tpu_torch.ops.cross_entropy import (
@@ -87,8 +100,13 @@ class BloomConfig:
     lora_rank: int = 0
     lora_alpha: float = 16.0
     lora_targets: tuple = LORA_TARGETS
+    # "auto": the compute dtype; "int8": per-(token, head) quantized
+    kv_cache_dtype: str = "auto"
 
     def __post_init__(self):
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
+                             f"{KV_CACHE_DTYPES}")
         # a YAML list becomes the tuple the JAX config holds
         object.__setattr__(self, "lora_targets", tuple(self.lora_targets))
         unknown = set(self.lora_targets) - set(LORA_TARGETS)
@@ -179,7 +197,7 @@ class BloomAttention(_LoRA):
         self._add_lora(cfg, num_layers, dtype,
                        {"qkv": (h, 3 * n * d), "out": (n * d, h)})
 
-    def forward(self, x, lidx: int, cache: Optional[torch.Tensor] = None,
+    def forward(self, x, lidx: int, cache: Optional[kvc.Cache] = None,
                 cache_len: CacheLen = 0,
                 valid_from: Optional[torch.Tensor] = None):
         """x [B, S, H] -> [B, S, H].  Without a cache: causal ALiBi
@@ -192,6 +210,7 @@ class BloomAttention(_LoRA):
         b, s, _ = x.shape
         dt = x.dtype
         qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
+        qkv = qscaled(qkv, self, "qkv_kernel", lidx)
         qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
         qkv = _plus(qkv, self.delta("qkv", lidx, x))
         qkv5 = qkv.unflatten(-1, (n, 3, d))  # head-major [B, S, n, 3, d]
@@ -204,13 +223,16 @@ class BloomAttention(_LoRA):
                              qkv5[..., 2, :].reshape(b, s, nd)], dim=-1)
             kvc.cache_write(cache, kvp, cache_len, lidx)  # [K | V] rows
             if s == 1:
-                out = decode_attention(qkv5[:, 0, :, 0, :], cache, n, lidx,
+                rows, scales = kvc.leaves(cache)
+                out = decode_attention(qkv5[:, 0, :, 0, :], rows, n, lidx,
                                        cache_len, valid_from,
-                                       alibi_slopes=self.slopes)[:, None]
+                                       alibi_slopes=self.slopes,
+                                       kv_scales=scales)[:, None]
             else:
                 out = self._prefill_attention(qkv5, lidx, cache, cache_len,
                                               valid_from)
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
+        y = qscaled(y, self, "out_kernel", lidx)
         y = _plus(y, self.delta("out", lidx, out))
         return y + self.out_bias[lidx].to(dt)
 
@@ -218,7 +240,8 @@ class BloomAttention(_LoRA):
         n, d = self.n, self.d
         nd = n * d
         b, s = qkv5.shape[:2]
-        ckv = kvc.layer_slice(cache, lidx)  # [B, M, 2nd] view
+        # [B, M, 2nd]: a view, or the int8 layer dequantized
+        ckv = kvc.layer_dequant(kvc.layer_slice(cache, lidx), n, qkv5.dtype)
         m = ckv.shape[1]
         dev = qkv5.device
         q = qkv5[..., 0, :].transpose(1, 2)                  # [B, n, S, d]
@@ -255,11 +278,12 @@ class BloomMLP(_LoRA):
 
     def forward(self, x, lidx: int):
         dt = x.dtype
-        y = _plus(x @ self.fc1_kernel[lidx].to(dt), self.delta("fc1", lidx, x))
+        y = _plus(qscaled(x @ self.fc1_kernel[lidx].to(dt), self,
+                          "fc1_kernel", lidx), self.delta("fc1", lidx, x))
         # BloomGelu is the tanh-approximate GELU
         y = F.gelu(y + self.fc1_bias[lidx].to(dt), approximate="tanh")
-        out = _plus(y @ self.fc2_kernel[lidx].to(dt),
-                    self.delta("fc2", lidx, y))
+        out = _plus(qscaled(y @ self.fc2_kernel[lidx].to(dt), self,
+                            "fc2_kernel", lidx), self.delta("fc2", lidx, y))
         return out + self.fc2_bias[lidx].to(dt)
 
 
@@ -358,21 +382,18 @@ class BloomLM(nn.Module):
         hidden = self.decoder(input_embeds)
         out = {"last_hidden_state": hidden}
         if labels is not None:
-            losses = lm_cross_entropy(hidden, self.word_embeddings.embedding,
-                                      labels)
+            losses = lm_cross_entropy(
+                hidden, self.word_embeddings.table(hidden.dtype), labels)
             out["losses"] = losses
             if loss_mask is not None:
                 out["loss"] = masked_mean_loss(losses[:, :-1], loss_mask)
         return out
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        """Stacked cache [L, B, M, 2*hidden], M rounded up to a multiple of
-        128 as in the JAX package (the extra rows are never attended)."""
-        cfg = self.cfg
-        max_len = -(-max_len // 128) * 128
-        return kvc.make_cache(cfg.num_hidden_layers, batch, max_len,
-                              cfg.hidden_size, self.policy.compute_dtype,
-                              device=device)
+        """Stacked cache [L, B, M, 2*hidden] (the int8 dict with
+        ``kv_cache_dtype: int8``), M rounded up to a multiple of 128 as in
+        the JAX package (the extra rows are never attended)."""
+        return _init_cache(self.cfg, self.policy, batch, max_len, device)
 
     def decode_step(self, input_embeds, cache, cache_len: CacheLen,
                     valid_from=None, position_offset=None):

@@ -15,6 +15,14 @@ drops them), each layer under ``torch.utils.checkpoint`` when
 0 raises.  The cache is ``[L, B, M, 2*hidden]`` with rows
 [K | V] taken straight from the qkv projection's output (``qkv[..., n*d:]``);
 the new rows are written in place before attention reads them.
+
+int8 serving (``ops/quant.py``, ``ops/kv_cache.py``): a decoder quantized
+by ``quant.quantize_decoder_`` multiplies each product's output channels
+by its kernel's scales before the bias, and the int8 tied embedding
+dequantizes the rows it looks up and scales the logits per vocab row.
+With ``kv_cache_dtype: int8`` the cache is the int8 dict: prefill reads
+the written layer back dequantized (the prompt's own keys too, as in the
+JAX package), decode reads it in place through the int8 decode kernel.
 """
 
 from __future__ import annotations
@@ -37,7 +45,10 @@ from youku_mplug_tpu_torch.ops.cross_entropy import (
 from youku_mplug_tpu_torch.ops.decode_attention import decode_attention
 from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
+from youku_mplug_tpu_torch.ops.quant import dequantize, qscale
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
+
+KV_CACHE_DTYPES = ("auto", "int8")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +69,13 @@ class GPT3Config:
     init_method_std: float = 0.02
     remat: bool = False  # checkpoint each layer in training
     ce_chunk: int = 0    # sequence chunk of the LM loss (0: dense)
+    # "auto": the compute dtype; "int8": per-(token, head) quantized
+    kv_cache_dtype: str = "auto"
+
+    def __post_init__(self):
+        if self.kv_cache_dtype not in KV_CACHE_DTYPES:
+            raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
+                             f"{KV_CACHE_DTYPES}")
 
     @property
     def ffn_dim(self) -> int:
@@ -95,6 +113,17 @@ def _param(*shape, dtype) -> nn.Parameter:
 CacheLen = Union[int, torch.Tensor]
 
 
+def qscaled(y: torch.Tensor, mod: nn.Module, name: str,
+            lidx: Optional[int] = None) -> torch.Tensor:
+    """``y`` (a product with ``mod.<name>``) times that kernel's
+    per-output-channel int8 scales (layer ``lidx`` of a stack) in y's
+    dtype; ``y`` itself for a float kernel."""
+    s = qscale(mod, name)
+    if s is None:
+        return y
+    return y * (s if lidx is None else s[lidx]).reshape(-1).to(y.dtype)
+
+
 class GPT3Attention(nn.Module):
     """Self-attention with a fused QKV projection and the stacked cache.
     Parameters carry a leading [L] layer dimension."""
@@ -108,7 +137,7 @@ class GPT3Attention(nn.Module):
         self.out_kernel = _param(num_layers, n, d, h, dtype=dtype)
         self.out_bias = _param(num_layers, h, dtype=dtype)
 
-    def forward(self, x, lidx: int, cache: Optional[torch.Tensor] = None,
+    def forward(self, x, lidx: int, cache: Optional[kvc.Cache] = None,
                 cache_len: CacheLen = 0,
                 valid_from: Optional[torch.Tensor] = None):
         """x [B, S, H] -> [B, S, H].  Without a cache: causal attention over
@@ -123,6 +152,7 @@ class GPT3Attention(nn.Module):
         b, s, _ = x.shape
         dt = x.dtype
         qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
+        qkv = qscaled(qkv, self, "qkv_kernel", lidx)
         qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
         if cache is None:
             out = flash_attention_packed(qkv[..., :nd], qkv[..., nd:2 * nd],
@@ -132,6 +162,7 @@ class GPT3Attention(nn.Module):
             out = self._cache_attention(qkv, lidx, cache, cache_len,
                                         valid_from)
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
+        y = qscaled(y, self, "out_kernel", lidx)
         return y + self.out_bias[lidx].to(dt)
 
     def _cache_attention(self, qkv, lidx, cache, cache_len, valid_from):
@@ -139,9 +170,11 @@ class GPT3Attention(nn.Module):
         nd = n * d
         b, s, _ = qkv.shape
         if s == 1:
-            return decode_attention(qkv[:, 0, :nd], cache, n, lidx, cache_len,
-                                    valid_from)[:, None]
-        ckv = kvc.layer_slice(cache, lidx)  # [B, M, 2nd] view
+            rows, scales = kvc.leaves(cache)
+            return decode_attention(qkv[:, 0, :nd], rows, n, lidx, cache_len,
+                                    valid_from, kv_scales=scales)[:, None]
+        # [B, M, 2nd]: a view, or the int8 layer dequantized
+        ckv = kvc.layer_dequant(kvc.layer_slice(cache, lidx), n, qkv.dtype)
         m = ckv.shape[1]
         q = qkv[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
         ck = ckv[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
@@ -174,10 +207,11 @@ class GPT3MLP(nn.Module):
 
     def forward(self, x, lidx: int):
         dt = x.dtype
-        y = x @ self.fc1_kernel[lidx].to(dt)
+        y = qscaled(x @ self.fc1_kernel[lidx].to(dt), self, "fc1_kernel", lidx)
         # fused bias + tanh-approx gelu (megatron bias_gelu contract)
         y = F.gelu(y + self.fc1_bias[lidx].to(dt), approximate="tanh")
-        return y @ self.fc2_kernel[lidx].to(dt) + self.fc2_bias[lidx].to(dt)
+        y = qscaled(y @ self.fc2_kernel[lidx].to(dt), self, "fc2_kernel", lidx)
+        return y + self.fc2_bias[lidx].to(dt)
 
 
 class GPT3Layer(nn.Module):
@@ -238,29 +272,69 @@ class GPT3Decoder(nn.Module):
                           eps=self.cfg.layernorm_epsilon)
 
 
+_VOCAB_CHUNK = 32768  # rows of an int8 table converted at once (256 MB)
+
+
 class TiedEmbedding(nn.Module):
-    """Token embedding [V, H] with the tied logits head."""
+    """Token embedding [V, H] with the tied logits head.  An int8 table
+    (``quant.quantize_decoder_(..., include_embedding=True)``) carries
+    per-vocab-row scales [V, 1]: lookups dequantize the gathered rows,
+    the logits are the product with the int8 values times the row's
+    scale."""
 
     def __init__(self, num_embeddings: int, features: int, dtype):
         super().__init__()
         self.embedding = _param(num_embeddings, features, dtype=dtype)
 
     def encode(self, tokens, dtype):
-        return F.embedding(tokens, self.embedding).to(dtype)
+        rows = F.embedding(tokens, self.embedding)
+        s = qscale(self, "embedding")
+        if s is not None:
+            rows = rows.float() * F.embedding(tokens, s)
+        return rows.to(dtype)
 
     def attend(self, hidden):
         """fp32 logits of a product with fp32 accumulation, as the JAX
         package computes them.  bf16 hidden states on the card take one
         bf16 x bf16 product with an fp32 output (no fp32 copy of the
-        [V, H] table per call: 4 GB at Bloom's 250880 x 4096); elsewhere
-        the fp32 product of the same values, which equals it because bf16
-        products are exact in fp32."""
-        emb = self.embedding.to(hidden.dtype)
+        [V, H] table per call: 4 GB at Bloom's 250880 x 4096), an int8
+        table converted to bf16 a vocab chunk at a time (no 2 GB bf16 copy
+        held); elsewhere the fp32 product of the same values, which equals
+        it because bf16 products are exact in fp32."""
+        s = qscale(self, "embedding")
+        h2 = hidden.reshape(-1, hidden.shape[-1])
         if hidden.is_cuda and hidden.dtype == torch.bfloat16:
-            y = torch.mm(hidden.reshape(-1, hidden.shape[-1]), emb.t(),
-                         out_dtype=torch.float32)
-            return y.reshape(*hidden.shape[:-1], y.shape[-1])
-        return hidden.float() @ emb.float().t()
+            if s is None:
+                y = torch.mm(h2, self.embedding.to(h2.dtype).t(),
+                             out_dtype=torch.float32)
+            else:
+                y = torch.empty(h2.shape[0], self.embedding.shape[0],
+                                dtype=torch.float32, device=hidden.device)
+                for i in range(0, y.shape[1], _VOCAB_CHUNK):
+                    chunk = self.embedding[i:i + _VOCAB_CHUNK].to(h2.dtype)
+                    y[:, i:i + _VOCAB_CHUNK] = torch.mm(
+                        h2, chunk.t(), out_dtype=torch.float32)
+        else:
+            y = h2.float() @ self.embedding.to(hidden.dtype).float().t()
+        if s is not None:
+            y = y * s.reshape(-1)
+        return y.reshape(*hidden.shape[:-1], y.shape[-1])
+
+    def table(self, dtype):
+        """The [V, H] table in ``dtype`` (dequantized if int8): the
+        training loss's operand."""
+        s = qscale(self, "embedding")
+        if s is not None:
+            return dequantize(self.embedding, s, dtype)
+        return self.embedding.to(dtype)
+
+
+def _init_cache(cfg, policy: Policy, batch: int, max_len: int, device):
+    max_len = -(-max_len // 128) * 128
+    return kvc.make_cache(cfg.num_hidden_layers, batch, max_len,
+                          cfg.hidden_size, policy.compute_dtype,
+                          device=device, num_heads=cfg.num_attention_heads,
+                          quantized=cfg.kv_cache_dtype == "int8")
 
 
 class GPT3LM(nn.Module):
@@ -298,7 +372,7 @@ class GPT3LM(nn.Module):
         out = {"last_hidden_state": hidden}
         if labels is not None:
             losses = lm_cross_entropy(
-                hidden, self.word_embeddings.embedding, labels,
+                hidden, self.word_embeddings.table(hidden.dtype), labels,
                 chunk=self.cfg.ce_chunk)
             out["losses"] = losses
             if loss_mask is not None:
@@ -306,13 +380,10 @@ class GPT3LM(nn.Module):
         return out
 
     def init_cache(self, batch: int, max_len: int, device=None):
-        """Stacked cache [L, B, M, 2*hidden], M rounded up to a multiple of
-        128 as in the JAX package (the extra rows are never attended)."""
-        cfg = self.cfg
-        max_len = -(-max_len // 128) * 128
-        return kvc.make_cache(cfg.num_hidden_layers, batch, max_len,
-                              cfg.hidden_size, self.policy.compute_dtype,
-                              device=device)
+        """Stacked cache [L, B, M, 2*hidden] (the int8 dict with
+        ``kv_cache_dtype: int8``), M rounded up to a multiple of 128 as in
+        the JAX package (the extra rows are never attended)."""
+        return _init_cache(self.cfg, self.policy, batch, max_len, device)
 
     def decode_step(self, input_embeds, cache, cache_len: CacheLen,
                     valid_from=None, position_offset=None):

@@ -205,7 +205,8 @@ class MPLUGOwlVideo(nn.Module):
 
     def spliced_embeds(self, input_ids, media_mask, query_features):
         """Raw prompt embeddings [B, S, H] with the media features at the
-        media positions."""
+        media positions; the token rows come from the decoder's tied
+        embedding, dequantized when it is int8."""
         return splice_media(self.text_decoder.embed(input_ids),
                             query_features, media_mask)
 

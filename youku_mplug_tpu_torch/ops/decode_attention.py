@@ -1,18 +1,21 @@
 """Decode attention over the stacked packed KV cache, read in place.
 
 Counterpart of ``youku_mplug_tpu/ops/decode_attention.py`` for the bf16
-cache, with and without the ALiBi ladder (the Bloom decoder): one query
-token per sample attends to layer ``layer_idx`` of the stacked cache
-``[L, B, M, 2*n*d]`` (rows = [K | V]), over the live keys
-``valid_from[b] <= j <= cache_len[b]``; the caller writes the new token's
-row at ``cache_len[b]`` first.  A sample with no live key gets zeros.
-With ``alibi_slopes`` the score of key j is ``scale * q.k + slope_h * j``.
+cache and the int8 cache with per-(token, head) scales, each with and
+without the ALiBi ladder (the Bloom decoder): one query token per sample
+attends to layer ``layer_idx`` of the stacked cache ``[L, B, M, 2*n*d]``
+(rows = [K | V]), over the live keys ``valid_from[b] <= j <= cache_len[b]``;
+the caller writes the new token's row at ``cache_len[b]`` first.  A
+sample with no live key gets zeros.  With ``alibi_slopes`` the score of
+key j is ``scale * q.k + slope_h * j``.  With ``kv_scales`` (fp32
+[L, B, M, 2*n], ``ops/kv_cache.py``) the cache is int8 and K and V
+dequantize per (row, head).
 
 The wrapper runs ``decode_attention_plain`` for CPU tensors and launches
 the CUDA kernel (``csrc/decode_attention.cu``, head dim 64 or 128) for
 CUDA tensors, or raises.  ``decode_attention.launches`` counts kernel
-launches without ALiBi, ``decode_attention.alibi_launches`` those with
-it.  The int8 cache with per-head scales is not ported yet.
+launches on a bf16 cache without ALiBi, ``alibi_launches`` those with it,
+``int8_launches`` and ``int8_alibi_launches`` the same on an int8 cache.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import numpy as np
 import torch
 
 from youku_mplug_tpu_torch.ops import _native
+from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
 HEAD_DIMS = (64, 128)  # the head widths the kernel is built for
 
@@ -71,11 +75,14 @@ def _per_sample(x: Union[int, torch.Tensor], b: int, device) -> torch.Tensor:
 def decode_attention_plain(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
                            layer_idx: int, cache_len, valid_from=None, *,
                            scale: Optional[float] = None,
-                           alibi_slopes=None) -> torch.Tensor:
+                           alibi_slopes=None,
+                           kv_scales: Optional[torch.Tensor] = None
+                           ) -> torch.Tensor:
     """Plain version of the kernel (fp32 scores, bias, probabilities and
     accumulation). q [B, n*d] or [B, n, d]; ckv [L, B, M, 2*n*d];
-    alibi_slopes: optional [n] per-head slopes (any values); returns
-    [B, n*d] in q.dtype."""
+    alibi_slopes: optional [n] per-head slopes (any values); kv_scales:
+    optional [L, B, M, 2*n] scales of an int8 ``ckv``, which dequantizes to
+    fp32 first; returns [B, n*d] in q.dtype."""
     b = q.shape[0]
     q = q.reshape(b, -1)
     nd = q.shape[1]
@@ -84,6 +91,9 @@ def decode_attention_plain(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
     if scale is None:
         scale = d ** -0.5
     layer = ckv[layer_idx]
+    if kv_scales is not None:
+        layer = kvc.dequantize_rows(layer, kv_scales[layer_idx], n_heads,
+                                    torch.float32)
     k = layer[..., :nd].unflatten(-1, (n_heads, d)).float()
     v = layer[..., nd:].unflatten(-1, (n_heads, d)).float()
     s = torch.einsum("bnd,bmnd->bnm", q.float().unflatten(-1, (n_heads, d)),
@@ -108,29 +118,42 @@ def decode_attention_plain(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
 def decode_attention(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
                      layer_idx: int, cache_len, valid_from=None, *,
                      scale: Optional[float] = None,
-                     alibi_slopes=None) -> torch.Tensor:
+                     alibi_slopes=None,
+                     kv_scales: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """Single-token attention against layer ``layer_idx`` of the stacked
     packed cache.  q: [B, n*d] or [B, n, d] (any batch and head strides
     with a contiguous d: views of a fused qkv row are fine); ckv:
     [L, B, M, 2*n*d]; cache_len / valid_from: int or [B]; alibi_slopes:
     optional [n] slopes, which must be the standard ladder
-    (``alibi_slopes(n)``).  Returns [B, n*d] in q.dtype."""
+    (``alibi_slopes(n)``); kv_scales: the fp32 [L, B, M, 2*n] scales of an
+    int8 ``ckv`` (``ops/kv_cache.py``).  Returns [B, n*d] in q.dtype."""
     if alibi_slopes is not None:
         _check_ladder(alibi_slopes, n_heads)
+    int8 = kv_scales is not None
+    if int8 and (ckv.dtype != torch.int8 or kv_scales.shape
+                 != ckv.shape[:3] + (2 * n_heads,)):
+        raise ValueError(f"an int8 cache with scales [L, B, M, 2n]; got "
+                         f"{ckv.dtype} {tuple(ckv.shape)}, scales "
+                         f"{tuple(kv_scales.shape)}, n={n_heads}")
     if q.device.type == "cpu":
         return decode_attention_plain(q, ckv, n_heads, layer_idx, cache_len,
                                       valid_from, scale=scale,
-                                      alibi_slopes=alibi_slopes)
+                                      alibi_slopes=alibi_slopes,
+                                      kv_scales=kv_scales)
     if q.device.type != "cuda":
         raise RuntimeError(f"no decode attention kernel for {q.device}")
     n_layers, b, m, nd2 = ckv.shape
     nd = nd2 // 2
     d = nd // n_heads
-    if q.dtype != torch.bfloat16 or ckv.dtype != torch.bfloat16 \
-            or ckv.device != q.device:
-        raise TypeError("decode kernel: q and the cache must be bf16 on one "
-                        f"device; got {q.dtype}/{ckv.dtype} on "
-                        f"{q.device}/{ckv.device}")
+    cache_dtype = torch.int8 if int8 else torch.bfloat16
+    if q.dtype != torch.bfloat16 or ckv.dtype != cache_dtype \
+            or ckv.device != q.device or (int8 and (
+                kv_scales.dtype != torch.float32
+                or kv_scales.device != q.device)):
+        raise TypeError("decode kernel: bf16 q and a bf16 cache (or an int8 "
+                        "cache with fp32 scales) on one device; got "
+                        f"{q.dtype}/{ckv.dtype} on {q.device}/{ckv.device}")
     q3 = q.unflatten(-1, (n_heads, d)) if q.dim() == 2 else q
     if d not in HEAD_DIMS or nd != n_heads * d \
             or q3.shape != (b, n_heads, d):
@@ -139,7 +162,8 @@ def decode_attention(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
                          f"{tuple(q.shape)}, n={n_heads}, cache "
                          f"{tuple(ckv.shape)}")
     per = d // 32  # bf16 values one lane loads at once
-    if not ckv.is_contiguous() or q3.stride(2) != 1 \
+    if not ckv.is_contiguous() or (int8 and not kv_scales.is_contiguous()) \
+            or q3.stride(2) != 1 \
             or q3.stride(0) % per or q3.stride(1) % per \
             or q3.data_ptr() % (2 * per):
         raise ValueError("decode kernel: needs a contiguous cache and q "
@@ -154,18 +178,20 @@ def decode_attention(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
                      q.device).contiguous()
     out = torch.empty(b, nd, dtype=q.dtype, device=q.device)
     alibi = alibi_slopes is not None
-    err = _native.library().ymt_decode_attention_bf16(
+    err = _native.library().ymt_decode_attention(
         q3.data_ptr(), q3.stride(0), q3.stride(1), ckv.data_ptr(),
-        out.data_ptr(), cl.data_ptr(), vf.data_ptr(), b, n_heads, m,
-        layer_idx * b * m * nd2, float(scale), d, int(alibi),
-        _native.stream_handle(q))
-    _native.check_launch(err, "ymt_decode_attention_bf16")
-    if alibi:
-        decode_attention.alibi_launches += 1
-    else:
-        decode_attention.launches += 1
+        kv_scales.data_ptr() if int8 else None, out.data_ptr(),
+        cl.data_ptr(), vf.data_ptr(), b, n_heads, m,
+        layer_idx * b * m * nd2, layer_idx * b * m * 2 * n_heads,
+        float(scale), d, int(alibi), _native.stream_handle(q))
+    _native.check_launch(err, "ymt_decode_attention")
+    counter = ("int8_" if int8 else "") + ("alibi_" if alibi else "") \
+        + "launches"
+    setattr(decode_attention, counter, getattr(decode_attention, counter) + 1)
     return out
 
 
 decode_attention.launches = 0
 decode_attention.alibi_launches = 0
+decode_attention.int8_launches = 0
+decode_attention.int8_alibi_launches = 0

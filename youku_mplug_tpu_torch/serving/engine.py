@@ -2,12 +2,13 @@
 
 Counterpart of ``youku_mplug_tpu/serving/engine.py`` (single-step
 scheduling, greedy decoding): a fixed pool of slots shares one stacked KV
-cache [L, num_slots, M, 2*hidden]; every slot sits at its own sequence
-length.  Prefill runs one request's front-padded [queries | prompt] chunk
-(or its pre-built prompt embeddings, the Owl instruct path) into its
-slot, writing the slot's rows of the cache in place; decode
-advances ALL slots one token in one step (inactive slots compute too and
-are ignored on the host — their repeated write lands at a masked
+cache [L, num_slots, M, 2*hidden] (bf16, or the int8 dict of
+``ops/kv_cache.py`` when the model's config says ``kv_cache_dtype:
+int8``); every slot sits at its own sequence length.  Prefill runs one
+request's front-padded [queries | prompt] chunk (or its pre-built prompt
+embeddings, the Owl instruct path) into its slot, writing the slot's rows
+of the cache in place; decode advances ALL slots one token in one step
+(inactive slots compute too and are ignored on the host — their repeated write lands at a masked
 position and is overwritten when the slot is reused).  Requests are
 admitted whenever a slot is free.  Prompt widths are padded to a small
 set of buckets.  Multi-step dispatch, prompt-lookup speculation and
@@ -30,6 +31,7 @@ from youku_mplug_tpu_torch.models.generation import (
 )
 from youku_mplug_tpu_torch.models.bloom import BloomLM
 from youku_mplug_tpu_torch.models.gpt3 import GPT3LM
+from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
 
 @dataclasses.dataclass
@@ -103,11 +105,12 @@ class ServingEngine:
                       prompt_len: torch.Tensor, query_embeds,
                       prompt_embeds=None):
         """Run one request's prompt into its slot's cache rows (in place,
-        through a view of the slot).  prompt_ids [1, P] right-padded;
-        prompt_len [1]; query_embeds [1, nq, H] or None; prompt_embeds
-        [1, P, H] or None (pre-built prompt embeddings).  Returns
+        through a view of the slot in every cache leaf).  prompt_ids
+        [1, P] right-padded; prompt_len [1]; query_embeds [1, nq, H] or
+        None; prompt_embeds [1, P, H] or None (pre-built prompt
+        embeddings).  Returns
         (first_token, valid_from) as tensors."""
-        sub = self.cache[:, slot:slot + 1]
+        sub = kvc.slot_view(self.cache, slot)
         embeds, valid_from, pos_offset = _build_prefix(
             self.model, prompt_ids, prompt_len, query_embeds,
             self.config.pad_id, prompt_embeds)
