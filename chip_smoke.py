@@ -11,9 +11,13 @@ the last line is printed):
 2. each kernel against its plain PyTorch version, in bf16, at the shapes
    the serving, training and instruct paths give it, with the kernel's,
    the plain version's and F.scaled_dot_product_attention's times from
-   CUDA events and the bound from this run's inputs: the forward (K1
-   none / period, K4) at the serving shapes and K1 at the CLIP ViT-L/14
-   frame shapes, then at each of the four training shapes (vision
+   CUDA events, the bound from this run's inputs and, for the flash
+   kernels, their times before the wgmma redesign (``ms_pr5``);
+   the card's name, power limit, SM clock and power draw sampled under
+   load: the forward (K1 none / period; K4 at the serving batch, split
+   two ways, at the pretrain batch, and split three ways over a ragged
+   1000 keys with kv_len 900) at the serving shapes and K1 at the CLIP
+   ViT-L/14 frame shapes, then at each of the four training shapes (vision
    spatial, grouped temporal with period 8, decoder causal,
    AttentionPool head-major, plus a small kv_len case) and the five
    ALiBi / head dim 128 shapes (Bloom training [8, 105, 32x128], S 768,
@@ -224,8 +228,11 @@ def phase_device_and_build():
             m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
                           r"decode_attn)_kernelILi(\d+)ELb([01])E"
                           r"(?:Lb([01])E)?", line)
+            merge = re.search(r"(flash_fwd_merge|flash_dq_reduce)_kernel"
+                              r"ILi(\d+)E", line)
             entry = (f"{m[1]}<{m[2]},{'alibi' if m[3] == '1' else 'plain'}"
                      f"{',int8' if m[4] == '1' else ''}>" if m
+                     else f"{merge[1]}<{merge[2]}>" if merge
                      else "quantize_scatter" if "quantize_scatter" in line
                      else "?")
         elif "spill stores" in line:
@@ -351,9 +358,13 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
              f"{lse_err} (tol {LSE_TOL})")
     do = fa._head_major_empty(q).copy_(rand(b, n, sq, d))
     lib_fwd, lib_bwd = _library_ms(q, k, v, mask_kw, do)
+    before = WMMA_MS.get(shape, {})
     fwd = {"shape": shape, "on_path": on_path, "max_abs_err": fwd_err,
            "lse_err": lse_err,
+           "splits": fa.kv_splits(b, n, sq, sk, causal=causal, period=period,
+                                  kv_len=kv_len),
            "ms": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, o, **kw), 20),
+           "ms_pr5": before.get("fwd"),
            "plain_ms": time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw),
                                20),
            "library_ms": lib_fwd, **bounds["fwd"]}
@@ -384,7 +395,8 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
         return {"shape": shape, "on_path": on_path,
                 "rel_l2": {gn: errs[gn] for gn in grads},
                 "max_abs_err": max(abs_err[gn] for gn in grads), "ms": ms,
-                "plain_ms": plain_ms, "library_ms": lib_bwd,
+                "ms_pr5": before.get(kind), "plain_ms": plain_ms,
+                "library_ms": lib_bwd,
                 **bounds[kind]}
 
     return {"layout": layout, "fwd": fwd,
@@ -536,6 +548,8 @@ def _entry(name, source, replaces, wrapper, paths, key, per_shape,
     on = [p for p in per_shape if p["on_path"]]
     ops, nbytes = sum(p["ops_ms"] for p in on), sum(p["bytes_ms"] for p in on)
     library = [p["library_ms"] for p in on]
+    flash = source in (FWD_SRC, BWD_SRC)
+    before = [p.get("ms_pr5") for p in on]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "wrapper": wrapper, "counter": counter,
             "paths": paths, "key": key,
@@ -545,6 +559,8 @@ def _entry(name, source, replaces, wrapper, paths, key, per_shape,
             "bound_ms": sum(p["bound_ms"] for p in on),
             "bound_by": "operations" if ops >= nbytes else "bytes",
             "library_ms": None if None in library else sum(library),
+            **({"ms_pr5": None if None in before else sum(before)} if flash
+               else {}),
             "per_shape": per_shape}
 
 
@@ -554,6 +570,28 @@ DEC_SRC = "youku_mplug_tpu_torch/csrc/decode_attention.cu"
 KV_SRC = "youku_mplug_tpu_torch/csrc/kv_cache.cu"
 TPU_FLASH = "youku_mplug_tpu/ops/flash_attention.py"
 TPU_DEC = "youku_mplug_tpu/ops/decode_attention.py"
+# the flash kernels' ms before their wgmma redesign (the WMMA kernels),
+# by shape: PERF.md's section 6 table (this script on an H100 80GB HBM3
+# at 700 W)
+WMMA_MS = {
+    "[64,197,12x64] period 0 (serve)": {"fwd": 0.1657},
+    "[112,112,12x64] period 8 (serve)": {"fwd": 0.0715},
+    "[128,257,16x64] period 0 (instruct)": {"fwd": 0.6391},
+    "[64,257,16x64] period 0 (instruct_train)": {"fwd": 0.3220},
+    "[8,128,12x64] kv 1570 heads (serve)": {"fwd": 0.1088},
+    "[16,128,12x64] kv 1570 heads (train)": {
+        "fwd": 0.1392, "dq": 0.2995, "dkv": 0.3396},
+    "[128,197,12x64] kv 197 packed (train)": {
+        "fwd": 0.3175, "dq": 0.5662, "dkv": 0.7250},
+    "[224,112,12x64] kv 112 period 8 packed (train)": {
+        "fwd": 0.1295, "dq": 0.2583, "dkv": 0.3006},
+    "[16,208,32x64] kv 208 causal packed (train)": {
+        "fwd": 0.0823, "dq": 0.1440, "dkv": 0.1759},
+    "[8,105,32x128] kv 105 causal ALiBi head-major (instruct_train)": {
+        "fwd": 0.0330, "dq": 0.0685, "dkv": 0.0855},
+    "[2,256,32x128] kv 256 causal head-major (d 128 without ALiBi)": {
+        "fwd": 0.0307},
+}
 
 
 def phase_kernels(dev):
@@ -599,29 +637,52 @@ def phase_kernels(dev):
             "lse_err": e_lse,
             "ms": time_ms(lambda: fa.flash_attention_packed(q, k, v, n, **kw),
                           20),
+            "ms_pr5": WMMA_MS.get(shape, {}).get("fwd"),
             "plain_ms": time_ms(lambda: fa.flash_attention_packed_plain(
                 q, k, v, n, **kw), 20),
             "library_ms": lib,
             **_attn_bounds(fa, rows, n, s, s, 64, False, period, None)["fwd"]})
 
-    # K4: AttentionPool, q [8,12,128,64], k/v [8,12,1570,64] (head views)
-    q = rand(8, 128, 768).unflatten(-1, (12, 64)).transpose(1, 2)
-    k, v = (rand(8, 1570, 768).unflatten(-1, (12, 64)).transpose(1, 2)
-            for _ in range(2))
-    got = fa.flash_attention(q, k, v)
-    want = fa.flash_attention_plain(q, k, v)
-    lse = fa.flash_fwd_cuda(q, k, v, torch.empty_like(q), scale=0.125)
-    e, e_lse = err(got, want), err(lse, fa.flash_fwd_plain(q, k, v,
-                                                           scale=0.125)[1])
-    if not (within(got, want) and e_lse <= LSE_TOL):
-        fail(f"K4 AttentionPool: max err {e}, lse {e_lse}")
-    k4 = [{"shape": "[8,128,12x64] kv 1570 heads (serve)", "on_path": True,
-           "max_abs_err": e, "lse_err": e_lse,
-           "ms": time_ms(lambda: fa.flash_attention(q, k, v), 20),
-           "plain_ms": time_ms(lambda: fa.flash_attention_plain(q, k, v),
-                               20),
-           "library_ms": _library_ms(q, k, v, {})[0],
-           **_attn_bounds(fa, 8, 12, 128, 1570, 64, False, 0, None)["fwd"]}]
+    # K4: AttentionPool, q [B,12,128,64] over k/v [B,12,1570,64] (head
+    # views of [B, S, 768] projections) at the serving (B 8, split two
+    # ways) and pretrain (B 16) batches, then a split-KV case off the
+    # paths: ragged Sq and Sk, kv_len < Sk, split three ways
+    k4 = []
+    for b, sq, sk, kv_len, path, on_path in (
+            (8, 128, 1570, None, "serve", True),
+            (16, 128, 1570, None, "train", True),
+            (4, 100, 1000, 900, "split-KV", False)):
+        q = rand(b, sq, 768).unflatten(-1, (12, 64)).transpose(1, 2)
+        k, v = (rand(b, sk, 768).unflatten(-1, (12, 64)).transpose(1, 2)
+                for _ in range(2))
+        splits = fa.kv_splits(b, 12, sq, sk, kv_len=kv_len)
+        got = fa.flash_attention(q, k, v, kv_len=kv_len)
+        want = fa.flash_attention_plain(q, k, v, kv_len=kv_len)
+        lse = fa.flash_fwd_cuda(q, k, v, torch.empty_like(q), scale=0.125,
+                                kv_len=kv_len)
+        e, e_lse = err(got, want), err(lse, fa.flash_fwd_plain(
+            q, k, v, scale=0.125, kv_len=kv_len)[1])
+        shape = (f"[{b},{sq},12x64] kv {sk}"
+                 + (f" kv_len {kv_len}" if kv_len else "")
+                 + f" heads ({path})")
+        if not (within(got, want) and e_lse <= LSE_TOL) or (
+                path == "split-KV" and splits < 2):
+            fail(f"K4 {shape}: max err {e}, lse {e_lse}, {splits} splits")
+        mask_kw = _sdpa_kwargs(fa, q, k, False, 0, kv_len, None)
+        k4.append({
+            "shape": shape, "on_path": on_path, "max_abs_err": e,
+            "lse_err": e_lse, "splits": splits,
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v, kv_len=kv_len),
+                          20),
+            "ms_pr5": WMMA_MS.get(shape, {}).get("fwd"),
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, kv_len=kv_len), 20),
+            "library_ms": _library_ms(q, k, v, mask_kw)[0],
+            **_attn_bounds(fa, b, 12, sq, sk, 64, False, 0, kv_len)["fwd"]})
+    # the clock the kernel times run at: the split-KV case keeps the card
+    # busy while nvidia-smi samples it
+    card_load = _card_under_load(
+        lambda: fa.flash_attention(q, k, v, kv_len=kv_len))
 
     # the forward again, then the backward kernels, at the training shapes
     # (K1 packed and K4 head-major) and at Bloom's ALiBi shapes
@@ -630,14 +691,17 @@ def phase_kernels(dev):
     no_alibi_128 = alibi_cases.pop()
     k1 += [c["fwd"] for c in cases if c["layout"] == "packed"]
     k1.append(no_alibi_128["fwd"])
-    k4 += [c["fwd"] for c in cases if c["layout"] == "heads"]
+    # the pretrain K4 forward is timed above; the small kv_len case here
+    k4 += [c["fwd"] for c in cases
+           if c["layout"] == "heads" and not c["fwd"]["on_path"]]
     report = [
         _entry("K1 flash_attention_packed (vision spatial + temporal, "
                "decoder causal, CLIP ViT-L frames)", FWD_SRC,
                f"{TPU_FLASH}:426", fa.flash_attention_packed,
                ("serve", "train", "instruct", "instruct_train",
                 "serve_int8kv", "instruct_int8"), "K1", k1),
-        _entry("K4 flash_attention (AttentionPool)", FWD_SRC,
+        _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
+               "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
                ("serve", "train", "serve_int8kv"), "K4", k4)]
     for kind, wrapper, line, line_hm in (
@@ -645,7 +709,9 @@ def phase_kernels(dev):
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
         report.append(_entry(
             f"K2/K3 + K4b backward {kind} kernel (flash_bwd_{kind}_cuda; "
-            f"also replaces flash_attention.py:{line_hm})", BWD_SRC,
+            f"also replaces flash_attention.py:{line_hm}"
+            + ("; split shares summed by flash_dq_reduce_kernel"
+               if kind == "dq" else "") + ")", BWD_SRC,
             f"{TPU_FLASH}:{line}", wrapper, ("train",), kind,
             [c[kind] for c in cases] + [no_alibi_128[kind]]))
     report.append(_entry(
@@ -753,14 +819,19 @@ def phase_kernels(dev):
     for r in report:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        before = ("" if r.get("ms_pr5") is None
+                  else f" (WMMA kernels: {r['ms_pr5']:.4f} ms)")
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.3g} | "
-              f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
+              f"kernel {r['ms']:.4f} ms{before} | "
+              f"plain {r['plain_ms']:.4f} ms | "
               f"library {lib} | bound {r['bound_ms']:.4f} "
               f"ms ({r['bound_by']})", flush=True)
         for p in r["per_shape"]:
             print(f"[kernel]   {p['shape']}: "
                   + json.dumps({k: v for k, v in p.items() if k != "shape"}),
                   flush=True)
+    print("[kernel] card under load (name, power limit, SM clock, max SM "
+          "clock, power draw): " + card_load, flush=True)
     print(f"[kernel] tolerances: forward elementwise {KERNEL_TOL:.3g} x "
           f"(1 + |plain|) (K5 int8 too), lse {LSE_TOL}, backward relative "
           f"L2 {BWD_TOL:.3g} per gradient, K6 bitwise; library = "
@@ -770,6 +841,20 @@ def phase_kernels(dev):
           "989 TFLOP/s bf16, 1979 TOP/s int8 (K5 int8) or 67 TFLOP/s fp32 "
           "(K6), bytes / 3.35 TB/s)", flush=True)
     return report
+
+
+def _card_under_load(fn):
+    """nvidia-smi's name, power limit, SM clock (now and its maximum) and
+    power draw, sampled while ``fn`` keeps the card busy (~1 s)."""
+    query = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm,clocks.max.sm,"
+         "power.draw", "--format=csv,noheader"], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    t0 = time.perf_counter()
+    while query.poll() is None and time.perf_counter() - t0 < 30:
+        time_ms(fn, 200)
+    out = query.communicate(timeout=60)[0].strip().splitlines()
+    return out[0] if out else "nvidia-smi gave nothing"
 
 
 def _reset_counts(report):
@@ -1469,9 +1554,10 @@ def main():
     for r in report:
         entry = {k: r[k] for k in ("name", "route", "source", "replaces")}
         entry["launches"] = sum(r["launches_by_path"].values())
-        entry |= {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
-                                    "bound_ms", "bound_by", "library_ms",
-                                    "launches_by_path", "per_shape")}
+        entry |= {k: r[k] for k in ("max_abs_err", "ms", "ms_pr5",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "launches_by_path",
+                                    "per_shape") if k in r}
         kernels.append(entry)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)

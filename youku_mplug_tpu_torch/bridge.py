@@ -1,5 +1,6 @@
 """Weights for the port: load a JAX parameter tree, export one, or a
-seeded init.
+seeded init (``seeded_init`` for serving and the parity tests,
+``jax_init`` with the JAX ``model.init`` rules for the training CLIs).
 
 ``load_jax_params`` turns the JAX package's parameter tree (nested dicts
 of numpy arrays, e.g. ``jax.device_get(params)``) into the port's modules.
@@ -159,6 +160,15 @@ def _is_lora_b(name: str) -> bool:
     return leaf.startswith("lora_") and leaf.endswith("_b")
 
 
+def _lora_stds(module: nn.Module) -> Dict[str, float]:
+    """Each LoRA leaf's init std: its module's ``lora_init_std``."""
+    return {f"{prefix}.{leaf}" if prefix else leaf: m.lora_init_std
+            for prefix, m in module.named_modules()
+            if hasattr(m, "lora_init_std")
+            for leaf, _ in m.named_parameters(recurse=False)
+            if leaf.startswith("lora_")}
+
+
 _DRAW_VALUES = 1 << 26  # 256 MB of fp32
 
 
@@ -172,11 +182,7 @@ def seeded_init(module: nn.Module, seed: int, std: float = 0.02
     if quantized:
         raise TypeError(f"seeded_init draws float weights; int8 parameters "
                         f"{quantized[:3]}: quantize after the init")
-    stds = {f"{prefix}.{leaf}" if prefix else leaf: m.lora_init_std
-            for prefix, m in module.named_modules()
-            if hasattr(m, "lora_init_std")
-            for leaf, _ in m.named_parameters(recurse=False)
-            if leaf.startswith("lora_")}
+    stds = _lora_stds(module)
     gens = {}
     for name in sorted(params):
         p = params[name]
@@ -200,4 +206,128 @@ def seeded_init(module: nn.Module, seed: int, std: float = 0.02
                                        device=p.device,
                                        dtype=torch.float32)
                            * stds.get(name, std))
+    return module
+
+
+# The JAX package's initializers (``model.init``), per leaf:
+#   ("normal", s)   normal of std s (flax ``normal``);
+#   ("trunc", s)    a standard normal truncated to [-2, 2], times s (flax
+#                   ``truncated_normal``: |x| <= 2 s, std ~0.88 s);
+#   ("lecun", _)    flax ``Dense``'s default, lecun_normal: ("trunc",
+#                   1 / sqrt(fan_in) / 0.8796...), std 1 / sqrt(fan_in);
+#   ("xavier", _)   xavier_uniform over the kernel's (in, out);
+#   ("const", v)    every value v.
+VISION_INIT_STD = 0.015  # youku_mplug_tpu/models/vision.py VisionConfig
+_TRUNC2_STD = 0.87962566103423978  # std of a standard normal cut at +-2
+
+
+def _vision_rule(name: str, leaf: str):
+    """TimeSformer / VisionTransformer leaves (``name`` below the tower):
+    truncated normals of std 0.015 (vision.py:120-129); the spatial
+    attention's ``proj`` and the MLP's ``fc2`` divided by sqrt(2 x
+    layer_id) (vision.py:433, :624); ``temporal_fc`` zero past block 1
+    (:447-450); zero ``cls_token`` and ``temporal_embed`` (:563-567)."""
+    block = re.match(r"blocks\.(\d+)\.", name)
+    if leaf in ("cls_token", "temporal_embed"):
+        return ("const", 0.0)
+    if block and leaf == "temporal_fc_kernel" and int(block[1]) > 0:
+        return ("const", 0.0)
+    if block and re.search(r"\.(attn\.proj_kernel|mlp\.fc2_kernel)$", name):
+        return ("trunc", VISION_INIT_STD / (2.0 * (int(block[1]) + 1)) ** 0.5)
+    return ("trunc", VISION_INIT_STD)
+
+
+def _jax_rule(module: nn.Module, name: str, lora_stds: Dict[str, float]):
+    leaf = name.split(".")[-1]
+    root, _, rest = name.partition(".")
+    cfg = module.cfg
+    owl = hasattr(cfg, "abstractor")
+    if name == "temp":
+        return ("const", float(cfg.temp))
+    if _is_lora_b(name):
+        return ("const", 0.0)
+    if name in lora_stds:
+        return ("normal", lora_stds[name])
+    if _is_norm_scale(name):
+        return ("const", 1.0)
+    if leaf.endswith("bias") or leaf in ("bias_k", "bias_v"):
+        # every bias, LayerNorm's included, and AttentionPool's bias_k /
+        # bias_v (vision.py:711-715)
+        return ("const", 0.0)
+    if root == "visual_encoder":
+        return _vision_rule(rest, leaf)
+    text = cfg.text
+    if root == "text_decoder":
+        # normal(init_method_std) (gpt3.py:155, bloom.py:190-194); GPT-3's
+        # out / fc2 at std / sqrt(2L) (gpt3.py:448), Bloom's unscaled
+        if not owl and leaf in ("out_kernel", "fc2_kernel"):
+            return ("normal", text.init_method_std
+                    / (2.0 * text.num_hidden_layers) ** 0.5)
+        return ("normal", text.init_method_std)
+    if owl:
+        # the abstractor's and visual_fc's normals (owl.py:108, :140,
+        # :190-199, :273-281); in_proj is a default Dense
+        if name == "abstractor.in_proj.kernel":
+            return ("lecun", None)
+        if root in ("abstractor", "visual_fc", "vit_eos"):
+            return ("normal", cfg.abstractor.init_std)
+    else:
+        if root in ("learnable_queries", "visual_fc"):  # tasks.py:108-119
+            return ("trunc", VISION_INIT_STD)
+        if root == "attn_pool":  # vision.py:708-716, Mlp at 0.015
+            return (("xavier", None) if leaf in (
+                "q_kernel", "k_kernel", "v_kernel", "out_kernel")
+                else ("trunc", VISION_INIT_STD))
+        if root in ("vision_proj", "text_proj"):  # default Dense
+            return ("lecun", None)
+    raise KeyError(f"jax_init: no JAX initializer known for {name}")
+
+
+def _draw(kind, arg, shape, gen, device) -> torch.Tensor:
+    if kind == "lecun":
+        kind, arg = "trunc", shape[-2] ** -0.5 / _TRUNC2_STD
+    if kind == "normal":
+        return torch.randn(shape, generator=gen, device=device) * arg
+    if kind == "trunc":
+        out = torch.empty(shape, device=device)
+        return torch.nn.init.trunc_normal_(out, 0.0, 1.0, -2.0, 2.0,
+                                           generator=gen) * arg
+    if kind == "xavier":
+        bound = (6.0 / (shape[-2] + shape[-1])) ** 0.5
+        return (torch.rand(shape, generator=gen, device=device) * 2 - 1) \
+            * bound
+    raise ValueError(kind)
+
+
+@torch.no_grad()
+def jax_init(module: nn.Module, seed: int) -> nn.Module:
+    """Fill an ``MPLUGVideo`` or ``MPLUGOwlVideo`` the way the JAX
+    package's ``model.init`` does (the rules above, by leaf), from one
+    ``torch.Generator`` seeded with ``seed`` on the parameters' device:
+    the fresh weights the training CLIs start from.  The draws are not
+    JAX's bits; their distributions are.  Raises on a leaf it has no rule
+    for and on int8 parameters."""
+    params = dict(module.named_parameters())
+    if any(p.dtype == torch.int8 for p in params.values()):
+        raise TypeError("jax_init draws float weights: quantize after it")
+    lora_stds = _lora_stds(module)
+    gens = {}
+    for name in sorted(params):
+        p = params[name]
+        kind, arg = _jax_rule(module, name, lora_stds)
+        if kind == "const":
+            p.fill_(arg)
+            continue
+        gen = gens.get(p.device)
+        if gen is None:
+            gen = gens[p.device] = torch.Generator(
+                device=p.device).manual_seed(seed)
+        if kind == "xavier" or p.dim() < 2:
+            p.copy_(_draw(kind, arg, p.shape, gen, p.device))
+            continue
+        # slabs of the leading axis, as in seeded_init; a Dense kernel's
+        # fan stays its last two axes
+        rows = max(1, _DRAW_VALUES // max(1, p[0].numel()))
+        for part in p.split(rows):
+            part.copy_(_draw(kind, arg, part.shape, gen, p.device))
     return module

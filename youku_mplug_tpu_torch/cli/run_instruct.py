@@ -24,11 +24,13 @@ in fp32 beside the abstractor, ``visual_fc`` and ``vit_eos``, AdamW; one
 JSON line per step (``--log_freq``) and one ``log.txt`` line per epoch,
 through ``run_pretrain``'s epoch loop.  No weights are saved.
 
-Weights come from a seeded init; checkpoint import (``--hf_checkpoint``,
-``--serving_ckpt``), real video files, jsonl training data and sampling
-are not ported yet (ROADMAP.md, Queue 1), and each raises; HF tokenizer
-files (the JAX runner's ``--tokenizer``) are not ported either.  Results
-carry token ids (the synthetic runs' hash tokenizer has no text).
+Weights come from a seeded init (serving) or the JAX ``model.init``
+rules (``--train``: ``bridge.jax_init``); checkpoint import
+(``--hf_checkpoint``, ``--serving_ckpt``), real video files, jsonl
+training data and sampling are not ported yet (ROADMAP.md, Queue 1), and
+each raises; HF tokenizer files (the JAX runner's ``--tokenizer``) are
+not ported either. Results carry token ids (the synthetic runs' hash
+tokenizer has no text).
 
 Usage (the card is the default device; ``--device cpu`` runs a tiny
 config on the CPU):
@@ -54,7 +56,7 @@ import time
 import numpy as np
 import torch
 
-from youku_mplug_tpu_torch.bridge import seeded_init
+from youku_mplug_tpu_torch.bridge import jax_init, seeded_init
 from youku_mplug_tpu_torch.cli import run_pretrain
 from youku_mplug_tpu_torch.config import (
     InstructTrainConfig,
@@ -306,10 +308,10 @@ def build_train_loader(args, tcfg: InstructTrainConfig, res: int) -> Loader:
 
 
 def train_setup(args) -> run_pretrain.Runner:
-    """Config, loader, seeded model on the device, the trainable/frozen
-    split (frozen leaves in bf16; LoRA adapters stay fp32 and train) and
-    AdamW, whose schedule spans ``min(len(loader), max_steps)`` updates
-    per epoch."""
+    """Config, loader, the model on the device (``jax_init``), the
+    trainable/frozen split (frozen leaves in bf16; LoRA adapters stay fp32
+    and train) and AdamW, whose schedule spans ``min(len(loader),
+    max_steps)`` updates per epoch."""
     device = _device(args)
     cfg, raw = load_owl_config(args.config)
     tcfg = instruct_train_config(raw)
@@ -320,7 +322,7 @@ def train_setup(args) -> run_pretrain.Runner:
         tcfg.optimizer, niter_per_ep=max(niter, 1)))
     with device:  # built and seeded on the device
         model = MPLUGOwlVideo(cfg, DEFAULT_POLICY)
-    seeded_init(model, args.seed)
+    jax_init(model, args.seed)  # the JAX runner's model.init rules
     state, _, schedule = create_train_state(
         model, tcfg.optimizer, frozen_dtype=DEFAULT_POLICY.compute_dtype)
     os.makedirs(args.output_dir, exist_ok=True)

@@ -1,8 +1,9 @@
 """Video-text pretraining CLI (caption LM + optional contrastive).
 
 Counterpart of ``youku_mplug_tpu/cli/run_pretrain.py`` with the parts of
-``cli/common.py`` it needs (setup, the epoch loop, ``write_log``): seeded
-weights, synthetic clips, the trainable/frozen split, AdamW, and one
+``cli/common.py`` it needs (setup, the epoch loop, ``write_log``): fresh
+weights drawn by the JAX ``model.init`` rules (``bridge.jax_init``),
+synthetic clips, the trainable/frozen split, AdamW, and one
 train step per batch; each step prints loss, loss_caption, grad_norm,
 lr, skipped_nonfinite and its wall time, and each epoch appends its
 averages to ``<output_dir>/log.txt``.  Checkpoints, resume, TensorBoard
@@ -26,7 +27,7 @@ from typing import Any, Callable, Dict, List
 import numpy as np
 import torch
 
-from youku_mplug_tpu_torch.bridge import seeded_init
+from youku_mplug_tpu_torch.bridge import jax_init
 from youku_mplug_tpu_torch.config import RunConfig, load_config
 from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
 from youku_mplug_tpu_torch.data.loader import Loader
@@ -85,9 +86,10 @@ def build_loader(args, cfg: RunConfig) -> Loader:
 
 
 def setup(args) -> Runner:
-    """Config, loader, seeded model on the device, the trainable/frozen
-    split (frozen leaves in bf16 unless --fp32) and the optimizer, whose
-    schedule spans ``min(len(loader), max_steps)`` updates per epoch.
+    """Config, loader, the model on the device (``jax_init``), the
+    trainable/frozen split (frozen leaves in bf16 unless --fp32) and the
+    optimizer, whose schedule spans ``min(len(loader), max_steps)``
+    updates per epoch.
     Raises when the requested device is absent: nothing falls back to the
     CPU."""
     device = torch.device(args.device)
@@ -102,7 +104,7 @@ def setup(args) -> Runner:
     policy = FP32_POLICY if args.fp32 else DEFAULT_POLICY
     with device:
         model = MPLUGVideo(cfg.model, policy)
-    seeded_init(model, args.seed)
+    jax_init(model, args.seed)  # the JAX runner's model.init rules
     state, _, schedule = create_train_state(
         model, cfg.optimizer,
         frozen_dtype=None if args.fp32 else policy.compute_dtype)

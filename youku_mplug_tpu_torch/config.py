@@ -74,6 +74,16 @@ def load_config(yaml_path: str,
     raw.update(overrides or {})
     if raw.get("connect_ln"):
         raise NotImplementedError("connect_ln (visual_norm) is not ported yet")
+    # keys that make the JAX loader build or load another model: a
+    # top-level lora_rank (with its lora_alpha) grows GPT-3 adapters, and
+    # import_torch_weights loads external checkpoints; lora_alpha with no
+    # rank builds no adapter there either
+    if raw.get("lora_rank"):
+        raise NotImplementedError("a top-level lora_rank / lora_alpha (GPT-3 "
+                                  "LoRA adapters) is not ported yet")
+    if raw.get("import_torch_weights"):
+        raise NotImplementedError("import_torch_weights (external checkpoint "
+                                  "import) is not ported yet")
     root = os.path.dirname(os.path.dirname(os.path.abspath(yaml_path)))
 
     def resolve(p):

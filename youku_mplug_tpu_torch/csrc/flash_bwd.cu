@@ -12,74 +12,53 @@
 //   p  = exp(q k^T * scale [+ slope_h * ki] - lse),   dp = dO v^T,
 //   dS = p * (dp - delta) * scale,   delta = rowsum(dO * O)  (given, fp32),
 //   dq = dS k,  dk = dS^T q,  dv = p^T dO,
-// with p and dS rounded to bf16 before their products, as the TPU kernels
-// do.  The ALiBi bias is the forward's (flash_fwd.cu): fp32, the global key
-// index ki, added after the scale, slopes read from an fp32 device array by
-// head.  Like the forward kernel each kernel takes the batch, head and
+// with p and dS rounded to bf16 before their products and fp32 sums, as
+// the TPU kernels do.  The ALiBi bias is the forward's (flash_fwd.cu):
+// fp32, the global key index ki, added after the scale, slopes read from
+// an fp32 device array by head.  Each kernel takes the batch, head and
 // sequence strides of every operand, so the packed layout and head-major
 // views of wider projections go in without copies.
 //
-// What bounds it on the H100: at the training shapes (S = 105..1571,
-// d = 64 or 128) each 64 x 64 tile does four small tensor-core products and
-// an exp per score, so the kernels are bound by staging tiles through
-// shared memory and by the elementwise softmax-gradient arithmetic on the
-// CUDA cores, not by HBM bytes.  The design keeps the [Sq, Sk] score and
-// probability matrices out of device memory; runs all four products on
-// the tensor cores (WMMA 16x16x16 bf16 -> fp32) with the dq / dk / dv sums
-// held in accumulator fragments across the loop; and visits only the
-// tiles a mask leaves live (causal: key tiles 0..i for query tile i, and
-// query tiles from the diagonal on for a key tile; period: the tiles of
-// the tile's own period groups).  dq and dk/dv are two kernels, as on the
-// TPU, so no block adds into another's output: no atomics, and the
-// gradients are deterministic.  TMA, wgmma and a multi-stage ring are left
-// for a later version.
+// What bounds it on the H100: at the training shapes (S = 105..1570, d 64
+// or 128) HBM bytes (each operand read once, each gradient written once:
+// 26 + 48 us for AttentionPool's q [16, 128, 12x64] over 1570 keys at
+// 3.35 TB/s, its operations 14 + 19 us at 989 TFLOP/s).  As in the
+// forward, the products run on wgmma (hopper.cuh) with the score-shaped
+// accumulators (S, dP, or S^T, dP^T) turned into p and dS in registers and
+// fed straight back as the register A operand of the next product; only
+// tiles stay in shared memory, and the streamed tiles come through a
+// two-stage cp.async ring:
+//   - dq kernel: one block per (64-query tile, head, batch, split), Q and
+//     dO resident, K and V streaming; S = Q K^T and dP = dO V^T (m64n64,
+//     both operands K-major), dQ += dS K (m64nD, K read MN-major).
+//   - dk/dv kernel: one block per (64-key tile, head, batch), K and V
+//     resident, Q, dO, lse and delta streaming; S^T = K Q^T, dP^T = V dO^T,
+//     dV += P^T dO and dK += dS^T Q (the last two read the streamed tiles
+//     MN-major).
+// The dq chain is split: AttentionPool's dq has 384 (query tile, head,
+// batch) blocks walking 25 key tiles each, so the caller asks for
+// `splits` > 1 and each block takes a contiguous share of its key tiles,
+// writing fp32 partial sums into scratch the caller allocated ([splits,
+// B, H, Sq, D]: 12.6 MB for q [16, 128, 12x64] at 2 splits);
+// flash_dq_reduce_kernel adds them in split order into dq.  No block adds
+// into another's output and no atomics are used, so the gradients are
+// bitwise repeatable.  Both kernels visit only the tiles a mask leaves
+// live (causal: key tiles 0..i for query tile i, query tiles from the
+// diagonal on for a key tile; period: the tiles of the tile's own period
+// groups).
 //
-// Registers at d = 128: a warp's fp32 accumulator over 16 rows x 128
-// columns is 8 WMMA fragments (64 registers a thread), and dk/dv holds
-// two.  So the A operands of the score products (the block's own Q and dO
-// rows for dq, K and V rows for dk/dv) are not kept in registers across
-// the loop: they stay in shared memory, which the block loaded once, and
-// each product reads them one 16-wide slice at a time (mm_abt: the slice
-// outer, the four output fragments inner, so each slice is read once per
-// tile and every sum is taken in the order of a resident-operand loop).
-//
-// Blocks: dq: one (64-query tile, head, batch), looping over key tiles;
-// dkv: one (64-key tile, head, batch), looping over query tiles.  4 warps,
-// each owning 16 rows (queries for dq, keys for dkv).  Elementwise work:
-// row = lane / 2, and each thread owns 32 of the 64 columns of the tile.
-// One template on (D, ALiBi) gives four builds of each kernel, each with
-// its own shared-memory size and opt-in flag.
+// One template on (D, ALiBi) gives four builds of each kernel.  Shared
+// memory: 51 KB at d 64, 99 KB at d 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
+using namespace ymt;
 
 namespace {
-
-constexpr int kT = 64;        // rows per tile (queries or keys)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLdt = kT + 4;  // fp32 per-warp tile scratch row stride
-constexpr int kLdp = kT + 8;  // bf16 per-warp tile row stride (elements)
-constexpr int kMaxSmem = 232448;  // the H100's per-block opt-in limit
-
-template <int D>
-struct Geo {
-  static constexpr int kLdh = D + 8;  // bf16 tile row stride (elements)
-  // fp32 scratch that holds a 16 x 64 tile, then a 16 x D output slab
-  static constexpr int kLds = (D > kT ? D : kT) + 4;
-};
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                             wmma::row_major>;
-using FragBRow = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                wmma::row_major>;
-using FragBCol = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                                wmma::col_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 struct Mask {
   int Sq, kv_len, period, causal;
@@ -89,119 +68,34 @@ struct Mask {
   }
 };
 
-// 64 rows x D bf16 from global rows [row0, row0 + 64) into a padded tile;
-// rows at or past `rows` are zero-filled.  16-byte vector loads.
+// Two resident [64, D] tiles, then per stage two streamed tiles and
+// (dk/dv only) 64 lse and 64 delta values, padded to keep every panel
+// 1024-byte aligned.
 template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int rows) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < kT * kChunks; c += kThreads) {
-    const int r = c / kChunks, ch = c % kChunks;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)gr * row_stride +
-                                            ch * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Geo<D>::kLdh + ch * 8) = val;
-  }
-}
-
-// out[16 x 64] (fp32 scratch, row stride ldo) = A[16 x D] times B^T, with A
-// 16 rows of a padded shared-memory tile and B a 64 x D tile stored
-// row-major in shared memory (so B^T is col_major).
-template <int D>
-__device__ __forceinline__ void mm_abt(float* out, int ldo,
-                                       const __nv_bfloat16* a,
-                                       const __nv_bfloat16* b_tile) {
-  constexpr int kLdh = Geo<D>::kLdh;
-  FragC c[kT / 16];
-#pragma unroll
-  for (int nt = 0; nt < kT / 16; ++nt) wmma::fill_fragment(c[nt], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    FragA af;
-    wmma::load_matrix_sync(af, a + kk * 16, kLdh);
-#pragma unroll
-    for (int nt = 0; nt < kT / 16; ++nt) {
-      FragBCol bf;
-      wmma::load_matrix_sync(bf, b_tile + nt * 16 * kLdh + kk * 16, kLdh);
-      wmma::mma_sync(c[nt], af, bf, c[nt]);
-    }
-  }
-#pragma unroll
-  for (int nt = 0; nt < kT / 16; ++nt) {
-    wmma::store_matrix_sync(out + nt * 16, c[nt], ldo, wmma::mem_row_major);
-  }
-}
-
-// acc[16 x D] += A[16 x 64] (bf16 in shared memory, row stride kLdp)
-// times B[64 x D] (row-major tile in shared memory).
-template <int D>
-__device__ __forceinline__ void mm_acc(FragC (&acc)[D / 16],
-                                       const __nv_bfloat16* a,
-                                       const __nv_bfloat16* b_tile) {
-  constexpr int kLdh = Geo<D>::kLdh;
-#pragma unroll
-  for (int kk = 0; kk < kT / 16; ++kk) {
-    FragA af;
-    wmma::load_matrix_sync(af, a + kk * 16, kLdp);
-#pragma unroll
-    for (int nt = 0; nt < D / 16; ++nt) {
-      FragBRow bf;
-      wmma::load_matrix_sync(bf, b_tile + kk * 16 * kLdh + nt * 16, kLdh);
-      wmma::mma_sync(acc[nt], af, bf, acc[nt]);
-    }
-  }
-}
-
-// Write a warp's 16 x D fp32 accumulator as bf16 rows [row0, row0 + 16)
-// of a strided global tensor (rows at or past `rows` are skipped), staged
-// through the warp's fp32 scratch (row stride Geo<D>::kLds).
-template <int D>
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst,
-                                           long long row_stride, int row0,
-                                           int rows, FragC (&acc)[D / 16],
-                                           float* scratch) {
-  constexpr int kLds = Geo<D>::kLds, kHalf = D / 2;
-  const int lane = threadIdx.x & 31;
-  const int r = lane >> 1, half = lane & 1;
-  __syncwarp();
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) {
-    wmma::store_matrix_sync(scratch + nt * 16, acc[nt], kLds,
-                            wmma::mem_row_major);
-  }
-  __syncwarp();
-  if (row0 + r < rows) {
-    __nv_bfloat16* row =
-        dst + (long long)(row0 + r) * row_stride + half * kHalf;
-#pragma unroll
-    for (int c = 0; c < kHalf; c += 8) {
-      __align__(16) __nv_bfloat16 pack[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) {
-        pack[e] = __float2bfloat16(scratch[r * kLds + half * kHalf + c + e]);
-      }
-      *reinterpret_cast<uint4*>(row + c) = *reinterpret_cast<uint4*>(pack);
-    }
-  }
-  __syncwarp();
-}
-
-template <int D>
-struct DqSmem {
-  __nv_bfloat16 q[kT * Geo<D>::kLdh];
-  __nv_bfloat16 dout[kT * Geo<D>::kLdh];
-  __nv_bfloat16 k[kT * Geo<D>::kLdh];
-  __nv_bfloat16 v[kT * Geo<D>::kLdh];
-  __nv_bfloat16 ds[kWarps][16 * kLdp];
-  float s[kWarps][16 * Geo<D>::kLds];  // scores, then the output staging
-  float dp[kWarps][16 * kLdt];
+struct BwdSmem {
+  static constexpr int kStages = 2;  // as in the forward
+  static constexpr int kTile = (D / 64) * kPanel;
+  static constexpr int kStage = 2 * kTile + 1024;
+  static constexpr int kRing = 2 * kTile;
+  static constexpr int kAlloc = kRing + kStages * kStage + 1024;
 };
-static_assert(sizeof(DqSmem<128>) <= kMaxSmem, "dq tiles exceed 227 KB");
+static_assert(BwdSmem<128>::kAlloc <= kMaxSmem, "tiles exceed 227 KB");
+
+// Write this thread's rows of a [64, D] fp32 accumulator, rows row0 + r,
+// as bf16 into a strided tensor (rows at or past `rows` skipped).
+template <int D>
+__device__ __forceinline__ void store_acc(__nv_bfloat16* dst,
+                                          long long row_stride, int row0,
+                                          int rows,
+                                          const float (&acc)[D / 2]) {
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int r = row0 + acc_row(i);
+    if (r < rows)
+      *reinterpret_cast<__nv_bfloat162*>(dst + r * row_stride + acc_col(i)) =
+          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
 
 template <int D, bool kAlibi>
 __global__ void __launch_bounds__(kThreads)
@@ -212,100 +106,163 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq,
-                    const float* __restrict__ slopes, int H, int Sq, int Sk,
-                    int kv_len, long long q_sb, long long q_sh, long long q_ss,
-                    long long k_sb, long long k_sh, long long k_ss,
-                    long long v_sb, long long v_sh, long long v_ss,
-                    long long do_sb, long long do_sh, long long do_ss,
-                    long long dq_sb, long long dq_sh, long long dq_ss,
-                    float scale, int period, int causal) {
-  constexpr int kLdh = Geo<D>::kLdh, kLds = Geo<D>::kLds;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(smem_raw);
+                    float* __restrict__ dq_part,
+                    const float* __restrict__ slopes, int B, int H, int Sq,
+                    int Sk, int kv_len, int splits, long long q_sb,
+                    long long q_sh, long long q_ss, long long k_sb,
+                    long long k_sh, long long k_ss, long long v_sb,
+                    long long v_sh, long long v_ss, long long do_sb,
+                    long long do_sh, long long do_ss, long long dq_sb,
+                    long long dq_sh, long long dq_ss, float scale, int period,
+                    int causal) {
+  using Sm = BwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base, do_s = base + Sm::kTile;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
   const Mask mask{Sq, kv_len, period, causal};
   const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
   float slope = 0.f;
   if constexpr (kAlibi) slope = slopes[h];
 
-  // Keys this query tile can see (as in flash_fwd.cu).
-  const int q_last = min(q0 + kT, Sq) - 1;
+  // Key tiles this query tile can see (as in flash_fwd.cu), then this
+  // split's share.
+  const int q_last = min(q0 + kRows, Sq) - 1;
   int k_lo = 0, k_hi = kv_len;
   if (causal) k_hi = min(k_hi, q_last + 1);
   if (period > 0) {
     k_lo = (q0 / period) * period;
     k_hi = min(k_hi, (q_last / period + 1) * period);
   }
+  const int t_lo = k_lo / kRows;
+  const int t_hi = k_hi > k_lo ? (k_hi + kRows - 1) / kRows : t_lo;
+  const int per = (t_hi - t_lo + splits - 1) / splits;
+  const int j0 = min(t_lo + split * per, t_hi);
+  const int j1 = min(j0 + per, t_hi);
 
-  load_tile<D>(sm.q, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
-  load_tile<D>(sm.dout, dout + b * do_sb + h * do_sh, do_ss, q0, Sq);
-  const __nv_bfloat16* q_w = sm.q + warp * 16 * kLdh;
-  const __nv_bfloat16* do_w = sm.dout + warp * 16 * kLdh;
-
-  const int r = lane >> 1, half = lane & 1;
-  const int qi = q0 + warp * 16 + r;
-  float lse_i = 0.f, delta_i = 0.f;
-  if (qi < Sq) {
-    const long long row = ((long long)b * H + h) * Sq + qi;
-    lse_i = lse[row];
-    delta_i = delta[row];
-  }
-  FragC acc[D / 16];
-#pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) wmma::fill_fragment(acc[nt], 0.f);
-  float* s_w = sm.s[warp];
-  float* dp_w = sm.dp[warp];
-  __nv_bfloat16* ds_w = sm.ds[warp];
-
-  for (int kt0 = (k_lo / kT) * kT; kt0 < k_hi; kt0 += kT) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sm.k, kb, k_ss, kt0, Sk);
-    load_tile<D>(sm.v, vb, v_ss, kt0, Sk);
-    __syncthreads();
-
-    mm_abt<D>(s_w, kLds, q_w, sm.k);    // S = Q K^T
-    mm_abt<D>(dp_w, kLdt, do_w, sm.v);  // dP = dO V^T
-    __syncwarp();
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;
-      const int ki = kt0 + col;
-      float ds = 0.f;
-      if (mask.ok(qi, ki)) {
-        float x = s_w[r * kLds + col] * scale;
-        if constexpr (kAlibi) x += __fmul_rn(slope, (float)ki);
-        const float p = __expf(x - lse_i);
-        ds = p * (dp_w[r * kLdt + col] - delta_i) * scale;
-      }
-      ds_w[r * kLdp + col] = __float2bfloat16(ds);
+  constexpr int kStages = Sm::kStages;
+  auto slot = [&](int j) {
+    return base + Sm::kRing + ((j - j0) % kStages) * Sm::kStage;
+  };
+  auto fetch = [&](int j) {
+    if (j < j1) {
+      load_tile<D>(slot(j), kb, k_ss, j * kRows, Sk);
+      load_tile<D>(slot(j) + Sm::kTile, vb, v_ss, j * kRows, Sk);
     }
-    __syncwarp();
-    mm_acc<D>(acc, ds_w, sm.k);  // dQ += dS K
+    cp_async_commit();
+  };
+  load_tile<D>(q_s, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
+  load_tile<D>(do_s, dout + b * do_sb + h * do_sh, do_ss, q0, Sq);
+#pragma unroll
+  for (int j = j0; j < j0 + kStages - 1; ++j) fetch(j);
+
+  const int qi0 = q0 + acc_row(0);  // this thread's rows: qi0, qi0 + 8
+  const float scale_log2 = scale * kLog2e;
+  float lse2[2], delta_r[2];  // lse in base 2
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qi = qi0 + 8 * r;
+    const long long row = ((long long)b * H + h) * Sq + qi;
+    lse2[r] = qi < Sq ? lse[row] * kLog2e : 0.f;
+    delta_r[r] = qi < Sq ? delta[row] : 0.f;
   }
-  store_rows<D>(dq + b * dq_sb + h * dq_sh, dq_ss, q0 + warp * 16, Sq, acc,
-                s_w);
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int j = j0; j < j1; ++j) {
+    ring_arrive<kStages - 2>();
+    fetch(j + kStages - 1);
+    const uint32_t ks = slot(j), vs = ks + Sm::kTile;
+
+    float s[32], dp[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k(q_s, kk), desc_k(ks, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dp, desc_k(do_s, kk), desc_k(vs, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    pin(s);
+    pin(dp);
+
+    const int kt0 = j * kRows;
+    const bool whole = kt0 + kRows <= kv_len && q0 + kRows <= Sq &&
+                       period == 0 && (!causal || kt0 + kRows - 1 <= q0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1, ki = kt0 + acc_col(i);
+      float x;
+      if constexpr (kAlibi) {
+        x = (s[i] * scale + __fmul_rn(slope, (float)ki)) * kLog2e;
+      } else {
+        x = s[i] * scale_log2;
+      }
+      const float p = exp2f(x - lse2[r]);
+      const float ds = p * (dp[i] - delta_r[r]) * scale;
+      s[i] = whole || mask.ok(qi0 + 8 * r, ki) ? ds : 0.f;
+    }
+    uint32_t da[4][4];
+    acc_to_a(s, da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, da[kk], desc_mn(ks, kk));
+    wg_commit();
+    wg_wait<0>();
+    pin(acc);
+  }
+  cp_async_wait<0>();
+
+  if (splits == 1) {
+    store_acc<D>(dq + b * dq_sb + h * dq_sh, dq_ss, q0, Sq, acc);
+    return;
+  }
+  float* part = dq_part +
+                (((long long)split * B + b) * H + h) * (long long)Sq * D;
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int qi = q0 + acc_row(i);
+    if (qi < Sq)
+      *reinterpret_cast<float2*>(part + (long long)qi * D + acc_col(i)) =
+          make_float2(acc[i], acc[i + 1]);
+  }
 }
 
+// dq = the sum of the splits' fp32 partials in split order, as bf16 into
+// the strided dq; one thread per 4 values.
 template <int D>
-struct DkvSmem {
-  __nv_bfloat16 k[kT * Geo<D>::kLdh];
-  __nv_bfloat16 v[kT * Geo<D>::kLdh];
-  __nv_bfloat16 q[kT * Geo<D>::kLdh];
-  __nv_bfloat16 dout[kT * Geo<D>::kLdh];
-  __nv_bfloat16 p[kWarps][16 * kLdp];   // P^T for the warp's 16 keys
-  __nv_bfloat16 ds[kWarps][16 * kLdp];  // dS^T
-  float s[kWarps][16 * Geo<D>::kLds];   // S^T, then the output staging
-  float dp[kWarps][16 * kLdt];          // dP^T
-  float lse[kT];
-  float delta[kT];
-};
-static_assert(sizeof(DkvSmem<128>) <= kMaxSmem, "dk/dv tiles exceed 227 KB");
+__global__ void __launch_bounds__(kThreads)
+flash_dq_reduce_kernel(const float* __restrict__ dq_part,
+                       __nv_bfloat16* __restrict__ dq, int B, int H, int Sq,
+                       int splits, long long dq_sb, long long dq_sh,
+                       long long dq_ss) {
+  const long long n = (long long)B * H * Sq * D;
+  const long long idx = ((long long)blockIdx.x * kThreads + threadIdx.x) * 4;
+  if (idx >= n) return;
+  float4 sum = *reinterpret_cast<const float4*>(dq_part + idx);
+  for (int s = 1; s < splits; ++s) {
+    const float4 x = *reinterpret_cast<const float4*>(dq_part + s * n + idx);
+    sum.x += x.x;
+    sum.y += x.y;
+    sum.z += x.z;
+    sum.w += x.w;
+  }
+  const long long row = idx / D;
+  const int c = (int)(idx % D), qi = (int)(row % Sq);
+  const int h = (int)((row / Sq) % H), b = (int)(row / Sq / H);
+  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
+      dq + b * dq_sb + h * dq_sh + qi * dq_ss + c);
+  dst[0] = __floats2bfloat162_rn(sum.x, sum.y);
+  dst[1] = __floats2bfloat162_rn(sum.z, sum.w);
+}
 
 template <int D, bool kAlibi>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v,
@@ -322,82 +279,115 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      long long do_ss, long long dk_sb, long long dk_sh,
                      long long dk_ss, long long dv_sb, long long dv_sh,
                      long long dv_ss, float scale, int period, int causal) {
-  constexpr int kLdh = Geo<D>::kLdh, kLds = Geo<D>::kLds;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  DkvSmem<D>& sm = *reinterpret_cast<DkvSmem<D>*>(smem_raw);
+  using Sm = BwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t k_s = base, v_s = base + Sm::kTile;
+  // the lse / delta rows of a stage, read through a generic pointer
+  unsigned char* base_ptr = smem_raw + (base - smem_addr(smem_raw));
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const Mask mask{Sq, kv_len, period, causal};
   const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
   const __nv_bfloat16* dob = dout + b * do_sb + h * do_sh;
   const float* lse_b = lse + ((long long)b * H + h) * Sq;
   const float* delta_b = delta + ((long long)b * H + h) * Sq;
 
-  // Queries that can see this key tile; none when every key is at or
+  // Query tiles that can see this key tile; none when every key is at or
   // past kv_len (dk = dv = 0 then).
-  const int k_last = min(k0 + kT, Sk) - 1;
+  const int k_last = min(k0 + kRows, Sk) - 1;
   int q_lo = 0, q_hi = k0 < kv_len ? Sq : 0;
   if (causal) q_lo = k0;
   if (period > 0) {
     q_lo = max(q_lo, (k0 / period) * period);
     q_hi = min(q_hi, (k_last / period + 1) * period);
   }
+  const int j0 = q_lo / kRows;
+  const int j1 = q_hi > q_lo ? (q_hi + kRows - 1) / kRows : j0;
 
-  load_tile<D>(sm.k, k + b * k_sb + h * k_sh, k_ss, k0, Sk);
-  load_tile<D>(sm.v, v + b * v_sb + h * v_sh, v_ss, k0, Sk);
-  const __nv_bfloat16* k_w = sm.k + warp * 16 * kLdh;
-  const __nv_bfloat16* v_w = sm.v + warp * 16 * kLdh;
-
-  const int r = lane >> 1, half = lane & 1;
-  const int ki = k0 + warp * 16 + r;
-  float bias = 0.f;  // the key's ALiBi bias: one per thread row
-  if constexpr (kAlibi) bias = __fmul_rn(slopes[h], (float)ki);
-  FragC dk_acc[D / 16], dv_acc[D / 16];
+  constexpr int kStages = Sm::kStages;
+  auto slot = [&](int j) {
+    return Sm::kRing + ((j - j0) % kStages) * Sm::kStage;  // offset
+  };
+  auto fetch = [&](int j) {
+    if (j < j1) {
+      const uint32_t s = base + slot(j);
+      load_tile<D>(s, qb, q_ss, j * kRows, Sq);
+      load_tile<D>(s + Sm::kTile, dob, do_ss, j * kRows, Sq);
+      load_vec64(s + 2 * Sm::kTile, lse_b, j * kRows, Sq);
+      load_vec64(s + 2 * Sm::kTile + kRows * 4, delta_b, j * kRows, Sq);
+    }
+    cp_async_commit();
+  };
+  load_tile<D>(k_s, k + b * k_sb + h * k_sh, k_ss, k0, Sk);
+  load_tile<D>(v_s, v + b * v_sb + h * v_sh, v_ss, k0, Sk);
 #pragma unroll
-  for (int nt = 0; nt < D / 16; ++nt) {
-    wmma::fill_fragment(dk_acc[nt], 0.f);
-    wmma::fill_fragment(dv_acc[nt], 0.f);
-  }
-  float* s_w = sm.s[warp];
-  float* dp_w = sm.dp[warp];
-  __nv_bfloat16* p_w = sm.p[warp];
-  __nv_bfloat16* ds_w = sm.ds[warp];
+  for (int j = j0; j < j0 + kStages - 1; ++j) fetch(j);
 
-  for (int qt0 = (q_lo / kT) * kT; qt0 < q_hi; qt0 += kT) {
-    __syncthreads();  // every warp is done with the previous Q/dO tile
-    load_tile<D>(sm.q, qb, q_ss, qt0, Sq);
-    load_tile<D>(sm.dout, dob, do_ss, qt0, Sq);
-    for (int t = threadIdx.x; t < kT; t += kThreads) {
-      const bool in = qt0 + t < Sq;
-      sm.lse[t] = in ? lse_b[qt0 + t] : 0.f;
-      sm.delta[t] = in ? delta_b[qt0 + t] : 0.f;
-    }
-    __syncthreads();
-
-    mm_abt<D>(s_w, kLds, k_w, sm.q);     // S^T = K Q^T
-    mm_abt<D>(dp_w, kLdt, v_w, sm.dout); // dP^T = V dO^T
-    __syncwarp();
-#pragma unroll 8
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;
-      float p = 0.f, ds = 0.f;
-      if (mask.ok(qt0 + col, ki)) {
-        float x = s_w[r * kLds + col] * scale;
-        if constexpr (kAlibi) x += bias;
-        p = __expf(x - sm.lse[col]);
-        ds = p * (dp_w[r * kLdt + col] - sm.delta[col]) * scale;
-      }
-      p_w[r * kLdp + col] = __float2bfloat16(p);
-      ds_w[r * kLdp + col] = __float2bfloat16(ds);
-    }
-    __syncwarp();
-    mm_acc<D>(dv_acc, p_w, sm.dout);  // dV += P^T dO
-    mm_acc<D>(dk_acc, ds_w, sm.q);    // dK += dS^T Q
+  const int ki0 = k0 + acc_row(0);  // this thread's key rows: ki0, ki0 + 8
+  const float scale_log2 = scale * kLog2e;
+  float bias[2] = {0.f, 0.f};
+  if constexpr (kAlibi) {
+    bias[0] = __fmul_rn(slopes[h], (float)ki0);
+    bias[1] = __fmul_rn(slopes[h], (float)(ki0 + 8));
   }
-  const int row0 = k0 + warp * 16;
-  store_rows<D>(dk + b * dk_sb + h * dk_sh, dk_ss, row0, Sk, dk_acc, s_w);
-  store_rows<D>(dv + b * dv_sb + h * dv_sh, dv_ss, row0, Sk, dv_acc, s_w);
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int j = j0; j < j1; ++j) {
+    ring_arrive<kStages - 2>();
+    fetch(j + kStages - 1);
+    const uint32_t qs = base + slot(j), dos = qs + Sm::kTile;
+    const float* lse_s =
+        reinterpret_cast<const float*>(base_ptr + slot(j) + 2 * Sm::kTile);
+    const float* delta_s = lse_s + kRows;
+
+    float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(st, desc_k(k_s, kk), desc_k(qs, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(dpt, desc_k(v_s, kk), desc_k(dos, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    pin(st);
+    pin(dpt);
+
+    const int qt0 = j * kRows;
+    const bool whole = qt0 + kRows <= Sq && k0 + kRows <= kv_len &&
+                       period == 0 && (!causal || k0 + kRows - 1 <= qt0);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1, c = acc_col(i);
+      const float x = kAlibi ? (st[i] * scale + bias[r]) * kLog2e
+                             : st[i] * scale_log2;
+      const float p = exp2f(x - lse_s[c] * kLog2e);
+      const float ds = p * (dpt[i] - delta_s[c]) * scale;
+      const bool ok = whole || mask.ok(qt0 + c, ki0 + 8 * r);
+      st[i] = ok ? p : 0.f;
+      dpt[i] = ok ? ds : 0.f;
+    }
+    uint32_t pa[4][4], da[4][4];
+    acc_to_a(st, pa);
+    acc_to_a(dpt, da);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(dv_acc, pa[kk], desc_mn(dos, kk));  // dV += P^T dO
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<D>(dk_acc, da[kk], desc_mn(qs, kk));   // dK += dS^T Q
+    wg_commit();
+    wg_wait<0>();
+    pin(dv_acc);
+    pin(dk_acc);
+  }
+  cp_async_wait<0>();
+  store_acc<D>(dk + b * dk_sb + h * dk_sh, dk_ss, k0, Sk, dk_acc);
+  store_acc<D>(dv + b * dv_sb + h * dv_sh, dv_ss, k0, Sk, dv_acc);
 }
 
 template <typename Kernel>
@@ -412,30 +402,37 @@ int set_smem(Kernel kernel, int bytes, bool* done) {
 
 template <int D, bool kAlibi>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq,
+              const void* lse, const void* delta, void* dq, void* dq_part,
               const void* slopes, int B, int H, int Sq, int Sk, int kv_len,
-              long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-              long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-              long long v_ss, long long do_sb, long long do_sh,
-              long long do_ss, long long dq_sb, long long dq_sh,
-              long long dq_ss, float scale, int period, int causal,
-              cudaStream_t stream) {
+              int splits, long long q_sb, long long q_sh, long long q_ss,
+              long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+              long long v_sh, long long v_ss, long long do_sb,
+              long long do_sh, long long do_ss, long long dq_sb,
+              long long dq_sh, long long dq_ss, float scale, int period,
+              int causal, cudaStream_t stream) {
   static bool attr_set = false;  // one opt-in per template instance
-  int err = set_smem(flash_bwd_dq_kernel<D, kAlibi>,
-                     (int)sizeof(DqSmem<D>), &attr_set);
+  int err = set_smem(flash_bwd_dq_kernel<D, kAlibi>, BwdSmem<D>::kAlloc,
+                     &attr_set);
   if (err) return err;
-  dim3 grid((Sq + kT - 1) / kT, H, B);
+  dim3 grid((Sq + kRows - 1) / kRows, H, B * splits);
   flash_bwd_dq_kernel<D, kAlibi>
-      <<<grid, kThreads, sizeof(DqSmem<D>), stream>>>(
+      <<<grid, kThreads, BwdSmem<D>::kAlloc, stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
           static_cast<const __nv_bfloat16*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<__nv_bfloat16*>(dq), static_cast<const float*>(slopes),
-          H, Sq, Sk, kv_len, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-          v_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, scale, period,
-          causal);
+          static_cast<__nv_bfloat16*>(dq), static_cast<float*>(dq_part),
+          static_cast<const float*>(slopes), B, H, Sq, Sk, kv_len, splits,
+          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh,
+          do_ss, dq_sb, dq_sh, dq_ss, scale, period, causal);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  const long long n = (long long)B * H * Sq * D / 4;
+  flash_dq_reduce_kernel<D>
+      <<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+          static_cast<const float*>(dq_part), static_cast<__nv_bfloat16*>(dq),
+          B, H, Sq, splits, dq_sb, dq_sh, dq_ss);
   return (int)cudaGetLastError();
 }
 
@@ -451,12 +448,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                long long dv_ss, float scale, int period, int causal,
                cudaStream_t stream) {
   static bool attr_set = false;  // one opt-in per template instance
-  int err = set_smem(flash_bwd_dkv_kernel<D, kAlibi>,
-                     (int)sizeof(DkvSmem<D>), &attr_set);
+  int err = set_smem(flash_bwd_dkv_kernel<D, kAlibi>, BwdSmem<D>::kAlloc,
+                     &attr_set);
   if (err) return err;
-  dim3 grid((Sk + kT - 1) / kT, H, B);
+  dim3 grid((Sk + kRows - 1) / kRows, H, B);
   flash_bwd_dkv_kernel<D, kAlibi>
-      <<<grid, kThreads, sizeof(DkvSmem<D>), stream>>>(
+      <<<grid, kThreads, BwdSmem<D>::kAlloc, stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
@@ -476,8 +473,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // or past it; period > 0 selects the block-diagonal period mask and
 // causal != 0 the causal mask (Sq == Sk).  head_dim is 64 or 128; slopes
 // is null, or an fp32 device array of H ALiBi slopes (the caller requires
-// causal with it).  Each returns cudaGetLastError() after its launch, or
-// cudaErrorInvalidValue for a head dim it was not built for.
+// causal with it).  The dq entry's splits > 1 splits each block's key
+// tiles that many ways, with dq_part (fp32 [splits, B, H, Sq, head_dim])
+// the caller's scratch and the reduce kernel after the main one.  Each
+// returns cudaGetLastError() after its launches, or cudaErrorInvalidValue
+// for a head dim it was not built for or splits < 1.
 extern "C" int ymt_flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int Sq,
@@ -486,13 +486,14 @@ extern "C" int ymt_flash_bwd_dq_bf16(
     long long v_sh, long long v_ss, long long do_sb, long long do_sh,
     long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,
     float scale, int period, int causal, int head_dim, const void* slopes,
-    void* stream) {
+    int splits, void* dq_part, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (splits < 1) return (int)cudaErrorInvalidValue;
 #define YMT_DQ(D, A)                                                          \
-  launch_dq<D, A>(q, k, v, dout, lse, delta, dq, slopes, B, H, Sq, Sk,       \
-                  kv_len, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,    \
-                  v_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, scale,     \
-                  period, causal, s)
+  launch_dq<D, A>(q, k, v, dout, lse, delta, dq, dq_part, slopes, B, H, Sq,  \
+                  Sk, kv_len, splits, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,    \
+                  v_sb, v_sh, v_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, \
+                  scale, period, causal, s)
   const bool alibi = slopes != nullptr;
   if (head_dim == 64) return alibi ? YMT_DQ(64, true) : YMT_DQ(64, false);
   if (head_dim == 128) return alibi ? YMT_DQ(128, true) : YMT_DQ(128, false);

@@ -15,86 +15,67 @@
 //
 // ALiBi (Bloom's training attention, always causal): the bias is
 // slope_h * ki in fp32, ki the GLOBAL key index (so neither a tile
-// boundary nor the causal tile skipping can shift it), added to the scaled
-// score before the running max.  The slopes are any per-head fp32 values,
-// read from a device array of H values by head; at Bloom's S = 768 the
-// bias reaches ~0.84 x 767 ~ 645, far inside fp32's exact range, and it is
-// never rounded to bf16.
+// boundary, a split nor the causal tile skipping can shift it), added to
+// the scaled score before the running max.  The slopes are any per-head
+// fp32 values, read from a device array of H values by head; at Bloom's
+// S = 768 the bias reaches ~0.84 x 767 ~ 645, far inside fp32's exact
+// range, and it is never rounded to bf16.
 //
 // What bounds it on the H100: at the ported paths' shapes (S = 105..1570,
-// d = 64 or 128) the score and PV products are small, so the kernel is
-// bound by the latency of staging K/V tiles through shared memory and by
-// the softmax arithmetic on the CUDA cores, not by HBM bytes (each K/V
-// tile is read once per 64-row query tile, and Q/O once).  The design
-// keeps the [Sq, Sk] score matrix out of device memory (the point of the
-// Pallas kernel too), runs both products on the tensor cores (WMMA
-// 16x16x16 bf16 -> fp32), and masks the ragged sequence edge in-kernel
-// instead of padding copies.  In period mode it walks only the key tiles
-// that hold the query tile's own period groups, where the TPU kernel swept
-// the whole sequence; in causal mode query tile i walks key tiles 0..i
-// only, as the TPU kernel does.  TMA, wgmma and a multi-stage K/V ring are
-// left for a later version.
+// d = 64 or 128) HBM bytes bound it (Q, K, V read once and O written
+// once: 12 us for AttentionPool's [8, 128, 12x64] over 1570 keys at
+// 3.35 TB/s, its operations 8 us at 989 TFLOP/s), so the kernel has to
+// keep the tensor cores fed while the next tiles arrive, keep the scores
+// out of shared memory, and put enough blocks on the 132 SMs.  The design:
+//   - products on wgmma (hopper.cuh): S = Q K^T as m64n64k16 with Q and
+//     the K tile in swizzled shared memory, O += P V as m64nDk16 with P
+//     taken from registers: the S accumulator is masked, exponentiated
+//     and rounded to bf16 where it lies, so neither S nor P is stored;
+//   - K and V stream through a two-stage ring of cp.async copies: tile
+//     j + 1 is in flight while tile j is multiplied (any row stride, the
+//     ragged end zero-filled, never read out of bounds);
+//   - split-KV: when the (query tile, head, batch) blocks are too few for
+//     the card (AttentionPool: 192 blocks each walking 25 key tiles), the
+//     caller asks for `splits` > 1 and each block takes a contiguous share
+//     of its key tiles, writing its normalised o and its lse in fp32 to
+//     scratch the caller allocated; flash_fwd_merge_kernel then weighs the
+//     shares by exp(lse_s - lse) into O and the one-pass lse;
+//   - mask-aware tile skipping: causal query tile i walks key tiles
+//     0..i, period mode only the tiles of its own period groups, and keys
+//     at or past kv_len are never loaded.
 //
-// Block: one (query tile of 64 rows, head, batch); 4 warps, 16 query rows
-// each.  Thread layout inside a warp for the softmax: row = lane / 2, and
-// each thread owns 32 of the 64 columns of the current key tile and D / 2
-// of the D output features of its row.  One template on (D, ALiBi) gives
-// the four builds; each has its own shared-memory size (d = 64: 53 KB,
-// d = 128: 93 KB) and its own opt-in flag.
+// Block: one warpgroup (4 warps) for one (64-row query tile, head, batch,
+// split); each thread holds two query rows of S and O in the wgmma
+// accumulator layout.  The softmax runs in base 2 (scores times log2 e,
+// exp2, lse converted back to base e); a key tile that every row of the
+// query tile sees whole skips the mask arithmetic.  One template on (D,
+// ALiBi) gives the four builds; shared memory is Q plus the K/V ring:
+// 41 KB at d = 64, 81 KB at d = 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
+
+using namespace ymt;
 
 namespace {
 
-constexpr int kBQ = 64;       // query rows per block
-constexpr int kBK = 64;       // keys per tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLdp = kBK + 8; // bf16 probability row stride (elements)
-constexpr int kMaxSmem = 232448;  // the H100's per-block opt-in limit
-
+// The K/V ring is one tile ahead.  A deeper ring, 128 keys a step, two
+// warpgroups a block sharing each K/V tile, and issuing the next tile's
+// S product before this tile's softmax all measured slower on the H100 at
+// the paths' shapes (PERF.md).
 template <int D>
-struct Geo {
-  static constexpr int kLdh = D + 8;  // bf16 tile row stride (elements)
-  // fp32 scratch row stride: the scores (kBK wide), then PV (D wide)
-  static constexpr int kLds = (D > kBK ? D : kBK) + 4;
+struct FwdSmem {
+  static constexpr int kStages = 2;
+  static constexpr int kTile = (D / 64) * kPanel;  // one [64, D] tile
+  static constexpr int kQ = 0;
+  static constexpr int kK = kTile;                 // then K, V per stage
+  static constexpr int kBytes = kTile * (1 + 2 * kStages);
+  static constexpr int kAlloc = kBytes + 1024;     // room to align to 1 KB
 };
-
-template <int D>
-struct Smem {
-  __nv_bfloat16 q[kBQ * Geo<D>::kLdh];
-  __nv_bfloat16 k[kBK * Geo<D>::kLdh];
-  __nv_bfloat16 v[kBK * Geo<D>::kLdh];
-  __nv_bfloat16 p[kWarps][16 * kLdp];
-  float s[kWarps][16 * Geo<D>::kLds];  // scores, then the PV partial product
-};
-static_assert(sizeof(Smem<64>) <= kMaxSmem, "d = 64 tiles exceed 227 KB");
-static_assert(sizeof(Smem<128>) <= kMaxSmem, "d = 128 tiles exceed 227 KB");
-
-// 64 rows x D bf16 from global rows [row0, row0 + 64) into a padded tile;
-// rows at or past `rows` are zero-filled.  16-byte vector loads.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long row_stride, int row0,
-                                          int rows) {
-  constexpr int kChunks = D / 8;
-  for (int c = threadIdx.x; c < 64 * kChunks; c += kThreads) {
-    const int r = c / kChunks, ch = c % kChunks;
-    const int gr = row0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (gr < rows) {
-      val = *reinterpret_cast<const uint4*>(src + (long long)gr * row_stride +
-                                            ch * 8);
-    }
-    *reinterpret_cast<uint4*>(dst + r * Geo<D>::kLdh + ch * 8) = val;
-  }
-}
+static_assert(FwdSmem<128>::kAlloc <= kMaxSmem, "d = 128 tiles exceed 227 KB");
 
 template <int D, bool kAlibi>
 __global__ void __launch_bounds__(kThreads)
@@ -102,182 +83,254 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                 const float* __restrict__ slopes, int H, int Sq, int Sk,
-                 int kv_len, long long q_sb, long long q_sh, long long q_ss,
-                 long long k_sb, long long k_sh, long long k_ss,
-                 long long v_sb, long long v_sh, long long v_ss,
-                 long long o_sb, long long o_sh, long long o_ss, float scale,
-                 int period, int causal) {
-  constexpr int kLdh = Geo<D>::kLdh, kLds = Geo<D>::kLds, kHalf = D / 2;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
+                 float* __restrict__ o_part, float* __restrict__ lse_part,
+                 const float* __restrict__ slopes, int B, int H, int Sq,
+                 int Sk, int kv_len, int splits, long long q_sb,
+                 long long q_sh, long long q_ss, long long k_sb,
+                 long long k_sh, long long k_ss, long long v_sb,
+                 long long v_sh, long long v_ss, long long o_sb,
+                 long long o_sh, long long o_ss, float scale, int period,
+                 int causal) {
+  using Sm = FwdSmem<D>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
+  const uint32_t q_s = base + Sm::kQ;
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int q0 = blockIdx.x * kBQ, h = blockIdx.y, b = blockIdx.z;
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y;
+  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
   const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
   float slope = 0.f;
   if constexpr (kAlibi) slope = slopes[h];
 
-  // Keys this tile can see: [0, kv_len), narrowed in causal mode to keys
-  // up to q_last and in period mode to the period groups of rows q0 ..
-  // q_last.
-  const int q_last = min(q0 + kBQ, Sq) - 1;
+  // Key tiles this query tile can see: keys [0, kv_len), narrowed in
+  // causal mode to keys up to q_last and in period mode to the period
+  // groups of rows q0 .. q_last; then this split's contiguous share.
+  const int q_last = min(q0 + kRows, Sq) - 1;
   int k_lo = 0, k_hi = kv_len;
   if (causal) k_hi = min(k_hi, q_last + 1);
   if (period > 0) {
     k_lo = (q0 / period) * period;
     k_hi = min(k_hi, (q_last / period + 1) * period);
   }
+  constexpr int kStages = Sm::kStages;
+  const int t_lo = k_lo / kRows;
+  const int t_hi = k_hi > k_lo ? (k_hi + kRows - 1) / kRows : t_lo;
+  const int per = (t_hi - t_lo + splits - 1) / splits;
+  const int j0 = min(t_lo + split * per, t_hi);
+  const int j1 = min(j0 + per, t_hi);
 
-  load_tile<D>(sm.q, qb, q_ss, q0, Sq);
-  __syncthreads();
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-      qa[D / 16];
+  auto k_slot = [&](int j) {
+    return base + Sm::kK + ((j - j0) % kStages) * 2 * Sm::kTile;
+  };
+  auto fetch = [&](int j) {
+    if (j < j1) {
+      load_tile<D>(k_slot(j), kb, k_ss, j * kRows, Sk);
+      load_tile<D>(k_slot(j) + Sm::kTile, vb, v_ss, j * kRows, Sk);
+    }
+    cp_async_commit();
+  };
+  load_tile<D>(q_s, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::load_matrix_sync(qa[kk], sm.q + warp * 16 * kLdh + kk * 16, kLdh);
+  for (int j = j0; j < j0 + kStages - 1; ++j) fetch(j);  // Q in the first
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
+  const int qi0 = q0 + acc_row(0);  // this thread's rows: qi0, qi0 + 8
+  const float scale_log2 = scale * kLog2e;
+
+  for (int j = j0; j < j1; ++j) {
+    ring_arrive<kStages - 2>();  // tile j landed; all are done with j - 1
+    fetch(j + kStages - 1);      // ... so its slot takes tile j + stages - 1
+    const uint32_t ks = k_slot(j), vs = ks + Sm::kTile;
+
+    float s[32];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(s, desc_k(q_s, kk), desc_k(ks, kk), kk > 0);
+    wg_commit();
+    wg_wait<0>();
+    pin(s);
+
+    // Online softmax on the accumulator, in base 2 (x log2 e, exp2): two
+    // rows a thread, their 16 columns each spread over the quad of threads
+    // that share the row.  A tile every row sees whole skips the mask.
+    const int kt0 = j * kRows;
+    const bool whole = kt0 + kRows <= kv_len && period == 0 &&
+                       (!causal || kt0 + kRows - 1 <= q0);
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1, qi = qi0 + 8 * r, ki = kt0 + acc_col(i);
+      float x;
+      if constexpr (kAlibi) {
+        x = (s[i] * scale + __fmul_rn(slope, (float)ki)) * kLog2e;
+      } else {
+        x = s[i] * scale_log2;
+      }
+      if (!whole) {
+        const bool ok = ki < kv_len && (!causal || ki <= qi) &&
+                        (period == 0 || ki / period == qi / period);
+        x = ok ? x : -INFINITY;
+      }
+      s[i] = x;
+      mx[r] = fmaxf(mx[r], x);
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m_i[r], mx[r]);
+      // no visible key yet: keep everything at zero
+      alpha[r] = m_new == -INFINITY ? 1.f : exp2f(m_i[r] - m_new);
+      m_i[r] = m_new;
+      l_i[r] *= alpha[r];  // this thread's partial row sum
+    }
+    const float m_use[2] = {m_i[0] == -INFINITY ? 0.f : m_i[0],
+                            m_i[1] == -INFINITY ? 0.f : m_i[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = exp2f(s[i] - m_use[r]);  // exp2(-inf) = 0 for masked keys
+      l_i[r] += s[i];
+    }
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    uint32_t pa[4][4];
+    acc_to_a(s, pa);
+
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, pa[kk], desc_mn(vs, kk));
+    wg_commit();
+    wg_wait<0>();
+    pin(acc);
   }
+  cp_async_wait<0>();
 
-  const int r = lane >> 1, half = lane & 1;
-  const int qi = q0 + warp * 16 + r;
-  const int qg = period > 0 ? qi / period : 0;
-  float m_i = -INFINITY, l_i = 0.f;
-  float acc[kHalf];
 #pragma unroll
-  for (int c = 0; c < kHalf; ++c) acc[c] = 0.f;
-  float* s_w = sm.s[warp];
-  __nv_bfloat16* p_w = sm.p[warp];
-
-  for (int kt0 = (k_lo / kBK) * kBK; kt0 < k_hi; kt0 += kBK) {
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile<D>(sm.k, kb, k_ss, kt0, Sk);
-    load_tile<D>(sm.v, vb, v_ss, kt0, Sk);
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows: K sits row-major [key][d] in
-    // shared memory, which is K^T column-major.
-#pragma unroll
-    for (int nt = 0; nt < kBK / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sc;
-      wmma::fill_fragment(sc, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::col_major> kf;
-        wmma::load_matrix_sync(kf, sm.k + nt * 16 * kLdh + kk * 16, kLdh);
-        wmma::mma_sync(sc, qa[kk], kf, sc);
-      }
-      wmma::store_matrix_sync(s_w + nt * 16, sc, kLds, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // Online softmax over this thread's 32 columns of row r.
-    float sv[32];
-    float mx = -INFINITY;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      const int col = half * 32 + c;
-      const int ki = kt0 + col;
-      const bool ok = ki < kv_len && (!causal || ki <= qi) &&
-                      (period == 0 || ki / period == qg);
-      float x = s_w[r * kLds + col] * scale;
-      if constexpr (kAlibi) x += __fmul_rn(slope, (float)ki);
-      x = ok ? x : -INFINITY;
-      sv[c] = x;
-      mx = fmaxf(mx, x);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m_i, mx);
-    float alpha = 1.f, rowsum = 0.f;
-    if (m_new == -INFINITY) {
-#pragma unroll
-      for (int c = 0; c < 32; ++c) sv[c] = 0.f;
-    } else {
-      alpha = __expf(m_i - m_new);
-#pragma unroll
-      for (int c = 0; c < 32; ++c) {
-        sv[c] = __expf(sv[c] - m_new);
-        rowsum += sv[c];
-      }
-    }
-    rowsum += __shfl_xor_sync(0xffffffffu, rowsum, 1);
-    l_i = l_i * alpha + rowsum;
-    m_i = m_new;
-#pragma unroll
-    for (int c = 0; c < 32; ++c) {
-      p_w[r * kLdp + half * 32 + c] = __float2bfloat16(sv[c]);
-    }
-    __syncwarp();
-
-    // PV = P [16 x 64 keys] @ V [64 keys x D], into the score scratch.
-#pragma unroll
-    for (int nt = 0; nt < D / 16; ++nt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> pv;
-      wmma::fill_fragment(pv, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> pa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> vf;
-        wmma::load_matrix_sync(pa, p_w + kk * 16, kLdp);
-        wmma::load_matrix_sync(vf, sm.v + kk * 16 * kLdh + nt * 16, kLdh);
-        wmma::mma_sync(pv, pa, vf, pv);
-      }
-      wmma::store_matrix_sync(s_w + nt * 16, pv, kLds, wmma::mem_row_major);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int c = 0; c < kHalf; ++c) {
-      acc[c] = acc[c] * alpha + s_w[r * kLds + half * kHalf + c];
-    }
-    __syncwarp();
+  for (int r = 0; r < 2; ++r) {
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 1);
+    l_i[r] += __shfl_xor_sync(0xffffffffu, l_i[r], 2);
   }
-
-  if (qi < Sq) {
-    // A row with no visible key (not reachable from the ported paths)
-    // yields zeros and lse = -inf.
-    const float inv = l_i > 0.f ? 1.f / l_i : 0.f;
-    __nv_bfloat16* orow = o + b * o_sb + h * o_sh + qi * o_ss + half * kHalf;
+  // A row with no visible key (an empty split, or not reachable from the
+  // ported paths) yields zeros and lse = -inf.
+  const float inv[2] = {l_i[0] > 0.f ? 1.f / l_i[0] : 0.f,
+                        l_i[1] > 0.f ? 1.f / l_i[1] : 0.f};
+  const long long bh = (long long)b * H + h;
+  if (splits == 1) {
 #pragma unroll
-    for (int c = 0; c < kHalf; c += 8) {
-      __align__(16) __nv_bfloat16 pack[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) pack[e] = __float2bfloat16(acc[c + e] * inv);
-      *reinterpret_cast<uint4*>(orow + c) = *reinterpret_cast<uint4*>(pack);
+    for (int i = 0; i < D / 2; i += 2) {
+      const int r = (i >> 1) & 1, qi = qi0 + 8 * r;
+      if (qi < Sq) {
+        *reinterpret_cast<__nv_bfloat162*>(
+            o + b * o_sb + h * o_sh + qi * o_ss + acc_col(i)) =
+            __floats2bfloat162_rn(acc[i] * inv[r], acc[i + 1] * inv[r]);
+      }
     }
-    if (half == 0) {
-      lse[((long long)b * H + h) * Sq + qi] =
-          l_i > 0.f ? m_i + logf(l_i) : -INFINITY;
+  } else {
+    float* op = o_part + (((long long)split * B * H + bh) * Sq) * D;
+#pragma unroll
+    for (int i = 0; i < D / 2; i += 2) {
+      const int r = (i >> 1) & 1, qi = qi0 + 8 * r;
+      if (qi < Sq) {
+        *reinterpret_cast<float2*>(op + (long long)qi * D + acc_col(i)) =
+            make_float2(acc[i] * inv[r], acc[i + 1] * inv[r]);
+      }
+    }
+  }
+  if ((threadIdx.x & 3) == 0) {
+    float* out = splits == 1 ? lse + bh * Sq
+                             : lse_part + ((long long)split * B * H + bh) * Sq;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int qi = qi0 + 8 * r;
+      if (qi < Sq)
+        out[qi] = l_i[r] > 0.f ? m_i[r] * kLn2 + logf(l_i[r]) : -INFINITY;
     }
   }
 }
 
+// The split-KV merge: one warp per (batch, head, query row).  With the
+// shares' lse_s, lse = log(sum_s exp(lse_s)) and O = sum_s exp(lse_s -
+// lse) o_s (o_s already normalised), summed in split order.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_merge_kernel(const float* __restrict__ o_part,
+                       const float* __restrict__ lse_part,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int B, int H, int Sq, int splits, long long o_sb,
+                       long long o_sh, long long o_ss) {
+  constexpr int kPer = D / 32;  // values a lane
+  const long long row = (long long)blockIdx.x * (kThreads / 32) +
+                        (threadIdx.x >> 5);
+  const long long rows = (long long)B * H * Sq;
+  if (row >= rows) return;
+  const int lane = threadIdx.x & 31;
+  const long long bh = row / Sq;
+  const int qi = (int)(row % Sq), b = (int)(bh / H), h = (int)(bh % H);
+  float m = -INFINITY;
+  for (int s = 0; s < splits; ++s) m = fmaxf(m, lse_part[s * rows + row]);
+  float out[kPer];
+#pragma unroll
+  for (int c = 0; c < kPer; ++c) out[c] = 0.f;
+  float total = 0.f;
+  if (m != -INFINITY) {
+    for (int s = 0; s < splits; ++s)
+      total += __expf(lse_part[s * rows + row] - m);
+    for (int s = 0; s < splits; ++s) {
+      const float w = __expf(lse_part[s * rows + row] - m) / total;
+      const float* src = o_part + (s * rows + row) * D + lane * kPer;
+#pragma unroll
+      for (int c = 0; c < kPer; ++c) out[c] += w * src[c];
+    }
+  }
+  __nv_bfloat16* dst = o + b * o_sb + h * o_sh + qi * o_ss + lane * kPer;
+#pragma unroll
+  for (int c = 0; c < kPer; c += 2)
+    *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+        __floats2bfloat162_rn(out[c], out[c + 1]);
+  if (lane == 0) lse[row] = m == -INFINITY ? -INFINITY : m + logf(total);
+}
+
 template <int D, bool kAlibi>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
-           const void* slopes, int B, int H, int Sq, int Sk, int kv_len,
-           long long q_sb, long long q_sh, long long q_ss, long long k_sb,
-           long long k_sh, long long k_ss, long long v_sb, long long v_sh,
-           long long v_ss, long long o_sb, long long o_sh, long long o_ss,
-           float scale, int period, int causal, cudaStream_t stream) {
+           void* o_part, void* lse_part, const void* slopes, int B, int H,
+           int Sq, int Sk, int kv_len, int splits, long long q_sb,
+           long long q_sh, long long q_ss, long long k_sb, long long k_sh,
+           long long k_ss, long long v_sb, long long v_sh, long long v_ss,
+           long long o_sb, long long o_sh, long long o_ss, float scale,
+           int period, int causal, cudaStream_t stream) {
   static bool attr_set = false;  // one opt-in per template instance
   if (!attr_set) {
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<D, kAlibi>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(Smem<D>));
+        cudaFuncAttributeMaxDynamicSharedMemorySize, FwdSmem<D>::kAlloc);
     if (err != cudaSuccess) return (int)err;
     attr_set = true;
   }
-  dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<D, kAlibi><<<grid, kThreads, sizeof(Smem<D>), stream>>>(
+  dim3 grid((Sq + kRows - 1) / kRows, H, B * splits);
+  flash_fwd_kernel<D, kAlibi><<<grid, kThreads, FwdSmem<D>::kAlloc, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), static_cast<const float*>(slopes), H, Sq, Sk,
-      kv_len, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb,
-      o_sh, o_ss, scale, period, causal);
+      static_cast<float*>(lse), static_cast<float*>(o_part),
+      static_cast<float*>(lse_part), static_cast<const float*>(slopes), B, H,
+      Sq, Sk, kv_len, splits, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+      v_ss, o_sb, o_sh, o_ss, scale, period, causal);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return (int)err;
+  const long long rows = (long long)B * H * Sq;
+  flash_fwd_merge_kernel<D>
+      <<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
+          static_cast<const float*>(o_part),
+          static_cast<const float*>(lse_part),
+          static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Sq,
+          splits, o_sb, o_sh, o_ss);
   return (int)cudaGetLastError();
 }
 
@@ -288,21 +341,26 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // (the caller passes kv_len = Sk for no key mask); period > 0 selects the
 // block-diagonal period mask and causal != 0 the causal mask (Sq == Sk).
 // head_dim is 64 or 128; slopes is null, or an fp32 device array of H
-// ALiBi slopes (the caller requires causal with it).  Returns
-// cudaGetLastError() after the launch, or cudaErrorInvalidValue for a head
-// dim it was not built for.
+// ALiBi slopes (the caller requires causal with it).  splits > 1 splits
+// each block's key tiles that many ways: o_part (fp32 [splits, B, H, Sq,
+// head_dim]) and lse_part (fp32 [splits, B, H, Sq]) are then the caller's
+// scratch, and the merge kernel runs after the main one.  Returns
+// cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
+// head dim it was not built for or splits < 1.
 extern "C" int ymt_flash_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int Sq, int Sk, int kv_len, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, long long o_sb,
     long long o_sh, long long o_ss, float scale, int period, int causal,
-    int head_dim, const void* slopes, void* stream) {
+    int head_dim, const void* slopes, int splits, void* o_part,
+    void* lse_part, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
+  if (splits < 1) return (int)cudaErrorInvalidValue;
 #define YMT_FWD(D, A)                                                         \
-  launch<D, A>(q, k, v, o, lse, slopes, B, H, Sq, Sk, kv_len, q_sb, q_sh,    \
-               q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,   \
-               scale, period, causal, s)
+  launch<D, A>(q, k, v, o, lse, o_part, lse_part, slopes, B, H, Sq, Sk,      \
+               kv_len, splits, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,     \
+               v_sh, v_ss, o_sb, o_sh, o_ss, scale, period, causal, s)
   const bool alibi = slopes != nullptr;
   if (head_dim == 64) return alibi ? YMT_FWD(64, true) : YMT_FWD(64, false);
   if (head_dim == 128) return alibi ? YMT_FWD(128, true) : YMT_FWD(128, false);

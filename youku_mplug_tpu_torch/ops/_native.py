@@ -27,6 +27,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[1]
 _SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
             "kv_cache.cu")
+_HEADERS = ("hopper.cuh",)  # included by the flash sources
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                            "-Xptxas=-v")
@@ -37,11 +38,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # ... scale, period, causal, head_dim, slopes (or null), stream
+    # ... scale, period, causal, head_dim, slopes (or null), [splits and
+    # their scratch,] stream
     "ymt_flash_fwd_bf16": [_P] * 5 + [_I] * 5 + [_LL] * 12
-    + [_F, _I, _I, _I, _P, _P],
+    + [_F, _I, _I, _I, _P, _I, _P, _P, _P],
     "ymt_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 5 + [_LL] * 15
-    + [_F, _I, _I, _I, _P, _P],
+    + [_F, _I, _I, _I, _P, _I, _P, _P],
     "ymt_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 18
     + [_F, _I, _I, _I, _P, _P],
     # q, q_sb, q_sh, ckv, kv_scales (or null), out, cache_len, valid_from,
@@ -66,7 +68,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
+    for name in _SOURCES + _HEADERS:
         h.update(name.encode())
         h.update((_PKG / "csrc" / name).read_bytes())
     return h.hexdigest()[:16]
