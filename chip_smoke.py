@@ -11,8 +11,7 @@ the last line is printed):
 2. each kernel against its plain PyTorch version, in bf16, at the shapes
    the serving, training and instruct paths give it, with the kernel's,
    the plain version's and F.scaled_dot_product_attention's times from
-   CUDA events, the bound from this run's inputs and, for the flash
-   kernels, their times before the wgmma redesign (``ms_pr5``);
+   CUDA events and the bound from this run's inputs;
    the card's name, power limit, SM clock and power draw sampled under
    load: the forward (K1 none / period; K4 at the serving batch, split
    two ways, at the pretrain batch, and split three ways over a ragged
@@ -228,8 +227,7 @@ def phase_device_and_build():
             m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
                           r"decode_attn)_kernelILi(\d+)ELb([01])E"
                           r"(?:Lb([01])E)?", line)
-            merge = re.search(r"(flash_fwd_merge|flash_dq_reduce)_kernel"
-                              r"ILi(\d+)E", line)
+            merge = re.search(r"(flash_fwd_merge)_kernelILi(\d+)E", line)
             entry = (f"{m[1]}<{m[2]},{'alibi' if m[3] == '1' else 'plain'}"
                      f"{',int8' if m[4] == '1' else ''}>" if m
                      else f"{merge[1]}<{merge[2]}>" if merge
@@ -358,13 +356,12 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
              f"{lse_err} (tol {LSE_TOL})")
     do = fa._head_major_empty(q).copy_(rand(b, n, sq, d))
     lib_fwd, lib_bwd = _library_ms(q, k, v, mask_kw, do)
-    before = WMMA_MS.get(shape, {})
     fwd = {"shape": shape, "on_path": on_path, "max_abs_err": fwd_err,
            "lse_err": lse_err,
-           "splits": fa.kv_splits(b, n, sq, sk, causal=causal, period=period,
-                                  kv_len=kv_len),
+           "splits": fa.kv_splits(b, n, sq, sk, head_dim=d, causal=causal,
+                                  period=period, kv_len=kv_len,
+                                  sms=fa._device_sms(q.device.index)),
            "ms": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, o, **kw), 20),
-           "ms_pr5": before.get("fwd"),
            "plain_ms": time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw),
                                20),
            "library_ms": lib_fwd, **bounds["fwd"]}
@@ -395,8 +392,7 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
         return {"shape": shape, "on_path": on_path,
                 "rel_l2": {gn: errs[gn] for gn in grads},
                 "max_abs_err": max(abs_err[gn] for gn in grads), "ms": ms,
-                "ms_pr5": before.get(kind), "plain_ms": plain_ms,
-                "library_ms": lib_bwd,
+                "plain_ms": plain_ms, "library_ms": lib_bwd,
                 **bounds[kind]}
 
     return {"layout": layout, "fwd": fwd,
@@ -548,8 +544,6 @@ def _entry(name, source, replaces, wrapper, paths, key, per_shape,
     on = [p for p in per_shape if p["on_path"]]
     ops, nbytes = sum(p["ops_ms"] for p in on), sum(p["bytes_ms"] for p in on)
     library = [p["library_ms"] for p in on]
-    flash = source in (FWD_SRC, BWD_SRC)
-    before = [p.get("ms_pr5") for p in on]
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "wrapper": wrapper, "counter": counter,
             "paths": paths, "key": key,
@@ -559,8 +553,6 @@ def _entry(name, source, replaces, wrapper, paths, key, per_shape,
             "bound_ms": sum(p["bound_ms"] for p in on),
             "bound_by": "operations" if ops >= nbytes else "bytes",
             "library_ms": None if None in library else sum(library),
-            **({"ms_pr5": None if None in before else sum(before)} if flash
-               else {}),
             "per_shape": per_shape}
 
 
@@ -570,29 +562,6 @@ DEC_SRC = "youku_mplug_tpu_torch/csrc/decode_attention.cu"
 KV_SRC = "youku_mplug_tpu_torch/csrc/kv_cache.cu"
 TPU_FLASH = "youku_mplug_tpu/ops/flash_attention.py"
 TPU_DEC = "youku_mplug_tpu/ops/decode_attention.py"
-# the flash kernels' ms before their wgmma redesign (the WMMA kernels),
-# by shape: PERF.md's section 6 table (this script on an H100 80GB HBM3
-# at 700 W)
-WMMA_MS = {
-    "[64,197,12x64] period 0 (serve)": {"fwd": 0.1657},
-    "[112,112,12x64] period 8 (serve)": {"fwd": 0.0715},
-    "[128,257,16x64] period 0 (instruct)": {"fwd": 0.6391},
-    "[64,257,16x64] period 0 (instruct_train)": {"fwd": 0.3220},
-    "[8,128,12x64] kv 1570 heads (serve)": {"fwd": 0.1088},
-    "[16,128,12x64] kv 1570 heads (train)": {
-        "fwd": 0.1392, "dq": 0.2995, "dkv": 0.3396},
-    "[128,197,12x64] kv 197 packed (train)": {
-        "fwd": 0.3175, "dq": 0.5662, "dkv": 0.7250},
-    "[224,112,12x64] kv 112 period 8 packed (train)": {
-        "fwd": 0.1295, "dq": 0.2583, "dkv": 0.3006},
-    "[16,208,32x64] kv 208 causal packed (train)": {
-        "fwd": 0.0823, "dq": 0.1440, "dkv": 0.1759},
-    "[8,105,32x128] kv 105 causal ALiBi head-major (instruct_train)": {
-        "fwd": 0.0330, "dq": 0.0685, "dkv": 0.0855},
-    "[2,256,32x128] kv 256 causal head-major (d 128 without ALiBi)": {
-        "fwd": 0.0307},
-}
-
 
 def phase_kernels(dev):
     from youku_mplug_tpu_torch.ops import decode_attention as dec
@@ -637,7 +606,6 @@ def phase_kernels(dev):
             "lse_err": e_lse,
             "ms": time_ms(lambda: fa.flash_attention_packed(q, k, v, n, **kw),
                           20),
-            "ms_pr5": WMMA_MS.get(shape, {}).get("fwd"),
             "plain_ms": time_ms(lambda: fa.flash_attention_packed_plain(
                 q, k, v, n, **kw), 20),
             "library_ms": lib,
@@ -655,7 +623,8 @@ def phase_kernels(dev):
         q = rand(b, sq, 768).unflatten(-1, (12, 64)).transpose(1, 2)
         k, v = (rand(b, sk, 768).unflatten(-1, (12, 64)).transpose(1, 2)
                 for _ in range(2))
-        splits = fa.kv_splits(b, 12, sq, sk, kv_len=kv_len)
+        splits = fa.kv_splits(b, 12, sq, sk, kv_len=kv_len,
+                              sms=fa._device_sms(q.device.index))
         got = fa.flash_attention(q, k, v, kv_len=kv_len)
         want = fa.flash_attention_plain(q, k, v, kv_len=kv_len)
         lse = fa.flash_fwd_cuda(q, k, v, torch.empty_like(q), scale=0.125,
@@ -674,7 +643,6 @@ def phase_kernels(dev):
             "lse_err": e_lse, "splits": splits,
             "ms": time_ms(lambda: fa.flash_attention(q, k, v, kv_len=kv_len),
                           20),
-            "ms_pr5": WMMA_MS.get(shape, {}).get("fwd"),
             "plain_ms": time_ms(lambda: fa.flash_attention_plain(
                 q, k, v, kv_len=kv_len), 20),
             "library_ms": _library_ms(q, k, v, mask_kw)[0],
@@ -709,9 +677,7 @@ def phase_kernels(dev):
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
         report.append(_entry(
             f"K2/K3 + K4b backward {kind} kernel (flash_bwd_{kind}_cuda; "
-            f"also replaces flash_attention.py:{line_hm}"
-            + ("; split shares summed by flash_dq_reduce_kernel"
-               if kind == "dq" else "") + ")", BWD_SRC,
+            f"also replaces flash_attention.py:{line_hm})", BWD_SRC,
             f"{TPU_FLASH}:{line}", wrapper, ("train",), kind,
             [c[kind] for c in cases] + [no_alibi_128[kind]]))
     report.append(_entry(
@@ -819,11 +785,8 @@ def phase_kernels(dev):
     for r in report:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
-        before = ("" if r.get("ms_pr5") is None
-                  else f" (WMMA kernels: {r['ms_pr5']:.4f} ms)")
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.3g} | "
-              f"kernel {r['ms']:.4f} ms{before} | "
-              f"plain {r['plain_ms']:.4f} ms | "
+              f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
               f"library {lib} | bound {r['bound_ms']:.4f} "
               f"ms ({r['bound_by']})", flush=True)
         for p in r["per_shape"]:
@@ -1554,10 +1517,9 @@ def main():
     for r in report:
         entry = {k: r[k] for k in ("name", "route", "source", "replaces")}
         entry["launches"] = sum(r["launches_by_path"].values())
-        entry |= {k: r[k] for k in ("max_abs_err", "ms", "ms_pr5",
-                                    "plain_ms", "bound_ms", "bound_by",
-                                    "library_ms", "launches_by_path",
-                                    "per_shape") if k in r}
+        entry |= {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                    "bound_ms", "bound_by", "library_ms",
+                                    "launches_by_path", "per_shape")}
         kernels.append(entry)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)

@@ -48,7 +48,7 @@ WARMUP, TIMED, PROFILED = 2, 5, 1
 # (category, substrings of the kernel name), first match wins
 CATEGORIES = (
     ("attention fwd (K1/K4)", ("flash_fwd_kernel", "flash_fwd_merge")),
-    ("attention bwd dq", ("flash_bwd_dq_kernel", "flash_dq_reduce")),
+    ("attention bwd dq", ("flash_bwd_dq_kernel",)),
     ("attention bwd dk/dv", ("flash_bwd_dkv_kernel",)),
     ("gemm fp32 (no tensor cores)", ("sgemm", "f32f32_f32f32", "_ffma")),
     ("gemm", ("gemm", "nvjet", "cutlass", "xmma")),

@@ -28,21 +28,19 @@
 // fed straight back as the register A operand of the next product; only
 // tiles stay in shared memory, and the streamed tiles come through a
 // two-stage cp.async ring:
-//   - dq kernel: one block per (64-query tile, head, batch, split), Q and
-//     dO resident, K and V streaming; S = Q K^T and dP = dO V^T (m64n64,
+//   - dq kernel: one block per (64-query tile, head, batch), Q and dO
+//     resident, K and V streaming; S = Q K^T and dP = dO V^T (m64n64,
 //     both operands K-major), dQ += dS K (m64nD, K read MN-major).
 //   - dk/dv kernel: one block per (64-key tile, head, batch), K and V
 //     resident, Q, dO, lse and delta streaming; S^T = K Q^T, dP^T = V dO^T,
 //     dV += P^T dO and dK += dS^T Q (the last two read the streamed tiles
 //     MN-major).
-// The dq chain is split: AttentionPool's dq has 384 (query tile, head,
-// batch) blocks walking 25 key tiles each, so the caller asks for
-// `splits` > 1 and each block takes a contiguous share of its key tiles,
-// writing fp32 partial sums into scratch the caller allocated ([splits,
-// B, H, Sq, D]: 12.6 MB for q [16, 128, 12x64] at 2 splits);
-// flash_dq_reduce_kernel adds them in split order into dq.  No block adds
-// into another's output and no atomics are used, so the gradients are
-// bitwise repeatable.  Both kernels visit only the tiles a mask leaves
+// The dq chain stays whole: AttentionPool's dq in the pretrain step has
+// 384 (query tile, head, batch) blocks walking 25 key tiles each, which
+// already fills the card (PERF.md), so dq, unlike the forward, takes no
+// split of the keys.  No block adds into another's output and no atomics
+// are used, so the gradients are bitwise repeatable.  Both kernels visit
+// only the tiles a mask leaves
 // live (causal: key tiles 0..i for query tile i, query tiles from the
 // diagonal on for a key tile; period: the tiles of the tile's own period
 // groups).
@@ -106,30 +104,26 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq,
-                    float* __restrict__ dq_part,
-                    const float* __restrict__ slopes, int B, int H, int Sq,
-                    int Sk, int kv_len, int splits, long long q_sb,
-                    long long q_sh, long long q_ss, long long k_sb,
-                    long long k_sh, long long k_ss, long long v_sb,
-                    long long v_sh, long long v_ss, long long do_sb,
-                    long long do_sh, long long do_ss, long long dq_sb,
-                    long long dq_sh, long long dq_ss, float scale, int period,
-                    int causal) {
+                    const float* __restrict__ slopes, int H, int Sq, int Sk,
+                    int kv_len, long long q_sb, long long q_sh,
+                    long long q_ss, long long k_sb, long long k_sh,
+                    long long k_ss, long long v_sb, long long v_sh,
+                    long long v_ss, long long do_sb, long long do_sh,
+                    long long do_ss, long long dq_sb, long long dq_sh,
+                    long long dq_ss, float scale, int period, int causal) {
   using Sm = BwdSmem<D>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base, do_s = base + Sm::kTile;
 
-  const int q0 = blockIdx.x * kRows, h = blockIdx.y;
-  const int b = blockIdx.z / splits, split = blockIdx.z % splits;
+  const int q0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
   const Mask mask{Sq, kv_len, period, causal};
   const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
   float slope = 0.f;
   if constexpr (kAlibi) slope = slopes[h];
 
-  // Key tiles this query tile can see (as in flash_fwd.cu), then this
-  // split's share.
+  // Key tiles this query tile can see (as in flash_fwd.cu).
   const int q_last = min(q0 + kRows, Sq) - 1;
   int k_lo = 0, k_hi = kv_len;
   if (causal) k_hi = min(k_hi, q_last + 1);
@@ -137,11 +131,8 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     k_lo = (q0 / period) * period;
     k_hi = min(k_hi, (q_last / period + 1) * period);
   }
-  const int t_lo = k_lo / kRows;
-  const int t_hi = k_hi > k_lo ? (k_hi + kRows - 1) / kRows : t_lo;
-  const int per = (t_hi - t_lo + splits - 1) / splits;
-  const int j0 = min(t_lo + split * per, t_hi);
-  const int j1 = min(j0 + per, t_hi);
+  const int j0 = k_lo / kRows;
+  const int j1 = k_hi > k_lo ? (k_hi + kRows - 1) / kRows : j0;
 
   constexpr int kStages = Sm::kStages;
   auto slot = [&](int j) {
@@ -217,48 +208,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     pin(acc);
   }
   cp_async_wait<0>();
-
-  if (splits == 1) {
-    store_acc<D>(dq + b * dq_sb + h * dq_sh, dq_ss, q0, Sq, acc);
-    return;
-  }
-  float* part = dq_part +
-                (((long long)split * B + b) * H + h) * (long long)Sq * D;
-#pragma unroll
-  for (int i = 0; i < D / 2; i += 2) {
-    const int qi = q0 + acc_row(i);
-    if (qi < Sq)
-      *reinterpret_cast<float2*>(part + (long long)qi * D + acc_col(i)) =
-          make_float2(acc[i], acc[i + 1]);
-  }
-}
-
-// dq = the sum of the splits' fp32 partials in split order, as bf16 into
-// the strided dq; one thread per 4 values.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_dq_reduce_kernel(const float* __restrict__ dq_part,
-                       __nv_bfloat16* __restrict__ dq, int B, int H, int Sq,
-                       int splits, long long dq_sb, long long dq_sh,
-                       long long dq_ss) {
-  const long long n = (long long)B * H * Sq * D;
-  const long long idx = ((long long)blockIdx.x * kThreads + threadIdx.x) * 4;
-  if (idx >= n) return;
-  float4 sum = *reinterpret_cast<const float4*>(dq_part + idx);
-  for (int s = 1; s < splits; ++s) {
-    const float4 x = *reinterpret_cast<const float4*>(dq_part + s * n + idx);
-    sum.x += x.x;
-    sum.y += x.y;
-    sum.z += x.z;
-    sum.w += x.w;
-  }
-  const long long row = idx / D;
-  const int c = (int)(idx % D), qi = (int)(row % Sq);
-  const int h = (int)((row / Sq) % H), b = (int)(row / Sq / H);
-  __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-      dq + b * dq_sb + h * dq_sh + qi * dq_ss + c);
-  dst[0] = __floats2bfloat162_rn(sum.x, sum.y);
-  dst[1] = __floats2bfloat162_rn(sum.z, sum.w);
+  store_acc<D>(dq + b * dq_sb + h * dq_sh, dq_ss, q0, Sq, acc);
 }
 
 template <int D, bool kAlibi>
@@ -402,9 +352,9 @@ int set_smem(Kernel kernel, int bytes, bool* done) {
 
 template <int D, bool kAlibi>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, void* dq_part,
+              const void* lse, const void* delta, void* dq,
               const void* slopes, int B, int H, int Sq, int Sk, int kv_len,
-              int splits, long long q_sb, long long q_sh, long long q_ss,
+              long long q_sb, long long q_sh, long long q_ss,
               long long k_sb, long long k_sh, long long k_ss, long long v_sb,
               long long v_sh, long long v_ss, long long do_sb,
               long long do_sh, long long do_ss, long long dq_sb,
@@ -414,7 +364,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   int err = set_smem(flash_bwd_dq_kernel<D, kAlibi>, BwdSmem<D>::kAlloc,
                      &attr_set);
   if (err) return err;
-  dim3 grid((Sq + kRows - 1) / kRows, H, B * splits);
+  dim3 grid((Sq + kRows - 1) / kRows, H, B);
   flash_bwd_dq_kernel<D, kAlibi>
       <<<grid, kThreads, BwdSmem<D>::kAlloc, stream>>>(
           static_cast<const __nv_bfloat16*>(q),
@@ -422,17 +372,10 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
           static_cast<const __nv_bfloat16*>(v),
           static_cast<const __nv_bfloat16*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<__nv_bfloat16*>(dq), static_cast<float*>(dq_part),
-          static_cast<const float*>(slopes), B, H, Sq, Sk, kv_len, splits,
-          q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh,
-          do_ss, dq_sb, dq_sh, dq_ss, scale, period, causal);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess || splits == 1) return (int)e;
-  const long long n = (long long)B * H * Sq * D / 4;
-  flash_dq_reduce_kernel<D>
-      <<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
-          static_cast<const float*>(dq_part), static_cast<__nv_bfloat16*>(dq),
-          B, H, Sq, splits, dq_sb, dq_sh, dq_ss);
+          static_cast<__nv_bfloat16*>(dq), static_cast<const float*>(slopes),
+          H, Sq, Sk, kv_len, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
+          v_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, scale, period,
+          causal);
   return (int)cudaGetLastError();
 }
 
@@ -473,11 +416,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // or past it; period > 0 selects the block-diagonal period mask and
 // causal != 0 the causal mask (Sq == Sk).  head_dim is 64 or 128; slopes
 // is null, or an fp32 device array of H ALiBi slopes (the caller requires
-// causal with it).  The dq entry's splits > 1 splits each block's key
-// tiles that many ways, with dq_part (fp32 [splits, B, H, Sq, head_dim])
-// the caller's scratch and the reduce kernel after the main one.  Each
-// returns cudaGetLastError() after its launches, or cudaErrorInvalidValue
-// for a head dim it was not built for or splits < 1.
+// causal with it).  Each returns cudaGetLastError() after its launch, or
+// cudaErrorInvalidValue for a head dim it was not built for.
 extern "C" int ymt_flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int Sq,
@@ -486,14 +426,13 @@ extern "C" int ymt_flash_bwd_dq_bf16(
     long long v_sh, long long v_ss, long long do_sb, long long do_sh,
     long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,
     float scale, int period, int causal, int head_dim, const void* slopes,
-    int splits, void* dq_part, void* stream) {
+    void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (splits < 1) return (int)cudaErrorInvalidValue;
 #define YMT_DQ(D, A)                                                          \
-  launch_dq<D, A>(q, k, v, dout, lse, delta, dq, dq_part, slopes, B, H, Sq,  \
-                  Sk, kv_len, splits, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,    \
-                  v_sb, v_sh, v_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, \
-                  scale, period, causal, s)
+  launch_dq<D, A>(q, k, v, dout, lse, delta, dq, slopes, B, H, Sq, Sk,       \
+                  kv_len, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,    \
+                  v_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, scale,     \
+                  period, causal, s)
   const bool alibi = slopes != nullptr;
   if (head_dim == 64) return alibi ? YMT_DQ(64, true) : YMT_DQ(64, false);
   if (head_dim == 128) return alibi ? YMT_DQ(128, true) : YMT_DQ(128, false);

@@ -38,12 +38,12 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # ... scale, period, causal, head_dim, slopes (or null), [splits and
-    # their scratch,] stream
+    # ... scale, period, causal, head_dim, slopes (or null), [the
+    # forward's splits and their scratch,] stream
     "ymt_flash_fwd_bf16": [_P] * 5 + [_I] * 5 + [_LL] * 12
     + [_F, _I, _I, _I, _P, _I, _P, _P, _P],
     "ymt_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 5 + [_LL] * 15
-    + [_F, _I, _I, _I, _P, _I, _P, _P],
+    + [_F, _I, _I, _I, _P, _P],
     "ymt_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 18
     + [_F, _I, _I, _I, _P, _P],
     # q, q_sb, q_sh, ckv, kv_scales (or null), out, cache_len, valid_from,

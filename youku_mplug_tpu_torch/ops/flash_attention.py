@@ -16,12 +16,10 @@ CUDA kernels serve both public wrappers, because the packed
 
 Each kernel is built for head dim 64 and 128, with and without ALiBi.
 Where the (64-row query tile, head, batch) blocks are too few to fill the
-card (AttentionPool's 128 queries over 1570 keys), the forward and the dq
-kernel split each block's key tiles ``kv_splits`` ways into fp32 scratch
-that the wrapper allocates, and a second small kernel merges the shares
-(the forward by their lse, dq by a sum in split order);
-``flash_fwd_split_plain`` and ``merge_splits_plain`` are the plain
-versions of that path.
+card (AttentionPool's 128 queries over 1570 keys while serving), the
+forward splits each block's key tiles ``kv_splits`` ways into fp32
+scratch that the wrapper allocates, and a second small kernel merges the
+shares by their lse.  The backward takes no split.
 ALiBi (``alibi_slopes``: any fp32 per-head values, as the JAX flash takes
 them) adds ``slope_h * key_index`` in fp32 to the scaled score before the
 mask, in the forward and when the backward rebuilds p; it requires
@@ -39,6 +37,7 @@ and ``flash_attention`` the forward's, ``flash_bwd_dq_cuda`` and
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -47,60 +46,43 @@ from youku_mplug_tpu_torch.ops import _native
 
 HEAD_DIMS = (64, 128)  # the head widths the kernels are built for
 TILE = 64  # rows of a query or key tile in the kernels
-SMS = 132  # the H100's streaming multiprocessors
-# blocks that fill the card: four resident a streaming multiprocessor
-# (the forward's 41 KB of shared memory at d 64 allows five)
-FILL_BLOCKS = 4 * SMS
+SMS = 132  # the H100's streaming multiprocessors, where no card is asked
+# forward blocks resident on one streaming multiprocessor, by head dim,
+# from nvcc's -Xptxas -v report on sm_90a: at d 64, 126 registers a thread
+# (4 blocks of 128 threads in 64K registers; 41 KB of shared memory would
+# allow 5); at d 128, 184 registers and 81 KB (2 either way)
+FWD_BLOCKS_PER_SM = {64: 4, 128: 2}
 MIN_TILES_PER_SPLIT = 4  # a share shorter than this is not worth a merge
 
 
-def kv_splits(b: int, h: int, sq: int, sk: int, *, causal: bool = False,
-              period: int = 0, kv_len: Optional[int] = None) -> int:
-    """How many ways the forward and dq kernels split each block's key
-    tiles: as many as keep the (query tile, head, batch, split) blocks
-    within one wave of FILL_BLOCKS (a second, partial wave costs more
-    than the split saves), each share at least MIN_TILES_PER_SPLIT key
-    tiles.  1 for causal and period masks, whose blocks see few tiles."""
+def kv_splits(b: int, h: int, sq: int, sk: int, *, head_dim: int = 64,
+              causal: bool = False, period: int = 0,
+              kv_len: Optional[int] = None, sms: int = SMS) -> int:
+    """How many ways the forward kernel splits each block's key tiles:
+    as many as keep the (query tile, head, batch, split) blocks within one
+    wave of the card (``sms`` times the forward's resident blocks at
+    ``head_dim``; a second, partial wave costs more than the split saves),
+    each share at least MIN_TILES_PER_SPLIT key tiles.  1 for causal and
+    period masks, whose blocks see few tiles."""
     if causal or period > 0:
         return 1
     blocks = -(-sq // TILE) * h * b
     tiles = -(-_kv(kv_len, sk) // TILE)
-    return max(1, min(FILL_BLOCKS // blocks, tiles // MIN_TILES_PER_SPLIT))
-
-
-def split_ranges(sq: int, sk: int, splits: int, *, causal: bool = False,
-                 period: int = 0, kv_len: Optional[int] = None) -> list:
-    """For each 64-row query tile, the key range [lo, hi) each split walks
-    (the kernels' arithmetic: the tile's visible key tiles, cut into
-    ``splits`` contiguous shares of whole tiles; a share may be empty)."""
-    kv = _kv(kv_len, sk)
-    out = []
-    for q0 in range(0, sq, TILE):
-        q_last = min(q0 + TILE, sq) - 1
-        k_lo, k_hi = 0, kv
-        if causal:
-            k_hi = min(k_hi, q_last + 1)
-        if period > 0:
-            k_lo = (q0 // period) * period
-            k_hi = min(k_hi, (q_last // period + 1) * period)
-        t_lo = k_lo // TILE
-        t_hi = -(-k_hi // TILE) if k_hi > k_lo else t_lo
-        per = -(-(t_hi - t_lo) // splits)
-        shares = []
-        for split in range(splits):
-            j0 = min(t_lo + split * per, t_hi)
-            j1 = min(j0 + per, t_hi)
-            shares.append((min(j0 * TILE, sk), min(j1 * TILE, sk)))
-        out.append(shares)
-    return out
+    wave = FWD_BLOCKS_PER_SM[head_dim] * sms
+    return max(1, min(wave // blocks, tiles // MIN_TILES_PER_SPLIT))
 
 
 def split_scratch_shapes(b: int, h: int, sq: int, d: int, splits: int):
-    """The fp32 scratch of a split launch: (o or dq partials [splits, B,
-    H, Sq, D], lse partials [splits, B, H, Sq]); None for one split."""
+    """The fp32 scratch of a split forward: (o partials [splits, B, H,
+    Sq, D], lse partials [splits, B, H, Sq]); None for one split."""
     if splits == 1:
         return None
     return (splits, b, h, sq, d), (splits, b, h, sq)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _allowed(sq: int, sk: int, *, causal: bool, period: int,
@@ -145,45 +127,6 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     p = torch.exp(s - lse[..., None])
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
     return o, lse
-
-
-def merge_splits_plain(o_part: torch.Tensor, lse_part: torch.Tensor):
-    """Plain version of the split-KV merge kernel: shares o_s (fp32,
-    normalised, [splits, B, H, Sq, D]) and lse_s ([splits, B, H, Sq]) ->
-    (o, lse) with lse = log(sum_s exp(lse_s)) and o = sum_s exp(lse_s -
-    lse) o_s; rows whose every share is empty give o = 0, lse = -inf."""
-    lse = torch.logsumexp(lse_part, dim=0)
-    w = torch.exp(lse_part - lse).nan_to_num(0.0)  # -inf - -inf
-    return (w[..., None] * o_part).sum(0), lse
-
-
-def flash_fwd_split_plain(q, k, v, splits: int, *, scale: float,
-                          causal: bool = False, period: int = 0,
-                          kv_len: Optional[int] = None, alibi_slopes=None):
-    """Plain version of the split forward: each split's share of each
-    query tile's keys (``split_ranges``) gives its own (o_s, lse_s), as
-    the kernel writes them to scratch, and ``merge_splits_plain`` merges
-    them.  Returns (o in q.dtype, lse fp32) like ``flash_fwd_plain``."""
-    sq, sk = q.shape[2], k.shape[2]
-    s = _scores(q, k, scale, alibi_slopes)
-    allowed = _allowed(sq, sk, causal=causal, period=period, kv_len=kv_len,
-                       device=q.device)
-    ki = torch.arange(sk, device=q.device)
-    o_part, lse_part = [], []
-    for split in range(splits):
-        share = torch.zeros(sq, sk, dtype=torch.bool, device=q.device)
-        for t, shares in enumerate(split_ranges(
-                sq, sk, splits, causal=causal, period=period,
-                kv_len=kv_len)):
-            lo, hi = shares[split]
-            share[t * TILE:(t + 1) * TILE] = (ki >= lo) & (ki < hi)
-        x = s.masked_fill(~(allowed & share), float("-inf"))
-        lse_s = torch.logsumexp(x, dim=-1)
-        p = torch.exp(x - lse_s[..., None]).nan_to_num(0.0)
-        o_part.append(torch.einsum("bhqk,bhkd->bhqd", p, v.float()))
-        lse_part.append(lse_s)
-    o, lse = merge_splits_plain(torch.stack(o_part), torch.stack(lse_part))
-    return o.to(q.dtype), lse
 
 
 def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float,
@@ -299,8 +242,9 @@ def flash_fwd_cuda(q, k, v, o, *, scale: float, causal: bool = False,
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
         return lse
-    splits = kv_splits(b, h, sq, sk, causal=causal, period=period,
-                       kv_len=kv_len)
+    splits = kv_splits(b, h, sq, sk, head_dim=d, causal=causal,
+                       period=period, kv_len=kv_len,
+                       sms=_device_sms(q.device.index))
     o_part, lse_part = (_scratch(t, q.device) for t in split_scratch_shapes(
         b, h, sq, d, splits) or (None, None))
     err = _native.library().ymt_flash_fwd_bf16(
@@ -332,23 +276,17 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, *, scale: float,
                       causal: bool = False, period: int = 0,
                       kv_len: Optional[int] = None,
                       alibi_slopes: Optional[torch.Tensor] = None) -> None:
-    """Launch the dq kernel (one block per 64-query tile and split of its
-    key tiles, ``kv_splits``; the split partials summed by a second
-    kernel), writing ``dq`` [B,H,Sq,D] in place."""
+    """Launch the dq kernel (one block per 64-query tile, looping over
+    key tiles), writing ``dq`` [B,H,Sq,D] in place."""
     _check_bwd(q, k, v, do, lse, delta, ((dq, q),), causal)
     slopes = _slopes_ptr(alibi_slopes, q, causal)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    splits = kv_splits(b, h, sq, sk, causal=causal, period=period,
-                       kv_len=kv_len)
-    dq_part = _scratch((split_scratch_shapes(b, h, sq, d, splits)
-                        or (None,))[0], q.device)
     err = _native.library().ymt_flash_bwd_dq_bf16(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk,
         _kv(kv_len, sk), *_strides(q, k, v, do, dq), float(scale),
-        int(period), int(causal), d, slopes, splits, _ptr(dq_part),
-        _native.stream_handle(q))
+        int(period), int(causal), d, slopes, _native.stream_handle(q))
     _native.check_launch(err, "ymt_flash_bwd_dq_bf16")
     _count(flash_bwd_dq_cuda, alibi_slopes)
 
