@@ -21,28 +21,31 @@ the last line is printed):
    AttentionPool head-major, plus a small kv_len case) and the five
    ALiBi / head dim 128 shapes (Bloom training [8, 105, 32x128], S 768,
    40 heads, d 64, d 128 without ALiBi) the forward's o and lse and the
-   backward's dq and dk/dv kernels on that forward's output, and decode
-   (K5: head dim 64; head dim 128 with the ALiBi ladder at BloomZ-7B1's
-   cache, at a head count past a power of two, and without ALiBi), the
-   int8-cache decode (K5 int8 at the caption cache [24,8,256,2x32x64],
-   BloomZ-7B1's [30,8,256,2x32x128] with ALiBi, 40 heads; beside each the
-   bf16 kernel's time at the same shape) and the fused quantize-and-
-   scatter cache write (K6 at 2nd 4096 and 8192, strided and contiguous
-   rows, rows 0 and M-1, the other rows preset: bitwise equal on both
-   leaves, the other rows untouched);
+   backward's dq and dk/dv kernels on that forward's output, and the
+   decode step's attention with its cache write in one launch (K5 with K6
+   folded in: bf16 head dim 64 at the caption cache [24,8,256,2x32x64];
+   head dim 128 with the ALiBi ladder at BloomZ-7B1's [30,8,256,
+   2x32x128], at 40 heads, and without ALiBi; int8 at the caption and
+   BloomZ-7B1 caches and 40 heads, beside each the bf16 kernel's time on
+   the same cache dequantized; q, k, v views of the models' fused rows;
+   both cache leaves bitwise equal to the plain write, no other row
+   touched), each timed warm and with the layer rotated over all L
+   layers, and the wrapper's host time per call;
 3. the serve slice: the serve CLI's path at the flagship model's full
    width (configs/caption/serve_gpt3_1.3B_flagship.yaml, seeded weights),
    16 requests over synthetic clips, 8 slots, 32 new tokens, greedy;
-   the forward and decode kernels' launch counters must rise and every
-   logit be finite;
+   the forward kernels' launch counters must rise, the decode kernel
+   launch once per layer per decode step (counters and a traced step),
+   and every logit be finite;
 4. teacher-forced check: the video encoder and the first decode steps
    again with the plain versions in place of the kernels, fed the same
    inputs and tokens; query features and logits within a stated
    tolerance, greedy agreement printed;
 4b. the caption int8-KV slice: phases 3 and 4 again on
    configs/caption/serve_gpt3_1.3B_int8kv.yaml (bf16 weights, int8
-   cache): per decode step 24 launches each of K5 int8 and K6 and none of
-   the bf16 K5; the replay with the plain int8 decode and plain write;
+   cache): per decode step 24 launches of K5 int8 (each with its K6
+   write) and none of the bf16 K5; the replay with the plain write and
+   plain int8 decode;
 5. the train slice: the pretrain CLI's path (run_pretrain.setup and
    train_one_epoch) on configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml
    at full width, synthetic clips, seeded weights: 2 warm-up and 5 timed
@@ -57,17 +60,19 @@ the last line is printed):
    full width and depth of configs/instruct/serve_bloomz_7b_flagship.yaml
    (per-frame CLIP ViT-L/14, the Owl abstractor, BloomZ-7B1; seeded
    weights built on the card), 16 synthetic requests, 8 slots, 64 new
-   tokens, greedy; the K1 and K5-ALiBi launch counters must rise and
-   every logit be finite; tokens/s, p50/p95, peak memory and the decode
-   step's time;
+   tokens, greedy; the K1 counter must rise, K5-ALiBi (with K6) launch
+   once per layer per decode step, and every logit be finite; tokens/s,
+   p50/p95, peak memory and the decode step's time;
 8. instruct teacher-forced check: the clips' media features and the
-   first decode steps again with the plain versions of K1 and K5 fed the
-   same inputs and tokens, within the stated tolerances;
+   first decode steps again with the plain versions of K1 and K5 (with
+   its write) fed the same inputs and tokens, within the stated
+   tolerances;
 8b. the instruct int8 slice: run_instruct.build with --int8 on
    configs/instruct/serve_bloomz_7b_int8.yaml (seeded as phase 7, then
    the decoder's kernels and tied embedding quantized in place), 16
-   requests, 8 slots, 64 tokens: per decode step 30 launches each of K5
-   int8 with ALiBi and K6, no bf16 K5; tokens/s, p50/p95, decode step,
+   requests, 8 slots, 64 tokens: per decode step 30 launches of K5 int8
+   with ALiBi (each with its K6 write), no bf16 K5; tokens/s, p50/p95,
+   decode step,
    peak memory, weight and cache bytes; its teacher-forced plain replay
    within OWL_REL_TOL; and, as a readout only, its teacher-forced logits
    and greedy agreement against phase 8's bf16 model on the same seed;
@@ -230,9 +235,7 @@ def phase_device_and_build():
             merge = re.search(r"(flash_fwd_merge)_kernelILi(\d+)E", line)
             entry = (f"{m[1]}<{m[2]},{'alibi' if m[3] == '1' else 'plain'}"
                      f"{',int8' if m[4] == '1' else ''}>" if m
-                     else f"{merge[1]}<{merge[2]}>" if merge
-                     else "quantize_scatter" if "quantize_scatter" in line
-                     else "?")
+                     else f"{merge[1]}<{merge[2]}>" if merge else "?")
         elif "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
@@ -429,112 +432,224 @@ ALIBI_SHAPES = [
      "d 128 without ALiBi", False)]
 
 
-def _decode_case(dec, q, ckv, n, clen, vfrom, slopes, shape, on_path,
-                 kv_scales=None, ckv_bf16=None):
-    """One K5 check on the last layer of ``ckv``: the kernel against
-    decode_attention_plain on the same inputs, slot 3 (no live key)
-    reading zeros; the kernel's and plain times over 200 calls, SDPA over
-    the live cache view with the same mask and bias, and the bound (the
-    live K and V rows read once, q read and o written once).  With
-    ``kv_scales`` (an int8 cache) no library call computes the function
-    (``library_ms`` null); ``bf16_ms`` times the bf16 kernel on
-    ``ckv_bf16``, the same cache dequantized, and each live row's bytes
-    are its int8 lanes and 8 bytes of scales per head."""
+# lengths of the decode cases: live keys 1 (the row the step writes),
+# 18, 132, 0 (valid_from past the row: zeros, the row still written),
+# 201, 156, 2 and 58
+DEC_CLEN = [0, 17, 136, 150, 200, 255, 100, 60]
+DEC_VFROM = [0, 0, 5, 151, 0, 100, 99, 3]
+
+
+def _step_views(qkv, n, d):
+    """q, k, v of one decode step as the decoders hand them over: slices
+    of GPT-3's packed row [B, 3*n*d] (d 64), head views of Bloom's
+    head-major row [B, n, 3, d] (d 128)."""
+    if qkv.dim() == 2:
+        nd = n * d
+        return qkv[:, :nd], qkv[:, nd:2 * nd], qkv[:, 2 * nd:]
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+def _rotating(n_layers):
+    """A layer index that moves on by one at each call, over all layers."""
+    state = [0]
+
+    def nxt():
+        state[0] = (state[0] + 1) % n_layers
+        return state[0]
+    return nxt
+
+
+def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path):
+    """One check of the decode kernel with its cache write (K5 and K6) on
+    the cache [layers, 8, 256, 2*n*d] (random bf16 rows, int8: quantized)
+    at layer L-1: the kernel against write_decode_attention_plain on
+    copies of the cache, both leaves bitwise equal and no row but
+    (L-1, b, cache_len[b]) touched, the output within KERNEL_TOL, slot 3
+    (no live key) zeros.  Times over 200 calls: warm (layer L-1 each call,
+    its live rows in L2) and rotated (the layer index moved over all L
+    layers, so the live rows come from HBM as on the path), the plain
+    version; SDPA over the live cache view with the same mask and bias,
+    warm and rotated (int8: none; ``bf16_ms`` is the bf16 kernel's on the
+    same cache dequantized).  ``host_ms``: the wrapper's host time per
+    call, enqueued back to back with no sync.  The bound counts the
+    operations over every live key, reads the live K and V rows the
+    kernel takes from the cache once (int8: their lanes and 8 bytes of
+    scales per head; not the new row, which it scores from registers), q
+    and the new K and V rows, and writes o and the new cache row once."""
     import torch.nn.functional as F
 
-    lidx = ckv.shape[0] - 1
-    int8 = kv_scales is not None
-    kw = dict(alibi_slopes=slopes, kv_scales=kv_scales)
-    tag = "K5 int8" if int8 else "K5"
-    got = dec.decode_attention(q, ckv, n, lidx, clen, vfrom, **kw)
-    want = dec.decode_attention_plain(q, ckv, n, lidx, clen, vfrom, **kw)
-    e, empty = err(got, want), got[3].abs().max().item()
-    if not within(got, want) or empty != 0:
-        fail(f"{tag} {shape}: max err {e} (tol {KERNEL_TOL}); empty slot "
-             f"max {empty}")
-    b, m = ckv.shape[1], ckv.shape[2]
-    nd = ckv.shape[3] // 2
-    d = nd // n
-    live = int((torch.minimum(clen, torch.tensor(m - 1, device=clen.device))
-                - vfrom + 1).clamp_min(0).sum())
-    row_bytes = 2 * nd * ckv.element_size() + (8 * n if int8 else 0)
-    case = {"shape": shape, "on_path": on_path, "max_abs_err": e,
-            "ms": time_ms(lambda: dec.decode_attention(
-                q, ckv, n, lidx, clen, vfrom, **kw), 200),
-            "plain_ms": time_ms(lambda: dec.decode_attention_plain(
-                q, ckv, n, lidx, clen, vfrom, **kw), 200),
-            **_bound(4 * live * n * d, live * row_bytes + 2 * 2 * b * nd,
-                     PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)}
+    b, m, lidx = 8, 256, layers - 1
+    qkv = rand(b, 3 * n * d) if d == 64 else rand(b, n, 3, d)
+    q, k, v = _step_views(qkv, n, d)
+    rows = rand(layers, b, m, 2 * n * d)
     if int8:
-        case["library_ms"] = None
-        case["bf16_ms"] = time_ms(lambda: dec.decode_attention(
-            q, ckv_bf16, n, lidx, clen, vfrom, alibi_slopes=slopes), 200)
+        kv8, scales = kvc.quantize_rows(rows, n)
+        del rows
+        cache = {"kv": kv8, "scale": scales}
+        bf16_cache = kvc.dequantize_rows(kv8, scales, n, torch.bfloat16)
+    else:
+        cache = bf16_cache = rows
+    clen, vfrom = (torch.tensor(x, dtype=torch.int32, device="cuda")
+                   for x in (DEC_CLEN, DEC_VFROM))
+    kw = dict(alibi_slopes=dec.alibi_slopes(n) if alibi else None)
+    tag = "K5 int8" if int8 else "K5"
+    copy = (lambda c: {key: t.clone() for key, t in c.items()}) if int8 \
+        else (lambda c: c.clone())
+    got_c, want_c = copy(cache), copy(cache)
+    got = dec.write_decode_attention(q, k, v, got_c, n, lidx, clen, vfrom,
+                                     **kw)
+    want = dec.write_decode_attention_plain(q, k, v, want_c, n, lidx, clen,
+                                            vfrom, **kw)
+    torch.cuda.synchronize()
+    rows_ok, touched = True, set()
+    for g, w, c in zip(kvc.leaves(got_c), kvc.leaves(want_c),
+                       kvc.leaves(cache)):
+        if c is None:  # a bf16 cache has one leaf
+            continue
+        rows_ok &= torch.equal(g, w)
+        touched |= {tuple(t) for t in (g != c).reshape(layers, b, m, -1)
+                    .any(-1).nonzero().tolist()}
+    e, empty = err(got, want), got[3].abs().max().item()
+    if not within(got, want) or empty != 0 or not rows_ok \
+            or not touched <= {(lidx, i, DEC_CLEN[i]) for i in range(b)}:
+        fail(f"{tag} {shape}: max err {e} (tol {KERNEL_TOL}); empty slot "
+             f"max {empty}; cache leaves equal to plain {rows_ok}; rows "
+             f"touched {sorted(touched)[:10]}")
+    del got_c, want_c
+    nd = n * d
+    live = sum(max(min(c, m - 1) - f + 1, 0)
+               for c, f in zip(DEC_CLEN, DEC_VFROM))
+    # rows read from the cache: the live ones but the new row, when live
+    live_read = sum(max(min(c, m - 1) - f + 1 - (f <= c < m), 0)
+                    for c, f in zip(DEC_CLEN, DEC_VFROM))
+    elem = 1 if int8 else 2
+    row_bytes = 2 * nd * elem + (8 * n if int8 else 0)
+    write_bytes = b * (2 * 2 * nd + row_bytes)  # read k, v; write the row
+
+    def fused(layer, c=cache):
+        return dec.write_decode_attention(q, k, v, c, n, layer(), clen,
+                                          vfrom, **kw)
+
+    def last():
+        return lidx
+
+    new_rows = torch.cat([k.reshape(b, -1), v.reshape(b, -1)], -1)
+    rot = _rotating(layers)
+    case = {"shape": shape, "on_path": on_path, "max_abs_err": e,
+            "cache_bitwise_equal": True,
+            "ms": time_ms(lambda: fused(last), 200),
+            "rotated_ms": time_ms(lambda: fused(rot), 200),
+            "plain_ms": time_ms(lambda: dec.write_decode_attention_plain(
+                q, k, v, cache, n, lidx, clen, vfrom, **kw), 20),
+            "write_bytes": write_bytes,
+            "write_plain_ms": time_ms(lambda: kvc.cache_write(
+                cache, new_rows[:, None], clen, lidx), 20),
+            **_bound(4 * live * n * d,
+                     live_read * row_bytes + 2 * 2 * b * nd + write_bytes,
+                     PEAK_INT8_OPS if int8 else PEAK_BF16_FLOPS)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fused(last)
+    case["host_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    torch.cuda.synchronize()
+    if int8:
+        case["library_ms"] = case["library_rotated_ms"] = None
+        case["bf16_ms"] = time_ms(lambda: fused(last, bf16_cache), 200)
+        case["bf16_rotated_ms"] = time_ms(lambda: fused(rot, bf16_cache),
+                                          200)
         return case
-    layer = ckv[lidx]
+    # the bf16 write as one PyTorch call (indexed assignment)
+    samples = torch.arange(b, device=q.device)
+    case["write_library_ms"] = time_ms(lambda: cache[lidx].index_put_(
+        (samples, clen.long()), new_rows), 200)
     qh = q.reshape(b, n, 1, d)
-    kh = layer[..., :nd].unflatten(-1, (n, d)).transpose(1, 2)
-    vh = layer[..., nd:].unflatten(-1, (n, d)).transpose(1, 2)
+    heads = [(layer[..., :nd].unflatten(-1, (n, d)).transpose(1, 2),
+              layer[..., nd:].unflatten(-1, (n, d)).transpose(1, 2))
+             for layer in cache]
     j = torch.arange(m, device=q.device)
     allowed = ((j[None] >= vfrom[:, None]) & (j[None] <= clen[:, None]))
     bias = torch.zeros(b, n, 1, m, device=q.device)
-    if slopes is not None:
-        bias = bias + torch.as_tensor(slopes, device=q.device)[
+    if alibi:
+        bias = bias + torch.as_tensor(kw["alibi_slopes"], device=q.device)[
             None, :, None, None] * j.float()
     bias = bias.masked_fill(~allowed[:, None, None], float("-inf")).to(
         q.dtype)
-    case["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
-        qh, kh, vh, attn_mask=bias), 200)
+
+    def sdpa(layer):
+        kh, vh = heads[layer()]
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bias)
+
+    case["library_ms"] = time_ms(lambda: sdpa(last), 200)
+    case["library_rotated_ms"] = time_ms(lambda: sdpa(rot), 200)
     return case
 
 
-def _write_case(kvc, rand, n_layers, m, n, d, strided, shape, on_path):
-    """One K6 check: quantize_scatter_write against its plain version on
-    the same rows ([8, 2nd] bf16, a strided view of a qkv row as GPT-3
-    passes it or contiguous as Bloom's) into copies of one int8 cache whose
-    rows are preset non-zero, at rows including 0 and M-1 of the last
-    layer: both leaves bitwise equal, no other row touched.  Times over
-    200 calls of the kernel, the plain version and the bf16 cache's
-    indexed assignment at the same shape; the bound reads the bf16 rows
-    and writes the int8 rows and their 2n scales once."""
-    b, w = 8, 2 * n * d
-    g = torch.Generator(device="cuda").manual_seed(w + strided)
-    src = rand(b, 3 * n * d if strided else w)
-    rows = src[:, n * d:] if strided else src
-    idx = torch.tensor([0, m - 1, 17, 100, 3, m - 2, 128, 0],
-                       dtype=torch.int32, device="cuda")
-    lidx = n_layers - 1
-    base = {"kv": torch.randint(-127, 128, (n_layers, b, m, w),
-                                generator=g, device="cuda",
-                                dtype=torch.int8),
-            "scale": torch.rand(n_layers, b, m, 2 * n, generator=g,
-                                device="cuda") + 0.5}
-    got = {k: v.clone() for k, v in base.items()}
-    want = {k: v.clone() for k, v in base.items()}
-    kvc.quantize_scatter_write(got, rows, idx, lidx)
-    kvc.quantize_scatter_write_plain(want, rows, idx, lidx)
-    torch.cuda.synchronize()
-    same = all(torch.equal(got[k], want[k]) for k in got)
-    touched = {tuple(t) for t in (got["kv"] != base["kv"]).any(-1)
-               .nonzero().tolist()}
-    if not same or not touched <= {(lidx, i, int(idx[i])) for i in range(b)}:
-        diff = {k: int((got[k] != want[k]).sum()) for k in got}
-        fail(f"K6 {shape}: elements differing from plain {diff}; rows "
-             f"touched {sorted(touched)[:10]}")
-    del base, want
-    flat = torch.zeros(n_layers, b, m, w, dtype=torch.bfloat16,
-                       device="cuda")
-    case = {"shape": shape, "on_path": on_path, "max_abs_err": 0.0,
-            "bitwise_equal": True, "library_ms": None,
-            "ms": time_ms(lambda: kvc.quantize_scatter_write(
-                got, rows, idx, lidx), 200),
-            "plain_ms": time_ms(lambda: kvc.quantize_scatter_write_plain(
-                got, rows, idx, lidx), 200),
-            "bf16_ms": time_ms(lambda: kvc.cache_write(
-                flat, rows[:, None], idx, lidx), 200),
-            **_bound(4 * b * w, b * (2 * w + w + 8 * n) + 4 * b,
-                     PEAK_FP32_FLOPS)}
-    del got, flat
-    return case
+def _write_row(case):
+    """K6's row of a decode case: the write now runs inside the decode
+    kernel's launch, so its time is that launch's; plain = the plain write
+    (cache_write) alone; library = the bf16 write as one indexed
+    assignment (none for int8); the bound moves the write's bytes (int8:
+    and ~4 fp32 operations a value to quantize)."""
+    int8 = "int8" in case["shape"]
+    row = {k: case[k] for k in ("shape", "on_path", "ms", "rotated_ms",
+                                "cache_bitwise_equal")}
+    return {**row, "max_abs_err": 0.0, "plain_ms": case["write_plain_ms"],
+            "library_ms": None if int8 else case["write_library_ms"],
+            **_bound(case["write_bytes"] if int8 else 0,
+                     case["write_bytes"], PEAK_FP32_FLOPS)}
+
+
+DEC_COUNTERS = ("launches", "alibi_launches", "int8_launches",
+                "int8_alibi_launches")
+SERVING_PATHS = ("serve", "serve_int8kv", "instruct", "instruct_int8")
+
+
+def _decode_entries(dec, kvc, rand):
+    """The decode kernel's report entries: K5 by variant (bf16 / int8,
+    with or without ALiBi) and K6, the cache write fused into it, whose
+    launches are all of the kernel's."""
+    cases = {}
+    for key, n, d, layers, alibi, int8, path in (
+            ("K5", 32, 64, 24, False, False, "serve"),
+            ("K5-ALiBi", 32, 128, 30, True, False, "instruct"),
+            ("K5-ALiBi", 40, 128, 8, True, False, None),
+            ("K5", 32, 128, 8, False, False, None),
+            ("K5-int8", 32, 64, 24, False, True, "serve_int8kv"),
+            ("K5-int8-ALiBi", 32, 128, 30, True, True, "instruct_int8"),
+            ("K5-int8-ALiBi", 40, 128, 8, True, True, None)):
+        shape = (f"[{layers},8,256,2x{n}x{d}]" + (" int8" if int8 else "")
+                 + f" d {d}" + (" ALiBi" if alibi else "")
+                 + (f" ({path})" if path else ""))
+        cases.setdefault(key, []).append(_decode_case(
+            dec, kvc, rand, n, d, layers, alibi, int8, shape, bool(path)))
+        gc.collect()
+        torch.cuda.empty_cache()
+    wrapper = dec.write_decode_attention
+    dec_int8 = f"{TPU_DEC}:56 (quantized=True, :58-68, :126-127, :142)"
+    return [
+        _entry("K5 decode attention with the cache write (decoder decode "
+               "step, head dim 64)", DEC_SRC, f"{TPU_DEC}:56", wrapper,
+               ("serve",), "K5", cases["K5"]),
+        _entry("K5 decode attention with the cache write, ALiBi ladder, "
+               "head dim 128 (Bloom decode step)", DEC_SRC, f"{TPU_DEC}:56",
+               wrapper, ("instruct",), "K5-ALiBi", cases["K5-ALiBi"],
+               counter="alibi_launches"),
+        _entry("K5 decode attention with the cache write, int8 cache "
+               "(caption int8-KV decode step, head dim 64)", DEC_SRC,
+               dec_int8, wrapper, ("serve_int8kv",), "K5-int8",
+               cases["K5-int8"], counter="int8_launches"),
+        _entry("K5 decode attention with the cache write, int8 cache, ALiBi "
+               "ladder, head dim 128 (Bloom int8 decode step)", DEC_SRC,
+               dec_int8, wrapper, ("instruct_int8",), "K5-int8-ALiBi",
+               cases["K5-int8-ALiBi"], counter="int8_alibi_launches"),
+        _entry("K6 the decode step's cache write, bf16 or int8 (quantized "
+               "as quantize_rows), fused into K5's launch (ms: that "
+               "launch's)", DEC_SRC,
+               "youku_mplug_tpu/ops/kv_cache.py:93 (cache_scatter_write "
+               ":110, pallas_call :171)", wrapper, SERVING_PATHS, "K6",
+               [_write_row(c) for rows in cases.values() for c in rows],
+               counter=DEC_COUNTERS)]
 
 
 def _entry(name, source, replaces, wrapper, paths, key, per_shape,
@@ -559,7 +674,6 @@ def _entry(name, source, replaces, wrapper, paths, key, per_shape,
 FWD_SRC = "youku_mplug_tpu_torch/csrc/flash_fwd.cu"
 BWD_SRC = "youku_mplug_tpu_torch/csrc/flash_bwd.cu"
 DEC_SRC = "youku_mplug_tpu_torch/csrc/decode_attention.cu"
-KV_SRC = "youku_mplug_tpu_torch/csrc/kv_cache.cu"
 TPU_FLASH = "youku_mplug_tpu/ops/flash_attention.py"
 TPU_DEC = "youku_mplug_tpu/ops/decode_attention.py"
 
@@ -694,94 +808,7 @@ def phase_kernels(dev):
             f"{kind}-ALiBi", [c[kind] for c in alibi_cases],
             counter="alibi_launches"))
 
-    # K5: decode, q [8, 32*64] (view of a qkv row), cache [24,8,256,4096],
-    # mixed lengths; slot 3 has no live key and must read zeros
-    qkv = rand(8, 3 * 2048)
-    clen = torch.tensor([0, 17, 136, 150, 200, 255, 100, 60],
-                        dtype=torch.int32, device=dev)
-    vfrom = torch.tensor([0, 0, 5, 151, 0, 100, 99, 3], dtype=torch.int32,
-                         device=dev)
-    k5 = [_decode_case(dec, qkv[:, :2048], rand(24, 8, 256, 4096), 32, clen,
-                       vfrom, None, "[24,8,256,2x32x64] d 64 (serve)", True)]
-    # K5 at head dim 128: BloomZ-7B1's decode step (32 heads with the
-    # ALiBi ladder, cache [30, 8, 256, 2*32*128]; q a head-strided view of
-    # the head-major fused row [B, n, 3, d], as models/bloom.py passes it),
-    # 40 heads (the ladder's half steps past 32) and the d = 128 build
-    # without ALiBi; same lengths
-    alibi = []
-    for n, layers, slopes in ((32, 30, True), (40, 2, True),
-                              (32, 2, False)):
-        qh = rand(8, n, 3, 128)[:, :, 0, :]
-        cache = rand(layers, 8, 256, 2 * n * 128)
-        on_path = (n, slopes) == (32, True)
-        case = _decode_case(
-            dec, qh, cache, n, clen, vfrom,
-            dec.alibi_slopes(n) if slopes else None,
-            f"[{layers},8,256,2x{n}x128] d 128"
-            + (" ALiBi" if slopes else "")
-            + (" (instruct)" if on_path else ""), on_path)
-        (alibi if slopes else k5).append(case)
-        del cache
-    k5[-1]["on_path"] = False  # no path runs d = 128 without ALiBi
-    report.append(_entry("K5 decode_attention (decoder decode step)",
-                         DEC_SRC, "youku_mplug_tpu/ops/decode_attention.py:56",
-                         dec.decode_attention, ("serve",), "K5", k5))
-    report.append(_entry(
-        "K5 decode_attention, ALiBi ladder, head dim 128 (Bloom decode "
-        "step)", DEC_SRC, "youku_mplug_tpu/ops/decode_attention.py:56",
-        dec.decode_attention, ("instruct",), "K5-ALiBi", alibi,
-        counter="alibi_launches"))
-
-    # K5 int8: the caption int8-KV cache [24, 8, 256, 2x32x64] (q a view
-    # of a qkv row), BloomZ-7B1's [30, 8, 256, 2x32x128] with ALiBi (q a
-    # head-strided view of the head-major row) and 40 heads with ALiBi;
-    # the cache is random bf16 rows quantized, the same lengths as K5
-    int8 = {False: [], True: []}
-    for n, d, layers, alibi_on, path in ((32, 64, 24, False, "serve_int8kv"),
-                                          (32, 128, 30, True,
-                                           "instruct_int8"),
-                                          (40, 128, 2, True, None)):
-        rows = rand(layers, 8, 256, 2 * n * d)
-        ckv, scales = kvc.quantize_rows(rows, n)
-        del rows
-        ckv_bf16 = kvc.dequantize_rows(ckv, scales, n, torch.bfloat16)
-        q = (rand(8, 3 * n * d)[:, :n * d] if d == 64
-             else rand(8, n, 3, d)[:, :, 0, :])
-        int8[alibi_on].append(_decode_case(
-            dec, q, ckv, n, clen, vfrom,
-            dec.alibi_slopes(n) if alibi_on else None,
-            f"[{layers},8,256,2x{n}x{d}] int8 d {d}"
-            + (" ALiBi" if alibi_on else "") + (f" ({path})" if path
-                                                 else ""),
-            path is not None, kv_scales=scales, ckv_bf16=ckv_bf16))
-        del ckv, scales, ckv_bf16
-    dec_int8 = f"{TPU_DEC}:56 (quantized=True, :58-68, :126-127, :142)"
-    report.append(_entry("K5 decode_attention, int8 cache (caption int8-KV "
-                         "decode step, head dim 64)", DEC_SRC, dec_int8,
-                         dec.decode_attention, ("serve_int8kv",), "K5-int8",
-                         int8[False], counter="int8_launches"))
-    report.append(_entry(
-        "K5 decode_attention, int8 cache, ALiBi ladder, head dim 128 (Bloom "
-        "int8 decode step)", DEC_SRC, dec_int8, dec.decode_attention,
-        ("instruct_int8",), "K5-int8-ALiBi", int8[True],
-        counter="int8_alibi_launches"))
-    # K6: one decode step's rows into the caption cache [24, 8, 256, 4096]
-    # (GPT-3's strided K|V view of the qkv row) and BloomZ-7B1's
-    # [30, 8, 256, 8192] (Bloom's contiguous repacked rows), and each in
-    # the other layout
-    k6 = [_write_case(kvc, rand, *c) for c in (
-        (24, 256, 32, 64, True, "[24,8,256,2x32x64] strided (serve_int8kv)",
-         True),
-        (30, 256, 32, 128, False,
-         "[30,8,256,2x32x128] contiguous (instruct_int8)", True),
-        (24, 256, 32, 64, False, "[24,8,256,2x32x64] contiguous", False),
-        (30, 256, 32, 128, True, "[30,8,256,2x32x128] strided", False))]
-    report.append(_entry(
-        "K6 quantize_scatter_write (int8 cache write of a decode step, "
-        "fused with quantize_rows)", KV_SRC,
-        "youku_mplug_tpu/ops/kv_cache.py:93 (cache_scatter_write :110, "
-        "pallas_call :171)", kvc.quantize_scatter_write,
-        ("serve_int8kv", "instruct_int8"), "K6", k6))
+    report += _decode_entries(dec, kvc, rand)
     for r in report:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -797,10 +824,12 @@ def phase_kernels(dev):
           "clock, power draw): " + card_load, flush=True)
     print(f"[kernel] tolerances: forward elementwise {KERNEL_TOL:.3g} x "
           f"(1 + |plain|) (K5 int8 too), lse {LSE_TOL}, backward relative "
-          f"L2 {BWD_TOL:.3g} per gradient, K6 bitwise; library = "
-          "F.scaled_dot_product_attention with the same mask (and ALiBi "
-          "as a float bias), the backward's as forward + backward less "
-          "the forward, none for K5 int8 and K6; bound = max(operations / "
+          f"L2 {BWD_TOL:.3g} per gradient, K6 (the cache leaves after the "
+          "fused launch) bitwise; library = F.scaled_dot_product_attention "
+          "with the same mask (and ALiBi as a float bias), the backward's "
+          "as forward + backward less the forward, none for K5 int8, K6 "
+          "bf16 one index_put_; K5 rotated = the layer index moved over all "
+          "L layers a call (live rows from HBM); bound = max(operations / "
           "989 TFLOP/s bf16, 1979 TOP/s int8 (K5 int8) or 67 TFLOP/s fp32 "
           "(K6), bytes / 3.35 TB/s)", flush=True)
     return report
@@ -820,15 +849,22 @@ def _card_under_load(fn):
     return out[0] if out else "nvidia-smi gave nothing"
 
 
+def _counters(r):
+    """The counter names of a report entry (K6: all of K5's)."""
+    c = r["counter"]
+    return (c,) if isinstance(c, str) else c
+
+
 def _reset_counts(report):
     for r in report:
-        setattr(r["wrapper"], r["counter"], 0)
+        for c in _counters(r):
+            setattr(r["wrapper"], c, 0)
 
 
 def _read_counts(report, path):
     for r in report:
-        r.setdefault("launches_by_path", {})[path] = getattr(
-            r["wrapper"], r["counter"])
+        r.setdefault("launches_by_path", {})[path] = sum(
+            getattr(r["wrapper"], c) for c in _counters(r))
     missing = [r["name"] for r in report
                if path in r["paths"] and r["launches_by_path"][path] == 0]
     if missing:
@@ -861,8 +897,9 @@ def _decode_step_ms(engine, iters=20, traced=3):
     """One decode step of every slot at the run's last lengths, with the
     host sync the engine makes per step: its ms on the host clock, and
     from ``traced`` steps under torch.profiler (profile_train's summary)
-    the device's kernel ms, launches and idle share per step and the
-    kernel ms by category."""
+    the device's kernel ms, launches and idle share per step, the kernel
+    ms by category, and the launches per step of the decode kernel and of
+    each kernel named for indexing."""
     from youku_mplug_tpu_torch.cli import profile_train
 
     state = [engine._dev(a) for a in (engine.cache_len, engine.valid_from,
@@ -885,15 +922,38 @@ def _decode_step_ms(engine, iters=20, traced=3):
         with open(trace) as f:
             events = json.load(f)["traceEvents"]
     summary = profile_train.summarize(events, traced, top=6)
-    return host, {k: summary[k] for k in (
+    kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+    return host, {**{k: summary[k] for k in (
         "kernel_ms_per_step", "launches_per_step", "idle_share",
-        "ms_per_step_by_category", "top_kernels_ms_per_step")}
+        "ms_per_step_by_category", "top_kernels_ms_per_step")},
+        "decode_attn_launches_per_step": sum(
+            "decode_attn_kernel" in k for k in kernels) / traced,
+        "index_kernels_per_step": {
+            name[:80]: sum(k == name for k in kernels) / traced
+            for name in sorted({k for k in kernels if "index" in k.lower()})}}
+
+
+def _check_decode_trace(path, trace, layers):
+    """The traced decode step launched the decode kernel once per layer and
+    no kernel named for indexing once per layer or more (an indexed cache
+    write would be one).  The profiler can drop an event (one run read
+    71 decode kernels over 3 steps while the wrapper counted 72), so the
+    traced count may fall short by less than one a step; the launch
+    counters (``_per_step``) hold the exact count."""
+    per_layer = {k: v for k, v in trace["index_kernels_per_step"].items()
+                 if v >= layers}
+    if not layers - 1 < trace["decode_attn_launches_per_step"] <= layers \
+            or per_layer:
+        fail(f"{path}: the traced decode step launched the decode kernel "
+             f"{trace['decode_attn_launches_per_step']} times (want once "
+             f"per layer, {layers}); index kernels per step {per_layer}")
 
 
 def _per_step(report, path, steps, want):
     """Launches per decode step of the run on ``path``: each kernel key of
-    ``want`` exactly that many, every other decode kernel (K5, K5 int8,
-    K6 entries) none."""
+    ``want`` exactly that many, every other decode kernel entry (the other
+    K5 variants) none.  K6 counts the K5 launches, which carry its
+    write."""
     got = {r["key"]: r["launches_by_path"][path] / max(steps, 1)
            for r in report if r["key"].startswith(("K5", "K6"))}
     if steps == 0 or any(got[k] != v for k, v in want.items()) or any(
@@ -905,8 +965,8 @@ def _per_step(report, path, steps, want):
 
 def phase_slice(report, out_dir, yaml=FLAGSHIP_YAML, path="serve"):
     """The serve CLI's path on ``yaml``: 16 requests; the decode kernels'
-    launches per decode step checked (24 layers: K5, or K5 int8 and K6
-    with an int8 cache)."""
+    launches per decode step checked (24 layers: K5, or K5 int8 with an
+    int8 cache, each launch with its K6 write)."""
     from youku_mplug_tpu_torch.cli import serve
 
     def args_for(n):
@@ -932,12 +992,13 @@ def phase_slice(report, out_dir, yaml=FLAGSHIP_YAML, path="serve"):
     layers = cfg.model.text.num_hidden_layers
     int8 = cfg.model.text.kv_cache_dtype == "int8"
     per_step = _per_step(report, path, steps.steps,
-                         {"K5-int8": layers, "K6": layers} if int8
-                         else {"K5": layers})
+                         {"K5-int8" if int8 else "K5": layers,
+                          "K6": layers})
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
     peak = torch.cuda.max_memory_allocated()
     step_ms, step_trace = _decode_step_ms(engine)
+    _check_decode_trace(path, step_trace, layers)
     n_tok = sum(o["n_tokens"] for o in out)
     print(f"[slice {path}] {json.dumps(stats)} | {n_tok} tokens | "
           f"decode step {step_ms:.2f} ms, traced {json.dumps(step_trace)} | "
@@ -978,22 +1039,18 @@ def _forced_decode(lm, requests, max_len, bucket, gen_cfg, tokens=None):
 
 def _decode_kernel_counts():
     from youku_mplug_tpu_torch.ops import decode_attention as dec
-    from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
-    return [getattr(dec.decode_attention, c) for c in (
-        "launches", "alibi_launches", "int8_launches",
-        "int8_alibi_launches")] + [kvc.quantize_scatter_write.launches]
+    return [getattr(dec.write_decode_attention, c) for c in DEC_COUNTERS]
 
 
 def phase_teacher_forced(cfg, model, tag="teacher-forced"):
     """The caption model's query features and FORCED_STEPS decode steps,
-    with the kernels and again with the plain versions of K1, K4, K5 (bf16
-    or int8) and K6 patched in, fed the same inputs and tokens."""
+    with the kernels and again with the plain versions of K1, K4 and K5
+    with K6 (bf16 or int8) patched in, fed the same inputs and tokens."""
     from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
     from youku_mplug_tpu_torch.models import gpt3, vision
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
-    from youku_mplug_tpu_torch.ops import kv_cache as kvc
     from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
 
     from youku_mplug_tpu_torch.models.generation import GenerationConfig
@@ -1014,10 +1071,8 @@ def phase_teacher_forced(cfg, model, tag="teacher-forced"):
                                fa.flash_attention_packed_plain),
              mock.patch.object(fa, "flash_attention",
                                fa.flash_attention_plain),
-             mock.patch.object(gpt3, "decode_attention",
-                               dec.decode_attention_plain),
-             mock.patch.object(kvc, "quantize_scatter_write",
-                               kvc.quantize_scatter_write_plain))
+             mock.patch.object(gpt3, "write_decode_attention",
+                               dec.write_decode_attention_plain))
     for p in plain:
         p.start()
     try:
@@ -1212,8 +1267,8 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
     """The run_instruct CLI's serving path on ``yaml`` at full width and
     depth (``int8``: with --int8, the decoder's kernels and tied embedding
     quantized after the seeded init); the decode kernels' launches per
-    decode step checked (30 layers: K5 ALiBi, or K5 int8 ALiBi and K6
-    with an int8 cache).  Returns (model, instruct batch, clips)."""
+    decode step checked (30 layers: K5 ALiBi, or K5 int8 ALiBi with an
+    int8 cache, each launch with its K6 write).  Returns (model, instruct batch, clips)."""
     from youku_mplug_tpu_torch.cli import run_instruct
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
@@ -1253,9 +1308,8 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
     _read_counts(report, path)
     layers = cfg.text.num_hidden_layers
     per_step = _per_step(report, path, steps.steps,
-                         {"K5-int8-ALiBi": layers, "K6": layers}
-                         if kvc.is_quantized(engine.cache)
-                         else {"K5-ALiBi": layers})
+                         {"K5-int8-ALiBi" if kvc.is_quantized(engine.cache)
+                          else "K5-ALiBi": layers, "K6": layers})
     if stats["requests"] != OWL_REQUESTS \
             or not (seqs != gen_cfg.pad_id).any(1).all():
         fail(f"instruct slice served {stats['requests']} requests: "
@@ -1267,6 +1321,7 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
     # one decode step of all 8 slots at the run's last lengths; the tied
     # logits alone
     step_ms, step_trace = _decode_step_ms(engine)
+    _check_decode_trace(path, step_trace, layers)
     lm = model.text_decoder
     hidden = torch.randn(OWL_SLOTS, cfg.text.hidden_size, device=device,
                          dtype=torch.bfloat16)
@@ -1292,8 +1347,9 @@ def phase_instruct_forced(model, batch, clips,
                           tag="instruct teacher-forced", reference=None):
     """The first OWL_SLOTS clips' media features, and FORCED_STEPS decode
     steps from their spliced prompts, with the kernels and again with the
-    plain versions of K1 (the ViT), K5 (bf16 or int8, the Bloom decode
-    step) and K6 patched in, fed the same inputs and tokens.  With
+    plain versions of K1 (the ViT) and K5 with its K6 write (bf16 or
+    int8, the Bloom decode step) patched in, fed the same inputs and
+    tokens.  With
     ``reference`` (another model's (logits, tokens) of this phase), also a
     readout, not a gate: this model's logits fed the reference's tokens
     against the reference's.  Returns (logits, tokens) with the
@@ -1302,7 +1358,6 @@ def phase_instruct_forced(model, batch, clips,
     from youku_mplug_tpu_torch.models.generation import GenerationConfig
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
-    from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
     n = OWL_SLOTS
     dev = clips.device
@@ -1327,10 +1382,8 @@ def phase_instruct_forced(model, batch, clips,
     counts = [fa.flash_attention_packed.launches] + _decode_kernel_counts()
     plain = (mock.patch.object(vision, "flash_attention_packed",
                                fa.flash_attention_packed_plain),
-             mock.patch.object(bloom, "decode_attention",
-                               dec.decode_attention_plain),
-             mock.patch.object(kvc, "quantize_scatter_write",
-                               kvc.quantize_scatter_write_plain))
+             mock.patch.object(bloom, "write_decode_attention",
+                               dec.write_decode_attention_plain))
     for p in plain:
         p.start()
     try:

@@ -48,7 +48,7 @@ def test_package_imports_without_jax():
 def test_wrappers_use_plain_versions_on_cpu_without_launching():
     rng = np.random.default_rng(0)
     counters = (fa.flash_attention_packed, fa.flash_attention,
-                dec.decode_attention, fa.flash_bwd_dq_cuda,
+                dec.write_decode_attention, fa.flash_bwd_dq_cuda,
                 fa.flash_bwd_dkv_cuda)
     before = [f.launches for f in counters]
     x = torch.from_numpy(rng.normal(size=(2, 16, 128)).astype(np.float32))
@@ -58,17 +58,19 @@ def test_wrappers_use_plain_versions_on_cpu_without_launching():
     assert fa.flash_attention(q4, q4, q4, kv_len=9).shape == q4.shape
     ckv = torch.from_numpy(rng.normal(size=(1, 2, 8, 256)).astype(
         np.float32))
-    assert dec.decode_attention(x[:, 0], ckv, 2, 0,
-                                torch.tensor([3, 7])).shape == (2, 128)
-    alibi_before = dec.decode_attention.alibi_launches
-    assert dec.decode_attention(
-        x[:, 0], ckv, 2, 0, torch.tensor([3, 7]),
+    q = x[:, 0]
+    assert dec.write_decode_attention(q, q, q, ckv, 2, 0,
+                                      torch.tensor([3, 7])).shape == (2, 128)
+    assert torch.equal(ckv[0, 1, 7], torch.cat([q[1], q[1]]))  # written
+    alibi_before = dec.write_decode_attention.alibi_launches
+    assert dec.write_decode_attention(
+        q, q, q, ckv, 2, 0, torch.tensor([3, 7]),
         alibi_slopes=dec.alibi_slopes(2)).shape == (2, 128)
     leaf = q4.clone().requires_grad_()
     fa.flash_attention(leaf, leaf, leaf, causal=True).sum().backward()
     assert leaf.grad.shape == q4.shape
     assert [f.launches for f in counters] == before == [0] * 5
-    assert dec.decode_attention.alibi_launches == alibi_before == 0
+    assert dec.write_decode_attention.alibi_launches == alibi_before == 0
 
 
 def test_wrappers_refuse_devices_without_a_kernel():
@@ -76,41 +78,37 @@ def test_wrappers_refuse_devices_without_a_kernel():
     with pytest.raises(RuntimeError, match="no attention kernel"):
         fa.flash_attention_packed(x, x, x, 2)
     with pytest.raises(RuntimeError, match="no decode attention kernel"):
-        dec.decode_attention(x[:, 0], torch.empty(1, 2, 8, 256,
-                                                  device="meta"), 2, 0, 3)
+        q = x[:, 0]
+        dec.write_decode_attention(q, q, q, torch.empty(
+            1, 2, 8, 256, device="meta"), 2, 0, 3)
 
 
 def test_int8_wrappers_use_plain_versions_on_cpu_and_refuse_others():
-    """K5 int8 and the fused quantize-and-scatter write (K6): plain on CPU
-    tensors, no launch counted; a device without a kernel raises."""
+    """K5 int8 with the cache write (K6) folded in: plain on CPU tensors,
+    no launch counted; a device without a kernel raises."""
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
     rng = np.random.default_rng(1)
     names = ("int8_launches", "int8_alibi_launches", "launches",
              "alibi_launches")
-    before = [getattr(dec.decode_attention, c) for c in names] + [
-        kvc.quantize_scatter_write.launches]
+    before = [getattr(dec.write_decode_attention, c) for c in names]
     cache = kvc.make_cache(1, 2, 8, 128, torch.float32, num_heads=2,
                            quantized=True)
     rows = torch.from_numpy(rng.normal(size=(2, 256)).astype(np.float32))
-    kvc.quantize_scatter_write(cache, rows, torch.tensor([3, 7]), 0)
-    assert cache["kv"][0, :, [3, 7]].any()
-    assert int(cache["scale"].count_nonzero()) == 2 * 4  # 2 rows x 2n
     q = rows[:, :128]
     for slopes in (None, dec.alibi_slopes(2)):
-        out = dec.decode_attention(q, cache["kv"], 2, 0, torch.tensor([3, 7]),
-                                   alibi_slopes=slopes,
-                                   kv_scales=cache["scale"])
+        out = dec.write_decode_attention(
+            q, rows[:, :128], rows[:, 128:], cache, 2, 0,
+            torch.tensor([3, 7]), alibi_slopes=slopes)
         assert out.shape == (2, 128) and out.device.type == "cpu"
-    assert [getattr(dec.decode_attention, c) for c in names] + [
-        kvc.quantize_scatter_write.launches] == before == [0] * 5
+    assert cache["kv"][0, :, [3, 7]].any()
+    assert int(cache["scale"].count_nonzero()) == 2 * 4  # 2 rows x 2n
+    assert [getattr(dec.write_decode_attention, c)
+            for c in names] == before == [0] * 4
     meta = {k: v.to("meta") for k, v in cache.items()}
-    with pytest.raises(RuntimeError, match="no cache-write kernel"):
-        kvc.quantize_scatter_write(meta, rows.to("meta"),
-                                   torch.tensor([3, 7], device="meta"), 0)
     with pytest.raises(RuntimeError, match="no decode attention kernel"):
-        dec.decode_attention(q.to("meta"), meta["kv"], 2, 0, 3,
-                             kv_scales=meta["scale"])
+        q = q.to("meta")
+        dec.write_decode_attention(q, q, q, meta, 2, 0, 3)
 
 
 def test_serve_cli_refuses_cuda_without_a_card():

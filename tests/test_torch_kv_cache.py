@@ -2,13 +2,13 @@
 int8 form of decode attention against the JAX package.
 
 Quantization must equal the JAX package's bit for bit (round half to
-even, an IEEE division); the plain version of the fused quantize-and-
-scatter write (K6) must equal the Pallas scatter kernel run in interpret
-mode exactly; the plain int8 decode attention (K5 int8) is held against
-the Pallas kernel in interpret mode with ``kv_scales`` at 1e-4 (fp32 on
-both sides; the kernel dequantizes per block, the plain version first).
-Tests marked ``cuda`` hold each CUDA kernel against its plain version on
-the card and skip where there is none.
+even, an IEEE division); the decode step's cache write (K6, folded into
+the decode kernel K5), in its plain version, must equal JAX's cache_write
+and the Pallas scatter kernel run in interpret mode exactly; the plain
+int8 decode attention is held against the Pallas kernel in interpret
+mode with ``kv_scales`` at 1e-4 (fp32 on both sides; the kernel
+dequantizes per block, the plain version first).  The fused kernel's
+tests on the card are in test_torch_ops.py.
 """
 
 import functools
@@ -26,8 +26,8 @@ from youku_mplug_tpu.ops import kv_cache as jkv
 from youku_mplug_tpu_torch.ops import kv_cache as tkv
 from youku_mplug_tpu_torch.ops.decode_attention import (
     alibi_slopes,
-    decode_attention,
     decode_attention_plain,
+    write_decode_attention,
 )
 
 torch.set_num_threads(1)
@@ -110,9 +110,10 @@ def test_int8_cache_write_matches_jax(per_sample):
 
 
 def test_plain_scatter_write_equals_pallas_interpret():
-    """K6: quantize_scatter_write_plain on float rows equals JAX's
-    quantize_rows followed by the Pallas cache_scatter_write kernel in
-    interpret mode, on both leaves, rows 0 and M-1 included."""
+    """K6: the write half of write_decode_attention on the CPU (its plain
+    version) on float rows equals JAX's quantize_rows followed by the
+    Pallas cache_scatter_write kernel in interpret mode, on both leaves,
+    rows 0 and M-1 included; no kernel launch is counted."""
     rng = np.random.default_rng(7)
     L, B, M, n, d = 3, 4, 64, 4, 16
     W = 2 * n * d
@@ -125,9 +126,13 @@ def test_plain_scatter_write_equals_pallas_interpret():
         jnp.asarray(bkv), rk[:, 0], jnp.asarray(idx), jnp.int32(2),
         csc=jnp.asarray(bsc), rows_sc=rs[:, 0], interpret=True)
     got = {"kv": _t(bkv), "scale": _t(bsc)}
-    before = tkv.quantize_scatter_write.launches
-    tkv.quantize_scatter_write(got, _t(rows), _t(idx), 2)
-    assert tkv.quantize_scatter_write.launches == before  # CPU: plain
+    names = ("launches", "alibi_launches", "int8_launches",
+             "int8_alibi_launches")
+    before = [getattr(write_decode_attention, c) for c in names]
+    q = torch.from_numpy(rng.normal(size=(B, n * d)).astype(np.float32))
+    write_decode_attention(q, _t(rows[:, :n * d]), _t(rows[:, n * d:]), got,
+                           n, 2, _t(idx))
+    assert [getattr(write_decode_attention, c) for c in names] == before
     np.testing.assert_array_equal(got["kv"].numpy(), np.asarray(wk))
     np.testing.assert_array_equal(got["scale"].numpy(), np.asarray(ws))
     changed = (got["kv"].numpy() != bkv).any(-1)
@@ -180,25 +185,90 @@ def test_int8_decode_plain_matches_pallas_interpret(d, alibi):
             jnp.asarray(clen), jnp.asarray(vfrom), alibi_slopes=slopes,
             kv_scales=jnp.asarray(scales), interpret=True)
     kw = dict(alibi_slopes=slopes, kv_scales=_t(scales))
-    got = decode_attention(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom), **kw)
+    got = decode_attention_plain(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom),
+                                 **kw)
     _close(got, want)
     assert not got[4].any()
     # one live key: its dequantized V row
     v = ckv[1, 3, 40, n * d:].reshape(n, d) * scales[1, 3, 40, n:, None]
     _close(got[3], v.reshape(-1), 1e-6)
-    torch.testing.assert_close(got, decode_attention_plain(
-        _t(q), _t(ckv), n, 1, _t(clen), _t(vfrom), **kw))
+    # one step written through the plain write and read back: the new
+    # key is sample 2's row 127 (M-1), dequantized on the way
+    step = {"kv": _t(ckv.copy()), "scale": _t(scales.copy())}
+    kv_new = rng.normal(size=(B, 2 * n * d)).astype(np.float32)
+    write_decode_attention(_t(q), _t(kv_new[:, :n * d]),
+                           _t(kv_new[:, n * d:]), step, n, 1, _t(clen),
+                           _t(vfrom), alibi_slopes=slopes)
+    rq, rs = tkv.quantize_rows(_t(kv_new)[:, None], n)
+    assert torch.equal(step["kv"][1, 2, 127], rq[2, 0])
+    assert torch.equal(step["scale"][1, 2, 127], rs[2, 0])
 
 
 def test_int8_decode_rejects_a_mismatched_cache():
     q = torch.zeros(2, 4 * 64)
     ckv = torch.zeros(1, 2, 8, 2 * 4 * 64, dtype=torch.int8)
     with pytest.raises(ValueError, match="scales"):
-        decode_attention(q, ckv, 4, 0, 3,
-                         kv_scales=torch.zeros(1, 2, 8, 4))
+        write_decode_attention(q, q, q, {"kv": ckv,
+                                         "scale": torch.zeros(1, 2, 8, 4)},
+                               4, 0, 3)
     with pytest.raises(ValueError, match="int8 cache"):
-        decode_attention(q, ckv.float(), 4, 0, 3,
-                         kv_scales=torch.zeros(1, 2, 8, 8))
+        write_decode_attention(q, q, q, {"kv": ckv.float(),
+                                         "scale": torch.zeros(1, 2, 8, 8)},
+                               4, 0, 3)
+
+
+@pytest.mark.parametrize("d,alibi,layout", [(64, False, "packed"),
+                                            (64, True, "head-major"),
+                                            (128, True, "head-major"),
+                                            (128, False, "packed")])
+def test_int8_write_decode_plain_matches_jax_write_then_pallas(d, alibi,
+                                                                layout):
+    """K5 int8 with K6 folded in, plain (CPU): both cache leaves equal
+    JAX's cache_write (quantize_rows, then the rows at cache_len[b]) but
+    for the row past the cache (below), and the output equals the Pallas
+    decode_attention (interpret mode, ``kv_scales``) on that cache; rows
+    0, M-1 and >= M, a valid_from > 0 and a slot with no live key."""
+    rng = np.random.default_rng(d + alibi)
+    L, B, M, n = 2, 5, 128, 4
+    ckv, scales = _int8_cache(rng, L, B, M, n, d)
+    shape = (B, 3 * n * d) if layout == "packed" else (B, n, 3, d)
+    qkv = (rng.normal(size=shape) * 2).astype(np.float32)
+    views = ((qkv[:, :n * d], qkv[:, n * d:2 * n * d], qkv[:, 2 * n * d:])
+             if layout == "packed"
+             else (qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]))
+    q, k, v = (np.ascontiguousarray(x).reshape(B, n * d) for x in views)
+    clen = np.array([0, 100, 127, 130, 40], np.int32)
+    vfrom = np.array([0, 7, 64, 9, 60], np.int32)  # slot 4: no live key
+    base = {"kv": jnp.asarray(ckv), "scale": jnp.asarray(scales)}
+    want_cache = jkv.cache_write(
+        base, jnp.asarray(np.concatenate([k, v], -1))[:, None], n,
+        jnp.asarray(clen), lidx=1)
+    # Sample 3 writes row 130 >= M.  The port writes nothing there; JAX
+    # does not define this write: XLA's dynamic_update_slice clamps it to
+    # row M-1 and the Pallas scatter kernel (interpret mode) lands it in
+    # the last aligned window.  The engine never sends it (a request stops
+    # at max_len - 1), so the reference keeps sample 3's rows as they were.
+    want_cache = {key: c.at[1, 3].set(base[key][1, 3])
+                  for key, c in want_cache.items()}
+    slopes = alibi_slopes(n) if alibi else None
+    with mock.patch.object(pl, "pallas_call", functools.partial(
+            pl.pallas_call, interpret=True)):
+        want = jdec.decode_attention(
+            jnp.asarray(q), want_cache["kv"], n, jnp.int32(1),
+            jnp.asarray(clen), jnp.asarray(vfrom), alibi_slopes=slopes,
+            kv_scales=want_cache["scale"], interpret=True)
+    cache = {"kv": _t(ckv.copy()), "scale": _t(scales.copy())}
+    tq = _t(qkv)
+    tviews = ((tq[:, :n * d], tq[:, n * d:2 * n * d], tq[:, 2 * n * d:])
+              if layout == "packed" else (tq[:, :, 0], tq[:, :, 1],
+                                          tq[:, :, 2]))
+    got = write_decode_attention(*tviews, cache, n, 1, _t(clen), _t(vfrom),
+                                 alibi_slopes=slopes)
+    for key in ("kv", "scale"):
+        np.testing.assert_array_equal(cache[key].numpy(),
+                                      np.asarray(want_cache[key]))
+    _close(got, want)
+    assert not got[4].any()
 
 
 # ---------------------------------------------------------------------------
@@ -216,72 +286,6 @@ def cuda_device():
 def _bf16(rng, *shape, device):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
         device=device, dtype=torch.bfloat16)
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,d,strided", [(32, 64, True), (32, 128, False),
-                                         (4, 128, True), (3, 32, False)])
-def test_cuda_quantize_scatter_write_equals_plain(cuda_device, n, d,
-                                                  strided):
-    """K6 on the card: both leaves bitwise equal to the plain version, the
-    other rows (preset non-zero) untouched; rows 0 and M-1; strided rows
-    as the GPT-3 decoder passes them (``qkv[..., n*d:]``)."""
-    rng = np.random.default_rng(n + d)
-    L, B, M = 3, 8, 256
-    W = 2 * n * d
-    src = _bf16(rng, B, 3 * n * d if strided else W, device=cuda_device)
-    rows = src[:, n * d:] if strided else src
-    idx = torch.tensor([0, 255, 17, 100, 3, 254, 128, 0], dtype=torch.int32,
-                       device=cuda_device)
-    base = {"kv": torch.from_numpy(rng.integers(-100, 100, (L, B, M, W))
-                                   .astype(np.int8)).to(cuda_device),
-            "scale": torch.from_numpy(rng.uniform(0.5, 2, (L, B, M, 2 * n))
-                                      .astype(np.float32)).to(cuda_device)}
-    got = {k: v.clone() for k, v in base.items()}
-    want = {k: v.clone() for k, v in base.items()}
-    before = tkv.quantize_scatter_write.launches
-    tkv.quantize_scatter_write(got, rows, idx, 1)
-    torch.cuda.synchronize()
-    assert tkv.quantize_scatter_write.launches == before + 1
-    tkv.quantize_scatter_write_plain(want, rows, idx, 1)
-    for k in ("kv", "scale"):
-        assert torch.equal(got[k], want[k]), k
-    changed = (got["kv"] != base["kv"]).any(-1).nonzero().tolist()
-    assert {tuple(c) for c in changed} <= {(1, b, int(idx[b]))
-                                           for b in range(B)}
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,d,alibi", [(4, 64, False), (4, 64, True),
-                                       (4, 128, True), (12, 128, True),
-                                       (4, 128, False)])
-def test_cuda_int8_decode_matches_plain(cuda_device, n, d, alibi):
-    """K5 int8 on the card against decode_attention_plain(kv_scales=),
-    four bf16 ulps; an empty slot reads zeros; its own launch counter
-    rises and the bf16 ones do not."""
-    rng = np.random.default_rng(n + d + alibi)
-    L, B, M = 3, 5, 256
-    ckv, scales = _int8_cache(rng, L, B, M, n, d)
-    ckv, scales = _t(ckv).to(cuda_device), _t(scales).to(cuda_device)
-    q = _bf16(rng, B, n, 3, d, device=cuda_device)[:, :, 0, :]
-    clen = torch.tensor([0, 100, 255, 3, 40], dtype=torch.int32,
-                        device=cuda_device)
-    vfrom = torch.tensor([0, 7, 130, 9, 40], dtype=torch.int32,
-                         device=cuda_device)  # slot 3: no live key
-    kw = dict(alibi_slopes=alibi_slopes(n) if alibi else None,
-              kv_scales=scales)
-    counter = "int8_alibi_launches" if alibi else "int8_launches"
-    counts = [getattr(decode_attention, c) for c in (
-        counter, "launches", "alibi_launches")]
-    got = decode_attention(q, ckv, n, 2, clen, vfrom, **kw)
-    torch.cuda.synchronize()
-    assert [getattr(decode_attention, c) for c in (
-        counter, "launches", "alibi_launches")] == [counts[0] + 1,
-                                                    *counts[1:]]
-    want = decode_attention_plain(q, ckv, n, 2, clen, vfrom, **kw)
-    torch.testing.assert_close(got.float(), want.float(), atol=2.0 ** -6,
-                               rtol=2.0 ** -6)
-    assert not got[3].any()
 
 
 @pytest.mark.cuda

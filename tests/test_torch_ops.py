@@ -27,8 +27,9 @@ from youku_mplug_tpu_torch.ops import kv_cache as tkv
 from youku_mplug_tpu_torch.ops.attention import mha_reference as tmha
 from youku_mplug_tpu_torch.ops.decode_attention import (
     alibi_slopes,
-    decode_attention,
     decode_attention_plain,
+    write_decode_attention,
+    write_decode_attention_plain,
 )
 from youku_mplug_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -114,7 +115,7 @@ def test_decode_plain_matches_pallas_interpret():
     want = jdec.decode_attention(jnp.asarray(q), jnp.asarray(ckv), n,
                                  jnp.int32(1), jnp.asarray(clen),
                                  jnp.asarray(vfrom), interpret=True)
-    got = decode_attention(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom))
+    got = decode_attention_plain(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom))
     _close(got, want)
     assert not got[4].any()
     _close(got[3], ckv[1, 3, 40, n * d:], 1e-6)  # one live key: its V row
@@ -138,31 +139,122 @@ def test_decode_alibi_plain_matches_pallas_interpret(d, n):
                                  jnp.int32(1), jnp.asarray(clen),
                                  jnp.asarray(vfrom), alibi_slopes=slopes,
                                  interpret=True)
-    got = decode_attention(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom),
-                           alibi_slopes=slopes)
+    got = decode_attention_plain(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom),
+                                 alibi_slopes=slopes)
     _close(got, want)
     assert not got[3].any()
     # the bias moves the answer: without it the same call differs
-    unbiased = decode_attention(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom))
+    unbiased = decode_attention_plain(_t(q), _t(ckv), n, 1, _t(clen),
+                                      _t(vfrom))
     assert (unbiased - got).abs().max() > 10 * TOL
     # a head-strided q (the head-major fused row [B, n, 3, d]) reads the
     # same as its contiguous copy
     fused = np.stack([q.reshape(B, n, d)] * 3, axis=2)
     view = _t(fused)[:, :, 0, :]
     torch.testing.assert_close(
-        decode_attention(view, _t(ckv), n, 1, _t(clen), _t(vfrom),
-                         alibi_slopes=slopes), got)
+        decode_attention_plain(view, _t(ckv), n, 1, _t(clen), _t(vfrom),
+                               alibi_slopes=slopes), got)
 
 
 def test_decode_rejects_slopes_off_the_ladder():
     """The kernel generates the slopes from the head index, so the wrapper
-    takes the standard ladder only (the JAX wrapper's check)."""
+    takes the standard ladder only (the JAX wrapper's check), on every
+    device."""
     q = torch.zeros(1, 4 * 64)
     ckv = torch.zeros(1, 1, 64, 2 * 4 * 64)
     with pytest.raises(ValueError, match="ladder"):
-        decode_attention(q, ckv, 4, 0, 3, alibi_slopes=alibi_slopes(4) * 2)
+        write_decode_attention(q, q, q, ckv, 4, 0, 3,
+                               alibi_slopes=alibi_slopes(4) * 2)
     with pytest.raises(ValueError, match="ladder"):
-        decode_attention(q, ckv, 4, 0, 3, alibi_slopes=alibi_slopes(8))
+        write_decode_attention(q, q, q, ckv, 4, 0, 3,
+                               alibi_slopes=alibi_slopes(8))
+    assert not ckv.any()  # nothing written
+
+
+def _step_views(qkv, n, d, layout):
+    """q, k, v of one decode step as the decoders hand them over: slices
+    of GPT-3's packed row [B, 3*n*d], or head views of Bloom's head-major
+    row [B, n, 3, d]."""
+    if layout == "packed":
+        nd = n * d
+        return qkv[:, :nd], qkv[:, nd:2 * nd], qkv[:, 2 * nd:]
+    return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+
+# write rows: 0 (the sample's only live key), 100 past a valid_from > 0,
+# M-1, >= M (the port writes nothing there and reads rows up to M-1), and
+# one whose valid_from lies past it (no live key: zeros, the row still
+# written)
+STEP_CLEN = np.array([0, 100, 127, 130, 40], np.int32)
+STEP_VFROM = np.array([0, 7, 64, 9, 60], np.int32)
+
+
+@pytest.mark.parametrize("d,n,alibi,layout", [
+    (64, 2, False, "packed"), (64, 4, True, "head-major"),
+    (128, 4, True, "head-major"), (128, 3, False, "packed"),
+    (128, 6, True, "packed")])
+def test_write_decode_plain_matches_jax_write_then_pallas(d, n, alibi,
+                                                           layout):
+    """K5 with K6 folded in, plain (CPU): the cache equals JAX's
+    ``cache_write`` of the step's [K | V] rows exactly, but for the row
+    past the cache (below), and the output equals the Pallas
+    decode_attention (interpret mode) on that cache."""
+    rng = np.random.default_rng(d + n + alibi)
+    L, B, M = 2, 5, 128
+    base = rng.normal(size=(L, B, M, 2 * n * d)).astype(np.float32)
+    shape = (B, 3 * n * d) if layout == "packed" else (B, n, 3, d)
+    qkv = rng.normal(size=shape).astype(np.float32)
+    q, k, v = (np.ascontiguousarray(x).reshape(B, n * d)
+               for x in _step_views(qkv, n, d, layout))
+    want_cache = jkv.cache_write(
+        jnp.asarray(base), jnp.asarray(np.concatenate([k, v], -1))[:, None],
+        n, jnp.asarray(STEP_CLEN), lidx=1)
+    # Sample 3 writes row 130 >= M.  The port writes nothing there; JAX
+    # does not define this write: XLA's dynamic_update_slice clamps it to
+    # row M-1 and the Pallas scatter kernel (interpret mode) lands it in
+    # the last aligned window.  The engine never sends it (a request stops
+    # at max_len - 1), so the reference keeps sample 3's rows as they were.
+    want_cache = want_cache.at[1, 3].set(base[1, 3])
+    slopes = alibi_slopes(n) if alibi else None
+    want = jdec.decode_attention(jnp.asarray(q), want_cache, n, jnp.int32(1),
+                                 jnp.asarray(STEP_CLEN),
+                                 jnp.asarray(STEP_VFROM),
+                                 alibi_slopes=slopes, interpret=True)
+    cache = _t(base.copy())
+    got = write_decode_attention(*_step_views(_t(qkv), n, d, layout), cache,
+                                 n, 1, _t(STEP_CLEN), _t(STEP_VFROM),
+                                 alibi_slopes=slopes)
+    np.testing.assert_array_equal(cache.numpy(), np.asarray(want_cache))
+    _close(got, want)
+    assert not got[4].any()
+    _close(got[0], v[0], 1e-6)  # one live key: the row it just wrote
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_write_decode_plain_writes_nothing_outside_the_cache(int8):
+    """A write row outside [0, M) (negative, M, past M) touches neither
+    cache leaf, and the step attends over the unchanged cache: rows up to
+    M-1 past the end, no live key (zeros) below 0.  The kernel does the
+    same (``write = 0 <= idx < M``)."""
+    rng = np.random.default_rng(21 + int8)
+    L, B, M, n, d = 2, 3, 64, 2, 64
+    rows = _t(rng.normal(size=(L, B, M, 2 * n * d)).astype(np.float32))
+    if int8:
+        kv8, scales = tkv.quantize_rows(rows, n)
+        base = {"kv": kv8, "scale": scales}
+        cache = {"kv": kv8.clone(), "scale": scales.clone()}
+    else:
+        base, cache = rows, rows.clone()
+    q, k, v = _t(rng.normal(size=(3, B, n * d)).astype(np.float32))
+    clen = _t(np.array([-1, M, M + 6], np.int32))
+    got = write_decode_attention(q, k, v, cache, n, 1, clen, 0)
+    for g, b0 in zip(tkv.leaves(cache), tkv.leaves(base)):
+        if b0 is not None:
+            assert torch.equal(g, b0)
+    ckv, scales = tkv.leaves(base)
+    torch.testing.assert_close(
+        got, decode_attention_plain(q, ckv, n, 1, M - 1, 0, kv_scales=scales)
+        * torch.tensor([0.0, 1.0, 1.0])[:, None])
 
 
 def test_layer_norm_and_normalize_clip_match_jax():
@@ -568,47 +660,82 @@ def test_cuda_flash_head_major_matches_plain(cuda_device, sq, sk, kv_len):
     _bf16_close(got, flash_attention_plain(q, k, v, kv_len=kv_len))
 
 
-@pytest.mark.cuda
-def test_cuda_decode_matches_plain(cuda_device):
-    rng = np.random.default_rng(12)
-    qkv = _bf16(rng, 5, 3 * 4 * 64, device=cuda_device)
-    q = qkv[:, :4 * 64]  # a row-strided view, as the decoder passes it
-    ckv = _bf16(rng, 3, 5, 256, 2 * 4 * 64, device=cuda_device)
-    clen = torch.tensor([0, 100, 255, 3, 40], dtype=torch.int32,
-                        device=cuda_device)
-    vfrom = torch.tensor([0, 7, 130, 9, 40], dtype=torch.int32,
-                         device=cuda_device)  # slot 3: no live key
-    got = decode_attention(q, ckv, 4, 2, clen, vfrom)
-    _bf16_close(got, decode_attention_plain(q, ckv, 4, 2, clen, vfrom))
-    assert not got[3].any()
-    torch.testing.assert_close(got[4], ckv[2, 4, 40, 4 * 64:])
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("n,alibi", [(4, False), (4, True), (12, True)])
-def test_cuda_decode_d128_matches_plain(cuda_device, n, alibi):
-    """K5 at head dim 128 (Bloom), with and without the ALiBi ladder (12
-    heads: the half-step ladder past 8); q a head-strided view of the
-    head-major fused row [B, n, 3, d], as the Bloom decoder passes it;
-    the per-variant launch counter rises."""
-    rng = np.random.default_rng(n + alibi)
-    d = 128
-    q = _bf16(rng, 5, n, 3, d, device=cuda_device)[:, :, 0, :]
-    ckv = _bf16(rng, 3, 5, 256, 2 * n * d, device=cuda_device)
-    clen = torch.tensor([0, 100, 255, 3, 40], dtype=torch.int32,
-                        device=cuda_device)
-    vfrom = torch.tensor([0, 7, 130, 9, 40], dtype=torch.int32,
-                         device=cuda_device)  # slot 3: no live key
-    slopes = alibi_slopes(n) if alibi else None
-    counter = "alibi_launches" if alibi else "launches"
-    before = getattr(decode_attention, counter)
-    got = decode_attention(q, ckv, n, 2, clen, vfrom, alibi_slopes=slopes)
+def _check_fused_on_card(rng, device, n, d, layout, clen, vfrom, *,
+                         alibi=False, int8=False):
+    """The fused kernel against write_decode_attention_plain on copies of
+    one cache whose rows are preset: both cache leaves bitwise equal, no
+    row but (lidx, b, clen[b]) touched, the output within four bf16 ulps,
+    the variant's launch counter up by one and no other.  Returns the
+    kernel's output."""
+    L, B, M = 3, len(clen), 256
+    qkv = _bf16(rng, *((B, 3 * n * d) if layout == "packed"
+                       else (B, n, 3, d)), device=device)
+    rows = _bf16(rng, L, B, M, 2 * n * d, device=device)
+    base = tkv.quantize_rows(rows, n) if int8 else (rows, None)
+    base = ({"kv": base[0], "scale": base[1]} if int8 else rows)
+    got_c, want_c = (({k: t.clone() for k, t in base.items()} if int8
+                      else base.clone()) for _ in range(2))
+    clen, vfrom = (torch.tensor(x, dtype=torch.int32, device=device)
+                   for x in (clen, vfrom))
+    kw = dict(alibi_slopes=alibi_slopes(n) if alibi else None)
+    names = ("launches", "alibi_launches", "int8_launches",
+             "int8_alibi_launches")
+    before = [getattr(write_decode_attention, c) for c in names]
+    got = write_decode_attention(*_step_views(qkv, n, d, layout), got_c, n,
+                                 2, clen, vfrom, **kw)
     torch.cuda.synchronize()
-    assert getattr(decode_attention, counter) == before + 1
-    _bf16_close(got, decode_attention_plain(q, ckv, n, 2, clen, vfrom,
-                                            alibi_slopes=slopes))
+    counter = ("int8_" if int8 else "") + ("alibi_" if alibi else "") \
+        + "launches"
+    assert [getattr(write_decode_attention, c) - b0
+            for c, b0 in zip(names, before)] == [int(c == counter)
+                                                 for c in names]
+    want = write_decode_attention_plain(*_step_views(qkv, n, d, layout),
+                                        want_c, n, 2, clen, vfrom, **kw)
+    for g, w, b0 in zip(tkv.leaves(got_c), tkv.leaves(want_c),
+                        tkv.leaves(base)):
+        if b0 is None:  # a bf16 cache has one leaf
+            continue
+        assert torch.equal(g, w)
+        touched = {tuple(x) for x in (g != b0).reshape(L, B, M, -1).any(-1)
+                   .nonzero().tolist()}
+        assert touched <= {(2, i, int(clen[i])) for i in range(B)}
+    _bf16_close(got, want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("alibi,int8", [(False, False), (True, False),
+                                        (False, True), (True, True)])
+def test_cuda_decode_matches_plain(cuda_device, alibi, int8):
+    """K5 with the write folded in at d 64, bf16 and int8 caches, with and
+    without the ALiBi ladder, q/k/v views of GPT-3's packed row: a slot
+    with no live key, two whose only live key is the row they write, one
+    reading a single row from the cache (a live range shorter than the
+    cluster's two blocks), one reading two, rows 0, M-1 and >= M."""
+    rng = np.random.default_rng(12 + int8 + 2 * alibi)
+    got = _check_fused_on_card(rng, cuda_device, 4, 64, "packed",
+                               [0, 100, 255, 3, 40, 300, 3, 2],
+                               [0, 7, 130, 9, 40, 200, 1, 1],
+                               alibi=alibi, int8=int8)
     assert not got[3].any()
-    torch.testing.assert_close(got[4], ckv[2, 4, 40, n * d:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,alibi,int8", [(4, False, False),
+                                          (4, True, False),
+                                          (12, True, False),
+                                          (4, True, True), (12, False, True),
+                                          (12, True, True)])
+def test_cuda_decode_d128_matches_plain(cuda_device, n, alibi, int8):
+    """K5 with the write folded in at head dim 128 (Bloom), with and
+    without the ALiBi ladder (12 heads: the half-step ladder past 8), bf16
+    and int8 caches; q/k/v head views of the head-major fused row
+    [B, n, 3, d], as the Bloom decoder passes them."""
+    rng = np.random.default_rng(n + alibi + int8)
+    got = _check_fused_on_card(rng, cuda_device, n, 128, "head-major",
+                               [0, 100, 255, 3, 40], [0, 7, 130, 9, 40],
+                               alibi=alibi, int8=int8)
+    assert not got[3].any()
 
 
 @pytest.mark.cuda
@@ -618,6 +745,15 @@ def test_cuda_wrappers_reject_what_the_kernels_do_not_take(cuda_device):
         flash_attention_packed(x, x, x, 2)  # d = 32
     with pytest.raises(TypeError, match="bf16"):
         flash_attention_packed(x.float(), x.float(), x.float(), 1)
+    # the decode kernel: head dim 32, an fp32 cache, a non-contiguous one
+    q = x[:, 0]
+    for cache, n in ((torch.zeros(1, 2, 8, 2 * 64, device=cuda_device,
+                                  dtype=torch.bfloat16), 2),
+                     (torch.zeros(1, 2, 8, 2 * 64, device=cuda_device), 1),
+                     (torch.zeros(1, 4, 8, 2 * 64, device=cuda_device,
+                                  dtype=torch.bfloat16)[:, ::2], 1)):
+        with pytest.raises((TypeError, ValueError)):
+            write_decode_attention(q, q, q, cache, n, 0, 3)
 
 
 def _rel_l2(got, want):

@@ -1,105 +1,187 @@
-// Single-token decode attention over the stacked packed KV cache, for
-// Hopper (sm_90a), bf16 or int8 cache, fp32 online softmax, head dim 64 or
-// 128, optionally with the ALiBi bias of the Bloom decoder.
+// One decode step's cache write and single-token attention over the
+// stacked packed KV cache, in one launch, for Hopper (sm_90a): bf16 or int8
+// cache, fp32 online softmax, head dim 64 or 128, optionally with the ALiBi
+// bias of the Bloom decoder.
 //
-// Replaces the Pallas TPU kernel youku_mplug_tpu/ops/decode_attention.py
-// (_kernel, wrapper decode_attention) for the bf16 cache and for the int8
-// cache with per-(token, head) scales (quantized=True), each with and
-// without its ALiBi ladder.  The cache is [L, B, M, 2*n*d] with each row
-// = [K | V] lanes; the kernel reads layer `lidx` in place (no layer copy)
-// and only the live keys valid_from[b] <= j <= cache_len[b] of each
-// sample.  A sample with no live key gets zeros, as in the TPU kernel.
+// Replaces two Pallas TPU kernels and the call that ran them in a row:
+// youku_mplug_tpu/ops/decode_attention.py (_kernel, wrapper
+// decode_attention; bf16 cache, and int8 cache with per-(token, head)
+// scales, quantized=True) and youku_mplug_tpu/ops/kv_cache.py
+// (_scatter_kernel, wrapper cache_scatter_write, with the quantize_rows
+// that feeds it in cache_write), as the JAX decode step runs them: write
+// the new token's K|V row at row cache_len[b] of layer lidx, then attend
+// over keys valid_from[b] <= j <= cache_len[b].  The cache is
+// [L, B, M, 2*n*d] with each row = [K | V] lanes; layer lidx is read in
+// place.  A sample with no live key gets zeros; cache_len[b] >= M reads
+// rows up to M-1 and writes nothing (JAX leaves that write undefined: XLA
+// clamps it to row M-1, the scatter kernel's window to the last one; the
+// serving engine never sends it).
 //
 // ALiBi: score = scale * q.k + slope_h * j, j the absolute key position,
-// added after the scale and before the running max, all in fp32 (the
-// bias reaches a few hundred at M = 256).  The slope ladder is generated
-// from the head index as the TPU kernel does (decode_attention.py:
-// 104-110): 2^(-8(h+1)/c) for the first c heads, c the largest power of
-// two <= n, then the half-step ladder 2^(-4(2(h-c)+1)/c); the wrapper
+// added after the scale and before the running max, all in fp32.  The
+// slope ladder is generated from the head index as the TPU kernel does
+// (decode_attention.py:104-110): 2^(-8(h+1)/c) for the first c heads, c
+// the largest power of two <= n, then 2^(-4(2(h-c)+1)/c); the wrapper
 // checks that the caller's slopes are that ladder.
 //
-// What bounds it on the H100: decode attention does 2 FLOPs per cache
-// byte, far below the ~295 FLOP/byte where bf16 tensor-core compute would
-// be the limit, so it is bound by reading the live K/V rows from HBM (and,
-// at the serving sizes, by latency).  The design reads each live row
-// exactly once, skips dead rows instead of masking them, keeps every
-// partial sum in registers, and gives each warp four independent rows per
-// step so their K and V loads are in flight together and the running
-// softmax rescales once per step.
+// int8 cache: a second array [L, B, M, 2*n] holds one fp32 scale per
+// (row, head of the 2n K and V heads).  The dequant follows the TPU
+// kernel's order (decode_attention.py:123-142): score = (q . k_int8) *
+// scale * k_scale[j, h], the bias after the K scale; l sums the unscaled
+// p; the accumulator takes (p * v_scale[j, h]) * v_int8.  The new row is
+// quantized bit for bit as quantize_rows does it: absmax over the head's d
+// lanes, s = max(amax, 1e-8) / 127 as an IEEE division, rint(x / s) (half
+// to even, IEEE division) clipped to +-127.
 //
-// int8 cache: the rows hold int8 lanes and a second array [L, B, M, 2*n]
-// holds one fp32 scale per (row, head of the 2n K and V heads), with its
-// own layer offset.  The dequant follows the TPU kernel's order
-// (decode_attention.py:123-142): score = (q . k_int8) * scale *
-// k_scale[j, h], the ALiBi bias added after the K scale; l sums the
-// unscaled p; the accumulator takes (p * v_scale[j, h]) * v_int8.  The
-// rows never expand to a float copy in memory: an int8 row moves half the
-// bytes of a bf16 one, plus 8 bytes of scales per (row, head).
+// What bounds it on the H100: 2 operations per cache byte, so bytes and,
+// at the serving sizes (8 samples x <= 256 keys), latency.  The design:
+// - Each (head, sample) is one thread block cluster of kCluster = 2
+//   blocks (the fastest of 1, 2, 4 and 8 at every serving shape, see
+//   PERF.md).  The keys the step reads from the cache are split into two
+//   equal shares computed on the device, so the longest sample no longer
+//   runs on one block; a block with an empty share loads nothing.  Each
+//   block stores its partial (m, l, acc) state into its slot of block 0's
+//   shared memory (distributed shared memory, one barrier.cluster), and
+//   block 0 merges the slots: no second launch, no global scratch, no
+//   atomics, so the output is bitwise repeatable.
+// - Wide loads: a team of D / 8 lanes reads one head's slice of one row, 8
+//   values a lane (16 bytes bf16, 8 bytes int8: both caches share one
+//   geometry and register budget; at d 64 a warp reads 4 rows a load).
+//   Each team issues the K and V loads of kRows rows before it uses any;
+//   on an int8 cache each lane also loads the two scales of one of those
+//   rows, and shuffles hand them to the team.
+// - The cache write: warp 0 of the cluster's last block loads head h's new
+//   K and V slices with q, writes them (int8: quantized, and the two
+//   scales) while its first round of cache loads is in flight, and starts
+//   its state from the new key as it wrote it, so no block reads row
+//   cache_len[b] of head h from memory and no ordering between blocks is
+//   needed.  The result equals write-then-attend.
 //
-// Block: one (head, sample); 4 warps stride over the live keys; lane l
-// owns head features kPer*l .. kPer*l + kPer - 1 (kPer = D / 32: two at
-// d = 64, four at d = 128, read as one 4- or 8-byte load; int8: one 2- or
-// 4-byte load).  Warps merge
-// their partial softmax states through shared memory at the end.
+// Block: 4 warps; lane l of a team owns head features E*tl .. E*tl + E-1
+// (tl = l mod lanes per team; E = 8).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <type_traits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRows = 4;  // keys per warp per step
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 8;    // rows a team loads before it uses any
+constexpr int kValues = 8;  // values of a row a lane loads: 16 bytes bf16,
+                            // 8 int8, so both caches share one geometry
+constexpr int kCluster = 2;  // blocks that split a (head, sample)'s keys
 
-// kPer consecutive bf16 values at p (aligned to 2 * kPer bytes) -> fp32
-template <int kPer>
-__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
-  if constexpr (kPer == 2) {
-    const float2 f =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    out[0] = f.x;
-    out[1] = f.y;
+template <int kBytes>
+struct VecOf;
+template <>
+struct VecOf<8> {
+  using type = uint2;
+};
+template <>
+struct VecOf<16> {
+  using type = uint4;
+};
+
+__device__ __forceinline__ void words(const uint2& r, uint32_t (&w)[2]) {
+  w[0] = r.x;
+  w[1] = r.y;
+}
+__device__ __forceinline__ void words(const uint4& r, uint32_t (&w)[4]) {
+  w[0] = r.x;
+  w[1] = r.y;
+  w[2] = r.z;
+  w[3] = r.w;
+}
+__device__ __forceinline__ uint2 vec(const uint32_t (&w)[2]) {
+  return make_uint2(w[0], w[1]);
+}
+__device__ __forceinline__ uint4 vec(const uint32_t (&w)[4]) {
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// E bf16 values at p (2-byte aligned; one 16-byte load each 8 values
+// when p is 16-byte aligned) -> their raw bits in pairs
+template <int E>
+__device__ __forceinline__ void load_bf16(const __nv_bfloat16* p,
+                                          uint32_t (&raw)[E / 2]) {
+  if ((reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+#pragma unroll
+    for (int i = 0; i < E / 8; ++i) {
+      const uint4 w = reinterpret_cast<const uint4*>(p)[i];
+      raw[4 * i] = w.x;
+      raw[4 * i + 1] = w.y;
+      raw[4 * i + 2] = w.z;
+      raw[4 * i + 3] = w.w;
+    }
   } else {
-    static_assert(kPer == 4, "head dim 64 or 128");
-    const uint2 raw = *reinterpret_cast<const uint2*>(p);
-    const float2 lo =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-    const float2 hi =
-        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-    out[0] = lo.x;
-    out[1] = lo.y;
-    out[2] = hi.x;
-    out[3] = hi.y;
+    const uint16_t* s = reinterpret_cast<const uint16_t*>(p);
+#pragma unroll
+    for (int i = 0; i < E / 2; ++i) {
+      raw[i] = s[2 * i] | (uint32_t)s[2 * i + 1] << 16;
+    }
   }
 }
 
-// kPer consecutive int8 values at p (aligned to kPer bytes) -> fp32
-template <int kPer>
-__device__ __forceinline__ void load_row(const int8_t* p, float* out) {
-  if constexpr (kPer == 2) {
-    const char2 c = *reinterpret_cast<const char2*>(p);
-    out[0] = c.x;
-    out[1] = c.y;
-  } else {
-    static_assert(kPer == 4, "head dim 64 or 128");
-    const char4 c = *reinterpret_cast<const char4*>(p);
-    out[0] = c.x;
-    out[1] = c.y;
-    out[2] = c.z;
-    out[3] = c.w;
+// byte i of w as a signed int8, exactly: 2^23 + (x + 128) - (2^23 + 128),
+// one byte permute and one add instead of an integer conversion
+__device__ __forceinline__ float s8_to_float(uint32_t w, int i) {
+  const uint32_t u = __byte_perm(w ^ 0x80808080u, 0x4B000000u, 0x7440 | i);
+  return __uint_as_float(u) - 8388736.f;
+}
+
+// the words of a lane's slice of a row (int8 or bf16) -> E fp32 values
+template <bool kInt8, int E, int W>
+__device__ __forceinline__ void unpack(const uint32_t (&w)[W],
+                                       float (&f)[E]) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    if constexpr (kInt8) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[4 * k + i] = s8_to_float(w[k], i);
+    } else {
+      f[2 * k] = __uint_as_float(w[k] << 16);
+      f[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
   }
 }
 
-template <int kPer>
-__device__ __forceinline__ void store_row(__nv_bfloat16* p, const float* v) {
-  if constexpr (kPer == 2) {
-    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
-  } else {
-    __nv_bfloat162 pair[2] = {__floats2bfloat162_rn(v[0], v[1]),
-                              __floats2bfloat162_rn(v[2], v[3])};
-    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(pair);
+// quantize_rows on one head spread over a team of kLanes lanes (E values
+// each): x becomes the rounded int8 values (as floats); returns the scale
+template <int E, int kLanes>
+__device__ __forceinline__ float quantize_head(float (&x)[E]) {
+  float amax = 0.f;
+#pragma unroll
+  for (int i = 0; i < E; ++i) amax = fmaxf(amax, fabsf(x[i]));
+#pragma unroll
+  for (int off = kLanes / 2; off > 0; off >>= 1) {
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
+  }
+  const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
+#pragma unroll
+  for (int i = 0; i < E; ++i) {
+    x[i] = fminf(fmaxf(rintf(__fdiv_rn(x[i], s)), -127.f), 127.f);
+  }
+  return s;
+}
+
+// E int8 values held as floats -> their E bytes in words
+template <int E>
+__device__ __forceinline__ void pack_s8(const float (&x)[E],
+                                        uint32_t (&w)[E / 4]) {
+#pragma unroll
+  for (int k = 0; k < E / 4; ++k) {
+    w[k] = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      w[k] |= (uint32_t)(uint8_t)(int8_t)(int)x[4 * k + i] << (8 * i);
+    }
   }
 }
 
@@ -111,177 +193,323 @@ __device__ __forceinline__ float alibi_slope(int h, int n) {
   return exp2f(e);
 }
 
+template <int E>
+__device__ __forceinline__ float dot(const float (&a)[E], const float (&b)[E]) {
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < E; ++i) s += a[i] * b[i];
+  return s;
+}
+
 template <int D, bool kAlibi, bool kInt8>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads)
 decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
-                   long long q_sh, const void* __restrict__ ckv,
-                   const float* __restrict__ kv_scales,
+                   long long q_sh, const __nv_bfloat16* __restrict__ k_new,
+                   long long k_sb, long long k_sh,
+                   const __nv_bfloat16* __restrict__ v_new, long long v_sb,
+                   long long v_sh, void* ckv, float* kv_scales,
                    __nv_bfloat16* __restrict__ out,
                    const int* __restrict__ cache_len,
                    const int* __restrict__ valid_from, int n, int M,
-                   long long layer_offset, long long scale_layer_offset,
-                   float scale) {
+                   int lidx, float scale) {
   using T = std::conditional_t<kInt8, int8_t, __nv_bfloat16>;
-  constexpr int kPer = D / 32;
-  const int h = blockIdx.x, b = blockIdx.y;
+  constexpr int E = kValues;
+  constexpr int kLoad = E * sizeof(T);  // bytes a lane loads from a row
+  using V = typename VecOf<kLoad>::type;
+  constexpr int W = kLoad / 4;          // their 32-bit words
+  constexpr int kLanes = D / E;         // lanes of a team: one head slice
+  constexpr int kTeams = kThreads / kLanes;
+  constexpr int kStep = kTeams * kRows;  // rows a block reads a round
+  static_assert(kRows <= kLanes, "a team's lanes load its rows' scales");
+
+  // every block arrives once it has started; block 0's shared memory is
+  // written by the others only after the matching wait
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int C = kCluster;
+  const int rank = (int)cluster.block_rank();
+  const int h = blockIdx.x / C, b = blockIdx.y, B = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int team = threadIdx.x / kLanes, tl = lane % kLanes;
   const long long nd = (long long)n * D;
   const long long row_stride = 2 * nd;
-  const T* base = static_cast<const T*>(ckv) + layer_offset +
-                  (long long)b * M * row_stride;
-  // the (row, head) scales of sample b: K at column h, V at n + h
-  const float* sc = kInt8 ? kv_scales + scale_layer_offset +
-                                (long long)b * M * 2 * n + h
-                          : nullptr;
+  const long long row0 = ((long long)lidx * B + b) * M;  // (lidx, b, 0)
+  // this lane's bytes of head h's K slice in row 0 of sample b (the V
+  // slice is nd further), and the K scale of head h in row 0 (V: n further)
+  T* const rows = static_cast<T*>(ckv) + row0 * row_stride + h * D + tl * E;
+  float* const sc = kInt8 ? kv_scales + row0 * 2 * n + h : nullptr;
 
-  float qf[kPer];
-  load_row<kPer>(q + b * q_sb + h * q_sh + kPer * lane, qf);
+  // the loads that need no index go out first, together: q, and for the
+  // writer (warp 0 of the cluster's last block) the new K and V slices
+  const bool writer = rank == C - 1 && warp == 0;
+  float qf[E];
+  uint32_t kraw[E / 2], vraw[E / 2];
+  {
+    uint32_t raw[E / 2];
+    load_bf16<E>(q + b * q_sb + h * q_sh + tl * E, raw);
+    unpack<false>(raw, qf);
+  }
+  if (writer) {
+    load_bf16<E>(k_new + b * k_sb + h * k_sh + tl * E, kraw);
+    load_bf16<E>(v_new + b * v_sb + h * v_sh + tl * E, vraw);
+  }
   const float slope = kAlibi ? alibi_slope(h, n) : 0.f;
-  const int lo = max(valid_from[b], 0);
-  const int hi = min(cache_len[b], M - 1);
+  const int idx = cache_len[b];  // the new row
+  const int lo = max(valid_from[b], 0), hi = min(idx, M - 1);
+  const bool write = idx >= 0 && idx < M;
+  const bool new_live = write && idx >= lo;  // then idx == hi
+  // keys read from the cache: lo .. lo + count - 1 (the new key, when
+  // live, comes from registers), split into C equal shares
+  const int count = max(hi - lo + 1 - (new_live ? 1 : 0), 0);
+  const int share = (count + C - 1) / C;
+  const int start = lo + rank * share;
+  const int end = min(start + share, lo + count) - 1;  // < start: empty
+  const int rounds = end >= start ? (end - start + kStep) / kStep : 0;
 
-  float m = -INFINITY, l = 0.f, acc[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) acc[i] = 0.f;
-  for (int j0 = lo + warp * kRows; j0 <= hi; j0 += kWarps * kRows) {
-    // all K and V loads of the step first (rows past hi re-read row hi
-    // and are masked below), so their latencies overlap
-    float kf[kRows][kPer], vf[kRows][kPer], ks[kRows], vs[kRows];
+  // a round's loads: the K and V slices of the team's kRows rows (rows
+  // past the share re-read its last row and are masked below), and on an
+  // int8 cache, for lane tl of a team, the K and V scales of the team's
+  // row tl mod kRows (shuffles hand row t's to the team)
+  V kr[kRows], vr[kRows];
+  float ksl = 0.f, vsl = 0.f;
+  auto load_round = [&](int r) {
+    const int j0 = start + r * kStep + team;
 #pragma unroll
     for (int t = 0; t < kRows; ++t) {
-      const int j = min(j0 + t, hi);
-      const T* row = base + j * row_stride + h * D + kPer * lane;
-      load_row<kPer>(row, kf[t]);
-      load_row<kPer>(row + nd, vf[t]);
-      if (kInt8) {
-        ks[t] = sc[(long long)j * 2 * n];
-        vs[t] = sc[(long long)j * 2 * n + n];
+      const T* p = rows + (long long)min(j0 + t * kTeams, end) * row_stride;
+      kr[t] = *reinterpret_cast<const V*>(p);
+      vr[t] = *reinterpret_cast<const V*>(p + nd);
+    }
+    if constexpr (kInt8) {
+      const long long j = min(j0 + (tl % kRows) * kTeams, end);
+      ksl = sc[j * 2 * n];
+      vsl = sc[j * 2 * n + n];
+    }
+  };
+  if (rounds > 0) load_round(0);
+
+  float m = -INFINITY, l = 0.f, acc[E];
+#pragma unroll
+  for (int i = 0; i < E; ++i) acc[i] = 0.f;
+
+  // the cache write, while the first round's loads are in flight (every
+  // team of the writer warp computes it, so the shuffles see the whole
+  // warp; team 0 stores it and starts its state from the new key)
+  if (write && writer) {
+    float kf[E], vf[E];
+    unpack<false>(kraw, kf);
+    unpack<false>(vraw, vf);
+    T* const dst = rows + (long long)idx * row_stride;
+    float ksn = 1.f, vsn = 1.f;
+    if constexpr (kInt8) {
+      ksn = quantize_head<E, kLanes>(kf);
+      vsn = quantize_head<E, kLanes>(vf);
+      if (team == 0) {
+        uint32_t kw[W], vw[W];
+        pack_s8<E>(kf, kw);
+        pack_s8<E>(vf, vw);
+        *reinterpret_cast<V*>(dst) = vec(kw);
+        *reinterpret_cast<V*>(dst + nd) = vec(vw);
+        if (tl == 0) {
+          sc[(long long)idx * 2 * n] = ksn;
+          sc[(long long)idx * 2 * n + n] = vsn;
+        }
+      }
+    } else if (team == 0) {
+      *reinterpret_cast<V*>(dst) = vec(kraw);
+      *reinterpret_cast<V*>(dst + nd) = vec(vraw);
+    }
+    if (new_live) {
+      float s = dot<E>(qf, kf);
+#pragma unroll
+      for (int off = kLanes / 2; off > 0; off >>= 1) {
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      }
+      if (team == 0) {
+        m = s * scale * ksn;  // the score as the loop forms it
+        if constexpr (kAlibi) m += slope * (float)idx;
+        l = 1.f;
+#pragma unroll
+        for (int i = 0; i < E; ++i) acc[i] = vsn * vf[i];
+      }
+    }
+  }
+
+  // rounds is uniform over the block, so every lane takes the shuffles
+  for (int r = 0; r < rounds; ++r) {
+    if (r > 0) load_round(r);
+    const int j0 = start + r * kStep + team;
+    float ks[kRows], vs[kRows];
+    if constexpr (kInt8) {
+#pragma unroll
+      for (int t = 0; t < kRows; ++t) {
+        ks[t] = __shfl_sync(0xffffffffu, ksl, t, kLanes);
+        vs[t] = __shfl_sync(0xffffffffu, vsl, t, kLanes);
       }
     }
     float s[kRows];
 #pragma unroll
     for (int t = 0; t < kRows; ++t) {
-      s[t] = 0.f;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) s[t] += qf[i] * kf[t][i];
+      uint32_t w[W];
+      words(kr[t], w);
+      float kt[E];
+      unpack<kInt8>(w, kt);
+      s[t] = dot<E>(qf, kt);
     }
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
 #pragma unroll
       for (int t = 0; t < kRows; ++t) {
         s[t] += __shfl_xor_sync(0xffffffffu, s[t], off);
       }
     }
-    // one online-softmax update per step: rows past hi score -inf (no
-    // branch, so the compiler keeps the V loads above instead of sinking
-    // each behind an exit test); row j0 <= hi is live, so m_new is finite
     float x[kRows], m_new = m;
 #pragma unroll
     for (int t = 0; t < kRows; ++t) {
+      const int j = j0 + t * kTeams;
       float st = s[t] * scale;
-      if (kInt8) st *= ks[t];  // K dequant, before the bias
-      x[t] = j0 + t <= hi ? st : -INFINITY;
-      if (kAlibi) x[t] += slope * (float)(j0 + t);
+      if constexpr (kInt8) st *= ks[t];  // K dequant, before the bias
+      if constexpr (kAlibi) st += slope * (float)j;
+      x[t] = j <= end ? st : -INFINITY;
       m_new = fmaxf(m_new, x[t]);
     }
-    const float alpha = __expf(m - m_new);
-    l *= alpha;
+    if (m_new != -INFINITY) {  // a team past the share's end: no change
+      const float alpha = __expf(m - m_new);
+      l *= alpha;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) acc[i] *= alpha;
+      for (int i = 0; i < E; ++i) acc[i] *= alpha;
 #pragma unroll
-    for (int t = 0; t < kRows; ++t) {
-      const float p = __expf(x[t] - m_new);
-      l += p;
-      const float pv = kInt8 ? p * vs[t] : p;  // V dequant folds into p
+      for (int t = 0; t < kRows; ++t) {
+        const float p = __expf(x[t] - m_new);
+        l += p;
+        const float pv = kInt8 ? p * vs[t] : p;  // V dequant folds into p
+        uint32_t w[W];
+        words(vr[t], w);
+        float vt[E];
+        unpack<kInt8>(w, vt);
 #pragma unroll
-      for (int i = 0; i < kPer; ++i) acc[i] += pv * vf[t][i];
+        for (int i = 0; i < E; ++i) acc[i] += pv * vt[i];
+      }
+      m = m_new;
     }
-    m = m_new;
   }
 
-  __shared__ float sm_m[kWarps], sm_l[kWarps];
-  __shared__ float sm_a[kWarps][D];
-  if (lane == 0) {
-    sm_m[warp] = m;
-    sm_l[warp] = l;
+  // merge the teams of the block; each block then stores its state into
+  // slot `rank` of block 0's shared memory, and block 0 merges the slots
+  __shared__ float sm_m[kTeams], sm_l[kTeams];
+  __shared__ __align__(16) float sm_acc[kTeams][D];
+  __shared__ float cl_ml[kCluster][2];
+  __shared__ __align__(16) float cl_acc[kCluster][D];
+  if (tl == 0) {
+    sm_m[team] = m;
+    sm_l[team] = l;
   }
 #pragma unroll
-  for (int i = 0; i < kPer; ++i) sm_a[warp][kPer * lane + i] = acc[i];
+  for (int i = 0; i < E; i += 4) {
+    *reinterpret_cast<float4*>(&sm_acc[team][tl * E + i]) =
+        make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+  }
   __syncthreads();
-  if (warp == 0) {
-    float mx = -INFINITY;
+  const int f = threadIdx.x;  // the head feature this thread merges
+  float mx = -INFINITY, den = 0.f, o = 0.f;
+  if (f < D) {
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w]);
-    float den = 0.f, o[kPer];
+    for (int t = 0; t < kTeams; ++t) mx = fmaxf(mx, sm_m[t]);
+    if (mx != -INFINITY) {
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) o[i] = 0.f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      if (sm_m[w] == -INFINITY) continue;  // warp saw no live key
-      const float f = __expf(sm_m[w] - mx);
-      den += sm_l[w] * f;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) o[i] += sm_a[w][kPer * lane + i] * f;
+      for (int t = 0; t < kTeams; ++t) {
+        const float w = __expf(sm_m[t] - mx);  // a team with no key: 0
+        den += sm_l[t] * w;
+        o += sm_acc[t][f] * w;
+      }
     }
-    const float inv = den > 0.f ? 1.f / den : 0.f;
+  }
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+  if (f < D) {
+    cluster.map_shared_rank(&cl_acc[rank][0], 0)[f] = o;
+    if (f == 0) {
+      float* ml = cluster.map_shared_rank(&cl_ml[rank][0], 0);
+      ml[0] = mx;
+      ml[1] = den;
+    }
+  }
+  cluster.sync();  // the slots are written and visible to block 0
+  if (rank == 0 && f < D) {
+    float mc = -INFINITY;
 #pragma unroll
-    for (int i = 0; i < kPer; ++i) o[i] *= inv;
-    store_row<kPer>(out + (long long)b * nd + h * D + kPer * lane, o);
+    for (int r = 0; r < C; ++r) mc = fmaxf(mc, cl_ml[r][0]);
+    float dc = 0.f, oc = 0.f;
+#pragma unroll
+    for (int r = 0; r < C; ++r) {
+      if (cl_ml[r][0] != -INFINITY) {
+        const float w = __expf(cl_ml[r][0] - mc);
+        dc += cl_ml[r][1] * w;
+        oc += cl_acc[r][f] * w;
+      }
+    }
+    out[b * nd + h * D + f] = __float2bfloat16_rn(dc > 0.f ? oc / dc : 0.f);
   }
 }
 
 template <int D, bool kAlibi, bool kInt8>
-void launch(const void* q, long long q_sb, long long q_sh, const void* ckv,
-            const void* kv_scales, void* out, const void* cache_len,
-            const void* valid_from, int B, int n, int M,
-            long long layer_offset, long long scale_layer_offset, float scale,
-            cudaStream_t stream) {
-  dim3 grid(n, B);
-  decode_attn_kernel<D, kAlibi, kInt8><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), q_sb, q_sh, ckv,
-      static_cast<const float*>(kv_scales), static_cast<__nv_bfloat16*>(out),
-      static_cast<const int*>(cache_len), static_cast<const int*>(valid_from),
-      n, M, layer_offset, scale_layer_offset, scale);
+cudaError_t launch(const void* q, long long q_sb, long long q_sh,
+                   const void* k, long long k_sb, long long k_sh,
+                   const void* v, long long v_sb, long long v_sh, void* ckv,
+                   void* kv_scales, void* out, const void* cache_len,
+                   const void* valid_from, int B, int n, int M, int lidx,
+                   float scale, cudaStream_t stream) {
+  decode_attn_kernel<D, kAlibi, kInt8>
+      <<<dim3(kCluster * n, B), kThreads, 0, stream>>>(
+          static_cast<const __nv_bfloat16*>(q), q_sb, q_sh,
+          static_cast<const __nv_bfloat16*>(k), k_sb, k_sh,
+          static_cast<const __nv_bfloat16*>(v), v_sb, v_sh, ckv,
+          static_cast<float*>(kv_scales), static_cast<__nv_bfloat16*>(out),
+          static_cast<const int*>(cache_len),
+          static_cast<const int*>(valid_from), n, M, lidx, scale);
+  return cudaGetLastError();
+}
+
+// f(head dim, alibi, int8) with each as a compile-time constant
+template <typename F>
+cudaError_t dispatch(int head_dim, int alibi, bool int8, F f) {
+  auto by_cache = [&](auto d) {
+    if (int8) {
+      return alibi ? f(d, std::true_type{}, std::true_type{})
+                   : f(d, std::false_type{}, std::true_type{});
+    }
+    return alibi ? f(d, std::true_type{}, std::false_type{})
+                 : f(d, std::false_type{}, std::false_type{});
+  };
+  if (head_dim == 64) return by_cache(std::integral_constant<int, 64>{});
+  if (head_dim == 128) return by_cache(std::integral_constant<int, 128>{});
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// C entry point (loaded with ctypes).  q: [B, n, head_dim] bf16 with
-// batch stride q_sb and head stride q_sh (elements; the head dim
-// contiguous); ckv: contiguous [L, B, M, 2*n*head_dim], bf16, or int8 when
+// C entry point (loaded with ctypes).  q, k, v: [B, n, head_dim] bf16,
+// each with its own batch and head strides (elements; the head dim
+// contiguous): the step's query and its new K and V rows; ckv: contiguous
+// [L, B, M, 2*n*head_dim] at a 16-byte aligned address, bf16, or int8 when
 // kv_scales is not null; kv_scales: null, or contiguous fp32 [L, B, M,
 // 2*n]; out: contiguous [B, n*head_dim] bf16; cache_len, valid_from: int32
-// [B] on the device; layer_offset = lidx * B * M * 2*n*head_dim,
-// scale_layer_offset = lidx * B * M * 2*n; head_dim 64 or 128; alibi != 0
-// adds the standard ALiBi ladder.  Returns cudaGetLastError(), or
-// cudaErrorInvalidValue for a head dim it was not built for.
-extern "C" int ymt_decode_attention(const void* q, long long q_sb,
-                                    long long q_sh, const void* ckv,
-                                    const void* kv_scales, void* out,
-                                    const void* cache_len,
-                                    const void* valid_from, int B, int n,
-                                    int M, long long layer_offset,
-                                    long long scale_layer_offset, float scale,
-                                    int head_dim, int alibi, void* stream) {
-  auto s = static_cast<cudaStream_t>(stream);
-  const bool int8 = kv_scales != nullptr;
-#define YMT_DECODE(D, A, Q)                                                   \
-  launch<D, A, Q>(q, q_sb, q_sh, ckv, kv_scales, out, cache_len, valid_from, \
-                  B, n, M, layer_offset, scale_layer_offset, scale, s)
-#define YMT_DECODE_D(D)                                                       \
-  if (int8) {                                                                 \
-    alibi ? YMT_DECODE(D, true, true) : YMT_DECODE(D, false, true);           \
-  } else {                                                                    \
-    alibi ? YMT_DECODE(D, true, false) : YMT_DECODE(D, false, false);         \
-  }
-  if (head_dim == 64) {
-    YMT_DECODE_D(64)
-  } else if (head_dim == 128) {
-    YMT_DECODE_D(128)
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-#undef YMT_DECODE_D
-#undef YMT_DECODE
-  return (int)cudaGetLastError();
+// [B] on the device.  Writes k and v at row cache_len[b] of layer lidx
+// (nothing where cache_len[b] is outside [0, M)), then attends over rows
+// valid_from[b] .. min(cache_len[b], M-1).  head_dim 64 or 128; alibi != 0
+// adds the standard ALiBi ladder.  Returns the launch's error, or
+// cudaErrorInvalidValue for a head dim it does not take.
+extern "C" int ymt_decode_attention(
+    const void* q, long long q_sb, long long q_sh, const void* k,
+    long long k_sb, long long k_sh, const void* v, long long v_sb,
+    long long v_sh, void* ckv, void* kv_scales, void* out,
+    const void* cache_len, const void* valid_from, int B, int n, int M,
+    int lidx, float scale, int head_dim, int alibi, void* stream) {
+  return (int)dispatch(
+      head_dim, alibi, kv_scales != nullptr, [&](auto d, auto a, auto q8) {
+        return launch<decltype(d)::value, decltype(a)::value,
+                      decltype(q8)::value>(
+            q, q_sb, q_sh, k, k_sb, k_sh, v, v_sb, v_sh, ckv, kv_scales, out,
+            cache_len, valid_from, B, n, M, lidx, scale,
+            static_cast<cudaStream_t>(stream));
+      });
 }

@@ -68,7 +68,7 @@ from youku_mplug_tpu_torch.ops.cross_entropy import (
 )
 from youku_mplug_tpu_torch.ops.decode_attention import (
     alibi_slopes,
-    decode_attention,
+    write_decode_attention,
 )
 from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
@@ -218,19 +218,17 @@ class BloomAttention(_LoRA):
             out = flash_attention_packed(
                 qkv5[..., 0, :], qkv5[..., 1, :], qkv5[..., 2, :], n,
                 causal=True, alibi_slopes=self.slopes_fp32)
+        elif s == 1:  # the decode kernel writes the row and attends
+            out = write_decode_attention(
+                qkv5[:, 0, :, 0, :], qkv5[:, 0, :, 1, :], qkv5[:, 0, :, 2, :],
+                cache, n, lidx, cache_len, valid_from,
+                alibi_slopes=self.slopes)[:, None]
         else:
             kvp = torch.cat([qkv5[..., 1, :].reshape(b, s, nd),
                              qkv5[..., 2, :].reshape(b, s, nd)], dim=-1)
             kvc.cache_write(cache, kvp, cache_len, lidx)  # [K | V] rows
-            if s == 1:
-                rows, scales = kvc.leaves(cache)
-                out = decode_attention(qkv5[:, 0, :, 0, :], rows, n, lidx,
-                                       cache_len, valid_from,
-                                       alibi_slopes=self.slopes,
-                                       kv_scales=scales)[:, None]
-            else:
-                out = self._prefill_attention(qkv5, lidx, cache, cache_len,
-                                              valid_from)
+            out = self._prefill_attention(qkv5, lidx, cache, cache_len,
+                                          valid_from)
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
         y = qscaled(y, self, "out_kernel", lidx)
         y = _plus(y, self.delta("out", lidx, out))

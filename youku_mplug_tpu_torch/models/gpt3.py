@@ -42,7 +42,9 @@ from youku_mplug_tpu_torch.ops.cross_entropy import (
     lm_cross_entropy,
     masked_mean_loss,
 )
-from youku_mplug_tpu_torch.ops.decode_attention import decode_attention
+from youku_mplug_tpu_torch.ops.decode_attention import (
+    write_decode_attention,
+)
 from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.ops.quant import dequantize, qscale
@@ -145,8 +147,9 @@ class GPT3Attention(nn.Module):
         the flash kernel.  With one: writes this chunk's K|V rows into
         layer ``lidx`` of ``cache`` at ``cache_len`` (int, or [B] per-sample
         positions), then attends to keys ``valid_from <= j <= position``;
-        S == 1 reads the cache in place through the decode kernel, a
-        longer chunk (prefill) runs plain attention over the layer view."""
+        S == 1 writes the row and reads the cache in place in one launch
+        of the decode kernel, a longer chunk (prefill) runs plain attention
+        over the layer view."""
         n, d, h = self.n, self.d, self.h
         nd = n * d
         b, s, _ = x.shape
@@ -158,7 +161,6 @@ class GPT3Attention(nn.Module):
             out = flash_attention_packed(qkv[..., :nd], qkv[..., nd:2 * nd],
                                          qkv[..., 2 * nd:], n, causal=True)
         else:
-            kvc.cache_write(cache, qkv[..., nd:], cache_len, lidx)  # [K | V]
             out = self._cache_attention(qkv, lidx, cache, cache_len,
                                         valid_from)
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
@@ -169,10 +171,11 @@ class GPT3Attention(nn.Module):
         n, d = self.n, self.d
         nd = n * d
         b, s, _ = qkv.shape
-        if s == 1:
-            rows, scales = kvc.leaves(cache)
-            return decode_attention(qkv[:, 0, :nd], rows, n, lidx, cache_len,
-                                    valid_from, kv_scales=scales)[:, None]
+        if s == 1:  # the decode kernel writes the row and attends
+            return write_decode_attention(
+                qkv[:, 0, :nd], qkv[:, 0, nd:2 * nd], qkv[:, 0, 2 * nd:],
+                cache, n, lidx, cache_len, valid_from)[:, None]
+        kvc.cache_write(cache, qkv[..., nd:], cache_len, lidx)  # [K | V]
         # [B, M, 2nd]: a view, or the int8 layer dequantized
         ckv = kvc.layer_dequant(kvc.layer_slice(cache, lidx), n, qkv.dtype)
         m = ckv.shape[1]

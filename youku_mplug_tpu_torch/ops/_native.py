@@ -25,8 +25,7 @@ from pathlib import Path
 import torch
 
 _PKG = Path(__file__).resolve().parents[1]
-_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu",
-            "kv_cache.cu")
+_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "decode_attention.cu")
 _HEADERS = ("hopper.cuh",)  # included by the flash sources
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -46,12 +45,11 @@ _SIGNATURES = {
     + [_F, _I, _I, _I, _P, _P],
     "ymt_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 18
     + [_F, _I, _I, _I, _P, _P],
-    # q, q_sb, q_sh, ckv, kv_scales (or null), out, cache_len, valid_from,
-    # B, n, M, layer offsets (cache, scales), scale, head_dim, alibi, stream
-    "ymt_decode_attention": [_P, _LL, _LL] + [_P] * 5 + [_I] * 3
-    + [_LL, _LL, _F, _I, _I, _P],
-    # rows, row stride, kv, scale, idx, lidx, B, M, n, d, stream
-    "ymt_quantize_scatter_write": [_P, _LL, _P, _P, _P] + [_I] * 5 + [_P],
+    # q, k, v (each pointer, batch and head stride), ckv, kv_scales (or
+    # null), out, cache_len, valid_from, B, n, M, lidx, scale, head_dim,
+    # alibi, stream
+    "ymt_decode_attention": [_P, _LL, _LL] * 3 + [_P] * 5 + [_I] * 4
+    + [_F, _I, _I, _P],
 }
 
 

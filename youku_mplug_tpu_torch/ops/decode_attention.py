@@ -1,19 +1,24 @@
-"""Decode attention over the stacked packed KV cache, read in place.
+"""One decode step's cache write and attention over the stacked packed KV
+cache, read in place.
 
-Counterpart of ``youku_mplug_tpu/ops/decode_attention.py`` for the bf16
-cache and the int8 cache with per-(token, head) scales, each with and
-without the ALiBi ladder (the Bloom decoder): one query token per sample
-attends to layer ``layer_idx`` of the stacked cache ``[L, B, M, 2*n*d]``
-(rows = [K | V]), over the live keys ``valid_from[b] <= j <= cache_len[b]``;
-the caller writes the new token's row at ``cache_len[b]`` first.  A
-sample with no live key gets zeros.  With ``alibi_slopes`` the score of
-key j is ``scale * q.k + slope_h * j``.  With ``kv_scales`` (fp32
-[L, B, M, 2*n], ``ops/kv_cache.py``) the cache is int8 and K and V
-dequantize per (row, head).
+Counterpart of ``youku_mplug_tpu/ops/decode_attention.py`` together with
+the per-sample row write of ``youku_mplug_tpu/ops/kv_cache.py``
+(``cache_write``, on the TPU ``cache_scatter_write``) that the JAX decode
+step runs right before it: the new token's K and V rows go to row
+``cache_len[b]`` of layer ``layer_idx`` of the stacked cache
+``[L, B, M, 2*n*d]`` (rows = [K | V]; an int8 cache quantizes them per
+(row, head) on the way in), then one query token per sample attends over
+the live keys ``valid_from[b] <= j <= cache_len[b]``.  A sample with no
+live key gets zeros; ``cache_len[b] >= M`` writes nothing and reads rows
+up to M-1.  With ``alibi_slopes`` the score of key j is
+``scale * q.k + slope_h * j``.  An int8 cache is the dict of
+``ops/kv_cache.py`` (int8 rows, fp32 scales [L, B, M, 2*n]).
 
-The wrapper runs ``decode_attention_plain`` for CPU tensors and launches
-the CUDA kernel (``csrc/decode_attention.cu``, head dim 64 or 128) for
-CUDA tensors, or raises.  ``decode_attention.launches`` counts kernel
+``write_decode_attention`` runs its plain version
+(``write_decode_attention_plain``: ``kv_cache.cache_write``, then
+``decode_attention_plain``) for CPU tensors and launches the CUDA kernel
+(``csrc/decode_attention.cu``, head dim 64 or 128), which does both in one
+launch, for CUDA tensors, or raises.  Its ``launches`` counts kernel
 launches on a bf16 cache without ALiBi, ``alibi_launches`` those with it,
 ``int8_launches`` and ``int8_alibi_launches`` the same on an int8 cache.
 """
@@ -78,11 +83,12 @@ def decode_attention_plain(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
                            alibi_slopes=None,
                            kv_scales: Optional[torch.Tensor] = None
                            ) -> torch.Tensor:
-    """Plain version of the kernel (fp32 scores, bias, probabilities and
-    accumulation). q [B, n*d] or [B, n, d]; ckv [L, B, M, 2*n*d];
-    alibi_slopes: optional [n] per-head slopes (any values); kv_scales:
-    optional [L, B, M, 2*n] scales of an int8 ``ckv``, which dequantizes to
-    fp32 first; returns [B, n*d] in q.dtype."""
+    """The attention half of the plain version (fp32 scores, bias,
+    probabilities and accumulation), on a cache already written.
+    q [B, n*d] or [B, n, d]; ckv [L, B, M, 2*n*d]; alibi_slopes: optional
+    [n] per-head slopes (any values); kv_scales: optional [L, B, M, 2*n]
+    scales of an int8 ``ckv``, which dequantizes to fp32 first; returns
+    [B, n*d] in q.dtype."""
     b = q.shape[0]
     q = q.reshape(b, -1)
     nd = q.shape[1]
@@ -115,60 +121,82 @@ def decode_attention_plain(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
     return o.reshape(b, nd).to(q.dtype)
 
 
-def decode_attention(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
-                     layer_idx: int, cache_len, valid_from=None, *,
-                     scale: Optional[float] = None,
-                     alibi_slopes=None,
-                     kv_scales: Optional[torch.Tensor] = None
-                     ) -> torch.Tensor:
-    """Single-token attention against layer ``layer_idx`` of the stacked
-    packed cache.  q: [B, n*d] or [B, n, d] (any batch and head strides
-    with a contiguous d: views of a fused qkv row are fine); ckv:
-    [L, B, M, 2*n*d]; cache_len / valid_from: int or [B]; alibi_slopes:
+def write_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, cache: kvc.Cache,
+                                 n_heads: int, layer_idx: int, cache_len,
+                                 valid_from=None, *,
+                                 scale: Optional[float] = None,
+                                 alibi_slopes=None) -> torch.Tensor:
+    """Plain version of the kernel: ``kv_cache.cache_write`` of the [K | V]
+    rows at row cache_len[b] (in place; int8: ``quantize_rows``; a row
+    outside the cache is not written), then ``decode_attention_plain``."""
+    b = q.shape[0]
+    rows = torch.cat([k.reshape(b, -1), v.reshape(b, -1)], -1)[:, None]
+    kvc.cache_write(cache, rows, _per_sample(cache_len, b, q.device),
+                    layer_idx)
+    ckv, scales = kvc.leaves(cache)
+    return decode_attention_plain(q, ckv, n_heads, layer_idx, cache_len,
+                                  valid_from, scale=scale,
+                                  alibi_slopes=alibi_slopes, kv_scales=scales)
+
+
+def _heads(t: torch.Tensor, b: int, n_heads: int, d: int, what: str):
+    t3 = t.unflatten(-1, (n_heads, d)) if t.dim() == 2 else t
+    if t3.shape != (b, n_heads, d) or t3.stride(2) != 1 \
+            or t3.dtype != torch.bfloat16:
+        raise ValueError(f"decode kernel: {what} must be bf16 [{b}, "
+                         f"{n_heads * d}] or [{b}, {n_heads}, {d}] with a "
+                         f"contiguous head dim; got {t.dtype} "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+    return t3
+
+
+def write_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           cache: kvc.Cache, n_heads: int, layer_idx: int,
+                           cache_len, valid_from=None, *,
+                           scale: Optional[float] = None,
+                           alibi_slopes=None) -> torch.Tensor:
+    """One decode step of attention with its cache write.  q, k, v: the
+    step's query and new K and V rows, each [B, n*d] or [B, n, d] (any
+    batch and head strides with a contiguous d: views of a fused qkv row
+    are fine); cache: the stacked [L, B, M, 2*n*d] cache, bf16 or the int8
+    dict (``ops/kv_cache.py``), written in place at row cache_len[b] of
+    layer ``layer_idx``; cache_len / valid_from: int or [B]; alibi_slopes:
     optional [n] slopes, which must be the standard ladder
-    (``alibi_slopes(n)``); kv_scales: the fp32 [L, B, M, 2*n] scales of an
-    int8 ``ckv`` (``ops/kv_cache.py``).  Returns [B, n*d] in q.dtype."""
+    (``alibi_slopes(n)``).  Returns [B, n*d] in q.dtype."""
     if alibi_slopes is not None:
         _check_ladder(alibi_slopes, n_heads)
-    int8 = kv_scales is not None
-    if int8 and (ckv.dtype != torch.int8 or kv_scales.shape
+    ckv, scales = kvc.leaves(cache)
+    int8 = scales is not None
+    if int8 and (ckv.dtype != torch.int8 or scales.shape
                  != ckv.shape[:3] + (2 * n_heads,)):
         raise ValueError(f"an int8 cache with scales [L, B, M, 2n]; got "
                          f"{ckv.dtype} {tuple(ckv.shape)}, scales "
-                         f"{tuple(kv_scales.shape)}, n={n_heads}")
+                         f"{tuple(scales.shape)}, n={n_heads}")
     if q.device.type == "cpu":
-        return decode_attention_plain(q, ckv, n_heads, layer_idx, cache_len,
-                                      valid_from, scale=scale,
-                                      alibi_slopes=alibi_slopes,
-                                      kv_scales=kv_scales)
+        return write_decode_attention_plain(
+            q, k, v, cache, n_heads, layer_idx, cache_len, valid_from,
+            scale=scale, alibi_slopes=alibi_slopes)
     if q.device.type != "cuda":
         raise RuntimeError(f"no decode attention kernel for {q.device}")
     n_layers, b, m, nd2 = ckv.shape
-    nd = nd2 // 2
-    d = nd // n_heads
-    cache_dtype = torch.int8 if int8 else torch.bfloat16
-    if q.dtype != torch.bfloat16 or ckv.dtype != cache_dtype \
-            or ckv.device != q.device or (int8 and (
-                kv_scales.dtype != torch.float32
-                or kv_scales.device != q.device)):
-        raise TypeError("decode kernel: bf16 q and a bf16 cache (or an int8 "
-                        "cache with fp32 scales) on one device; got "
+    d = nd2 // (2 * n_heads)
+    if ckv.dtype != (torch.int8 if int8 else torch.bfloat16) \
+            or {k.device, v.device, ckv.device} != {q.device} \
+            or (int8 and (scales.dtype != torch.float32
+                          or scales.device != q.device)):
+        raise TypeError("decode kernel: bf16 q, k, v and a bf16 cache (or an "
+                        "int8 cache with fp32 scales) on one device; got "
                         f"{q.dtype}/{ckv.dtype} on {q.device}/{ckv.device}")
-    q3 = q.unflatten(-1, (n_heads, d)) if q.dim() == 2 else q
-    if d not in HEAD_DIMS or nd != n_heads * d \
-            or q3.shape != (b, n_heads, d):
-        raise ValueError(f"decode kernel: needs head dim in {HEAD_DIMS} and "
-                         f"q [{b}, {nd}] or [{b}, {n_heads}, {d}]; got q "
-                         f"{tuple(q.shape)}, n={n_heads}, cache "
-                         f"{tuple(ckv.shape)}")
-    per = d // 32  # bf16 values one lane loads at once
-    if not ckv.is_contiguous() or (int8 and not kv_scales.is_contiguous()) \
-            or q3.stride(2) != 1 \
-            or q3.stride(0) % per or q3.stride(1) % per \
-            or q3.data_ptr() % (2 * per):
-        raise ValueError("decode kernel: needs a contiguous cache and q "
-                         f"heads aligned to {2 * per} bytes; got q strides "
-                         f"{q3.stride()}")
+    if d not in HEAD_DIMS or nd2 != 2 * n_heads * d:
+        raise ValueError(f"decode kernel: needs head dim in {HEAD_DIMS}; got "
+                         f"cache {tuple(ckv.shape)} with n={n_heads}")
+    q3, k3, v3 = (_heads(t, b, n_heads, d, name)
+                  for t, name in ((q, "q"), (k, "k"), (v, "v")))
+    if not ckv.is_contiguous() or ckv.data_ptr() % 16 \
+            or (int8 and not scales.is_contiguous()):
+        raise ValueError("decode kernel: needs contiguous cache leaves, the "
+                         "rows at a 16-byte aligned address")
     if not 0 <= layer_idx < n_layers:
         raise IndexError(f"layer {layer_idx} of {n_layers}")
     if scale is None:
@@ -176,22 +204,24 @@ def decode_attention(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
     cl = _per_sample(cache_len, b, q.device).contiguous()
     vf = _per_sample(0 if valid_from is None else valid_from, b,
                      q.device).contiguous()
-    out = torch.empty(b, nd, dtype=q.dtype, device=q.device)
+    out = torch.empty(b, n_heads * d, dtype=q.dtype, device=q.device)
     alibi = alibi_slopes is not None
     err = _native.library().ymt_decode_attention(
-        q3.data_ptr(), q3.stride(0), q3.stride(1), ckv.data_ptr(),
-        kv_scales.data_ptr() if int8 else None, out.data_ptr(),
-        cl.data_ptr(), vf.data_ptr(), b, n_heads, m,
-        layer_idx * b * m * nd2, layer_idx * b * m * 2 * n_heads,
+        q3.data_ptr(), q3.stride(0), q3.stride(1),
+        k3.data_ptr(), k3.stride(0), k3.stride(1),
+        v3.data_ptr(), v3.stride(0), v3.stride(1),
+        ckv.data_ptr(), scales.data_ptr() if int8 else None, out.data_ptr(),
+        cl.data_ptr(), vf.data_ptr(), b, n_heads, m, layer_idx,
         float(scale), d, int(alibi), _native.stream_handle(q))
     _native.check_launch(err, "ymt_decode_attention")
     counter = ("int8_" if int8 else "") + ("alibi_" if alibi else "") \
         + "launches"
-    setattr(decode_attention, counter, getattr(decode_attention, counter) + 1)
+    setattr(write_decode_attention, counter,
+            getattr(write_decode_attention, counter) + 1)
     return out
 
 
-decode_attention.launches = 0
-decode_attention.alibi_launches = 0
-decode_attention.int8_launches = 0
-decode_attention.int8_alibi_launches = 0
+write_decode_attention.launches = 0
+write_decode_attention.alibi_launches = 0
+write_decode_attention.int8_launches = 0
+write_decode_attention.int8_alibi_launches = 0

@@ -10,13 +10,12 @@ a row shares one symmetric absmax scale.  Unlike the JAX package
 (immutable arrays), writes here update the cache in place, and
 ``layer_slice`` / ``slot_view`` return views, not copies.
 
-A per-sample single-token write into the stacked int8 cache (the decode
-step of the serving engine) goes through ``quantize_scatter_write``: the
-CUDA kernel of ``csrc/kv_cache.cu`` on the card (it replaces the JAX
-package's Pallas ``cache_scatter_write`` and fuses ``quantize_rows`` into
-it), its plain version for CPU tensors.  Every other int8 write quantizes
-with ``quantize_rows`` and assigns in place; the bf16 cache keeps one
-indexed assignment.
+The decode step's per-sample single-token write is fused into the decode
+attention kernel (``ops/decode_attention.py``, ``csrc/decode_attention.cu``;
+it replaces the JAX package's Pallas ``cache_scatter_write`` and the
+``quantize_rows`` that feeds it); :func:`cache_write` is its plain
+version and every other write: int8 rows quantize with ``quantize_rows``,
+and each leaf takes one indexed assignment in place.
 """
 
 from __future__ import annotations
@@ -24,8 +23,6 @@ from __future__ import annotations
 from typing import Dict, Union
 
 import torch
-
-from youku_mplug_tpu_torch.ops import _native
 
 SCALE_EPS = 1e-8
 
@@ -99,76 +96,18 @@ def dequantize_rows(kv_rows: torch.Tensor, scales: torch.Tensor, n: int,
 
 def _write_rows(leaf: torch.Tensor, rows: torch.Tensor, idx, lidx: int):
     """rows [B, S, W] into layer ``lidx`` of ``leaf`` [L, B, M, W] at rows
-    idx .. idx+S-1 (``idx`` an int) or idx[b] .. idx[b]+S-1 (a [B] tensor),
-    in place."""
+    idx .. idx+S-1 (``idx`` an int) or idx[b] .. idx[b]+S-1 (a [B] tensor;
+    a row that falls outside [0, M) is not written, as the decode kernel
+    leaves it), in place."""
     b, s, _ = rows.shape
     if isinstance(idx, int):
         leaf[lidx, :, idx:idx + s] = rows
-    else:
-        pos = idx.to(device=rows.device, dtype=torch.long)[:, None] \
-            + torch.arange(s, device=rows.device)
-        leaf[lidx, torch.arange(b, device=rows.device)[:, None], pos] = rows
-
-
-def quantize_scatter_write_plain(cache: Dict[str, torch.Tensor],
-                                 rows: torch.Tensor, idx: torch.Tensor,
-                                 lidx: int) -> Dict[str, torch.Tensor]:
-    """Plain version of the kernel: ``quantize_rows`` of ``rows`` [B, 2nd]
-    and one indexed assignment per leaf at row idx[b] of layer ``lidx``."""
-    n = cache["scale"].shape[-1] // 2
-    q, scale = quantize_rows(rows[:, None], n)
-    _write_rows(cache["kv"], q, idx, lidx)
-    _write_rows(cache["scale"], scale, idx, lidx)
-    return cache
-
-
-def quantize_scatter_write(cache: Dict[str, torch.Tensor],
-                           rows: torch.Tensor, idx: torch.Tensor,
-                           lidx: int) -> Dict[str, torch.Tensor]:
-    """Quantize one K|V row per sample (``rows`` [B, 2*n*d], any row
-    stride) and write it, in place, at row ``idx[b]`` of layer ``lidx`` of
-    the stacked int8 cache (both leaves); returns ``cache``.  CPU tensors
-    take :func:`quantize_scatter_write_plain`; CUDA tensors launch the
-    kernel (bf16 rows, head dim <= 128; an ``idx[b]`` outside [0, M) writes
-    nothing there), any other device raises.  ``quantize_scatter_write.
-    launches`` counts the kernel's launches."""
-    kv, sc = cache["kv"], cache["scale"]
-    if rows.device.type == "cpu":
-        return quantize_scatter_write_plain(cache, rows, idx, lidx)
-    if rows.device.type != "cuda":
-        raise RuntimeError(f"no cache-write kernel for {rows.device}")
-    n_layers, b, m, nd2 = kv.shape
-    n = sc.shape[-1] // 2
-    d = nd2 // (2 * n)
-    if rows.dtype != torch.bfloat16 or kv.dtype != torch.int8 \
-            or sc.dtype != torch.float32 \
-            or {kv.device, sc.device, idx.device} != {rows.device}:
-        raise TypeError("cache-write kernel: bf16 rows into an int8 cache "
-                        "with fp32 scales, on one device; got "
-                        f"{rows.dtype}/{kv.dtype}/{sc.dtype}")
-    if rows.shape != (b, nd2) or sc.shape != (n_layers, b, m, 2 * n) \
-            or nd2 != 2 * n * d or not 0 < d <= 128:
-        raise ValueError(f"cache-write kernel: rows [{b}, {nd2}], scales "
-                         f"[{n_layers}, {b}, {m}, 2n], head dim <= 128; got "
-                         f"rows {tuple(rows.shape)}, scales "
-                         f"{tuple(sc.shape)}")
-    if not (kv.is_contiguous() and sc.is_contiguous()) \
-            or rows.stride(1) != 1:
-        raise ValueError("cache-write kernel: needs contiguous cache leaves "
-                         f"and contiguous row lanes; got row strides "
-                         f"{rows.stride()}")
-    if not 0 <= lidx < n_layers:
-        raise IndexError(f"layer {lidx} of {n_layers}")
-    pos = idx.to(torch.int32).reshape(b).contiguous()
-    err = _native.library().ymt_quantize_scatter_write(
-        rows.data_ptr(), rows.stride(0), kv.data_ptr(), sc.data_ptr(),
-        pos.data_ptr(), lidx, b, m, n, d, _native.stream_handle(rows))
-    _native.check_launch(err, "ymt_quantize_scatter_write")
-    quantize_scatter_write.launches += 1
-    return cache
-
-
-quantize_scatter_write.launches = 0
+        return
+    pos = idx.to(device=rows.device, dtype=torch.long)[:, None] \
+        + torch.arange(s, device=rows.device)
+    keep = (pos >= 0) & (pos < leaf.shape[2])
+    sample = torch.arange(b, device=rows.device)[:, None].expand(b, s)
+    leaf[lidx, sample[keep], pos[keep]] = rows[keep]
 
 
 def cache_write(cache: Cache, kvp: torch.Tensor,
@@ -176,14 +115,11 @@ def cache_write(cache: Cache, kvp: torch.Tensor,
     """Write the K|V rows ``kvp`` [B, S, 2*hidden] into layer ``lidx`` IN
     PLACE: at rows idx .. idx+S-1 of every sample (``idx`` an int), or at
     rows idx[b] .. idx[b]+S-1 of sample b (``idx`` a [B] tensor).  An int8
-    cache quantizes on the way in: a per-sample single-token write through
-    :func:`quantize_scatter_write`, any other write with
-    :func:`quantize_rows` and an assignment.  Returns ``cache``."""
+    cache quantizes on the way in (:func:`quantize_rows`).  Returns
+    ``cache``."""
     if not is_quantized(cache):
         _write_rows(cache, kvp.to(cache.dtype), idx, lidx)
         return cache
-    if not isinstance(idx, int) and kvp.shape[1] == 1:
-        return quantize_scatter_write(cache, kvp[:, 0], idx, lidx)
     q, scale = quantize_rows(kvp, cache["scale"].shape[-1] // 2)
     _write_rows(cache["kv"], q, idx, lidx)
     _write_rows(cache["scale"], scale, idx, lidx)
