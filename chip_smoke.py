@@ -33,19 +33,34 @@ the last line is printed):
    layers, and the wrapper's host time per call;
 3. the serve slice: the serve CLI's path at the flagship model's full
    width (configs/caption/serve_gpt3_1.3B_flagship.yaml, seeded weights),
-   16 requests over synthetic clips, 8 slots, 32 new tokens, greedy;
-   the forward kernels' launch counters must rise, the decode kernel
-   launch once per layer per decode step (counters and a traced step),
-   and every logit be finite;
+   16 requests over synthetic clips, 8 slots, 32 new tokens, greedy, each
+   decode step one replay of the engine's k = 1 CUDA graph; the forward
+   kernels' launch counters must rise, the decode kernel launch once per
+   layer per decode step (the replay-aware counters), and every logit be
+   finite;
 4. teacher-forced check: the video encoder and the first decode steps
    again with the plain versions in place of the kernels, fed the same
    inputs and tokens; query features and logits within a stated
    tolerance, greedy agreement printed;
+4a. caption dispatch modes: the serve path's engine on the same 16
+   requests three times, the eager step, the k = 1 graph and
+   run_to_completion(steps_per_dispatch=8) (k = 8 graphs): every
+   request's tokens equal in the three; 24 K5 launches (with K6) per
+   decode step of the k = 8 run from the replay-aware counters; for each
+   mode tokens/s, peak memory, the graphs' pool, and at the run's last
+   lengths host ms, device kernel ms, launches, traced decode kernels
+   (24 a step, gated) and idle share per decode step;
+4c. speculative serving: the serve CLI's --speculative 4 --draft twin
+   (6 of the 24 layers, views of the decoder's weights) and --speculative
+   8 --draft ngram on the same 16 clips; tokens equal to the greedy
+   step's up to each request's first near-tie (the plain replay's top-2
+   gap below CAPTION_TIE_GAP), near-ties and divergences printed, tokens
+   per round and the draft steps' K5 launches;
 4b. the caption int8-KV slice: phases 3 and 4 again on
    configs/caption/serve_gpt3_1.3B_int8kv.yaml (bf16 weights, int8
    cache): per decode step 24 launches of K5 int8 (each with its K6
    write) and none of the bf16 K5; the replay with the plain write and
-   plain int8 decode;
+   plain int8 decode; phase 4a on this cache;
 5. the train slice: the pretrain CLI's path (run_pretrain.setup and
    train_one_epoch) on configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml
    at full width, synthetic clips, seeded weights: 2 warm-up and 5 timed
@@ -67,6 +82,16 @@ the last line is printed):
    first decode steps again with the plain versions of K1 and K5 (with
    its write) fed the same inputs and tokens, within the stated
    tolerances;
+8a. instruct dispatch modes: phase 4a on the instruct engine and its 16
+   requests (30 K5-ALiBi launches a decode step); run_instruct's serving
+   with --lookup_k 4, held to the greedy tokens as in 4c (bound
+   OWL_TIE_REL x the replay's max |logit|); sampling on
+   configs/instruct/serve_bloomz_7b_sample.yaml (top_k 5): the engine's
+   _pick captured in a CUDA graph with its generator registered,
+   SAMPLE_REPLAYS replays on fixed [8, V] logits (no draw outside the
+   filtered support, chi-square p > 1e-3 per row, fresh draws), then 8
+   sampled requests with the CLI's generator twice and another seed once
+   (finite, reproducible by seed, 30 K5-ALiBi launches a step);
 8b. the instruct int8 slice: run_instruct.build with --int8 on
    configs/instruct/serve_bloomz_7b_int8.yaml (seeded as phase 7, then
    the decoder's kernels and tied embedding quantized in place), 16
@@ -76,6 +101,7 @@ the last line is printed):
    peak memory, weight and cache bytes; its teacher-forced plain replay
    within OWL_REL_TOL; and, as a readout only, its teacher-forced logits
    and greedy agreement against phase 8's bf16 model on the same seed;
+   phase 8a's dispatch modes with K5 int8 ALiBi;
 9. the instruct-train slice: the run_instruct CLI's --train path
    (train_setup and run_pretrain.train_one_epoch) at the full width and
    depth of configs/instruct/train_bloomz_7b_flagship.yaml (frozen bf16
@@ -161,6 +187,17 @@ OWL_INT8_YAML = os.path.join(REPO, "configs", "instruct",
 # through residual streams and LayerNorms add up to about sqrt(30) x 2^-8
 # ~ 2% of the largest value, and the bound leaves three times that
 OWL_REL_TOL = 2.0 ** -4
+# speculative and lookup decoding verify a chunk with plain attention
+# while the greedy step runs the decode kernel: where the plain replay's
+# two best logits lie closer than twice the teacher-forced logit
+# tolerance, either rounding may pick either token (caption: absolute;
+# instruct: times the replay's max |logit|)
+CAPTION_TIE_GAP = 2 * LOGIT_TOL
+OWL_TIE_REL = 2 * OWL_REL_TOL
+DISPATCH_K = 8          # decode steps a dispatch of the multi-step runs
+SAMPLE_REPLAYS = 10_000  # replays of the captured sampling step
+SAMPLE_YAML = os.path.join(REPO, "configs", "instruct",
+                           "serve_bloomz_7b_sample.yaml")
 SPIN_CYCLES = 200_000_000  # >= 0.1 s at the H100's 1.98 GHz boost clock
 # the H100 SXM's published dense bf16 and int8 tensor-core rates, fp32
 # rate outside the tensor cores and HBM3 bandwidth (the bounds in the
@@ -602,7 +639,13 @@ def _write_row(case):
 
 DEC_COUNTERS = ("launches", "alibi_launches", "int8_launches",
                 "int8_alibi_launches")
-SERVING_PATHS = ("serve", "serve_int8kv", "instruct", "instruct_int8")
+# the paths that run each decode kernel variant (each launch with its K6
+# write): the serve CLI's and run_instruct's (k = 1 graphs), the k = 8
+# runs, the twin draft's steps and the sampled instruct runs
+K5_PATHS = {"K5": ("serve", "serve_k8", "speculative_twin"),
+            "K5-ALiBi": ("instruct", "instruct_k8", "instruct_sample"),
+            "K5-int8": ("serve_int8kv", "serve_int8kv_k8"),
+            "K5-int8-ALiBi": ("instruct_int8", "instruct_int8_k8")}
 
 
 def _decode_entries(dec, kvc, rand):
@@ -630,24 +673,25 @@ def _decode_entries(dec, kvc, rand):
     return [
         _entry("K5 decode attention with the cache write (decoder decode "
                "step, head dim 64)", DEC_SRC, f"{TPU_DEC}:56", wrapper,
-               ("serve",), "K5", cases["K5"]),
+               K5_PATHS["K5"], "K5", cases["K5"]),
         _entry("K5 decode attention with the cache write, ALiBi ladder, "
                "head dim 128 (Bloom decode step)", DEC_SRC, f"{TPU_DEC}:56",
-               wrapper, ("instruct",), "K5-ALiBi", cases["K5-ALiBi"],
+               wrapper, K5_PATHS["K5-ALiBi"], "K5-ALiBi", cases["K5-ALiBi"],
                counter="alibi_launches"),
         _entry("K5 decode attention with the cache write, int8 cache "
                "(caption int8-KV decode step, head dim 64)", DEC_SRC,
-               dec_int8, wrapper, ("serve_int8kv",), "K5-int8",
+               dec_int8, wrapper, K5_PATHS["K5-int8"], "K5-int8",
                cases["K5-int8"], counter="int8_launches"),
         _entry("K5 decode attention with the cache write, int8 cache, ALiBi "
                "ladder, head dim 128 (Bloom int8 decode step)", DEC_SRC,
-               dec_int8, wrapper, ("instruct_int8",), "K5-int8-ALiBi",
+               dec_int8, wrapper, K5_PATHS["K5-int8-ALiBi"], "K5-int8-ALiBi",
                cases["K5-int8-ALiBi"], counter="int8_alibi_launches"),
         _entry("K6 the decode step's cache write, bf16 or int8 (quantized "
                "as quantize_rows), fused into K5's launch (ms: that "
                "launch's)", DEC_SRC,
                "youku_mplug_tpu/ops/kv_cache.py:93 (cache_scatter_write "
-               ":110, pallas_call :171)", wrapper, SERVING_PATHS, "K6",
+               ":110, pallas_call :171)", wrapper,
+               sum(K5_PATHS.values(), ()), "K6",
                [_write_row(c) for rows in cases.values() for c in rows],
                counter=DEC_COUNTERS)]
 
@@ -781,11 +825,14 @@ def phase_kernels(dev):
                "decoder causal, CLIP ViT-L frames)", FWD_SRC,
                f"{TPU_FLASH}:426", fa.flash_attention_packed,
                ("serve", "train", "instruct", "instruct_train",
-                "serve_int8kv", "instruct_int8"), "K1", k1),
+                "serve_int8kv", "instruct_int8", "speculative_twin",
+                "speculative_ngram", "instruct_lookup", "instruct_sample"),
+               "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
-               ("serve", "train", "serve_int8kv"), "K4", k4)]
+               ("serve", "train", "serve_int8kv", "speculative_twin",
+                "speculative_ngram"), "K4", k4)]
     for kind, wrapper, line, line_hm in (
             ("dq", fa.flash_bwd_dq_cuda, 723, 148),
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
@@ -871,66 +918,132 @@ def _read_counts(report, path):
         fail(f"the {path} path never launched: {missing}")
 
 
-class _DecodeSteps:
-    """Counts the serving engine's decode steps while it is entered."""
+def _engine_run(make, requests, k, eager=False):
+    """Serve ``requests`` ((prompt ids, submit kwargs)) on a fresh engine
+    from ``make()``, ``k`` decode steps a dispatch; ``eager``: the engine's
+    eager k-step body in place of its graph replay (the reference the
+    graphs are held to).  Returns (tokens per request in submission order,
+    wall s including each graph's capture, the engine)."""
+    eng = make()
+    if eager:
+        eng._replay = eng._decode_many_impl
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for ids, kw in requests:
+        eng.submit(ids, **kw)
+    fin = eng.run_to_completion(steps_per_dispatch=k)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if eng.nonfinite_logits:
+        fail(f"{eng.nonfinite_logits} logit rows were not finite")
+    return [t for _, t in sorted((f.rid, f.tokens) for f in fin)], wall, eng
 
-    def __enter__(self):
-        from youku_mplug_tpu_torch.serving.engine import ServingEngine
 
-        self.steps = 0
-        orig = ServingEngine._decode_impl
-
-        def counted(engine, *args):
-            self.steps += 1
-            return orig(engine, *args)
-
-        self._patch = mock.patch.object(ServingEngine, "_decode_impl",
-                                        counted)
-        self._patch.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._patch.stop()
-
-
-def _decode_step_ms(engine, iters=20, traced=3):
-    """One decode step of every slot at the run's last lengths, with the
-    host sync the engine makes per step: its ms on the host clock, and
-    from ``traced`` steps under torch.profiler (profile_train's summary)
-    the device's kernel ms, launches and idle share per step, the kernel
-    ms by category, and the launches per step of the decode kernel and of
-    each kernel named for indexing."""
+def _mode_stats(engine, k, eager, layers, path, iters=20, traced=3):
+    """k decode steps of every slot from the engine's last host state (the
+    run's last lengths): ``iters`` dispatches on the host clock, each
+    ended by the read of its tokens, then ``traced`` under torch.profiler
+    (profile_train's summary).  Returns host ms per decode step (one token
+    for every slot) and, per decode step, the device's kernel ms, launches
+    and decode kernels, and the idle share; the traced decode kernels are
+    checked (one per layer a step)."""
     from youku_mplug_tpu_torch.cli import profile_train
 
-    state = [engine._dev(a) for a in (engine.cache_len, engine.valid_from,
-                                      engine.pos_offset, engine.last_token)]
+    def dispatch():
+        if eager:
+            engine._stage()
+            return engine._decode_many_impl(k).cpu()
+        return engine._launch(k).cpu()
+
     for _ in range(3):
-        engine._decode_impl(*state).cpu()
+        dispatch()
     t1 = time.perf_counter()
     for _ in range(iters):
-        engine._decode_impl(*state).cpu()
-    host = (time.perf_counter() - t1) / iters * 1e3
+        dispatch()
+    host = (time.perf_counter() - t1) / (iters * k) * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(traced):
             with torch.profiler.record_function(profile_train.STEP_SPAN):
-                engine._decode_impl(*state).cpu()
+                dispatch()
     with tempfile.TemporaryDirectory() as tmp:
-        trace = os.path.join(tmp, "decode_step_trace.json")
+        trace = os.path.join(tmp, "decode_trace.json")
         prof.export_chrome_trace(trace)
         with open(trace) as f:
             events = json.load(f)["traceEvents"]
     summary = profile_train.summarize(events, traced, top=6)
     kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
-    return host, {**{k: summary[k] for k in (
-        "kernel_ms_per_step", "launches_per_step", "idle_share",
-        "ms_per_step_by_category", "top_kernels_ms_per_step")},
-        "decode_attn_launches_per_step": sum(
-            "decode_attn_kernel" in k for k in kernels) / traced,
-        "index_kernels_per_step": {
-            name[:80]: sum(k == name for k in kernels) / traced
-            for name in sorted({k for k in kernels if "index" in k.lower()})}}
+    out = {"host_ms_per_step": host,
+           "kernel_ms_per_step": summary["kernel_ms_per_step"] / k,
+           "launches_per_step": summary["launches_per_step"] / k,
+           "idle_share": summary["idle_share"],
+           "decode_attn_launches_per_step": sum(
+               "decode_attn_kernel" in n for n in kernels) / (traced * k),
+           "index_kernels_per_step": {
+               name[:80]: sum(n == name for n in kernels) / (traced * k)
+               for name in sorted({n for n in kernels
+                                   if "index" in n.lower()})}}
+    _check_decode_trace(f"{path} k={k}{' eager' if eager else ''}", out,
+                        layers)
+    return out
+
+
+def _plain_gaps(make, requests, tokens):
+    """The plain replay of each request's greedy tokens: prefill, then one
+    chunk of them through ``decode_step(..., return_all=True)`` (plain
+    attention, the path of a verify chunk).  Returns (per request the top-1
+    minus top-2 logit at each generated position after the first, which
+    every mode takes from the same prefill; the replay's max |logit|)."""
+    eng = make()
+    for ids, kw in requests:
+        eng.submit(ids, **kw)
+    eng._admit()
+    width = max(max(len(t) for t in tokens) - 1, 1)
+    chunk = torch.zeros((eng.num_slots, width), dtype=torch.long)
+    for i, t in enumerate(tokens):
+        chunk[i, :len(t) - 1] = torch.tensor(t[:-1], dtype=torch.long)
+    eng._stage()
+    cache_len, valid_from, pos_offset, _ = eng._inputs
+    lm = eng.model
+    with torch.inference_mode():
+        logits, _ = lm.decode_step(lm.embed(chunk.cuda()), eng.cache,
+                                   cache_len, valid_from, pos_offset,
+                                   return_all=True)
+        top2 = logits.topk(2, dim=-1).values
+        gaps = (top2[..., 0] - top2[..., 1]).cpu()
+        top = logits.abs().amax().item()
+    return [gaps[i, :len(t) - 1].tolist() for i, t in enumerate(tokens)], \
+        top
+
+
+def _tie_check(tag, got, want, gaps, bound):
+    """``got`` (tokens per request) equal to the greedy step's ``want`` up
+    to each request's first position whose plain-replay top-2 gap is below
+    ``bound``; prints those near-tie positions and every divergence."""
+    compared, ties, diverged = 0, [], []
+    for i, (g, w, gap) in enumerate(zip(got, want, gaps)):
+        near = [j + 1 for j, x in enumerate(gap) if x < bound]
+        stop = near[0] if near else len(w)
+        first = next((j for j in range(max(len(g), len(w)))
+                      if j >= len(g) or j >= len(w) or g[j] != w[j]), None)
+        if near:
+            ties.append((i, near[:4]))
+        if first is not None:
+            diverged.append((i, first, round(gap[first - 1], 4)
+                             if 0 < first <= len(gap) else None))
+            if first < stop:
+                fail(f"{tag}: request {i} leaves the greedy tokens at "
+                     f"position {first}, before its first near-tie "
+                     f"({stop}; bound {bound:.4g}): {g[:first + 2]} vs "
+                     f"{w[:first + 2]}")
+        compared += min(stop, len(w))
+    print(f"[{tag}] tokens equal to the greedy step's on {compared} "
+          f"positions before the first near-tie of each request (top-2 gap "
+          f"< {bound:.4g}); near-ties (request, positions) {ties}; "
+          f"divergences (request, position, gap there) {diverged}",
+          flush=True)
+    return compared, diverged
 
 
 def _check_decode_trace(path, trace, layers):
@@ -981,9 +1094,8 @@ def phase_slice(report, out_dir, yaml=FLAGSHIP_YAML, path="serve"):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(report)
-    with _DecodeSteps() as steps:
-        stats, out, engine = serve.run(args, cfg, model, device)
-        torch.cuda.synchronize()
+    stats, out, engine = serve.run(args, cfg, model, device)
+    torch.cuda.synchronize()
     _read_counts(report, path)
     if stats["requests"] != 16 or any(not o["tokens"] for o in out):
         fail(f"slice served {stats['requests']} requests: {out}")
@@ -991,18 +1103,16 @@ def phase_slice(report, out_dir, yaml=FLAGSHIP_YAML, path="serve"):
         fail(f"{engine.nonfinite_logits} logit rows were not finite")
     layers = cfg.model.text.num_hidden_layers
     int8 = cfg.model.text.kv_cache_dtype == "int8"
-    per_step = _per_step(report, path, steps.steps,
+    per_step = _per_step(report, path, engine.decode_steps,
                          {"K5-int8" if int8 else "K5": layers,
                           "K6": layers})
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
     peak = torch.cuda.max_memory_allocated()
-    step_ms, step_trace = _decode_step_ms(engine)
-    _check_decode_trace(path, step_trace, layers)
     n_tok = sum(o["n_tokens"] for o in out)
     print(f"[slice {path}] {json.dumps(stats)} | {n_tok} tokens | "
-          f"decode step {step_ms:.2f} ms, traced {json.dumps(step_trace)} | "
-          f"{steps.steps} decode steps, launches per step {per_step} | "
+          f"{engine.decode_steps} decode steps in {engine.graph_replays} "
+          f"graph replays, launches per step {per_step} | "
           f"cache {kvc.leaves(engine.cache)[0].dtype} "
           f"{kvc.nbytes(engine.cache) / 2**20:.1f} MiB | peak memory "
           f"{peak / 2**30:.2f} GiB", flush=True)
@@ -1268,7 +1378,8 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
     depth (``int8``: with --int8, the decoder's kernels and tied embedding
     quantized after the seeded init); the decode kernels' launches per
     decode step checked (30 layers: K5 ALiBi, or K5 int8 ALiBi with an
-    int8 cache, each launch with its K6 write).  Returns (model, instruct batch, clips)."""
+    int8 cache, each launch with its K6 write).  Returns (model, instruct
+    batch, clips, generation config)."""
     from youku_mplug_tpu_torch.cli import run_instruct
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
@@ -1301,13 +1412,12 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(report)
-    with _DecodeSteps() as steps:
-        seqs, stats, engine = run_instruct.serve_instruct(
-            model, clips, batch, gen_cfg, num_slots=args.num_slots)
-        torch.cuda.synchronize()
+    seqs, stats, engine = run_instruct.serve_instruct(
+        model, clips, batch, gen_cfg, num_slots=args.num_slots)
+    torch.cuda.synchronize()
     _read_counts(report, path)
     layers = cfg.text.num_hidden_layers
-    per_step = _per_step(report, path, steps.steps,
+    per_step = _per_step(report, path, engine.decode_steps,
                          {"K5-int8-ALiBi" if kvc.is_quantized(engine.cache)
                           else "K5-ALiBi": layers, "K6": layers})
     if stats["requests"] != OWL_REQUESTS \
@@ -1318,10 +1428,7 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
         fail(f"{engine.nonfinite_logits} instruct logit rows were not "
              "finite")
 
-    # one decode step of all 8 slots at the run's last lengths; the tied
-    # logits alone
-    step_ms, step_trace = _decode_step_ms(engine)
-    _check_decode_trace(path, step_trace, layers)
+    # the tied logits alone
     lm = model.text_decoder
     hidden = torch.randn(OWL_SLOTS, cfg.text.hidden_size, device=device,
                          dtype=torch.bfloat16)
@@ -1333,14 +1440,14 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
         "int8_params": sum(p.numel() for p in model.parameters()
                            if p.dtype == torch.int8),
         "prompt_len": [int(x) for x in batch["prompt_len"][:2]],
-        "decode_steps": steps.steps, "launches_per_step": per_step,
-        "decode_step_ms": step_ms, "decode_step_traced": step_trace,
-        "tied_logits_ms": logits_ms,
+        "decode_steps": engine.decode_steps,
+        "graph_replays": engine.graph_replays,
+        "launches_per_step": per_step, "tied_logits_ms": logits_ms,
         "launches": {r["key"]: r["launches_by_path"][path]
                      for r in report}})
     print(f"[{path}] {json.dumps(stats)} | first answer "
           f"{seqs[0][:8].tolist()}", flush=True)
-    return model, batch, clips
+    return model, batch, clips, gen_cfg
 
 
 def phase_instruct_forced(model, batch, clips,
@@ -1425,6 +1532,289 @@ def phase_instruct_forced(model, batch, clips,
               f"{[round(r, 5) for r in rel]} | greedy agreement "
               f"{agree_r}/{FORCED_STEPS * n}", flush=True)
     return logits, tokens
+
+
+def phase_dispatch(report, tag, path, make, requests, layers, want_key):
+    """The engine's decode modes on ``requests``: the eager step (each
+    step's kernels launched from Python), the k = 1 graph and the k =
+    DISPATCH_K graph, each on a fresh engine from ``make()``.  Gates: every
+    request's tokens equal in the three runs, and the k = DISPATCH_K run's
+    replay-aware counters give ``layers`` launches of ``want_key`` (with
+    its K6 write) per decode step.  Prints for each mode tokens/s, peak
+    memory, the graphs' pool, and (``_mode_stats``, at the run's last
+    lengths) host ms, device kernel ms, launches and idle share per decode
+    step.  Returns the greedy tokens per request."""
+    runs, modes = {}, (("k1_eager", 1, True), ("k1_graph", 1, False),
+                       (f"k{DISPATCH_K}_graph", DISPATCH_K, False))
+    for mode, k, eager in modes:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if k > 1:
+            _reset_counts(report)
+        tokens, wall, eng = _engine_run(make, requests, k, eager)
+        if k > 1:
+            _read_counts(report, path)
+            per_step = _per_step(report, path, eng.decode_steps,
+                                 {want_key: layers, "K6": layers})
+        n_tok = sum(len(t) for t in tokens)
+        runs[mode] = {"tokens": tokens, "stats": {
+            "tokens_per_s": n_tok / wall, "wall_s": wall, "tokens": n_tok,
+            "decode_steps": eng.decode_steps,
+            "graph_replays": eng.graph_replays,
+            "capture_s": eng.capture_s,
+            "graph_pool_mib": eng.graph_pool_bytes / 2 ** 20,
+            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}}
+        if k == 1:
+            del eng
+    want = runs["k1_eager"]["tokens"]
+    for mode, run in runs.items():
+        bad = [i for i, t in enumerate(run["tokens"]) if t != want[i]]
+        if bad:
+            fail(f"{tag}: {mode} tokens differ from the eager step's for "
+                 f"requests {bad}: {run['tokens'][bad[0]][:12]} vs "
+                 f"{want[bad[0]][:12]}")
+    for mode, k, eager in modes:  # on the last run's engine
+        runs[mode]["stats"].update(_mode_stats(eng, k, eager, layers, path))
+    print(f"[{tag}] {len(requests)} requests, tokens equal in every mode; "
+          f"k={DISPATCH_K} launches per decode step {per_step}; graph pool "
+          f"after the measurements {eng.graph_pool_bytes / 2 ** 20:.1f} MiB "
+          f"| {json.dumps({m: r['stats'] for m, r in runs.items()})}",
+          flush=True)
+    return want
+
+
+def _caption_requests(cfg, model, n=16):
+    """The first ``n`` synthetic clips of the serve path encoded to query
+    prefixes: (prompt ids, submit kwargs) each."""
+    from youku_mplug_tpu_torch.cli import serve
+    from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+
+    prompt_vec, _, gen_cfg = serve._prompt(cfg)
+    requests = []
+    for clips, _ in serve._clip_batches(cfg, cfg.num_frames, cfg.image_res):
+        with torch.inference_mode():
+            qe = model.encode_queries(normalize_clip(
+                torch.from_numpy(clips).cuda(), dtype=torch.bfloat16))
+        requests += [(prompt_vec, {"query_embeds": q,
+                                   "max_new_tokens": gen_cfg.max_new_tokens})
+                     for q in qe]
+        if len(requests) >= n:
+            return requests[:n]
+    fail(f"the synthetic clips hold fewer than {n} requests")
+
+
+def _serve_args(yaml, slots, *extra):
+    from youku_mplug_tpu_torch.cli import serve
+
+    return serve.serve_parser().parse_args([
+        "--config", yaml, "--synthetic_data", "--num_requests", "16",
+        "--num_slots", str(slots), "--device", "cuda", *extra])
+
+
+def phase_caption_modes(report, cfg, model, yaml, path):
+    """``phase_dispatch`` on the serve path's engine and its 16 requests
+    (24 layers: K5, or K5 int8 on an int8 cache)."""
+    from youku_mplug_tpu_torch.cli import serve
+
+    args = _serve_args(yaml, 8)
+    int8 = cfg.model.text.kv_cache_dtype == "int8"
+    requests = _caption_requests(cfg, model)
+    greedy = phase_dispatch(
+        report, f"dispatch {path}", f"{path}_k{DISPATCH_K}",
+        lambda: serve.make_engine(args, cfg, model.text_decoder)[0],
+        requests, cfg.model.text.num_hidden_layers,
+        "K5-int8" if int8 else "K5")
+    return requests, greedy
+
+
+def phase_speculative(report, cfg, model, requests, greedy):
+    """The serve CLI's --speculative path on the caption flagship: a twin
+    draft (k 4, the decoder's first 6 layers) and prompt lookup (k 8),
+    over the same 16 clips as the greedy engine runs; tokens held to the
+    greedy step's up to each request's first near-tie (CAPTION_TIE_GAP)
+    in the plain replay of those tokens; tokens per round and the draft
+    steps' decode-kernel launches printed."""
+    from youku_mplug_tpu_torch.cli import serve
+    from youku_mplug_tpu_torch.ops import decode_attention as dec
+
+    args16 = _serve_args(FLAGSHIP_YAML, 16)
+    gaps, _ = _plain_gaps(
+        lambda: serve.make_engine(args16, cfg, model.text_decoder)[0],
+        requests, greedy)
+    for k, draft, path in ((4, "twin", "speculative_twin"),
+                           (8, "ngram", "speculative_ngram")):
+        args = _serve_args(FLAGSHIP_YAML, 8, "--speculative", str(k),
+                           "--draft", draft)
+        _reset_counts(report)
+        torch.cuda.synchronize()
+        stats, out = serve.run_speculative(args, cfg, model,
+                                           torch.device("cuda"))
+        torch.cuda.synchronize()
+        _read_counts(report, path)
+        if stats["requests"] != 16:
+            fail(f"{path} served {stats['requests']} requests")
+        _tie_check(path, [r["tokens"] for r in out], greedy, gaps,
+                   CAPTION_TIE_GAP)
+        print(f"[{path}] {json.dumps(stats)} | decode kernel launches (the "
+              f"draft's one-token prefill and proposal steps) "
+              f"{dec.write_decode_attention.launches}", flush=True)
+
+
+def _instruct_requests(model, batch, clips):
+    """Every request's prompt ids and spliced prompt embeddings."""
+    ids = torch.as_tensor(batch["input_ids"], device="cuda").long()
+    mask = torch.as_tensor(batch["media_mask"], device="cuda")
+    with torch.inference_mode():
+        embeds = model.spliced_embeds(ids, mask, model.encode_video(clips))
+    return [(batch["input_ids"][i, :n].tolist(),
+             {"prompt_embeds": embeds[i, :n]})
+            for i, n in enumerate(int(x) for x in batch["prompt_len"])]
+
+
+def phase_instruct_modes(report, model, batch, clips, gen_cfg, path,
+                         want_key):
+    """``phase_dispatch`` on the instruct engine (``serve_instruct``'s)
+    and its 16 requests (30 layers: K5 ALiBi, or K5 int8 ALiBi)."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    requests = _instruct_requests(model, batch, clips)
+    greedy = phase_dispatch(
+        report, f"dispatch {path}", f"{path}_k{DISPATCH_K}",
+        lambda: run_instruct.make_engine(model.text_decoder,
+                                         batch["prompt_len"], gen_cfg,
+                                         OWL_SLOTS),
+        requests, model.cfg.text.num_hidden_layers, want_key)
+    return requests, greedy
+
+
+def phase_lookup(report, model, batch, clips, gen_cfg, requests, greedy):
+    """run_instruct's serving with --lookup_k 4 on the bf16 instruct
+    model: tokens held to the greedy step's up to each request's first
+    near-tie (OWL_TIE_REL x the plain replay's max |logit|)."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    gaps, top = _plain_gaps(
+        lambda: run_instruct.make_engine(model.text_decoder,
+                                         batch["prompt_len"], gen_cfg,
+                                         len(requests)),
+        requests, greedy)
+    _reset_counts(report)
+    seqs, stats, eng = run_instruct.serve_instruct(
+        model, clips, batch, gen_cfg, num_slots=OWL_SLOTS, lookup_k=4)
+    torch.cuda.synchronize()
+    _read_counts(report, "instruct_lookup")
+    if stats["nonfinite_logits"]:
+        fail(f"instruct lookup: {stats['nonfinite_logits']} logit rows "
+             "were not finite")
+    got = [row[:len(w)].tolist() if (row[len(w):] == gen_cfg.pad_id).all()
+           else row.tolist() for row, w in zip(seqs, greedy)]
+    _tie_check("instruct_lookup", got, greedy, gaps, OWL_TIE_REL * top)
+    print(f"[instruct_lookup] {json.dumps(stats)} | tokens per dispatch "
+          f"{stats['new_tokens'] / max(stats['engine_steps'], 1):.3f}",
+          flush=True)
+
+
+def phase_sampling(report, model, batch, clips):
+    """Sampling on the instruct model with the decoding block of
+    SAMPLE_YAML (top_k 5, top_p 0.9): the engine's ``_pick`` captured in a
+    CUDA graph with the engine's generator registered, SAMPLE_REPLAYS
+    replays on fixed [8, V] logits (no draw outside the filtered support,
+    each row's frequencies against the filtered softmax by a chi-square
+    test, p > 1e-3, two replays in a row differing); then run_instruct's
+    serving on 8 requests with the CLI's generator (seed + 1) twice and
+    with another seed: finite logits, the same tokens for the same seed,
+    others for another, and 30 K5-ALiBi launches per decode step."""
+    from scipy import stats as sstats
+
+    from youku_mplug_tpu_torch.cli import run_instruct
+    from youku_mplug_tpu_torch.models.generation import (
+        NEG_INF,
+        top_k_top_p_filter,
+    )
+
+    cfg, raw = run_instruct.load_owl_config(SAMPLE_YAML)
+    if cfg != model.cfg:
+        fail("the sample YAML's model is not the flagship's")
+    args = run_instruct.parser().parse_args(
+        ["--config", SAMPLE_YAML, "--synthetic_data", "--engine"])
+    gen_cfg = run_instruct.generation_config(args, cfg, raw)
+    if not (gen_cfg.do_sample and gen_cfg.top_k == 5):
+        fail(f"the sample YAML reads as {gen_cfg}")
+    eng = run_instruct.make_engine(
+        model.text_decoder, batch["prompt_len"], gen_cfg, OWL_SLOTS,
+        torch.Generator("cuda").manual_seed(args.seed + 1))
+    g = torch.Generator("cuda").manual_seed(0)
+    logits = 2 * torch.randn(OWL_SLOTS, cfg.text.vocab_size, generator=g,
+                             device="cuda")
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(eng.generator)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream), torch.inference_mode():
+        eng._pick(logits)
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.inference_mode():
+        with torch.cuda.graph(graph, stream=stream):
+            drawn = eng._pick(logits)
+        draws = torch.empty(SAMPLE_REPLAYS, OWL_SLOTS, dtype=torch.int32,
+                            device="cuda")
+        t0 = time.perf_counter()
+        for i in range(SAMPLE_REPLAYS):
+            graph.replay()
+            draws[i].copy_(drawn)
+        torch.cuda.synchronize()
+        replay_ms = (time.perf_counter() - t0) / SAMPLE_REPLAYS * 1e3
+        kept = top_k_top_p_filter(logits / gen_cfg.temperature,
+                                  gen_cfg.top_k, gen_cfg.top_p)
+    support = kept != NEG_INF
+    outside = int((~support.gather(1, draws.T.long())).sum())
+    pvalues = []
+    for row in range(OWL_SLOTS):
+        idx = support[row].nonzero()[:, 0]
+        p = torch.softmax(kept[row, idx].double(), 0).cpu().numpy()
+        seen = torch.bincount(draws[:, row].long(),
+                              minlength=cfg.text.vocab_size)[idx]
+        pvalues.append(float(sstats.chisquare(
+            seen.cpu().numpy(), p * SAMPLE_REPLAYS).pvalue))
+    fresh = bool((draws[0] != draws[1]).any())
+    print(f"[sampling] captured _pick, {SAMPLE_REPLAYS} replays on [8, "
+          f"{cfg.text.vocab_size}] logits ({replay_ms:.4f} ms a replay): "
+          f"support sizes {support.sum(1).tolist()}, draws outside "
+          f"{outside}, chi-square p per row "
+          f"{[round(x, 4) for x in pvalues]}, first two replays differ "
+          f"{fresh}", flush=True)
+    if outside or min(pvalues) <= 1e-3 or not fresh:
+        fail("captured sampling left its support, missed the filtered "
+             "softmax or drew the same numbers again")
+
+    sub = {k: v[:OWL_SLOTS] for k, v in batch.items()}
+    runs = []
+    for seed in (args.seed + 1, args.seed + 1, args.seed + 2):
+        if not runs:
+            _reset_counts(report)
+        seqs, st, eng = run_instruct.serve_instruct(
+            model, clips[:OWL_SLOTS], sub, gen_cfg, num_slots=OWL_SLOTS,
+            generator=torch.Generator("cuda").manual_seed(seed))
+        torch.cuda.synchronize()
+        if not runs:
+            _read_counts(report, "instruct_sample")
+            per_step = _per_step(report, "instruct_sample",
+                                 eng.decode_steps, {"K5-ALiBi": 30,
+                                                    "K6": 30})
+        if st["nonfinite_logits"] or not 0 <= seqs.min() <= seqs.max() \
+                < cfg.text.vocab_size:
+            fail(f"sampled instruct run: {st}")
+        runs.append((seqs, st))
+    same = (runs[0][0] == runs[1][0]).all()
+    other = (runs[0][0] != runs[2][0]).any()
+    print(f"[instruct_sample] {json.dumps(runs[0][1])} | launches per "
+          f"step {per_step} | same seed same tokens {bool(same)}, another "
+          f"seed other tokens {bool(other)} | first answers "
+          f"{runs[0][0][0][:8].tolist()} / {runs[2][0][0][:8].tolist()}",
+          flush=True)
+    if not (same and other):
+        fail("sampled serving is not reproducible by its seed")
 
 
 def phase_instruct_train(report, out_dir):
@@ -1532,13 +1922,17 @@ def main():
     with tempfile.TemporaryDirectory() as out_dir:
         cfg, model, _ = phase_slice(report, out_dir)
     phase_teacher_forced(cfg, model)
-    del model
+    requests, greedy = phase_caption_modes(report, cfg, model,
+                                           FLAGSHIP_YAML, "serve")
+    phase_speculative(report, cfg, model, requests, greedy)
+    del model, requests
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         cfg, model, _ = phase_slice(report, out_dir, INT8KV_YAML,
                                     "serve_int8kv")
     phase_teacher_forced(cfg, model, "int8-KV teacher-forced")
+    phase_caption_modes(report, cfg, model, INT8KV_YAML, "serve_int8kv")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -1550,16 +1944,23 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
-        model, batch, clips = phase_instruct(report, out_dir)
+        model, batch, clips, gen_cfg = phase_instruct(report, out_dir)
     bf16 = phase_instruct_forced(model, batch, clips)
+    requests, greedy = phase_instruct_modes(report, model, batch, clips,
+                                            gen_cfg, "instruct", "K5-ALiBi")
+    phase_lookup(report, model, batch, clips, gen_cfg, requests, greedy)
+    del requests
+    phase_sampling(report, model, batch, clips)
     del model, batch, clips
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
-        model, batch, clips = phase_instruct(report, out_dir, OWL_INT8_YAML,
-                                             "instruct_int8", int8=True)
+        model, batch, clips, gen_cfg = phase_instruct(
+            report, out_dir, OWL_INT8_YAML, "instruct_int8", int8=True)
     phase_instruct_forced(model, batch, clips,
                           "instruct int8 teacher-forced", reference=bf16)
+    phase_instruct_modes(report, model, batch, clips, gen_cfg,
+                         "instruct_int8", "K5-int8-ALiBi")
     del model, batch, clips, bf16
     gc.collect()
     torch.cuda.empty_cache()

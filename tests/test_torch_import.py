@@ -27,7 +27,8 @@ _NO_JAX = textwrap.dedent("""
                  "cli.run_instruct", "models.bloom", "models.owl",
                  "data.instruct", "optim.factory", "ops.lora", "config",
                  "train.state", "train.trainer", "ops.cross_entropy",
-                 "data.loader", "ops.kv_cache", "ops.quant"):
+                 "data.loader", "ops.kv_cache", "ops.quant",
+                 "serving.engine", "serving.speculative"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",

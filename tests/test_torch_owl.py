@@ -414,8 +414,18 @@ def test_run_instruct_cli_runs_on_cpu(tmp_path):
     assert stats["kv_cache_dtype"] == "int8" and stats["requests"] == 2
     assert stats["nonfinite_logits"] == 0
     assert all(1 <= len(r["tokens"]) <= 3 for r in results)
-    path.write_text(yaml.safe_dump(dict(TINY, do_sample=True)))
-    with pytest.raises(NotImplementedError, match="sampling"):
+    # sampling is served (the new-token budget is the YAML's); beam
+    # search is not ported and raises
+    path.write_text(yaml.safe_dump(dict(TINY, do_sample=True,
+                                        max_new_tokens=3)))
+    results, stats = tcli.main(tcli.parser().parse_args([
+        "--config", str(path), "--output_dir", str(tmp_path / "sample"),
+        "--synthetic_data", "--input_jsonl", str(jsonl), "--num_slots",
+        "2", "--device", "cpu"]))
+    assert stats["requests"] == 2 and stats["nonfinite_logits"] == 0
+    assert all(1 <= len(r["tokens"]) <= 3 for r in results)
+    path.write_text(yaml.safe_dump(dict(TINY, beam_size=2)))
+    with pytest.raises(ValueError, match="beam"):
         tcli.build(tcli.parser().parse_args(["--config", str(path),
                                              "--device", "cpu"]))
 

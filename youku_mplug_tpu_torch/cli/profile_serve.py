@@ -8,7 +8,8 @@ line: for each run its wall time and tokens/s, and the host ms it spent
 encoding clips, admitting requests (their prefills, ended by the host's
 read of the first token) and in decode steps (each ended by the
 engine's read of the tokens; ``decode_enqueue_ms`` is the part spent
-before that read, launching the step's kernels).  It runs on the card
+before that read, issuing the step: on the card staging its inputs and
+replaying its CUDA graph).  It runs on the card
 unless ``--device cpu`` asks for the CPU; it takes the serve CLI's
 arguments.  chip_smoke.py traces the decode step's device time.
 
@@ -55,7 +56,7 @@ def _run(args, cfg, model, device):
     patches = [mock.patch.object(ServingEngine, name, _timed(
         times, key, getattr(ServingEngine, name)))
         for name, key in (("_admit", "admit_ms"), ("step", "step_ms"),
-                          ("_decode_impl", "decode_enqueue_ms"))]
+                          ("_launch", "decode_enqueue_ms"))]
     patches.append(mock.patch.object(model, "encode_queries", _timed(
         times, "encode_ms", model.encode_queries)))
     for p in patches:

@@ -7,9 +7,14 @@ placeholder are expanded to the media positions, the clips are encoded
 (per-frame CLIP ViT, visual abstractor, ``visual_fc`` and ``vit_eos``)
 and spliced into the prompt embeddings in one batch, and every request is
 admitted to the continuous-batching engine's slot pool as slots free, the
-Bloom decoder decoding greedily over the stacked cache: bf16, or int8 with
+Bloom decoder decoding over the stacked cache: bf16, or int8 with
 per-(token, head) scales when the YAML sets ``text_overrides:
 {kv_cache_dtype: int8}`` (``configs/instruct/serve_bloomz_7b_int8.yaml``).
+Decoding is greedy, or sampled with the YAML's ``do_sample``, ``top_k``
+(default 5) and ``top_p`` (default 0.9) from a generator seeded with
+``--seed + 1`` (``configs/instruct/serve_bloomz_7b_sample.yaml``);
+``--lookup_k k`` adds greedy prompt-lookup speculation (k proposals a
+slot, one verify chunk a dispatch).
 ``--int8`` serves int8 decoder weights: the kernels and the tied embedding
 quantized in place after the seeded init, the form the JAX package's
 ``tools/export_serving.py --int8 --int8_embedding`` writes (serving
@@ -27,8 +32,8 @@ through ``run_pretrain``'s epoch loop.  No weights are saved.
 Weights come from a seeded init (serving) or the JAX ``model.init``
 rules (``--train``: ``bridge.jax_init``); checkpoint import
 (``--hf_checkpoint``, ``--serving_ckpt``), real video files, jsonl
-training data and sampling are not ported yet (ROADMAP.md, Queue 1), and
-each raises; HF tokenizer files (the JAX runner's ``--tokenizer``) are
+training data and beam search are not ported yet (ROADMAP.md, Queue 1),
+and each raises; HF tokenizer files (the JAX runner's ``--tokenizer``) are
 not ported either. Results carry token ids (the synthetic runs' hash
 tokenizer has no text).
 
@@ -40,6 +45,12 @@ config on the CPU):
     python -m youku_mplug_tpu_torch.cli.run_instruct \\
         --config configs/instruct/serve_bloomz_7b_int8.yaml \\
         --synthetic_data --engine --int8
+    python -m youku_mplug_tpu_torch.cli.run_instruct \\
+        --config configs/instruct/serve_bloomz_7b_sample.yaml \\
+        --synthetic_data --engine
+    python -m youku_mplug_tpu_torch.cli.run_instruct \\
+        --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
+        --synthetic_data --engine --lookup_k 4
     python -m youku_mplug_tpu_torch.cli.run_instruct --train \\
         --config configs/instruct/train_bloomz_7b_flagship.yaml \\
         --synthetic_data --max_steps 8 --output_dir out
@@ -52,6 +63,7 @@ import dataclasses
 import json
 import os
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -116,6 +128,9 @@ def parser() -> argparse.ArgumentParser:
                         "only serving path of the port)")
     p.add_argument("--num_slots", type=int, default=4,
                    help="engine slot-pool size")
+    p.add_argument("--lookup_k", type=int, default=0,
+                   help="--engine: k>0 adds prompt-lookup speculative "
+                        "steps (greedy-only, token-exact)")
     p.add_argument("--device", default="cuda",
                    help="cuda[:i] (default), or cpu")
     p.add_argument("--int8", action="store_true",
@@ -155,11 +170,9 @@ def build(args):
     serving."""
     device = _device(args)
     cfg, raw = load_owl_config(args.config)
-    if raw.get("do_sample"):
-        raise NotImplementedError(
-            "sampling (do_sample) is not ported yet; greedy only")
     if int(raw.get("beam_size", 1)) > 1:
-        raise ValueError("the engine serves beam_size=1 (greedy)")
+        raise ValueError("the engine serves beam_size=1 (beam search is not "
+                         "ported yet)")
     with device:  # built and seeded on the device: no host copy of 7B
         model = MPLUGOwlVideo(cfg, BF16_POLICY)
     seeded_init(model, args.seed)
@@ -199,10 +212,15 @@ def load_videos(args, raw_cfg, rows) -> np.ndarray:
 
 
 def generation_config(args, cfg, raw_cfg) -> GenerationConfig:
+    """The YAML's decoding block, with the JAX runner's defaults."""
     return GenerationConfig(
         max_new_tokens=args.max_new_tokens
         or int(raw_cfg.get("max_new_tokens", 128)),
-        eos_id=cfg.text.eos_id, pad_id=cfg.text.pad_id, do_sample=False)
+        eos_id=cfg.text.eos_id, pad_id=cfg.text.pad_id,
+        do_sample=bool(raw_cfg.get("do_sample", False)),
+        top_k=int(raw_cfg.get("top_k", 5)),
+        top_p=float(raw_cfg.get("top_p", 0.9)),
+        beam_size=int(raw_cfg.get("beam_size", 1)))
 
 
 def _sync(device: torch.device) -> None:
@@ -210,14 +228,32 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_engine(lm, prompt_len, gen_cfg: GenerationConfig, num_slots: int,
+                generator: Optional[torch.Generator] = None
+                ) -> ServingEngine:
+    """The engine ``serve_instruct`` serves prompts of ``prompt_len``
+    tokens with: the prefill bucket is the next power of two >= the
+    longest (from 8); the cache holds bucket + max_new_tokens + 2 rows."""
+    bucket = 8
+    while bucket < int(np.max(prompt_len)):
+        bucket *= 2
+    return ServingEngine(lm, num_slots=num_slots,
+                         max_len=bucket + gen_cfg.max_new_tokens + 2,
+                         prefill_buckets=(bucket,), config=gen_cfg,
+                         generator=generator)
+
+
 @torch.inference_mode()
 def serve_instruct(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
-                   gen_cfg: GenerationConfig, *, num_slots: int = 4):
+                   gen_cfg: GenerationConfig, *, num_slots: int = 4,
+                   lookup_k: int = 0,
+                   generator: Optional[torch.Generator] = None):
     """Instruct inference through the continuous-batching engine (the JAX
     runner's ``serve_instruct``): encode and splice every request in one
-    batch, submit them all, and admit each to the slot pool as slots free.
-    The prefill bucket is the next power of two >= the longest prompt
-    (from 8); the cache holds bucket + max_new_tokens + 2 rows.
+    batch, submit them all, and admit each to the slot pool as slots free;
+    ``lookup_k > 0`` decodes with ``step_lookup(lookup_k)``, else one
+    ``step`` at a time.  Sampling draws come from ``generator``.  The
+    engine is ``make_engine``'s.
 
     clips: normalized [B, C, T, H, W] on the model's device; batch: the
     ``build_instruct_batch`` dict.  Returns (sequences [B, max_new_tokens]
@@ -235,13 +271,8 @@ def serve_instruct(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
     _sync(dev)
     t_encoded = time.perf_counter()
 
-    bucket = 8
-    while bucket < int(prompt_len.max()):
-        bucket *= 2
-    engine = ServingEngine(
-        model.text_decoder, num_slots=min(num_slots, b),
-        max_len=bucket + gen_cfg.max_new_tokens + 2,
-        prefill_buckets=(bucket,), config=gen_cfg)
+    engine = make_engine(model.text_decoder, prompt_len, gen_cfg,
+                         min(num_slots, b), generator)
     row_of = {}
     for i in range(b):
         n = int(prompt_len[i])
@@ -252,7 +283,8 @@ def serve_instruct(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
     done_at = {}
     steps = 0
     while not engine.idle:
-        for fin in engine.step():
+        for fin in (engine.step_lookup(lookup_k) if lookup_k > 0
+                    else engine.step()):
             toks = fin.tokens[:gen_cfg.max_new_tokens]
             seqs[row_of[fin.rid], :len(toks)] = toks
             done_at[fin.rid] = time.perf_counter()
@@ -380,9 +412,10 @@ def main(args):
     cfg, raw_cfg, model, device = build(args)
     rows, batch, clips = prepare(args, cfg, raw_cfg, device,
                                  model.policy.compute_dtype)
-    seqs, stats, _ = serve_instruct(model, clips, batch,
-                                    generation_config(args, cfg, raw_cfg),
-                                    num_slots=args.num_slots)
+    seqs, stats, _ = serve_instruct(
+        model, clips, batch, generation_config(args, cfg, raw_cfg),
+        num_slots=args.num_slots, lookup_k=args.lookup_k,
+        generator=torch.Generator(device).manual_seed(args.seed + 1))
     tok = WhitespaceTokenizer(cfg.text.vocab_size)
     results = []
     for r, seq in zip(rows, seqs):

@@ -394,12 +394,14 @@ class BloomLM(nn.Module):
         return _init_cache(self.cfg, self.policy, batch, max_len, device)
 
     def decode_step(self, input_embeds, cache, cache_len: CacheLen,
-                    valid_from=None, position_offset=None):
+                    valid_from=None, position_offset=None,
+                    return_all: bool = False):
         """Same contract as ``GPT3LM.decode_step``; ``position_offset`` is
         accepted and ignored (ALiBi carries position).  Returns (fp32
-        logits of the last position [B, V], cache)."""
+        logits of the last position [B, V], or of every position
+        [B, S, V] with ``return_all``, cache)."""
         del position_offset
         hidden = self.decoder(input_embeds.to(self.policy.compute_dtype),
                               cache=cache, cache_len=cache_len,
                               valid_from=valid_from)
-        return self.logits(hidden[:, -1]), cache
+        return self.logits(hidden if return_all else hidden[:, -1]), cache

@@ -1,8 +1,10 @@
-"""Generation config and the front-padded query-prefix layout.
+"""Generation config, the sampling filter and the front-padded
+query-prefix layout.
 
 Counterpart of ``youku_mplug_tpu/models/generation.py`` for what the
-serving engine needs (``GenerationConfig``, ``_build_prefix``); batched
-``generate`` and beam search are not ported yet.
+serving engine and speculative decoding need (``GenerationConfig``,
+``top_k_top_p_filter``, ``_build_prefix``); batched ``generate`` and beam
+search are not ported yet.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+NEG_INF = -1.0e7
 
 
 @dataclasses.dataclass(frozen=True)
@@ -19,6 +23,39 @@ class GenerationConfig:
     pad_id: int = 7
     do_sample: bool = False
     temperature: float = 1.0
+    top_k: int = 0
+    top_p: float = 0.9
+    beam_size: int = 5
+    length_penalty: float = 0.0  # 0 == reference ranking (sum logprobs)
+
+
+def top_k_top_p_filter(logits: torch.Tensor, top_k: int = 0,
+                       top_p: float = 0.0) -> torch.Tensor:
+    """Set the filtered logits to NEG_INF, as the JAX package does: below
+    the k-th largest (``top_k > 0``), then, for ``0 < top_p < 1``, below
+    the smallest logit whose exclusive cumulative probability (sorted
+    descending) is under ``top_p``."""
+    if top_k > 0:
+        kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
+        logits = torch.where(logits < kth, NEG_INF, logits)
+    if 0.0 < top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep_sorted = (torch.cumsum(probs, dim=-1) - probs) < top_p
+        thresh = torch.where(keep_sorted, sorted_logits,
+                             float("inf")).amin(-1, keepdim=True)
+        logits = torch.where(logits < thresh, NEG_INF, logits)
+    return logits
+
+
+def gumbel_argmax(logits: torch.Tensor,
+                  generator: torch.Generator) -> torch.Tensor:
+    """One categorical draw per row of ``logits`` (unnormalized log
+    probabilities) as the argmax of logits plus Gumbel noise from
+    ``generator``: the law of ``jax.random.categorical``, with no host
+    synchronization (a CUDA graph captures it).  Returns int32 [...]."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    return (logits - torch.log(-torch.log(u))).argmax(-1).to(torch.int32)
 
 
 def _build_prefix(model, prompt_ids: torch.Tensor, prompt_len: torch.Tensor,

@@ -389,10 +389,12 @@ class GPT3LM(nn.Module):
         return _init_cache(self.cfg, self.policy, batch, max_len, device)
 
     def decode_step(self, input_embeds, cache, cache_len: CacheLen,
-                    valid_from=None, position_offset=None):
-        """Run a chunk (prefill: S > 1; decode: S = 1) through the decoder,
-        updating ``cache`` in place.  Returns (fp32 vocab logits of the
-        last position [B, V], cache).
+                    valid_from=None, position_offset=None,
+                    return_all: bool = False):
+        """Run a chunk (prefill or a verify chunk: S > 1; decode: S = 1)
+        through the decoder, updating ``cache`` in place.  Returns (fp32
+        vocab logits of the last position [B, V], or with ``return_all``
+        of every position [B, S, V] (speculative verification), cache).
 
         cache_len: int (every sample writes at the same position) or [B]
         per-sample write positions; valid_from [B]: first valid cache
@@ -412,4 +414,4 @@ class GPT3LM(nn.Module):
         hidden = self.decoder(input_embeds.to(self.policy.compute_dtype),
                               positions, cache=cache, cache_len=cache_len,
                               valid_from=valid_from)
-        return self.logits(hidden[:, -1]), cache
+        return self.logits(hidden if return_all else hidden[:, -1]), cache
