@@ -117,7 +117,24 @@ the last line is printed):
    trainable gradient gated as in phase 6);
 11. a JSON line describing each kernel (errors, times of the kernel, its
    plain version and the SDPA library call, the bound, launches per
-   path, each shape), the card's line, then the result line.
+   path, each shape), the card's line, then the result line;
+12. the caption slice (run after phase 6, on phase 5's runner, so that
+   the instruct phases find the card empty): phase 5's state saved by
+   cli/common.save_epoch (bytes and seconds printed); run_caption on
+   configs/caption/caption_gpt3_1.3B_flagship.yaml resuming from it at
+   full width and depth, the restored trainable and frozen leaves, AdamW
+   moments, update count and step bitwise equal to the saved state; 2
+   finetune steps of batch 24 (loss and grad_norm finite, no skipped
+   step, the frozen bf16 decoder bitwise unchanged, trainable leaves
+   moved, the K1, K4, dq and dk/dv counters risen; step ms, clips/s, peak
+   memory); the beam search (5 beams, 32 new tokens) over 2 test batches
+   of 24 clips: 24 launches of K5 (with its K6 write) per decode step and
+   no other decode kernel, one result per clip, finite caption metrics,
+   every returned sequence's beam score against its teacher-forced
+   rescore with the plain versions of K1, K4 and K5 within
+   RESCORE_TOL_PER_TOKEN a token; the beam's tokens/s, host ms per decode
+   step and the beam reorder's device ms per step (traced).  Phase 2
+   holds K5 at the beam step's cache [24,120,256,2x32x64] too.
 """
 
 from __future__ import annotations
@@ -168,6 +185,15 @@ REPLAY_GRAD_TOL = 0.05
 REPLAY_GRAD_FLOOR = 1e-3
 TRAIN_YAML = os.path.join(REPO, "configs", "pretrain",
                           "pretrain_gpt3_1.3B_flagship.yaml")
+CAPTION_YAML = os.path.join(REPO, "configs", "caption",
+                            "caption_gpt3_1.3B_flagship.yaml")
+CAPTION_STEPS, CAPTION_EVAL_BATCHES = 2, 2
+# a beam's score (length penalty 0) is the sum of its tokens' log-probs;
+# a log-prob is a logit less the log-sum-exp, so it moves by at most
+# twice the largest logit error, and LOGIT_TOL bounds that error between
+# the kernels and the plain versions after the video encoder and 24
+# decoder layers (the teacher-forced phase): per token 2 x LOGIT_TOL
+RESCORE_TOL_PER_TOKEN = 2 * LOGIT_TOL
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 OWL_YAML = os.path.join(REPO, "configs", "instruct",
                         "serve_bloomz_7b_flagship.yaml")
@@ -474,6 +500,10 @@ ALIBI_SHAPES = [
 # 201, 156, 2 and 58
 DEC_CLEN = [0, 17, 136, 150, 200, 255, 100, 60]
 DEC_VFROM = [0, 0, 5, 151, 0, 100, 99, 3]
+# the caption evaluation's beam search on the flagship: 24 clips x 5
+# beams, prefix 128 queries + 20 prompt tokens (1 real, 19 pads), 32 new
+# tokens
+BEAM_ROWS, BEAM_PREFIX, BEAM_VALID_FROM, BEAM_NEW = 120, 148, 19, 32
 
 
 def _step_views(qkv, n, d):
@@ -496,15 +526,18 @@ def _rotating(n_layers):
     return nxt
 
 
-def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path):
+def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path,
+                 clens=DEC_CLEN, vfroms=DEC_VFROM):
     """One check of the decode kernel with its cache write (K5 and K6) on
-    the cache [layers, 8, 256, 2*n*d] (random bf16 rows, int8: quantized)
-    at layer L-1: the kernel against write_decode_attention_plain on
-    copies of the cache, both leaves bitwise equal and no row but
-    (L-1, b, cache_len[b]) touched, the output within KERNEL_TOL, slot 3
-    (no live key) zeros.  Times over 200 calls: warm (layer L-1 each call,
-    its live rows in L2) and rotated (the layer index moved over all L
-    layers, so the live rows come from HBM as on the path), the plain
+    the cache [layers, B, 256, 2*n*d] (B = len(clens) samples writing at
+    ``clens`` and attending from ``vfroms``; random bf16 rows, int8:
+    quantized) at layer L-1: the kernel against
+    write_decode_attention_plain on copies of the cache, both leaves
+    bitwise equal and no row but (L-1, b, cache_len[b]) touched, the
+    output within KERNEL_TOL, a sample with no live key zeros.  Times
+    over 200 calls: warm (layer L-1 each call, its live rows in L2) and
+    rotated (the layer index moved over all L layers, so the live rows
+    come from HBM as on the path), the plain
     version; SDPA over the live cache view with the same mask and bias,
     warm and rotated (int8: none; ``bf16_ms`` is the bf16 kernel's on the
     same cache dequantized).  ``host_ms``: the wrapper's host time per
@@ -515,7 +548,7 @@ def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path):
     and the new K and V rows, and writes o and the new cache row once."""
     import torch.nn.functional as F
 
-    b, m, lidx = 8, 256, layers - 1
+    b, m, lidx = len(clens), 256, layers - 1
     qkv = rand(b, 3 * n * d) if d == 64 else rand(b, n, 3, d)
     q, k, v = _step_views(qkv, n, d)
     rows = rand(layers, b, m, 2 * n * d)
@@ -527,7 +560,7 @@ def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path):
     else:
         cache = bf16_cache = rows
     clen, vfrom = (torch.tensor(x, dtype=torch.int32, device="cuda")
-                   for x in (DEC_CLEN, DEC_VFROM))
+                   for x in (clens, vfroms))
     kw = dict(alibi_slopes=dec.alibi_slopes(n) if alibi else None)
     tag = "K5 int8" if int8 else "K5"
     copy = (lambda c: {key: t.clone() for key, t in c.items()}) if int8 \
@@ -546,19 +579,20 @@ def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path):
         rows_ok &= torch.equal(g, w)
         touched |= {tuple(t) for t in (g != c).reshape(layers, b, m, -1)
                     .any(-1).nonzero().tolist()}
-    e, empty = err(got, want), got[3].abs().max().item()
+    dead = [i for i in range(b) if vfroms[i] > clens[i]]
+    e = err(got, want)
+    empty = got[dead].abs().max().item() if dead else 0.0
     if not within(got, want) or empty != 0 or not rows_ok \
-            or not touched <= {(lidx, i, DEC_CLEN[i]) for i in range(b)}:
+            or not touched <= {(lidx, i, clens[i]) for i in range(b)}:
         fail(f"{tag} {shape}: max err {e} (tol {KERNEL_TOL}); empty slot "
              f"max {empty}; cache leaves equal to plain {rows_ok}; rows "
              f"touched {sorted(touched)[:10]}")
     del got_c, want_c
     nd = n * d
-    live = sum(max(min(c, m - 1) - f + 1, 0)
-               for c, f in zip(DEC_CLEN, DEC_VFROM))
+    live = sum(max(min(c, m - 1) - f + 1, 0) for c, f in zip(clens, vfroms))
     # rows read from the cache: the live ones but the new row, when live
     live_read = sum(max(min(c, m - 1) - f + 1 - (f <= c < m), 0)
-                    for c, f in zip(DEC_CLEN, DEC_VFROM))
+                    for c, f in zip(clens, vfroms))
     elem = 1 if int8 else 2
     row_bytes = 2 * nd * elem + (8 * n if int8 else 0)
     write_bytes = b * (2 * 2 * nd + row_bytes)  # read k, v; write the row
@@ -642,7 +676,8 @@ DEC_COUNTERS = ("launches", "alibi_launches", "int8_launches",
 # the paths that run each decode kernel variant (each launch with its K6
 # write): the serve CLI's and run_instruct's (k = 1 graphs), the k = 8
 # runs, the twin draft's steps and the sampled instruct runs
-K5_PATHS = {"K5": ("serve", "serve_k8", "speculative_twin"),
+K5_PATHS = {"K5": ("serve", "serve_k8", "speculative_twin",
+                   "caption_eval"),
             "K5-ALiBi": ("instruct", "instruct_k8", "instruct_sample"),
             "K5-int8": ("serve_int8kv", "serve_int8kv_k8"),
             "K5-int8-ALiBi": ("instruct_int8", "instruct_int8_k8")}
@@ -653,6 +688,16 @@ def _decode_entries(dec, kvc, rand):
     with or without ALiBi) and K6, the cache write fused into it, whose
     launches are all of the kernel's."""
     cases = {}
+    # the caption evaluation's beam step: 24 clips x 5 beams, each writing
+    # at 148 + t - 1 (128 queries + a 20-token prompt before the t-th new
+    # token, t = 1..31) and attending from 19 (the prompt's pads)
+    beam = [BEAM_PREFIX + i % (BEAM_NEW - 1) for i in range(BEAM_ROWS)]
+    cases["K5"] = [_decode_case(
+        dec, kvc, rand, 32, 64, 24, False, False,
+        f"[24,{BEAM_ROWS},256,2x32x64] d 64 (caption_eval, beam 5)", True,
+        beam, [BEAM_VALID_FROM] * BEAM_ROWS)]
+    gc.collect()
+    torch.cuda.empty_cache()
     for key, n, d, layers, alibi, int8, path in (
             ("K5", 32, 64, 24, False, False, "serve"),
             ("K5-ALiBi", 32, 128, 30, True, False, "instruct"),
@@ -826,20 +871,22 @@ def phase_kernels(dev):
                f"{TPU_FLASH}:426", fa.flash_attention_packed,
                ("serve", "train", "instruct", "instruct_train",
                 "serve_int8kv", "instruct_int8", "speculative_twin",
-                "speculative_ngram", "instruct_lookup", "instruct_sample"),
+                "speculative_ngram", "instruct_lookup", "instruct_sample",
+                "caption_train", "caption_eval"),
                "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
                ("serve", "train", "serve_int8kv", "speculative_twin",
-                "speculative_ngram"), "K4", k4)]
+                "speculative_ngram", "caption_train", "caption_eval"), "K4",
+               k4)]
     for kind, wrapper, line, line_hm in (
             ("dq", fa.flash_bwd_dq_cuda, 723, 148),
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
         report.append(_entry(
             f"K2/K3 + K4b backward {kind} kernel (flash_bwd_{kind}_cuda; "
             f"also replaces flash_attention.py:{line_hm})", BWD_SRC,
-            f"{TPU_FLASH}:{line}", wrapper, ("train",), kind,
+            f"{TPU_FLASH}:{line}", wrapper, ("train", "caption_train"), kind,
             [c[kind] for c in cases] + [no_alibi_128[kind]]))
     report.append(_entry(
         "K1 flash_attention_packed, ALiBi causal (Bloom training, head dim "
@@ -1210,7 +1257,7 @@ def phase_teacher_forced(cfg, model, tag="teacher-forced"):
 
 def phase_train(report, out_dir):
     """The pretrain CLI's path at full width; returns its runner."""
-    from youku_mplug_tpu_torch.cli import run_pretrain
+    from youku_mplug_tpu_torch.cli import common, run_pretrain
 
     args = run_pretrain.base_parser().parse_args([
         "--config", TRAIN_YAML, "--output_dir", out_dir, "--synthetic_data",
@@ -1225,7 +1272,8 @@ def phase_train(report, out_dir):
     setup_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(report)
-    history = run_pretrain.train_one_epoch(runner, train_step, 0)
+    history = common.train_one_epoch(runner, train_step, 0,
+                                     run_pretrain.make_batch)
     torch.cuda.synchronize()
     _read_counts(report, "train")
     peak = torch.cuda.max_memory_allocated()
@@ -1338,6 +1386,339 @@ def phase_replay(runner, make_batch, make_loss_fn):
     if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL \
             or rows[0][0] > REPLAY_GRAD_TOL:
         fail("plain replay out of tolerance")
+
+
+def _state_diff(a, b):
+    """Leaves, AdamW moments and counters of two train states that are not
+    bitwise equal (dtype included), by JAX path."""
+    bad = []
+    for part in ("trainable", "frozen"):
+        da, db = getattr(a, part), getattr(b, part)
+        bad += [f"{part} set"] if set(da) != set(db) else [
+            k for k in da if da[k].dtype != db[k].dtype
+            or not torch.equal(da[k], db[k])]
+    sa = a.optimizer.torch_optimizer.state
+    sb = b.optimizer.torch_optimizer.state
+    for k in set(a.trainable) & set(b.trainable):
+        ma, mb = sa.get(a.trainable[k], {}), sb.get(b.trainable[k], {})
+        if set(ma) != set(mb) or not ma or any(
+                not torch.equal(ma[x], mb[x].to(ma[x].device)) for x in ma):
+            bad.append(f"adam {k}")
+    if (a.optimizer.count, a.step) != (b.optimizer.count, b.step):
+        bad.append(f"count/step {(a.optimizer.count, a.step)} vs "
+                   f"{(b.optimizer.count, b.step)}")
+    return bad
+
+
+def _rescore(model, video, ids, mask, seqs, eos):
+    """The sum of log-probs of each sequence up to and including its
+    first eos (all of it without one), teacher-forced: query features,
+    prefill and one decode step per token (S = 1), with the plain versions
+    of K1, K4 and K5 (with its write) patched in."""
+    from youku_mplug_tpu_torch.models import generation, gpt3, vision
+    from youku_mplug_tpu_torch.ops import decode_attention as dec
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    lm = model.text_decoder
+    plain = (mock.patch.object(vision, "flash_attention_packed",
+                               fa.flash_attention_packed_plain),
+             mock.patch.object(fa, "flash_attention",
+                               fa.flash_attention_plain),
+             mock.patch.object(gpt3, "write_decode_attention",
+                               dec.write_decode_attention_plain))
+    for p in plain:
+        p.start()
+    try:
+        with torch.inference_mode():
+            qf = model.encode_queries(video)
+            plen = mask.sum(-1).to(torch.int32) - 1
+            embeds, vf, off = generation._build_prefix(lm, ids, plen, qf,
+                                                       eos)
+            prefix = embeds.shape[1]
+            cache = lm.init_cache(ids.shape[0], prefix + seqs.shape[1],
+                                  device=ids.device)
+            logits, cache = lm.decode_step(embeds, cache, 0, vf, off)
+            total = torch.zeros(ids.shape[0], device=ids.device)
+            live = torch.ones(ids.shape[0], dtype=torch.bool,
+                              device=ids.device)
+            for t in range(seqs.shape[1]):
+                tok = seqs[:, t].long()
+                logp = torch.log_softmax(logits.float(), -1)
+                total += torch.where(live, logp.gather(1, tok[:, None])[:, 0],
+                                     0.0)
+                live &= tok != eos
+                if t + 1 == seqs.shape[1] or not bool(live.any()):
+                    break
+                logits, cache = lm.decode_step(lm.embed(tok[:, None]), cache,
+                                               prefix + t, vf, off)
+    finally:
+        for p in plain:
+            p.stop()
+    return total
+
+
+def _launched_in(events, windows):
+    """The kernel events of a chrome trace whose launches (host runtime or
+    driver calls, the latter cuBLAS's, matched by correlation id) fall in
+    any of the host time ``windows``."""
+    corr = {e["args"]["correlation"] for e in events
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "correlation" in e.get("args", {})
+            and any(a <= e["ts"] < b for a, b in windows)}
+    return [e for e in events if e.get("cat") == "kernel"
+            and e.get("args", {}).get("correlation") in corr]
+
+
+def _beam_trace(events):
+    """From the trace of one beam search with each reorder in a
+    ``gather_beams`` host span: the reorders' device ms, their number,
+    and, over the decode steps between the first and the last reorder,
+    the device ms a step by kernel category, launches a step and the
+    device's idle share of those steps' wall time."""
+    from youku_mplug_tpu_torch.cli import profile_train
+
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("ph") == "X"
+                   and e.get("cat") == "user_annotation"
+                   and e.get("name") == "gather_beams")
+    gather_ms = sum(e["dur"] for e in _launched_in(events, spans)) * 1e-3
+    steps = len(spans) - 1
+    window = (spans[0][1], spans[-1][1])
+    kernels = _launched_in(events, [window])
+    if steps < 1 or not kernels:
+        fail(f"the traced beam search: {len(spans)} reorders, "
+             f"{len(kernels)} kernels between them")
+    by_cat = {}
+    for e in kernels:
+        cat = profile_train.category(e)
+        by_cat[cat] = by_cat.get(cat, 0.0) + e["dur"] * 1e-3 / steps
+    t0 = min(e["ts"] for e in kernels)
+    t1 = max(e["ts"] + e["dur"] for e in kernels)
+    busy = profile_train._busy_us([(e["ts"], e["ts"] + e["dur"])
+                                   for e in kernels])
+    return gather_ms, len(spans), {
+        "device_ms_per_step": sum(by_cat.values()),
+        "device_ms_per_step_by_category": dict(
+            sorted(by_cat.items(), key=lambda kv: -kv[1])),
+        "launches_per_step": len(kernels) / steps,
+        "idle_share": 1.0 - busy / (t1 - t0)}
+
+
+def phase_caption(report, holder, out_dir):
+    """Phase 12, the caption slice: the pretrain runner's state (popped
+    from ``holder``, so that it is freed here) saved by ``save_epoch``;
+    ``run_caption`` on CAPTION_YAML resuming from it (the restored state
+    bitwise equal to the saved one); 2 finetune steps; the beam-search
+    evaluation of 2 test batches (48 clips); each returned sequence
+    rescored with the plain versions."""
+    from youku_mplug_tpu_torch.cli import common, run_caption
+    from youku_mplug_tpu_torch.models import generation
+    from youku_mplug_tpu_torch.train.checkpoint import STATE_FILE
+
+    t_phase = time.perf_counter()
+    pretrain = holder.pop()
+    t0 = time.perf_counter()
+    common.save_epoch(pretrain, 0)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t0
+    step = pretrain.ckpt.latest_step()
+    if step != pretrain.state.step:
+        fail(f"save_epoch wrote step {step}, the state is at "
+             f"{pretrain.state.step}")
+    ckpt_bytes = os.path.getsize(os.path.join(pretrain.ckpt.directory,
+                                              str(step), STATE_FILE))
+    print(f"[caption] saved step {step}: {ckpt_bytes} bytes in "
+          f"{save_s:.2f} s ({ckpt_bytes / save_s / 2**30:.2f} GiB/s)",
+          flush=True)
+
+    cap_dir = os.path.join(out_dir, "caption")
+    args = run_caption.parser().parse_args([
+        "--config", CAPTION_YAML, "--resume", pretrain.args.output_dir,
+        "--synthetic_data", "--max_steps", str(CAPTION_STEPS), "--device",
+        "cuda", "--output_dir", cap_dir])
+    t0 = time.perf_counter()
+    runner, test_loader = run_caption.prepare(args)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    diff = _state_diff(pretrain.state, runner.state)
+    if diff:
+        fail(f"the resumed state differs from the saved one: {diff[:8]}")
+    print(f"[caption] resumed step {runner.state.step} (epoch "
+          f"{runner.start_epoch}) in {resume_s:.2f} s, setup and load "
+          f"included: {len(runner.state.trainable)} trainable and "
+          f"{len(runner.state.frozen)} frozen leaves, AdamW moments, count "
+          f"{runner.state.optimizer.count} and step bitwise equal",
+          flush=True)
+    del pretrain, diff
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the finetune: CAPTION_STEPS steps of batch 24
+    state = runner.state
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    trainable0 = {k: p.detach().clone() for k, p in state.trainable.items()}
+    train_step = run_caption.build_train_step(runner)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    history = common.train_one_epoch(runner, train_step, runner.start_epoch,
+                                     run_caption.make_batch)
+    torch.cuda.synchronize()
+    _read_counts(report, "caption_train")
+    train_peak = torch.cuda.max_memory_allocated()
+    if len(history) != CAPTION_STEPS or any(
+            not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))
+            or h["skipped_nonfinite"] != 0 for h in history):
+        fail(f"caption finetune steps: {history}")
+    changed = [k for k, p in state.frozen.items()
+               if not torch.equal(p.detach(), frozen0[k])]
+    if changed or any(p.dtype != torch.bfloat16
+                      for p in state.frozen.values()):
+        fail(f"the frozen decoder changed: {changed[:5]}")
+    moved = sum(not torch.equal(p.detach(), trainable0[k])
+                for k, p in state.trainable.items())
+    if moved == 0:
+        fail("no trainable leaf moved in the caption finetune")
+    del frozen0, trainable0
+    gc.collect()
+    torch.cuda.empty_cache()
+    batch = runner.cfg.batch_size
+    train = {"steps": len(history),
+             "step_ms_each": [h["step_time"] * 1e3 for h in history],
+             "clips_per_s_last": batch / history[-1]["step_time"],
+             "loss": [h["loss"] for h in history],
+             "grad_norm": [h["grad_norm"] for h in history],
+             "lr": [h["lr"] for h in history],
+             "trainable_leaves_moved": f"{moved}/{len(state.trainable)}",
+             "peak_memory_gib": train_peak / 2 ** 30,
+             "launches": {r["key"]: r["launches_by_path"]["caption_train"]
+                          for r in report
+                          if r["launches_by_path"]["caption_train"]}}
+    print(f"[caption finetune] {json.dumps(train)}", flush=True)
+
+    # the evaluation, each decode step's host time read at its beam
+    # reorder (the step's last call; None marks a batch's start)
+    stamps = []
+    gather = generation._gather_beams
+    captions = run_caption.generate_captions
+
+    def stamped(*a, **kw):
+        out = gather(*a, **kw)
+        stamps.append(time.perf_counter())
+        return out
+
+    def marked(*a, **kw):
+        stamps.append(None)
+        return captions(*a, **kw)
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    with mock.patch.object(generation, "_gather_beams", stamped), \
+            mock.patch.object(run_caption, "generate_captions", marked):
+        metrics, results, stats = run_caption.evaluation(runner, test_loader)
+    torch.cuda.synchronize()
+    _read_counts(report, "caption_eval")
+    eval_peak = torch.cuda.max_memory_allocated()
+    layers = runner.cfg.model.text.num_hidden_layers
+    per_step = _per_step(report, "caption_eval", stats["decode_steps"],
+                         {"K5": layers, "K6": layers})
+    clips = CAPTION_EVAL_BATCHES * batch
+    if stats["clips"] != clips or len(results) != clips or not all(
+            math.isfinite(v) for v in metrics.values()):
+        fail(f"caption evaluation: {stats}, {len(results)} results, "
+             f"metrics {metrics}")
+    host = sorted(b - a for a, b in zip(stamps, stamps[1:])
+                  if a is not None and b is not None)
+
+    # the reorder's device time, traced over the first test batch
+    gen_cfg = run_caption.generation_config(runner)
+    raws = [raw for _, raw in zip(range(CAPTION_EVAL_BATCHES), test_loader)]
+
+    def spanned(*a, **kw):
+        with torch.profiler.record_function("gather_beams"):
+            return gather(*a, **kw)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    runner.model.eval()
+    video, ids, mask = run_caption.eval_inputs(runner, raws[0])
+    with mock.patch.object(generation, "_gather_beams", spanned), \
+            torch.profiler.profile(activities=acts) as prof:
+        traced = run_caption.generate_captions(runner.model, video, ids,
+                                               mask, gen_cfg)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "beam_trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    gather_ms, n_gathers, step_trace = _beam_trace(events)
+    if n_gathers != traced["decode_steps"]:
+        fail(f"traced {n_gathers} beam reorders over "
+             f"{traced['decode_steps']} decode steps")
+
+    # every returned sequence rescored with the plain versions
+    by_id = {r["video_id"]: r for r in results}
+    worst, rows = 0.0, []
+    for raw in raws:
+        video, ids, mask = run_caption.eval_inputs(runner, raw)
+        recs = [by_id[v] for v in raw["video_id"]]
+        seqs = torch.tensor([r["tokens"] for r in recs], device=ids.device)
+        want = _rescore(runner.model, video, ids, mask, seqs,
+                        gen_cfg.eos_id).tolist()
+        for r, w in zip(recs, want):
+            n_tok = next((i + 1 for i, t in enumerate(r["tokens"])
+                          if t == gen_cfg.eos_id), len(r["tokens"]))
+            e = abs(r["score"] - w)
+            rows.append((e / n_tok, e, n_tok, r["video_id"], r["score"], w))
+    rows.sort(reverse=True)
+    tail = _tail_bytes(runner, gen_cfg)
+    if not all(math.isfinite(r[4]) and math.isfinite(r[5]) for r in rows) \
+            or rows[0][0] > RESCORE_TOL_PER_TOKEN:
+        fail(f"beam scores against the plain rescore: worst {rows[:3]} "
+             f"(tol {RESCORE_TOL_PER_TOKEN} a token)")
+    runner.model.train()
+    out = {"clips": stats["clips"], "batches": stats["batches"],
+           "beam_size": gen_cfg.beam_size,
+           "max_new_tokens": gen_cfg.max_new_tokens,
+           "decode_steps": stats["decode_steps"],
+           "tokens": stats["tokens"],
+           "beam_tokens_per_s": stats["tokens"] / stats["generate_s"],
+           "generate_s": stats["generate_s"],
+           "host_ms_per_decode_step_median": 1e3 * host[len(host) // 2],
+           "host_ms_per_decode_step_max": 1e3 * host[-1],
+           "gather_device_ms_per_step": gather_ms / n_gathers,
+           "gather_tail_bytes": tail,
+           "gather_bound_ms": 2 * tail / PEAK_HBM_BYTES * 1e3,
+           "traced_decode_step": step_trace,
+           "launches_per_decode_step": per_step,
+           "peak_memory_gib": eval_peak / 2 ** 30,
+           "metrics": metrics,
+           "rescore_max_abs_err": rows[0][1],
+           "rescore_max_err_per_token": rows[0][0],
+           "rescore_tol_per_token": RESCORE_TOL_PER_TOKEN}
+    print(f"[caption eval] {json.dumps(out)}", flush=True)
+    print(f"[caption] worst rescores (err a token, err, tokens, clip, beam "
+          f"score, plain score): {rows[:3]}", flush=True)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[caption] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return train, out
+
+
+def _tail_bytes(runner, gen_cfg):
+    """Bytes of the cache rows one beam reorder gathers: every layer's
+    B*K rows past the prefix (128 queries and the PROMPT_LENGTH-token
+    prompt), bf16; the least it can move is reading them once and
+    writing them once."""
+    from youku_mplug_tpu_torch.cli import run_caption
+
+    text = runner.cfg.model.text
+    prefix = runner.cfg.model.num_learnable_token + run_caption.PROMPT_LENGTH
+    m = -(-(prefix + gen_cfg.max_new_tokens) // 128) * 128
+    return (text.num_hidden_layers * runner.cfg.batch_size
+            * gen_cfg.beam_size * (m - prefix) * 2 * text.hidden_size * 2)
 
 
 def phase_instruct_replay(runner):
@@ -1821,7 +2202,7 @@ def phase_instruct_train(report, out_dir):
     """The run_instruct CLI's training path (``--train``) at the full
     width and depth of configs/instruct/train_bloomz_7b_flagship.yaml:
     OWL_TRAIN_STEPS steps of batch 8; returns (runner, stats)."""
-    from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
+    from youku_mplug_tpu_torch.cli import common, run_instruct
 
     args = run_instruct.parser().parse_args([
         "--config", OWL_TRAIN_YAML, "--train", "--synthetic_data",
@@ -1843,8 +2224,8 @@ def phase_instruct_train(report, out_dir):
     held = torch.cuda.memory_allocated() - held
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(report)
-    history = run_pretrain.train_one_epoch(runner, train_step, 0,
-                                           run_instruct.make_instruct_batch)
+    history = common.train_one_epoch(runner, train_step, 0,
+                                     run_instruct.make_instruct_batch)
     torch.cuda.synchronize()
     _read_counts(report, "instruct_train")
     peak = torch.cuda.max_memory_allocated() - held
@@ -1940,7 +2321,11 @@ def main():
         runner, _ = phase_train(report, out_dir)
         phase_replay(runner, run_pretrain.make_batch,
                      run_pretrain.make_loss_fn)
-    del runner
+        # phase 12 saves phase 5's state and frees it; the directory with
+        # its checkpoint goes when the block ends
+        holder = [runner]
+        del runner
+        phase_caption(report, holder, out_dir)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:

@@ -328,8 +328,13 @@ def test_run_pretrain_cli_two_steps_on_cpu(tmp_path, capsys):
            .splitlines()]
     assert log[0]["epoch"] == 0 and np.isfinite(log[0]["loss"])
     printed = capsys.readouterr().out
-    assert "saves no weights" in printed and "step 2:" in printed
-    assert not any(p.name != "log.txt" for p in out.iterdir())
+    assert "step 2:" in printed
+    # the epoch's checkpoint (tests/test_torch_checkpoint.py holds its
+    # contents) and the merged config beside the log
+    assert sorted(p.name for p in out.iterdir()
+                  if p.name != "tb") == ["checkpoints", "config.yaml",
+                                         "log.txt"]
+    assert runner.ckpt.all_steps() == [2]
 
 
 def test_run_pretrain_refuses_cuda_without_a_card(tmp_path):

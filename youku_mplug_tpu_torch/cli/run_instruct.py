@@ -27,7 +27,7 @@ with their captions as answers to a fixed question, the response-masked
 LM loss, a frozen ViT and a frozen bf16 Bloom whose LoRA adapters train
 in fp32 beside the abstractor, ``visual_fc`` and ``vit_eos``, AdamW; one
 JSON line per step (``--log_freq``) and one ``log.txt`` line per epoch,
-through ``run_pretrain``'s epoch loop.  No weights are saved.
+through ``cli/common.py``'s epoch loop.  No weights are saved.
 
 Weights come from a seeded init (serving) or the JAX ``model.init``
 rules (``--train``: ``bridge.jax_init``); checkpoint import
@@ -69,7 +69,7 @@ import numpy as np
 import torch
 
 from youku_mplug_tpu_torch.bridge import jax_init, seeded_init
-from youku_mplug_tpu_torch.cli import run_pretrain
+from youku_mplug_tpu_torch.cli import common
 from youku_mplug_tpu_torch.config import (
     InstructTrainConfig,
     instruct_train_config,
@@ -159,10 +159,7 @@ def _device(args) -> torch.device:
     for flag, msg in _NOT_PORTED.items():
         if getattr(args, flag, ""):
             raise NotImplementedError(f"{msg} (ROADMAP.md, Queue 1)")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is visible")
-    return device
+    return common.device_of(args)
 
 
 def build(args):
@@ -339,7 +336,7 @@ def build_train_loader(args, tcfg: InstructTrainConfig, res: int) -> Loader:
     return Loader(ds, tcfg.batch_size, seed=args.seed)
 
 
-def train_setup(args) -> run_pretrain.Runner:
+def train_setup(args) -> common.Runner:
     """Config, loader, the model on the device (``jax_init``), the
     trainable/frozen split (frozen leaves in bf16; LoRA adapters stay fp32
     and train) and AdamW, whose schedule spans ``min(len(loader),
@@ -362,12 +359,12 @@ def train_setup(args) -> run_pretrain.Runner:
           "run saves no weights", flush=True)
     tok = WhitespaceTokenizer(cfg.text.vocab_size, eos_id=cfg.text.eos_id,
                               pad_id=cfg.text.pad_id)
-    return run_pretrain.Runner(args=args, cfg=tcfg, device=device,
+    return common.Runner(args=args, cfg=tcfg, device=device,
                                model=model.train(), tokenizer=tok,
                                state=state, schedule=schedule, loader=loader)
 
 
-def make_instruct_batch(runner: run_pretrain.Runner, raw):
+def make_instruct_batch(runner: common.Runner, raw):
     """Loader rows -> ``instruct_loss`` inputs on the device: each
     synthetic caption is the answer to ``SYNTHETIC_QUESTION``."""
     text = runner.model.cfg.text
@@ -393,17 +390,17 @@ def make_loss_fn(model: MPLUGOwlVideo):
     return loss_fn
 
 
-def build_train_step(runner: run_pretrain.Runner):
+def build_train_step(runner: common.Runner):
     return make_train_step(make_loss_fn(runner.model),
                            update_freq=runner.cfg.update_freq)
 
 
-def train_main(args) -> run_pretrain.Runner:
+def train_main(args) -> common.Runner:
     """Instruction finetuning: every epoch of the YAML through
-    ``run_pretrain``'s epoch loop (see the module docstring)."""
+    ``cli/common.py``'s epoch loop (see the module docstring)."""
     runner = train_setup(args)
-    return run_pretrain.train_epochs(runner, build_train_step(runner),
-                                     make_instruct_batch)
+    return common.train_epochs(runner, build_train_step(runner),
+                               make_instruct_batch)
 
 
 def main(args):

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from youku_mplug_tpu_torch.bridge import seeded_init
+from youku_mplug_tpu_torch.cli import common
 from youku_mplug_tpu_torch.config import load_config
 from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
@@ -104,9 +105,7 @@ def build(args):
     requested device is absent: nothing falls back to the CPU."""
     if not args.synthetic_data:
         raise NotImplementedError("only --synthetic_data is ported yet")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda but no CUDA device is visible")
+    device = common.device_of(args)
     cfg = load_config(args.config)
     with device:
         model = MPLUGVideo(cfg.model, BF16_POLICY)

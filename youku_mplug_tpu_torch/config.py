@@ -4,11 +4,14 @@
 ``num_frames``, ``num_learnable_token``, ``use_contrastive``,
 ``embed_dim``, ``temp``, ``freeze_vit``, ``freeze_text_decoder``, the
 ``optimizer`` and ``schedular`` blocks, ``update_freq``, ``epochs``,
-``prompt``, ``max_new_tokens``, ``batch_size``, ``max_length``,
-``image_res`` and ``synthetic_length`` (the last ones via
-``RunConfig.get``); and ``load_owl_config`` / ``instruct_train_config``,
-the mPLUG-Owl instruct YAML of ``youku_mplug_tpu/cli/run_instruct.py``
-(the model blocks, and the training keys its ``train_main`` reads)."""
+``prompt``, ``batch_size``, ``max_length``, ``image_res``, and via
+``RunConfig.get`` as the JAX loader leaves them in its raw dict
+``synthetic_length``, ``text_decoder``, ``max_new_tokens``, ``beam_size``
+and ``async_checkpointing``; ``dump_config`` writes the merged YAML
+into a run's output directory; and ``load_owl_config`` /
+``instruct_train_config``, the mPLUG-Owl instruct YAML of
+``youku_mplug_tpu/cli/run_instruct.py`` (the model blocks, and the
+training keys its ``train_main`` reads)."""
 
 from __future__ import annotations
 
@@ -81,6 +84,9 @@ def load_config(yaml_path: str,
     if raw.get("lora_rank"):
         raise NotImplementedError("a top-level lora_rank / lora_alpha (GPT-3 "
                                   "LoRA adapters) is not ported yet")
+    if raw.get("use_cls"):
+        raise NotImplementedError("use_cls (the classification heads "
+                                  "cls_fc1 / cls_fc2) is not ported yet")
     if raw.get("import_torch_weights"):
         raise NotImplementedError("import_torch_weights (external checkpoint "
                                   "import) is not ported yet")
@@ -126,6 +132,13 @@ def load_config(yaml_path: str,
         prompt=str(raw.get("prompt", "") or ""),
         epochs=int(sched.get("epochs", raw.get("epochs", 10))),
         update_freq=int(raw.get("update_freq", 1)))
+
+
+def dump_config(cfg: RunConfig, output_dir: str):
+    """The merged raw config as ``<output_dir>/config.yaml``."""
+    os.makedirs(output_dir, exist_ok=True)
+    with open(os.path.join(output_dir, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg.raw, f, allow_unicode=True)
 
 
 def flagship_config(tiny: bool = False) -> MPLUGVideoConfig:

@@ -2,8 +2,9 @@
 
 Counterpart of ``youku_mplug_tpu.data.loader.ShardedLoader`` on one host
 (which there reads the process index from jax), with the options the
-pretrain loop uses: the epoch's order is
-``np.random.default_rng(seed * 100_003 + epoch).permutation(n)``, the
+training and evaluation loops use: the epoch's order is
+``np.random.default_rng(seed * 100_003 + epoch).permutation(n)``, or
+the dataset's own with ``shuffle=False``; the
 last partial batch is dropped, and samples are collated the same way
 (arrays stacked, ints to int32, floats to float32, anything else kept
 as a list).  No worker threads: the host makes each batch between two
@@ -33,10 +34,12 @@ def collate(samples: List[dict]) -> Dict[str, Any]:
 
 
 class Loader:
-    def __init__(self, dataset, batch_size: int, *, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, *, seed: int = 0,
+                 shuffle: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.shuffle = shuffle
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -48,8 +51,9 @@ class Loader:
         return len(self.dataset) // self.batch_size
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
-        order = np.random.default_rng(
-            self.seed * 100_003 + self.epoch).permutation(len(self.dataset))
+        n = len(self.dataset)
+        order = (np.random.default_rng(self.seed * 100_003 + self.epoch)
+                 .permutation(n) if self.shuffle else np.arange(n))
         for i in range(len(self)):
             idx = order[i * self.batch_size:(i + 1) * self.batch_size]
             yield collate([self.dataset[int(j)] for j in idx])

@@ -69,6 +69,7 @@ class GPT3Config:
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
     init_method_std: float = 0.02
+    tokens_to_generate: int = 100  # new tokens a caption decode makes
     remat: bool = False  # checkpoint each layer in training
     ce_chunk: int = 0    # sequence chunk of the LM loss (0: dense)
     # "auto": the compute dtype; "int8": per-(token, head) quantized

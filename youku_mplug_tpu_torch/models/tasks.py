@@ -3,10 +3,11 @@
 
 Counterpart of ``youku_mplug_tpu/models/tasks.py`` (``MPLUGVideoConfig``,
 ``prefix_lm_targets``, ``MPLUGVideo.encode_video`` / ``encode_queries`` /
-``pretrain_loss``); the cls, caption, retrieval and ITM heads are not
-ported yet.  ``vision_proj`` and ``text_proj`` exist only under
-``use_contrastive``, the one loss here that calls them (the JAX package
-creates their parameters where a task method calls them).
+``pretrain_loss`` / ``caption_loss``, ``generate_captions``); the cls,
+retrieval and ITM heads are not ported yet.  ``vision_proj`` and
+``text_proj`` exist only under ``use_contrastive``, the one loss here
+that calls them (the JAX package creates their parameters where a task
+method calls them).
 """
 
 from __future__ import annotations
@@ -43,23 +44,27 @@ class MPLUGVideoConfig:
 
 
 def prefix_lm_targets(input_ids, attention_mask, n_query: int,
-                      vocab_size=None):
+                      prompt_lengths=None, vocab_size=None):
     """Shifted labels and loss mask for the query-prefix LM loss: targets
     are input_ids shifted left with column 0 wrapping to the end; the
     query prefix's label slots hold ``min(100, V - 1)``; the loss mask is
-    ``[0 x n_query ; attention_mask[:, 1:]]``.  Returns (labels
-    [B, n_query + S], loss_mask [B, n_query + S - 1]).  The JAX
-    package's ``prompt_lengths`` (prompt positions out of the loss) waits
-    for the task heads that pass it."""
-    b = input_ids.shape[0]
+    ``[0 x n_query ; attention_mask[:, 1:]]`` with the first
+    ``prompt_lengths[i]`` text positions of sample i zeroed.  Returns
+    (labels [B, n_query + S], loss_mask [B, n_query + S - 1])."""
+    b, s = input_ids.shape
     targets = torch.cat([input_ids[:, 1:], input_ids[:, :1]], dim=1)
     fill = IGNORED_LABEL if vocab_size is None else min(IGNORED_LABEL,
                                                         vocab_size - 1)
     labels = torch.cat([torch.full((b, n_query), fill, dtype=input_ids.dtype,
                                    device=input_ids.device), targets], dim=1)
+    text_loss = attention_mask[:, 1:].int()
+    if prompt_lengths is not None:
+        pos = torch.arange(s - 1, device=input_ids.device)[None, :]
+        text_loss = text_loss * (pos >= prompt_lengths.to(
+            input_ids.device)[:, None]).int()
     loss_mask = torch.cat([torch.zeros(b, n_query, dtype=torch.int32,
                                        device=input_ids.device),
-                           attention_mask[:, 1:].int()], dim=1)
+                           text_loss], dim=1)
     return labels, loss_mask
 
 
@@ -126,11 +131,14 @@ class MPLUGVideo(nn.Module):
         """Just the query features (the serving prefix)."""
         return self.encode_video(video)[1]
 
-    def _prefix_forward(self, query_features, input_ids, attention_mask):
+    def _prefix_forward(self, query_features, input_ids, attention_mask,
+                        prompt_lengths=None):
         """Caption-style prefix-LM forward: [queries ; tokens] through the
-        decoder with the shifted labels and loss mask."""
+        decoder with the shifted labels and loss mask (prompt positions
+        out of the loss when ``prompt_lengths`` is given)."""
         labels, loss_mask = prefix_lm_targets(
             input_ids, attention_mask, query_features.shape[1],
+            prompt_lengths=prompt_lengths,
             vocab_size=self.cfg.text.vocab_size)
         tok_emb = self.text_decoder.embed(input_ids)
         input_embeds = torch.cat([query_features.to(tok_emb.dtype), tok_emb],
@@ -168,3 +176,29 @@ class MPLUGVideo(nn.Module):
         return {"loss": loss_caption + loss_contrastive,
                 "loss_caption": loss_caption,
                 "loss_contrastive": loss_contrastive}
+
+    def caption_loss(self, video, input_ids, attention_mask, prompt_lengths):
+        """The captioning finetune loss: the prefix LM over the query
+        features, the prompt's positions out of the loss.  Returns
+        {"loss": fp32 scalar}."""
+        query_features = self.encode_video(video)[1]
+        out = self._prefix_forward(query_features, input_ids, attention_mask,
+                                   prompt_lengths=prompt_lengths)
+        return {"loss": out["loss"]}
+
+
+def generate_captions(task_model: MPLUGVideo, video, input_ids,
+                      attention_mask, gen_config, generator=None):
+    """Video captioning decode: the clips' query features as the prefix of
+    a batched greedy, sampled or beam-search decode
+    (``models/generation.generate``) of the tokenized prompts, whose
+    trailing eos is dropped (prompt length = mask sum - 1).  Returns
+    ``generate``'s dict."""
+    from youku_mplug_tpu_torch.models.generation import generate
+
+    with torch.inference_mode():
+        query_features = task_model.encode_queries(video)
+        prompt_len = attention_mask.sum(-1).to(torch.int32) - 1
+        return generate(task_model.text_decoder, input_ids, prompt_len,
+                        query_embeds=query_features, config=gen_config,
+                        generator=generator)
