@@ -20,8 +20,13 @@ the last line is printed):
    spatial, grouped temporal with period 8, decoder causal,
    AttentionPool head-major, plus a small kv_len case) and the five
    ALiBi / head dim 128 shapes (Bloom training [8, 105, 32x128], S 768,
-   40 heads, d 64, d 128 without ALiBi) the forward's o and lse and the
-   backward's dq and dk/dv kernels on that forward's output, and the
+   40 heads, d 64, d 128 without ALiBi) and the head dim 96 shapes of
+   clip-b16's AttentionPool (q [32, 8, 128, 96] over 1570 keys, the cls
+   train step, and over 786, ITM's; forward alone at an evaluation
+   call's 4 clips) the forward's o and lse and the
+   backward's dq and dk/dv kernels on that forward's output; K1 causal
+   at the downstream evaluations' decoder calls ([180, 208, 32x64] cls,
+   [32, 208] ITM, [96, 80] retrieval text); and the
    decode step's attention with its cache write in one launch (K5 with K6
    folded in: bf16 head dim 64 at the caption cache [24,8,256,2x32x64];
    head dim 128 with the ALiBi ladder at BloomZ-7B1's [30,8,256,
@@ -134,7 +139,31 @@ the last line is printed):
    rescore with the plain versions of K1, K4 and K5 within
    RESCORE_TOL_PER_TOKEN a token; the beam's tokens/s, host ms per decode
    step and the beam reorder's device ms per step (traced).  Phase 2
-   holds K5 at the beam step's cache [24,120,256,2x32x64] too.
+   holds K5 at the beam step's cache [24,120,256,2x32x64] too;
+13. the downstream recipes (run after phase 12): run_cls, run_retrieval_itm
+   and run_retrieval through their prepare / train / evaluation
+   functions on the reference YAMLs (configs/cls/cls_gpt3_1.3B_youku_v0_
+   sharp_2.yaml, configs/retrieval/retrieval{_itm,}_gpt3_1.3B_youku_v0.
+   yaml) at full width and depth: clip-b16 (12 blocks, 8 heads of 96, the
+   0.1 lr scale on its leaves) and the frozen 1.3B decoder with its 0.1
+   dropouts, seeded weights, synthetic 224 px clips; the cuts printed on
+   a line ([downstream]).  Per recipe: 2 train steps (cls 32 clips x 8
+   frames, ITM 32 x 4, retrieval 96 x 4; finite, no skipped step, the
+   frozen decoder bitwise unchanged, leaves moved, the 0.1 lr scale on
+   exactly the CLIP tower's non-temporal leaves), launches per step (cls
+   and ITM: one K4, dq and dk/dv at d 96 and nothing else, the decoder
+   under dropout on plain attention; retrieval: 24 K1); the first batch
+   replayed with every wrapper plain on the same dropout generator (loss
+   gated; retrieval's gradients gated too) and, for cls and ITM, with
+   only the backward kernels plain (every gradient gated: one bf16 ulp
+   of AttentionPool's output moves the cls head's gradients ~10% through
+   the seeded decoder, so the all-plain gradients are printed); the
+   decoder input's zeroed share (0.1 within DROPOUT_SHARE_TOL); the
+   evaluation (cls: 45-way over 2 test batches, 4 clips a call; ITM: a
+   16 x 16 V x T matrix, 4 clips x 8 texts a call; retrieval: recall over
+   64 clips), its launches per call (one K4 d 96 and 48 K1; retrieval 24
+   K1 a text batch) and one call replayed plain; step ms, peak memory,
+   metrics ([cls], [itm], [retrieval] lines).
 """
 
 from __future__ import annotations
@@ -220,6 +249,25 @@ OWL_REL_TOL = 2.0 ** -4
 # instruct: times the replay's max |logit|)
 CAPTION_TIE_GAP = 2 * LOGIT_TOL
 OWL_TIE_REL = 2 * OWL_REL_TOL
+# the downstream recipes (phase 13): their reference YAMLs, 2 train steps,
+# 4 clips an evaluation call, the ITM and retrieval test splits' clips
+CLS_YAML = os.path.join(REPO, "configs", "cls",
+                        "cls_gpt3_1.3B_youku_v0_sharp_2.yaml")
+ITM_YAML = os.path.join(REPO, "configs", "retrieval",
+                        "retrieval_itm_gpt3_1.3B_youku_v0.yaml")
+RETRIEVAL_YAML = os.path.join(REPO, "configs", "retrieval",
+                              "retrieval_gpt3_1.3B_youku_v0.yaml")
+DOWNSTREAM_STEPS, DOWNSTREAM_EVAL_CLIPS = 2, 4
+DOWNSTREAM_SPLITS = {"itm": 16, "retrieval": 64}
+# the zeroed share of the decoder's input under dropout 0.1 (one draw of
+# ~10^7 values: its standard error is ~10^-4) and, without dropout, the
+# bound on exact zeros of bf16 embeddings
+DROPOUT_SHARE_TOL = 0.01
+# normalized retrieval features after 24 decoder layers in bf16, relative
+# L2: each attention call differs by a few bf16 ulps (2^-8), ~24 such
+# flips add up to about sqrt(24) x 2^-8 ~ 2%, and the bound leaves three
+# times that (as OWL_REL_TOL)
+FEATURE_TOL = 2.0 ** -4
 DISPATCH_K = 8          # decode steps a dispatch of the multi-step runs
 SAMPLE_REPLAYS = 10_000  # replays of the captured sampling step
 SAMPLE_YAML = os.path.join(REPO, "configs", "instruct",
@@ -493,6 +541,21 @@ ALIBI_SHAPES = [
     (2, 208, 208, 32, True, 0, None, "packed", 64, True, "d 64", False),
     (2, 256, 256, 32, True, 0, None, "head-major", 128, False,
      "d 128 without ALiBi", False)]
+
+
+# head dim 96, clip-b16's AttentionPool (8 heads of 96, 128 queries over
+# 1 + T x 196 tokens and the bias key, head views of [B, S, 768]
+# projections): the cls train step's 32 clips x 8 frames and the ITM
+# train step's 32 clips x 4 frames (forward and both backward kernels),
+# then an evaluation call's 4 clips of each (forward, split over the keys)
+D96_SHAPES = [
+    (32, 128, 1570, 8, False, 0, None, "heads", 96, False, "cls_train",
+     True),
+    (32, 128, 786, 8, False, 0, None, "heads", 96, False, "itm_train",
+     True),
+    (4, 128, 1570, 8, False, 0, None, "heads", 96, False, "cls_eval", True),
+    (4, 128, 786, 8, False, 0, None, "heads", 96, False, "itm_eval", True)]
+D96_PATHS = ("cls_train", "cls_eval", "itm_train", "itm_eval")
 
 
 # lengths of the decode cases: live keys 1 (the row the step writes),
@@ -779,17 +842,24 @@ def phase_kernels(dev):
     # K1 forward alone: vision spatial [B*T, 197, 12*64], temporal
     # [B*14, 112, 12*64] period 8 (B = 8 clips serving), the CLIP
     # ViT-L/14 frames [16 clips x 8 frames, 1 + 16*16, 16*64] of instruct
-    # serving and [8 x 8, 257, 16*64] of instruct training; q/k/v as
-    # views of one qkv projection
+    # serving and [8 x 8, 257, 16*64] of instruct training; the frozen
+    # 1.3B decoder's causal calls of the downstream evaluations: a cls
+    # call's 4 clips x 45 class pairs and an ITM call's 4 clips x 8 texts
+    # (128 queries + 80 tokens), and a retrieval text batch of 96 (80
+    # tokens); q/k/v as views of one qkv projection
     k1 = []
-    for rows, s, n, period, path in ((64, 197, 12, 0, "serve"),
-                                     (112, 112, 12, 8, "serve"),
-                                     (128, 257, 16, 0, "instruct"),
-                                     (64, 257, 16, 0, "instruct_train")):
+    for rows, s, n, period, causal, path in (
+            (64, 197, 12, 0, False, "serve"),
+            (112, 112, 12, 8, False, "serve"),
+            (128, 257, 16, 0, False, "instruct"),
+            (64, 257, 16, 0, False, "instruct_train"),
+            (180, 208, 32, 0, True, "cls_eval"),
+            (32, 208, 32, 0, True, "itm_eval"),
+            (96, 80, 32, 0, True, "retrieval")):
         nd = n * 64
         qkv = rand(rows, s, 3 * nd)
         q, k, v = qkv[..., :nd], qkv[..., nd:2 * nd], qkv[..., 2 * nd:]
-        kw = dict(period=period)
+        kw = dict(period=period, causal=causal)
         got = fa.flash_attention_packed(q, k, v, n, **kw)
         want = fa.flash_attention_packed_plain(q, k, v, n, **kw)
         views = [t.unflatten(-1, (n, 64)).transpose(1, 2)
@@ -798,12 +868,15 @@ def phase_kernels(dev):
                                 scale=0.125, **kw)
         _, want_lse = fa.flash_fwd_plain(*views, scale=0.125, **kw)
         e, e_lse = err(got, want), err(lse, want_lse)
-        shape = (f"[{rows},{s},{n}x64] period {period} ({path})")
+        shape = (f"[{rows},{s},{n}x64] "
+                 + ("causal" if causal else f"period {period}")
+                 + f" ({path})")
         if not (within(got, want) and e_lse <= LSE_TOL):
             fail(f"K1 {shape}: max err {e} (tol {KERNEL_TOL}), lse {e_lse} "
                  f"(tol {LSE_TOL})")
         lib, _ = _library_ms(*views, _sdpa_kwargs(fa, views[0], views[1],
-                                                  False, period, None, None))
+                                                  causal, period, None,
+                                                  None))
         k1.append({
             "shape": shape, "on_path": True, "max_abs_err": e,
             "lse_err": e_lse,
@@ -812,7 +885,8 @@ def phase_kernels(dev):
             "plain_ms": time_ms(lambda: fa.flash_attention_packed_plain(
                 q, k, v, n, **kw), 20),
             "library_ms": lib,
-            **_attn_bounds(fa, rows, n, s, s, 64, False, period, None)["fwd"]})
+            **_attn_bounds(fa, rows, n, s, s, 64, causal, period,
+                           None)["fwd"]})
 
     # K4: AttentionPool, q [B,12,128,64] over k/v [B,12,1570,64] (head
     # views of [B, S, 768] projections) at the serving (B 8, split two
@@ -860,6 +934,7 @@ def phase_kernels(dev):
     cases = [_bwd_case(rand, fa, *c) for c in BWD_SHAPES]
     alibi_cases = [_bwd_case(rand, fa, *c) for c in ALIBI_SHAPES]
     no_alibi_128 = alibi_cases.pop()
+    d96 = [_bwd_case(rand, fa, *c) for c in D96_SHAPES]
     k1 += [c["fwd"] for c in cases if c["layout"] == "packed"]
     k1.append(no_alibi_128["fwd"])
     # the pretrain K4 forward is timed above; the small kv_len case here
@@ -872,7 +947,8 @@ def phase_kernels(dev):
                ("serve", "train", "instruct", "instruct_train",
                 "serve_int8kv", "instruct_int8", "speculative_twin",
                 "speculative_ngram", "instruct_lookup", "instruct_sample",
-                "caption_train", "caption_eval"),
+                "caption_train", "caption_eval", "cls_eval", "itm_eval",
+                "retrieval_train", "retrieval_eval"),
                "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
@@ -902,6 +978,21 @@ def phase_kernels(dev):
             f"{kind}-ALiBi", [c[kind] for c in alibi_cases],
             counter="alibi_launches"))
 
+    train96 = [c for c, shape in zip(d96, D96_SHAPES)
+               if shape[10].endswith("_train")]
+    report.append(_entry(
+        "K4 flash_attention, head dim 96 (clip-b16 AttentionPool; the d "
+        "128 tiles with 32 zero columns; split-KV at an evaluation call's "
+        "4 clips)", FWD_SRC, f"{TPU_FLASH}:59", fa.flash_attention,
+        D96_PATHS, "K4-d96", [c["fwd"] for c in d96],
+        counter="d96_launches"))
+    for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 148),
+                                ("dkv", fa.flash_bwd_dkv_cuda, 195)):
+        report.append(_entry(
+            f"K4b backward {kind} kernel, head dim 96 (clip-b16 "
+            "AttentionPool)", BWD_SRC, f"{TPU_FLASH}:{line}", wrapper,
+            ("cls_train", "itm_train"), f"{kind}-d96",
+            [c[kind] for c in train96], counter="d96_launches"))
     report += _decode_entries(dec, kvc, rand)
     for r in report:
         lib = ("none" if r["library_ms"] is None
@@ -1311,22 +1402,32 @@ def phase_train(report, out_dir):
     return runner, stats
 
 
-def _flash_counts(fa):
-    return [getattr(f, c) for f in (fa.flash_bwd_dq_cuda,
-                                    fa.flash_bwd_dkv_cuda,
-                                    fa.flash_attention_packed,
-                                    fa.flash_attention)
-            for c in ("launches", "alibi_launches")]
+FLASH_COUNTERS = ("launches", "d96_launches", "alibi_launches")
 
 
-def _replay(runner, make_batch, make_loss_fn, tag, plain_when=None):
+def _flash_counts(fa, attrs=FLASH_COUNTERS, backward_only=False):
+    fns = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    if not backward_only:
+        fns += (fa.flash_attention_packed, fa.flash_attention)
+    return [getattr(f, c) for f in fns for c in attrs]
+
+
+def _replay(runner, make_batch, make_loss_fn, tag, plain_when=None,
+            make_gen=None, on_kernels=None, backward_only=False):
     """Loss and trainable gradients of the first batch with the kernels,
     then with the wrappers taking their plain versions on the card for
-    the calls ``plain_when(q)`` picks (all when None); the batch and
-    loss are built by the CLI functions the run used.  Fails if a call
-    that should be plain launched a kernel.  Returns (loss with the
-    kernels, loss plain, finite, whole gradient norm, per-leaf rows
-    (gated error, relative L2, norm, leaf) worst first)."""
+    the calls ``plain_when(q)`` picks (all when None), or with
+    ``backward_only`` the forward kernels in both runs and the plain
+    backward (``flash_bwd_plain``) in place of the backward kernels; the
+    batch and loss are built by the CLI functions the run used, and with
+    ``make_gen`` each run's loss takes a fresh generator from it (the
+    same dropout masks both times).  ``on_kernels``: a context manager
+    around the kernels' run.  Fails if a call that should be plain
+    launched a kernel.  Returns (loss with the kernels, loss plain,
+    finite, whole gradient norm, per-leaf rows (gated error, relative
+    L2, norm, leaf) worst first)."""
+    import contextlib
+
     from youku_mplug_tpu_torch.ops import flash_attention as fa
 
     runner.loader.set_epoch(0)
@@ -1337,22 +1438,26 @@ def _replay(runner, make_batch, make_loss_fn, tag, plain_when=None):
     def loss_and_grads():
         for p in params.values():
             p.grad = None
-        out = loss_fn(batch)
+        out = (loss_fn(batch) if make_gen is None
+               else loss_fn(batch, make_gen()))
         out["loss"].backward()
         grads = {k: p.grad for k, p in params.items() if p.grad is not None}
         for p in params.values():
             p.grad = None
         return out["loss"].item(), grads
 
-    loss_k, grads_k = loss_and_grads()
-    counts = _flash_counts(fa)
-    with mock.patch.object(fa, "_on_cpu", plain_when or (lambda t: True)):
-        loss_p, grads_p = loss_and_grads()
-    after = _flash_counts(fa)
+    with on_kernels or contextlib.nullcontext():
+        loss_k, grads_k = loss_and_grads()
     # all plain: no counter moves; else no ALiBi counter (the plain
     # calls are Bloom's, head dim 128)
-    keep = slice(None) if plain_when is None else slice(1, None, 2)
-    if counts[keep] != after[keep]:
+    attrs = FLASH_COUNTERS if plain_when is None else ("alibi_launches",)
+    counts = _flash_counts(fa, attrs, backward_only)
+    patch = (mock.patch.object(fa, "flash_bwd_cuda", fa.flash_bwd_plain)
+             if backward_only else
+             mock.patch.object(fa, "_on_cpu", plain_when or (lambda t: True)))
+    with patch:
+        loss_p, grads_p = loss_and_grads()
+    if counts != _flash_counts(fa, attrs, backward_only):
         fail(f"the {tag} launched a kernel it should not")
     if set(grads_k) != set(grads_p):
         fail(f"gradient leaves differ: {set(grads_k) ^ set(grads_p)}")
@@ -2198,6 +2303,321 @@ def phase_sampling(report, model, batch, clips):
         fail("sampled serving is not reproducible by its seed")
 
 
+def _downstream_yaml(path, overrides, out_dir):
+    """A copy of a reference YAML with ``overrides`` (the phase's cuts)
+    and its model JSONs named by absolute path."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    for key in ("text_cfg", "visual_cfg"):
+        raw[key] = os.path.join(REPO, raw[key])
+    raw.update(overrides)
+    dst = os.path.join(out_dir, os.path.basename(path))
+    with open(dst, "w") as f:
+        yaml.safe_dump(raw, f, allow_unicode=True)
+    return dst
+
+
+def _launches_per(report, path, units, want):
+    """Launches per unit (a train step, an evaluation call) of the run on
+    ``path``: each kernel key of ``want`` exactly that many, every other
+    kernel none."""
+    got = {r["key"]: r["launches_by_path"][path] / units for r in report}
+    if any(got[k] != v for k, v in want.items()) or any(
+            v for k, v in got.items() if k not in want):
+        fail(f"{path}: launches per unit {got} over {units}, expected "
+             f"{want} and no other kernel")
+    return {k: v for k, v in got.items() if v}
+
+
+def _clip_lr_scale(state):
+    """The AdamW groups at lr scale 0.1 hold exactly the CLIP tower's
+    non-temporal leaves, at a tenth of the other groups' lr."""
+    by_id = {id(p): k for k, p in state.trainable.items()}
+    groups = state.optimizer.torch_optimizer.param_groups
+    scaled = {by_id[id(p)] for g in groups if g["lr_scale"] == 0.1
+              for p in g["params"]}
+    want = {k for k in state.trainable
+            if "visual_encoder" in k and "temporal" not in k}
+    base = [g["lr"] for g in groups if g["lr_scale"] == 1.0]
+    ratios = {g["lr"] / base[0] for g in groups if g["lr_scale"] == 0.1}
+    if not want or scaled != want or not base or base[0] <= 0 or any(
+            abs(r - 0.1) > 1e-6 for r in ratios):
+        fail(f"lr scale: {len(scaled)} leaves at 0.1 ({len(want)} CLIP "
+             f"leaves), lr ratios {ratios}, base lr {base}")
+    return {"clip_leaves_at_0.1": len(scaled), "lr": base[0],
+            "clip_lr": base[0] * 0.1}
+
+
+def _plain(fn):
+    """``fn()`` with every flash wrapper on its plain version; fails if a
+    kernel launched."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    counts = _flash_counts(fa)
+    with mock.patch.object(fa, "_on_cpu", lambda t: True):
+        out = fn()
+    if counts != _flash_counts(fa):
+        fail("a plain replay launched a kernel")
+    return out
+
+
+def _eval_replay(tag, runner, module, prepared, split):
+    """One evaluation call with the kernels and again with the plain
+    versions: generative scores within RESCORE_TOL_PER_TOKEN a scored
+    token (cls: log-probabilities, each moved by at most twice the
+    largest score's error), head logits within LOGIT_TOL (ITM: P(match)
+    within LOGIT_TOL / 2), retrieval features within FEATURE_TOL
+    (relative L2).  Returns the errors and their bounds."""
+    model = runner.model
+    model.eval()
+    with torch.inference_mode():
+        if tag == "cls":
+            classnames = prepared[3]
+            raw = next(iter(prepared[2]))
+            raw = {k: v[:DOWNSTREAM_EVAL_CLIPS] for k, v in raw.items()}
+            got = module.score_batch(runner, raw, classnames)
+            want = _plain(lambda: module.score_batch(runner, raw,
+                                                     classnames))
+            text = runner.tokenizer(
+                [(module._title(t, runner.cfg.max_length), c)
+                 for t in raw["text"] for c in classnames])
+            scored = int((text["attention_mask"].sum(1) - 1
+                          - text["prompt_lengths"]).max())
+            lg, lw = (torch.from_numpy(x["generation_logits"]).clamp_min(
+                1e-30).log() for x in (got, want))
+            live = (lg > -69) & (lw > -69)  # neither underflowed
+            out = {"gen_logprob_err": (lg - lw).abs()[live].max().item(),
+                   "gen_bound": 2 * RESCORE_TOL_PER_TOKEN * scored,
+                   "cls_logit_err": err(torch.from_numpy(got["cls_logits"]),
+                                        torch.from_numpy(
+                                            want["cls_logits"])),
+                   "cls_bound": LOGIT_TOL,
+                   "top1_agree": float((got["generation_logits"].argmax(1)
+                                        == want["generation_logits"]
+                                        .argmax(1)).mean())}
+        elif tag == "itm":
+            video = torch.from_numpy(next(iter(prepared[0].loader))[
+                "video"][:DOWNSTREAM_EVAL_CLIPS]).to(runner.device)
+            texts = split.text[:module.TEXTS_PER_CALL]
+            got = module.score_block(runner, video, texts)
+            want = _plain(lambda: module.score_block(runner, video, texts))
+            scored = 2  # the yes word and eos
+            out = {"gen_err": float(abs(got[0] - want[0]).max()),
+                   "gen_bound": RESCORE_TOL_PER_TOKEN * scored,
+                   "cls_err": float(abs(got[1] - want[1]).max()),
+                   "cls_bound": LOGIT_TOL / 2}
+        else:
+            got = module.features(runner, split)
+            want = _plain(lambda: module.features(runner, split))
+            out = {"text_feature_rel_l2": rel_l2(torch.from_numpy(got[1]),
+                                                 torch.from_numpy(want[1])),
+                   "vision_feature_rel_l2": rel_l2(
+                       torch.from_numpy(got[0]), torch.from_numpy(want[0])),
+                   "bound": FEATURE_TOL}
+    model.train()
+    errs = [(out[k], out[b]) for k, b in (
+        ("gen_logprob_err", "gen_bound"), ("cls_logit_err", "cls_bound"),
+        ("gen_err", "gen_bound"), ("cls_err", "cls_bound"),
+        ("text_feature_rel_l2", "bound"), ("vision_feature_rel_l2", "bound"))
+        if k in out]
+    if any(not math.isfinite(e) or e > b for e, b in errs):
+        fail(f"[{tag}] evaluation scores against the plain versions: {out}")
+    return out
+
+
+def _downstream_task(report, tag, module, yaml_path, overrides, out_dir):
+    """One downstream recipe through its CLI's functions at full width and
+    depth: prepare (setup) on the reference YAML with the cuts,
+    DOWNSTREAM_STEPS train steps, the plain replay of the first step with
+    the same dropout generator and the dropout law on the decoder's
+    input, the evaluation, and one evaluation call replayed plain."""
+    from youku_mplug_tpu_torch.cli import common, run_cls
+    from youku_mplug_tpu_torch.data.datasets import SyntheticRetrievalSplit
+    from youku_mplug_tpu_torch.train.trainer import dropout_generator
+
+    cfg_path = _downstream_yaml(yaml_path, overrides, out_dir)
+    args = module.parser().parse_args([
+        "--config", cfg_path, "--synthetic_data", "--max_steps",
+        str(DOWNSTREAM_STEPS), "--device", "cuda", "--output_dir",
+        os.path.join(out_dir, tag)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    prepared = module.prepare(args)
+    runner = prepared[0]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg, state = runner.cfg, runner.state
+    layers = cfg.model.text.num_hidden_layers
+    make_batch = (run_cls.make_batch_factory(prepared[3], cfg.max_length)
+                  if tag == "cls" else module.make_batch)
+    held = torch.cuda.memory_allocated()
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    trainable0 = {k: p.detach().clone() for k, p in state.trainable.items()}
+    held = torch.cuda.memory_allocated() - held
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    history = common.train_one_epoch(runner, module.build_train_step(runner),
+                                     0, make_batch)
+    torch.cuda.synchronize()
+    _read_counts(report, f"{tag}_train")
+    train_peak = torch.cuda.max_memory_allocated() - held
+    if len(history) != DOWNSTREAM_STEPS or any(
+            not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))
+            or h["skipped_nonfinite"] != 0 for h in history):
+        fail(f"[{tag}] train steps: {history}")
+    changed = [k for k, p in state.frozen.items()
+               if not torch.equal(p.detach(), frozen0[k])]
+    if changed or any(p.dtype != torch.bfloat16
+                      for p in state.frozen.values()):
+        fail(f"[{tag}] the frozen decoder changed: {changed[:5]}")
+    moved = sum(not torch.equal(p.detach(), trainable0[k])
+                for k, p in state.trainable.items())
+    if moved == 0:
+        fail(f"[{tag}] no trainable leaf moved")
+    n_frozen = len(frozen0)
+    del frozen0, trainable0
+    want = ({"K1": layers} if tag == "retrieval" else
+            {"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1})
+    per_step = _launches_per(report, f"{tag}_train", len(history), want)
+    lr_scale = _clip_lr_scale(state)
+
+    # the plain replay of the first batch, the same dropout masks both
+    # runs; the decoder's first input (embeddings after dropout) sampled
+    # in the kernels' run
+    shares = []
+    decoder_layers = runner.model.text_decoder.decoder.layers
+
+    class _Sampled:
+        def __enter__(self):
+            self.h = decoder_layers.register_forward_pre_hook(
+                lambda mod, a: None if shares else shares.append(
+                    (a[0] == 0).float().mean().item()))
+
+        def __exit__(self, *exc):
+            self.h.remove()
+
+    dropout = tag != "retrieval"
+    make_gen = ((lambda: dropout_generator(args.seed, 0, runner.device))
+                if dropout else None)
+    loss_k, loss_p, finite, _, rows = _replay(
+        runner, make_batch, module.make_loss_fn,
+        f"{tag} replay, every wrapper plain", make_gen=make_gen,
+        on_kernels=_Sampled())
+    if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL or (
+            not dropout and rows[0][0] > REPLAY_GRAD_TOL):
+        fail(f"[{tag}] plain replay out of tolerance")
+    rel = sorted(r[1] for r in rows)
+    replay = {"loss_kernels": loss_k, "loss_plain": loss_p,
+              "grad_rel_l2_median": rel[len(rel) // 2],
+              "worst_gated_grad_err": rows[0][0], "worst_leaf": rows[0][3]}
+    if dropout:  # the backward kernels against plain on one forward
+        loss_k, loss_b, finite, _, rows = _replay(
+            runner, make_batch, module.make_loss_fn,
+            f"{tag} replay, backward plain", make_gen=make_gen,
+            backward_only=True)
+        if not finite or loss_k != loss_b or rows[0][0] > REPLAY_GRAD_TOL:
+            fail(f"[{tag}] backward replay out of tolerance")
+        replay |= {"backward_worst_gated_grad_err": rows[0][0],
+                   "backward_worst_leaf": rows[0][3]}
+    rate = cfg.model.text.hidden_dropout
+    if not shares or (abs(shares[0] - rate) > DROPOUT_SHARE_TOL if dropout
+                      else shares[0] > DROPOUT_SHARE_TOL):
+        fail(f"[{tag}] the decoder input's zeroed share {shares} (dropout "
+             f"{rate if dropout else 0}, tol {DROPOUT_SHARE_TOL})")
+
+    # the evaluation
+    split = None
+    if tag != "cls":
+        split = SyntheticRetrievalSplit(DOWNSTREAM_SPLITS[tag],
+                                        num_frames=cfg.num_frames,
+                                        size=cfg.image_res)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    t0 = time.perf_counter()
+    if tag == "cls":
+        metrics = module.evaluation(runner, prepared[2], prepared[3])
+        calls = -(-cfg.batch_size // DOWNSTREAM_EVAL_CLIPS) * DOWNSTREAM_STEPS
+    elif tag == "itm":
+        metrics = module.evaluation(runner, split)
+        calls = -(-len(split) // int(cfg.get("eval_video_batch", 4))) * -(
+            -len(split.text) // module.TEXTS_PER_CALL)
+    else:
+        metrics = module.evaluation(runner, split)
+        calls = -(-len(split.text) // cfg.batch_size)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    _read_counts(report, f"{tag}_eval")
+    eval_peak = torch.cuda.max_memory_allocated()
+    want = ({"K1": layers} if tag == "retrieval" else
+            {"K4-d96": 1, "K1": 2 * layers})
+    per_call = _launches_per(report, f"{tag}_eval", calls, want)
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"[{tag}] evaluation metrics {metrics}")
+    eval_replay = _eval_replay(tag, runner, module, prepared, split)
+
+    step_ms = [h["step_time"] * 1e3 for h in history]
+    out = {"yaml": os.path.relpath(yaml_path, REPO), "cuts": overrides,
+           "setup_s": setup_s, "steps": len(history),
+           "batch": cfg.batch_size, "frames": cfg.num_frames,
+           "step_ms_each": step_ms,
+           "clips_per_s_last": cfg.batch_size / history[-1]["step_time"],
+           **{k: [h[k] for h in history] for k in history[0]
+              if k.startswith("loss") or k in ("grad_norm", "lr")},
+           "train_peak_memory_gib": train_peak / 2 ** 30,
+           "launches_per_step": per_step,
+           "trainable_leaves_moved": f"{moved}/{len(state.trainable)}",
+           "frozen_leaves_unchanged": n_frozen, "lr_scale": lr_scale,
+           "decoder_input_zero_share": shares[0],
+           "replay": replay,
+           "eval_s": eval_s, "eval_calls": calls,
+           "eval_ms_per_call": eval_s / calls * 1e3,
+           "launches_per_eval_call": per_call,
+           "eval_peak_memory_gib": eval_peak / 2 ** 30,
+           "metrics": metrics, "eval_replay": eval_replay}
+    print(f"[{tag}] {json.dumps(out, ensure_ascii=False)}", flush=True)
+    return out
+
+
+def phase_downstream(report, out_dir):
+    """Phase 13, the downstream recipes (cls, ITM rerank, dual-encoder
+    retrieval) on their reference YAMLs: clip-b16 and the 1.3B decoder
+    with its 0.1 dropouts, seeded weights, synthetic 224 px clips."""
+    from youku_mplug_tpu_torch.cli import run_cls, run_retrieval
+    from youku_mplug_tpu_torch.cli import run_retrieval_itm
+
+    t_phase = time.perf_counter()
+    print("[downstream] cuts: an evaluation call scores "
+          f"{DOWNSTREAM_EVAL_CLIPS} clips (eval_video_batch; 45 x 32 "
+          "pairs of 208 positions would hold a 61 GB fp32 logits tensor); "
+          "the ITM match head has num_classes 2 (the YAML's 1-way head is "
+          "refused, ROADMAP Queue 3); the ITM batch is 32 clips, not the "
+          "YAML's 96 (3 x 96 decoder rows of 208 positions, twice, would "
+          "hold ~150 GB of activations); synthetic clips and seeded weights; "
+          "the synthetic splits are sized for "
+          f"{DOWNSTREAM_STEPS} train batches and the evaluations "
+          f"({DOWNSTREAM_SPLITS})", flush=True)
+    out = {}
+    for tag, module, path, cuts in (
+            ("cls", run_cls, CLS_YAML,
+             {"eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
+              "synthetic_length": 64}),
+            ("itm", run_retrieval_itm, ITM_YAML,
+             {"num_classes": 2, "eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
+              "batch_size": 32, "synthetic_length": 64}),
+            ("retrieval", run_retrieval, RETRIEVAL_YAML,
+             {"synthetic_length": 192})):
+        out[tag] = _downstream_task(report, tag, module, path, cuts,
+                                    out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[downstream] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return out
+
+
 def phase_instruct_train(report, out_dir):
     """The run_instruct CLI's training path (``--train``) at the full
     width and depth of configs/instruct/train_bloomz_7b_flagship.yaml:
@@ -2326,6 +2746,10 @@ def main():
         holder = [runner]
         del runner
         phase_caption(report, holder, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_downstream(report, out_dir)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:

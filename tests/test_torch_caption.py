@@ -292,8 +292,10 @@ def test_run_caption_refuses_what_is_not_ported(tmp_path):
     args.evaluate_only = True
     with pytest.raises(FileNotFoundError, match="no checkpoint"):
         run_caption.prepare(args)
-    with pytest.raises(NotImplementedError, match="use_cls"):
-        load_config(tiny_caption_yaml(tmp_path, "cls", use_cls=True))
+    # use_cls is ported: the heads are built, and caption_loss ignores
+    # them (test_run_caption_on_the_reference_recipe_keys)
+    assert load_config(tiny_caption_yaml(tmp_path, "cls", use_cls=True)
+                       ).model.use_cls
     with pytest.raises(NotImplementedError, match="async_checkpointing"):
         args.evaluate_only = False
         args.config = tiny_caption_yaml(tmp_path, "async",
@@ -305,6 +307,38 @@ def test_run_caption_refuses_what_is_not_ported(tmp_path):
                                     text_decoder=str(tmp_path / "tok"))
     with pytest.raises(NotImplementedError, match="JiebaBPE"):
         run_caption.prepare(args)
+
+
+def test_run_caption_on_the_reference_recipe_keys(tmp_path):
+    """A tiny copy of caption_gpt3_1.3B_youku_v0.yaml's keys: a clip_model
+    tower (norm_pre, heads of 96), the decoder's 0.1 dropouts drawn in
+    training, and use_cls.  The cls heads are built and left out of
+    caption_loss, as in JAX: they take no gradient and do not move."""
+    (tmp_path / "clip.json").write_text(json.dumps(dict(
+        TINY_VISION, embed_dim=192, num_heads=2, clip_model=True)))
+    (tmp_path / "drop.json").write_text(json.dumps(dict(
+        TINY_TEXT, hidden_dropout_prob=0.1,
+        attention_probs_dropout_prob=0.1)))
+    cfg = tiny_caption_yaml(tmp_path, "ref", use_cls=True,
+                            visual_cfg=str(tmp_path / "clip.json"),
+                            text_cfg=str(tmp_path / "drop.json"))
+    model = load_config(cfg).model
+    assert model.use_cls and model.vision.clip_model
+    assert model.text.hidden_dropout == model.text.attention_dropout == 0.1
+    out = tmp_path / "out"
+    runner = _run(cfg, out)
+    tm = runner.model
+    assert tm.visual_encoder.norm_pre is not None
+    assert tm.cls_fc2.kernel.shape[1] == 1  # max(num_classes, 1)
+    log = [json.loads(line) for line in (out / "log.txt").read_text()
+           .splitlines()]
+    assert np.isfinite(log[0]["loss"]) and "CIDEr" in log[-1]["test"]
+    assert runner.state.optimizer.config.visual_backbone_scale
+    again = tmp_path / "again"
+    _run(cfg, again)  # the same seed: the same dropout masks
+    log2 = [json.loads(line) for line in (again / "log.txt").read_text()
+            .splitlines()]
+    assert log2[0]["loss"] == log[0]["loss"]
 
 
 def test_generation_config_reads_the_yaml(tmp_path):

@@ -180,14 +180,26 @@ def test_config_keeps_dropout_from_json():
 
 
 def test_training_with_dropout_raises_until_it_is_ported():
+    """Dropout is ported (tests/test_torch_dropout.py holds its law): a
+    training forward at the 0.1 default draws masks from the generator it
+    is given and differs from the eval forward; without a generator, or
+    in eval mode, it draws nothing and equals the eval forward."""
     cfg = tgpt3.GPT3Config(vocab_size=32, hidden_size=16,
                            num_hidden_layers=1, num_attention_heads=2,
                            max_position_embeddings=16)
     lm = bridge.seeded_init(tgpt3.GPT3LM(cfg, FP32_POLICY), 0)
     tokens = torch.zeros(1, 4, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        lm.train()(tokens=tokens)
-    assert lm.eval()(tokens=tokens)["last_hidden_state"].shape == (1, 4, 16)
+    want = lm.eval()(tokens=tokens)["last_hidden_state"]
+    assert want.shape == (1, 4, 16)
+    gen = torch.Generator().manual_seed(0)
+    state = gen.get_state()
+    assert torch.equal(lm.eval()(tokens=tokens, generator=gen)[
+        "last_hidden_state"], want)
+    assert torch.equal(lm.train()(tokens=tokens)["last_hidden_state"], want)
+    assert torch.equal(gen.get_state(), state)  # nothing drawn
+    got = lm.train()(tokens=tokens, generator=gen)["last_hidden_state"]
+    assert not torch.equal(got, want)
+    assert not torch.equal(gen.get_state(), state)
 
 
 @pytest.mark.parametrize("remat,ce_chunk", [(False, 0), (True, 4)])

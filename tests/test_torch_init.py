@@ -16,7 +16,9 @@ xavier_uniform).  The draws are not JAX's bits, only their law.
 
 ``load_config`` raises on the YAML keys that make the JAX loader build or
 load another model (a top-level ``lora_rank``, ``import_torch_weights``)
-and still loads every port YAML of the repo.
+and still loads every port YAML of the repo.  The downstream case is the
+cls / retrieval / ITM tree (clip_model tower, ``use_cls`` heads and the
+projections, from ``full_init``).
 """
 
 import dataclasses
@@ -65,6 +67,25 @@ def _pretrain_models():
     return want, tm
 
 
+def _downstream_models():
+    """The cls / retrieval / ITM tree: the tiny flagship with clip-b16's
+    tower form (clip_model, heads of 96) and the use_cls heads, from
+    full_init (with vision_proj and text_proj)."""
+    j0, t0 = _flagship_cfg(tiny=True), flagship_config(tiny=True)
+    vis = dict(embed_dim=192, num_heads=2, clip_model=True)
+    jcfg = dataclasses.replace(j0, vision=dataclasses.replace(
+        j0.vision, **vis), use_cls=True, num_classes=3)
+    tcfg = dataclasses.replace(t0, vision=dataclasses.replace(
+        t0.vision, **vis), use_cls=True, num_classes=3)
+    jm = jtasks.MPLUGVideo(jcfg, policy=J_FP32)
+    v = jcfg.vision
+    ids = jnp.zeros((2, 8), jnp.int32)
+    want = jm.init(jax.random.key(0), jnp.zeros(
+        (2, 3, v.num_frames, v.img_size, v.img_size)), ids,
+        jnp.ones_like(ids), method=jtasks.MPLUGVideo.full_init)["params"]
+    return want, ttasks.MPLUGVideo(tcfg, FP32_POLICY, proj_heads=True)
+
+
 def _owl_models():
     from test_torch_owl import tiny_cfgs
 
@@ -103,9 +124,10 @@ def _check_leaf(name, x, kind, arg):
         assert np.abs(x).max() <= bound * (1 + 1e-6), (name, bound)
 
 
-@pytest.mark.parametrize("which", ["pretrain", "owl"])
+@pytest.mark.parametrize("which", ["pretrain", "owl", "downstream"])
 def test_jax_init_follows_jax_model_init(which):
-    want, tm = _pretrain_models() if which == "pretrain" else _owl_models()
+    want, tm = {"pretrain": _pretrain_models, "owl": _owl_models,
+                "downstream": _downstream_models}[which]()
     bridge.jax_init(tm, 0)
     want = {k: np.asarray(v) for k, v in _flat(jax.device_get(want)).items()}
     got = {bridge.jax_path(k): p.detach().numpy()
@@ -120,9 +142,11 @@ def test_jax_init_follows_jax_model_init(which):
                         ("port", got[bridge.jax_path(name)])):
             _check_leaf(f"{side} {name}", x, kind, arg)
     # every kind of draw the two models use is exercised
-    assert kinds == ({"const", "trunc", "normal", "xavier", "lecun"}
-                     if which == "pretrain" else
-                     {"const", "trunc", "normal"})
+    assert kinds == ({"const", "trunc", "normal"} if which == "owl" else
+                     {"const", "trunc", "normal", "xavier", "lecun"})
+    if which == "downstream":
+        assert "visual_encoder/norm_pre/scale" in got
+        assert bridge._jax_rule(tm, "cls_fc2.kernel", {}) == ("lecun", None)
 
 
 def test_jax_init_zero_leaves_and_scaled_projections():

@@ -428,6 +428,35 @@ def test_flash_bwd_plain_matches_pallas_vjp_head_major(kv_len):
         assert not got[2][:, :, kv_len:].any()
 
 
+@pytest.mark.parametrize("sk,kv_len", [(1571, None), (150, 131)])
+def test_flash_d96_plain_matches_pallas_interpret(sk, kv_len):
+    """K4 and K4b at head dim 96 (clip-b16's AttentionPool, 8 heads of 96;
+    here 2 heads): the forward and jax.vjp of the Pallas head-major kernel
+    in interpret mode against flash_fwd_plain and flash_bwd_plain on the
+    same q, k, v, dO, at AttentionPool's 128 queries over 1 + 8 x 196
+    keys and the bias key, and over a padded static kv_len."""
+    from youku_mplug_tpu_torch.ops.flash_attention import flash_bwd_plain
+
+    rng = np.random.default_rng(15 + sk)
+    b, h, sq, d = 2, 2, 128, 96
+    q, do = (rng.normal(size=(b, h, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(b, h, sk, d)).astype(np.float32)
+            for _ in range(2))
+    with _interpret():
+        out, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention(
+            q_, k_, v_, kv_len=kv_len), jnp.asarray(q), jnp.asarray(k),
+            jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+    kw = dict(scale=d ** -0.5, kv_len=kv_len)
+    o, lse = flash_fwd_plain(_t(q), _t(k), _t(v), **kw)
+    _close(o, out)
+    _close(flash_attention(_t(q), _t(k), _t(v), kv_len=kv_len), out)
+    got = flash_bwd_plain(_t(q), _t(k), _t(v), o, lse, _t(do), **kw)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
 @pytest.mark.parametrize("causal,kv_len", [(False, None), (True, None),
                                            (False, 9)])
 def test_flash_bwd_plain_matches_autograd_of_mha_reference(causal, kv_len):
@@ -935,3 +964,85 @@ def test_cuda_flash_autograd_matches_plain_autograd(cuda_device):
         out.backward(g_out)
         grads.append(x.grad)
     assert _rel_l2(grads[0], grads[1]) <= 2.0 ** -6
+
+
+# (rows, Sq, Sk, heads, causal, period, kv_len): head dim 96, the
+# clip-b16 AttentionPool's q [B, 8, 128, 96] over 1 + 8 x 196 keys and
+# the bias key at a reduced batch (one split: the forward fills the card)
+# and at one sample (split-KV, the merge at 96 columns), then a static
+# kv_len, the causal and period masks and a three-query sequence over
+# five keys (one tile, mostly zero-filled)
+D96_CASES = [(2, 128, 1570, 8, False, 0, None),
+             (1, 128, 1570, 2, False, 0, None),
+             (2, 65, 130, 1, False, 0, 70), (2, 208, 208, 2, True, 0, None),
+             (2, 112, 112, 2, False, 8, None), (2, 3, 5, 2, False, 0, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,sq,sk,n,causal,period,kv_len", D96_CASES)
+def test_cuda_flash_d96_matches_plain(cuda_device, rows, sq, sk, n, causal,
+                                      period, kv_len):
+    """K4 and K4b at head dim 96 on head views of [B, S, n*96]
+    projections: the forward's o and lse, then the dq and dk/dv kernels
+    against flash_bwd_plain on the same (q, k, v, o, lse, dO); only the
+    head-dim-96 counters rise, and keys past kv_len get exactly zero."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(sq + sk + n)
+    d = 96
+    q = _bf16(rng, rows, sq, n * d, device=cuda_device).unflatten(
+        -1, (n, d)).transpose(1, 2)
+    k, v = (_bf16(rng, rows, sk, n * d, device=cuda_device).unflatten(
+        -1, (n, d)).transpose(1, 2) for _ in range(2))
+    kw = dict(scale=d ** -0.5, causal=causal, period=period, kv_len=kv_len)
+    wrappers = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    before = [(f.launches, f.d96_launches) for f in wrappers]
+    o = fa._head_major_empty(q)
+    lse = flash_fwd_cuda(q, k, v, o, **kw)
+    want_o, want_lse = flash_fwd_plain(q, k, v, **kw)
+    _bf16_close(o, want_o)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    do = _bf16(rng, rows, n, sq, d, device=cuda_device)
+    got = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert [(f.launches, f.d96_launches) for f in wrappers] == [
+        (a, b + 1) for a, b in before]
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= 2.0 ** -7, (name, _rel_l2(g, w))
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any()
+        assert not got[2][:, :, kv_len:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_flash_d96_autograd_counts_and_refuses_alibi(cuda_device):
+    """AttentionPool's call through the autograd Function at head dim 96:
+    one forward, dq and dk/dv launch each on the d96 counters, gradients
+    against autograd of the plain forward; ALiBi is not built at 96."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(23)
+    q0 = _bf16(rng, 2, 128, 8 * 96, device=cuda_device)
+    kv0 = _bf16(rng, 2, 300, 2 * 8 * 96, device=cuda_device)
+    g_out = _bf16(rng, 2, 8, 128, 96, device=cuda_device)
+    fns = (fa.flash_attention, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_plain):
+        before = [(f.launches, f.d96_launches) for f in fns]
+        x, y = q0.clone().requires_grad_(), kv0.clone().requires_grad_()
+        heads = [t.unflatten(-1, (8, 96)).transpose(1, 2)
+                 for t in (x, y[..., :768], y[..., 768:])]
+        fn(*heads).backward(g_out)
+        torch.cuda.synchronize()
+        after = [(f.launches, f.d96_launches) for f in fns]
+        assert after == ([(a, b + 1) for a, b in before]
+                         if fn is fa.flash_attention else before)
+        grads.append((x.grad, y.grad))
+    for got, want in zip(*grads):
+        assert _rel_l2(got, want) <= 2.0 ** -6
+    x = q0[..., :2 * 96].unflatten(-1, (2, 96))
+    with pytest.raises(ValueError, match="ALiBi"):
+        fa.flash_attention_packed(x, x, x, 2, causal=True,
+                                  alibi_slopes=[0.5, 0.25])

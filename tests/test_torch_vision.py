@@ -176,13 +176,14 @@ def test_seeded_init_is_deterministic_and_nonzero():
 
 
 def test_vision_config_rejects_clip_towers():
-    """A CLIP tower runs as the plain VisionTransformer; the clip_model
-    TimeSformer (its norm_pre) and vision LoRA are not ported and
-    raise."""
+    """A CLIP tower builds both ways: the clip_model TimeSformer (clip-b16)
+    and the plain VisionTransformer carry ``norm_pre`` and a bias-free
+    patch embedding (tests/test_torch_downstream.py holds the TimeSformer
+    against JAX); vision LoRA is not ported and still raises."""
     cfg = dataclasses.replace(flagship_config(tiny=True).vision,
                               clip_model=True)
-    with pytest.raises(NotImplementedError, match="TimeSformer"):
-        tvision.TimeSformer(cfg, FP32_POLICY)
+    tower = tvision.TimeSformer(cfg, FP32_POLICY)
+    assert tower.norm_pre is not None and tower.patch_embed.bias is None
     with pytest.raises(NotImplementedError, match="LoRA"):
         dataclasses.replace(cfg, lora_rank=4)
     assert tvision.VisionTransformer(cfg, FP32_POLICY).norm_pre is not None

@@ -278,8 +278,8 @@ def _jax_rule(module: nn.Module, name: str, lora_stds: Dict[str, float]):
             return (("xavier", None) if leaf in (
                 "q_kernel", "k_kernel", "v_kernel", "out_kernel")
                 else ("trunc", VISION_INIT_STD))
-        if root in ("vision_proj", "text_proj"):  # default Dense
-            return ("lecun", None)
+        if root in ("vision_proj", "text_proj", "cls_fc1", "cls_fc2"):
+            return ("lecun", None)  # default Dense (tasks.py:124-144)
     raise KeyError(f"jax_init: no JAX initializer known for {name}")
 
 

@@ -116,9 +116,11 @@ def build_tokenizer(cfg: RunConfig) -> BatchTokenizer:
                           max_length=cfg.max_length)
 
 
-def setup(args, cfg: RunConfig, loader: Loader) -> Runner:
+def setup(args, cfg: RunConfig, loader: Loader,
+          proj_heads: bool = False) -> Runner:
     """The model, its train state, checkpoints and the resume (see the
-    module docstring); ``loader`` is the training loader."""
+    module docstring); ``loader`` is the training loader, ``proj_heads``
+    the model's (``MPLUGVideo``)."""
     device = device_of(args)
     niter = len(loader) if args.max_steps <= 0 else min(len(loader),
                                                         args.max_steps)
@@ -126,7 +128,7 @@ def setup(args, cfg: RunConfig, loader: Loader) -> Runner:
                                         niter_per_ep=max(niter, 1))
     policy = FP32_POLICY if args.fp32 else DEFAULT_POLICY
     with device:
-        model = MPLUGVideo(cfg.model, policy)
+        model = MPLUGVideo(cfg.model, policy, proj_heads=proj_heads)
     jax_init(model, args.seed)  # the JAX runner's model.init rules
     state, _, schedule = create_train_state(
         model, cfg.optimizer,
@@ -307,10 +309,12 @@ def write_log(args, entry: dict):
         f.write(json.dumps(entry, ensure_ascii=False) + "\n")
 
 
-def train_epochs(runner: Runner, train_step, make_batch: Callable) -> Runner:
+def train_epochs(runner: Runner, train_step, make_batch: Callable,
+                 validate: Optional[Callable[[Runner], dict]] = None
+                 ) -> Runner:
     """The epochs from ``runner.start_epoch`` to ``runner.cfg.epochs``,
     each ending in ``save_epoch`` and one ``log.txt`` line of its step
-    means."""
+    means (and, with ``validate``, its metrics as ``val_<name>``)."""
     for epoch in range(runner.start_epoch, runner.cfg.epochs):
         t0 = time.time()
         history = train_one_epoch(runner, train_step, epoch, make_batch)
@@ -318,6 +322,22 @@ def train_epochs(runner: Runner, train_step, make_batch: Callable) -> Runner:
         save_epoch(runner, epoch)
         means = {k: float(np.mean([h[k] for h in history]))
                  for k in (history[0] if history else {})}
+        val = validate(runner) if validate is not None else {}
         write_log(runner.args, {"epoch": epoch, **means,
+                                **{f"val_{k}": v for k, v in val.items()},
                                 "epoch_time": time.time() - t0})
     return runner
+
+
+def to_device(runner: Runner, arrays: Dict[str, Any]
+              ) -> Dict[str, torch.Tensor]:
+    """numpy arrays -> tensors on the runner's device: ``input_ids`` and
+    ``prompt_ids`` as int64 (the embeddings' index type), the rest in
+    their own dtypes."""
+    out = {}
+    for k, v in arrays.items():
+        t = torch.from_numpy(np.asarray(v))
+        if k in ("input_ids", "prompt_ids"):
+            t = t.long()
+        out[k] = t.to(runner.device)
+    return out

@@ -1,0 +1,223 @@
+"""Video category prediction CLI: finetune, then the 45-way evaluation.
+
+Counterpart of ``youku_mplug_tpu/cli/run_cls.py`` on ``cli/common.py``.
+Each clip's title makes the prompt ``视频标题：{title} 视频类目：`` and
+its class name the target: training takes the prefix-LM loss of that
+pair plus (``use_cls``) the classifier head's cross-entropy on the title
+(``cls_train_loss``), with the decoder's dropout drawn from the step's
+generator.  Evaluation scores every clip against every class name
+(``cls_eval_scores``: the softmax over the classes of each pair's
+sequence log-likelihood, and the head's logits) and reports top-1 and
+top-5 accuracy, generative (``gen_*``) and from the head (``cls_*``).
+Each epoch saves a checkpoint and evaluates the validation split;
+``--evaluate_only --resume <dir>`` only evaluates the test split, and
+``--max_steps`` caps the evaluation batches too.
+
+The class names come from ``classname_file`` (``classname.json``: name ->
+index), else ``类目<i>``; with ``--synthetic_data`` the first
+``num_classes`` (the synthetic labels are index mod ``num_classes``).
+One cut of the port, for memory: ``eval_video_batch`` (a YAML key the
+JAX cls runner does not read) scores a test batch that many clips a call
+(45 x 32 pairs of 208 positions would hold a 61 GB fp32 logits tensor at
+the reference's batch 32); unset, a call takes the whole batch, as in
+JAX.  The results are the same either way.  Only ``--synthetic_data`` is
+ported (no video decoding).
+
+Usage (the card is the default device; ``--device cpu --fp32`` runs a
+tiny config on the CPU), on a copy of
+``configs/cls/cls_gpt3_1.3B_youku_v0_sharp_2.yaml`` with
+``eval_video_batch: 4`` added (one H100 holds 4 clips x 45 pairs a call):
+    python -m youku_mplug_tpu_torch.cli.run_cls --config <that copy> \\
+        --synthetic_data --max_steps 2 --output_dir out
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from youku_mplug_tpu_torch.cli import common
+from youku_mplug_tpu_torch.config import RunConfig, load_config
+from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
+from youku_mplug_tpu_torch.data.loader import Loader
+from youku_mplug_tpu_torch.evals.metrics import topk_accuracy
+from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+from youku_mplug_tpu_torch.train.trainer import make_train_step
+
+PROMPT = "视频标题：{} 视频类目："
+
+
+def parser():
+    return common.base_parser("video category prediction (PyTorch)")
+
+
+def load_classnames(cfg: RunConfig) -> List[str]:
+    """``classname_file`` (a name -> index dict, or a list), else
+    ``类目<i>`` for ``num_classes`` (default 45) classes."""
+    path = cfg.get("classname_file", "classname.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            raw = json.load(f)
+        if isinstance(raw, dict):
+            idx2label = {int(v): k for k, v in raw.items()}
+            return [idx2label[i] for i in range(len(idx2label))]
+        return list(raw)
+    return [f"类目{i}" for i in range(cfg.get("num_classes", 45))]
+
+
+def build_loaders(args, cfg: RunConfig) -> Tuple[Loader, Loader, Loader]:
+    """Train (shuffled), validation and test loaders over synthetic clips
+    labelled index mod ``num_classes``."""
+    if not args.synthetic_data:
+        raise NotImplementedError(
+            "classification csv files need the video decoding "
+            "(youku_mplug_tpu/data/video_decode.py), which is not ported "
+            "yet: pass --synthetic_data")
+
+    def loader(shuffle):
+        ds = SyntheticVideoDataset(length=cfg.get("synthetic_length", 32),
+                                   num_frames=cfg.num_frames,
+                                   size=cfg.image_res,
+                                   num_classes=cfg.get("num_classes", 5))
+        return Loader(ds, cfg.batch_size, seed=args.seed, shuffle=shuffle)
+    return loader(True), loader(False), loader(False)
+
+
+def prepare(args) -> Tuple[common.Runner, Loader, Loader, List[str]]:
+    """The runner (``common.setup``), the validation and test loaders and
+    the class names."""
+    cfg = load_config(args.config)
+    train_loader, val_loader, test_loader = build_loaders(args, cfg)
+    runner = common.setup(args, cfg, train_loader)
+    classnames = load_classnames(cfg)
+    if args.synthetic_data:
+        classnames = classnames[:cfg.get("num_classes", 5)]
+    return runner, val_loader, test_loader, classnames
+
+
+def _title(t: str, max_length: int) -> str:
+    return PROMPT.format(t[:max_length - 15])
+
+
+def make_batch_factory(classnames: List[str], max_length: int):
+    def make_batch(runner: common.Runner, raw) -> Dict[str, torch.Tensor]:
+        titles = raw["text"]
+        labels = np.asarray(raw["label"], np.int64)
+        text = runner.tokenizer([(_title(t, max_length), classnames[la])
+                                 for t, la in zip(titles, labels)],
+                                padding="max_length")
+        prompt = runner.tokenizer(list(titles), padding="max_length")
+        return common.to_device(runner, {
+            "video": raw["video"], "input_ids": text["input_ids"],
+            "attention_mask": text["attention_mask"],
+            "prompt_lengths": text["prompt_lengths"],
+            "prompt_ids": prompt["input_ids"],
+            "prompt_mask": prompt["attention_mask"], "labels": labels})
+    return make_batch
+
+
+def make_loss_fn(model: MPLUGVideo):
+    def loss_fn(batch, generator=None):
+        video = normalize_clip(batch["video"],
+                               dtype=model.policy.compute_dtype)
+        return model.cls_train_loss(
+            video, batch["input_ids"], batch["attention_mask"],
+            batch["prompt_lengths"], prompt_ids=batch["prompt_ids"],
+            prompt_mask=batch["prompt_mask"], labels=batch["labels"],
+            generator=generator)
+    return loss_fn
+
+
+def build_train_step(runner: common.Runner):
+    return make_train_step(make_loss_fn(runner.model),
+                           update_freq=runner.cfg.update_freq,
+                           dropout_seed=runner.args.seed)
+
+
+def score_batch(runner: common.Runner, raw, classnames: List[str]
+                ) -> Dict[str, np.ndarray]:
+    """One test batch against every class name, ``eval_video_batch``
+    clips a call: fp32 numpy ``generation_logits`` [B, C] and, with
+    ``use_cls``, ``cls_logits``."""
+    cfg, model = runner.cfg, runner.model
+    num_cls, max_length = len(classnames), cfg.max_length
+    titles = list(raw["text"])
+    per_call = int(cfg.get("eval_video_batch") or len(titles))
+    outs: Dict[str, list] = {"generation_logits": [], "cls_logits": []}
+    for i in range(0, len(titles), per_call):
+        part = titles[i:i + per_call]
+        text = runner.tokenizer([(_title(t, max_length), c) for t in part
+                                 for c in classnames], padding="max_length")
+        prompt = runner.tokenizer(part, padding="max_length")
+        b = common.to_device(runner, {
+            "video": raw["video"][i:i + per_call],
+            "input_ids": text["input_ids"],
+            "attention_mask": text["attention_mask"],
+            "prompt_lengths": text["prompt_lengths"],
+            "prompt_ids": prompt["input_ids"],
+            "prompt_mask": prompt["attention_mask"]})
+        out = model.cls_eval_scores(
+            normalize_clip(b["video"], dtype=model.policy.compute_dtype),
+            b["input_ids"], b["attention_mask"], b["prompt_lengths"],
+            prompt_ids=b["prompt_ids"], prompt_mask=b["prompt_mask"],
+            num_cls=num_cls)
+        for k, v in out.items():
+            if v is not None:
+                outs[k].append(v.float().cpu().numpy())
+    return {k: np.concatenate(v) for k, v in outs.items() if v}
+
+
+def evaluation(runner: common.Runner, loader: Loader,
+               classnames: List[str]) -> Dict[str, float]:
+    """Top-1 / top-5 accuracy (percent) over the loader's batches (at most
+    --max_steps of them): generative, and the head's under ``use_cls``."""
+    num_cls, max_steps = len(classnames), runner.args.max_steps
+    topk = (1, min(5, num_cls))
+    gen_hits, cls_hits, n_total = np.zeros(2), np.zeros(2), 0
+    training = runner.model.training
+    runner.model.eval()
+    try:
+        with torch.inference_mode():
+            for it, raw in enumerate(loader):
+                if 0 < max_steps <= it:
+                    break
+                labels = np.asarray(raw["label"])
+                out = score_batch(runner, raw, classnames)
+                gen_hits += np.array(topk_accuracy(
+                    out["generation_logits"], labels, topk)) * len(labels)
+                if "cls_logits" in out:
+                    cls_hits += np.array(topk_accuracy(
+                        out["cls_logits"], labels, topk)) * len(labels)
+                n_total += len(labels)
+    finally:
+        runner.model.train(training)
+    n = max(n_total, 1)
+    res = {"gen_top1_accuracy": gen_hits[0] / n,
+           "gen_top5_accuracy": gen_hits[1] / n}
+    if runner.cfg.model.use_cls:
+        res.update(cls_top1_accuracy=cls_hits[0] / n,
+                   cls_top5_accuracy=cls_hits[1] / n)
+    print(f"* Generation Top-1 Accuracy {res['gen_top1_accuracy']:.3f}",
+          flush=True)
+    return res
+
+
+def main(args) -> common.Runner:
+    runner, val_loader, test_loader, classnames = prepare(args)
+    if not args.evaluate_only:
+        common.train_epochs(
+            runner, build_train_step(runner),
+            make_batch_factory(classnames, runner.cfg.max_length),
+            validate=lambda r: evaluation(r, val_loader, classnames))
+    common.write_log(args, {"test": evaluation(runner, test_loader,
+                                               classnames)})
+    return runner
+
+
+if __name__ == "__main__":
+    main(parser().parse_args())

@@ -54,25 +54,23 @@ def setup(args) -> common.Runner:
 
 def make_batch(runner: common.Runner, raw) -> Dict[str, torch.Tensor]:
     text = runner.tokenizer(raw["text"])
-    dev = runner.device
-    return {"video": torch.from_numpy(raw["video"]).to(dev),
-            "input_ids": torch.from_numpy(text["input_ids"]).long().to(dev),
-            "attention_mask": torch.from_numpy(
-                text["attention_mask"]).to(dev)}
+    return common.to_device(runner, {"video": raw["video"], **text})
 
 
 def make_loss_fn(model: MPLUGVideo):
-    def loss_fn(batch):
+    def loss_fn(batch, generator=None):
         video = normalize_clip(batch["video"],
                                dtype=model.policy.compute_dtype)
         return model.pretrain_loss(video, batch["input_ids"],
-                                   batch["attention_mask"])
+                                   batch["attention_mask"],
+                                   generator=generator)
     return loss_fn
 
 
 def build_train_step(runner: common.Runner):
     return make_train_step(make_loss_fn(runner.model),
-                           update_freq=runner.cfg.update_freq)
+                           update_freq=runner.cfg.update_freq,
+                           dropout_seed=runner.args.seed)
 
 
 def main(args) -> common.Runner:

@@ -1,13 +1,16 @@
 """Config loading: the JAX package's YAML/JSON contract
-(``youku_mplug_tpu/config.py``), for the keys serving and pretraining read
+(``youku_mplug_tpu/config.py``), for the keys the port's runners read
 — ``text_cfg``, ``visual_cfg``, ``text_overrides``, ``visual_overrides``,
 ``num_frames``, ``num_learnable_token``, ``use_contrastive``,
-``embed_dim``, ``temp``, ``freeze_vit``, ``freeze_text_decoder``, the
-``optimizer`` and ``schedular`` blocks, ``update_freq``, ``epochs``,
-``prompt``, ``batch_size``, ``max_length``, ``image_res``, and via
-``RunConfig.get`` as the JAX loader leaves them in its raw dict
-``synthetic_length``, ``text_decoder``, ``max_new_tokens``, ``beam_size``
-and ``async_checkpointing``; ``dump_config`` writes the merged YAML
+``embed_dim``, ``temp``, ``use_cls``, ``num_classes``, ``freeze_vit``,
+``freeze_text_decoder``, the ``optimizer`` and ``schedular`` blocks (with
+``visual_backbone_scale`` set for a ``clip_model`` tower, as the JAX
+loader sets it), ``update_freq``, ``epochs``, ``prompt``, ``batch_size``,
+``max_length``, ``image_res``, and via ``RunConfig.get`` as the JAX
+loader leaves them in its raw dict ``synthetic_length``,
+``text_decoder``, ``max_new_tokens``, ``beam_size``,
+``async_checkpointing``, ``classname_file`` and ``eval_video_batch``;
+``dump_config`` writes the merged YAML
 into a run's output directory; and ``load_owl_config`` /
 ``instruct_train_config``, the mPLUG-Owl instruct YAML of
 ``youku_mplug_tpu/cli/run_instruct.py`` (the model blocks, and the
@@ -66,6 +69,7 @@ def _optimizer_config(raw, model: MPLUGVideoConfig) -> OptimizerConfig:
         epochs=int(sched.get("epochs", raw.get("epochs", 10))),
         sched_type=str(sched.get("lr_sched_type", "cos")
                        ).replace("cosine", "cos"),
+        visual_backbone_scale=bool(model.vision.clip_model),
         freeze_text_decoder=model.freeze_text_decoder,
         freeze_vit=model.freeze_vit)
 
@@ -84,9 +88,6 @@ def load_config(yaml_path: str,
     if raw.get("lora_rank"):
         raise NotImplementedError("a top-level lora_rank / lora_alpha (GPT-3 "
                                   "LoRA adapters) is not ported yet")
-    if raw.get("use_cls"):
-        raise NotImplementedError("use_cls (the classification heads "
-                                  "cls_fc1 / cls_fc2) is not ported yet")
     if raw.get("import_torch_weights"):
         raise NotImplementedError("import_torch_weights (external checkpoint "
                                   "import) is not ported yet")
@@ -120,6 +121,8 @@ def load_config(yaml_path: str,
         use_contrastive=bool(raw.get("use_contrastive", False)),
         contrastive_embed_dim=int(raw.get("embed_dim", 256)),
         temp=float(raw.get("temp", 0.07)),
+        use_cls=bool(raw.get("use_cls", False)),
+        num_classes=int(raw.get("num_classes", 0)),
         freeze_vit=bool(raw.get("freeze_vit", False)),
         freeze_text_decoder=bool(raw.get("freeze_text_decoder", True)))
     sched = dict(raw.get("schedular", raw.get("scheduler", {})))

@@ -1,5 +1,6 @@
 // Flash attention backward for Hopper (sm_90a): bf16 in, fp32 accumulation,
-// head dim 64 or 128, optionally with the ALiBi bias of the Bloom decoder.
+// head dim 64, 96 or 128, optionally (64 and 128) with the ALiBi bias of
+// the Bloom decoder.
 //
 // Replaces the Pallas TPU backward kernels of
 // youku_mplug_tpu/ops/flash_attention.py:
@@ -45,8 +46,12 @@
 // diagonal on for a key tile; period: the tiles of the tile's own period
 // groups).
 //
-// One template on (D, ALiBi) gives four builds of each kernel.  Shared
-// memory: 51 KB at d 64, 99 KB at d 128.
+// One template on (D, ALiBi) gives five builds of each kernel.  Shared
+// memory: 51 KB at d 64, 99 KB at d 96 and 128.  Head dim 96 (clip-b16's
+// AttentionPool) takes the d = 128 tile layout with columns 96-127
+// zero-filled (hopper.cuh): the score products S and dP contract over the
+// 96 real columns, the products into dQ, dK and dV run at N = 128 and
+// only their first 96 columns are stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,20 +77,21 @@ struct Mask {
 template <int D>
 struct BwdSmem {
   static constexpr int kStages = 2;  // as in the forward
-  static constexpr int kTile = (D / 64) * kPanel;
+  static constexpr int kTile = (padded(D) / 64) * kPanel;
   static constexpr int kStage = 2 * kTile + 1024;
   static constexpr int kRing = 2 * kTile;
   static constexpr int kAlloc = kRing + kStages * kStage + 1024;
 };
 static_assert(BwdSmem<128>::kAlloc <= kMaxSmem, "tiles exceed 227 KB");
 
-// Write this thread's rows of a [64, D] fp32 accumulator, rows row0 + r,
-// as bf16 into a strided tensor (rows at or past `rows` skipped).
+// Write this thread's rows of a [64, padded(D)] fp32 accumulator, rows
+// row0 + r and its first D columns, as bf16 into a strided tensor (rows at
+// or past `rows` skipped).
 template <int D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* dst,
                                           long long row_stride, int row0,
                                           int rows,
-                                          const float (&acc)[D / 2]) {
+                                          const float (&acc)[padded(D) / 2]) {
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int r = row0 + acc_row(i);
@@ -112,6 +118,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     long long do_ss, long long dq_sb, long long dq_sh,
                     long long dq_ss, float scale, int period, int causal) {
   using Sm = BwdSmem<D>;
+  constexpr int DP = padded(D);  // the gradient accumulators' width
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base, do_s = base + Sm::kTile;
@@ -160,9 +167,9 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     lse2[r] = qi < Sq ? lse[row] * kLog2e : 0.f;
     delta_r[r] = qi < Sq ? delta[row] : 0.f;
   }
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
   for (int j = j0; j < j1; ++j) {
     ring_arrive<kStages - 2>();
@@ -202,7 +209,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     acc_to_a(s, da);
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, da[kk], desc_mn(ks, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(acc, da[kk], desc_mn(ks, kk));
     wg_commit();
     wg_wait<0>();
     pin(acc);
@@ -230,6 +237,7 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      long long dk_ss, long long dv_sb, long long dv_sh,
                      long long dv_ss, float scale, int period, int causal) {
   using Sm = BwdSmem<D>;
+  constexpr int DP = padded(D);  // the gradient accumulators' width
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t k_s = base, v_s = base + Sm::kTile;
@@ -281,9 +289,9 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     bias[0] = __fmul_rn(slopes[h], (float)ki0);
     bias[1] = __fmul_rn(slopes[h], (float)(ki0 + 8));
   }
-  float dk_acc[D / 2], dv_acc[D / 2];
+  float dk_acc[DP / 2], dv_acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
 
   for (int j = j0; j < j1; ++j) {
     ring_arrive<kStages - 2>();
@@ -326,10 +334,10 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(dv_acc, pa[kk], desc_mn(dos, kk));  // dV += P^T dO
+      wgmma_rs<DP>(dv_acc, pa[kk], desc_mn(dos, kk));  // dV += P^T dO
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      wgmma_rs<D>(dk_acc, da[kk], desc_mn(qs, kk));   // dK += dS^T Q
+      wgmma_rs<DP>(dk_acc, da[kk], desc_mn(qs, kk));   // dK += dS^T Q
     wg_commit();
     wg_wait<0>();
     pin(dv_acc);
@@ -414,10 +422,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // C entry points (loaded with ctypes).  Strides are in elements; lse and
 // delta are contiguous fp32 [B, H, Sq] buffers; kv_len <= Sk masks keys at
 // or past it; period > 0 selects the block-diagonal period mask and
-// causal != 0 the causal mask (Sq == Sk).  head_dim is 64 or 128; slopes
-// is null, or an fp32 device array of H ALiBi slopes (the caller requires
-// causal with it).  Each returns cudaGetLastError() after its launch, or
-// cudaErrorInvalidValue for a head dim it was not built for.
+// causal != 0 the causal mask (Sq == Sk).  head_dim is 64, 96 or 128;
+// slopes is null, or (64 and 128 only) an fp32 device array of H ALiBi
+// slopes (the caller requires causal with it).  Each returns
+// cudaGetLastError() after its launch, or cudaErrorInvalidValue for a head
+// dim it was not built for (ALiBi at 96 included).
 extern "C" int ymt_flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int Sq,
@@ -436,6 +445,7 @@ extern "C" int ymt_flash_bwd_dq_bf16(
   const bool alibi = slopes != nullptr;
   if (head_dim == 64) return alibi ? YMT_DQ(64, true) : YMT_DQ(64, false);
   if (head_dim == 128) return alibi ? YMT_DQ(128, true) : YMT_DQ(128, false);
+  if (head_dim == 96 && !alibi) return YMT_DQ(96, false);
 #undef YMT_DQ
   return (int)cudaErrorInvalidValue;
 }
@@ -460,6 +470,7 @@ extern "C" int ymt_flash_bwd_dkv_bf16(
   if (head_dim == 64) return alibi ? YMT_DKV(64, true) : YMT_DKV(64, false);
   if (head_dim == 128)
     return alibi ? YMT_DKV(128, true) : YMT_DKV(128, false);
+  if (head_dim == 96 && !alibi) return YMT_DKV(96, false);
 #undef YMT_DKV
   return (int)cudaErrorInvalidValue;
 }

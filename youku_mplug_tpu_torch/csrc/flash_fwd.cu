@@ -1,5 +1,6 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in, fp32 softmax, head
-// dim 64 or 128, optionally with the ALiBi bias of the Bloom decoder.
+// dim 64, 96 or 128, optionally (64 and 128) with the ALiBi bias of the
+// Bloom decoder.
 //
 // Replaces two Pallas TPU kernels of youku_mplug_tpu/ops/flash_attention.py:
 //   - _fwd_kernel_packed (packed [B, S, n*d] layout; mask modes none,
@@ -49,8 +50,16 @@
 // accumulator layout.  The softmax runs in base 2 (scores times log2 e,
 // exp2, lse converted back to base e); a key tile that every row of the
 // query tile sees whole skips the mask arithmetic.  One template on (D,
-// ALiBi) gives the four builds; shared memory is Q plus the K/V ring:
-// 41 KB at d = 64, 81 KB at d = 128.
+// ALiBi) gives the five builds; shared memory is Q plus the K/V ring:
+// 41 KB at d = 64, 81 KB at d = 96 and 128.
+//
+// Head dim 96 (clip-b16's AttentionPool, 8 heads of 96): a 96-wide row is
+// one 128-byte swizzle panel and half of another, so its tiles take the
+// two-panel layout of d = 128 with columns 96-127 zero-filled by the
+// copies (no global read).  S = Q K^T contracts over the 96 real columns
+// only (6 k16 steps); P V runs at N = 128, whose columns 96-127 come out
+// zero and are never stored.  That is a quarter more tensor-core work on
+// the PV product than a 96-wide one and no new descriptor code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +78,7 @@ namespace {
 template <int D>
 struct FwdSmem {
   static constexpr int kStages = 2;
-  static constexpr int kTile = (D / 64) * kPanel;  // one [64, D] tile
+  static constexpr int kTile = (padded(D) / 64) * kPanel;  // one tile
   static constexpr int kQ = 0;
   static constexpr int kK = kTile;                 // then K, V per stage
   static constexpr int kBytes = kTile * (1 + 2 * kStages);
@@ -92,6 +101,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  long long o_sh, long long o_ss, float scale, int period,
                  int causal) {
   using Sm = FwdSmem<D>;
+  constexpr int DP = padded(D);  // the accumulator's (and PV's) width
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base + Sm::kQ;
@@ -134,9 +144,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
   for (int j = j0; j < j0 + kStages - 1; ++j) fetch(j);  // Q in the first
 
-  float acc[D / 2];
+  float acc[DP / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
   float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
   const int qi0 = q0 + acc_row(0);  // this thread's rows: qi0, qi0 + 8
   const float scale_log2 = scale * kLog2e;
@@ -199,13 +209,13 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       l_i[r] += s[i];
     }
 #pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
     uint32_t pa[4][4];
     acc_to_a(s, pa);
 
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, pa[kk], desc_mn(vs, kk));
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(acc, pa[kk], desc_mn(vs, kk));
     wg_commit();
     wg_wait<0>();
     pin(acc);
@@ -265,7 +275,7 @@ flash_fwd_merge_kernel(const float* __restrict__ o_part,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int B, int H, int Sq, int splits, long long o_sb,
                        long long o_sh, long long o_ss) {
-  constexpr int kPer = D / 32;  // values a lane
+  constexpr int kPer = D / 32;  // values a lane (3 at d = 96)
   const long long row = (long long)blockIdx.x * (kThreads / 32) +
                         (threadIdx.x >> 5);
   const long long rows = (long long)B * H * Sq;
@@ -290,10 +300,15 @@ flash_fwd_merge_kernel(const float* __restrict__ o_part,
     }
   }
   __nv_bfloat16* dst = o + b * o_sb + h * o_sh + qi * o_ss + lane * kPer;
+  if constexpr (kPer % 2 == 0) {
 #pragma unroll
-  for (int c = 0; c < kPer; c += 2)
-    *reinterpret_cast<__nv_bfloat162*>(dst + c) =
-        __floats2bfloat162_rn(out[c], out[c + 1]);
+    for (int c = 0; c < kPer; c += 2)
+      *reinterpret_cast<__nv_bfloat162*>(dst + c) =
+          __floats2bfloat162_rn(out[c], out[c + 1]);
+  } else {  // an odd share is not 4-byte aligned: one value at a time
+#pragma unroll
+    for (int c = 0; c < kPer; ++c) dst[c] = __float2bfloat16_rn(out[c]);
+  }
   if (lane == 0) lse[row] = m == -INFINITY ? -INFINITY : m + logf(total);
 }
 
@@ -340,13 +355,14 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // contiguous fp32 [B, H, Sq] buffer.  Keys at or past kv_len are masked
 // (the caller passes kv_len = Sk for no key mask); period > 0 selects the
 // block-diagonal period mask and causal != 0 the causal mask (Sq == Sk).
-// head_dim is 64 or 128; slopes is null, or an fp32 device array of H
-// ALiBi slopes (the caller requires causal with it).  splits > 1 splits
+// head_dim is 64, 96 or 128; slopes is null, or (64 and 128 only) an fp32
+// device array of H ALiBi slopes (the caller requires causal with it).
+// splits > 1 splits
 // each block's key tiles that many ways: o_part (fp32 [splits, B, H, Sq,
 // head_dim]) and lse_part (fp32 [splits, B, H, Sq]) are then the caller's
 // scratch, and the merge kernel runs after the main one.  Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
-// head dim it was not built for or splits < 1.
+// head dim it was not built for (ALiBi at 96 included) or splits < 1.
 extern "C" int ymt_flash_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int Sq, int Sk, int kv_len, long long q_sb, long long q_sh,
@@ -364,6 +380,7 @@ extern "C" int ymt_flash_fwd_bf16(
   const bool alibi = slopes != nullptr;
   if (head_dim == 64) return alibi ? YMT_FWD(64, true) : YMT_FWD(64, false);
   if (head_dim == 128) return alibi ? YMT_FWD(128, true) : YMT_FWD(128, false);
+  if (head_dim == 96 && !alibi) return YMT_FWD(96, false);
 #undef YMT_FWD
   return (int)cudaErrorInvalidValue;
 }

@@ -3,8 +3,10 @@
 // ring, the 128-byte-swizzled shared-memory layout the tensor cores read,
 // the wgmma matrix descriptors, and the warpgroup matrix products.
 //
-// Tiles.  Every operand tile is 64 rows of a [rows, D] bf16 matrix (D 64
-// or 128), kept in shared memory as D / 64 panels of [64 rows][64 values]:
+// Tiles.  Every operand tile is 64 rows of a [rows, D] bf16 matrix (D 64,
+// 96 or 128), kept in shared memory as padded(D) / 64 panels of [64 rows]
+// [64 values] (a 96-wide row takes the two panels of a 128-wide one, its
+// columns 96-127 zero):
 // 128 bytes a row, the 16-byte chunk c of row r stored at chunk c ^ (r % 8)
 // (the "128B swizzle" of wgmma and TMA, so the eight rows a product reads
 // together fall in different banks).  Each panel is 8 KB and 1024-byte
@@ -39,6 +41,10 @@ constexpr int kPanel = 64 * 128;     // bytes of one [64][64] bf16 panel
 constexpr int kMaxSmem = 232448;     // the H100's per-block opt-in limit
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// The panel width a head dim is stored and multiplied at: D rounded up to
+// whole 64-column panels (96 -> 128).
+__host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -85,21 +91,22 @@ __device__ __forceinline__ void ring_arrive() {
 }
 
 // Rows [row0, row0 + 64) of a [rows, D] bf16 matrix (row stride in
-// elements, 16-byte aligned rows) into the swizzled panels at `dst`;
-// rows at or past `rows` read as zero.
+// elements, 16-byte aligned rows) into the swizzled panels at `dst`, which
+// hold padded(D) columns; rows at or past `rows`, and the columns from D
+// on, read as zero (the zero-fill of cp.async: no global read).
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           long long row_stride, int row0,
                                           int rows) {
-  constexpr int kChunks = D / 8;
+  constexpr int kChunks = padded(D) / 8;
 #pragma unroll
   for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / kChunks, ch = idx % kChunks;
-    const bool ok = row0 + r < rows;
+    const bool ok = row0 + r < rows && (D == padded(D) || ch < D / 8);
     const __nv_bfloat16* g =
-        src + (ok ? (long long)(row0 + r) * row_stride : 0) + ch * 8;
+        ok ? src + (long long)(row0 + r) * row_stride + ch * 8 : src;
     cp_async16(dst + (ch / 8) * kPanel + swizzle(r, ch % 8), g, ok);
   }
 }

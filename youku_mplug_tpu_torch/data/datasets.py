@@ -1,9 +1,12 @@
 """Synthetic clips and captions for smoke runs and tests.
 
 The samples of ``youku_mplug_tpu.data.datasets.SyntheticVideoDataset``,
-bit for bit (the same per-index numpy generator, the same caption, label
-and id fields), without importing the JAX package.  Decoding real video
-files is not ported yet.
+bit for bit (the same per-index numpy generator, the same caption,
+``label`` (index mod ``num_classes``), ``match_id`` and ``index``
+fields), without importing the JAX package; ``SyntheticRetrievalSplit``
+adds the fields the retrieval evaluations read from a split, as the JAX
+retrieval runner sets them on its synthetic val and test splits.
+Decoding real video files is not ported yet.
 """
 
 from __future__ import annotations
@@ -40,3 +43,16 @@ class SyntheticVideoDataset:
                 "label": label, "match_id": index, "index": index,
                 "golden": [f"synthetic clip {index}"],
                 "video_id": str(index)}
+
+
+class SyntheticRetrievalSplit(SyntheticVideoDataset):
+    """A retrieval evaluation split of synthetic clips: ``text`` (clip i's
+    caption ``synthetic clip i``), and ``vid2txt`` / ``txt2vid``, each clip
+    matching its own text (JAX ``cli/run_retrieval.py:31-40``)."""
+
+    def __init__(self, length: int = 16, num_frames: int = 8,
+                 size: int = 224):
+        super().__init__(length=length, num_frames=num_frames, size=size)
+        self.text = [f"synthetic clip {i}" for i in range(length)]
+        self.vid2txt = {i: [i] for i in range(length)}
+        self.txt2vid = {i: [i] for i in range(length)}

@@ -5,7 +5,8 @@ Counterpart of ``youku_mplug_tpu.data.loader.ShardedLoader`` on one host
 training and evaluation loops use: the epoch's order is
 ``np.random.default_rng(seed * 100_003 + epoch).permutation(n)``, or
 the dataset's own with ``shuffle=False``; the
-last partial batch is dropped, and samples are collated the same way
+last partial batch is dropped (kept with ``drop_last=False``, as the
+evaluations read every sample), and samples are collated the same way
 (arrays stacked, ints to int32, floats to float32, anything else kept
 as a list).  No worker threads: the host makes each batch between two
 train steps.
@@ -35,11 +36,12 @@ def collate(samples: List[dict]) -> Dict[str, Any]:
 
 class Loader:
     def __init__(self, dataset, batch_size: int, *, seed: int = 0,
-                 shuffle: bool = True):
+                 shuffle: bool = True, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.shuffle = shuffle
+        self.drop_last = drop_last
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -48,7 +50,9 @@ class Loader:
             self.dataset.set_epoch(epoch)
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else \
+            -(-n // self.batch_size)
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         n = len(self.dataset)

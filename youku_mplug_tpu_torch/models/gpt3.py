@@ -11,8 +11,15 @@ Numerics: fp32 layernorms, fp32 attention softmax, tanh-GELU, fp32 logits
 from the tied embedding.  Training runs the whole sequence through the
 causal flash kernel (padded text positions stay keys; only the loss mask
 drops them), each layer under ``torch.utils.checkpoint`` when
-``remat``; dropout is not ported, so training with a dropout rate above
-0 raises.  The cache is ``[L, B, M, 2*hidden]`` with rows
+``remat``.  Dropout, as the JAX package applies it with
+``deterministic=False``: given a ``generator`` to the training forward of
+a module in training mode, the embeddings (after the position add) and
+the attention and MLP outputs take ``hidden_dropout`` and the attention
+probabilities ``attention_dropout``, the latter on the plain path
+(``mha_reference``), as the JAX package leaves its packed kernel under
+attention dropout; a checkpointed layer replays its masks from the
+generator state it started with.  Without a generator, or in eval mode,
+nothing is drawn.  The cache is ``[L, B, M, 2*hidden]`` with rows
 [K | V] taken straight from the qkv projection's output (``qkv[..., n*d:]``);
 the new rows are written in place before attention reads them.
 
@@ -37,7 +44,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
-from youku_mplug_tpu_torch.ops.attention import NEG_INF, mha_reference
+from youku_mplug_tpu_torch.ops.attention import (
+    NEG_INF,
+    dropout,
+    mha_reference,
+)
 from youku_mplug_tpu_torch.ops.cross_entropy import (
     lm_cross_entropy,
     masked_mean_loss,
@@ -127,6 +138,16 @@ def qscaled(y: torch.Tensor, mod: nn.Module, name: str,
     return y * (s if lidx is None else s[lidx]).reshape(-1).to(y.dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class Dropout:
+    """Dropout of one training forward: the generator its masks come from
+    and the hidden and attention-probability rates."""
+
+    generator: torch.Generator
+    hidden: float
+    attention: float
+
+
 class GPT3Attention(nn.Module):
     """Self-attention with a fused QKV projection and the stacked cache.
     Parameters carry a leading [L] layer dimension."""
@@ -142,10 +163,12 @@ class GPT3Attention(nn.Module):
 
     def forward(self, x, lidx: int, cache: Optional[kvc.Cache] = None,
                 cache_len: CacheLen = 0,
-                valid_from: Optional[torch.Tensor] = None):
+                valid_from: Optional[torch.Tensor] = None,
+                drop: Optional[Dropout] = None):
         """x [B, S, H] -> [B, S, H].  Without a cache: causal attention over
         the whole sequence, q/k/v packed slices of the qkv projection into
-        the flash kernel.  With one: writes this chunk's K|V rows into
+        the flash kernel, or with attention dropout (``drop``) head views
+        into ``mha_reference``.  With one: writes this chunk's K|V rows into
         layer ``lidx`` of ``cache`` at ``cache_len`` (int, or [B] per-sample
         positions), then attends to keys ``valid_from <= j <= position``;
         S == 1 writes the row and reads the cache in place in one launch
@@ -158,7 +181,14 @@ class GPT3Attention(nn.Module):
         qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
         qkv = qscaled(qkv, self, "qkv_kernel", lidx)
         qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
-        if cache is None:
+        if cache is None and drop is not None and drop.attention > 0:
+            q, k, v = (qkv[..., i * nd:(i + 1) * nd].unflatten(
+                -1, (n, d)).transpose(1, 2) for i in range(3))
+            out = mha_reference(q, k, v, causal=True,
+                                dropout_rate=drop.attention,
+                                generator=drop.generator)
+            out = out.transpose(1, 2).reshape(b, s, nd)
+        elif cache is None:
             out = flash_attention_packed(qkv[..., :nd], qkv[..., nd:2 * nd],
                                          qkv[..., 2 * nd:], n, causal=True)
         else:
@@ -233,13 +263,27 @@ class GPT3Layer(nn.Module):
         self.attn = GPT3Attention(cfg, num_layers, dtype)
         self.mlp = GPT3MLP(cfg, num_layers, dtype)
 
-    def forward(self, x, lidx: int, cache=None, cache_len=0, valid_from=None):
+    def forward(self, x, lidx: int, cache=None, cache_len=0, valid_from=None,
+                drop: Optional[Dropout] = None):
         a = layer_norm(x, self.ln1_scale[lidx], self.ln1_bias[lidx],
                        eps=self.eps)
-        x = x + self.attn(a, lidx, cache, cache_len, valid_from)
+        a = self.attn(a, lidx, cache, cache_len, valid_from, drop)
+        if drop is not None:
+            a = dropout(a, drop.hidden, drop.generator)
+        x = x + a
         m = layer_norm(x, self.ln2_scale[lidx], self.ln2_bias[lidx],
                        eps=self.eps)
-        return x + self.mlp(m, lidx)
+        m = self.mlp(m, lidx)
+        if drop is not None:
+            m = dropout(m, drop.hidden, drop.generator)
+        return x + m
+
+    def replay(self, x, lidx: int, drop: Dropout, state: torch.Tensor):
+        """Layer ``lidx`` with its generator first set to ``state``: run
+        under ``torch.utils.checkpoint``, the recompute draws the masks
+        the forward drew."""
+        drop.generator.set_state(state)
+        return self(x, lidx, drop=drop)
 
 
 class GPT3Decoder(nn.Module):
@@ -256,22 +300,29 @@ class GPT3Decoder(nn.Module):
         self.ln_f_bias = _param(cfg.hidden_size, dtype=dt)
 
     def forward(self, input_embeds, positions, *, cache=None, cache_len=0,
-                valid_from=None):
+                valid_from=None, generator: Optional[torch.Generator] = None):
+        """[B, S, H] embeddings at ``positions`` -> final hidden states.
+        ``generator``: dropout's masks in a training forward (no cache,
+        training mode); ignored otherwise."""
         cfg = self.cfg
-        if cache is None and self.training and (
-                cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
-            raise NotImplementedError(
-                f"dropout (hidden {cfg.hidden_dropout}, attention "
-                f"{cfg.attention_dropout}) is not ported yet: train with "
-                "hidden_dropout = attention_dropout = 0")
+        drop = None
+        if (generator is not None and cache is None and self.training
+                and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0)):
+            drop = Dropout(generator, cfg.hidden_dropout,
+                           cfg.attention_dropout)
         x = input_embeds + F.embedding(positions, self.position_embeddings
                                        ).to(input_embeds.dtype)
+        if drop is not None:
+            x = dropout(x, drop.hidden, drop.generator)
         remat = cache is None and cfg.remat and torch.is_grad_enabled()
         for lidx in range(cfg.num_hidden_layers):
-            if remat:
+            if remat and drop is not None:
+                x = checkpoint(self.layers.replay, x, lidx, drop,
+                               generator.get_state(), use_reentrant=False)
+            elif remat:
                 x = checkpoint(self.layers, x, lidx, use_reentrant=False)
             else:
-                x = self.layers(x, lidx, cache, cache_len, valid_from)
+                x = self.layers(x, lidx, cache, cache_len, valid_from, drop)
         return layer_norm(x, self.ln_f_scale, self.ln_f_bias,
                           eps=self.cfg.layernorm_epsilon)
 
@@ -359,11 +410,13 @@ class GPT3LM(nn.Module):
         return self.word_embeddings.attend(hidden)
 
     def forward(self, tokens=None, input_embeds=None, labels=None,
-                loss_mask=None, positions=None):
+                loss_mask=None, positions=None,
+                generator: Optional[torch.Generator] = None):
         """Full-sequence causal forward.  Returns ``last_hidden_state``;
         with ``labels`` (already shifted) the fp32 per-position
         ``losses`` [B, S]; with a ``loss_mask`` too, ``loss``: the masked
-        mean over ``losses[:, :-1]`` (the last position is dropped)."""
+        mean over ``losses[:, :-1]`` (the last position is dropped).
+        ``generator``: the dropout masks, in training mode."""
         if input_embeds is None:
             input_embeds = self.embed(tokens)
         else:
@@ -372,7 +425,7 @@ class GPT3LM(nn.Module):
         if positions is None:
             positions = torch.arange(s, device=input_embeds.device
                                      )[None].expand(b, s)
-        hidden = self.decoder(input_embeds, positions)
+        hidden = self.decoder(input_embeds, positions, generator=generator)
         out = {"last_hidden_state": hidden}
         if labels is not None:
             losses = lm_cross_entropy(

@@ -1,13 +1,27 @@
 """The video-LM backbone: TimeSformer -> learnable queries -> AttentionPool
--> ``visual_fc`` -> GPT-3 decoder, with the pretrain loss.
+-> ``visual_fc`` -> GPT-3 decoder, with every task's loss and scores.
 
-Counterpart of ``youku_mplug_tpu/models/tasks.py`` (``MPLUGVideoConfig``,
-``prefix_lm_targets``, ``MPLUGVideo.encode_video`` / ``encode_queries`` /
-``pretrain_loss`` / ``caption_loss``, ``generate_captions``); the cls,
-retrieval and ITM heads are not ported yet.  ``vision_proj`` and
-``text_proj`` exist only under ``use_contrastive``, the one loss here
-that calls them (the JAX package creates their parameters where a task
-method calls them).
+Counterpart of ``youku_mplug_tpu/models/tasks.py``: ``MPLUGVideoConfig``,
+``prefix_lm_targets``, ``last_token_index``, and the ``MPLUGVideo``
+methods ``encode_video`` / ``encode_queries``, ``pretrain_loss``,
+``caption_loss``, the classification ``cls_logits_from_prompt`` /
+``cls_train_loss`` / ``cls_eval_scores``, the dual-encoder retrieval
+``extract_vision_feature`` / ``extract_text_feature`` /
+``retrieval_loss``, and the ITM rerank ``itm_train_loss`` /
+``itm_eval_scores``; ``generate_captions``.  The image pretrain variant
+is not ported.
+
+Heads: ``cls_fc1`` / ``cls_fc2`` under ``use_cls`` (``cls_fc2`` with
+``max(num_classes, 1)`` outputs, as in JAX); ``vision_proj`` and
+``text_proj`` under ``use_contrastive`` or ``MPLUGVideo(...,
+proj_heads=True)`` (the retrieval runner's dual encoder), the losses that
+call them: the JAX package creates a head's parameters where a task
+method calls it.
+
+Dropout: the training losses take the step's ``generator`` and pass it
+to the decoder, which drops out in training mode (``models/gpt3.py``);
+the JAX methods' ``deterministic=False``.  The evaluation methods, and
+the retrieval towers (JAX ``extract_*`` run deterministic), pass none.
 """
 
 from __future__ import annotations
@@ -38,6 +52,8 @@ class MPLUGVideoConfig:
     use_contrastive: bool = False
     contrastive_embed_dim: int = 256
     temp: float = 0.07
+    use_cls: bool = False
+    num_classes: int = 0
     freeze_vit: bool = False
     freeze_text_decoder: bool = True
     label_smoothing: float = 0.1  # pretrain contrastive CE
@@ -68,9 +84,9 @@ def prefix_lm_targets(input_ids, attention_mask, n_query: int,
     return labels, loss_mask
 
 
-def last_token_index(attention_mask):
-    """Index of the final non-pad position."""
-    return attention_mask.sum(-1).long() - 1
+def last_token_index(attention_mask, n_query: int = 0):
+    """Index of the final non-pad position (+ the query prefix's length)."""
+    return n_query + attention_mask.sum(-1).long() - 1
 
 
 class Dense(nn.Module):
@@ -96,7 +112,7 @@ def _l2_normalize(x):
 
 class MPLUGVideo(nn.Module):
     def __init__(self, cfg: MPLUGVideoConfig,
-                 policy: Policy = DEFAULT_POLICY):
+                 policy: Policy = DEFAULT_POLICY, proj_heads: bool = False):
         super().__init__()
         self.cfg, self.policy = cfg, policy
         v, dt = cfg.vision, policy.param_dtype
@@ -107,10 +123,14 @@ class MPLUGVideo(nn.Module):
         self.attn_pool = AttentionPool(v.embed_dim, v.num_heads, v.mlp_ratio,
                                        gelu=v.gelu, dtype=dt)
         self.visual_fc = Dense(v.embed_dim, cfg.text.hidden_size, dt)
-        if cfg.use_contrastive:
+        if cfg.use_contrastive or proj_heads:
             e = cfg.contrastive_embed_dim
             self.vision_proj = Dense(v.embed_dim, e, dt)
             self.text_proj = Dense(cfg.text.hidden_size, e, dt)
+        if cfg.use_cls:
+            h = cfg.text.hidden_size
+            self.cls_fc1 = Dense(h, h, dt)
+            self.cls_fc2 = Dense(h, max(cfg.num_classes, 1), dt)
         # contrastive temperature (kept without the contrastive branch so a
         # JAX tree loads without leftovers)
         self.temp = nn.Parameter(torch.empty((), dtype=torch.float32),
@@ -132,35 +152,61 @@ class MPLUGVideo(nn.Module):
         return self.encode_video(video)[1]
 
     def _prefix_forward(self, query_features, input_ids, attention_mask,
-                        prompt_lengths=None):
+                        prompt_lengths=None, need_loss=True, generator=None):
         """Caption-style prefix-LM forward: [queries ; tokens] through the
-        decoder with the shifted labels and loss mask (prompt positions
-        out of the loss when ``prompt_lengths`` is given)."""
-        labels, loss_mask = prefix_lm_targets(
-            input_ids, attention_mask, query_features.shape[1],
-            prompt_lengths=prompt_lengths,
-            vocab_size=self.cfg.text.vocab_size)
+        decoder; with ``need_loss`` the shifted labels and loss mask too
+        (prompt positions out of the loss when ``prompt_lengths`` is
+        given), whose mask comes back as ``out["loss_mask"]``."""
+        labels = loss_mask = None
+        if need_loss:
+            labels, loss_mask = prefix_lm_targets(
+                input_ids, attention_mask, query_features.shape[1],
+                prompt_lengths=prompt_lengths,
+                vocab_size=self.cfg.text.vocab_size)
         tok_emb = self.text_decoder.embed(input_ids)
         input_embeds = torch.cat([query_features.to(tok_emb.dtype), tok_emb],
                                  dim=1)
-        return self.text_decoder(input_embeds=input_embeds, labels=labels,
-                                 loss_mask=loss_mask)
+        out = self.text_decoder(input_embeds=input_embeds, labels=labels,
+                                loss_mask=loss_mask, generator=generator)
+        out["loss_mask"] = loss_mask
+        return out
 
-    def pretrain_loss(self, video, input_ids, attention_mask):
+    def _pooled(self, hidden, idx):
+        return hidden[torch.arange(hidden.shape[0], device=hidden.device),
+                      idx.to(hidden.device)]
+
+    def cls_logits_from_prompt(self, query_features, prompt_ids, prompt_mask,
+                               generator=None):
+        """Classifier-head logits (fp32 [B, max(num_classes, 1)]) from the
+        decoder's last hidden state at the final non-pad prompt position
+        after the query prefix: relu(cls_fc1) -> cls_fc2."""
+        out = self._prefix_forward(query_features, prompt_ids, prompt_mask,
+                                   need_loss=False, generator=generator)
+        pooled = self._pooled(out["last_hidden_state"], last_token_index(
+            prompt_mask, n_query=query_features.shape[1]))
+        return self.cls_fc2(torch.relu(self.cls_fc1(pooled.float())))
+
+    def _generative_scores(self, out):
+        """-sum of the per-position losses over the loss mask, per row
+        (``losses[:, :-1]``, as the JAX package slices them)."""
+        return -(out["losses"][:, :-1] * out["loss_mask"].float()).sum(-1)
+
+    def pretrain_loss(self, video, input_ids, attention_mask, generator=None):
         """The caption LM loss over the query prefix, plus (under
         ``use_contrastive``) the per-query-max video-text contrastive loss
         against a text-only causal decoder pass.  Returns a dict of fp32
         scalars: loss, loss_caption, loss_contrastive."""
         _, query_features, image_query = self.encode_video(video)
         loss_caption = self._prefix_forward(query_features, input_ids,
-                                            attention_mask)["loss"]
+                                            attention_mask,
+                                            generator=generator)["loss"]
         loss_contrastive = torch.zeros((), dtype=torch.float32,
                                        device=loss_caption.device)
         if self.cfg.use_contrastive:
-            hidden = self.text_decoder(tokens=input_ids)["last_hidden_state"]
-            idx = last_token_index(attention_mask)
-            pooled_text = hidden[torch.arange(hidden.shape[0],
-                                              device=hidden.device), idx]
+            hidden = self.text_decoder(
+                tokens=input_ids, generator=generator)["last_hidden_state"]
+            pooled_text = self._pooled(hidden,
+                                       last_token_index(attention_mask))
             vis = _l2_normalize(self.vision_proj(image_query.float()))
             txt = _l2_normalize(self.text_proj(pooled_text.float()))
             # per-query max similarity over the whole batch
@@ -177,14 +223,131 @@ class MPLUGVideo(nn.Module):
                 "loss_caption": loss_caption,
                 "loss_contrastive": loss_contrastive}
 
-    def caption_loss(self, video, input_ids, attention_mask, prompt_lengths):
+    def caption_loss(self, video, input_ids, attention_mask, prompt_lengths,
+                     generator=None):
         """The captioning finetune loss: the prefix LM over the query
         features, the prompt's positions out of the loss.  Returns
         {"loss": fp32 scalar}."""
         query_features = self.encode_video(video)[1]
         out = self._prefix_forward(query_features, input_ids, attention_mask,
-                                   prompt_lengths=prompt_lengths)
+                                   prompt_lengths=prompt_lengths,
+                                   generator=generator)
         return {"loss": out["loss"]}
+
+    def cls_train_loss(self, video, input_ids, attention_mask,
+                       prompt_lengths, prompt_ids=None, prompt_mask=None,
+                       labels=None, generator=None):
+        """Classification finetune: the prefix-LM loss of each (title
+        prompt, class name) pair, plus (``use_cls`` with ``labels``) the
+        cross-entropy of the classifier head on the title prompt alone.
+        Returns fp32 scalars loss, loss_caption, loss_cls."""
+        query_features = self.encode_video(video)[1]
+        loss_caption = self._prefix_forward(
+            query_features, input_ids, attention_mask,
+            prompt_lengths=prompt_lengths, generator=generator)["loss"]
+        loss_cls = torch.zeros((), dtype=torch.float32,
+                               device=loss_caption.device)
+        if self.cfg.use_cls and labels is not None:
+            logits = self.cls_logits_from_prompt(
+                query_features, prompt_ids, prompt_mask, generator)
+            loss_cls = cross_entropy_with_logits(logits, labels.long()).mean()
+        return {"loss": loss_caption + loss_cls,
+                "loss_caption": loss_caption, "loss_cls": loss_cls}
+
+    def cls_eval_scores(self, video, input_ids, attention_mask,
+                        prompt_lengths, prompt_ids=None, prompt_mask=None,
+                        num_cls: int = 1):
+        """Each clip against every class name: ``input_ids`` [B * num_cls,
+        S] pairs clip-major.  Returns ``generation_logits``, the softmax
+        over the classes of each pair's sequence log-likelihood [B,
+        num_cls], and ``cls_logits``, the classifier head's on the title
+        prompts (None without ``use_cls`` or prompts)."""
+        query_features = self.encode_video(video)[1]
+        b = query_features.shape[0]
+        out = self._prefix_forward(
+            query_features.repeat_interleave(num_cls, dim=0), input_ids,
+            attention_mask, prompt_lengths=prompt_lengths)
+        gen = torch.softmax(self._generative_scores(out).reshape(b, num_cls),
+                            dim=-1)
+        cls_logits = None
+        if self.cfg.use_cls and prompt_ids is not None:
+            cls_logits = self.cls_logits_from_prompt(query_features,
+                                                     prompt_ids, prompt_mask)
+        return {"generation_logits": gen, "cls_logits": cls_logits}
+
+    def extract_vision_feature(self, video):
+        """The video tower's pooled cls (not the abstractor's output, as in
+        the reference's dual encoder) -> vision_proj -> L2 normalized,
+        fp32 [B, E]."""
+        pooled = self.visual_encoder(video)[0]
+        return _l2_normalize(self.vision_proj(pooled.float()))
+
+    def extract_text_feature(self, input_ids, attention_mask):
+        """The text-only decoder's last hidden state at the final non-pad
+        token -> text_proj -> L2 normalized, fp32 [B, E]."""
+        hidden = self.text_decoder(tokens=input_ids)["last_hidden_state"]
+        pooled = self._pooled(hidden, last_token_index(attention_mask))
+        return _l2_normalize(self.text_proj(pooled.float()))
+
+    def retrieval_loss(self, video, input_ids, attention_mask, idx):
+        """In-batch NCE of the dual encoder with soft targets: every pair
+        that shares a clip id ``idx`` counts as a positive, weighted
+        evenly.  Returns {"loss": fp32 scalar}."""
+        vis = self.extract_vision_feature(video)
+        txt = self.extract_text_feature(input_ids, attention_mask)
+        sim_i2t = vis @ txt.t() / self.temp
+        sim_t2i = txt @ vis.t() / self.temp
+        pos = (idx[:, None] == idx[None, :]).float()
+        targets = pos / pos.sum(1, keepdim=True)
+        loss_i2t = -(torch.log_softmax(sim_i2t, 1) * targets).sum(1)
+        loss_t2i = -(torch.log_softmax(sim_t2i, 1) * targets).sum(1)
+        return {"loss": 0.5 * (loss_i2t.mean() + loss_t2i.mean())}
+
+    def itm_train_loss(self, video, input_ids, attention_mask,
+                       prompt_lengths, negative_indices, prompt_ids=None,
+                       prompt_mask=None, labels=None, generator=None):
+        """ITM rerank finetune: ``input_ids`` holds 3B rows, the B
+        positives and then the 2B pairs of ``negative_indices`` (two
+        derangements of the batch), whose query features are the clips
+        they index.  The prefix-LM loss of the (prompt, yes / no) pairs,
+        plus (``use_cls`` with ``labels``) the match head's
+        cross-entropy.  Returns fp32 scalars loss, loss_caption,
+        loss_cls."""
+        query_features = self.encode_video(video)[1]
+        qf = torch.cat([query_features,
+                        query_features[negative_indices.long()]], dim=0)
+        loss_caption = self._prefix_forward(
+            qf, input_ids, attention_mask, prompt_lengths=prompt_lengths,
+            generator=generator)["loss"]
+        loss_cls = torch.zeros((), dtype=torch.float32,
+                               device=loss_caption.device)
+        if self.cfg.use_cls and labels is not None:
+            logits = self.cls_logits_from_prompt(qf, prompt_ids, prompt_mask,
+                                                 generator)
+            loss_cls = cross_entropy_with_logits(logits, labels.long()).mean()
+        return {"loss": loss_caption + loss_cls,
+                "loss_caption": loss_caption, "loss_cls": loss_cls}
+
+    def itm_eval_scores(self, video, input_ids, attention_mask,
+                        prompt_lengths, prompt_ids=None, prompt_mask=None,
+                        num_text: int = 1):
+        """A [V, T] block: each of V clips against T texts, ``input_ids``
+        [V * T, S] clip-major.  Returns ``generation_logits`` [V, T]
+        (each pair's sequence log-likelihood) and ``cls_logits`` [V, T],
+        the match head's P(match) = softmax(logits)[:, 1] (None without
+        ``use_cls`` or prompts; the head needs two outputs)."""
+        query_features = self.encode_video(video)[1]
+        v = query_features.shape[0]
+        qf = query_features.repeat_interleave(num_text, dim=0)
+        out = self._prefix_forward(qf, input_ids, attention_mask,
+                                   prompt_lengths=prompt_lengths)
+        gen = self._generative_scores(out).reshape(v, num_text)
+        cls_scores = None
+        if self.cfg.use_cls and prompt_ids is not None:
+            logits = self.cls_logits_from_prompt(qf, prompt_ids, prompt_mask)
+            cls_scores = torch.softmax(logits, dim=-1)[:, 1].reshape(
+                v, num_text)
+        return {"generation_logits": gen, "cls_logits": cls_scores}
 
 
 def generate_captions(task_model: MPLUGVideo, video, input_ids,

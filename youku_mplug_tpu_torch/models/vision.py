@@ -17,17 +17,22 @@ can lose silently, all kept here:
   output projection in fp32 before the cast to the compute dtype;
 - AttentionPool appends learnable ``bias_k`` / ``bias_v`` as one extra
   key, and its residual base is the *normed* queries;
-- a ``clip_model`` tower has a bias-free patch embedding and a
-  ``norm_pre`` LayerNorm over [cls; patches] before the blocks; the MLP's
-  GELU is tanh, erf or CLIP's quick GELU as the config says.
+- a ``clip_model`` tower (the TimeSformer of clip-b16 and the per-frame
+  ViT) has a bias-free patch embedding and a ``norm_pre`` LayerNorm over
+  [cls; tokens] before the blocks; the MLP's GELU is tanh, erf or CLIP's
+  quick GELU as the config says;
+- attention runs the packed flash kernel where the JAX package's packed
+  kernel takes the head geometry (``packed_supported``); elsewhere
+  (clip-b16's 8 heads of 96) einsum attention with fp32 scores and the
+  period-block mask, as the JAX package does there.
 
 Under ``grad_ckpt`` the blocks ``i % stride == 0`` run under
 ``torch.utils.checkpoint`` (stride 2/3/6/12 for ``remat_policy``
 half/third/sixth/twelfth, else 1), as the JAX package remats them; its
 named-save inner policies are XLA's and are not ported (a checkpointed
-block recomputes everything).  Dropout and drop-path are not ported:
-training with a rate above 0 raises.  The clip_model TimeSformer (its
-``norm_pre``) and vision LoRA are not ported either.
+block recomputes everything).  Vision dropout and drop-path are not
+ported (clip-b16 and vit-b16 set none): training with a rate above 0
+raises.  Vision LoRA is not ported either.
 """
 
 from __future__ import annotations
@@ -42,7 +47,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from youku_mplug_tpu_torch.ops.attention import dot_product_attention
-from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
+from youku_mplug_tpu_torch.ops.attention import NEG_INF
+from youku_mplug_tpu_torch.ops.flash_attention import (
+    flash_attention_packed,
+    packed_supported,
+)
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
@@ -121,8 +130,26 @@ def _gelu(y: torch.Tensor, kind: str) -> torch.Tensor:
     return F.gelu(y, approximate="tanh" if kind == "tanh" else "none")
 
 
+def _einsum_attention(q, k, v, n: int, period: int) -> torch.Tensor:
+    """[B, S, n*d] q/k/v -> [B, S, n*d]: fp32 scores and softmax, the
+    probabilities cast back before PV, keys outside a query's period
+    group masked (JAX ``vision.py:276-301``)."""
+    b, s, nd = q.shape
+    d = nd // n
+    q4, k4, v4 = (t.reshape(b, s, n, d) for t in (q, k, v))
+    scores = torch.einsum("bqnd,bknd->bnqk", q4.float(), k4.float()) \
+        * d ** -0.5
+    if 0 < period < s:
+        gi = torch.arange(s, device=q.device) // period
+        scores = scores.masked_fill(gi[:, None] != gi[None, :], NEG_INF)
+    p = torch.softmax(scores, dim=-1)
+    return torch.einsum("bnqk,bknd->bqnd", p.to(q.dtype), v4).reshape(
+        b, s, nd)
+
+
 class VisionAttention(nn.Module):
-    """Split q/v-bias attention over the flash kernel (packed layout)."""
+    """Split q/v-bias attention over the flash kernel (packed layout), or
+    einsum attention where the packed kernel has no geometry."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
         super().__init__()
@@ -157,7 +184,10 @@ class VisionAttention(nn.Module):
         q = qkv[..., :nd] + self.q_bias.reshape(nd).to(x.dtype)
         k = qkv[..., nd:2 * nd]
         v = qkv[..., 2 * nd:] + self.v_bias.reshape(nd).to(x.dtype)
-        out = flash_attention_packed(q, k, v, n, period=period)
+        if packed_supported(n, c // n):
+            out = flash_attention_packed(q, k, v, n, period=period)
+        else:
+            out = _einsum_attention(q, k, v, n, period)
         y = _mm(out, proj_kernel.reshape(nd, c)) + proj_bias.to(x.dtype)
         return y.reshape(*lead, s, c)
 
@@ -257,16 +287,14 @@ class TimeSformer(nn.Module):
 
     def __init__(self, cfg: VisionConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
-        if cfg.clip_model:
-            raise NotImplementedError(
-                "the clip_model TimeSformer (norm_pre over [cls; tokens]) is "
-                "not ported yet; VisionTransformer takes CLIP towers")
         self.cfg, self.policy = cfg, policy
         d, dt = cfg.embed_dim, policy.param_dtype
         self.patch_embed = PatchEmbed(cfg, dt)
         self.cls_token = _param(1, 1, d, dtype=dt)
         self.pos_embed = _param(1, cfg.num_patches + 1, d, dtype=dt)
         self.temporal_embed = _param(1, cfg.num_frames, d, dtype=dt)
+        if cfg.clip_model:
+            self.norm_pre = LayerNormFP32(d, cfg.ln_eps, dt)
         self.blocks = nn.ModuleList(
             SpaceTimeBlock(cfg, dt) for _ in range(cfg.depth))
         self.norm = LayerNormFP32(d, cfg.ln_eps, dt)
@@ -291,6 +319,9 @@ class TimeSformer(nn.Module):
         x = x + (tile_pos + tile_temp).to(x.dtype)
         cls = (self.cls_token.expand(b, 1, d)
                + self.pos_embed[:, :1, :]).to(x.dtype)[:, 0]
+        if cfg.clip_model:  # norm_pre over [cls; tokens] jointly
+            joint = self.norm_pre(torch.cat([cls[:, None], x], dim=1))
+            cls, x = joint[:, 0], joint[:, 1:]
 
         x = x.reshape(b, t, n_p, d).transpose(1, 2)  # n-major for the blocks
         remat = cfg.grad_ckpt and torch.is_grad_enabled()

@@ -14,12 +14,16 @@ CUDA kernels serve both public wrappers, because the packed
   replaces ``_bwd_dq_kernel[_packed]`` and ``_bwd_dkv_kernel[_packed]``,
   the FlashAttention-2 recipe with p rebuilt from (q, k, lse).
 
-Each kernel is built for head dim 64 and 128, with and without ALiBi.
+Each kernel is built for head dim 64 and 128, with and without ALiBi, and
+for head dim 96 without it (clip-b16's AttentionPool, 8 heads of 96: the
+d = 128 tiles with their last 32 columns zero, ``csrc/hopper.cuh``).
 Where the (64-row query tile, head, batch) blocks are too few to fill the
 card (AttentionPool's 128 queries over 1570 keys while serving), the
 forward splits each block's key tiles ``kv_splits`` ways into fp32
 scratch that the wrapper allocates, and a second small kernel merges the
 shares by their lse.  The backward takes no split.
+``packed_supported`` copies the JAX package's rule for the head
+geometries its packed kernel takes, which the vision tower follows.
 ALiBi (``alibi_slopes``: any fp32 per-head values, as the JAX flash takes
 them) adds ``slope_h * key_index`` in fp32 to the scaled score before the
 mask, in the forward and when the backward rebuilds p; it requires
@@ -29,8 +33,9 @@ Both wrappers go through a ``torch.autograd.Function`` that saves
 (q, k, v, o, lse) where a gradient is wanted.  Each runs its
 plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_plain``) for CPU
 tensors and launches the kernels for CUDA tensors, or raises; it never
-falls back.  ``<wrapper>.launches`` counts kernel launches without ALiBi
-and ``<wrapper>.alibi_launches`` those with it: ``flash_attention_packed``
+falls back.  ``<wrapper>.launches`` counts kernel launches at head dim
+64 or 128 without ALiBi, ``<wrapper>.d96_launches`` those at head dim 96
+and ``<wrapper>.alibi_launches`` those with ALiBi: ``flash_attention_packed``
 and ``flash_attention`` the forward's, ``flash_bwd_dq_cuda`` and
 ``flash_bwd_dkv_cuda`` the backward's.
 """
@@ -44,15 +49,28 @@ import torch
 
 from youku_mplug_tpu_torch.ops import _native
 
-HEAD_DIMS = (64, 128)  # the head widths the kernels are built for
+HEAD_DIMS = (64, 96, 128)  # the head widths the kernels are built for
+ALIBI_HEAD_DIMS = (64, 128)  # ... and with the ALiBi bias
 TILE = 64  # rows of a query or key tile in the kernels
 SMS = 132  # the H100's streaming multiprocessors, where no card is asked
 # forward blocks resident on one streaming multiprocessor, by head dim,
 # from nvcc's -Xptxas -v report on sm_90a: at d 64, 126 registers a thread
 # (4 blocks of 128 threads in 64K registers; 41 KB of shared memory would
-# allow 5); at d 128, 184 registers and 81 KB (2 either way)
-FWD_BLOCKS_PER_SM = {64: 4, 128: 2}
+# allow 5); at d 128, 184 registers and 81 KB (2 either way); d 96 runs
+# the d 128 tiles and accumulators
+FWD_BLOCKS_PER_SM = {64: 4, 96: 2, 128: 2}
 MIN_TILES_PER_SPLIT = 4  # a share shorter than this is not worth a merge
+
+
+def packed_supported(n_heads: int, head_dim: int) -> bool:
+    """The head geometries the JAX package's packed kernel takes (its
+    ``packed_supported``): a head dim that is a multiple of 128, or one
+    that divides 128 with the heads filling whole 128-lane strips.  The
+    vision tower runs the packed kernel only there; elsewhere (clip-b16's
+    8 heads of 96) it runs einsum attention, as the JAX package does."""
+    if head_dim % 128 == 0:
+        return True
+    return 128 % head_dim == 0 and n_heads % (128 // head_dim) == 0
 
 
 def kv_splits(b: int, h: int, sq: int, sk: int, *, head_dim: int = 64,
@@ -192,6 +210,9 @@ def _slopes_ptr(alibi_slopes, q: torch.Tensor, causal: bool):
         return None
     if not causal:
         raise ValueError("ALiBi flash attention requires causal")
+    if q.shape[-1] not in ALIBI_HEAD_DIMS:
+        raise ValueError(f"flash kernel: ALiBi is built for head dims "
+                         f"{ALIBI_HEAD_DIMS}; got {q.shape[-1]}")
     h = q.shape[1]
     if not (isinstance(alibi_slopes, torch.Tensor)
             and alibi_slopes.dtype == torch.float32
@@ -210,11 +231,13 @@ def _kv(kv_len: Optional[int], sk: int) -> int:
     return sk if kv_len is None else min(int(kv_len), sk)
 
 
-def _count(fn, alibi_slopes) -> None:
-    if alibi_slopes is None:
-        fn.launches += 1
-    else:
+def _count(fn, alibi_slopes, head_dim: int) -> None:
+    if alibi_slopes is not None:
         fn.alibi_launches += 1
+    elif head_dim == 96:
+        fn.d96_launches += 1
+    else:
+        fn.launches += 1
 
 
 def _scratch(shape, device) -> Optional[torch.Tensor]:
@@ -230,7 +253,7 @@ def flash_fwd_cuda(q, k, v, o, *, scale: float, causal: bool = False,
                    period: int = 0, kv_len: Optional[int] = None,
                    alibi_slopes: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """Launch the forward kernel on [B,H,S,D] views, D 64 or 128 (any
+    """Launch the forward kernel on [B,H,S,D] views, D 64, 96 or 128 (any
     batch/head/sequence strides), writing ``o`` in place.  Returns the
     fp32 lse [B,H,Sq]."""
     b, h, sq, d = q.shape
@@ -288,10 +311,11 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, *, scale: float,
         _kv(kv_len, sk), *_strides(q, k, v, do, dq), float(scale),
         int(period), int(causal), d, slopes, _native.stream_handle(q))
     _native.check_launch(err, "ymt_flash_bwd_dq_bf16")
-    _count(flash_bwd_dq_cuda, alibi_slopes)
+    _count(flash_bwd_dq_cuda, alibi_slopes, d)
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.d96_launches = 0
 flash_bwd_dq_cuda.alibi_launches = 0
 
 
@@ -312,10 +336,11 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, *, scale: float,
         float(scale), int(period), int(causal), d, slopes,
         _native.stream_handle(q))
     _native.check_launch(err, "ymt_flash_bwd_dkv_bf16")
-    _count(flash_bwd_dkv_cuda, alibi_slopes)
+    _count(flash_bwd_dkv_cuda, alibi_slopes, d)
 
 
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.d96_launches = 0
 flash_bwd_dkv_cuda.alibi_launches = 0
 
 
@@ -357,7 +382,8 @@ class _Flash(torch.autograd.Function):
     """Attention over [B, H, S, D] views with the flash backward.  Saves
     (q, k, v, o, lse); the plain versions run for CPU tensors, the kernels
     for CUDA tensors (each forward launch adds one to ``counter.launches``,
-    or to ``counter.alibi_launches`` with ALiBi)."""
+    to ``counter.d96_launches`` at head dim 96, or to
+    ``counter.alibi_launches`` with ALiBi)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw, counter):
@@ -366,7 +392,7 @@ class _Flash(torch.autograd.Function):
         else:
             o = _head_major_empty(q)
             lse = flash_fwd_cuda(q, k, v, o, **kw)
-            _count(counter, kw["alibi_slopes"])
+            _count(counter, kw["alibi_slopes"], q.shape[-1])
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kw = kw
         return o
@@ -443,6 +469,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.d96_launches = 0
 flash_attention_packed.alibi_launches = 0
 
 
@@ -471,4 +498,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.d96_launches = 0
 flash_attention.alibi_launches = 0

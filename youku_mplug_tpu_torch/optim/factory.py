@@ -13,14 +13,18 @@ freeze:
   which train; frozen leaves get no optimizer state;
 - a per-update cosine or linear schedule with linear warmup from 0.
 
-The JAX package's per-leaf lr scales (0.1 on a CLIP vision tower, regex
-rules) are 1 for every configuration the port loads: it has no CLIP
-tower and its configs set no rules.  So ``AdamW`` reproduces optax's
-chain ``clip -> scale_by_adam -> masked add_decayed_weights ->
-scale_by_learning_rate(schedule)`` with ``torch.optim.AdamW`` over two
-parameter groups, with and without decay: each group's lr is
-``schedule(count)``, and torch's decoupled decay ``p *= 1 - lr * wd`` is
-optax's ``- lr * wd * p``.  The
+- a per-leaf lr scale (``lr_scale_tree``): 0.1 on the non-temporal
+  ``visual_encoder`` leaves of a CLIP-initialized tower
+  (``visual_backbone_scale``, set for a ``clip_model`` tower), else 1.
+  The JAX package's regex ``lr_scale_rules`` and layer decay are not
+  ported (no port YAML sets them).
+
+``AdamW`` reproduces optax's chain ``clip -> scale_by_adam -> masked
+add_decayed_weights -> scale_by_learning_rate(schedule) -> per-leaf
+scale`` with ``torch.optim.AdamW`` over one parameter group per (decay,
+scale) pair: each group's lr is ``schedule(count) * scale``, and torch's
+decoupled decay ``p *= 1 - lr * scale * wd`` is optax's ``- lr * scale *
+wd * p`` (the scale multiplies the whole update there).  The
 schedule is indexed by the optimizer's own update count, which starts
 at 0 (so under warmup the first applied update has lr 0) and does not
 advance on a skipped step.  Clipping belongs to the train step, which
@@ -55,6 +59,7 @@ class OptimizerConfig:
     epochs: int = 10
     niter_per_ep: int = 1000
     sched_type: str = "cos"
+    visual_backbone_scale: bool = False
     freeze_text_decoder: bool = True
     freeze_vit: bool = False
 
@@ -77,6 +82,15 @@ def freeze_mask(params: Dict[str, torch.Tensor], freeze_text_decoder=True,
         return (freeze_vit and "visual_encoder" in path
                 and "temporal" not in path and "time" not in path)
     return {path: rule(path) for path in params}
+
+
+def lr_scale_tree(params: Dict[str, torch.Tensor],
+                  visual_backbone_scale: bool = False) -> Dict[str, float]:
+    """JAX path -> the leaf's lr multiplier: 0.1 on the non-temporal
+    ``visual_encoder`` leaves under ``visual_backbone_scale``, else 1."""
+    return {path: 0.1 if (visual_backbone_scale and "visual_encoder" in path
+                          and "temporal" not in path) else 1.0
+            for path in params}
 
 
 def cosine_schedule(base_value, final_value, epochs, niter_per_ep,
@@ -127,10 +141,13 @@ class AdamW:
             warmup_epochs=config.warmup_epochs,
             warmup_steps=config.warmup_steps, sched_type=config.sched_type)
         decay = decay_mask(params)
+        scales = lr_scale_tree(params, config.visual_backbone_scale)
         groups = [{"params": [params[p] for p in sorted(params)
-                              if decay[p] == dec],
-                   "weight_decay": config.weight_decay if dec else 0.0}
-                  for dec in (False, True)]
+                              if (decay[p], scales[p]) == (dec, scale)],
+                   "weight_decay": config.weight_decay if dec else 0.0,
+                   "lr_scale": scale}
+                  for dec in (False, True)
+                  for scale in sorted(set(scales.values()))]
         self.torch_optimizer = torch.optim.AdamW(
             [g for g in groups if g["params"]], lr=0.0,
             betas=tuple(config.opt_betas), eps=config.opt_eps)
@@ -141,7 +158,7 @@ class AdamW:
         it used."""
         lr = self.schedule(self.count)
         for group in self.torch_optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group["lr_scale"]
         self.torch_optimizer.step()
         self.count += 1
         return lr

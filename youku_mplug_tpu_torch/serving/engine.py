@@ -70,8 +70,10 @@ COUNTERS = tuple(
         (dec.write_decode_attention, ("launches", "alibi_launches",
                                       "int8_launches",
                                       "int8_alibi_launches")),
-        (fa.flash_attention_packed, ("launches", "alibi_launches")),
-        (fa.flash_attention, ("launches", "alibi_launches")))
+        (fa.flash_attention_packed, ("launches", "d96_launches",
+                                     "alibi_launches")),
+        (fa.flash_attention, ("launches", "d96_launches",
+                              "alibi_launches")))
     for attr in attrs)
 
 

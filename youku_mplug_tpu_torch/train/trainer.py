@@ -12,13 +12,19 @@ Counterpart of ``youku_mplug_tpu/train/trainer.py``.  One step:
   the optimizer's moments and its update count stay as they were (the
   step counter still advances);
 - otherwise the gradients are clipped to ``clip_grad`` (optax's
-  ``g / norm * clip`` when ``norm >= clip``) and the optimizer steps.
+  ``g / norm * clip`` when ``norm >= clip``) and the optimizer steps;
+- with a ``dropout_seed``, the step's loss takes a ``torch.Generator``
+  on the batch's device whose draws depend only on (seed, step counter)
+  (``dropout_generator``): a resumed run draws the dropout masks an
+  unbroken run would, the role of the JAX runners' ``fold_in`` of the
+  epoch and step.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
+import numpy as np
 import torch
 
 from youku_mplug_tpu_torch.train.state import TrainState
@@ -38,18 +44,33 @@ def _split(batch: Dict, parts: int):
     return micro
 
 
-def make_train_step(loss_fn: Callable, update_freq: int = 1):
+def dropout_generator(seed: int, step: int, device) -> torch.Generator:
+    """A generator on ``device`` seeded from (``seed``, ``step``) alone."""
+    mixed = np.random.SeedSequence([seed, step]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(mixed))
+
+
+def make_train_step(loss_fn: Callable, update_freq: int = 1,
+                    dropout_seed: Optional[int] = None):
     """loss_fn(batch) -> dict with a scalar ``loss`` tensor (+ scalar
-    metrics).  Returns train_step(state, batch) -> metrics (floats)."""
+    metrics); with ``dropout_seed``, loss_fn(batch, generator), the
+    step's ``dropout_generator`` (shared by its micro-batches, in order).
+    Returns train_step(state, batch) -> metrics (floats)."""
 
     def train_step(state: TrainState, batch) -> Dict[str, float]:
         params = list(state.trainable.values())
         for p in params:
             p.grad = None
         micro = [batch] if update_freq <= 1 else _split(batch, update_freq)
+        gen = None
+        if dropout_seed is not None:
+            device = next(v.device for v in batch.values()
+                          if isinstance(v, torch.Tensor))
+            gen = dropout_generator(dropout_seed, state.step, device)
         outs = []
         for mb in micro:
-            out = loss_fn(mb)
+            out = loss_fn(mb) if gen is None else loss_fn(mb, gen)
             out["loss"].backward()
             outs.append({k: v.detach() for k, v in out.items()
                          if isinstance(v, torch.Tensor) and v.dim() == 0})
