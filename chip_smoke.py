@@ -23,12 +23,19 @@ the last line is printed):
    40 heads, d 64, d 128 without ALiBi) and the head dim 96 shapes of
    clip-b16's AttentionPool (q [32, 8, 128, 96] over 1570 keys, the cls
    train step, and over 786, ITM's; forward alone at an evaluation
-   call's 4 clips) the forward's o and lse and the
+   call's 4 clips; q [24, 8, 128, 96] over 3138 keys, the 2.7B caption
+   recipe's 16 frames) and the head dim 80 shapes of the GPT-3 2.7B
+   decoder (head views of its fused qkv row: [180, 208, 32x80] causal,
+   the cls evaluation's passes; [32, 208, 32x80] causal for K4b, which
+   no shipped YAML runs; a head-major call split three ways) the
+   forward's o and lse and the
    backward's dq and dk/dv kernels on that forward's output; K1 causal
    at the downstream evaluations' decoder calls ([180, 208, 32x64] cls,
    [32, 208] ITM, [96, 80] retrieval text); and the
    decode step's attention with its cache write in one launch (K5 with K6
    folded in: bf16 head dim 64 at the caption cache [24,8,256,2x32x64];
+   head dim 80, bf16 and int8, at the 2.7B beam step's [8 of 32 layers,
+   120, 256, 2x32x80];
    head dim 128 with the ALiBi ladder at BloomZ-7B1's [30,8,256,
    2x32x128], at 40 heads, and without ALiBi; int8 at the caption and
    BloomZ-7B1 caches and 40 heads, beside each the bf16 kernel's time on
@@ -163,7 +170,18 @@ the last line is printed):
    16 x 16 V x T matrix, 4 clips x 8 texts a call; retrieval: recall over
    64 clips), its launches per call (one K4 d 96 and 48 K1; retrieval 24
    K1 a text batch) and one call replayed plain; step ms, peak memory,
-   metrics ([cls], [itm], [retrieval] lines).
+   metrics ([cls], [itm], [retrieval] lines);
+14. the GPT-3 2.7B decoder (run after phase 13; 32 layers x 2560, 32
+   heads of 80, vocab 51200, seeded weights; [gpt3-2.7B] lists the cuts):
+   run_caption on configs/caption/caption_gpt3_2.7B_youku_v0.yaml
+   (clip-b16 at 16 frames, batch 24, the decoder's 0.1 dropouts): 2
+   finetune steps (one K4, dq and dk/dv at d 96 a step and nothing else:
+   the decoder on plain attention), the beam-5 evaluation of 2 test
+   batches (32 launches of K5 at d 80 with its K6 write a decode step,
+   one K4 d 96 a batch, no other kernel), traced and rescored plain as in
+   phase 12 ([caption27 ...] lines); then phase 13's cls run on
+   configs/cls/cls_gpt3_2.7B_youku_v0_sharp_2.yaml ([cls27] line: 64 K4
+   launches at d 80 and one at d 96 an evaluation call, no K1).
 """
 
 from __future__ import annotations
@@ -259,6 +277,14 @@ RETRIEVAL_YAML = os.path.join(REPO, "configs", "retrieval",
                               "retrieval_gpt3_1.3B_youku_v0.yaml")
 DOWNSTREAM_STEPS, DOWNSTREAM_EVAL_CLIPS = 2, 4
 DOWNSTREAM_SPLITS = {"itm": 16, "retrieval": 64}
+# the GPT-3 2.7B recipes (phase 14) and their cuts
+CAPTION27_YAML = os.path.join(REPO, "configs", "caption",
+                              "caption_gpt3_2.7B_youku_v0.yaml")
+CLS27_YAML = os.path.join(REPO, "configs", "cls",
+                          "cls_gpt3_2.7B_youku_v0_sharp_2.yaml")
+CAPTION27_CUTS = {"max_new_tokens": 32, "synthetic_length": 48}
+CLS27_CUTS = {"eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
+              "synthetic_length": 64}
 # the zeroed share of the decoder's input under dropout 0.1 (one draw of
 # ~10^7 values: its standard error is ~10^-4) and, without dropout, the
 # bound on exact zeros of bf16 embeddings
@@ -554,8 +580,28 @@ D96_SHAPES = [
     (32, 128, 786, 8, False, 0, None, "heads", 96, False, "itm_train",
      True),
     (4, 128, 1570, 8, False, 0, None, "heads", 96, False, "cls_eval", True),
-    (4, 128, 786, 8, False, 0, None, "heads", 96, False, "itm_eval", True)]
-D96_PATHS = ("cls_train", "cls_eval", "itm_train", "itm_eval")
+    (4, 128, 786, 8, False, 0, None, "heads", 96, False, "itm_eval", True),
+    # the 2.7B caption recipe's 24 clips x 16 frames (1 + 16 x 196 tokens
+    # and the bias key), in its finetune and its evaluation's encode
+    (24, 128, 3138, 8, False, 0, None, "heads", 96, False,
+     "caption27_train", True)]
+D96_PATHS = ("cls_train", "cls_eval", "itm_train", "itm_eval",
+             "caption27_train", "caption27_eval", "cls27_train", "cls27_eval")
+D96_TRAIN_PATHS = ("cls_train", "itm_train", "caption27_train", "cls27_train")
+
+# head dim 80, the GPT-3 2.7B decoder (32 heads of 80), on head views of
+# the fused qkv projection: the cls evaluation's decoder passes (4 clips x
+# 45 class pairs of 128 queries + 80 tokens, causal: K4 forward); a
+# dropout-free training pass of 32 rows (K4b dq and dk/dv: no shipped
+# YAML trains the decoder without its 0.1 attention dropout); and a
+# head-major call split over the keys three ways (kv_len 900 of 1000)
+D80_SHAPES = [
+    (180, 208, 208, 32, True, 0, None, "packed", 80, False, "cls27_eval",
+     True),
+    (32, 208, 208, 32, True, 0, None, "packed", 80, False,
+     "dropout-free training", False),
+    (1, 100, 1000, 32, False, 0, 900, "heads", 80, False, "split-KV",
+     False)]
 
 
 # lengths of the decode cases: live keys 1 (the row the step writes),
@@ -571,7 +617,7 @@ BEAM_ROWS, BEAM_PREFIX, BEAM_VALID_FROM, BEAM_NEW = 120, 148, 19, 32
 
 def _step_views(qkv, n, d):
     """q, k, v of one decode step as the decoders hand them over: slices
-    of GPT-3's packed row [B, 3*n*d] (d 64), head views of Bloom's
+    of GPT-3's packed row [B, 3*n*d] (d 64 and 80), head views of Bloom's
     head-major row [B, n, 3, d] (d 128)."""
     if qkv.dim() == 2:
         nd = n * d
@@ -612,7 +658,7 @@ def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path,
     import torch.nn.functional as F
 
     b, m, lidx = len(clens), 256, layers - 1
-    qkv = rand(b, 3 * n * d) if d == 64 else rand(b, n, 3, d)
+    qkv = rand(b, 3 * n * d) if d != 128 else rand(b, n, 3, d)
     q, k, v = _step_views(qkv, n, d)
     rows = rand(layers, b, m, 2 * n * d)
     if int8:
@@ -735,7 +781,7 @@ def _write_row(case):
 
 
 DEC_COUNTERS = ("launches", "alibi_launches", "int8_launches",
-                "int8_alibi_launches")
+                "int8_alibi_launches", "d80_launches", "int8_d80_launches")
 # the paths that run each decode kernel variant (each launch with its K6
 # write): the serve CLI's and run_instruct's (k = 1 graphs), the k = 8
 # runs, the twin draft's steps and the sampled instruct runs
@@ -743,7 +789,8 @@ K5_PATHS = {"K5": ("serve", "serve_k8", "speculative_twin",
                    "caption_eval"),
             "K5-ALiBi": ("instruct", "instruct_k8", "instruct_sample"),
             "K5-int8": ("serve_int8kv", "serve_int8kv_k8"),
-            "K5-int8-ALiBi": ("instruct_int8", "instruct_int8_k8")}
+            "K5-int8-ALiBi": ("instruct_int8", "instruct_int8_k8"),
+            "K5-d80": ("caption27_eval",), "K5-int8-d80": ()}
 
 
 def _decode_entries(dec, kvc, rand):
@@ -761,6 +808,17 @@ def _decode_entries(dec, kvc, rand):
         beam, [BEAM_VALID_FROM] * BEAM_ROWS)]
     gc.collect()
     torch.cuda.empty_cache()
+    # the same beam step on the 2.7B decoder's cache (32 heads of 80), bf16
+    # (the 2.7B caption evaluation) and int8 (no shipped YAML), 8 of its
+    # 32 layers (each 315 MB, so rotating over 8 reads from HBM as 32 do)
+    for key, int8 in (("K5-d80", False), ("K5-int8-d80", True)):
+        cases[key] = [_decode_case(
+            dec, kvc, rand, 32, 80, 8, False, int8,
+            f"[8,{BEAM_ROWS},256,2x32x80]" + (" int8" if int8 else "")
+            + " d 80 (caption27_eval, beam 5)", not int8, beam,
+            [BEAM_VALID_FROM] * BEAM_ROWS)]
+        gc.collect()
+        torch.cuda.empty_cache()
     for key, n, d, layers, alibi, int8, path in (
             ("K5", 32, 64, 24, False, False, "serve"),
             ("K5-ALiBi", 32, 128, 30, True, False, "instruct"),
@@ -794,6 +852,14 @@ def _decode_entries(dec, kvc, rand):
                "ladder, head dim 128 (Bloom int8 decode step)", DEC_SRC,
                dec_int8, wrapper, K5_PATHS["K5-int8-ALiBi"], "K5-int8-ALiBi",
                cases["K5-int8-ALiBi"], counter="int8_alibi_launches"),
+        _entry("K5 decode attention with the cache write, head dim 80 (GPT-3 "
+               "2.7B decode step: teams of 10 lanes, three a warp)", DEC_SRC,
+               f"{TPU_DEC}:56", wrapper, K5_PATHS["K5-d80"], "K5-d80",
+               cases["K5-d80"], counter="d80_launches"),
+        _entry("K5 decode attention with the cache write, int8 cache, head "
+               "dim 80 (GPT-3 2.7B, no shipped YAML)", DEC_SRC, dec_int8,
+               wrapper, K5_PATHS["K5-int8-d80"], "K5-int8-d80",
+               cases["K5-int8-d80"], counter="int8_d80_launches"),
         _entry("K6 the decode step's cache write, bf16 or int8 (quantized "
                "as quantize_rows), fused into K5's launch (ms: that "
                "launch's)", DEC_SRC,
@@ -807,8 +873,9 @@ def _decode_entries(dec, kvc, rand):
 def _entry(name, source, replaces, wrapper, paths, key, per_shape,
            counter="launches"):
     """A kernel's report entry.  The error is the worst over every shape;
-    the times and bounds are sums over the shapes its paths run."""
-    on = [p for p in per_shape if p["on_path"]]
+    the times and bounds are sums over the shapes its paths run (over
+    every shape for a kernel that no path runs)."""
+    on = [p for p in per_shape if p["on_path"]] or per_shape
     ops, nbytes = sum(p["ops_ms"] for p in on), sum(p["bytes_ms"] for p in on)
     library = [p["library_ms"] for p in on]
     return {"name": name, "route": "cuda", "source": source,
@@ -935,6 +1002,7 @@ def phase_kernels(dev):
     alibi_cases = [_bwd_case(rand, fa, *c) for c in ALIBI_SHAPES]
     no_alibi_128 = alibi_cases.pop()
     d96 = [_bwd_case(rand, fa, *c) for c in D96_SHAPES]
+    d80 = [_bwd_case(rand, fa, *c) for c in D80_SHAPES]
     k1 += [c["fwd"] for c in cases if c["layout"] == "packed"]
     k1.append(no_alibi_128["fwd"])
     # the pretrain K4 forward is timed above; the small kv_len case here
@@ -979,7 +1047,7 @@ def phase_kernels(dev):
             counter="alibi_launches"))
 
     train96 = [c for c, shape in zip(d96, D96_SHAPES)
-               if shape[10].endswith("_train")]
+               if shape[10] in D96_TRAIN_PATHS]
     report.append(_entry(
         "K4 flash_attention, head dim 96 (clip-b16 AttentionPool; the d "
         "128 tiles with 32 zero columns; split-KV at an evaluation call's "
@@ -991,8 +1059,21 @@ def phase_kernels(dev):
         report.append(_entry(
             f"K4b backward {kind} kernel, head dim 96 (clip-b16 "
             "AttentionPool)", BWD_SRC, f"{TPU_FLASH}:{line}", wrapper,
-            ("cls_train", "itm_train"), f"{kind}-d96",
+            D96_TRAIN_PATHS, f"{kind}-d96",
             [c[kind] for c in train96], counter="d96_launches"))
+    report.append(_entry(
+        "K4 flash_attention, head dim 80 (GPT-3 2.7B decoder, causal, via "
+        "dot_product_attention; the d 128 tiles with 48 zero columns; "
+        "split-KV off the paths)", FWD_SRC, f"{TPU_FLASH}:59",
+        fa.flash_attention, ("cls27_eval",), "K4-d80",
+        [c["fwd"] for c in d80], counter="d80_launches"))
+    for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 148),
+                                ("dkv", fa.flash_bwd_dkv_cuda, 195)):
+        report.append(_entry(
+            f"K4b backward {kind} kernel, head dim 80 (GPT-3 2.7B decoder "
+            "trained without attention dropout: no shipped YAML)", BWD_SRC,
+            f"{TPU_FLASH}:{line}", wrapper, (), f"{kind}-d80",
+            [d80[1][kind]], counter="d80_launches"))
     report += _decode_entries(dec, kvc, rand)
     for r in report:
         lib = ("none" if r["library_ms"] is None
@@ -1402,7 +1483,8 @@ def phase_train(report, out_dir):
     return runner, stats
 
 
-FLASH_COUNTERS = ("launches", "d96_launches", "alibi_launches")
+FLASH_COUNTERS = ("launches", "d80_launches", "d96_launches",
+                  "alibi_launches")
 
 
 def _flash_counts(fa, attrs=FLASH_COUNTERS, backward_only=False):
@@ -1617,7 +1699,6 @@ def phase_caption(report, holder, out_dir):
     evaluation of 2 test batches (48 clips); each returned sequence
     rescored with the plain versions."""
     from youku_mplug_tpu_torch.cli import common, run_caption
-    from youku_mplug_tpu_torch.models import generation
     from youku_mplug_tpu_torch.train.checkpoint import STATE_FILE
 
     t_phase = time.perf_counter()
@@ -1657,8 +1738,25 @@ def phase_caption(report, holder, out_dir):
     del pretrain, diff
     gc.collect()
     torch.cuda.empty_cache()
+    train = _caption_finetune(report, runner, "caption_train")
+    print(f"[caption finetune] {json.dumps(train)}", flush=True)
+    out = _caption_eval(report, runner, test_loader, "caption_eval", "K5",
+                        CAPTION_EVAL_BATCHES)
+    print(f"[caption eval] {json.dumps(out)}", flush=True)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[caption] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return train, out
 
-    # the finetune: CAPTION_STEPS steps of batch 24
+
+def _caption_finetune(report, runner, path):
+    """The runner's finetune (``--max_steps`` steps) on ``path``: finite,
+    no skipped step, the frozen bf16 decoder bitwise unchanged, trainable
+    leaves moved; step ms, clips/s, peak memory and launches."""
+    from youku_mplug_tpu_torch.cli import common, run_caption
+
     state = runner.state
     frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
     trainable0 = {k: p.detach().clone() for k, p in state.trainable.items()}
@@ -1668,40 +1766,51 @@ def phase_caption(report, holder, out_dir):
     history = common.train_one_epoch(runner, train_step, runner.start_epoch,
                                      run_caption.make_batch)
     torch.cuda.synchronize()
-    _read_counts(report, "caption_train")
+    _read_counts(report, path)
     train_peak = torch.cuda.max_memory_allocated()
-    if len(history) != CAPTION_STEPS or any(
+    if len(history) != runner.args.max_steps or any(
             not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))
             or h["skipped_nonfinite"] != 0 for h in history):
-        fail(f"caption finetune steps: {history}")
+        fail(f"{path} steps: {history}")
     changed = [k for k, p in state.frozen.items()
                if not torch.equal(p.detach(), frozen0[k])]
     if changed or any(p.dtype != torch.bfloat16
                       for p in state.frozen.values()):
-        fail(f"the frozen decoder changed: {changed[:5]}")
+        fail(f"{path}: the frozen decoder changed: {changed[:5]}")
     moved = sum(not torch.equal(p.detach(), trainable0[k])
                 for k, p in state.trainable.items())
     if moved == 0:
-        fail("no trainable leaf moved in the caption finetune")
+        fail(f"{path}: no trainable leaf moved")
     del frozen0, trainable0
     gc.collect()
     torch.cuda.empty_cache()
     batch = runner.cfg.batch_size
-    train = {"steps": len(history),
-             "step_ms_each": [h["step_time"] * 1e3 for h in history],
-             "clips_per_s_last": batch / history[-1]["step_time"],
-             "loss": [h["loss"] for h in history],
-             "grad_norm": [h["grad_norm"] for h in history],
-             "lr": [h["lr"] for h in history],
-             "trainable_leaves_moved": f"{moved}/{len(state.trainable)}",
-             "peak_memory_gib": train_peak / 2 ** 30,
-             "launches": {r["key"]: r["launches_by_path"]["caption_train"]
-                          for r in report
-                          if r["launches_by_path"]["caption_train"]}}
-    print(f"[caption finetune] {json.dumps(train)}", flush=True)
+    return {"steps": len(history),
+            "step_ms_each": [h["step_time"] * 1e3 for h in history],
+            "clips_per_s_last": batch / history[-1]["step_time"],
+            "loss": [h["loss"] for h in history],
+            "grad_norm": [h["grad_norm"] for h in history],
+            "lr": [h["lr"] for h in history],
+            "trainable_leaves_moved": f"{moved}/{len(state.trainable)}",
+            "peak_memory_gib": train_peak / 2 ** 30,
+            "launches": {r["key"]: r["launches_by_path"][path]
+                         for r in report if r["launches_by_path"][path]}}
 
-    # the evaluation, each decode step's host time read at its beam
-    # reorder (the step's last call; None marks a batch's start)
+
+def _caption_eval(report, runner, test_loader, path, k5_key, batches):
+    """The runner's beam-search evaluation of ``batches`` test batches on
+    ``path``: ``k5_key`` (with its K6 write) launched once per decoder
+    layer per decode step and no other decode kernel; one result per
+    clip, finite metrics; host ms per decode step; the first batch traced
+    (the beam reorder's and a decode step's device ms); every returned
+    sequence's beam score against its teacher-forced rescore with the
+    plain versions of K1, K4 and K5 within RESCORE_TOL_PER_TOKEN a
+    token."""
+    from youku_mplug_tpu_torch.cli import run_caption
+    from youku_mplug_tpu_torch.models import generation
+
+    # each decode step's host time read at its beam reorder (the step's
+    # last call; None marks a batch's start)
     stamps = []
     gather = generation._gather_beams
     captions = run_caption.generate_captions
@@ -1721,22 +1830,21 @@ def phase_caption(report, holder, out_dir):
             mock.patch.object(run_caption, "generate_captions", marked):
         metrics, results, stats = run_caption.evaluation(runner, test_loader)
     torch.cuda.synchronize()
-    _read_counts(report, "caption_eval")
+    _read_counts(report, path)
     eval_peak = torch.cuda.max_memory_allocated()
     layers = runner.cfg.model.text.num_hidden_layers
-    per_step = _per_step(report, "caption_eval", stats["decode_steps"],
-                         {"K5": layers, "K6": layers})
-    clips = CAPTION_EVAL_BATCHES * batch
+    per_step = _per_step(report, path, stats["decode_steps"],
+                         {k5_key: layers, "K6": layers})
+    clips = batches * runner.cfg.batch_size
     if stats["clips"] != clips or len(results) != clips or not all(
             math.isfinite(v) for v in metrics.values()):
-        fail(f"caption evaluation: {stats}, {len(results)} results, "
-             f"metrics {metrics}")
+        fail(f"{path}: {stats}, {len(results)} results, metrics {metrics}")
     host = sorted(b - a for a, b in zip(stamps, stamps[1:])
                   if a is not None and b is not None)
 
     # the reorder's device time, traced over the first test batch
     gen_cfg = run_caption.generation_config(runner)
-    raws = [raw for _, raw in zip(range(CAPTION_EVAL_BATCHES), test_loader)]
+    raws = [raw for _, raw in zip(range(batches), test_loader)]
 
     def spanned(*a, **kw):
         with torch.profiler.record_function("gather_beams"):
@@ -1758,12 +1866,12 @@ def phase_caption(report, holder, out_dir):
             events = json.load(f)["traceEvents"]
     gather_ms, n_gathers, step_trace = _beam_trace(events)
     if n_gathers != traced["decode_steps"]:
-        fail(f"traced {n_gathers} beam reorders over "
+        fail(f"{path}: traced {n_gathers} beam reorders over "
              f"{traced['decode_steps']} decode steps")
 
     # every returned sequence rescored with the plain versions
     by_id = {r["video_id"]: r for r in results}
-    worst, rows = 0.0, []
+    rows = []
     for raw in raws:
         video, ids, mask = run_caption.eval_inputs(runner, raw)
         recs = [by_id[v] for v in raw["video_id"]]
@@ -1779,37 +1887,32 @@ def phase_caption(report, holder, out_dir):
     tail = _tail_bytes(runner, gen_cfg)
     if not all(math.isfinite(r[4]) and math.isfinite(r[5]) for r in rows) \
             or rows[0][0] > RESCORE_TOL_PER_TOKEN:
-        fail(f"beam scores against the plain rescore: worst {rows[:3]} "
-             f"(tol {RESCORE_TOL_PER_TOKEN} a token)")
+        fail(f"{path}: beam scores against the plain rescore: worst "
+             f"{rows[:3]} (tol {RESCORE_TOL_PER_TOKEN} a token)")
     runner.model.train()
-    out = {"clips": stats["clips"], "batches": stats["batches"],
-           "beam_size": gen_cfg.beam_size,
-           "max_new_tokens": gen_cfg.max_new_tokens,
-           "decode_steps": stats["decode_steps"],
-           "tokens": stats["tokens"],
-           "beam_tokens_per_s": stats["tokens"] / stats["generate_s"],
-           "generate_s": stats["generate_s"],
-           "host_ms_per_decode_step_median": 1e3 * host[len(host) // 2],
-           "host_ms_per_decode_step_max": 1e3 * host[-1],
-           "gather_device_ms_per_step": gather_ms / n_gathers,
-           "gather_tail_bytes": tail,
-           "gather_bound_ms": 2 * tail / PEAK_HBM_BYTES * 1e3,
-           "traced_decode_step": step_trace,
-           "launches_per_decode_step": per_step,
-           "peak_memory_gib": eval_peak / 2 ** 30,
-           "metrics": metrics,
-           "rescore_max_abs_err": rows[0][1],
-           "rescore_max_err_per_token": rows[0][0],
-           "rescore_tol_per_token": RESCORE_TOL_PER_TOKEN}
-    print(f"[caption eval] {json.dumps(out)}", flush=True)
-    print(f"[caption] worst rescores (err a token, err, tokens, clip, beam "
+    print(f"[{path}] worst rescores (err a token, err, tokens, clip, beam "
           f"score, plain score): {rows[:3]}", flush=True)
-    del runner
-    gc.collect()
-    torch.cuda.empty_cache()
-    print(f"[caption] phase {time.perf_counter() - t_phase:.1f} s",
-          flush=True)
-    return train, out
+    return {"clips": stats["clips"], "batches": stats["batches"],
+            "beam_size": gen_cfg.beam_size,
+            "max_new_tokens": gen_cfg.max_new_tokens,
+            "decode_steps": stats["decode_steps"],
+            "tokens": stats["tokens"],
+            "beam_tokens_per_s": stats["tokens"] / stats["generate_s"],
+            "generate_s": stats["generate_s"],
+            "host_ms_per_decode_step_median": 1e3 * host[len(host) // 2],
+            "host_ms_per_decode_step_max": 1e3 * host[-1],
+            "gather_device_ms_per_step": gather_ms / n_gathers,
+            "gather_tail_bytes": tail,
+            "gather_bound_ms": 2 * tail / PEAK_HBM_BYTES * 1e3,
+            "traced_decode_step": step_trace,
+            "launches_per_decode_step": per_step,
+            "launches": {r["key"]: r["launches_by_path"][path]
+                         for r in report if r["launches_by_path"][path]},
+            "peak_memory_gib": eval_peak / 2 ** 30,
+            "metrics": metrics,
+            "rescore_max_abs_err": rows[0][1],
+            "rescore_max_err_per_token": rows[0][0],
+            "rescore_tol_per_token": RESCORE_TOL_PER_TOKEN}
 
 
 def _tail_bytes(runner, gen_cfg):
@@ -2427,12 +2530,18 @@ def _eval_replay(tag, runner, module, prepared, split):
     return out
 
 
-def _downstream_task(report, tag, module, yaml_path, overrides, out_dir):
+def _downstream_task(report, tag, module, yaml_path, overrides, out_dir,
+                     kind=None, want=None):
     """One downstream recipe through its CLI's functions at full width and
     depth: prepare (setup) on the reference YAML with the cuts,
     DOWNSTREAM_STEPS train steps, the plain replay of the first step with
     the same dropout generator and the dropout law on the decoder's
-    input, the evaluation, and one evaluation call replayed plain."""
+    input, the evaluation, and one evaluation call replayed plain.
+    ``tag`` names the run's paths (``<tag>_train``, ``<tag>_eval``) and
+    lines, ``kind`` the recipe (cls, itm or retrieval; default ``tag``),
+    ``want`` the launches (per train step, per evaluation call) to check
+    (default the 1.3B decoder's)."""
+    kind = kind or tag
     from youku_mplug_tpu_torch.cli import common, run_cls
     from youku_mplug_tpu_torch.data.datasets import SyntheticRetrievalSplit
     from youku_mplug_tpu_torch.train.trainer import dropout_generator
@@ -2451,7 +2560,11 @@ def _downstream_task(report, tag, module, yaml_path, overrides, out_dir):
     cfg, state = runner.cfg, runner.state
     layers = cfg.model.text.num_hidden_layers
     make_batch = (run_cls.make_batch_factory(prepared[3], cfg.max_length)
-                  if tag == "cls" else module.make_batch)
+                  if kind == "cls" else module.make_batch)
+    if want is None:
+        want = (({"K1": layers}, {"K1": layers}) if kind == "retrieval" else
+                ({"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1},
+                 {"K4-d96": 1, "K1": 2 * layers}))
     held = torch.cuda.memory_allocated()
     frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
     trainable0 = {k: p.detach().clone() for k, p in state.trainable.items()}
@@ -2479,9 +2592,7 @@ def _downstream_task(report, tag, module, yaml_path, overrides, out_dir):
         fail(f"[{tag}] no trainable leaf moved")
     n_frozen = len(frozen0)
     del frozen0, trainable0
-    want = ({"K1": layers} if tag == "retrieval" else
-            {"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1})
-    per_step = _launches_per(report, f"{tag}_train", len(history), want)
+    per_step = _launches_per(report, f"{tag}_train", len(history), want[0])
     lr_scale = _clip_lr_scale(state)
 
     # the plain replay of the first batch, the same dropout masks both
@@ -2499,7 +2610,7 @@ def _downstream_task(report, tag, module, yaml_path, overrides, out_dir):
         def __exit__(self, *exc):
             self.h.remove()
 
-    dropout = tag != "retrieval"
+    dropout = kind != "retrieval"
     make_gen = ((lambda: dropout_generator(args.seed, 0, runner.device))
                 if dropout else None)
     loss_k, loss_p, finite, _, rows = _replay(
@@ -2530,17 +2641,17 @@ def _downstream_task(report, tag, module, yaml_path, overrides, out_dir):
 
     # the evaluation
     split = None
-    if tag != "cls":
-        split = SyntheticRetrievalSplit(DOWNSTREAM_SPLITS[tag],
+    if kind != "cls":
+        split = SyntheticRetrievalSplit(DOWNSTREAM_SPLITS[kind],
                                         num_frames=cfg.num_frames,
                                         size=cfg.image_res)
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(report)
     t0 = time.perf_counter()
-    if tag == "cls":
+    if kind == "cls":
         metrics = module.evaluation(runner, prepared[2], prepared[3])
         calls = -(-cfg.batch_size // DOWNSTREAM_EVAL_CLIPS) * DOWNSTREAM_STEPS
-    elif tag == "itm":
+    elif kind == "itm":
         metrics = module.evaluation(runner, split)
         calls = -(-len(split) // int(cfg.get("eval_video_batch", 4))) * -(
             -len(split.text) // module.TEXTS_PER_CALL)
@@ -2551,12 +2662,10 @@ def _downstream_task(report, tag, module, yaml_path, overrides, out_dir):
     eval_s = time.perf_counter() - t0
     _read_counts(report, f"{tag}_eval")
     eval_peak = torch.cuda.max_memory_allocated()
-    want = ({"K1": layers} if tag == "retrieval" else
-            {"K4-d96": 1, "K1": 2 * layers})
-    per_call = _launches_per(report, f"{tag}_eval", calls, want)
+    per_call = _launches_per(report, f"{tag}_eval", calls, want[1])
     if not all(math.isfinite(v) for v in metrics.values()):
         fail(f"[{tag}] evaluation metrics {metrics}")
-    eval_replay = _eval_replay(tag, runner, module, prepared, split)
+    eval_replay = _eval_replay(kind, runner, module, prepared, split)
 
     step_ms = [h["step_time"] * 1e3 for h in history]
     out = {"yaml": os.path.relpath(yaml_path, REPO), "cuts": overrides,
@@ -2616,6 +2725,74 @@ def phase_downstream(report, out_dir):
     print(f"[downstream] phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return out
+
+
+def phase_gpt3_27b(report, out_dir):
+    """Phase 14, the GPT-3 2.7B decoder (32 layers, 2560 wide, 32 heads of
+    80, vocab 51200; seeded weights) on two reference recipes at full
+    width and depth, with clip-b16: the caption recipe through
+    run_caption (2 finetune steps of 24 clips x 16 frames, the decoder on
+    plain attention under its 0.1 dropouts; the beam-5 evaluation of 2
+    test batches, whose decode steps run K5 at head dim 80 with its K6
+    write, rescored plain), and the cls recipe through run_cls as phase
+    13 runs the 1.3B one (its dropout-free evaluation passes run K4 at
+    head dim 80, once a layer a pass, and no packed K1)."""
+    from youku_mplug_tpu_torch.cli import run_caption, run_cls
+
+    t_phase = time.perf_counter()
+    with open(os.path.join(REPO, "configs", "models",
+                           "config_gpt3_2.7B.json")) as f:
+        layers = json.load(f)["num_hidden_layers"]
+    print(f"[gpt3-2.7B] cuts: caption {CAPTION27_CUTS} (the beam's new "
+          "tokens 32, as on the 1.3B flagship, for the decoder's default "
+          "100; synthetic clips for 2 train and 2 test batches); cls as "
+          f"phase 13's: {CLS27_CUTS}; synthetic clips, seeded weights",
+          flush=True)
+    cfg_path = _downstream_yaml(CAPTION27_YAML, CAPTION27_CUTS, out_dir)
+    args = run_caption.parser().parse_args([
+        "--config", cfg_path, "--synthetic_data", "--max_steps",
+        str(CAPTION_STEPS), "--device", "cuda", "--output_dir",
+        os.path.join(out_dir, "caption27")])
+    t0 = time.perf_counter()
+    runner, test_loader = run_caption.prepare(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    text = runner.cfg.model.text
+    geometry = (text.num_hidden_layers, text.hidden_size,
+                text.num_attention_heads, text.head_dim, text.vocab_size,
+                runner.cfg.num_frames, runner.cfg.batch_size)
+    if geometry != (layers, 2560, 32, 80, 51200, 16, 24) \
+            or text.attention_dropout != 0.1:
+        fail(f"the 2.7B caption recipe's geometry {geometry}, attention "
+             f"dropout {text.attention_dropout}")
+    train = _caption_finetune(report, runner, "caption27_train")
+    train["setup_s"] = setup_s
+    train["launches_per_step"] = _launches_per(
+        report, "caption27_train", train["steps"],
+        {"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1})
+    print(f"[caption27 finetune] {json.dumps(train)}", flush=True)
+    out = _caption_eval(report, runner, test_loader, "caption27_eval",
+                        "K5-d80", CAPTION_EVAL_BATCHES)
+    # besides the decode kernel, one K4 at head dim 96 a batch (the
+    # encode's AttentionPool); the prefill runs plain attention
+    others = {k: v for k, v in out["launches"].items()
+              if not k.startswith(("K5", "K6"))}
+    if others != {"K4-d96": out["batches"]}:
+        fail(f"caption27_eval: launches {out['launches']}, expected one "
+             "K4-d96 a batch besides K5-d80 and K6")
+    print(f"[caption27 eval] {json.dumps(out)}", flush=True)
+    del runner, test_loader
+    gc.collect()
+    torch.cuda.empty_cache()
+    cls = _downstream_task(
+        report, "cls27", run_cls, CLS27_YAML, CLS27_CUTS, out_dir,
+        kind="cls", want=({"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1},
+                          {"K4-d96": 1, "K4-d80": 2 * layers}))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[gpt3-2.7B] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return train, out, cls
 
 
 def phase_instruct_train(report, out_dir):
@@ -2750,6 +2927,10 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_downstream(report, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_gpt3_27b(report, out_dir)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:

@@ -150,8 +150,11 @@ def test_decoder_rate_zero_equals_the_deterministic_path_and_jax():
 def test_decoder_dropout_takes_every_kind_and_its_share():
     """At hidden 0.1 the embeddings' dropped share is the rate (read off
     the first layer's input through a hook), attention dropout sends the
-    training attention to mha_reference (no flash call), and the output
-    differs from eval's."""
+    training attention to mha_reference (through dot_product_attention,
+    no flash call), and the output differs from eval's.  Eval takes the
+    route of the JAX package's rule: 4 heads of 8 are not a packed
+    geometry (``packed_supported``), so dot_product_attention without
+    dropout, one call a layer."""
     lm = _lm(0.1, 0.1)
     ids = torch.from_numpy(np.random.default_rng(6).integers(
         3, 64, size=(16, 32)))
@@ -159,12 +162,18 @@ def test_decoder_dropout_takes_every_kind_and_its_share():
     lm.decoder.layers.register_forward_pre_hook(
         lambda mod, args: seen.append(args[0].detach()))
     with mock.patch.object(tgpt3, "flash_attention_packed",
-                           wraps=tgpt3.flash_attention_packed) as flash:
+                           wraps=tgpt3.flash_attention_packed) as flash, \
+            mock.patch.object(tgpt3, "dot_product_attention",
+                              wraps=tgpt3.dot_product_attention) as dpa:
         out = lm.train()(tokens=ids,
                          generator=torch.Generator().manual_seed(7))
         assert flash.call_count == 0
+        assert [c.kwargs["dropout_rate"] for c in dpa.call_args_list] \
+            == [0.1, 0.1]
         lm.eval()(tokens=ids)
-        assert flash.call_count == 2  # one per layer without dropout
+        assert flash.call_count == 0
+        assert [c.kwargs["dropout_rate"] for c in dpa.call_args_list[2:]] \
+            == [0.0, 0.0]  # one per layer without dropout
     x = seen[0]
     assert _share_ok(int((x == 0).sum()), x.numel(), 0.1)
     assert not torch.equal(out["last_hidden_state"],

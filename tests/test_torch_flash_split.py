@@ -132,6 +132,10 @@ def split_plain(q, k, v, splits, *, scale, causal=False, period=0,
     # a card with fewer multiprocessors: a smaller wave
     ((8, 12, 128, 1570), {"sms": 78}, 1),
     ((4, 12, 128, 1570), {"sms": 78}, 3),
+    # head dim 80, the 2.7B decoder: its causal calls never split; a
+    # head-major call with few blocks does (two resident blocks, as d 128)
+    ((180, 32, 208, 208), {"causal": True, "head_dim": 80}, 1),
+    ((1, 32, 100, 1000), {"kv_len": 900, "head_dim": 80}, 3),
 ])
 def test_kv_splits_at_the_paths_shapes(shape, kw, want):
     assert fa.kv_splits(*shape, **kw) == want
@@ -189,6 +193,7 @@ def test_merge_of_empty_shares_gives_zero_and_minus_inf():
     (70, 200, 64, 150, 3),     # ragged Sk, kv_len < Sk, empty last share
     (128, 330, 64, None, 2),   # ragged Sk
     (64, 300, 128, 260, 2),    # head dim 128
+    (100, 330, 80, 300, 3),    # head dim 80 (the 2.7B decoder's heads)
 ])
 def test_split_merge_matches_plain_and_pallas_head_major(sq, sk, d, kv_len,
                                                          splits):
@@ -299,3 +304,36 @@ def test_cuda_split_kernels_match_plain(cuda_device, b, sq, sk, kv_len):
     for x, y in zip(got, want):
         rel = ((x.float() - y.float()).norm() / y.float().norm()).item()
         assert rel <= 2.0 ** -7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,sq,sk,kv_len", [
+    (1, 32, 100, 1000, 900),  # three splits at the 2.7B decoder's heads
+    (4, 8, 128, 1570, None),  # AttentionPool-like keys, three splits
+])
+def test_cuda_split_kernels_d80_match_plain(cuda_device, b, h, sq, sk,
+                                            kv_len):
+    """The split forward at head dim 80 (the merge kernel's lanes take
+    columns l, l + 32 and, for lanes 0-15, l + 64): o within four bf16
+    ulps, lse within 1e-3, and the d80 forward counter up by one."""
+    g = torch.Generator(device=cuda_device).manual_seed(sk + 80)
+
+    def heads(s):
+        return torch.randn(b, s, h * 80, generator=g, device=cuda_device
+                           ).to(torch.bfloat16).unflatten(-1, (h, 80)
+                                                          ).transpose(1, 2)
+
+    q, k, v = heads(sq), heads(sk), heads(sk)
+    assert fa.kv_splits(b, h, sq, sk, head_dim=80, kv_len=kv_len,
+                        sms=fa._device_sms(q.device.index)) >= 2
+    before = fa.flash_attention.d80_launches
+    got = fa.flash_attention(q, k, v, kv_len=kv_len)
+    lse = fa.flash_fwd_cuda(q, k, v, torch.empty_like(q),
+                            scale=80 ** -0.5, kv_len=kv_len)
+    want_o, want_lse = fa.flash_fwd_plain(q, k, v, scale=80 ** -0.5,
+                                          kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.d80_launches == before + 1
+    torch.testing.assert_close(got.float(), want_o.float(), atol=2.0 ** -6,
+                               rtol=2.0 ** -6)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)

@@ -166,7 +166,8 @@ def _int8_cache(rng, L, B, M, n, d):
 
 
 @pytest.mark.parametrize("d,alibi", [(32, False), (32, True), (64, False),
-                                     (64, True), (128, False), (128, True)])
+                                     (64, True), (128, False), (128, True),
+                                     (80, False)])
 def test_int8_decode_plain_matches_pallas_interpret(d, alibi):
     """K5 int8 (quantized=True): per-sample cache_len / valid_from, a
     single live key, and a slot with none (zeros); with and without the
@@ -220,7 +221,8 @@ def test_int8_decode_rejects_a_mismatched_cache():
 @pytest.mark.parametrize("d,alibi,layout", [(64, False, "packed"),
                                             (64, True, "head-major"),
                                             (128, True, "head-major"),
-                                            (128, False, "packed")])
+                                            (128, False, "packed"),
+                                            (80, False, "packed")])
 def test_int8_write_decode_plain_matches_jax_write_then_pallas(d, alibi,
                                                                 layout):
     """K5 int8 with K6 folded in, plain (CPU): both cache leaves equal

@@ -156,6 +156,25 @@ def test_decode_alibi_plain_matches_pallas_interpret(d, n):
                                alibi_slopes=slopes), got)
 
 
+@pytest.mark.parametrize("n", [2, 3])
+def test_decode_d80_plain_matches_pallas_interpret(n):
+    """K5 at head dim 80 (the GPT-3 2.7B decoder): per-sample cache_len /
+    valid_from, a single live key and a slot with none (zeros)."""
+    rng = np.random.default_rng(80 + n)
+    L, B, M, d = 2, 5, 128, 80
+    q = rng.normal(size=(B, n * d)).astype(np.float32)
+    ckv = rng.normal(size=(L, B, M, 2 * n * d)).astype(np.float32)
+    clen = np.array([5, 100, 127, 40, 3], np.int32)
+    vfrom = np.array([0, 7, 64, 40, 9], np.int32)  # slot 4: no live key
+    want = jdec.decode_attention(jnp.asarray(q), jnp.asarray(ckv), n,
+                                 jnp.int32(1), jnp.asarray(clen),
+                                 jnp.asarray(vfrom), interpret=True)
+    got = decode_attention_plain(_t(q), _t(ckv), n, 1, _t(clen), _t(vfrom))
+    _close(got, want)
+    assert not got[4].any()
+    _close(got[3], ckv[1, 3, 40, n * d:], 1e-6)  # one live key: its V row
+
+
 def test_decode_rejects_slopes_off_the_ladder():
     """The kernel generates the slopes from the head index, so the wrapper
     takes the standard ladder only (the JAX wrapper's check), on every
@@ -192,7 +211,7 @@ STEP_VFROM = np.array([0, 7, 64, 9, 60], np.int32)
 @pytest.mark.parametrize("d,n,alibi,layout", [
     (64, 2, False, "packed"), (64, 4, True, "head-major"),
     (128, 4, True, "head-major"), (128, 3, False, "packed"),
-    (128, 6, True, "packed")])
+    (128, 6, True, "packed"), (80, 4, False, "packed")])
 def test_write_decode_plain_matches_jax_write_then_pallas(d, n, alibi,
                                                            layout):
     """K5 with K6 folded in, plain (CPU): the cache equals JAX's
@@ -457,6 +476,39 @@ def test_flash_d96_plain_matches_pallas_interpret(sk, kv_len):
         _close(g, w)
 
 
+@pytest.mark.parametrize("sq,sk,causal,kv_len", [
+    (208, 208, True, None),   # the 2.7B decoder: 128 queries + 80 tokens
+    (256, 256, True, None),   # causal over whole 128-row blocks
+    (128, 150, False, 131),   # a padded static kv_len
+])
+def test_flash_d80_plain_matches_pallas_interpret(sq, sk, causal, kv_len):
+    """K4 and K4b at head dim 80 (the GPT-3 2.7B decoder's 32 heads of 80;
+    here 2 heads): the forward and jax.vjp of the Pallas head-major kernel
+    in interpret mode against flash_fwd_plain and flash_bwd_plain, and the
+    port's ``flash_attention``, on the same q, k, v, dO."""
+    from youku_mplug_tpu_torch.ops.flash_attention import flash_bwd_plain
+
+    rng = np.random.default_rng(sq + sk + causal)
+    b, h, d = 2, 2, 80
+    q, do = (rng.normal(size=(b, h, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(b, h, sk, d)).astype(np.float32)
+            for _ in range(2))
+    with _interpret():
+        out, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention(
+            q_, k_, v_, causal=causal, kv_len=kv_len), jnp.asarray(q),
+            jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+    kw = dict(scale=d ** -0.5, causal=causal, kv_len=kv_len)
+    o, lse = flash_fwd_plain(_t(q), _t(k), _t(v), **kw)
+    _close(o, out)
+    _close(flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                           kv_len=kv_len), out)
+    got = flash_bwd_plain(_t(q), _t(k), _t(v), o, lse, _t(do), **kw)
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
 @pytest.mark.parametrize("causal,kv_len", [(False, None), (True, None),
                                            (False, 9)])
 def test_flash_bwd_plain_matches_autograd_of_mha_reference(causal, kv_len):
@@ -708,13 +760,13 @@ def _check_fused_on_card(rng, device, n, d, layout, clen, vfrom, *,
                    for x in (clen, vfrom))
     kw = dict(alibi_slopes=alibi_slopes(n) if alibi else None)
     names = ("launches", "alibi_launches", "int8_launches",
-             "int8_alibi_launches")
+             "int8_alibi_launches", "d80_launches", "int8_d80_launches")
     before = [getattr(write_decode_attention, c) for c in names]
     got = write_decode_attention(*_step_views(qkv, n, d, layout), got_c, n,
                                  2, clen, vfrom, **kw)
     torch.cuda.synchronize()
     counter = ("int8_" if int8 else "") + ("alibi_" if alibi else "") \
-        + "launches"
+        + ("d80_" if d == 80 else "") + "launches"
     assert [getattr(write_decode_attention, c) - b0
             for c, b0 in zip(names, before)] == [int(c == counter)
                                                  for c in names]
@@ -765,6 +817,28 @@ def test_cuda_decode_d128_matches_plain(cuda_device, n, alibi, int8):
                                [0, 100, 255, 3, 40], [0, 7, 130, 9, 40],
                                alibi=alibi, int8=int8)
     assert not got[3].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,int8", [(4, False), (4, True), (32, False),
+                                    (32, True)])
+def test_cuda_decode_d80_matches_plain(cuda_device, n, int8):
+    """K5 with the write folded in at head dim 80 (the GPT-3 2.7B decoder:
+    teams of 10 lanes, three a warp), bf16 and int8 caches, q/k/v views of
+    GPT-3's packed row, at 4 heads and at the decoder's 32; the same slots
+    as at d 64.  ALiBi is not built at 80 and raises."""
+    rng = np.random.default_rng(80 + n + int8)
+    got = _check_fused_on_card(rng, cuda_device, n, 80, "packed",
+                               [0, 100, 255, 3, 40, 300, 3, 2],
+                               [0, 7, 130, 9, 40, 200, 1, 1], int8=int8)
+    assert not got[3].any()
+    if n == 4 and not int8:
+        x = torch.zeros(2, n * 80, device=cuda_device, dtype=torch.bfloat16)
+        cache = torch.zeros(1, 2, 64, 2 * n * 80, device=cuda_device,
+                            dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="ALiBi"):
+            write_decode_attention(x, x, x, cache, n, 0, 3,
+                                   alibi_slopes=alibi_slopes(n))
 
 
 @pytest.mark.cuda
@@ -1046,3 +1120,88 @@ def test_cuda_flash_d96_autograd_counts_and_refuses_alibi(cuda_device):
     with pytest.raises(ValueError, match="ALiBi"):
         fa.flash_attention_packed(x, x, x, 2, causal=True,
                                   alibi_slopes=[0.5, 0.25])
+
+
+# head dim 80 (the GPT-3 2.7B decoder, 32 heads of 80): its causal
+# 208-token passes (128 queries + 80 tokens), a ragged causal length, a
+# head-major kv_len case, a few rows in one tile, and AttentionPool-like
+# keys
+D80_CASES = [(2, 208, 208, 32, True, None), (3, 100, 100, 2, True, None),
+             (2, 65, 130, 1, False, 70), (2, 7, 7, 2, True, None),
+             (1, 128, 1570, 4, False, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,sq,sk,n,causal,kv_len", D80_CASES)
+def test_cuda_flash_d80_matches_plain(cuda_device, rows, sq, sk, n, causal,
+                                      kv_len):
+    """K4 and K4b at head dim 80 on head views of [B, S, 3 x n*80] fused
+    projections, as the 2.7B decoder hands them over: the forward's o and
+    lse, then the dq and dk/dv kernels against flash_bwd_plain on the
+    same (q, k, v, o, lse, dO); only the head-dim-80 counters rise, and
+    keys past kv_len get exactly zero."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(sq + sk + n)
+    d = 80
+    qkv = _bf16(rng, rows, sk, 3 * n * d, device=cuda_device)
+    q, k, v = (qkv[:, :sq, i * n * d:(i + 1) * n * d].unflatten(
+        -1, (n, d)).transpose(1, 2) for i in range(3))
+    kw = dict(scale=d ** -0.5, causal=causal, kv_len=kv_len)
+    wrappers = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    before = [(f.launches, f.d96_launches, f.d80_launches) for f in wrappers]
+    o = fa._head_major_empty(q)
+    lse = flash_fwd_cuda(q, k, v, o, **kw)
+    want_o, want_lse = flash_fwd_plain(q, k, v, **kw)
+    _bf16_close(o, want_o)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    do = _bf16(rng, rows, n, sq, d, device=cuda_device)
+    got = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    assert [(f.launches, f.d96_launches, f.d80_launches)
+            for f in wrappers] == [(a, b, c + 1) for a, b, c in before]
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= 2.0 ** -7, (name, _rel_l2(g, w))
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any()
+        assert not got[2][:, :, kv_len:].any()
+
+
+@pytest.mark.cuda
+def test_cuda_gpt3_d80_attention_dispatch_counts(cuda_device):
+    """The 2.7B decoder's attention on the card, at 4 heads of 80: a
+    cacheless forward of 208 tokens launches K4 at head dim 80 once and
+    no packed kernel, a 100-token one none (plain attention below 128
+    rows), and a decode step the decode kernel at head dim 80 once; the
+    outputs match the same layer with every wrapper plain."""
+    from youku_mplug_tpu_torch.models import gpt3
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    cfg = gpt3.GPT3Config(vocab_size=64, hidden_size=320,
+                          num_hidden_layers=1, num_attention_heads=4,
+                          max_position_embeddings=256)
+    attn = gpt3.GPT3Attention(cfg, 1, torch.bfloat16).to(cuda_device)
+    gen = torch.Generator().manual_seed(3)
+    for p in attn.parameters():
+        p.data.copy_(torch.randn(p.shape, generator=gen) * 0.05)
+    rng = np.random.default_rng(5)
+    counts = (lambda: (fa.flash_attention.d80_launches,
+                       fa.flash_attention_packed.launches,
+                       write_decode_attention.d80_launches))
+    for s, want in ((208, (1, 0, 0)), (100, (0, 0, 0))):
+        x = _bf16(rng, 2, s, 320, device=cuda_device)
+        before = counts()
+        got = attn(x, 0)
+        torch.cuda.synchronize()
+        assert tuple(a - b for a, b in zip(counts(), before)) == want
+        with mock.patch.object(fa, "_on_cpu", lambda t: True):
+            plain = attn(x, 0)
+        _bf16_close(got, plain)
+    cache = torch.zeros(1, 2, 128, 2 * 320, device=cuda_device,
+                        dtype=torch.bfloat16)
+    before = counts()
+    attn(x[:, :1], 0, cache=cache, cache_len=5)
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(counts(), before)) == (0, 0, 1)

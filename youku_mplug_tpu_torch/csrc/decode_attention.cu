@@ -1,7 +1,7 @@
 // One decode step's cache write and single-token attention over the
 // stacked packed KV cache, in one launch, for Hopper (sm_90a): bf16 or int8
-// cache, fp32 online softmax, head dim 64 or 128, optionally with the ALiBi
-// bias of the Bloom decoder.
+// cache, fp32 online softmax, head dim 64, 80 or 128, optionally (64 and
+// 128) with the ALiBi bias of the Bloom decoder.
 //
 // Replaces two Pallas TPU kernels and the call that ran them in a row:
 // youku_mplug_tpu/ops/decode_attention.py (_kernel, wrapper
@@ -46,10 +46,19 @@
 //   atomics, so the output is bitwise repeatable.
 // - Wide loads: a team of D / 8 lanes reads one head's slice of one row, 8
 //   values a lane (16 bytes bf16, 8 bytes int8: both caches share one
-//   geometry and register budget; at d 64 a warp reads 4 rows a load).
-//   Each team issues the K and V loads of kRows rows before it uses any;
-//   on an int8 cache each lane also loads the two scales of one of those
-//   rows, and shuffles hand them to the team.
+//   geometry and register budget).  Teams never straddle a warp: a warp
+//   holds 32 / (D / 8) of them (4 at d 64, 3 at d 80, 2 at d 128), so a
+//   warp reads that many rows a load.  At d 80 a team is 10 lanes, lanes
+//   0-9, 10-19 and 20-29 of the warp; lanes 30 and 31 shadow lane 20
+//   (the same loads and values, which they never store).  Each team
+//   issues the K and V loads of kRows rows before it uses any; on an int8
+//   cache each lane also loads the two scales of one of those rows, and
+//   shuffles hand them to the team.
+// - A team's sums (q . k) and maxima (the int8 absmax) are shuffle
+//   reductions inside the warp: a butterfly over a team of 8 or 16 lanes,
+//   an aligned group of the warp; at 10 lanes a tree into the team's
+//   first lane from explicit source lanes, then a broadcast
+//   (team_reduce).
 // - The cache write: warp 0 of the cluster's last block loads head h's new
 //   K and V slices with q, writes them (int8: quantized, and the two
 //   scales) while its first round of cache loads is in flight, and starts
@@ -57,8 +66,8 @@
 //   cache_len[b] of head h from memory and no ordering between blocks is
 //   needed.  The result equals write-then-attend.
 //
-// Block: 4 warps; lane l of a team owns head features E*tl .. E*tl + E-1
-// (tl = l mod lanes per team; E = 8).
+// Block: 4 warps, 4 x 32 / (D / 8) teams (16, 12, 8); lane tl of a team
+// owns head features E*tl .. E*tl + E-1 (E = 8).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -152,17 +161,43 @@ __device__ __forceinline__ void unpack(const uint32_t (&w)[W],
   }
 }
 
+// x summed (kMax: maxed) over the kLanes lanes of this lane's team, the
+// result in every lane of the team (tl: the lane's index in its team;
+// first: the warp lane of the team's lane 0).  Every lane of the warp
+// calls it.  A team of 8 or 16 lanes is an aligned group of the warp and
+// reduces by a butterfly.  Otherwise (10 lanes at d 80) lane i adds lane
+// i + off while tl + off < kLanes, for off = 1, 2, 4, 8: after the step
+// at `off`, lane i holds lanes i .. min(i + 2 off, kLanes) - 1, so the
+// first lane holds the team's whole sum, which it then broadcasts.
+template <int kLanes, bool kMax>
+__device__ __forceinline__ float team_reduce(float x, int tl, int first) {
+  auto op = [](float a, float b) { return kMax ? fmaxf(a, b) : a + b; };
+  if constexpr ((kLanes & (kLanes - 1)) == 0) {
+#pragma unroll
+    for (int off = kLanes / 2; off > 0; off >>= 1) {
+      x = op(x, __shfl_xor_sync(0xffffffffu, x, off));
+    }
+    return x;
+  } else {
+    const int lane = threadIdx.x & 31;
+#pragma unroll
+    for (int off = 1; off < kLanes; off <<= 1) {
+      const float y = __shfl_sync(0xffffffffu, x, (lane + off) & 31);
+      if (tl + off < kLanes) x = op(x, y);
+    }
+    return __shfl_sync(0xffffffffu, x, first);
+  }
+}
+
 // quantize_rows on one head spread over a team of kLanes lanes (E values
 // each): x becomes the rounded int8 values (as floats); returns the scale
 template <int E, int kLanes>
-__device__ __forceinline__ float quantize_head(float (&x)[E]) {
+__device__ __forceinline__ float quantize_head(float (&x)[E], int tl,
+                                               int first) {
   float amax = 0.f;
 #pragma unroll
   for (int i = 0; i < E; ++i) amax = fmaxf(amax, fabsf(x[i]));
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off >>= 1) {
-    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-  }
+  amax = team_reduce<kLanes, true>(amax, tl, first);
   const float s = __fdiv_rn(fmaxf(amax, 1e-8f), 127.f);
 #pragma unroll
   for (int i = 0; i < E; ++i) {
@@ -218,8 +253,10 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
   using V = typename VecOf<kLoad>::type;
   constexpr int W = kLoad / 4;          // their 32-bit words
   constexpr int kLanes = D / E;         // lanes of a team: one head slice
-  constexpr int kTeams = kThreads / kLanes;
+  constexpr int kPerWarp = 32 / kLanes;  // teams a warp: 4, 3 (d 80), 2
+  constexpr int kTeams = kWarps * kPerWarp;
   constexpr int kStep = kTeams * kRows;  // rows a block reads a round
+  static_assert(D % E == 0 && kLanes <= 32, "a team is one head slice");
   static_assert(kRows <= kLanes, "a team's lanes load its rows' scales");
 
   // every block arrives once it has started; block 0's shared memory is
@@ -230,7 +267,12 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
   const int rank = (int)cluster.block_rank();
   const int h = blockIdx.x / C, b = blockIdx.y, B = gridDim.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int team = threadIdx.x / kLanes, tl = lane % kLanes;
+  // the lanes past a warp's last team (30 and 31 at d 80) shadow lane 0
+  // of that team: they load and compute what it does and store nothing
+  const bool spare = lane >= kPerWarp * kLanes;
+  const int slot = spare ? kPerWarp - 1 : lane / kLanes;
+  const int team = warp * kPerWarp + slot, tl = spare ? 0 : lane % kLanes;
+  const int first = slot * kLanes;  // the warp lane of the team's lane 0
   const long long nd = (long long)n * D;
   const long long row_stride = 2 * nd;
   const long long row0 = ((long long)lidx * B + b) * M;  // (lidx, b, 0)
@@ -302,9 +344,9 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
     T* const dst = rows + (long long)idx * row_stride;
     float ksn = 1.f, vsn = 1.f;
     if constexpr (kInt8) {
-      ksn = quantize_head<E, kLanes>(kf);
-      vsn = quantize_head<E, kLanes>(vf);
-      if (team == 0) {
+      ksn = quantize_head<E, kLanes>(kf, tl, first);
+      vsn = quantize_head<E, kLanes>(vf, tl, first);
+      if (team == 0) {  // no spare lane: those sit in the warp's last team
         uint32_t kw[W], vw[W];
         pack_s8<E>(kf, kw);
         pack_s8<E>(vf, vw);
@@ -320,11 +362,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
       *reinterpret_cast<V*>(dst + nd) = vec(vraw);
     }
     if (new_live) {
-      float s = dot<E>(qf, kf);
-#pragma unroll
-      for (int off = kLanes / 2; off > 0; off >>= 1) {
-        s += __shfl_xor_sync(0xffffffffu, s, off);
-      }
+      const float s = team_reduce<kLanes, false>(dot<E>(qf, kf), tl, first);
       if (team == 0) {
         m = s * scale * ksn;  // the score as the loop forms it
         if constexpr (kAlibi) m += slope * (float)idx;
@@ -343,8 +381,8 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
     if constexpr (kInt8) {
 #pragma unroll
       for (int t = 0; t < kRows; ++t) {
-        ks[t] = __shfl_sync(0xffffffffu, ksl, t, kLanes);
-        vs[t] = __shfl_sync(0xffffffffu, vsl, t, kLanes);
+        ks[t] = __shfl_sync(0xffffffffu, ksl, first + t);
+        vs[t] = __shfl_sync(0xffffffffu, vsl, first + t);
       }
     }
     float s[kRows];
@@ -357,11 +395,8 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
       s[t] = dot<E>(qf, kt);
     }
 #pragma unroll
-    for (int off = kLanes / 2; off > 0; off >>= 1) {
-#pragma unroll
-      for (int t = 0; t < kRows; ++t) {
-        s[t] += __shfl_xor_sync(0xffffffffu, s[t], off);
-      }
+    for (int t = 0; t < kRows; ++t) {
+      s[t] = team_reduce<kLanes, false>(s[t], tl, first);
     }
     float x[kRows], m_new = m;
 #pragma unroll
@@ -400,14 +435,16 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
   __shared__ __align__(16) float sm_acc[kTeams][D];
   __shared__ float cl_ml[kCluster][2];
   __shared__ __align__(16) float cl_acc[kCluster][D];
-  if (tl == 0) {
-    sm_m[team] = m;
-    sm_l[team] = l;
-  }
+  if (!spare) {
+    if (tl == 0) {
+      sm_m[team] = m;
+      sm_l[team] = l;
+    }
 #pragma unroll
-  for (int i = 0; i < E; i += 4) {
-    *reinterpret_cast<float4*>(&sm_acc[team][tl * E + i]) =
-        make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+    for (int i = 0; i < E; i += 4) {
+      *reinterpret_cast<float4*>(&sm_acc[team][tl * E + i]) =
+          make_float4(acc[i], acc[i + 1], acc[i + 2], acc[i + 3]);
+    }
   }
   __syncthreads();
   const int f = threadIdx.x;  // the head feature this thread merges
@@ -482,6 +519,11 @@ cudaError_t dispatch(int head_dim, int alibi, bool int8, F f) {
   };
   if (head_dim == 64) return by_cache(std::integral_constant<int, 64>{});
   if (head_dim == 128) return by_cache(std::integral_constant<int, 128>{});
+  if (head_dim == 80 && !alibi) {  // the GPT-3 2.7B decoder: no ALiBi build
+    constexpr std::integral_constant<int, 80> d{};
+    return int8 ? f(d, std::false_type{}, std::true_type{})
+                : f(d, std::false_type{}, std::false_type{});
+  }
   return cudaErrorInvalidValue;
 }
 
@@ -495,9 +537,10 @@ cudaError_t dispatch(int head_dim, int alibi, bool int8, F f) {
 // 2*n]; out: contiguous [B, n*head_dim] bf16; cache_len, valid_from: int32
 // [B] on the device.  Writes k and v at row cache_len[b] of layer lidx
 // (nothing where cache_len[b] is outside [0, M)), then attends over rows
-// valid_from[b] .. min(cache_len[b], M-1).  head_dim 64 or 128; alibi != 0
-// adds the standard ALiBi ladder.  Returns the launch's error, or
-// cudaErrorInvalidValue for a head dim it does not take.
+// valid_from[b] .. min(cache_len[b], M-1).  head_dim 64, 80 or 128;
+// alibi != 0 (64 and 128 only) adds the standard ALiBi ladder.  Returns the
+// launch's error, or cudaErrorInvalidValue for a head dim (or ALiBi at a
+// head dim) it was not built for.
 extern "C" int ymt_decode_attention(
     const void* q, long long q_sb, long long q_sh, const void* k,
     long long k_sb, long long k_sh, const void* v, long long v_sb,

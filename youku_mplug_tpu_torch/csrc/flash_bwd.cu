@@ -1,6 +1,6 @@
 // Flash attention backward for Hopper (sm_90a): bf16 in, fp32 accumulation,
-// head dim 64, 96 or 128, optionally (64 and 128) with the ALiBi bias of
-// the Bloom decoder.
+// head dim 64, 80, 96 or 128, optionally (64 and 128) with the ALiBi bias
+// of the Bloom decoder.
 //
 // Replaces the Pallas TPU backward kernels of
 // youku_mplug_tpu/ops/flash_attention.py:
@@ -46,12 +46,14 @@
 // diagonal on for a key tile; period: the tiles of the tile's own period
 // groups).
 //
-// One template on (D, ALiBi) gives five builds of each kernel.  Shared
-// memory: 51 KB at d 64, 99 KB at d 96 and 128.  Head dim 96 (clip-b16's
-// AttentionPool) takes the d = 128 tile layout with columns 96-127
-// zero-filled (hopper.cuh): the score products S and dP contract over the
-// 96 real columns, the products into dQ, dK and dV run at N = 128 and
-// only their first 96 columns are stored.
+// One template on (D, ALiBi) gives six builds of each kernel.  Shared
+// memory: 51 KB at d 64, 99 KB at d 80, 96 and 128.  Head dims 80 (the
+// GPT-3 2.7B decoder) and 96 (clip-b16's AttentionPool) take the d = 128
+// tile layout with the columns from D on zero-filled (hopper.cuh): the
+// score products S and dP contract over the D real columns (5 or 6 k16
+// steps; at d = 80 the fifth reads columns 64-79 of the second panel),
+// the products into dQ, dK and dV run at N = 128 and only their first D
+// columns are stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -86,7 +88,10 @@ static_assert(BwdSmem<128>::kAlloc <= kMaxSmem, "tiles exceed 227 KB");
 
 // Write this thread's rows of a [64, padded(D)] fp32 accumulator, rows
 // row0 + r and its first D columns, as bf16 into a strided tensor (rows at
-// or past `rows` skipped).
+// or past `rows` skipped).  Values i and i + 1 of a thread share a row and
+// two neighbouring columns (hopper.cuh), and value i lies in column group
+// i / 4 (8 columns), so the first D / 2 values a thread holds are exactly
+// its values of columns 0 .. D - 1 (D a multiple of 16: 10 groups at 80).
 template <int D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* dst,
                                           long long row_stride, int row0,
@@ -422,11 +427,11 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // C entry points (loaded with ctypes).  Strides are in elements; lse and
 // delta are contiguous fp32 [B, H, Sq] buffers; kv_len <= Sk masks keys at
 // or past it; period > 0 selects the block-diagonal period mask and
-// causal != 0 the causal mask (Sq == Sk).  head_dim is 64, 96 or 128;
+// causal != 0 the causal mask (Sq == Sk).  head_dim is 64, 80, 96 or 128;
 // slopes is null, or (64 and 128 only) an fp32 device array of H ALiBi
 // slopes (the caller requires causal with it).  Each returns
 // cudaGetLastError() after its launch, or cudaErrorInvalidValue for a head
-// dim it was not built for (ALiBi at 96 included).
+// dim it was not built for (ALiBi at 80 and 96 included).
 extern "C" int ymt_flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int Sq,
@@ -445,6 +450,7 @@ extern "C" int ymt_flash_bwd_dq_bf16(
   const bool alibi = slopes != nullptr;
   if (head_dim == 64) return alibi ? YMT_DQ(64, true) : YMT_DQ(64, false);
   if (head_dim == 128) return alibi ? YMT_DQ(128, true) : YMT_DQ(128, false);
+  if (head_dim == 80 && !alibi) return YMT_DQ(80, false);
   if (head_dim == 96 && !alibi) return YMT_DQ(96, false);
 #undef YMT_DQ
   return (int)cudaErrorInvalidValue;
@@ -470,6 +476,7 @@ extern "C" int ymt_flash_bwd_dkv_bf16(
   if (head_dim == 64) return alibi ? YMT_DKV(64, true) : YMT_DKV(64, false);
   if (head_dim == 128)
     return alibi ? YMT_DKV(128, true) : YMT_DKV(128, false);
+  if (head_dim == 80 && !alibi) return YMT_DKV(80, false);
   if (head_dim == 96 && !alibi) return YMT_DKV(96, false);
 #undef YMT_DKV
   return (int)cudaErrorInvalidValue;

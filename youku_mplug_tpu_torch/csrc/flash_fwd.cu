@@ -1,5 +1,5 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in, fp32 softmax, head
-// dim 64, 96 or 128, optionally (64 and 128) with the ALiBi bias of the
+// dim 64, 80, 96 or 128, optionally (64 and 128) with the ALiBi bias of the
 // Bloom decoder.
 //
 // Replaces two Pallas TPU kernels of youku_mplug_tpu/ops/flash_attention.py:
@@ -50,16 +50,19 @@
 // accumulator layout.  The softmax runs in base 2 (scores times log2 e,
 // exp2, lse converted back to base e); a key tile that every row of the
 // query tile sees whole skips the mask arithmetic.  One template on (D,
-// ALiBi) gives the five builds; shared memory is Q plus the K/V ring:
-// 41 KB at d = 64, 81 KB at d = 96 and 128.
+// ALiBi) gives the six builds; shared memory is Q plus the K/V ring:
+// 41 KB at d = 64, 81 KB at d = 80, 96 and 128.
 //
-// Head dim 96 (clip-b16's AttentionPool, 8 heads of 96): a 96-wide row is
-// one 128-byte swizzle panel and half of another, so its tiles take the
-// two-panel layout of d = 128 with columns 96-127 zero-filled by the
-// copies (no global read).  S = Q K^T contracts over the 96 real columns
-// only (6 k16 steps); P V runs at N = 128, whose columns 96-127 come out
-// zero and are never stored.  That is a quarter more tensor-core work on
-// the PV product than a 96-wide one and no new descriptor code.
+// Head dims 80 (the GPT-3 2.7B decoder, 32 heads of 80) and 96 (clip-b16's
+// AttentionPool, 8 heads of 96): such a row is one 128-byte swizzle panel
+// and part of another, so its tiles take the two-panel layout of d = 128
+// with the columns from D on zero-filled by the copies (no global read:
+// an 80-wide row is 10 16-byte chunks, 96 is 12).  S = Q K^T contracts
+// over the D real columns only (5 or 6 k16 steps; at d = 80 the fifth
+// reads columns 64-79 at the start of the second panel); P V runs at
+// N = 128, whose columns from D on come out zero and are never stored.
+// That is 60% (d 80) or a third (d 96) more tensor-core work on the PV
+// product than a D-wide one and no new descriptor code.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -265,7 +268,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// The split-KV merge: one warp per (batch, head, query row).  With the
+// The split-KV merge: one warp per (batch, head, query row), lane l
+// taking columns l, l + 32, l + 64, ... below D, so each load and store
+// of the warp is one contiguous run of columns whatever D is.  With the
 // shares' lse_s, lse = log(sum_s exp(lse_s)) and O = sum_s exp(lse_s -
 // lse) o_s (o_s already normalised), summed in split order.
 template <int D>
@@ -275,7 +280,8 @@ flash_fwd_merge_kernel(const float* __restrict__ o_part,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int B, int H, int Sq, int splits, long long o_sb,
                        long long o_sh, long long o_ss) {
-  constexpr int kPer = D / 32;  // values a lane (3 at d = 96)
+  // columns a lane: 2 at d = 64, 3 at 80 (lanes 0-15) and 96, 4 at 128
+  constexpr int kPer = (D + 31) / 32;
   const long long row = (long long)blockIdx.x * (kThreads / 32) +
                         (threadIdx.x >> 5);
   const long long rows = (long long)B * H * Sq;
@@ -294,21 +300,16 @@ flash_fwd_merge_kernel(const float* __restrict__ o_part,
       total += __expf(lse_part[s * rows + row] - m);
     for (int s = 0; s < splits; ++s) {
       const float w = __expf(lse_part[s * rows + row] - m) / total;
-      const float* src = o_part + (s * rows + row) * D + lane * kPer;
+      const float* src = o_part + (s * rows + row) * D + lane;
 #pragma unroll
-      for (int c = 0; c < kPer; ++c) out[c] += w * src[c];
+      for (int c = 0; c < kPer; ++c)
+        if (lane + 32 * c < D) out[c] += w * src[32 * c];
     }
   }
-  __nv_bfloat16* dst = o + b * o_sb + h * o_sh + qi * o_ss + lane * kPer;
-  if constexpr (kPer % 2 == 0) {
+  __nv_bfloat16* dst = o + b * o_sb + h * o_sh + qi * o_ss + lane;
 #pragma unroll
-    for (int c = 0; c < kPer; c += 2)
-      *reinterpret_cast<__nv_bfloat162*>(dst + c) =
-          __floats2bfloat162_rn(out[c], out[c + 1]);
-  } else {  // an odd share is not 4-byte aligned: one value at a time
-#pragma unroll
-    for (int c = 0; c < kPer; ++c) dst[c] = __float2bfloat16_rn(out[c]);
-  }
+  for (int c = 0; c < kPer; ++c)
+    if (lane + 32 * c < D) dst[32 * c] = __float2bfloat16_rn(out[c]);
   if (lane == 0) lse[row] = m == -INFINITY ? -INFINITY : m + logf(total);
 }
 
@@ -355,14 +356,15 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
 // contiguous fp32 [B, H, Sq] buffer.  Keys at or past kv_len are masked
 // (the caller passes kv_len = Sk for no key mask); period > 0 selects the
 // block-diagonal period mask and causal != 0 the causal mask (Sq == Sk).
-// head_dim is 64, 96 or 128; slopes is null, or (64 and 128 only) an fp32
-// device array of H ALiBi slopes (the caller requires causal with it).
+// head_dim is 64, 80, 96 or 128; slopes is null, or (64 and 128 only) an
+// fp32 device array of H ALiBi slopes (the caller requires causal with it).
 // splits > 1 splits
 // each block's key tiles that many ways: o_part (fp32 [splits, B, H, Sq,
 // head_dim]) and lse_part (fp32 [splits, B, H, Sq]) are then the caller's
 // scratch, and the merge kernel runs after the main one.  Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
-// head dim it was not built for (ALiBi at 96 included) or splits < 1.
+// head dim it was not built for (ALiBi at 80 and 96 included) or
+// splits < 1.
 extern "C" int ymt_flash_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
     int H, int Sq, int Sk, int kv_len, long long q_sb, long long q_sh,
@@ -380,6 +382,7 @@ extern "C" int ymt_flash_fwd_bf16(
   const bool alibi = slopes != nullptr;
   if (head_dim == 64) return alibi ? YMT_FWD(64, true) : YMT_FWD(64, false);
   if (head_dim == 128) return alibi ? YMT_FWD(128, true) : YMT_FWD(128, false);
+  if (head_dim == 80 && !alibi) return YMT_FWD(80, false);
   if (head_dim == 96 && !alibi) return YMT_FWD(96, false);
 #undef YMT_FWD
   return (int)cudaErrorInvalidValue;

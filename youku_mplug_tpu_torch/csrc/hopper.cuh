@@ -4,9 +4,9 @@
 // the wgmma matrix descriptors, and the warpgroup matrix products.
 //
 // Tiles.  Every operand tile is 64 rows of a [rows, D] bf16 matrix (D 64,
-// 96 or 128), kept in shared memory as padded(D) / 64 panels of [64 rows]
-// [64 values] (a 96-wide row takes the two panels of a 128-wide one, its
-// columns 96-127 zero):
+// 80, 96 or 128), kept in shared memory as padded(D) / 64 panels of [64
+// rows][64 values] (an 80- or 96-wide row takes the two panels of a
+// 128-wide one, its columns from D on zero):
 // 128 bytes a row, the 16-byte chunk c of row r stored at chunk c ^ (r % 8)
 // (the "128B swizzle" of wgmma and TMA, so the eight rows a product reads
 // together fall in different banks).  Each panel is 8 KB and 1024-byte
@@ -43,7 +43,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // The panel width a head dim is stored and multiplied at: D rounded up to
-// whole 64-column panels (96 -> 128).
+// whole 64-column panels (80 and 96 -> 128).
 __host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -8,15 +8,20 @@ layer stack stays a leading ``[L]`` dimension on every layer parameter;
 the layers run as a Python loop that indexes it.
 
 Numerics: fp32 layernorms, fp32 attention softmax, tanh-GELU, fp32 logits
-from the tied embedding.  Training runs the whole sequence through the
-causal flash kernel (padded text positions stay keys; only the loss mask
+from the tied embedding.  Training runs the whole sequence through
+causal attention (padded text positions stay keys; only the loss mask
 drops them), each layer under ``torch.utils.checkpoint`` when
-``remat``.  Dropout, as the JAX package applies it with
+``remat``; which attention follows the JAX package's dispatch (JAX
+``gpt3.py:245-247``, :281-284): the packed flash kernel where
+``packed_supported(n, d)`` holds (the 1.3B decoder's 32 heads of 64),
+else ``dot_product_attention`` on head views (the 2.7B decoder's 32 heads
+of 80: the head-major flash kernel at S >= 128, ``mha_reference``
+below).  Dropout, as the JAX package applies it with
 ``deterministic=False``: given a ``generator`` to the training forward of
 a module in training mode, the embeddings (after the position add) and
 the attention and MLP outputs take ``hidden_dropout`` and the attention
 probabilities ``attention_dropout``, the latter on the plain path
-(``mha_reference``), as the JAX package leaves its packed kernel under
+(``mha_reference``), as the JAX package leaves its flash kernels under
 attention dropout; a checkpointed layer replays its masks from the
 generator state it started with.  Without a generator, or in eval mode,
 nothing is drawn.  The cache is ``[L, B, M, 2*hidden]`` with rows
@@ -46,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
 from youku_mplug_tpu_torch.ops.attention import (
     NEG_INF,
+    dot_product_attention,
     dropout,
     mha_reference,
 )
@@ -56,7 +62,10 @@ from youku_mplug_tpu_torch.ops.cross_entropy import (
 from youku_mplug_tpu_torch.ops.decode_attention import (
     write_decode_attention,
 )
-from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
+from youku_mplug_tpu_torch.ops.flash_attention import (
+    flash_attention_packed,
+    packed_supported,
+)
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.ops.quant import dequantize, qscale
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
@@ -166,9 +175,13 @@ class GPT3Attention(nn.Module):
                 valid_from: Optional[torch.Tensor] = None,
                 drop: Optional[Dropout] = None):
         """x [B, S, H] -> [B, S, H].  Without a cache: causal attention over
-        the whole sequence, q/k/v packed slices of the qkv projection into
-        the flash kernel, or with attention dropout (``drop``) head views
-        into ``mha_reference``.  With one: writes this chunk's K|V rows into
+        the whole sequence, by the JAX package's rule: without attention
+        dropout and where ``packed_supported(n, d)`` holds, q/k/v packed
+        slices of the qkv projection into the packed flash kernel (K1);
+        otherwise head views into ``dot_product_attention``, which runs
+        the head-major flash kernel (K4) at S >= 128 without dropout and
+        ``mha_reference`` (with the attention dropout of ``drop``) else.
+        With one: writes this chunk's K|V rows into
         layer ``lidx`` of ``cache`` at ``cache_len`` (int, or [B] per-sample
         positions), then attends to keys ``valid_from <= j <= position``;
         S == 1 writes the row and reads the cache in place in one launch
@@ -181,16 +194,17 @@ class GPT3Attention(nn.Module):
         qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
         qkv = qscaled(qkv, self, "qkv_kernel", lidx)
         qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
-        if cache is None and drop is not None and drop.attention > 0:
-            q, k, v = (qkv[..., i * nd:(i + 1) * nd].unflatten(
-                -1, (n, d)).transpose(1, 2) for i in range(3))
-            out = mha_reference(q, k, v, causal=True,
-                                dropout_rate=drop.attention,
-                                generator=drop.generator)
-            out = out.transpose(1, 2).reshape(b, s, nd)
-        elif cache is None:
+        rate = drop.attention if drop is not None else 0.0
+        if cache is None and rate == 0.0 and packed_supported(n, d):
             out = flash_attention_packed(qkv[..., :nd], qkv[..., nd:2 * nd],
                                          qkv[..., 2 * nd:], n, causal=True)
+        elif cache is None:
+            q, k, v = (qkv[..., i * nd:(i + 1) * nd].unflatten(
+                -1, (n, d)).transpose(1, 2) for i in range(3))
+            out = dot_product_attention(
+                q, k, v, causal=True, dropout_rate=rate,
+                generator=drop.generator if rate > 0 else None)
+            out = out.transpose(1, 2).reshape(b, s, nd)
         else:
             out = self._cache_attention(qkv, lidx, cache, cache_len,
                                         valid_from)

@@ -17,10 +17,16 @@ up to M-1.  With ``alibi_slopes`` the score of key j is
 ``write_decode_attention`` runs its plain version
 (``write_decode_attention_plain``: ``kv_cache.cache_write``, then
 ``decode_attention_plain``) for CPU tensors and launches the CUDA kernel
-(``csrc/decode_attention.cu``, head dim 64 or 128), which does both in one
-launch, for CUDA tensors, or raises.  Its ``launches`` counts kernel
-launches on a bf16 cache without ALiBi, ``alibi_launches`` those with it,
-``int8_launches`` and ``int8_alibi_launches`` the same on an int8 cache.
+(``csrc/decode_attention.cu``, head dim 64 or 128 with or without ALiBi,
+80 without: the GPT-3 2.7B decoder), which does both in one launch, for
+CUDA tensors, or raises.  Its ``launches`` counts kernel launches on a
+bf16 cache without ALiBi, ``alibi_launches`` those with it,
+``int8_launches`` and ``int8_alibi_launches`` the same on an int8 cache,
+and ``d80_launches`` and ``int8_d80_launches`` those at head dim 80.
+Like the JAX package, which runs its kernel where the cache width M is a
+multiple of 64 (``decode_attention_supported``), the port's callers make
+caches of a multiple of 128 rows (``GPT3LM.init_cache``); the kernel
+itself takes any M.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import torch
 from youku_mplug_tpu_torch.ops import _native
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
-HEAD_DIMS = (64, 128)  # the head widths the kernel is built for
+HEAD_DIMS = (64, 80, 128)  # the head widths the kernel is built for
+ALIBI_HEAD_DIMS = (64, 128)  # ... and with the ALiBi ladder
 
 
 def alibi_slopes(num_heads: int) -> np.ndarray:
@@ -191,6 +198,10 @@ def write_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if d not in HEAD_DIMS or nd2 != 2 * n_heads * d:
         raise ValueError(f"decode kernel: needs head dim in {HEAD_DIMS}; got "
                          f"cache {tuple(ckv.shape)} with n={n_heads}")
+    alibi = alibi_slopes is not None
+    if alibi and d not in ALIBI_HEAD_DIMS:
+        raise ValueError(f"decode kernel: ALiBi is built for head dims "
+                         f"{ALIBI_HEAD_DIMS}; got {d}")
     q3, k3, v3 = (_heads(t, b, n_heads, d, name)
                   for t, name in ((q, "q"), (k, "k"), (v, "v")))
     if not ckv.is_contiguous() or ckv.data_ptr() % 16 \
@@ -205,7 +216,6 @@ def write_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vf = _per_sample(0 if valid_from is None else valid_from, b,
                      q.device).contiguous()
     out = torch.empty(b, n_heads * d, dtype=q.dtype, device=q.device)
-    alibi = alibi_slopes is not None
     err = _native.library().ymt_decode_attention(
         q3.data_ptr(), q3.stride(0), q3.stride(1),
         k3.data_ptr(), k3.stride(0), k3.stride(1),
@@ -215,7 +225,7 @@ def write_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         float(scale), d, int(alibi), _native.stream_handle(q))
     _native.check_launch(err, "ymt_decode_attention")
     counter = ("int8_" if int8 else "") + ("alibi_" if alibi else "") \
-        + "launches"
+        + ("d80_" if d == 80 else "") + "launches"
     setattr(write_decode_attention, counter,
             getattr(write_decode_attention, counter) + 1)
     return out
@@ -225,3 +235,5 @@ write_decode_attention.launches = 0
 write_decode_attention.alibi_launches = 0
 write_decode_attention.int8_launches = 0
 write_decode_attention.int8_alibi_launches = 0
+write_decode_attention.d80_launches = 0
+write_decode_attention.int8_d80_launches = 0

@@ -15,15 +15,17 @@ CUDA kernels serve both public wrappers, because the packed
   the FlashAttention-2 recipe with p rebuilt from (q, k, lse).
 
 Each kernel is built for head dim 64 and 128, with and without ALiBi, and
-for head dim 96 without it (clip-b16's AttentionPool, 8 heads of 96: the
-d = 128 tiles with their last 32 columns zero, ``csrc/hopper.cuh``).
+for head dims 80 and 96 without it (the GPT-3 2.7B decoder's 32 heads of
+80 and clip-b16's AttentionPool, 8 heads of 96: the d = 128 tiles with
+their last 48 or 32 columns zero, ``csrc/hopper.cuh``).
 Where the (64-row query tile, head, batch) blocks are too few to fill the
 card (AttentionPool's 128 queries over 1570 keys while serving), the
 forward splits each block's key tiles ``kv_splits`` ways into fp32
 scratch that the wrapper allocates, and a second small kernel merges the
 shares by their lse.  The backward takes no split.
 ``packed_supported`` copies the JAX package's rule for the head
-geometries its packed kernel takes, which the vision tower follows.
+geometries its packed kernel takes, which the vision tower and the GPT-3
+decoder follow.
 ALiBi (``alibi_slopes``: any fp32 per-head values, as the JAX flash takes
 them) adds ``slope_h * key_index`` in fp32 to the scaled score before the
 mask, in the forward and when the backward rebuilds p; it requires
@@ -34,8 +36,9 @@ Both wrappers go through a ``torch.autograd.Function`` that saves
 plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_plain``) for CPU
 tensors and launches the kernels for CUDA tensors, or raises; it never
 falls back.  ``<wrapper>.launches`` counts kernel launches at head dim
-64 or 128 without ALiBi, ``<wrapper>.d96_launches`` those at head dim 96
-and ``<wrapper>.alibi_launches`` those with ALiBi: ``flash_attention_packed``
+64 or 128 without ALiBi, ``<wrapper>.d80_launches`` and
+``<wrapper>.d96_launches`` those at head dim 80 and 96, and
+``<wrapper>.alibi_launches`` those with ALiBi: ``flash_attention_packed``
 and ``flash_attention`` the forward's, ``flash_bwd_dq_cuda`` and
 ``flash_bwd_dkv_cuda`` the backward's.
 """
@@ -49,16 +52,16 @@ import torch
 
 from youku_mplug_tpu_torch.ops import _native
 
-HEAD_DIMS = (64, 96, 128)  # the head widths the kernels are built for
+HEAD_DIMS = (64, 80, 96, 128)  # the head widths the kernels are built for
 ALIBI_HEAD_DIMS = (64, 128)  # ... and with the ALiBi bias
 TILE = 64  # rows of a query or key tile in the kernels
 SMS = 132  # the H100's streaming multiprocessors, where no card is asked
 # forward blocks resident on one streaming multiprocessor, by head dim,
 # from nvcc's -Xptxas -v report on sm_90a: at d 64, 126 registers a thread
 # (4 blocks of 128 threads in 64K registers; 41 KB of shared memory would
-# allow 5); at d 128, 184 registers and 81 KB (2 either way); d 96 runs
-# the d 128 tiles and accumulators
-FWD_BLOCKS_PER_SM = {64: 4, 96: 2, 128: 2}
+# allow 5); at d 128, 184 registers and 81 KB (2 either way); d 80 and 96
+# run the d 128 tiles and accumulators
+FWD_BLOCKS_PER_SM = {64: 4, 80: 2, 96: 2, 128: 2}
 MIN_TILES_PER_SPLIT = 4  # a share shorter than this is not worth a merge
 
 
@@ -66,8 +69,10 @@ def packed_supported(n_heads: int, head_dim: int) -> bool:
     """The head geometries the JAX package's packed kernel takes (its
     ``packed_supported``): a head dim that is a multiple of 128, or one
     that divides 128 with the heads filling whole 128-lane strips.  The
-    vision tower runs the packed kernel only there; elsewhere (clip-b16's
-    8 heads of 96) it runs einsum attention, as the JAX package does."""
+    vision tower and the GPT-3 decoder run the packed kernel only there;
+    elsewhere, as in the JAX package, clip-b16's 8 heads of 96 run einsum
+    attention and the 2.7B decoder's 32 heads of 80 go through
+    ``dot_product_attention``."""
     if head_dim % 128 == 0:
         return True
     return 128 % head_dim == 0 and n_heads % (128 // head_dim) == 0
@@ -234,6 +239,8 @@ def _kv(kv_len: Optional[int], sk: int) -> int:
 def _count(fn, alibi_slopes, head_dim: int) -> None:
     if alibi_slopes is not None:
         fn.alibi_launches += 1
+    elif head_dim == 80:
+        fn.d80_launches += 1
     elif head_dim == 96:
         fn.d96_launches += 1
     else:
@@ -253,7 +260,7 @@ def flash_fwd_cuda(q, k, v, o, *, scale: float, causal: bool = False,
                    period: int = 0, kv_len: Optional[int] = None,
                    alibi_slopes: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """Launch the forward kernel on [B,H,S,D] views, D 64, 96 or 128 (any
+    """Launch the forward kernel on [B,H,S,D] views, D 64, 80, 96 or 128 (any
     batch/head/sequence strides), writing ``o`` in place.  Returns the
     fp32 lse [B,H,Sq]."""
     b, h, sq, d = q.shape
@@ -315,6 +322,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, *, scale: float,
 
 
 flash_bwd_dq_cuda.launches = 0
+flash_bwd_dq_cuda.d80_launches = 0
 flash_bwd_dq_cuda.d96_launches = 0
 flash_bwd_dq_cuda.alibi_launches = 0
 
@@ -340,6 +348,7 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, *, scale: float,
 
 
 flash_bwd_dkv_cuda.launches = 0
+flash_bwd_dkv_cuda.d80_launches = 0
 flash_bwd_dkv_cuda.d96_launches = 0
 flash_bwd_dkv_cuda.alibi_launches = 0
 
@@ -382,8 +391,8 @@ class _Flash(torch.autograd.Function):
     """Attention over [B, H, S, D] views with the flash backward.  Saves
     (q, k, v, o, lse); the plain versions run for CPU tensors, the kernels
     for CUDA tensors (each forward launch adds one to ``counter.launches``,
-    to ``counter.d96_launches`` at head dim 96, or to
-    ``counter.alibi_launches`` with ALiBi)."""
+    to ``counter.d80_launches`` or ``counter.d96_launches`` at head dim 80
+    or 96, or to ``counter.alibi_launches`` with ALiBi)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw, counter):
@@ -469,6 +478,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_packed.launches = 0
+flash_attention_packed.d80_launches = 0
 flash_attention_packed.d96_launches = 0
 flash_attention_packed.alibi_launches = 0
 
@@ -498,5 +508,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.d80_launches = 0
 flash_attention.d96_launches = 0
 flash_attention.alibi_launches = 0
