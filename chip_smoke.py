@@ -8,7 +8,12 @@ the last line is printed):
 1. device and build: require CUDA (one card: the first visible one),
    print the card's name and power limit, build the hand-written kernels
    from youku_mplug_tpu_torch/csrc/ (one nvcc per source, in parallel);
-2. each kernel against its plain PyTorch version, in bf16, at the shapes
+2. the forward's builds at head dims 64, 80, 96 and 128: registers and
+   spills from nvcc's -Xptxas -v report and the blocks resident on one SM
+   as the card counts them (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+   failing on a spill or on a count other than FWD_BLOCKS_PER_SM, the wave
+   the split-KV policy assumes; then
+   each kernel against its plain PyTorch version, in bf16, at the shapes
    the serving, training and instruct paths give it, with the kernel's,
    the plain version's and F.scaled_dot_product_attention's times from
    CUDA events and the bound from this run's inputs;
@@ -363,7 +368,7 @@ def phase_device_and_build():
     so, seconds, log = _native.build()
     _native.library()
     # nvcc -Xptxas -v: per template instance, its registers and spills
-    usage, entry, spill = [], "?", ""
+    builds, entry, spill = {}, "?", (None, None)
     for line in log.splitlines():
         if "Compiling entry function" in line:
             m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
@@ -376,13 +381,44 @@ def phase_device_and_build():
         elif "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
-            spill = f"spills {m[1]}/{m[2]} B" if m else line.strip()
-        elif "registers" in line:
-            regs = re.search(r"Used (\d+) registers", line)[1]
-            usage.append(f"{entry} {regs} regs, {spill}")
+            spill = (int(m[1]), int(m[2])) if m else (None, None)
+        elif re.search(r"Used \d+ registers", line):
+            regs = int(re.search(r"Used (\d+) registers", line)[1])
+            builds[entry] = {"registers": regs, "spill_stores": spill[0],
+                             "spill_loads": spill[1]}
     print(f"[build] {os.path.relpath(so, REPO)} in {seconds:.1f} s "
-          f"(sm_90a) | " + " ; ".join(usage), flush=True)
-    return card
+          f"(sm_90a) | " + " ; ".join(
+              f"{name} {u['registers']} regs, spills {u['spill_stores']}/"
+              f"{u['spill_loads']} B" for name, u in builds.items()),
+          flush=True)
+    return card, builds
+
+
+def phase_forward_builds(fa, builds) -> dict:
+    """The forward's builds at each head dim: registers and spills from
+    nvcc's report, and the blocks resident on one SM as the card counts
+    them (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Fails if a
+    forward build spills or the card's count is not FWD_BLOCKS_PER_SM,
+    the wave kv_splits sizes its splits by."""
+    out = {}
+    for d in fa.HEAD_DIMS:
+        u = builds.get(f"flash_fwd<{d},plain>")
+        if u is None:
+            fail(f"no -Xptxas -v report for flash_fwd<{d},plain>")
+        out[d] = {**u, "blocks_per_sm": fa.fwd_blocks_per_sm(d)}
+    print("[kernel] forward builds (registers, spill bytes stored / loaded, "
+          "blocks an SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
+          + json.dumps(out), flush=True)
+    spilled = [name for name, u in builds.items()
+               if name.startswith("flash_fwd") and (u["spill_stores"]
+                                                     or u["spill_loads"])]
+    if spilled:
+        fail(f"forward builds spill: {spilled}")
+    got = {d: u["blocks_per_sm"] for d, u in out.items()}
+    if got != fa.FWD_BLOCKS_PER_SM:
+        fail(f"forward blocks an SM {got} != FWD_BLOCKS_PER_SM "
+             f"{fa.FWD_BLOCKS_PER_SM}")
+    return out
 
 
 def _bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS
@@ -871,10 +907,11 @@ def _decode_entries(dec, kvc, rand):
 
 
 def _entry(name, source, replaces, wrapper, paths, key, per_shape,
-           counter="launches"):
+           counter="launches", build=None):
     """A kernel's report entry.  The error is the worst over every shape;
     the times and bounds are sums over the shapes its paths run (over
-    every shape for a kernel that no path runs)."""
+    every shape for a kernel that no path runs).  ``build``: the build's
+    registers, spills and blocks an SM, where the report shows them."""
     on = [p for p in per_shape if p["on_path"]] or per_shape
     ops, nbytes = sum(p["ops_ms"] for p in on), sum(p["bytes_ms"] for p in on)
     library = [p["library_ms"] for p in on]
@@ -887,7 +924,7 @@ def _entry(name, source, replaces, wrapper, paths, key, per_shape,
             "bound_ms": sum(p["bound_ms"] for p in on),
             "bound_by": "operations" if ops >= nbytes else "bytes",
             "library_ms": None if None in library else sum(library),
-            "per_shape": per_shape}
+            "per_shape": per_shape, **({"build": build} if build else {})}
 
 
 FWD_SRC = "youku_mplug_tpu_torch/csrc/flash_fwd.cu"
@@ -896,10 +933,12 @@ DEC_SRC = "youku_mplug_tpu_torch/csrc/decode_attention.cu"
 TPU_FLASH = "youku_mplug_tpu/ops/flash_attention.py"
 TPU_DEC = "youku_mplug_tpu/ops/decode_attention.py"
 
-def phase_kernels(dev):
+def phase_kernels(dev, builds):
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
+
+    fwd_builds = phase_forward_builds(fa, builds)
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -1049,11 +1088,11 @@ def phase_kernels(dev):
     train96 = [c for c, shape in zip(d96, D96_SHAPES)
                if shape[10] in D96_TRAIN_PATHS]
     report.append(_entry(
-        "K4 flash_attention, head dim 96 (clip-b16 AttentionPool; the d "
-        "128 tiles with 32 zero columns; split-KV at an evaluation call's "
-        "4 clips)", FWD_SRC, f"{TPU_FLASH}:59", fa.flash_attention,
+        "K4 flash_attention, head dim 96 (clip-b16 AttentionPool; D-wide "
+        "tiles, a 64-byte-swizzled tail panel; split-KV at an evaluation "
+        "call's 4 clips)", FWD_SRC, f"{TPU_FLASH}:59", fa.flash_attention,
         D96_PATHS, "K4-d96", [c["fwd"] for c in d96],
-        counter="d96_launches"))
+        counter="d96_launches", build=fwd_builds[96]))
     for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 148),
                                 ("dkv", fa.flash_bwd_dkv_cuda, 195)):
         report.append(_entry(
@@ -1063,10 +1102,11 @@ def phase_kernels(dev):
             [c[kind] for c in train96], counter="d96_launches"))
     report.append(_entry(
         "K4 flash_attention, head dim 80 (GPT-3 2.7B decoder, causal, via "
-        "dot_product_attention; the d 128 tiles with 48 zero columns; "
-        "split-KV off the paths)", FWD_SRC, f"{TPU_FLASH}:59",
+        "dot_product_attention; D-wide tiles, a 32-byte-swizzled tail "
+        "panel; split-KV off the paths)", FWD_SRC, f"{TPU_FLASH}:59",
         fa.flash_attention, ("cls27_eval",), "K4-d80",
-        [c["fwd"] for c in d80], counter="d80_launches"))
+        [c["fwd"] for c in d80], counter="d80_launches",
+        build=fwd_builds[80]))
     for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 148),
                                 ("dkv", fa.flash_bwd_dkv_cuda, 195)):
         report.append(_entry(
@@ -1078,10 +1118,14 @@ def phase_kernels(dev):
     for r in report:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        build = ("" if "build" not in r else
+                 " | {registers} registers, spills {spill_stores}/"
+                 "{spill_loads} B, {blocks_per_sm} blocks an SM".format(
+                     **r["build"]))
         print(f"[kernel] {r['name']}: max_abs_err {r['max_abs_err']:.3g} | "
               f"kernel {r['ms']:.4f} ms | plain {r['plain_ms']:.4f} ms | "
               f"library {lib} | bound {r['bound_ms']:.4f} "
-              f"ms ({r['bound_by']})", flush=True)
+              f"ms ({r['bound_by']}){build}", flush=True)
         for p in r["per_shape"]:
             print(f"[kernel]   {p['shape']}: "
                   + json.dumps({k: v for k, v in p.items() if k != "shape"}),
@@ -2894,9 +2938,9 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
-    card = phase_device_and_build()
+    card, builds = phase_device_and_build()
     dev = torch.device("cuda")
-    report = phase_kernels(dev)
+    report = phase_kernels(dev, builds)
     with tempfile.TemporaryDirectory() as out_dir:
         cfg, model, _ = phase_slice(report, out_dir)
     phase_teacher_forced(cfg, model)
@@ -2964,6 +3008,8 @@ def main():
         entry |= {k: r[k] for k in ("max_abs_err", "ms", "plain_ms",
                                     "bound_ms", "bound_by", "library_ms",
                                     "launches_by_path", "per_shape")}
+        if "build" in r:
+            entry["build"] = r["build"]
         kernels.append(entry)
     print(f"[done] {time.perf_counter() - t0:.1f} s", flush=True)
     print(card, flush=True)

@@ -133,9 +133,18 @@ def split_plain(q, k, v, splits, *, scale, causal=False, period=0,
     ((8, 12, 128, 1570), {"sms": 78}, 1),
     ((4, 12, 128, 1570), {"sms": 78}, 3),
     # head dim 80, the 2.7B decoder: its causal calls never split; a
-    # head-major call with few blocks does (two resident blocks, as d 128)
+    # head-major call with few blocks does (four resident blocks on the
+    # D-wide tiles, so a wave of 528; the share floor holds it at 3)
     ((180, 32, 208, 208), {"causal": True, "head_dim": 80}, 1),
     ((1, 32, 100, 1000), {"kv_len": 900, "head_dim": 80}, 3),
+    ((4, 8, 128, 1570), {"head_dim": 80}, 6),
+    # head dim 96, clip-b16's AttentionPool: three resident blocks, a wave
+    # of 396; the cls evaluation call's 64 blocks of 25 key tiles split 6
+    # ways, the ITM call's (13 tiles) 3; the train steps fill a wave
+    ((4, 8, 128, 1570), {"head_dim": 96}, 6),
+    ((4, 8, 128, 786), {"head_dim": 96}, 3),
+    ((32, 8, 128, 1570), {"head_dim": 96}, 1),
+    ((24, 8, 128, 3138), {"head_dim": 96}, 1),
 ])
 def test_kv_splits_at_the_paths_shapes(shape, kw, want):
     assert fa.kv_splits(*shape, **kw) == want
@@ -307,15 +316,20 @@ def test_cuda_split_kernels_match_plain(cuda_device, b, sq, sk, kv_len):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,sq,sk,kv_len", [
-    (1, 32, 100, 1000, 900),  # three splits at the 2.7B decoder's heads
-    (4, 8, 128, 1570, None),  # AttentionPool-like keys, three splits
+@pytest.mark.parametrize("b,h,sq,sk,kv_len,gapped", [
+    (1, 32, 100, 1000, 900, False),  # three splits at the 2.7B's heads
+    (4, 8, 128, 1570, None, False),  # AttentionPool-like keys, six splits
+    (2, 8, 208, 1570, None, True),   # a ragged query tail, six splits
+    (1, 8, 128, 3138, None, True),   # 3138 keys, twelve splits
+    (2, 4, 100, 1570, 1400, True),   # kv_len < Sk over ragged keys
 ])
 def test_cuda_split_kernels_d80_match_plain(cuda_device, b, h, sq, sk,
-                                            kv_len):
+                                            kv_len, gapped):
     """The split forward at head dim 80 (the merge kernel's lanes take
     columns l, l + 32 and, for lanes 0-15, l + 64): o within four bf16
-    ulps, lse within 1e-3, and the d80 forward counter up by one."""
+    ulps, lse within 1e-3, and the d80 forward counter up by one; with
+    ``gapped`` the merge writes the even heads of a NaN-filled packed
+    [B, S, 2h*80] buffer and leaves the odd heads untouched."""
     g = torch.Generator(device=cuda_device).manual_seed(sk + 80)
 
     def heads(s):
@@ -328,12 +342,28 @@ def test_cuda_split_kernels_d80_match_plain(cuda_device, b, h, sq, sk,
                         sms=fa._device_sms(q.device.index)) >= 2
     before = fa.flash_attention.d80_launches
     got = fa.flash_attention(q, k, v, kv_len=kv_len)
-    lse = fa.flash_fwd_cuda(q, k, v, torch.empty_like(q),
-                            scale=80 ** -0.5, kv_len=kv_len)
+    buf = torch.full((b, sq, 2 * h, 80), float("nan"), dtype=q.dtype,
+                     device=cuda_device)
+    o = buf[:, :, 0::2].transpose(1, 2) if gapped else torch.empty_like(q)
+    lse = fa.flash_fwd_cuda(q, k, v, o, scale=80 ** -0.5, kv_len=kv_len)
     want_o, want_lse = fa.flash_fwd_plain(q, k, v, scale=80 ** -0.5,
                                           kv_len=kv_len)
     torch.cuda.synchronize()
     assert fa.flash_attention.d80_launches == before + 1
-    torch.testing.assert_close(got.float(), want_o.float(), atol=2.0 ** -6,
-                               rtol=2.0 ** -6)
+    for out in (got, o):
+        torch.testing.assert_close(out.float(), want_o.float(),
+                                   atol=2.0 ** -6, rtol=2.0 ** -6)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+    assert not gapped or torch.isnan(buf[:, :, 1::2]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_fwd_blocks_per_sm_match_the_wave_table(cuda_device):
+    """kv_splits sizes its wave from FWD_BLOCKS_PER_SM: the card's own
+    count of resident forward blocks (cudaOccupancyMaxActiveBlocksPer
+    Multiprocessor at each build's threads and shared memory) agrees, with
+    and without ALiBi where both are built."""
+    for d, want in fa.FWD_BLOCKS_PER_SM.items():
+        assert fa.fwd_blocks_per_sm(d) == want, d
+        if d in fa.ALIBI_HEAD_DIMS:
+            assert fa.fwd_blocks_per_sm(d, alibi=True) >= 1

@@ -705,6 +705,21 @@ def _bf16_close(got, want):
                                rtol=2.0 ** -6)
 
 
+def _out(like, gapped):
+    """The forward's output for q-shaped ``like`` [B, n, S, D]: heads of a
+    [B, S, n*D] buffer, or (``gapped``) the even heads of a NaN-filled
+    packed [B, S, 2n*D] buffer, whose odd heads flank every written head.
+    Returns (o, the odd heads' view, or None)."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    if not gapped:
+        return fa._head_major_empty(like), None
+    b, n, s, d = like.shape
+    buf = torch.full((b, s, 2 * n, d), float("nan"), dtype=like.dtype,
+                     device=like.device)
+    return buf[:, :, 0::2].transpose(1, 2), buf[:, :, 1::2]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("rows,s,n,period", [
     (4, 197, 2, 0),    # vision spatial: ragged 197 = 3 x 64 + 5
@@ -1040,26 +1055,38 @@ def test_cuda_flash_autograd_matches_plain_autograd(cuda_device):
     assert _rel_l2(grads[0], grads[1]) <= 2.0 ** -6
 
 
-# (rows, Sq, Sk, heads, causal, period, kv_len): head dim 96, the
-# clip-b16 AttentionPool's q [B, 8, 128, 96] over 1 + 8 x 196 keys and
-# the bias key at a reduced batch (one split: the forward fills the card)
-# and at one sample (split-KV, the merge at 96 columns), then a static
-# kv_len, the causal and period masks and a three-query sequence over
-# five keys (one tile, mostly zero-filled)
-D96_CASES = [(2, 128, 1570, 8, False, 0, None),
-             (1, 128, 1570, 2, False, 0, None),
-             (2, 65, 130, 1, False, 0, 70), (2, 208, 208, 2, True, 0, None),
-             (2, 112, 112, 2, False, 8, None), (2, 3, 5, 2, False, 0, None)]
+# (rows, Sq, Sk, heads, causal, period, kv_len, gapped output): head dim
+# 96, the clip-b16 AttentionPool's q [B, 8, 128, 96] over 1 + 8 x 196 keys
+# and the bias key at a reduced batch and at one sample (split-KV, the
+# merge at 96 columns), then a static kv_len, the causal and period masks
+# and a three-query sequence over five keys (one tile, mostly
+# zero-filled); then, each into the even heads of a packed buffer: a
+# ragged query tail (208 = 3 x 64 + 16) over ragged keys, split six ways;
+# the 16-frame 3138 keys, split; kv_len < Sk at an evaluation call's 4
+# clips, split; the cls train step's 32 clips, one split
+D96_CASES = [(2, 128, 1570, 8, False, 0, None, False),
+             (1, 128, 1570, 2, False, 0, None, False),
+             (2, 65, 130, 1, False, 0, 70, False),
+             (2, 208, 208, 2, True, 0, None, False),
+             (2, 112, 112, 2, False, 8, None, False),
+             (2, 3, 5, 2, False, 0, None, False),
+             (2, 208, 1570, 8, False, 0, None, True),
+             (1, 128, 3138, 8, False, 0, None, True),
+             (4, 128, 1570, 8, False, 0, 1400, True),
+             (32, 128, 1570, 8, False, 0, None, True)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,sq,sk,n,causal,period,kv_len", D96_CASES)
+@pytest.mark.parametrize("rows,sq,sk,n,causal,period,kv_len,gapped",
+                         D96_CASES)
 def test_cuda_flash_d96_matches_plain(cuda_device, rows, sq, sk, n, causal,
-                                      period, kv_len):
+                                      period, kv_len, gapped):
     """K4 and K4b at head dim 96 on head views of [B, S, n*96]
-    projections: the forward's o and lse, then the dq and dk/dv kernels
-    against flash_bwd_plain on the same (q, k, v, o, lse, dO); only the
-    head-dim-96 counters rise, and keys past kv_len get exactly zero."""
+    projections: the forward's o and lse (written, if ``gapped``, into
+    every other head of a packed buffer whose other heads stay
+    untouched), then the dq and dk/dv kernels against flash_bwd_plain on
+    the same (q, k, v, o, lse, dO); only the head-dim-96 counters rise,
+    and keys past kv_len get exactly zero."""
     from youku_mplug_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(sq + sk + n)
@@ -1071,11 +1098,12 @@ def test_cuda_flash_d96_matches_plain(cuda_device, rows, sq, sk, n, causal,
     kw = dict(scale=d ** -0.5, causal=causal, period=period, kv_len=kv_len)
     wrappers = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
     before = [(f.launches, f.d96_launches) for f in wrappers]
-    o = fa._head_major_empty(q)
+    o, others = _out(q, gapped)
     lse = flash_fwd_cuda(q, k, v, o, **kw)
     want_o, want_lse = flash_fwd_plain(q, k, v, **kw)
     _bf16_close(o, want_o)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    assert others is None or torch.isnan(others).all()
     do = _bf16(rng, rows, n, sq, d, device=cuda_device)
     got = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
@@ -1125,21 +1153,31 @@ def test_cuda_flash_d96_autograd_counts_and_refuses_alibi(cuda_device):
 # head dim 80 (the GPT-3 2.7B decoder, 32 heads of 80): its causal
 # 208-token passes (128 queries + 80 tokens), a ragged causal length, a
 # head-major kv_len case, a few rows in one tile, and AttentionPool-like
-# keys
-D80_CASES = [(2, 208, 208, 32, True, None), (3, 100, 100, 2, True, None),
-             (2, 65, 130, 1, False, 70), (2, 7, 7, 2, True, None),
-             (1, 128, 1570, 4, False, None)]
+# keys (split six ways); then, each into the even heads of a packed
+# buffer: the causal 208-token pass (a ragged query tail), 208 queries
+# over 1570 keys (split), 3138 keys (split twelve ways), and kv_len < Sk
+# over ragged keys
+D80_CASES = [(2, 208, 208, 32, True, None, False),
+             (3, 100, 100, 2, True, None, False),
+             (2, 65, 130, 1, False, 70, False),
+             (2, 7, 7, 2, True, None, False),
+             (1, 128, 1570, 4, False, None, False),
+             (2, 208, 208, 32, True, None, True),
+             (2, 208, 1570, 4, False, None, True),
+             (1, 128, 3138, 2, False, None, True),
+             (2, 100, 1570, 2, False, 1500, True)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("rows,sq,sk,n,causal,kv_len", D80_CASES)
+@pytest.mark.parametrize("rows,sq,sk,n,causal,kv_len,gapped", D80_CASES)
 def test_cuda_flash_d80_matches_plain(cuda_device, rows, sq, sk, n, causal,
-                                      kv_len):
+                                      kv_len, gapped):
     """K4 and K4b at head dim 80 on head views of [B, S, 3 x n*80] fused
     projections, as the 2.7B decoder hands them over: the forward's o and
-    lse, then the dq and dk/dv kernels against flash_bwd_plain on the
-    same (q, k, v, o, lse, dO); only the head-dim-80 counters rise, and
-    keys past kv_len get exactly zero."""
+    lse (written, if ``gapped``, into every other head of a packed buffer
+    whose other heads stay untouched), then the dq and dk/dv kernels
+    against flash_bwd_plain on the same (q, k, v, o, lse, dO); only the
+    head-dim-80 counters rise, and keys past kv_len get exactly zero."""
     from youku_mplug_tpu_torch.ops import flash_attention as fa
 
     rng = np.random.default_rng(sq + sk + n)
@@ -1150,11 +1188,12 @@ def test_cuda_flash_d80_matches_plain(cuda_device, rows, sq, sk, n, causal,
     kw = dict(scale=d ** -0.5, causal=causal, kv_len=kv_len)
     wrappers = (fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
     before = [(f.launches, f.d96_launches, f.d80_launches) for f in wrappers]
-    o = fa._head_major_empty(q)
+    o, others = _out(q, gapped)
     lse = flash_fwd_cuda(q, k, v, o, **kw)
     want_o, want_lse = flash_fwd_plain(q, k, v, **kw)
     _bf16_close(o, want_o)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=1e-4)
+    assert others is None or torch.isnan(others).all()
     do = _bf16(rng, rows, n, sq, d, device=cuda_device)
     got = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()

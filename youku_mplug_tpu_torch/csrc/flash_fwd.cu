@@ -1,6 +1,6 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in, fp32 softmax, head
-// dim 64, 80, 96 or 128, optionally (64 and 128) with the ALiBi bias of the
-// Bloom decoder.
+// dim 64, 80, 96 or 128 on tiles D wide, optionally (64 and 128) with the
+// ALiBi bias of the Bloom decoder.
 //
 // Replaces two Pallas TPU kernels of youku_mplug_tpu/ops/flash_attention.py:
 //   - _fwd_kernel_packed (packed [B, S, n*d] layout; mask modes none,
@@ -22,19 +22,20 @@
 // S = 768 the bias reaches ~0.84 x 767 ~ 645, far inside fp32's exact
 // range, and it is never rounded to bf16.
 //
-// What bounds it on the H100: at the ported paths' shapes (S = 105..1570,
-// d = 64 or 128) HBM bytes bound it (Q, K, V read once and O written
+// What bounds it on the H100: at the ported paths' shapes (S = 105..3138,
+// d = 64, 80, 96 or 128) HBM bytes bound it (Q, K, V read once and O written
 // once: 12 us for AttentionPool's [8, 128, 12x64] over 1570 keys at
 // 3.35 TB/s, its operations 8 us at 989 TFLOP/s), so the kernel has to
 // keep the tensor cores fed while the next tiles arrive, keep the scores
 // out of shared memory, and put enough blocks on the 132 SMs.  The design:
 //   - products on wgmma (hopper.cuh): S = Q K^T as m64n64k16 with Q and
-//     the K tile in swizzled shared memory, O += P V as m64nDk16 with P
+//     the K tile in swizzled shared memory, O += P V at N = D with P
 //     taken from registers: the S accumulator is masked, exponentiated
 //     and rounded to bf16 where it lies, so neither S nor P is stored;
-//   - K and V stream through a two-stage ring of cp.async copies: tile
-//     j + 1 is in flight while tile j is multiplied (any row stride, the
-//     ragged end zero-filled, never read out of bounds);
+//   - K and V stream through a ring of cp.async copies (two stages; three
+//     slots at d = 96, FwdSmem): tile j + 1 is in flight while tile j is
+//     multiplied (any row stride, the ragged end zero-filled, never read
+//     out of bounds);
 //   - split-KV: when the (query tile, head, batch) blocks are too few for
 //     the card (AttentionPool: 192 blocks each walking 25 key tiles), the
 //     caller asks for `splits` > 1 and each block takes a contiguous share
@@ -51,18 +52,21 @@
 // exp2, lse converted back to base e); a key tile that every row of the
 // query tile sees whole skips the mask arithmetic.  One template on (D,
 // ALiBi) gives the six builds; shared memory is Q plus the K/V ring:
-// 41 KB at d = 64, 81 KB at d = 80, 96 and 128.
+// 41 KB at d = 64, 51 KB at 80, 49 KB at 96 (a three-slot ring), 81 KB at
+// 128.
 //
 // Head dims 80 (the GPT-3 2.7B decoder, 32 heads of 80) and 96 (clip-b16's
-// AttentionPool, 8 heads of 96): such a row is one 128-byte swizzle panel
-// and part of another, so its tiles take the two-panel layout of d = 128
-// with the columns from D on zero-filled by the copies (no global read:
-// an 80-wide row is 10 16-byte chunks, 96 is 12).  S = Q K^T contracts
-// over the D real columns only (5 or 6 k16 steps; at d = 80 the fifth
-// reads columns 64-79 at the start of the second panel); P V runs at
-// N = 128, whose columns from D on come out zero and are never stored.
-// That is 60% (d 80) or a third (d 96) more tensor-core work on the PV
-// product than a D-wide one and no new descriptor code.
+// AttentionPool, 8 heads of 96) run on D-wide tiles (hopper.cuh's
+// WideTile): columns 0-63 in a 128B-swizzled panel, the 16 or 32 columns
+// past them in a tail panel of 32- or 64-byte rows under the swizzle of
+// that width.  S = Q K^T takes four k16 steps on the panel and one (d 80)
+// or two (d 96) on the tail; O += P V is m64n64k16 on the panel plus
+// m64n16k16 or m64n32k16 on the tail, into a D / 2-value accumulator.  No
+// column past D is stored, copied or multiplied, and the smaller tiles and
+// accumulator let 4 blocks share an SM at d = 80 and 3 at d = 96 (2 at
+// d = 128), which is what hides one block's prologue (its Q tile and first
+// K/V tile) behind the others' products at the 2.7B decoder's causal
+// shape, where a block walks 1-4 key tiles.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,20 +81,37 @@ namespace {
 // The K/V ring is one tile ahead.  A deeper ring, 128 keys a step, two
 // warpgroups a block sharing each K/V tile, and issuing the next tile's
 // S product before this tile's softmax all measured slower on the H100 at
-// the paths' shapes (PERF.md).
+// the paths' shapes (PERF.md).  At d = 64, 80 and 128 it holds two stages
+// of (K, V).  At d = 96 it is three slots that the sequence K_0, V_0, K_1,
+// V_1, ... takes in turn (element t in slot t % 3): K_j+1 goes into
+// V_j-1's slot once PV_j-1 is done, V_j+1 into K_j's once S_j is done, so
+// each copy still has one tile's work to land in, and S_j waits for K_j
+// alone.  That measured 10% faster at clip-b16's cls train shape and 1%
+// slower at d = 80 (PERF.md).
 template <int D>
 struct FwdSmem {
+  static constexpr bool kThree = D == 96;
   static constexpr int kStages = 2;
-  static constexpr int kTile = (padded(D) / 64) * kPanel;  // one tile
+  static constexpr int kTile = WideTile<D>::kBytes;  // one tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kTile;                 // then K, V per stage
-  static constexpr int kBytes = kTile * (1 + 2 * kStages);
+  static constexpr int kK = kTile;                 // then the K/V ring
+  static constexpr int kBytes = kTile * (kThree ? 4 : 1 + 2 * kStages);
   static constexpr int kAlloc = kBytes + 1024;     // room to align to 1 KB
 };
 static_assert(FwdSmem<128>::kAlloc <= kMaxSmem, "d = 128 tiles exceed 227 KB");
 
+// The blocks an SM each build is compiled for.  At d = 80 the shared
+// memory (51 KB, plus the 1 KB the card keeps a block) admits 4, and the
+// register cap this asks of nvcc (128 a thread) makes the registers admit
+// as many; at d = 96 the cap is 168 a thread, 3 blocks (4 would need 128
+// registers, and nvcc then spills).  d = 64 and 128 keep nvcc's own
+// choice.  ymt_flash_fwd_blocks_per_sm reads what the card makes of each
+// build.
+template <int D>
+constexpr int kFwdMinBlocks = D == 80 ? 4 : D == 96 ? 3 : 1;
+
 template <int D, bool kAlibi>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kFwdMinBlocks<D>)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
@@ -104,7 +125,6 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  long long o_sh, long long o_ss, float scale, int period,
                  int causal) {
   using Sm = FwdSmem<D>;
-  constexpr int DP = padded(D);  // the accumulator's (and PV's) width
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_addr(smem_raw) + 1023) & ~1023u;
   const uint32_t q_s = base + Sm::kQ;
@@ -138,35 +158,70 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
   };
   auto fetch = [&](int j) {
     if (j < j1) {
-      load_tile<D>(k_slot(j), kb, k_ss, j * kRows, Sk);
-      load_tile<D>(k_slot(j) + Sm::kTile, vb, v_ss, j * kRows, Sk);
+      load_tile_wide<D>(k_slot(j), kb, k_ss, j * kRows, Sk);
+      load_tile_wide<D>(k_slot(j) + Sm::kTile, vb, v_ss, j * kRows, Sk);
     }
     cp_async_commit();
   };
-  load_tile<D>(q_s, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
+  // the three-slot ring: element t = 2 (j - j0) + (0 for K_j, 1 for V_j)
+  auto slot3 = [&](int t) { return base + Sm::kK + (t % 3) * Sm::kTile; };
+  auto fetch3 = [&](int t) {
+    const int j = j0 + t / 2;
+    if (j < j1) {
+      if (t & 1) {
+        load_tile_wide<D>(slot3(t), vb, v_ss, j * kRows, Sk);
+      } else {
+        load_tile_wide<D>(slot3(t), kb, k_ss, j * kRows, Sk);
+      }
+    }
+    cp_async_commit();
+  };
+  load_tile_wide<D>(q_s, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
+  if constexpr (Sm::kThree) {
+    fetch3(0);  // Q and K_j0, then V_j0
+    fetch3(1);
+  } else {
 #pragma unroll
-  for (int j = j0; j < j0 + kStages - 1; ++j) fetch(j);  // Q in the first
+    for (int j = j0; j < j0 + kStages - 1; ++j) fetch(j);  // Q in the first
+  }
 
-  float acc[DP / 2];
+  float acc[D / 2];
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   float m_i[2] = {-INFINITY, -INFINITY}, l_i[2] = {0.f, 0.f};
   const int qi0 = q0 + acc_row(0);  // this thread's rows: qi0, qi0 + 8
   const float scale_log2 = scale * kLog2e;
 
   for (int j = j0; j < j1; ++j) {
-    ring_arrive<kStages - 2>();  // tile j landed; all are done with j - 1
-    fetch(j + kStages - 1);      // ... so its slot takes tile j + stages - 1
-    const uint32_t ks = k_slot(j), vs = ks + Sm::kTile;
+    const int t = 2 * (j - j0);
+    uint32_t ks;
+    if constexpr (Sm::kThree) {
+      ring_arrive<1>();  // K_j landed; all are done with PV_j-1 ...
+      fetch3(t + 2);     // ... so V_j-1's slot takes K_j+1
+      ks = slot3(t);
+    } else {
+      ring_arrive<kStages - 2>();  // tile j landed; all are done with j - 1
+      fetch(j + kStages - 1);      // ... so its slot takes tile j + stages - 1
+      ks = k_slot(j);
+    }
 
     float s[32];
     wg_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss_n64(s, desc_k(q_s, kk), desc_k(ks, kk), kk > 0);
+      wgmma_ss_n64(s, desc_k_wide<D>(q_s, kk), desc_k_wide<D>(ks, kk),
+                   kk > 0);
     wg_commit();
     wg_wait<0>();
     pin(s);
+    uint32_t vs;
+    if constexpr (Sm::kThree) {
+      ring_arrive<1>();  // V_j landed; all are done with S_j ...
+      fetch3(t + 3);     // ... so K_j's slot takes V_j+1
+      vs = slot3(t + 1);
+    } else {
+      vs = ks + Sm::kTile;
+    }
 
     // Online softmax on the accumulator, in base 2 (x log2 e, exp2): two
     // rows a thread, their 16 columns each spread over the quad of threads
@@ -212,13 +267,19 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
       l_i[r] += s[i];
     }
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    for (int i = 0; i < D / 2; ++i) acc[i] *= alpha[(i >> 1) & 1];
     uint32_t pa[4][4];
     acc_to_a(s, pa);
 
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) wgmma_rs<DP>(acc, pa[kk], desc_mn(vs, kk));
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (WideTile<D>::kTail == 0) {
+        wgmma_rs<D>(acc, pa[kk], desc_mn(vs, kk));
+      } else {
+        wgmma_rs_wide<D>(acc, pa[kk], vs, kk);
+      }
+    }
     wg_commit();
     wg_wait<0>();
     pin(acc);
@@ -313,6 +374,19 @@ flash_fwd_merge_kernel(const float* __restrict__ o_part,
   if (lane == 0) lse[row] = m == -INFINITY ? -INFINITY : m + logf(total);
 }
 
+// The opt-in to the build's dynamic shared memory, once per template
+// instance.
+template <int D, bool kAlibi>
+cudaError_t opt_in() {
+  static bool attr_set = false;
+  if (attr_set) return cudaSuccess;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_kernel<D, kAlibi>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, FwdSmem<D>::kAlloc);
+  attr_set = err == cudaSuccess;
+  return err;
+}
+
 template <int D, bool kAlibi>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            void* o_part, void* lse_part, const void* slopes, int B, int H,
@@ -321,14 +395,8 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            long long k_ss, long long v_sb, long long v_sh, long long v_ss,
            long long o_sb, long long o_sh, long long o_ss, float scale,
            int period, int causal, cudaStream_t stream) {
-  static bool attr_set = false;  // one opt-in per template instance
-  if (!attr_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<D, kAlibi>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, FwdSmem<D>::kAlloc);
-    if (err != cudaSuccess) return (int)err;
-    attr_set = true;
-  }
+  if (cudaError_t err = opt_in<D, kAlibi>(); err != cudaSuccess)
+    return (int)err;
   dim3 grid((Sq + kRows - 1) / kRows, H, B * splits);
   flash_fwd_kernel<D, kAlibi><<<grid, kThreads, FwdSmem<D>::kAlloc, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
@@ -348,6 +416,14 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
           static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Sq,
           splits, o_sb, o_sh, o_ss);
   return (int)cudaGetLastError();
+}
+
+template <int D, bool kAlibi>
+int blocks_per_sm(int* blocks) {
+  if (cudaError_t err = opt_in<D, kAlibi>(); err != cudaSuccess)
+    return (int)err;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, flash_fwd_kernel<D, kAlibi>, kThreads, FwdSmem<D>::kAlloc);
 }
 
 }  // namespace
@@ -385,5 +461,23 @@ extern "C" int ymt_flash_fwd_bf16(
   if (head_dim == 80 && !alibi) return YMT_FWD(80, false);
   if (head_dim == 96 && !alibi) return YMT_FWD(96, false);
 #undef YMT_FWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// C entry point: the forward's blocks resident on one SM at a head dim
+// (with ALiBi if alibi != 0), as cudaOccupancyMaxActiveBlocksPerMultiprocessor
+// gives it for the build's threads and dynamic shared memory, into
+// *blocks.  Returns the CUDA error, or cudaErrorInvalidValue for a build
+// that does not exist.
+extern "C" int ymt_flash_fwd_blocks_per_sm(int head_dim, int alibi,
+                                           int* blocks) {
+  if (head_dim == 64)
+    return alibi ? blocks_per_sm<64, true>(blocks)
+                 : blocks_per_sm<64, false>(blocks);
+  if (head_dim == 128)
+    return alibi ? blocks_per_sm<128, true>(blocks)
+                 : blocks_per_sm<128, false>(blocks);
+  if (head_dim == 80 && !alibi) return blocks_per_sm<80, false>(blocks);
+  if (head_dim == 96 && !alibi) return blocks_per_sm<96, false>(blocks);
   return (int)cudaErrorInvalidValue;
 }

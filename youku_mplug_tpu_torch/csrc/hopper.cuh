@@ -4,13 +4,15 @@
 // the wgmma matrix descriptors, and the warpgroup matrix products.
 //
 // Tiles.  Every operand tile is 64 rows of a [rows, D] bf16 matrix (D 64,
-// 80, 96 or 128), kept in shared memory as padded(D) / 64 panels of [64
-// rows][64 values] (an 80- or 96-wide row takes the two panels of a
-// 128-wide one, its columns from D on zero):
-// 128 bytes a row, the 16-byte chunk c of row r stored at chunk c ^ (r % 8)
-// (the "128B swizzle" of wgmma and TMA, so the eight rows a product reads
-// together fall in different banks).  Each panel is 8 KB and 1024-byte
-// aligned.  The same layout serves both ways a product reads a tile:
+// 80, 96 or 128).  The backward keeps a tile as padded(D) / 64 panels of
+// [64 rows][64 values] (an 80- or 96-wide row takes the two panels of a
+// 128-wide one, its columns from D on zero, load_tile); the forward's
+// tiles are D wide (WideTile below: at 80 and 96 one such panel and a
+// narrower tail panel).  A panel row is 128 bytes, the 16-byte chunk c of
+// row r stored at chunk c ^ (r % 8) (the "128B swizzle" of wgmma and TMA,
+// so the eight rows a product reads together fall in different banks).
+// Each panel is 8 KB and 1024-byte aligned.  The same layout serves both
+// ways a product reads a tile:
 //   - K-major (the contracting dimension runs along the row): Q, K, V and
 //     dO as the left operand or as the right operand of a score product
 //     (S = Q K^T, dP = dO V^T);
@@ -42,17 +44,26 @@ constexpr int kMaxSmem = 232448;     // the H100's per-block opt-in limit
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The panel width a head dim is stored and multiplied at: D rounded up to
-// whole 64-column panels (80 and 96 -> 128).
+// The backward's panel width for a head dim: D rounded up to whole
+// 64-column panels (80 and 96 -> 128).
 __host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
+
+// wgmma's shared-memory layout types (bits 62-63 of a descriptor): the
+// 128-, 64- and 32-byte swizzles.
+constexpr uint32_t kSwizzle128 = 1, kSwizzle64 = 2, kSwizzle32 = 3;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of chunk c (8 values) of row r inside a swizzled panel.
-__device__ __forceinline__ uint32_t swizzle(int r, int c) {
-  return r * 128 + ((c ^ (r & 7)) << 4);
+// Byte offset of chunk c (8 values) of row r inside a swizzled panel of
+// `row_bytes` (128, 64 or 32) a row: the swizzle of that width XORs the
+// chunk index with bits 7 and up of the row's offset (r % 8 at 128 bytes,
+// (r / 2) % 4 at 64, (r / 4) % 2 at 32), on a 1024-byte aligned panel.
+__device__ __forceinline__ uint32_t swizzle(int r, int c,
+                                            int row_bytes = 128) {
+  return r * row_bytes +
+         ((c ^ ((r * row_bytes >> 7) & (row_bytes / 16 - 1))) << 4);
 }
 
 // 16 bytes global -> shared, asynchronously; zeros when !pred (the source
@@ -111,6 +122,50 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
   }
 }
 
+// The forward's D-wide tile.  At D = 64 and 128 it is the D / 64 panels
+// of load_tile.  At D = 80 and 96 it is one panel for columns 0-63 and,
+// right after it, a tail panel of [64 rows][D - 64 values] for the rest:
+// 32-byte rows under the 32B swizzle at d 80, 64-byte rows under the 64B
+// swizzle at d 96 (the swizzle of the row's width, which wgmma reads both
+// K-major and MN-major), so no column past D is stored, copied or
+// multiplied: 10 KB a tile at d 80, 12 KB at 96.
+template <int D>
+struct WideTile {
+  static constexpr int kTail = D % 64;        // columns of the tail panel
+  static constexpr int kTailRow = 2 * kTail;  // its bytes a row
+  static constexpr int kBytes = kRows * 2 * D;
+  static constexpr uint32_t kTailLayout = kTail == 16 ? kSwizzle32
+                                                      : kSwizzle64;
+  static_assert(kTail == 0 || kTail == 16 || kTail == 32,
+                "a tail panel is 16 or 32 columns");
+};
+
+// Rows [row0, row0 + 64) of a [rows, D] bf16 matrix into a WideTile at
+// `dst`; rows at or past `rows` read as zero.  The tail's chunks are
+// copied as the panel's: 16 bytes a thread with cp.async.
+template <int D>
+__device__ __forceinline__ void load_tile_wide(uint32_t dst,
+                                               const __nv_bfloat16* src,
+                                               long long row_stride, int row0,
+                                               int rows) {
+  using T = WideTile<D>;
+  if constexpr (T::kTail == 0) {
+    load_tile<D>(dst, src, row_stride, row0, rows);
+  } else {
+    load_tile<64>(dst, src, row_stride, row0, rows);
+    constexpr int kChunks = T::kTail / 8;  // 2 or 4 a row
+#pragma unroll
+    for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
+      const int idx = threadIdx.x + it * kThreads;
+      const int r = idx / kChunks, ch = idx % kChunks;
+      const bool ok = row0 + r < rows;
+      const __nv_bfloat16* g =
+          ok ? src + (long long)(row0 + r) * row_stride + 64 + ch * 8 : src;
+      cp_async16(dst + kPanel + swizzle(r, ch, T::kTailRow), g, ok);
+    }
+  }
+}
+
 // 64 fp32 values [row0, row0 + 64) of a vector into shared memory; zeros
 // past `rows`.
 __device__ __forceinline__ void load_vec64(uint32_t dst, const float* src,
@@ -121,13 +176,15 @@ __device__ __forceinline__ void load_vec64(uint32_t dst, const float* src,
   }
 }
 
-// wgmma shared-memory matrix descriptor, 128-byte swizzle: start address,
-// leading and stride byte offsets (16-byte units).
+// wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units), layout type (the 128-byte swizzle
+// unless said).
 __device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
+                                              uint32_t sbo,
+                                              uint32_t layout = kSwizzle128) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) |
          ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | ((uint64_t)layout << 62);
 }
 
 // K-major operand (a tile read along its rows), contraction step kk (16
@@ -142,6 +199,27 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
 // 64-column panels kPanel apart.
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return make_desc(tile + kk * 2048, kPanel, 1024);
+}
+
+// K-major step kk (< D / 16) of a WideTile: steps 0-3 on the 128B panel
+// as desc_k; at d 80 and 96 steps 4 and 5 on the tail panel, 32 bytes a
+// step inside its rows, 8-row groups 8 tail rows apart.
+template <int D>
+__device__ __forceinline__ uint64_t desc_k_wide(uint32_t tile, int kk) {
+  using T = WideTile<D>;
+  if (T::kTail == 0 || kk < 4) return desc_k(tile, kk);
+  return make_desc(tile + kPanel + (kk - 4) * 32, 16, 8 * T::kTailRow,
+                   T::kTailLayout);
+}
+
+// MN-major step kk (16 rows) of a WideTile's tail panel, its kTail values
+// a row the output columns 64 .. D - 1 (one swizzle atom wide, so the
+// leading offset, to a next atom along N, is never used).
+template <int D>
+__device__ __forceinline__ uint64_t desc_mn_tail(uint32_t tile, int kk) {
+  using T = WideTile<D>;
+  return make_desc(tile + kPanel + kk * 16 * T::kTailRow,
+                   kRows * T::kTailRow, 8 * T::kTailRow, T::kTailLayout);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -270,6 +348,70 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// O[64 x D] += A[64 x 16] B[16 x D] for D 80 and 96 on a WideTile: one
+// asm statement issues m64n64k16 on the panel and m64n16k16 or m64n32k16 on
+// the tail, A from registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, uint64_t dt) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %46, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %45, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "l"(dt), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, uint64_t dt) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %53, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "l"(dt), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs_wide(float (&d)[D / 2],
+                                              const uint32_t (&a)[4],
+                                              uint32_t tile, int kk) {
+  if constexpr (D == 80) {
+    wgmma_rs_n80(d, a, desc_mn(tile, kk), desc_mn_tail<D>(tile, kk));
+  } else {
+    wgmma_rs_n96(d, a, desc_mn(tile, kk), desc_mn_tail<D>(tile, kk));
+  }
 }
 
 // O[64 x D] += A[64 x 16] B[16 x D] for D 64 or 128 (A in registers).

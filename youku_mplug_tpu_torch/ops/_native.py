@@ -41,6 +41,8 @@ _SIGNATURES = {
     # forward's splits and their scratch,] stream
     "ymt_flash_fwd_bf16": [_P] * 5 + [_I] * 5 + [_LL] * 12
     + [_F, _I, _I, _I, _P, _I, _P, _P, _P],
+    # head_dim, alibi, the int it writes the count to
+    "ymt_flash_fwd_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)],
     "ymt_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 5 + [_LL] * 15
     + [_F, _I, _I, _I, _P, _P],
     "ymt_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 18

@@ -16,8 +16,10 @@ CUDA kernels serve both public wrappers, because the packed
 
 Each kernel is built for head dim 64 and 128, with and without ALiBi, and
 for head dims 80 and 96 without it (the GPT-3 2.7B decoder's 32 heads of
-80 and clip-b16's AttentionPool, 8 heads of 96: the d = 128 tiles with
-their last 48 or 32 columns zero, ``csrc/hopper.cuh``).
+80 and clip-b16's AttentionPool, 8 heads of 96): the forward on tiles D
+wide (a 128-byte panel and a 16- or 32-column tail panel,
+``csrc/hopper.cuh``), the backward on the d = 128 tiles with their last
+48 or 32 columns zero.
 Where the (64-row query tile, head, batch) blocks are too few to fill the
 card (AttentionPool's 128 queries over 1570 keys while serving), the
 forward splits each block's key tiles ``kv_splits`` ways into fp32
@@ -45,6 +47,7 @@ and ``flash_attention`` the forward's, ``flash_bwd_dq_cuda`` and
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -56,12 +59,13 @@ HEAD_DIMS = (64, 80, 96, 128)  # the head widths the kernels are built for
 ALIBI_HEAD_DIMS = (64, 128)  # ... and with the ALiBi bias
 TILE = 64  # rows of a query or key tile in the kernels
 SMS = 132  # the H100's streaming multiprocessors, where no card is asked
-# forward blocks resident on one streaming multiprocessor, by head dim,
-# from nvcc's -Xptxas -v report on sm_90a: at d 64, 126 registers a thread
-# (4 blocks of 128 threads in 64K registers; 41 KB of shared memory would
-# allow 5); at d 128, 184 registers and 81 KB (2 either way); d 80 and 96
-# run the d 128 tiles and accumulators
-FWD_BLOCKS_PER_SM = {64: 4, 80: 2, 96: 2, 128: 2}
+# forward blocks resident on one streaming multiprocessor, by head dim:
+# at d 64 registers allow 4 (41 KB of shared memory would allow 5); at
+# d 80 the D-wide tiles' 51 KB allow 4 and the build is capped at 128
+# registers so that they fit; at d 96 the build's cap of 168 registers
+# allows 3 (its 49 KB would allow 4); at d 128, 81 KB, 2.  chip_smoke.py
+# holds these against the card's own count (fwd_blocks_per_sm)
+FWD_BLOCKS_PER_SM = {64: 4, 80: 4, 96: 3, 128: 2}
 MIN_TILES_PER_SPLIT = 4  # a share shorter than this is not worth a merge
 
 
@@ -93,6 +97,17 @@ def kv_splits(b: int, h: int, sq: int, sk: int, *, head_dim: int = 64,
     tiles = -(-_kv(kv_len, sk) // TILE)
     wave = FWD_BLOCKS_PER_SM[head_dim] * sms
     return max(1, min(wave // blocks, tiles // MIN_TILES_PER_SPLIT))
+
+
+def fwd_blocks_per_sm(head_dim: int, alibi: bool = False) -> int:
+    """The forward build's resident blocks on one multiprocessor of the
+    current card (cudaOccupancyMaxActiveBlocksPerMultiprocessor at its
+    threads and dynamic shared memory); builds the kernels if needed."""
+    blocks = ctypes.c_int()
+    err = _native.library().ymt_flash_fwd_blocks_per_sm(
+        int(head_dim), int(alibi), ctypes.byref(blocks))
+    _native.check_launch(err, "ymt_flash_fwd_blocks_per_sm")
+    return blocks.value
 
 
 def split_scratch_shapes(b: int, h: int, sq: int, d: int, splits: int):
