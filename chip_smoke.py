@@ -8,11 +8,12 @@ the last line is printed):
 1. device and build: require CUDA (one card: the first visible one),
    print the card's name and power limit, build the hand-written kernels
    from youku_mplug_tpu_torch/csrc/ (one nvcc per source, in parallel);
-2. the forward's builds at head dims 64, 80, 96 and 128: registers and
-   spills from nvcc's -Xptxas -v report and the blocks resident on one SM
-   as the card counts them (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
-   failing on a spill or on a count other than FWD_BLOCKS_PER_SM, the wave
-   the split-KV policy assumes; then
+2. the flash builds (forward, backward dq and dk/dv) at head dims 64,
+   80, 96 and 128: registers and spills from nvcc's -Xptxas -v report and
+   the blocks resident on one SM as the card counts them
+   (cudaOccupancyMaxActiveBlocksPerMultiprocessor), failing on a spill in
+   any flash build or on a count other than FWD_BLOCKS_PER_SM (the wave
+   the split-KV policy assumes) or BWD_BLOCKS_PER_SM; then
    each kernel against its plain PyTorch version, in bf16, at the shapes
    the serving, training and instruct paths give it, with the kernel's,
    the plain version's and F.scaled_dot_product_attention's times from
@@ -29,12 +30,16 @@ the last line is printed):
    clip-b16's AttentionPool (q [32, 8, 128, 96] over 1570 keys, the cls
    train step, and over 786, ITM's; forward alone at an evaluation
    call's 4 clips; q [24, 8, 128, 96] over 3138 keys, the 2.7B caption
-   recipe's 16 frames) and the head dim 80 shapes of the GPT-3 2.7B
+   recipe's 16 frames; 256 queries over 1570 keys, kv_len 1500, which
+   take the key-tile dk/dv kernel, off the paths) and the head dim 80
+   shapes of the GPT-3 2.7B
    decoder (head views of its fused qkv row: [180, 208, 32x80] causal,
    the cls evaluation's passes; [32, 208, 32x80] causal for K4b, which
    no shipped YAML runs; a head-major call split three ways) the
    forward's o and lse and the
-   backward's dq and dk/dv kernels on that forward's output; K1 causal
+   backward's delta (rowsum(dO * O)), dq and dk/dv kernels on that
+   forward's output (the dk/dv kernel the wrapper picks: at head dim 96
+   and Sq <= 128 the short-query one); K1 causal
    at the downstream evaluations' decoder calls ([180, 208, 32x64] cls,
    [32, 208] ITM, [96, 80] retrieval text); and the
    decode step's attention with its cache write in one launch (K5 with K6
@@ -196,7 +201,6 @@ import gc
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -219,6 +223,9 @@ LSE_TOL = 1e-3           # fp32 log-sum-exp, fp32 accumulation on both sides
 # bf16 from fp32 values that differ in the last bits (the kernel's
 # __expf), and the outputs are bf16, so two bf16 ulps (2^-8 each)
 BWD_TOL = 2.0 ** -7
+# the delta kernel (rowsum(dO * O) in fp32) against its plain version:
+# relative L2, the same fp32 products summed in another order
+DELTA_TOL = 1e-5
 QUERY_TOL = 0.1          # query features after 12 vision blocks, bf16
 LOGIT_TOL = 0.1          # fp32 logits after 24 decoder layers, bf16
 FORCED_STEPS = 4
@@ -368,24 +375,7 @@ def phase_device_and_build():
     so, seconds, log = _native.build()
     _native.library()
     # nvcc -Xptxas -v: per template instance, its registers and spills
-    builds, entry, spill = {}, "?", (None, None)
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv|"
-                          r"decode_attn)_kernelILi(\d+)ELb([01])E"
-                          r"(?:Lb([01])E)?", line)
-            merge = re.search(r"(flash_fwd_merge)_kernelILi(\d+)E", line)
-            entry = (f"{m[1]}<{m[2]},{'alibi' if m[3] == '1' else 'plain'}"
-                     f"{',int8' if m[4] == '1' else ''}>" if m
-                     else f"{merge[1]}<{merge[2]}>" if merge else "?")
-        elif "spill stores" in line:
-            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
-                          r"loads", line)
-            spill = (int(m[1]), int(m[2])) if m else (None, None)
-        elif re.search(r"Used \d+ registers", line):
-            regs = int(re.search(r"Used (\d+) registers", line)[1])
-            builds[entry] = {"registers": regs, "spill_stores": spill[0],
-                             "spill_loads": spill[1]}
+    builds = _native.ptxas_report(log)
     print(f"[build] {os.path.relpath(so, REPO)} in {seconds:.1f} s "
           f"(sm_90a) | " + " ; ".join(
               f"{name} {u['registers']} regs, spills {u['spill_stores']}/"
@@ -394,30 +384,46 @@ def phase_device_and_build():
     return card, builds
 
 
-def phase_forward_builds(fa, builds) -> dict:
-    """The forward's builds at each head dim: registers and spills from
-    nvcc's report, and the blocks resident on one SM as the card counts
-    them (cudaOccupancyMaxActiveBlocksPerMultiprocessor).  Fails if a
-    forward build spills or the card's count is not FWD_BLOCKS_PER_SM,
-    the wave kv_splits sizes its splits by."""
+def phase_flash_builds(fa, builds) -> dict:
+    """The flash builds at each head dim: registers and spills from nvcc's
+    report, and the blocks resident on one SM as the card counts them
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), for the forward and
+    for the backward's dq and dk/dv kernels.  Fails if any flash build
+    spills, if the forward's count is not FWD_BLOCKS_PER_SM (the wave
+    kv_splits sizes its splits by) or the backward's not
+    BWD_BLOCKS_PER_SM."""
     out = {}
+    kinds = ("bwd_dq", "bwd_dkv", "bwd_dkv_short")
+    for kind, dims in (("fwd", fa.HEAD_DIMS), ("bwd_dq", fa.HEAD_DIMS),
+                       ("bwd_dkv", fa.HEAD_DIMS),
+                       ("bwd_dkv_short", fa.SHORT_HEAD_DIMS)):
+        for d in dims:
+            u = builds.get(f"flash_{kind}<{d},plain>")
+            if u is None:
+                fail(f"no -Xptxas -v report for flash_{kind}<{d},plain>")
+            out[f"{kind}<{d}>"] = {**u}
+    got_bwd = {}
     for d in fa.HEAD_DIMS:
-        u = builds.get(f"flash_fwd<{d},plain>")
-        if u is None:
-            fail(f"no -Xptxas -v report for flash_fwd<{d},plain>")
-        out[d] = {**u, "blocks_per_sm": fa.fwd_blocks_per_sm(d)}
-    print("[kernel] forward builds (registers, spill bytes stored / loaded, "
+        out[f"fwd<{d}>"]["blocks_per_sm"] = fa.fwd_blocks_per_sm(d)
+        got_bwd[d] = fa.bwd_blocks_per_sm(d)
+        for kind, n in zip(kinds, got_bwd[d]):
+            if n is not None:
+                out[f"{kind}<{d}>"]["blocks_per_sm"] = n
+    print("[kernel] flash builds (registers, spill bytes stored / loaded, "
           "blocks an SM from cudaOccupancyMaxActiveBlocksPerMultiprocessor): "
           + json.dumps(out), flush=True)
     spilled = [name for name, u in builds.items()
-               if name.startswith("flash_fwd") and (u["spill_stores"]
-                                                     or u["spill_loads"])]
+               if name.startswith("flash_") and (u["spill_stores"]
+                                                 or u["spill_loads"])]
     if spilled:
-        fail(f"forward builds spill: {spilled}")
-    got = {d: u["blocks_per_sm"] for d, u in out.items()}
+        fail(f"flash builds spill: {spilled}")
+    got = {d: out[f"fwd<{d}>"]["blocks_per_sm"] for d in fa.HEAD_DIMS}
     if got != fa.FWD_BLOCKS_PER_SM:
         fail(f"forward blocks an SM {got} != FWD_BLOCKS_PER_SM "
              f"{fa.FWD_BLOCKS_PER_SM}")
+    if got_bwd != fa.BWD_BLOCKS_PER_SM:
+        fail(f"backward (dq, dk/dv, short-query dk/dv) blocks an SM "
+             f"{got_bwd} != BWD_BLOCKS_PER_SM {fa.BWD_BLOCKS_PER_SM}")
     return out
 
 
@@ -541,7 +547,11 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
            "plain_ms": time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw),
                                20),
            "library_ms": lib_fwd, **bounds["fwd"]}
-    delta = (do.float() * o.float()).sum(-1).contiguous()
+    delta = fa.flash_bwd_delta_plain(o, do)
+    got_delta = fa.flash_bwd_delta_cuda(o, do)
+    e_delta = rel_l2(got_delta, delta)
+    if not e_delta <= DELTA_TOL:
+        fail(f"delta {shape}: relative L2 {e_delta} (tol {DELTA_TOL})")
     got = fa.flash_bwd_cuda(q, k, v, o, lse, do, **kw)
     want = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
     torch.cuda.synchronize()
@@ -571,9 +581,19 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
                 "plain_ms": plain_ms, "library_ms": lib_bwd,
                 **bounds[kind]}
 
+    rows = b * n * sq
     return {"layout": layout, "fwd": fwd,
-            "dq": bwd_row("dq", dq_ms, ("dq",)),
-            "dkv": bwd_row("dkv", dkv_ms, ("dk", "dv"))}
+           "dq": bwd_row("dq", dq_ms, ("dq",)),
+           "dkv": bwd_row("dkv", dkv_ms, ("dk", "dv")),
+           "delta": {"shape": shape, "on_path": on_path,
+                     "rel_l2": e_delta, "max_abs_err": err(got_delta, delta),
+                     "ms": time_ms(lambda: fa.flash_bwd_delta_cuda(o, do),
+                                   iters),
+                     "plain_ms": time_ms(
+                         lambda: fa.flash_bwd_delta_plain(o, do), iters),
+                     "library_ms": None,
+                     **_bound(2 * rows * d, 2 * 2 * rows * d + 4 * rows,
+                              PEAK_FP32_FLOPS)}}
 
 
 # (rows, Sq, Sk, heads, causal, period, kv_len, layout, head dim, ALiBi,
@@ -620,10 +640,16 @@ D96_SHAPES = [
     # the 2.7B caption recipe's 24 clips x 16 frames (1 + 16 x 196 tokens
     # and the bias key), in its finetune and its evaluation's encode
     (24, 128, 3138, 8, False, 0, None, "heads", 96, False,
-     "caption27_train", True)]
+     "caption27_train", True),
+    # more than 128 queries (ragged keys, kv_len < Sk): the key-tile dk/dv
+    # kernel, which no path runs at d 96
+    (4, 256, 1570, 8, False, 0, 1500, "heads", 96, False, "key-tile dk/dv",
+     False)]
 D96_PATHS = ("cls_train", "cls_eval", "itm_train", "itm_eval",
              "caption27_train", "caption27_eval", "cls27_train", "cls27_eval")
 D96_TRAIN_PATHS = ("cls_train", "itm_train", "caption27_train", "cls27_train")
+# every path that runs a flash backward (the delta kernel's)
+BWD_PATHS = ("train", "caption_train", "instruct_train") + D96_TRAIN_PATHS
 
 # head dim 80, the GPT-3 2.7B decoder (32 heads of 80), on head views of
 # the fused qkv projection: the cls evaluation's decoder passes (4 clips x
@@ -938,7 +964,7 @@ def phase_kernels(dev, builds):
     from youku_mplug_tpu_torch.ops import flash_attention as fa
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
-    fwd_builds = phase_forward_builds(fa, builds)
+    flash_builds = phase_flash_builds(fa, builds)
 
     g = torch.Generator(device=dev).manual_seed(0)
 
@@ -1087,33 +1113,51 @@ def phase_kernels(dev, builds):
 
     train96 = [c for c, shape in zip(d96, D96_SHAPES)
                if shape[10] in D96_TRAIN_PATHS]
+    key_tiles96 = d96[-1]
     report.append(_entry(
         "K4 flash_attention, head dim 96 (clip-b16 AttentionPool; D-wide "
         "tiles, a 64-byte-swizzled tail panel; split-KV at an evaluation "
         "call's 4 clips)", FWD_SRC, f"{TPU_FLASH}:59", fa.flash_attention,
         D96_PATHS, "K4-d96", [c["fwd"] for c in d96],
-        counter="d96_launches", build=fwd_builds[96]))
-    for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 148),
-                                ("dkv", fa.flash_bwd_dkv_cuda, 195)):
-        report.append(_entry(
-            f"K4b backward {kind} kernel, head dim 96 (clip-b16 "
-            "AttentionPool)", BWD_SRC, f"{TPU_FLASH}:{line}", wrapper,
-            D96_TRAIN_PATHS, f"{kind}-d96",
-            [c[kind] for c in train96], counter="d96_launches"))
+        counter="d96_launches", build=flash_builds["fwd<96>"]))
+    report.append(_entry(
+        "K4b backward dq kernel, head dim 96 (clip-b16 AttentionPool; "
+        "D-wide tiles)", BWD_SRC, f"{TPU_FLASH}:148", fa.flash_bwd_dq_cuda,
+        D96_TRAIN_PATHS, "dq-d96",
+        [c["dq"] for c in train96 + [key_tiles96]],
+        counter="d96_launches", build=flash_builds["bwd_dq<96>"]))
+    report.append(_entry(
+        "K4b backward dkv kernel, head dim 96 (clip-b16 AttentionPool; "
+        "D-wide tiles; its 128 queries run the short-query kernel, every "
+        "query resident and the key tiles streaming; the key-tile kernel "
+        "at 256 queries, off the paths)", BWD_SRC, f"{TPU_FLASH}:195",
+        fa.flash_bwd_dkv_cuda, D96_TRAIN_PATHS, "dkv-d96",
+        [c["dkv"] for c in train96 + [key_tiles96]],
+        counter="d96_short_launches",
+        build={**flash_builds["bwd_dkv_short<96>"],
+               "key_tile_kernel": flash_builds["bwd_dkv<96>"]}))
     report.append(_entry(
         "K4 flash_attention, head dim 80 (GPT-3 2.7B decoder, causal, via "
         "dot_product_attention; D-wide tiles, a 32-byte-swizzled tail "
         "panel; split-KV off the paths)", FWD_SRC, f"{TPU_FLASH}:59",
         fa.flash_attention, ("cls27_eval",), "K4-d80",
         [c["fwd"] for c in d80], counter="d80_launches",
-        build=fwd_builds[80]))
+        build=flash_builds["fwd<80>"]))
     for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 148),
                                 ("dkv", fa.flash_bwd_dkv_cuda, 195)):
         report.append(_entry(
             f"K4b backward {kind} kernel, head dim 80 (GPT-3 2.7B decoder "
             "trained without attention dropout: no shipped YAML)", BWD_SRC,
             f"{TPU_FLASH}:{line}", wrapper, (), f"{kind}-d80",
-            [d80[1][kind]], counter="d80_launches"))
+            [d80[1][kind]], counter="d80_launches",
+            build=flash_builds[f"bwd_{kind}<80>"]))
+    report.append(_entry(
+        "backward delta = rowsum(dO * O) in fp32, one launch a backward at "
+        "every head dim (XLA-fused in the JAX package: no Pallas kernel)",
+        BWD_SRC, f"{TPU_FLASH}:252 (_bwd; :951 in _bwd_packed)",
+        fa.flash_bwd_delta_cuda, BWD_PATHS, "delta",
+        [c["delta"] for c in cases + alibi_cases + [no_alibi_128]
+         + train96 + [key_tiles96] + d80[1:]]))
     report += _decode_entries(dec, kvc, rand)
     for r in report:
         lib = ("none" if r["library_ms"] is None
@@ -1134,14 +1178,16 @@ def phase_kernels(dev, builds):
           "clock, power draw): " + card_load, flush=True)
     print(f"[kernel] tolerances: forward elementwise {KERNEL_TOL:.3g} x "
           f"(1 + |plain|) (K5 int8 too), lse {LSE_TOL}, backward relative "
-          f"L2 {BWD_TOL:.3g} per gradient, K6 (the cache leaves after the "
+          f"L2 {BWD_TOL:.3g} per gradient, delta relative L2 {DELTA_TOL}, "
+          "K6 (the cache leaves after the "
           "fused launch) bitwise; library = F.scaled_dot_product_attention "
           "with the same mask (and ALiBi as a float bias), the backward's "
-          "as forward + backward less the forward, none for K5 int8, K6 "
+          "as forward + backward less the forward, none for K5 int8 and "
+          "delta, K6 "
           "bf16 one index_put_; K5 rotated = the layer index moved over all "
           "L layers a call (live rows from HBM); bound = max(operations / "
           "989 TFLOP/s bf16, 1979 TOP/s int8 (K5 int8) or 67 TFLOP/s fp32 "
-          "(K6), bytes / 3.35 TB/s)", flush=True)
+          "(K6, delta), bytes / 3.35 TB/s)", flush=True)
     return report
 
 
@@ -2607,7 +2653,7 @@ def _downstream_task(report, tag, module, yaml_path, overrides, out_dir,
                   if kind == "cls" else module.make_batch)
     if want is None:
         want = (({"K1": layers}, {"K1": layers}) if kind == "retrieval" else
-                ({"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1},
+                ({"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1, "delta": 1},
                  {"K4-d96": 1, "K1": 2 * layers}))
     held = torch.cuda.memory_allocated()
     frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
@@ -2813,7 +2859,7 @@ def phase_gpt3_27b(report, out_dir):
     train["setup_s"] = setup_s
     train["launches_per_step"] = _launches_per(
         report, "caption27_train", train["steps"],
-        {"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1})
+        {"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1, "delta": 1})
     print(f"[caption27 finetune] {json.dumps(train)}", flush=True)
     out = _caption_eval(report, runner, test_loader, "caption27_eval",
                         "K5-d80", CAPTION_EVAL_BATCHES)
@@ -2830,7 +2876,8 @@ def phase_gpt3_27b(report, out_dir):
     torch.cuda.empty_cache()
     cls = _downstream_task(
         report, "cls27", run_cls, CLS27_YAML, CLS27_CUTS, out_dir,
-        kind="cls", want=({"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1},
+        kind="cls", want=({"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1,
+                           "delta": 1},
                           {"K4-d96": 1, "K4-d80": 2 * layers}))
     gc.collect()
     torch.cuda.empty_cache()
@@ -2898,7 +2945,7 @@ def phase_instruct_train(report, out_dir):
     per_step = {r["key"]: r["launches_by_path"]["instruct_train"]
                 / OWL_TRAIN_STEPS for r in report}
     want = {"K1-ALiBi": layers, "dq-ALiBi": layers, "dkv-ALiBi": layers,
-            "K1": depth}
+            "delta": layers, "K1": depth}
     if any(per_step[k] != v for k, v in want.items()) or any(
             per_step[k] for k in per_step if k not in want):
         fail(f"launches per step {per_step}, expected {want} and no other "

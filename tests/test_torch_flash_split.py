@@ -2,7 +2,9 @@
 against the JAX package.
 
 ``kv_splits`` (how many ways the forward kernel splits a block's key
-tiles) at the paths' shapes; ``split_ranges`` (each split's keys, the
+tiles) and ``dkv_short_splits`` (how many ways the backward's short-query
+dk/dv kernel splits a (head, batch)'s key tiles, 0 for the key-tile
+kernel) at the paths' shapes; ``split_ranges`` (each split's keys, the
 kernel's arithmetic, mirrored here) covering every visible key once; the
 fp32 scratch shapes; and a plain split-and-merge (``split_plain`` with
 ``merge_plain``, written here after the split launch and its merge
@@ -153,6 +155,35 @@ def test_kv_splits_at_the_paths_shapes(shape, kw, want):
     wave = (fa.FWD_BLOCKS_PER_SM[kw.get("head_dim", 64)]
             * kw.get("sms", fa.SMS))
     assert want == 1 or blocks * want <= wave
+
+
+@pytest.mark.parametrize("shape,kw,want", [
+    # clip-b16's AttentionPool at head dim 96: the short-query dk/dv
+    # kernel, each (head, batch)'s key tiles in shares of at most
+    # SHORT_TILES_PER_BLOCK (3): the cls train step's 1570 keys (25
+    # tiles), ITM's 786 (13), the 2.7B caption recipe's 3138 (50)
+    ((32, 8, 128, 1570), {"head_dim": 96}, 9),
+    ((32, 8, 128, 786), {"head_dim": 96}, 5),
+    ((24, 8, 128, 3138), {"head_dim": 96}, 17),
+    # a ragged query tail; one tile each way
+    ((3, 4, 100, 300), {"head_dim": 96}, 2),
+    ((2, 1, 3, 5), {"head_dim": 96}, 1),
+    # the key-tile kernel: more than 128 queries, a causal or period mask,
+    # ALiBi, head dims 64, 80 and 128
+    ((2, 8, 129, 1570), {"head_dim": 96}, 0),
+    ((2, 8, 112, 112), {"head_dim": 96, "period": 8}, 0),
+    ((2, 8, 128, 128), {"head_dim": 96, "causal": True}, 0),
+    ((32, 32, 208, 208), {"head_dim": 80, "causal": True}, 0),
+    ((8, 32, 128, 1570), {"head_dim": 80}, 0),
+    ((16, 12, 128, 1570), {"head_dim": 64}, 0),
+    ((8, 32, 105, 105), {"head_dim": 128, "causal": True, "alibi": True},
+     0),
+    ((2, 8, 128, 1570), {"head_dim": 128}, 0),
+])
+def test_dkv_short_splits_at_the_paths_shapes(shape, kw, want):
+    """How the backward's dk/dv runs (``dkv_short_splits``): 0 for the
+    key-tile kernel, else the short-query kernel's split of the keys."""
+    assert fa.dkv_short_splits(*shape, **kw) == want
 
 
 @pytest.mark.parametrize("sq,sk,splits,kw", [

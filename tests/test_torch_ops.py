@@ -447,45 +447,68 @@ def test_flash_bwd_plain_matches_pallas_vjp_head_major(kv_len):
         assert not got[2][:, :, kv_len:].any()
 
 
-@pytest.mark.parametrize("sk,kv_len", [(1571, None), (150, 131)])
-def test_flash_d96_plain_matches_pallas_interpret(sk, kv_len):
+@pytest.mark.parametrize("sq,sk,causal,kv_len", [
+    pytest.param(128, 1571, False, None, id="1571-None"),
+    pytest.param(128, 150, False, 131, id="150-131"),
+    # the edges of the backward kernels' D-wide tiles: a ragged key tail
+    # (1570 = 24 x 64 + 34), a ragged query tail, kv_len < Sk over the
+    # ragged keys, causal at the 2.7B decoder's 208 positions
+    pytest.param(128, 1570, False, None, id="ragged-keys-1570"),
+    pytest.param(100, 300, False, None, id="ragged-queries-100"),
+    pytest.param(128, 1570, False, 1500, id="kv_len-1500-of-1570"),
+    pytest.param(208, 208, True, None, id="causal-208"),
+])
+def test_flash_d96_plain_matches_pallas_interpret(sq, sk, causal, kv_len):
     """K4 and K4b at head dim 96 (clip-b16's AttentionPool, 8 heads of 96;
     here 2 heads): the forward and jax.vjp of the Pallas head-major kernel
     in interpret mode against flash_fwd_plain and flash_bwd_plain on the
     same q, k, v, dO, at AttentionPool's 128 queries over 1 + 8 x 196
-    keys and the bias key, and over a padded static kv_len."""
+    keys and the bias key, over a padded static kv_len, and at the edge
+    shapes of the backward's tiles; keys at or past kv_len get exactly
+    zero dk and dv."""
     from youku_mplug_tpu_torch.ops.flash_attention import flash_bwd_plain
 
-    rng = np.random.default_rng(15 + sk)
-    b, h, sq, d = 2, 2, 128, 96
+    rng = np.random.default_rng(15 + sk + (sq != 128) + causal)
+    b, h, d = 2, 2, 96
     q, do = (rng.normal(size=(b, h, sq, d)).astype(np.float32)
              for _ in range(2))
     k, v = (rng.normal(size=(b, h, sk, d)).astype(np.float32)
             for _ in range(2))
     with _interpret():
         out, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention(
-            q_, k_, v_, kv_len=kv_len), jnp.asarray(q), jnp.asarray(k),
-            jnp.asarray(v))
+            q_, k_, v_, causal=causal, kv_len=kv_len), jnp.asarray(q),
+            jnp.asarray(k), jnp.asarray(v))
         want = vjp(jnp.asarray(do))
-    kw = dict(scale=d ** -0.5, kv_len=kv_len)
+    kw = dict(scale=d ** -0.5, causal=causal, kv_len=kv_len)
     o, lse = flash_fwd_plain(_t(q), _t(k), _t(v), **kw)
     _close(o, out)
-    _close(flash_attention(_t(q), _t(k), _t(v), kv_len=kv_len), out)
+    _close(flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                           kv_len=kv_len), out)
     got = flash_bwd_plain(_t(q), _t(k), _t(v), o, lse, _t(do), **kw)
     for g, w in zip(got, want):
         _close(g, w)
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any()
+        assert not got[2][:, :, kv_len:].any()
 
 
 @pytest.mark.parametrize("sq,sk,causal,kv_len", [
     (208, 208, True, None),   # the 2.7B decoder: 128 queries + 80 tokens
     (256, 256, True, None),   # causal over whole 128-row blocks
     (128, 150, False, 131),   # a padded static kv_len
+    # the edges of the backward kernels' D-wide tiles: a ragged key tail
+    # (1570 = 24 x 64 + 34), a ragged query tail, kv_len < Sk over the
+    # ragged keys
+    (128, 1570, False, None),
+    (100, 300, False, None),
+    (128, 1570, False, 1500),
 ])
 def test_flash_d80_plain_matches_pallas_interpret(sq, sk, causal, kv_len):
     """K4 and K4b at head dim 80 (the GPT-3 2.7B decoder's 32 heads of 80;
     here 2 heads): the forward and jax.vjp of the Pallas head-major kernel
     in interpret mode against flash_fwd_plain and flash_bwd_plain, and the
-    port's ``flash_attention``, on the same q, k, v, dO."""
+    port's ``flash_attention``, on the same q, k, v, dO; keys at or past
+    kv_len get exactly zero dk and dv."""
     from youku_mplug_tpu_torch.ops.flash_attention import flash_bwd_plain
 
     rng = np.random.default_rng(sq + sk + causal)
@@ -507,6 +530,9 @@ def test_flash_d80_plain_matches_pallas_interpret(sq, sk, causal, kv_len):
     got = flash_bwd_plain(_t(q), _t(k), _t(v), o, lse, _t(do), **kw)
     for g, w in zip(got, want):
         _close(g, w)
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any()
+        assert not got[2][:, :, kv_len:].any()
 
 
 @pytest.mark.parametrize("causal,kv_len", [(False, None), (True, None),
@@ -1206,6 +1232,102 @@ def test_cuda_flash_d80_matches_plain(cuda_device, rows, sq, sk, n, causal,
     if kv_len is not None:
         assert not got[1][:, :, kv_len:].any()
         assert not got[2][:, :, kv_len:].any()
+
+
+# the edges of the backward's D-wide tiles at head dims 80 and 96: (Sq,
+# Sk, causal, kv_len) for a ragged key tail (1570 = 24 x 64 + 34), a
+# ragged query tail, kv_len < Sk over the ragged keys, causal at 208, and
+# 256 queries over the ragged keys.  At d 96 the first three take the
+# short-query dk/dv kernel and the last two the key-tile one, as
+# dkv_short_splits picks; at d 80 all take the key-tile one
+WIDE_BWD_EDGES = [(128, 1570, False, None), (100, 300, False, None),
+                  (128, 1570, False, 1500), (208, 208, True, None),
+                  (256, 1570, False, 1500)]
+WIDE_BWD_CASES = [(d, *edge) for d in (80, 96) for edge in WIDE_BWD_EDGES]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,sq,sk,causal,kv_len", WIDE_BWD_CASES)
+def test_cuda_flash_bwd_wide_edges_match_plain(cuda_device, d, sq, sk,
+                                               causal, kv_len):
+    """The dq and dk/dv kernels at head dims 80 and 96 against
+    flash_bwd_plain at relative L2 2^-7, on strided head views as the
+    models hand them over (d 80: the 2.7B decoder's fused [B, S, 3 n d]
+    qkv row; d 96: AttentionPool's separate [B, S, n d] projections), each
+    gradient written into the even heads of a NaN-filled packed buffer
+    whose other heads stay untouched; keys at or past kv_len get exactly
+    zero; the short-query launch counter rises exactly when that kernel
+    runs."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(sq + sk + d)
+    n, b = 4, 3
+    if d == 80:
+        qkv = _bf16(rng, b, sk, 3 * n * d, device=cuda_device)
+        q, k, v = (qkv[:, :sq, i * n * d:(i + 1) * n * d].unflatten(
+            -1, (n, d)).transpose(1, 2) for i in range(3))
+    else:
+        q, k, v = (_bf16(rng, b, s, n * d, device=cuda_device).unflatten(
+            -1, (n, d)).transpose(1, 2) for s in (sq, sk, sk))
+    kw = dict(scale=d ** -0.5, causal=causal, kv_len=kv_len)
+    o = fa._head_major_empty(q)
+    lse = flash_fwd_cuda(q, k, v, o, **kw)
+    do = _bf16(rng, b, n, sq, d, device=cuda_device)
+    delta = (do.float() * o.float()).sum(-1).contiguous()
+    (dq, dq_odd), (dk, dk_odd), (dv, dv_odd) = (
+        _out(t, True) for t in (q, k, v))
+    before = fa.flash_bwd_dkv_cuda.d96_short_launches
+    fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, **kw)
+    fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, **kw)
+    torch.cuda.synchronize()
+    short = fa.dkv_short_splits(b, n, sq, sk, head_dim=d, causal=causal)
+    assert bool(short) == (d == 96 and sq <= 128 and not causal)
+    assert fa.flash_bwd_dkv_cuda.d96_short_launches - before == bool(short)
+    want = fa.flash_bwd_plain(q, k, v, o, lse, do, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(g).all(), name
+        assert _rel_l2(g, w) <= 2.0 ** -7, (name, _rel_l2(g, w))
+    assert all(torch.isnan(t).all() for t in (dq_odd, dk_odd, dv_odd))
+    if kv_len is not None:
+        assert not dk[:, :, kv_len:].any() and not dv[:, :, kv_len:].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 96, 128])
+def test_cuda_flash_bwd_delta_matches_plain(cuda_device, d):
+    """The backward's delta kernel (rowsum(dO * O) in fp32) against its
+    plain version on head views of a fused [B, S, 3 n d] row (O) and of
+    a [B, S, n d] projection (dO), a ragged 197 rows; one launch counted."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    rng = np.random.default_rng(d)
+    n = 3
+    o = _bf16(rng, 2, 197, 3 * n * d, device=cuda_device)[
+        ..., n * d:2 * n * d].unflatten(-1, (n, d)).transpose(1, 2)
+    do = _bf16(rng, 2, 197, n * d, device=cuda_device).unflatten(
+        -1, (n, d)).transpose(1, 2)
+    before = fa.flash_bwd_delta_cuda.launches
+    got = fa.flash_bwd_delta_cuda(o, do)
+    torch.cuda.synchronize()
+    assert fa.flash_bwd_delta_cuda.launches == before + 1
+    want = fa.flash_bwd_delta_plain(o, do)
+    assert got.shape == (2, n, 197) and got.is_contiguous()
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_bwd_blocks_per_sm_match_the_table(cuda_device):
+    """The card's resident blocks an SM of each backward build (dq, dk/dv,
+    short-query dk/dv at 96) equal BWD_BLOCKS_PER_SM at every head
+    dim, and the ALiBi builds (64 and 128) keep at least one (they have
+    no short-query kernel)."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    for d in fa.HEAD_DIMS:
+        assert fa.bwd_blocks_per_sm(d) == fa.BWD_BLOCKS_PER_SM[d], d
+    for d in fa.ALIBI_HEAD_DIMS:
+        dq, dkv, short = fa.bwd_blocks_per_sm(d, alibi=True)
+        assert dq >= 1 and dkv >= 1 and short is None, d
 
 
 @pytest.mark.cuda

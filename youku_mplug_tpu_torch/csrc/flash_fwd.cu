@@ -273,13 +273,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      if constexpr (WideTile<D>::kTail == 0) {
-        wgmma_rs<D>(acc, pa[kk], desc_mn(vs, kk));
-      } else {
-        wgmma_rs_wide<D>(acc, pa[kk], vs, kk);
-      }
-    }
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_wide<D>(acc, pa[kk], vs, kk);
     wg_commit();
     wg_wait<0>();
     pin(acc);

@@ -4,15 +4,13 @@
 // the wgmma matrix descriptors, and the warpgroup matrix products.
 //
 // Tiles.  Every operand tile is 64 rows of a [rows, D] bf16 matrix (D 64,
-// 80, 96 or 128).  The backward keeps a tile as padded(D) / 64 panels of
-// [64 rows][64 values] (an 80- or 96-wide row takes the two panels of a
-// 128-wide one, its columns from D on zero, load_tile); the forward's
-// tiles are D wide (WideTile below: at 80 and 96 one such panel and a
-// narrower tail panel).  A panel row is 128 bytes, the 16-byte chunk c of
-// row r stored at chunk c ^ (r % 8) (the "128B swizzle" of wgmma and TMA,
-// so the eight rows a product reads together fall in different banks).
-// Each panel is 8 KB and 1024-byte aligned.  The same layout serves both
-// ways a product reads a tile:
+// 80, 96 or 128), kept D wide (WideTile below) by the forward and the
+// backward alike: D / 64 panels of [64 rows][64 values] at d 64 and 128,
+// and at 80 and 96 one such panel and a narrower tail panel.  A panel row
+// is 128 bytes, the 16-byte chunk c of row r stored at chunk c ^ (r % 8)
+// (the "128B swizzle" of wgmma and TMA, so the eight rows a product reads
+// together fall in different banks).  Each panel is 8 KB and 1024-byte
+// aligned.  The same layout serves both ways a product reads a tile:
 //   - K-major (the contracting dimension runs along the row): Q, K, V and
 //     dO as the left operand or as the right operand of a score product
 //     (S = Q K^T, dP = dO V^T);
@@ -43,10 +41,6 @@ constexpr int kPanel = 64 * 128;     // bytes of one [64][64] bf16 panel
 constexpr int kMaxSmem = 232448;     // the H100's per-block opt-in limit
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// The backward's panel width for a head dim: D rounded up to whole
-// 64-column panels (80 and 96 -> 128).
-__host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
 
 // wgmma's shared-memory layout types (bits 62-63 of a descriptor): the
 // 128-, 64- and 32-byte swizzles.
@@ -101,28 +95,29 @@ __device__ __forceinline__ void ring_arrive() {
   __syncthreads();
 }
 
-// Rows [row0, row0 + 64) of a [rows, D] bf16 matrix (row stride in
-// elements, 16-byte aligned rows) into the swizzled panels at `dst`, which
-// hold padded(D) columns; rows at or past `rows`, and the columns from D
-// on, read as zero (the zero-fill of cp.async: no global read).
+// Rows [row0, row0 + 64) of a [rows, D] bf16 matrix (D 64 or 128; row
+// stride in elements, 16-byte aligned rows) into the D / 64 swizzled
+// panels at `dst`; rows at or past `rows` read as zero (the zero-fill of
+// cp.async: no global read).
 template <int D>
 __device__ __forceinline__ void load_tile(uint32_t dst,
                                           const __nv_bfloat16* src,
                                           long long row_stride, int row0,
                                           int rows) {
-  constexpr int kChunks = padded(D) / 8;
+  static_assert(D % 64 == 0, "whole panels only: see load_tile_wide");
+  constexpr int kChunks = D / 8;
 #pragma unroll
   for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
     const int idx = threadIdx.x + it * kThreads;
     const int r = idx / kChunks, ch = idx % kChunks;
-    const bool ok = row0 + r < rows && (D == padded(D) || ch < D / 8);
+    const bool ok = row0 + r < rows;
     const __nv_bfloat16* g =
         ok ? src + (long long)(row0 + r) * row_stride + ch * 8 : src;
     cp_async16(dst + (ch / 8) * kPanel + swizzle(r, ch % 8), g, ok);
   }
 }
 
-// The forward's D-wide tile.  At D = 64 and 128 it is the D / 64 panels
+// The D-wide tile.  At D = 64 and 128 it is the D / 64 panels
 // of load_tile.  At D = 80 and 96 it is one panel for columns 0-63 and,
 // right after it, a tail panel of [64 rows][D - 64 values] for the rest:
 // 32-byte rows under the 32B swizzle at d 80, 64-byte rows under the 64B
@@ -403,26 +398,22 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "l"(dt), "r"(1));
 }
 
+// O[64 x D] += A[64 x 16] B[16 x D], contraction step kk (16 rows) of a
+// WideTile read MN-major, at any of the four head dims (A in registers):
+// one product at N = D over whole panels at d 64 and 128, the panel and
+// tail products above at 80 and 96.
 template <int D>
 __device__ __forceinline__ void wgmma_rs_wide(float (&d)[D / 2],
                                               const uint32_t (&a)[4],
                                               uint32_t tile, int kk) {
-  if constexpr (D == 80) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(d, a, desc_mn(tile, kk));
+  } else if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, desc_mn(tile, kk));
+  } else if constexpr (D == 80) {
     wgmma_rs_n80(d, a, desc_mn(tile, kk), desc_mn_tail<D>(tile, kk));
   } else {
     wgmma_rs_n96(d, a, desc_mn(tile, kk), desc_mn_tail<D>(tile, kk));
-  }
-}
-
-// O[64 x D] += A[64 x 16] B[16 x D] for D 64 or 128 (A in registers).
-template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
-                                         const uint32_t (&a)[4],
-                                         uint64_t db) {
-  if constexpr (D == 64) {
-    wgmma_rs_n64(d, a, db);
-  } else {
-    wgmma_rs_n128(d, a, db);
   }
 }
 

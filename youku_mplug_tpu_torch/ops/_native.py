@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -43,10 +44,17 @@ _SIGNATURES = {
     + [_F, _I, _I, _I, _P, _I, _P, _P, _P],
     # head_dim, alibi, the int it writes the count to
     "ymt_flash_fwd_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)],
+    # o, dout, delta, B, H, Sq, the strides of o and dout, head_dim, stream
+    "ymt_flash_bwd_delta_bf16": [_P] * 3 + [_I] * 3 + [_LL] * 6 + [_I, _P],
+    # head_dim, alibi, kind (0 dq, 1 dk/dv, 2 short-query dk/dv), the int
+    # it writes the count to
+    "ymt_flash_bwd_blocks_per_sm": [_I, _I, _I, ctypes.POINTER(_I)],
     "ymt_flash_bwd_dq_bf16": [_P] * 7 + [_I] * 5 + [_LL] * 15
     + [_F, _I, _I, _I, _P, _P],
+    # ... scale, period, causal, head_dim, slopes, short-query splits,
+    # stream
     "ymt_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 18
-    + [_F, _I, _I, _I, _P, _P],
+    + [_F, _I, _I, _I, _P, _I, _P],
     # q, k, v (each pointer, batch and head stride), ckv, kv_scales (or
     # null), out, cache_len, valid_from, B, n, M, lidx, scale, head_dim,
     # alibi, stream
@@ -132,3 +140,32 @@ def stream_handle(t: torch.Tensor) -> int:
 def check_launch(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+
+
+def ptxas_report(log: str) -> dict:
+    """Each kernel build's registers and spill bytes from nvcc's
+    ``-Xptxas -v`` report (``build()``'s log), keyed by template instance
+    as ``flash_bwd_dq<96,plain>``, ``flash_bwd_dkv_short<96,plain>``,
+    ``decode_attn<64,alibi,int8>``, ``flash_fwd_merge<80>`` or
+    ``flash_bwd_delta<96>``: {"registers", "spill_stores",
+    "spill_loads"}."""
+    builds, entry, spill = {}, "?", (None, None)
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = re.search(r"(flash_fwd|flash_bwd_dq|flash_bwd_dkv_short|"
+                          r"flash_bwd_dkv|decode_attn)_kernelILi(\d+)ELb"
+                          r"([01])E(?:Lb([01])E)?", line)
+            merge = re.search(r"(flash_fwd_merge|flash_bwd_delta)_kernel"
+                              r"ILi(\d+)E", line)
+            entry = (f"{m[1]}<{m[2]},{'alibi' if m[3] == '1' else 'plain'}"
+                     f"{',int8' if m[4] == '1' else ''}>" if m
+                     else f"{merge[1]}<{merge[2]}>" if merge else "?")
+        elif "spill stores" in line:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            spill = (int(m[1]), int(m[2])) if m else (None, None)
+        elif re.search(r"Used \d+ registers", line):
+            regs = int(re.search(r"Used (\d+) registers", line)[1])
+            builds[entry] = {"registers": regs, "spill_stores": spill[0],
+                             "spill_loads": spill[1]}
+    return builds

@@ -10,16 +10,18 @@ CUDA kernels serve both public wrappers, because the packed
   the decoders' training attention) and ``_fwd_kernel`` (head-major
   ``[B, H, S, D]``, static ``kv_len``, causal; AttentionPool's
   cross-attention);
-- the backward (``csrc/flash_bwd.cu``: a dq kernel and a dk/dv kernel)
-  replaces ``_bwd_dq_kernel[_packed]`` and ``_bwd_dkv_kernel[_packed]``,
-  the FlashAttention-2 recipe with p rebuilt from (q, k, lse).
+- the backward (``csrc/flash_bwd.cu``: a dq kernel and a dk/dv kernel,
+  the latter with a short-query form for AttentionPool's 128 queries at
+  head dim 96) replaces ``_bwd_dq_kernel[_packed]`` and
+  ``_bwd_dkv_kernel[_packed]``, the FlashAttention-2 recipe with p
+  rebuilt from (q, k, lse); a small kernel before them computes delta =
+  rowsum(dO * O), which the JAX package leaves to XLA.
 
 Each kernel is built for head dim 64 and 128, with and without ALiBi, and
 for head dims 80 and 96 without it (the GPT-3 2.7B decoder's 32 heads of
-80 and clip-b16's AttentionPool, 8 heads of 96): the forward on tiles D
-wide (a 128-byte panel and a 16- or 32-column tail panel,
-``csrc/hopper.cuh``), the backward on the d = 128 tiles with their last
-48 or 32 columns zero.
+80 and clip-b16's AttentionPool, 8 heads of 96), the forward and the
+backward alike on tiles D wide (at 80 and 96 a 128-byte panel and a 16-
+or 32-column tail panel, ``csrc/hopper.cuh``).
 Where the (64-row query tile, head, batch) blocks are too few to fill the
 card (AttentionPool's 128 queries over 1570 keys while serving), the
 forward splits each block's key tiles ``kv_splits`` ways into fp32
@@ -42,7 +44,11 @@ falls back.  ``<wrapper>.launches`` counts kernel launches at head dim
 ``<wrapper>.d96_launches`` those at head dim 80 and 96, and
 ``<wrapper>.alibi_launches`` those with ALiBi: ``flash_attention_packed``
 and ``flash_attention`` the forward's, ``flash_bwd_dq_cuda`` and
-``flash_bwd_dkv_cuda`` the backward's.
+``flash_bwd_dkv_cuda`` the backward's; ``flash_bwd_dkv_cuda.
+d96_short_launches`` counts, of its launches at 96, those of the
+short-query dk/dv kernel (``dkv_short_splits``), and
+``flash_bwd_delta_cuda.launches`` those of the backward's delta kernel
+(rowsum(dO * O), one a backward at every head dim).
 """
 
 from __future__ import annotations
@@ -66,6 +72,20 @@ SMS = 132  # the H100's streaming multiprocessors, where no card is asked
 # allows 3 (its 49 KB would allow 4); at d 128, 81 KB, 2.  chip_smoke.py
 # holds these against the card's own count (fwd_blocks_per_sm)
 FWD_BLOCKS_PER_SM = {64: 4, 80: 4, 96: 3, 128: 2}
+# the backward's blocks resident on one multiprocessor, by head dim: (dq,
+# dk/dv, short-query dk/dv; None where that kernel is not built).  At d 80
+# and 96 the dq build is capped at 168 registers so that 3 of its 61 or
+# 73 KB blocks fit, at d 64 at 128 for 4; the dk/dv builds hold 168-255
+# registers a thread, 3 blocks at d 64 and 2 elsewhere.  chip_smoke.py
+# holds these against the card's own count (bwd_blocks_per_sm)
+BWD_BLOCKS_PER_SM = {64: (4, 3, None), 80: (3, 2, None), 96: (3, 2, 2),
+                     128: (2, 2, None)}
+SHORT_HEAD_DIMS = (96,)  # the short-query dk/dv kernel's build
+SHORT_SQ = 2 * TILE  # ... which keeps at most this many queries resident
+# key tiles a short-query dk/dv block walks, at most: its share of a
+# (head, batch)'s key tiles (2-6, 8, 16 and all measured on the H100,
+# PERF.md: 3 and 4 fastest, 3 by 2% at ITM train)
+SHORT_TILES_PER_BLOCK = 3
 MIN_TILES_PER_SPLIT = 4  # a share shorter than this is not worth a merge
 
 
@@ -108,6 +128,38 @@ def fwd_blocks_per_sm(head_dim: int, alibi: bool = False) -> int:
         int(head_dim), int(alibi), ctypes.byref(blocks))
     _native.check_launch(err, "ymt_flash_fwd_blocks_per_sm")
     return blocks.value
+
+
+def dkv_short_splits(b: int, h: int, sq: int, sk: int, *, head_dim: int,
+                     causal: bool = False, period: int = 0,
+                     alibi: bool = False) -> int:
+    """How the dk/dv backward runs: 0 for the key-tile kernel (one block
+    per 64-key tile, the query tiles streaming), n > 0 for the short-query
+    kernel with each (head, batch)'s key tiles split n ways (every query
+    resident, the key tiles streaming; head dim 96 without ALiBi,
+    Sq <= SHORT_SQ, no causal or period mask: AttentionPool's 128
+    queries), each share at most SHORT_TILES_PER_BLOCK key tiles."""
+    if (head_dim not in SHORT_HEAD_DIMS or sq > SHORT_SQ or causal
+            or period > 0 or alibi):
+        return 0
+    tiles = -(-sk // TILE)
+    return -(-tiles // SHORT_TILES_PER_BLOCK)
+
+
+def bwd_blocks_per_sm(head_dim: int, alibi: bool = False) -> tuple:
+    """The backward builds' resident blocks on one multiprocessor of the
+    current card, as ``fwd_blocks_per_sm`` counts them: (dq, dk/dv,
+    short-query dk/dv, None where that kernel is not built); builds the
+    kernels if needed."""
+    lib, counts = _native.library(), []
+    short = head_dim in SHORT_HEAD_DIMS and not alibi
+    for kind in (0, 1, 2) if short else (0, 1):
+        blocks = ctypes.c_int()
+        err = lib.ymt_flash_bwd_blocks_per_sm(int(head_dim), int(alibi),
+                                              kind, ctypes.byref(blocks))
+        _native.check_launch(err, "ymt_flash_bwd_blocks_per_sm")
+        counts.append(blocks.value)
+    return tuple(counts) + (() if short else (None,))
 
 
 def split_scratch_shapes(b: int, h: int, sq: int, d: int, splits: int):
@@ -167,6 +219,12 @@ def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return o, lse
 
 
+def flash_bwd_delta_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Plain version of the delta kernel: rowsum(dO * O) in fp32,
+    [B, H, Sq] contiguous (the JAX package's ``_bwd`` computes it so)."""
+    return (do.float() * o.float()).sum(-1).contiguous()
+
+
 def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float,
                     causal: bool = False, period: int = 0,
                     kv_len: Optional[int] = None, alibi_slopes=None):
@@ -182,7 +240,7 @@ def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float,
                        kv_len=kv_len, device=q.device)
     s = _scores(q, k, scale, alibi_slopes)
     p = torch.where(allowed, torch.exp(s - lse[..., None]), 0.0)
-    delta = (do.float() * o.float()).sum(-1)
+    delta = flash_bwd_delta_plain(o, do)
     dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
     ds = p * (dp - delta[..., None]) * scale
     p_in, ds_in = p.to(dt).float(), ds.to(dt).float()
@@ -317,6 +375,30 @@ def _check_bwd(q, k, v, do, lse, delta, grads, causal):
     _check_shapes(q, k, v, (do, q), *grads, causal=causal)
 
 
+def flash_bwd_delta_cuda(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """Launch the delta kernel on [B,H,Sq,D] views (the backward's
+    preprocessing): returns rowsum(dO * O) in fp32, [B, H, Sq]
+    contiguous."""
+    for name, t in (("o", o), ("do", do)):
+        _check_operand(name, t, o.device)
+    if do.shape != o.shape:
+        raise ValueError(f"flash kernel: do {tuple(do.shape)} != o "
+                         f"{tuple(o.shape)}")
+    b, h, sq, d = o.shape
+    delta = torch.empty(b, h, sq, dtype=torch.float32, device=o.device)
+    if delta.numel() == 0:
+        return delta
+    err = _native.library().ymt_flash_bwd_delta_bf16(
+        o.data_ptr(), do.data_ptr(), delta.data_ptr(), b, h, sq,
+        *_strides(o, do), d, _native.stream_handle(o))
+    _native.check_launch(err, "ymt_flash_bwd_delta_bf16")
+    flash_bwd_delta_cuda.launches += 1
+    return delta
+
+
+flash_bwd_delta_cuda.launches = 0
+
+
 def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, *, scale: float,
                       causal: bool = False, period: int = 0,
                       kv_len: Optional[int] = None,
@@ -347,8 +429,25 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, *, scale: float,
                        kv_len: Optional[int] = None,
                        alibi_slopes: Optional[torch.Tensor] = None) -> None:
     """Launch the dk/dv kernel (one block per 64-key tile, looping over
-    query tiles), writing ``dk`` and ``dv`` [B,H,Sk,D] in place."""
+    query tiles; or, where ``dkv_short_splits`` says so, the short-query
+    kernel: a block per share of a (head, batch)'s key tiles, every query
+    resident), writing ``dk`` and ``dv`` [B,H,Sk,D] in place."""
     _check_bwd(q, k, v, do, lse, delta, ((dk, k), (dv, v)), causal)
+    b, h, sq, d = q.shape
+    _launch_dkv(q, k, v, do, lse, delta, dk, dv, scale=scale, causal=causal,
+                period=period, kv_len=kv_len, alibi_slopes=alibi_slopes,
+                splits=dkv_short_splits(
+                    b, h, sq, k.shape[2], head_dim=d, causal=causal,
+                    period=period, alibi=alibi_slopes is not None))
+
+
+def _launch_dkv(q, k, v, do, lse, delta, dk, dv, *, scale, causal, period,
+                kv_len, alibi_slopes, splits: int) -> None:
+    """The dk/dv launch on checked operands: the key-tile kernel at
+    ``splits`` 0, else the short-query kernel split that many ways (the
+    C entry refuses a call it cannot take).  ``cli/profile_flash.py``
+    passes 0 to time the key-tile kernel where the short-query one
+    runs."""
     slopes = _slopes_ptr(alibi_slopes, q, causal)
     b, h, sq, d = q.shape
     sk = k.shape[2]
@@ -356,16 +455,25 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, *, scale: float,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
         sq, sk, _kv(kv_len, sk), *_strides(q, k, v, do, dk, dv),
-        float(scale), int(period), int(causal), d, slopes,
+        float(scale), int(period), int(causal), d, slopes, int(splits),
         _native.stream_handle(q))
     _native.check_launch(err, "ymt_flash_bwd_dkv_bf16")
     _count(flash_bwd_dkv_cuda, alibi_slopes, d)
+    if splits:
+        flash_bwd_dkv_cuda.d96_short_launches += 1
 
 
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.d80_launches = 0
 flash_bwd_dkv_cuda.d96_launches = 0
 flash_bwd_dkv_cuda.alibi_launches = 0
+# ... and of those at head dim 96, the short-query kernel's
+flash_bwd_dkv_cuda.d96_short_launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _side_stream(index: int) -> "torch.cuda.Stream":
+    return torch.cuda.Stream(device=index)
 
 
 def _head_major_empty(like: torch.Tensor) -> torch.Tensor:
@@ -380,17 +488,27 @@ def flash_bwd_cuda(q, k, v, o, lse, do, *, scale: float,
                    causal: bool = False, period: int = 0,
                    kv_len: Optional[int] = None,
                    alibi_slopes: Optional[torch.Tensor] = None):
-    """The backward on the card: delta = rowsum(dO * O) in fp32 (a torch
-    op, as the JAX package leaves it to XLA), then the dq kernel and the
-    dk/dv kernel.  Returns (dq, dk, dv) in [B, S, H, D] storage."""
+    """The backward on the card: the delta kernel (rowsum(dO * O) in fp32,
+    which the JAX package leaves to XLA), then the dq kernel and, at the
+    same time, the dk/dv kernel on a side stream (it waits for the
+    caller's stream, which then waits for it), so that each fills the
+    other's last partial wave of blocks.  Returns (dq, dk, dv) in
+    [B, S, H, D] storage."""
     if not _strides_ok(do):
         do = do.contiguous()
-    delta = (do.float() * o.float()).sum(-1).contiguous()
+    delta = flash_bwd_delta_cuda(o, do)
     dq, dk, dv = (_head_major_empty(t) for t in (q, k, v))
     kw = dict(scale=scale, causal=causal, period=period, kv_len=kv_len,
               alibi_slopes=alibi_slopes)
+    main = torch.cuda.current_stream(q.device)
+    side = _side_stream(q.device.index)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, **kw)
     flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, **kw)
-    flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, **kw)
+    # every later use of these tensors, or of their memory once freed,
+    # is ordered after the side stream's work by this wait
+    main.wait_stream(side)
     return dq, dk, dv
 
 
