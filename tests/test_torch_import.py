@@ -1,5 +1,7 @@
-"""The port imports without jax, and its kernel wrappers take their plain
-versions only for CPU tensors (never a silent fallback)."""
+"""The port imports without jax (the checkpoint importers and the serving
+export included, which also read safetensors files with the safetensors
+package blocked), and its kernel wrappers take their plain versions only
+for CPU tensors (never a silent fallback)."""
 
 import subprocess
 import sys
@@ -31,7 +33,7 @@ _NO_JAX = textwrap.dedent("""
                  "serving.engine", "serving.speculative", "cli.common",
                  "cli.run_caption", "train.checkpoint", "train.metrics",
                  "evals.metrics", "evals.meteor", "models.importers",
-                 "models.generation"):
+                 "models.generation", "cli.export_serving"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -47,6 +49,37 @@ def test_package_imports_without_jax():
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 22
+
+
+_NO_JAX_IMPORT = textwrap.dedent("""
+    import json, struct, sys, tempfile, os
+    for blocked in ("jax", "flax", "safetensors", "youku_mplug_tpu"):
+        sys.modules[blocked] = None  # any import of these now raises
+    import torch
+    from youku_mplug_tpu_torch.cli import export_serving
+    from youku_mplug_tpu_torch.models import importers
+    data = torch.arange(6, dtype=torch.float32).bfloat16()
+    raw = data.view(torch.int16).numpy().tobytes()
+    header = json.dumps({"__metadata__": {"format": "pt"}, "w": {
+        "dtype": "BF16", "shape": [2, 3],
+        "data_offsets": [0, len(raw)]}}).encode()
+    d = tempfile.mkdtemp()
+    with open(os.path.join(d, "model.safetensors"), "wb") as f:
+        f.write(struct.pack("<Q", len(header)) + header + raw)
+    got = importers.load_hf_torch_state(d)["w"]
+    assert got.dtype == torch.bfloat16 and torch.equal(
+        got, data.reshape(2, 3)), got
+    assert export_serving.parser().parse_args(
+        ["--run_dir", d, "--config", "c", "--dest", d]).device == "cuda"
+    print("ok")
+""")
+
+
+def test_importers_and_export_run_without_jax_or_safetensors():
+    out = subprocess.run([sys.executable, "-c", _NO_JAX_IMPORT],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_wrappers_use_plain_versions_on_cpu_without_launching():

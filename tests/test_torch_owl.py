@@ -398,8 +398,12 @@ def test_run_instruct_cli_runs_on_cpu(tmp_path):
                        .read_text())
     assert saved == results
     assert stats["requests"] == 2 and stats["nonfinite_logits"] == 0
-    for flag in (["--hf_checkpoint", "x"], ["--serving_ckpt", "x"]):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    # the checkpoint flags are ported (tests/test_torch_owl_import.py,
+    # tests/test_torch_export.py): a directory without one raises
+    for flag, err in ((["--hf_checkpoint", str(tmp_path)],
+                       FileNotFoundError),
+                      (["--serving_ckpt", str(tmp_path)], SystemExit)):
+        with pytest.raises(err, match="no (HF|serving) checkpoint"):
             tcli.build(tcli.parser().parse_args(
                 ["--config", str(path), "--synthetic_data", "--device",
                  "cpu"] + flag))
@@ -728,4 +732,5 @@ def test_run_instruct_train_cli_on_cpu(tmp_path, capsys):
            .splitlines()]
     assert len(log) == 1 and np.isfinite(log[0]["loss"])
     printed = capsys.readouterr().out
-    assert "saves no weights" in printed and "step 2:" in printed
+    assert "step 2:" in printed
+    assert sorted(p.name for p in (out / "checkpoints").iterdir()) == ["2"]

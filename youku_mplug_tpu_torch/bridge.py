@@ -3,7 +3,8 @@ seeded init (``seeded_init`` for serving and the parity tests,
 ``jax_init`` with the JAX ``model.init`` rules for the training CLIs).
 
 ``load_jax_params`` turns the JAX package's parameter tree (nested dicts
-of numpy arrays, e.g. ``jax.device_get(params)``) into the port's modules.
+of numpy arrays, e.g. ``jax.device_get(params)``, or of tensors, as the
+port's checkpoints hold it) into the port's modules.
 The port keeps the JAX names and shapes, so the mapping is a rename:
 ``a/b/c`` -> ``a.b.c``, and flax's ``blocks_<i>`` / ``layers_<i>`` ->
 ``blocks.<i>`` / ``layers.<i>`` (a scanned stack, ``decoder/layers``,
@@ -15,8 +16,9 @@ takes trainable leaves as fp32 master weights and frozen ones in bf16;
 ``requires_grad`` is the split's and is left as it is.
 ``jax_path`` is the inverse rename and ``to_jax_tree`` the inverse load
 (port parameters -> a JAX-named tree of numpy arrays).  An int8 tree
-comes with its ``qscales`` (the layout ``tools/export_serving.py --int8``
-writes, rooted where the tree is): each leaf with a scale loads as an int8
+comes with its ``qscales`` (the layout ``cli/export_serving.py --int8``
+writes, as JAX's ``tools/export_serving.py`` does, rooted where the tree
+is): each leaf with a scale loads as an int8
 parameter with its scale buffer (``ops/quant.py``).
 
 ``seeded_init`` fills every parameter from one ``torch.Generator``: normals
@@ -43,15 +45,28 @@ from torch import nn
 from youku_mplug_tpu_torch.ops import quant
 
 
-def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    """A nested dict -> {"a/b/c": leaf}."""
     flat = {}
     for key, value in tree.items():
         path = f"{prefix}/{key}" if prefix else str(key)
         if isinstance(value, dict):
-            flat.update(_flatten(value, path))
+            flat.update(flatten(value, path))
         else:
             flat[path] = value
     return flat
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """``flatten``'s inverse: {"a/b/c": leaf} -> a nested dict."""
+    tree: Dict[str, Any] = {}
+    for path, leaf in flat.items():
+        *parents, key = path.split("/")
+        node = tree
+        for k in parents:
+            node = node.setdefault(k, {})
+        node[key] = leaf
+    return tree
 
 
 def port_name(jax_path: str) -> str:
@@ -70,17 +85,13 @@ def jax_path(port_param_name: str) -> str:
 def to_jax_tree(module: nn.Module) -> Dict[str, Any]:
     """The module's parameters as a nested dict of fp32 numpy arrays under
     the JAX names."""
-    tree: Dict[str, Any] = {}
-    for name, p in module.named_parameters():
-        *parents, leaf = jax_path(name).split("/")
-        node = tree
-        for key in parents:
-            node = node.setdefault(key, {})
-        node[leaf] = p.detach().float().cpu().numpy()
-    return tree
+    return unflatten({jax_path(name): p.detach().float().cpu().numpy()
+                      for name, p in module.named_parameters()})
 
 
 def _to_tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):  # a port checkpoint's leaf
+        return x
     a = np.asarray(x)
     if a.dtype.name == "bfloat16":  # ml_dtypes arrays from jax
         a = a.astype(np.float32)
@@ -91,11 +102,11 @@ def _int8_leaves(module: nn.Module, params, flat, qscales) -> None:
     """Turn each parameter that ``qscales`` names into an int8 parameter
     with its scale buffer (values filled by the caller's copy)."""
     for name, (path, s) in ((port_name(k), (k, v))
-                            for k, v in _flatten(qscales).items()):
+                            for k, v in flatten(qscales).items()):
         p = params.get(name)
         if p is None:
             raise KeyError(f"qscales leaf with no port parameter: {path}")
-        if name not in flat or np.asarray(flat[name][1]).dtype != np.int8:
+        if name not in flat or _to_tensor(flat[name][1]).dtype != torch.int8:
             raise TypeError(f"{path}: a scale for a leaf that is not int8")
         leaf = name.rsplit(".", 1)[-1]
         axes = quant.reduce_axes(leaf, p.dim(), include_embedding=True)
@@ -122,7 +133,7 @@ def load_jax_params(module: nn.Module, tree: Dict[str, Any],
     int8 parameters with their scales; an int8 leaf without a scale
     raises.  Returns ``module``."""
     params = dict(module.named_parameters())
-    flat = {port_name(k): (k, v) for k, v in _flatten(tree).items()}
+    flat = {port_name(k): (k, v) for k, v in flatten(tree).items()}
     if qscales:
         _int8_leaves(module, params, flat, qscales)
     unused = sorted(k for name, (k, _) in flat.items() if name not in params)

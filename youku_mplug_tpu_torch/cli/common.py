@@ -3,7 +3,10 @@ loop with its non-finite watchdog, checkpoints and the log.
 
 Counterpart of ``youku_mplug_tpu/cli/common.py`` on one process and one
 device.  ``setup`` builds the model on the device with the JAX
-``model.init`` rules (``bridge.jax_init``), splits the trainable and
+``model.init`` rules (``bridge.jax_init``), imports the checkpoints the
+config's ``import_torch_weights`` names (``models/importers.import_all``;
+before the split, so a frozen leaf is rounded once, from the file's dtype
+to bf16), splits the trainable and
 frozen leaves (frozen ones in bf16 unless ``--fp32``), makes AdamW with a
 schedule over ``min(len(loader), --max_steps)`` updates per epoch, and
 resumes: from ``--resume <dir>`` when given, else from the run's own
@@ -33,10 +36,7 @@ import torch
 from youku_mplug_tpu_torch.bridge import jax_init
 from youku_mplug_tpu_torch.config import RunConfig, dump_config
 from youku_mplug_tpu_torch.data.loader import Loader
-from youku_mplug_tpu_torch.models.importers import (
-    resize_pos_embed,
-    resize_temporal_embed,
-)
+from youku_mplug_tpu_torch.models import importers
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
 from youku_mplug_tpu_torch.models.tokenizer import (
     BatchTokenizer,
@@ -86,8 +86,7 @@ def base_parser(description: str) -> argparse.ArgumentParser:
 @dataclasses.dataclass
 class Runner:
     """What the epoch loop needs; ``run_instruct`` fills it with the Owl
-    model, its training config and the instruct tokenizer, and no
-    checkpoints."""
+    model, its training config and the instruct tokenizer."""
     args: Any
     cfg: Any  # RunConfig here; config.InstructTrainConfig for instruct
     device: torch.device
@@ -130,6 +129,8 @@ def setup(args, cfg: RunConfig, loader: Loader,
     with device:
         model = MPLUGVideo(cfg.model, policy, proj_heads=proj_heads)
     jax_init(model, args.seed)  # the JAX runner's model.init rules
+    if cfg.get("import_torch_weights"):
+        importers.import_all(model, cfg, cfg.get("import_torch_weights"))
     state, _, schedule = create_train_state(
         model, cfg.optimizer,
         frozen_dtype=None if args.fp32 else policy.compute_dtype)
@@ -188,9 +189,9 @@ def _resize_params(raw: Dict[str, torch.Tensor],
             leaf = path.rsplit("/", 1)[-1]
             a = v.float().numpy()
             if leaf == "pos_embed":
-                a = resize_pos_embed(a, shape[1] - 1)
+                a = importers.resize_pos_embed(a, shape[1] - 1)
             elif leaf == "temporal_embed":
-                a = resize_temporal_embed(a, shape[1])
+                a = importers.resize_temporal_embed(a, shape[1])
             else:
                 raise ValueError(f"checkpoint/model shape mismatch at "
                                  f"{path}: {tuple(v.shape)} vs {shape}")

@@ -16,26 +16,34 @@ Decoding is greedy, or sampled with the YAML's ``do_sample``, ``top_k``
 ``--lookup_k k`` adds greedy prompt-lookup speculation (k proposals a
 slot, one verify chunk a dispatch).
 ``--int8`` serves int8 decoder weights: the kernels and the tied embedding
-quantized in place after the seeded init, the form the JAX package's
-``tools/export_serving.py --int8 --int8_embedding`` writes (serving
-checkpoints themselves are not ported).  Serving always runs through the
-engine: the batched ``generate`` is not ported, so ``--engine`` is
-accepted for the JAX runner's command lines and changes nothing.
+quantized in place after the init (a port option with no JAX counterpart;
+it gives the form ``cli/export_serving.py --int8 --int8_embedding``
+writes).  Serving always runs through the engine: the batched
+``generate`` is not ported, so ``--engine`` is accepted for the JAX
+runner's command lines and changes nothing.
 
 Training (``--train``, the mPLUG-Owl finetune recipe): synthetic clips
 with their captions as answers to a fixed question, the response-masked
 LM loss, a frozen ViT and a frozen bf16 Bloom whose LoRA adapters train
 in fp32 beside the abstractor, ``visual_fc`` and ``vit_eos``, AdamW; one
 JSON line per step (``--log_freq``) and one ``log.txt`` line per epoch,
-through ``cli/common.py``'s epoch loop.  No weights are saved.
+through ``cli/common.py``'s epoch loop, which saves a checkpoint each
+``--save_ckpt_freq`` epochs under ``<output_dir>/checkpoints`` and resumes
+from ``--resume <run dir>`` or the run's own checkpoints, as the JAX
+runner does.
 
-Weights come from a seeded init (serving) or the JAX ``model.init``
-rules (``--train``: ``bridge.jax_init``); checkpoint import
-(``--hf_checkpoint``, ``--serving_ckpt``), real video files, jsonl
-training data and beam search are not ported yet (ROADMAP.md, Queue 1),
-and each raises; HF tokenizer files (the JAX runner's ``--tokenizer``) are
-not ported either. Results carry token ids (the synthetic runs' hash
-tokenizer has no text).
+Weights, as the JAX runner has them: a seeded init (serving) or the JAX
+``model.init`` rules (``--train``: ``bridge.jax_init``); then with
+``--hf_checkpoint <dir>`` an HF mPLUG-Owl checkpoint imported over them
+(``models/importers.import_owl``: ``pytorch_model*.bin`` or
+``*.safetensors``, fail-loud).  ``--serving_ckpt <dir>`` serves the
+export of a trained run (``cli/export_serving.py --owl``) in their place:
+the LoRA ranks are 0 (the adapters are merged), and the decoder is int8
+exactly when the export's ``qscales`` say so (``--int8`` beside it
+raises).  Real video files, jsonl training data and beam search are not
+ported yet (ROADMAP.md, Queue 1), and each raises; HF tokenizer files
+(the JAX runner's ``--tokenizer``) are not ported either.  Results carry
+token ids (the synthetic runs' hash tokenizer has no text).
 
 Usage (the card is the default device; ``--device cpu`` runs a tiny
 config on the CPU):
@@ -53,7 +61,15 @@ config on the CPU):
         --synthetic_data --engine --lookup_k 4
     python -m youku_mplug_tpu_torch.cli.run_instruct --train \\
         --config configs/instruct/train_bloomz_7b_flagship.yaml \\
-        --synthetic_data --max_steps 8 --output_dir out
+        --synthetic_data --max_steps 8 --output_dir out \\
+        [--hf_checkpoint <HF mPLUG-Owl dir>]
+    python -m youku_mplug_tpu_torch.cli.export_serving --owl --int8 \\
+        --int8_embedding --run_dir out \\
+        --config configs/instruct/train_bloomz_7b_flagship.yaml \\
+        --dest out/serving
+    python -m youku_mplug_tpu_torch.cli.run_instruct \\
+        --config configs/instruct/serve_bloomz_7b_int8.yaml \\
+        --synthetic_data --engine --serving_ckpt out/serving
 """
 
 from __future__ import annotations
@@ -68,7 +84,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from youku_mplug_tpu_torch.bridge import jax_init, seeded_init
+from youku_mplug_tpu_torch.bridge import jax_init, load_jax_params, seeded_init
 from youku_mplug_tpu_torch.cli import common
 from youku_mplug_tpu_torch.config import (
     InstructTrainConfig,
@@ -84,6 +100,7 @@ from youku_mplug_tpu_torch.data.instruct import (
     format_prompt,
 )
 from youku_mplug_tpu_torch.data.loader import Loader
+from youku_mplug_tpu_torch.models import importers
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.owl import MPLUGOwlVideo
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
@@ -94,17 +111,12 @@ from youku_mplug_tpu_torch.runtime.precision import (
     DEFAULT_POLICY,
 )
 from youku_mplug_tpu_torch.serving.engine import ServingEngine
+from youku_mplug_tpu_torch.train.checkpoint import CheckpointManager
 from youku_mplug_tpu_torch.train.state import create_train_state
 from youku_mplug_tpu_torch.train.trainer import make_train_step
 
 # the question each synthetic caption answers (the JAX runner's)
 SYNTHETIC_QUESTION = "What is shown in the video ?"
-
-_NOT_PORTED = {
-    "hf_checkpoint": "HF checkpoint import (--hf_checkpoint) is not ported "
-                     "yet",
-    "serving_ckpt": "serving checkpoints (--serving_ckpt) are not ported yet",
-}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -135,44 +147,73 @@ def parser() -> argparse.ArgumentParser:
                    help="cuda[:i] (default), or cpu")
     p.add_argument("--int8", action="store_true",
                    help="int8 decoder kernels and tied embedding, quantized "
-                        "in place after the seeded init (what the JAX "
-                        "package's export_serving --int8 --int8_embedding "
-                        "writes)")
-    p.add_argument("--hf_checkpoint", default="", help="not ported")
-    p.add_argument("--serving_ckpt", default="", help="not ported")
+                        "in place after the init (the form export_serving "
+                        "--int8 --int8_embedding writes)")
+    p.add_argument("--hf_checkpoint", default="",
+                   help="HF mPLUG-Owl checkpoint directory to import")
+    p.add_argument("--serving_ckpt", default="",
+                   help="serving checkpoint directory from "
+                        "cli/export_serving.py --owl (LoRA merged, int8 "
+                        "where exported so), used instead of init / HF")
     # ---- instruction finetuning -------------------------------------
     p.add_argument("--train", action="store_true",
                    help="instruction-finetune instead of serving: "
                         "response-masked LM loss, frozen ViT and Bloom "
                         "(+LoRA when text_overrides.lora_rank > 0), "
                         "trainable abstractor / visual_fc / vit_eos")
+    p.add_argument("--resume", default="",
+                   help="--train: run (or checkpoints) directory to resume "
+                        "from")
     p.add_argument("--max_steps", type=int, default=-1,
                    help="cap steps per epoch (smoke runs)")
+    p.add_argument("--save_ckpt_freq", type=int, default=1)
+    p.add_argument("--auto_resume_iter", action="store_true", default=True,
+                   help="roll back after 3 non-finite steps in a row")
     p.add_argument("--log_freq", type=int, default=1,
                    help="print every log_freq-th step's metrics")
     return p
 
 
-def _device(args) -> torch.device:
-    """The requested device; raises for what is not ported and when the
-    device is absent: nothing falls back to the CPU."""
-    for flag, msg in _NOT_PORTED.items():
-        if getattr(args, flag, ""):
-            raise NotImplementedError(f"{msg} (ROADMAP.md, Queue 1)")
-    return common.device_of(args)
+def load_serving_ckpt(directory: str):
+    """The latest step of a ``cli/export_serving.py`` checkpoint ->
+    (params tree, qscales tree or None, step), on the CPU."""
+    sc = CheckpointManager(directory)
+    step = sc.latest_step()
+    if step is None:
+        raise SystemExit(f"no serving checkpoint under {directory}")
+    raw = sc.restore_raw(step, map_location="cpu")
+    return raw["params"], raw.get("qscales"), step
 
 
 def build(args):
     """-> (model config, raw YAML dict, model on the device, device) for
-    serving."""
-    device = _device(args)
+    serving, its weights as the module docstring says.  Raises when the
+    device is absent: nothing falls back to the CPU."""
+    device = common.device_of(args)
+    if args.int8 and args.serving_ckpt:
+        raise ValueError("--int8 quantizes an initialized decoder; a "
+                         "--serving_ckpt is int8 exactly where "
+                         "export_serving --int8 made it so")
     cfg, raw = load_owl_config(args.config)
     if int(raw.get("beam_size", 1)) > 1:
         raise ValueError("the engine serves beam_size=1 (beam search is not "
                          "ported yet)")
-    with device:  # built and seeded on the device: no host copy of 7B
+    if args.serving_ckpt:  # the export merged the adapters
+        cfg = dataclasses.replace(
+            cfg, text=dataclasses.replace(cfg.text, lora_rank=0),
+            vision=dataclasses.replace(cfg.vision, lora_rank=0))
+    with device:  # built on the device: no host copy of 7B
         model = MPLUGOwlVideo(cfg, BF16_POLICY)
-    seeded_init(model, args.seed)
+    if args.serving_ckpt:
+        params, qscales, step = load_serving_ckpt(args.serving_ckpt)
+        load_jax_params(model, params, qscales)
+        del params
+        print(f"loaded serving checkpoint step {step} "
+              f"(int8={qscales is not None})", flush=True)
+    else:
+        seeded_init(model, args.seed)
+        if args.hf_checkpoint:
+            importers.import_owl(model, cfg, args.hf_checkpoint)
     if args.int8:
         quant.quantize_decoder_(model.text_decoder, include_embedding=True)
     return cfg, raw, model.eval(), device
@@ -337,11 +378,12 @@ def build_train_loader(args, tcfg: InstructTrainConfig, res: int) -> Loader:
 
 
 def train_setup(args) -> common.Runner:
-    """Config, loader, the model on the device (``jax_init``), the
-    trainable/frozen split (frozen leaves in bf16; LoRA adapters stay fp32
-    and train) and AdamW, whose schedule spans ``min(len(loader),
-    max_steps)`` updates per epoch."""
-    device = _device(args)
+    """Config, loader, the model on the device (``jax_init``, then
+    ``--hf_checkpoint`` imported over it), the trainable/frozen split
+    (frozen leaves in bf16; LoRA adapters stay fp32 and train), AdamW,
+    whose schedule spans ``min(len(loader), max_steps)`` updates per
+    epoch, the checkpoints and the resume (``common.resume_state``)."""
+    device = common.device_of(args)
     cfg, raw = load_owl_config(args.config)
     tcfg = instruct_train_config(raw)
     loader = build_train_loader(args, tcfg, cfg.vision.img_size)
@@ -352,16 +394,21 @@ def train_setup(args) -> common.Runner:
     with device:  # built and seeded on the device
         model = MPLUGOwlVideo(cfg, DEFAULT_POLICY)
     jax_init(model, args.seed)  # the JAX runner's model.init rules
+    if args.hf_checkpoint:  # before the split casts the frozen leaves
+        importers.import_owl(model, cfg, args.hf_checkpoint)
     state, _, schedule = create_train_state(
         model, tcfg.optimizer, frozen_dtype=DEFAULT_POLICY.compute_dtype)
     os.makedirs(args.output_dir, exist_ok=True)
-    print("checkpoints, resume and TensorBoard are not ported yet: this "
-          "run saves no weights", flush=True)
+    ckpt = CheckpointManager(
+        os.path.join(args.output_dir, "checkpoints"),
+        async_save=bool(raw.get("async_checkpointing", False)))
+    state, start_epoch = common.resume_state(args, ckpt, state)
     tok = WhitespaceTokenizer(cfg.text.vocab_size, eos_id=cfg.text.eos_id,
                               pad_id=cfg.text.pad_id)
-    return common.Runner(args=args, cfg=tcfg, device=device,
-                               model=model.train(), tokenizer=tok,
-                               state=state, schedule=schedule, loader=loader)
+    return common.Runner(
+        args=args, cfg=tcfg, device=device, model=model.train(),
+        tokenizer=tok, state=state, schedule=schedule, loader=loader,
+        ckpt=ckpt, start_epoch=start_epoch)
 
 
 def make_instruct_batch(runner: common.Runner, raw):

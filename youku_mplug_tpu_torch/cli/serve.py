@@ -8,10 +8,16 @@ graph).  ``--speculative k`` serves lock-step batches through
 ``serving/speculative.py`` instead: a ``--draft twin`` (the decoder's
 first ``--draft_layers`` layers, views of its weights) or ``--draft
 ngram`` (prompt lookup) proposes k tokens a round, greedy and exact.
-Weights come from a seeded init (checkpoint loading, real video files and
-text decoding are not ported yet, so results carry token ids).  A YAML
-with ``text_overrides: {kv_cache_dtype: int8}`` serves over the int8 KV
-cache (``ops/kv_cache.py``).
+Weights, as the JAX CLI has them: a seeded init, then the checkpoints the
+YAML's ``import_torch_weights`` names (a ModelScope GPT-3 directory and a
+timm / TimeSformer file, ``models/importers.import_all``), then with
+``--resume <train run dir>`` (or ``--evaluate_only``) the run's latest
+training checkpoint (``cli/common.resume_state``; the model then keeps
+the training split, fp32 trainable and bf16 frozen leaves, so it holds
+the checkpoint's values bitwise).  Real video files and text decoding are
+not ported yet, so results carry token ids.  A YAML with
+``text_overrides: {kv_cache_dtype: int8}`` serves over the int8 KV cache
+(``ops/kv_cache.py``).
 
 Usage (synthetic smoke, GPU):
     python -m youku_mplug_tpu_torch.cli.serve \
@@ -23,6 +29,9 @@ Usage (synthetic smoke, GPU):
     python -m youku_mplug_tpu_torch.cli.serve \
         --config configs/caption/serve_gpt3_1.3B_flagship.yaml \
         --synthetic_data --speculative 4 --draft twin
+    python -m youku_mplug_tpu_torch.cli.serve \
+        --config configs/caption/serve_gpt3_1.3B_flagship.yaml \
+        --synthetic_data --resume <a run_caption output_dir>
 """
 
 from __future__ import annotations
@@ -39,17 +48,23 @@ from youku_mplug_tpu_torch.bridge import seeded_init
 from youku_mplug_tpu_torch.cli import common
 from youku_mplug_tpu_torch.config import load_config
 from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
+from youku_mplug_tpu_torch.models import importers
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
 from youku_mplug_tpu_torch.models.tokenizer import load_tokenizer
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
-from youku_mplug_tpu_torch.runtime.precision import BF16_POLICY
+from youku_mplug_tpu_torch.runtime.precision import (
+    BF16_POLICY,
+    DEFAULT_POLICY,
+)
 from youku_mplug_tpu_torch.serving.engine import ServingEngine
 from youku_mplug_tpu_torch.serving.speculative import (
     ngram_speculative_generate,
     speculative_generate,
     twin_draft,
 )
+from youku_mplug_tpu_torch.train.checkpoint import CheckpointManager
+from youku_mplug_tpu_torch.train.state import create_train_state
 
 
 def serve_parser():
@@ -59,6 +74,12 @@ def serve_parser():
     p.add_argument("--output_dir", default="./output")
     p.add_argument("--seed", type=int, default=42,
                    help="seed of the weight init")
+    p.add_argument("--resume", default="",
+                   help="train run (or checkpoints) directory whose latest "
+                        "checkpoint to serve")
+    p.add_argument("--evaluate_only", action="store_true",
+                   help="serve the latest checkpoint of --resume, else of "
+                        "--output_dir; raises when there is none")
     p.add_argument("--synthetic_data", action="store_true",
                    help="procedural videos (the only source ported so far)")
     p.add_argument("--device", default="cuda",
@@ -101,15 +122,25 @@ def _clip_batches(cfg, num_frames: int, size: int):
 
 
 def build(args):
-    """-> (run config, model on the device, device).  Raises when the
-    requested device is absent: nothing falls back to the CPU."""
+    """-> (run config, model on the device, device), its weights as the
+    module docstring says.  Raises when the requested device is absent:
+    nothing falls back to the CPU."""
     if not args.synthetic_data:
         raise NotImplementedError("only --synthetic_data is ported yet")
     device = common.device_of(args)
     cfg = load_config(args.config)
+    resume = bool(args.resume or args.evaluate_only)
+    policy = DEFAULT_POLICY if resume else BF16_POLICY
     with device:
-        model = MPLUGVideo(cfg.model, BF16_POLICY)
+        model = MPLUGVideo(cfg.model, policy)
     seeded_init(model, args.seed)
+    if cfg.get("import_torch_weights"):
+        importers.import_all(model, cfg, cfg.get("import_torch_weights"))
+    if resume:
+        state, _, _ = create_train_state(
+            model, cfg.optimizer, frozen_dtype=policy.compute_dtype)
+        common.resume_state(args, CheckpointManager(
+            os.path.join(args.output_dir, "checkpoints")), state)
     return cfg, model.eval(), device
 
 

@@ -9,7 +9,8 @@ loader sets it), ``update_freq``, ``epochs``, ``prompt``, ``batch_size``,
 ``max_length``, ``image_res``, and via ``RunConfig.get`` as the JAX
 loader leaves them in its raw dict ``synthetic_length``,
 ``text_decoder``, ``max_new_tokens``, ``beam_size``,
-``async_checkpointing``, ``classname_file`` and ``eval_video_batch``;
+``async_checkpointing``, ``classname_file``, ``eval_video_batch`` and
+``import_torch_weights`` (``models/importers.import_all``);
 ``dump_config`` writes the merged YAML
 into a run's output directory; and ``load_owl_config`` /
 ``instruct_train_config``, the mPLUG-Owl instruct YAML of
@@ -81,16 +82,11 @@ def load_config(yaml_path: str,
     raw.update(overrides or {})
     if raw.get("connect_ln"):
         raise NotImplementedError("connect_ln (visual_norm) is not ported yet")
-    # keys that make the JAX loader build or load another model: a
-    # top-level lora_rank (with its lora_alpha) grows GPT-3 adapters, and
-    # import_torch_weights loads external checkpoints; lora_alpha with no
-    # rank builds no adapter there either
+    # a top-level lora_rank (with its lora_alpha) makes the JAX loader grow
+    # GPT-3 adapters; lora_alpha with no rank builds no adapter there either
     if raw.get("lora_rank"):
         raise NotImplementedError("a top-level lora_rank / lora_alpha (GPT-3 "
                                   "LoRA adapters) is not ported yet")
-    if raw.get("import_torch_weights"):
-        raise NotImplementedError("import_torch_weights (external checkpoint "
-                                  "import) is not ported yet")
     root = os.path.dirname(os.path.dirname(os.path.abspath(yaml_path)))
 
     def resolve(p):

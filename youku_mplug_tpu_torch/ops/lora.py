@@ -8,15 +8,22 @@ Counterpart of ``youku_mplug_tpu/ops/lora.py``.  An adapted projection
 parameter tree into its base kernel (``W' = W + (alpha/r) a @ b``
 reshaped to the kernel's layout, the scanned ``[L]`` leading dim
 included) and drops the adapters, so serving runs the plain rank-0
-model.  The adapter-file helpers (``extract_adapters`` /
-``inject_adapters``) wait with checkpoints.
+model.  ``extract_adapters`` / ``inject_adapters`` move a module's
+adapters to and from a flat dict keyed by JAX's ``keystr`` of each
+leaf's path (``"['text_decoder']['decoder']['layers']['attn']
+['lora_qkv_a']"``), so an adapter file ``np.savez(path,
+**extract_adapters(model))`` of a few MB loads in either package.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
+from torch import nn
+
+from youku_mplug_tpu_torch.bridge import jax_path
 
 # adapter name -> base kernel parameter name
 _TARGET_KERNEL = {
@@ -75,3 +82,37 @@ def merge_lora(params: Any, lora_rank: int, lora_alpha: float = 16.0):
     if lora_rank <= 0:
         return params
     return _merge_module(dict(params), float(lora_alpha) / float(lora_rank))
+
+
+def _keystr(name: str) -> str:
+    """The port parameter name -> JAX's ``keystr`` of its tree path."""
+    return "".join(f"[{k!r}]" for k in jax_path(name).split("/"))
+
+
+def extract_adapters(module: nn.Module) -> Dict[str, np.ndarray]:
+    """Every ``lora_*`` parameter of ``module`` as fp32 numpy, keyed by
+    JAX's ``keystr`` of its path."""
+    return {_keystr(name): p.detach().float().cpu().numpy()
+            for name, p in module.named_parameters() if "lora_" in name}
+
+
+@torch.no_grad()
+def inject_adapters(module: nn.Module, adapters: Dict[str, Any]
+                    ) -> nn.Module:
+    """``extract_adapters``'s inverse: copy each adapter into the
+    parameter at its path (cast to its dtype, on its device).  Raises
+    ValueError on a path the module lacks or a shape mismatch, before
+    copying anything.  Returns ``module``."""
+    params = {_keystr(name): p for name, p in module.named_parameters()}
+    missing = sorted(set(adapters) - set(params))
+    if missing:
+        raise ValueError(f"adapter paths not in the param tree: "
+                         f"{missing[:5]}")
+    values = {k: torch.as_tensor(np.asarray(v)) for k, v in adapters.items()}
+    for k, v in values.items():
+        if tuple(v.shape) != tuple(params[k].shape):
+            raise ValueError(f"adapter {k}: shape {tuple(v.shape)} != "
+                             f"param {tuple(params[k].shape)}")
+    for k, v in values.items():
+        params[k].copy_(v)
+    return module

@@ -16,6 +16,10 @@ as ``metadata.json``.  ``state.pt`` is a dict of tensors and ints that
 - ``count`` (the optimizer's update count, the schedule's index) and
   ``step`` (train steps taken, skipped ones included).
 
+``save`` also takes a plain dict of tensors in place of a state: the
+serving export (``cli/export_serving.py``) writes ``{"params",
+"qscales"}`` so, and ``restore_raw`` reads it back.
+
 A save writes a hidden temporary directory and then renames it into
 place, so a save that is killed part-way leaves no step that
 ``latest_step`` lists.  As orbax does, a save at a step no later than the
@@ -66,16 +70,17 @@ class CheckpointManager:
 
     def save(self, step: int, state, metadata: Optional[dict] = None
              ) -> bool:
-        """Write ``state`` (a ``TrainState``) as step ``step``.  Returns
-        False, writing nothing, when ``step`` is not later than the latest
-        step saved."""
+        """Write ``state`` (a ``TrainState``, or a dict saved as it is) as
+        step ``step``.  Returns False, writing nothing, when ``step`` is
+        not later than the latest step saved."""
         latest = self.latest_step()
         if latest is not None and int(step) <= latest:
             return False
         tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)  # and the directory itself on the first save
-        torch.save(state_dict(state), os.path.join(tmp, STATE_FILE))
+        torch.save(state if isinstance(state, dict) else state_dict(state),
+                   os.path.join(tmp, STATE_FILE))
         if metadata is not None:
             with open(os.path.join(tmp, METADATA_FILE), "w") as f:
                 json.dump(metadata, f)
