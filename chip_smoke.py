@@ -228,7 +228,39 @@ the last line is printed):
    leaves and their scales equal quantize_gpt3_decoder of the training
    checkpoint's LoRA-merged decoder bitwise; K1 and K5 int8 ALiBi (with
    K6) launches exact; phase 8's teacher-forced gate against the plain
-   versions.
+   versions;
+20. files_written (run after phase 2): FILE_CLIPS clips of 10 s at 25
+   fps, 640x360, written by cv2 (mp4v in .mp4, else MJPG in .avi; the
+   container, codec and backend printed) under a temporary directory on
+   as many threads as cores, each frame's index encoded in the grey
+   levels of two bands; an annotation file per format (pretrain CSV,
+   caption jsonl, three-column cls CSVs, retrieval jsonl, instruct
+   jsonl); every clip's ``read_frames(8, middle)`` frames are the
+   sampler's indices and within FILE_MAE_TOL of the frames written;
+   write s, decode ms a clip on one thread;
+21. serve_files (run after phase 4c, on phase 3's model): the serve CLI's
+   run on serve_gpt3_1.3B_flagship.yaml with test_file and video_root
+   naming the clips: the threaded loader's batches bitwise equal to a
+   one-thread pass and each sample the index asked for; 16 requests, K5
+   and K6 launches a decode step exact, every result a caption; phase
+   4's teacher-forced gate on the first 8 decoded clips; the loader's
+   clips/s at 1 thread, the YAML's 4 and one a core;
+22. pretrain_files (run after phase 6, on phase 5's runner):
+   run_pretrain.build_loader on the pretrain CSV (batch 16, the train
+   transform), FILES_TRAIN_STEPS steps with the YAML's 4 decode workers
+   as threads, then as many as forked processes: finite, launches per
+   step equal to phase 5's; step ms beside phase 5's, ms waited on the
+   loader, clips/s;
+23. cls_files (run after phase 13): run_cls on
+   cls_gpt3_1.3B_youku_v0_sharp_2.yaml with its files the three-column
+   CSVs, phase 13's cuts: 2 train steps and the evaluation of a test
+   batch (8 calls): every title and label the loaders yield the file's
+   (no -1), launches per step and call as phase 13's cls;
+24. instruct_files (run last): run_instruct --engine --input_jsonl over
+   FILES_OWL_ROWS rows of the clips and 2 --train --train_jsonl LoRA
+   steps, Bloom cut to OWL_CUT: K1, K5-ALiBi (with K6) and the ALiBi
+   backward's launches exact, phase 8's teacher-forced gate on the
+   decoded clips.
 """
 
 from __future__ import annotations
@@ -355,6 +387,18 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# the video files of phases 20-24: FILE_CLIPS clips of FILE_SECONDS s at
+# FILE_FPS frames a second, FILE_SIZE (w, h), a common web rendition,
+# written by cv2 as mp4v (Motion-JPEG .avi where the build cannot read
+# that back); a frame's bands encode its index in two base-16 digits 16
+# grey levels apart (mp4v moves them by at most ~4); a decoded frame's
+# mean absolute error against the written one (2.5 on the textured frames
+# with cv2 5.0's encoder) within FILE_MAE_TOL
+FILE_CLIPS, FILE_SECONDS, FILE_FPS, FILE_SIZE = 64, 10, 25, (640, 360)
+FILE_MAE_TOL = 6.0
+FILE_BAND_ROWS = 24
+FILES_TRAIN_STEPS = 8   # pretrain_files: the CSV's 128 rows at batch 16
+FILES_OWL_ROWS, FILES_OWL_TRAIN_STEPS = 8, 2
 
 
 def fail(msg: str):
@@ -683,8 +727,10 @@ D96_SHAPES = [
     (4, 256, 1570, 8, False, 0, 1500, "heads", 96, False, "key-tile dk/dv",
      False)]
 D96_PATHS = ("cls_train", "cls_eval", "itm_train", "itm_eval",
-             "caption27_train", "caption27_eval", "cls27_train", "cls27_eval")
-D96_TRAIN_PATHS = ("cls_train", "itm_train", "caption27_train", "cls27_train")
+             "caption27_train", "caption27_eval", "cls27_train", "cls27_eval",
+             "cls_files_train", "cls_files_eval")
+D96_TRAIN_PATHS = ("cls_train", "itm_train", "caption27_train", "cls27_train",
+                   "cls_files_train")
 # the paths of the checkpoint phases (15-19): caption serving with the
 # imported and the resumed weights; Owl serving from the HF import, its
 # LoRA training and the int8 serving export
@@ -693,7 +739,8 @@ CKPT_OWL_PATHS = ("instruct_hf", "instruct_hf_train",
                   "instruct_serving_int8")
 # every path that runs a flash backward (the delta kernel's)
 BWD_PATHS = ("train", "caption_train", "instruct_train",
-             "instruct_hf_train") + D96_TRAIN_PATHS
+             "instruct_hf_train", "pretrain_files", "cls_files_train",
+             "instruct_files_train") + D96_TRAIN_PATHS
 
 # head dim 80, the GPT-3 2.7B decoder (32 heads of 80), on head views of
 # the fused qkv projection: the cls evaluation's decoder passes (4 clips x
@@ -892,9 +939,9 @@ DEC_COUNTERS = ("launches", "alibi_launches", "int8_launches",
 # write): the serve CLI's and run_instruct's (k = 1 graphs), the k = 8
 # runs, the twin draft's steps and the sampled instruct runs
 K5_PATHS = {"K5": ("serve", "serve_k8", "speculative_twin",
-                   "caption_eval") + CKPT_SERVE_PATHS,
+                   "caption_eval", "serve_files") + CKPT_SERVE_PATHS,
             "K5-ALiBi": ("instruct", "instruct_k8", "instruct_sample",
-                         "instruct_hf"),
+                         "instruct_hf", "instruct_files"),
             "K5-int8": ("serve_int8kv", "serve_int8kv_k8"),
             "K5-int8-ALiBi": ("instruct_int8", "instruct_int8_k8",
                               "instruct_serving_int8"),
@@ -1128,25 +1175,30 @@ def phase_kernels(dev, builds):
                 "speculative_ngram", "instruct_lookup", "instruct_sample",
                 "caption_train", "caption_eval", "cls_eval", "itm_eval",
                 "retrieval_train", "retrieval_eval") + CKPT_SERVE_PATHS
-               + CKPT_OWL_PATHS, "K1", k1),
+               + CKPT_OWL_PATHS + ("serve_files", "pretrain_files",
+                                   "cls_files_eval", "instruct_files",
+                                   "instruct_files_train"), "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
                ("serve", "train", "serve_int8kv", "speculative_twin",
-                "speculative_ngram", "caption_train", "caption_eval")
-               + CKPT_SERVE_PATHS, "K4", k4)]
+                "speculative_ngram", "caption_train", "caption_eval",
+                "serve_files", "pretrain_files") + CKPT_SERVE_PATHS, "K4",
+               k4)]
     for kind, wrapper, line, line_hm in (
             ("dq", fa.flash_bwd_dq_cuda, 723, 148),
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
         report.append(_entry(
             f"K2/K3 + K4b backward {kind} kernel (flash_bwd_{kind}_cuda; "
             f"also replaces flash_attention.py:{line_hm})", BWD_SRC,
-            f"{TPU_FLASH}:{line}", wrapper, ("train", "caption_train"), kind,
+            f"{TPU_FLASH}:{line}", wrapper,
+            ("train", "caption_train", "pretrain_files"), kind,
             [c[kind] for c in cases] + [no_alibi_128[kind]]))
     report.append(_entry(
         "K1 flash_attention_packed, ALiBi causal (Bloom training, head dim "
         "128)", FWD_SRC, f"{TPU_FLASH}:426", fa.flash_attention_packed,
-        ("instruct_train", "instruct_hf_train"), "K1-ALiBi",
+        ("instruct_train", "instruct_hf_train", "instruct_files_train"),
+        "K1-ALiBi",
         [c["fwd"] for c in alibi_cases],
         counter="alibi_launches"))
     for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 723),
@@ -1155,7 +1207,7 @@ def phase_kernels(dev, builds):
             f"K{2 if kind == 'dq' else 3} backward {kind} kernel, ALiBi "
             f"causal (Bloom training, head dim 128)", BWD_SRC,
             f"{TPU_FLASH}:{line}", wrapper,
-            ("instruct_train", "instruct_hf_train"),
+            ("instruct_train", "instruct_hf_train", "instruct_files_train"),
             f"{kind}-ALiBi", [c[kind] for c in alibi_cases],
             counter="alibi_launches"))
 
@@ -1536,10 +1588,11 @@ def _decode_kernel_counts():
     return [getattr(dec.write_decode_attention, c) for c in DEC_COUNTERS]
 
 
-def phase_teacher_forced(cfg, model, tag="teacher-forced"):
+def phase_teacher_forced(cfg, model, tag="teacher-forced", clips=None):
     """The caption model's query features and FORCED_STEPS decode steps,
     with the kernels and again with the plain versions of K1, K4 and K5
-    with K6 (bf16 or int8) patched in, fed the same inputs and tokens."""
+    with K6 (bf16 or int8) patched in, fed the same inputs and tokens;
+    on 8 synthetic clips, or ``clips`` (uint8 [8, T, H, W, 3])."""
     from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
     from youku_mplug_tpu_torch.models import gpt3, vision
     from youku_mplug_tpu_torch.ops import decode_attention as dec
@@ -1548,8 +1601,10 @@ def phase_teacher_forced(cfg, model, tag="teacher-forced"):
 
     from youku_mplug_tpu_torch.models.generation import GenerationConfig
 
-    ds = SyntheticVideoDataset(8, cfg.num_frames, cfg.image_res)
-    clips = torch.stack([torch.from_numpy(ds[i]["video"]) for i in range(8)])
+    if clips is None:
+        ds = SyntheticVideoDataset(8, cfg.num_frames, cfg.image_res)
+        clips = torch.stack([torch.from_numpy(ds[i]["video"])
+                             for i in range(8)])
     with torch.inference_mode():
         video = normalize_clip(clips.cuda(), dtype=torch.bfloat16)
         qe = model.encode_queries(video)
@@ -2352,12 +2407,15 @@ def phase_dispatch(report, tag, path, make, requests, layers, want_key):
 def _caption_requests(cfg, model, n=16):
     """The first ``n`` synthetic clips of the serve path encoded to query
     prefixes: (prompt ids, submit kwargs) each."""
+    import argparse
+
     from youku_mplug_tpu_torch.cli import serve
     from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
 
     prompt_vec, _, gen_cfg = serve._prompt(cfg)
     requests = []
-    for clips, _ in serve._clip_batches(cfg, cfg.num_frames, cfg.image_res):
+    synthetic = argparse.Namespace(synthetic_data=True, seed=0)
+    for clips, _ in serve.clip_batches(synthetic, cfg):
         with torch.inference_mode():
             qe = model.encode_queries(normalize_clip(
                 torch.from_numpy(clips).cuda(), dtype=torch.bfloat16))
@@ -3679,20 +3737,532 @@ def phase_instruct_serving_int8(report, out_dir, run_dir, train_yaml, dest):
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
-def main():
-    # one card: the first visible one (set before CUDA initializes)
-    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
-    os.environ["CUDA_VISIBLE_DEVICES"] = ("0" if visible is None
-                                          else visible.split(",")[0])
-    sys.path.insert(0, REPO)
+# ---------------------------------------------------------------------------
+# phases 20-24: the runners on video files
+
+
+CARD = ""  # nvidia-smi's name and power limit, set by main
+
+
+class _TimedLoader:
+    """A loader whose consumer's waits are timed: ``waits`` holds the
+    seconds each ``next`` took, ``rows`` each batch's fields but the
+    clips."""
+
+    def __init__(self, loader):
+        self.loader, self.waits, self.rows = loader, [], []
+
+    def set_epoch(self, epoch):
+        self.loader.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                self.waits.append(time.perf_counter() - t0)
+                self.rows.append({k: v for k, v in batch.items()
+                                  if k != "video"})
+                yield batch
+        finally:
+            it.close()
+
+
+def _file_texture(k):
+    """Clip k's smooth texture, 4 px wider a frame than the frame."""
+    import numpy as np
+
+    w, h = FILE_SIZE
+    x = np.arange(w + 4 * FILE_SECONDS * FILE_FPS)[None, :, None]
+    y = np.arange(h)[:, None, None]
+    c = np.arange(3)[None, None, :]
+    return (128 + 60 * np.sin(x / 23.0 + c + k)
+            * np.cos(y / 17.0 + k)).astype(np.uint8)
+
+
+def _file_frame(texture, i):
+    """Frame i (BGR, as cv2 writes it): the texture drifted 4 px a frame
+    under two bands, i mod 16 (left) and i // 16 (right), each digit d
+    at grey level 16 d + 8."""
+    import numpy as np
+
+    w = FILE_SIZE[0]
+    f = np.ascontiguousarray(texture[:, 4 * i:4 * i + w])
+    f[:FILE_BAND_ROWS, :w // 2] = (i % 16) * 16 + 8
+    f[:FILE_BAND_ROWS, w // 2:] = (i // 16) * 16 + 8
+    return f
+
+
+def _frame_index(rgb):
+    """The index a decoded RGB frame's bands encode (their centres)."""
+    w = FILE_SIZE[0]
+    lo = rgb[4:FILE_BAND_ROWS - 4, 40:w // 2 - 40].mean()
+    hi = rgb[4:FILE_BAND_ROWS - 4, w // 2 + 40:w - 40].mean()
+    return int(round((lo - 8) / 16)) + 16 * int(round((hi - 8) / 16))
+
+
+def _write_clip(path, fourcc, k):
+    import cv2
+
+    tex = _file_texture(k)
+    w = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*fourcc), FILE_FPS,
+                        FILE_SIZE)
+    if not w.isOpened():
+        return False
+    for i in range(FILE_SECONDS * FILE_FPS):
+        w.write(_file_frame(tex, i))
+    w.release()
+    return True
+
+
+def phase_files_written(root):
+    """Phase 20: FILE_CLIPS clips written under ``root`` on as many
+    threads as cores, mp4v in .mp4 (MJPG in .avi where cv2 cannot read
+    the first back), and one annotation file per format (ids without an
+    extension: the datasets find .mp4, then .avi).  Gates: for every clip
+    the frames ``read_frames(sample="middle")`` returns are the ones
+    ``get_frame_indices`` names (their bands), each within FILE_MAE_TOL
+    of the frame written.  Returns the annotation paths and facts."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import numpy as np
+
+    from youku_mplug_tpu_torch.data.samplers import get_frame_indices
+    from youku_mplug_tpu_torch.data.video_decode import read_frames
+
+    t_phase = time.perf_counter()
+    n_frames = FILE_SECONDS * FILE_FPS
+    for ext, fourcc in ((".mp4", "mp4v"), (".avi", "MJPG")):
+        probe = os.path.join(root, "probe" + ext)
+        cap = (cv2.VideoCapture(probe) if _write_clip(probe, fourcc, 0)
+               else None)
+        ok = cap is not None and cap.isOpened() and int(
+            cap.get(cv2.CAP_PROP_FRAME_COUNT)) == n_frames
+        backend = cap.getBackendName() if ok else None
+        if cap is not None:
+            cap.release()
+        os.remove(probe) if os.path.exists(probe) else None
+        if ok:
+            break
+    else:
+        fail("cv2 reads back neither an mp4v .mp4 nor an MJPG .avi clip")
+    names = [f"clip{k:02d}" for k in range(FILE_CLIPS)]
+    workers = os.cpu_count() or 1
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(workers) as pool:
+        written = list(pool.map(
+            lambda k: _write_clip(os.path.join(root, names[k] + ext),
+                                  fourcc, k), range(FILE_CLIPS)))
+    write_s = time.perf_counter() - t0
+    if not all(written):
+        fail(f"cv2 failed to write {written.count(False)} clips")
+    mb = sum(os.path.getsize(os.path.join(root, n + ext))
+             for n in names) / 2 ** 20
+
+    want = get_frame_indices(8, n_frames, "middle")
+    maes, bad = [], []
+    t0 = time.perf_counter()
+    decoded = [read_frames(os.path.join(root, n + ext), num_frames=8,
+                           sample="middle") for n in names]
+    decode_s = time.perf_counter() - t0
+    for k, frames in enumerate(decoded):
+        tex = _file_texture(k)
+        got = [_frame_index(f) for f in frames]
+        if got != want or frames.shape != (8, FILE_SIZE[1], FILE_SIZE[0],
+                                           3):
+            bad.append((names[k], got, frames.shape))
+        maes += [float(np.abs(f.astype(np.int16)
+                              - _file_frame(tex, i)[..., ::-1]).mean())
+                 for f, i in zip(frames, want)]
+    if bad or max(maes) > FILE_MAE_TOL:
+        fail(f"[files_written] decoded frames: wrong indices {bad[:3]} "
+             f"(want {want}); max mean abs err {max(maes):.3f} (tol "
+             f"{FILE_MAE_TOL})")
+
+    def ann(name, text):
+        path = os.path.join(root, name)
+        with open(path, "w") as f:
+            f.write(text)
+        return path
+
+    def jsonl(name, rows):
+        return ann(name, "".join(json.dumps(r, ensure_ascii=False) + "\n"
+                                 for r in rows))
+    files = {
+        "root": root, "ext": ext, "names": names,
+        # the pretrain CSV lists every clip twice (FILES_TRAIN_STEPS
+        # batches of 16)
+        "pretrain_csv": ann("pretrain.csv", "video_id:FILE,title\n" + "".join(
+            f"{n},第{k % FILE_CLIPS}段 视频 的标题\n"
+            for k, n in enumerate(names * 2))),
+        "caption_jsonl": jsonl("caption_test.jsonl", [
+            {"video_id": n, "golden_caption": [f"片段{k}的描述",
+                                               f"第{k}段视频"]}
+            for k, n in enumerate(names[:16])]),
+        "cls_csv": ann("cls.csv", "video_id:FILE,video_title,category_id\n"
+                       + "".join(f"{n},视频{k}的标题,{k % 45}\n"
+                                 for k, n in enumerate(names))),
+        "cls_test_csv": ann("cls_test.csv",
+                            "video_id:FILE,video_title,category_id\n"
+                            + "".join(f"{n},测试{k},{(7 * k) % 45}\n"
+                                      for k, n in enumerate(names[:32]))),
+        "retrieval_jsonl": jsonl("retrieval.jsonl", [
+            {"clip_name": n, "caption": f"第{k}段视频"}
+            for k, n in enumerate(names)]),
+        "instruct_jsonl": jsonl("instruct.jsonl", [
+            {"video": os.path.join(root, n + ext),
+             "question": OWL_QUESTIONS[k % len(OWL_QUESTIONS)],
+             "answer": f"The clip numbered {k} shows a drifting pattern."}
+            for k, n in enumerate(names[:2 * FILES_OWL_ROWS])]),
+    }
+    print(f"[files_written] {FILE_CLIPS} clips of {FILE_SECONDS} s at "
+          f"{FILE_FPS} fps, {FILE_SIZE[0]}x{FILE_SIZE[1]}, container {ext} "
+          f"codec {fourcc}, read back by cv2 {cv2.__version__} through "
+          f"{backend}; {mb:.1f} MiB written in {write_s:.2f} s on "
+          f"{workers} threads | read_frames(8, middle) on one thread "
+          f"{decode_s / FILE_CLIPS * 1e3:.1f} ms a clip (it decodes up to "
+          f"frame {want[-1]} of {n_frames}); every clip's frames are "
+          f"{want}, mean abs err max {max(maes):.3f} mean "
+          f"{sum(maes) / len(maes):.3f} (tol {FILE_MAE_TOL}) | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {CARD}", flush=True)
+    return files
+
+
+def _loader_rate(ds, batch_size, workers):
+    """Clips a second of one pass of a Loader over ``ds`` in order."""
+    from youku_mplug_tpu_torch.data.loader import Loader
+
+    t0 = time.perf_counter()
+    n = sum(len(b["index"]) for b in Loader(
+        ds, batch_size, shuffle=False, num_workers=workers))
+    return n / (time.perf_counter() - t0)
+
+
+def phase_serve_files(report, model, files, out_dir):
+    """Phase 21 (on phase 3's model): the serve CLI's path with
+    serve_gpt3_1.3B_flagship.yaml's test_file and video_root pointed at
+    the written clips, 16 requests, 8 slots.  Gates: every batch of the
+    YAML's threaded loader equal, bitwise, to a one-thread pass, and each
+    sample the index asked for (no decode walked past); K5 and K6 launches
+    a decode step exact; every result a caption; phase 4's teacher-forced
+    gate on the first 8 clips."""
+    import numpy as np
+
+    from youku_mplug_tpu_torch.cli import common, run_caption, serve
+    from youku_mplug_tpu_torch.config import load_config
+    from youku_mplug_tpu_torch.data.loader import Loader
+
+    t_phase = time.perf_counter()
+    yaml = _downstream_yaml(FLAGSHIP_YAML, {
+        "test_file": files["caption_jsonl"], "video_root": files["root"]},
+        out_dir)
+    args = serve.serve_parser().parse_args([
+        "--config", yaml, "--num_requests", "16", "--num_slots", "8",
+        "--device", "cuda", "--output_dir", out_dir])
+    cfg = load_config(yaml)
+    ds = run_caption.dataset(args, cfg, train=False)
+    threaded = common.make_loader(args, cfg, ds, shuffle=False)
+    single = Loader(ds, cfg.batch_size, shuffle=False)
+    for got, want, idx in zip(threaded, single, single.batch_indices()):
+        if not (np.array_equal(got["video"], want["video"])
+                and got["video_id"] == want["video_id"]
+                and got["index"].tolist() == want["index"].tolist()
+                == idx.tolist()):
+            fail(f"serve_files: the threaded loader's batch {idx.tolist()} "
+                 f"differs from the one-thread pass or from the indices")
+    cores = os.cpu_count() or 1
+    rates = {w: _loader_rate(ds, cfg.batch_size, w)
+             for w in sorted({cfg.num_workers, 1, cores})}
+
+    _reset_counts(report)
+    stats, out, engine = serve.run(args, cfg, model,
+                                   next(model.parameters()).device)
+    torch.cuda.synchronize()
+    _read_counts(report, "serve_files")
+    layers = cfg.model.text.num_hidden_layers
+    per_step = _per_step(report, "serve_files", engine.decode_steps,
+                         {"K5": layers, "K6": layers})
+    names = files["names"][:16]
+    if [o["video_id"] for o in out] != names or any(
+            not o["tokens"] or not o["caption"] for o in out):
+        fail(f"serve_files results: {out}")
+    if engine.nonfinite_logits:
+        fail(f"{engine.nonfinite_logits} logit rows were not finite")
+    clips = torch.from_numpy(next(iter(single))["video"])
+    rates = {str(w): round(r, 2) for w, r in rates.items()}
+    print(f"[serve_files] {json.dumps(stats)} | loader clips/s by decode "
+          f"threads {json.dumps(rates)} (YAML num_workers "
+          f"{cfg.num_workers}, {cores} cores) | "
+          f"{engine.decode_steps} decode steps, launches per step {per_step}"
+          f" | first caption {out[0]['caption'][:24]!r} | {CARD}", flush=True)
+    phase_teacher_forced(cfg, model, "serve_files teacher-forced", clips)
+    print(f"[serve_files] phase {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return stats
+
+
+def phase_pretrain_files(report, runner, files, out_dir, synthetic):
+    """Phase 22 (on phase 5's runner: its setup, weights and optimizer
+    state): ``run_pretrain.build_loader`` on the pretrain CSV under the
+    flagship pretrain YAML (batch 16, its num_workers decoding with the
+    train transform), FILES_TRAIN_STEPS steps through ``train_one_epoch``
+    with the workers as threads (the YAML's default), then as many with
+    them as forked processes (``workers_impl: process``).  Gates: finite,
+    no skipped step; launches per step equal to phase 5's on synthetic
+    clips.  Prints step ms beside phase 5's and the ms each step waited on
+    the loader."""
+    from youku_mplug_tpu_torch.cli import common, run_pretrain
+    from youku_mplug_tpu_torch.config import load_config
+
+    want = {k: v / synthetic["steps"]
+            for k, v in synthetic["launches"].items()}
+    for impl in ("thread", "process"):
+        t_phase = time.perf_counter()
+        yaml = _downstream_yaml(TRAIN_YAML, {
+            "train_file": files["pretrain_csv"],
+            "train_video_root": files["root"], "workers_impl": impl},
+            out_dir)
+        args = run_pretrain.base_parser().parse_args([
+            "--config", yaml, "--output_dir", out_dir, "--max_steps",
+            str(FILES_TRAIN_STEPS), "--device", "cuda"])
+        cfg = load_config(yaml)
+        timed = _TimedLoader(run_pretrain.build_loader(args, cfg))
+        if len(timed) != FILES_TRAIN_STEPS:
+            fail(f"pretrain_files: {len(timed)} batches in the CSV")
+        saved = runner.loader, runner.args
+        runner.loader, runner.args = timed, args
+        try:
+            _reset_counts(report)
+            t0 = time.perf_counter()
+            history = common.train_one_epoch(
+                runner, run_pretrain.build_train_step(runner), 0,
+                run_pretrain.make_batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            runner.loader, runner.args = saved
+        _read_counts(report, "pretrain_files")
+        if len(history) != FILES_TRAIN_STEPS or any(
+                not (math.isfinite(h["loss"])
+                     and math.isfinite(h["grad_norm"]))
+                or h["skipped_nonfinite"] for h in history):
+            fail(f"pretrain_files ({impl}) steps: {history}")
+        per_step = _launches_per(report, "pretrain_files", len(history),
+                                 want)
+        step_ms = [h["step_time"] * 1e3 for h in history]
+        wait_ms = [w * 1e3 for w in timed.waits]
+        print(f"[pretrain_files] workers_impl {impl}: {len(history)} steps "
+              f"of {cfg.batch_size} clips from the CSV ({cfg.num_workers} "
+              f"decode workers, {os.cpu_count()} cores) in {wall:.2f} s, "
+              f"{len(history) * cfg.batch_size / wall:.2f} clips/s: step "
+              f"ms {[round(x, 1) for x in step_ms]} (phase 5 on synthetic "
+              f"clips, same run: "
+              f"{[round(x, 1) for x in synthetic['step_ms_each']]}); ms "
+              f"waited on the loader before each step "
+              f"{[round(x, 1) for x in wait_ms]}; loss "
+              f"{[round(h['loss'], 4) for h in history]}; launches per step "
+              f"{per_step} (= phase 5's) | phase "
+              f"{time.perf_counter() - t_phase:.1f} s | {CARD}", flush=True)
+
+
+def phase_cls_files(report, files, out_dir):
+    """Phase 23: run_cls on cls_gpt3_1.3B_youku_v0_sharp_2.yaml with its
+    files pointed at the three-column CSVs (train and val: 64 clips;
+    test: 32), phase 13's cuts (eval_video_batch 4): DOWNSTREAM_STEPS
+    train steps and the evaluation of one test batch.  Gates: every
+    title and label the loaders yield the file's (no -1: the CSV repair),
+    finite, launches per train step and per evaluation call as phase
+    13's cls."""
+    from youku_mplug_tpu_torch.cli import common, run_cls
+    from youku_mplug_tpu_torch.data.datasets import pre_caption
+
+    t_phase = time.perf_counter()
+    yaml = _downstream_yaml(CLS_YAML, {
+        "eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
+        "train_file": files["cls_csv"], "val_file": files["cls_csv"],
+        "test_file": files["cls_test_csv"], "video_root": files["root"]},
+        out_dir)
+    args = run_cls.parser().parse_args([
+        "--config", yaml, "--max_steps", str(DOWNSTREAM_STEPS), "--device",
+        "cuda", "--output_dir", os.path.join(out_dir, "cls_files")])
+    t0 = time.perf_counter()
+    runner, _, test_loader, classnames = run_cls.prepare(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cfg = runner.cfg
+    layers = cfg.model.text.num_hidden_layers
+    train, test = _TimedLoader(runner.loader), _TimedLoader(test_loader)
+    runner.loader = train
+    _reset_counts(report)
+    history = common.train_one_epoch(
+        runner, run_cls.build_train_step(runner), 0,
+        run_cls.make_batch_factory(classnames, cfg.max_length))
+    torch.cuda.synchronize()
+    _read_counts(report, "cls_files_train")
+    if len(history) != DOWNSTREAM_STEPS or any(
+            not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))
+            or h["skipped_nonfinite"] for h in history):
+        fail(f"cls_files train steps: {history}")
+    per_step = _launches_per(report, "cls_files_train", len(history),
+                             {"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1,
+                              "delta": 1})
+    _reset_counts(report)
+    t0 = time.perf_counter()
+    metrics = run_cls.evaluation(runner, test, classnames)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    _read_counts(report, "cls_files_eval")
+    calls = -(-cfg.batch_size // DOWNSTREAM_EVAL_CLIPS)
+    per_call = _launches_per(report, "cls_files_eval", calls,
+                             {"K4-d96": 1, "K1": 2 * layers})
+    if not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"cls_files evaluation metrics {metrics}")
+    rows = {}
+    for path, sep in ((files["cls_csv"], "视频"), (files["cls_test_csv"],
+                                                    "测试")):
+        with open(path) as f:
+            rows[path] = [line.rstrip("\n").split(",")
+                          for line in f.readlines()[1:]]
+    seen, bad = 0, []
+    for loader, path in ((train, files["cls_csv"]),
+                         (test, files["cls_test_csv"])):
+        for batch in loader.rows:
+            for i, text, label in zip(batch["index"], batch["text"],
+                                      batch["label"]):
+                _, title, cat = rows[path][int(i)]
+                seen += 1
+                if text != pre_caption(title, 80) or int(label) != int(cat):
+                    bad.append((int(i), text, int(label)))
+    if bad or seen != (DOWNSTREAM_STEPS + 1) * cfg.batch_size:
+        fail(f"cls_files: {seen} rows seen, titles or labels not the "
+             f"file's: {bad[:5]}")
+    print(f"[cls_files] setup {setup_s:.2f} s; {len(history)} steps of "
+          f"{cfg.batch_size} clips x {cfg.num_frames} frames from the CSV, "
+          f"step ms {[round(h['step_time'] * 1e3, 1) for h in history]}, "
+          f"loss {[round(h['loss'], 4) for h in history]}, ms waited on the "
+          f"loader {[round(w * 1e3, 1) for w in train.waits]}; launches per "
+          f"step {per_step} | evaluation of {cfg.batch_size} test clips in "
+          f"{eval_s:.2f} s ({calls} calls, launches per call {per_call}), "
+          f"metrics {json.dumps(metrics)} | {seen} rows: every title and "
+          f"label the file's, none -1 | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {CARD}", flush=True)
+
+
+def phase_instruct_files(report, files, out_dir):
+    """Phase 24: ``run_instruct --engine --input_jsonl`` over
+    FILES_OWL_ROWS rows of the written clips, then ``--train
+    --train_jsonl`` for FILES_OWL_TRAIN_STEPS LoRA steps, both with Bloom
+    cut to OWL_CUT (as phases 17-19).  Gates: K1 once per ViT block a
+    serving call and K5-ALiBi (with K6) once per layer a decode step, no
+    other kernel; phase 8's teacher-forced gate on the decoded clips;
+    per train step K1, dq, dk/dv with ALiBi and the delta kernel once per
+    layer and K1 once per ViT block."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    t_phase = time.perf_counter()
+    serve_yaml = _owl_yaml(OWL_YAML, out_dir, OWL_CUT)
+    jsonl = os.path.join(out_dir, "requests.jsonl")
+    with open(files["instruct_jsonl"]) as f:
+        rows = f.readlines()
+    with open(jsonl, "w") as f:
+        f.writelines(rows[:FILES_OWL_ROWS])
+    args = run_instruct.parser().parse_args([
+        "--config", serve_yaml, "--engine", "--input_jsonl", jsonl,
+        "--num_slots", str(OWL_SLOTS), "--device", "cuda", "--output_dir",
+        out_dir])
+    t0 = time.perf_counter()
+    cfg, raw, model, device = run_instruct.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, batch, clips = run_instruct.prepare(args, cfg, raw, device,
+                                           model.policy.compute_dtype)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    gen_cfg = run_instruct.generation_config(args, cfg, raw)
+    run_instruct.serve_instruct(  # warm-up
+        model, clips[:2], {k: v[:2] for k, v in batch.items()},
+        dataclasses.replace(gen_cfg, max_new_tokens=4), num_slots=2)
+    torch.cuda.synchronize()
+    _reset_counts(report)
+    seqs, stats, engine = run_instruct.serve_instruct(
+        model, clips, batch, gen_cfg, num_slots=args.num_slots)
+    torch.cuda.synchronize()
+    _read_counts(report, "instruct_files")
+    layers = cfg.text.num_hidden_layers
+    per_step = _per_step(report, "instruct_files", engine.decode_steps,
+                         {"K5-ALiBi": layers, "K6": layers})
+    flash = {r["key"]: r["launches_by_path"]["instruct_files"]
+             for r in report if not r["key"].startswith(("K5", "K6"))}
+    if any(n != (cfg.vision.depth if k == "K1" else 0)
+           for k, n in flash.items()):
+        fail(f"instruct_files: flash launches {flash}, expected K1 "
+             f"{cfg.vision.depth} and no other")
+    if stats["requests"] != FILES_OWL_ROWS or engine.nonfinite_logits \
+            or not (seqs != gen_cfg.pad_id).any(1).all():
+        fail(f"instruct_files served {stats['requests']} requests, "
+             f"{engine.nonfinite_logits} non-finite logit rows")
+    shown = {k: stats[k] for k in ("requests", "new_tokens",
+                                   "tokens_per_sec", "latency_p50_s",
+                                   "latency_p95_s", "wall_s")}
+    print(f"[instruct_files] Bloom cut to {layers} layers; build "
+          f"{build_s:.2f} s; {FILES_OWL_ROWS} clips decoded (middle, "
+          f"{raw.get('num_frames', 8)} frames, resized to "
+          f"{raw.get('image_res', 224)}) in {decode_s:.2f} s on one thread; "
+          f"{json.dumps(shown)}"
+          f" | launches per decode step {per_step}, K1 {flash['K1']} | "
+          f"{CARD}", flush=True)
+    phase_instruct_forced(model, batch, clips, "instruct_files teacher-forced")
+    del model, batch, clips, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train_yaml = _owl_yaml(OWL_TRAIN_YAML, out_dir, OWL_CUT, epochs=1,
+                           video_root="")
+    targs = run_instruct.parser().parse_args([
+        "--config", train_yaml, "--train", "--train_jsonl",
+        files["instruct_jsonl"], "--max_steps", str(FILES_OWL_TRAIN_STEPS),
+        "--device", "cuda", "--output_dir", os.path.join(out_dir, "train")])
+    _reset_counts(report)
+    t0 = time.perf_counter()
+    runner = run_instruct.train_main(targs)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    _read_counts(report, "instruct_files_train")
+    history = runner.history
+    if len(history) != FILES_OWL_TRAIN_STEPS or any(
+            not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))
+            or h["skipped_nonfinite"] for h in history):
+        fail(f"instruct_files_train steps: {history}")
+    per_step = _launches_per(
+        report, "instruct_files_train", len(history),
+        {"K1-ALiBi": layers, "dq-ALiBi": layers, "dkv-ALiBi": layers,
+         "delta": layers, "K1": runner.model.cfg.vision.depth})
+    print(f"[instruct_files_train] {len(history)} LoRA steps of "
+          f"{runner.cfg.batch_size} rows from the jsonl in {train_s:.2f} s "
+          f"(setup included): step ms "
+          f"{[round(h['step_time'] * 1e3, 1) for h in history]}, loss "
+          f"{[round(h['loss'], 4) for h in history]}; launches per step "
+          f"{per_step} | phase {time.perf_counter() - t_phase:.1f} s | "
+          f"{CARD}", flush=True)
+    del runner, history
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _phases(report, files_root):
+    """Phases 3-24 in their order (see the module docstring)."""
     from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    card, builds = phase_device_and_build()
-    dev = torch.device("cuda")
-    report = phase_kernels(dev, builds)
+    files = phase_files_written(files_root)
     with tempfile.TemporaryDirectory() as out_dir:
         cfg, model, _ = phase_slice(report, out_dir)
     phase_teacher_forced(cfg, model)
@@ -3700,6 +4270,8 @@ def main():
                                            FLAGSHIP_YAML, "serve")
     phase_speculative(report, cfg, model, requests, greedy)
     del requests
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_serve_files(report, model, files, out_dir)
     with tempfile.TemporaryDirectory() as out_dir:
         phase_serve_imported(report, model, out_dir)
     del model
@@ -3714,9 +4286,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
-        runner, _ = phase_train(report, out_dir)
+        runner, train_stats = phase_train(report, out_dir)
         phase_replay(runner, run_pretrain.make_batch,
                      run_pretrain.make_loss_fn)
+        phase_pretrain_files(report, runner, files, out_dir, train_stats)
         # phase 12 saves phase 5's state and frees it; the directory with
         # its checkpoint goes when the block ends
         holder = [runner]
@@ -3729,6 +4302,10 @@ def main():
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_downstream(report, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_cls_files(report, files, out_dir)
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -3768,6 +4345,31 @@ def main():
                                                             hf_dir)
         phase_instruct_serving_int8(report, out_dir, run_dir, train_yaml,
                                     dest)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_instruct_files(report, files, out_dir)
+
+
+def main():
+    global CARD
+    # one card: the first visible one (set before CUDA initializes)
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    os.environ["CUDA_VISIBLE_DEVICES"] = ("0" if visible is None
+                                          else visible.split(",")[0])
+    sys.path.insert(0, REPO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    card, builds = phase_device_and_build()
+    CARD = card
+    dev = torch.device("cuda")
+    report = phase_kernels(dev, builds)
+    files_dir = tempfile.TemporaryDirectory()  # the clips of phases 20-24
+    try:
+        _phases(report, files_dir.name)
+    finally:
+        files_dir.cleanup()
     kernels = []
     for r in report:
         entry = {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -33,7 +33,10 @@ _NO_JAX = textwrap.dedent("""
                  "serving.engine", "serving.speculative", "cli.common",
                  "cli.run_caption", "train.checkpoint", "train.metrics",
                  "evals.metrics", "evals.meteor", "models.importers",
-                 "models.generation", "cli.export_serving"):
+                 "models.generation", "cli.export_serving",
+                 "data.samplers", "data.video_decode", "data.transforms",
+                 "data.datasets", "models.tokenizer", "cli.run_cls",
+                 "cli.run_retrieval", "cli.run_retrieval_itm"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -48,7 +51,7 @@ def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 22
+    assert int(out.stdout.strip()) >= 27
 
 
 _NO_JAX_IMPORT = textwrap.dedent("""
@@ -77,6 +80,52 @@ _NO_JAX_IMPORT = textwrap.dedent("""
 
 def test_importers_and_export_run_without_jax_or_safetensors():
     out = subprocess.run([sys.executable, "-c", _NO_JAX_IMPORT],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+_NO_JAX_FILES = textwrap.dedent("""
+    import json, os, sys, tempfile
+    for blocked in ("jax", "flax", "youku_mplug_tpu"):
+        sys.modules[blocked] = None  # any import of these now raises
+    import cv2
+    import numpy as np
+    from youku_mplug_tpu_torch.data import datasets, instruct, loader
+    from youku_mplug_tpu_torch.data import transforms, video_decode
+    d = tempfile.mkdtemp()
+    w = cv2.VideoWriter(os.path.join(d, "a.mp4"),
+                        cv2.VideoWriter_fourcc(*"mp4v"), 10, (32, 24))
+    for i in range(10):
+        w.write(np.full((24, 32, 3), 20 * i, np.uint8))
+    w.release()
+    with open(os.path.join(d, "ann.csv"), "w") as f:
+        f.write("video_id:FILE,video_title,category_id\\na.mp4,t,2\\n"
+                "a.mp4,u,1\\n")
+    ds = datasets.ClsVideoDataset(os.path.join(d, "ann.csv"), d,
+                                  transforms.train_transform(16),
+                                  num_frames=3)
+    (batch,) = list(loader.Loader(ds, 2, num_workers=2))
+    assert batch["video"].shape == (2, 3, 16, 16, 3), batch["video"].shape
+    assert sorted(batch["label"].tolist()) == [1, 2]
+    with open(os.path.join(d, "q.jsonl"), "w") as f:
+        f.write(json.dumps({"video": "a.mp4", "question": "q",
+                            "answer": "a"}) + "\\n")
+    item = instruct.InstructJsonlDataset(os.path.join(d, "q.jsonl"), d,
+                                         num_frames=2)[0]
+    assert item["video"].shape == (2, 24, 32, 3)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "youku_mplug_tpu")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_file_backed_data_runs_without_jax_or_the_jax_package():
+    """The datasets, cv2 decoding, transforms and the threaded loader
+    read files with jax and youku_mplug_tpu blocked."""
+    out = subprocess.run([sys.executable, "-c", _NO_JAX_FILES],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

@@ -72,7 +72,8 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--max_steps", type=int, default=-1,
                    help="cap steps (and evaluation batches) per epoch")
     p.add_argument("--synthetic_data", action="store_true",
-                   help="procedural videos (the only source ported so far)")
+                   help="procedural clips in place of the YAML's annotation "
+                        "files and video root")
     p.add_argument("--save_ckpt_freq", type=int, default=1)
     p.add_argument("--auto_resume_iter", action="store_true", default=True,
                    help="roll back after 3 non-finite steps in a row")
@@ -107,6 +108,26 @@ def device_of(args) -> torch.device:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is visible")
     return device
+
+
+def decode_kwargs(cfg) -> dict:
+    """The decode options every file-backed dataset takes from the YAML:
+    ``decode_short_side`` (default 0, off) resizes frames to that short
+    side while decoding, so the transforms work on small frames."""
+    return {"decode_short_side": int(cfg.get("decode_short_side", 0))}
+
+
+def make_loader(args, cfg: RunConfig, dataset, shuffle: bool = True,
+                batch_size: Optional[int] = None,
+                drop_last: bool = True) -> Loader:
+    """A loader of ``batch_size`` (default the YAML's) in the JAX runners'
+    order: files decode on the YAML's ``num_workers`` (``workers_impl``:
+    threads, or forked processes), synthetic clips in the consumer's
+    thread."""
+    return Loader(dataset, batch_size or cfg.batch_size, seed=args.seed,
+                  shuffle=shuffle, drop_last=drop_last,
+                  num_workers=0 if args.synthetic_data else cfg.num_workers,
+                  workers_impl=cfg.get("workers_impl", "thread"))
 
 
 def build_tokenizer(cfg: RunConfig) -> BatchTokenizer:

@@ -15,15 +15,21 @@ evaluation batches too.  It writes ``caption_results.json`` (each clip's
 caption, its gold captions, and the token ids and beam score it came
 from) and a ``log.txt`` line ``{"test": metrics}`` (BLEU-1..4, ROUGE-L,
 CIDEr, METEOR over Chinese-character-normalized text).
-``--evaluate_only --resume <dir>`` skips training.  Only
-``--synthetic_data`` is ported: caption csv files need the video
-decoding, which is not.
+``--evaluate_only --resume <dir>`` skips training.  The clips come from
+the YAML's ``train_file`` and ``test_file`` under ``video_root``
+(``data/datasets.CaptionVideoDataset``: ``num_frames`` a clip, ``rand``
+and the train transform in training, ``middle`` and a resize in the test
+split), decoded on ``num_workers`` threads, or with
+``--synthetic_data`` procedural clips.
 
 Usage (the card is the default device; ``--device cpu --fp32`` runs a
 tiny config on the CPU):
     python -m youku_mplug_tpu_torch.cli.run_caption \\
         --config configs/caption/caption_gpt3_1.3B_flagship.yaml \\
         --synthetic_data --max_steps 2 --output_dir out
+    python -m youku_mplug_tpu_torch.cli.run_caption \\
+        --config <a caption YAML whose train_file, test_file and
+                  video_root name your files> --max_steps 2 --output_dir out
     python -m youku_mplug_tpu_torch.cli.run_caption \\
         --config configs/caption/caption_gpt3_1.3B_flagship.yaml \\
         --synthetic_data --evaluate_only --resume out --output_dir eval
@@ -40,8 +46,15 @@ import torch
 
 from youku_mplug_tpu_torch.cli import common
 from youku_mplug_tpu_torch.config import RunConfig, load_config
-from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
+from youku_mplug_tpu_torch.data.datasets import (
+    CaptionVideoDataset,
+    SyntheticVideoDataset,
+)
 from youku_mplug_tpu_torch.data.loader import Loader
+from youku_mplug_tpu_torch.data.transforms import (
+    test_transform,
+    train_transform,
+)
 from youku_mplug_tpu_torch.evals.metrics import caption_eval
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo, generate_captions
@@ -55,20 +68,27 @@ def parser():
     return common.base_parser("video captioning (PyTorch)")
 
 
-def build_loaders(args, cfg: RunConfig) -> Tuple[Loader, Loader]:
-    """Train (shuffled) and test loaders over synthetic clips."""
-    if not args.synthetic_data:
-        raise NotImplementedError(
-            "caption csv files need the video decoding "
-            "(youku_mplug_tpu/data/video_decode.py), which is not ported "
-            "yet: pass --synthetic_data")
-
-    def dataset():
+def dataset(args, cfg: RunConfig, train: bool):
+    """The train or test split: the YAML's ``train_file`` / ``test_file``
+    under ``video_root`` (JAX ``build_loaders``), or synthetic clips."""
+    if args.synthetic_data:
         return SyntheticVideoDataset(length=cfg.get("synthetic_length", 32),
                                      num_frames=cfg.num_frames,
                                      size=cfg.image_res)
-    return (Loader(dataset(), cfg.batch_size, seed=args.seed),
-            Loader(dataset(), cfg.batch_size, seed=args.seed, shuffle=False))
+    return CaptionVideoDataset(
+        cfg.get("train_file" if train else "test_file"),
+        cfg.get("video_root"),
+        transform=(train_transform if train else test_transform)(
+            cfg.image_res),
+        num_frames=cfg.num_frames, train=train,
+        seed=args.seed if train else 0, **common.decode_kwargs(cfg))
+
+
+def build_loaders(args, cfg: RunConfig) -> Tuple[Loader, Loader]:
+    """Train (shuffled) and test loaders."""
+    return (common.make_loader(args, cfg, dataset(args, cfg, True)),
+            common.make_loader(args, cfg, dataset(args, cfg, False),
+                               shuffle=False))
 
 
 def prepare(args) -> Tuple[common.Runner, Loader]:

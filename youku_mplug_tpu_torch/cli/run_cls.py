@@ -20,8 +20,12 @@ One cut of the port, for memory: ``eval_video_batch`` (a YAML key the
 JAX cls runner does not read) scores a test batch that many clips a call
 (45 x 32 pairs of 208 positions would hold a 61 GB fp32 logits tensor at
 the reference's batch 32); unset, a call takes the whole batch, as in
-JAX.  The results are the same either way.  Only ``--synthetic_data`` is
-ported (no video decoding).
+JAX.  The results are the same either way.  The clips and titles come
+from the YAML's ``train_file``, ``val_file`` and ``test_file`` under
+``video_root`` (``data/datasets.ClsVideoDataset``; a three-column CSV
+``video_id:FILE, video_title, category_id`` keeps its title and label,
+which JAX's CSV reader drops: ROADMAP.md, Queue 3), decoded on
+``num_workers`` threads; or with ``--synthetic_data`` procedural clips.
 
 Usage (the card is the default device; ``--device cpu --fp32`` runs a
 tiny config on the CPU), on a copy of
@@ -29,6 +33,8 @@ tiny config on the CPU), on a copy of
 ``eval_video_batch: 4`` added (one H100 holds 4 clips x 45 pairs a call):
     python -m youku_mplug_tpu_torch.cli.run_cls --config <that copy> \\
         --synthetic_data --max_steps 2 --output_dir out
+and without ``--synthetic_data`` where the copy's ``train_file``,
+``val_file``, ``test_file`` and ``video_root`` name your files.
 """
 
 from __future__ import annotations
@@ -42,8 +48,15 @@ import torch
 
 from youku_mplug_tpu_torch.cli import common
 from youku_mplug_tpu_torch.config import RunConfig, load_config
-from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
+from youku_mplug_tpu_torch.data.datasets import (
+    ClsVideoDataset,
+    SyntheticVideoDataset,
+)
 from youku_mplug_tpu_torch.data.loader import Loader
+from youku_mplug_tpu_torch.data.transforms import (
+    test_transform,
+    train_transform,
+)
 from youku_mplug_tpu_torch.evals.metrics import topk_accuracy
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
@@ -71,21 +84,26 @@ def load_classnames(cfg: RunConfig) -> List[str]:
 
 
 def build_loaders(args, cfg: RunConfig) -> Tuple[Loader, Loader, Loader]:
-    """Train (shuffled), validation and test loaders over synthetic clips
-    labelled index mod ``num_classes``."""
-    if not args.synthetic_data:
-        raise NotImplementedError(
-            "classification csv files need the video decoding "
-            "(youku_mplug_tpu/data/video_decode.py), which is not ported "
-            "yet: pass --synthetic_data")
-
-    def loader(shuffle):
-        ds = SyntheticVideoDataset(length=cfg.get("synthetic_length", 32),
-                                   num_frames=cfg.num_frames,
-                                   size=cfg.image_res,
-                                   num_classes=cfg.get("num_classes", 5))
-        return Loader(ds, cfg.batch_size, seed=args.seed, shuffle=shuffle)
-    return loader(True), loader(False), loader(False)
+    """Train (shuffled), validation and test loaders (JAX
+    ``build_loaders``): the YAML's files, or synthetic clips labelled
+    index mod ``num_classes``."""
+    def dataset(key):
+        if args.synthetic_data:
+            return SyntheticVideoDataset(
+                length=cfg.get("synthetic_length", 32),
+                num_frames=cfg.num_frames, size=cfg.image_res,
+                num_classes=cfg.get("num_classes", 5))
+        train = key == "train_file"
+        return ClsVideoDataset(
+            cfg.get(key), cfg.get("video_root"),
+            transform=(train_transform if train else test_transform)(
+                cfg.image_res),
+            num_frames=cfg.num_frames, train=train,
+            seed=args.seed if train else 0, **common.decode_kwargs(cfg))
+    return (common.make_loader(args, cfg, dataset("train_file")),
+            common.make_loader(args, cfg, dataset("val_file"), shuffle=False),
+            common.make_loader(args, cfg, dataset("test_file"),
+                               shuffle=False))
 
 
 def prepare(args) -> Tuple[common.Runner, Loader, Loader, List[str]]:

@@ -22,10 +22,20 @@ writes).  Serving always runs through the engine: the batched
 ``generate`` is not ported, so ``--engine`` is accepted for the JAX
 runner's command lines and changes nothing.
 
-Training (``--train``, the mPLUG-Owl finetune recipe): synthetic clips
-with their captions as answers to a fixed question, the response-masked
-LM loss, a frozen ViT and a frozen bf16 Bloom whose LoRA adapters train
-in fp32 beside the abstractor, ``visual_fc`` and ``vit_eos``, AdamW; one
+The requests are the ``--input_jsonl`` rows (``video``, ``question`` or
+a pre-formatted ``prompt``) or one ``--video`` with ``--question``; each
+clip is decoded from its file (``num_frames`` frames at the ``middle``
+of their intervals, resized to ``image_res``), or with
+``--synthetic_data`` drawn at random.
+
+Training (``--train``, the mPLUG-Owl finetune recipe): the rows of
+``--train_jsonl`` or the YAML's ``train_file`` (``video`` under
+``video_root``, ``question`` or ``prompt``, ``answer``; the train
+transform, ``num_workers`` decode threads), or with ``--synthetic_data``
+synthetic clips with their captions as answers to a fixed question; the
+response-masked LM loss, a frozen ViT and a frozen bf16 Bloom whose LoRA
+adapters train in fp32 beside the abstractor, ``visual_fc`` and
+``vit_eos``, AdamW; one
 JSON line per step (``--log_freq``) and one ``log.txt`` line per epoch,
 through ``cli/common.py``'s epoch loop, which saves a checkpoint each
 ``--save_ckpt_freq`` epochs under ``<output_dir>/checkpoints`` and resumes
@@ -40,10 +50,10 @@ Weights, as the JAX runner has them: a seeded init (serving) or the JAX
 export of a trained run (``cli/export_serving.py --owl``) in their place:
 the LoRA ranks are 0 (the adapters are merged), and the decoder is int8
 exactly when the export's ``qscales`` say so (``--int8`` beside it
-raises).  Real video files, jsonl training data and beam search are not
-ported yet (ROADMAP.md, Queue 1), and each raises; HF tokenizer files
-(the JAX runner's ``--tokenizer``) are not ported either.  Results carry
-token ids (the synthetic runs' hash tokenizer has no text).
+raises).  Beam search is not ported yet (ROADMAP.md, Queue 1) and
+raises; HF tokenizer files (the JAX runner's ``--tokenizer``) are not
+ported either, so prompts take the whitespace hash tokenizer and results
+carry token ids (its "text" is the ids).
 
 Usage (the card is the default device; ``--device cpu`` runs a tiny
 config on the CPU):
@@ -59,10 +69,16 @@ config on the CPU):
     python -m youku_mplug_tpu_torch.cli.run_instruct \\
         --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
         --synthetic_data --engine --lookup_k 4
+    python -m youku_mplug_tpu_torch.cli.run_instruct \\
+        --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
+        --engine --input_jsonl <rows of video, question>
     python -m youku_mplug_tpu_torch.cli.run_instruct --train \\
         --config configs/instruct/train_bloomz_7b_flagship.yaml \\
         --synthetic_data --max_steps 8 --output_dir out \\
         [--hf_checkpoint <HF mPLUG-Owl dir>]
+    python -m youku_mplug_tpu_torch.cli.run_instruct --train \\
+        --config configs/instruct/train_bloomz_7b_flagship.yaml \\
+        --train_jsonl <rows of video, question, answer> --output_dir out
     python -m youku_mplug_tpu_torch.cli.export_serving --owl --int8 \\
         --int8_embedding --run_dir out \\
         --config configs/instruct/train_bloomz_7b_flagship.yaml \\
@@ -94,12 +110,18 @@ from youku_mplug_tpu_torch.config import (
 from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
 from youku_mplug_tpu_torch.data.instruct import (
     VIDEO_PLACEHOLDER,
+    InstructJsonlDataset,
     WhitespaceTokenizer,
     build_instruct_batch,
     build_instruct_train_batch,
     format_prompt,
 )
 from youku_mplug_tpu_torch.data.loader import Loader
+from youku_mplug_tpu_torch.data.transforms import (
+    test_transform,
+    train_transform,
+)
+from youku_mplug_tpu_torch.data.video_decode import read_frames
 from youku_mplug_tpu_torch.models import importers
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.owl import MPLUGOwlVideo
@@ -161,6 +183,10 @@ def parser() -> argparse.ArgumentParser:
                         "response-masked LM loss, frozen ViT and Bloom "
                         "(+LoRA when text_overrides.lora_rank > 0), "
                         "trainable abstractor / visual_fc / vit_eos")
+    p.add_argument("--train_jsonl", default="",
+                   help="--train: rows {'video', 'question', 'answer'} (or "
+                        "'prompt' pre-formatted); default the YAML's "
+                        "train_file")
     p.add_argument("--resume", default="",
                    help="--train: run (or checkpoints) directory to resume "
                         "from")
@@ -236,17 +262,21 @@ def load_rows(args):
 
 
 def load_videos(args, raw_cfg, rows) -> np.ndarray:
-    """[B, T, H, W, C] uint8 clips, one per row: under --synthetic_data
-    drawn from ``np.random.default_rng(seed)`` exactly as the JAX runner
-    draws them; decoding video files is not ported yet."""
+    """[B, T, H, W, C] uint8 clips, one per row: each row's ``video``
+    decoded (``middle`` sampling) and resized to ``image_res``, or under
+    --synthetic_data drawn from ``np.random.default_rng(seed)`` exactly
+    as the JAX runner draws them."""
     t = int(raw_cfg.get("num_frames", 8))
     res = int(raw_cfg.get("image_res", 224))
-    if not args.synthetic_data:
-        raise NotImplementedError("decoding video files is not ported yet; "
-                                  "use --synthetic_data")
-    rng = np.random.default_rng(args.seed)
-    return rng.integers(0, 255, size=(len(rows), t, res, res, 3),
-                        dtype=np.uint8)
+    if args.synthetic_data:
+        rng = np.random.default_rng(args.seed)
+        return rng.integers(0, 255, size=(len(rows), t, res, res, 3),
+                            dtype=np.uint8)
+    tf = test_transform(res)
+    short_side = int(raw_cfg.get("decode_short_side", 0))
+    return np.stack([tf(read_frames(r["video"], num_frames=t,
+                                    sample="middle", short_side=short_side))
+                     for r in rows])
 
 
 def generation_config(args, cfg, raw_cfg) -> GenerationConfig:
@@ -365,16 +395,26 @@ def prepare(args, cfg, raw_cfg, device, compute_dtype):
     return rows, batch, clips
 
 
-def build_train_loader(args, tcfg: InstructTrainConfig, res: int) -> Loader:
-    """Synthetic clips (``synthetic_length`` of them) in the JAX runner's
-    shuffled order; jsonl training data is not ported yet."""
-    if not args.synthetic_data:
-        raise NotImplementedError(
-            "instruct training reads --synthetic_data only; jsonl datasets "
-            "and video decoding are not ported yet (ROADMAP.md, Queue 1)")
-    ds = SyntheticVideoDataset(length=tcfg.synthetic_length,
-                               num_frames=tcfg.num_frames, size=res)
-    return Loader(ds, tcfg.batch_size, seed=args.seed)
+def build_train_loader(args, tcfg: InstructTrainConfig, raw_cfg,
+                       res: int) -> Loader:
+    """The training loader in the JAX runner's shuffled order: the rows of
+    ``--train_jsonl`` (else the YAML's ``train_file``) on ``num_workers``
+    (default 2) decode threads, or ``synthetic_length`` synthetic
+    clips."""
+    if args.synthetic_data:
+        ds = SyntheticVideoDataset(length=tcfg.synthetic_length,
+                                   num_frames=tcfg.num_frames, size=res)
+        return Loader(ds, tcfg.batch_size, seed=args.seed)
+    # profile_train's parser has no --train_jsonl: the YAML names the file
+    src = getattr(args, "train_jsonl", "") or raw_cfg.get("train_file", "")
+    if not src:
+        raise SystemExit("--train needs --train_jsonl or train_file")
+    ds = InstructJsonlDataset(
+        src, raw_cfg.get("video_root", ""), transform=train_transform(res),
+        num_frames=tcfg.num_frames, train=True, seed=args.seed,
+        decode_short_side=int(raw_cfg.get("decode_short_side", 0)))
+    return Loader(ds, tcfg.batch_size, seed=args.seed,
+                  num_workers=int(raw_cfg.get("num_workers", 2)))
 
 
 def train_setup(args) -> common.Runner:
@@ -386,7 +426,7 @@ def train_setup(args) -> common.Runner:
     device = common.device_of(args)
     cfg, raw = load_owl_config(args.config)
     tcfg = instruct_train_config(raw)
-    loader = build_train_loader(args, tcfg, cfg.vision.img_size)
+    loader = build_train_loader(args, tcfg, raw, cfg.vision.img_size)
     niter = len(loader) if args.max_steps <= 0 else min(len(loader),
                                                         args.max_steps)
     tcfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
@@ -412,12 +452,16 @@ def train_setup(args) -> common.Runner:
 
 
 def make_instruct_batch(runner: common.Runner, raw):
-    """Loader rows -> ``instruct_loss`` inputs on the device: each
-    synthetic caption is the answer to ``SYNTHETIC_QUESTION``."""
+    """Loader rows -> ``instruct_loss`` inputs on the device: the jsonl
+    rows' (question, answer) pairs, or each synthetic caption as the
+    answer to ``SYNTHETIC_QUESTION``."""
     text = runner.model.cfg.text
+    if "question" in raw:
+        pairs = list(zip(raw["question"], raw["answer"]))
+    else:
+        pairs = [(SYNTHETIC_QUESTION, caption) for caption in raw["text"]]
     batch = build_instruct_train_batch(
-        [(SYNTHETIC_QUESTION, caption) for caption in raw["text"]],
-        runner.tokenizer, runner.model.cfg.num_media_tokens,
+        pairs, runner.tokenizer, runner.model.cfg.num_media_tokens,
         pad_id=text.pad_id, eos_id=text.eos_id,
         max_length=runner.cfg.max_length)
     dev = runner.device

@@ -2,7 +2,12 @@
 
 Counterpart of ``youku_mplug_tpu/cli/run_pretrain.py`` on
 ``cli/common.py``: fresh weights drawn by the JAX ``model.init`` rules
-(``bridge.jax_init``), synthetic clips, the trainable/frozen split,
+(``bridge.jax_init``), the clips of the YAML's ``train_file`` (a CSV with
+``video_id:FILE`` and ``title`` columns, or a JSON list) under
+``train_video_root`` with the train transform, or of each group of
+``train_file_groups`` interleaved by ``MetaLoader`` (one loader a group),
+decoded on ``num_workers`` threads; or with ``--synthetic_data``
+procedural clips; the trainable/frozen split,
 AdamW, and one train step per batch; each step prints loss,
 loss_caption, grad_norm, lr, skipped_nonfinite and its wall time, each
 epoch saves a checkpoint (``--save_ckpt_freq``) under
@@ -15,6 +20,9 @@ Usage (GPU):
     python -m youku_mplug_tpu_torch.cli.run_pretrain \
         --config configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml \
         --output_dir out --synthetic_data --max_steps 7 --device cuda
+    python -m youku_mplug_tpu_torch.cli.run_pretrain \
+        --config <a pretrain YAML whose train_file and train_video_root
+                  name your files> --output_dir out --max_steps 7
 """
 
 from __future__ import annotations
@@ -25,8 +33,12 @@ import torch
 
 from youku_mplug_tpu_torch.cli import common
 from youku_mplug_tpu_torch.config import RunConfig, load_config
-from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
-from youku_mplug_tpu_torch.data.loader import Loader
+from youku_mplug_tpu_torch.data.datasets import (
+    PretrainVideoDataset,
+    SyntheticVideoDataset,
+)
+from youku_mplug_tpu_torch.data.loader import MetaLoader
+from youku_mplug_tpu_torch.data.transforms import train_transform
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
 from youku_mplug_tpu_torch.train.trainer import make_train_step
@@ -36,12 +48,44 @@ def base_parser(description: str = "mPLUG-Video pretraining (PyTorch)"):
     return common.base_parser(description)
 
 
-def build_loader(args, cfg: RunConfig) -> Loader:
-    if not args.synthetic_data:
-        raise NotImplementedError("only --synthetic_data is ported yet")
-    ds = SyntheticVideoDataset(length=cfg.get("synthetic_length", 64),
-                               num_frames=cfg.num_frames, size=cfg.image_res)
-    return Loader(ds, cfg.batch_size, seed=args.seed)
+def build_loader(args, cfg: RunConfig):
+    """The training loader (JAX ``build_loader``): synthetic clips, the
+    ``train_file``, or ``train_file_groups`` through ``MetaLoader``."""
+    if args.synthetic_data:
+        ds = SyntheticVideoDataset(length=cfg.get("synthetic_length", 64),
+                                   num_frames=cfg.num_frames,
+                                   size=cfg.image_res)
+        return common.make_loader(args, cfg, ds)
+
+    def loader(ann_file):
+        return common.make_loader(args, cfg, PretrainVideoDataset(
+            ann_file, cfg.get("train_video_root"),
+            transform=train_transform(cfg.image_res),
+            num_frames=cfg.num_frames, seed=args.seed,
+            **common.decode_kwargs(cfg)))
+    groups = cfg.get("train_file_groups")
+    if groups:
+        return _MetaLoaderAdapter(MetaLoader([loader(g) for g in groups],
+                                             seed=args.seed))
+    return loader(cfg.get("train_file"))
+
+
+class _MetaLoaderAdapter:
+    """``MetaLoader``'s batches without their source index (the pretrain
+    loss is the same for every source)."""
+
+    def __init__(self, meta: MetaLoader):
+        self.meta = meta
+
+    def set_epoch(self, epoch):
+        self.meta.set_epoch(epoch)
+
+    def __len__(self):
+        return len(self.meta)
+
+    def __iter__(self):
+        for _, batch in self.meta:
+            yield batch
 
 
 def setup(args) -> common.Runner:

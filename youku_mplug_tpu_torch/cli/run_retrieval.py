@@ -13,12 +13,17 @@ decoder is not differentiated.  Evaluation extracts every text's feature
 (the split in order, the last batch partial), and reports R@1/5/10 both
 ways and their means (``itm_eval``).  Each epoch saves a checkpoint and
 evaluates the validation split; ``--evaluate_only --resume <dir>`` only
-evaluates the test split.  Only ``--synthetic_data`` is ported.
+evaluates the test split.  The splits are the YAML's ``train_file``,
+``val_file`` and ``test_file`` under ``video_root``
+(``data/datasets.RetrievalVideoDataset``: an evaluation split's ``text``,
+``vid2txt`` and ``txt2vid`` come from its rows), decoded on
+``num_workers`` threads; or with ``--synthetic_data`` procedural clips.
 
 Usage:
     python -m youku_mplug_tpu_torch.cli.run_retrieval \\
         --config configs/retrieval/retrieval_gpt3_1.3B_youku_v0.yaml \\
         --synthetic_data --max_steps 2 --output_dir out
+and without ``--synthetic_data`` on a copy whose files name yours.
 """
 
 from __future__ import annotations
@@ -31,10 +36,14 @@ import torch
 from youku_mplug_tpu_torch.cli import common
 from youku_mplug_tpu_torch.config import RunConfig, load_config
 from youku_mplug_tpu_torch.data.datasets import (
+    RetrievalVideoDataset,
     SyntheticRetrievalSplit,
     SyntheticVideoDataset,
 )
-from youku_mplug_tpu_torch.data.loader import Loader
+from youku_mplug_tpu_torch.data.transforms import (
+    test_transform,
+    train_transform,
+)
 from youku_mplug_tpu_torch.evals.metrics import itm_eval
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
@@ -46,17 +55,27 @@ def parser():
 
 
 def build_datasets(args, cfg: RunConfig):
-    """(train, val, test) synthetic datasets of ``synthetic_length``
-    (default 16) clips; val and test carry the retrieval fields."""
-    if not args.synthetic_data:
-        raise NotImplementedError(
-            "retrieval csv files need the video decoding "
-            "(youku_mplug_tpu/data/video_decode.py), which is not ported "
-            "yet: pass --synthetic_data")
-    n = cfg.get("synthetic_length", 16)
-    kw = dict(num_frames=cfg.num_frames, size=cfg.image_res)
-    return (SyntheticVideoDataset(length=n, **kw),
-            SyntheticRetrievalSplit(n, **kw), SyntheticRetrievalSplit(n, **kw))
+    """(train, val, test) datasets (JAX ``build_datasets``): the YAML's
+    files, or ``synthetic_length`` (default 16) synthetic clips whose val
+    and test splits carry the retrieval fields."""
+    if args.synthetic_data:
+        n = cfg.get("synthetic_length", 16)
+        kw = dict(num_frames=cfg.num_frames, size=cfg.image_res)
+        return (SyntheticVideoDataset(length=n, **kw),
+                SyntheticRetrievalSplit(n, **kw),
+                SyntheticRetrievalSplit(n, **kw))
+
+    def split(key):
+        train = key == "train_file"
+        return RetrievalVideoDataset(
+            cfg.get(key), cfg.get("video_root"),
+            transform=(train_transform if train else test_transform)(
+                cfg.image_res),
+            num_frames=cfg.num_frames, train=train,
+            seed=args.seed if train else 0,
+            has_multi_vision_gt=cfg.get("has_multi_vision_gt", False),
+            **common.decode_kwargs(cfg))
+    return split("train_file"), split("val_file"), split("test_file")
 
 
 def prepare(args):
@@ -64,8 +83,8 @@ def prepare(args):
     ``text_proj``), the validation and test splits."""
     cfg = load_config(args.config)
     train_ds, val_ds, test_ds = build_datasets(args, cfg)
-    runner = common.setup(args, cfg, Loader(train_ds, cfg.batch_size,
-                                            seed=args.seed), proj_heads=True)
+    runner = common.setup(args, cfg, common.make_loader(args, cfg, train_ds),
+                          proj_heads=True)
     return runner, val_ds, test_ds
 
 
@@ -107,7 +126,8 @@ def features(runner: common.Runner, dataset, batch_size=None
                                           "attention_mask"]})
         f = model.extract_text_feature(b["input_ids"], b["attention_mask"])
         tfeats.append(f.float().cpu().numpy()[:len(chunk)])
-    for raw in Loader(dataset, bs, shuffle=False, drop_last=False):
+    for raw in common.make_loader(runner.args, cfg, dataset, shuffle=False,
+                                  batch_size=bs, drop_last=False):
         video = normalize_clip(
             torch.from_numpy(raw["video"]).to(runner.device),
             dtype=model.policy.compute_dtype)

@@ -14,7 +14,9 @@ every clip of the split against every text, ``eval_video_batch`` clips
 (default 4) and 8 texts a call (``itm_eval_scores``), and reports the
 recall of the generative scores (``gen_*``) and of the head's P(match)
 (``cls_*``).  ``--evaluate_only --resume <dir>`` only evaluates the test
-split.  Only ``--synthetic_data`` is ported.
+split.  The splits are ``run_retrieval.build_datasets``': the YAML's
+files under ``video_root`` (each evaluation split's texts and clip <->
+text maps from its rows), or with ``--synthetic_data`` procedural clips.
 
 Unlike the JAX package, a ``use_cls`` config whose head has fewer than
 two outputs raises here: P(match) reads column 1 of the head's softmax,
@@ -39,7 +41,6 @@ import torch
 from youku_mplug_tpu_torch.cli import common
 from youku_mplug_tpu_torch.cli.run_retrieval import build_datasets
 from youku_mplug_tpu_torch.config import load_config
-from youku_mplug_tpu_torch.data.loader import Loader
 from youku_mplug_tpu_torch.evals.metrics import itm_eval
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
@@ -76,8 +77,7 @@ def prepare(args):
             "softmax; the JAX package reads a 1-way head's column 0, 1 for "
             "every pair) - set num_classes: 2")
     train_ds, val_ds, test_ds = build_datasets(args, cfg)
-    runner = common.setup(args, cfg, Loader(train_ds, cfg.batch_size,
-                                            seed=args.seed))
+    runner = common.setup(args, cfg, common.make_loader(args, cfg, train_ds))
     return runner, val_ds, test_ds
 
 
@@ -164,7 +164,9 @@ def evaluation(runner: common.Runner, dataset) -> Dict[str, float]:
     runner.model.eval()
     try:
         with torch.inference_mode():
-            for raw in Loader(dataset, vb, shuffle=False, drop_last=False):
+            for raw in common.make_loader(runner.args, runner.cfg, dataset,
+                                          shuffle=False, batch_size=vb,
+                                          drop_last=False):
                 video = torch.from_numpy(raw["video"]).to(runner.device)
                 cols = [score_block(runner, video,
                                     texts[i:i + TEXTS_PER_CALL])

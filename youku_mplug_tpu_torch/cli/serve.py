@@ -14,12 +14,16 @@ timm / TimeSformer file, ``models/importers.import_all``), then with
 ``--resume <train run dir>`` (or ``--evaluate_only``) the run's latest
 training checkpoint (``cli/common.resume_state``; the model then keeps
 the training split, fp32 trainable and bf16 frozen leaves, so it holds
-the checkpoint's values bitwise).  Real video files and text decoding are
-not ported yet, so results carry token ids.  A YAML with
-``text_overrides: {kv_cache_dtype: int8}`` serves over the int8 KV cache
-(``ops/kv_cache.py``).
+the checkpoint's values bitwise).  The clips are the caption YAML's test
+split (``test_file`` under ``video_root``, ``run_caption.dataset``, in
+order on ``num_workers`` decode threads), or with
+``--synthetic_data`` procedural clips.  Each result carries the video id,
+the caption (the tokens decoded by the run's tokenizer, spaces removed,
+as the JAX CLI writes it), the tokens, their count and the request's
+latency.  A YAML with ``text_overrides: {kv_cache_dtype: int8}`` serves
+over the int8 KV cache (``ops/kv_cache.py``).
 
-Usage (synthetic smoke, GPU):
+Usage (GPU; ``--synthetic_data`` in place of the YAML's files):
     python -m youku_mplug_tpu_torch.cli.serve \
         --config configs/caption/serve_gpt3_1.3B_flagship.yaml \
         --synthetic_data --num_requests 16 --device cuda
@@ -32,6 +36,9 @@ Usage (synthetic smoke, GPU):
     python -m youku_mplug_tpu_torch.cli.serve \
         --config configs/caption/serve_gpt3_1.3B_flagship.yaml \
         --synthetic_data --resume <a run_caption output_dir>
+    python -m youku_mplug_tpu_torch.cli.serve \
+        --config <a serve YAML whose test_file and video_root name your
+                  files> --num_requests 16
 """
 
 from __future__ import annotations
@@ -45,9 +52,8 @@ import numpy as np
 import torch
 
 from youku_mplug_tpu_torch.bridge import seeded_init
-from youku_mplug_tpu_torch.cli import common
+from youku_mplug_tpu_torch.cli import common, run_caption
 from youku_mplug_tpu_torch.config import load_config
-from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
 from youku_mplug_tpu_torch.models import importers
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
@@ -81,7 +87,8 @@ def serve_parser():
                    help="serve the latest checkpoint of --resume, else of "
                         "--output_dir; raises when there is none")
     p.add_argument("--synthetic_data", action="store_true",
-                   help="procedural videos (the only source ported so far)")
+                   help="procedural clips in place of the YAML's test_file "
+                        "and video_root")
     p.add_argument("--device", default="cuda",
                    help="cuda[:i] (default), or cpu")
     p.add_argument("--num_slots", type=int, default=8)
@@ -109,24 +116,19 @@ def serve_parser():
     return p
 
 
-def _clip_batches(cfg, num_frames: int, size: int):
-    """Batches of uint8 (B, T, H, W, C) synthetic clips and their ids, in
-    order, dropping the last partial batch (the JAX loader's contract)."""
-    ds = SyntheticVideoDataset(length=cfg.get("synthetic_length", 32),
-                               num_frames=num_frames, size=size)
-    bs = cfg.batch_size
-    for start in range(0, len(ds) - bs + 1, bs):
-        items = [ds[i] for i in range(start, start + bs)]
-        yield (np.stack([it["video"] for it in items]),
-               [it["video_id"] for it in items])
+def clip_batches(args, cfg):
+    """(uint8 clips, video ids) batches of the caption YAML's test split,
+    or of synthetic clips: in order, the last partial batch dropped (JAX
+    serve's loader)."""
+    test = run_caption.dataset(args, cfg, train=False)
+    for raw in common.make_loader(args, cfg, test, shuffle=False):
+        yield raw["video"], raw["video_id"]
 
 
 def build(args):
     """-> (run config, model on the device, device), its weights as the
     module docstring says.  Raises when the requested device is absent:
     nothing falls back to the CPU."""
-    if not args.synthetic_data:
-        raise NotImplementedError("only --synthetic_data is ported yet")
     device = common.device_of(args)
     cfg = load_config(args.config)
     resume = bool(args.resume or args.evaluate_only)
@@ -144,11 +146,20 @@ def build(args):
     return cfg, model.eval(), device
 
 
+def _tokenizer(cfg):
+    return load_tokenizer(cfg.get("text_decoder", ""),
+                          cfg.model.text.vocab_size)
+
+
+def _caption(tok, tokens, eos_id: int) -> str:
+    """The JAX CLI's caption text of a request's tokens."""
+    return tok.detokenize(list(tokens) + [eos_id]).replace(" ", "").strip()
+
+
 def _prompt(cfg):
     """-> (prompt ids, their true length, generation config): the JAX
     CLI's prompt, the tokenized prompt minus its trailing eos."""
-    tok = load_tokenizer(cfg.get("text_decoder", ""),
-                         cfg.model.text.vocab_size)
+    tok = _tokenizer(cfg)
     ids = tok.tokenize(cfg.prompt)[:cfg.max_length]
     prompt_len = len(ids) - 1
     gen_cfg = GenerationConfig(
@@ -173,16 +184,18 @@ def make_engine(args, cfg, lm):
 
 
 def run(args, cfg, model, device):
-    """Serve ``args.num_requests`` synthetic clips.  Returns
+    """Serve ``args.num_requests`` clips of ``clip_batches``.  Returns
     (stats, per-request results, the engine)."""
     engine, prompt_vec = make_engine(args, cfg, model.text_decoder)
     max_new = engine.config.max_new_tokens
+    tok = _tokenizer(cfg)
 
     pending = []  # (video_id, query_embeds row)
     results, submit_t, finish_t = {}, {}, {}
     served = 0
     t_start = time.perf_counter()
-    for clips, vids in _clip_batches(cfg, cfg.num_frames, cfg.image_res):
+    batches = clip_batches(args, cfg)
+    for clips, vids in batches:
         with torch.inference_mode():
             video = normalize_clip(torch.from_numpy(clips).to(device),
                                    dtype=model.policy.compute_dtype)
@@ -204,6 +217,7 @@ def run(args, cfg, model, device):
                 results[fin.rid]["tokens"] = fin.tokens
         if served >= args.num_requests:
             break
+    batches.close()  # stops the loader's workers
     for fin in engine.run_to_completion():
         finish_t[fin.rid] = time.perf_counter()
         results[fin.rid]["tokens"] = fin.tokens
@@ -212,8 +226,9 @@ def run(args, cfg, model, device):
     out = []
     for rid, r in sorted(results.items()):
         toks = r.get("tokens", [])
-        out.append({"video_id": r["video_id"], "tokens": toks,
-                    "n_tokens": len(toks),
+        out.append({"video_id": r["video_id"],
+                    "caption": _caption(tok, toks, engine.config.eos_id),
+                    "tokens": toks, "n_tokens": len(toks),
                     "latency_s": finish_t.get(rid, 0) - submit_t.get(rid, 0)})
     lat = [o["latency_s"] for o in out if o["latency_s"] > 0]
     stats = {
@@ -238,6 +253,7 @@ def run_speculative(args, cfg, model, device):
     twin as the draft.  Returns (stats, per-request results)."""
     lm = model.text_decoder
     prompt_vec, prompt_len, gen_cfg = _prompt(cfg)
+    tok = _tokenizer(cfg)
     k = args.speculative
     d_layers = 0
     if args.draft == "twin":
@@ -246,7 +262,8 @@ def run_speculative(args, cfg, model, device):
         draft = twin_draft(lm, d_layers)
     results, out = [], None
     t_start = time.perf_counter()
-    for clips, vids in _clip_batches(cfg, cfg.num_frames, cfg.image_res):
+    batches = clip_batches(args, cfg)
+    for clips, vids in batches:
         if len(results) >= args.num_requests:
             break
         video = normalize_clip(torch.from_numpy(clips).to(device),
@@ -268,8 +285,11 @@ def run_speculative(args, cfg, model, device):
         dt = time.perf_counter() - t0
         for vid, seq in zip(vids[:args.num_requests - len(results)], seqs):
             toks = [int(t) for t in seq if t != gen_cfg.pad_id]
-            results.append({"video_id": str(vid), "tokens": toks,
-                            "n_tokens": len(toks), "latency_s": dt})
+            results.append({"video_id": str(vid),
+                            "caption": _caption(tok, toks, gen_cfg.eos_id),
+                            "tokens": toks, "n_tokens": len(toks),
+                            "latency_s": dt})
+    batches.close()
     wall = time.perf_counter() - t_start
     stats = {"requests": len(results), "wall_s": round(wall, 3),
              "tokens_per_sec": round(sum(r["n_tokens"] for r in results)
@@ -289,7 +309,7 @@ def main(args):
         stats, out, _ = run(args, cfg, model, device)
     os.makedirs(args.output_dir, exist_ok=True)
     with open(os.path.join(args.output_dir, "serve_results.json"), "w") as f:
-        json.dump(out, f)
+        json.dump(out, f, ensure_ascii=False)
     print("* Serve stats:", json.dumps(stats), flush=True)
     return stats
 

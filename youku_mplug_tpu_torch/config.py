@@ -6,11 +6,15 @@
 ``freeze_text_decoder``, the ``optimizer`` and ``schedular`` blocks (with
 ``visual_backbone_scale`` set for a ``clip_model`` tower, as the JAX
 loader sets it), ``update_freq``, ``epochs``, ``prompt``, ``batch_size``,
-``max_length``, ``image_res``, and via ``RunConfig.get`` as the JAX
-loader leaves them in its raw dict ``synthetic_length``,
-``text_decoder``, ``max_new_tokens``, ``beam_size``,
-``async_checkpointing``, ``classname_file``, ``eval_video_batch`` and
-``import_torch_weights`` (``models/importers.import_all``);
+``num_workers`` (default 8), ``max_length``, ``image_res``, and via
+``RunConfig.get`` as the JAX loader leaves them in its raw dict
+``synthetic_length``, ``text_decoder``, ``max_new_tokens``,
+``beam_size``, ``async_checkpointing``, ``classname_file``,
+``eval_video_batch``, ``import_torch_weights``
+(``models/importers.import_all``), the annotation files (``train_file``,
+``train_file_groups``, ``val_file``, ``test_file``), the video roots
+(``video_root``, ``train_video_root``), ``workers_impl``,
+``decode_short_side`` and ``has_multi_vision_gt``;
 ``dump_config`` writes the merged YAML
 into a run's output directory; and ``load_owl_config`` /
 ``instruct_train_config``, the mPLUG-Owl instruct YAML of
@@ -42,6 +46,7 @@ class RunConfig:
     model: MPLUGVideoConfig
     optimizer: OptimizerConfig = OptimizerConfig()
     batch_size: int = 8
+    num_workers: int = 8
     max_length: int = 80
     num_frames: int = 8
     image_res: int = 224
@@ -125,6 +130,7 @@ def load_config(yaml_path: str,
     return RunConfig(
         raw=raw, model=model, optimizer=_optimizer_config(raw, model),
         batch_size=int(raw.get("batch_size", 8)),
+        num_workers=int(raw.get("num_workers", 8)),
         max_length=int(raw.get("max_length", 80)),
         num_frames=num_frames,
         image_res=int(raw.get("image_res", vision.img_size)),

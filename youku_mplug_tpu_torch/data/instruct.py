@@ -1,19 +1,24 @@
-"""Instruction prompts for the mPLUG-Owl video path.
+"""Instruction prompts and data for the mPLUG-Owl video path.
 
-The prompt helpers of ``youku_mplug_tpu/data/instruct.py``, copied
-because that module's package imports the JAX loader: the Human/AI
+Counterpart of ``youku_mplug_tpu/data/instruct.py``: the Human/AI
 conversation template with one ``<|video|>`` placeholder, its expansion
 into ``num_media_tokens`` media positions, the right-padded serving
-batch, the (question, answer) training batch with its prompt mask, and
-the whitespace hash tokenizer of synthetic runs (the ids depend on
-Python's string hash, so they are the JAX package's within one process).
+batch, the (question, answer) training batch with its prompt mask,
+``InstructJsonlDataset`` (jsonl rows of a video, a question and an
+answer, each clip decoded from its file), and the whitespace hash
+tokenizer of synthetic runs (the ids depend on Python's string hash, so
+they are the JAX package's within one process).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import List, Sequence, Tuple
 
 import numpy as np
+
+from youku_mplug_tpu_torch.data.video_decode import read_frames
 
 VIDEO_PLACEHOLDER = "<|video|>"
 
@@ -121,6 +126,51 @@ def build_instruct_train_batch(examples: Sequence[Tuple[str, str]],
         prompt_mask[i, :n_p] = 1
     return {"input_ids": input_ids, "attention_mask": attention,
             "media_mask": media_mask, "prompt_mask": prompt_mask}
+
+
+class InstructJsonlDataset:
+    """jsonl rows ``{"video": path, "question": text, "answer": text}``
+    (``"prompt"`` may stand for ``"question"``: a conversation already in
+    the template), ``video`` under ``video_root`` when that is set.  Each
+    sample decodes ``num_frames`` frames (``rand`` in training, else
+    ``middle``) from a generator seeded by (seed, epoch, index) in
+    training and (seed, index) otherwise, then the transform."""
+
+    def __init__(self, jsonl_path: str, video_root: str = "",
+                 transform=None, num_frames: int = 8, train: bool = True,
+                 seed: int = 0, decode_short_side: int = 0):
+        with open(jsonl_path) as f:
+            self.rows = [json.loads(ln) for ln in f if ln.strip()]
+        self.video_root = video_root
+        self.transform = transform
+        self.num_frames = num_frames
+        self.train = train
+        self.seed = seed
+        self.decode_short_side = decode_short_side
+        self._epoch = 0
+
+    def set_epoch(self, epoch):
+        self._epoch = epoch
+
+    def __len__(self):
+        return len(self.rows)
+
+    def __getitem__(self, index):
+        r = self.rows[index]
+        rng = np.random.default_rng(
+            (self.seed, self._epoch, index) if self.train
+            else (self.seed, index))
+        path = r["video"]
+        if self.video_root:
+            path = os.path.join(self.video_root, path)
+        frames = read_frames(path, num_frames=self.num_frames,
+                             sample="rand" if self.train else "middle",
+                             rng=rng, short_side=self.decode_short_side)
+        if self.transform is not None:
+            frames = self.transform(frames, rng=rng)
+        return {"video": frames,
+                "question": r.get("prompt") or r.get("question", ""),
+                "answer": r.get("answer", ""), "index": index}
 
 
 class WhitespaceTokenizer:

@@ -1,22 +1,58 @@
-"""Single-process batch loader in ``ShardedLoader``'s order.
+"""Batches of a dataset in ``ShardedLoader``'s order, decoded by a pool
+of workers ahead of the consumer.
 
-Counterpart of ``youku_mplug_tpu.data.loader.ShardedLoader`` on one host
-(which there reads the process index from jax), with the options the
-training and evaluation loops use: the epoch's order is
-``np.random.default_rng(seed * 100_003 + epoch).permutation(n)``, or
-the dataset's own with ``shuffle=False``; the
-last partial batch is dropped (kept with ``drop_last=False``, as the
-evaluations read every sample), and samples are collated the same way
-(arrays stacked, ints to int32, floats to float32, anything else kept
-as a list).  No worker threads: the host makes each batch between two
-train steps.
+Counterpart of ``youku_mplug_tpu/data/loader.py`` on one process (where
+``ShardedLoader`` reads the process index from jax): the epoch's order
+is ``np.random.default_rng(seed * 100_003 + epoch).permutation(n)``, or
+the dataset's own with ``shuffle=False``; the last partial batch is
+dropped (kept with ``drop_last=False``, as the evaluations read every
+sample), and samples are collated the same way (arrays stacked, ints to
+int32, floats to float32, anything else kept as a list).
+
+``num_workers=0`` makes each batch in the consumer's thread when it asks
+for it.  ``num_workers >= 1`` runs JAX's pipeline: a producer thread
+submits each batch's samples to a pool of ``num_workers`` decode threads
+(cv2's decode and resize release the GIL), or with
+``workers_impl="process"`` of worker processes, two batches ahead of the
+one it collates, and puts collated batches on a queue of ``prefetch``.
+The batches are the same either way: every random draw of a sample comes
+from the sample's own generator.  A consumer that stops early stops the
+producer and waits for it and its pool; an error in a worker is raised in
+the consumer.
+
+The worker processes are spawned, each given the dataset once (pickled,
+as it stands after ``set_epoch``), where JAX forks them: a fork of a
+process that runs threads (the producer, the consumer's CUDA or JAX
+threads) can leave a child on a lock no thread of its own will release,
+and such a child hangs the pool's shutdown (seen in the CPU tests under
+pytest-xdist).  A spawned worker starts from a fresh interpreter and
+imports the dataset's modules (about a second).
+
+``MetaLoader`` interleaves several loaders in a seeded order (JAX's
+``MetaLoader``), yielding (loader index, batch).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List
+import multiprocessing as mp
+import queue
+import threading
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from typing import Any, Dict, Iterator, List, Sequence
 
 import numpy as np
+
+_AHEAD = 2  # batches submitted beyond the one being collated
+_worker_dataset = None  # a worker process's copy of the dataset
+
+
+def _init_worker(dataset):
+    global _worker_dataset
+    _worker_dataset = dataset
+
+
+def _fetch(index: int):
+    return _worker_dataset[index]
 
 
 def collate(samples: List[dict]) -> Dict[str, Any]:
@@ -34,14 +70,29 @@ def collate(samples: List[dict]) -> Dict[str, Any]:
     return out
 
 
+class _Failed:
+    """A worker's exception, carried through the queue to the consumer."""
+
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
 class Loader:
     def __init__(self, dataset, batch_size: int, *, seed: int = 0,
-                 shuffle: bool = True, drop_last: bool = True):
+                 shuffle: bool = True, drop_last: bool = True,
+                 num_workers: int = 0, prefetch: int = 4,
+                 workers_impl: str = "thread"):
+        if workers_impl not in ("thread", "process"):
+            raise ValueError(f"workers_impl must be 'thread' or 'process', "
+                             f"got {workers_impl!r}")
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.num_workers = num_workers
+        self.prefetch = prefetch
+        self.workers_impl = workers_impl
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -54,10 +105,107 @@ class Loader:
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 
-    def __iter__(self) -> Iterator[Dict[str, Any]]:
+    def batch_indices(self) -> List[np.ndarray]:
+        """This epoch's batches of dataset indices, in order."""
         n = len(self.dataset)
         order = (np.random.default_rng(self.seed * 100_003 + self.epoch)
                  .permutation(n) if self.shuffle else np.arange(n))
-        for i in range(len(self)):
-            idx = order[i * self.batch_size:(i + 1) * self.batch_size]
-            yield collate([self.dataset[int(j)] for j in idx])
+        return [order[i * self.batch_size:(i + 1) * self.batch_size]
+                for i in range(len(self))]
+
+    def __iter__(self) -> Iterator[Dict[str, Any]]:
+        if self.num_workers <= 0:
+            for idx in self.batch_indices():
+                yield collate([self.dataset[int(j)] for j in idx])
+            return
+        yield from self._pipelined(self.batch_indices())
+
+    def _pool(self):
+        """-> (the worker pool, a function submitting one index)."""
+        if self.workers_impl == "process":
+            pool = ProcessPoolExecutor(
+                self.num_workers, mp_context=mp.get_context("spawn"),
+                initializer=_init_worker, initargs=(self.dataset,))
+            return pool, lambda i: pool.submit(_fetch, i)
+        pool = ThreadPoolExecutor(self.num_workers)
+        return pool, lambda i: pool.submit(self.dataset.__getitem__, i)
+
+    def _pipelined(self, batches) -> Iterator[Dict[str, Any]]:
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    pass
+            return False
+
+        def produce():
+            pool, submit = self._pool()
+            try:
+                pending = []
+                for idx in batches:
+                    pending.append([submit(int(i)) for i in idx])
+                    while len(pending) > _AHEAD:
+                        if stop.is_set() or not put(collate(
+                                [f.result() for f in pending.pop(0)])):
+                            return
+                for futs in pending:
+                    if stop.is_set() or not put(collate(
+                            [f.result() for f in futs])):
+                        return
+                put(None)
+            except BaseException as e:  # raised again in the consumer
+                put(_Failed(e))
+            finally:
+                pool.shutdown(wait=True, cancel_futures=True)
+
+        thread = threading.Thread(target=produce, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, _Failed):
+                    raise item.error
+                yield item
+        finally:
+            stop.set()
+            thread.join()
+
+
+class MetaLoader:
+    """Several loaders interleaved: each epoch takes every batch of every
+    loader, in the order ``default_rng(seed * 7_919 + epoch)`` permutes
+    the loaders' indices (each repeated ``len(loader)`` times)."""
+
+    def __init__(self, loaders: Sequence[Loader], seed: int = 0):
+        self.loaders = list(loaders)
+        self.seed = seed
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+        for ld in self.loaders:
+            ld.set_epoch(epoch)
+
+    def __len__(self):
+        return sum(len(ld) for ld in self.loaders)
+
+    def __iter__(self):
+        order = []
+        for i, ld in enumerate(self.loaders):
+            order += [i] * len(ld)
+        order = np.random.default_rng(
+            self.seed * 7_919 + self.epoch).permutation(order)
+        its = [iter(ld) for ld in self.loaders]
+        try:
+            for src in order:
+                yield int(src), next(its[src])
+        finally:
+            for it in its:
+                it.close()

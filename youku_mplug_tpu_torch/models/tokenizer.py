@@ -1,20 +1,25 @@
-"""Token ids without a trained vocabulary.
+"""Tokenizers of the GPT-3 decoder, and batch padding.
 
-The JAX package's ``ToyTokenizer`` (youku_mplug_tpu/models/tokenizer.py),
-which synthetic-data runs use: a deterministic character hash with the
-same special ids, ``tokenize_prompt`` (the (prompt, text) segments) and
-``detokenize`` (the ids as space-joined numbers); and ``BatchTokenizer``:
-strings or (prompt, text) pairs to numpy int32 ids padded to
-``max_length`` or to the longest (``padding="longest"``), with the
-attention mask and, for pairs, each sample's prompt length; ``decode``
-turns ids back into text.  The trained JiebaBPE tokenizer is not ported
-yet: ``build_tokenizer`` raises where a run names its files.
+Counterpart of ``youku_mplug_tpu/models/tokenizer.py``:
+``JiebaBPETokenizer``, the trained one (jieba word cuts fed to a HF
+``tokenizers`` BPE read from a model directory's ``tokenizer.json``;
+``<sep>`` is bos, ``<|endoftext|>`` eos and pad); ``ToyTokenizer``, which
+synthetic-data runs use (a deterministic character hash with the same
+special ids; ``detokenize`` gives the ids as space-joined numbers); and
+``BatchTokenizer``: strings or (prompt, text) pairs to numpy int32 ids
+padded to ``max_length`` or to the longest (``padding="longest"``), with
+the attention mask and, for pairs, each sample's prompt length;
+``decode`` turns ids back into text.  ``load_tokenizer`` takes the
+JiebaBPE one wherever the model directory holds a ``tokenizer.json``:
+jieba and ``tokenizers`` are imported in its constructor, so where they
+are missing the run fails with the ImportError, never with toy ids in
+their place.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
@@ -46,16 +51,59 @@ class ToyTokenizer:
                         if int(t) not in (self.bos_id, self.eos_id))
 
 
-def load_tokenizer(model_dir: str, vocab_size: int) -> ToyTokenizer:
-    """The run's tokenizer: a model directory with a ``tokenizer.json``
-    asks for the JiebaBPE one, which is not ported (toy ids in its place
-    would be wrong text); otherwise the toy tokenizer over ``vocab_size``
-    ids."""
-    if model_dir and os.path.exists(os.path.join(model_dir,
-                                                 "tokenizer.json")):
-        raise NotImplementedError(
-            f"{model_dir} holds a JiebaBPE tokenizer (tokenizer.json), "
-            "which is not ported yet")
+class JiebaBPETokenizer:
+    """jieba's word cuts, each a pre-token of the BPE in
+    ``tokenizer_json_file``."""
+
+    def __init__(self, tokenizer_json_file: str):
+        from tokenizers import Tokenizer
+
+        self.tokenizer = Tokenizer.from_file(tokenizer_json_file)
+        import logging
+
+        import jieba
+
+        jieba.setLogLevel(logging.INFO)
+        self.jieba = jieba
+        vocab = self.tokenizer.get_vocab(with_added_tokens=True)
+        self.eod_id = vocab["<|endoftext|>"]
+        self.bos_id = vocab["<sep>"]
+        self.pad_id = self.eod_id
+        self.eos_id = self.eod_id
+
+    @property
+    def vocab_size(self) -> int:
+        return self.tokenizer.get_vocab_size(with_added_tokens=True)
+
+    def _bpe(self, text: str) -> List[int]:
+        seg = list(self.jieba.cut(text))
+        return self.tokenizer.encode(
+            seg, is_pretokenized=True, add_special_tokens=True).ids
+
+    def tokenize(self, text: str, add_special_tokens: bool = True
+                 ) -> List[int]:
+        ids = self._bpe(text)
+        if add_special_tokens:
+            ids = [self.bos_id] + ids + [self.eos_id]
+        return ids
+
+    def tokenize_prompt(self, prompt_text: str, text: str):
+        """The (bos, prompt, text, eos) id segments of a pair."""
+        return ([self.bos_id], self._bpe(prompt_text), self._bpe(text),
+                [self.eos_id])
+
+    def detokenize(self, token_ids) -> str:
+        return self.tokenizer.decode([int(t) for t in token_ids],
+                                     skip_special_tokens=True)
+
+
+def load_tokenizer(model_dir: str, vocab_size: int
+                   ) -> Union[JiebaBPETokenizer, ToyTokenizer]:
+    """The run's tokenizer: JiebaBPE where ``model_dir`` holds a
+    ``tokenizer.json``, else the toy tokenizer over ``vocab_size`` ids."""
+    tok_json = os.path.join(model_dir or "", "tokenizer.json")
+    if model_dir and os.path.exists(tok_json):
+        return JiebaBPETokenizer(tok_json)
     return ToyTokenizer(vocab_size=vocab_size)
 
 
