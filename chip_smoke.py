@@ -260,7 +260,38 @@ the last line is printed):
    FILES_OWL_ROWS rows of the clips and 2 --train --train_jsonl LoRA
    steps, Bloom cut to OWL_CUT: K1, K5-ALiBi (with K6) and the ALiBi
    backward's launches exact, phase 8's teacher-forced gate on the
-   decoded clips.
+   decoded clips;
+25. instruct_batched (run after phase 8a, on phase 7's bf16 model):
+   run_instruct's default path without --engine (generate_batched, i.e.
+   models/owl.generate_instruct) on the 16 requests, greedy, 64 new
+   tokens, the prompts through a Bloom-form tokenizer.json the script
+   trains with ``tokenizers`` (--tokenizer; OWL_TOKENIZER_VOCAB
+   entries): K1 once per ViT block and K5 ALiBi (with K6) once per layer
+   a decode step, no other kernel; the tokens equal to the engine's on
+   the same requests up to each request's first near-tie (as 8a); the
+   batched prefill and first FORCED_STEPS steps replayed with the plain
+   versions within OWL_REL_TOL; every answer the tokenizer's text, a few
+   printed with the share of kept ids inside its vocabulary;
+26. instruct_beam and instruct_beam_int8 (after phase 25 on the bf16
+   model; after phase 8b on the int8 one): the same path with a YAML copy
+   setting beam_size OWL_BEAM (80 cache rows): launches as phase 25 (K5
+   int8 ALiBi on the int8 cache), every returned sequence's score against
+   its plain rescore within RESCORE_TOL_PER_TOKEN a token, the answers'
+   text, host ms a beam step and, traced, device ms a step by category,
+   the reorder's ms against its bound, launches and idle share.  Phase 2
+   holds K5 ALiBi, bf16 and int8, at the beam step's cache
+   [8 of 30 layers, 80, 256, 2x32x128];
+27. shipped (after phase 14): phase 13's recipe runs on the shipped YAMLs
+   no phase above runs: the reference pretrain recipe at GPT-3 1.3B and
+   2.7B (configs/pretrain/gpt3_*/pretrain_gpt3_freezeGPT_youku_v0.yaml:
+   clip-b16 at 4 frames, batch 48, the decoders' 0.1 dropouts; 2 steps,
+   one K4, dq, dk/dv at d 96 and one delta a step, the replays and the
+   dropout law; no evaluation), retrieval at 2.7B (batch 96, no kernel:
+   the text tower's 80 tokens at 32 heads of 80 run plain attention, as
+   in JAX) and ITM at 2.7B (batch ITM27_BATCH, num_classes 2; its
+   evaluation 64 K4 d 80 launches and one K4 d 96 a call), each recipe's
+   geometry checked and its cuts printed ([shipped], [pretrain13],
+   [pretrain27], [retrieval27], [itm27] lines).
 """
 
 from __future__ import annotations
@@ -399,6 +430,36 @@ FILE_MAE_TOL = 6.0
 FILE_BAND_ROWS = 24
 FILES_TRAIN_STEPS = 8   # pretrain_files: the CSV's 128 rows at batch 16
 FILES_OWL_ROWS, FILES_OWL_TRAIN_STEPS = 8, 2
+# the batched instruct path (phases 25-26): beam 5 over the 16 requests
+# (80 cache rows), the prompts through a Bloom-form tokenizer.json the
+# script trains (byte-level BPE of OWL_TOKENIZER_VOCAB entries; BloomZ's
+# own files are not in the repository)
+OWL_BEAM = 5
+OWL_TOKENIZER_VOCAB = 1024
+OWL_TOKENIZER_CORPUS = (
+    "The following is a conversation between a curious human and AI "
+    "assistant. The assistant gives helpful, detailed, and polite answers "
+    "to the user's questions.",
+    "Human: What is in the video?", "AI: a man is playing the guitar on "
+    "the stage while people dance .", "Describe the scene in detail.",
+    "Who is speaking? Is it day or night? What colour is the car?",
+    "How many people are there? Where was this filmed?",
+    "一只猫在沙发上睡觉", "两个人在公园里跑步", "视频里有什么？这是在哪里拍摄的？",
+    "小狗在草地上追逐皮球，孩子们在旁边笑。")
+# the shipped recipes not run above (phase 27): the reference pretrain
+# recipe at GPT-3 1.3B and 2.7B, dual-encoder retrieval and ITM rerank at
+# 2.7B; their cuts: the synthetic sets sized for DOWNSTREAM_STEPS train
+# batches and the evaluations, ITM's 2-way match head and ITM27_BATCH
+# clips a step for the YAML's 96 (phase 13 already needed 32 at 1.3B)
+PRETRAIN13_REF_YAML = os.path.join(REPO, "configs", "pretrain", "gpt3_1.3B",
+                                   "pretrain_gpt3_freezeGPT_youku_v0.yaml")
+PRETRAIN27_YAML = os.path.join(REPO, "configs", "pretrain", "gpt3_2.7B",
+                               "pretrain_gpt3_freezeGPT_youku_v0.yaml")
+RETRIEVAL27_YAML = os.path.join(REPO, "configs", "retrieval",
+                                "retrieval_gpt3_2.7B_youku_v0.yaml")
+ITM27_YAML = os.path.join(REPO, "configs", "retrieval",
+                          "retrieval_itm_gpt3_2.7B_youku_v0.yaml")
+ITM27_BATCH = 16
 
 
 def fail(msg: str):
@@ -722,19 +783,30 @@ D96_SHAPES = [
     # and the bias key), in its finetune and its evaluation's encode
     (24, 128, 3138, 8, False, 0, None, "heads", 96, False,
      "caption27_train", True),
+    # the reference pretrain recipe's 48 clips x 4 frames (1.3B and 2.7B)
+    # and the ITM 2.7B step's 16 clips x 4 frames (phase 27)
+    (48, 128, 786, 8, False, 0, None, "heads", 96, False,
+     "pretrain13_train, pretrain27_train", True),
+    (16, 128, 786, 8, False, 0, None, "heads", 96, False, "itm27_train",
+     True),
     # more than 128 queries (ragged keys, kv_len < Sk): the key-tile dk/dv
     # kernel, which no path runs at d 96
     (4, 256, 1570, 8, False, 0, 1500, "heads", 96, False, "key-tile dk/dv",
      False)]
 D96_PATHS = ("cls_train", "cls_eval", "itm_train", "itm_eval",
              "caption27_train", "caption27_eval", "cls27_train", "cls27_eval",
-             "cls_files_train", "cls_files_eval")
+             "cls_files_train", "cls_files_eval", "pretrain13_train",
+             "pretrain27_train", "itm27_train", "itm27_eval")
 D96_TRAIN_PATHS = ("cls_train", "itm_train", "caption27_train", "cls27_train",
-                   "cls_files_train")
+                   "cls_files_train", "pretrain13_train", "pretrain27_train",
+                   "itm27_train")
 # the paths of the checkpoint phases (15-19): caption serving with the
 # imported and the resumed weights; Owl serving from the HF import, its
 # LoRA training and the int8 serving export
 CKPT_SERVE_PATHS = ("serve_imported", "serve_resumed")
+# the batched instruct path (phases 25-26): greedy, beam bf16, beam int8
+OWL_BATCHED_PATHS = ("instruct_batched", "instruct_beam",
+                     "instruct_beam_int8")
 CKPT_OWL_PATHS = ("instruct_hf", "instruct_hf_train",
                   "instruct_serving_int8")
 # every path that runs a flash backward (the delta kernel's)
@@ -752,7 +824,7 @@ D80_SHAPES = [
     (180, 208, 208, 32, True, 0, None, "packed", 80, False, "cls27_eval",
      True),
     (32, 208, 208, 32, True, 0, None, "packed", 80, False,
-     "dropout-free training", False),
+     "itm27_eval forward; dropout-free training backward", True),
     (1, 100, 1000, 32, False, 0, 900, "heads", 80, False, "split-KV",
      False)]
 
@@ -941,18 +1013,33 @@ DEC_COUNTERS = ("launches", "alibi_launches", "int8_launches",
 K5_PATHS = {"K5": ("serve", "serve_k8", "speculative_twin",
                    "caption_eval", "serve_files") + CKPT_SERVE_PATHS,
             "K5-ALiBi": ("instruct", "instruct_k8", "instruct_sample",
-                         "instruct_hf", "instruct_files"),
+                         "instruct_hf", "instruct_files", "instruct_batched",
+                         "instruct_beam"),
             "K5-int8": ("serve_int8kv", "serve_int8kv_k8"),
             "K5-int8-ALiBi": ("instruct_int8", "instruct_int8_k8",
-                              "instruct_serving_int8"),
+                              "instruct_serving_int8", "instruct_beam_int8"),
             "K5-d80": ("caption27_eval",), "K5-int8-d80": ()}
 
 
-def _decode_entries(dec, kvc, rand):
+def _decode_entries(dec, kvc, rand, owl_beam):
     """The decode kernel's report entries: K5 by variant (bf16 / int8,
     with or without ALiBi) and K6, the cache write fused into it, whose
-    launches are all of the kernel's."""
+    launches are all of the kernel's.  ``owl_beam``: the instruct beam
+    step's rows (``_owl_beam_rows``)."""
     cases = {}
+    # the instruct beam step (phase 26): 16 requests x 5 beams over
+    # BloomZ-7B1's cache, bf16 and int8, 8 of its 30 layers (each 335 MB,
+    # so rotating over 8 reads from HBM as 30 do)
+    prefix, writes, vfroms = owl_beam
+    for key, int8 in (("K5-ALiBi", False), ("K5-int8-ALiBi", True)):
+        cases[key] = [_decode_case(
+            dec, kvc, rand, 32, 128, 8, True, int8,
+            f"[8 of 30 layers,{len(writes)},256,2x32x128]"
+            + (" int8" if int8 else "") + f" d 128 ALiBi (instruct_beam"
+            + ("_int8" if int8 else "") + f", beam {OWL_BEAM}, prefix "
+            f"{prefix})", True, writes, vfroms)]
+        gc.collect()
+        torch.cuda.empty_cache()
     # the caption evaluation's beam step: 24 clips x 5 beams, each writing
     # at 148 + t - 1 (128 queries + a 20-token prompt before the t-th new
     # token, t = 1..31) and attending from 19 (the prompt's pads)
@@ -1052,7 +1139,7 @@ DEC_SRC = "youku_mplug_tpu_torch/csrc/decode_attention.cu"
 TPU_FLASH = "youku_mplug_tpu/ops/flash_attention.py"
 TPU_DEC = "youku_mplug_tpu/ops/decode_attention.py"
 
-def phase_kernels(dev, builds):
+def phase_kernels(dev, builds, owl_beam):
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
@@ -1161,6 +1248,10 @@ def phase_kernels(dev, builds):
     no_alibi_128 = alibi_cases.pop()
     d96 = [_bwd_case(rand, fa, *c) for c in D96_SHAPES]
     d80 = [_bwd_case(rand, fa, *c) for c in D80_SHAPES]
+    # the second d 80 case: an ITM 2.7B evaluation call's forward (4 clips
+    # x 8 texts); its backward runs on no path
+    for kind in ("dq", "dkv", "delta"):
+        d80[1][kind]["on_path"] = False
     k1 += [c["fwd"] for c in cases if c["layout"] == "packed"]
     k1.append(no_alibi_128["fwd"])
     # the pretrain K4 forward is timed above; the small kv_len case here
@@ -1177,7 +1268,8 @@ def phase_kernels(dev, builds):
                 "retrieval_train", "retrieval_eval") + CKPT_SERVE_PATHS
                + CKPT_OWL_PATHS + ("serve_files", "pretrain_files",
                                    "cls_files_eval", "instruct_files",
-                                   "instruct_files_train"), "K1", k1),
+                                   "instruct_files_train") + OWL_BATCHED_PATHS,
+               "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
@@ -1212,7 +1304,7 @@ def phase_kernels(dev, builds):
             counter="alibi_launches"))
 
     train96 = [c for c, shape in zip(d96, D96_SHAPES)
-               if shape[10] in D96_TRAIN_PATHS]
+               if set(shape[10].split(", ")) & set(D96_TRAIN_PATHS)]
     key_tiles96 = d96[-1]
     report.append(_entry(
         "K4 flash_attention, head dim 96 (clip-b16 AttentionPool; D-wide "
@@ -1240,7 +1332,7 @@ def phase_kernels(dev, builds):
         "K4 flash_attention, head dim 80 (GPT-3 2.7B decoder, causal, via "
         "dot_product_attention; D-wide tiles, a 32-byte-swizzled tail "
         "panel; split-KV off the paths)", FWD_SRC, f"{TPU_FLASH}:59",
-        fa.flash_attention, ("cls27_eval",), "K4-d80",
+        fa.flash_attention, ("cls27_eval", "itm27_eval"), "K4-d80",
         [c["fwd"] for c in d80], counter="d80_launches",
         build=flash_builds["fwd<80>"]))
     for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 148),
@@ -1258,7 +1350,7 @@ def phase_kernels(dev, builds):
         fa.flash_bwd_delta_cuda, BWD_PATHS, "delta",
         [c["delta"] for c in cases + alibi_cases + [no_alibi_128]
          + train96 + [key_tiles96] + d80[1:]]))
-    report += _decode_entries(dec, kvc, rand)
+    report += _decode_entries(dec, kvc, rand, owl_beam)
     for r in report:
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
@@ -2184,6 +2276,107 @@ OWL_QUESTIONS = ("What is in the video?", "What happens next?",
                  "How many people are there?", "Where was this filmed?")
 
 
+def _owl_jsonl(out_dir):
+    """The OWL_REQUESTS instruct rows (the questions, then again with
+    trailing spaces, so the prompts differ in length) as a jsonl file."""
+    jsonl = os.path.join(out_dir, "requests.jsonl")
+    with open(jsonl, "w") as f:
+        for i in range(OWL_REQUESTS):
+            f.write(json.dumps({
+                "video": f"clip{i}.mp4",
+                "question": OWL_QUESTIONS[i % len(OWL_QUESTIONS)]
+                + " " * (i // len(OWL_QUESTIONS))}) + "\n")
+    return jsonl
+
+
+def _owl_tokenizer(directory):
+    """A tokenizer.json in BloomZ's form, trained here with ``tokenizers``
+    on OWL_TOKENIZER_CORPUS: Bloom's pre-tokenizer split and byte-level
+    BPE, ids 0-3 <unk>, <s>, </s>, <pad> (eos 2, pad 3 as the Bloom
+    config), at most OWL_TOKENIZER_VOCAB trained entries, then word pieces
+    " w<id>" that no merge reaches up to the Bloom config's vocabulary
+    (250880), so every id a seeded model emits decodes to text; with
+    tokenizer_config.json and special_tokens_map.json naming
+    BloomTokenizerFast's specials.  Returns ``directory``."""
+    from tokenizers import (Regex, Tokenizer, decoders, models,
+                            pre_tokenizers, trainers)
+
+    from youku_mplug_tpu_torch.config import load_owl_config
+
+    tok = Tokenizer(models.BPE())
+    tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre_tokenizers.Split(Regex(" ?[^(\\s|[.,!?…。，、।۔،])]+"),
+                             "isolated"),
+        pre_tokenizers.ByteLevel(add_prefix_space=False, use_regex=False)])
+    tok.decoder = decoders.ByteLevel()
+    tok.train_from_iterator(OWL_TOKENIZER_CORPUS * 8, trainers.BpeTrainer(
+        vocab_size=OWL_TOKENIZER_VOCAB,
+        special_tokens=["<unk>", "<s>", "</s>", "<pad>"],
+        initial_alphabet=pre_tokenizers.ByteLevel.alphabet()))
+    tree = json.loads(tok.to_str())
+    vocab = tree["model"]["vocab"]
+    # "\u0120" is the byte-level alphabet's space
+    vocab.update({f"\u0120w{i}": i for i in range(
+        len(vocab), load_owl_config(OWL_YAML)[0].text.vocab_size)})
+    with open(os.path.join(directory, "tokenizer.json"), "w") as f:
+        json.dump(tree, f, ensure_ascii=False)
+    specials = {"bos_token": "<s>", "eos_token": "</s>",
+                "unk_token": "<unk>", "pad_token": "<pad>"}
+    for name, extra in (("tokenizer_config.json", {
+            "tokenizer_class": "BloomTokenizerFast",
+            "add_prefix_space": False, "padding_side": "left"}),
+            ("special_tokens_map.json", {})):
+        with open(os.path.join(directory, name), "w") as f:
+            json.dump({**specials, **extra}, f)
+    return directory
+
+
+def _owl_beam_rows(tok_dir):
+    """The instruct beam step's cache rows as phase 26 gives them: the
+    16 prompts through the tokenizer of ``tok_dir`` (media expanded) are
+    P wide, sample b front-padded from P - len_b; each of its OWL_BEAM
+    beams writes at P + t - 1 for its t-th new token.  Returns (P, the
+    rows' write positions, their valid_from), t spread over 1..63."""
+    from youku_mplug_tpu_torch.config import load_owl_config
+    from youku_mplug_tpu_torch.data.instruct import (
+        build_instruct_batch,
+        format_prompt,
+    )
+    from youku_mplug_tpu_torch.models.hf_tokenizer import HFTokenizer
+
+    cfg, raw = load_owl_config(OWL_YAML)
+    prompts = [format_prompt(OWL_QUESTIONS[i % len(OWL_QUESTIONS)]
+                             + " " * (i // len(OWL_QUESTIONS)))
+               for i in range(OWL_REQUESTS)]
+    batch = build_instruct_batch(prompts, HFTokenizer(tok_dir),
+                                 cfg.num_media_tokens, cfg.text.pad_id)
+    p = batch["input_ids"].shape[1]
+    new = int(raw["max_new_tokens"])
+    rows = OWL_REQUESTS * OWL_BEAM
+    return (p, [p + i % (new - 1) for i in range(rows)],
+            [p - int(batch["prompt_len"][i // OWL_BEAM])
+             for i in range(rows)])
+
+
+def _owl_launches(report, path, steps, cfg, int8):
+    """The launches of an instruct run on ``path`` (one encode of every
+    request, ``steps`` decode steps): K5 ALiBi (int8 ALiBi on an int8
+    cache) with its K6 write once per Bloom layer a decode step, K1 once
+    per ViT block, no other kernel.  Returns the decode launches per
+    step."""
+    layers = cfg.text.num_hidden_layers
+    per_step = _per_step(report, path, steps,
+                         {"K5-int8-ALiBi" if int8 else "K5-ALiBi": layers,
+                          "K6": layers})
+    flash = {r["key"]: r["launches_by_path"][path] for r in report
+             if not r["key"].startswith(("K5", "K6"))}
+    if any(n != (cfg.vision.depth if k == "K1" else 0)
+           for k, n in flash.items()):
+        fail(f"{path}: flash launches {flash}, expected K1 {cfg.vision.depth}"
+             " and no other")
+    return per_step
+
+
 def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
                    int8=False, extra=()):
     """The run_instruct CLI's serving path on ``yaml`` at full width and
@@ -2197,16 +2390,9 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
     from youku_mplug_tpu_torch.cli import run_instruct
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
 
-    jsonl = os.path.join(out_dir, "requests.jsonl")
-    with open(jsonl, "w") as f:
-        for i in range(OWL_REQUESTS):
-            f.write(json.dumps({
-                "video": f"clip{i}.mp4",
-                "question": OWL_QUESTIONS[i % len(OWL_QUESTIONS)]
-                + " " * (i // len(OWL_QUESTIONS))}) + "\n")
     args = run_instruct.parser().parse_args([
         "--config", yaml, "--synthetic_data", "--engine",
-        "--input_jsonl", jsonl, "--num_slots", str(OWL_SLOTS),
+        "--input_jsonl", _owl_jsonl(out_dir), "--num_slots", str(OWL_SLOTS),
         "--device", "cuda", "--output_dir", out_dir, *extra]
         + (["--int8"] if int8 else []))
     torch.cuda.reset_peak_memory_stats()
@@ -2216,8 +2402,9 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
     build_s = time.perf_counter() - t0
     build_peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in model.parameters())
-    _, batch, clips = run_instruct.prepare(args, cfg, raw, device,
-                                           model.policy.compute_dtype)
+    _, batch, clips = run_instruct.prepare(
+        args, cfg, raw, device, model.policy.compute_dtype,
+        run_instruct.build_tokenizer(args, cfg))
     gen_cfg = run_instruct.generation_config(args, cfg, raw)
     # warm-up (cuBLAS handles, the allocator): two requests, 4 tokens
     run_instruct.serve_instruct(
@@ -2230,16 +2417,8 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
         model, clips, batch, gen_cfg, num_slots=args.num_slots)
     torch.cuda.synchronize()
     _read_counts(report, path)
-    layers = cfg.text.num_hidden_layers
-    per_step = _per_step(report, path, engine.decode_steps,
-                         {"K5-int8-ALiBi" if kvc.is_quantized(engine.cache)
-                          else "K5-ALiBi": layers, "K6": layers})
-    flash = {r["key"]: r["launches_by_path"][path] for r in report
-             if not r["key"].startswith(("K5", "K6"))}
-    if any(n != (cfg.vision.depth if k == "K1" else 0)
-           for k, n in flash.items()):
-        fail(f"{path}: flash launches {flash}, expected K1 {cfg.vision.depth}"
-             " and no other")
+    per_step = _owl_launches(report, path, engine.decode_steps, cfg,
+                             kvc.is_quantized(engine.cache))
     if stats["requests"] != OWL_REQUESTS \
             or not (seqs != gen_cfg.pad_id).any(1).all():
         fail(f"instruct slice served {stats['requests']} requests: "
@@ -2640,6 +2819,395 @@ def phase_sampling(report, model, batch, clips):
         fail("sampled serving is not reproducible by its seed")
 
 
+def _owl_inputs(model, yaml, tok_dir, out_dir, **yaml_keys):
+    """run_instruct's serving inputs without --engine, on a copy of
+    ``yaml`` with ``yaml_keys`` (``_owl_yaml``): the OWL_REQUESTS rows,
+    the prompts through the tokenizer of ``tok_dir`` (--tokenizer), the
+    synthetic clips.  Returns (rows, batch, clips, tokenizer, generation
+    config)."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+    from youku_mplug_tpu_torch.config import load_owl_config
+
+    copy = _owl_yaml(yaml, out_dir, {}, **yaml_keys)
+    args = run_instruct.parser().parse_args([
+        "--config", copy, "--synthetic_data", "--input_jsonl",
+        _owl_jsonl(out_dir), "--tokenizer", tok_dir, "--device", "cuda",
+        "--output_dir", out_dir])
+    cfg, raw = load_owl_config(copy)
+    if cfg != model.cfg:
+        fail(f"{copy} reads to another model than the one served")
+    tok = run_instruct.build_tokenizer(args, cfg)
+    rows, batch, clips = run_instruct.prepare(
+        args, cfg, raw, torch.device("cuda"), model.policy.compute_dtype,
+        tok)
+    return rows, batch, clips, tok, run_instruct.generation_config(
+        args, cfg, raw)
+
+
+def _owl_answers(tag, rows, seqs, tok, text):
+    """run_instruct's results of ``seqs``: every answer the tokenizer's
+    decode of the ids its kept tokens hold inside the vocabulary (the CPU
+    tests hold the decode of ids past it to transformers': nothing), no
+    pad or eos kept.  Returns (results, share of kept ids inside the
+    vocabulary)."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    results = run_instruct.answers(rows, seqs, tok, text)
+    kept = inside = 0
+    for r in results:
+        ids = [i for i in r["tokens"] if i < tok.vocab_size]
+        if text.pad_id in r["tokens"] or text.eos_id in r["tokens"] \
+                or r["answer"] != tok.decode(ids).strip():
+            fail(f"[{tag}] answer {r['answer']!r} is not the decode of its "
+                 f"kept tokens {r['tokens'][:16]}")
+        kept += len(r["tokens"])
+        inside += len(ids)
+    print(f"[{tag}] text: {inside} of {kept} kept ids inside the "
+          f"{tok.vocab_size}-entry vocabulary (the rest decode to nothing); "
+          "answers: " + " | ".join(repr(r["answer"][:60])
+                                   for r in results[:3]), flush=True)
+    return results, inside / max(kept, 1)
+
+
+def _batched_replay(lm, ids, plen, embeds, tokens, steps):
+    """generate's geometry, teacher-forced: the prefill of every prompt
+    together (``_build_prefix`` on ``embeds``, the prompts' embeddings
+    [B, P, H] right-padded) into a cache of P + steps + 1 rows, then
+    ``steps`` S = 1 decode steps fed ``tokens[:, t]``.  Returns the fp32
+    logits of each position, the prefill's first."""
+    from youku_mplug_tpu_torch.models import generation
+
+    b, p = ids.shape
+    with torch.inference_mode():
+        pre, vf, off = generation._build_prefix(lm, ids, plen, None,
+                                                lm.cfg.pad_id, embeds)
+        cache = lm.init_cache(b, p + steps + 1, device=ids.device)
+        logits, cache = lm.decode_step(pre, cache, 0, vf, off)
+        out = [logits.float()]
+        for t in range(steps):
+            logits, cache = lm.decode_step(
+                lm.embed(tokens[:, t:t + 1].long()), cache, p + t, vf, off)
+            out.append(logits.float())
+    return out
+
+
+def _batched_forced(model, batch, clips, seqs, tag):
+    """The batched path's prefill and its first FORCED_STEPS decode steps
+    (``_build_prefix`` on the spliced prompts, then ``decode_step`` fed
+    ``seqs``' tokens), with the kernels and again with the plain versions
+    of K1 (the ViT) and K5 with its K6 write patched in: logits within
+    OWL_REL_TOL x max |plain|; each step's argmax with the kernels is the
+    token the batched run picked."""
+    from youku_mplug_tpu_torch.models import bloom, vision
+    from youku_mplug_tpu_torch.ops import decode_attention as dec
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    dev = clips.device
+    ids = torch.as_tensor(batch["input_ids"], device=dev).long()
+    mask = torch.as_tensor(batch["media_mask"], device=dev)
+    plen = torch.as_tensor(batch["prompt_len"], device=dev)
+
+    def run():
+        with torch.inference_mode():
+            embeds = model.spliced_embeds(ids, mask,
+                                          model.encode_video(clips))
+        return _batched_replay(model.text_decoder, ids, plen, embeds, seqs,
+                               FORCED_STEPS)
+
+    got = run()
+    counts = [fa.flash_attention_packed.launches] + _decode_kernel_counts()
+    with mock.patch.object(vision, "flash_attention_packed",
+                           fa.flash_attention_packed_plain), \
+            mock.patch.object(bloom, "write_decode_attention",
+                              dec.write_decode_attention_plain):
+        want = run()
+    if counts != [fa.flash_attention_packed.launches] \
+            + _decode_kernel_counts():
+        fail(f"the {tag} plain replay launched a kernel")
+    e = max(err(a, b) for a, b in zip(got, want))
+    top = max(x.abs().max().item() for x in want)
+    live = torch.ones(seqs.shape[0], dtype=torch.bool, device=dev)
+    picked = True
+    for t, lg in enumerate(got):
+        picked &= bool((lg.argmax(-1)[live] == seqs[live, t]).all())
+        live &= seqs[:, t] != model.cfg.text.eos_id
+    print(f"[{tag}] logits over the prefill and {FORCED_STEPS} steps max "
+          f"err {e:.4g} of max |plain| {top:.4g} (tol {OWL_REL_TOL:.4g} x "
+          f"max |plain|); the kernels' argmax the batched run's tokens: "
+          f"{picked}", flush=True)
+    if not all(torch.isfinite(x).all() for x in got + want) \
+            or e > OWL_REL_TOL * top or not picked:
+        fail(f"{tag} check out of tolerance")
+    return {"max_abs_err": e, "max_abs_plain": top}
+
+
+def _engine_agreement(model, batch, requests, seqs, gen_cfg, tag):
+    """The batched path against the engine, teacher-forced on the batched
+    path's tokens ``seqs`` at every position: the batched geometry (the
+    16 prompts prefilled together at their width, then S = 1 steps) and
+    the engine's (``ServingEngine._admit``: one request a prefill in its
+    bucket, its first logits read at the engine's pick; then S = 1 steps
+    over its cache), both on the kernels.  Gates: the two logits within
+    OWL_REL_TOL x max |engine|; each batched token the engine's argmax
+    wherever the engine's top-2 gap exceeds twice the measured max
+    difference (the only positions where the two roundings cannot swap
+    the order).  Returns the counts and the measured difference."""
+    from youku_mplug_tpu_torch.serving.engine import ServingEngine
+
+    lm = model.text_decoder
+    dev = seqs.device
+    text = model.cfg.text
+    ids = torch.as_tensor(batch["input_ids"], device=dev).long()
+    b, p = ids.shape
+    t_max = seqs.shape[1]
+    is_eos = (seqs == text.eos_id).int()
+    length = torch.where(is_eos.any(1), is_eos.argmax(1) + 1,
+                         torch.full((b,), t_max, device=dev))
+    pe = torch.zeros(b, p, lm.cfg.hidden_size, dtype=requests[0][1][
+        "prompt_embeds"].dtype, device=dev)
+    for i, (r_ids, kw) in enumerate(requests):
+        pe[i, :len(r_ids)] = kw["prompt_embeds"]
+    batched = _batched_replay(lm, ids, torch.as_tensor(
+        batch["prompt_len"], device=dev), pe, seqs, t_max - 1)
+    with torch.inference_mode():
+        bucket = 8
+        while bucket < p:
+            bucket *= 2
+        eng = ServingEngine(lm, num_slots=b, max_len=bucket + t_max + 2,
+                            prefill_buckets=(bucket,), config=gen_cfg)
+        firsts, pick = [], eng._pick
+        eng._pick = lambda logits: (firsts.append(logits.float()),
+                                    pick(logits))[1]
+        for r_ids, kw in requests:
+            eng.submit(r_ids, **kw)
+        eng._admit()
+        eng._pick = pick
+        engine = [torch.cat(firsts)]
+        cl, vfe, offe = (torch.from_numpy(x).to(dev) for x in (
+            eng.cache_len, eng.valid_from, eng.pos_offset))
+        for t in range(t_max - 1):
+            lg, _ = lm.decode_step(lm.embed(seqs[:, t:t + 1].long()),
+                                   eng.cache, cl + t, vfe, offe)
+            engine.append(lg.float())
+        del eng
+    live = [torch.arange(b, device=dev)[length > t] for t in range(t_max)]
+    diff = max((batched[t][r] - engine[t][r]).abs().max().item()
+               for t, r in enumerate(live) if len(r))
+    top = max(x.abs().max().item() for x in engine)
+    bound = 2 * diff
+    compared = ties = 0
+    for t, r in enumerate(live):
+        top2 = engine[t][r].topk(2, dim=-1)
+        clear = (top2.values[:, 0] - top2.values[:, 1]) > bound
+        ties += int((~clear).sum())
+        compared += int(clear.sum())
+        bad = clear & (top2.indices[:, 0] != seqs[r, t].long())
+        if bool(bad.any()):
+            i = int(r[bad.nonzero()[0, 0]])
+            fail(f"[{tag}] request {i} position {t}: batched token "
+                 f"{int(seqs[i, t])}, the engine's argmax "
+                 f"{int(engine[t][i].argmax())} clear of the bound "
+                 f"{bound:.4g}")
+    out = {"max_abs_diff": diff, "max_abs_engine": top,
+           "tie_bound": bound, "positions_compared": compared,
+           "near_ties": ties}
+    print(f"[{tag}] against the engine, teacher-forced on the batched "
+          f"tokens: logits max diff {diff:.4g} of max |engine| {top:.4g} "
+          f"(tol {OWL_REL_TOL:.4g} x max); {compared} positions clear of "
+          f"twice that, each the engine's argmax; {ties} near-ties",
+          flush=True)
+    if not math.isfinite(diff) or diff > OWL_REL_TOL * top:
+        fail(f"[{tag}] the batched path's logits against the engine's out "
+             "of tolerance")
+    return out
+
+
+def phase_instruct_batched(report, model, tok_dir, out_dir):
+    """Phase 25: run_instruct's batched path (no --engine) greedy on the
+    bf16 model of phase 7, the prompts through a built tokenizer.json
+    (--tokenizer): K1 once per ViT block, K5 ALiBi with its K6 write once
+    per layer a decode step, no other kernel; the tokens the engine's
+    choice on the same requests wherever that is clear of twice the max
+    of the two paths' measured logit disagreement, every position compared
+    teacher-forced (``_engine_agreement``); the batched prefill and first
+    steps replayed with the plain versions; every answer the tokenizer's
+    text."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    t_phase = time.perf_counter()
+    rows, batch, clips, tok, gen_cfg = _owl_inputs(model, OWL_YAML, tok_dir,
+                                                   out_dir)
+    cfg = model.cfg
+    requests = _instruct_requests(model, batch, clips)
+
+    def make(slots):
+        return run_instruct.make_engine(model.text_decoder,
+                                        batch["prompt_len"], gen_cfg, slots)
+
+    greedy, engine_s, _ = _engine_run(lambda: make(OWL_SLOTS), requests, 1)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    seqs, stats, out = run_instruct.generate_batched(model, clips, batch,
+                                                     gen_cfg)
+    torch.cuda.synchronize()
+    _read_counts(report, "instruct_batched")
+    per_step = _owl_launches(report, "instruct_batched", out["decode_steps"],
+                             cfg, False)
+    if stats["nonfinite_logits"] or stats["requests"] != OWL_REQUESTS:
+        fail(f"instruct_batched: {stats}")
+    same = [next((j for j, (a, b) in enumerate(zip(row.tolist(), w))
+                  if a != b), min(len(w), len(row))) for row, w in
+            zip(seqs, greedy)]
+    forced = _batched_forced(model, batch, clips, out["sequences"],
+                             "instruct_batched teacher-forced")
+    agree = _engine_agreement(model, batch, requests, out["sequences"],
+                              gen_cfg, "instruct_batched")
+    _, share = _owl_answers("instruct_batched", rows, seqs, tok, cfg.text)
+    stats.update({"prompt_width": int(batch["input_ids"].shape[1]),
+                  "engine_s_same_requests": engine_s,
+                  "free_running_equal_prefix": same, "engine": agree,
+                  "launches_per_step": per_step, "forced": forced,
+                  "kept_ids_in_vocabulary": share,
+                  "phase_s": time.perf_counter() - t_phase})
+    print(f"[instruct_batched] {json.dumps(stats)} | {CARD}", flush=True)
+
+
+def _owl_rescore(model, batch, clips, seqs, eos):
+    """Each sequence's sum of log-probs teacher-forced with the plain
+    versions of K1 and K5 (with its write) patched in: the encode, then
+    ``_batched_replay``.  A row's targets are its tokens before the first
+    pad, then the eos that closed it where pads follow (a finished beam's
+    sequence holds no eos), all of it without a pad.  Returns (scores
+    [B], target counts [B])."""
+    from youku_mplug_tpu_torch.models import bloom, vision
+    from youku_mplug_tpu_torch.ops import decode_attention as dec
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    dev = clips.device
+    ids = torch.as_tensor(batch["input_ids"], device=dev).long()
+    b, t_max = seqs.shape
+    is_pad = seqs == model.cfg.text.pad_id
+    n = torch.where(is_pad.any(1), is_pad.int().argmax(1),
+                    torch.full((b,), t_max, device=dev))
+    steps = torch.arange(t_max, device=dev)[None]
+    targets = torch.where(steps == n[:, None], eos, seqs).long()
+    count = torch.minimum(n + 1, torch.full_like(n, t_max))
+    with mock.patch.object(vision, "flash_attention_packed",
+                           fa.flash_attention_packed_plain), \
+            mock.patch.object(bloom, "write_decode_attention",
+                              dec.write_decode_attention_plain):
+        with torch.inference_mode():
+            embeds = model.spliced_embeds(
+                ids, torch.as_tensor(batch["media_mask"], device=dev),
+                model.encode_video(clips))
+        logits = _batched_replay(
+            model.text_decoder, ids,
+            torch.as_tensor(batch["prompt_len"], device=dev), embeds,
+            targets, t_max - 1)
+    logp = torch.stack([torch.log_softmax(x, -1).gather(
+        1, targets[:, t:t + 1])[:, 0] for t, x in enumerate(logits)], 1)
+    return torch.where(steps < count[:, None], logp, 0.0).sum(1), count
+
+
+def phase_instruct_beam(report, model, yaml, path, tok_dir, out_dir):
+    """Phase 26: run_instruct's batched path with beam_size OWL_BEAM (a
+    copy of ``yaml`` the script writes) on ``model`` (bf16, or int8 with
+    --int8 and an int8 cache), the requests of phase 25: K1
+    once per ViT block, K5 ALiBi (int8 ALiBi) with its K6 write once per
+    layer a decode step over the 80 rows, no other kernel; every returned
+    sequence's beam score against its plain rescore within
+    RESCORE_TOL_PER_TOKEN a token; every answer the tokenizer's text;
+    host ms a beam step (read at each reorder) and, traced in a second
+    run, the device ms a step by category, the reorder's, launches and
+    idle share."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+    from youku_mplug_tpu_torch.models import generation
+    from youku_mplug_tpu_torch.ops import kv_cache as kvc
+
+    t_phase = time.perf_counter()
+    rows, batch, clips, tok, gen_cfg = _owl_inputs(
+        model, yaml, tok_dir, out_dir, beam_size=OWL_BEAM)
+    if gen_cfg.beam_size != OWL_BEAM or gen_cfg.do_sample:
+        fail(f"{path}: generation config {gen_cfg}")
+    cfg = model.cfg
+    stamps = []
+    gather = generation._gather_beams
+
+    def stamped(*a, **kw):
+        out = gather(*a, **kw)
+        stamps.append(time.perf_counter())
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    with mock.patch.object(generation, "_gather_beams", stamped):
+        seqs, stats, out = run_instruct.generate_batched(model, clips, batch,
+                                                         gen_cfg)
+    torch.cuda.synchronize()
+    _read_counts(report, path)
+    int8 = cfg.text.kv_cache_dtype == "int8"
+    per_step = _owl_launches(report, path, out["decode_steps"], cfg, int8)
+    if stats["nonfinite_logits"] or len(stamps) != out["decode_steps"]:
+        fail(f"{path}: {stats}, {len(stamps)} reorders")
+    host = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+
+    def spanned(*a, **kw):
+        with torch.profiler.record_function("gather_beams"):
+            return gather(*a, **kw)
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with mock.patch.object(generation, "_gather_beams", spanned), \
+            torch.profiler.profile(activities=acts) as prof:
+        traced, _, _ = run_instruct.generate_batched(model, clips, batch,
+                                                     gen_cfg)
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = os.path.join(tmp, "beam_trace.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f)["traceEvents"]
+    gather_ms, n_gathers, step_trace = _beam_trace(events)
+    if n_gathers != out["decode_steps"] or not (traced == seqs).all():
+        fail(f"{path}: the traced run made {n_gathers} reorders over "
+             f"{out['decode_steps']} steps; same tokens "
+             f"{bool((traced == seqs).all())}")
+
+    want, count = _owl_rescore(model, batch, clips, out["sequences"],
+                               gen_cfg.eos_id)
+    errs = ((out["scores"] - want).abs() / count).tolist()
+    worst = max(range(len(errs)), key=errs.__getitem__)
+    if not (torch.isfinite(out["scores"]).all() and torch.isfinite(
+            want).all()) or errs[worst] > RESCORE_TOL_PER_TOKEN:
+        fail(f"{path}: beam scores against the plain rescore: request "
+             f"{worst} err {errs[worst]:.4g} a token over {int(count[worst])}"
+             f" tokens, beam {out['scores'][worst].item():.4f} plain "
+             f"{want[worst].item():.4f} (tol {RESCORE_TOL_PER_TOKEN})")
+    _, share = _owl_answers(path, rows, seqs, tok, cfg.text)
+    text = cfg.text
+    prefix = batch["input_ids"].shape[1]
+    m = kvc.cache_width(model.text_decoder.init_cache(
+        1, prefix + gen_cfg.max_new_tokens, device="meta"))
+    row_bytes = (2 * text.hidden_size + 8 * text.num_attention_heads
+                 if int8 else 4 * text.hidden_size)
+    tail = (text.num_hidden_layers * OWL_REQUESTS * OWL_BEAM * (m - prefix)
+            * row_bytes)
+    stats.update({
+        "beam_size": gen_cfg.beam_size, "cache_rows": OWL_REQUESTS * OWL_BEAM,
+        "cache_width": m, "prompt_width": prefix,
+        "host_ms_per_decode_step_median": 1e3 * host[len(host) // 2],
+        "host_ms_per_decode_step_max": 1e3 * host[-1],
+        "gather_device_ms_per_step": gather_ms / n_gathers,
+        "gather_tail_bytes": tail,
+        "gather_bound_ms": 2 * tail / PEAK_HBM_BYTES * 1e3,
+        "traced_decode_step": step_trace, "launches_per_step": per_step,
+        "rescore_max_err_per_token": errs[worst],
+        "rescore_tol_per_token": RESCORE_TOL_PER_TOKEN,
+        "kept_ids_in_vocabulary": share,
+        "phase_s": time.perf_counter() - t_phase})
+    print(f"[{path}] {json.dumps(stats)} | {CARD}", flush=True)
+
+
 def _downstream_yaml(path, overrides, out_dir):
     """A copy of a reference YAML with ``overrides`` (the phase's cuts)
     and its model JSONs named by absolute path."""
@@ -2765,34 +3333,44 @@ def _eval_replay(tag, runner, module, prepared, split):
 
 
 def _downstream_task(report, tag, module, yaml_path, overrides, out_dir,
-                     kind=None, want=None):
+                     kind=None, want=None, geometry=None):
     """One downstream recipe through its CLI's functions at full width and
     depth: prepare (setup) on the reference YAML with the cuts,
     DOWNSTREAM_STEPS train steps, the plain replay of the first step with
     the same dropout generator and the dropout law on the decoder's
     input, the evaluation, and one evaluation call replayed plain.
     ``tag`` names the run's paths (``<tag>_train``, ``<tag>_eval``) and
-    lines, ``kind`` the recipe (cls, itm or retrieval; default ``tag``),
-    ``want`` the launches (per train step, per evaluation call) to check
-    (default the 1.3B decoder's)."""
+    lines, ``kind`` the recipe (cls, itm, retrieval, or pretrain, which
+    has no evaluation; default ``tag``), ``want`` the launches (per train
+    step, per evaluation call) to check (default the 1.3B decoder's),
+    ``geometry`` the recipe's (decoder width, depth, heads, head dim,
+    attention dropout, batch, frames) to check where given."""
     kind = kind or tag
     from youku_mplug_tpu_torch.cli import common, run_cls
     from youku_mplug_tpu_torch.data.datasets import SyntheticRetrievalSplit
     from youku_mplug_tpu_torch.train.trainer import dropout_generator
 
     cfg_path = _downstream_yaml(yaml_path, overrides, out_dir)
-    args = module.parser().parse_args([
+    parser = module.base_parser if kind == "pretrain" else module.parser
+    args = parser().parse_args([
         "--config", cfg_path, "--synthetic_data", "--max_steps",
         str(DOWNSTREAM_STEPS), "--device", "cuda", "--output_dir",
         os.path.join(out_dir, tag)])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    prepared = module.prepare(args)
+    prepared = ((module.setup(args),) if kind == "pretrain"
+                else module.prepare(args))
     runner = prepared[0]
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     cfg, state = runner.cfg, runner.state
     layers = cfg.model.text.num_hidden_layers
+    text = cfg.model.text
+    got_geometry = (text.hidden_size, layers, text.num_attention_heads,
+                    text.head_dim, text.attention_dropout, cfg.batch_size,
+                    cfg.num_frames)
+    if geometry is not None and got_geometry != geometry:
+        fail(f"[{tag}] geometry {got_geometry}, expected {geometry}")
     make_batch = (run_cls.make_batch_factory(prepared[3], cfg.max_length)
                   if kind == "cls" else module.make_batch)
     if want is None:
@@ -2873,6 +3451,25 @@ def _downstream_task(report, tag, module, yaml_path, overrides, out_dir,
         fail(f"[{tag}] the decoder input's zeroed share {shares} (dropout "
              f"{rate if dropout else 0}, tol {DROPOUT_SHARE_TOL})")
 
+    step_ms = [h["step_time"] * 1e3 for h in history]
+    out = {"yaml": os.path.relpath(yaml_path, REPO), "cuts": overrides,
+           "geometry": got_geometry, "setup_s": setup_s,
+           "steps": len(history),
+           "batch": cfg.batch_size, "frames": cfg.num_frames,
+           "step_ms_each": step_ms,
+           "clips_per_s_last": cfg.batch_size / history[-1]["step_time"],
+           **{k: [h[k] for h in history] for k in history[0]
+              if k.startswith("loss") or k in ("grad_norm", "lr")},
+           "train_peak_memory_gib": train_peak / 2 ** 30,
+           "launches_per_step": per_step,
+           "trainable_leaves_moved": f"{moved}/{len(state.trainable)}",
+           "frozen_leaves_unchanged": n_frozen, "lr_scale": lr_scale,
+           "decoder_input_zero_share": shares[0],
+           "replay": replay}
+    if kind == "pretrain":
+        print(f"[{tag}] {json.dumps(out, ensure_ascii=False)}", flush=True)
+        return out
+
     # the evaluation
     split = None
     if kind != "cls":
@@ -2900,26 +3497,11 @@ def _downstream_task(report, tag, module, yaml_path, overrides, out_dir,
     if not all(math.isfinite(v) for v in metrics.values()):
         fail(f"[{tag}] evaluation metrics {metrics}")
     eval_replay = _eval_replay(kind, runner, module, prepared, split)
-
-    step_ms = [h["step_time"] * 1e3 for h in history]
-    out = {"yaml": os.path.relpath(yaml_path, REPO), "cuts": overrides,
-           "setup_s": setup_s, "steps": len(history),
-           "batch": cfg.batch_size, "frames": cfg.num_frames,
-           "step_ms_each": step_ms,
-           "clips_per_s_last": cfg.batch_size / history[-1]["step_time"],
-           **{k: [h[k] for h in history] for k in history[0]
-              if k.startswith("loss") or k in ("grad_norm", "lr")},
-           "train_peak_memory_gib": train_peak / 2 ** 30,
-           "launches_per_step": per_step,
-           "trainable_leaves_moved": f"{moved}/{len(state.trainable)}",
-           "frozen_leaves_unchanged": n_frozen, "lr_scale": lr_scale,
-           "decoder_input_zero_share": shares[0],
-           "replay": replay,
-           "eval_s": eval_s, "eval_calls": calls,
-           "eval_ms_per_call": eval_s / calls * 1e3,
-           "launches_per_eval_call": per_call,
-           "eval_peak_memory_gib": eval_peak / 2 ** 30,
-           "metrics": metrics, "eval_replay": eval_replay}
+    out |= {"eval_s": eval_s, "eval_calls": calls,
+            "eval_ms_per_call": eval_s / calls * 1e3,
+            "launches_per_eval_call": per_call,
+            "eval_peak_memory_gib": eval_peak / 2 ** 30,
+            "metrics": metrics, "eval_replay": eval_replay}
     print(f"[{tag}] {json.dumps(out, ensure_ascii=False)}", flush=True)
     return out
 
@@ -3028,6 +3610,59 @@ def phase_gpt3_27b(report, out_dir):
     print(f"[gpt3-2.7B] phase {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return train, out, cls
+
+
+def phase_shipped_yamls(report, out_dir):
+    """Phase 27, the shipped recipes no phase above runs, through their
+    CLIs' functions at full width and depth as phase 13 runs its three:
+    the reference pretrain recipe at GPT-3 1.3B and 2.7B (clip-b16 at 4
+    frames, batch 48, the decoders under their 0.1 dropouts: one K4, dq
+    and dk/dv at head dim 96 and one delta a step, the decoder on plain
+    attention), dual-encoder retrieval at 2.7B (batch 96; its 80-token
+    text tower runs plain attention, as JAX's dispatch does at 32 heads
+    of 80, and the clip-b16 tower einsum attention: no kernel) and ITM
+    rerank at 2.7B (a K4 d 96 backward a step; its evaluation's
+    208-position passes run K4 at head dim 80, twice a layer a call).
+    The routes are the JAX package's rule (tests/test_torch_dispatch.py,
+    tests/test_torch_shipped_yamls.py)."""
+    from youku_mplug_tpu_torch.cli import run_pretrain, run_retrieval
+    from youku_mplug_tpu_torch.cli import run_retrieval_itm
+
+    t_phase = time.perf_counter()
+    d96 = {"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1, "delta": 1}
+    runs = (
+        ("pretrain13", run_pretrain, PRETRAIN13_REF_YAML, "pretrain",
+         {"synthetic_length": 48 * DOWNSTREAM_STEPS},
+         (2048, 24, 32, 64, 0.1, 48, 4), (d96, None)),
+        ("pretrain27", run_pretrain, PRETRAIN27_YAML, "pretrain",
+         {"synthetic_length": 48 * DOWNSTREAM_STEPS},
+         (2560, 32, 32, 80, 0.1, 48, 4), (d96, None)),
+        ("retrieval27", run_retrieval, RETRIEVAL27_YAML, "retrieval",
+         {"synthetic_length": 96 * DOWNSTREAM_STEPS},
+         (2560, 32, 32, 80, 0.1, 96, 4), ({}, {})),
+        ("itm27", run_retrieval_itm, ITM27_YAML, "itm",
+         {"num_classes": 2, "eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
+          "batch_size": ITM27_BATCH,
+          "synthetic_length": ITM27_BATCH * DOWNSTREAM_STEPS},
+         (2560, 32, 32, 80, 0.1, ITM27_BATCH, 4),
+         (d96, {"K4-d96": 1, "K4-d80": 2 * 32})))
+    print("[shipped] cuts: " + "; ".join(f"{tag} {cuts}" for tag, _, _, _,
+                                         cuts, _, _ in runs)
+          + f" (the ITM batch is {ITM27_BATCH} clips, not the YAML's 96: "
+          "3 x 96 rows of 208 positions through the 2.7B decoder would hold "
+          "~270 GB of activations; its match head has num_classes 2, "
+          "ROADMAP Queue 3; an evaluation call scores "
+          f"{DOWNSTREAM_EVAL_CLIPS} clips); synthetic clips, seeded "
+          f"weights, the evaluation splits {DOWNSTREAM_SPLITS}", flush=True)
+    out = {}
+    for tag, module, path, kind, cuts, geometry, want in runs:
+        out[tag] = _downstream_task(report, tag, module, path, cuts, out_dir,
+                                    kind=kind, want=want, geometry=geometry)
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[shipped] phase {time.perf_counter() - t_phase:.1f} s | {CARD}",
+          flush=True)
+    return out
 
 
 def phase_instruct_train(report, out_dir):
@@ -3481,8 +4116,9 @@ def _owl_yaml(path, out_dir, text_overrides, **extra):
 
     with open(path) as f:
         raw = yaml.safe_load(f)
-    raw["bloom_model_json"] = os.path.normpath(os.path.join(
-        os.path.dirname(path), raw["bloom_model_json"]))
+    if raw.get("bloom_model_json"):
+        raw["bloom_model_json"] = os.path.normpath(os.path.join(
+            os.path.dirname(path), raw["bloom_model_json"]))
     raw["text_overrides"] = {**(raw.get("text_overrides") or {}),
                              **text_overrides}
     raw.update(extra)
@@ -4183,8 +4819,9 @@ def phase_instruct_files(report, files, out_dir):
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _, batch, clips = run_instruct.prepare(args, cfg, raw, device,
-                                           model.policy.compute_dtype)
+    _, batch, clips = run_instruct.prepare(
+        args, cfg, raw, device, model.policy.compute_dtype,
+        run_instruct.build_tokenizer(args, cfg))
     torch.cuda.synchronize()
     decode_s = time.perf_counter() - t0
     gen_cfg = run_instruct.generation_config(args, cfg, raw)
@@ -4258,8 +4895,9 @@ def phase_instruct_files(report, files, out_dir):
     torch.cuda.empty_cache()
 
 
-def _phases(report, files_root):
-    """Phases 3-24 in their order (see the module docstring)."""
+def _phases(report, files_root, tok_dir):
+    """Phases 3-27 in their order (see the module docstring); ``tok_dir``
+    holds the instruct tokenizer files of phases 25-26."""
     from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
 
     files = phase_files_written(files_root)
@@ -4313,6 +4951,10 @@ def _phases(report, files_root):
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
+        phase_shipped_yamls(report, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
         model, batch, clips, gen_cfg = phase_instruct(report, out_dir)
     bf16 = phase_instruct_forced(model, batch, clips)
     requests, greedy = phase_instruct_modes(report, model, batch, clips,
@@ -4320,7 +4962,12 @@ def _phases(report, files_root):
     phase_lookup(report, model, batch, clips, gen_cfg, requests, greedy)
     del requests
     phase_sampling(report, model, batch, clips)
-    del model, batch, clips
+    del batch, clips
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_instruct_batched(report, model, tok_dir, out_dir)
+        phase_instruct_beam(report, model, OWL_YAML, "instruct_beam",
+                            tok_dir, out_dir)
+    del model
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
@@ -4330,6 +4977,9 @@ def _phases(report, files_root):
                           "instruct int8 teacher-forced", reference=bf16)
     phase_instruct_modes(report, model, batch, clips, gen_cfg,
                          "instruct_int8", "K5-int8-ALiBi")
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_instruct_beam(report, model, OWL_INT8_YAML,
+                            "instruct_beam_int8", tok_dir, out_dir)
     del model, batch, clips, bf16
     gc.collect()
     torch.cuda.empty_cache()
@@ -4364,12 +5014,15 @@ def main():
     card, builds = phase_device_and_build()
     CARD = card
     dev = torch.device("cuda")
-    report = phase_kernels(dev, builds)
-    files_dir = tempfile.TemporaryDirectory()  # the clips of phases 20-24
+    # the clips of phases 20-24, the tokenizer files of phases 25-26
+    files_dir, tok_dir = (tempfile.TemporaryDirectory() for _ in range(2))
     try:
-        _phases(report, files_dir.name)
+        _owl_tokenizer(tok_dir.name)
+        report = phase_kernels(dev, builds, _owl_beam_rows(tok_dir.name))
+        _phases(report, files_dir.name, tok_dir.name)
     finally:
         files_dir.cleanup()
+        tok_dir.cleanup()
     kernels = []
     for r in report:
         entry = {k: r[k] for k in ("name", "route", "source", "replaces")}

@@ -41,6 +41,7 @@ from tests.test_torch_importers import (
     save_megatron,
     timesformer_sd,
 )
+from tests.hf_tokenizer_files import write_tokenizer_dir
 from tests.test_torch_owl_import import TINY, tiny_cfgs
 
 torch.set_num_threads(1)
@@ -150,6 +151,10 @@ def test_instruct_train_saves_resumes_and_exports_int8_as_jax(tmp_path,
     for k, s in got_s.items():
         owner, leaf = bridge.port_name("text_decoder/" + k).rsplit(".", 1)
         assert torch.equal(quant.qscale(model.get_submodule(owner), leaf), s)
+    # a built tokenizer.json takes the prompt: the whitespace tokenizer's
+    # salted hash would make a first greedy token of eos come and go
+    args.tokenizer = str(write_tokenizer_dir(tmp_path / "tok", 120,
+                                             byte_level=False))
     results, stats = tcli.main(args)
     assert stats["requests"] == 1 and stats["nonfinite_logits"] == 0
     assert results[0]["tokens"]

@@ -36,7 +36,8 @@ _NO_JAX = textwrap.dedent("""
                  "models.generation", "cli.export_serving",
                  "data.samplers", "data.video_decode", "data.transforms",
                  "data.datasets", "models.tokenizer", "cli.run_cls",
-                 "cli.run_retrieval", "cli.run_retrieval_itm"):
+                 "cli.run_retrieval", "cli.run_retrieval_itm",
+                 "models.hf_tokenizer"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
@@ -126,6 +127,41 @@ def test_file_backed_data_runs_without_jax_or_the_jax_package():
     """The datasets, cv2 decoding, transforms and the threaded loader
     read files with jax and youku_mplug_tpu blocked."""
     out = subprocess.run([sys.executable, "-c", _NO_JAX_FILES],
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+_NO_JAX_TOKENIZER = textwrap.dedent("""
+    import sys, tempfile
+    for blocked in ("jax", "flax", "transformers", "youku_mplug_tpu"):
+        sys.modules[blocked] = None  # any import of these now raises
+    from tests.hf_tokenizer_files import write_tokenizer_dir
+    from youku_mplug_tpu_torch.cli import run_instruct
+    from youku_mplug_tpu_torch.models.hf_tokenizer import HFTokenizer
+    d = write_tokenizer_dir(tempfile.mkdtemp(), 400, added=["<|x|>"],
+                            extra_specials=["<mask>"])
+    tok = HFTokenizer(d)
+    ids = tok.encode("Human: What is in the video? <|x|> 一只猫")
+    assert tok.decode(ids) == "Human: What is in the video? <|x|> 一只猫"
+    assert tok.decode(ids + [tok.eos_id, 10 ** 6]) == tok.decode(ids)
+    args = run_instruct.parser().parse_args(["--config", "c",
+                                             "--tokenizer", d])
+    assert isinstance(run_instruct.build_tokenizer(args, None), HFTokenizer)
+    leaked = sorted(m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "flax", "transformers",
+                                           "youku_mplug_tpu")
+                    and sys.modules[m] is not None)
+    assert not leaked, leaked
+    print("ok")
+""")
+
+
+def test_hf_tokenizer_runs_without_jax_or_transformers():
+    """The HF tokenizer files load, encode and decode through
+    ``tokenizers`` alone, with jax, transformers and the JAX package
+    blocked (transformers is not on the card's machine)."""
+    out = subprocess.run([sys.executable, "-c", _NO_JAX_TOKENIZER],
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"

@@ -44,6 +44,7 @@ from youku_mplug_tpu_torch.models.bloom import BloomConfig
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.vision import VisionConfig
 from youku_mplug_tpu_torch.runtime.precision import FP32_POLICY
+from tests.hf_tokenizer_files import write_tokenizer_dir
 
 torch.set_num_threads(1)
 TOL = 1e-4
@@ -267,7 +268,8 @@ def test_serve_instruct_tokens_match_jax(owl):
                                num_slots=2)
     got, stats, engine = tcli.serve_instruct(
         tm, _t(video), batch,
-        GenerationConfig(max_new_tokens=6, eos_id=2, pad_id=3), num_slots=2)
+        GenerationConfig(max_new_tokens=6, eos_id=2, pad_id=3,
+                         beam_size=1), num_slots=2)
     forced = _forced_logits(jm, jax.tree.map(jnp.asarray, params), tm,
                             video, batch, want)
     assert _check_served(got, want, forced) == 0  # no near-tie at this seed
@@ -305,7 +307,8 @@ def test_int8_serve_instruct_tokens_match_jax(owl):
     for tm in (loaded, quantized):
         got, stats, engine = tcli.serve_instruct(
             tm, _t(video), batch,
-            GenerationConfig(max_new_tokens=6, eos_id=2, pad_id=3),
+            GenerationConfig(max_new_tokens=6, eos_id=2, pad_id=3,
+                         beam_size=1),
             num_slots=2)
         forced = _forced_logits(jm, jax.tree.map(jnp.asarray, qparams), tm,
                                 video, batch, want,
@@ -381,6 +384,11 @@ def test_owl_config_resolves_to_quick_gelu(tmp_path):
 
 
 def test_run_instruct_cli_runs_on_cpu(tmp_path):
+    # the prompts go through a tokenizer.json built here: with the
+    # whitespace tokenizer their ids follow Python's salted string hash,
+    # and a first greedy token of eos (no kept token) would come and go
+    # with PYTHONHASHSEED
+    tok = str(write_tokenizer_dir(tmp_path / "tok", 120, byte_level=False))
     path = tmp_path / "owl.yaml"
     path.write_text(yaml.safe_dump(dict(TINY, max_new_tokens=3)))
     rows = [{"video": "a.mp4", "question": "what happens ?"},
@@ -390,7 +398,7 @@ def test_run_instruct_cli_runs_on_cpu(tmp_path):
     args = tcli.parser().parse_args([
         "--config", str(path), "--output_dir", str(tmp_path / "out"),
         "--synthetic_data", "--input_jsonl", str(jsonl), "--engine",
-        "--num_slots", "2", "--device", "cpu"])
+        "--num_slots", "2", "--device", "cpu", "--tokenizer", tok])
     results, stats = tcli.main(args)
     assert [r["video"] for r in results] == ["a.mp4", "b.mp4"]
     assert all(1 <= len(r["tokens"]) <= 3 for r in results)
@@ -414,24 +422,31 @@ def test_run_instruct_cli_runs_on_cpu(tmp_path):
     results, stats = tcli.main(tcli.parser().parse_args([
         "--config", str(path), "--output_dir", str(tmp_path / "int8"),
         "--synthetic_data", "--input_jsonl", str(jsonl), "--int8",
-        "--num_slots", "2", "--device", "cpu"]))
+        "--num_slots", "2", "--device", "cpu", "--tokenizer", tok]))
     assert stats["kv_cache_dtype"] == "int8" and stats["requests"] == 2
     assert stats["nonfinite_logits"] == 0
     assert all(1 <= len(r["tokens"]) <= 3 for r in results)
     # sampling is served (the new-token budget is the YAML's); beam
-    # search is not ported and raises
+    # search runs on the batched path (no --engine) and the engine
+    # refuses it, as in the JAX runner
     path.write_text(yaml.safe_dump(dict(TINY, do_sample=True,
                                         max_new_tokens=3)))
     results, stats = tcli.main(tcli.parser().parse_args([
         "--config", str(path), "--output_dir", str(tmp_path / "sample"),
         "--synthetic_data", "--input_jsonl", str(jsonl), "--num_slots",
-        "2", "--device", "cpu"]))
+        "2", "--device", "cpu", "--tokenizer", tok]))
     assert stats["requests"] == 2 and stats["nonfinite_logits"] == 0
     assert all(1 <= len(r["tokens"]) <= 3 for r in results)
-    path.write_text(yaml.safe_dump(dict(TINY, beam_size=2)))
+    path.write_text(yaml.safe_dump(dict(TINY, beam_size=2,
+                                        max_new_tokens=3)))
+    beam_args = ["--config", str(path), "--output_dir",
+                 str(tmp_path / "beam"), "--synthetic_data", "--input_jsonl",
+                 str(jsonl), "--device", "cpu", "--tokenizer", tok]
+    results, stats = tcli.main(tcli.parser().parse_args(beam_args))
+    assert stats["beam_size"] == 2 and stats["nonfinite_logits"] == 0
+    assert all(1 <= len(r["tokens"]) <= 3 for r in results)
     with pytest.raises(ValueError, match="beam"):
-        tcli.build(tcli.parser().parse_args(["--config", str(path),
-                                             "--device", "cpu"]))
+        tcli.main(tcli.parser().parse_args(beam_args + ["--engine"]))
 
 
 def test_bridge_round_trip_of_the_owl_tree(owl):

@@ -32,6 +32,7 @@ from youku_mplug_tpu_torch.models import gpt3 as tgpt3
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.runtime.precision import FP32_POLICY
 from youku_mplug_tpu_torch.serving import speculative as tspec
+from tests.hf_tokenizer_files import write_tokenizer_dir
 
 torch.set_num_threads(1)
 V = 256  # the tiny flagship's vocab
@@ -263,7 +264,13 @@ def test_serve_cli_speculative_runs_on_cpu(tmp_path, draft):
 def test_run_instruct_lookup_and_sampling_on_cpu(tmp_path):
     """``--engine --lookup_k 3`` gives the greedy tokens;
     ``do_sample`` with top_k draws from the seed + 1 generator: the same
-    seed, the same tokens."""
+    seed, the same tokens.  The prompts go through a tokenizer.json the
+    test builds, so their ids (and with them whether the first sampled
+    token is eos) are the same in every process, whatever
+    PYTHONHASHSEED is (the whitespace tokenizer hashes words with
+    Python's salted string hash)."""
+    tok = write_tokenizer_dir(tmp_path / "tok", 120, byte_level=False)
+
     def run(extra, **yaml_keys):
         path = tmp_path / "owl.yaml"
         raw = yaml.safe_load(open("configs/instruct/serve_owl_tiny.yaml"))
@@ -271,7 +278,8 @@ def test_run_instruct_lookup_and_sampling_on_cpu(tmp_path):
         out = tmp_path / str(len(list(tmp_path.iterdir())))
         results, stats = run_instruct.main(run_instruct.parser().parse_args(
             ["--config", str(path), "--synthetic_data", "--engine",
-             "--device", "cpu", "--output_dir", str(out)] + extra))
+             "--device", "cpu", "--output_dir", str(out), "--tokenizer",
+             str(tok)] + extra))
         assert stats["nonfinite_logits"] == 0
         return [r["tokens"] for r in results], stats
 

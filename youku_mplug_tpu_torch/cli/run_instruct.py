@@ -1,26 +1,40 @@
 """mPLUG-Video BloomZ-7B video instruct on the port: serving, and
 instruction finetuning with ``--train``.
 
-Counterpart of ``youku_mplug_tpu/cli/run_instruct.py``.  Serving
-(inference through the engine): Human/AI prompts with one ``<|video|>``
-placeholder are expanded to the media positions, the clips are encoded
-(per-frame CLIP ViT, visual abstractor, ``visual_fc`` and ``vit_eos``)
-and spliced into the prompt embeddings in one batch, and every request is
-admitted to the continuous-batching engine's slot pool as slots free, the
-Bloom decoder decoding over the stacked cache: bf16, or int8 with
-per-(token, head) scales when the YAML sets ``text_overrides:
-{kv_cache_dtype: int8}`` (``configs/instruct/serve_bloomz_7b_int8.yaml``).
-Decoding is greedy, or sampled with the YAML's ``do_sample``, ``top_k``
-(default 5) and ``top_p`` (default 0.9) from a generator seeded with
-``--seed + 1`` (``configs/instruct/serve_bloomz_7b_sample.yaml``);
-``--lookup_k k`` adds greedy prompt-lookup speculation (k proposals a
-slot, one verify chunk a dispatch).
-``--int8`` serves int8 decoder weights: the kernels and the tied embedding
-quantized in place after the init (a port option with no JAX counterpart;
-it gives the form ``cli/export_serving.py --int8 --int8_embedding``
-writes).  Serving always runs through the engine: the batched
-``generate`` is not ported, so ``--engine`` is accepted for the JAX
-runner's command lines and changes nothing.
+Counterpart of ``youku_mplug_tpu/cli/run_instruct.py``.  Serving: Human/AI
+prompts with one ``<|video|>`` placeholder are expanded to the media
+positions, the clips are encoded (per-frame CLIP ViT, visual abstractor,
+``visual_fc`` and ``vit_eos``) and spliced into the prompt embeddings in
+one batch, and the Bloom decoder answers over the stacked cache: bf16, or
+int8 with per-(token, head) scales when the YAML sets ``text_overrides:
+{kv_cache_dtype: int8}`` (``configs/instruct/serve_bloomz_7b_int8.yaml``);
+``--fp32`` serves fp32 weights and compute.  Two paths, as in the JAX runner:
+
+- without ``--engine``, one lock-step batch through
+  ``models/owl.generate_instruct``: greedy, sampled with the YAML's
+  ``do_sample``, ``top_k`` (default 5) and ``top_p`` (default 0.9), or
+  beam search when the YAML sets ``beam_size > 1`` (the 2K candidates and
+  finished pool of ``models/generation.py``; every beam step runs the
+  decode kernel over the B x beam_size cache rows);
+- with ``--engine``, the continuous-batching engine: every request is
+  admitted to the slot pool as slots free; greedy or sampled, and
+  ``--lookup_k k`` adds greedy prompt-lookup speculation (k proposals a
+  slot, one verify chunk a dispatch).  The engine refuses
+  ``beam_size > 1``.
+
+Sampled draws come from a generator seeded with ``--seed + 1``
+(``configs/instruct/serve_bloomz_7b_sample.yaml``).  ``--int8`` serves
+int8 decoder weights: the kernels and the tied embedding quantized in
+place after the init (a port option with no JAX counterpart; it gives the
+form ``cli/export_serving.py --int8 --int8_embedding`` writes).
+
+Text: ``--tokenizer <dir or tokenizer.json>`` names HF tokenizer files
+(BloomZ's, read through ``tokenizers`` by ``models/hf_tokenizer.py``,
+as ``AutoTokenizer`` reads them); each result's ``answer`` is the
+tokenizer's decode of its kept tokens (``tokens``: the ids but pad and
+eos), stripped.  Without it the whitespace hash tokenizer of synthetic
+runs takes the prompts, as in the JAX runner, and an answer is its ids
+written ``<id>``.  ``--train`` takes the same tokenizer.
 
 The requests are the ``--input_jsonl`` rows (``video``, ``question`` or
 a pre-formatted ``prompt``) or one ``--video`` with ``--question``; each
@@ -50,13 +64,16 @@ Weights, as the JAX runner has them: a seeded init (serving) or the JAX
 export of a trained run (``cli/export_serving.py --owl``) in their place:
 the LoRA ranks are 0 (the adapters are merged), and the decoder is int8
 exactly when the export's ``qscales`` say so (``--int8`` beside it
-raises).  Beam search is not ported yet (ROADMAP.md, Queue 1) and
-raises; HF tokenizer files (the JAX runner's ``--tokenizer``) are not
-ported either, so prompts take the whitespace hash tokenizer and results
-carry token ids (its "text" is the ids).
+raises).
 
 Usage (the card is the default device; ``--device cpu`` runs a tiny
 config on the CPU):
+    python -m youku_mplug_tpu_torch.cli.run_instruct \\
+        --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
+        --input_jsonl <rows of video, question> --tokenizer <BloomZ dir>
+    python -m youku_mplug_tpu_torch.cli.run_instruct \\
+        --config <a copy of a serving YAML with beam_size: 5> \\
+        --synthetic_data --tokenizer <BloomZ dir> [--int8]
     python -m youku_mplug_tpu_torch.cli.run_instruct \\
         --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
         --synthetic_data --engine
@@ -69,9 +86,6 @@ config on the CPU):
     python -m youku_mplug_tpu_torch.cli.run_instruct \\
         --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
         --synthetic_data --engine --lookup_k 4
-    python -m youku_mplug_tpu_torch.cli.run_instruct \\
-        --config configs/instruct/serve_bloomz_7b_flagship.yaml \\
-        --engine --input_jsonl <rows of video, question>
     python -m youku_mplug_tpu_torch.cli.run_instruct --train \\
         --config configs/instruct/train_bloomz_7b_flagship.yaml \\
         --synthetic_data --max_steps 8 --output_dir out \\
@@ -124,13 +138,15 @@ from youku_mplug_tpu_torch.data.transforms import (
 from youku_mplug_tpu_torch.data.video_decode import read_frames
 from youku_mplug_tpu_torch.models import importers
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
-from youku_mplug_tpu_torch.models.owl import MPLUGOwlVideo
+from youku_mplug_tpu_torch.models.hf_tokenizer import HFTokenizer
+from youku_mplug_tpu_torch.models.owl import MPLUGOwlVideo, generate_instruct
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
 from youku_mplug_tpu_torch.ops import quant
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
 from youku_mplug_tpu_torch.runtime.precision import (
     BF16_POLICY,
     DEFAULT_POLICY,
+    FP32_POLICY,
 )
 from youku_mplug_tpu_torch.serving.engine import ServingEngine
 from youku_mplug_tpu_torch.train.checkpoint import CheckpointManager
@@ -153,13 +169,19 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--question", default="", help="one-off question")
     p.add_argument("--synthetic_data", action="store_true",
                    help="seeded random clips in place of video files")
+    p.add_argument("--fp32", action="store_true",
+                   help="serving: fp32 weights and compute instead of "
+                        "bf16, as the JAX runner's --fp32 (not with "
+                        "--train)")
     p.add_argument("--seed", type=int, default=42,
                    help="seed of the weight init and the synthetic clips")
     p.add_argument("--max_new_tokens", type=int, default=0,
                    help="override the config's max_new_tokens")
     p.add_argument("--engine", action="store_true",
-                   help="serve through the continuous-batching engine (the "
-                        "only serving path of the port)")
+                   help="serve through the continuous-batching engine (slot "
+                        "pool, per-request admission; greedy or sampled) "
+                        "instead of one lock-step batched generate (greedy, "
+                        "sampled or beam search)")
     p.add_argument("--num_slots", type=int, default=4,
                    help="engine slot-pool size")
     p.add_argument("--lookup_k", type=int, default=0,
@@ -173,6 +195,10 @@ def parser() -> argparse.ArgumentParser:
                         "--int8 --int8_embedding writes)")
     p.add_argument("--hf_checkpoint", default="",
                    help="HF mPLUG-Owl checkpoint directory to import")
+    p.add_argument("--tokenizer", default="",
+                   help="HF tokenizer directory or tokenizer.json "
+                        "(BloomTokenizerFast); without it the whitespace "
+                        "hash tokenizer of synthetic runs")
     p.add_argument("--serving_ckpt", default="",
                    help="serving checkpoint directory from "
                         "cli/export_serving.py --owl (LoRA merged, int8 "
@@ -221,15 +247,13 @@ def build(args):
                          "--serving_ckpt is int8 exactly where "
                          "export_serving --int8 made it so")
     cfg, raw = load_owl_config(args.config)
-    if int(raw.get("beam_size", 1)) > 1:
-        raise ValueError("the engine serves beam_size=1 (beam search is not "
-                         "ported yet)")
     if args.serving_ckpt:  # the export merged the adapters
         cfg = dataclasses.replace(
             cfg, text=dataclasses.replace(cfg.text, lora_rank=0),
             vision=dataclasses.replace(cfg.vision, lora_rank=0))
     with device:  # built on the device: no host copy of 7B
-        model = MPLUGOwlVideo(cfg, BF16_POLICY)
+        model = MPLUGOwlVideo(cfg, FP32_POLICY if args.fp32
+                              else BF16_POLICY)
     if args.serving_ckpt:
         params, qscales, step = load_serving_ckpt(args.serving_ckpt)
         load_jax_params(model, params, qscales)
@@ -243,6 +267,15 @@ def build(args):
     if args.int8:
         quant.quantize_decoder_(model.text_decoder, include_embedding=True)
     return cfg, raw, model.eval(), device
+
+
+def build_tokenizer(args, cfg):
+    """The HF tokenizer files ``--tokenizer`` names, else the whitespace
+    hash tokenizer (the JAX runner's choice)."""
+    if getattr(args, "tokenizer", ""):  # profile_train's parser has none
+        return HFTokenizer(args.tokenizer)
+    return WhitespaceTokenizer(cfg.text.vocab_size, eos_id=cfg.text.eos_id,
+                               pad_id=cfg.text.pad_id)
 
 
 def load_rows(args):
@@ -326,7 +359,13 @@ def serve_instruct(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
     clips: normalized [B, C, T, H, W] on the model's device; batch: the
     ``build_instruct_batch`` dict.  Returns (sequences [B, max_new_tokens]
     int32 right-padded with pad_id, stats, the engine); the stats name
-    the cache's dtype and the decoder's weight and cache bytes."""
+    the cache's dtype and the decoder's weight and cache bytes.  The
+    engine serves beam_size 1 only: beam search raises here, as in the
+    JAX runner."""
+    if gen_cfg.beam_size > 1:
+        raise ValueError("--engine serves beam_size=1 (greedy or sampled); "
+                         "beam search runs on the batched path (no "
+                         "--engine)")
     dev = clips.device
     input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
     media_mask = torch.as_tensor(batch["media_mask"], device=dev)
@@ -377,17 +416,72 @@ def serve_instruct(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
     return seqs, stats, engine
 
 
-def prepare(args, cfg, raw_cfg, device, compute_dtype):
-    """-> (rows, instruct batch, normalized clips on the device)."""
+@torch.inference_mode()
+def generate_batched(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
+                     gen_cfg: GenerationConfig,
+                     generator: Optional[torch.Generator] = None):
+    """Instruct inference in one lock-step batch (the JAX runner's default
+    path): ``generate_instruct`` over every request, greedy, sampled or
+    beam search as ``gen_cfg`` says.  Arguments as ``serve_instruct``'s.
+    Returns (sequences [B, max_new_tokens] int32 right-padded with
+    pad_id, stats, ``generate``'s output); the stats name the cache's
+    dtype and bytes (B x beam_size rows of the prefix and the new
+    tokens) and the decoder's weight bytes."""
+    dev = clips.device
+    input_ids = torch.as_tensor(batch["input_ids"], device=dev).long()
+    b, p = input_ids.shape
+    t0 = time.perf_counter()
+    out = generate_instruct(
+        model, clips, input_ids,
+        torch.as_tensor(batch["media_mask"], device=dev),
+        torch.as_tensor(batch["prompt_len"], device=dev), gen_cfg,
+        generator)
+    seqs = out["sequences"].cpu().numpy()
+    wall = time.perf_counter() - t0
+    beam = not gen_cfg.do_sample and gen_cfg.beam_size > 1
+    cache = model.text_decoder.init_cache(
+        b * (gen_cfg.beam_size if beam else 1), p + gen_cfg.max_new_tokens,
+        device="meta")
+    n_tok = int((seqs != gen_cfg.pad_id).sum())
+    stats = {
+        "requests": b, "new_tokens": n_tok, "beam_size": gen_cfg.beam_size,
+        "do_sample": gen_cfg.do_sample, "decode_steps": out["decode_steps"],
+        "wall_s": wall, "tokens_per_sec": n_tok / max(wall, 1e-9),
+        "peak_memory_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                            if dev.type == "cuda" else None),
+        "nonfinite_logits": out["nonfinite_logits"],
+        "kv_cache_dtype": str(kvc.leaves(cache)[0].dtype
+                              ).removeprefix("torch."),
+        "cache_bytes": kvc.nbytes(cache),
+        "decoder_weight_bytes": quant.decoder_bytes(model.text_decoder),
+    }
+    return seqs, stats, out
+
+
+def answers(rows, seqs, tokenizer, text_cfg):
+    """One result per request: its row (but ``prompt``), the kept tokens
+    (pad and eos dropped) and the tokenizer's decode of them, stripped
+    (the JAX runner's ``answer``)."""
+    results = []
+    for r, seq in zip(rows, seqs):
+        keep = seq[(seq != text_cfg.pad_id) & (seq != text_cfg.eos_id)]
+        results.append({**{k: v for k, v in r.items() if k != "prompt"},
+                        "tokens": keep.tolist(),
+                        "answer": tokenizer.decode(
+                            keep, skip_special_tokens=True).strip()})
+    return results
+
+
+def prepare(args, cfg, raw_cfg, device, compute_dtype, tokenizer):
+    """-> (rows, instruct batch, normalized clips on the device); the
+    prompts go through ``tokenizer``."""
     rows = load_rows(args)
     prompts = [r.get("prompt") or format_prompt(r["question"])
                for r in rows]
     for p in prompts:
         if VIDEO_PLACEHOLDER not in p:
             raise ValueError(f"prompt lacks {VIDEO_PLACEHOLDER}: {p[:80]!r}")
-    tok = WhitespaceTokenizer(cfg.text.vocab_size, eos_id=cfg.text.eos_id,
-                              pad_id=cfg.text.pad_id)
-    batch = build_instruct_batch(prompts, tok, cfg.num_media_tokens,
+    batch = build_instruct_batch(prompts, tokenizer, cfg.num_media_tokens,
                                  pad_id=cfg.text.pad_id)
     video = load_videos(args, raw_cfg, rows)
     clips = normalize_clip(torch.from_numpy(video).to(device),
@@ -424,6 +518,9 @@ def train_setup(args) -> common.Runner:
     whose schedule spans ``min(len(loader), max_steps)`` updates per
     epoch, the checkpoints and the resume (``common.resume_state``)."""
     device = common.device_of(args)
+    if getattr(args, "fp32", False):
+        raise ValueError("--fp32 is a serving flag: training keeps fp32 "
+                         "trainable and bf16 frozen leaves")
     cfg, raw = load_owl_config(args.config)
     tcfg = instruct_train_config(raw)
     loader = build_train_loader(args, tcfg, raw, cfg.vision.img_size)
@@ -443,12 +540,11 @@ def train_setup(args) -> common.Runner:
         os.path.join(args.output_dir, "checkpoints"),
         async_save=bool(raw.get("async_checkpointing", False)))
     state, start_epoch = common.resume_state(args, ckpt, state)
-    tok = WhitespaceTokenizer(cfg.text.vocab_size, eos_id=cfg.text.eos_id,
-                              pad_id=cfg.text.pad_id)
     return common.Runner(
         args=args, cfg=tcfg, device=device, model=model.train(),
-        tokenizer=tok, state=state, schedule=schedule, loader=loader,
-        ckpt=ckpt, start_epoch=start_epoch)
+        tokenizer=build_tokenizer(args, cfg), state=state,
+        schedule=schedule, loader=loader, ckpt=ckpt,
+        start_epoch=start_epoch)
 
 
 def make_instruct_batch(runner: common.Runner, raw):
@@ -498,19 +594,19 @@ def main(args):
     if args.train:
         return train_main(args)
     cfg, raw_cfg, model, device = build(args)
+    tokenizer = build_tokenizer(args, cfg)
     rows, batch, clips = prepare(args, cfg, raw_cfg, device,
-                                 model.policy.compute_dtype)
-    seqs, stats, _ = serve_instruct(
-        model, clips, batch, generation_config(args, cfg, raw_cfg),
-        num_slots=args.num_slots, lookup_k=args.lookup_k,
-        generator=torch.Generator(device).manual_seed(args.seed + 1))
-    tok = WhitespaceTokenizer(cfg.text.vocab_size)
-    results = []
-    for r, seq in zip(rows, seqs):
-        keep = seq[(seq != cfg.text.pad_id) & (seq != cfg.text.eos_id)]
-        results.append({**{k: v for k, v in r.items() if k != "prompt"},
-                        "tokens": keep.tolist(),
-                        "answer": tok.decode(keep)})
+                                 model.policy.compute_dtype, tokenizer)
+    gen_cfg = generation_config(args, cfg, raw_cfg)
+    generator = torch.Generator(device).manual_seed(args.seed + 1)
+    if args.engine:
+        seqs, stats, _ = serve_instruct(
+            model, clips, batch, gen_cfg, num_slots=args.num_slots,
+            lookup_k=args.lookup_k, generator=generator)
+    else:
+        seqs, stats, _ = generate_batched(model, clips, batch, gen_cfg,
+                                          generator)
+    results = answers(rows, seqs, tokenizer, cfg.text)
     os.makedirs(args.output_dir, exist_ok=True)
     with open(os.path.join(args.output_dir, "instruct_results.json"),
               "w") as f:

@@ -1,7 +1,8 @@
 """Batched autoregressive generation: greedy, sampled and beam search
 over the stacked KV cache.
 
-Counterpart of ``youku_mplug_tpu/models/generation.py``.  Prompts of
+Counterpart of ``youku_mplug_tpu/models/generation.py``, for the GPT-3
+captioner and the Bloom instruct decoder alike.  Prompts of
 different lengths are front-padded (pads before the query prefix,
 ``_build_prefix``) and hidden by a per-sample ``valid_from`` and position
 offset, so the batch decodes in lock-step.  The prefill is one chunk
@@ -124,7 +125,10 @@ def generate(model, prompt_ids: torch.Tensor, prompt_len: torch.Tensor,
              query_embeds=None, config: GenerationConfig = GenerationConfig(),
              generator: Optional[torch.Generator] = None,
              prompt_embeds=None):
-    """Batched generation on ``model`` (a ``GPT3LM``).  prompt_ids [B, P]
+    """Batched generation on ``model``: any decoder with ``embed`` /
+    ``logits`` / ``init_cache`` / ``decode_step`` (``GPT3LM``, or
+    ``BloomLM`` under mPLUG-Owl's ``generate_instruct``, whose ALiBi
+    ignores the position offset).  prompt_ids [B, P]
     right-padded, prompt_len [B] their true lengths (callers drop the
     trailing eos); query_embeds [B, nq, H] the prefix before the prompt;
     prompt_embeds [B, P, H] pre-built prompt embeddings in place of the
@@ -132,7 +136,8 @@ def generate(model, prompt_ids: torch.Tensor, prompt_len: torch.Tensor,
     ``generator``) when ``beam_size <= 1`` or sampling, else beam search.
     Returns {"sequences": int32 [B, max_new_tokens] (pad after eos),
     "scores": fp32 [B] (0 unless beam search), "decode_steps": the S = 1
-    decode steps run}."""
+    decode steps run, "nonfinite_logits": the logit rows (of the prefill
+    and every step) holding a value that is not finite}."""
     with torch.inference_mode():
         if config.do_sample or config.beam_size <= 1:
             return _sample(model, prompt_ids, prompt_len, query_embeds,
@@ -167,19 +172,27 @@ def _sample(model, prompt_ids, prompt_len, query_embeds, prompt_embeds,
     seqs = torch.full((b, max_new), config.pad_id, dtype=torch.int32,
                       device=dev)
     seqs[:, 0] = pick(logits)
+    nonfinite = _nonfinite(logits)
     done = seqs[:, 0] == config.eos_id
     t = 1
     while t < max_new and not bool(done.all()):
         emb = model.embed(seqs[:, t - 1:t].long())
         logits, cache = model.decode_step(emb, cache, prefix_len + t - 1,
                                           valid_from, pos_offset)
+        nonfinite += _nonfinite(logits)
         nxt = torch.where(done, config.pad_id, pick(logits))
         seqs[:, t] = nxt
         done |= nxt == config.eos_id
         t += 1
     return {"sequences": seqs,
             "scores": torch.zeros(b, dtype=torch.float32, device=dev),
-            "decode_steps": t - 1}
+            "decode_steps": t - 1, "nonfinite_logits": int(nonfinite)}
+
+
+def _nonfinite(logits: torch.Tensor) -> torch.Tensor:
+    """The rows of ``logits`` holding a value that is not finite, counted
+    on the device (read once, at the end)."""
+    return (~torch.isfinite(logits)).any(-1).sum()
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -193,7 +206,8 @@ def _top_k(x: torch.Tensor, k: int):
 def _gather_beams(cache, beam_idx: torch.Tensor, b: int, k: int,
                   prefix_len: int = 0):
     """Reorder the beam rows of every cache leaf whose dim 1 is B*K (the
-    bf16 tensor [L, B*K, M, 2nd], or both leaves of the int8 dict) in
+    bf16 tensor [L, B*K, M, 2nd], or both leaves of the int8 dict: rows
+    [L, B*K, M, 2nd] and scales [L, B*K, M, 2n]) in
     place: row b*K + j takes row b*K + beam_idx[b, j].  prefix_len > 0:
     rows [0, prefix_len) of dim 2 hold the prefill, identical across a
     sample's beams, so only the tail [prefix_len, M) is gathered and
@@ -230,6 +244,7 @@ def _beam_search(model, prompt_ids, prompt_len, query_embeds, prompt_embeds,
     logits, cache = model.decode_step(embeds.repeat_interleave(kb, 0), cache,
                                       0, valid_t, off_t)
     v = logits.shape[-1]
+    nonfinite = _nonfinite(logits)
 
     def penalize(scores, length: int):
         if lp == 0.0:
@@ -264,6 +279,7 @@ def _beam_search(model, prompt_ids, prompt_len, query_embeds, prompt_embeds,
         emb = model.embed(alive_seq[:, :, t - 1].reshape(b * kb, 1).long())
         logits, cache = model.decode_step(emb, cache, prefix_len + t - 1,
                                           valid_t, off_t)
+        nonfinite += _nonfinite(logits)
         logp = torch.log_softmax(logits.float(), -1).reshape(b, kb, v)
         cand = (alive_score[:, :, None] + logp).reshape(b, kb * v)
         # 2K candidates, so K survive however many end in eos
@@ -292,4 +308,5 @@ def _beam_search(model, prompt_ids, prompt_len, query_embeds, prompt_embeds,
     all_seqs = torch.cat([fin_seq, alive_seq], 1)
     best_score, best = _top_k(all_scores, 1)
     return {"sequences": rows(all_seqs, best)[:, 0],
-            "scores": best_score[:, 0], "decode_steps": t - 1}
+            "scores": best_score[:, 0], "decode_steps": t - 1,
+            "nonfinite_logits": int(nonfinite)}

@@ -3,10 +3,11 @@ ViT -> visual abstractor -> ``visual_fc`` (+ ``vit_eos``) -> features
 spliced into the Bloom token embeddings at the ``<|video|>`` positions.
 
 Counterpart of ``youku_mplug_tpu/models/owl.py``: ``encode_video`` and
-``spliced_embeds`` for serving, ``instruct_loss`` (the response-masked
-LM loss of instruction finetuning) for training.  Parameter names and
-shapes follow the JAX tree, so the bridge loads it by rename.  What the
-port keeps:
+``spliced_embeds`` for serving, ``generate_instruct`` (the batched
+greedy, sampled or beam-search answer), ``instruct_loss`` (the
+response-masked LM loss of instruction finetuning) for training.
+Parameter names and shapes follow the JAX tree, so the bridge loads it by
+rename.  What the port keeps:
 
 - frames fold into the batch for one ViT sweep ([B*T, 1 + N, D]);
 - the abstractor adds a learnable per-frame temporal embedding before
@@ -32,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from youku_mplug_tpu_torch.models.bloom import BloomConfig, BloomLM
+from youku_mplug_tpu_torch.models.generation import GenerationConfig, generate
 from youku_mplug_tpu_torch.models.tasks import Dense
 from youku_mplug_tpu_torch.models.vision import (
     LayerNormFP32,
@@ -225,3 +227,25 @@ class MPLUGOwlVideo(nn.Module):
                 prompt_mask):
         return self.instruct_loss(video, input_ids, attention_mask,
                                   media_mask, prompt_mask)
+
+
+def generate_instruct(model: MPLUGOwlVideo, video, input_ids, media_mask,
+                      prompt_len, gen_config: GenerationConfig,
+                      generator=None):
+    """Video instruct inference in one lock-step batch (the JAX package's
+    ``generate_instruct``): ``encode_video``, ``spliced_embeds``, then
+    ``generate`` on the Bloom decoder with the spliced rows as the prompt
+    embeddings.  video: normalized [B, C, T, H, W]; input_ids [B, P]
+    right-padded, the ``<|video|>`` placeholder already expanded to
+    ``num_media_tokens`` media positions; prompt_len [B] true lengths
+    (media positions included).  Greedy, sampled (``do_sample``; draws
+    from ``generator``) or beam search (``beam_size > 1``) as
+    ``gen_config`` says.  An int8 decoder (``--int8``, or a serving
+    checkpoint with ``qscales``) looks the spliced token rows up
+    dequantized.  Returns ``generate``'s dict."""
+    with torch.inference_mode():
+        embeds = model.spliced_embeds(input_ids, media_mask,
+                                      model.encode_video(video))
+        return generate(model.text_decoder, input_ids, prompt_len,
+                        config=gen_config, generator=generator,
+                        prompt_embeds=embeds)
