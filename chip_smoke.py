@@ -256,10 +256,10 @@ the last line is printed):
    CSVs, phase 13's cuts: 2 train steps and the evaluation of a test
    batch (8 calls): every title and label the loaders yield the file's
    (no -1), launches per step and call as phase 13's cls;
-24. instruct_files (run last): run_instruct --engine --input_jsonl over
-   FILES_OWL_ROWS rows of the clips and 2 --train --train_jsonl LoRA
-   steps, Bloom cut to OWL_CUT: K1, K5-ALiBi (with K6) and the ALiBi
-   backward's launches exact, phase 8's teacher-forced gate on the
+24. instruct_files (run after phase 19): run_instruct --engine
+   --input_jsonl over FILES_OWL_ROWS rows of the clips and 2 --train
+   --train_jsonl LoRA steps, Bloom cut to OWL_CUT: K1, K5-ALiBi (with K6)
+   and the ALiBi backward's launches exact, phase 8's teacher-forced gate on the
    decoded clips;
 25. instruct_batched (run after phase 8a, on phase 7's bf16 model):
    run_instruct's default path without --engine (generate_batched, i.e.
@@ -291,7 +291,38 @@ the last line is printed):
    in JAX) and ITM at 2.7B (batch ITM27_BATCH, num_classes 2; its
    evaluation 64 K4 d 80 launches and one K4 d 96 a call), each recipe's
    geometry checked and its cuts printed ([shipped], [pretrain13],
-   [pretrain27], [retrieval27], [itm27] lines).
+   [pretrain27], [retrieval27], [itm27] lines);
+28. knobs_pretrain (run last, with 29-32, after phase 24): the pretrain
+   path on configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml with
+   lora_rank 8 (GPT-3 adapters), connect_ln, freeze_vit, vision LoRA rank 4 and
+   drop-path 0.1, adamp and async_checkpointing: 3 steps, the state of
+   step 2 saved asynchronously while step 3 runs, then restored and held
+   bitwise to a snapshot taken before step 3; launches per step equal
+   phase 5's (K1, K4, dq, dk/dv, delta), the frozen base bitwise
+   unchanged, every lora_*_b moved, phase 6's plain replay on the same
+   dropout generator;
+29. knobs_dropout: the same with vision drop_rate and attn_drop_rate 0.1
+   and the decoder's 0.1 dropouts: 2 finite steps, launches per step
+   exactly KNOBS_DROPOUT_LAUNCHES (JAX's rule: every vision and decoder
+   attention on the plain path, AttentionPool's K4 / K4b alone);
+30. knobs_lora_serve: serve --resume on phase 28's run (the adapters
+   unmerged inside the decode graph), then cli/export_serving.py merges
+   them and the rank-0 model serves: 24 K5 (with K6) a decode step each,
+   teacher-forced logits of the two within LOGIT_TOL, greedy tokens
+   equal up to near-ties (CAPTION_TIE_GAP);
+31. knobs_instruct_train: the instruct-train YAML with Bloom cut to
+   OWL_CUT, hidden dropout 0.1, remat "names", ce_chunk a divisor of the
+   batch's S, vision LoRA rank 4 and drop-path 0.1, lamb with layer decay
+   0.9 over the ViT's 24 blocks and an lr-scale rule: 2 steps;
+   K1-ALiBi, dq-ALiBi, dk/dv-ALiBi and K1 launches per step and layer
+   equal phase 9's; phase 10's replays;
+   the chunked loss against the dense one within CE_CHUNK_TOL;
+32. optim_zoo: every zoo name (and lookahead_adamw past its first sync)
+   over the flagship's trainable leaves in their JAX shapes, ZOO_UPDATES
+   updates in fp32 on the card against the same in fp64 on the CPU (one
+   reference a distinct rule): every leaf within ZOO_TOL relative L2, ms
+   an update printed;
+   [knobs] prints the five phases' total.
 """
 
 from __future__ import annotations
@@ -809,10 +840,15 @@ OWL_BATCHED_PATHS = ("instruct_batched", "instruct_beam",
                      "instruct_beam_int8")
 CKPT_OWL_PATHS = ("instruct_hf", "instruct_hf_train",
                   "instruct_serving_int8")
+# phases 28-31: the training knobs' paths (phase 29 runs no K1: attention
+# dropout takes every vision and decoder attention off the kernels)
+KNOBS_SERVE_PATHS = ("knobs_lora_serve", "knobs_lora_serve_merged")
+KNOBS_TRAIN_PATHS = ("knobs_pretrain", "knobs_dropout")
 # every path that runs a flash backward (the delta kernel's)
 BWD_PATHS = ("train", "caption_train", "instruct_train",
              "instruct_hf_train", "pretrain_files", "cls_files_train",
-             "instruct_files_train") + D96_TRAIN_PATHS
+             "instruct_files_train", "knobs_instruct_train") \
+    + D96_TRAIN_PATHS + KNOBS_TRAIN_PATHS
 
 # head dim 80, the GPT-3 2.7B decoder (32 heads of 80), on head views of
 # the fused qkv projection: the cls evaluation's decoder passes (4 clips x
@@ -1011,7 +1047,8 @@ DEC_COUNTERS = ("launches", "alibi_launches", "int8_launches",
 # write): the serve CLI's and run_instruct's (k = 1 graphs), the k = 8
 # runs, the twin draft's steps and the sampled instruct runs
 K5_PATHS = {"K5": ("serve", "serve_k8", "speculative_twin",
-                   "caption_eval", "serve_files") + CKPT_SERVE_PATHS,
+                   "caption_eval", "serve_files") + CKPT_SERVE_PATHS
+            + KNOBS_SERVE_PATHS,
             "K5-ALiBi": ("instruct", "instruct_k8", "instruct_sample",
                          "instruct_hf", "instruct_files", "instruct_batched",
                          "instruct_beam"),
@@ -1268,15 +1305,17 @@ def phase_kernels(dev, builds, owl_beam):
                 "retrieval_train", "retrieval_eval") + CKPT_SERVE_PATHS
                + CKPT_OWL_PATHS + ("serve_files", "pretrain_files",
                                    "cls_files_eval", "instruct_files",
-                                   "instruct_files_train") + OWL_BATCHED_PATHS,
+                                   "instruct_files_train") + OWL_BATCHED_PATHS
+               + KNOBS_SERVE_PATHS + ("knobs_pretrain",
+                                      "knobs_instruct_train"),
                "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
                ("serve", "train", "serve_int8kv", "speculative_twin",
                 "speculative_ngram", "caption_train", "caption_eval",
-                "serve_files", "pretrain_files") + CKPT_SERVE_PATHS, "K4",
-               k4)]
+                "serve_files", "pretrain_files") + CKPT_SERVE_PATHS
+               + KNOBS_SERVE_PATHS + KNOBS_TRAIN_PATHS, "K4", k4)]
     for kind, wrapper, line, line_hm in (
             ("dq", fa.flash_bwd_dq_cuda, 723, 148),
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
@@ -1284,13 +1323,14 @@ def phase_kernels(dev, builds, owl_beam):
             f"K2/K3 + K4b backward {kind} kernel (flash_bwd_{kind}_cuda; "
             f"also replaces flash_attention.py:{line_hm})", BWD_SRC,
             f"{TPU_FLASH}:{line}", wrapper,
-            ("train", "caption_train", "pretrain_files"), kind,
+            ("train", "caption_train", "pretrain_files",
+             "knobs_instruct_train") + KNOBS_TRAIN_PATHS, kind,
             [c[kind] for c in cases] + [no_alibi_128[kind]]))
     report.append(_entry(
         "K1 flash_attention_packed, ALiBi causal (Bloom training, head dim "
         "128)", FWD_SRC, f"{TPU_FLASH}:426", fa.flash_attention_packed,
-        ("instruct_train", "instruct_hf_train", "instruct_files_train"),
-        "K1-ALiBi",
+        ("instruct_train", "instruct_hf_train", "instruct_files_train",
+         "knobs_instruct_train"), "K1-ALiBi",
         [c["fwd"] for c in alibi_cases],
         counter="alibi_launches"))
     for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 723),
@@ -1299,8 +1339,9 @@ def phase_kernels(dev, builds, owl_beam):
             f"K{2 if kind == 'dq' else 3} backward {kind} kernel, ALiBi "
             f"causal (Bloom training, head dim 128)", BWD_SRC,
             f"{TPU_FLASH}:{line}", wrapper,
-            ("instruct_train", "instruct_hf_train", "instruct_files_train"),
-            f"{kind}-ALiBi", [c[kind] for c in alibi_cases],
+            ("instruct_train", "instruct_hf_train", "instruct_files_train",
+             "knobs_instruct_train"), f"{kind}-ALiBi",
+            [c[kind] for c in alibi_cases],
             counter="alibi_launches"))
 
     train96 = [c for c, shape in zip(d96, D96_SHAPES)
@@ -1534,26 +1575,27 @@ def _plain_gaps(make, requests, tokens):
         top
 
 
-def _tie_check(tag, got, want, gaps, bound):
+def _tie_check(tag, got, want, gaps, bound, first=1):
     """``got`` (tokens per request) equal to the greedy step's ``want`` up
     to each request's first position whose plain-replay top-2 gap is below
-    ``bound``; prints those near-tie positions and every divergence."""
+    ``bound`` (``gaps[i][j]`` is position ``j + first``'s); prints those
+    near-tie positions and every divergence."""
     compared, ties, diverged = 0, [], []
     for i, (g, w, gap) in enumerate(zip(got, want, gaps)):
-        near = [j + 1 for j, x in enumerate(gap) if x < bound]
+        near = [j + first for j, x in enumerate(gap) if x < bound]
         stop = near[0] if near else len(w)
-        first = next((j for j in range(max(len(g), len(w)))
-                      if j >= len(g) or j >= len(w) or g[j] != w[j]), None)
+        div = next((j for j in range(max(len(g), len(w)))
+                    if j >= len(g) or j >= len(w) or g[j] != w[j]), None)
         if near:
             ties.append((i, near[:4]))
-        if first is not None:
-            diverged.append((i, first, round(gap[first - 1], 4)
-                             if 0 < first <= len(gap) else None))
-            if first < stop:
+        if div is not None:
+            diverged.append((i, div, round(gap[div - first], 4)
+                             if 0 <= div - first < len(gap) else None))
+            if div < stop:
                 fail(f"{tag}: request {i} leaves the greedy tokens at "
-                     f"position {first}, before its first near-tie "
-                     f"({stop}; bound {bound:.4g}): {g[:first + 2]} vs "
-                     f"{w[:first + 2]}")
+                     f"position {div}, before its first near-tie "
+                     f"({stop}; bound {bound:.4g}): {g[:div + 2]} vs "
+                     f"{w[:div + 2]}")
         compared += min(stop, len(w))
     print(f"[{tag}] tokens equal to the greedy step's on {compared} "
           f"positions before the first near-tie of each request (top-2 gap "
@@ -1895,13 +1937,14 @@ def _state_diff(a, b):
         bad += [f"{part} set"] if set(da) != set(db) else [
             k for k in da if da[k].dtype != db[k].dtype
             or not torch.equal(da[k], db[k])]
-    sa = a.optimizer.torch_optimizer.state
-    sb = b.optimizer.torch_optimizer.state
+    sa, sb = a.optimizer.leaf_state(), b.optimizer.leaf_state()
     for k in set(a.trainable) & set(b.trainable):
-        ma, mb = sa.get(a.trainable[k], {}), sb.get(b.trainable[k], {})
+        ma, mb = sa.get(k, {}), sb.get(k, {})
         if set(ma) != set(mb) or not ma or any(
                 not torch.equal(ma[x], mb[x].to(ma[x].device)) for x in ma):
-            bad.append(f"adam {k}")
+            bad.append(f"optimizer state {k}")
+    if a.optimizer.scalars() != b.optimizer.scalars():
+        bad.append("optimizer scalars")
     if (a.optimizer.count, a.step) != (b.optimizer.count, b.step):
         bad.append(f"count/step {(a.optimizer.count, a.step)} vs "
                    f"{(b.optimizer.count, b.step)}")
@@ -4281,17 +4324,17 @@ def phase_instruct_hf_train(report, out_dir, hf_dir):
             for k, p in getattr(st, part).items()
             if not bad and (p.dtype != raw[part][k].dtype
                             or not torch.equal(p.detach(), raw[part][k]))]
-    moments = st.optimizer.torch_optimizer.state
-    bad += [f"adam {k}" for k, p in st.trainable.items()
-            if set(moments.get(p, {})) != set(raw["adam"].get(k, {})) or any(
-                not torch.equal(moments[p][m].to(v.device), v)
-                for m, v in raw["adam"].get(k, {}).items())]
+    moments = st.optimizer.leaf_state()
+    bad += [f"optimizer state {k}" for k in st.trainable
+            if set(moments.get(k, {})) != set(raw["optim"].get(k, {})) or any(
+                not torch.equal(moments[k][m].to(v.device), v)
+                for m, v in raw["optim"].get(k, {}).items())]
     if bad or (st.optimizer.count, st.step) != (raw["count"], raw["step"]):
         fail(f"instruct_hf_train --resume differs from step {step}: "
              f"{bad[:8]}, count/step {(st.optimizer.count, st.step)}")
     print(f"[instruct_hf_train] --resume in {resume_s:.2f} s, import "
           f"included: {len(st.trainable)} trainable and {len(st.frozen)} "
-          f"frozen leaves, {len(raw['adam'])} AdamW moment pairs, count "
+          f"frozen leaves, {len(raw['optim'])} AdamW moment pairs, count "
           f"{st.optimizer.count} and step {st.step} bitwise equal",
           flush=True)
     del again, st, raw, moments
@@ -4895,8 +4938,665 @@ def phase_instruct_files(report, files, out_dir):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------
+# phases 28-32: the training knobs (GPT-3 and vision LoRA, connect_ln,
+# vision and decoder dropout and drop-path, Bloom remat and ce_chunk, the
+# optimizer zoo, asynchronous checkpoints) on the paths users already run
+
+KNOBS_STEPS = 3            # phase 28: the async save after step 2
+KNOBS_DROPOUT_STEPS = 2    # phase 29
+KNOBS_OWL_STEPS = 2        # phase 31
+# phase 28's knobs on the flagship pretrain YAML
+KNOBS_PRETRAIN = {"lora_rank": 8, "connect_ln": True, "freeze_vit": True}
+KNOBS_VISION = {"lora_rank": 4, "drop_path": 0.1}
+KNOBS_OPT = {"opt": "adamp"}
+# phase 29's launches per step, predicted from JAX's rule before the
+# first run: attention dropout takes every vision and decoder attention
+# off the flash kernels (K1 none), AttentionPool keeps its head-major
+# forward and backward (one K4, one dq and one dk/dv, one delta a step)
+KNOBS_DROPOUT_LAUNCHES = {"K4": 1, "dq": 1, "dkv": 1, "delta": 1}
+# phase 31: the chunked LM loss against the dense one on the same batch
+# and dropout masks (relative): the same fp32 logits summed in another
+# grouping
+CE_CHUNK_TOL = 1e-5
+# phase 32: every zoo name (lookahead_adamw past its first sync at 6)
+# over the flagship's trainable leaves, fp32 on the card against the same
+# updates in fp64 on the CPU, each leaf's relative L2 after the updates.
+# The leaves differ by their fp32 rounding (~6e-8 relative); the updates'
+# own sums are printed (the bias corrections 1 - b^t, taken in float32
+# as JAX takes them, move the Adam family's by ~1e-5)
+ZOO_UPDATES, ZOO_LOOKAHEAD_UPDATES = 3, 6
+ZOO_TOL = 1e-5
+ZOO_SEED = 32
+
+
+def _knobs_yaml(src, out_dir, name, visual=None, text=None, optimizer=None,
+                **top):
+    """A copy of a pretrain or serve YAML with its model JSONs by absolute
+    path, ``visual`` / ``text`` merged into its visual_overrides /
+    text_overrides, ``optimizer`` into its optimizer block and ``top``
+    set."""
+    import yaml
+
+    with open(src) as f:
+        raw = yaml.safe_load(f)
+    for key in ("text_cfg", "visual_cfg"):
+        if raw.get(key):
+            raw[key] = os.path.join(REPO, raw[key])
+    raw["visual_overrides"] = {**(raw.get("visual_overrides") or {}),
+                               **(visual or {})}
+    raw["text_overrides"] = {**(raw.get("text_overrides") or {}),
+                             **(text or {})}
+    raw["optimizer"] = {**(raw.get("optimizer") or {}), **(optimizer or {})}
+    raw.update(top)
+    dst = os.path.join(out_dir, name)
+    with open(dst, "w") as f:
+        yaml.safe_dump(raw, f)
+    return dst
+
+
+def _snapshot(state):
+    """Clones of everything a checkpoint holds, for bitwise checks."""
+    opt = state.optimizer
+    return {"trainable": {k: p.detach().clone()
+                          for k, p in state.trainable.items()},
+            "frozen": {k: p.detach().clone() for k, p in state.frozen.items()},
+            "optim": {k: {n: v.detach().clone() for n, v in leaf.items()}
+                      for k, leaf in opt.leaf_state().items()},
+            "scalars": dict(opt.scalars()), "count": opt.count,
+            "step": state.step}
+
+
+def _snapshot_diff(state, snap):
+    """Leaves and optimizer state of ``state`` not bitwise equal to
+    ``snap``."""
+    now = _snapshot(state)
+    bad = [k for part in ("trainable", "frozen")
+           for k, v in snap[part].items()
+           if now[part][k].dtype != v.dtype or not torch.equal(now[part][k],
+                                                               v)]
+    bad += [f"optim {k}" for k, leaf in snap["optim"].items()
+            if set(now["optim"].get(k, {})) != set(leaf) or any(
+                not torch.equal(now["optim"][k][n], v.to(
+                    now["optim"][k][n].device)) for n, v in leaf.items())]
+    bad += [f"{k} {now[k]} vs {snap[k]}" for k in ("scalars", "count",
+                                                   "step")
+            if now[k] != snap[k]]
+    return bad
+
+
+def _per_step_counts(report, path, steps):
+    return {r["key"]: r["launches_by_path"][path] / steps for r in report}
+
+
+def phase_knobs_pretrain(report, out_dir, train_stats):
+    """Phase 28: the pretrain path with GPT-3 and vision LoRA,
+    ``connect_ln``, ``freeze_vit``, vision drop-path and adamp, async
+    checkpoints (see the module docstring).  Returns (run directory,
+    YAML)."""
+    from youku_mplug_tpu_torch.cli import run_pretrain
+    from youku_mplug_tpu_torch.train.trainer import dropout_generator
+
+    t_phase = time.perf_counter()
+    yaml_path = _knobs_yaml(TRAIN_YAML, out_dir, "knobs_pretrain.yaml",
+                            visual=KNOBS_VISION, optimizer=KNOBS_OPT,
+                            async_checkpointing=True, **KNOBS_PRETRAIN)
+    run_dir = os.path.join(out_dir, "knobs_pretrain")
+    args = run_pretrain.base_parser().parse_args([
+        "--config", yaml_path, "--output_dir", run_dir, "--synthetic_data",
+        "--max_steps", str(KNOBS_STEPS), "--device", "cuda"])
+    t0 = time.perf_counter()
+    runner = run_pretrain.setup(args)
+    state = runner.state
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    lora_b = sorted(k for k in state.trainable
+                    if "lora_" in k and k.endswith("_b"))
+    towers = {k.split("/")[0] for k in lora_b}
+    if (type(state.optimizer).__name__ != "ZooOptimizer"
+            or not runner.ckpt.async_save
+            or towers != {"text_decoder", "visual_encoder"}
+            or "visual_norm/scale" not in state.trainable
+            or any("lora_" in k for k in state.frozen)):
+        fail(f"knobs_pretrain: optimizer {type(state.optimizer).__name__}, "
+             f"async {runner.ckpt.async_save}, adapters in {towers}, "
+             f"visual_norm trainable {'visual_norm/scale' in state.trainable}")
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    b0 = {k: state.trainable[k].detach().clone() for k in lora_b}
+    train_step = run_pretrain.build_train_step(runner)
+    runner.loader.set_epoch(0)
+    batches = iter(runner.loader)
+    history, snap, save_s, wait_s = [], None, None, None
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    for i in range(KNOBS_STEPS):
+        if i == KNOBS_STEPS - 1:  # save the state of step 2 asynchronously
+            snap = _snapshot(state)
+            t0 = time.perf_counter()
+            if not runner.ckpt.save(state.step, state,
+                                    metadata={"epoch": 0}):
+                fail("knobs_pretrain: the async save wrote nothing")
+            save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        metrics = train_step(state, run_pretrain.make_batch(runner,
+                                                            next(batches)))
+        torch.cuda.synchronize()
+        metrics["step_time"] = time.perf_counter() - t0
+        history.append(metrics)
+    t0 = time.perf_counter()
+    runner.ckpt.wait_until_finished()
+    wait_s = time.perf_counter() - t0
+    _read_counts(report, "knobs_pretrain")
+    peak = torch.cuda.max_memory_allocated()
+    if any(not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))
+           or h["skipped_nonfinite"] for h in history):
+        fail(f"knobs_pretrain steps: {history}")
+    per_step = _per_step_counts(report, "knobs_pretrain", KNOBS_STEPS)
+    phase5 = {k: v / train_stats["steps"]
+              for k, v in train_stats["launches"].items()}
+    keys = ("K1", "K4", "dq", "dkv", "delta")
+    if any(per_step[k] != phase5[k] for k in keys) or any(
+            v for k, v in per_step.items() if k not in keys):
+        fail(f"knobs_pretrain: launches per step {per_step}, phase 5's "
+             f"{ {k: phase5[k] for k in keys} }")
+    changed = [k for k, p in state.frozen.items()
+               if not torch.equal(p.detach(), frozen0[k])]
+    still = [k for k in lora_b if torch.equal(state.trainable[k].detach(),
+                                              b0[k])]
+    if changed or still:
+        fail(f"knobs_pretrain: frozen leaves changed {changed[:5]}; "
+             f"adapters b that did not move {still[:5]}")
+    # the optimizer's share of a step: one more update on zero gradients,
+    # timed alone (the restore below undoes it)
+    for p in state.trainable.values():
+        p.grad = torch.zeros_like(p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state.optimizer.step()
+    torch.cuda.synchronize()
+    opt_ms = (time.perf_counter() - t0) * 1e3
+    for p in state.trainable.values():
+        p.grad = None
+    # resume: the step-2 checkpoint into the trained state, bitwise
+    step2 = snap["step"]
+    t0 = time.perf_counter()
+    runner.ckpt.restore(step2, state)
+    restore_s = time.perf_counter() - t0
+    bad = _snapshot_diff(state, snap)
+    if bad:
+        fail(f"knobs_pretrain: the async checkpoint of step {step2} differs "
+             f"from the state before step 3: {bad[:8]}")
+    loss_k, loss_p, finite, _, rows = _replay(
+        runner, run_pretrain.make_batch, run_pretrain.make_loss_fn,
+        "knobs_pretrain replay",
+        make_gen=lambda: dropout_generator(args.seed, 0, runner.device))
+    if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL \
+            or rows[0][0] > REPLAY_GRAD_TOL:
+        fail("knobs_pretrain plain replay out of tolerance")
+    stats = {"setup_s": setup_s,
+             "step_ms_each": [h["step_time"] * 1e3 for h in history],
+             "phase5_step_ms": train_stats["step_ms"],
+             "adamp_update_ms": opt_ms,
+             "loss": [h["loss"] for h in history],
+             "grad_norm": [h["grad_norm"] for h in history],
+             "async_save_return_s": save_s, "write_wait_after_step3_s": wait_s,
+             "restore_s": restore_s, "peak_memory_gib": peak / 2 ** 30,
+             "launches_per_step": {k: v for k, v in per_step.items() if v},
+             "adapters_moved": len(lora_b),
+             "frozen_leaves_unchanged": len(frozen0),
+             "trainable_leaves": len(state.trainable)}
+    print(f"[knobs_pretrain] {json.dumps(stats)} | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {CARD}", flush=True)
+    runner.ckpt.close()
+    del runner, state, snap, frozen0, b0
+    gc.collect()
+    torch.cuda.empty_cache()
+    return run_dir, yaml_path
+
+
+def phase_knobs_dropout(report, out_dir):
+    """Phase 29: phase 28's YAML with vision dropout and attention
+    dropout and the decoder's 0.1 dropouts: KNOBS_DROPOUT_STEPS finite
+    steps whose launches per step are KNOBS_DROPOUT_LAUNCHES exactly."""
+    from youku_mplug_tpu_torch.cli import common, run_pretrain
+
+    t_phase = time.perf_counter()
+    yaml_path = _knobs_yaml(
+        TRAIN_YAML, out_dir, "knobs_dropout.yaml",
+        visual={**KNOBS_VISION, "drop_rate": 0.1, "attn_drop_rate": 0.1},
+        text={"hidden_dropout": 0.1, "attention_dropout": 0.1},
+        optimizer=KNOBS_OPT, **KNOBS_PRETRAIN)
+    args = run_pretrain.base_parser().parse_args([
+        "--config", yaml_path, "--output_dir",
+        os.path.join(out_dir, "knobs_dropout"), "--synthetic_data",
+        "--max_steps", str(KNOBS_DROPOUT_STEPS), "--device", "cuda"])
+    runner = run_pretrain.setup(args)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    history = common.train_one_epoch(runner,
+                                     run_pretrain.build_train_step(runner),
+                                     0, run_pretrain.make_batch)
+    torch.cuda.synchronize()
+    _read_counts(report, "knobs_dropout")
+    if len(history) != KNOBS_DROPOUT_STEPS or any(
+            not math.isfinite(h["loss"]) or h["skipped_nonfinite"]
+            for h in history):
+        fail(f"knobs_dropout steps: {history}")
+    per_step = _launches_per(report, "knobs_dropout", len(history),
+                             KNOBS_DROPOUT_LAUNCHES)
+    print(f"[knobs_dropout] {len(history)} steps: step ms "
+          f"{[round(h['step_time'] * 1e3, 1) for h in history]}, loss "
+          f"{[round(h['loss'], 4) for h in history]}; launches per step "
+          f"{per_step} (predicted {KNOBS_DROPOUT_LAUNCHES}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {CARD}", flush=True)
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_knobs_lora_serve(report, out_dir, run_dir):
+    """Phase 30: ``serve --resume`` on phase 28's run, its adapters
+    unmerged inside the decode graph; ``cli/export_serving.py`` merges
+    them and the merged model serves; launches a decode step as phase
+    3's, teacher-forced logits of the two within LOGIT_TOL, greedy tokens
+    equal up to near-ties (CAPTION_TIE_GAP)."""
+    from youku_mplug_tpu_torch import bridge
+    from youku_mplug_tpu_torch.cli import export_serving, serve
+    from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+    from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY
+    from youku_mplug_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_phase = time.perf_counter()
+    serve_yaml = _knobs_yaml(FLAGSHIP_YAML, out_dir, "knobs_serve.yaml",
+                             visual=KNOBS_VISION, optimizer=KNOBS_OPT,
+                             **KNOBS_PRETRAIN)
+    cfg, model, stats_u = phase_slice(report, out_dir, serve_yaml,
+                                      "knobs_lora_serve",
+                                      extra=("--resume", run_dir))
+    adapters = [n for n, _ in model.named_parameters() if "lora_" in n]
+    if not adapters:
+        fail("knobs_lora_serve: the resumed model holds no adapters")
+    t0 = time.perf_counter()
+    dest = os.path.join(out_dir, "knobs_serving")
+    export_serving.main(["--run_dir", run_dir, "--config", serve_yaml,
+                         "--dest", dest, "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    ckpt = CheckpointManager(dest)
+    merged_tree = ckpt.restore_raw(ckpt.latest_step(),
+                                   map_location="cuda")["params"]
+    rank0 = dataclasses.replace(
+        cfg.model, text=dataclasses.replace(cfg.model.text, lora_rank=0),
+        vision=dataclasses.replace(cfg.model.vision, lora_rank=0))
+    with torch.device("cuda"):
+        merged = MPLUGVideo(rank0, DEFAULT_POLICY)
+    bridge.load_jax_params(merged, merged_tree).eval()
+    del merged_tree
+    if any("lora_" in n for n, _ in merged.named_parameters()):
+        fail("knobs_lora_serve: the export left adapters")
+    args = _serve_args(serve_yaml, 8)
+    _reset_counts(report)
+    stats_m, out, engine = serve.run(args, cfg, merged, torch.device("cuda"))
+    torch.cuda.synchronize()
+    _read_counts(report, "knobs_lora_serve_merged")
+    if stats_m["requests"] != 16 or any(not o["tokens"] for o in out):
+        fail(f"knobs_lora_serve merged served {stats_m['requests']}")
+    layers = cfg.model.text.num_hidden_layers
+    _per_step(report, "knobs_lora_serve_merged", engine.decode_steps,
+              {"K5": layers, "K6": layers})
+    # teacher-forced: each model's own query features, the unmerged
+    # model's greedy tokens fed to both; the 16 requests in 16 slots
+    args16 = _serve_args(serve_yaml, 16)
+    make = {name: (lambda m=m: serve.make_engine(args16, cfg,
+                                                 m.text_decoder)[0])
+            for name, m in (("unmerged", model), ("merged", merged))}
+    reqs = {name: _caption_requests(cfg, m)
+            for name, m in (("unmerged", model), ("merged", merged))}
+    eng = make["unmerged"]()
+    forced = dict(max_len=eng.max_len, bucket=eng.buckets[0],
+                  gen_cfg=eng.config)
+    del eng
+    logits_u, fed = _forced_decode(model.text_decoder,
+                                   reqs["unmerged"][:8], **forced)
+    logits_m, _ = _forced_decode(merged.text_decoder, reqs["merged"][:8],
+                                 **forced, tokens=fed)
+    e_q = max(err(a[1]["query_embeds"], b[1]["query_embeds"])
+              for a, b in zip(reqs["unmerged"], reqs["merged"]))
+    e_l = max(err(a, b) for a, b in zip(logits_m, logits_u))
+    if e_q > QUERY_TOL or e_l > LOGIT_TOL:
+        fail(f"knobs_lora_serve: merged against unmerged: query features "
+             f"{e_q:.4g} (tol {QUERY_TOL}), logits {e_l:.4g} (tol "
+             f"{LOGIT_TOL})")
+    tok_u, _, _ = _engine_run(make["unmerged"], reqs["unmerged"], 1)
+    tok_m, _, _ = _engine_run(make["merged"], reqs["merged"], 1)
+    # the two models prefill differently: their first tokens are held to
+    # the unmerged prefill's top-2 gap too
+    gaps, _ = _plain_gaps(make["unmerged"], reqs["unmerged"], tok_u)
+    gaps = [[g0] + g for g0, g in zip(
+        _prefill_gaps(make["unmerged"], reqs["unmerged"]), gaps)]
+    _tie_check("knobs_lora_serve merged vs unmerged", tok_m, tok_u, gaps,
+               CAPTION_TIE_GAP, first=0)
+    print(f"[knobs_lora_serve] {len(adapters)} adapter leaves unmerged in "
+          f"the decode graph: {json.dumps(stats_u)}; merged by "
+          f"export_serving in {export_s:.2f} s: {json.dumps(stats_m)}; "
+          f"teacher-forced merged vs unmerged: query features max err "
+          f"{e_q:.4g} (tol {QUERY_TOL}), logits over {FORCED_STEPS} steps "
+          f"{e_l:.4g} (tol {LOGIT_TOL}) | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {CARD}", flush=True)
+    del model, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _prefill_gaps(make, requests):
+    """Each request's top-1 minus top-2 logit of its prefill on a fresh
+    engine from ``make()`` (the engine's first pick, spied on)."""
+    eng = make()
+    picks = []
+    pick = eng._pick
+
+    def spy(logits):
+        picks.append(logits.float().topk(2, dim=-1).values)
+        return pick(logits)
+    eng._pick = spy
+    for ids, kw in requests:
+        eng.submit(ids, **kw)
+    eng._admit()
+    return [(t[..., 0] - t[..., 1]).reshape(-1)[0].item()
+            for t in picks[:len(requests)]]
+
+
+def _instruct_chunk(yaml_path, out_dir):
+    """The first training batch's sequence length S (the loader and the
+    tokenizer alone) and the ce_chunk phase 31 takes: S's largest divisor
+    at most S / 2."""
+    import types
+
+    from youku_mplug_tpu_torch.cli import run_instruct
+    from youku_mplug_tpu_torch.config import (
+        instruct_train_config,
+        load_owl_config,
+    )
+
+    args = run_instruct.parser().parse_args([
+        "--config", yaml_path, "--train", "--synthetic_data", "--device",
+        "cuda", "--output_dir", out_dir])
+    cfg, raw = load_owl_config(yaml_path)
+    tcfg = instruct_train_config(raw)
+    loader = run_instruct.build_train_loader(args, tcfg, raw,
+                                             cfg.vision.img_size)
+    loader.set_epoch(0)
+    runner = types.SimpleNamespace(
+        model=types.SimpleNamespace(cfg=cfg), cfg=tcfg,
+        tokenizer=run_instruct.build_tokenizer(args, cfg),
+        device=torch.device("cpu"))
+    s = run_instruct.make_instruct_batch(runner, next(iter(loader)))[
+        "input_ids"].shape[1]
+    chunk = max((d for d in range(2, s // 2 + 1) if s % d == 0), default=0)
+    if not chunk:
+        fail(f"knobs_instruct_train: S {s} has no divisor for ce_chunk")
+    return s, chunk
+
+
+def phase_knobs_instruct_train(report, out_dir, phase9_stats):
+    """Phase 31: instruct training on the Owl YAML with Bloom cut to
+    OWL_CUT, hidden dropout, remat "names" and ce_chunk, vision LoRA and
+    drop-path, lamb with layer decay and an lr-scale rule: launches per
+    step and layer as phase 9's, phase 10's replays, the chunked loss
+    against the dense one."""
+    import yaml as yaml_mod
+
+    from youku_mplug_tpu_torch.cli import common, run_instruct
+    from youku_mplug_tpu_torch.train.trainer import dropout_generator
+
+    t_phase = time.perf_counter()
+    with open(OWL_TRAIN_YAML) as f:
+        raw = yaml_mod.safe_load(f)
+    text = {**OWL_CUT, "hidden_dropout": 0.1, "remat": True,
+            "remat_policy": "names"}
+    vision = {**raw["vision_overrides"], "lora_rank": 4, "drop_path": 0.1}
+    # layer decay over the ViT-L's 24 blocks (the default 12 stops short
+    # of them and raises, in JAX too)
+    opt = {**raw["optimizer"], "opt": "lamb", "layer_decay": 0.9,
+           "layer_decay_num_layers": raw["vision_overrides"]["depth"],
+           "lr_scale_rules": [["abstractor", 0.5]]}
+    probe = _owl_yaml(OWL_TRAIN_YAML, out_dir, text,
+                      vision_overrides=vision, optimizer=opt)
+    s, chunk = _instruct_chunk(probe, out_dir)
+    yaml_path = _owl_yaml(OWL_TRAIN_YAML, out_dir, {**text,
+                                                    "ce_chunk": chunk},
+                          vision_overrides=vision, optimizer=opt)
+    args = run_instruct.parser().parse_args([
+        "--config", yaml_path, "--train", "--synthetic_data", "--max_steps",
+        str(KNOBS_OWL_STEPS), "--device", "cuda", "--output_dir",
+        os.path.join(out_dir, "knobs_instruct")])
+    t0 = time.perf_counter()
+    runner = run_instruct.train_setup(args)
+    setup_s = time.perf_counter() - t0
+    state = runner.state
+    tcfg = runner.model.cfg.text
+    if (type(state.optimizer).__name__ != "ZooOptimizer"
+            or (tcfg.remat, tcfg.remat_policy, tcfg.ce_chunk) != (
+                True, "names", chunk)
+            or runner.model.cfg.vision.lora_rank != 4):
+        fail(f"knobs_instruct_train: the YAML's knobs did not reach the "
+             f"model: {tcfg}")
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
+    trainable0 = {k: p.detach().clone() for k, p in state.trainable.items()}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    history = common.train_one_epoch(runner,
+                                     run_instruct.build_train_step(runner),
+                                     0, run_instruct.make_instruct_batch)
+    torch.cuda.synchronize()
+    _read_counts(report, "knobs_instruct_train")
+    peak = torch.cuda.max_memory_allocated()
+    if len(history) != KNOBS_OWL_STEPS or any(
+            not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))
+            or h["skipped_nonfinite"] for h in history):
+        fail(f"knobs_instruct_train steps: {history}")
+    changed = [k for k, p in state.frozen.items()
+               if not torch.equal(p.detach(), frozen0[k])]
+    still = [k for k, p in state.trainable.items()
+             if torch.equal(p.detach(), trainable0[k])]
+    lora = [k for k in state.trainable if "lora_" in k]
+    if changed or still or not any(k.startswith("visual_encoder")
+                                   for k in lora):
+        fail(f"knobs_instruct_train: frozen leaves changed {changed[:5]}, "
+             f"trainable leaves still {still[:5]}, adapters {lora[:4]}")
+    layers = tcfg.num_hidden_layers
+    depth = runner.model.cfg.vision.depth
+    per_step = _per_step_counts(report, "knobs_instruct_train", len(history))
+    p9 = phase9_stats["launches_per_step"]
+    p9_layers = phase9_stats["layers"]
+    per_unit = {k: (per_step[k] / layers, p9[k] / p9_layers)
+                for k in ("K1-ALiBi", "dq-ALiBi", "dkv-ALiBi")}
+    per_unit["K1"] = (per_step["K1"] / depth, p9["K1"] / depth)
+    if any(a != b for a, b in per_unit.values()):
+        fail(f"knobs_instruct_train: launches per step and layer "
+             f"(this run, phase 9) {per_unit}")
+    # phase 10's replays on the same dropout masks
+    fns = (run_instruct.make_instruct_batch, run_instruct.make_loss_fn)
+
+    def gen():
+        return dropout_generator(args.seed, 0, runner.device)
+    loss_k, loss_p, finite, _, _ = _replay(
+        runner, *fns, "knobs_instruct_train replay, every wrapper plain",
+        make_gen=gen)
+    if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL:
+        fail("knobs_instruct_train plain replay out of tolerance")
+    loss_k, loss_p, finite, _, rows = _replay(
+        runner, *fns, "knobs_instruct_train replay, Bloom attention plain",
+        plain_when=lambda t: t.shape[-1] == 128, make_gen=gen)
+    if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL \
+            or rows[0][0] > REPLAY_GRAD_TOL:
+        fail("knobs_instruct_train replay of Bloom's attention out of "
+             "tolerance")
+    # the chunked loss against the dense one: one batch, the same masks
+    runner.loader.set_epoch(0)
+    batch = run_instruct.make_instruct_batch(runner,
+                                             next(iter(runner.loader)))
+    lm = runner.model.text_decoder
+    loss_fn = run_instruct.make_loss_fn(runner.model)
+    with torch.no_grad():
+        chunked = loss_fn(batch, gen())["loss"].item()
+        lm.cfg = dataclasses.replace(lm.cfg, ce_chunk=0)
+        try:
+            dense = loss_fn(batch, gen())["loss"].item()
+        finally:
+            lm.cfg = dataclasses.replace(lm.cfg, ce_chunk=chunk)
+    rel = abs(chunked - dense) / abs(dense)
+    if batch["input_ids"].shape[1] % chunk or rel > CE_CHUNK_TOL:
+        fail(f"knobs_instruct_train: ce_chunk {chunk} loss {chunked} vs "
+             f"dense {dense} (relative {rel:.3g}, tol {CE_CHUNK_TOL}) at S "
+             f"{batch['input_ids'].shape[1]}")
+    stats = {"setup_s": setup_s, "S": s, "ce_chunk": chunk,
+             "step_ms_each": [h["step_time"] * 1e3 for h in history],
+             "loss": [h["loss"] for h in history],
+             "grad_norm": [h["grad_norm"] for h in history],
+             "peak_memory_gib": peak / 2 ** 30,
+             "launches_per_step": {k: v for k, v in per_step.items() if v},
+             "per_layer_vs_phase9": per_unit,
+             "ce_chunk_loss": chunked, "dense_loss": dense,
+             "ce_chunk_rel_diff": rel, "adapters": len(lora)}
+    print(f"[knobs_instruct_train] {json.dumps(stats)} | phase "
+          f"{time.perf_counter() - t_phase:.1f} s | {CARD}", flush=True)
+    del runner, state, frozen0, trainable0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _zoo_leaves():
+    """The flagship pretrain model's trainable leaves (JAX path -> shape),
+    from a model on the meta device."""
+    from youku_mplug_tpu_torch.bridge import jax_path
+    from youku_mplug_tpu_torch.config import load_config
+    from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+    from youku_mplug_tpu_torch.optim.factory import freeze_mask
+
+    cfg = load_config(TRAIN_YAML)
+    with torch.device("meta"):
+        model = MPLUGVideo(cfg.model)
+    named = {jax_path(n): p for n, p in model.named_parameters()}
+    frozen = freeze_mask(named, cfg.optimizer.freeze_text_decoder,
+                         cfg.optimizer.freeze_vit)
+    return cfg.optimizer, {k: tuple(p.shape) for k, p in named.items()
+                           if not frozen[k]}
+
+
+def _zoo_values(shapes):
+    """The leaf values of phase 32, fp32 on the CPU: draw 0 the
+    parameters (std 0.02), draws 1 .. ZOO_LOOKAHEAD_UPDATES the gradients
+    of each update, one generator a (draw, leaf)."""
+    draws = []
+    for t in range(ZOO_LOOKAHEAD_UPDATES + 1):
+        out = {}
+        for i, (k, shape) in enumerate(sorted(shapes.items())):
+            g = torch.Generator().manual_seed(ZOO_SEED * 1_000_003
+                                              + t * 10_007 + i)
+            x = torch.randn(shape, generator=g)
+            out[k] = x * 0.02 if t == 0 else x
+        draws.append(out)
+    return draws
+
+
+def _zoo_run(name, opt_cfg, draws, dtype):
+    """``name`` over the leaves of ``draws`` (on their device):
+    ZOO_UPDATES updates (ZOO_LOOKAHEAD_UPDATES with the lookahead prefix)
+    in ``dtype``, the schedule of the YAML's optimizer over those updates.
+    Returns (final leaves, sum of the updates, ms an update)."""
+    from youku_mplug_tpu_torch.optim import factory, zoo
+
+    n = (ZOO_LOOKAHEAD_UPDATES if zoo.is_lookahead(name) else ZOO_UPDATES)
+    cfg = dataclasses.replace(opt_cfg, opt=name, warmup_steps=0, epochs=1,
+                              niter_per_ep=n)
+    params = {k: v.to(dtype=dtype, copy=True) for k, v in draws[0].items()}
+    cuda = next(iter(params.values())).is_cuda
+    decay = factory.decay_mask(params)
+    upd = zoo.ZooUpdate(name, params,
+                        {k: cfg.weight_decay if decay[k] else 0.0
+                         for k in params}, factory.schedule_of(cfg),
+                        momentum=cfg.momentum, betas=tuple(cfg.opt_betas),
+                        eps=cfg.opt_eps)
+    total = {k: torch.zeros_like(v) for k, v in params.items()}
+    ms = []
+    for t in range(1, n + 1):
+        grads = {k: v.to(dtype) for k, v in draws[t].items()}
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = upd.apply(params, grads)
+        for k in params:
+            params[k].add_(out[k])
+            total[k].add_(out[k])
+        if cuda:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return params, total, ms
+
+
+def _zoo_canonical(name):
+    """The first zoo name building the same rule as ``name`` (the fused*
+    aliases and sgd's spellings share one); a lookahead name is its
+    own."""
+    from youku_mplug_tpu_torch.optim import zoo
+
+    if zoo.is_lookahead(name):
+        return name
+    rule = zoo.create_rule(name)
+    return next(other for other in zoo.ZOO_NAMES
+                if type(zoo.create_rule(other)) is type(rule)
+                and vars(zoo.create_rule(other)) == vars(rule))
+
+
+def phase_optim_zoo():
+    """Phase 32: every zoo name, and lookahead_adamw, on the card in fp32
+    against the same updates in fp64 on the CPU (one reference a distinct
+    rule; the aliases, listed beside their rule, reuse it)."""
+    from youku_mplug_tpu_torch.optim import zoo
+
+    t_phase = time.perf_counter()
+    opt_cfg, shapes = _zoo_leaves()
+    draws = _zoo_values(shapes)
+    on_card = [{k: v.cuda() for k, v in d.items()} for d in draws]
+    n_params = sum(math.prod(s) for s in shapes.values())
+    rows, ref, ref_name = {}, None, None
+    for name in zoo.ZOO_NAMES + ("lookahead_adamw",):
+        canon = _zoo_canonical(name)
+        if canon != ref_name:
+            ref = None
+            gc.collect()
+            t0 = time.perf_counter()
+            ref, ref_name = _zoo_run(canon, opt_cfg, draws,
+                                     torch.float64), canon
+            ref_s = time.perf_counter() - t0
+        params, total, ms = _zoo_run(name, opt_cfg, on_card, torch.float32)
+        want_p, want_u, _ = ref
+
+        def rel(got, want):
+            return (got.cpu().double() - want).norm().item() / max(
+                want.norm().item(), 1e-300)
+        leaf = max(rel(params[k], want_p[k]) for k in params)
+        upd = max(rel(total[k], want_u[k]) for k in params)
+        rows[name] = {"rule_of": canon, "ms_per_update": ms,
+                      "leaf_rel_l2_max": leaf, "update_rel_l2_max": upd,
+                      "cpu_fp64_reference_s": ref_s}
+        del params, total
+        print(f"[optim_zoo] {name}: {json.dumps(rows[name])}", flush=True)
+        if leaf > ZOO_TOL or not math.isfinite(leaf):
+            fail(f"optim_zoo {name}: a leaf's relative L2 {leaf:.3g} "
+                 f"against fp64 (tol {ZOO_TOL})")
+    del on_card, ref
+    print(f"[optim_zoo] {len(rows)} names over {len(shapes)} trainable "
+          f"leaves ({n_params / 1e6:.1f}M values) of {TRAIN_YAML}, fp32 on "
+          f"the card against fp64 on the CPU: worst leaf relative L2 "
+          f"{max(r['leaf_rel_l2_max'] for r in rows.values()):.3g} (tol "
+          f"{ZOO_TOL}) | phase {time.perf_counter() - t_phase:.1f} s | "
+          f"{CARD}", flush=True)
+
+
 def _phases(report, files_root, tok_dir):
-    """Phases 3-27 in their order (see the module docstring); ``tok_dir``
+    """Phases 3-32 in their order (see the module docstring); ``tok_dir``
     holds the instruct tokenizer files of phases 25-26."""
     from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
 
@@ -4984,7 +5684,8 @@ def _phases(report, files_root, tok_dir):
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
-        runner, _ = phase_instruct_train(report, out_dir)
+        runner, instruct_stats = phase_instruct_train(report, out_dir)
+        instruct_stats["layers"] = runner.model.cfg.text.num_hidden_layers
         phase_instruct_replay(runner)
     del runner
     gc.collect()
@@ -4999,6 +5700,21 @@ def _phases(report, files_root, tok_dir):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_instruct_files(report, files, out_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 28-32, the training knobs
+    t_knobs = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        run_dir, _ = phase_knobs_pretrain(report, out_dir, train_stats)
+        phase_knobs_dropout(report, out_dir)
+        phase_knobs_lora_serve(report, out_dir, run_dir)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_knobs_instruct_train(report, out_dir, instruct_stats)
+    phase_optim_zoo()
+    print(f"[knobs] phases 28-32 in {time.perf_counter() - t_knobs:.1f} s "
+          f"| {CARD}", flush=True)
 
 
 def main():

@@ -10,8 +10,15 @@ level BPE); the vocabulary holds at least the 256 byte symbols.
 ``byte_level=False`` gives a character BPE under a Metaspace
 pre-tokenizer (``<unk>`` for unseen characters), whose vocabulary fits
 the tiny models' 128 rows.
+
+The merges are learned here, not by ``tokenizers``' trainer, whose ties
+between equally frequent pairs fall differently in every process: the
+most frequent pair wins, ties going to the smallest pair, so one call
+writes the same files in every run (a test's outcome then does not hang
+on the trainer's hash seed).
 """
 
+import collections
 import json
 import os
 
@@ -39,27 +46,33 @@ def write_tokenizer_dir(path, vocab_size, byte_level=True, added=(),
     vocabulary up to that many ids (as chip_smoke.py fills its tokenizer
     to BloomZ's 250880), before the added tokens.  Returns ``path``."""
     from tokenizers import (AddedToken, Regex, Tokenizer, decoders, models,
-                            pre_tokenizers, trainers)
+                            pre_tokenizers)
 
     os.makedirs(path, exist_ok=True)
     if byte_level:
-        tok = Tokenizer(models.BPE())
-        tok.pre_tokenizer = pre_tokenizers.Sequence([
+        pre = pre_tokenizers.Sequence([
             pre_tokenizers.Split(Regex(BLOOM_SPLIT), "isolated"),
             pre_tokenizers.ByteLevel(add_prefix_space=False,
                                      use_regex=False)])
-        tok.decoder = decoders.ByteLevel()
-        trainer = trainers.BpeTrainer(
-            vocab_size=vocab_size, special_tokens=SPECIALS,
-            initial_alphabet=pre_tokenizers.ByteLevel.alphabet())
+        decoder = decoders.ByteLevel()
     else:
-        tok = Tokenizer(models.BPE(unk_token="<unk>"))
-        tok.pre_tokenizer = pre_tokenizers.Metaspace()
-        tok.decoder = decoders.Metaspace()
-        trainer = trainers.BpeTrainer(vocab_size=vocab_size,
-                                      special_tokens=SPECIALS,
-                                      limit_alphabet=48)
-    tok.train_from_iterator(CORPUS * 4, trainer)
+        pre, decoder = pre_tokenizers.Metaspace(), decoders.Metaspace()
+    words = collections.Counter(
+        piece for text in CORPUS * 4
+        for piece, _ in pre.pre_tokenize_str(text))
+    if byte_level:
+        alphabet = sorted(pre_tokenizers.ByteLevel.alphabet())
+    else:
+        chars = collections.Counter()
+        for w, n in words.items():
+            for c in w:
+                chars[c] += n
+        alphabet = sorted(sorted(chars, key=lambda c: (-chars[c], c))[:48])
+    vocab, merges = _learn_bpe(words, alphabet, vocab_size)
+    tok = Tokenizer(models.BPE(vocab=vocab, merges=merges,
+                               unk_token=None if byte_level else "<unk>"))
+    tok.pre_tokenizer, tok.decoder = pre, decoder
+    tok.add_special_tokens(SPECIALS)
     if fill_to:
         tree = json.loads(tok.to_str())
         vocab = tree["model"]["vocab"]
@@ -81,3 +94,34 @@ def write_tokenizer_dir(path, vocab_size, byte_level=True, added=(),
     with open(os.path.join(path, "special_tokens_map.json"), "w") as f:
         json.dump(specials, f)
     return path
+
+
+def _learn_bpe(words, alphabet, vocab_size):
+    """(vocab: token -> id, merges) of a BPE over ``words`` (piece ->
+    count): the specials, the alphabet, then merges of the most frequent
+    adjacent pair (ties to the smallest) until ``vocab_size`` tokens."""
+    vocab = {t: i for i, t in enumerate(SPECIALS + list(alphabet))}
+    seqs = {w: [c if c in vocab else None for c in w] for w in words}
+    merges = []
+    while len(vocab) < vocab_size:
+        pairs = collections.Counter()
+        for w, seq in seqs.items():
+            for a, b in zip(seq, seq[1:]):
+                if a is not None and b is not None:
+                    pairs[(a, b)] += words[w]
+        if not pairs:
+            break
+        best = min(pairs, key=lambda p: (-pairs[p], p))
+        merges.append(best)
+        vocab[best[0] + best[1]] = len(vocab)
+        for w, seq in seqs.items():
+            out, i = [], 0
+            while i < len(seq):
+                if i + 1 < len(seq) and (seq[i], seq[i + 1]) == best:
+                    out.append(best[0] + best[1])
+                    i += 2
+                else:
+                    out.append(seq[i])
+                    i += 1
+            seqs[w] = out
+    return vocab, merges

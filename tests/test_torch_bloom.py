@@ -177,17 +177,25 @@ def test_engine_tokens_with_prompt_embeds_match_jax_engine():
 
 
 def test_lora_and_the_no_cache_forward_raise():
-    """What still raises: a LoRA target Bloom does not have, and training
-    the no-cache forward with dropout (not ported)."""
+    """What raises: a LoRA target Bloom does not have and a remat policy
+    JAX does not know.  Training the no-cache forward with dropout is
+    ported: without a generator it draws nothing (the deterministic
+    forward), with one it drops (test_torch_train_knobs.py holds the
+    law)."""
     with pytest.raises(ValueError, match="unknown LoRA targets"):
         tbloom.BloomConfig(lora_rank=8, lora_targets=("qkv", "proj"))
+    with pytest.raises(ValueError, match="remat_policy"):
+        tbloom.BloomConfig(remat_policy="dots")
     assert tbloom.BloomConfig(lora_targets=["out"]).lora_targets == ("out",)
     lm = tbloom.BloomLM(tbloom.BloomConfig(
         vocab_size=V, hidden_size=H, num_hidden_layers=1,
         num_attention_heads=4, hidden_dropout=0.1), FP32_POLICY)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        lm.train()(torch.zeros(1, 4, dtype=torch.long))
-    lm.eval()(torch.zeros(1, 4, dtype=torch.long))  # evaluation is fine
+    bridge.seeded_init(lm, 0)
+    tokens = torch.zeros(1, 4, dtype=torch.long)
+    plain = lm.eval()(tokens)["last_hidden_state"]
+    assert torch.equal(lm.train()(tokens)["last_hidden_state"], plain)
+    dropped = lm.train()(tokens, generator=torch.Generator().manual_seed(0))
+    assert not torch.equal(dropped["last_hidden_state"], plain)
 
 
 def _train_inputs(rng, b=3, s=70):

@@ -297,11 +297,11 @@ def test_run_caption_refuses_what_is_not_ported(tmp_path):
     # them (test_run_caption_on_the_reference_recipe_keys)
     assert load_config(tiny_caption_yaml(tmp_path, "cls", use_cls=True)
                        ).model.use_cls
-    with pytest.raises(NotImplementedError, match="async_checkpointing"):
-        args.evaluate_only = False
-        args.config = tiny_caption_yaml(tmp_path, "async",
-                                        async_checkpointing=True)
-        run_caption.prepare(args)
+    # async_checkpointing is ported: the manager writes in the background
+    args.evaluate_only = False
+    args.config = tiny_caption_yaml(tmp_path, "async",
+                                    async_checkpointing=True)
+    assert run_caption.prepare(args)[0].ckpt.async_save
     # a named tokenizer.json is read (JiebaBPE is ported): a broken one
     # raises, never toy ids in its place
     (tmp_path / "tok").mkdir()

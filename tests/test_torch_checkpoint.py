@@ -6,12 +6,19 @@ the update count and the step), retention and an interrupted save, the
 resume rules of the JAX package's ``cli/common.resume_state``, the
 vision-embedding resize against the JAX package's (1e-6: float64
 interpolation cast to fp32 in both), the rollback after 3 non-finite
-steps, and ``run_pretrain`` saving and resuming.
+steps, and ``run_pretrain`` saving and resuming.  Also: an asynchronous
+save racing the next step (its write held back until the step has
+changed every trainable leaf in place) restores the state of its own
+step bitwise; a zoo optimizer's state (lookahead slow weights, nadam's
+momentum schedule) round-trips; a ``state.pt`` in the form written
+before the zoo (AdamW moments under ``adam``) still restores.
 """
 
 import json
 import os
+import threading
 import types
+import unittest.mock as mock
 
 import numpy as np
 import pytest
@@ -19,7 +26,11 @@ import torch
 import yaml
 
 from youku_mplug_tpu_torch.cli import common, run_pretrain
-from youku_mplug_tpu_torch.train.checkpoint import CheckpointManager
+from youku_mplug_tpu_torch.train import checkpoint as ckpt_mod
+from youku_mplug_tpu_torch.train.checkpoint import (
+    CheckpointManager,
+    state_dict,
+)
 
 torch.set_num_threads(1)
 TINY_YAML = "configs/pretrain/pretrain_tiny_no_dropout.yaml"
@@ -52,13 +63,14 @@ def _equal_states(a, b):
         assert set(da) == set(db)
         for k in da:
             assert da[k].dtype == db[k].dtype and torch.equal(da[k], db[k]), k
-    sa, sb = a.optimizer.torch_optimizer.state, \
-        b.optimizer.torch_optimizer.state
-    for k in a.trainable:
-        ma, mb = sa.get(a.trainable[k], {}), sb.get(b.trainable[k], {})
+    sa, sb = a.optimizer.leaf_state(), b.optimizer.leaf_state()
+    assert set(sa) == set(sb)
+    for k in sa:
+        ma, mb = sa[k], sb[k]
         assert set(ma) == set(mb), k
         for key in ma:
-            assert torch.equal(ma[key], mb[key]), (k, key)
+            assert torch.equal(ma[key], mb[key].to(ma[key].device)), (k, key)
+    assert a.optimizer.scalars() == b.optimizer.scalars()
     assert a.optimizer.count == b.optimizer.count
     assert a.step == b.step
 
@@ -73,8 +85,10 @@ def test_round_trip_is_bitwise_and_training_continues(tmp_path):
     assert ckpt.save(state.step, state, metadata={"epoch": 1})
     raw = torch.load(tmp_path / "ckpt" / "2" / "state.pt",
                      weights_only=True)
-    assert set(raw) == {"trainable", "frozen", "adam", "count", "step"}
-    assert set(raw["adam"]) == set(state.trainable)
+    assert set(raw) == {"trainable", "frozen", "optim", "optim_scalars",
+                        "opt", "count", "step"}
+    assert set(raw["optim"]) == set(state.trainable)
+    assert raw["opt"] == "adamw" and raw["optim_scalars"] == {}
     assert ckpt.restore_metadata(2) == {"epoch": 1}
     other = run_pretrain.setup(_args(TINY_YAML, tmp_path / "b", "--seed",
                                      "2"))
@@ -88,6 +102,103 @@ def test_round_trip_is_bitwise_and_training_continues(tmp_path):
     for r in (runner, other):
         run_pretrain.build_train_step(r)(r.state, batch)
     _equal_states(state, other.state)
+
+
+def _clone_state(state):
+    """A deep copy of what a checkpoint holds, for bitwise comparison."""
+    return {"trainable": {k: p.detach().clone()
+                          for k, p in state.trainable.items()},
+            "frozen": {k: p.detach().clone() for k, p in state.frozen.items()},
+            "optim": {k: {n: v.clone() for n, v in leaf.items()}
+                      for k, leaf in state.optimizer.leaf_state().items()},
+            "count": state.optimizer.count, "step": state.step}
+
+
+def _assert_state_is(state, want):
+    for part in ("trainable", "frozen"):
+        got = getattr(state, part)
+        assert set(got) == set(want[part])
+        for k, p in got.items():
+            assert torch.equal(p.detach(), want[part][k]), k
+    got = state.optimizer.leaf_state()
+    assert set(got) == set(want["optim"])
+    for k, leaf in got.items():
+        for n, v in leaf.items():
+            assert torch.equal(v, want["optim"][k][n]), (k, n)
+    assert (state.optimizer.count, state.step) == (want["count"],
+                                                   want["step"])
+
+
+@pytest.mark.parametrize("opt", ["adamw", "lookahead_nadam"])
+def test_async_save_racing_a_step_resumes_bitwise(tmp_path, opt):
+    """The step-2 save is asynchronous and its write waits until step 3
+    has updated the parameters and moments in place: the checkpoint holds
+    step 2's state bitwise (the host snapshot), reads wait for the write,
+    and a resumed run's next step equals the unbroken run's."""
+    cfg = _yaml(tmp_path, optimizer={"opt": opt, "lr": 1e-3,
+                                     "weight_decay": 0.01, "clip_grad": 3.0},
+                async_checkpointing=True)
+    runner = run_pretrain.setup(_args(cfg, tmp_path / "a", "--seed", "3"))
+    assert runner.ckpt.async_save
+    _train(runner, 2)
+    before = _clone_state(runner.state)
+    stepped = threading.Event()
+    real_save = torch.save
+
+    def held_save(obj, path):
+        assert stepped.wait(60)  # the write starts after step 3
+        real_save(obj, path)
+
+    with mock.patch.object(ckpt_mod.torch, "save", side_effect=held_save):
+        assert runner.ckpt.save(2, runner.state, metadata={"epoch": 1})
+        runner.loader.set_epoch(0)
+        batch = run_pretrain.make_batch(runner, next(iter(runner.loader)))
+        run_pretrain.build_train_step(runner)(runner.state, batch)
+        stepped.set()
+        assert runner.ckpt.latest_step() == 2  # waits for the write
+    moved = [k for k, p in runner.state.trainable.items()
+             if not torch.equal(p.detach(), before["trainable"][k])]
+    assert moved, "step 3 changed nothing: the race is not exercised"
+    other = run_pretrain.setup(_args(cfg, tmp_path / "b", "--seed", "4"))
+    runner.ckpt.restore(2, other.state)
+    _assert_state_is(other.state, before)
+    run_pretrain.build_train_step(other)(other.state, batch)
+    _assert_state_is(other.state, _clone_state(runner.state))
+    runner.ckpt.close()
+
+
+def test_zoo_state_round_trips_and_refuses_another_optimizer(tmp_path):
+    cfg = _yaml(tmp_path, optimizer={"opt": "lookahead_nadam", "lr": 1e-3})
+    runner = run_pretrain.setup(_args(cfg, tmp_path / "a"))
+    _train(runner, 2)
+    ckpt = CheckpointManager(str(tmp_path / "ckpt"))
+    ckpt.save(2, runner.state)
+    raw = ckpt.restore_raw(2)
+    assert raw["opt"] == "lookahead_nadam"
+    assert set(raw["optim_scalars"]) == {"m_schedule"}
+    assert all(set(v) == {"mu", "nu", "slow"} for v in raw["optim"].values())
+    other = run_pretrain.setup(_args(cfg, tmp_path / "b", "--seed", "5"))
+    ckpt.restore(2, other.state)
+    _equal_states(runner.state, other.state)
+    adamw = run_pretrain.setup(_args(TINY_YAML, tmp_path / "c"))
+    with pytest.raises(ValueError, match="optimizer state of"):
+        ckpt.restore(2, adamw.state)
+
+
+def test_a_pre_zoo_adam_checkpoint_still_restores(tmp_path):
+    """The form written before the zoo: AdamW's moments under ``adam``, no
+    ``optim_scalars`` or ``opt``."""
+    runner = run_pretrain.setup(_args(TINY_YAML, tmp_path / "a"))
+    _train(runner, 2)
+    old = state_dict(runner.state)
+    old["adam"] = old.pop("optim")
+    del old["optim_scalars"], old["opt"]
+    os.makedirs(tmp_path / "ckpt" / "2")
+    torch.save(old, tmp_path / "ckpt" / "2" / "state.pt")
+    other = run_pretrain.setup(_args(TINY_YAML, tmp_path / "b", "--seed",
+                                     "2"))
+    CheckpointManager(str(tmp_path / "ckpt")).restore(2, other.state)
+    _equal_states(runner.state, other.state)
 
 
 def test_retention_rollback_and_interrupted_save(tmp_path):

@@ -99,10 +99,10 @@ def test_instruct_train_saves_resumes_and_exports_int8_as_jax(tmp_path,
             assert torch.equal(p.detach(),
                                getattr(runner.state, part)[k].detach()), k
     moments = st.optimizer.torch_optimizer.state
-    assert set(raw["adam"]) == set(st.trainable)
+    assert set(raw["optim"]) == set(st.trainable)
     for k, p in st.trainable.items():
         for m in ("exp_avg", "exp_avg_sq", "step"):
-            assert torch.equal(moments[p][m], raw["adam"][k][m]), (k, m)
+            assert torch.equal(moments[p][m], raw["optim"][k][m]), (k, m)
 
     # the export against JAX's merge + quantize of the same checkpoint
     dest = tmp_path / "serving"

@@ -3,8 +3,10 @@ graph is ever captured, the static inputs are staged from the host
 state, the launch counters do not move); on the card (tests marked
 ``cuda``, which skip here) the CUDA graphs of the decode step hold the
 eager step's tokens for k = 1 and k = 8, count the decode kernel's
-launches through replays, and draw fresh numbers on every replay when
-sampling.  Imports no JAX, so it runs where only PyTorch is installed."""
+launches through replays, draw fresh numbers on every replay when
+sampling, and read LoRA adapters copied into their storage after the
+capture (``ops/lora.inject_adapters``, as ``serve --resume`` restores
+them in place).  Imports no JAX, so it runs where only PyTorch is installed."""
 
 import numpy as np
 import pytest
@@ -23,11 +25,11 @@ CFG = tgpt3.GPT3Config(vocab_size=512, hidden_size=256, num_hidden_layers=2,
                        num_attention_heads=4, max_position_embeddings=256)
 
 
-def _engine(device, policy, config, seed=0):
+def _engine(device, policy, config, seed=0, cfg=CFG):
     """A GPT-3 of head dim 64 (the decode kernel's width), seeded
     weights, 4 slots."""
     with device:
-        lm = bridge.seeded_init(tgpt3.GPT3LM(CFG, policy), 0)
+        lm = bridge.seeded_init(tgpt3.GPT3LM(cfg, policy), 0)
     return ServingEngine(lm, num_slots=4, max_len=64, prefill_buckets=(8,),
                          config=config,
                          generator=torch.Generator(device).manual_seed(seed))
@@ -109,3 +111,39 @@ def test_graph_sampling_draws_fresh_numbers_every_replay(card):
     assert len({tuple(d) for d in first}) > 1
     assert draws(0) == first          # the same seed, the same draws
     assert draws(1) != first
+
+
+@pytest.mark.cuda
+def test_graph_reads_adapters_injected_after_capture(card, monkeypatch):
+    """A LoRA decoder's decode step runs in the same graph replay: an
+    engine captured while its adapters were zero serves, after
+    inject_adapters copies trained ones into their storage, the tokens
+    the eager step gives with those adapters."""
+    import dataclasses
+
+    from youku_mplug_tpu_torch.ops.lora import (
+        extract_adapters,
+        inject_adapters,
+    )
+
+    cfg = dataclasses.replace(CFG, lora_rank=4, lora_alpha=32.0)
+    trained = _engine(card, BF16_POLICY, GREEDY, cfg=cfg)
+    with torch.no_grad():
+        for name, p in trained.model.named_parameters():
+            if name.endswith("_b") and "lora_" in name:
+                p.copy_(torch.randn(p.shape, generator=torch.Generator(
+                    card).manual_seed(7), device=card) * 0.05)
+    adapters = extract_adapters(trained.model)
+    def tokens(eng):  # in submission order (a second run's rids go on)
+        return [t for _, t in sorted(_serve(eng, 1).items())]
+
+    monkeypatch.setattr(trained, "_replay", trained._decode_many_impl)
+    want = tokens(trained)
+    monkeypatch.undo()
+    eng = _engine(card, BF16_POLICY, GREEDY, cfg=cfg)
+    base = tokens(eng)  # captures with the zero adapters
+    assert eng.graph_replays > 0 and base != want
+    inject_adapters(eng.model, adapters)
+    before = eng.graph_replays
+    assert tokens(eng) == want
+    assert eng.graph_replays > before

@@ -1,5 +1,5 @@
-"""The port imports without jax (the checkpoint importers and the serving
-export included, which also read safetensors files with the safetensors
+"""The port imports without jax (the checkpoint importers, the serving
+export, the optimizer zoo and the schedulers included, which also read safetensors files with the safetensors
 package blocked), and its kernel wrappers take their plain versions only
 for CPU tensors (never a silent fallback)."""
 
@@ -37,7 +37,7 @@ _NO_JAX = textwrap.dedent("""
                  "data.samplers", "data.video_decode", "data.transforms",
                  "data.datasets", "models.tokenizer", "cli.run_cls",
                  "cli.run_retrieval", "cli.run_retrieval_itm",
-                 "models.hf_tokenizer"):
+                 "models.hf_tokenizer", "optim.zoo", "optim.schedulers"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",

@@ -193,8 +193,12 @@ def test_jax_init_is_seeded_and_refuses_int8():
     ("lora_rank", 8), ("import_torch_weights", "ckpt/gpt3.pt")])
 def test_load_config_raises_on_keys_that_change_the_model(tmp_path, key,
                                                          value):
-    """A top-level lora_rank (GPT-3 adapters) raises; import_torch_weights
-    is ported and reaches the runners as given (models/importers.py)."""
+    """Both keys are ported: a top-level lora_rank (with lora_alpha) grows
+    the GPT-3 decoder's adapters as JAX's loader does, and
+    import_torch_weights reaches the runners as given
+    (models/importers.py)."""
+    from youku_mplug_tpu.config import load_config as j_load_config
+
     with open("configs/pretrain_tiny.yaml") as f:
         raw = yaml.safe_load(f)
     path = tmp_path / "x.yaml"
@@ -203,8 +207,11 @@ def test_load_config_raises_on_keys_that_change_the_model(tmp_path, key,
     if key == "import_torch_weights":
         assert load_config(str(path)).get(key) == value
     else:
-        with pytest.raises(NotImplementedError, match=key):
-            load_config(str(path))
+        got, want = load_config(str(path)).model.text, \
+            j_load_config(str(path)).model.text
+        assert (got.lora_rank, got.lora_alpha, got.lora_targets) == (
+            want.lora_rank, want.lora_alpha, want.lora_targets) == (
+            8, 32.0, ("qkv", "out", "fc1", "fc2"))
     # a rank of 0 (or lora_alpha alone) builds no adapter in JAX either
     path.write_text(yaml.safe_dump(dict(raw, lora_rank=0, lora_alpha=32)))
     assert load_config(str(path)).model == load_config(

@@ -179,13 +179,19 @@ def test_vision_config_rejects_clip_towers():
     """A CLIP tower builds both ways: the clip_model TimeSformer (clip-b16)
     and the plain VisionTransformer carry ``norm_pre`` and a bias-free
     patch embedding (tests/test_torch_downstream.py holds the TimeSformer
-    against JAX); vision LoRA is not ported and still raises."""
+    against JAX); vision LoRA builds the adapters of every block's
+    attentions and MLP (tests/test_torch_train_knobs.py holds them against
+    JAX)."""
     cfg = dataclasses.replace(flagship_config(tiny=True).vision,
                               clip_model=True)
     tower = tvision.TimeSformer(cfg, FP32_POLICY)
     assert tower.norm_pre is not None and tower.patch_embed.bias is None
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        dataclasses.replace(cfg, lora_rank=4)
+    lora = tvision.TimeSformer(dataclasses.replace(cfg, lora_rank=4),
+                               FP32_POLICY)
+    names = {n.rsplit(".", 1)[-1] for n, _ in lora.named_parameters()
+             if "lora_" in n}
+    assert names == {f"lora_{t}_{ab}" for t in ("qkv", "proj", "fc1", "fc2")
+                     for ab in "ab"}
     assert tvision.VisionTransformer(cfg, FP32_POLICY).norm_pre is not None
 
 
@@ -287,10 +293,15 @@ def test_grad_ckpt_stride_and_same_gradients(policy, stride):
 
 
 def test_vision_dropout_raises_in_training_only():
+    """Vision drop-path is ported: it draws only in training mode and
+    with a generator (the law: tests/test_torch_train_knobs.py)."""
     cfg = dataclasses.replace(flagship_config(tiny=True).vision,
-                              drop_path=0.1)
+                              drop_path=0.5)
     enc = bridge.seeded_init(tvision.TimeSformer(cfg, FP32_POLICY), 0)
-    video = torch.zeros(1, 3, cfg.num_frames, cfg.img_size, cfg.img_size)
-    with pytest.raises(NotImplementedError, match="drop-path"):
-        enc.train()(video)
-    assert enc.eval()(video)[1].shape[0] == 1
+    video = torch.randn(4, 3, cfg.num_frames, cfg.img_size, cfg.img_size,
+                        generator=torch.Generator().manual_seed(1))
+    plain = enc.eval()(video)[1]
+    gen = torch.Generator().manual_seed(0)
+    assert torch.equal(enc.eval()(video, gen)[1], plain)
+    assert torch.equal(enc.train()(video)[1], plain)
+    assert not torch.equal(enc.train()(video, gen)[1], plain)

@@ -7,7 +7,8 @@ device.  ``setup`` builds the model on the device with the JAX
 config's ``import_torch_weights`` names (``models/importers.import_all``;
 before the split, so a frozen leaf is rounded once, from the file's dtype
 to bf16), splits the trainable and
-frozen leaves (frozen ones in bf16 unless ``--fp32``), makes AdamW with a
+frozen leaves (frozen ones in bf16 unless ``--fp32``), makes the YAML's
+optimizer (AdamW, or a zoo name through ``optim/factory.py``) with a
 schedule over ``min(len(loader), --max_steps)`` updates per epoch, and
 resumes: from ``--resume <dir>`` when given, else from the run's own
 ``<output_dir>/checkpoints``.  A checkpoint whose vision embeddings have
@@ -16,8 +17,9 @@ interpolated and the optimizer fresh (``restore_with_resize``); any other
 mismatch raises.  ``train_one_epoch`` runs the train step on each batch,
 logs each step's metrics, and after 3 non-finite steps in a row restores
 the second-latest checkpoint.  ``save_epoch`` saves each
-``--save_ckpt_freq`` epochs and ``write_log`` appends a JSON line to
-``<output_dir>/log.txt``.  ``--device cuda`` (the default) without a
+``--save_ckpt_freq`` epochs (in the background after a host snapshot
+under the YAML's ``async_checkpointing``) and ``write_log`` appends a
+JSON line to ``<output_dir>/log.txt``.  ``--device cuda`` (the default) without a
 visible card raises: nothing falls back to the CPU.
 """
 

@@ -49,12 +49,17 @@ transform, ``num_workers`` decode threads), or with ``--synthetic_data``
 synthetic clips with their captions as answers to a fixed question; the
 response-masked LM loss, a frozen ViT and a frozen bf16 Bloom whose LoRA
 adapters train in fp32 beside the abstractor, ``visual_fc`` and
-``vit_eos``, AdamW; one
+``vit_eos``, and the optimizer the YAML's ``optimizer`` block names
+(every ``OptimizerConfig`` field: AdamW or a zoo name, ``momentum``,
+``lr_scale_rules``, ``layer_decay``); the ViT's and Bloom's dropout,
+drop-path, remat and ``ce_chunk`` as ``vision_overrides`` /
+``text_overrides`` set them, vision LoRA included; one
 JSON line per step (``--log_freq``) and one ``log.txt`` line per epoch,
 through ``cli/common.py``'s epoch loop, which saves a checkpoint each
 ``--save_ckpt_freq`` epochs under ``<output_dir>/checkpoints`` and resumes
 from ``--resume <run dir>`` or the run's own checkpoints, as the JAX
-runner does.
+runner does (``async_checkpointing: true`` writes them in the background
+after a host snapshot, ``train/checkpoint.py``).
 
 Weights, as the JAX runner has them: a seeded init (serving) or the JAX
 ``model.init`` rules (``--train``: ``bridge.jax_init``); then with
@@ -514,7 +519,8 @@ def build_train_loader(args, tcfg: InstructTrainConfig, raw_cfg,
 def train_setup(args) -> common.Runner:
     """Config, loader, the model on the device (``jax_init``, then
     ``--hf_checkpoint`` imported over it), the trainable/frozen split
-    (frozen leaves in bf16; LoRA adapters stay fp32 and train), AdamW,
+    (frozen leaves in bf16; LoRA adapters stay fp32 and train), the
+    YAML's optimizer,
     whose schedule spans ``min(len(loader), max_steps)`` updates per
     epoch, the checkpoints and the resume (``common.resume_state``)."""
     device = common.device_of(args)
@@ -568,18 +574,22 @@ def make_instruct_batch(runner: common.Runner, raw):
 
 
 def make_loss_fn(model: MPLUGOwlVideo):
-    def loss_fn(batch):
+    def loss_fn(batch, generator=None):
         video = normalize_clip(batch["video"],
                                dtype=model.policy.compute_dtype)
         return model.instruct_loss(video, batch["input_ids"],
                                    batch["attention_mask"],
-                                   batch["media_mask"], batch["prompt_mask"])
+                                   batch["media_mask"], batch["prompt_mask"],
+                                   generator=generator)
     return loss_fn
 
 
 def build_train_step(runner: common.Runner):
+    """The train step; its dropout masks (the ViT's and Bloom's, where a
+    rate is set) come from a generator of (``--seed``, step)."""
     return make_train_step(make_loss_fn(runner.model),
-                           update_freq=runner.cfg.update_freq)
+                           update_freq=runner.cfg.update_freq,
+                           dropout_seed=runner.args.seed)
 
 
 def train_main(args) -> common.Runner:

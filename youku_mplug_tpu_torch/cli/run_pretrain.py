@@ -8,7 +8,8 @@ Counterpart of ``youku_mplug_tpu/cli/run_pretrain.py`` on
 ``train_file_groups`` interleaved by ``MetaLoader`` (one loader a group),
 decoded on ``num_workers`` threads; or with ``--synthetic_data``
 procedural clips; the trainable/frozen split,
-AdamW, and one train step per batch; each step prints loss,
+the YAML's optimizer (``optimizer.opt``: AdamW or a zoo name), and one
+train step per batch; each step prints loss,
 loss_caption, grad_norm, lr, skipped_nonfinite and its wall time, each
 epoch saves a checkpoint (``--save_ckpt_freq``) under
 ``<output_dir>/checkpoints`` and appends its averages to

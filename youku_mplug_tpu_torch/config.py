@@ -2,8 +2,11 @@
 (``youku_mplug_tpu/config.py``), for the keys the port's runners read
 — ``text_cfg``, ``visual_cfg``, ``text_overrides``, ``visual_overrides``,
 ``num_frames``, ``num_learnable_token``, ``use_contrastive``,
-``embed_dim``, ``temp``, ``use_cls``, ``num_classes``, ``freeze_vit``,
-``freeze_text_decoder``, the ``optimizer`` and ``schedular`` blocks (with
+``embed_dim``, ``temp``, ``use_cls``, ``num_classes``, ``connect_ln``,
+``freeze_vit``, ``freeze_text_decoder``, a top-level ``lora_rank`` /
+``lora_alpha`` (the GPT-3 decoder's adapters, as JAX's loader reads
+them), the ``optimizer`` and ``schedular`` blocks (``opt`` names AdamW
+or any zoo optimizer; with
 ``visual_backbone_scale`` set for a ``clip_model`` tower, as the JAX
 loader sets it), ``update_freq``, ``epochs``, ``prompt``, ``batch_size``,
 ``num_workers`` (default 8), ``max_length``, ``image_res``, and via
@@ -85,13 +88,6 @@ def load_config(yaml_path: str,
     with open(yaml_path) as f:
         raw = yaml.safe_load(f)
     raw.update(overrides or {})
-    if raw.get("connect_ln"):
-        raise NotImplementedError("connect_ln (visual_norm) is not ported yet")
-    # a top-level lora_rank (with its lora_alpha) makes the JAX loader grow
-    # GPT-3 adapters; lora_alpha with no rank builds no adapter there either
-    if raw.get("lora_rank"):
-        raise NotImplementedError("a top-level lora_rank / lora_alpha (GPT-3 "
-                                  "LoRA adapters) is not ported yet")
     root = os.path.dirname(os.path.dirname(os.path.abspath(yaml_path)))
 
     def resolve(p):
@@ -108,7 +104,16 @@ def load_config(yaml_path: str,
     text = (GPT3Config.from_json_file(text_path)
             if text_path and os.path.exists(text_path) else GPT3Config())
     if raw.get("text_overrides"):
-        text = dataclasses.replace(text, **raw["text_overrides"])
+        over = dict(raw["text_overrides"])
+        if "lora_targets" in over:  # a YAML list -> tuple
+            over["lora_targets"] = tuple(over["lora_targets"])
+        text = dataclasses.replace(text, **over)
+    # a top-level lora_rank (with its lora_alpha) grows the GPT-3 decoder's
+    # adapters; lora_alpha with no rank builds none, as in JAX
+    if raw.get("lora_rank"):
+        text = dataclasses.replace(
+            text, lora_rank=int(raw["lora_rank"]),
+            lora_alpha=float(raw.get("lora_alpha", text.lora_alpha)))
     vision = (VisionConfig.from_json_file(visual_path)
               if visual_path and os.path.exists(visual_path)
               else VisionConfig())
@@ -124,6 +129,7 @@ def load_config(yaml_path: str,
         temp=float(raw.get("temp", 0.07)),
         use_cls=bool(raw.get("use_cls", False)),
         num_classes=int(raw.get("num_classes", 0)),
+        connect_ln=bool(raw.get("connect_ln", False)),
         freeze_vit=bool(raw.get("freeze_vit", False)),
         freeze_text_decoder=bool(raw.get("freeze_text_decoder", True)))
     sched = dict(raw.get("schedular", raw.get("scheduler", {})))
@@ -227,9 +233,11 @@ class InstructTrainConfig:
 
 def instruct_train_config(raw: Dict[str, Any]) -> InstructTrainConfig:
     """The raw instruct YAML -> its training keys: the ``optimizer`` block
-    as given (lr 1e-4 by default, the rest ``OptimizerConfig``'s
-    defaults), ``epochs`` for the schedule, and ``freeze_vit`` /
-    ``freeze_text_decoder`` both True unless the YAML says otherwise."""
+    as given, every ``OptimizerConfig`` field (``opt``, ``momentum``,
+    ``lr_scale_rules``, ``layer_decay`` ...) included (lr 1e-4 by
+    default, the rest ``OptimizerConfig``'s defaults), ``epochs`` for the
+    schedule, and ``freeze_vit`` / ``freeze_text_decoder`` both True
+    unless the YAML says otherwise."""
     epochs = int(raw.get("epochs", 3))
     opt_kw = dict(raw.get("optimizer") or {})
     opt_kw.setdefault("lr", 1e-4)

@@ -19,8 +19,20 @@ layernorms, softmax and logits from the tied embedding.
 Training (no cache): causal attention over the whole sequence through
 the flash kernels with ALiBi, q/k/v handed as [B, S, n, d] head views of
 the fused projection (no copy); ``BloomLM.forward`` returns the tied-
-embedding LM losses and their masked mean.  Dropout is not ported, so
-training with a dropout rate above 0 raises.
+embedding LM losses and their masked mean, the loss over sequence
+chunks of ``ce_chunk`` rows when set.  Dropout, as the JAX package
+applies it with ``deterministic=False``: given a ``generator`` in
+training mode, the embeddings after their LayerNorm and the attention
+and MLP outputs take ``hidden_dropout``, and the attention probabilities
+``attention_dropout`` on the plain path (``mha_reference`` with the ALiBi
+bias: JAX's rule leaves the flash kernel under attention dropout).
+``remat`` checkpoints every layer in training (JAX
+``bloom.py:442-452``): ``remat_policy`` "nothing" recomputes the whole
+layer, attention included; "names" and "narrow" keep the attention's
+output and log-sum-exp (its forward kernel runs once a layer) and
+recompute the segments around it — "names" keeps the GELU output of the
+MLP too, "narrow" recomputes the MLP whole.  A recomputed segment
+replays its dropout masks from the generator state it started with.
 
 LoRA (``lora_rank > 0``): each target projection (``qkv``, ``out``,
 ``fc1``, ``fc2``) gains ``lora_<name>_a [L, in, r]`` and ``lora_<name>_b
@@ -54,14 +66,23 @@ from torch import nn
 
 from youku_mplug_tpu_torch.models.gpt3 import (
     KV_CACHE_DTYPES,
+    LORA_TARGETS,
     CacheLen,
+    Dropout,
     TiedEmbedding,
     _init_cache,
     _param,
+    add_lora,
+    check_lora_targets,
     qscaled,
 )
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
-from youku_mplug_tpu_torch.ops.attention import NEG_INF, mha_reference
+from youku_mplug_tpu_torch.ops.attention import (
+    NEG_INF,
+    checkpoint_replaying,
+    dropout,
+    mha_reference,
+)
 from youku_mplug_tpu_torch.ops.cross_entropy import (
     lm_cross_entropy,
     masked_mean_loss,
@@ -72,12 +93,12 @@ from youku_mplug_tpu_torch.ops.decode_attention import (
 )
 from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
-from youku_mplug_tpu_torch.ops.lora import lora_delta
+from youku_mplug_tpu_torch.ops.lora import LoRAModule, plus
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 __all__ = ["BloomConfig", "BloomLM", "alibi_slopes"]
 
-LORA_TARGETS = ("qkv", "out", "fc1", "fc2")
+REMAT_POLICIES = ("nothing", "names", "narrow")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,17 +123,18 @@ class BloomConfig:
     lora_targets: tuple = LORA_TARGETS
     # "auto": the compute dtype; "int8": per-(token, head) quantized
     kv_cache_dtype: str = "auto"
+    remat: bool = False  # checkpoint each layer in training
+    remat_policy: str = "nothing"  # "nothing" | "names" | "narrow"
+    ce_chunk: int = 0    # sequence chunk of the LM loss (0: dense)
 
     def __post_init__(self):
+        if self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy {self.remat_policy!r} not in "
+                             f"{REMAT_POLICIES}")
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
                              f"{KV_CACHE_DTYPES}")
-        # a YAML list becomes the tuple the JAX config holds
-        object.__setattr__(self, "lora_targets", tuple(self.lora_targets))
-        unknown = set(self.lora_targets) - set(LORA_TARGETS)
-        if unknown:
-            raise ValueError(f"unknown LoRA targets {sorted(unknown)}; the "
-                             f"Bloom projections are {LORA_TARGETS}")
+        check_lora_targets(self)
 
     @property
     def ffn_dim(self) -> int:
@@ -147,37 +169,7 @@ class BloomConfig:
         return cls(**mapped)
 
 
-class _LoRA(nn.Module):
-    """The adapters of one stacked module: ``lora_<name>_{a,b}`` with a
-    leading [L] for each of ``cfg.lora_targets`` among ``shapes`` (name ->
-    (in, out)); ``delta(name, lidx, x)`` is layer lidx's delta or None."""
-
-    def _add_lora(self, cfg: BloomConfig, num_layers: int, dtype, shapes):
-        self.lora_rank, self.lora_alpha = cfg.lora_rank, cfg.lora_alpha
-        self.lora_init_std = cfg.init_method_std  # of lora_*_a (bridge)
-        if cfg.lora_rank <= 0:
-            return
-        for name, (i, o) in shapes.items():
-            if name in cfg.lora_targets:
-                setattr(self, f"lora_{name}_a",
-                        _param(num_layers, i, cfg.lora_rank, dtype=dtype))
-                setattr(self, f"lora_{name}_b",
-                        _param(num_layers, cfg.lora_rank, o, dtype=dtype))
-
-    def delta(self, name: str, lidx: int, x: torch.Tensor):
-        a = getattr(self, f"lora_{name}_a", None)
-        if a is None:
-            return None
-        b = getattr(self, f"lora_{name}_b")
-        return lora_delta((a[lidx], b[lidx]), x, self.lora_rank,
-                          self.lora_alpha, x.dtype)
-
-
-def _plus(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
-    return y if delta is None else y + delta
-
-
-class BloomAttention(_LoRA):
+class BloomAttention(LoRAModule):
     """ALiBi self-attention, head-major fused QKV: the training forward
     without a cache, prefill and decode with one.  Parameters carry a
     leading [L] layer dimension."""
@@ -194,44 +186,75 @@ class BloomAttention(_LoRA):
         self.qkv_bias = _param(num_layers, n, 3, d, dtype=dtype)
         self.out_kernel = _param(num_layers, n, d, h, dtype=dtype)
         self.out_bias = _param(num_layers, h, dtype=dtype)
-        self._add_lora(cfg, num_layers, dtype,
-                       {"qkv": (h, 3 * n * d), "out": (n * d, h)})
+        add_lora(self, cfg, num_layers, dtype,
+                 {"qkv": (h, 3 * n * d), "out": (n * d, h)})
 
     def forward(self, x, lidx: int, cache: Optional[kvc.Cache] = None,
                 cache_len: CacheLen = 0,
-                valid_from: Optional[torch.Tensor] = None):
+                valid_from: Optional[torch.Tensor] = None,
+                drop: Optional[Dropout] = None):
         """x [B, S, H] -> [B, S, H].  Without a cache: causal ALiBi
-        attention over the whole sequence through the flash kernels.  With
-        one: writes this chunk's K|V rows into layer ``lidx`` of ``cache``
-        at ``cache_len`` (int, or [B] per-sample positions), then attends
-        to keys ``valid_from <= j <= position``."""
-        n, d, h = self.n, self.d, self.h
-        nd = n * d
-        b, s, _ = x.shape
-        dt = x.dtype
-        qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
-        qkv = qscaled(qkv, self, "qkv_kernel", lidx)
-        qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
-        qkv = _plus(qkv, self.delta("qkv", lidx, x))
-        qkv5 = qkv.unflatten(-1, (n, 3, d))  # head-major [B, S, n, 3, d]
+        attention over the whole sequence through the flash kernels, or
+        under attention dropout (``drop``) the plain path.  With one:
+        writes this chunk's K|V rows into layer ``lidx`` of ``cache`` at
+        ``cache_len`` (int, or [B] per-sample positions), then attends to
+        keys ``valid_from <= j <= position``."""
+        qkv5 = self.qkv(x, lidx)
         if cache is None:
-            out = flash_attention_packed(
-                qkv5[..., 0, :], qkv5[..., 1, :], qkv5[..., 2, :], n,
-                causal=True, alibi_slopes=self.slopes_fp32)
-        elif s == 1:  # the decode kernel writes the row and attends
+            return self.project(self.core(qkv5, drop), lidx)
+        n, d = self.n, self.d
+        b, s = qkv5.shape[:2]
+        if s == 1:  # the decode kernel writes the row and attends
             out = write_decode_attention(
                 qkv5[:, 0, :, 0, :], qkv5[:, 0, :, 1, :], qkv5[:, 0, :, 2, :],
                 cache, n, lidx, cache_len, valid_from,
                 alibi_slopes=self.slopes)[:, None]
         else:
-            kvp = torch.cat([qkv5[..., 1, :].reshape(b, s, nd),
-                             qkv5[..., 2, :].reshape(b, s, nd)], dim=-1)
+            kvp = torch.cat([qkv5[..., 1, :].reshape(b, s, n * d),
+                             qkv5[..., 2, :].reshape(b, s, n * d)], dim=-1)
             kvc.cache_write(cache, kvp, cache_len, lidx)  # [K | V] rows
             out = self._prefill_attention(qkv5, lidx, cache, cache_len,
                                           valid_from)
+        return self.project(out, lidx)
+
+    def qkv(self, x, lidx: int) -> torch.Tensor:
+        """The fused projection (int8 scale, bias, LoRA delta), head-major
+        [B, S, n, 3, d]."""
+        n, d, h = self.n, self.d, self.h
+        dt = x.dtype
+        qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * n * d).to(dt)
+        qkv = qscaled(qkv, self, "qkv_kernel", lidx)
+        qkv = qkv + self.qkv_bias[lidx].reshape(3 * n * d).to(dt)
+        qkv = plus(qkv, self.delta("qkv", x, lidx))
+        return qkv.unflatten(-1, (n, 3, d))
+
+    def core(self, qkv5, drop: Optional[Dropout] = None) -> torch.Tensor:
+        """Causal ALiBi attention of the training forward, [B, S, n*d]:
+        the flash kernels, or with attention dropout ``mha_reference``
+        over the ALiBi bias of the key positions."""
+        n, d = self.n, self.d
+        b, s = qkv5.shape[:2]
+        rate = drop.attention if drop is not None else 0.0
+        if rate == 0.0:
+            return flash_attention_packed(
+                qkv5[..., 0, :], qkv5[..., 1, :], qkv5[..., 2, :], n,
+                causal=True, alibi_slopes=self.slopes_fp32)
+        q, k, v = (qkv5[..., i, :].transpose(1, 2) for i in range(3))
+        bias = (self.slopes_fp32[None, :, None, None]
+                * torch.arange(s, dtype=torch.float32,
+                               device=qkv5.device)[None, None, None, :])
+        out = mha_reference(q, k, v, causal=True, bias=bias,
+                            dropout_rate=rate, generator=drop.generator)
+        return out.transpose(1, 2).reshape(b, s, n * d)
+
+    def project(self, out, lidx: int) -> torch.Tensor:
+        """The output projection of the attention [B, S, n*d] -> [B, S,
+        H] (int8 scale, LoRA delta, bias)."""
+        nd, h = self.n * self.d, self.h
+        dt = out.dtype
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
         y = qscaled(y, self, "out_kernel", lidx)
-        y = _plus(y, self.delta("out", lidx, out))
+        y = plus(y, self.delta("out", out, lidx))
         return y + self.out_bias[lidx].to(dt)
 
     def _prefill_attention(self, qkv5, lidx, cache, cache_len, valid_from):
@@ -264,7 +287,7 @@ class BloomAttention(_LoRA):
         return out.transpose(1, 2).reshape(b, s, nd)
 
 
-class BloomMLP(_LoRA):
+class BloomMLP(LoRAModule):
     def __init__(self, cfg: BloomConfig, num_layers: int, dtype):
         super().__init__()
         h, f = cfg.hidden_size, cfg.ffn_dim
@@ -272,16 +295,23 @@ class BloomMLP(_LoRA):
         self.fc1_bias = _param(num_layers, f, dtype=dtype)
         self.fc2_kernel = _param(num_layers, f, h, dtype=dtype)
         self.fc2_bias = _param(num_layers, h, dtype=dtype)
-        self._add_lora(cfg, num_layers, dtype, {"fc1": (h, f), "fc2": (f, h)})
+        add_lora(self, cfg, num_layers, dtype, {"fc1": (h, f), "fc2": (f, h)})
 
     def forward(self, x, lidx: int):
+        return self.fc2(self.fc1(x, lidx), lidx)
+
+    def fc1(self, x, lidx: int) -> torch.Tensor:
+        """``gelu(x @ fc1 + delta + bias)``, the MLP's hidden."""
         dt = x.dtype
-        y = _plus(qscaled(x @ self.fc1_kernel[lidx].to(dt), self,
-                          "fc1_kernel", lidx), self.delta("fc1", lidx, x))
+        y = plus(qscaled(x @ self.fc1_kernel[lidx].to(dt), self,
+                         "fc1_kernel", lidx), self.delta("fc1", x, lidx))
         # BloomGelu is the tanh-approximate GELU
-        y = F.gelu(y + self.fc1_bias[lidx].to(dt), approximate="tanh")
-        out = _plus(qscaled(y @ self.fc2_kernel[lidx].to(dt), self,
-                            "fc2_kernel", lidx), self.delta("fc2", lidx, y))
+        return F.gelu(y + self.fc1_bias[lidx].to(dt), approximate="tanh")
+
+    def fc2(self, y, lidx: int) -> torch.Tensor:
+        dt = y.dtype
+        out = plus(qscaled(y @ self.fc2_kernel[lidx].to(dt), self,
+                           "fc2_kernel", lidx), self.delta("fc2", y, lidx))
         return out + self.fc2_bias[lidx].to(dt)
 
 
@@ -302,14 +332,71 @@ class BloomLayer(nn.Module):
         self.mlp = BloomMLP(cfg, num_layers, dtype)
 
     def forward(self, x, lidx: int, cache=None, cache_len: CacheLen = 0,
-                valid_from=None):
-        a = layer_norm(x, self.ln1_scale[lidx], self.ln1_bias[lidx],
-                       eps=self.eps)
-        x = (a if self.post_ln_residual else x) + self.attn(
-            a, lidx, cache, cache_len, valid_from)
+                valid_from=None, drop: Optional[Dropout] = None):
+        a = self._ln1(x, lidx)
+        x = self._attn_residual(
+            x, a, self.attn(a, lidx, cache, cache_len, valid_from, drop),
+            drop)
+        return self._mlp_block(x, lidx, drop)
+
+    def _ln1(self, x, lidx):
+        return layer_norm(x, self.ln1_scale[lidx], self.ln1_bias[lidx],
+                          eps=self.eps)
+
+    def _attn_residual(self, x, a, attn_out, drop):
+        if drop is not None:
+            attn_out = dropout(attn_out, drop.hidden, drop.generator)
+        return (a if self.post_ln_residual else x) + attn_out
+
+    def _mlp_block(self, x, lidx, drop):
+        """ln2 -> MLP -> dropout -> residual."""
+        return self._mlp_out(x, self._mlp_in(x, lidx)[1], lidx, drop)
+
+    def _mlp_in(self, x, lidx):
         m = layer_norm(x, self.ln2_scale[lidx], self.ln2_bias[lidx],
                        eps=self.eps)
-        return (m if self.post_ln_residual else x) + self.mlp(m, lidx)
+        return m, self.mlp.fc1(m, lidx)
+
+    def _mlp_out(self, x, hidden, lidx, drop, m=None):
+        out = self.mlp.fc2(hidden, lidx)
+        if drop is not None:
+            out = dropout(out, drop.hidden, drop.generator)
+        if self.post_ln_residual:
+            if m is None:
+                m = layer_norm(x, self.ln2_scale[lidx], self.ln2_bias[lidx],
+                               eps=self.eps)
+            return m + out
+        return x + out
+
+    def remat(self, x, lidx: int, policy: str, drop: Optional[Dropout]):
+        """The training forward (no cache) under ``remat_policy`` (see
+        the module docstring): "nothing" checkpoints the layer whole;
+        "names" and "narrow" run the attention outside the checkpointed
+        segments."""
+        gen = drop.generator if drop is not None else None
+        if policy == "nothing":
+            return checkpoint_replaying(self, gen, x, lidx, None, 0, None,
+                                        drop)
+        attn = self.attn
+        qkv5 = checkpoint_replaying(
+            lambda t: attn.qkv(self._ln1(t, lidx), lidx), None, x)
+        core = attn.core(qkv5, drop)
+
+        def post_attention(x, core):
+            a = self._ln1(x, lidx) if self.post_ln_residual else None
+            return self._attn_residual(x, a, attn.project(core, lidx), drop)
+
+        if policy == "narrow":
+            return checkpoint_replaying(
+                lambda t, c: self._mlp_block(post_attention(t, c), lidx,
+                                             drop), gen, x, core)
+
+        def to_hidden(x, core):
+            x1 = post_attention(x, core)
+            m, hidden = self._mlp_in(x1, lidx)
+            return x1, m, hidden
+        x1, m, hidden = checkpoint_replaying(to_hidden, gen, x, core)
+        return self._mlp_out(x1, hidden, lidx, drop, m)
 
 
 class BloomDecoder(nn.Module):
@@ -329,20 +416,28 @@ class BloomDecoder(nn.Module):
         self.ln_f_bias = _param(h, dtype=dt)
 
     def forward(self, input_embeds, *, cache=None, cache_len: CacheLen = 0,
-                valid_from=None, skip_emb_ln: bool = False):
+                valid_from=None, skip_emb_ln: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """``generator``: the dropout masks of a training forward (no
+        cache, training mode); ignored otherwise."""
         cfg = self.cfg
-        if cache is None and self.training and (
-                cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
-            raise NotImplementedError(
-                f"dropout (hidden {cfg.hidden_dropout}, attention "
-                f"{cfg.attention_dropout}) is not ported yet: train with "
-                "hidden_dropout = attention_dropout = 0")
+        drop = None
+        if (generator is not None and cache is None and self.training
+                and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0)):
+            drop = Dropout(generator, cfg.hidden_dropout,
+                           cfg.attention_dropout)
         eps = cfg.layernorm_epsilon
         x = input_embeds
         if not skip_emb_ln:
             x = layer_norm(x, self.emb_ln_scale, self.emb_ln_bias, eps=eps)
+        if drop is not None:
+            x = dropout(x, drop.hidden, drop.generator)
+        remat = cache is None and cfg.remat and torch.is_grad_enabled()
         for lidx in range(cfg.num_hidden_layers):
-            x = self.layers(x, lidx, cache, cache_len, valid_from)
+            if remat:
+                x = self.layers.remat(x, lidx, cfg.remat_policy, drop)
+            else:
+                x = self.layers(x, lidx, cache, cache_len, valid_from, drop)
         return layer_norm(x, self.ln_f_scale, self.ln_f_bias, eps=eps)
 
 
@@ -368,20 +463,22 @@ class BloomLM(nn.Module):
         return self.word_embeddings.attend(hidden)
 
     def forward(self, tokens=None, input_embeds=None, labels=None,
-                loss_mask=None):
+                loss_mask=None, generator: Optional[torch.Generator] = None):
         """Full-sequence causal forward (JAX ``BloomLM.__call__``).  Returns
         ``last_hidden_state``; with ``labels`` (already shifted) the fp32
         per-position ``losses`` [B, S]; with a ``loss_mask`` too, ``loss``:
-        the masked mean over ``losses[:, :-1]``."""
+        the masked mean over ``losses[:, :-1]``.  ``generator``: the
+        dropout masks, in training mode."""
         if input_embeds is None:
             input_embeds = self.embed(tokens)
         else:
             input_embeds = input_embeds.to(self.policy.compute_dtype)
-        hidden = self.decoder(input_embeds)
+        hidden = self.decoder(input_embeds, generator=generator)
         out = {"last_hidden_state": hidden}
         if labels is not None:
             losses = lm_cross_entropy(
-                hidden, self.word_embeddings.table(hidden.dtype), labels)
+                hidden, self.word_embeddings.table(hidden.dtype), labels,
+                chunk=self.cfg.ce_chunk)
             out["losses"] = losses
             if loss_mask is not None:
                 out["loss"] = masked_mean_loss(losses[:, :-1], loss_mask)

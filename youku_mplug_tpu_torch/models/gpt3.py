@@ -28,6 +28,15 @@ nothing is drawn.  The cache is ``[L, B, M, 2*hidden]`` with rows
 [K | V] taken straight from the qkv projection's output (``qkv[..., n*d:]``);
 the new rows are written in place before attention reads them.
 
+LoRA (``lora_rank > 0``, a top-level ``lora_rank`` in a YAML): each of
+``lora_targets`` among ``qkv``, ``out``, ``fc1`` and ``fc2`` gains
+``lora_<name>_a [L, in, r]`` and ``lora_<name>_b [L, r, out]`` (fp32
+leaves that train inside the frozen bf16 decoder; ``b`` starts at zero)
+and adds ``(x @ a) @ b * alpha / r`` to its product after the int8
+scale and, for ``qkv``, after the bias (JAX ``gpt3.py:159-176``), before
+it elsewhere, in the training forward, prefill and the decode step
+alike.  ``ops/lora.merge_lora`` folds them into the kernels for serving.
+
 int8 serving (``ops/quant.py``, ``ops/kv_cache.py``): a decoder quantized
 by ``quant.quantize_decoder_`` multiplies each product's output channels
 by its kernel's scales before the bias, and the int8 tied embedding
@@ -67,10 +76,12 @@ from youku_mplug_tpu_torch.ops.flash_attention import (
     packed_supported,
 )
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
+from youku_mplug_tpu_torch.ops.lora import LoRAModule, plus
 from youku_mplug_tpu_torch.ops.quant import dequantize, qscale
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 KV_CACHE_DTYPES = ("auto", "int8")
+LORA_TARGETS = ("qkv", "out", "fc1", "fc2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +105,13 @@ class GPT3Config:
     ce_chunk: int = 0    # sequence chunk of the LM loss (0: dense)
     # "auto": the compute dtype; "int8": per-(token, head) quantized
     kv_cache_dtype: str = "auto"
+    # rank-r adapters on the projections (0: none)
+    lora_rank: int = 0
+    lora_alpha: float = 16.0
+    lora_targets: tuple = LORA_TARGETS
 
     def __post_init__(self):
+        check_lora_targets(self)
         if self.kv_cache_dtype not in KV_CACHE_DTYPES:
             raise ValueError(f"kv_cache_dtype {self.kv_cache_dtype!r} not in "
                              f"{KV_CACHE_DTYPES}")
@@ -129,8 +145,27 @@ class GPT3Config:
         return cls(**mapped)
 
 
+def check_lora_targets(cfg):
+    """A YAML list becomes the tuple the JAX config holds; a target the
+    decoder does not have raises."""
+    object.__setattr__(cfg, "lora_targets", tuple(cfg.lora_targets))
+    unknown = set(cfg.lora_targets) - set(LORA_TARGETS)
+    if unknown:
+        raise ValueError(f"unknown LoRA targets {sorted(unknown)}; the "
+                         f"decoder projections are {LORA_TARGETS}")
+
+
 def _param(*shape, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype), requires_grad=False)
+
+
+def add_lora(mod: LoRAModule, cfg, num_layers: int, dtype, shapes):
+    """The [L]-stacked adapters of ``cfg.lora_targets`` among ``shapes``
+    (name -> (in, out)) on a decoder module, at ``cfg``'s rank and
+    alpha, ``lora_*_a`` drawn at ``init_method_std``."""
+    mod.add_lora(cfg.lora_rank, cfg.lora_alpha, cfg.init_method_std, dtype,
+                 {k: v for k, v in shapes.items() if k in cfg.lora_targets},
+                 num_layers)
 
 
 CacheLen = Union[int, torch.Tensor]
@@ -157,7 +192,7 @@ class Dropout:
     attention: float
 
 
-class GPT3Attention(nn.Module):
+class GPT3Attention(LoRAModule):
     """Self-attention with a fused QKV projection and the stacked cache.
     Parameters carry a leading [L] layer dimension."""
 
@@ -169,6 +204,8 @@ class GPT3Attention(nn.Module):
         self.qkv_bias = _param(num_layers, 3, n, d, dtype=dtype)
         self.out_kernel = _param(num_layers, n, d, h, dtype=dtype)
         self.out_bias = _param(num_layers, h, dtype=dtype)
+        add_lora(self, cfg, num_layers, dtype,
+                 {"qkv": (h, 3 * n * d), "out": (n * d, h)})
 
     def forward(self, x, lidx: int, cache: Optional[kvc.Cache] = None,
                 cache_len: CacheLen = 0,
@@ -194,6 +231,7 @@ class GPT3Attention(nn.Module):
         qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
         qkv = qscaled(qkv, self, "qkv_kernel", lidx)
         qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
+        qkv = plus(qkv, self.delta("qkv", x, lidx))
         rate = drop.attention if drop is not None else 0.0
         if cache is None and rate == 0.0 and packed_supported(n, d):
             out = flash_attention_packed(qkv[..., :nd], qkv[..., nd:2 * nd],
@@ -210,6 +248,7 @@ class GPT3Attention(nn.Module):
                                         valid_from)
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
         y = qscaled(y, self, "out_kernel", lidx)
+        y = plus(y, self.delta("out", out, lidx))
         return y + self.out_bias[lidx].to(dt)
 
     def _cache_attention(self, qkv, lidx, cache, cache_len, valid_from):
@@ -244,7 +283,7 @@ class GPT3Attention(nn.Module):
         return out.transpose(1, 2).reshape(b, s, nd)
 
 
-class GPT3MLP(nn.Module):
+class GPT3MLP(LoRAModule):
     def __init__(self, cfg: GPT3Config, num_layers: int, dtype):
         super().__init__()
         h, f = cfg.hidden_size, cfg.ffn_dim
@@ -252,14 +291,18 @@ class GPT3MLP(nn.Module):
         self.fc1_bias = _param(num_layers, f, dtype=dtype)
         self.fc2_kernel = _param(num_layers, f, h, dtype=dtype)
         self.fc2_bias = _param(num_layers, h, dtype=dtype)
+        add_lora(self, cfg, num_layers, dtype, {"fc1": (h, f), "fc2": (f, h)})
 
     def forward(self, x, lidx: int):
         dt = x.dtype
         y = qscaled(x @ self.fc1_kernel[lidx].to(dt), self, "fc1_kernel", lidx)
+        y = plus(y, self.delta("fc1", x, lidx))
         # fused bias + tanh-approx gelu (megatron bias_gelu contract)
         y = F.gelu(y + self.fc1_bias[lidx].to(dt), approximate="tanh")
-        y = qscaled(y @ self.fc2_kernel[lidx].to(dt), self, "fc2_kernel", lidx)
-        return y + self.fc2_bias[lidx].to(dt)
+        out = qscaled(y @ self.fc2_kernel[lidx].to(dt), self, "fc2_kernel",
+                      lidx)
+        out = plus(out, self.delta("fc2", y, lidx))
+        return out + self.fc2_bias[lidx].to(dt)
 
 
 class GPT3Layer(nn.Module):

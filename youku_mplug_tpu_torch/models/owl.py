@@ -21,7 +21,11 @@ rename.  What the port keeps:
   feature (a cumulative-index gather);
 - in training, a frozen vision tower (no parameter that wants a
   gradient, and the clips want none) builds no autograd graph, so it
-  launches no backward kernel.
+  launches no backward kernel; with vision LoRA its adapters train and
+  it does;
+- ``instruct_loss`` takes the step's dropout ``generator`` to the ViT
+  (attention dropout, drop-path) and to Bloom (hidden and attention
+  dropout), the JAX method's ``deterministic=False``.
 """
 
 from __future__ import annotations
@@ -194,12 +198,13 @@ class MPLUGOwlVideo(nn.Module):
         self.vit_eos = _param(1, 1, cfg.text.hidden_size, dtype=dt)
         self.text_decoder = BloomLM(cfg.text, policy)
 
-    def encode_video(self, video):
+    def encode_video(self, video, generator=None):
         """video [B, C, T, H, W] -> media features [B, num_media_tokens,
-        H_text] (the queries, then ``vit_eos``)."""
+        H_text] (the queries, then ``vit_eos``); ``generator``: the ViT's
+        dropout masks in training mode."""
         b, c, t, hh, ww = video.shape
         frames = video.transpose(1, 2).reshape(b * t, c, hh, ww)
-        _, feats = self.visual_encoder(frames)
+        _, feats = self.visual_encoder(frames, generator)
         q = self.abstractor(feats.reshape(b, t, *feats.shape[1:]))
         q = self.visual_fc(q)
         return torch.cat([q, self.vit_eos.to(q.dtype).expand(b, 1, -1)],
@@ -213,20 +218,21 @@ class MPLUGOwlVideo(nn.Module):
                             query_features, media_mask)
 
     def instruct_loss(self, video, input_ids, attention_mask, media_mask,
-                      prompt_mask):
-        """Instruction-tuning LM loss over the answer tokens: {"loss"}."""
+                      prompt_mask, generator=None):
+        """Instruction-tuning LM loss over the answer tokens: {"loss"}.
+        ``generator``: the dropout masks, in training mode."""
         embeds = self.spliced_embeds(input_ids, media_mask,
-                                     self.encode_video(video))
+                                     self.encode_video(video, generator))
         labels, loss_mask = instruct_targets(input_ids, attention_mask,
                                              media_mask, prompt_mask)
         out = self.text_decoder(input_embeds=embeds, labels=labels,
-                                loss_mask=loss_mask)
+                                loss_mask=loss_mask, generator=generator)
         return {"loss": out["loss"]}
 
     def forward(self, video, input_ids, attention_mask, media_mask,
-                prompt_mask):
+                prompt_mask, generator=None):
         return self.instruct_loss(video, input_ids, attention_mask,
-                                  media_mask, prompt_mask)
+                                  media_mask, prompt_mask, generator)
 
 
 def generate_instruct(model: MPLUGOwlVideo, video, input_ids, media_mask,

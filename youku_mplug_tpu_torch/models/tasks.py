@@ -19,9 +19,15 @@ call them: the JAX package creates a head's parameters where a task
 method calls it.
 
 Dropout: the training losses take the step's ``generator`` and pass it
-to the decoder, which drops out in training mode (``models/gpt3.py``);
-the JAX methods' ``deterministic=False``.  The evaluation methods, and
-the retrieval towers (JAX ``extract_*`` run deterministic), pass none.
+to the video tower and the decoder, which drop out in training mode
+(``models/vision.py``, ``models/gpt3.py``); the JAX methods'
+``deterministic=False``.  The evaluation methods, and the retrieval
+towers (JAX ``extract_*`` run deterministic), pass none.
+
+``connect_ln``: ``visual_norm``, an fp32 LayerNorm (eps 1e-6) over the
+decoder width, normalizes ``visual_fc``'s output (JAX ``tasks.py:121-125``)
+wherever the query features are made: the training losses and the
+encode that serving and generation use.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from torch import nn
 from youku_mplug_tpu_torch.models.gpt3 import GPT3Config, GPT3LM
 from youku_mplug_tpu_torch.models.vision import (
     AttentionPool,
+    LayerNormFP32,
     TimeSformer,
     VisionConfig,
 )
@@ -54,6 +61,7 @@ class MPLUGVideoConfig:
     temp: float = 0.07
     use_cls: bool = False
     num_classes: int = 0
+    connect_ln: bool = False  # visual_norm after visual_fc
     freeze_vit: bool = False
     freeze_text_decoder: bool = True
     label_smoothing: float = 0.1  # pretrain contrastive CE
@@ -123,6 +131,8 @@ class MPLUGVideo(nn.Module):
         self.attn_pool = AttentionPool(v.embed_dim, v.num_heads, v.mlp_ratio,
                                        gelu=v.gelu, dtype=dt)
         self.visual_fc = Dense(v.embed_dim, cfg.text.hidden_size, dt)
+        if cfg.connect_ln:
+            self.visual_norm = LayerNormFP32(cfg.text.hidden_size, 1e-6, dt)
         if cfg.use_contrastive or proj_heads:
             e = cfg.contrastive_embed_dim
             self.vision_proj = Dense(v.embed_dim, e, dt)
@@ -137,15 +147,20 @@ class MPLUGVideo(nn.Module):
                                  requires_grad=False)
         self.text_decoder = GPT3LM(cfg.text, policy)
 
-    def encode_video(self, video):
+    def encode_video(self, video, generator=None):
         """video [B, C, T, H, W] -> (pooled_cls [B, D],
-        query_features [B, Q, H_text], image_query [B, Q, D])."""
-        pooled, image_embeds = self.visual_encoder(video)
+        query_features [B, Q, H_text], image_query [B, Q, D]);
+        ``generator``: the video tower's dropout masks in training
+        mode."""
+        pooled, image_embeds = self.visual_encoder(video, generator)
         b = image_embeds.shape[0]
         queries = self.learnable_queries.expand(
             b, -1, -1).to(image_embeds.dtype)
         image_query = self.attn_pool(queries, image_embeds)
-        return pooled, self.visual_fc(image_query), image_query
+        query_features = self.visual_fc(image_query)
+        if self.cfg.connect_ln:
+            query_features = self.visual_norm(query_features)
+        return pooled, query_features, image_query
 
     def encode_queries(self, video):
         """Just the query features (the serving prefix)."""
@@ -196,7 +211,7 @@ class MPLUGVideo(nn.Module):
         ``use_contrastive``) the per-query-max video-text contrastive loss
         against a text-only causal decoder pass.  Returns a dict of fp32
         scalars: loss, loss_caption, loss_contrastive."""
-        _, query_features, image_query = self.encode_video(video)
+        _, query_features, image_query = self.encode_video(video, generator)
         loss_caption = self._prefix_forward(query_features, input_ids,
                                             attention_mask,
                                             generator=generator)["loss"]
@@ -228,7 +243,7 @@ class MPLUGVideo(nn.Module):
         """The captioning finetune loss: the prefix LM over the query
         features, the prompt's positions out of the loss.  Returns
         {"loss": fp32 scalar}."""
-        query_features = self.encode_video(video)[1]
+        query_features = self.encode_video(video, generator)[1]
         out = self._prefix_forward(query_features, input_ids, attention_mask,
                                    prompt_lengths=prompt_lengths,
                                    generator=generator)
@@ -241,7 +256,7 @@ class MPLUGVideo(nn.Module):
         prompt, class name) pair, plus (``use_cls`` with ``labels``) the
         cross-entropy of the classifier head on the title prompt alone.
         Returns fp32 scalars loss, loss_caption, loss_cls."""
-        query_features = self.encode_video(video)[1]
+        query_features = self.encode_video(video, generator)[1]
         loss_caption = self._prefix_forward(
             query_features, input_ids, attention_mask,
             prompt_lengths=prompt_lengths, generator=generator)["loss"]
@@ -313,7 +328,7 @@ class MPLUGVideo(nn.Module):
         plus (``use_cls`` with ``labels``) the match head's
         cross-entropy.  Returns fp32 scalars loss, loss_caption,
         loss_cls."""
-        query_features = self.encode_video(video)[1]
+        query_features = self.encode_video(video, generator)[1]
         qf = torch.cat([query_features,
                         query_features[negative_indices.long()]], dim=0)
         loss_caption = self._prefix_forward(

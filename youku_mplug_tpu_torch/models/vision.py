@@ -30,9 +30,24 @@ Under ``grad_ckpt`` the blocks ``i % stride == 0`` run under
 ``torch.utils.checkpoint`` (stride 2/3/6/12 for ``remat_policy``
 half/third/sixth/twelfth, else 1), as the JAX package remats them; its
 named-save inner policies are XLA's and are not ported (a checkpointed
-block recomputes everything).  Vision dropout and drop-path are not
-ported (clip-b16 and vit-b16 set none): training with a rate above 0
-raises.  Vision LoRA is not ported either.
+block recomputes everything, its dropout masks replayed from the
+generator state it started with).
+
+Training knobs, in training mode with a ``generator`` (the JAX
+methods' ``deterministic=False``): ``drop_rate`` drops the TimeSformer's
+patch tokens after the position embeddings (the per-frame ViT has no
+such dropout in JAX either); ``drop_path`` drops each block's residual
+branches per sample at the rates ``linspace(0, drop_path, depth)`` (the
+space-time block: its spatial update and its MLP; the plain block: its
+attention and its MLP); ``attn_drop_rate`` drops attention probabilities
+on the plain path (``mha_reference``), as JAX's rule takes attention
+dropout off its kernels — the temporal attention keeps its period mask
+there as an additive bias (JAX's dropout path drops the mask, ROADMAP
+Queue 3).  LoRA (``lora_rank > 0``): ``lora_{qkv,proj,fc1,fc2}_{a,b}``
+on every attention and MLP of the blocks (qkv's delta before the q / v
+biases, the others before their bias), in every attention route; with
+adapters the temporal attention applies ``temporal_fc`` after its
+projection instead of folding it in, as JAX does.
 """
 
 from __future__ import annotations
@@ -41,18 +56,26 @@ import dataclasses
 import json
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from youku_mplug_tpu_torch.ops.attention import dot_product_attention
-from youku_mplug_tpu_torch.ops.attention import NEG_INF
+from youku_mplug_tpu_torch.ops.attention import (
+    NEG_INF,
+    checkpoint_replaying,
+    dot_product_attention,
+    drop_path,
+    dropout,
+    mha_reference,
+)
 from youku_mplug_tpu_torch.ops.flash_attention import (
     flash_attention_packed,
     packed_supported,
 )
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
+from youku_mplug_tpu_torch.ops.lora import LoRAModule, plus
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 
@@ -72,17 +95,13 @@ class VisionConfig:
     gelu: str = "tanh"  # "tanh" | "erf" | "quick"
     clip_model: bool = False
     lora_rank: int = 0
+    lora_alpha: float = 16.0
     ln_eps: float = 1e-6
     drop_path: float = 0.0
     drop_rate: float = 0.0
     attn_drop_rate: float = 0.0
     grad_ckpt: bool = False
     remat_policy: str = "nothing"  # "half" | "third" | "sixth" | "twelfth"
-
-    def __post_init__(self):
-        if self.lora_rank:
-            raise NotImplementedError(
-                f"vision LoRA (lora_rank {self.lora_rank}) is not ported yet")
 
     @property
     def num_patches(self) -> int:
@@ -94,6 +113,12 @@ class VisionConfig:
         (``vision.py:594-601`` of the JAX package)."""
         key = self.remat_policy.split(":", 1)[0]
         return {"half": 2, "third": 3, "sixth": 6, "twelfth": 12}.get(key, 1)
+
+    @property
+    def drop_path_rates(self) -> list:
+        """Each block's drop-path rate: linspace(0, drop_path, depth)."""
+        return (np.linspace(0, self.drop_path, self.depth).tolist()
+                if self.depth > 1 else [0.0])
 
     @classmethod
     def from_json_file(cls, path: str, **overrides) -> "VisionConfig":
@@ -107,6 +132,9 @@ class VisionConfig:
 
 def _param(*shape, dtype) -> nn.Parameter:
     return nn.Parameter(torch.empty(*shape, dtype=dtype), requires_grad=False)
+
+
+LORA_INIT_STD = 0.015  # JAX VisionConfig.init_std, of lora_*_a
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -147,11 +175,22 @@ def _einsum_attention(q, k, v, n: int, period: int) -> torch.Tensor:
         b, s, nd)
 
 
-class VisionAttention(nn.Module):
-    """Split q/v-bias attention over the flash kernel (packed layout), or
-    einsum attention where the packed kernel has no geometry."""
+def _period_bias(s: int, period: int, device) -> Optional[torch.Tensor]:
+    """fp32 [S, S]: NEG_INF between tokens of different period groups."""
+    if not 0 < period < s:
+        return None
+    gi = torch.arange(s, device=device) // period
+    return torch.zeros(s, s, device=device).masked_fill(
+        gi[:, None] != gi[None, :], NEG_INF)
 
-    def __init__(self, dim: int, num_heads: int, dtype=torch.float32):
+
+class VisionAttention(LoRAModule):
+    """Split q/v-bias attention over the flash kernel (packed layout), or
+    einsum attention where the packed kernel has no geometry, or under
+    attention dropout ``mha_reference``."""
+
+    def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         d = dim // num_heads
         self.dim, self.num_heads = dim, num_heads
@@ -160,18 +199,25 @@ class VisionAttention(nn.Module):
         self.v_bias = _param(num_heads, d, dtype=dtype)
         self.proj_kernel = _param(num_heads, d, dim, dtype=dtype)
         self.proj_bias = _param(dim, dtype=dtype)
+        self.add_lora(lora_rank, lora_alpha, LORA_INIT_STD, dtype,
+                      {"qkv": (dim, 3 * dim), "proj": (dim, dim)})
 
     def forward(self, x, *, period: int = 0,
                 post_kernel: Optional[torch.Tensor] = None,
-                post_bias: Optional[torch.Tensor] = None):
+                post_bias: Optional[torch.Tensor] = None,
+                attn_drop: float = 0.0,
+                generator: Optional[torch.Generator] = None):
         """x [..., S, C].  ``period > 0``: tokens attend only within their
         own period group.  post_kernel/post_bias: a trailing [C, C] affine
         folded into the output projection, (x@P)@T == x@(P@T), with the
-        weight product in fp32 and the cast to the compute dtype after."""
+        weight product in fp32 and the cast to the compute dtype after
+        (without adapters only).  ``attn_drop`` > 0 (with ``generator``):
+        attention dropout on the plain path."""
         n, c = self.num_heads, self.dim
         nd = c
         proj_kernel, proj_bias = self.proj_kernel, self.proj_bias
         if post_kernel is not None:
+            assert self.lora_rank == 0, "post_kernel fusion takes no LoRA"
             pk32 = post_kernel.float()
             proj_kernel = torch.einsum("ndc,ce->nde", proj_kernel.float(),
                                        pk32)
@@ -180,32 +226,46 @@ class VisionAttention(nn.Module):
                 proj_bias = proj_bias + post_bias.float()
         lead, s = x.shape[:-2], x.shape[-2]
         xf = x.reshape(-1, s, c)
-        qkv = _mm(xf, self.qkv_kernel.reshape(c, 3 * nd))
+        qkv = plus(_mm(xf, self.qkv_kernel.reshape(c, 3 * nd)),
+                    self.delta("qkv", xf))
         q = qkv[..., :nd] + self.q_bias.reshape(nd).to(x.dtype)
         k = qkv[..., nd:2 * nd]
         v = qkv[..., 2 * nd:] + self.v_bias.reshape(nd).to(x.dtype)
-        if packed_supported(n, c // n):
+        if attn_drop > 0.0:
+            b = xf.shape[0]
+            q4, k4, v4 = (t.unflatten(-1, (n, c // n)).transpose(1, 2)
+                          for t in (q, k, v))
+            out = mha_reference(q4, k4, v4,
+                                bias=_period_bias(s, period, x.device),
+                                dropout_rate=attn_drop, generator=generator)
+            out = out.transpose(1, 2).reshape(b, s, nd)
+        elif packed_supported(n, c // n):
             out = flash_attention_packed(q, k, v, n, period=period)
         else:
             out = _einsum_attention(q, k, v, n, period)
-        y = _mm(out, proj_kernel.reshape(nd, c)) + proj_bias.to(x.dtype)
+        y = _mm(out, proj_kernel.reshape(nd, c))
+        y = plus(y, self.delta("proj", out)) + proj_bias.to(x.dtype)
         return y.reshape(*lead, s, c)
 
 
-class Mlp(nn.Module):
+class Mlp(LoRAModule):
     def __init__(self, dim: int, hidden: int, gelu: str = "tanh",
-                 dtype=torch.float32):
+                 dtype=torch.float32, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
         self.gelu = gelu
         self.fc1_kernel = _param(dim, hidden, dtype=dtype)
         self.fc1_bias = _param(hidden, dtype=dtype)
         self.fc2_kernel = _param(hidden, dim, dtype=dtype)
         self.fc2_bias = _param(dim, dtype=dtype)
+        self.add_lora(lora_rank, lora_alpha, LORA_INIT_STD, dtype,
+                      {"fc1": (dim, hidden), "fc2": (hidden, dim)})
 
     def forward(self, x):
-        y = _mm(x, self.fc1_kernel) + self.fc1_bias.to(x.dtype)
-        y = _gelu(y, self.gelu)
-        return _mm(y, self.fc2_kernel) + self.fc2_bias.to(x.dtype)
+        y = plus(_mm(x, self.fc1_kernel), self.delta("fc1", x))
+        y = _gelu(y + self.fc1_bias.to(x.dtype), self.gelu)
+        out = plus(_mm(y, self.fc2_kernel), self.delta("fc2", y))
+        return out + self.fc2_bias.to(x.dtype)
 
 
 def temporal_group(n_patches: int, frames: int) -> int:
@@ -221,32 +281,45 @@ def temporal_group(n_patches: int, frames: int) -> int:
 class SpaceTimeBlock(nn.Module):
     """Divided space-time block. x: [B, N, T, C] (n-major); cls: [B, C]."""
 
-    def __init__(self, cfg: VisionConfig, dtype=torch.float32):
+    def __init__(self, cfg: VisionConfig, dtype=torch.float32,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         c = cfg.embed_dim
+        lora = dict(lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
+        self.attn_drop = cfg.attn_drop_rate
+        self.drop_path = drop_path_rate
         self.temporal_ln = LayerNormFP32(c, cfg.ln_eps, dtype)
         self.temporal_fc_kernel = _param(c, c, dtype=dtype)
         self.temporal_fc_bias = _param(c, dtype=dtype)
-        self.temporal_attn = VisionAttention(c, cfg.num_heads, dtype)
+        self.temporal_attn = VisionAttention(c, cfg.num_heads, dtype, **lora)
         self.norm1 = LayerNormFP32(c, cfg.ln_eps, dtype)
-        self.attn = VisionAttention(c, cfg.num_heads, dtype)
+        self.attn = VisionAttention(c, cfg.num_heads, dtype, **lora)
         self.norm2 = LayerNormFP32(c, cfg.ln_eps, dtype)
-        self.mlp = Mlp(c, int(c * cfg.mlp_ratio), cfg.gelu, dtype)
+        self.mlp = Mlp(c, int(c * cfg.mlp_ratio), cfg.gelu, dtype, **lora)
 
-    def forward(self, x, cls):
+    def forward(self, x, cls, generator: Optional[torch.Generator] = None):
+        """``generator``: the dropout masks (None: deterministic)."""
         b, n_p, t, c = x.shape
+        drop = dict(attn_drop=self.attn_drop if generator is not None
+                    else 0.0, generator=generator)
         # temporal attention: g patches x T frames per call, period-T mask
         g = temporal_group(n_p, t)
         xt = self.temporal_ln(x).reshape(b, n_p // g, g * t, c)
-        xt = self.temporal_attn(xt, period=t if g > 1 else 0,
-                                post_kernel=self.temporal_fc_kernel,
-                                post_bias=self.temporal_fc_bias)
+        period = t if g > 1 else 0
+        if self.temporal_attn.lora_rank == 0:
+            xt = self.temporal_attn(xt, period=period,
+                                    post_kernel=self.temporal_fc_kernel,
+                                    post_bias=self.temporal_fc_bias, **drop)
+        else:  # the adapters' delta lands after proj: no folding
+            xt = self.temporal_attn(xt, period=period, **drop)
+            xt = _mm(xt, self.temporal_fc_kernel) \
+                + self.temporal_fc_bias.to(xt.dtype)
         xt = x + xt.reshape(b, n_p, t, c)
 
         # spatial attention: per frame, the one cls token repeated per frame
         xs = xt.transpose(1, 2)  # [B, T, N, C]
         cls_rep = cls[:, None, None, :].expand(b, t, 1, c)
-        xs = self.attn(self.norm1(torch.cat([cls_rep, xs], dim=2)))
+        xs = self.attn(self.norm1(torch.cat([cls_rep, xs], dim=2)), **drop)
         cls_new = xs[:, :, 0, :].mean(dim=1)  # mean over frames
         xs = xs[:, :, 1:, :].transpose(1, 2)  # [B, N, T, C]
 
@@ -254,8 +327,9 @@ class SpaceTimeBlock(nn.Module):
         res = torch.cat([cls[:, None, :], xt.reshape(b, n_p * t, c)], dim=1)
         upd = torch.cat([cls_new[:, None, :], xs.reshape(b, n_p * t, c)],
                         dim=1)
-        y = res + upd
-        y = y + self.mlp(self.norm2(y))
+        rate = self.drop_path if generator is not None else 0.0
+        y = res + drop_path(upd, rate, generator)
+        y = y + drop_path(self.mlp(self.norm2(y)), rate, generator)
         return y[:, 1:, :].reshape(b, n_p, t, c), y[:, 0, :]
 
 
@@ -296,16 +370,15 @@ class TimeSformer(nn.Module):
         if cfg.clip_model:
             self.norm_pre = LayerNormFP32(d, cfg.ln_eps, dt)
         self.blocks = nn.ModuleList(
-            SpaceTimeBlock(cfg, dt) for _ in range(cfg.depth))
+            SpaceTimeBlock(cfg, dt, rate) for rate in cfg.drop_path_rates)
         self.norm = LayerNormFP32(d, cfg.ln_eps, dt)
 
-    def forward(self, video):
+    def forward(self, video, generator: Optional[torch.Generator] = None):
+        """``generator``: the dropout masks of a training forward
+        (training mode); ignored otherwise."""
         cfg = self.cfg
-        if self.training and (cfg.drop_path > 0 or cfg.drop_rate > 0
-                              or cfg.attn_drop_rate > 0):
-            raise NotImplementedError(
-                "vision dropout / drop-path is not ported yet: train with "
-                "drop_path = drop_rate = attn_drop_rate = 0")
+        if not self.training:
+            generator = None
         b, c, t, hh, ww = video.shape
         d = self.cfg.embed_dim
         p = self.cfg.patch_size
@@ -319,6 +392,8 @@ class TimeSformer(nn.Module):
         x = x + (tile_pos + tile_temp).to(x.dtype)
         cls = (self.cls_token.expand(b, 1, d)
                + self.pos_embed[:, :1, :]).to(x.dtype)[:, 0]
+        if generator is not None:
+            x = dropout(x, cfg.drop_rate, generator)
         if cfg.clip_model:  # norm_pre over [cls; tokens] jointly
             joint = self.norm_pre(torch.cat([cls[:, None], x], dim=1))
             cls, x = joint[:, 0], joint[:, 1:]
@@ -326,29 +401,41 @@ class TimeSformer(nn.Module):
         x = x.reshape(b, t, n_p, d).transpose(1, 2)  # n-major for the blocks
         remat = cfg.grad_ckpt and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            if remat and i % cfg.remat_stride == 0:
+            if remat and i % cfg.remat_stride == 0 and generator is None:
                 x, cls = checkpoint(blk, x, cls, use_reentrant=False)
+            elif remat and i % cfg.remat_stride == 0:
+                x, cls = checkpoint_replaying(blk, generator, x, cls,
+                                              generator)
             else:
-                x, cls = blk(x, cls)
+                x, cls = blk(x, cls, generator)
         x = x.transpose(1, 2).reshape(b, t * n_p, d)  # back to time-major
         tokens = self.norm(torch.cat([cls[:, None, :], x], dim=1))
         return tokens[:, 0], tokens
 
 
 class PlainBlock(nn.Module):
-    """Pre-LN ViT block: x + attn(norm1 x), then + mlp(norm2 x)."""
+    """Pre-LN ViT block: x + attn(norm1 x), then + mlp(norm2 x), each
+    branch under its drop-path rate in training."""
 
-    def __init__(self, cfg: VisionConfig, dtype=torch.float32):
+    def __init__(self, cfg: VisionConfig, dtype=torch.float32,
+                 drop_path_rate: float = 0.0):
         super().__init__()
         c = cfg.embed_dim
+        lora = dict(lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
+        self.attn_drop = cfg.attn_drop_rate
+        self.drop_path = drop_path_rate
         self.norm1 = LayerNormFP32(c, cfg.ln_eps, dtype)
-        self.attn = VisionAttention(c, cfg.num_heads, dtype)
+        self.attn = VisionAttention(c, cfg.num_heads, dtype, **lora)
         self.norm2 = LayerNormFP32(c, cfg.ln_eps, dtype)
-        self.mlp = Mlp(c, int(c * cfg.mlp_ratio), cfg.gelu, dtype)
+        self.mlp = Mlp(c, int(c * cfg.mlp_ratio), cfg.gelu, dtype, **lora)
 
-    def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.mlp(self.norm2(x))
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        rate = self.drop_path if generator is not None else 0.0
+        h = self.attn(self.norm1(x), generator=generator,
+                      attn_drop=self.attn_drop if generator is not None
+                      else 0.0)
+        x = x + drop_path(h, rate, generator)
+        return x + drop_path(self.mlp(self.norm2(x)), rate, generator)
 
 
 class VisionTransformer(nn.Module):
@@ -365,17 +452,16 @@ class VisionTransformer(nn.Module):
         self.pos_embed = _param(1, cfg.num_patches + 1, d, dtype=dt)
         if cfg.clip_model:
             self.norm_pre = LayerNormFP32(d, cfg.ln_eps, dt)
-        self.blocks = nn.ModuleList(PlainBlock(cfg, dt)
-                                    for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(PlainBlock(cfg, dt, rate)
+                                    for rate in cfg.drop_path_rates)
         self.norm = LayerNormFP32(d, cfg.ln_eps, dt)
 
-    def forward(self, images):
+    def forward(self, images, generator: Optional[torch.Generator] = None):
+        """``generator``: the attention dropout and drop-path masks of a
+        training forward (training mode); ignored otherwise."""
         cfg = self.cfg
-        if self.training and (cfg.drop_path > 0 or cfg.drop_rate > 0
-                              or cfg.attn_drop_rate > 0):
-            raise NotImplementedError(
-                "vision dropout / drop-path is not ported yet: train with "
-                "drop_path = drop_rate = attn_drop_rate = 0")
+        if not self.training:
+            generator = None
         x = self.patch_embed(images.to(self.policy.compute_dtype))
         b, _, d = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, d), x], dim=1)
@@ -383,7 +469,7 @@ class VisionTransformer(nn.Module):
         if cfg.clip_model:
             x = self.norm_pre(x)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, generator)
         x = self.norm(x)
         return x[:, 0], x
 

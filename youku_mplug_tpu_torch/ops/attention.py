@@ -24,6 +24,7 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = torch.finfo(torch.float32).min
 
@@ -38,6 +39,33 @@ def dropout(x: torch.Tensor, rate: float,
     keep = _keep_mask(x.shape, rate, generator, x.device)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
+
+
+def drop_path(x: torch.Tensor, rate: float,
+              generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Stochastic depth: each sample (leading dim) kept whole with
+    probability ``1 - rate`` and divided by it, else zeroed; ``x`` itself
+    at rate 0."""
+    if rate <= 0.0:
+        return x
+    shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+    keep = _keep_mask(shape, rate, generator, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def checkpoint_replaying(fn, generator: Optional[torch.Generator], *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``; with a dropout
+    ``generator`` the recompute first sets it to the state the forward
+    started from, so it draws the forward's masks again."""
+    if generator is None:
+        return checkpoint(fn, *args, use_reentrant=False)
+    state = generator.get_state()
+
+    def replay(*a):
+        generator.set_state(state)
+        return fn(*a)
+    return checkpoint(replay, *args, use_reentrant=False)
 
 
 def _keep_mask(shape, rate: float, generator, device) -> torch.Tensor:

@@ -7,12 +7,15 @@ Counterpart of ``youku_mplug_tpu/ops/lora.py``.  An adapted projection
 ``merge_lora`` folds every ``lora_<name>_{a,b}`` pair of a JAX-named
 parameter tree into its base kernel (``W' = W + (alpha/r) a @ b``
 reshaped to the kernel's layout, the scanned ``[L]`` leading dim
-included) and drops the adapters, so serving runs the plain rank-0
-model.  ``extract_adapters`` / ``inject_adapters`` move a module's
-adapters to and from a flat dict keyed by JAX's ``keystr`` of each
-leaf's path (``"['text_decoder']['decoder']['layers']['attn']
-['lora_qkv_a']"``), so an adapter file ``np.savez(path,
-**extract_adapters(model))`` of a few MB loads in either package.
+included: the GPT-3 and Bloom stacks, and the vision blocks' ``qkv``,
+``proj``, ``fc1`` and ``fc2``) and drops the adapters, so serving runs
+the plain rank-0 model.  ``extract_adapters`` / ``inject_adapters``
+move a module's adapters to and from a flat dict keyed by JAX's
+``keystr`` of each leaf's path (``"['text_decoder']['decoder']['layers']
+['attn']['lora_qkv_a']"``), so an adapter file ``np.savez(path,
+**extract_adapters(model))`` of a few MB loads in either package; the
+injection copies into the parameters' storage, where a captured decode
+graph reads it.
 """
 
 from __future__ import annotations
@@ -43,6 +46,45 @@ def lora_delta(pair: Optional[Tuple[torch.Tensor, torch.Tensor]],
         return None
     a, b = pair
     return (x @ a.to(dtype)) @ b.to(dtype) * (alpha / rank)
+
+
+class LoRAModule(nn.Module):
+    """A module with rank-r adapters ``lora_<name>_a [(L,) in, r]`` and
+    ``lora_<name>_b [(L,) r, out]`` on some of its projections
+    (``add_lora``; L for an [L]-stacked module); ``delta(name, x, lidx)``
+    is the alpha/r-scaled ``(x @ a) @ b`` (of layer ``lidx``), or None
+    where the projection has no adapter.  ``lora_init_std`` is the std
+    of a fresh ``lora_*_a`` (``bridge``'s inits)."""
+
+    def add_lora(self, rank: int, alpha: float, init_std: float, dtype,
+                 shapes: Dict[str, Tuple[int, int]],
+                 num_layers: Optional[int] = None):
+        self.lora_rank, self.lora_alpha = rank, alpha
+        self.lora_init_std = init_std
+        if rank <= 0:
+            return
+        lead = () if num_layers is None else (num_layers,)
+        for name, (i, o) in shapes.items():
+            for suffix, shape in (("a", (i, rank)), ("b", (rank, o))):
+                setattr(self, f"lora_{name}_{suffix}", nn.Parameter(
+                    torch.empty(*lead, *shape, dtype=dtype),
+                    requires_grad=False))
+
+    def delta(self, name: str, x: torch.Tensor,
+              lidx: Optional[int] = None) -> Optional[torch.Tensor]:
+        a = getattr(self, f"lora_{name}_a", None)
+        if a is None:
+            return None
+        b = getattr(self, f"lora_{name}_b")
+        if lidx is not None:
+            a, b = a[lidx], b[lidx]
+        return lora_delta((a, b), x, self.lora_rank, self.lora_alpha,
+                          x.dtype)
+
+
+def plus(y: torch.Tensor, delta: Optional[torch.Tensor]) -> torch.Tensor:
+    """``y + delta``, or ``y`` without an adapter."""
+    return y if delta is None else y + delta
 
 
 def _merge_module(mod: dict, scale: float) -> dict:

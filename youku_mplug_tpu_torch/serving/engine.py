@@ -38,7 +38,11 @@ capture is preceded by one eager warm-up step on the capture stream
 fails raises; CPU tensors, and only they, run the same k-step body
 eagerly.  Kernel wrappers count their launches when Python calls them, so
 each graph records its capture's counts and every replay adds them: the
-counters keep counting launches sent to the device.
+counters keep counting launches sent to the device.  A graph reads the
+model's parameters in their storage: LoRA adapters left unmerged run in
+the same replay, and adapters or weights copied in place after the
+capture (``ops/lora.inject_adapters``, a checkpoint restore) reach every
+later replay; replacing a parameter tensor (``p.data = ...``) would not.
 """
 
 from __future__ import annotations

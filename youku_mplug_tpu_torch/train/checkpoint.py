@@ -9,12 +9,18 @@ as ``metadata.json``.  ``state.pt`` is a dict of tensors and ints that
 - ``trainable``: the fp32 master weights, ``frozen``: the frozen leaves
   in their dtype (bf16 in training), both keyed by JAX path
   (``bridge.jax_path``);
-- ``adam``: per trainable path, torch AdamW's ``exp_avg``,
-  ``exp_avg_sq`` and ``step`` of that leaf (none before the first
-  update), so a restore matches moments to leaves by path and never by
-  torch's parameter order;
+- ``optim``: per trainable path, the optimizer's state tensors of that
+  leaf by name (AdamW: torch's ``exp_avg``, ``exp_avg_sq`` and ``step``,
+  none before the leaf's first update; a zoo optimizer: its rule's
+  tensors, e.g. adafactor's ``v_row`` / ``v_col``, and a lookahead's
+  slow weights as ``slow``), so a restore matches state to leaves by
+  path and never by parameter order; ``optim_scalars``, the optimizer's
+  step-level floats (nadam's momentum schedule); ``opt``, its name;
 - ``count`` (the optimizer's update count, the schedule's index) and
   ``step`` (train steps taken, skipped ones included).
+
+Checkpoints written before the zoo was ported hold AdamW's moments under
+``adam`` instead of ``optim``; they restore as before.
 
 ``save`` also takes a plain dict of tensors in place of a state: the
 serving export (``cli/export_serving.py``) writes ``{"params",
@@ -24,8 +30,15 @@ A save writes a hidden temporary directory and then renames it into
 place, so a save that is killed part-way leaves no step that
 ``latest_step`` lists.  As orbax does, a save at a step no later than the
 latest one writes nothing, and only the newest ``keep`` steps stay
-(10 by default).  Saving is synchronous: ``async_checkpointing`` is not
-ported and raises.
+(10 by default).
+
+``async_save=True`` (the YAML's ``async_checkpointing``): ``save``
+returns once every tensor of the state has been copied to the host (a
+snapshot: the train step updates the parameters in place right after),
+and a background thread writes the snapshot.  Every read (``all_steps``,
+``latest_step``, ``rollback_step``, the restores), the next save,
+``close`` and the end of the process wait for that write first, and an
+error in it is raised there.
 """
 
 from __future__ import annotations
@@ -33,9 +46,12 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from youku_mplug_tpu_torch.optim.factory import AdamW
 
 STATE_FILE = "state.pt"
 METADATA_FILE = "metadata.json"
@@ -45,25 +61,33 @@ def state_dict(state) -> Dict[str, Any]:
     """A ``TrainState`` as the dict ``state.pt`` holds (tensors detached,
     on their device)."""
     opt = state.optimizer
-    adam = {}
-    for path, p in state.trainable.items():
-        s = opt.torch_optimizer.state.get(p)
-        if s:
-            adam[path] = {k: s[k].detach() for k in
-                          ("exp_avg", "exp_avg_sq", "step")}
     return {"trainable": {k: p.detach() for k, p in state.trainable.items()},
             "frozen": {k: p.detach() for k, p in state.frozen.items()},
-            "adam": adam, "count": int(opt.count), "step": int(state.step)}
+            "optim": {path: {k: v.detach() for k, v in leaf.items()}
+                      for path, leaf in opt.leaf_state().items()},
+            "optim_scalars": dict(opt.scalars()),
+            "opt": str(opt.config.opt), "count": int(opt.count),
+            "step": int(state.step)}
+
+
+def _host_copy(tree):
+    """Every tensor of a nested dict copied to host memory (a fresh copy
+    even where it already lies there)."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    return tree
 
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 10,
                  async_save: bool = False):
-        if async_save:
-            raise NotImplementedError(
-                "async_checkpointing is not ported yet: set it false")
         self.directory = os.path.abspath(directory)
         self.keep = keep
+        self.async_save = async_save
+        self._writer: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.directory, str(int(step)))
@@ -71,28 +95,57 @@ class CheckpointManager:
     def save(self, step: int, state, metadata: Optional[dict] = None
              ) -> bool:
         """Write ``state`` (a ``TrainState``, or a dict saved as it is) as
-        step ``step``.  Returns False, writing nothing, when ``step`` is
-        not later than the latest step saved."""
-        latest = self.latest_step()
+        step ``step``; with ``async_save``, snapshot it to the host and
+        write it in the background.  Returns False, writing nothing, when
+        ``step`` is not later than the latest step saved."""
+        latest = self.latest_step()  # waits for a write in flight
         if latest is not None and int(step) <= latest:
             return False
-        tmp = os.path.join(self.directory, f".tmp-{int(step)}-{os.getpid()}")
+        tree = state if isinstance(state, dict) else state_dict(state)
+        if not self.async_save:
+            self._write(int(step), tree, metadata)
+            return True
+        snapshot = _host_copy(tree)
+        self._writer = threading.Thread(
+            target=self._write_in_background,
+            args=(int(step), snapshot, metadata),
+            name=f"checkpoint-{int(step)}")
+        self._writer.start()  # not a daemon: the process waits for it
+        return True
+
+    def _write_in_background(self, step, tree, metadata):
+        try:
+            self._write(step, tree, metadata)
+        except BaseException as e:  # raised by the next wait
+            self._error = e
+
+    def _write(self, step: int, tree, metadata):
+        tmp = os.path.join(self.directory, f".tmp-{step}-{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)  # and the directory itself on the first save
-        torch.save(state if isinstance(state, dict) else state_dict(state),
-                   os.path.join(tmp, STATE_FILE))
+        torch.save(tree, os.path.join(tmp, STATE_FILE))
         if metadata is not None:
             with open(os.path.join(tmp, METADATA_FILE), "w") as f:
                 json.dump(metadata, f)
         os.replace(tmp, self._step_dir(step))
-        for old in self.all_steps()[:-self.keep]:
+        for old in self._steps()[:-self.keep]:
             shutil.rmtree(self._step_dir(old))
-        return True
 
     def wait_until_finished(self):
-        """Saves are synchronous: nothing is in flight."""
+        """Block until a background write is on disk; raise its error."""
+        writer, self._writer = self._writer, None
+        if writer is not None:
+            writer.join()
+        error, self._error = self._error, None
+        if error is not None:
+            raise RuntimeError("the background checkpoint write failed"
+                               ) from error
 
     def all_steps(self) -> List[int]:
+        self.wait_until_finished()
+        return self._steps()
+
+    def _steps(self) -> List[int]:
         if not os.path.isdir(self.directory):
             return []
         return sorted(int(d) for d in os.listdir(self.directory)
@@ -114,16 +167,18 @@ class CheckpointManager:
     def restore_raw(self, step: int, map_location=None) -> Dict[str, Any]:
         """The saved dict of step ``step`` as written (``state_dict``),
         its tensors on ``map_location`` (default: where they were)."""
+        self.wait_until_finished()
         return torch.load(os.path.join(self._step_dir(step), STATE_FILE),
                           map_location=map_location, weights_only=True)
 
     def restore(self, step: int, state):
         """Load step ``step`` into ``state`` in place and return it: every
-        parameter (cast to its dtype, on its device), the AdamW moments by
-        path, the optimizer's count and the step counter.  Raises
+        parameter (cast to its dtype, on its device), the optimizer's
+        state by path, its count and the step counter.  Raises
         ValueError, before changing anything, when the saved leaves or
-        their shapes differ from the state's or a moment names no
-        trainable leaf."""
+        their shapes differ from the state's, or the optimizer state
+        names a leaf that does not train or was written by another
+        optimizer."""
         device = next(iter({**state.trainable, **state.frozen}.values())
                       ).device
         raw = self.restore_raw(step, map_location=device)
@@ -140,32 +195,35 @@ class CheckpointManager:
                     f"checkpoint step {step}: {part} shapes differ at "
                     + ", ".join(f"{k} {tuple(got[k].shape)} vs "
                                 f"{tuple(want[k].shape)}" for k in bad[:8]))
-        extra = set(raw["adam"]) - set(state.trainable)
+        opt = state.optimizer
+        leaves = raw["optim"] if "optim" in raw else raw["adam"]
+        extra = set(leaves) - set(state.trainable)
         if extra:
             raise ValueError(f"checkpoint step {step}: optimizer moments "
                              f"of leaves that do not train: "
                              f"{sorted(extra)[:8]}")
+        saved_opt = raw.get("opt", "adamw")
+        same_family = ({saved_opt.lower(), opt.config.opt.lower()}
+                       <= {"adam", "adamw"})
+        if saved_opt.lower() != opt.config.opt.lower() and not same_family:
+            raise ValueError(f"checkpoint step {step}: optimizer state of "
+                             f"{saved_opt!r}, not {opt.config.opt!r}")
+        want_names = {k: set(v) for k, v in opt.leaf_state().items()}
+        if not isinstance(opt, AdamW) and any(
+                set(leaves.get(k, ())) != want_names[k] for k in want_names):
+            raise ValueError(f"checkpoint step {step}: optimizer state "
+                             f"tensors differ from {opt.config.opt!r}'s")
         with torch.no_grad():
             for part in ("trainable", "frozen"):
                 for k, p in getattr(state, part).items():
                     p.copy_(raw[part][k])
-        opt = state.optimizer
-        adam_state = opt.torch_optimizer.state
-        for path, p in state.trainable.items():
-            if path in raw["adam"]:
-                # torch keeps a non-capturable AdamW's step on the CPU
-                saved = raw["adam"][path]
-                adam_state[p] = {"exp_avg": saved["exp_avg"].to(p.device),
-                                 "exp_avg_sq": saved["exp_avg_sq"].to(
-                                     p.device),
-                                 "step": saved["step"].cpu()}
-            else:
-                adam_state.pop(p, None)
+        opt.load_state(leaves, raw.get("optim_scalars", {}))
         opt.count = int(raw["count"])
         state.step = int(raw["step"])
         return state
 
     def restore_metadata(self, step: int) -> Optional[dict]:
+        self.wait_until_finished()
         path = os.path.join(self._step_dir(step), METADATA_FILE)
         if not os.path.exists(path):
             return None
@@ -173,4 +231,5 @@ class CheckpointManager:
             return json.load(f)
 
     def close(self):
-        """Nothing is held open between calls."""
+        """Wait for a background write (nothing else is held open)."""
+        self.wait_until_finished()

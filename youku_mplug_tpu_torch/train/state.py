@@ -7,12 +7,14 @@ leaves (the GPT-3 decoder; the non-temporal vision tower under
 ``freeze_vit``) take no gradient, hold no optimizer state and are cast to
 ``frozen_dtype`` (bf16 in training: half the memory, the same numerics
 contract).  Gradients still flow *through* a frozen module to its inputs.
+The optimizer is any of ``optim/factory.create_optimizer``'s (AdamW, or
+a zoo name): it holds state for the trainable leaves alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -21,6 +23,7 @@ from youku_mplug_tpu_torch.bridge import jax_path
 from youku_mplug_tpu_torch.optim.factory import (
     AdamW,
     OptimizerConfig,
+    ZooOptimizer,
     create_optimizer,
     freeze_mask,
 )
@@ -30,7 +33,7 @@ from youku_mplug_tpu_torch.optim.factory import (
 class TrainState:
     trainable: Dict[str, nn.Parameter]  # JAX path -> parameter
     frozen: Dict[str, nn.Parameter]
-    optimizer: AdamW
+    optimizer: Union[AdamW, ZooOptimizer]
     step: int = 0  # train steps taken, skipped ones included
 
 
