@@ -322,7 +322,31 @@ the last line is printed):
    updates in fp32 on the card against the same in fp64 on the CPU (one
    reference a distinct rule): every leaf within ZOO_TOL relative L2, ms
    an update printed;
-   [knobs] prints the five phases' total.
+   [knobs] prints the five phases' total;
+33. mplug_pretrain (run last, with 34-35): run_mplug_pretrain's setup,
+   train step and momentum update at full width on
+   configs/mplug/mplug_vitb16_zh.yaml (the flagship's ViT-B/16 tower, 12
+   heads of 64, 8 frames, remat sixth; the Chinese mPLUG BERT: 6 text, 6
+   fusion and 12 decoder layers of 768, vocab 21128, dropout 0.1; queues
+   of 65536, momentum 0.995, alpha 0.4), MPLUG_PRETRAIN_STEPS steps of 16
+   synthetic clips: finite, the queue pointer advanced by 64, the twin
+   after the last step equal to e * m + p * (1 - m) within EMA_TOL,
+   launches per step exactly JAX's rule (_vision_launches: K1 52, K2/K3
+   and delta 24 each), the first batch replayed plain (the same dropout,
+   MLM masks, twin features and hard negatives) within REPLAY_LOSS_TOL and
+   REPLAY_GRAD_TOL; step ms, clips/s, peak memory;
+34. mplug_cls, mplug_retrieval, mplug_caption: run_mplug_downstream on the
+   same YAML, BERT_STEPS train steps of 16 clips each (K1 28, K2/K3 and
+   delta 24 a step) and the evaluation over BERT_EVAL_CLIPS clips, one call
+   of 24 K1: cls 45-way top-1 / top-5, retrieval itm_eval, caption beam 5
+   with 20 new tokens (beam tokens/s) and its first batch decoded again
+   with the plain K1: tokens equal, or where a clip's differ both beam
+   scores under the plain encoder within RESCORE_TOL_PER_TOKEN a token;
+35. alpro_pretrain, alpro_cls, alpro_retrieval: run_alpro on
+   configs/alpro/alpro_vitb16_zh.yaml (one 12-layer BERT split at layer
+   6), as phase 34, the pretrain batch replayed plain with ITM + MLM gated
+   and ITA printed (_without_ita); [bert_family] prints the three
+   phases' total.
 """
 
 from __future__ import annotations
@@ -420,6 +444,15 @@ RETRIEVAL_YAML = os.path.join(REPO, "configs", "retrieval",
                               "retrieval_gpt3_1.3B_youku_v0.yaml")
 DOWNSTREAM_STEPS, DOWNSTREAM_EVAL_CLIPS = 2, 4
 DOWNSTREAM_SPLITS = {"itm": 16, "retrieval": 64}
+# the BERT family (phases 33-35): mPLUG and ALPRO at full width on the
+# flagship's vision tower, batch 16, synthetic clips; train steps a run
+# (pretrain: MPLUG_PRETRAIN_STEPS), the evaluations' clips (one call)
+MPLUG_YAML = os.path.join(REPO, "configs", "mplug", "mplug_vitb16_zh.yaml")
+ALPRO_YAML = os.path.join(REPO, "configs", "alpro", "alpro_vitb16_zh.yaml")
+MPLUG_PRETRAIN_STEPS, BERT_STEPS, BERT_EVAL_CLIPS = 4, 2, 16
+# the EMA twin after a step against e * m + p * (1 - m) computed apart
+# (the same fp32 products and sum)
+EMA_TOL = 1e-6
 # the GPT-3 2.7B recipes (phase 14) and their cuts
 CAPTION27_YAML = os.path.join(REPO, "configs", "caption",
                               "caption_gpt3_2.7B_youku_v0.yaml")
@@ -844,11 +877,21 @@ CKPT_OWL_PATHS = ("instruct_hf", "instruct_hf_train",
 # dropout takes every vision and decoder attention off the kernels)
 KNOBS_SERVE_PATHS = ("knobs_lora_serve", "knobs_lora_serve_merged")
 KNOBS_TRAIN_PATHS = ("knobs_pretrain", "knobs_dropout")
+# phases 33-35, the BERT family's paths: its train steps (K1 forward and
+# rematerialized, K2/K3 and delta backward; mPLUG pretrain's EMA twin
+# forward too) and evaluations (K1)
+BERT_TRAIN_PATHS = ("mplug_pretrain", "mplug_cls_train",
+                    "mplug_retrieval_train", "mplug_caption_train",
+                    "alpro_pretrain", "alpro_cls_train",
+                    "alpro_retrieval_train")
+BERT_EVAL_PATHS = ("mplug_cls_eval", "mplug_retrieval_eval",
+                   "mplug_caption_eval", "alpro_cls_eval",
+                   "alpro_retrieval_eval")
 # every path that runs a flash backward (the delta kernel's)
 BWD_PATHS = ("train", "caption_train", "instruct_train",
              "instruct_hf_train", "pretrain_files", "cls_files_train",
              "instruct_files_train", "knobs_instruct_train") \
-    + D96_TRAIN_PATHS + KNOBS_TRAIN_PATHS
+    + D96_TRAIN_PATHS + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS
 
 # head dim 80, the GPT-3 2.7B decoder (32 heads of 80), on head views of
 # the fused qkv projection: the cls evaluation's decoder passes (4 clips x
@@ -1307,7 +1350,8 @@ def phase_kernels(dev, builds, owl_beam):
                                    "cls_files_eval", "instruct_files",
                                    "instruct_files_train") + OWL_BATCHED_PATHS
                + KNOBS_SERVE_PATHS + ("knobs_pretrain",
-                                      "knobs_instruct_train"),
+                                      "knobs_instruct_train")
+               + BERT_TRAIN_PATHS + BERT_EVAL_PATHS,
                "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
@@ -1324,7 +1368,8 @@ def phase_kernels(dev, builds, owl_beam):
             f"also replaces flash_attention.py:{line_hm})", BWD_SRC,
             f"{TPU_FLASH}:{line}", wrapper,
             ("train", "caption_train", "pretrain_files",
-             "knobs_instruct_train") + KNOBS_TRAIN_PATHS, kind,
+             "knobs_instruct_train") + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS,
+            kind,
             [c[kind] for c in cases] + [no_alibi_128[kind]]))
     report.append(_entry(
         "K1 flash_attention_packed, ALiBi causal (Bloom training, head dim "
@@ -5595,8 +5640,410 @@ def phase_optim_zoo():
           f"{CARD}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phases 33-35: the BERT family (mPLUG, ALPRO) at full width
+
+
+def _vision_launches(vcfg, ema: bool = False) -> dict:
+    """A train step's launches by JAX's dispatch rule for the TimeSformer
+    at heads of 64 (``packed_supported``): one K1 per block for the
+    temporal and one for the spatial attention in the forward; the blocks
+    ``grad_ckpt`` rematerializes (every ``remat_stride``-th) run their two
+    again in the backward, which takes one dq, one dk/dv and one delta a
+    call; the EMA twin's forward (no gradient: no remat) 2 x depth K1
+    more.  The BERT's attention is plain, as in JAX."""
+    from youku_mplug_tpu_torch.ops.flash_attention import packed_supported
+
+    d = vcfg.embed_dim // vcfg.num_heads
+    if not packed_supported(vcfg.num_heads, d):
+        fail(f"the vision tower's {vcfg.num_heads} heads of {d} take no "
+             "kernel")
+    calls = 2 * vcfg.depth
+    remat = len(range(0, vcfg.depth, vcfg.remat_stride)) \
+        if vcfg.grad_ckpt else 0
+    return {"K1": calls + 2 * remat + (calls if ema else 0), "dq": calls,
+            "dkv": calls, "delta": calls}
+
+
+def _bert_geometry(tag, cfg, bert, want_layers):
+    """The run's geometry (BERT width, heads, head dim, layers, vocab,
+    dropout; vision heads, head dim, depth, frames, remat; batch) printed,
+    and checked against the shipped JSONs' full width."""
+    v = cfg.model.vision
+    got = {"bert_hidden": bert.hidden_size,
+           "bert_heads": bert.num_attention_heads,
+           "bert_head_dim": bert.head_dim, "bert_layers": want_layers,
+           "vocab": bert.vocab_size, "dropout": bert.hidden_dropout_prob,
+           "vision_heads": v.num_heads,
+           "vision_head_dim": v.embed_dim // v.num_heads,
+           "vision_depth": v.depth, "frames": cfg.num_frames,
+           "image_res": cfg.image_res, "remat": v.remat_policy,
+           "batch": cfg.batch_size}
+    if (bert.hidden_size, bert.num_attention_heads, bert.vocab_size,
+            v.num_heads, v.embed_dim, v.depth, cfg.num_frames,
+            cfg.batch_size) != (768, 12, 21128, 12, 768, 12, 8, 16):
+        fail(f"[{tag}] not the full width: {got}")
+    return got
+
+
+def _pinned_negatives(make_loss_fn):
+    """``make_loss_fn`` whose loss takes, from its second call on, the
+    hard negatives its first call drew (``neg_idx`` in the batch): the
+    replay's kernels and plain runs fuse the same pairs."""
+    def make(model):
+        inner = make_loss_fn(model)
+
+        def loss_fn(batch, generator=None):
+            out = inner(batch, generator)
+            if "neg_img_idx" in out and "neg_idx" not in batch:
+                batch["neg_idx"] = (out["neg_img_idx"].detach(),
+                                    out["neg_txt_idx"].detach())
+            return out
+        return loss_fn
+    return make
+
+
+def _bert_train(report, tag, runner, train_step, make_batch, steps, want,
+                on_step=None):
+    """``steps`` train steps through ``common.train_one_epoch`` on the
+    ``tag`` path: finite, none skipped, leaves moved, launches per step
+    exactly ``want``.  Returns (history, stats)."""
+    from youku_mplug_tpu_torch.cli import common
+
+    state = runner.state
+    trainable0 = {k: p.detach().clone() for k, p in state.trainable.items()}
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    history = common.train_one_epoch(runner, train_step, 0, make_batch)
+    torch.cuda.synchronize()
+    _read_counts(report, tag)
+    peak = torch.cuda.max_memory_allocated()
+    if len(history) != steps or any(
+            not (math.isfinite(h["loss"]) and math.isfinite(h["grad_norm"]))
+            or h["skipped_nonfinite"] != 0 for h in history):
+        fail(f"[{tag}] train steps: {history}")
+    moved = sum(not torch.equal(p.detach(), trainable0[k])
+                for k, p in state.trainable.items())
+    del trainable0
+    if moved == 0 or state.frozen:
+        fail(f"[{tag}] {moved} leaves moved, {len(state.frozen)} frozen")
+    step_ms = [h["step_time"] * 1e3 for h in history]
+    rest = step_ms[1:] or step_ms
+    return history, {
+        "steps": len(history), "step_ms_first": step_ms[0],
+        "step_ms_rest": sum(rest) / len(rest), "step_ms_each": step_ms,
+        "clips_per_s": runner.cfg.batch_size * 1e3 * len(rest) / sum(rest),
+        "peak_memory_gib": peak / 2 ** 30,
+        **{k: [h[k] for h in history] for k in history[0]
+           if k.startswith("loss") or k == "grad_norm"},
+        "trainable_leaves_moved": f"{moved}/{len(state.trainable)}",
+        "launches_per_step": _launches_per(report, tag, len(history), want)}
+
+
+def _without_ita(make_loss_fn, seen):
+    """``make_loss_fn`` whose loss is ITM + MLM: ALPRO's ITA (JAX's
+    features divided by their batch's matrix norm of order -1, ROADMAP
+    Queue 3 item 10) is recorded in ``seen`` and left out.  Its min over
+    columns routes the whole ITA gradient through one feature column, and
+    a bf16 rounding apart can pick another column, while its logits reach
+    ~75 (the L2 form's 1 / temp ~14): no tolerance of plain against
+    kernels holds it."""
+    def make(model):
+        inner = make_loss_fn(model)
+
+        def loss_fn(batch, generator=None):
+            out = dict(inner(batch, generator))
+            seen.append(out["loss_ita"].item())
+            out["loss"] = out["loss_itm"] + out["loss_mlm"]
+            return out
+        return loss_fn
+    return make
+
+
+def _bert_replay(tag, runner, make_batch, make_loss_fn):
+    """The first batch's loss and gradients with the kernels and plain,
+    the same dropout masks, MLM masks, twin features and hard negatives
+    both times; gated as phase 6."""
+    from youku_mplug_tpu_torch.train.trainer import dropout_generator
+
+    loss_k, loss_p, finite, _, rows = _replay(
+        runner, make_batch, _pinned_negatives(make_loss_fn),
+        f"{tag} replay, every wrapper plain",
+        make_gen=lambda: dropout_generator(runner.args.seed, 0,
+                                           runner.device))
+    if not finite or abs(loss_k - loss_p) > REPLAY_LOSS_TOL \
+            or rows[0][0] > REPLAY_GRAD_TOL:
+        fail(f"[{tag}] plain replay out of tolerance")
+    rel = sorted(r[1] for r in rows)
+    return {"loss_kernels": loss_k, "loss_plain": loss_p,
+            "grad_rel_l2_median": rel[len(rel) // 2],
+            "worst_gated_grad_err": rows[0][0], "worst_leaf": rows[0][3]}
+
+
+def phase_mplug_pretrain(report, out_dir):
+    """Phase 33: run_mplug_pretrain's setup, train step and momentum update
+    at full width (configs/mplug/mplug_vitb16_zh.yaml), MPLUG_PRETRAIN_STEPS
+    steps of 16 clips; the queue pointer, the EMA's law and the launches
+    per step gated; the first batch replayed plain."""
+    from youku_mplug_tpu_torch.cli import run_mplug_pretrain as mp
+
+    tag = "mplug_pretrain"
+    cfg_path = _bert_yaml(MPLUG_YAML, out_dir,
+                          synthetic_length=MPLUG_PRETRAIN_STEPS * 16)
+    args = mp.parser().parse_args([
+        "--config", cfg_path, "--synthetic_data", "--max_steps",
+        str(MPLUG_PRETRAIN_STEPS), "--device", "cuda", "--output_dir",
+        os.path.join(out_dir, tag)])
+    t0 = time.perf_counter()
+    pt = mp.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    runner, mcfg, ms = pt.runner, pt.mcfg, pt.mstate
+    geometry = _bert_geometry(tag, runner.cfg, mcfg.bert,
+                              (mcfg.bert.text_encoder_layers,
+                               mcfg.bert.fusion_layer,
+                               mcfg.bert.text_decoder_layers))
+    queue = ms.image_queue.shape[1]
+    geometry |= {"queue": queue, "embed_dim": mcfg.embed_dim,
+                 "momentum": mcfg.momentum}
+    if (queue, mcfg.embed_dim, mcfg.momentum) != (65536, 256, 0.995):
+        fail(f"[{tag}] not the YAML's momentum state: {geometry}")
+    inner, ptr0, ema = mp.build_train_step(pt), ms.ptr, {}
+
+    def train_step(state, batch):
+        if state.step == MPLUG_PRETRAIN_STEPS - 1:  # the last step's law
+            ema["before"] = [p.detach().clone()
+                             for p in ms.ema.parameters()]
+        metrics = inner(state, batch)
+        if "before" in ema:
+            params = [p.detach() for p in runner.model.parameters()]
+            want = torch._foreach_add(
+                torch._foreach_mul(ema["before"], mcfg.momentum),
+                torch._foreach_mul(params, 1.0 - mcfg.momentum))
+            got = list(ms.ema.parameters())
+            ema["err"] = max((g - w).abs().max().item()
+                             for g, w in zip(got, want))
+            ema["moved"] = sum(not torch.equal(g, b) for g, b in
+                               zip(got, ema.pop("before")))
+            ema["leaves"] = len(got)
+        return metrics
+    history, stats = _bert_train(
+        report, tag, runner, train_step, mp.make_batch_fn(pt),
+        MPLUG_PRETRAIN_STEPS, _vision_launches(mcfg.vision, ema=True))
+    want_ptr = (ptr0 + MPLUG_PRETRAIN_STEPS * runner.cfg.batch_size) % queue
+    if ms.ptr != want_ptr or not torch.isfinite(ms.image_queue).all() \
+            or not torch.isfinite(ms.text_queue).all():
+        fail(f"[{tag}] queue pointer {ms.ptr}, expected {want_ptr}, or a "
+             "non-finite queue")
+    if "err" not in ema or ema["err"] > EMA_TOL or ema["moved"] == 0:
+        fail(f"[{tag}] the EMA against e * m + p * (1 - m): {ema}")
+    replay = _bert_replay(tag, runner, mp.make_batch_fn(pt),
+                          mp.make_loss_fn)
+    out = {"yaml": os.path.relpath(MPLUG_YAML, REPO), "geometry": geometry,
+           "setup_s": setup_s, **stats, "queue": queue, "ptr": ms.ptr,
+           "ema_err": ema["err"],
+           "ema_leaves_moved": f"{ema['moved']}/{ema['leaves']}",
+           "alpha": [pt.alpha * min(1.0, s / pt.niter)
+                     for s in range(len(history))],
+           "replay": replay}
+    print(f"[{tag}] {json.dumps(out)} | {CARD}", flush=True)
+    return out
+
+
+def _bert_yaml(path, out_dir, **overrides):
+    """A copy of ``path`` with ``overrides`` and its model JSONs named by
+    absolute path."""
+    import yaml
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    for key in ("visual_cfg", "bert_config"):
+        raw[key] = os.path.join(REPO, raw[key])
+    raw.update(overrides)
+    dst = os.path.join(out_dir, f"{len(os.listdir(out_dir))}_"
+                       + os.path.basename(path))
+    with open(dst, "w") as f:
+        yaml.safe_dump(raw, f)
+    return dst
+
+
+def _beam_score(model, enc, enc_mask, seqs, bos, eos, alpha=0.6):
+    """Each sequence's beam score under ``model``, teacher-forced: its
+    log-probs summed up to and including its first eos, over the Wu
+    penalty of that length (all of it without one)."""
+    b, n = seqs.shape
+    ids = torch.cat([torch.full((b, 1), bos, dtype=torch.long,
+                                device=seqs.device), seqs.long()], 1)
+    with torch.inference_mode():
+        out = model.text_decoder(ids, torch.ones_like(ids),
+                                 encoder_hidden_states=enc,
+                                 encoder_attention_mask=enc_mask)
+        logp = torch.log_softmax(out["logits"][:, :-1].float(), -1)
+        tok = logp.gather(-1, seqs.long()[..., None])[..., 0]
+    is_eos = (seqs == eos).long()
+    before = is_eos.cumsum(1) - is_eos  # eos tokens before each position
+    live = before == 0
+    length = live.sum(1).clamp_min(1).float()
+    return (tok * live).sum(1) / ((5.0 + length) / 6.0) ** alpha
+
+
+def _caption_redecode(tag, runner, video):
+    """The caption evaluation's first batch decoded again with the plain
+    K1: every clip's tokens equal, or where they differ a near-tie: both
+    sequences' beam scores under the plain encoder within
+    RESCORE_TOL_PER_TOKEN a token."""
+    from youku_mplug_tpu_torch.models.mplug import mplug_generate
+
+    model, cfg, tok = runner.model, runner.cfg, runner.tokenizer.tokenizer
+    kw = dict(bos_id=tok.bos_id, eos_id=tok.eos_id,
+              max_new_tokens=int(cfg.get("max_new_tokens", 20)),
+              beam_size=int(cfg.get("beam_size", 1)),
+              min_length=int(cfg.get("min_length", 0)))
+    model.eval()
+    try:
+        got = mplug_generate(model, video, **kw)
+        want = _plain(lambda: mplug_generate(model, video, **kw))
+        differ = (got != want).any(1)
+        out = {"clips": int(got.shape[0]),
+               "clips_equal": int((~differ).sum())}
+        if differ.any():
+            enc, enc_mask = _plain(lambda: model.encode_for_decoder(video))
+            sk, sp = (_beam_score(model, enc, enc_mask, seqs, tok.bos_id,
+                                  tok.eos_id) for seqs in (got, want))
+            gap = (sk - sp).abs()[differ]
+            bound = RESCORE_TOL_PER_TOKEN * kw["max_new_tokens"]
+            out |= {"score_gaps": gap.tolist(), "bound": bound}
+            if not bool((gap <= bound).all()):
+                fail(f"[{tag}] plain re-decode: {out}")
+    finally:
+        model.train()
+    return out
+
+
+def _bert_eval(report, tag, runner, task, module, num_classes):
+    """The task's evaluation over BERT_EVAL_CLIPS synthetic clips (one
+    call): launches per call exactly 24 K1, finite metrics, ms a call;
+    caption: beam tokens/s and the plain re-decode."""
+    from youku_mplug_tpu_torch.cli import run_mplug_downstream as md
+    from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+
+    cfg = runner.cfg
+    split = md.synthetic_test_split(dataclasses.replace(
+        cfg, raw={**cfg.raw, "synthetic_length": BERT_EVAL_CLIPS}), task)
+    calls = -(-BERT_EVAL_CLIPS // cfg.batch_size)
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts(report)
+    t0 = time.perf_counter()
+    metrics = md.evaluation(runner, split, task, num_classes)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    _read_counts(report, tag)
+    per_call = _launches_per(report, tag, calls,
+                             {"K1": 2 * cfg.model.vision.depth})
+    if not metrics or not all(math.isfinite(v) for v in metrics.values()):
+        fail(f"[{tag}] metrics {metrics}")
+    out = {"clips": BERT_EVAL_CLIPS, "calls": calls, "eval_s": eval_s,
+           "ms_per_call": eval_s / calls * 1e3,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches_per_call": per_call, "metrics": metrics}
+    if task == "caption":
+        new = int(cfg.get("max_new_tokens", 20))
+        out["beam"] = int(cfg.get("beam_size", 1))
+        out["beam_tokens_per_s"] = BERT_EVAL_CLIPS * new / eval_s
+        raw = next(iter(md._test_batches(runner, split, capped=True)))[0]
+        video = normalize_clip(torch.from_numpy(raw["video"]).cuda(),
+                               dtype=runner.model.policy.compute_dtype)
+        out["plain_redecode"] = _caption_redecode(tag, runner, video)
+    return out
+
+
+def phase_mplug_downstream(report, out_dir):
+    """Phase 34: run_mplug_downstream's cls (45 classes), retrieval and
+    caption (beam 5, 20 new tokens) at full width: BERT_STEPS train steps
+    of 16 clips each and the evaluation over BERT_EVAL_CLIPS clips."""
+    from youku_mplug_tpu_torch.cli import run_mplug_downstream as md
+
+    for task in ("cls", "retrieval", "caption"):
+        tag = f"mplug_{task}"
+        cfg_path = _bert_yaml(MPLUG_YAML, out_dir,
+                              synthetic_length=BERT_STEPS * 16)
+        args = md.parser().parse_args([
+            "--config", cfg_path, "--synthetic_data", "--max_steps",
+            str(BERT_STEPS), "--device", "cuda", "--task", task,
+            "--output_dir", os.path.join(out_dir, tag)])
+        t0 = time.perf_counter()
+        runner, _ = md.prepare(args)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        mcfg = runner.model.cfg
+        out = {"setup_s": setup_s, "geometry": _bert_geometry(
+            tag, runner.cfg, mcfg.bert, (mcfg.bert.text_encoder_layers,
+                                         mcfg.bert.fusion_layer,
+                                         mcfg.bert.text_decoder_layers)),
+               "num_classes": mcfg.num_classes}
+        _, out["train"] = _bert_train(
+            report, f"{tag}_train", runner,
+            md.build_train_step(runner, task), md.make_batch_fn(task),
+            BERT_STEPS,
+            _vision_launches(mcfg.vision))
+        out["eval"] = _bert_eval(report, f"{tag}_eval", runner, task, md,
+                                 mcfg.num_classes)
+        print(f"[{tag}] {json.dumps(out, ensure_ascii=False)} | {CARD}",
+              flush=True)
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_alpro(report, out_dir):
+    """Phase 35: run_alpro's pretrain, cls and retrieval at full width
+    (configs/alpro/alpro_vitb16_zh.yaml): BERT_STEPS train steps of 16
+    clips each, the evaluations over BERT_EVAL_CLIPS clips, the pretrain
+    batch replayed plain (ITM + MLM gated, ITA printed: ``_without_ita``).
+    """
+    from youku_mplug_tpu_torch.cli import run_alpro as ra
+
+    for task in ("pretrain", "cls", "retrieval"):
+        tag = f"alpro_{task}"
+        cfg_path = _bert_yaml(ALPRO_YAML, out_dir,
+                              synthetic_length=BERT_STEPS * 16)
+        args = ra.parser().parse_args([
+            "--config", cfg_path, "--synthetic_data", "--max_steps",
+            str(BERT_STEPS), "--device", "cuda", "--task", task,
+            "--output_dir", os.path.join(out_dir, tag)])
+        t0 = time.perf_counter()
+        runner, _ = ra.prepare(args)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        mcfg = runner.model.cfg
+        out = {"setup_s": setup_s, "geometry": _bert_geometry(
+            tag, runner.cfg, mcfg.bert,
+            (mcfg.bert.fusion_layer,
+             mcfg.bert.num_hidden_layers - mcfg.bert.fusion_layer)),
+               "num_classes": mcfg.num_classes}
+        train_tag = tag if task == "pretrain" else f"{tag}_train"
+        _, out["train"] = _bert_train(
+            report, train_tag, runner, ra.build_train_step(runner, task),
+            ra.make_batch_fn(task), BERT_STEPS,
+            _vision_launches(mcfg.vision))
+        if task == "pretrain":  # ITM + MLM gated, ITA printed
+            ita = []
+            out["replay"] = _bert_replay(
+                tag, runner, ra.make_batch_fn(task),
+                _without_ita(ra.make_loss_fn_for(task), ita))
+            out["replay"]["loss_ita_kernels_plain_ungated"] = ita
+        else:
+            out["eval"] = _bert_eval(report, f"{tag}_eval", runner, task,
+                                     ra, mcfg.num_classes)
+        print(f"[{tag}] {json.dumps(out, ensure_ascii=False)} | {CARD}",
+              flush=True)
+        del runner
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def _phases(report, files_root, tok_dir):
-    """Phases 3-32 in their order (see the module docstring); ``tok_dir``
+    """Phases 3-35 in their order (see the module docstring); ``tok_dir``
     holds the instruct tokenizer files of phases 25-26."""
     from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
 
@@ -5715,6 +6162,18 @@ def _phases(report, files_root, tok_dir):
     phase_optim_zoo()
     print(f"[knobs] phases 28-32 in {time.perf_counter() - t_knobs:.1f} s "
           f"| {CARD}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 33-35, the BERT family
+    t_bert = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_mplug_pretrain(report, out_dir)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_mplug_downstream(report, out_dir)
+        phase_alpro(report, out_dir)
+    print(f"[bert_family] phases 33-35 in "
+          f"{time.perf_counter() - t_bert:.1f} s | {CARD}", flush=True)
 
 
 def main():

@@ -37,7 +37,10 @@ _NO_JAX = textwrap.dedent("""
                  "data.samplers", "data.video_decode", "data.transforms",
                  "data.datasets", "models.tokenizer", "cli.run_cls",
                  "cli.run_retrieval", "cli.run_retrieval_itm",
-                 "models.hf_tokenizer", "optim.zoo", "optim.schedulers"):
+                 "models.hf_tokenizer", "optim.zoo", "optim.schedulers",
+                 "models.bert", "models.mplug", "models.alpro",
+                 "cli.run_mplug_pretrain", "cli.run_mplug_downstream",
+                 "cli.run_alpro"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",

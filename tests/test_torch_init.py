@@ -18,7 +18,9 @@ xavier_uniform).  The draws are not JAX's bits, only their law.
 load another model (a top-level ``lora_rank``, ``import_torch_weights``)
 and still loads every port YAML of the repo.  The downstream case is the
 cls / retrieval / ITM tree (clip_model tower, ``use_cls`` heads and the
-projections, from ``full_init``).
+projections, from ``full_init``); the BERT family's are mPLUG's and
+ALPRO's ``full_init`` trees (BERT kernels and embeddings normal(0.02),
+default-Dense heads, ``temp``).
 """
 
 import dataclasses
@@ -98,6 +100,29 @@ def _owl_models():
     return want, towl.MPLUGOwlVideo(tcfg, FP32_POLICY)
 
 
+def _bert_family_models(family):
+    """The tiny mPLUG (a vision tower narrower than the BERT: visn_fc) or
+    ALPRO of tests/torch_bert_family.py with 3 classes, from full_init."""
+    from tests.torch_bert_family import bert_cfgs, vision_cfgs
+    from youku_mplug_tpu.models import alpro as jalpro
+    from youku_mplug_tpu.models import mplug as jmplug
+    from youku_mplug_tpu_torch.models import alpro as talpro
+    from youku_mplug_tpu_torch.models import mplug as tmplug
+
+    (jb, tb), (jv, tv) = bert_cfgs(), vision_cfgs(embed_dim=24)
+    jmod, tmod, cls = ((jmplug, tmplug, "MPLUG") if family == "mplug"
+                       else (jalpro, talpro, "ALPRO"))
+    kw = dict(embed_dim=8, num_classes=3)
+    jm = getattr(jmod, cls)(getattr(jmod, f"{cls}Config")(
+        vision=jv, bert=jb, **kw), policy=J_FP32)
+    ids = jnp.full((2, 8), 104, jnp.int32)
+    want = jax.jit(lambda: jm.init(
+        jax.random.key(0), jnp.zeros((2, 3, 2, 32, 32)), ids,
+        jnp.ones_like(ids), method=getattr(jmod, cls).full_init))()
+    return want["params"], getattr(tmod, cls)(getattr(tmod, f"{cls}Config")(
+        vision=tv, bert=tb, **kw), FP32_POLICY)
+
+
 def _law(kind, arg, shape):
     """(std, bound or None) of a rule's draws."""
     if kind == "lecun":
@@ -124,10 +149,13 @@ def _check_leaf(name, x, kind, arg):
         assert np.abs(x).max() <= bound * (1 + 1e-6), (name, bound)
 
 
-@pytest.mark.parametrize("which", ["pretrain", "owl", "downstream"])
+@pytest.mark.parametrize("which", ["pretrain", "owl", "downstream",
+                                   "mplug", "alpro"])
 def test_jax_init_follows_jax_model_init(which):
     want, tm = {"pretrain": _pretrain_models, "owl": _owl_models,
-                "downstream": _downstream_models}[which]()
+                "downstream": _downstream_models,
+                "mplug": lambda: _bert_family_models("mplug"),
+                "alpro": lambda: _bert_family_models("alpro")}[which]()
     bridge.jax_init(tm, 0)
     want = {k: np.asarray(v) for k, v in _flat(jax.device_get(want)).items()}
     got = {bridge.jax_path(k): p.detach().numpy()
@@ -143,6 +171,8 @@ def test_jax_init_follows_jax_model_init(which):
             _check_leaf(f"{side} {name}", x, kind, arg)
     # every kind of draw the two models use is exercised
     assert kinds == ({"const", "trunc", "normal"} if which == "owl" else
+                     {"const", "trunc", "normal", "lecun"}
+                     if which in ("mplug", "alpro") else
                      {"const", "trunc", "normal", "xavier", "lecun"})
     if which == "downstream":
         assert "visual_encoder/norm_pre/scale" in got

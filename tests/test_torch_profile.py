@@ -77,3 +77,28 @@ def test_profile_train_takes_the_instruct_step_and_refuses_the_cpu():
     assert args.instruct
     with pytest.raises(RuntimeError, match="needs --device cuda"):
         pt.main(args)
+
+
+def test_span_device_ms_takes_the_kernels_launched_inside_the_spans():
+    """--mplug's BERT attention share: the kernels whose launch (by
+    correlation id) falls inside a bert_attention span, per step; a
+    kernel launched outside, running while a span is open, is not."""
+    def launch(ts, corr):
+        return {"ph": "X", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+                "ts": ts, "dur": 5, "args": {"correlation": corr}}
+
+    def kernel(ts, dur, corr):
+        return {"ph": "X", "cat": "kernel", "name": "sgemm", "ts": ts,
+                "dur": dur, "args": {"correlation": corr}}
+    events = [_x("user_annotation", "bert_attention", 100, 50),
+              _x("user_annotation", "bert_attention", 400, 50),
+              launch(110, 1), launch(120, 2), launch(300, 3),
+              launch(410, 4), kernel(130, 40, 1), kernel(200, 60, 2),
+              kernel(310, 500, 3), kernel(420, 100, 4)]
+    assert pt.span_device_ms(events, "bert_attention", 2) == \
+        pytest.approx((40 + 60 + 100) / 2 * 1e-3)
+    args = pt.parser().parse_args([
+        "--config", "configs/mplug/mplug_vitb16_zh.yaml", "--mplug",
+        "--synthetic_data", "--device", "cpu"])
+    with pytest.raises(RuntimeError, match="needs --device cuda"):
+        pt.main(args)

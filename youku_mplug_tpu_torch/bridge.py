@@ -14,6 +14,8 @@ leaves unfilled, and on any shape mismatch.  Each leaf is cast to its
 parameter's dtype, so a model split by ``train.state.create_train_state``
 takes trainable leaves as fp32 master weights and frozen ones in bf16;
 ``requires_grad`` is the split's and is left as it is.
+``load_momentum_state`` carries mPLUG's momentum state (the EMA twin's
+tree, the queues and the pointer) the same way.
 ``jax_path`` is the inverse rename and ``to_jax_tree`` the inverse load
 (port parameters -> a JAX-named tree of numpy arrays).  An int8 tree
 comes with its ``qscales`` (the layout ``cli/export_serving.py --int8``
@@ -154,6 +156,25 @@ def load_jax_params(module: nn.Module, tree: Dict[str, Any],
     return module
 
 
+@torch.no_grad()
+def load_momentum_state(state, jax_state):
+    """A JAX ``models/mplug.MomentumState`` (its ``ema_params`` tree, both
+    feature queues, ``idx_queue`` and ``ptr``; numpy or device arrays)
+    into the port's ``models/mplug.MomentumState``: the twin through
+    ``load_jax_params`` (every leaf, none left over), the queues copied,
+    the pointer an int.  Returns ``state``."""
+    load_jax_params(state.ema, jax_state.ema_params)
+    for name in ("image_queue", "text_queue", "idx_queue"):
+        dst = getattr(state, name)
+        src = _to_tensor(getattr(jax_state, name))
+        if tuple(src.shape) != tuple(dst.shape):
+            raise ValueError(f"{name}: JAX shape {tuple(src.shape)} != "
+                             f"port shape {tuple(dst.shape)}")
+        dst.copy_(src.to(dtype=dst.dtype, device=dst.device))
+    state.ptr = int(np.asarray(jax_state.ptr))
+    return state
+
+
 def _is_norm_scale(name: str) -> bool:
     return name.split(".")[-1].endswith("scale")
 
@@ -267,6 +288,15 @@ def _jax_rule(module: nn.Module, name: str, lora_stds: Dict[str, float]):
         return ("const", 0.0)
     if root == "visual_encoder":
         return _vision_rule(rest, leaf)
+    if hasattr(cfg, "bert"):  # mPLUG / ALPRO (mplug.py, alpro.py)
+        if root in ("visn_fc", "vision_proj", "text_proj", "itm_head",
+                    "cls_fc1", "cls_fc2"):
+            return ("lecun", None)  # default Dense
+        if root in ("text_encoder", "fusion_encoder", "text_decoder",
+                    "mlm_head"):
+            # every BERT kernel and embedding (bert.py ``_init``)
+            return ("normal", cfg.bert.initializer_range)
+        raise KeyError(f"jax_init: no JAX initializer known for {name}")
     text = cfg.text
     if root == "text_decoder":
         # normal(init_method_std) (gpt3.py:155, bloom.py:190-194); GPT-3's
@@ -312,7 +342,9 @@ def _draw(kind, arg, shape, gen, device) -> torch.Tensor:
 
 @torch.no_grad()
 def jax_init(module: nn.Module, seed: int) -> nn.Module:
-    """Fill an ``MPLUGVideo`` or ``MPLUGOwlVideo`` the way the JAX
+    """Fill an ``MPLUGVideo``, ``MPLUGOwlVideo``, ``MPLUG`` or ``ALPRO``
+    (the BERT family: normal(``initializer_range``) kernels and
+    embeddings, default-Dense heads) the way the JAX
     package's ``model.init`` does (the rules above, by leaf), from one
     ``torch.Generator`` seeded with ``seed`` on the parameters' device:
     the fresh weights the training CLIs start from.  The draws are not

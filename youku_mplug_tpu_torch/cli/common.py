@@ -139,10 +139,16 @@ def build_tokenizer(cfg: RunConfig) -> BatchTokenizer:
 
 
 def setup(args, cfg: RunConfig, loader: Loader,
-          proj_heads: bool = False) -> Runner:
+          proj_heads: bool = False,
+          model_fn: Optional[Callable[[Any], torch.nn.Module]] = None,
+          tokenizer: Optional[BatchTokenizer] = None,
+          resume: bool = True) -> Runner:
     """The model, its train state, checkpoints and the resume (see the
     module docstring); ``loader`` is the training loader, ``proj_heads``
-    the model's (``MPLUGVideo``)."""
+    the model's (``MPLUGVideo``).  ``model_fn(policy)`` builds another
+    model (the BERT family's ``MPLUG`` / ``ALPRO``) with its
+    ``tokenizer``; ``resume=False`` starts fresh whatever the output
+    directory holds (JAX's mPLUG pretrain runner never restores)."""
     device = device_of(args)
     niter = len(loader) if args.max_steps <= 0 else min(len(loader),
                                                         args.max_steps)
@@ -150,7 +156,8 @@ def setup(args, cfg: RunConfig, loader: Loader,
                                         niter_per_ep=max(niter, 1))
     policy = FP32_POLICY if args.fp32 else DEFAULT_POLICY
     with device:
-        model = MPLUGVideo(cfg.model, policy, proj_heads=proj_heads)
+        model = (model_fn(policy) if model_fn is not None else
+                 MPLUGVideo(cfg.model, policy, proj_heads=proj_heads))
     jax_init(model, args.seed)  # the JAX runner's model.init rules
     if cfg.get("import_torch_weights"):
         importers.import_all(model, cfg, cfg.get("import_torch_weights"))
@@ -163,9 +170,10 @@ def setup(args, cfg: RunConfig, loader: Loader,
         os.path.join(args.output_dir, "checkpoints"),
         async_save=bool(cfg.get("async_checkpointing", False)))
     tb = TensorboardLogger(os.path.join(args.output_dir, "tb"))
-    state, start_epoch = resume_state(args, ckpt, state)
+    state, start_epoch = (resume_state(args, ckpt, state) if resume
+                          else (state, 0))
     return Runner(args=args, cfg=cfg, device=device, model=model.train(),
-                  tokenizer=build_tokenizer(cfg), state=state,
+                  tokenizer=tokenizer or build_tokenizer(cfg), state=state,
                   schedule=schedule, loader=loader, ckpt=ckpt, tb=tb,
                   start_epoch=start_epoch)
 

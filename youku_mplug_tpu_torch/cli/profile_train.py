@@ -3,7 +3,9 @@
 Runs the pretrain CLI's path (``run_pretrain.setup``, its loader, batches
 and train step), or with ``--instruct`` the instruct CLI's ``--train``
 path (``run_instruct.train_setup``, ``make_instruct_batch`` and its
-train step): ``WARMUP`` steps, ``TIMED`` steps on the host clock
+train step), or with ``--mplug`` the mPLUG pretrain CLI's
+(``run_mplug_pretrain.setup``, its batches with the EMA twin's features,
+its train step and momentum update): ``WARMUP`` steps, ``TIMED`` steps on the host clock
 without the profiler, then ``PROFILED`` steps under ``torch.profiler``.
 A step is timed as the CLI times it: batch upload, train step, device
 sync; the host makes each batch's clips before.  It prints one JSON
@@ -13,7 +15,10 @@ step, the device time per kernel category, the share of the window in
 which no kernel ran (``idle_share``: the profiler's own host work
 stretches the traced steps, so it reads high; ``idle_share_unprofiled``
 sets the kernel time against the median unprofiled step), kernel
-launches per step and the largest kernels.  The gzipped chrome trace
+launches per step and the largest kernels; with ``--mplug`` also the
+device time of the BERT's attention (its ``mha_reference`` calls, under
+a ``bert_attention`` span in the profiled steps alone: the kernels they
+launch).  The gzipped chrome trace
 and the summary are written to ``--output_dir``.  Compare
 ``kernel_ms_per_step`` with the unprofiled step time: where the trace
 lost events it reads low.
@@ -25,6 +30,9 @@ Usage (GPU):
     python -m youku_mplug_tpu_torch.cli.profile_train --instruct \
         --config configs/instruct/train_bloomz_7b_flagship.yaml \
         --synthetic_data --output_dir out
+    python -m youku_mplug_tpu_torch.cli.profile_train --mplug \
+        --config configs/mplug/mplug_vitb16_zh.yaml --synthetic_data \
+        --output_dir out
 """
 
 from __future__ import annotations
@@ -39,9 +47,15 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
+from youku_mplug_tpu_torch.cli import (
+    run_instruct,
+    run_mplug_pretrain,
+    run_pretrain,
+)
+from youku_mplug_tpu_torch.models import bert
 
 STEP_SPAN = "train_step"
+BERT_ATTENTION_SPAN = "bert_attention"
 # warm-up, unprofiled and profiled steps: 8 in all, the flagship YAMLs'
 # 128 synthetic clips in batches of 16 and 64 in batches of 8
 WARMUP, TIMED, PROFILED = 2, 5, 1
@@ -113,10 +127,35 @@ def summarize(events: List[Dict], n_steps: int, top: int = 12) -> Dict:
     }
 
 
+def span_device_ms(events: List[Dict], name: str, n_steps: int) -> float:
+    """Device ms per step of the kernels launched inside the host spans
+    ``name`` (matched to their launch by the trace's correlation ids)."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in events
+             if e.get("ph") == "X" and e.get("cat") == "user_annotation"
+             and e.get("name") == name]
+    ids = {e["args"]["correlation"] for e in events
+           if e.get("ph") == "X" and e.get("cat") == "cuda_runtime"
+           and "correlation" in e.get("args", {})
+           and any(s <= e["ts"] < t for s, t in spans)}
+    return sum(e["dur"] for e in events if e.get("ph") == "X"
+               and e.get("cat") == "kernel"
+               and e.get("args", {}).get("correlation") in ids) \
+        * 1e-3 / n_steps
+
+
+def _spanned(fn, name):
+    def wrapped(*a, **kw):
+        with torch.profiler.record_function(name):
+            return fn(*a, **kw)
+    return wrapped
+
+
 def parser():
     p = run_pretrain.base_parser("Profile a train step (PyTorch)")
     p.add_argument("--instruct", action="store_true",
                    help="profile run_instruct --train (an instruct YAML)")
+    p.add_argument("--mplug", action="store_true",
+                   help="profile run_mplug_pretrain (an mPLUG YAML)")
     return p
 
 
@@ -124,10 +163,16 @@ def main(args) -> Dict:
     if torch.device(args.device).type != "cuda":
         raise RuntimeError("profile_train needs --device cuda")
     args.max_steps = WARMUP + TIMED + PROFILED
+    mplug = getattr(args, "mplug", False)
     if getattr(args, "instruct", False):
         runner = run_instruct.train_setup(args)
         train_step = run_instruct.build_train_step(runner)
         make_batch = run_instruct.make_instruct_batch
+    elif mplug:
+        pt = run_mplug_pretrain.setup(args)
+        runner = pt.runner
+        train_step = run_mplug_pretrain.build_train_step(pt)
+        make_batch = run_mplug_pretrain.make_batch_fn(pt)
     else:
         runner = run_pretrain.setup(args)
         train_step = run_pretrain.build_train_step(runner)
@@ -158,11 +203,17 @@ def main(args) -> Dict:
         step_ms.append((time.perf_counter() - t) * 1e3)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(PROFILED):
-            raw = next(batches)
-            with torch.profiler.record_function(STEP_SPAN):
-                step(raw)
+    mha = bert.mha_reference
+    if mplug:
+        bert.mha_reference = _spanned(mha, BERT_ATTENTION_SPAN)
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(PROFILED):
+                raw = next(batches)
+                with torch.profiler.record_function(STEP_SPAN):
+                    step(raw)
+    finally:
+        bert.mha_reference = mha
     os.makedirs(args.output_dir, exist_ok=True)
     trace = os.path.join(args.output_dir, "train_step_trace.json.gz")
     prof.export_chrome_trace(trace)
@@ -176,6 +227,10 @@ def main(args) -> Dict:
     # unprofiled steps' idle share is what their kernel time leaves over
     summary["idle_share_unprofiled"] = 1.0 - summary[
         "kernel_ms_per_step"] / float(np.median(step_ms))
+    if mplug:
+        ms = span_device_ms(events, BERT_ATTENTION_SPAN, PROFILED)
+        summary["bert_attention_ms_per_step"] = ms
+        summary["bert_attention_share"] = ms / summary["kernel_ms_per_step"]
     with open(os.path.join(args.output_dir, "profile_summary.json"),
               "w") as f:
         json.dump(summary, f, indent=1)

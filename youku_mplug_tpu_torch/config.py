@@ -18,6 +18,12 @@ loader sets it), ``update_freq``, ``epochs``, ``prompt``, ``batch_size``,
 ``train_file_groups``, ``val_file``, ``test_file``), the video roots
 (``video_root``, ``train_video_root``), ``workers_impl``,
 ``decode_short_side`` and ``has_multi_vision_gt``;
+the BERT family's model (``bert_config``, a BERT JSON resolved as
+``text_cfg`` is, with ``bert_overrides`` on top: ``RunConfig.bert``) and,
+via ``RunConfig.get``, the keys its runners read as JAX's read them:
+``embed_dim``, ``temp``, ``queue_size``, ``momentum``, ``alpha``,
+``mlm_probability``, ``distill``, ``text_encoder_vocab``,
+``num_classes``, ``beam_size``, ``min_length`` and ``max_new_tokens``;
 ``dump_config`` writes the merged YAML
 into a run's output directory; and ``load_owl_config`` /
 ``instruct_train_config``, the mPLUG-Owl instruct YAML of
@@ -32,6 +38,7 @@ from typing import Any, Dict, Optional
 
 import yaml
 
+from youku_mplug_tpu_torch.models.bert import BertConfig
 from youku_mplug_tpu_torch.models.bloom import BloomConfig
 from youku_mplug_tpu_torch.models.gpt3 import GPT3Config
 from youku_mplug_tpu_torch.models.owl import (
@@ -56,6 +63,7 @@ class RunConfig:
     prompt: str = ""
     epochs: int = 10
     update_freq: int = 1
+    bert: BertConfig = BertConfig()
 
     def get(self, key, default=None):
         return self.raw.get(key, default)
@@ -132,9 +140,15 @@ def load_config(yaml_path: str,
         connect_ln=bool(raw.get("connect_ln", False)),
         freeze_vit=bool(raw.get("freeze_vit", False)),
         freeze_text_decoder=bool(raw.get("freeze_text_decoder", True)))
+    bert_path = resolve(raw.get("bert_config"))
+    bert = (BertConfig.from_json_file(bert_path)
+            if bert_path and os.path.exists(bert_path) else BertConfig())
+    if raw.get("bert_overrides"):
+        bert = dataclasses.replace(bert, **raw["bert_overrides"])
     sched = dict(raw.get("schedular", raw.get("scheduler", {})))
     return RunConfig(
         raw=raw, model=model, optimizer=_optimizer_config(raw, model),
+        bert=bert,
         batch_size=int(raw.get("batch_size", 8)),
         num_workers=int(raw.get("num_workers", 8)),
         max_length=int(raw.get("max_length", 80)),

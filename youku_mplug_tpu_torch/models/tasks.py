@@ -98,20 +98,23 @@ def last_token_index(attention_mask, n_query: int = 0):
 
 
 class Dense(nn.Module):
-    """flax ``nn.Dense`` counterpart: kernel [in, out]; computes in the
-    promoted dtype of input and kernel, as flax does."""
+    """flax ``nn.Dense`` counterpart: kernel [in, out], a bias unless
+    ``use_bias=False``; computes in the promoted dtype of input and
+    kernel, as flax does."""
 
-    def __init__(self, features_in: int, features_out: int, dtype):
+    def __init__(self, features_in: int, features_out: int, dtype,
+                 use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(
             torch.empty(features_in, features_out, dtype=dtype),
             requires_grad=False)
         self.bias = nn.Parameter(torch.empty(features_out, dtype=dtype),
-                                 requires_grad=False)
+                                 requires_grad=False) if use_bias else None
 
     def forward(self, x):
         dt = torch.promote_types(x.dtype, self.kernel.dtype)
-        return x.to(dt) @ self.kernel.to(dt) + self.bias.to(dt)
+        y = x.to(dt) @ self.kernel.to(dt)
+        return y if self.bias is None else y + self.bias.to(dt)
 
 
 def _l2_normalize(x):

@@ -9,7 +9,11 @@ special ids; ``detokenize`` gives the ids as space-joined numbers); and
 ``BatchTokenizer``: strings or (prompt, text) pairs to numpy int32 ids
 padded to ``max_length`` or to the longest (``padding="longest"``), with
 the attention mask and, for pairs, each sample's prompt length;
-``decode`` turns ids back into text.  ``load_tokenizer`` takes the
+``decode`` turns ids back into text.  The BERT family's (mPLUG and
+ALPRO): ``BertWordPieceTokenizer`` (a ``vocab.txt`` through HF
+``tokenizers``) and ``ToyBertTokenizer`` (the toy hash with BERT's special
+ids: ``[PAD]`` 0, ``[CLS]`` 101 bos, ``[SEP]`` 102 eos, ``[MASK]`` 103,
+ids from 104).  ``load_tokenizer`` takes the
 JiebaBPE one wherever the model directory holds a ``tokenizer.json``:
 jieba and ``tokenizers`` are imported in its constructor, so where they
 are missing the run fails with the ImportError, never with toy ids in
@@ -95,6 +99,58 @@ class JiebaBPETokenizer:
     def detokenize(self, token_ids) -> str:
         return self.tokenizer.decode([int(t) for t in token_ids],
                                      skip_special_tokens=True)
+
+
+class BertWordPieceTokenizer:
+    """BERT WordPiece tokenization of ``vocab_file`` (HF ``tokenizers``):
+    ``[CLS]`` starts, ``[SEP]`` ends, ``[PAD]`` pads."""
+
+    def __init__(self, vocab_file: str, lowercase: bool = True):
+        from tokenizers import BertWordPieceTokenizer as _HF
+
+        self.tokenizer = _HF(vocab_file, lowercase=lowercase)
+        vocab = self.tokenizer.get_vocab()
+        self.pad_id = vocab.get("[PAD]", 0)
+        self.bos_id = vocab.get("[CLS]", 101)
+        self.eos_id = vocab.get("[SEP]", 102)
+        self.mask_id = vocab.get("[MASK]", 103)
+        self.eod_id = self.eos_id
+
+    @property
+    def vocab_size(self) -> int:
+        return self.tokenizer.get_vocab_size()
+
+    def tokenize(self, text: str, add_special_tokens: bool = True
+                 ) -> List[int]:
+        return self.tokenizer.encode(
+            text, add_special_tokens=add_special_tokens).ids
+
+    def tokenize_prompt(self, prompt_text: str, text: str):
+        """The (bos, prompt, text, eos) id segments of a pair."""
+        p = self.tokenizer.encode(prompt_text, add_special_tokens=False).ids
+        t = self.tokenizer.encode(text, add_special_tokens=False).ids
+        return ([self.bos_id], p, t, [self.eos_id])
+
+    def detokenize(self, token_ids) -> str:
+        return self.tokenizer.decode([int(t) for t in token_ids],
+                                     skip_special_tokens=True)
+
+
+class ToyBertTokenizer(ToyTokenizer):
+    """The toy hash over ids 104 .. V - 1 with BERT's special ids, for
+    synthetic mPLUG / ALPRO runs."""
+
+    def __init__(self, vocab_size: int = 30522):
+        super().__init__(vocab_size)
+        self.pad_id = 0
+        self.bos_id = 101
+        self.eos_id = 102
+        self.mask_id = 103
+        self.eod_id = 102
+
+    def _ids(self, text: str) -> List[int]:
+        return [104 + (ord(c) * 2654435761) % (self.vocab_size - 104)
+                for c in text]
 
 
 def load_tokenizer(model_dir: str, vocab_size: int

@@ -44,10 +44,13 @@ def _split(batch: Dict, parts: int):
     return micro
 
 
-def dropout_generator(seed: int, step: int, device) -> torch.Generator:
-    """A generator on ``device`` seeded from (``seed``, ``step``) alone."""
-    mixed = np.random.SeedSequence([seed, step]).generate_state(
-        1, np.uint64)[0]
+def dropout_generator(seed: int, step: int, device,
+                      stream: int = 0) -> torch.Generator:
+    """A generator on ``device`` seeded from (``seed``, ``step``) alone;
+    ``stream`` > 0 gives another independent one of the same step (the
+    MLM masks of the BERT-family runners)."""
+    entropy = [seed, step] + ([stream] if stream else [])
+    mixed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(mixed))
 
 
