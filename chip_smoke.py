@@ -9,7 +9,7 @@ the last line is printed):
    print the card's name and power limit, build the hand-written kernels
    from youku_mplug_tpu_torch/csrc/ (one nvcc per source, in parallel);
 2. the flash builds (forward, backward dq and dk/dv) at head dims 64,
-   80, 96 and 128: registers and spills from nvcc's -Xptxas -v report and
+   80, 88, 96 and 128: registers and spills from nvcc's -Xptxas -v report and
    the blocks resident on one SM as the card counts them
    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), failing on a spill in
    any flash build or on a count other than FWD_BLOCKS_PER_SM (the wave
@@ -31,8 +31,9 @@ the last line is printed):
    train step, and over 786, ITM's; forward alone at an evaluation
    call's 4 clips; q [24, 8, 128, 96] over 3138 keys, the 2.7B caption
    recipe's 16 frames; 256 queries over 1570 keys, kv_len 1500, which
-   take the key-tile dk/dv kernel, off the paths) and the head dim 80
-   shapes of the GPT-3 2.7B
+   take the key-tile dk/dv kernel, off the paths), the head dim 88 shape
+   of EVA-ViT-g's AttentionPool (q [16, 16, 128, 88] over 258 keys, phase
+   37's) and the head dim 80 shapes of the GPT-3 2.7B
    decoder (head views of its fused qkv row: [180, 208, 32x80] causal,
    the cls evaluation's passes; [32, 208, 32x80] causal for K4b, which
    no shipped YAML runs; a head-major call split three ways) the
@@ -346,7 +347,36 @@ the last line is printed):
    configs/alpro/alpro_vitb16_zh.yaml (one 12-layer BERT split at layer
    6), as phase 34, the pretrain batch replayed plain with ITM + MLM gated
    and ITA printed (_without_ita); [bert_family] prints the three
-   phases' total.
+   phases' total;
+36. image_pretrain (run last, with 37-39, after IMAGE_FILES JPEGs of
+   IMAGE_SIZE are written with cv2.imwrite and read back, [images_written]):
+   MPLUGVideo.image_pretrain_loss on the flagship pretrain YAML with the
+   image tower alone (its ViT-B/16, 12 heads of 64, 197 tokens; 128
+   queries; the frozen GPT-3 1.3B with remat and ce_chunk 32), batch 16,
+   80 tokens, IMAGE_STEPS AdamW steps through make_train_step over
+   ImageTextDataset and the YAML's threaded Loader: finite, none skipped,
+   the frozen decoder bitwise unchanged, launches a step exactly
+   IMAGE_PRETRAIN_LAUNCHES, the first batch replayed plain (phase 6's
+   gates); step ms, images/s, peak memory; phase 2 holds K1 and K2/K3 at
+   the tower's [16, 197, 12x64] (coca's too) and K4 / K4b at its
+   AttentionPool's [16, 128, 12x64] over 198 keys;
+37. eva_pretrain: the same with EVA_VIT_G at full width and depth (1408 x
+   40, 16 heads of 88, patch 14, MLP 6144, drop-path 0.4, every block
+   checkpointed, ~1.0B trainable parameters), EVA_STEPS steps: launches
+   exactly EVA_PRETRAIN_LAUNCHES (K4, dq and dk/dv at head dim 88 once a
+   step), the replay on the same drop-path generator; phase 2 holds the
+   d 88 kernels at its AttentionPool's [16, 128, 16x88] over 258 keys;
+38. coca: MPLUGCOCA at the default COCAConfig (ViT-B/16, two GPT-2 small
+   decoders, every leaf trainable, seeded), COCA_STEPS steps over
+   ImageTextDataset with MIMPretrainTransform (224 px, the second stream
+   at 112, 75 of 196 patches masked), COCA_TOKENS tokens, seeded MIM
+   targets [16, 196, 512]: loss_caption finite and 0 < loss_mim < 2.1 each
+   step, launches exactly COCA_LAUNCHES, the replay;
+39. clip: CLIP (the default CLIPConfig) on 16 of the JPEGs and 16 x 77
+   seeded ids, XCLIP over 16 clips of 8 frames at 224: bf16 against fp32
+   on the card within CLIP_BF16_TOL, the inflate contract within
+   CLIP_INFLATE_TOL, no kernel launched (plain attention, as in JAX);
+   [image_family] prints the four phases' total.
 """
 
 from __future__ import annotations
@@ -447,6 +477,39 @@ DOWNSTREAM_SPLITS = {"itm": 16, "retrieval": 64}
 # the BERT family (phases 33-35): mPLUG and ALPRO at full width on the
 # flagship's vision tower, batch 16, synthetic clips; train steps a run
 # (pretrain: MPLUG_PRETRAIN_STEPS), the evaluations' clips (one call)
+# phases 36-39 (the image-era family): the JPEGs (written with
+# cv2.imwrite, read back within IMAGE_MAE_TOL a channel: JPEG's loss on
+# the smooth stripes they hold), the train steps of each path and the
+# launches a step JAX's dispatch rule predicts (PERF.md): the
+# flagship's ViT-B/16 as an image tower (12 heads of 64: K1 per block,
+# again in the backward's recompute, as JAX remats every PlainBlock under
+# grad_ckpt), AttentionPool's K4 / K4b at 64, the frozen GPT-3 1.3B's K1
+# 24 + 24 rematerialized and K2/K3 24; EVA-ViT-g's blocks on einsum
+# attention (16 heads of 88: no packed kernel), its AttentionPool on K4 /
+# K4b at 88; COCA's ViT-B/16 twice a forward (the MIM branch runs the
+# tower again, as JAX) with the GPT-2 decoders on plain attention
+IMAGE_FILES = 64
+IMAGE_SIZE = (640, 360)  # width, height
+IMAGE_MAE_TOL = 6.0
+IMAGE_STEPS = 4
+EVA_STEPS = 3
+COCA_STEPS = 3
+COCA_TOKENS = 40
+IMAGE_PRETRAIN_LAUNCHES = {"K1": 72, "K4": 1, "dq": 37, "dkv": 37,
+                           "delta": 37}
+EVA_PRETRAIN_LAUNCHES = {"K1": 48, "dq": 24, "dkv": 24, "K4-d88": 1,
+                         "dq-d88": 1, "dkv-d88": 1, "delta": 25}
+COCA_LAUNCHES = {"K1": 24, "dq": 24, "dkv": 24, "delta": 24}
+IMAGE_TRAIN_PATHS = ("image_pretrain", "eva_pretrain", "coca")
+# CLIP / XCLIP in bf16 (the policy's compute dtype) against the same
+# weights in fp32, relative L2 of image / video features and logits: only
+# the patches, conv1 and ln_pre run bf16 (every Dense promotes to its fp32
+# kernel, as in JAX), so the difference is that rounding (~2^-8) carried
+# through 12 blocks, read at 0.0012-0.0037 on the card (PERF.md); the text
+# towers run fp32 under both policies, so they are not compared; the
+# inflated VideoFormer against per-frame CLIP, both fp32
+CLIP_BF16_TOL = 2.0 ** -6
+CLIP_INFLATE_TOL = 1e-4
 MPLUG_YAML = os.path.join(REPO, "configs", "mplug", "mplug_vitb16_zh.yaml")
 ALPRO_YAML = os.path.join(REPO, "configs", "alpro", "alpro_vitb16_zh.yaml")
 MPLUG_PRETRAIN_STEPS, BERT_STEPS, BERT_EVAL_CLIPS = 4, 2, 16
@@ -547,6 +610,14 @@ def time_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_ms_blocks(fn, iters: int, blocks: int = 2):
+    """``time_ms`` over ``blocks`` blocks of ``iters`` calls: the lowest
+    reading and every block's (a stall inside one block shows as their
+    spread instead of as the kernel's time)."""
+    readings = [time_ms(fn, iters) for _ in range(blocks)]
+    return min(readings), readings
 
 
 def err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -708,8 +779,8 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
     projections): the forward kernel's o and lse against
     flash_fwd_plain, then the dq and dk/dv kernels against
     flash_bwd_plain on the same (q, k, v, o, lse, dO); all with the
-    kernel's, the plain version's and the library call's times and the
-    bound."""
+    kernel's (the lower of two blocks of calls, both printed), the plain
+    version's and the library call's times and the bound."""
     from youku_mplug_tpu_torch.ops import decode_attention as dec
 
     nd = n * d
@@ -744,12 +815,14 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
              f"{lse_err} (tol {LSE_TOL})")
     do = fa._head_major_empty(q).copy_(rand(b, n, sq, d))
     lib_fwd, lib_bwd = _library_ms(q, k, v, mask_kw, do)
+    fwd_ms, fwd_blocks = time_ms_blocks(
+        lambda: fa.flash_fwd_cuda(q, k, v, o, **kw), 20)
     fwd = {"shape": shape, "on_path": on_path, "max_abs_err": fwd_err,
            "lse_err": lse_err,
            "splits": fa.kv_splits(b, n, sq, sk, head_dim=d, causal=causal,
                                   period=period, kv_len=kv_len,
                                   sms=fa._device_sms(q.device.index)),
-           "ms": time_ms(lambda: fa.flash_fwd_cuda(q, k, v, o, **kw), 20),
+           "ms": fwd_ms, "ms_blocks": fwd_blocks,
            "plain_ms": time_ms(lambda: fa.flash_fwd_plain(q, k, v, **kw),
                                20),
            "library_ms": lib_fwd, **bounds["fwd"]}
@@ -773,17 +846,18 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
         fail(f"backward {shape}: keys past kv_len got a gradient")
     dq, dk, dv = (fa._head_major_empty(t) for t in (q, k, v))
     iters = 20
-    dq_ms = time_ms(lambda: fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                                 dq, **kw), iters)
-    dkv_ms = time_ms(lambda: fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                   dk, dv, **kw), iters)
+    dq_ms = time_ms_blocks(lambda: fa.flash_bwd_dq_cuda(
+        q, k, v, do, lse, delta, dq, **kw), iters)
+    dkv_ms = time_ms_blocks(lambda: fa.flash_bwd_dkv_cuda(
+        q, k, v, do, lse, delta, dk, dv, **kw), iters)
     plain_ms = time_ms(lambda: fa.flash_bwd_plain(q, k, v, o, lse, do, **kw),
                        iters)
 
-    def bwd_row(kind, ms, grads):
+    def bwd_row(kind, timed, grads):
         return {"shape": shape, "on_path": on_path,
                 "rel_l2": {gn: errs[gn] for gn in grads},
-                "max_abs_err": max(abs_err[gn] for gn in grads), "ms": ms,
+                "max_abs_err": max(abs_err[gn] for gn in grads),
+                "ms": timed[0], "ms_blocks": timed[1],
                 "plain_ms": plain_ms, "library_ms": lib_bwd,
                 **bounds[kind]}
 
@@ -805,12 +879,20 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
 # (rows, Sq, Sk, heads, causal, period, kv_len, layout, head dim, ALiBi,
 # path, on the path); the first four are the flagship train step's shapes
 # (16 clips x 8 frames; 16 clips x 14 temporal groups; 16 x (128 queries
-# + 80 tokens); AttentionPool's 128 queries over 1 + 8 x 196 tokens and
-# the bias key), then a small kv_len case
+# + 80 tokens), the frozen decoder of the image paths too; AttentionPool's
+# 128 queries over 1 + 8 x 196 tokens and the bias key), then the image
+# paths' ViT-B/16 over 16 images (197 tokens) and their AttentionPool's
+# 128 queries over 1 + 196 tokens and the bias key (4 key tiles, the last
+# holding 6 keys), then a small kv_len case
 BWD_SHAPES = [(128, 197, 197, 12, False, 0, None, "packed"),
               (224, 112, 112, 12, False, 8, None, "packed"),
-              (16, 208, 208, 32, True, 0, None, "packed"),
+              (16, 208, 208, 32, True, 0, None, "packed", 64, False,
+               "train, image_pretrain, eva_pretrain", True),
               (16, 128, 1570, 12, False, 0, None, "heads"),
+              (16, 197, 197, 12, False, 0, None, "packed", 64, False,
+               "image_pretrain, coca", True),
+              (16, 128, 198, 12, False, 0, None, "heads", 64, False,
+               "image_pretrain", True),
               (2, 65, 130, 1, False, 0, 70, "heads", 64, False, "train",
                False)]
 # Bloom's training attention, ALiBi causal at head dim 128 on head views
@@ -857,6 +939,13 @@ D96_SHAPES = [
     # kernel, which no path runs at d 96
     (4, 256, 1570, 8, False, 0, 1500, "heads", 96, False, "key-tile dk/dv",
      False)]
+# head dim 88, EVA-ViT-g's AttentionPool (16 heads of 88, 128 queries over
+# 1 + 256 patches and the bias key, head views of [B, S, 1408]
+# projections) at the image pretrain step's 16 images: forward, dq and
+# the key-tile dk/dv kernel (no short-query build at 88)
+D88_SHAPES = [
+    (16, 128, 258, 16, False, 0, None, "heads", 88, False, "eva_pretrain",
+     True)]
 D96_PATHS = ("cls_train", "cls_eval", "itm_train", "itm_eval",
              "caption27_train", "caption27_eval", "cls27_train", "cls27_eval",
              "cls_files_train", "cls_files_eval", "pretrain13_train",
@@ -891,7 +980,8 @@ BERT_EVAL_PATHS = ("mplug_cls_eval", "mplug_retrieval_eval",
 BWD_PATHS = ("train", "caption_train", "instruct_train",
              "instruct_hf_train", "pretrain_files", "cls_files_train",
              "instruct_files_train", "knobs_instruct_train") \
-    + D96_TRAIN_PATHS + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS
+    + D96_TRAIN_PATHS + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS \
+    + IMAGE_TRAIN_PATHS
 
 # head dim 80, the GPT-3 2.7B decoder (32 heads of 80), on head views of
 # the fused qkv projection: the cls evaluation's decoder passes (4 clips x
@@ -1282,12 +1372,14 @@ def phase_kernels(dev, builds, owl_beam):
 
     # K4: AttentionPool, q [B,12,128,64] over k/v [B,12,1570,64] (head
     # views of [B, S, 768] projections) at the serving (B 8, split two
-    # ways) and pretrain (B 16) batches, then a split-KV case off the
-    # paths: ragged Sq and Sk, kv_len < Sk, split three ways
+    # ways) and pretrain (B 16) batches, over the 198 keys of one image
+    # (B 16), then a split-KV case off the paths: ragged Sq and Sk,
+    # kv_len < Sk, split three ways
     k4 = []
     for b, sq, sk, kv_len, path, on_path in (
             (8, 128, 1570, None, "serve", True),
             (16, 128, 1570, None, "train", True),
+            (16, 128, 198, None, "image_pretrain", True),
             (4, 100, 1000, 900, "split-KV", False)):
         q = rand(b, sq, 768).unflatten(-1, (12, 64)).transpose(1, 2)
         k, v = (rand(b, sk, 768).unflatten(-1, (12, 64)).transpose(1, 2)
@@ -1328,6 +1420,7 @@ def phase_kernels(dev, builds, owl_beam):
     no_alibi_128 = alibi_cases.pop()
     d96 = [_bwd_case(rand, fa, *c) for c in D96_SHAPES]
     d80 = [_bwd_case(rand, fa, *c) for c in D80_SHAPES]
+    d88 = [_bwd_case(rand, fa, *c) for c in D88_SHAPES]
     # the second d 80 case: an ITM 2.7B evaluation call's forward (4 clips
     # x 8 texts); its backward runs on no path
     for kind in ("dq", "dkv", "delta"):
@@ -1351,15 +1444,16 @@ def phase_kernels(dev, builds, owl_beam):
                                    "instruct_files_train") + OWL_BATCHED_PATHS
                + KNOBS_SERVE_PATHS + ("knobs_pretrain",
                                       "knobs_instruct_train")
-               + BERT_TRAIN_PATHS + BERT_EVAL_PATHS,
+               + BERT_TRAIN_PATHS + BERT_EVAL_PATHS + IMAGE_TRAIN_PATHS,
                "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
                ("serve", "train", "serve_int8kv", "speculative_twin",
                 "speculative_ngram", "caption_train", "caption_eval",
-                "serve_files", "pretrain_files") + CKPT_SERVE_PATHS
-               + KNOBS_SERVE_PATHS + KNOBS_TRAIN_PATHS, "K4", k4)]
+                "serve_files", "pretrain_files", "image_pretrain")
+               + CKPT_SERVE_PATHS + KNOBS_SERVE_PATHS + KNOBS_TRAIN_PATHS,
+               "K4", k4)]
     for kind, wrapper, line, line_hm in (
             ("dq", fa.flash_bwd_dq_cuda, 723, 148),
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
@@ -1368,8 +1462,8 @@ def phase_kernels(dev, builds, owl_beam):
             f"also replaces flash_attention.py:{line_hm})", BWD_SRC,
             f"{TPU_FLASH}:{line}", wrapper,
             ("train", "caption_train", "pretrain_files",
-             "knobs_instruct_train") + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS,
-            kind,
+             "knobs_instruct_train") + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS
+            + IMAGE_TRAIN_PATHS, kind,
             [c[kind] for c in cases] + [no_alibi_128[kind]]))
     report.append(_entry(
         "K1 flash_attention_packed, ALiBi causal (Bloom training, head dim "
@@ -1430,12 +1524,27 @@ def phase_kernels(dev, builds, owl_beam):
             [d80[1][kind]], counter="d80_launches",
             build=flash_builds[f"bwd_{kind}<80>"]))
     report.append(_entry(
+        "K4 flash_attention, head dim 88 (EVA-ViT-g AttentionPool; d 96's "
+        "D-wide tiles with the tail's columns 88-95 zero in shared memory, "
+        "m64n24k16 into a 44-value accumulator)", FWD_SRC,
+        f"{TPU_FLASH}:59", fa.flash_attention, ("eva_pretrain",), "K4-d88",
+        [c["fwd"] for c in d88], counter="d88_launches",
+        build=flash_builds["fwd<88>"]))
+    for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 148),
+                                ("dkv", fa.flash_bwd_dkv_cuda, 195)):
+        report.append(_entry(
+            f"K4b backward {kind} kernel, head dim 88 (EVA-ViT-g "
+            "AttentionPool; D-wide tiles, the key-tile dk/dv kernel)",
+            BWD_SRC, f"{TPU_FLASH}:{line}", wrapper, ("eva_pretrain",),
+            f"{kind}-d88", [c[kind] for c in d88], counter="d88_launches",
+            build=flash_builds[f"bwd_{kind}<88>"]))
+    report.append(_entry(
         "backward delta = rowsum(dO * O) in fp32, one launch a backward at "
         "every head dim (XLA-fused in the JAX package: no Pallas kernel)",
         BWD_SRC, f"{TPU_FLASH}:252 (_bwd; :951 in _bwd_packed)",
         fa.flash_bwd_delta_cuda, BWD_PATHS, "delta",
         [c["delta"] for c in cases + alibi_cases + [no_alibi_128]
-         + train96 + [key_tiles96] + d80[1:]]))
+         + train96 + [key_tiles96] + d80[1:] + d88]))
     report += _decode_entries(dec, kvc, rand, owl_beam)
     for r in report:
         lib = ("none" if r["library_ms"] is None
@@ -1881,8 +1990,8 @@ def phase_train(report, out_dir):
     return runner, stats
 
 
-FLASH_COUNTERS = ("launches", "d80_launches", "d96_launches",
-                  "alibi_launches")
+FLASH_COUNTERS = ("launches", "d80_launches", "d88_launches",
+                  "d96_launches", "alibi_launches")
 
 
 def _flash_counts(fa, attrs=FLASH_COUNTERS, backward_only=False):
@@ -5703,15 +5812,19 @@ def _pinned_negatives(make_loss_fn):
     return make
 
 
-def _bert_train(report, tag, runner, train_step, make_batch, steps, want,
-                on_step=None):
+def _train_steps(report, tag, runner, train_step, make_batch, steps, want,
+                 frozen=False, check=None):
     """``steps`` train steps through ``common.train_one_epoch`` on the
     ``tag`` path: finite, none skipped, leaves moved, launches per step
-    exactly ``want``.  Returns (history, stats)."""
+    exactly ``want``; no frozen leaf, or with ``frozen`` some, each
+    bitwise unchanged; ``check(history)`` adds the path's own gates.
+    Returns (history, stats; the rate, clips or images a second, as
+    ``samples_per_s``)."""
     from youku_mplug_tpu_torch.cli import common
 
     state = runner.state
     trainable0 = {k: p.detach().clone() for k, p in state.trainable.items()}
+    frozen0 = {k: p.detach().clone() for k, p in state.frozen.items()}
     torch.cuda.reset_peak_memory_stats()
     _reset_counts(report)
     history = common.train_one_epoch(runner, train_step, 0, make_batch)
@@ -5724,19 +5837,26 @@ def _bert_train(report, tag, runner, train_step, make_batch, steps, want,
         fail(f"[{tag}] train steps: {history}")
     moved = sum(not torch.equal(p.detach(), trainable0[k])
                 for k, p in state.trainable.items())
-    del trainable0
-    if moved == 0 or state.frozen:
-        fail(f"[{tag}] {moved} leaves moved, {len(state.frozen)} frozen")
+    changed = [k for k, p in state.frozen.items()
+               if not torch.equal(p.detach(), frozen0[k])]
+    del trainable0, frozen0
+    if moved == 0 or bool(state.frozen) != frozen or changed:
+        fail(f"[{tag}] {moved} leaves moved, {len(state.frozen)} frozen, "
+             f"changed: {changed[:4]}")
+    if check is not None:
+        check(history)
     step_ms = [h["step_time"] * 1e3 for h in history]
     rest = step_ms[1:] or step_ms
     return history, {
         "steps": len(history), "step_ms_first": step_ms[0],
         "step_ms_rest": sum(rest) / len(rest), "step_ms_each": step_ms,
-        "clips_per_s": runner.cfg.batch_size * 1e3 * len(rest) / sum(rest),
+        "samples_per_s": runner.loader.batch_size * 1e3 * len(rest)
+        / sum(rest),
         "peak_memory_gib": peak / 2 ** 30,
         **{k: [h[k] for h in history] for k in history[0]
            if k.startswith("loss") or k == "grad_norm"},
         "trainable_leaves_moved": f"{moved}/{len(state.trainable)}",
+        "frozen_leaves": len(state.frozen),
         "launches_per_step": _launches_per(report, tag, len(history), want)}
 
 
@@ -5760,10 +5880,11 @@ def _without_ita(make_loss_fn, seen):
     return make
 
 
-def _bert_replay(tag, runner, make_batch, make_loss_fn):
+def _train_replay(tag, runner, make_batch, make_loss_fn):
     """The first batch's loss and gradients with the kernels and plain,
-    the same dropout masks, MLM masks, twin features and hard negatives
-    both times; gated as phase 6."""
+    the same dropout and drop-path masks both times (and for the BERT
+    family the same MLM masks, twin features and hard negatives); gated
+    as phase 6."""
     from youku_mplug_tpu_torch.train.trainer import dropout_generator
 
     loss_k, loss_p, finite, _, rows = _replay(
@@ -5827,7 +5948,7 @@ def phase_mplug_pretrain(report, out_dir):
                                zip(got, ema.pop("before")))
             ema["leaves"] = len(got)
         return metrics
-    history, stats = _bert_train(
+    history, stats = _train_steps(
         report, tag, runner, train_step, mp.make_batch_fn(pt),
         MPLUG_PRETRAIN_STEPS, _vision_launches(mcfg.vision, ema=True))
     want_ptr = (ptr0 + MPLUG_PRETRAIN_STEPS * runner.cfg.batch_size) % queue
@@ -5837,7 +5958,7 @@ def phase_mplug_pretrain(report, out_dir):
              "non-finite queue")
     if "err" not in ema or ema["err"] > EMA_TOL or ema["moved"] == 0:
         fail(f"[{tag}] the EMA against e * m + p * (1 - m): {ema}")
-    replay = _bert_replay(tag, runner, mp.make_batch_fn(pt),
+    replay = _train_replay(tag, runner, mp.make_batch_fn(pt),
                           mp.make_loss_fn)
     out = {"yaml": os.path.relpath(MPLUG_YAML, REPO), "geometry": geometry,
            "setup_s": setup_s, **stats, "queue": queue, "ptr": ms.ptr,
@@ -5981,7 +6102,7 @@ def phase_mplug_downstream(report, out_dir):
                                          mcfg.bert.fusion_layer,
                                          mcfg.bert.text_decoder_layers)),
                "num_classes": mcfg.num_classes}
-        _, out["train"] = _bert_train(
+        _, out["train"] = _train_steps(
             report, f"{tag}_train", runner,
             md.build_train_step(runner, task), md.make_batch_fn(task),
             BERT_STEPS,
@@ -6022,13 +6143,13 @@ def phase_alpro(report, out_dir):
              mcfg.bert.num_hidden_layers - mcfg.bert.fusion_layer)),
                "num_classes": mcfg.num_classes}
         train_tag = tag if task == "pretrain" else f"{tag}_train"
-        _, out["train"] = _bert_train(
+        _, out["train"] = _train_steps(
             report, train_tag, runner, ra.build_train_step(runner, task),
             ra.make_batch_fn(task), BERT_STEPS,
             _vision_launches(mcfg.vision))
         if task == "pretrain":  # ITM + MLM gated, ITA printed
             ita = []
-            out["replay"] = _bert_replay(
+            out["replay"] = _train_replay(
                 tag, runner, ra.make_batch_fn(task),
                 _without_ita(ra.make_loss_fn_for(task), ita))
             out["replay"]["loss_ita_kernels_plain_ungated"] = ita
@@ -6042,8 +6163,400 @@ def phase_alpro(report, out_dir):
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phases 36-39: the image-era family at full width
+
+
+def phase_images_written(root):
+    """The image phases' input: IMAGE_FILES JPEGs of IMAGE_SIZE written
+    with cv2.imwrite on as many threads as cores, and a JSON of captions
+    (one list-valued); every image read back by ``read_image`` at its
+    size and within IMAGE_MAE_TOL of the pixels written (JPEG's loss).
+    Returns the annotation path."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import cv2
+    import numpy as np
+
+    from youku_mplug_tpu_torch.data.image_datasets import read_image
+
+    w, h = IMAGE_SIZE
+
+    def picture(k):
+        yy, xx = np.mgrid[:h, :w]
+        return np.stack([(xx // 3 + 29 * k) % 256, (yy // 2 + 11 * k) % 256,
+                         ((xx + yy) // 4 + 53 * k) % 256], -1).astype(
+            np.uint8)
+
+    def write(k):
+        return cv2.imwrite(os.path.join(root, f"im{k:02d}.jpg"), picture(k))
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        ok = list(pool.map(write, range(IMAGE_FILES)))
+    write_s = time.perf_counter() - t0
+    if not all(ok):
+        fail(f"cv2 wrote {ok.count(True)} of {IMAGE_FILES} JPEGs")
+    t0 = time.perf_counter()
+    maes = []
+    for k in range(IMAGE_FILES):
+        img = read_image(os.path.join(root, f"im{k:02d}.jpg"))
+        if img.shape != (h, w, 3):
+            fail(f"im{k:02d}.jpg reads back as {img.shape}")
+        maes.append(float(np.abs(img.astype(np.int16)
+                                 - picture(k)[..., ::-1]).mean()))
+    read_ms = (time.perf_counter() - t0) * 1e3 / IMAGE_FILES
+    if max(maes) > IMAGE_MAE_TOL:
+        fail(f"JPEGs read back off by up to {max(maes):.2f} a channel (tol "
+             f"{IMAGE_MAE_TOL})")
+    ann = [{"image": f"im{k:02d}.jpg",
+            "caption": (["a picture", f"image number {k}"] if k == 5 else
+                        f"a photo of striped image {k} with "
+                        + "colour " * (k % 7))}
+           for k in range(IMAGE_FILES)]
+    path = os.path.join(root, "captions.json")
+    with open(path, "w") as f:
+        json.dump(ann, f)
+    print(f"[images_written] {IMAGE_FILES} JPEGs of {w}x{h}, "
+          f"{sum(os.path.getsize(os.path.join(root, a['image'])) for a in ann) / 2 ** 20:.2f} MiB in {write_s:.2f} s; read_image "
+          f"{read_ms:.2f} ms an image; mean abs error max {max(maes):.2f} "
+          f"(tol {IMAGE_MAE_TOL}) | {CARD}", flush=True)
+    return path
+
+
+def _image_batch(runner, raw):
+    from youku_mplug_tpu_torch.cli import common
+
+    text = runner.tokenizer(raw["text"])
+    return common.to_device(runner, {"image": raw["image"], **text})
+
+
+def _normalize_images(images_u8, dtype):
+    """uint8 [B, H, W, C] -> normalized [B, C, H, W] (the clip
+    normalization on one-frame clips)."""
+    from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+
+    return normalize_clip(images_u8[:, None], dtype=dtype)[:, :, 0]
+
+
+def _image_loss_fn(model):
+    def loss_fn(batch, generator=None):
+        return model.image_pretrain_loss(
+            _normalize_images(batch["image"], model.policy.compute_dtype),
+            batch["input_ids"], batch["attention_mask"], generator=generator)
+    return loss_fn
+
+
+def _image_runner(tag, out_dir, ann, vision, steps):
+    """The flagship pretrain YAML's run (its frozen GPT-3 1.3B, optimizer,
+    batch 16 and 80 tokens) with an image model on ``vision`` (the
+    image tower only, ``MPLUGVideo(..., image=True)``), jax_init'd from
+    the seed, over ImageTextDataset on the JPEGs (the train transform at
+    224 px) through the YAML's threaded Loader."""
+    from youku_mplug_tpu_torch.cli import common
+    from youku_mplug_tpu_torch.config import load_config
+    from youku_mplug_tpu_torch.data.image_datasets import ImageTextDataset
+    from youku_mplug_tpu_torch.data.transforms import train_transform
+    from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+
+    args = common.base_parser(tag).parse_args([
+        "--config", TRAIN_YAML, "--output_dir", os.path.join(out_dir, tag),
+        "--max_steps", str(steps), "--device", "cuda"])
+    cfg = load_config(TRAIN_YAML)
+    cfg.model = dataclasses.replace(cfg.model, vision=vision)
+    ds = ImageTextDataset(ann, os.path.dirname(ann),
+                          transform=train_transform(cfg.image_res),
+                          seed=args.seed)
+    loader = common.make_loader(args, cfg, ds)
+    t0 = time.perf_counter()
+    runner = common.setup(args, cfg, loader, model_fn=lambda policy:
+                          MPLUGVideo(cfg.model, policy, image=True))
+    torch.cuda.synchronize()
+    return runner, time.perf_counter() - t0
+
+
+def _tower_geometry(tag, vcfg, tower, want):
+    """The image tower's geometry, checked against ``want``."""
+    got = {"width": vcfg.embed_dim, "depth": len(tower.blocks),
+           "heads": vcfg.num_heads,
+           "head_dim": vcfg.embed_dim // vcfg.num_heads,
+           "patch": vcfg.patch_size, "tokens": vcfg.num_patches + 1,
+           "mlp": tower.blocks[0].mlp.fc1_kernel.shape[1],
+           "drop_path": vcfg.drop_path, "grad_ckpt": vcfg.grad_ckpt,
+           "parameters": sum(p.numel() for p in tower.parameters())}
+    if {k: got[k] for k in want} != want:
+        fail(f"[{tag}] not the full geometry: {got}, expected {want}")
+    return got
+
+
+def phase_image_pretrain(report, out_dir, ann):
+    """Phase 36: image_pretrain_loss on the flagship (the TimeSformer's
+    ViT-B/16 as a plain image tower, 12 heads of 64, 197 tokens; 128
+    queries; the frozen GPT-3 1.3B), IMAGE_STEPS steps of 16 JPEGs."""
+    from youku_mplug_tpu_torch.config import load_config
+    from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+    from youku_mplug_tpu_torch.train.trainer import make_train_step
+
+    tag = "image_pretrain"
+    vision = load_config(TRAIN_YAML).model.vision
+    runner, setup_s = _image_runner(tag, out_dir, ann, vision, IMAGE_STEPS)
+    if hasattr(runner.model, "visual_encoder") or not isinstance(
+            runner.model, MPLUGVideo):
+        fail(f"[{tag}] the image model holds a video tower")
+    geometry = _tower_geometry(tag, vision, runner.model.image_encoder,
+                               {"width": 768, "depth": 12, "heads": 12,
+                                "head_dim": 64, "tokens": 197})
+    _, stats = _train_steps(report, tag, runner, make_train_step(
+        _image_loss_fn(runner.model), dropout_seed=runner.args.seed),
+        _image_batch, IMAGE_STEPS, IMAGE_PRETRAIN_LAUNCHES, frozen=True)
+    replay = _train_replay(tag, runner, _image_batch, _image_loss_fn)
+    out = {"yaml": os.path.relpath(TRAIN_YAML, REPO), "geometry": geometry,
+           "queries": runner.model.cfg.num_learnable_token,
+           "setup_s": setup_s, **stats, "replay": replay}
+    print(f"[{tag}] {json.dumps(out)} | {CARD}", flush=True)
+
+
+def phase_eva_pretrain(report, out_dir, ann):
+    """Phase 37: image_pretrain_loss on EVA-ViT-g at full width and depth
+    (1408 x 40, 16 heads of 88, patch 14: 257 tokens, MLP 6144, drop-path
+    0.4, every block checkpointed, trainable) under the frozen GPT-3
+    1.3B, EVA_STEPS steps of 16 JPEGs; AttentionPool's 128 queries over
+    258 keys take K4 / K4b at head dim 88."""
+    from youku_mplug_tpu_torch.models.vision import EVA_VIT_G
+    from youku_mplug_tpu_torch.train.trainer import make_train_step
+
+    tag = "eva_pretrain"
+    runner, setup_s = _image_runner(tag, out_dir, ann, EVA_VIT_G, EVA_STEPS)
+    geometry = _tower_geometry(
+        tag, EVA_VIT_G, runner.model.image_encoder,
+        {"width": 1408, "depth": 40, "heads": 16, "head_dim": 88,
+         "patch": 14, "tokens": 257, "mlp": 6144, "drop_path": 0.4,
+         "grad_ckpt": True})
+    if not 0.95e9 < geometry["parameters"] < 1.05e9:
+        fail(f"[{tag}] {geometry['parameters']} tower parameters")
+    _, stats = _train_steps(report, tag, runner, make_train_step(
+        _image_loss_fn(runner.model), dropout_seed=runner.args.seed),
+        _image_batch, EVA_STEPS, EVA_PRETRAIN_LAUNCHES, frozen=True)
+    replay = _train_replay(tag, runner, _image_batch, _image_loss_fn)
+    out = {"geometry": geometry, "setup_s": setup_s,
+           "trainable_parameters": sum(p.numel() for p in
+                                       runner.state.trainable.values()),
+           **stats, "replay": replay}
+    print(f"[{tag}] {json.dumps(out)} | {CARD}", flush=True)
+
+
+def phase_coca(report, out_dir, ann):
+    """Phase 38: MPLUGCOCA at its default config (a ViT-B/16 tower, 12
+    heads of 64; two GPT-2 small decoders, 12 x 768, vocab 50257), seeded
+    weights, every leaf trainable, COCA_STEPS AdamW steps of 16 JPEGs
+    through ImageTextDataset with MIMPretrainTransform (224 px, the second
+    stream at 112, 75 of 196 patches masked), 40 tokens, seeded MIM
+    targets [16, 196, 512]; the first batch replayed plain."""
+    from youku_mplug_tpu_torch import bridge
+    from youku_mplug_tpu_torch.cli import common
+    from youku_mplug_tpu_torch.data.image_datasets import ImageTextDataset
+    from youku_mplug_tpu_torch.data.loader import Loader
+    from youku_mplug_tpu_torch.data.pretrain_transforms import (
+        MIMPretrainTransform,
+    )
+    from youku_mplug_tpu_torch.models import gpt2_multimodal as g2
+    from youku_mplug_tpu_torch.models.tokenizer import (
+        BatchTokenizer,
+        load_tokenizer,
+    )
+    from youku_mplug_tpu_torch.optim.factory import OptimizerConfig
+    from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY
+    from youku_mplug_tpu_torch.train.state import create_train_state
+    from youku_mplug_tpu_torch.train.trainer import make_train_step
+
+    tag, seed, dev = "coca", 0, torch.device("cuda")
+    cfg = g2.COCAConfig()
+    t0 = time.perf_counter()
+    with dev:
+        model = g2.MPLUGCOCA(cfg, DEFAULT_POLICY)
+    bridge.seeded_init(model, seed)
+    opt = OptimizerConfig(lr=1e-4, weight_decay=0.05, opt_eps=1e-6,
+                          warmup_steps=0, epochs=1, niter_per_ep=COCA_STEPS,
+                          freeze_text_decoder=False)
+    state, _, schedule = create_train_state(model.train(), opt)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mim = MIMPretrainTransform(224, second_size=112)
+    ds = ImageTextDataset(ann, os.path.dirname(ann), mim_transform=mim,
+                          seed=seed)
+    args = common.base_parser(tag).parse_args([
+        "--config", "", "--output_dir", os.path.join(out_dir, tag),
+        "--max_steps",
+        str(COCA_STEPS), "--device", "cuda", "--seed", str(seed)])
+    runner = common.Runner(
+        args=args, cfg=None, device=dev, model=model,
+        tokenizer=BatchTokenizer(load_tokenizer("", cfg.gpt2.vocab_size),
+                                 max_length=COCA_TOKENS),
+        state=state, schedule=schedule,
+        loader=Loader(ds, 16, seed=seed, num_workers=4))
+    grid = cfg.vision.img_size // cfg.vision.patch_size
+
+    def make_batch(runner, raw):
+        text = runner.tokenizer(raw["text"])
+        batch = common.to_device(runner, {
+            "image": raw["image"], "bool_masked_pos": raw["bool_masked_pos"],
+            **text})
+        g = torch.Generator(device=dev).manual_seed(int(raw["index"][0]))
+        batch["image_target"] = torch.randn(
+            len(raw["index"]), grid * grid, cfg.predict_feature_dim,
+            generator=g, device=dev)
+        return batch
+
+    def make_loss_fn(model):
+        def loss_fn(batch, generator=None):
+            return model(_normalize_images(batch["image"],
+                                           model.policy.compute_dtype),
+                         batch["input_ids"], batch["attention_mask"],
+                         bool_masked_pos=batch["bool_masked_pos"],
+                         image_target=batch["image_target"],
+                         generator=generator)
+        return loss_fn
+
+    def check(history):
+        bad = [h for h in history if not (math.isfinite(h["loss_caption"])
+                                          and 0 < h["loss_mim"] < 2.1)]
+        if bad:
+            fail(f"[{tag}] loss_caption / loss_mim out of range: {bad}")
+
+    sample = ds[0]
+    if (sample["image"].shape, sample["image_target"].shape,
+            int(sample["bool_masked_pos"].sum())) != (
+            (224, 224, 3), (112, 112, 3), 75):
+        fail(f"[{tag}] the MIM sample: {sample['image'].shape}, "
+             f"{sample['image_target'].shape}, "
+             f"{int(sample['bool_masked_pos'].sum())} masked")
+    _, stats = _train_steps(report, tag, runner, make_train_step(
+        make_loss_fn(model), dropout_seed=seed), make_batch, COCA_STEPS,
+        COCA_LAUNCHES, check=check)
+    replay = _train_replay(tag, runner, make_batch, make_loss_fn)
+    out = {"vision": {"width": cfg.vision.embed_dim,
+                      "heads": cfg.vision.num_heads,
+                      "depth": cfg.vision.depth},
+           "gpt2": {"width": cfg.gpt2.n_embd, "layers": cfg.gpt2.n_layer,
+                    "vocab": cfg.gpt2.vocab_size},
+           "parameters": sum(p.numel() for p in model.parameters()),
+           "tokens": COCA_TOKENS, "masked_patches": 75,
+           "setup_s": setup_s, **stats, "replay": replay}
+    print(f"[{tag}] {json.dumps(out)} | {CARD}", flush=True)
+
+
+def phase_clip(report, ann):
+    """Phase 39: CLIP at its default config (ViT-B/16 image tower, the
+    12-layer text tower) on 16 of the JPEGs and 16 x 77 seeded ids, and
+    XCLIP over 16 clips of 8 frames at 224 (frames of the JPEGs): the bf16
+    forward (DEFAULT_POLICY) against the same weights in fp32 on the card,
+    features and logits within CLIP_BF16_TOL relative L2; the inflate
+    contract: CLIP's weights inflated into the VideoFormer (MHRA's
+    ``expand`` zero, as the reference inits it) give a clip of one
+    repeated frame equal per-frame tokens, each CLIP's tokens for that
+    frame (after ln_post), within CLIP_INFLATE_TOL.  Attention runs plain
+    (no kernel), as in JAX."""
+    import numpy as np
+
+    from youku_mplug_tpu_torch import bridge
+    from youku_mplug_tpu_torch.data.image_datasets import ImageTextDataset
+    from youku_mplug_tpu_torch.data.transforms import test_transform
+    from youku_mplug_tpu_torch.models import clip as tclip
+    from youku_mplug_tpu_torch.models import clip_video as tcv
+    from youku_mplug_tpu_torch.runtime.precision import (
+        DEFAULT_POLICY,
+        FP32_POLICY,
+    )
+
+    tag, dev = "clip", torch.device("cuda")
+    ds = ImageTextDataset(ann, os.path.dirname(ann),
+                          transform=test_transform(224))
+    frames = torch.from_numpy(np.stack([ds[k]["image"] for k in range(
+        IMAGE_FILES)])).to(dev)
+    images = _normalize_images(frames[:16], torch.float32)
+    order = torch.tensor([[(4 * c + f) % IMAGE_FILES for f in range(8)]
+                          for c in range(16)])
+    video = _normalize_images(frames[order.reshape(-1)], torch.float32
+                              ).reshape(16, 8, 3, 224, 224).transpose(1, 2)
+    g = torch.Generator().manual_seed(39)
+    ids = torch.zeros(16, 77, dtype=torch.long)
+    for r, n in enumerate(torch.randint(3, 70, (16,), generator=g).tolist()):
+        ids[r, 0] = 49406
+        ids[r, 1:n] = torch.randint(1, 49405, (n - 1,), generator=g)
+        ids[r, n] = 49407
+    ids = ids.to(dev)
+    out, models = {}, {}
+    _reset_counts(report)
+    for name, ctor, cfg in (("clip", tclip.CLIP, tclip.CLIPConfig()),
+                            ("xclip", tcv.XCLIP, tcv.VideoFormerConfig(
+                                num_frames=8))):
+        with dev:
+            bf16, fp32 = ctor(cfg, DEFAULT_POLICY), ctor(cfg, FP32_POLICY)
+        bridge.seeded_init(fp32, 39)
+        if name == "xclip":  # the reference's zero-init MHRA expand
+            for n_, p in fp32.named_parameters():
+                if ".expand." in n_:
+                    p.data.zero_()
+        bf16.load_state_dict(fp32.state_dict())
+        models[name] = fp32
+        x = images if name == "clip" else video
+        enc = "encode_image" if name == "clip" else "encode_video"
+        with torch.no_grad():
+            res = {}
+            for pol, m in (("bf16", bf16), ("fp32", fp32)):
+                getattr(m, enc)(x)  # warm
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                feat = getattr(m, enc)(x)
+                torch.cuda.synchronize()
+                res[pol] = {"ms": (time.perf_counter() - t0) * 1e3,
+                            "feat": feat.float(), "logits": m(x, ids)}
+            errs = {"features": rel_l2(res["bf16"]["feat"],
+                                     res["fp32"]["feat"]),
+                    "logits": max(rel_l2(a, b) for a, b in zip(
+                        res["bf16"]["logits"], res["fp32"]["logits"]))}
+        finite = all(torch.isfinite(t).all() for r in res.values()
+                     for t in (r["feat"], *r["logits"]))
+        if not finite or max(errs.values()) > CLIP_BF16_TOL:
+            fail(f"[{tag}] {name} bf16 against fp32 (relative L2 tol "
+                 f"{CLIP_BF16_TOL}): {errs}, finite {finite}")
+        n_in = x.shape[0] * (1 if name == "clip" else x.shape[2])
+        out[name] = {"batch": list(x.shape), "rel_l2_bf16_vs_fp32": errs,
+                     "ms_bf16": res["bf16"]["ms"],
+                     "ms_fp32": res["fp32"]["ms"],
+                     "images_per_s_bf16": n_in * 1e3 / res["bf16"]["ms"],
+                     "parameters": sum(p.numel() for p in fp32.parameters())}
+        del bf16, res
+    # the inflate contract, on the fp32 models
+    xclip, clip = models["xclip"], models["clip"]
+    tree = bridge.flatten(bridge.to_jax_tree(xclip.visual))
+    tree.update(bridge.flatten(tcv.inflate_clip_to_videoformer(
+        bridge.to_jax_tree(clip), xclip.cfg)))
+    bridge.load_jax_params(xclip.visual, bridge.unflatten(tree))
+    one = images[:1, :, None].expand(1, 3, 8, 224, 224)
+    with torch.no_grad():
+        toks = xclip.visual(one)
+        _, raw = clip.visual(images[:1])
+        want = clip.visual.ln_post(raw)[0]
+    spread = max(rel_l2(toks[f], toks[0]) for f in range(1, 8))
+    to_clip = rel_l2(toks[0], want)
+    if max(spread, to_clip) > CLIP_INFLATE_TOL:
+        fail(f"[{tag}] inflate: frames differ by {spread}, CLIP's tokens "
+             f"by {to_clip} (tol {CLIP_INFLATE_TOL})")
+    out["inflate"] = {"frames_rel_l2_max": spread,
+                      "clip_tokens_rel_l2": to_clip}
+    out["launches"] = {r["key"]: sum(getattr(r["wrapper"], c)
+                                     for c in _counters(r))
+                       for r in report if any(getattr(r["wrapper"], c)
+                                              for c in _counters(r))}
+    if out["launches"]:
+        fail(f"[{tag}] a kernel launched: {out['launches']}")
+    print(f"[{tag}] {json.dumps(out)} | {CARD}", flush=True)
+    del models, xclip, clip
+
+
 def _phases(report, files_root, tok_dir):
-    """Phases 3-35 in their order (see the module docstring); ``tok_dir``
+    """Phases 3-39 in their order (see the module docstring); ``tok_dir``
     holds the instruct tokenizer files of phases 25-26."""
     from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
 
@@ -6174,6 +6687,20 @@ def _phases(report, files_root, tok_dir):
         phase_alpro(report, out_dir)
     print(f"[bert_family] phases 33-35 in "
           f"{time.perf_counter() - t_bert:.1f} s | {CARD}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # phases 36-39, the image-era family
+    t_image = time.perf_counter()
+    with tempfile.TemporaryDirectory() as img_dir, \
+            tempfile.TemporaryDirectory() as out_dir:
+        ann = phase_images_written(img_dir)
+        for phase in (phase_image_pretrain, phase_eva_pretrain, phase_coca):
+            phase(report, out_dir, ann)
+            gc.collect()
+            torch.cuda.empty_cache()
+        phase_clip(report, ann)
+    print(f"[image_family] phases 36-39 in "
+          f"{time.perf_counter() - t_image:.1f} s | {CARD}", flush=True)
 
 
 def main():

@@ -404,10 +404,23 @@ def test_numeric_csv_ids_find_their_files(files):
         assert port[i]["index"] == i
 
 
-def test_remote_video_root_raises_naming_the_roadmap():
-    for root in ("oss://bucket/videos", "https://host/videos"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tds.VideoDataset([], root)
+def test_remote_video_root_raises_naming_the_roadmap(monkeypatch, tmp_path):
+    """A remote root is read now (``data/remote_io``, held against JAX's
+    in tests/test_torch_image_data.py): the dataset names each video by
+    its URI, and an oss:// read without the ``oss2`` package raises an
+    ImportError naming it, before any network access.  The name is the
+    one it had when a remote root raised NotImplementedError."""
+    import sys
+
+    from youku_mplug_tpu_torch.data import remote_io
+
+    monkeypatch.setitem(sys.modules, "oss2", None)
+    remote_io._BUCKETS.clear()
+    for root in ("oss://bucket/videos", "https://host/videos/"):
+        ds = tds.VideoDataset([{"video_id": "a.mp4"}], root)
+        assert ds._video_path(ds.ann[0]) == root.rstrip("/") + "/a.mp4"
+    with pytest.raises(ImportError, match="oss2"):
+        remote_io.fetch("oss://bucket/videos/a.mp4", cache_dir=str(tmp_path))
 
 
 @pytest.mark.parametrize("train", [True, False])

@@ -1,7 +1,8 @@
 """The port imports without jax (the checkpoint importers, the serving
 export, the optimizer zoo and the schedulers included, which also read safetensors files with the safetensors
-package blocked), and its kernel wrappers take their plain versions only
-for CPU tensors (never a silent fallback)."""
+package blocked; the image-era modules with ``regex``, ``ftfy`` and
+``oss2`` absent too), and its kernel wrappers take their plain versions
+only for CPU tensors (never a silent fallback)."""
 
 import subprocess
 import sys
@@ -20,6 +21,8 @@ _NO_JAX = textwrap.dedent("""
     import importlib, pkgutil, sys
     sys.modules["jax"] = None       # any import of jax now raises
     sys.modules["flax"] = None
+    sys.modules["regex"] = None     # nor the CLIP tokenizer's regex / ftfy
+    sys.modules["ftfy"] = None
     import youku_mplug_tpu_torch as pkg
     names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                    pkg.__name__ + ".")]
@@ -40,11 +43,16 @@ _NO_JAX = textwrap.dedent("""
                  "models.hf_tokenizer", "optim.zoo", "optim.schedulers",
                  "models.bert", "models.mplug", "models.alpro",
                  "cli.run_mplug_pretrain", "cli.run_mplug_downstream",
-                 "cli.run_alpro"):
+                 "cli.run_alpro", "models.gpt2_multimodal", "models.clip",
+                 "models.clip_video", "models.clip_tokenizer",
+                 "data.image_datasets", "data.pretrain_transforms",
+                 "data.vg_transforms", "data.refer", "data.remote_io",
+                 "evals.grounding", "evals.vqa"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",
-                                           "youku_mplug_tpu")
+                                           "youku_mplug_tpu", "regex",
+                                           "ftfy", "oss2")
                     and sys.modules[m] is not None)
     assert not leaked, leaked
     print(len(names))

@@ -535,6 +535,48 @@ def test_flash_d80_plain_matches_pallas_interpret(sq, sk, causal, kv_len):
         assert not got[2][:, :, kv_len:].any()
 
 
+@pytest.mark.parametrize("sq,sk,causal,kv_len", [
+    # EVA-ViT-g's AttentionPool: 128 queries over 1 + 256 patches and the
+    # bias key
+    pytest.param(128, 258, False, None, id="eva-128-258"),
+    # the edges of the D-wide tiles: ragged queries, a padded kv_len,
+    # causal over a ragged tail
+    pytest.param(100, 300, False, 270, id="ragged-kv_len-270"),
+    pytest.param(130, 130, True, None, id="causal-130"),
+])
+def test_flash_d88_plain_matches_pallas_interpret(sq, sk, causal, kv_len):
+    """K4 and K4b at head dim 88 (EVA-ViT-g's AttentionPool, 16 heads of
+    88; here 2 heads): the forward and jax.vjp of the Pallas head-major
+    kernel in interpret mode (the JAX wrapper pads only the sequence)
+    against flash_fwd_plain, the port's ``flash_attention`` and
+    flash_bwd_plain on the same q, k, v, dO; keys at or past kv_len get
+    exactly zero dk and dv."""
+    from youku_mplug_tpu_torch.ops.flash_attention import flash_bwd_plain
+
+    rng = np.random.default_rng(88 + sq + sk + causal)
+    b, h, d = 1, 2, 88
+    q, do = (rng.normal(size=(b, h, sq, d)).astype(np.float32)
+             for _ in range(2))
+    k, v = (rng.normal(size=(b, h, sk, d)).astype(np.float32)
+            for _ in range(2))
+    with _interpret():
+        out, vjp = jax.vjp(lambda q_, k_, v_: jfa.flash_attention(
+            q_, k_, v_, causal=causal, kv_len=kv_len), jnp.asarray(q),
+            jnp.asarray(k), jnp.asarray(v))
+        want = vjp(jnp.asarray(do))
+    kw = dict(scale=d ** -0.5, causal=causal, kv_len=kv_len)
+    o, lse = flash_fwd_plain(_t(q), _t(k), _t(v), **kw)
+    _close(o, out)
+    _close(flash_attention(_t(q), _t(k), _t(v), causal=causal,
+                           kv_len=kv_len), out)
+    got = flash_bwd_plain(_t(q), _t(k), _t(v), o, lse, _t(do), **kw)
+    for g, w in zip(got, want):
+        _close(g, w)
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any()
+        assert not got[2][:, :, kv_len:].any()
+
+
 @pytest.mark.parametrize("causal,kv_len", [(False, None), (True, None),
                                            (False, 9)])
 def test_flash_bwd_plain_matches_autograd_of_mha_reference(causal, kv_len):
@@ -1145,6 +1187,41 @@ def test_cuda_flash_d96_matches_plain(cuda_device, rows, sq, sk, n, causal,
 
 
 @pytest.mark.cuda
+def test_cuda_flash_d88_attention_pool_counts_and_matches_plain(cuda_device):
+    """EVA-ViT-g's AttentionPool call at head dim 88 through
+    ``dot_product_attention`` and the autograd Function: q [2, 16, 128,
+    88] over 258 keys launches the forward, dq and dk/dv once each on the
+    d88 counters (no other counter moves), and its output and gradients
+    match the plain autograd of the same call."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+    from youku_mplug_tpu_torch.ops.attention import dot_product_attention
+
+    rng = np.random.default_rng(88)
+    n, d = 16, 88
+    q = _bf16(rng, 2, 128, n * d, device=cuda_device)
+    k, v = (_bf16(rng, 2, 258, n * d, device=cuda_device)
+            for _ in range(2))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    fns = (fa.flash_attention, fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda)
+    attrs = ("launches", "d80_launches", "d88_launches", "d96_launches")
+    before = [[getattr(f, a) for a in attrs] for f in fns]
+    out = dot_product_attention(*(t.unflatten(-1, (n, d)).transpose(1, 2)
+                                  for t in leaves))
+    do = _bf16(rng, *out.shape, device=cuda_device)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    after = [[getattr(f, a) for a in attrs] for f in fns]
+    assert after == [[a, b, c + 1, e] for a, b, c, e in before]
+    plain = [t.clone().float().requires_grad_() for t in (q, k, v)]
+    want = fa.flash_attention_plain(*(t.unflatten(-1, (n, d)).transpose(
+        1, 2) for t in plain))
+    want_grads = torch.autograd.grad(want, plain, do.float())
+    _bf16_close(out, want.to(torch.bfloat16))
+    for g, w in zip(grads, want_grads):
+        assert _rel_l2(g, w) <= 2.0 ** -7
+
+
+@pytest.mark.cuda
 def test_cuda_flash_d96_autograd_counts_and_refuses_alibi(cuda_device):
     """AttentionPool's call through the autograd Function at head dim 96:
     one forward, dq and dk/dv launch each on the d96 counters, gradients
@@ -1243,17 +1320,19 @@ def test_cuda_flash_d80_matches_plain(cuda_device, rows, sq, sk, n, causal,
 WIDE_BWD_EDGES = [(128, 1570, False, None), (100, 300, False, None),
                   (128, 1570, False, 1500), (208, 208, True, None),
                   (256, 1570, False, 1500)]
-WIDE_BWD_CASES = [(d, *edge) for d in (80, 96) for edge in WIDE_BWD_EDGES]
+WIDE_BWD_CASES = [(d, *edge) for d in (80, 88, 96)
+                  for edge in WIDE_BWD_EDGES]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d,sq,sk,causal,kv_len", WIDE_BWD_CASES)
 def test_cuda_flash_bwd_wide_edges_match_plain(cuda_device, d, sq, sk,
                                                causal, kv_len):
-    """The dq and dk/dv kernels at head dims 80 and 96 against
+    """The dq and dk/dv kernels at head dims 80, 88 and 96 against
     flash_bwd_plain at relative L2 2^-7, on strided head views as the
     models hand them over (d 80: the 2.7B decoder's fused [B, S, 3 n d]
-    qkv row; d 96: AttentionPool's separate [B, S, n d] projections), each
+    qkv row; d 88 and 96: AttentionPool's separate [B, S, n d]
+    projections), each
     gradient written into the even heads of a NaN-filled packed buffer
     whose other heads stay untouched; keys at or past kv_len get exactly
     zero; the short-query launch counter rises exactly when that kernel
@@ -1293,7 +1372,7 @@ def test_cuda_flash_bwd_wide_edges_match_plain(cuda_device, d, sq, sk,
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 80, 96, 128])
+@pytest.mark.parametrize("d", [64, 80, 88, 96, 128])
 def test_cuda_flash_bwd_delta_matches_plain(cuda_device, d):
     """The backward's delta kernel (rowsum(dO * O) in fp32) against its
     plain version on head views of a fused [B, S, 3 n d] row (O) and of

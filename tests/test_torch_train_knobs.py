@@ -307,10 +307,13 @@ def test_vision_rate_zero_equals_jax_and_the_deterministic_forward(kind):
 def test_vision_attention_dropout_takes_the_plain_path(kind):
     """JAX's rule: attention dropout leaves the flash kernel (every
     attention call goes to mha_reference with the rate); without it the
-    packed kernel runs; the same seed gives the same output."""
+    packed kernel runs (at 192 px: 145 spatial tokens, temporal groups of
+    48 patches x 2 frames, each a sequence the packed kernel takes); the
+    same seed gives the same output."""
     from youku_mplug_tpu_torch.ops import flash_attention as fa
 
-    enc, cfg = _tower(kind, attn_drop_rate=0.2, embed_dim=128, num_heads=2)
+    enc, cfg = _tower(kind, attn_drop_rate=0.2, embed_dim=128, num_heads=2,
+                      img_size=192)
     x = _tower_input(kind, cfg)
     # two attentions a space-time block (temporal, spatial), one a plain
     calls = 2 * cfg.depth if kind == "timesformer" else cfg.depth

@@ -99,6 +99,47 @@ def test_vision_attention_matches_jax(period, fold):
     assert "k_bias" not in dict(tmod.named_parameters())
 
 
+@pytest.mark.parametrize("n,d,s,period,packed", [
+    (2, 64, 197, 0, True),    # a ViT-B/16 frame: 197 tokens
+    (2, 64, 50, 0, False),    # a 112 px image: 50 tokens, under 128
+    (2, 64, 112, 8, True),    # 14 patches x 8 frames, period 8
+    (2, 64, 12, 3, False),    # 4 patches x 3 frames: not a multiple of 8
+    (2, 64, 16, 8, True),     # one group of 2 x 8
+    (4, 88, 257, 0, False),   # EVA-ViT-g's heads: no packed geometry
+])
+def test_vision_attention_route_follows_jax(n, d, s, period, packed):
+    """VisionAttention takes the packed flash kernel exactly where JAX's
+    rule does (``vision.py:243-247``: the head geometry, and 128 tokens or
+    more, or a multiple of 8 under a period mask), else einsum attention;
+    the two routes give the same output."""
+    import unittest.mock as mock
+
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    assert tvision.packed_kernel_takes(n, d, s, period) == packed
+    torch.manual_seed(0)
+    attn = tvision.VisionAttention(n * d, n, FP32_POLICY.param_dtype)
+    bridge.seeded_init(attn, 0, std=0.05)
+    x = torch.randn(2, s, n * d)
+    with mock.patch.object(tvision, "flash_attention_packed",
+                           wraps=fa.flash_attention_packed) as flash, \
+            mock.patch.object(tvision, "_einsum_attention",
+                              wraps=tvision._einsum_attention) as einsum:
+        got = attn(x, period=period)
+    assert (flash.call_count, einsum.call_count) == (int(packed),
+                                                    int(not packed))
+    # the other route on the same call
+    other = (tvision._einsum_attention if packed else
+             lambda q_, k_, v_, n_, p_: fa.flash_attention_packed(
+                 q_, k_, v_, n_, period=p_))
+    with mock.patch.object(tvision, "flash_attention_packed",
+                           lambda q_, k_, v_, n_, period=0: other(
+                               q_, k_, v_, n_, period)), \
+            mock.patch.object(tvision, "_einsum_attention", other):
+        want = attn(x, period=period)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
 def test_space_time_block_matches_jax():
     """Shared cls updated as the mean over frames; n-major tokens; g=4
     patches x 2 frames per temporal call (period 2)."""

@@ -254,7 +254,9 @@ _TRUNC2_STD = 0.87962566103423978  # std of a standard normal cut at +-2
 
 
 def _vision_rule(name: str, leaf: str):
-    """TimeSformer / VisionTransformer leaves (``name`` below the tower):
+    """TimeSformer / VisionTransformer leaves (``name`` below the tower;
+    the plain ViT's blocks scale ``proj`` and ``fc2`` alike, vision.py:624-
+    643):
     truncated normals of std 0.015 (vision.py:120-129); the spatial
     attention's ``proj`` and the MLP's ``fc2`` divided by sqrt(2 x
     layer_id) (vision.py:433, :624); ``temporal_fc`` zero past block 1
@@ -286,7 +288,7 @@ def _jax_rule(module: nn.Module, name: str, lora_stds: Dict[str, float]):
         # every bias, LayerNorm's included, and AttentionPool's bias_k /
         # bias_v (vision.py:711-715)
         return ("const", 0.0)
-    if root == "visual_encoder":
+    if root in ("visual_encoder", "image_encoder"):
         return _vision_rule(rest, leaf)
     if hasattr(cfg, "bert"):  # mPLUG / ALPRO (mplug.py, alpro.py)
         if root in ("visn_fc", "vision_proj", "text_proj", "itm_head",

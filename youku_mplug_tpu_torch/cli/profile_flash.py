@@ -1,7 +1,8 @@
 """Times the flash kernels at the paths' shapes, beside SDPA.
 
-Forward (the default): for each shape of ``SHAPES`` (K4 at head dims 80
-and 96, as the GPT-3 2.7B decoder and clip-b16's AttentionPool call it,
+Forward (the default): for each shape of ``SHAPES`` (K4 at head dims 80,
+88 and 96, as the GPT-3 2.7B decoder, EVA-ViT-g's and clip-b16's
+AttentionPool call it,
 and K1 / K4 at head dims 64 and 128 for reference) it checks
 ``flash_fwd_cuda`` against ``flash_fwd_plain`` and times, with CUDA
 events over ``--iters`` calls after a warm-up, the kernel and
@@ -10,8 +11,8 @@ yardstick; the port never calls it), in turns (SDPA, kernel, kernel,
 SDPA: the median of each pair's means is kept).
 
 Backward (``--backward``): for each shape of ``BWD_SHAPES`` (K4b at head
-dims 96 and 80 on the clip-b16 train steps and the 2.7B decoder's
-dropout-free pass, K4b and K2/K3 at 64 and 128, with and without ALiBi,
+dims 96, 80 and 88 on the clip-b16 train steps, the 2.7B decoder's
+dropout-free pass and EVA-ViT-g's image pretrain step, K4b and K2/K3 at 64 and 128, with and without ALiBi,
 for reference) it checks ``flash_bwd_cuda`` against ``flash_bwd_plain``
 (relative L2 per gradient) and times, in turns (SDPA, kernels, kernels,
 SDPA), SDPA's backward alone (``torch.autograd.grad`` of
@@ -61,6 +62,7 @@ SHAPES = [
     ("K4-d96 caption27_train", 24, 8, 128, 3138, 96, False, "heads"),
     ("K4-d96 cls_eval", 4, 8, 128, 1570, 96, False, "heads"),
     ("K4-d96 itm_eval", 4, 8, 128, 786, 96, False, "heads"),
+    ("K4-d88 eva_pretrain", 16, 16, 128, 258, 88, False, "heads"),
     ("K1-d64 cls_eval", 180, 32, 208, 208, 64, True, "qkv"),
     ("K4-d64 serve", 8, 12, 128, 1570, 64, False, "heads"),
     ("K1-d64 spatial serve", 64, 12, 197, 197, 64, False, "qkv"),
@@ -78,6 +80,7 @@ BWD_SHAPES = [
      False),
     ("K4b-d80 dropout-free train", 32, 32, 208, 208, 80, True, "qkv",
      False),
+    ("K4b-d88 eva_pretrain", 16, 16, 128, 258, 88, False, "heads", False),
     ("K4b-d64 pretrain", 16, 12, 128, 1570, 64, False, "heads", False),
     ("K2/K3-d64 spatial pretrain", 128, 12, 197, 197, 64, False, "qkv",
      False),

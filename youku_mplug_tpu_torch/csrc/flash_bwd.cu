@@ -1,6 +1,6 @@
 // Flash attention backward for Hopper (sm_90a): bf16 in, fp32 accumulation,
-// head dim 64, 80, 96 or 128, optionally (64 and 128) with the ALiBi bias
-// of the Bloom decoder.
+// head dim 64, 80, 88, 96 or 128, optionally (64 and 128) with the ALiBi
+// bias of the Bloom decoder.
 //
 // Replaces the Pallas TPU backward kernels of
 // youku_mplug_tpu/ops/flash_attention.py:
@@ -29,7 +29,7 @@
 // accumulators (S, dP, or S^T, dP^T) turned into p and dS in registers and
 // fed straight back as the register A operand of the next product; only
 // tiles stay in shared memory, and the streamed tiles come through a
-// cp.async ring (two stages; three for dk/dv at d 80 and 96):
+// cp.async ring (two stages; three for dk/dv at d 80, 88 and 96):
 //   - dq kernel: one block per (64-query tile, head, batch), Q and dO
 //     resident, K and V streaming; S = Q K^T and dP = dO V^T (m64n64,
 //     both operands K-major), dQ += dS K (m64nD, K read MN-major).
@@ -67,6 +67,15 @@
 // short-query dk/dv 98 KB at d 96.  The dq builds are made
 // for the blocks an SM of kDqMinBlocks below (3 at d 80 and 96); the
 // dk/dv builds hold 2 (3 at d 64).
+//
+// Head dim 88 (EVA-ViT-g's AttentionPool) runs d 96's tiles and rings
+// with the tail's columns 88-95 zero in shared memory (hopper.cuh's
+// WideTile): S and dP (and their transposes) take two k16 steps on the
+// tail, where the zeros add nothing; dQ, dK and dV are m64n64k16 on the
+// panel plus m64n24k16 on the tail's 24 real columns into 44-value
+// accumulators, and no column past 87 is stored.  dk/dv takes the
+// key-tile kernel (the short-query one is built at d 96 only); shared
+// memory as d 96: dq 73 KB (3 blocks an SM), dk/dv 100 KB (2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -89,12 +98,13 @@ struct Mask {
 // Two resident D-wide tiles, then the ring's stages, each two streamed
 // tiles and (dk/dv only) 64 lse and 64 delta values in a 1 KB slot, so
 // that every panel stays 1024-byte aligned.  The ring is one tile ahead,
-// two ahead for dk/dv at d 80 and 96 (measured 1-2% faster there than
-// one ahead, PERF.md; either way 2 blocks an SM, which the registers
-// set).
+// two ahead for dk/dv at d 80, 88 and 96 (measured 1-2% faster at 80 and
+// 96 than one ahead, PERF.md; either way 2 blocks an SM, which the
+// registers set).
 template <int D, bool kDkv>
 struct BwdSmem {
-  static constexpr int kStages = kDkv && (D == 80 || D == 96) ? 3 : 2;
+  static constexpr int kStages = kDkv && (D == 80 || D == 88 || D == 96)
+                                     ? 3 : 2;
   static constexpr int kTile = WideTile<D>::kBytes;
   static constexpr int kStats = kDkv ? 1024 : 0;  // lse and delta
   static constexpr int kStage = 2 * kTile + kStats;
@@ -112,7 +122,7 @@ static_assert(BwdSmem<128, true>::kAlloc <= kMaxSmem, "tiles exceed 227 KB");
 // every dk/dv build (at 80 and 96 its 160 accumulator and score values a
 // thread spill under a cap of 168), take nvcc's own choice.
 template <int D, bool kAlibi>
-constexpr int kDqMinBlocks = D == 80 || D == 96  ? 3
+constexpr int kDqMinBlocks = D == 80 || D == 88 || D == 96 ? 3
                              : D == 64 && !kAlibi ? 4
                                                   : 1;
 
@@ -120,7 +130,7 @@ constexpr int kDqMinBlocks = D == 80 || D == 96  ? 3
 // thread), rows row0 + r, as bf16 into a strided tensor (rows at or past
 // `rows` skipped).  Values i and i + 1 of a thread share a row and two
 // neighbouring columns, and value i lies in column group i / 4 (8
-// columns): at d 80 and 96 the values from 32 on are the tail product's,
+// columns): at d 80, 88 and 96 the values from 32 on are the tail's,
 // columns 64 and up, as in the forward's epilogue.
 template <int D>
 __device__ __forceinline__ void store_acc(__nv_bfloat16* dst,
@@ -212,11 +222,11 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
     float s[32], dp[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < WideTile<D>::kSteps; ++kk)
       wgmma_ss_n64(s, desc_k_wide<D>(q_s, kk), desc_k_wide<D>(ks, kk),
                    kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < WideTile<D>::kSteps; ++kk)
       wgmma_ss_n64(dp, desc_k_wide<D>(do_s, kk), desc_k_wide<D>(vs, kk),
                    kk > 0);
     wg_commit();
@@ -338,11 +348,11 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
     float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < WideTile<D>::kSteps; ++kk)
       wgmma_ss_n64(st, desc_k_wide<D>(k_s, kk), desc_k_wide<D>(qs, kk),
                    kk > 0);
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < WideTile<D>::kSteps; ++kk)
       wgmma_ss_n64(dpt, desc_k_wide<D>(v_s, kk), desc_k_wide<D>(dos, kk),
                    kk > 0);
     wg_commit();
@@ -491,11 +501,11 @@ flash_bwd_dkv_short_kernel(const __nv_bfloat16* __restrict__ q,
       float st[32], dpt[32];  // S^T and dP^T: rows keys, columns queries
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < WideTile<D>::kSteps; ++kk)
         wgmma_ss_n64(st, desc_k_wide<D>(ks, kk), desc_k_wide<D>(qs, kk),
                      kk > 0);
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk)
+      for (int kk = 0; kk < WideTile<D>::kSteps; ++kk)
         wgmma_ss_n64(dpt, desc_k_wide<D>(vs, kk), desc_k_wide<D>(dos, kk),
                      kk > 0);
       wg_commit();
@@ -732,14 +742,16 @@ int blocks_per_sm(int kind, int* blocks) {
 // C entry points (loaded with ctypes).  Strides are in elements; lse and
 // delta are contiguous fp32 [B, H, Sq] buffers; kv_len <= Sk masks keys at
 // or past it; period > 0 selects the block-diagonal period mask and
-// causal != 0 the causal mask (Sq == Sk).  head_dim is 64, 80, 96 or 128;
+// causal != 0 the causal mask (Sq == Sk).  head_dim is 64, 80, 88, 96 or
+// 128;
 // slopes is null, or (64 and 128 only) an fp32 device array of H ALiBi
 // slopes (the caller requires causal with it).  The dk/dv entry's
 // short_splits 0 runs the key-tile kernel; n > 0 the short-query kernel
 // with each (head, batch)'s key tiles split n ways (head dim 96, Sq <=
 // 128, no mask but kv_len).  Each returns cudaGetLastError() after
 // its launch, or cudaErrorInvalidValue for a head dim it was not built
-// for (ALiBi at 80 and 96 included) or a short-query call it cannot take.
+// for (ALiBi at 80, 88 and 96 included) or a short-query call it cannot
+// take.
 extern "C" int ymt_flash_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const void* lse, const void* delta, void* dq, int B, int H, int Sq,
@@ -759,6 +771,7 @@ extern "C" int ymt_flash_bwd_dq_bf16(
   if (head_dim == 64) return alibi ? YMT_DQ(64, true) : YMT_DQ(64, false);
   if (head_dim == 128) return alibi ? YMT_DQ(128, true) : YMT_DQ(128, false);
   if (head_dim == 80 && !alibi) return YMT_DQ(80, false);
+  if (head_dim == 88 && !alibi) return YMT_DQ(88, false);
   if (head_dim == 96 && !alibi) return YMT_DQ(96, false);
 #undef YMT_DQ
   return (int)cudaErrorInvalidValue;
@@ -786,6 +799,7 @@ extern "C" int ymt_flash_bwd_dkv_bf16(
   if (head_dim == 128)
     return alibi ? YMT_DKV(128, true) : YMT_DKV(128, false);
   if (head_dim == 80 && !alibi) return YMT_DKV(80, false);
+  if (head_dim == 88 && !alibi) return YMT_DKV(88, false);
   if (head_dim == 96 && !alibi) return YMT_DKV(96, false);
 #undef YMT_DKV
   return (int)cudaErrorInvalidValue;
@@ -806,6 +820,7 @@ extern "C" int ymt_flash_bwd_blocks_per_sm(int head_dim, int alibi, int kind,
     return alibi ? blocks_per_sm<128, true>(kind, blocks)
                  : blocks_per_sm<128, false>(kind, blocks);
   if (head_dim == 80 && !alibi) return blocks_per_sm<80, false>(kind, blocks);
+  if (head_dim == 88 && !alibi) return blocks_per_sm<88, false>(kind, blocks);
   if (head_dim == 96 && !alibi) return blocks_per_sm<96, false>(kind, blocks);
   return (int)cudaErrorInvalidValue;
 }
@@ -831,6 +846,7 @@ extern "C" int ymt_flash_bwd_delta_bf16(const void* o, const void* dout,
       H, Sq, o_sb, o_sh, o_ss, do_sb, do_sh, do_ss)
   if (head_dim == 64) YMT_DELTA(64);
   else if (head_dim == 80) YMT_DELTA(80);
+  else if (head_dim == 88) YMT_DELTA(88);
   else if (head_dim == 96) YMT_DELTA(96);
   else if (head_dim == 128) YMT_DELTA(128);
   else return (int)cudaErrorInvalidValue;

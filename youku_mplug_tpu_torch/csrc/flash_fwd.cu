@@ -1,6 +1,6 @@
 // Flash attention forward for Hopper (sm_90a), bf16 in, fp32 softmax, head
-// dim 64, 80, 96 or 128 on tiles D wide, optionally (64 and 128) with the
-// ALiBi bias of the Bloom decoder.
+// dim 64, 80, 88, 96 or 128 on tiles D wide, optionally (64 and 128) with
+// the ALiBi bias of the Bloom decoder.
 //
 // Replaces two Pallas TPU kernels of youku_mplug_tpu/ops/flash_attention.py:
 //   - _fwd_kernel_packed (packed [B, S, n*d] layout; mask modes none,
@@ -51,9 +51,9 @@
 // accumulator layout.  The softmax runs in base 2 (scores times log2 e,
 // exp2, lse converted back to base e); a key tile that every row of the
 // query tile sees whole skips the mask arithmetic.  One template on (D,
-// ALiBi) gives the six builds; shared memory is Q plus the K/V ring:
-// 41 KB at d = 64, 51 KB at 80, 49 KB at 96 (a three-slot ring), 81 KB at
-// 128.
+// ALiBi) gives the seven builds; shared memory is Q plus the K/V ring:
+// 41 KB at d = 64, 51 KB at 80, 49 KB at 88 and 96 (a three-slot ring),
+// 81 KB at 128.
 //
 // Head dims 80 (the GPT-3 2.7B decoder, 32 heads of 80) and 96 (clip-b16's
 // AttentionPool, 8 heads of 96) run on D-wide tiles (hopper.cuh's
@@ -67,6 +67,16 @@
 // d = 128), which is what hides one block's prologue (its Q tile and first
 // K/V tile) behind the others' products at the 2.7B decoder's causal
 // shape, where a block walks 1-4 key tiles.
+//
+// Head dim 88 (EVA-ViT-g's AttentionPool, 16 heads of 88: 128 queries over
+// 258 keys in the image pretrain step) runs d 96's tiles with the tail's
+// columns 88-95 zero in shared memory (hopper.cuh's WideTile): rows of 176
+// bytes are eleven 16-byte chunks, the twelfth zero-filled by cp.async, so
+// nothing is padded through HBM and the caller copies nothing.  S = Q K^T
+// takes two k16 steps on the tail, where the zeros add nothing; O += P V
+// is m64n64k16 on the panel plus m64n24k16 on the tail's real columns,
+// into a 44-value accumulator; no column past 87 is stored.  The three-
+// slot ring and the 3 blocks an SM of d 96 hold.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -82,7 +92,8 @@ namespace {
 // warpgroups a block sharing each K/V tile, and issuing the next tile's
 // S product before this tile's softmax all measured slower on the H100 at
 // the paths' shapes (PERF.md).  At d = 64, 80 and 128 it holds two stages
-// of (K, V).  At d = 96 it is three slots that the sequence K_0, V_0, K_1,
+// of (K, V).  At d = 96 (and 88, on its tiles) it is three slots that the
+// sequence K_0, V_0, K_1,
 // V_1, ... takes in turn (element t in slot t % 3): K_j+1 goes into
 // V_j-1's slot once PV_j-1 is done, V_j+1 into K_j's once S_j is done, so
 // each copy still has one tile's work to land in, and S_j waits for K_j
@@ -90,7 +101,7 @@ namespace {
 // slower at d = 80 (PERF.md).
 template <int D>
 struct FwdSmem {
-  static constexpr bool kThree = D == 96;
+  static constexpr bool kThree = D == 96 || D == 88;
   static constexpr int kStages = 2;
   static constexpr int kTile = WideTile<D>::kBytes;  // one tile
   static constexpr int kQ = 0;
@@ -105,10 +116,10 @@ static_assert(FwdSmem<128>::kAlloc <= kMaxSmem, "d = 128 tiles exceed 227 KB");
 // register cap this asks of nvcc (128 a thread) makes the registers admit
 // as many; at d = 96 the cap is 168 a thread, 3 blocks (4 would need 128
 // registers, and nvcc then spills).  d = 64 and 128 keep nvcc's own
-// choice.  ymt_flash_fwd_blocks_per_sm reads what the card makes of each
-// build.
+// choice; d 88 takes d 96's cap (its 44 accumulator values fit in less).
+// ymt_flash_fwd_blocks_per_sm reads what the card makes of each build.
 template <int D>
-constexpr int kFwdMinBlocks = D == 80 ? 4 : D == 96 ? 3 : 1;
+constexpr int kFwdMinBlocks = D == 80 ? 4 : D == 96 || D == 88 ? 3 : 1;
 
 template <int D, bool kAlibi>
 __global__ void __launch_bounds__(kThreads, kFwdMinBlocks<D>)
@@ -208,7 +219,7 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
     float s[32];
     wg_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
+    for (int kk = 0; kk < WideTile<D>::kSteps; ++kk)
       wgmma_ss_n64(s, desc_k_wide<D>(q_s, kk), desc_k_wide<D>(ks, kk),
                    kk > 0);
     wg_commit();
@@ -335,7 +346,8 @@ flash_fwd_merge_kernel(const float* __restrict__ o_part,
                        __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
                        int B, int H, int Sq, int splits, long long o_sb,
                        long long o_sh, long long o_ss) {
-  // columns a lane: 2 at d = 64, 3 at 80 (lanes 0-15) and 96, 4 at 128
+  // columns a lane: 2 at d = 64, 3 at 80 (lanes 0-15), 88 (lanes 0-23)
+  // and 96, 4 at 128
   constexpr int kPer = (D + 31) / 32;
   const long long row = (long long)blockIdx.x * (kThreads / 32) +
                         (threadIdx.x >> 5);
@@ -426,14 +438,14 @@ int blocks_per_sm(int* blocks) {
 // contiguous fp32 [B, H, Sq] buffer.  Keys at or past kv_len are masked
 // (the caller passes kv_len = Sk for no key mask); period > 0 selects the
 // block-diagonal period mask and causal != 0 the causal mask (Sq == Sk).
-// head_dim is 64, 80, 96 or 128; slopes is null, or (64 and 128 only) an
+// head_dim is 64, 80, 88, 96 or 128; slopes is null, or (64 and 128 only) an
 // fp32 device array of H ALiBi slopes (the caller requires causal with it).
 // splits > 1 splits
 // each block's key tiles that many ways: o_part (fp32 [splits, B, H, Sq,
 // head_dim]) and lse_part (fp32 [splits, B, H, Sq]) are then the caller's
 // scratch, and the merge kernel runs after the main one.  Returns
 // cudaGetLastError() after the launches, or cudaErrorInvalidValue for a
-// head dim it was not built for (ALiBi at 80 and 96 included) or
+// head dim it was not built for (ALiBi at 80, 88 and 96 included) or
 // splits < 1.
 extern "C" int ymt_flash_fwd_bf16(
     const void* q, const void* k, const void* v, void* o, void* lse, int B,
@@ -453,6 +465,7 @@ extern "C" int ymt_flash_fwd_bf16(
   if (head_dim == 64) return alibi ? YMT_FWD(64, true) : YMT_FWD(64, false);
   if (head_dim == 128) return alibi ? YMT_FWD(128, true) : YMT_FWD(128, false);
   if (head_dim == 80 && !alibi) return YMT_FWD(80, false);
+  if (head_dim == 88 && !alibi) return YMT_FWD(88, false);
   if (head_dim == 96 && !alibi) return YMT_FWD(96, false);
 #undef YMT_FWD
   return (int)cudaErrorInvalidValue;
@@ -472,6 +485,7 @@ extern "C" int ymt_flash_fwd_blocks_per_sm(int head_dim, int alibi,
     return alibi ? blocks_per_sm<128, true>(blocks)
                  : blocks_per_sm<128, false>(blocks);
   if (head_dim == 80 && !alibi) return blocks_per_sm<80, false>(blocks);
+  if (head_dim == 88 && !alibi) return blocks_per_sm<88, false>(blocks);
   if (head_dim == 96 && !alibi) return blocks_per_sm<96, false>(blocks);
   return (int)cudaErrorInvalidValue;
 }

@@ -4,9 +4,9 @@
 // the wgmma matrix descriptors, and the warpgroup matrix products.
 //
 // Tiles.  Every operand tile is 64 rows of a [rows, D] bf16 matrix (D 64,
-// 80, 96 or 128), kept D wide (WideTile below) by the forward and the
+// 80, 88, 96 or 128), kept D wide (WideTile below) by the forward and the
 // backward alike: D / 64 panels of [64 rows][64 values] at d 64 and 128,
-// and at 80 and 96 one such panel and a narrower tail panel.  A panel row
+// and at 80, 88 and 96 one such panel and a narrower tail panel.  A panel row
 // is 128 bytes, the 16-byte chunk c of row r stored at chunk c ^ (r % 8)
 // (the "128B swizzle" of wgmma and TMA, so the eight rows a product reads
 // together fall in different banks).  Each panel is 8 KB and 1024-byte
@@ -118,26 +118,35 @@ __device__ __forceinline__ void load_tile(uint32_t dst,
 }
 
 // The D-wide tile.  At D = 64 and 128 it is the D / 64 panels
-// of load_tile.  At D = 80 and 96 it is one panel for columns 0-63 and,
-// right after it, a tail panel of [64 rows][D - 64 values] for the rest:
-// 32-byte rows under the 32B swizzle at d 80, 64-byte rows under the 64B
-// swizzle at d 96 (the swizzle of the row's width, which wgmma reads both
-// K-major and MN-major), so no column past D is stored, copied or
-// multiplied: 10 KB a tile at d 80, 12 KB at 96.
+// of load_tile.  At D = 80, 88 and 96 it is one panel for columns 0-63
+// and, right after it, a tail panel for the rest: 32-byte rows under the
+// 32B swizzle at d 80, 64-byte rows under the 64B swizzle at d 88 and 96
+// (the swizzle of the row's width, which wgmma reads both K-major and
+// MN-major): 10 KB a tile at d 80, 12 KB at 88 and 96.  At d 88 the
+// tail's 32-column rows hold the 24 columns 64-87 and, in their last
+// 16-byte chunk, columns 88-95 as zeros (cp.async's zero-fill, never
+// read from global memory), so a product that contracts over the head
+// dim takes two k16 steps on the tail and the zeros add nothing, and a
+// product whose output columns are the head dim reads only the 24 real
+// ones (m64n24k16).  No column past D is read, stored or multiplied
+// into an output.
 template <int D>
 struct WideTile {
-  static constexpr int kTail = D % 64;        // columns of the tail panel
-  static constexpr int kTailRow = 2 * kTail;  // its bytes a row
-  static constexpr int kBytes = kRows * 2 * D;
-  static constexpr uint32_t kTailLayout = kTail == 16 ? kSwizzle32
-                                                      : kSwizzle64;
-  static_assert(kTail == 0 || kTail == 16 || kTail == 32,
-                "a tail panel is 16 or 32 columns");
+  static constexpr int kTail = D % 64;        // real columns of the tail
+  static constexpr int kTailCols = kTail == 24 ? 32 : kTail;  // stored
+  static constexpr int kTailRow = 2 * kTailCols;  // its bytes a row
+  static constexpr int kBytes = kRows * 2 * (D - kTail + kTailCols);
+  static constexpr int kSteps = (D - kTail + kTailCols) / 16;  // k16 steps
+  static constexpr uint32_t kTailLayout = kTailCols == 16 ? kSwizzle32
+                                                          : kSwizzle64;
+  static_assert(kTail == 0 || kTail == 16 || kTail == 24 || kTail == 32,
+                "a tail panel is 16, 24 or 32 columns");
 };
 
 // Rows [row0, row0 + 64) of a [rows, D] bf16 matrix into a WideTile at
 // `dst`; rows at or past `rows` read as zero.  The tail's chunks are
-// copied as the panel's: 16 bytes a thread with cp.async.
+// copied as the panel's: 16 bytes a thread with cp.async; at d 88 the
+// fourth chunk of a tail row (columns 88-95) is zero-filled.
 template <int D>
 __device__ __forceinline__ void load_tile_wide(uint32_t dst,
                                                const __nv_bfloat16* src,
@@ -148,12 +157,13 @@ __device__ __forceinline__ void load_tile_wide(uint32_t dst,
     load_tile<D>(dst, src, row_stride, row0, rows);
   } else {
     load_tile<64>(dst, src, row_stride, row0, rows);
-    constexpr int kChunks = T::kTail / 8;  // 2 or 4 a row
+    constexpr int kChunks = T::kTailCols / 8;  // 2 or 4 a row
+    constexpr int kReal = T::kTail / 8;        // of them from global: 2-4
 #pragma unroll
     for (int it = 0; it < kRows * kChunks / kThreads; ++it) {
       const int idx = threadIdx.x + it * kThreads;
       const int r = idx / kChunks, ch = idx % kChunks;
-      const bool ok = row0 + r < rows;
+      const bool ok = row0 + r < rows && ch < kReal;
       const __nv_bfloat16* g =
           ok ? src + (long long)(row0 + r) * row_stride + 64 + ch * 8 : src;
       cp_async16(dst + kPanel + swizzle(r, ch, T::kTailRow), g, ok);
@@ -196,9 +206,9 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   return make_desc(tile + kk * 2048, kPanel, 1024);
 }
 
-// K-major step kk (< D / 16) of a WideTile: steps 0-3 on the 128B panel
-// as desc_k; at d 80 and 96 steps 4 and 5 on the tail panel, 32 bytes a
-// step inside its rows, 8-row groups 8 tail rows apart.
+// K-major step kk (< WideTile<D>::kSteps) of a WideTile: steps 0-3 on the
+// 128B panel as desc_k; at d 80, 88 and 96 steps 4 and 5 on the tail
+// panel, 32 bytes a step inside its rows, 8-row groups 8 tail rows apart.
 template <int D>
 __device__ __forceinline__ uint64_t desc_k_wide(uint32_t tile, int kk) {
   using T = WideTile<D>;
@@ -208,8 +218,9 @@ __device__ __forceinline__ uint64_t desc_k_wide(uint32_t tile, int kk) {
 }
 
 // MN-major step kk (16 rows) of a WideTile's tail panel, its kTail values
-// a row the output columns 64 .. D - 1 (one swizzle atom wide, so the
-// leading offset, to a next atom along N, is never used).
+// a row the output columns 64 .. D - 1 (at most one swizzle atom wide, so
+// the leading offset, to a next atom along N, is never used; at d 88 the
+// product reads the first 24 of the atom's 32 columns).
 template <int D>
 __device__ __forceinline__ uint64_t desc_mn_tail(uint32_t tile, int kk) {
   using T = WideTile<D>;
@@ -398,10 +409,38 @@ __device__ __forceinline__ void wgmma_rs_n96(float (&d)[48],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "l"(dt), "r"(1));
 }
 
+// O[64 x 88] += A[64 x 16] B[16 x 88] on a WideTile: m64n64k16 on the
+// panel and m64n24k16 on the tail's 24 real columns, in one asm statement
+// (44 accumulator values a thread).
+__device__ __forceinline__ void wgmma_rs_n88(float (&d)[44],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db, uint64_t dt) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%44, %45, %46, %47}, %48, p, 1, 1, 1;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43}, "
+      "{%44, %45, %46, %47}, %49, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "l"(dt), "r"(1));
+}
+
 // O[64 x D] += A[64 x 16] B[16 x D], contraction step kk (16 rows) of a
-// WideTile read MN-major, at any of the four head dims (A in registers):
+// WideTile read MN-major, at any of the five head dims (A in registers):
 // one product at N = D over whole panels at d 64 and 128, the panel and
-// tail products above at 80 and 96.
+// tail products above at 80, 88 and 96.
 template <int D>
 __device__ __forceinline__ void wgmma_rs_wide(float (&d)[D / 2],
                                               const uint32_t (&a)[4],
@@ -412,6 +451,8 @@ __device__ __forceinline__ void wgmma_rs_wide(float (&d)[D / 2],
     wgmma_rs_n128(d, a, desc_mn(tile, kk));
   } else if constexpr (D == 80) {
     wgmma_rs_n80(d, a, desc_mn(tile, kk), desc_mn_tail<D>(tile, kk));
+  } else if constexpr (D == 88) {
+    wgmma_rs_n88(d, a, desc_mn(tile, kk), desc_mn_tail<D>(tile, kk));
   } else {
     wgmma_rs_n96(d, a, desc_mn(tile, kk), desc_mn_tail<D>(tile, kk));
   }

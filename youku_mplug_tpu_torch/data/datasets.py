@@ -17,13 +17,16 @@ which leaves a three-column cls CSV (``video_id:FILE, video_title,
 category_id``) with no title and the label -1.  Here a CSV with more
 columns than those two also keeps every column under its own header
 name; a two-column CSV, JSON and jsonl give JAX's rows.  A remote
-``video_root`` (``oss://``, ``http(s)://``) raises: its reader needs the
-network and is not ported (ROADMAP.md, Queue 1).
+``video_root`` (``oss://``, ``http(s)://``) is read as in JAX: each
+video is spooled to a local cache by ``data/remote_io.fetch`` and decoded
+from there, and a failed decode evicts the spool before the next try.
 
 ``SyntheticVideoDataset`` gives the samples of JAX's, bit for bit (the
 same per-index generator, caption, ``label`` (index mod
 ``num_classes``), ``match_id`` and ``index``); ``SyntheticRetrievalSplit``
 adds the fields the retrieval evaluations read from a split.
+``QAVideoDataset`` (video question answering, with ``pre_question``)
+gives JAX's samples too.
 """
 
 from __future__ import annotations
@@ -35,9 +38,8 @@ from typing import Any, Dict, List
 
 import numpy as np
 
+from youku_mplug_tpu_torch.data import remote_io
 from youku_mplug_tpu_torch.data.video_decode import read_frames
-
-REMOTE_SCHEMES = ("oss://", "http://", "https://")
 
 
 def load_jsonl(path: str) -> List[dict]:
@@ -58,6 +60,20 @@ def pre_caption(caption: str, max_words: int = 0) -> str:
         if len(words) > max_words:
             caption = " ".join(words[:max_words])
     return caption
+
+
+def pre_question(question: str, max_words: int = 0) -> str:
+    """Lower case, punctuation stripped, dashes and slashes to spaces,
+    trailing spaces dropped, at most ``max_words`` words (JAX
+    ``datasets.py:338-347``)."""
+    question = re.sub(r"([,.'!?\"()*#:;~])", "", question.lower())
+    question = question.replace("-", " ").replace("/", " ")
+    question = question.rstrip(" ")
+    if max_words > 0:
+        words = question.split(" ")
+        if len(words) > max_words:
+            question = " ".join(words[:max_words])
+    return question
 
 
 def _read_annotations(ann_file, id_key="video_id", text_key="caption"):
@@ -102,12 +118,6 @@ class VideoDataset:
     def __init__(self, ann: List[dict], video_root: str, transform=None,
                  num_frames: int = 8, sample: str = "rand", seed: int = 0,
                  decode_size: int = 0, decode_short_side: int = 0):
-        if isinstance(video_root, str) and video_root.startswith(
-                REMOTE_SCHEMES):
-            raise NotImplementedError(
-                f"remote video_root {video_root!r}: reading oss:// or "
-                "http(s):// videos needs the network and is not ported "
-                "(ROADMAP.md, Queue 1)")
         self.ann = ann
         self.video_root = video_root
         self.transform = transform
@@ -130,8 +140,11 @@ class VideoDataset:
 
     def _video_path(self, ann: dict) -> str:
         """``video_root/<id>``; an id without an extension takes the
-        first of .mp4, .avi, .mkv, .webm that exists."""
+        first of .mp4, .avi, .mkv, .webm that exists; under a remote root
+        the object's URI."""
         vid = ann.get("video_id") or ann.get("clip_name")
+        if remote_io.is_remote(self.video_root):
+            return self.video_root.rstrip("/") + "/" + str(vid)
         path = os.path.join(self.video_root, str(vid))
         if not os.path.splitext(path)[1]:
             for ext in (".mp4", ".avi", ".mkv", ".webm"):
@@ -146,7 +159,8 @@ class VideoDataset:
             kw = {"start_time": ann["start_time"],
                   "end_time": ann["end_time"]}
         return read_frames(
-            self._video_path(ann), num_frames=self.num_frames,
+            remote_io.fetch(self._video_path(ann)),
+            num_frames=self.num_frames,
             sample=self.sample, rng=rng,
             width=self.decode_size, height=self.decode_size,
             short_side=self.decode_short_side, **kw)
@@ -164,6 +178,8 @@ class VideoDataset:
                 return clip
             except Exception as e:  # a broken file: try again
                 err = e
+                # a corrupt spool would fail every try: fetch it again
+                remote_io.evict(self._video_path(self.ann[index]))
         raise IOError(f"decode failed for index {index}: {err}")
 
     def _walk(self, index: int, make):
@@ -351,3 +367,44 @@ class SyntheticRetrievalSplit(SyntheticVideoDataset):
         self.text = [f"synthetic clip {i}" for i in range(length)]
         self.vid2txt = {i: [i] for i in range(length)}
         self.txt2vid = {i: [i] for i in range(length)}
+
+
+class QAVideoDataset(VideoDataset):
+    """Video question answering (JAX ``datasets.py:350-395``): train
+    yields (clip, question, answers, weights), test (clip, question,
+    question_id) with ``answer_list`` the candidates; a failed decode
+    walks to the next index."""
+
+    def __init__(self, ann_file, video_root, transform=None, num_frames=16,
+                 max_ques_words=30, split="train", eos="[SEP]",
+                 answer_list="", seed=0, **kw):
+        ann = _read_annotations(ann_file)
+        super().__init__(ann, video_root, transform, num_frames,
+                         sample="rand" if split == "train" else "middle",
+                         seed=seed, **kw)
+        self.split = split
+        self.eos = eos
+        self.max_ques_words = 50 if split == "test" else max_ques_words
+        self.answer_list = []
+        if split == "test" and answer_list:
+            if answer_list.endswith(".json"):
+                with open(answer_list) as f:
+                    self.answer_list = list(json.load(f).keys())
+            else:
+                self.answer_list = sorted(
+                    {x["answer"] for x in load_jsonl(answer_list)})
+        for idx, a in enumerate(self.ann):
+            a["question_id"] = idx
+
+    def __getitem__(self, index):
+        def make(i):
+            clip = self._load_clip(i)
+            a = self.ann[i]
+            question = pre_question(str(a["question"]), self.max_ques_words)
+            if self.split == "train":
+                return {"video": clip, "question": question,
+                        "answers": [str(a["answer"]) + self.eos],
+                        "weights": [1.0], "index": i}
+            return {"video": clip, "question": question,
+                    "question_id": int(a["question_id"]), "index": i}
+        return self._walk(index, make)

@@ -29,7 +29,9 @@ pytest-xdist).  A spawned worker starts from a fresh interpreter and
 imports the dataset's modules (about a second).
 
 ``MetaLoader`` interleaves several loaders in a seeded order (JAX's
-``MetaLoader``), yielding (loader index, batch).
+``MetaLoader``), yielding (loader index, batch).  ``LengthBalancedLoader``
+(JAX's) orders an epoch by ``length_balanced_shard_indices``: buckets of
+similar ``get_item_length``, dealt so each step sees every bucket.
 """
 
 from __future__ import annotations
@@ -176,6 +178,57 @@ class Loader:
         finally:
             stop.set()
             thread.join()
+
+
+def length_balanced_shard_indices(lengths, epoch: int, rank: int,
+                                  world: int, num_bucket: int = 20,
+                                  seed: int = 0) -> np.ndarray:
+    """Length-bucketed balanced sharding (JAX ``loader.py:206-228``):
+    sort by length into ``num_bucket`` buckets (a seeded subset of the
+    rows, so that they divide evenly), shuffle within the buckets each
+    epoch, and deal them so that every rank sees each bucket every
+    ``num_bucket`` rows; rank ``rank`` of ``world`` gets its share in a
+    shuffled order."""
+    lengths = np.asarray(lengths)
+    order = np.argsort(lengths, kind="stable")
+    per_bucket = len(order) // num_bucket
+    samples = per_bucket // world
+    total = samples * world * num_bucket
+    g = np.random.default_rng(seed + 810975)
+    keep = np.sort(g.choice(len(order), total, replace=False))
+    order = order[keep]
+
+    g2 = np.random.default_rng(seed + epoch)
+    grid = order.reshape(num_bucket, samples * world).T  # [L, B]
+    grid = grid[g2.permutation(grid.shape[0])]
+    grid = grid.reshape(world, samples, num_bucket)
+    mine = grid[rank].reshape(-1)
+    return mine[g2.permutation(len(mine))]
+
+
+class LengthBalancedLoader(Loader):
+    """``Loader`` whose epoch order is ``length_balanced_shard_indices``
+    on one process (rank 0 of 1, as the port's loader runs); the dataset
+    must expose ``get_item_length(i)``.  JAX's ``LengthBalancedLoader``
+    on one process gives the same batches."""
+
+    def __init__(self, dataset, batch_size, *, num_bucket: int = 20, **kw):
+        super().__init__(dataset, batch_size, **kw)
+        self.num_bucket = num_bucket
+        self._lengths = [dataset.get_item_length(i)
+                         for i in range(len(dataset))]
+
+    def __len__(self):
+        n = (len(self.dataset) // self.num_bucket) * self.num_bucket
+        return n // self.batch_size if self.drop_last else \
+            -(-n // self.batch_size)
+
+    def batch_indices(self) -> List[np.ndarray]:
+        order = length_balanced_shard_indices(
+            self._lengths, self.epoch, 0, 1, num_bucket=self.num_bucket,
+            seed=self.seed)
+        return [order[i * self.batch_size:(i + 1) * self.batch_size]
+                for i in range(len(self))]
 
 
 class MetaLoader:

@@ -7,9 +7,18 @@ methods ``encode_video`` / ``encode_queries``, ``pretrain_loss``,
 ``caption_loss``, the classification ``cls_logits_from_prompt`` /
 ``cls_train_loss`` / ``cls_eval_scores``, the dual-encoder retrieval
 ``extract_vision_feature`` / ``extract_text_feature`` /
-``retrieval_loss``, and the ITM rerank ``itm_train_loss`` /
-``itm_eval_scores``; ``generate_captions``.  The image pretrain variant
-is not ported.
+``retrieval_loss``, the ITM rerank ``itm_train_loss`` /
+``itm_eval_scores``, and the image pretrain variant ``image_pretrain_loss``
+(a plain image ViT, ``image_encoder``, in place of the TimeSformer: the
+reference's ViT-B/16 or EVA-ViT-g image pretraining);
+``generate_captions``.
+
+Towers: the JAX module declares both vision towers and flax creates the
+parameters of the one a task method calls, so a video model's tree has
+``visual_encoder`` and an image-pretrain tree ``image_encoder``.  The port
+builds one: the TimeSformer by default, the plain ViT under
+``MPLUGVideo(..., image=True)`` (an EVA-ViT-g image model holds no
+40-block TimeSformer beside it).
 
 Heads: ``cls_fc1`` / ``cls_fc2`` under ``use_cls`` (``cls_fc2`` with
 ``max(num_classes, 1)`` outputs, as in JAX); ``vision_proj`` and
@@ -43,6 +52,7 @@ from youku_mplug_tpu_torch.models.vision import (
     LayerNormFP32,
     TimeSformer,
     VisionConfig,
+    VisionTransformer,
 )
 from youku_mplug_tpu_torch.ops.cross_entropy import cross_entropy_with_logits
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
@@ -123,11 +133,15 @@ def _l2_normalize(x):
 
 class MPLUGVideo(nn.Module):
     def __init__(self, cfg: MPLUGVideoConfig,
-                 policy: Policy = DEFAULT_POLICY, proj_heads: bool = False):
+                 policy: Policy = DEFAULT_POLICY, proj_heads: bool = False,
+                 image: bool = False):
         super().__init__()
         self.cfg, self.policy = cfg, policy
         v, dt = cfg.vision, policy.param_dtype
-        self.visual_encoder = TimeSformer(v, policy)
+        if image:  # the image pretrain path's tower (JAX tasks.py:128-133)
+            self.image_encoder = VisionTransformer(v, policy)
+        else:
+            self.visual_encoder = TimeSformer(v, policy)
         self.learnable_queries = nn.Parameter(
             torch.empty(1, cfg.num_learnable_token, v.embed_dim, dtype=dt),
             requires_grad=False)
@@ -156,6 +170,12 @@ class MPLUGVideo(nn.Module):
         ``generator``: the video tower's dropout masks in training
         mode."""
         pooled, image_embeds = self.visual_encoder(video, generator)
+        query_features, image_query = self._pool(image_embeds)
+        return pooled, query_features, image_query
+
+    def _pool(self, image_embeds):
+        """Learnable queries -> AttentionPool over the tower's tokens ->
+        ``visual_fc`` (-> ``visual_norm``): (query_features, image_query)."""
         b = image_embeds.shape[0]
         queries = self.learnable_queries.expand(
             b, -1, -1).to(image_embeds.dtype)
@@ -163,7 +183,21 @@ class MPLUGVideo(nn.Module):
         query_features = self.visual_fc(image_query)
         if self.cfg.connect_ln:
             query_features = self.visual_norm(query_features)
-        return pooled, query_features, image_query
+        return query_features, image_query
+
+    def image_pretrain_loss(self, images, input_ids, attention_mask,
+                            generator=None):
+        """The image variant of the pretrain objective (JAX
+        ``tasks.py:262-286``): images [B, C, H, W] through the plain ViT
+        (``image_encoder``), the learnable queries pooled over its tokens,
+        and the prefix LM loss over them.  Returns {"loss",
+        "loss_caption"} (the same fp32 scalar)."""
+        _, image_embeds = self.image_encoder(images, generator)
+        query_features, _ = self._pool(image_embeds)
+        loss = self._prefix_forward(query_features, input_ids,
+                                    attention_mask,
+                                    generator=generator)["loss"]
+        return {"loss": loss, "loss_caption": loss}
 
     def encode_queries(self, video):
         """Just the query features (the serving prefix)."""

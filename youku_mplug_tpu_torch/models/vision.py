@@ -1,6 +1,7 @@
 """Vision encoders: TimeSformer (divided space-time attention), the plain
-(CLIP-style) ViT that mPLUG-Owl runs per frame, and the AttentionPool
-visual abstractor.
+ViT (mPLUG-Owl's per-frame CLIP tower, and the image encoder of the
+image pretrain path, EVA-ViT-g among them: ``EVA_VIT_G``), and the
+AttentionPool visual abstractor.
 
 Counterpart of ``youku_mplug_tpu/models/vision.py`` (forward; training
 through autograd, with the attention backward on the flash kernels).
@@ -22,16 +23,22 @@ can lose silently, all kept here:
   [cls; tokens] before the blocks; the MLP's GELU is tanh, erf or CLIP's
   quick GELU as the config says;
 - attention runs the packed flash kernel where the JAX package's packed
-  kernel takes the head geometry (``packed_supported``); elsewhere
-  (clip-b16's 8 heads of 96) einsum attention with fp32 scores and the
-  period-block mask, as the JAX package does there.
+  kernel runs (``packed_kernel_takes``: the head geometry of
+  ``packed_supported``, and at least 128 tokens, or under a period mask a
+  multiple of 8); elsewhere (clip-b16's 8 heads of 96, EVA-ViT-g's 16 of
+  88, a short sequence) einsum attention with fp32 scores and the
+  period-block mask, as the JAX package does there;
+  AttentionPool's cross-attention goes through ``dot_product_attention``
+  (the head-major flash kernel at 128 queries, at every head dim of
+  ``HEAD_DIMS``, 88 included).
 
-Under ``grad_ckpt`` the blocks ``i % stride == 0`` run under
+Under ``grad_ckpt`` the TimeSformer's blocks ``i % stride == 0`` run under
 ``torch.utils.checkpoint`` (stride 2/3/6/12 for ``remat_policy``
 half/third/sixth/twelfth, else 1), as the JAX package remats them; its
 named-save inner policies are XLA's and are not ported (a checkpointed
 block recomputes everything, its dropout masks replayed from the
-generator state it started with).
+generator state it started with); the plain ViT checkpoints every block,
+as the JAX package remats every ``PlainBlock``.
 
 Training knobs, in training mode with a ``generator`` (the JAX
 methods' ``deterministic=False``): ``drop_rate`` drops the TimeSformer's
@@ -175,6 +182,15 @@ def _einsum_attention(q, k, v, n: int, period: int) -> torch.Tensor:
         b, s, nd)
 
 
+def packed_kernel_takes(n: int, d: int, s: int, period: int) -> bool:
+    """JAX's rule for the vision attention's packed kernel (JAX
+    ``vision.py:243-247``, ``temporal_flash`` on): the head geometry
+    (``packed_supported``), and a sequence of at least 128 tokens, or
+    under a period mask one that is a multiple of 8."""
+    return packed_supported(n, d) and (s % 8 == 0 if period > 0
+                                       else s >= 128)
+
+
 def _period_bias(s: int, period: int, device) -> Optional[torch.Tensor]:
     """fp32 [S, S]: NEG_INF between tokens of different period groups."""
     if not 0 < period < s:
@@ -185,9 +201,9 @@ def _period_bias(s: int, period: int, device) -> Optional[torch.Tensor]:
 
 
 class VisionAttention(LoRAModule):
-    """Split q/v-bias attention over the flash kernel (packed layout), or
-    einsum attention where the packed kernel has no geometry, or under
-    attention dropout ``mha_reference``."""
+    """Split q/v-bias attention over the flash kernel (packed layout)
+    where ``packed_kernel_takes`` the call, else einsum attention, or
+    under attention dropout ``mha_reference``."""
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  lora_rank: int = 0, lora_alpha: float = 16.0):
@@ -239,7 +255,7 @@ class VisionAttention(LoRAModule):
                                 bias=_period_bias(s, period, x.device),
                                 dropout_rate=attn_drop, generator=generator)
             out = out.transpose(1, 2).reshape(b, s, nd)
-        elif packed_supported(n, c // n):
+        elif packed_kernel_takes(n, c // n, s, period):
             out = flash_attention_packed(q, k, v, n, period=period)
         else:
             out = _einsum_attention(q, k, v, n, period)
@@ -439,9 +455,14 @@ class PlainBlock(nn.Module):
 
 
 class VisionTransformer(nn.Module):
-    """Plain image ViT (mPLUG-Owl's per-frame CLIP ViT-L/14):
-    forward(images [B, C, H, W]) -> (cls [B, D], tokens [B, 1 + N, D]).
-    Attention over the 1 + N tokens runs the packed flash kernel."""
+    """Plain image ViT (mPLUG-Owl's per-frame CLIP ViT-L/14, the image
+    pretrain path's encoder, ``EVA_VIT_G``): forward(images [B, C, H, W])
+    -> (cls [B, D], tokens [B, 1 + N, D]).  Attention over the 1 + N
+    tokens runs the packed flash kernel where ``packed_kernel_takes`` the
+    call (128 tokens and more at a packed head geometry), else einsum
+    attention.  Under ``grad_ckpt`` (with autograd on) every
+    block is checkpointed, its drop-path and dropout masks replayed from
+    the generator state it started with."""
 
     def __init__(self, cfg: VisionConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
@@ -468,8 +489,10 @@ class VisionTransformer(nn.Module):
         x = x + self.pos_embed.to(x.dtype)
         if cfg.clip_model:
             x = self.norm_pre(x)
+        remat = cfg.grad_ckpt and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, generator)
+            x = (checkpoint_replaying(blk, generator, x, generator)
+                 if remat else blk(x, generator))
         x = self.norm(x)
         return x[:, 0], x
 
@@ -514,3 +537,13 @@ class AttentionPool(nn.Module):
         out = _mm(out, self.out_kernel) + self.out_bias.to(dt)
         x = q_in + out  # residual on the NORMED queries
         return x + self.mlp(self.norm2(x))
+
+
+# EVA-ViT-g (JAX ``vision.py:747-753``, from the reference's
+# create_eva_vit_g): a plain pre-LN ViT with absolute position
+# embeddings, patch 14, 1408 wide, 40 blocks of 16 heads of 88, MLP
+# ratio 4.3637 (6144 wide), drop-path 0.4, every block checkpointed; the
+# image pretrain path's encoder (``MPLUGVideo(..., image=True)``).
+EVA_VIT_G = VisionConfig(
+    img_size=224, patch_size=14, embed_dim=1408, depth=40, num_heads=16,
+    mlp_ratio=4.3637, drop_path=0.4, grad_ckpt=True)

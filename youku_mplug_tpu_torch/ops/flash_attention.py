@@ -18,10 +18,12 @@ CUDA kernels serve both public wrappers, because the packed
   rowsum(dO * O), which the JAX package leaves to XLA.
 
 Each kernel is built for head dim 64 and 128, with and without ALiBi, and
-for head dims 80 and 96 without it (the GPT-3 2.7B decoder's 32 heads of
-80 and clip-b16's AttentionPool, 8 heads of 96), the forward and the
-backward alike on tiles D wide (at 80 and 96 a 128-byte panel and a 16-
-or 32-column tail panel, ``csrc/hopper.cuh``).
+for head dims 80, 88 and 96 without it (the GPT-3 2.7B decoder's 32 heads
+of 80, EVA-ViT-g's AttentionPool, 16 heads of 88, and clip-b16's, 8 heads
+of 96), the forward and the backward alike on tiles D wide (at 80, 88 and
+96 a 128-byte panel and a 16- or 32-column tail panel, ``csrc/hopper.cuh``;
+at 88 the tail's last 8 columns are zeros in shared memory, so q, k and v
+go in at their own width).
 Where the (64-row query tile, head, batch) blocks are too few to fill the
 card (AttentionPool's 128 queries over 1570 keys while serving), the
 forward splits each block's key tiles ``kv_splits`` ways into fp32
@@ -40,8 +42,9 @@ Both wrappers go through a ``torch.autograd.Function`` that saves
 plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_plain``) for CPU
 tensors and launches the kernels for CUDA tensors, or raises; it never
 falls back.  ``<wrapper>.launches`` counts kernel launches at head dim
-64 or 128 without ALiBi, ``<wrapper>.d80_launches`` and
-``<wrapper>.d96_launches`` those at head dim 80 and 96, and
+64 or 128 without ALiBi, ``<wrapper>.d80_launches``,
+``<wrapper>.d88_launches`` and ``<wrapper>.d96_launches`` those at head
+dim 80, 88 and 96, and
 ``<wrapper>.alibi_launches`` those with ALiBi: ``flash_attention_packed``
 and ``flash_attention`` the forward's, ``flash_bwd_dq_cuda`` and
 ``flash_bwd_dkv_cuda`` the backward's; ``flash_bwd_dkv_cuda.
@@ -61,7 +64,7 @@ import torch
 
 from youku_mplug_tpu_torch.ops import _native
 
-HEAD_DIMS = (64, 80, 96, 128)  # the head widths the kernels are built for
+HEAD_DIMS = (64, 80, 88, 96, 128)  # the head widths the kernels are built for
 ALIBI_HEAD_DIMS = (64, 128)  # ... and with the ALiBi bias
 TILE = 64  # rows of a query or key tile in the kernels
 SMS = 132  # the H100's streaming multiprocessors, where no card is asked
@@ -69,17 +72,18 @@ SMS = 132  # the H100's streaming multiprocessors, where no card is asked
 # at d 64 registers allow 4 (41 KB of shared memory would allow 5); at
 # d 80 the D-wide tiles' 51 KB allow 4 and the build is capped at 128
 # registers so that they fit; at d 96 the build's cap of 168 registers
-# allows 3 (its 49 KB would allow 4); at d 128, 81 KB, 2.  chip_smoke.py
-# holds these against the card's own count (fwd_blocks_per_sm)
-FWD_BLOCKS_PER_SM = {64: 4, 80: 4, 96: 3, 128: 2}
+# allows 3 (its 49 KB would allow 4), and d 88 on d 96's tiles the same;
+# at d 128, 81 KB, 2.  chip_smoke.py holds these against the card's own
+# count (fwd_blocks_per_sm)
+FWD_BLOCKS_PER_SM = {64: 4, 80: 4, 88: 3, 96: 3, 128: 2}
 # the backward's blocks resident on one multiprocessor, by head dim: (dq,
-# dk/dv, short-query dk/dv; None where that kernel is not built).  At d 80
-# and 96 the dq build is capped at 168 registers so that 3 of its 61 or
+# dk/dv, short-query dk/dv; None where that kernel is not built).  At d 80,
+# 88 and 96 the dq build is capped at 168 registers so that 3 of its 61 or
 # 73 KB blocks fit, at d 64 at 128 for 4; the dk/dv builds hold 168-255
 # registers a thread, 3 blocks at d 64 and 2 elsewhere.  chip_smoke.py
 # holds these against the card's own count (bwd_blocks_per_sm)
-BWD_BLOCKS_PER_SM = {64: (4, 3, None), 80: (3, 2, None), 96: (3, 2, 2),
-                     128: (2, 2, None)}
+BWD_BLOCKS_PER_SM = {64: (4, 3, None), 80: (3, 2, None), 88: (3, 2, None),
+                     96: (3, 2, 2), 128: (2, 2, None)}
 SHORT_HEAD_DIMS = (96,)  # the short-query dk/dv kernel's build
 SHORT_SQ = 2 * TILE  # ... which keeps at most this many queries resident
 # key tiles a short-query dk/dv block walks, at most: its share of a
@@ -314,6 +318,8 @@ def _count(fn, alibi_slopes, head_dim: int) -> None:
         fn.alibi_launches += 1
     elif head_dim == 80:
         fn.d80_launches += 1
+    elif head_dim == 88:
+        fn.d88_launches += 1
     elif head_dim == 96:
         fn.d96_launches += 1
     else:
@@ -333,7 +339,7 @@ def flash_fwd_cuda(q, k, v, o, *, scale: float, causal: bool = False,
                    period: int = 0, kv_len: Optional[int] = None,
                    alibi_slopes: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """Launch the forward kernel on [B,H,S,D] views, D 64, 80, 96 or 128 (any
+    """Launch the forward kernel on [B,H,S,D] views, D 64, 80, 88, 96 or 128 (any
     batch/head/sequence strides), writing ``o`` in place.  Returns the
     fp32 lse [B,H,Sq]."""
     b, h, sq, d = q.shape
@@ -420,6 +426,7 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, *, scale: float,
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.d80_launches = 0
+flash_bwd_dq_cuda.d88_launches = 0
 flash_bwd_dq_cuda.d96_launches = 0
 flash_bwd_dq_cuda.alibi_launches = 0
 
@@ -465,6 +472,7 @@ def _launch_dkv(q, k, v, do, lse, delta, dk, dv, *, scale, causal, period,
 
 flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.d80_launches = 0
+flash_bwd_dkv_cuda.d88_launches = 0
 flash_bwd_dkv_cuda.d96_launches = 0
 flash_bwd_dkv_cuda.alibi_launches = 0
 # ... and of those at head dim 96, the short-query kernel's
@@ -524,8 +532,9 @@ class _Flash(torch.autograd.Function):
     """Attention over [B, H, S, D] views with the flash backward.  Saves
     (q, k, v, o, lse); the plain versions run for CPU tensors, the kernels
     for CUDA tensors (each forward launch adds one to ``counter.launches``,
-    to ``counter.d80_launches`` or ``counter.d96_launches`` at head dim 80
-    or 96, or to ``counter.alibi_launches`` with ALiBi)."""
+    to ``counter.d80_launches``, ``counter.d88_launches`` or
+    ``counter.d96_launches`` at head dim 80, 88 or 96, or to
+    ``counter.alibi_launches`` with ALiBi)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw, counter):
@@ -612,6 +621,7 @@ def flash_attention_packed(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_packed.launches = 0
 flash_attention_packed.d80_launches = 0
+flash_attention_packed.d88_launches = 0
 flash_attention_packed.d96_launches = 0
 flash_attention_packed.alibi_launches = 0
 
@@ -642,5 +652,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 flash_attention.launches = 0
 flash_attention.d80_launches = 0
+flash_attention.d88_launches = 0
 flash_attention.d96_launches = 0
 flash_attention.alibi_launches = 0
