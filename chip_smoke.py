@@ -376,7 +376,34 @@ the last line is printed):
    seeded ids, XCLIP over 16 clips of 8 frames at 224: bf16 against fp32
    on the card within CLIP_BF16_TOL, the inflate contract within
    CLIP_INFLATE_TOL, no kernel launched (plain attention, as in JAX);
-   [image_family] prints the four phases' total.
+   [image_family] prints the four phases' total;
+40. serve_mesh (run last): the serve CLI under (data, model) splits,
+   one ``python -m torch.distributed.run --standalone --nproc_per_node=N
+   chip_smoke.py --mesh-rank ...`` a split, each rank running the CLI's
+   ``build`` and ``serve_built`` (all that ``python -m
+   youku_mplug_tpu_torch.cli.serve`` runs) on a copy of
+   serve_gpt3_1.3B_flagship.yaml with its mesh: block set (full width,
+   seeded weights, 16 requests, 8 slots, greedy): (1,1) with NCCL and
+   one rank, (1,2) and (2,2) with gloo, their 2 and 4 ranks on card 0
+   (--device cuda:0; gloo copies the collectives through the host, so
+   these numbers say nothing of NCCL).  Gates: the merged results cover
+   the 16 requests once each; each data rank served its stride of them
+   and the model ranks of a data rank decoded the same tokens; each
+   rank's launches exactly MESH_LAUNCHES (predicted in PERF.md), no graph
+   replay on a model shard; each rank's serve peak memory (after the
+   build, whose peak holds the whole model before the shard is kept, and
+   is printed beside it) below (1,1)'s.  Then, on the same model, data
+   rank 0's ranks replay (1,1)'s 16 served sequences teacher-forced
+   (every position, prefill included): query features within QUERY_TOL
+   and logits within LOGIT_TOL of (1,1)'s own replay; where a split's
+   served tokens leave (1,1)'s, (1,1)'s top-1 - top-2 lead at the first
+   divergence within MESH_TIE_BOUND; and they time a decode step of the
+   8 slots (host ms over its dispatches, device ms, launches and idle
+   share traced on rank 0).  Two NCCL ranks on card 0 must fail with
+   NCCL's own error.  Phase 2 holds K1 at the model = 2 shard's local
+   heads ([64,197,6x64], [112,112,6x64] period 8), K4 head-major at a
+   model = 4 shard's ([64,3,197,64], [112,3,112,64] period 8) and K5 at
+   the rank's cache [24,8,256,2x16x64].  [serve_mesh <split>] lines.
 """
 
 from __future__ import annotations
@@ -957,6 +984,8 @@ D96_TRAIN_PATHS = ("cls_train", "itm_train", "caption27_train", "cls27_train",
 # imported and the resumed weights; Owl serving from the HF import, its
 # LoRA training and the int8 serving export
 CKPT_SERVE_PATHS = ("serve_imported", "serve_resumed")
+# phase 40: the serve CLI under torch.distributed.run, one path a split
+MESH_PATHS = ("serve_mesh_1x1", "serve_mesh_1x2", "serve_mesh_2x2")
 # the batched instruct path (phases 25-26): greedy, beam bf16, beam int8
 OWL_BATCHED_PATHS = ("instruct_batched", "instruct_beam",
                      "instruct_beam_int8")
@@ -1181,7 +1210,7 @@ DEC_COUNTERS = ("launches", "alibi_launches", "int8_launches",
 # runs, the twin draft's steps and the sampled instruct runs
 K5_PATHS = {"K5": ("serve", "serve_k8", "speculative_twin",
                    "caption_eval", "serve_files") + CKPT_SERVE_PATHS
-            + KNOBS_SERVE_PATHS,
+            + KNOBS_SERVE_PATHS + MESH_PATHS,
             "K5-ALiBi": ("instruct", "instruct_k8", "instruct_sample",
                          "instruct_hf", "instruct_files", "instruct_batched",
                          "instruct_beam"),
@@ -1233,6 +1262,7 @@ def _decode_entries(dec, kvc, rand, owl_beam):
         torch.cuda.empty_cache()
     for key, n, d, layers, alibi, int8, path in (
             ("K5", 32, 64, 24, False, False, "serve"),
+            ("K5", 16, 64, 24, False, False, "serve_mesh_1x2"),
             ("K5-ALiBi", 32, 128, 30, True, False, "instruct"),
             ("K5-ALiBi", 40, 128, 8, True, False, None),
             ("K5", 32, 128, 8, False, False, None),
@@ -1328,11 +1358,14 @@ def phase_kernels(dev, builds, owl_beam):
     # 1.3B decoder's causal calls of the downstream evaluations: a cls
     # call's 4 clips x 45 class pairs and an ITM call's 4 clips x 8 texts
     # (128 queries + 80 tokens), and a retrieval text batch of 96 (80
-    # tokens); q/k/v as views of one qkv projection
+    # tokens); the vision tower's local heads of a model = 2 serving split
+    # (6 of 12, phase 40); q/k/v as views of one qkv projection
     k1 = []
     for rows, s, n, period, causal, path in (
             (64, 197, 12, 0, False, "serve"),
             (112, 112, 12, 8, False, "serve"),
+            (64, 197, 6, 0, False, "serve_mesh_1x2"),
+            (112, 112, 6, 8, False, "serve_mesh_1x2"),
             (128, 257, 16, 0, False, "instruct"),
             (64, 257, 16, 0, False, "instruct_train"),
             (180, 208, 32, 0, True, "cls_eval"),
@@ -1412,6 +1445,7 @@ def phase_kernels(dev, builds, owl_beam):
     # busy while nvidia-smi samples it
     card_load = _card_under_load(
         lambda: fa.flash_attention(q, k, v, kv_len=kv_len))
+    k4 += _local_head_k4(fa, rand)
 
     # the forward again, then the backward kernels, at the training shapes
     # (K1 packed and K4 head-major) and at Bloom's ALiBi shapes
@@ -1444,16 +1478,16 @@ def phase_kernels(dev, builds, owl_beam):
                                    "instruct_files_train") + OWL_BATCHED_PATHS
                + KNOBS_SERVE_PATHS + ("knobs_pretrain",
                                       "knobs_instruct_train")
-               + BERT_TRAIN_PATHS + BERT_EVAL_PATHS + IMAGE_TRAIN_PATHS,
-               "K1", k1),
+               + BERT_TRAIN_PATHS + BERT_EVAL_PATHS + IMAGE_TRAIN_PATHS
+               + MESH_PATHS, "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
                ("serve", "train", "serve_int8kv", "speculative_twin",
                 "speculative_ngram", "caption_train", "caption_eval",
                 "serve_files", "pretrain_files", "image_pretrain")
-               + CKPT_SERVE_PATHS + KNOBS_SERVE_PATHS + KNOBS_TRAIN_PATHS,
-               "K4", k4)]
+               + CKPT_SERVE_PATHS + KNOBS_SERVE_PATHS + KNOBS_TRAIN_PATHS
+               + MESH_PATHS, "K4", k4)]
     for kind, wrapper, line, line_hm in (
             ("dq", fa.flash_bwd_dq_cuda, 723, 148),
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
@@ -1576,6 +1610,40 @@ def phase_kernels(dev, builds, owl_beam):
           "989 TFLOP/s bf16, 1979 TOP/s int8 (K5 int8) or 67 TFLOP/s fp32 "
           "(K6, delta), bytes / 3.35 TB/s)", flush=True)
     return report
+
+
+def _local_head_k4(fa, rand):
+    """K4 on the vision tower's local heads of a model = 4 split (3 of 12
+    heads of 64, an odd count of 128-lane strips: the head-major route),
+    spatial [64, 3x197x64] and grouped temporal [112, 3x112x64] with the
+    period-8 mask, head views of a packed projection; no chip split runs
+    model = 4 (the CPU tests do)."""
+    cases = []
+    for b, s, period in ((64, 197, 0), (112, 112, 8)):
+        qkv = rand(b, s, 3 * 192)
+        q, k, v = (qkv[..., i * 192:(i + 1) * 192].unflatten(
+            -1, (3, 64)).transpose(1, 2) for i in range(3))
+        got = fa.flash_attention(q, k, v, period=period)
+        want = fa.flash_attention_plain(q, k, v, period=period)
+        lse = fa.flash_fwd_cuda(q, k, v, torch.empty_like(q), scale=0.125,
+                                period=period)
+        e, e_lse = err(got, want), err(lse, fa.flash_fwd_plain(
+            q, k, v, scale=0.125, period=period)[1])
+        shape = (f"[{b},3,{s},64] heads" + (f" period {period}" if period
+                                            else "") + " (model = 4 shard)")
+        if not (within(got, want) and e_lse <= LSE_TOL):
+            fail(f"K4 {shape}: max err {e}, lse {e_lse}")
+        cases.append({
+            "shape": shape, "on_path": False, "max_abs_err": e,
+            "lse_err": e_lse,
+            "ms": time_ms(lambda: fa.flash_attention(q, k, v, period=period),
+                          20),
+            "plain_ms": time_ms(lambda: fa.flash_attention_plain(
+                q, k, v, period=period), 20),
+            "library_ms": _library_ms(q, k, v, _sdpa_kwargs(
+                fa, q, k, False, period, None, None))[0],
+            **_attn_bounds(fa, b, 3, s, s, 64, False, period, None)["fwd"]})
+    return cases
 
 
 def _card_under_load(fn):
@@ -6555,8 +6623,371 @@ def phase_clip(report, ann):
     del models, xclip, clip
 
 
+# phase 40: the serve CLI under (data, model) splits, each a
+# torch.distributed.run of its own; the gloo ranks share card 0 (their
+# collectives copy through the host), NCCL takes one rank a card
+MESH_SPLITS = (("1x1", "nccl"), ("1x2", "gloo"), ("2x2", "gloo"))
+MESH_REQUESTS = 16
+MESH_LAUNCH_S = 420  # one torch.distributed.run call's deadline
+# launches per rank serving the 16 requests, written in PERF.md before the
+# first chip run: the (1,1) run replays k = 1 CUDA graphs, its first
+# capture after one eager warm-up step (65 + 1 decode steps of 24 layers);
+# a model shard steps eagerly (65); a data rank of (2, 2) serves 8 of the
+# requests (34 steps)
+MESH_LAUNCHES = {"1x1": {"K1": 48, "K4": 2, "K5": 1584},
+                 "1x2": {"K1": 48, "K4": 2, "K5": 1560},
+                 "2x2": {"K1": 24, "K4": 1, "K5": 816}}
+MESH_COUNTERS = {"K1": "flash_attention_packed.launches",
+                 "K4": "flash_attention.launches",
+                 "K5": "write_decode_attention.launches"}
+# where a split's served tokens leave (1,1)'s, (1,1)'s top-1 logit may lead
+# its top-2 at that first divergence by at most this: the two replays of
+# the same tokens agree within LOGIT_TOL, so greedy picks can part only
+# where the lead is within twice that
+MESH_TIE_BOUND = 2 * LOGIT_TOL
+
+
+def _torchrun(n, argv, log_path):
+    """``python -m torch.distributed.run --standalone --nproc_per_node=n
+    argv`` from the repository's root, its output into ``log_path``;
+    fails on a non-zero exit, or (every process of the call killed) past
+    MESH_LAUNCH_S.  Returns its seconds."""
+    import signal
+
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        p for p in (REPO, os.environ.get("PYTHONPATH")) if p)}
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             f"--nproc_per_node={n}", *argv], cwd=REPO, env=env,
+            stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=MESH_LAUNCH_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = None
+    if rc != 0:
+        with open(log_path) as f:
+            tail = f.read()[-4000:]
+        fail(f"{' '.join(argv[:2])} on {n} ranks: "
+             + (f"past {MESH_LAUNCH_S} s" if rc is None else f"exit {rc}")
+             + f":\n{tail}")
+    return time.perf_counter() - t0
+
+
+def _mesh_replay(args, cfg, model, tokens):
+    """Phase 40's teacher-forced replay on this rank's model: the serve's
+    clips encoded in batches of its 8 slots (query features), and each
+    served sequence (``tokens``, then the eos where it stopped short of
+    max_new_tokens) fed back through an engine of 8 slots built as the
+    serve builds it: the prefill's logits, then one decode step a
+    position (fp32 logits [requests, positions, vocab], zero past a
+    sequence's end).  Then a decode step of that engine's 8 slots, timed:
+    host ms over its dispatches and, traced on rank 0, device ms,
+    launches and idle share.  Returns the record rank 0 saves."""
+    from youku_mplug_tpu_torch.cli import serve
+    from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+
+    t0 = time.perf_counter()
+    lm, slots = model.text_decoder, args.num_slots
+    dev = lm.word_embeddings.embedding.device
+    ds = serve.run_caption.dataset(args, cfg, train=False)
+    max_new = int(cfg.get("max_new_tokens", 32))
+    qes, logits, seqs = [], None, None
+    for b0 in range(0, len(tokens), slots):
+        idx = range(b0, min(b0 + slots, len(tokens)))
+        clips = torch.stack([torch.from_numpy(ds[i]["video"]) for i in idx])
+        with torch.inference_mode():
+            qe = model.encode_queries(normalize_clip(
+                clips.to(dev), dtype=model.policy.compute_dtype))
+        qes.append(qe.float().cpu())
+        engine, prompt = serve.make_engine(args, cfg, lm, model.mesh)
+        eos = engine.config.eos_id
+        seqs = seqs or [list(t) + ([eos] if len(t) < max_new else [])
+                        for t in tokens]
+        pick, first = engine._pick, []
+
+        def recording(lg, pick=pick, first=first):
+            first.append(lg.float().cpu())
+            return pick(lg)
+        engine._pick = recording  # the prefill's logits, slot by slot
+        for j in range(len(idx)):
+            engine.submit(prompt, query_embeds=qe[j])
+        engine._admit()
+        del engine._pick
+        if logits is None:
+            logits = torch.zeros(len(tokens), max_new, first[0].shape[-1])
+        for j, i in enumerate(idx):
+            logits[i, 0] = first[j][0]
+        vf = torch.from_numpy(engine.valid_from).to(dev)
+        po = torch.from_numpy(engine.pos_offset).to(dev)
+        with torch.inference_mode():
+            for step in range(max(len(seqs[i]) for i in idx) - 1):
+                tok = torch.full((slots,), eos, dtype=torch.long)
+                for j, i in enumerate(idx):
+                    if step < len(seqs[i]):
+                        tok[j] = seqs[i][step]
+                cl = torch.from_numpy(engine.cache_len + step).to(dev)
+                lg, _ = lm.decode_step(lm.embed(tok.to(dev)[:, None]),
+                                       engine.cache, cl, vf, po)
+                lg = lg.float().cpu()
+                for j, i in enumerate(idx):
+                    if step + 1 < len(seqs[i]):
+                        logits[i, step + 1] = lg[j]
+    replay_s = time.perf_counter() - t0
+
+    def dispatch():
+        return engine._launch(1).cpu()
+    # an eager step on a model shard takes ~0.1 s under gloo, and one
+    # traced step holds its ~1000 launches
+    timed, traced = (10, 1) if engine.eager else (20, 3)
+    for _ in range(3):
+        dispatch()
+    t1 = time.perf_counter()
+    for _ in range(timed):
+        dispatch()
+    host = (time.perf_counter() - t1) / timed * 1e3
+    t1 = time.perf_counter()
+    if model.mesh.rank == 0:  # the other ranks dispatch alike, untraced
+        trace = _trace_decode(dispatch, traced, 1)
+    else:
+        trace = {}
+        for _ in range(traced):
+            dispatch()
+    return {"qe": torch.cat(qes), "logits": logits,
+            "lengths": [len(t) for t in seqs], "seqs": seqs,
+            "host_ms": host, "eager": engine.eager, **trace,
+            "replay_s": replay_s, "trace_s": time.perf_counter() - t1}
+
+
+def mesh_rank(yaml_path, backend, device, out_dir, ref_path):
+    """One rank of phase 40 (``chip_smoke.py --mesh-rank`` under
+    torch.distributed.run): the serve CLI's ``build`` and ``serve_built``
+    (all ``python -m youku_mplug_tpu_torch.cli.serve`` runs) on the
+    split's YAML, 16 requests on 8 slots; then, on the same model and on
+    data rank 0's ranks only, ``_mesh_replay`` of ``ref_path``'s served
+    tokens ((1,1)'s ``serve_results.json``, for (1,1) its own); rank 0
+    saves the replay's record as ``out_dir/forced.pt``."""
+    from youku_mplug_tpu_torch.cli import serve
+    from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
+
+    args = serve.serve_parser().parse_args([
+        "--config", yaml_path, "--synthetic_data", "--num_requests",
+        str(MESH_REQUESTS), "--num_slots", "8", "--output_dir", out_dir,
+        "--device", device, "--dist_backend", backend])
+    try:
+        cfg, model, dev = serve.build(args)
+        serve.serve_built(args, cfg, model, dev)
+        if model.mesh.data_index == 0:
+            with open(ref_path) as f:
+                tokens = [r["tokens"] for r in json.load(f)]
+            record = _mesh_replay(args, cfg, model, tokens)
+            if model.mesh.rank == 0:
+                torch.save(record, os.path.join(out_dir, "forced.pt"))
+    finally:
+        mesh_lib.distributed_shutdown()
+
+
+def _mesh_forced_check(tag, forced, ref, toks):
+    """A split's replay of (1,1)'s served tokens against (1,1)'s replay:
+    the query features within QUERY_TOL and the logits at every position
+    of every sequence within LOGIT_TOL, all finite; where the split's
+    served tokens leave (1,1)'s, (1,1)'s top-1 - top-2 lead at that
+    first divergence within MESH_TIE_BOUND.  Returns the printed
+    verdict."""
+    want = ref["forced"]
+    valid = torch.zeros(want["logits"].shape[:2], dtype=torch.bool)
+    for i, n in enumerate(want["lengths"]):
+        valid[i, :n] = True
+    got_l, want_l = forced["logits"][valid], want["logits"][valid]
+    e_q = err(forced["qe"], want["qe"])
+    e_l = err(got_l, want_l)
+    finite = bool(torch.isfinite(got_l).all())
+    agree = int((got_l.argmax(-1) == want_l.argmax(-1)).sum())
+    divergences, too_wide = [], []
+    for i, (a, b) in enumerate(zip(toks, ref["tokens"])):
+        if a == b:
+            continue
+        t = next(j for j in range(max(len(a), len(b)) + 1)
+                 if j >= len(a) or j >= len(b) or a[j] != b[j])
+        lead = [float(x[0] - x[1]) for x in (
+            want["logits"][i, t].topk(2).values,
+            forced["logits"][i, t].topk(2).values)]
+        divergences.append((i, t, round(lead[0], 5), round(lead[1], 5)))
+        if lead[0] > MESH_TIE_BOUND:
+            too_wide.append(divergences[-1])
+    vs = (f"teacher-forced on (1,1)'s {int(valid.sum())} served positions "
+          f"of {len(toks)} requests: query features max err {e_q:.4g} (tol "
+          f"{QUERY_TOL}), logits {e_l:.4g} (tol {LOGIT_TOL}), greedy "
+          f"agreement {agree}/{int(valid.sum())}; served tokens equal to "
+          f"(1,1)'s on {len(toks) - len(divergences)}/{len(toks)} requests; "
+          f"first divergences (request, position, (1,1)'s top-1 - top-2 "
+          f"lead, this split's) {divergences} (bound {MESH_TIE_BOUND})")
+    if not finite or e_q > QUERY_TOL or e_l > LOGIT_TOL or too_wide:
+        fail(f"serve_mesh {tag}: {vs}")
+    return vs
+
+
+def _mesh_check_split(tag, data, merged, ranks, ref_peak):
+    """Phase 40's gates on one split's files: the 16 requests once each;
+    per rank the predicted launches, no graph replay on a model shard, a
+    serve peak below (1,1)'s; each data rank its stride of the requests,
+    the model ranks of a data rank the same tokens."""
+    ids = sorted(int(r["video_id"]) for r in merged)
+    if ids != list(range(MESH_REQUESTS)) or any(not r["tokens"]
+                                               for r in merged):
+        fail(f"serve_mesh {tag}: merged requests {ids}")
+    by_data = {}
+    for rk in ranks:
+        got = {k: rk["launches"][c] for k, c in MESH_COUNTERS.items()}
+        if got != MESH_LAUNCHES[tag] or rk["decode_steps"] * 24 != got["K5"]:
+            fail(f"serve_mesh {tag} rank {rk['rank']}: launches {got}, "
+                 f"{rk['decode_steps']} decode steps; predicted "
+                 f"{MESH_LAUNCHES[tag]}")
+        if rk["split"]["model"] > 1 and rk["graph_replays"] != 0:
+            fail(f"serve_mesh {tag}: {rk['graph_replays']} graph replays on "
+                 f"a model shard")
+        if ref_peak is not None and rk["peak_memory_bytes"] >= ref_peak:
+            fail(f"serve_mesh {tag} rank {rk['rank']}: peak "
+                 f"{rk['peak_memory_bytes']} B, not below (1,1)'s {ref_peak}")
+        by_data.setdefault(rk["coord"][0], []).append(rk)
+    for d, rks in sorted(by_data.items()):
+        index = [r["index"] for r in rks[0]["results"]]
+        if index != list(range(d, MESH_REQUESTS, data)):
+            fail(f"serve_mesh {tag}: data rank {d} served {index}")
+        toks = [[r["tokens"] for r in rk["results"]] for rk in rks]
+        if any(t != toks[0] for t in toks):
+            fail(f"serve_mesh {tag}: the model ranks of data rank {d} "
+                 f"decoded different tokens")
+
+
+def phase_serve_mesh(report, out_dir):
+    """Phase 40 (see the module docstring); the gloo numbers measure host
+    copies, not NCCL."""
+    t_phase = time.perf_counter()
+    ref_path = os.path.join(out_dir, "1x1", "serve_results.json")
+    ref = None
+    for tag, backend in MESH_SPLITS:
+        data, model = map(int, tag.split("x"))
+        n = data * model
+        d = os.path.join(out_dir, tag)
+        os.makedirs(d)
+        yaml_path = _downstream_yaml(FLAGSHIP_YAML, {
+            "mesh": {"data": data, "model": model}}, d)
+        device = "cuda:0" if backend == "gloo" else "cuda"
+        run_s = _torchrun(n, [
+            os.path.join(REPO, "chip_smoke.py"), "--mesh-rank", yaml_path,
+            backend, device, d, ref_path], os.path.join(d, "serve.log"))
+        with open(os.path.join(d, "serve.log")) as f:
+            stats = json.loads(next(line.split("* Serve stats:", 1)[1]
+                                    for line in f if "* Serve stats:" in
+                                    line))
+        with open(os.path.join(d, "serve_results.json")) as f:
+            merged = json.load(f)
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(d, "ranks", f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        _mesh_check_split(tag, data, merged, ranks,
+                          None if ref is None else ref["peak"])
+        path = f"serve_mesh_{tag}"
+        for r in report:
+            r.setdefault("launches_by_path", {})[path] = sum(
+                rk["launches"].get(f"{r['wrapper'].__name__}.{c}", 0)
+                for rk in ranks for c in _counters(r))
+        missing = [r["name"] for r in report if path in r["paths"]
+                   and r["launches_by_path"][path] == 0]
+        if missing:
+            fail(f"the {path} path never launched: {missing}")
+        forced = torch.load(os.path.join(d, "forced.pt"))
+        toks = [r["tokens"] for r in merged]
+        if ref is None:
+            ref = {"peak": ranks[0]["peak_memory_bytes"], "forced": forced,
+                   "tokens": toks}
+            same = sum(int(forced["logits"][i, j].argmax()) == t
+                       for i, seq in enumerate(forced["seqs"])
+                       for j, t in enumerate(seq))
+            vs = (f"the reference: its replay's greedy picks equal its "
+                  f"served tokens on {same}/{sum(forced['lengths'])} "
+                  f"positions")
+        else:
+            vs = _mesh_forced_check(tag, forced, ref, toks)
+        per_rank = " ; ".join(
+            f"rank {rk['rank']} {tuple(rk['coord'])}: "
+            + " ".join(f"{k} {rk['launches'][c]}"
+                       for k, c in MESH_COUNTERS.items())
+            + f", {rk['decode_steps']} decode steps, {rk['graph_replays']} "
+            f"graph replays, serve peak "
+            f"{rk['peak_memory_bytes'] / 2**30:.3f} GiB (build "
+            f"{rk['build_peak_memory_bytes'] / 2**30:.3f})" for rk in ranks)
+        note = ("" if backend == "nccl" else
+                f", {n} ranks on card 0: gloo copies through the host, no "
+                f"measure of NCCL")
+        print(f"[serve_mesh {tag}] split (data {data}, model {model}), "
+              f"{backend}{note} | {json.dumps(stats)} | {per_rank} | decode "
+              f"step (8 slots, rank 0): host {forced['host_ms']:.3f} ms, "
+              f"device {forced['kernel_ms_per_step']:.3f} ms, "
+              f"{forced['launches_per_step']:.0f} launches, idle "
+              f"{forced['idle_share']:.3f}, "
+              f"{'eager' if forced['eager'] else 'k = 1 graph'} | {vs} | "
+              f"torch.distributed.run {run_s:.1f} s (replay "
+              f"{forced['replay_s']:.1f}, trace {forced['trace_s']:.1f}) | "
+              f"{CARD}", flush=True)
+        del forced
+    _nccl_shared_card(out_dir)
+    print(f"[serve_mesh] phase 40 in {time.perf_counter() - t_phase:.1f} s "
+          f"| {CARD}", flush=True)
+
+
+def _nccl_shared_card(out_dir):
+    """Two NCCL ranks on card 0 (the serve CLI, a (2, 1) split of the tiny
+    YAML): the run must fail with NCCL's own error, not serve."""
+    import signal
+
+    import yaml
+
+    d = os.path.join(out_dir, "nccl_shared")
+    os.makedirs(d)
+    with open(os.path.join(REPO, "configs", "pretrain_tiny.yaml")) as f:
+        raw = yaml.safe_load(f)
+    raw["mesh"] = {"data": 2, "model": 1}
+    yaml_path = os.path.join(d, "pretrain_tiny.yaml")
+    with open(yaml_path, "w") as f:
+        yaml.safe_dump(raw, f)
+    log_path = os.path.join(d, "serve.log")
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node=2", "-m", "youku_mplug_tpu_torch.cli.serve",
+             "--config", yaml_path, "--synthetic_data", "--num_requests",
+             "2", "--output_dir", d, "--device", "cuda:0",
+             "--dist_backend", "nccl"], cwd=REPO,
+            env={**os.environ, "PYTHONPATH": REPO}, stdout=log,
+            stderr=subprocess.STDOUT, start_new_session=True)
+        try:
+            rc = proc.wait(timeout=MESH_LAUNCH_S)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+            rc = None
+    with open(log_path) as f:
+        lines = f.read().splitlines()
+    said = next((line.strip() for line in lines
+                 if "duplicate gpu" in line.lower()), None) or next(
+        (line.strip() for line in lines if "nccl error" in line.lower()),
+        None)
+    if rc in (0, None) or said is None or os.path.exists(
+            os.path.join(d, "serve_results.json")):
+        fail(f"two NCCL ranks on one card: exit {rc}, NCCL said {said!r}:\n"
+             + "\n".join(lines[-30:]))
+    print(f"[serve_mesh nccl_shared] two NCCL ranks on card 0 refused: exit "
+          f"{rc}, {said[:300]} | {CARD}", flush=True)
+
+
 def _phases(report, files_root, tok_dir):
-    """Phases 3-39 in their order (see the module docstring); ``tok_dir``
+    """Phases 3-40 in their order (see the module docstring); ``tok_dir``
     holds the instruct tokenizer files of phases 25-26."""
     from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
 
@@ -6701,10 +7132,19 @@ def _phases(report, files_root, tok_dir):
         phase_clip(report, ann)
     print(f"[image_family] phases 36-39 in "
           f"{time.perf_counter() - t_image:.1f} s | {CARD}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as out_dir:
+        phase_serve_mesh(report, out_dir)
 
 
 def main():
     global CARD
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 40
+        sys.path.insert(0, REPO)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        mesh_rank(*sys.argv[2:])
+        return
     # one card: the first visible one (set before CUDA initializes)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
     os.environ["CUDA_VISIBLE_DEVICES"] = ("0" if visible is None

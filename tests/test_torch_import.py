@@ -1,5 +1,6 @@
 """The port imports without jax (the checkpoint importers, the serving
-export, the optimizer zoo and the schedulers included, which also read safetensors files with the safetensors
+export, the optimizer zoo and the schedulers, the mesh, its PRNG folding
+and the sharding rules included, which also read safetensors files with the safetensors
 package blocked; the image-era modules with ``regex``, ``ftfy`` and
 ``oss2`` absent too), and its kernel wrappers take their plain versions
 only for CPU tensors (never a silent fallback)."""
@@ -47,7 +48,9 @@ _NO_JAX = textwrap.dedent("""
                  "models.clip_video", "models.clip_tokenizer",
                  "data.image_datasets", "data.pretrain_transforms",
                  "data.vg_transforms", "data.refer", "data.remote_io",
-                 "evals.grounding", "evals.vqa"):
+                 "evals.grounding", "evals.vqa", "runtime.mesh",
+                 "runtime.prng", "parallel.sharding",
+                 "parallel.tensor_parallel"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",

@@ -1,0 +1,247 @@
+"""One gloo rank of the port's mesh tests (``tests/test_torch_serve_mesh.py``,
+``tests/test_torch_multihost.py``), and the helpers the tests share with
+it.  Run as
+
+    python tests/torch_mesh_worker.py <mode> <rank> <world> <rendezvous
+        file> <output dir> <JSON of the mode's arguments>
+
+``mode`` ``serve``: for each split of the JSON, ``serve.build`` and
+``serve.serve_built`` on its YAML (captions, ``ranks/rank<r>.json``),
+then on the same model the query features and the first two steps' logits of ``FORCED`` requests
+(``forced``, written as ``<output>/<tag>/rank<r>.npz``), and with
+``"sample": true`` the engine's sampled tokens (``sampled``,
+``rank<r>_sampled.json`` beside it).
+``mode`` ``merges``: the host merges of ``cli/common.py`` over a
+(world, 1) mesh, written as ``<output>/merges_rank<r>.json``.  ``mode``
+``shards``: for each split of the JSON, ``shard_params`` then
+``unshard`` of a seeded model against its unsharded twin, the local
+shapes, and the refusals a model shard makes (``--speculative``,
+unmerged LoRA, prompt-lookup decoding), written as
+``<output>/<tag>/shards_rank<r>.json``.  The
+process group comes from ``init_method=file://`` (no TCP port: pytest
+workers never collide) with an explicit timeout.  Imports torch and the
+port only.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import functools
+import json
+import os
+import sys
+import unittest.mock as mock
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if REPO not in sys.path:
+    sys.path.insert(0, REPO)
+
+from youku_mplug_tpu_torch import bridge  # noqa: E402
+from youku_mplug_tpu_torch.cli import common, serve  # noqa: E402
+from youku_mplug_tpu_torch.data.datasets import (  # noqa: E402
+    SyntheticVideoDataset,
+)
+from youku_mplug_tpu_torch.models.generation import (  # noqa: E402
+    GenerationConfig,
+    _build_prefix,
+)
+from youku_mplug_tpu_torch.ops.preprocess import normalize_clip  # noqa: E402
+from youku_mplug_tpu_torch.runtime import mesh as mesh_lib  # noqa: E402
+from youku_mplug_tpu_torch.runtime.prng import make_rngs  # noqa: E402
+from youku_mplug_tpu_torch.serving.engine import ServingEngine  # noqa: E402
+
+TIMEOUT_S = 120   # every collective's limit: a lost rank fails the run
+STD = 0.1         # the weights' std: varied tokens from a tiny model
+SEED = 3
+REQUESTS = 7      # an odd count: the data ranks serve 4 and 3
+FORCED = 3        # requests of the teacher-forced first steps
+SLOTS = 3
+SAMPLE = dict(do_sample=True, top_k=40, top_p=0.95)
+
+
+def serve_args(yaml, out_dir):
+    return serve.serve_parser().parse_args([
+        "--config", yaml, "--synthetic_data", "--num_requests",
+        str(REQUESTS), "--num_slots", str(SLOTS), "--output_dir", out_dir,
+        "--device", "cpu", "--fp32", "--seed", str(SEED)])
+
+
+def seeded(std=STD):
+    """serve's weights at the tests' std (the same seed on every rank)."""
+    return functools.partial(bridge.seeded_init, std=std)
+
+
+def clips(cfg, n):
+    ds = SyntheticVideoDataset(int(cfg.get("synthetic_length", 16)),
+                               cfg.num_frames, cfg.image_res)
+    return normalize_clip(torch.from_numpy(np.stack(
+        [ds[i]["video"] for i in range(n)])), dtype=torch.float32)
+
+
+@torch.inference_mode()
+def forced(cfg, model):
+    """Query features of the first FORCED clips, and the fp32 logits of
+    their prefill (prompt after the queries) and of one decode step fed
+    its greedy token."""
+    lm = model.text_decoder
+    prompt, prompt_len, gen = serve._prompt(cfg)
+    qe = model.encode_queries(clips(cfg, FORCED))
+    b, nq = qe.shape[:2]
+    ids = torch.tensor([prompt] * b)
+    plen = torch.full((b,), max(prompt_len, 1))
+    embeds, vf, po = _build_prefix(lm, ids, plen, qe, gen.pad_id)
+    cache = lm.init_cache(b, nq + ids.shape[1] + 4)
+    first, cache = lm.decode_step(embeds, cache, 0, vf, po)
+    tok = first.argmax(-1)
+    cl = torch.full((b,), nq + ids.shape[1])
+    second, _ = lm.decode_step(lm.embed(tok[:, None]), cache, cl, vf, po)
+    return {"qe": qe.numpy(), "first": first.numpy(),
+            "second": second.numpy(), "tok": tok.numpy()}
+
+
+@torch.inference_mode()
+def sampled(cfg, model, mesh):
+    """Sampled tokens of REQUESTS requests through the engine, its
+    generator serve's (the data coordinate folded in)."""
+    lm = model.text_decoder
+    prompt, _, gen = serve._prompt(cfg)
+    qe = model.encode_queries(clips(cfg, REQUESTS))
+    eng = ServingEngine(
+        lm, num_slots=SLOTS, max_len=qe.shape[1] + 8 + gen.max_new_tokens
+        + 1, prefill_buckets=(8,),
+        config=GenerationConfig(max_new_tokens=gen.max_new_tokens,
+                                eos_id=gen.eos_id, pad_id=gen.pad_id,
+                                **SAMPLE),
+        generator=make_rngs(SEED, 0, ("sample",), "cpu", mesh,
+                            ("data",))["sample"])
+    for row in qe:
+        eng.submit(prompt, query_embeds=row)
+    fin = eng.run_to_completion()
+    return [t for _, t in sorted((f.rid, f.tokens) for f in fin)]
+
+
+def run_split(tag, yaml, out, sample=False):
+    """One split on this rank (see the module docstring); the files go
+    under ``out/tag``.  Returns (forced outputs, sampled tokens)."""
+    d = os.path.join(out, tag)
+    args = serve_args(yaml, d)
+    with mock.patch.object(serve, "seeded_init", seeded()):
+        cfg, model, device = serve.build(args)
+    serve.serve_built(args, cfg, model, device)
+    mesh = model.mesh
+    got = forced(cfg, model)
+    toks = sampled(cfg, model, mesh) if sample else None
+    np.savez(os.path.join(d, f"rank{mesh.rank}.npz"), **got)
+    with open(os.path.join(d, f"rank{mesh.rank}_sampled.json"), "w") as f:
+        json.dump(toks, f)
+    return got, toks
+
+
+def merges(out, rank):
+    """cli/common's host merges over a (world, 1) mesh: the records, rows
+    and counters of JAX's two-process tests, and a wrap-padded loader."""
+    from youku_mplug_tpu_torch.data.loader import Loader
+
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig())
+    recs = ([{"video_id": "v0", "cap": "你好"}, {"video_id": "v2",
+                                               "cap": "c2"},
+             {"video_id": "v0", "cap": "dup"}] if rank == 0 else
+            [{"video_id": "v1", "cap": "c1"}, {"video_id": "v3",
+                                               "cap": "世界"}])
+    merged = common.collect_records(recs, dedup_key="video_id", mesh=mesh)
+    total = common.sum_across_hosts(np.array([1.0 + rank, 10.0]), mesh)
+    idx = np.arange(rank, 8, 2) % 6
+    rows = idx[:, None].astype(np.float32) * np.ones((1, 3), np.float32)
+    m_rows, m_order = common.gather_eval_rows(rows, idx, mesh)
+
+    class DS:
+        def __len__(self):
+            return 16
+
+        def __getitem__(self, i):
+            return {"idx": i}
+
+    loader = Loader(DS(), 4, shuffle=False, shard_index=mesh.data_index,
+                    shard_count=mesh.data)
+    shard = sorted(int(x) for b in loader for x in b["idx"])
+    with open(os.path.join(out, f"merges_rank{rank}.json"), "w") as f:
+        json.dump({"coord": list(mesh.coord), "records": merged,
+                   "sum": total.tolist(), "rows": m_rows.tolist(),
+                   "order": m_order.tolist(), "shard": shard}, f,
+                  ensure_ascii=False)
+
+
+def shards(tag, yaml, out):
+    """See the module docstring (``mode`` ``shards``)."""
+    from youku_mplug_tpu_torch.config import load_config
+    from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+    from youku_mplug_tpu_torch.parallel import sharding
+    from youku_mplug_tpu_torch.runtime.precision import FP32_POLICY
+
+    cfg = load_config(yaml)
+    mesh = mesh_lib.make_mesh(cfg.mesh)
+    model = seeded()(MPLUGVideo(cfg.model, FP32_POLICY), SEED)
+    full = {n: p.detach().clone() for n, p in model.named_parameters()}
+    sharding.shard_params(model, mesh)
+    local = {n: list(p.shape) for n, p in model.named_parameters()}
+    back = sharding.unshard(model, mesh)
+    refusals = {}
+
+    def refused(name, fn):
+        try:
+            fn()
+            refusals[name] = None
+        except NotImplementedError as e:
+            refusals[name] = str(e)
+
+    d = os.path.join(out, tag)
+    os.makedirs(d, exist_ok=True)
+    refused("speculative", lambda: serve.build(serve.serve_parser(
+    ).parse_args(["--config", yaml, "--synthetic_data", "--device", "cpu",
+                  "--fp32", "--output_dir", d, "--speculative", "2"])))
+    lora = seeded()(MPLUGVideo(dataclasses.replace(
+        cfg.model, text=dataclasses.replace(cfg.model.text, lora_rank=2)),
+        FP32_POLICY), SEED)
+    refused("lora", lambda: sharding.shard_params(lora, mesh))
+    _, _, gen = serve._prompt(cfg)
+    eng = ServingEngine(model.text_decoder, num_slots=2, max_len=32,
+                        prefill_buckets=(8,), config=gen)
+    eng.submit([1], query_embeds=None)
+    refused("lookup", lambda: eng.step_lookup(2))
+    with open(os.path.join(d, f"shards_rank{mesh.rank}.json"), "w") as f:
+        json.dump({"coord": list(mesh.coord), "local": local,
+                   "split": dict(model.tp_split), "refusals": refusals,
+                   "roundtrip": sorted(n for n in full
+                                       if not torch.equal(back[n], full[n])),
+                   "eager": eng.eager}, f)
+
+
+def main(argv):
+    mode, rank, world, rdv, out, spec = argv
+    rank, world = int(rank), int(world)
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{rdv}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    try:
+        if mode == "serve":
+            for split in json.loads(spec):
+                run_split(split["tag"], split["yaml"], out,
+                          split.get("sample", False))
+        elif mode == "shards":
+            for split in json.loads(spec):
+                shards(split["tag"], split["yaml"], out)
+        else:
+            merges(out, rank)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

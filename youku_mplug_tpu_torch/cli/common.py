@@ -1,8 +1,14 @@
 """What the training CLIs share: the parser, setup, resume, the epoch
 loop with its non-finite watchdog, checkpoints and the log.
 
-Counterpart of ``youku_mplug_tpu/cli/common.py`` on one process and one
-device.  ``setup`` builds the model on the device with the JAX
+Counterpart of ``youku_mplug_tpu/cli/common.py``.  The training CLIs
+run on one process and one device (``setup`` builds the YAML's mesh and
+raises where it asks for more: training under a mesh is not ported);
+``serve`` runs under a (data, model) split, and the host merges here
+(``gather_eval_rows``, ``sum_across_hosts``, ``collect_records``) are
+JAX's over the mesh's gloo host group: each data rank's contribution
+once (its model-index-0 rank's), in data order, every rank left with
+the same merged result.  ``setup`` builds the model on the device with the JAX
 ``model.init`` rules (``bridge.jax_init``), imports the checkpoints the
 config's ``import_torch_weights`` names (``models/importers.import_all``;
 before the split, so a frozen leaf is rounded once, from the file's dtype
@@ -20,7 +26,8 @@ the second-latest checkpoint.  ``save_epoch`` saves each
 ``--save_ckpt_freq`` epochs (in the background after a host snapshot
 under the YAML's ``async_checkpointing``) and ``write_log`` appends a
 JSON line to ``<output_dir>/log.txt``.  ``--device cuda`` (the default) without a
-visible card raises: nothing falls back to the CPU.
+visible card raises: nothing falls back to the CPU; under
+``torch.distributed.run`` it means ``cuda:$LOCAL_RANK``.
 """
 
 from __future__ import annotations
@@ -34,6 +41,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from youku_mplug_tpu_torch.bridge import jax_init
 from youku_mplug_tpu_torch.config import RunConfig, dump_config
@@ -44,6 +52,10 @@ from youku_mplug_tpu_torch.models.tokenizer import (
     BatchTokenizer,
     load_tokenizer,
 )
+from youku_mplug_tpu_torch.parallel.tensor_parallel import (
+    TRAINING_UNDER_MESH,
+)
+from youku_mplug_tpu_torch.runtime.mesh import Mesh, local_rank, make_mesh
 from youku_mplug_tpu_torch.runtime.precision import (
     DEFAULT_POLICY,
     FP32_POLICY,
@@ -105,10 +117,20 @@ class Runner:
 
 
 def device_of(args) -> torch.device:
-    """``--device``; raises when it names a card that is not there."""
+    """``--device``; plain ``cuda`` under ``torch.distributed.run`` is the
+    rank's ``cuda:$LOCAL_RANK``.  Raises when it names a card that is not
+    there (several ranks on one card name it: ``cuda:0``)."""
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda but no CUDA device is visible")
+    if device.type == "cuda" and device.index is None \
+            and local_rank() is not None:
+        device = torch.device("cuda", local_rank())
+    if device.type == "cuda" and device.index is not None \
+            and device.index >= torch.cuda.device_count():
+        raise RuntimeError(f"--device {device}: {torch.cuda.device_count()} "
+                           f"CUDA device(s) visible; name one (cuda:0) to "
+                           f"put several gloo ranks on a card")
     return device
 
 
@@ -121,15 +143,18 @@ def decode_kwargs(cfg) -> dict:
 
 def make_loader(args, cfg: RunConfig, dataset, shuffle: bool = True,
                 batch_size: Optional[int] = None,
-                drop_last: bool = True) -> Loader:
+                drop_last: bool = True, mesh: Optional[Mesh] = None
+                ) -> Loader:
     """A loader of ``batch_size`` (default the YAML's) in the JAX runners'
     order: files decode on the YAML's ``num_workers`` (``workers_impl``:
     threads, or forked processes), synthetic clips in the consumer's
-    thread."""
+    thread; with a ``mesh``, this rank's data shard."""
     return Loader(dataset, batch_size or cfg.batch_size, seed=args.seed,
                   shuffle=shuffle, drop_last=drop_last,
                   num_workers=0 if args.synthetic_data else cfg.num_workers,
-                  workers_impl=cfg.get("workers_impl", "thread"))
+                  workers_impl=cfg.get("workers_impl", "thread"),
+                  shard_index=mesh.data_index if mesh else 0,
+                  shard_count=mesh.data if mesh else 1)
 
 
 def build_tokenizer(cfg: RunConfig) -> BatchTokenizer:
@@ -150,6 +175,10 @@ def setup(args, cfg: RunConfig, loader: Loader,
     ``tokenizer``; ``resume=False`` starts fresh whatever the output
     directory holds (JAX's mPLUG pretrain runner never restores)."""
     device = device_of(args)
+    mesh = make_mesh(getattr(cfg, "mesh", None))
+    if mesh.size > 1 or dist.is_initialized():
+        raise NotImplementedError(f"a {mesh.data}x{mesh.model} training "
+                                  f"mesh: {TRAINING_UNDER_MESH}")
     niter = len(loader) if args.max_steps <= 0 else min(len(loader),
                                                         args.max_steps)
     cfg.optimizer = dataclasses.replace(cfg.optimizer,
@@ -257,11 +286,53 @@ def restore_with_resize(ckpt: CheckpointManager, step: int,
     return state
 
 
-def collect_records(records: List[dict], dedup_key=None) -> List[dict]:
-    """The evaluation's records, with the first of each ``dedup_key``
-    kept (one process: nothing to gather)."""
+def host_gather(obj, mesh: Optional[Mesh]) -> list:
+    """``obj`` of every data rank (its model-index-0 rank's), in data
+    order, on every rank (all-gather over the mesh's gloo host group);
+    ``[obj]`` in a process without a process group."""
+    if mesh is None or not mesh.distributed:
+        if dist.is_initialized():
+            raise ValueError("a host merge under a process group needs the "
+                             "run's mesh")
+        return [obj]
+    out = [None] * dist.get_world_size(mesh.host_group)
+    dist.all_gather_object(out, (mesh.coord, obj), group=mesh.host_group)
+    return [o for (_, model), o in sorted(out, key=lambda t: t[0])
+            if model == 0]
+
+
+def gather_eval_rows(rows: np.ndarray, order: np.ndarray,
+                     mesh: Optional[Mesh] = None):
+    """Each data rank's evaluation rows with their sample indices, merged
+    (JAX's): concatenated in data order, the first occurrence of each
+    index kept (the loader wrap-pads, so duplicates are expected), sorted
+    by index.  Returns (rows, order)."""
+    parts = host_gather((np.asarray(rows), np.asarray(order)), mesh)
+    rows = np.concatenate([r for r, _ in parts])
+    order = np.concatenate([o for _, o in parts])
+    _, first = np.unique(order, return_index=True)
+    keep = np.sort(first)
+    rows, order = rows[keep], order[keep]
+    perm = np.argsort(order)
+    return rows[perm], order[perm]
+
+
+def sum_across_hosts(vec: np.ndarray, mesh: Optional[Mesh] = None
+                     ) -> np.ndarray:
+    """A small metric vector summed over the data ranks (the reference's
+    ``dist.all_reduce`` on evaluation counters); itself in one process."""
+    return np.sum(np.stack(host_gather(np.asarray(vec), mesh)), axis=0)
+
+
+def collect_records(records: List[dict], dedup_key=None,
+                    mesh: Optional[Mesh] = None) -> List[dict]:
+    """The data ranks' records (captions, answers) merged in data order,
+    the first of each ``dedup_key`` kept (the loader's wrap-padding
+    duplicates); every rank gets the same list."""
+    records = [r for part in host_gather(list(records), mesh)
+               for r in part]
     if dedup_key is None:
-        return list(records)
+        return records
     seen, out = set(), []
     for r in records:
         if r[dedup_key] not in seen:

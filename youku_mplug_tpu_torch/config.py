@@ -9,7 +9,11 @@ them), the ``optimizer`` and ``schedular`` blocks (``opt`` names AdamW
 or any zoo optimizer; with
 ``visual_backbone_scale`` set for a ``clip_model`` tower, as the JAX
 loader sets it), ``update_freq``, ``epochs``, ``prompt``, ``batch_size``,
-``num_workers`` (default 8), ``max_length``, ``image_res``, and via
+``num_workers`` (default 8), ``max_length``, ``image_res``, the serving
+split ``mesh`` (``runtime/mesh.MeshConfig``: an explicit ``mesh:`` block
+wins, else ``megatron_cfg``'s ``tensor_model_parallel_size`` or
+``model_parallel_size`` is the model degree with ``data: -1``, as JAX's
+loader maps them), and via
 ``RunConfig.get`` as the JAX loader leaves them in its raw dict
 ``synthetic_length``, ``text_decoder``, ``max_new_tokens``,
 ``beam_size``, ``async_checkpointing``, ``classname_file``,
@@ -48,6 +52,7 @@ from youku_mplug_tpu_torch.models.owl import (
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideoConfig
 from youku_mplug_tpu_torch.models.vision import VisionConfig
 from youku_mplug_tpu_torch.optim.factory import OptimizerConfig
+from youku_mplug_tpu_torch.runtime.mesh import MeshConfig
 
 
 @dataclasses.dataclass
@@ -64,6 +69,7 @@ class RunConfig:
     epochs: int = 10
     update_freq: int = 1
     bert: BertConfig = BertConfig()
+    mesh: MeshConfig = MeshConfig()
 
     def get(self, key, default=None):
         return self.raw.get(key, default)
@@ -148,7 +154,7 @@ def load_config(yaml_path: str,
     sched = dict(raw.get("schedular", raw.get("scheduler", {})))
     return RunConfig(
         raw=raw, model=model, optimizer=_optimizer_config(raw, model),
-        bert=bert,
+        bert=bert, mesh=mesh_config(raw),
         batch_size=int(raw.get("batch_size", 8)),
         num_workers=int(raw.get("num_workers", 8)),
         max_length=int(raw.get("max_length", 80)),
@@ -157,6 +163,18 @@ def load_config(yaml_path: str,
         prompt=str(raw.get("prompt", "") or ""),
         epochs=int(sched.get("epochs", raw.get("epochs", 10))),
         update_freq=int(raw.get("update_freq", 1)))
+
+
+def mesh_config(raw: Dict[str, Any]) -> MeshConfig:
+    """The YAML's split: its ``mesh:`` block, else Megatron's tensor
+    parallel size as the model degree (JAX ``config.py:125-135``)."""
+    block = raw.get("mesh")
+    if block:
+        return MeshConfig(data=int(block.get("data", -1)),
+                          model=int(block.get("model", 1)))
+    mcfg = raw.get("megatron_cfg", {})
+    return MeshConfig(data=-1, model=int(mcfg.get(
+        "tensor_model_parallel_size", mcfg.get("model_parallel_size", 1))))
 
 
 def dump_config(cfg: RunConfig, output_dir: str):

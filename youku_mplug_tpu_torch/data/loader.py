@@ -1,10 +1,16 @@
 """Batches of a dataset in ``ShardedLoader``'s order, decoded by a pool
 of workers ahead of the consumer.
 
-Counterpart of ``youku_mplug_tpu/data/loader.py`` on one process (where
-``ShardedLoader`` reads the process index from jax): the epoch's order
+Counterpart of ``youku_mplug_tpu/data/loader.py``: the epoch's order
 is ``np.random.default_rng(seed * 100_003 + epoch).permutation(n)``, or
-the dataset's own with ``shuffle=False``; the last partial batch is
+the dataset's own with ``shuffle=False``, the same on every rank; a
+loader given ``shard_index`` / ``shard_count`` (``ShardedLoader``'s
+process index and count, which JAX reads from jax: here the runner
+passes the rank's data coordinate, so the ranks of one model group read
+the same batches) wrap-pads that order to a multiple of the count and
+takes every ``shard_count``-th index from ``shard_index`` on (the
+DistributedSampler contract: every shard yields as many batches); the
+last partial batch is
 dropped (kept with ``drop_last=False``, as the evaluations read every
 sample), and samples are collated the same way (arrays stacked, ints to
 int32, floats to float32, anything else kept as a list).
@@ -83,10 +89,14 @@ class Loader:
     def __init__(self, dataset, batch_size: int, *, seed: int = 0,
                  shuffle: bool = True, drop_last: bool = True,
                  num_workers: int = 0, prefetch: int = 4,
-                 workers_impl: str = "thread"):
+                 workers_impl: str = "thread", shard_index: int = 0,
+                 shard_count: int = 1):
         if workers_impl not in ("thread", "process"):
             raise ValueError(f"workers_impl must be 'thread' or 'process', "
                              f"got {workers_impl!r}")
+        if not 0 <= shard_index < shard_count:
+            raise ValueError(f"shard {shard_index} of {shard_count}")
+        self.shard_index, self.shard_count = shard_index, shard_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -103,15 +113,24 @@ class Loader:
             self.dataset.set_epoch(epoch)
 
     def __len__(self):
-        n = len(self.dataset)
+        n = -(-len(self.dataset) // self.shard_count)  # this shard's
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 
-    def batch_indices(self) -> List[np.ndarray]:
-        """This epoch's batches of dataset indices, in order."""
-        n = len(self.dataset)
+    def shard_indices(self) -> np.ndarray:
+        """This epoch's dataset indices of this shard, in order (JAX's
+        ``_shard_indices``)."""
+        n, count = len(self.dataset), self.shard_count
         order = (np.random.default_rng(self.seed * 100_003 + self.epoch)
                  .permutation(n) if self.shuffle else np.arange(n))
+        total = -(-n // count) * count
+        if total > n:  # wrap: every shard the same length
+            order = np.concatenate([order, order[:total - n]])
+        return order[self.shard_index::count]
+
+    def batch_indices(self) -> List[np.ndarray]:
+        """This epoch's batches of dataset indices, in order."""
+        order = self.shard_indices()
         return [order[i * self.batch_size:(i + 1) * self.batch_size]
                 for i in range(len(self))]
 
@@ -208,9 +227,9 @@ def length_balanced_shard_indices(lengths, epoch: int, rank: int,
 
 class LengthBalancedLoader(Loader):
     """``Loader`` whose epoch order is ``length_balanced_shard_indices``
-    on one process (rank 0 of 1, as the port's loader runs); the dataset
-    must expose ``get_item_length(i)``.  JAX's ``LengthBalancedLoader``
-    on one process gives the same batches."""
+    (rank ``shard_index`` of ``shard_count``); the dataset must expose
+    ``get_item_length(i)``.  JAX's ``LengthBalancedLoader`` at the same
+    process index and count gives the same batches."""
 
     def __init__(self, dataset, batch_size, *, num_bucket: int = 20, **kw):
         super().__init__(dataset, batch_size, **kw)
@@ -219,16 +238,15 @@ class LengthBalancedLoader(Loader):
                          for i in range(len(dataset))]
 
     def __len__(self):
-        n = (len(self.dataset) // self.num_bucket) * self.num_bucket
+        samples = len(self.dataset) // self.num_bucket // self.shard_count
+        n = samples * self.num_bucket
         return n // self.batch_size if self.drop_last else \
             -(-n // self.batch_size)
 
-    def batch_indices(self) -> List[np.ndarray]:
-        order = length_balanced_shard_indices(
-            self._lengths, self.epoch, 0, 1, num_bucket=self.num_bucket,
-            seed=self.seed)
-        return [order[i * self.batch_size:(i + 1) * self.batch_size]
-                for i in range(len(self))]
+    def shard_indices(self) -> np.ndarray:
+        return length_balanced_shard_indices(
+            self._lengths, self.epoch, self.shard_index, self.shard_count,
+            num_bucket=self.num_bucket, seed=self.seed)
 
 
 class MetaLoader:

@@ -44,6 +44,15 @@ dequantizes the rows it looks up and scales the logits per vocab row.
 With ``kv_cache_dtype: int8`` the cache is the int8 dict: prefill reads
 the written layer back dequantized (the prompt's own keys too, as in the
 JAX package), decode reads it in place through the int8 decode kernel.
+
+Tensor parallelism (``parallel/sharding.shard_params`` with the GPT-3
+rules): each model rank holds n/m heads (the attention reads its head
+count from ``qkv_kernel``), F/m MLP columns and V/m vocab rows; the
+attention output and fc2 products are summed over the model ranks
+(``parallel/tensor_parallel.py``) before their biases, the embedding
+lookup and the tied logits go through the vocab-parallel lookup and
+gather, and the cache holds the rank's own heads.  Forward only: the
+training loss over a vocab-parallel table raises.
 """
 
 from __future__ import annotations
@@ -78,6 +87,12 @@ from youku_mplug_tpu_torch.ops.flash_attention import (
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.ops.lora import LoRAModule, plus
 from youku_mplug_tpu_torch.ops.quant import dequantize, qscale
+from youku_mplug_tpu_torch.parallel.tensor_parallel import (
+    TRAINING_UNDER_MESH,
+    gather_vocab_logits,
+    reduce_from_model,
+    vocab_parallel_embedding,
+)
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 KV_CACHE_DTYPES = ("auto", "int8")
@@ -194,18 +209,30 @@ class Dropout:
 
 class GPT3Attention(LoRAModule):
     """Self-attention with a fused QKV projection and the stacked cache.
-    Parameters carry a leading [L] layer dimension."""
+    Parameters carry a leading [L] layer dimension.  On a model shard
+    (``tp``, set by ``parallel/sharding.shard_params``) it holds n/m of
+    the heads: the head count is read from ``qkv_kernel``, the kernels
+    run on the local heads, the output projection's partial products are
+    summed over the model ranks and ``out_bias`` is added once, after."""
+
+    TP_PARAM = "out_kernel"  # the row-parallel product that is summed
+    tp = None
 
     def __init__(self, cfg: GPT3Config, num_layers: int, dtype):
         super().__init__()
         n, d, h = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
-        self.n, self.d, self.h = n, d, h
+        self.d, self.h = d, h
         self.qkv_kernel = _param(num_layers, h, 3, n, d, dtype=dtype)
         self.qkv_bias = _param(num_layers, 3, n, d, dtype=dtype)
         self.out_kernel = _param(num_layers, n, d, h, dtype=dtype)
         self.out_bias = _param(num_layers, h, dtype=dtype)
         add_lora(self, cfg, num_layers, dtype,
                  {"qkv": (h, 3 * n * d), "out": (n * d, h)})
+
+    @property
+    def n(self) -> int:
+        """The heads this module holds (n / m on a model shard)."""
+        return self.qkv_kernel.shape[-2]
 
     def forward(self, x, lidx: int, cache: Optional[kvc.Cache] = None,
                 cache_len: CacheLen = 0,
@@ -249,7 +276,7 @@ class GPT3Attention(LoRAModule):
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
         y = qscaled(y, self, "out_kernel", lidx)
         y = plus(y, self.delta("out", out, lidx))
-        return y + self.out_bias[lidx].to(dt)
+        return reduce_from_model(y, self.tp) + self.out_bias[lidx].to(dt)
 
     def _cache_attention(self, qkv, lidx, cache, cache_len, valid_from):
         n, d = self.n, self.d
@@ -284,6 +311,13 @@ class GPT3Attention(LoRAModule):
 
 
 class GPT3MLP(LoRAModule):
+    """fc1 -> tanh-GELU -> fc2; on a model shard fc1's columns and fc2's
+    rows are this rank's, fc2's partial product is summed over the model
+    ranks and ``fc2_bias`` added once, after."""
+
+    TP_PARAM = "fc2_kernel"
+    tp = None
+
     def __init__(self, cfg: GPT3Config, num_layers: int, dtype):
         super().__init__()
         h, f = cfg.hidden_size, cfg.ffn_dim
@@ -302,7 +336,7 @@ class GPT3MLP(LoRAModule):
         out = qscaled(y @ self.fc2_kernel[lidx].to(dt), self, "fc2_kernel",
                       lidx)
         out = plus(out, self.delta("fc2", y, lidx))
-        return out + self.fc2_bias[lidx].to(dt)
+        return reduce_from_model(out, self.tp) + self.fc2_bias[lidx].to(dt)
 
 
 class GPT3Layer(nn.Module):
@@ -392,18 +426,27 @@ class TiedEmbedding(nn.Module):
     (``quant.quantize_decoder_(..., include_embedding=True)``) carries
     per-vocab-row scales [V, 1]: lookups dequantize the gathered rows,
     the logits are the product with the int8 values times the row's
-    scale."""
+    scale.  On a model shard (``tp``) the table holds this rank's
+    contiguous V/m rows (and their scales): lookups go through
+    ``vocab_parallel_embedding`` and the logits through
+    ``gather_vocab_logits``, so every rank gets the unsharded values."""
+
+    TP_PARAM = "embedding"
+    tp = None
 
     def __init__(self, num_embeddings: int, features: int, dtype):
         super().__init__()
         self.embedding = _param(num_embeddings, features, dtype=dtype)
 
     def encode(self, tokens, dtype):
-        rows = F.embedding(tokens, self.embedding)
-        s = qscale(self, "embedding")
-        if s is not None:
-            rows = rows.float() * F.embedding(tokens, s)
-        return rows.to(dtype)
+        def lookup(ids):
+            rows = F.embedding(ids, self.embedding)
+            s = qscale(self, "embedding")
+            if s is not None:
+                rows = rows.float() * F.embedding(ids, s)
+            return rows.to(dtype)
+        return vocab_parallel_embedding(tokens, self.embedding.shape[0],
+                                        lookup, self.tp)
 
     def attend(self, hidden):
         """fp32 logits of a product with fp32 accumulation, as the JAX
@@ -430,22 +473,30 @@ class TiedEmbedding(nn.Module):
             y = h2.float() @ self.embedding.to(hidden.dtype).float().t()
         if s is not None:
             y = y * s.reshape(-1)
+        y = gather_vocab_logits(y, self.tp)
         return y.reshape(*hidden.shape[:-1], y.shape[-1])
 
     def table(self, dtype):
         """The [V, H] table in ``dtype`` (dequantized if int8): the
         training loss's operand."""
+        if self.tp is not None:
+            raise NotImplementedError(f"the LM loss over a vocab-parallel "
+                                      f"table: {TRAINING_UNDER_MESH}")
         s = qscale(self, "embedding")
         if s is not None:
             return dequantize(self.embedding, s, dtype)
         return self.embedding.to(dtype)
 
 
-def _init_cache(cfg, policy: Policy, batch: int, max_len: int, device):
+def _init_cache(cfg, policy: Policy, batch: int, max_len: int, device,
+                num_heads: Optional[int] = None):
+    """The stacked cache of ``num_heads`` heads (default the config's;
+    a model shard's own n/m)."""
     max_len = -(-max_len // 128) * 128
+    n = num_heads or cfg.num_attention_heads
     return kvc.make_cache(cfg.num_hidden_layers, batch, max_len,
-                          cfg.hidden_size, policy.compute_dtype,
-                          device=device, num_heads=cfg.num_attention_heads,
+                          n * (cfg.hidden_size // cfg.num_attention_heads),
+                          policy.compute_dtype, device=device, num_heads=n,
                           quantized=cfg.kv_cache_dtype == "int8")
 
 
@@ -496,8 +547,10 @@ class GPT3LM(nn.Module):
     def init_cache(self, batch: int, max_len: int, device=None):
         """Stacked cache [L, B, M, 2*hidden] (the int8 dict with
         ``kv_cache_dtype: int8``), M rounded up to a multiple of 128 as in
-        the JAX package (the extra rows are never attended)."""
-        return _init_cache(self.cfg, self.policy, batch, max_len, device)
+        the JAX package (the extra rows are never attended); on a model
+        shard [L, B, M, 2*(n/m)*d], its local heads' rows."""
+        return _init_cache(self.cfg, self.policy, batch, max_len, device,
+                           self.decoder.layers.attn.n)
 
     def decode_step(self, input_embeds, cache, cache_len: CacheLen,
                     valid_from=None, position_offset=None,

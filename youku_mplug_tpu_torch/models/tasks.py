@@ -11,7 +11,9 @@ methods ``encode_video`` / ``encode_queries``, ``pretrain_loss``,
 ``itm_eval_scores``, and the image pretrain variant ``image_pretrain_loss``
 (a plain image ViT, ``image_encoder``, in place of the TimeSformer: the
 reference's ViT-B/16 or EVA-ViT-g image pretraining);
-``generate_captions``.
+``generate_captions``.  Under a serving split (``mesh``, set by
+``parallel/sharding.shard_params``) the same methods run on the model
+shards: nothing here changes but the weights each module holds.
 
 Towers: the JAX module declares both vision towers and flax creates the
 parameters of the one a task method calls, so a video model's tree has
@@ -132,6 +134,13 @@ def _l2_normalize(x):
 
 
 class MPLUGVideo(nn.Module):
+    # the serving split (runtime/mesh.Mesh) once parallel/sharding.
+    # shard_params has cut the weights: the vision tower and the decoder
+    # then run on their model shards (their modules' ``tp``), and
+    # encode_video / encode_queries and the decoder's serving entry
+    # points give every model rank the unsharded outputs
+    mesh = None
+
     def __init__(self, cfg: MPLUGVideoConfig,
                  policy: Policy = DEFAULT_POLICY, proj_heads: bool = False,
                  image: bool = False):

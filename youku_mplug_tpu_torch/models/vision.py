@@ -78,11 +78,13 @@ from youku_mplug_tpu_torch.ops.attention import (
     mha_reference,
 )
 from youku_mplug_tpu_torch.ops.flash_attention import (
+    flash_attention,
     flash_attention_packed,
     packed_supported,
 )
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.ops.lora import LoRAModule, plus
+from youku_mplug_tpu_torch.parallel.tensor_parallel import reduce_from_model
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 
@@ -203,13 +205,27 @@ def _period_bias(s: int, period: int, device) -> Optional[torch.Tensor]:
 class VisionAttention(LoRAModule):
     """Split q/v-bias attention over the flash kernel (packed layout)
     where ``packed_kernel_takes`` the call, else einsum attention, or
-    under attention dropout ``mha_reference``."""
+    under attention dropout ``mha_reference``.
+
+    On a model shard (``tp``, set by ``parallel/sharding.shard_params``)
+    it holds n/m of the heads (``qkv_kernel``, ``q_bias``, ``v_bias``,
+    ``proj_kernel``); the output projection's partial products are summed
+    over the model ranks and ``proj_bias`` is added once, after.  The
+    route is decided on the global geometry, as JAX decides it; where the
+    packed kernel takes the call but the local heads fail
+    ``packed_supported`` (ViT-B/16's 12 heads at model = 4 leave 3 of
+    64, an odd count of 128-lane strips) the local heads take the
+    head-major flash kernel (``flash_attention``, K4, with the same
+    period mask): still the hand-written kernel, on head views."""
+
+    TP_PARAM = "proj_kernel"  # the row-parallel product that is summed
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, dtype=torch.float32,
                  lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         d = dim // num_heads
-        self.dim, self.num_heads = dim, num_heads
+        self.dim = dim
         self.qkv_kernel = _param(dim, 3, num_heads, d, dtype=dtype)
         self.q_bias = _param(num_heads, d, dtype=dtype)
         self.v_bias = _param(num_heads, d, dtype=dtype)
@@ -217,6 +233,11 @@ class VisionAttention(LoRAModule):
         self.proj_bias = _param(dim, dtype=dtype)
         self.add_lora(lora_rank, lora_alpha, LORA_INIT_STD, dtype,
                       {"qkv": (dim, 3 * dim), "proj": (dim, dim)})
+
+    @property
+    def num_heads(self) -> int:
+        """The heads this module holds (n / m on a model shard)."""
+        return self.qkv_kernel.shape[-2]
 
     def forward(self, x, *, period: int = 0,
                 post_kernel: Optional[torch.Tensor] = None,
@@ -230,7 +251,8 @@ class VisionAttention(LoRAModule):
         (without adapters only).  ``attn_drop`` > 0 (with ``generator``):
         attention dropout on the plain path."""
         n, c = self.num_heads, self.dim
-        nd = c
+        d = self.qkv_kernel.shape[-1]
+        nd = n * d
         proj_kernel, proj_bias = self.proj_kernel, self.proj_bias
         if post_kernel is not None:
             assert self.lora_rank == 0, "post_kernel fusion takes no LoRA"
@@ -247,24 +269,37 @@ class VisionAttention(LoRAModule):
         q = qkv[..., :nd] + self.q_bias.reshape(nd).to(x.dtype)
         k = qkv[..., nd:2 * nd]
         v = qkv[..., 2 * nd:] + self.v_bias.reshape(nd).to(x.dtype)
+        b = xf.shape[0]
+
+        def heads(t):
+            return t.unflatten(-1, (n, d)).transpose(1, 2)
         if attn_drop > 0.0:
-            b = xf.shape[0]
-            q4, k4, v4 = (t.unflatten(-1, (n, c // n)).transpose(1, 2)
-                          for t in (q, k, v))
-            out = mha_reference(q4, k4, v4,
+            out = mha_reference(heads(q), heads(k), heads(v),
                                 bias=_period_bias(s, period, x.device),
                                 dropout_rate=attn_drop, generator=generator)
             out = out.transpose(1, 2).reshape(b, s, nd)
-        elif packed_kernel_takes(n, c // n, s, period):
-            out = flash_attention_packed(q, k, v, n, period=period)
-        else:
+        elif not packed_kernel_takes(c // d, d, s, period):
             out = _einsum_attention(q, k, v, n, period)
+        elif packed_supported(n, d):
+            out = flash_attention_packed(q, k, v, n, period=period)
+        else:  # the local heads of a model shard, head-major
+            out = flash_attention(heads(q), heads(k), heads(v),
+                                  period=period)
+            out = out.transpose(1, 2).reshape(b, s, nd)
         y = _mm(out, proj_kernel.reshape(nd, c))
-        y = plus(y, self.delta("proj", out)) + proj_bias.to(x.dtype)
+        y = plus(y, self.delta("proj", out))
+        y = reduce_from_model(y, self.tp) + proj_bias.to(x.dtype)
         return y.reshape(*lead, s, c)
 
 
 class Mlp(LoRAModule):
+    """fc1 -> GELU -> fc2; on a model shard fc1's columns and fc2's rows
+    are this rank's, fc2's partial product is summed over the model ranks
+    and ``fc2_bias`` added once, after."""
+
+    TP_PARAM = "fc2_kernel"
+    tp = None
+
     def __init__(self, dim: int, hidden: int, gelu: str = "tanh",
                  dtype=torch.float32, lora_rank: int = 0,
                  lora_alpha: float = 16.0):
@@ -281,7 +316,7 @@ class Mlp(LoRAModule):
         y = plus(_mm(x, self.fc1_kernel), self.delta("fc1", x))
         y = _gelu(y + self.fc1_bias.to(x.dtype), self.gelu)
         out = plus(_mm(y, self.fc2_kernel), self.delta("fc2", y))
-        return out + self.fc2_bias.to(x.dtype)
+        return reduce_from_model(out, self.tp) + self.fc2_bias.to(x.dtype)
 
 
 def temporal_group(n_patches: int, frames: int) -> int:

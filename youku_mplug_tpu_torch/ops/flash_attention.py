@@ -628,25 +628,30 @@ flash_attention_packed.alibi_launches = 0
 
 def flash_attention_plain(q, k, v, *, causal: bool = False,
                           kv_len: Optional[int] = None,
-                          scale: Optional[float] = None):
+                          scale: Optional[float] = None, period: int = 0):
     """Plain version of ``flash_attention`` (same arguments)."""
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError("causal flash attention requires Sq == Sk")
     return flash_fwd_plain(q, k, v, scale=scale or q.shape[-1] ** -0.5,
-                           causal=causal, kv_len=kv_len)[0]
+                           causal=causal, kv_len=kv_len,
+                           period=int(period))[0]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, kv_len: Optional[int] = None,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    period: int = 0) -> torch.Tensor:
     """Attention over head-major [B, H, S, D] (any strides with a
     contiguous D).  ``kv_len`` (static int): keys at or past it are
-    masked; ``causal`` requires Sq == Sk.  Returns [B, H, Sq, D]."""
+    masked; ``causal`` requires Sq == Sk; ``period > 0`` the grouped
+    temporal attention's block-diagonal mask (a model shard's local
+    vision heads, ``models/vision.py``).  Returns [B, H, Sq, D]."""
     if causal and q.shape[2] != k.shape[2]:
         raise ValueError("causal flash attention requires Sq == Sk")
     return _Flash.apply(q, k, v, dict(scale=scale or q.shape[-1] ** -0.5,
-                                      causal=bool(causal), period=0,
-                                      kv_len=kv_len, alibi_slopes=None),
+                                      causal=bool(causal),
+                                      period=int(period), kv_len=kv_len,
+                                      alibi_slopes=None),
                         flash_attention)
 
 

@@ -1,0 +1,104 @@
+"""Megatron's tensor-parallel collectives, over the mesh's model group.
+
+GSPMD writes these for the JAX package (its rules in
+``parallel/sharding.py`` say where the parameters are split, XLA inserts
+the reductions); the reference writes them by hand
+(``models/distributed_utils.py``: Column / Row / VocabParallel layers).
+The port writes them by hand too, and only with ``all_reduce``, the one
+collective that NCCL and gloo both run on device tensors (gloo through
+the host), so the same code runs across cards, with several ranks on one
+card, and on CPU processes:
+
+- ``reduce_from_model``: the sum over the model ranks of a row-parallel
+  product (after the attention output or the MLP's second projection;
+  the bias is added once, after it);
+- ``vocab_parallel_embedding``: each rank looks up the ids inside its
+  contiguous vocab slice, zeros elsewhere, and the sum gives every rank
+  the rows (exact: one non-zero term);
+- ``gather_vocab_logits``: each rank writes its vocab slice of the logits
+  into a zeroed fp32 ``[N, V]`` and the sum gives every rank the
+  unsharded logits bitwise, so greedy and sampled picks agree across the
+  model ranks.
+
+A module that holds a sharded parameter carries ``tp``, its
+``ModelGroup`` (set by ``parallel/sharding.shard_params``); with ``tp``
+None (or one model rank) each function is the identity and issues no
+collective.  The reductions are forward-only: a tensor that wants a
+gradient raises (the backward under the mesh is training's, not yet
+ported).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+TRAINING_UNDER_MESH = ("training under a mesh (ROADMAP Queue 1 item 5) is "
+                       "not ported")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """The model-axis process group of a rank, its index and size."""
+
+    group: object
+    index: int
+    size: int
+
+
+def _active(tp: Optional[ModelGroup]) -> bool:
+    return tp is not None and tp.size > 1
+
+
+def reduce_from_model(x: torch.Tensor, tp: Optional[ModelGroup]
+                      ) -> torch.Tensor:
+    """The sum of ``x`` over the model ranks (a new tensor; ``x`` itself
+    without a model group)."""
+    if not _active(tp):
+        return x
+    if x.requires_grad:
+        raise NotImplementedError(f"a gradient through a model-parallel "
+                                  f"reduction: {TRAINING_UNDER_MESH}")
+    # in place on a fresh product; a view is copied first
+    out = x if x.is_contiguous() and x._base is None else x.clone(
+        memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=tp.group)
+    return out
+
+
+def vocab_parallel_embedding(tokens: torch.Tensor, rows: int,
+                             lookup: Callable[[torch.Tensor], torch.Tensor],
+                             tp: Optional[ModelGroup]) -> torch.Tensor:
+    """Embedding rows of ``tokens`` from a table split by rows: ``lookup``
+    maps local ids (in [0, rows)) to this rank's rows; ids outside this
+    rank's slice ``[index * rows, (index + 1) * rows)`` give zeros, and
+    the sum over the model ranks fills them in."""
+    if not _active(tp):
+        return lookup(tokens)
+    local = tokens - tp.index * rows
+    inside = (local >= 0) & (local < rows)
+    out = lookup(local.clamp(0, rows - 1))
+    out = out * inside[..., None].to(out.dtype)
+    return reduce_from_model(out, tp)
+
+
+def gather_vocab_logits(logits: torch.Tensor, tp: Optional[ModelGroup]
+                        ) -> torch.Tensor:
+    """[..., V / m] fp32 logits of this rank's vocab slice -> the full
+    [..., V] on every rank (zeros elsewhere, summed: exact)."""
+    if not _active(tp):
+        return logits
+    rows = logits.shape[-1]
+    full = logits.new_zeros(*logits.shape[:-1], rows * tp.size)
+    full[..., tp.index * rows:(tp.index + 1) * rows] = logits
+    dist.all_reduce(full, group=tp.group)
+    return full
+
+
+def model_parallel(module: nn.Module) -> bool:
+    """Whether any submodule of ``module`` runs on a model shard."""
+    return any(_active(getattr(m, "tp", None)) for m in module.modules())

@@ -35,14 +35,24 @@ buffers (copied from a pinned host array before the replay) and writing a
 static [k, B] token buffer.  All graphs share one memory pool; the first
 capture is preceded by one eager warm-up step on the capture stream
 (cuBLAS workspaces, the kernel library's build).  A capture or replay that
-fails raises; CPU tensors, and only they, run the same k-step body
-eagerly.  Kernel wrappers count their launches when Python calls them, so
+fails raises; CPU tensors, and a model shard's, run the same k-step
+body eagerly.  Kernel wrappers count their launches when Python calls them, so
 each graph records its capture's counts and every replay adds them: the
 counters keep counting launches sent to the device.  A graph reads the
 model's parameters in their storage: LoRA adapters left unmerged run in
 the same replay, and adapters or weights copied in place after the
 capture (``ops/lora.inject_adapters``, a checkpoint restore) reach every
 later replay; replacing a parameter tensor (``p.data = ...``) would not.
+
+On a model shard (a decoder cut by ``parallel/sharding.shard_params``,
+``model > 1``) the engine dispatches every decode step eagerly and
+captures no CUDA graph (``graph_replays`` stays 0): gloo's collectives
+cannot be captured, and a capture of NCCL's cannot be tested with one
+card.  The cache holds the rank's own heads, and the logits every rank
+picks from are the gathered full vocabulary (``parallel/
+tensor_parallel.gather_vocab_logits``), so the model ranks pick the same
+tokens.  Prompt-lookup speculation (``step_lookup``) there raises.
+Under ``model == 1`` nothing changes.
 """
 
 from __future__ import annotations
@@ -67,6 +77,7 @@ from youku_mplug_tpu_torch.models.gpt3 import GPT3LM
 from youku_mplug_tpu_torch.ops import decode_attention as dec
 from youku_mplug_tpu_torch.ops import flash_attention as fa
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
+from youku_mplug_tpu_torch.parallel.tensor_parallel import model_parallel
 
 # the kernel wrappers' launch counters (function, attribute)
 COUNTERS = tuple(
@@ -137,6 +148,8 @@ class ServingEngine:
         self.generator = generator
 
         self.cache = model.init_cache(num_slots, max_len, device=self.device)
+        # a model shard dispatches eagerly (see the module docstring)
+        self.eager = model_parallel(model)
         self.cache_len = np.zeros((num_slots,), np.int32)
         self.valid_from = np.zeros((num_slots,), np.int32)
         self.pos_offset = np.zeros((num_slots,), np.int32)
@@ -285,11 +298,11 @@ class ServingEngine:
 
     def _launch(self, k: int) -> torch.Tensor:
         """Launch k decode steps of every slot from the host state: a replay
-        of the k-step graph, or for CPU tensors the eager body.  Returns
-        the tokens [k, B] on the device."""
+        of the k-step graph, or for CPU tensors and on a model shard the
+        eager body.  Returns the tokens [k, B] on the device."""
         self._stage()
-        toks = self._decode_many_impl(k) if self.device.type == "cpu" \
-            else self._replay(k)
+        toks = self._decode_many_impl(k) \
+            if self.device.type == "cpu" or self.eager else self._replay(k)
         self.decode_steps += k
         return toks
 
@@ -431,6 +444,10 @@ class ServingEngine:
         Greedy-only."""
         if self.config.do_sample:
             raise ValueError("step_lookup is greedy-only")
+        if self.eager:
+            raise NotImplementedError(
+                "prompt-lookup decoding on a model shard is not ported "
+                "(ROADMAP Queue 1 item 5)")
         finished, longest = self._begin()
         if longest < 0:
             return finished
