@@ -3,7 +3,16 @@
     python3 chip_smoke.py
 
 Phases (each prints one line or a few; any failure exits nonzero before
-the last line is printed):
+the last line is printed).  A 1200 s limit on the whole run holds the
+script to a budget (PERF.md §4): a few phases run a decoder, or the
+zoo's tree, cut in depth, each gate taken from the cut's counts: Bloom
+at OWL_SERVE_LAYERS of its 30 layers in phases 7, 8, 8a (its sampling on
+a full-depth model of its own: a cut seeded Bloom is too peaked to
+sample), 8b, 25 and 26;
+the 1.3B decoder at GPT13_CUT_LAYERS of 24 in phases 13, 27 (pretrain13)
+and 40 (it runs whole in 3-6, 12 and 41); the 2.7B at GPT27_LAYERS of 32
+in phases 14 and 27; phase 32 over the leaves of ZOO_BLOCKS of the 12
+vision blocks.  Where a phase below says "depth", read the cut.
 
 1. device and build: require CUDA (one card: the first visible one),
    print the card's name and power limit, build the hand-written kernels
@@ -95,7 +104,7 @@ the last line is printed):
    (flash_fwd_plain, flash_bwd_plain) patched in; loss and every
    trainable leaf's gradient (relative L2) within the stated tolerances;
 7. the instruct slice: the run_instruct CLI's serving function at the
-   full width and depth of configs/instruct/serve_bloomz_7b_flagship.yaml
+   full width of configs/instruct/serve_bloomz_7b_flagship.yaml
    (per-frame CLIP ViT-L/14, the Owl abstractor, BloomZ-7B1; seeded
    weights built on the card), 16 synthetic requests, 8 slots, 64 new
    tokens, greedy; the K1 counter must rise, K5-ALiBi (with K6) launch
@@ -163,7 +172,7 @@ the last line is printed):
    and run_retrieval through their prepare / train / evaluation
    functions on the reference YAMLs (configs/cls/cls_gpt3_1.3B_youku_v0_
    sharp_2.yaml, configs/retrieval/retrieval{_itm,}_gpt3_1.3B_youku_v0.
-   yaml) at full width and depth: clip-b16 (12 blocks, 8 heads of 96, the
+   yaml) at full width: clip-b16 (12 blocks, 8 heads of 96, the
    0.1 lr scale on its leaves) and the frozen 1.3B decoder with its 0.1
    dropouts, seeded weights, synthetic 224 px clips; the cuts printed on
    a line ([downstream]).  Per recipe: 2 train steps (cls 32 clips x 8
@@ -319,7 +328,8 @@ the last line is printed):
    equal phase 9's; phase 10's replays;
    the chunked loss against the dense one within CE_CHUNK_TOL;
 32. optim_zoo: every zoo name (and lookahead_adamw past its first sync)
-   over the flagship's trainable leaves in their JAX shapes, ZOO_UPDATES
+   over the flagship's trainable leaves in their JAX shapes (the vision
+   tower's first ZOO_BLOCKS blocks), ZOO_UPDATES
    updates in fp32 on the card against the same in fp64 on the CPU (one
    reference a distinct rule): every leaf within ZOO_TOL relative L2, ms
    an update printed;
@@ -383,7 +393,8 @@ the last line is printed):
    ``build`` and ``serve_built`` (all that ``python -m
    youku_mplug_tpu_torch.cli.serve`` runs) on a copy of
    serve_gpt3_1.3B_flagship.yaml with its mesh: block set (full width,
-   seeded weights, 16 requests, 8 slots, greedy): (1,1) with NCCL and
+   the decoder at GPT13_CUT_LAYERS layers, seeded weights, 16 requests,
+   8 slots, greedy): (1,1) with NCCL and
    one rank, (1,2) and (2,2) with gloo, their 2 and 4 ranks on card 0
    (--device cuda:0; gloo copies the collectives through the host, so
    these numbers say nothing of NCCL).  Gates: the merged results cover
@@ -403,7 +414,37 @@ the last line is printed):
    NCCL's own error.  Phase 2 holds K1 at the model = 2 shard's local
    heads ([64,197,6x64], [112,112,6x64] period 8), K4 head-major at a
    model = 4 shard's ([64,3,197,64], [112,3,112,64] period 8) and K5 at
-   the rank's cache [24,8,256,2x16x64].  [serve_mesh <split>] lines.
+   the rank's cache [24,8,256,2x16x64].  [serve_mesh <split>] lines;
+41. train_mesh (with phase 40): the pretrain CLI's path (run_pretrain's
+   setup under torch.distributed.run: init_mesh, the block loader,
+   shard_params, the state; common.train_one_epoch) on a copy of
+   configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml with its mesh: block
+   (full width and depth, seeded weights, synthetic clips, batch 16, 80
+   tokens), TRAIN_MESH_STEPS steps of the same global batches in each
+   split: (1,1) with NCCL and (1,2) with gloo ranks on card 0 in phase
+   40's own torch.distributed.run calls, after their serving (the serving
+   model freed first), (2,1) with gloo in a call of its own.  Gates: every
+   rank's launches exactly TRAIN_MESH_LAUNCHES a step (predicted in
+   PERF.md), each step finite and taken; each step's loss within
+   REPLAY_LOSS_TOL and grad_norm within TRAIN_MESH_NORM_TOL (relative) of
+   (1,1)'s; every trainable leaf after the steps, unsharded, against
+   (1,1)'s as the replay gates a gradient (REPLAY_GRAD_TOL with its
+   floor), and every leaf's move over the steps against (1,1)'s within
+   TRAIN_MESH_MOVE_TOL (floor REPLAY_GRAD_FLOOR x the whole move); (1,2)
+   saves its state (every rank gathers, rank 0 writes the unsharded
+   file), (2,1) resumes it in a second runner and takes the step (1,1)
+   takes next (one step of epoch 1): its loss within REPLAY_LOSS_TOL and
+   its update, where the restored Adam moments act, against (1,1)'s
+   within TRAIN_MESH_MOVE_TOL.  Printed per rank: peak memory, step ms,
+   all_reduces and their bytes a step (gloo's host copies, not NCCL),
+   setup, save and rank seconds.
+   Phase 2 holds K1, K2/K3 and delta at a model = 2 rank's shapes
+   ([128,197,6x64], [224,112,6x64] period 8, [16,208,16x64] causal) and a
+   data rank's ([64,197,12x64], [112,112,12x64] period 8, [8,208,32x64]
+   causal; K4 / K4b at [8,12,128,64] over 1570 keys), and K4 / K4b
+   head-major with the period mask at a model = 4 rank's [224,3,112,64].
+   [train_mesh <split>] lines; [time] lines give the script's seconds
+   after each group of phases.
 """
 
 from __future__ import annotations
@@ -548,9 +589,19 @@ CAPTION27_YAML = os.path.join(REPO, "configs", "caption",
                               "caption_gpt3_2.7B_youku_v0.yaml")
 CLS27_YAML = os.path.join(REPO, "configs", "cls",
                           "cls_gpt3_2.7B_youku_v0_sharp_2.yaml")
-CAPTION27_CUTS = {"max_new_tokens": 32, "synthetic_length": 48}
+# the script's budget (PERF.md §4): decoders cut in depth where a phase
+# holds a path another phase runs at full depth (the 1.3B decoder's 24
+# layers in phases 5-6 and 41, the 2.7B's in none: its kernels are the
+# same at any depth), each gate kept with its counts taken from the cut
+GPT27_LAYERS = 8         # of 32: phases 14 and 27
+GPT13_CUT_LAYERS = 12    # of 24: phases 13, 27 (pretrain13) and 40
+OWL_SERVE_LAYERS = 10    # of Bloom's 30: phases 7, 8, 8a, 8b, 25, 26
+ZOO_BLOCKS = 3           # of the vision tower's 12: phase 32's leaves
+CAPTION27_CUTS = {"max_new_tokens": 32, "synthetic_length": 48,
+                  "text_overrides": {"num_hidden_layers": GPT27_LAYERS}}
 CLS27_CUTS = {"eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
-              "synthetic_length": 64}
+              "synthetic_length": 64,
+              "text_overrides": {"num_hidden_layers": GPT27_LAYERS}}
 # the zeroed share of the decoder's input under dropout 0.1 (one draw of
 # ~10^7 values: its standard error is ~10^-4) and, without dropout, the
 # bound on exact zeros of bf16 embeddings
@@ -564,7 +615,16 @@ DISPATCH_K = 8          # decode steps a dispatch of the multi-step runs
 SAMPLE_REPLAYS = 10_000  # replays of the captured sampling step
 SAMPLE_YAML = os.path.join(REPO, "configs", "instruct",
                            "serve_bloomz_7b_sample.yaml")
-SPIN_CYCLES = 200_000_000  # >= 0.1 s at the H100's 1.98 GHz boost clock
+# the spin that holds the device while ``time_ms`` enqueues its calls:
+# SPIN_HOST_FACTOR times the host's time a call, as the warm-up calls
+# measured it, and at least SPIN_MS_PER_CALL a call (several times a
+# wrapper's host time a call: K5's 0.04-0.08 ms, phase 2), at the H100's
+# 1.98 GHz boost clock (longer at a lower clock); never more than
+# SPIN_MAX_S in all (a call that waits on the device gains nothing)
+SPIN_MS_PER_CALL = 0.5
+SPIN_HOST_FACTOR = 4
+SPIN_MAX_S = 1.0
+SPIN_CLOCK_HZ = 1.98e9
 # the H100 SXM's published dense bf16 and int8 tensor-core rates, fp32
 # rate outside the tensor cores and HBM3 bandwidth (the bounds in the
 # kernel report)
@@ -623,14 +683,23 @@ def fail(msg: str):
 
 def time_ms(fn, iters: int) -> float:
     """Device ms per call.  A spin kernel holds the device while the host
-    enqueues the calls, so the events time them back to back and not the
-    host's launch rate (which bounds small kernels on a slow host)."""
-    for _ in range(3):
+    enqueues the calls (SPIN_HOST_FACTOR x the slower of the last two
+    warm-up calls' host time, at least SPIN_MS_PER_CALL, a call; at most
+    SPIN_MAX_S), so the events time them back to back and not the host's
+    launch rate (which bounds small kernels on a slow host)."""
+    fn()
+    torch.cuda.synchronize()
+    host_s = 0.0
+    for _ in range(2):
+        t0 = time.perf_counter()
         fn()
+        host_s = max(host_s, time.perf_counter() - t0)
+    spin_ms = max(SPIN_MS_PER_CALL, SPIN_HOST_FACTOR * host_s * 1e3)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
-    torch.cuda._sleep(SPIN_CYCLES)
+    torch.cuda._sleep(int(min(max(iters, 4) * spin_ms * 1e-3, SPIN_MAX_S)
+                          * SPIN_CLOCK_HZ))
     start.record()
     for _ in range(iters):
         fn()
@@ -922,6 +991,28 @@ BWD_SHAPES = [(128, 197, 197, 12, False, 0, None, "packed"),
                "image_pretrain", True),
               (2, 65, 130, 1, False, 0, 70, "heads", 64, False, "train",
                False)]
+# phase 41's local shapes: a model = 2 rank's 6 vision heads (spatial,
+# temporal period 8) and 16 decoder heads over the 16 clips; a data rank's
+# 8 clips at every head (AttentionPool's 128 queries over 1570 keys
+# included); and the head-major route of a model = 4 rank's 3 vision
+# heads under the period mask (K4 and K4b; the CPU tests run model = 4)
+TRAIN_MESH_SHAPES = [
+    (128, 197, 197, 6, False, 0, None, "packed", 64, False,
+     "train_mesh_1x2", True),
+    (224, 112, 112, 6, False, 8, None, "packed", 64, False,
+     "train_mesh_1x2", True),
+    (16, 208, 208, 16, True, 0, None, "packed", 64, False,
+     "train_mesh_1x2", True),
+    (64, 197, 197, 12, False, 0, None, "packed", 64, False,
+     "train_mesh_2x1", True),
+    (112, 112, 112, 12, False, 8, None, "packed", 64, False,
+     "train_mesh_2x1", True),
+    (8, 208, 208, 32, True, 0, None, "packed", 64, False,
+     "train_mesh_2x1", True),
+    (8, 128, 1570, 12, False, 0, None, "heads", 64, False,
+     "train_mesh_2x1", True),
+    (224, 112, 112, 3, False, 8, None, "heads", 64, False,
+     "model = 4 shard, head-major with the period mask", False)]
 # Bloom's training attention, ALiBi causal at head dim 128 on head views
 # of the head-major fused projection: the instruct-train step's [8, 105,
 # 32x128] (a 99-token prompt with the 65 media positions, 5 answer words
@@ -986,6 +1077,8 @@ D96_TRAIN_PATHS = ("cls_train", "itm_train", "caption27_train", "cls27_train",
 CKPT_SERVE_PATHS = ("serve_imported", "serve_resumed")
 # phase 40: the serve CLI under torch.distributed.run, one path a split
 MESH_PATHS = ("serve_mesh_1x1", "serve_mesh_1x2", "serve_mesh_2x2")
+# phase 41: the pretrain step under a split, one path a split
+TRAIN_MESH_PATHS = ("train_mesh_1x1", "train_mesh_1x2", "train_mesh_2x1")
 # the batched instruct path (phases 25-26): greedy, beam bf16, beam int8
 OWL_BATCHED_PATHS = ("instruct_batched", "instruct_beam",
                      "instruct_beam_int8")
@@ -1010,7 +1103,7 @@ BWD_PATHS = ("train", "caption_train", "instruct_train",
              "instruct_hf_train", "pretrain_files", "cls_files_train",
              "instruct_files_train", "knobs_instruct_train") \
     + D96_TRAIN_PATHS + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS \
-    + IMAGE_TRAIN_PATHS
+    + IMAGE_TRAIN_PATHS + TRAIN_MESH_PATHS
 
 # head dim 80, the GPT-3 2.7B decoder (32 heads of 80), on head views of
 # the fused qkv projection: the cls evaluation's decoder passes (4 clips x
@@ -1449,7 +1542,8 @@ def phase_kernels(dev, builds, owl_beam):
 
     # the forward again, then the backward kernels, at the training shapes
     # (K1 packed and K4 head-major) and at Bloom's ALiBi shapes
-    cases = [_bwd_case(rand, fa, *c) for c in BWD_SHAPES]
+    cases = [_bwd_case(rand, fa, *c)
+             for c in BWD_SHAPES + TRAIN_MESH_SHAPES]
     alibi_cases = [_bwd_case(rand, fa, *c) for c in ALIBI_SHAPES]
     no_alibi_128 = alibi_cases.pop()
     d96 = [_bwd_case(rand, fa, *c) for c in D96_SHAPES]
@@ -1461,9 +1555,12 @@ def phase_kernels(dev, builds, owl_beam):
         d80[1][kind]["on_path"] = False
     k1 += [c["fwd"] for c in cases if c["layout"] == "packed"]
     k1.append(no_alibi_128["fwd"])
-    # the pretrain K4 forward is timed above; the small kv_len case here
+    # the pretrain K4 forward is timed above; the small kv_len case, a data
+    # rank's AttentionPool and the model = 4 period case here
     k4 += [c["fwd"] for c in cases
-           if c["layout"] == "heads" and not c["fwd"]["on_path"]]
+           if c["layout"] == "heads" and (not c["fwd"]["on_path"]
+                                          or "train_mesh" in
+                                          c["fwd"]["shape"])]
     report = [
         _entry("K1 flash_attention_packed (vision spatial + temporal, "
                "decoder causal, CLIP ViT-L frames)", FWD_SRC,
@@ -1479,7 +1576,7 @@ def phase_kernels(dev, builds, owl_beam):
                + KNOBS_SERVE_PATHS + ("knobs_pretrain",
                                       "knobs_instruct_train")
                + BERT_TRAIN_PATHS + BERT_EVAL_PATHS + IMAGE_TRAIN_PATHS
-               + MESH_PATHS, "K1", k1),
+               + MESH_PATHS + TRAIN_MESH_PATHS, "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
@@ -1487,7 +1584,7 @@ def phase_kernels(dev, builds, owl_beam):
                 "speculative_ngram", "caption_train", "caption_eval",
                 "serve_files", "pretrain_files", "image_pretrain")
                + CKPT_SERVE_PATHS + KNOBS_SERVE_PATHS + KNOBS_TRAIN_PATHS
-               + MESH_PATHS, "K4", k4)]
+               + MESH_PATHS + TRAIN_MESH_PATHS, "K4", k4)]
     for kind, wrapper, line, line_hm in (
             ("dq", fa.flash_bwd_dq_cuda, 723, 148),
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
@@ -1497,7 +1594,7 @@ def phase_kernels(dev, builds, owl_beam):
             f"{TPU_FLASH}:{line}", wrapper,
             ("train", "caption_train", "pretrain_files",
              "knobs_instruct_train") + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS
-            + IMAGE_TRAIN_PATHS, kind,
+            + IMAGE_TRAIN_PATHS + TRAIN_MESH_PATHS, kind,
             [c[kind] for c in cases] + [no_alibi_128[kind]]))
     report.append(_entry(
         "K1 flash_attention_packed, ALiBi causal (Bloom training, head dim "
@@ -2647,9 +2744,9 @@ def phase_instruct(report, out_dir, yaml=OWL_YAML, path="instruct",
     """The run_instruct CLI's serving path on ``yaml`` at full width and
     depth (``int8``: with --int8, the decoder's kernels and tied embedding
     quantized after the seeded init; ``extra``: more CLI arguments); the
-    decode kernels' launches per decode step checked (30 layers: K5
-    ALiBi, or K5 int8 ALiBi with an int8 cache, each launch with its K6
-    write), and K1 launched once per ViT block (one encode of every
+    decode kernels' launches per decode step checked (one a Bloom layer:
+    K5 ALiBi, or K5 int8 ALiBi with an int8 cache, each launch with its
+    K6 write), and K1 launched once per ViT block (one encode of every
     request) and no other flash kernel.  Returns (model, instruct batch,
     clips, generation config)."""
     from youku_mplug_tpu_torch.cli import run_instruct
@@ -2991,7 +3088,7 @@ def phase_sampling(report, model, batch, clips):
     test, p > 1e-3, two replays in a row differing); then run_instruct's
     serving on 8 requests with the CLI's generator (seed + 1) twice and
     with another seed: finite logits, the same tokens for the same seed,
-    others for another, and 30 K5-ALiBi launches per decode step."""
+    others for another, and a K5-ALiBi launch a layer per decode step."""
     from scipy import stats as sstats
 
     from youku_mplug_tpu_torch.cli import run_instruct
@@ -3066,9 +3163,10 @@ def phase_sampling(report, model, batch, clips):
         torch.cuda.synchronize()
         if not runs:
             _read_counts(report, "instruct_sample")
+            layers = cfg.text.num_hidden_layers
             per_step = _per_step(report, "instruct_sample",
-                                 eng.decode_steps, {"K5-ALiBi": 30,
-                                                    "K6": 30})
+                                 eng.decode_steps, {"K5-ALiBi": layers,
+                                                    "K6": layers})
         if st["nonfinite_logits"] or not 0 <= seqs.min() <= seqs.max() \
                 < cfg.text.vocab_size:
             fail(f"sampled instruct run: {st}")
@@ -3082,6 +3180,24 @@ def phase_sampling(report, model, batch, clips):
           flush=True)
     if not (same and other):
         fail("sampled serving is not reproducible by its seed")
+
+
+def phase_sampling_full_depth(report, batch, clips):
+    """Phase 8a's sampling on its own BloomZ-7B1 at full depth (seeded as
+    phase 7's, built from SAMPLE_YAML), fed phase 7's requests: a seeded
+    Bloom cut to OWL_SERVE_LAYERS puts nearly all the mass on one token,
+    so top-p 0.9 keeps one and another seed draws the same tokens."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        args = run_instruct.parser().parse_args([
+            "--config", SAMPLE_YAML, "--synthetic_data", "--engine",
+            "--device", "cuda", "--output_dir", out_dir])
+        _, _, model, _ = run_instruct.build(args)
+    phase_sampling(report, model, batch, clips)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _owl_inputs(model, yaml, tok_dir, out_dir, **yaml_keys):
@@ -3287,7 +3403,7 @@ def _engine_agreement(model, batch, requests, seqs, gen_cfg, tag):
     return out
 
 
-def phase_instruct_batched(report, model, tok_dir, out_dir):
+def phase_instruct_batched(report, model, tok_dir, out_dir, yaml=OWL_YAML):
     """Phase 25: run_instruct's batched path (no --engine) greedy on the
     bf16 model of phase 7, the prompts through a built tokenizer.json
     (--tokenizer): K1 once per ViT block, K5 ALiBi with its K6 write once
@@ -3300,7 +3416,7 @@ def phase_instruct_batched(report, model, tok_dir, out_dir):
     from youku_mplug_tpu_torch.cli import run_instruct
 
     t_phase = time.perf_counter()
-    rows, batch, clips, tok, gen_cfg = _owl_inputs(model, OWL_YAML, tok_dir,
+    rows, batch, clips, tok, gen_cfg = _owl_inputs(model, yaml, tok_dir,
                                                    out_dir)
     cfg = model.cfg
     requests = _instruct_requests(model, batch, clips)
@@ -3788,17 +3904,19 @@ def phase_downstream(report, out_dir):
           "hold ~150 GB of activations); synthetic clips and seeded weights; "
           "the synthetic splits are sized for "
           f"{DOWNSTREAM_STEPS} train batches and the evaluations "
-          f"({DOWNSTREAM_SPLITS})", flush=True)
+          f"({DOWNSTREAM_SPLITS}); the decoder at {GPT13_CUT_LAYERS} of "
+          "its 24 layers (the script's budget)", flush=True)
     out = {}
+    cut = {"text_overrides": {"num_hidden_layers": GPT13_CUT_LAYERS}}
     for tag, module, path, cuts in (
             ("cls", run_cls, CLS_YAML,
              {"eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
-              "synthetic_length": 64}),
+              "synthetic_length": 64, **cut}),
             ("itm", run_retrieval_itm, ITM_YAML,
              {"num_classes": 2, "eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
-              "batch_size": 32, "synthetic_length": 64}),
+              "batch_size": 32, "synthetic_length": 64, **cut}),
             ("retrieval", run_retrieval, RETRIEVAL_YAML,
-             {"synthetic_length": 192})):
+             {"synthetic_length": 192, **cut})):
         out[tag] = _downstream_task(report, tag, module, path, cuts,
                                     out_dir)
         gc.collect()
@@ -3809,9 +3927,10 @@ def phase_downstream(report, out_dir):
 
 
 def phase_gpt3_27b(report, out_dir):
-    """Phase 14, the GPT-3 2.7B decoder (32 layers, 2560 wide, 32 heads of
-    80, vocab 51200; seeded weights) on two reference recipes at full
-    width and depth, with clip-b16: the caption recipe through
+    """Phase 14, the GPT-3 2.7B decoder (2560 wide, 32 heads of 80, vocab
+    51200; seeded weights; GPT27_LAYERS of its 32 layers) on two
+    reference recipes at full width, with clip-b16: the caption recipe
+    through
     run_caption (2 finetune steps of 24 clips x 16 frames, the decoder on
     plain attention under its 0.1 dropouts; the beam-5 evaluation of 2
     test batches, whose decode steps run K5 at head dim 80 with its K6
@@ -3823,7 +3942,9 @@ def phase_gpt3_27b(report, out_dir):
     t_phase = time.perf_counter()
     with open(os.path.join(REPO, "configs", "models",
                            "config_gpt3_2.7B.json")) as f:
-        layers = json.load(f)["num_hidden_layers"]
+        if json.load(f)["num_hidden_layers"] != 32:
+            fail("config_gpt3_2.7B.json is not the 32-layer decoder")
+    layers = GPT27_LAYERS
     print(f"[gpt3-2.7B] cuts: caption {CAPTION27_CUTS} (the beam's new "
           "tokens 32, as on the 1.3B flagship, for the decoder's default "
           "100; synthetic clips for 2 train and 2 test batches); cls as "
@@ -3879,7 +4000,8 @@ def phase_gpt3_27b(report, out_dir):
 
 def phase_shipped_yamls(report, out_dir):
     """Phase 27, the shipped recipes no phase above runs, through their
-    CLIs' functions at full width and depth as phase 13 runs its three:
+    CLIs' functions at full width as phase 13 runs its three, the 1.3B
+    decoder at GPT13_CUT_LAYERS and the 2.7B at GPT27_LAYERS layers:
     the reference pretrain recipe at GPT-3 1.3B and 2.7B (clip-b16 at 4
     frames, batch 48, the decoders under their 0.1 dropouts: one K4, dq
     and dk/dv at head dim 96 and one delta a step, the decoder on plain
@@ -3895,22 +4017,24 @@ def phase_shipped_yamls(report, out_dir):
 
     t_phase = time.perf_counter()
     d96 = {"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1, "delta": 1}
+    cut13 = {"text_overrides": {"num_hidden_layers": GPT13_CUT_LAYERS}}
+    cut27 = {"text_overrides": {"num_hidden_layers": GPT27_LAYERS}}
     runs = (
         ("pretrain13", run_pretrain, PRETRAIN13_REF_YAML, "pretrain",
-         {"synthetic_length": 48 * DOWNSTREAM_STEPS},
-         (2048, 24, 32, 64, 0.1, 48, 4), (d96, None)),
+         {"synthetic_length": 48 * DOWNSTREAM_STEPS, **cut13},
+         (2048, GPT13_CUT_LAYERS, 32, 64, 0.1, 48, 4), (d96, None)),
         ("pretrain27", run_pretrain, PRETRAIN27_YAML, "pretrain",
-         {"synthetic_length": 48 * DOWNSTREAM_STEPS},
-         (2560, 32, 32, 80, 0.1, 48, 4), (d96, None)),
+         {"synthetic_length": 48 * DOWNSTREAM_STEPS, **cut27},
+         (2560, GPT27_LAYERS, 32, 80, 0.1, 48, 4), (d96, None)),
         ("retrieval27", run_retrieval, RETRIEVAL27_YAML, "retrieval",
-         {"synthetic_length": 96 * DOWNSTREAM_STEPS},
-         (2560, 32, 32, 80, 0.1, 96, 4), ({}, {})),
+         {"synthetic_length": 96 * DOWNSTREAM_STEPS, **cut27},
+         (2560, GPT27_LAYERS, 32, 80, 0.1, 96, 4), ({}, {})),
         ("itm27", run_retrieval_itm, ITM27_YAML, "itm",
          {"num_classes": 2, "eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
           "batch_size": ITM27_BATCH,
-          "synthetic_length": ITM27_BATCH * DOWNSTREAM_STEPS},
-         (2560, 32, 32, 80, 0.1, ITM27_BATCH, 4),
-         (d96, {"K4-d96": 1, "K4-d80": 2 * 32})))
+          "synthetic_length": ITM27_BATCH * DOWNSTREAM_STEPS, **cut27},
+         (2560, GPT27_LAYERS, 32, 80, 0.1, ITM27_BATCH, 4),
+         (d96, {"K4-d96": 1, "K4-d80": 2 * GPT27_LAYERS})))
     print("[shipped] cuts: " + "; ".join(f"{tag} {cuts}" for tag, _, _, _,
                                          cuts, _, _ in runs)
           + f" (the ITM batch is {ITM27_BATCH} clips, not the YAML's 96: "
@@ -4643,6 +4767,7 @@ def phase_instruct_serving_int8(report, out_dir, run_dir, train_yaml, dest):
 
 
 CARD = ""  # nvidia-smi's name and power limit, set by main
+START = time.perf_counter()  # the script's start (the module's import)
 
 
 class _TimedLoader:
@@ -5690,7 +5815,9 @@ def phase_knobs_instruct_train(report, out_dir, phase9_stats):
 
 def _zoo_leaves():
     """The flagship pretrain model's trainable leaves (JAX path -> shape),
-    from a model on the meta device."""
+    from a model on the meta device, the vision tower's cut to its first
+    ZOO_BLOCKS blocks (the script's budget: the fp64 references run on
+    the CPU)."""
     from youku_mplug_tpu_torch.bridge import jax_path
     from youku_mplug_tpu_torch.config import load_config
     from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
@@ -5702,8 +5829,10 @@ def _zoo_leaves():
     named = {jax_path(n): p for n, p in model.named_parameters()}
     frozen = freeze_mask(named, cfg.optimizer.freeze_text_decoder,
                          cfg.optimizer.freeze_vit)
+    cut = tuple(f"visual_encoder/blocks_{i}/"
+                for i in range(ZOO_BLOCKS, cfg.model.vision.depth))
     return cfg.optimizer, {k: tuple(p.shape) for k, p in named.items()
-                           if not frozen[k]}
+                           if not frozen[k] and not k.startswith(cut)}
 
 
 def _zoo_values(shapes):
@@ -6631,12 +6760,13 @@ MESH_REQUESTS = 16
 MESH_LAUNCH_S = 420  # one torch.distributed.run call's deadline
 # launches per rank serving the 16 requests, written in PERF.md before the
 # first chip run: the (1,1) run replays k = 1 CUDA graphs, its first
-# capture after one eager warm-up step (65 + 1 decode steps of 24 layers);
-# a model shard steps eagerly (65); a data rank of (2, 2) serves 8 of the
-# requests (34 steps)
-MESH_LAUNCHES = {"1x1": {"K1": 48, "K4": 2, "K5": 1584},
-                 "1x2": {"K1": 48, "K4": 2, "K5": 1560},
-                 "2x2": {"K1": 24, "K4": 1, "K5": 816}}
+# capture after one eager warm-up step (65 + 1 decode steps of the
+# decoder's GPT13_CUT_LAYERS layers, its depth here for the time
+# budget); a model shard steps eagerly (65); a data rank of (2, 2)
+# serves 8 of the requests (34 steps)
+MESH_LAUNCHES = {"1x1": {"K1": 48, "K4": 2, "K5": 66 * GPT13_CUT_LAYERS},
+                 "1x2": {"K1": 48, "K4": 2, "K5": 65 * GPT13_CUT_LAYERS},
+                 "2x2": {"K1": 24, "K4": 1, "K5": 34 * GPT13_CUT_LAYERS}}
 MESH_COUNTERS = {"K1": "flash_attention_packed.launches",
                  "K4": "flash_attention.launches",
                  "K5": "write_decode_attention.launches"}
@@ -6645,6 +6775,40 @@ MESH_COUNTERS = {"K1": "flash_attention_packed.launches",
 # the same tokens agree within LOGIT_TOL, so greedy picks can part only
 # where the lead is within twice that
 MESH_TIE_BOUND = 2 * LOGIT_TOL
+# phase 41: the flagship pretrain through run_pretrain under (1,1) NCCL
+# (the reference), (1,2) and (2,1) gloo on card 0; TRAIN_MESH_STEPS steps
+# of the same global batches in each; (1,1) takes one step more, of its
+# next epoch, which the (2,1) run resumed from the (1,2) run's checkpoint
+# takes too.  Launches per rank a step, written in PERF.md before the
+# first chip run: the vision tower's 12 blocks x 2 K1 and blocks 0 and 6
+# again in the backward (remat sixth), the 24 decoder layers' K1 and
+# again in their recompute (remat), AttentionPool's K4; a backward (dq,
+# dk/dv, delta) a vision attention, a decoder layer and AttentionPool.  A
+# model = 2 rank holds 6 vision heads and 16 decoder heads (the packed
+# kernel still takes both), a data rank 8 of the 16 clips: the counts
+# stay
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_SPLITS = (("1x1", "nccl"), ("1x2", "gloo"), ("2x1", "gloo"))
+TRAIN_MESH_LAUNCHES = {"K1": 76, "K4": 1, "dq": 49, "dkv": 49, "delta": 49}
+TRAIN_MESH_COUNTERS = {"K1": "flash_attention_packed",
+                       "K4": "flash_attention",
+                       "dq": "flash_bwd_dq_cuda",
+                       "dkv": "flash_bwd_dkv_cuda",
+                       "delta": "flash_bwd_delta_cuda"}
+# a split's grad_norm against (1,1)'s, relative: two bf16 ulps (2^-8
+# each) of a norm whose terms round in another order and on other ranks
+TRAIN_MESH_NORM_TOL = 2.0 ** -7
+# a split's moves (its leaves after the steps less the common initial
+# ones) against (1,1)'s, per leaf as ``_leaf_rel_l2`` reads them
+# (REPLAY_GRAD_FLOOR x the whole move's norm as the floor): the leaves
+# barely move in 3 steps, so a gate on their values cannot see a wrong
+# update.  Adam's first updates are about +-lr an element whatever the
+# gradient's size: bf16 noise read 0.046-0.074 (LN scales; AttentionPool's
+# k_bias, 0.37-0.56 plain: it shifts the 1570 pooled keys' logits but not
+# the appended bias_k's, so its gradient is what is left of 1570
+# cancelling bf16 products), a gradient cut to one rank's share (a
+# vision MLP or attention input without f) 0.98-1.02 (PERF.md §6)
+TRAIN_MESH_MOVE_TOL = 0.2
 
 
 def _torchrun(n, argv, log_path):
@@ -6762,32 +6926,157 @@ def _mesh_replay(args, cfg, model, tokens):
             "replay_s": replay_s, "trace_s": time.perf_counter() - t1}
 
 
-def mesh_rank(yaml_path, backend, device, out_dir, ref_path):
+def mesh_rank(yaml_path, backend, device, out_dir, ref_path,
+              train_spec=None):
     """One rank of phase 40 (``chip_smoke.py --mesh-rank`` under
     torch.distributed.run): the serve CLI's ``build`` and ``serve_built``
     (all ``python -m youku_mplug_tpu_torch.cli.serve`` runs) on the
     split's YAML, 16 requests on 8 slots; then, on the same model and on
     data rank 0's ranks only, ``_mesh_replay`` of ``ref_path``'s served
     tokens ((1,1)'s ``serve_results.json``, for (1,1) its own); rank 0
-    saves the replay's record as ``out_dir/forced.pt``."""
-    from youku_mplug_tpu_torch.cli import serve
+    saves the replay's record as ``out_dir/forced.pt``.  With
+    ``train_spec`` (JSON) the same process then runs phase 41's split on
+    the same process group (``train_mesh_rank``), the serving model
+    freed first."""
     from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
+
+    try:
+        _serve_mesh_rank(yaml_path, backend, device, out_dir, ref_path)
+        gc.collect()
+        torch.cuda.empty_cache()
+        if train_spec:
+            train_mesh_rank(train_spec)
+    finally:
+        mesh_lib.distributed_shutdown()
+
+
+def _serve_mesh_rank(yaml_path, backend, device, out_dir, ref_path):
+    from youku_mplug_tpu_torch.cli import serve
 
     args = serve.serve_parser().parse_args([
         "--config", yaml_path, "--synthetic_data", "--num_requests",
         str(MESH_REQUESTS), "--num_slots", "8", "--output_dir", out_dir,
         "--device", device, "--dist_backend", backend])
-    try:
-        cfg, model, dev = serve.build(args)
-        serve.serve_built(args, cfg, model, dev)
-        if model.mesh.data_index == 0:
-            with open(ref_path) as f:
-                tokens = [r["tokens"] for r in json.load(f)]
-            record = _mesh_replay(args, cfg, model, tokens)
-            if model.mesh.rank == 0:
-                torch.save(record, os.path.join(out_dir, "forced.pt"))
-    finally:
-        mesh_lib.distributed_shutdown()
+    cfg, model, dev = serve.build(args)
+    serve.serve_built(args, cfg, model, dev)
+    if model.mesh.data_index == 0:
+        with open(ref_path) as f:
+            tokens = [r["tokens"] for r in json.load(f)]
+        record = _mesh_replay(args, cfg, model, tokens)
+        if model.mesh.rank == 0:
+            torch.save(record, os.path.join(out_dir, "forced.pt"))
+
+
+def _train_mesh_run(args, epoch, steps, init_to=None):
+    """``run_pretrain``'s setup (``common.init_mesh``, the block loader,
+    the shard, the state, the resume) and ``common.train_one_epoch`` of
+    ``steps`` steps of ``epoch``, with this rank's launch counters, peak
+    memory and ``all_reduce`` calls over them; ``init_to``: the trainable
+    leaves before the steps saved there (an unsplit run's).  Returns
+    (runner, record)."""
+    import torch.distributed as dist
+
+    from youku_mplug_tpu_torch.cli import common, run_pretrain
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    t0 = time.perf_counter()
+    runner = run_pretrain.setup(args)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    runner.args.max_steps = steps  # the schedule was set at setup
+    if init_to:
+        torch.save({k: p.detach().cpu() for k, p in
+                    runner.state.trainable.items()}, init_to)
+    wrappers = {k: getattr(fa, n) for k, n in TRAIN_MESH_COUNTERS.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    calls = []
+    reduce = dist.all_reduce
+
+    def counted(*a, **k):
+        calls.append(a[0].numel() * a[0].element_size())
+        return reduce(*a, **k)
+    torch.cuda.reset_peak_memory_stats()
+    with mock.patch.object(dist, "all_reduce", counted):
+        history = common.train_one_epoch(
+            runner, run_pretrain.build_train_step(runner), epoch,
+            run_pretrain.make_batch)
+    torch.cuda.synchronize()
+    mesh = runner.mesh
+    return runner, {
+        "rank": mesh.rank, "coord": list(mesh.coord), "setup_s": setup_s,
+        "history": history,
+        "launches": {k: w.launches for k, w in wrappers.items()},
+        "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "all_reduces": len(calls), "all_reduce_bytes": sum(calls)}
+
+
+def train_mesh_rank(spec_json):
+    """One rank of phase 41: ``TRAIN_MESH_STEPS`` steps of the flagship
+    pretrain through ``run_pretrain`` on the split of ``spec["yaml"]``;
+    rank 0 saves the trainable leaves unsharded (``leaves.pt``); with
+    ``spec["save"]`` the state is saved as ``save_epoch`` does (every rank
+    gathers, rank 0 writes), with ``spec["next"]`` (1,1)'s next step is
+    taken (one step of epoch 1; its leaves ``leaves_next.pt``); with
+    ``spec["resume"]`` a second runner restores that directory's
+    checkpoint and takes that step (``leaves_resumed.pt``).  Each rank
+    writes its record as ``rank<r>.json``."""
+    from youku_mplug_tpu_torch.cli import common, run_pretrain
+    from youku_mplug_tpu_torch.parallel.sharding import gather_split
+
+    spec = json.loads(spec_json)
+    out = spec["out"]
+
+    def argv(out_dir, *extra):
+        return run_pretrain.base_parser().parse_args([
+            "--config", spec["yaml"], "--output_dir", out_dir,
+            "--synthetic_data", "--max_steps", str(TRAIN_MESH_STEPS),
+            "--device", spec["device"], "--dist_backend", spec["backend"],
+            *extra])
+    def save_leaves(runner, name):  # every rank gathers, rank 0 writes
+        state = runner.state
+        leaves = {k: (gather_split(p, state.split[k], runner.mesh)
+                      if k in state.split else p.detach().cpu())
+                  for k, p in state.trainable.items()}
+        if runner.mesh.rank == 0:
+            torch.save(leaves, os.path.join(out, name))
+
+    t0 = time.perf_counter()
+    runner, rec = _train_mesh_run(argv(out), 0, TRAIN_MESH_STEPS,
+                                  init_to=os.path.join(out, "init.pt")
+                                  if spec.get("init") else None)
+    save_leaves(runner, "leaves.pt")
+    if spec.get("save"):
+        t1 = time.perf_counter()
+        common.save_epoch(runner, 0)
+        runner.ckpt.close()
+        rec["save_s"] = time.perf_counter() - t1
+    if spec.get("next"):
+        runner.args.max_steps = 1
+        rec["next"] = common.train_one_epoch(
+            runner, run_pretrain.build_train_step(runner), 1,
+            run_pretrain.make_batch)
+        save_leaves(runner, "leaves_next.pt")
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    if spec.get("resume"):
+        t1 = time.perf_counter()
+        resumed, rrec = _train_mesh_run(
+            argv(os.path.join(out, "resumed"), "--resume", spec["resume"]),
+            1, 1)
+        save_leaves(resumed, "leaves_resumed.pt")
+        rec["resumed"] = {"start_epoch": resumed.start_epoch,
+                          "step": resumed.state.step - 1,
+                          "history": rrec["history"],
+                          "launches": rrec["launches"],
+                          "seconds": time.perf_counter() - t1}
+        del resumed
+        gc.collect()
+        torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    with open(os.path.join(out, f"rank{rec['rank']}.json"), "w") as f:
+        json.dump(rec, f)
 
 
 def _mesh_forced_check(tag, forced, ref, toks):
@@ -6842,7 +7131,8 @@ def _mesh_check_split(tag, data, merged, ranks, ref_peak):
     by_data = {}
     for rk in ranks:
         got = {k: rk["launches"][c] for k, c in MESH_COUNTERS.items()}
-        if got != MESH_LAUNCHES[tag] or rk["decode_steps"] * 24 != got["K5"]:
+        if got != MESH_LAUNCHES[tag] \
+                or rk["decode_steps"] * GPT13_CUT_LAYERS != got["K5"]:
             fail(f"serve_mesh {tag} rank {rk['rank']}: launches {got}, "
                  f"{rk['decode_steps']} decode steps; predicted "
                  f"{MESH_LAUNCHES[tag]}")
@@ -6863,9 +7153,11 @@ def _mesh_check_split(tag, data, merged, ranks, ref_peak):
                  f"decoded different tokens")
 
 
-def phase_serve_mesh(report, out_dir):
+def phase_serve_mesh(report, out_dir, train_tags=("1x1", "1x2")):
     """Phase 40 (see the module docstring); the gloo numbers measure host
-    copies, not NCCL."""
+    copies, not NCCL.  The torch.distributed.run of each split in
+    ``train_tags`` runs phase 41's split after serving (its
+    ``serve.log`` holds both)."""
     t_phase = time.perf_counter()
     ref_path = os.path.join(out_dir, "1x1", "serve_results.json")
     ref = None
@@ -6875,11 +7167,15 @@ def phase_serve_mesh(report, out_dir):
         d = os.path.join(out_dir, tag)
         os.makedirs(d)
         yaml_path = _downstream_yaml(FLAGSHIP_YAML, {
-            "mesh": {"data": data, "model": model}}, d)
+            "mesh": {"data": data, "model": model},
+            "text_overrides": {"num_hidden_layers": GPT13_CUT_LAYERS}}, d)
         device = "cuda:0" if backend == "gloo" else "cuda"
+        train = ([json.dumps(_train_spec(out_dir, tag, backend, device)[1])]
+                 if tag in train_tags else [])
         run_s = _torchrun(n, [
             os.path.join(REPO, "chip_smoke.py"), "--mesh-rank", yaml_path,
-            backend, device, d, ref_path], os.path.join(d, "serve.log"))
+            backend, device, d, ref_path] + train,
+            os.path.join(d, "serve.log"))
         with open(os.path.join(d, "serve.log")) as f:
             stats = json.loads(next(line.split("* Serve stats:", 1)[1]
                                     for line in f if "* Serve stats:" in
@@ -6986,12 +7282,198 @@ def _nccl_shared_card(out_dir):
           f"{rc}, {said[:300]} | {CARD}", flush=True)
 
 
+def _train_spec(out_dir, tag, backend, device):
+    """(tag, phase 41's spec of a split): the flagship pretrain YAML with
+    its mesh block, the rank's output directory; (1,1) saves its first
+    leaves and takes the next step, (1,2) saves its state, (2,1) resumes
+    it."""
+    data, model = map(int, tag.split("x"))
+    d = os.path.join(out_dir, f"train_{tag}")
+    os.makedirs(d, exist_ok=True)
+    spec = {"yaml": _downstream_yaml(TRAIN_YAML, {
+                "mesh": {"data": data, "model": model}}, d),
+            "out": d, "backend": backend, "device": device,
+            "init": tag == "1x1", "next": tag == "1x1",
+            "save": tag == "1x2"}
+    if tag == "2x1":
+        spec["resume"] = os.path.join(out_dir, "train_1x2")
+    return tag, spec
+
+
+def _leaf_rel_l2(got, want):
+    """Per leaf of ``want``, worst first: (|got - want| over max(|want|,
+    REPLAY_GRAD_FLOOR x the whole tree's norm), the plain relative L2,
+    the leaf), as the replay gates a gradient (L2 norms): a leaf that
+    starts at zero (AttentionPool's k_bias, whose gradient nearly
+    cancels) is held to the absolute floor."""
+    whole = torch.stack([w.float().norm() for w in want.values()]
+                        ).norm().item()
+    rows = []
+    for k, w in want.items():
+        diff = (got[k].float() - w.float()).norm().item()
+        norm = w.float().norm().item()
+        rows.append((diff / max(norm, REPLAY_GRAD_FLOOR * whole),
+                     diff / max(norm, 1e-30), k))
+    return sorted(rows, reverse=True)
+
+
+def _move_check(got, got_start, want, want_start):
+    """A run's moves from ``got_start`` against the reference's from
+    ``want_start``, every leaf held to TRAIN_MESH_MOVE_TOL: (the worst
+    gated error, the printed verdict)."""
+    rows = _leaf_rel_l2(
+        {k: v.float() - got_start[k].float() for k, v in got.items()},
+        {k: v.float() - want_start[k].float() for k, v in want.items()})
+    plain = sorted((r[1], r[2]) for r in rows)
+    return rows[0][0], (
+        f"{len(rows)} leaves' moves: gated max {rows[0][0]:.4g} "
+        f"({rows[0][2]}, plain {rows[0][1]:.4g}; tol {TRAIN_MESH_MOVE_TOL}, "
+        f"floor {REPLAY_GRAD_FLOOR} x the whole move), plain max "
+        f"{plain[-1][0]:.4g} ({plain[-1][1]}), plain median "
+        f"{plain[len(plain) // 2][0]:.4g}")
+
+
+def phase_train_mesh(report, out_dir, t_phase):
+    """Phase 41 (see the module docstring): (1,1) and (1,2) ran inside
+    phase 40's calls; (2,1) runs here, then the gates.  The gloo splits
+    measure host copies, not NCCL scaling."""
+    tag, spec = _train_spec(out_dir, "2x1", "gloo", "cuda:0")
+    run_s = _torchrun(2, [os.path.join(REPO, "chip_smoke.py"),
+                          "--train-mesh-rank", json.dumps(spec)],
+                      os.path.join(spec["out"], "train.log"))
+    ranks = {}
+    for tag, _ in TRAIN_MESH_SPLITS:
+        d = os.path.join(out_dir, f"train_{tag}")
+        n = int(tag[0]) * int(tag[2])
+        ranks[tag] = []
+        for r in range(n):
+            with open(os.path.join(d, f"rank{r}.json")) as f:
+                ranks[tag].append(json.load(f))
+    ref = ranks["1x1"][0]
+    ref_leaves = torch.load(os.path.join(out_dir, "train_1x1", "leaves.pt"))
+    init = torch.load(os.path.join(out_dir, "train_1x1", "init.pt"))
+    name_key = {v: k for k, v in TRAIN_MESH_COUNTERS.items()}
+    want = {k: v * TRAIN_MESH_STEPS for k, v in TRAIN_MESH_LAUNCHES.items()}
+    for tag, backend in TRAIN_MESH_SPLITS:
+        path = f"train_mesh_{tag}"
+        for r in report:
+            key = (name_key.get(r["wrapper"].__name__)
+                   if _counters(r) == ("launches",) else None)
+            r.setdefault("launches_by_path", {})[path] = sum(
+                rk["launches"][key] for rk in ranks[tag]) if key else 0
+        missing = [r["name"] for r in report if path in r["paths"]
+                   and r["launches_by_path"][path] == 0]
+        if missing:
+            fail(f"the {path} path never launched: {missing}")
+        for rk in ranks[tag]:
+            hist = rk["history"]
+            if rk["launches"] != want or len(hist) != TRAIN_MESH_STEPS:
+                fail(f"{path} rank {rk['rank']}: launches {rk['launches']} "
+                     f"over {len(hist)} steps; predicted {want}")
+            bad = [h for h in hist
+                   if not (math.isfinite(h["loss"])
+                           and math.isfinite(h["grad_norm"]))
+                   or h["skipped_nonfinite"] != 0]
+            if bad:
+                fail(f"{path} rank {rk['rank']}: non-finite or skipped "
+                     f"steps {bad}")
+        losses = [[h["loss"] for h in rk["history"]] for rk in ranks[tag]]
+        norms = [[h["grad_norm"] for h in rk["history"]]
+                 for rk in ranks[tag]]
+        ref_loss = [h["loss"] for h in ref["history"]]
+        ref_norm = [h["grad_norm"] for h in ref["history"]]
+        e_loss = max(abs(a - b) for row in losses
+                     for a, b in zip(row, ref_loss))
+        e_norm = max(abs(a - b) / b for row in norms
+                     for a, b in zip(row, ref_norm))
+        vs = (f"losses {losses[0]} against (1,1)'s {ref_loss}: max err "
+              f"{e_loss:.4g} (tol {REPLAY_LOSS_TOL}); grad_norm max rel "
+              f"err {e_norm:.4g} (tol {TRAIN_MESH_NORM_TOL:.4g})")
+        if e_loss > REPLAY_LOSS_TOL or e_norm > TRAIN_MESH_NORM_TOL:
+            fail(f"{path}: {vs}")
+        if tag != "1x1":
+            leaves = torch.load(os.path.join(out_dir, f"train_{tag}",
+                                             "leaves.pt"))
+            if set(leaves) != set(ref_leaves):
+                fail(f"{path}: leaves differ: "
+                     f"{sorted(set(leaves) ^ set(ref_leaves))[:8]}")
+            rows = _leaf_rel_l2(leaves, ref_leaves)
+            e_move, moves = _move_check(leaves, init, ref_leaves, init)
+            vs += (f"; {len(rows)} trainable leaves unsharded against "
+                   f"(1,1)'s: values gated max {rows[0][0]:.4g} "
+                   f"({rows[0][2]}; tol {REPLAY_GRAD_TOL}, floor "
+                   f"{REPLAY_GRAD_FLOOR} x whole); moves over the "
+                   f"{TRAIN_MESH_STEPS} steps: {moves}")
+            if rows[0][0] > REPLAY_GRAD_TOL or e_move > TRAIN_MESH_MOVE_TOL:
+                fail(f"{path}: {vs}")
+        if tag == "2x1":
+            res, nxt = ranks[tag][0]["resumed"], ref["next"]
+            e_res = max(abs(rk["resumed"]["history"][0]["loss"]
+                            - nxt[0]["loss"]) for rk in ranks[tag])
+            # the resumed step's update against (1,1)'s step 4: it is
+            # where the restored moments act
+            e_step, step_moves = _move_check(
+                torch.load(os.path.join(out_dir, "train_2x1",
+                                        "leaves_resumed.pt")),
+                torch.load(os.path.join(out_dir, "train_1x2", "leaves.pt")),
+                torch.load(os.path.join(out_dir, "train_1x1",
+                                        "leaves_next.pt")), ref_leaves)
+            vs += (f"; resumed from (1,2)'s checkpoint at step "
+                   f"{res['step']} (epoch {res['start_epoch']}): next loss "
+                   f"{res['history'][0]['loss']:.6f} against the unbroken "
+                   f"(1,1)'s {nxt[0]['loss']:.6f} (err {e_res:.4g}, tol "
+                   f"{REPLAY_LOSS_TOL}); that step's update against (1,1)'s "
+                   f"step {TRAIN_MESH_STEPS + 1}: {step_moves}; "
+                   f"{res['seconds']:.1f} s")
+            one = dict(TRAIN_MESH_LAUNCHES)
+            if (e_res > REPLAY_LOSS_TOL or e_step > TRAIN_MESH_MOVE_TOL
+                    or res["step"] != TRAIN_MESH_STEPS
+                    or res["start_epoch"] != 1 or any(
+                        rk["resumed"]["launches"] != one
+                        for rk in ranks[tag])):
+                fail(f"{path}: {vs}")
+        per_rank = " ; ".join(
+            f"rank {rk['rank']} {tuple(rk['coord'])}: peak "
+            f"{rk['peak_memory_bytes'] / 2**30:.3f} GiB, step ms "
+            + ", ".join(f"{h['step_time'] * 1e3:.1f}"
+                        for h in rk["history"])
+            + f", {rk['all_reduces'] / TRAIN_MESH_STEPS:.0f} all_reduces ("
+            f"{rk['all_reduce_bytes'] / TRAIN_MESH_STEPS / 2**20:.1f} MiB) "
+            f"a step, setup {rk['setup_s']:.1f} s, rank total "
+            f"{rk['seconds']:.1f} s"
+            + (f", save {rk['save_s']:.1f} s" if "save_s" in rk else "")
+            for rk in ranks[tag])
+        note = ("" if backend == "nccl" else
+                f", {len(ranks[tag])} ranks on card 0: gloo copies through "
+                f"the host, no measure of NCCL")
+        print(f"[train_mesh {tag}] split (data {tag[0]}, model {tag[2]}), "
+              f"{backend}{note} | launches a rank "
+              f"{ranks[tag][0]['launches']} over {TRAIN_MESH_STEPS} steps "
+              f"(predicted {want}) | {vs} | {per_rank} | {CARD}",
+              flush=True)
+    inside = sum(ranks[t][0]["seconds"] for t in ("1x1", "1x2"))
+    print(f"[train_mesh] phase 41 in "
+          f"{time.perf_counter() - t_phase + inside:.1f} s: the (2,1) "
+          f"torch.distributed.run {run_s:.1f} s and the gates, and (1,1) "
+          f"and (1,2) {inside:.1f} s after serving inside phase 40's "
+          f"calls | {CARD}", flush=True)
+
+
+def _mark(what):
+    """The script's seconds so far, after ``what``."""
+    print(f"[time] {what} done at {time.perf_counter() - START:.1f} s",
+          flush=True)
+
+
 def _phases(report, files_root, tok_dir):
-    """Phases 3-40 in their order (see the module docstring); ``tok_dir``
-    holds the instruct tokenizer files of phases 25-26."""
+    """Phases 3-41 in their order (see the module docstring); ``tok_dir``
+    holds the instruct tokenizer files of phases 25-26.  ``_mark`` prints
+    the script's seconds after each group of phases (the budget's
+    breakdown)."""
     from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
 
     files = phase_files_written(files_root)
+    _mark("20 files_written")
     with tempfile.TemporaryDirectory() as out_dir:
         cfg, model, _ = phase_slice(report, out_dir)
     phase_teacher_forced(cfg, model)
@@ -7003,6 +7485,7 @@ def _phases(report, files_root, tok_dir):
         phase_serve_files(report, model, files, out_dir)
     with tempfile.TemporaryDirectory() as out_dir:
         phase_serve_imported(report, model, out_dir)
+        _mark("3-4c, 21, 15 serve")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -7011,6 +7494,7 @@ def _phases(report, files_root, tok_dir):
                                     "serve_int8kv")
     phase_teacher_forced(cfg, model, "int8-KV teacher-forced")
     phase_caption_modes(report, cfg, model, INT8KV_YAML, "serve_int8kv")
+    _mark("4b serve_int8kv")
     del model
     gc.collect()
     torch.cuda.empty_cache()
@@ -7027,57 +7511,73 @@ def _phases(report, files_root, tok_dir):
         gc.collect()
         torch.cuda.empty_cache()
         phase_serve_resumed(report, cap_dir, out_dir)
+        _mark("5-6, 22, 12, 16 train and caption")
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_downstream(report, out_dir)
+        _mark("13 downstream")
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_cls_files(report, files, out_dir)
+        _mark("23 cls_files")
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_gpt3_27b(report, out_dir)
+        _mark("14 gpt3_27b")
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_shipped_yamls(report, out_dir)
+        _mark("27 shipped")
     gc.collect()
     torch.cuda.empty_cache()
+    # phases 7-8b and 25-26 with Bloom at OWL_SERVE_LAYERS (the budget;
+    # 8a's sampling at full depth)
+    cut_dir = tempfile.TemporaryDirectory()
+    owl_yaml, owl_int8_yaml = (
+        _owl_yaml(p, cut_dir.name, {"num_hidden_layers": OWL_SERVE_LAYERS})
+        for p in (OWL_YAML, OWL_INT8_YAML))
     with tempfile.TemporaryDirectory() as out_dir:
-        model, batch, clips, gen_cfg = phase_instruct(report, out_dir)
+        model, batch, clips, gen_cfg = phase_instruct(report, out_dir,
+                                                      owl_yaml)
     bf16 = phase_instruct_forced(model, batch, clips)
     requests, greedy = phase_instruct_modes(report, model, batch, clips,
                                             gen_cfg, "instruct", "K5-ALiBi")
     phase_lookup(report, model, batch, clips, gen_cfg, requests, greedy)
     del requests
-    phase_sampling(report, model, batch, clips)
+    phase_sampling_full_depth(report, batch, clips)
     del batch, clips
     with tempfile.TemporaryDirectory() as out_dir:
-        phase_instruct_batched(report, model, tok_dir, out_dir)
-        phase_instruct_beam(report, model, OWL_YAML, "instruct_beam",
+        phase_instruct_batched(report, model, tok_dir, out_dir, owl_yaml)
+        phase_instruct_beam(report, model, owl_yaml, "instruct_beam",
                             tok_dir, out_dir)
+        _mark("7-8a, 25-26 instruct")
     del model
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         model, batch, clips, gen_cfg = phase_instruct(
-            report, out_dir, OWL_INT8_YAML, "instruct_int8", int8=True)
+            report, out_dir, owl_int8_yaml, "instruct_int8", int8=True)
     phase_instruct_forced(model, batch, clips,
                           "instruct int8 teacher-forced", reference=bf16)
     phase_instruct_modes(report, model, batch, clips, gen_cfg,
                          "instruct_int8", "K5-int8-ALiBi")
     with tempfile.TemporaryDirectory() as out_dir:
-        phase_instruct_beam(report, model, OWL_INT8_YAML,
+        phase_instruct_beam(report, model, owl_int8_yaml,
                             "instruct_beam_int8", tok_dir, out_dir)
+        _mark("8b, 26 instruct_int8")
     del model, batch, clips, bf16
+    cut_dir.cleanup()
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         runner, instruct_stats = phase_instruct_train(report, out_dir)
         instruct_stats["layers"] = runner.model.cfg.text.num_hidden_layers
         phase_instruct_replay(runner)
+        _mark("9-10 instruct_train")
     del runner
     gc.collect()
     torch.cuda.empty_cache()
@@ -7087,10 +7587,12 @@ def _phases(report, files_root, tok_dir):
                                                             hf_dir)
         phase_instruct_serving_int8(report, out_dir, run_dir, train_yaml,
                                     dest)
+        _mark("17-19 instruct_hf")
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_instruct_files(report, files, out_dir)
+        _mark("24 instruct_files")
     gc.collect()
     torch.cuda.empty_cache()
     # phases 28-32, the training knobs
@@ -7136,14 +7638,27 @@ def _phases(report, files_root, tok_dir):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_serve_mesh(report, out_dir)
+        _mark("40 serve_mesh (with 41's (1,1) and (1,2))")
+        phase_train_mesh(report, out_dir, time.perf_counter())
+        _mark("41 train_mesh")
 
 
 def main():
     global CARD
-    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 40
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 40 (and 41)
         sys.path.insert(0, REPO)
         torch.backends.cuda.matmul.allow_tf32 = False
         mesh_rank(*sys.argv[2:])
+        return
+    if sys.argv[1:2] == ["--train-mesh-rank"]:  # a rank of phase 41
+        sys.path.insert(0, REPO)
+        from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            train_mesh_rank(sys.argv[2])
+        finally:
+            mesh_lib.distributed_shutdown()
         return
     # one card: the first visible one (set before CUDA initializes)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")
@@ -7154,6 +7669,7 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.perf_counter()
     card, builds = phase_device_and_build()
+    _mark("1 device and build")
     CARD = card
     dev = torch.device("cuda")
     # the clips of phases 20-24, the tokenizer files of phases 25-26
@@ -7161,6 +7677,7 @@ def main():
     try:
         _owl_tokenizer(tok_dir.name)
         report = phase_kernels(dev, builds, _owl_beam_rows(tok_dir.name))
+        _mark("2 kernels")
         _phases(report, files_dir.name, tok_dir.name)
     finally:
         files_dir.cleanup()

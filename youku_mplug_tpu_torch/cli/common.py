@@ -1,10 +1,22 @@
 """What the training CLIs share: the parser, setup, resume, the epoch
 loop with its non-finite watchdog, checkpoints and the log.
 
-Counterpart of ``youku_mplug_tpu/cli/common.py``.  The training CLIs
-run on one process and one device (``setup`` builds the YAML's mesh and
-raises where it asks for more: training under a mesh is not ported);
-``serve`` runs under a (data, model) split, and the host merges here
+Counterpart of ``youku_mplug_tpu/cli/common.py``.  ``run_pretrain``
+and ``run_caption`` train under the YAML's (data, model) split, one
+process a rank under ``python -m torch.distributed.run`` (``init_mesh``:
+``--dist_backend``, NCCL on the card by default, gloo for several ranks
+on one card or on CPU processes): ``setup`` cuts the model with
+``parallel/sharding.shard_params`` and JAX's GPT-3 rules after the
+imports and before the train state (JAX ``cli/common.py:127-138``), the
+train loader gives each data rank its contiguous block of every global
+batch (``put_batch``: JAX's data sharding), the step equals the (1,1)
+step on the global batch (``train/trainer.py``), checkpoints hold the
+unsharded tree and restore at any split (``train/checkpoint.py``), and
+only rank 0 writes the config, the log and the prints.  Every other
+training CLI refuses a training mesh (ROADMAP Queue 1 item 8), and so
+does any split with dropout (item 9: the masks are not drawn on the
+global arrays).  ``serve`` runs under a (data, model) split, and the
+host merges here
 (``gather_eval_rows``, ``sum_across_hosts``, ``collect_records``) are
 JAX's over the mesh's gloo host group: each data rank's contribution
 once (its model-index-0 rank's), in data order, every rank left with
@@ -52,10 +64,17 @@ from youku_mplug_tpu_torch.models.tokenizer import (
     BatchTokenizer,
     load_tokenizer,
 )
-from youku_mplug_tpu_torch.parallel.tensor_parallel import (
-    TRAINING_UNDER_MESH,
+from youku_mplug_tpu_torch.parallel.sharding import (
+    GPT3_SHARDING_RULES,
+    shard_params,
 )
-from youku_mplug_tpu_torch.runtime.mesh import Mesh, local_rank, make_mesh
+from youku_mplug_tpu_torch.runtime.mesh import (
+    Mesh,
+    distributed_init,
+    local_batch_size,
+    local_rank,
+    make_mesh,
+)
 from youku_mplug_tpu_torch.runtime.precision import (
     DEFAULT_POLICY,
     FP32_POLICY,
@@ -95,6 +114,10 @@ def base_parser(description: str) -> argparse.ArgumentParser:
                    help="print every n-th step's metrics")
     p.add_argument("--device", default="cuda",
                    help="cuda[:i] (default), or cpu")
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                   help="under torch.distributed.run: nccl (the default on "
+                        "the card; one rank a card) or gloo (several ranks "
+                        "on one card, or CPU processes; the CPU default)")
     return p
 
 
@@ -113,6 +136,7 @@ class Runner:
     ckpt: Optional[CheckpointManager] = None
     tb: Optional[TensorboardLogger] = None
     start_epoch: int = 0
+    mesh: Optional[Mesh] = None  # the training split (init_mesh)
     history: List[Dict[str, float]] = dataclasses.field(default_factory=list)
 
 
@@ -143,18 +167,80 @@ def decode_kwargs(cfg) -> dict:
 
 def make_loader(args, cfg: RunConfig, dataset, shuffle: bool = True,
                 batch_size: Optional[int] = None,
-                drop_last: bool = True, mesh: Optional[Mesh] = None
-                ) -> Loader:
+                drop_last: bool = True, mesh: Optional[Mesh] = None,
+                block: Optional[Mesh] = None) -> Loader:
     """A loader of ``batch_size`` (default the YAML's) in the JAX runners'
     order: files decode on the YAML's ``num_workers`` (``workers_impl``:
     threads, or forked processes), synthetic clips in the consumer's
-    thread; with a ``mesh``, this rank's data shard."""
+    thread; with a ``mesh``, this rank's data shard (serving's and the
+    evaluations' contract: a stride of the dataset); with ``block``
+    (training's), this data rank's contiguous block of every global
+    batch, so that the data ranks' rows at step k are the (1,1) run's
+    batch k (``put_batch``), and under ``update_freq`` > 1 its block of
+    each micro-batch, so that the step's micro-batch u is the (1,1)
+    step's."""
     return Loader(dataset, batch_size or cfg.batch_size, seed=args.seed,
                   shuffle=shuffle, drop_last=drop_last,
                   num_workers=0 if args.synthetic_data else cfg.num_workers,
                   workers_impl=cfg.get("workers_impl", "thread"),
                   shard_index=mesh.data_index if mesh else 0,
-                  shard_count=mesh.data if mesh else 1)
+                  shard_count=mesh.data if mesh else 1,
+                  block_index=block.data_index if block else 0,
+                  block_count=block.data if block else 1,
+                  micro_count=cfg.update_freq
+                  if block and block.data > 1 else 1)
+
+
+def init_mesh(args, cfg: RunConfig) -> Mesh:
+    """Join the run's process group (under ``torch.distributed.run``;
+    ``--dist_backend``) and build the YAML's training mesh; (1, 1) in one
+    process.  Call before the loaders: the train loader reads the
+    rank's block of each batch."""
+    device = device_of(args)
+    backend = getattr(args, "dist_backend", None) or (
+        "nccl" if device.type == "cuda" else "gloo")
+    distributed_init(backend, device=device)
+    return make_mesh(getattr(cfg, "mesh", None))
+
+
+def main_rank(runner: "Runner") -> bool:
+    """Whether this rank writes the run's files and prints (rank 0)."""
+    return runner.mesh is None or runner.mesh.rank == 0
+
+
+def refuse_training_mesh(mesh_cfg, what: str = "this runner's",
+                         item: int = 8) -> Mesh:
+    """A runner without a training mesh: raise under any split, a launch
+    of more than one process or a process group; else the (1, 1) mesh of
+    ``mesh_cfg`` (whose resolve raises for a split in one process)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    mesh = make_mesh(mesh_cfg) if world == 1 and \
+        not dist.is_initialized() else None
+    if mesh is None or mesh.size > 1:
+        raise NotImplementedError(
+            f"a training mesh: run_pretrain and run_caption train under a "
+            f"(data, model) split; {what} split is not ported (ROADMAP "
+            f"Queue 1 item {item})")
+    return mesh
+
+
+def _refuse_split_dropout(cfg, mesh: Mesh):
+    """Dropout under a split raises (ROADMAP Queue 1 item 9): JAX draws
+    each mask on the global array, the port's ranks would draw others."""
+    if mesh.size <= 1:
+        return
+    text, vision = cfg.model.text, cfg.model.vision
+    rates = {"hidden_dropout": text.hidden_dropout,
+             "attention_dropout": text.attention_dropout,
+             "drop_rate": vision.drop_rate,
+             "attn_drop_rate": vision.attn_drop_rate,
+             "drop_path": vision.drop_path}
+    on = {k: v for k, v in rates.items() if v > 0}
+    if on:
+        raise NotImplementedError(
+            f"dropout under a {mesh.data}x{mesh.model} split ({on}): the "
+            f"global-array masks are not ported (ROADMAP Queue 1 item 9); "
+            f"set the rates to 0")
 
 
 def build_tokenizer(cfg: RunConfig) -> BatchTokenizer:
@@ -167,18 +253,20 @@ def setup(args, cfg: RunConfig, loader: Loader,
           proj_heads: bool = False,
           model_fn: Optional[Callable[[Any], torch.nn.Module]] = None,
           tokenizer: Optional[BatchTokenizer] = None,
-          resume: bool = True) -> Runner:
+          resume: bool = True, mesh: Optional[Mesh] = None) -> Runner:
     """The model, its train state, checkpoints and the resume (see the
     module docstring); ``loader`` is the training loader, ``proj_heads``
     the model's (``MPLUGVideo``).  ``model_fn(policy)`` builds another
     model (the BERT family's ``MPLUG`` / ``ALPRO``) with its
     ``tokenizer``; ``resume=False`` starts fresh whatever the output
-    directory holds (JAX's mPLUG pretrain runner never restores)."""
+    directory holds (JAX's mPLUG pretrain runner never restores).
+    ``mesh``: the training split of ``init_mesh`` (run_pretrain and
+    run_caption); a runner that passes none refuses any split."""
     device = device_of(args)
-    mesh = make_mesh(getattr(cfg, "mesh", None))
-    if mesh.size > 1 or dist.is_initialized():
-        raise NotImplementedError(f"a {mesh.data}x{mesh.model} training "
-                                  f"mesh: {TRAINING_UNDER_MESH}")
+    split = mesh is not None
+    mesh = mesh if split else refuse_training_mesh(getattr(cfg, "mesh",
+                                                           None))
+    _refuse_split_dropout(cfg, mesh)
     niter = len(loader) if args.max_steps <= 0 else min(len(loader),
                                                         args.max_steps)
     cfg.optimizer = dataclasses.replace(cfg.optimizer,
@@ -190,21 +278,26 @@ def setup(args, cfg: RunConfig, loader: Loader,
     jax_init(model, args.seed)  # the JAX runner's model.init rules
     if cfg.get("import_torch_weights"):
         importers.import_all(model, cfg, cfg.get("import_torch_weights"))
+    if split:
+        shard_params(model, mesh, GPT3_SHARDING_RULES)
     state, _, schedule = create_train_state(
         model, cfg.optimizer,
         frozen_dtype=None if args.fp32 else policy.compute_dtype)
+    main = mesh.rank == 0
     os.makedirs(args.output_dir, exist_ok=True)
-    dump_config(cfg, args.output_dir)
+    if main:
+        dump_config(cfg, args.output_dir)
     ckpt = CheckpointManager(
         os.path.join(args.output_dir, "checkpoints"),
-        async_save=bool(cfg.get("async_checkpointing", False)))
-    tb = TensorboardLogger(os.path.join(args.output_dir, "tb"))
+        async_save=bool(cfg.get("async_checkpointing", False)), mesh=mesh)
+    tb = TensorboardLogger(os.path.join(args.output_dir, "tb"),
+                           enabled=main)
     state, start_epoch = (resume_state(args, ckpt, state) if resume
                           else (state, 0))
     return Runner(args=args, cfg=cfg, device=device, model=model.train(),
                   tokenizer=tokenizer or build_tokenizer(cfg), state=state,
                   schedule=schedule, loader=loader, ckpt=ckpt, tb=tb,
-                  start_epoch=start_epoch)
+                  start_epoch=start_epoch, mesh=mesh if split else None)
 
 
 def resume_state(args, ckpt: CheckpointManager, state):
@@ -219,7 +312,7 @@ def resume_state(args, ckpt: CheckpointManager, state):
         src_dir = os.path.join(args.resume, "checkpoints")
         if not os.path.isdir(src_dir):
             src_dir = args.resume  # already a checkpoints directory
-        src = CheckpointManager(src_dir)
+        src = CheckpointManager(src_dir, mesh=ckpt.mesh)
     step = src.latest_step()
     if (args.resume or getattr(args, "evaluate_only", False)) \
             and step is None:
@@ -230,7 +323,8 @@ def resume_state(args, ckpt: CheckpointManager, state):
         return state, 0
     state = restore_with_resize(src, step, state)
     start_epoch = int((src.restore_metadata(step) or {}).get("epoch", 0))
-    print(f"resumed from step {step} (epoch {start_epoch})", flush=True)
+    if state.mesh is None or state.mesh.rank == 0:
+        print(f"resumed from step {step} (epoch {start_epoch})", flush=True)
     return state, start_epoch
 
 
@@ -272,7 +366,7 @@ def restore_with_resize(ckpt: CheckpointManager, step: int,
         return ckpt.restore(step, state)
     except ValueError as exact_err:
         try:
-            raw = ckpt.restore_raw(step, map_location="cpu")
+            raw = ckpt.restore_raw_for(step, state, map_location="cpu")
             parts = {part: _resize_params(raw[part], getattr(state, part))
                      for part in ("trainable", "frozen")}
         except ValueError:
@@ -368,7 +462,7 @@ def train_one_epoch(runner: Runner, train_step, epoch: int,
         history.append(metrics)
         logger.update(**metrics)
         step = runner.state.step
-        if (it + 1) % log_freq == 0:
+        if (it + 1) % log_freq == 0 and main_rank(runner):
             print(f"Epoch [{epoch}] step {step}: "
                   + json.dumps({k: round(v, 6)
                                 for k, v in metrics.items()}), flush=True)
@@ -393,7 +487,7 @@ def train_one_epoch(runner: Runner, train_step, epoch: int,
             runner.tb.update(head="opt", lr=metrics["lr"],
                              grad_norm=metrics["grad_norm"])
             runner.tb.update(head="time", step_time=metrics["step_time"])
-    if history:
+    if history and main_rank(runner):
         print(f"Epoch [{epoch}] {len(history)} steps: {logger}", flush=True)
     return history
 
@@ -426,10 +520,29 @@ def train_epochs(runner: Runner, train_step, make_batch: Callable,
         means = {k: float(np.mean([h[k] for h in history]))
                  for k in (history[0] if history else {})}
         val = validate(runner) if validate is not None else {}
-        write_log(runner.args, {"epoch": epoch, **means,
-                                **{f"val_{k}": v for k, v in val.items()},
-                                "epoch_time": time.time() - t0})
+        if main_rank(runner):
+            write_log(runner.args,
+                      {"epoch": epoch, **means,
+                       **{f"val_{k}": v for k, v in val.items()},
+                       "epoch_time": time.time() - t0})
     return runner
+
+
+def put_batch(runner: Runner, arrays: Dict[str, Any]
+              ) -> Dict[str, torch.Tensor]:
+    """A training batch on the runner's device (JAX ``put_batch``): under
+    a data split it must be this data rank's block of the global batch,
+    which the train loader cuts (``make_loader(block=)``,
+    ``parallel/sharding.data_shard``'s rows, micro-batch by micro-batch
+    under ``update_freq``); a batch of any other size raises."""
+    mesh = runner.mesh
+    if mesh is not None and mesh.data > 1:
+        rows = len(next(iter(arrays.values())))
+        if rows != local_batch_size(runner.cfg.batch_size, mesh):
+            raise ValueError(f"a batch of {rows} rows under data="
+                             f"{mesh.data}: not a data rank's block of the "
+                             f"global {runner.cfg.batch_size}")
+    return to_device(runner, arrays)
 
 
 def to_device(runner: Runner, arrays: Dict[str, Any]

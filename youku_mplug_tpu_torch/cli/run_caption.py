@@ -15,7 +15,14 @@ evaluation batches too.  It writes ``caption_results.json`` (each clip's
 caption, its gold captions, and the token ids and beam score it came
 from) and a ``log.txt`` line ``{"test": metrics}`` (BLEU-1..4, ROUGE-L,
 CIDEr, METEOR over Chinese-character-normalized text).
-``--evaluate_only --resume <dir>`` skips training.  The clips come from
+``--evaluate_only --resume <dir>`` skips training.  Under ``python -m
+torch.distributed.run`` both train and evaluate under the YAML's
+``mesh:`` split (``cli/common.py``; as ``run_pretrain``): the finetune
+steps equal the unsplit ones on the same global batches, and the beam
+search runs on each model rank's heads and vocab rows (the decode kernel
+on the local heads' cache) over its data rank's stride of the test clips,
+``local_batch_size`` clips a batch, merged on the host
+(``collect_records``).  The clips come from
 the YAML's ``train_file`` and ``test_file`` under ``video_root``
 (``data/datasets.CaptionVideoDataset``: ``num_frames`` a clip, ``rand``
 and the train transform in training, ``middle`` and a resize in the test
@@ -59,6 +66,10 @@ from youku_mplug_tpu_torch.evals.metrics import caption_eval
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo, generate_captions
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+from youku_mplug_tpu_torch.runtime.mesh import (
+    distributed_shutdown,
+    local_batch_size,
+)
 from youku_mplug_tpu_torch.train.trainer import make_train_step
 
 PROMPT_LENGTH = 20  # tokens the evaluation prompt is padded to
@@ -84,25 +95,35 @@ def dataset(args, cfg: RunConfig, train: bool):
         seed=args.seed if train else 0, **common.decode_kwargs(cfg))
 
 
-def build_loaders(args, cfg: RunConfig) -> Tuple[Loader, Loader]:
-    """Train (shuffled) and test loaders."""
-    return (common.make_loader(args, cfg, dataset(args, cfg, True)),
+def build_loaders(args, cfg: RunConfig, mesh=None) -> Tuple[Loader, Loader]:
+    """Train (shuffled) and test loaders; with a ``mesh``, the train
+    loader's block of every global batch and the test loader's stride of
+    the clips at ``local_batch_size`` a batch (the same clips as the
+    unsplit run's wherever the data degree divides the split)."""
+    split = mesh is not None and mesh.data > 1
+    return (common.make_loader(args, cfg, dataset(args, cfg, True),
+                               block=mesh),
             common.make_loader(args, cfg, dataset(args, cfg, False),
-                               shuffle=False))
+                               shuffle=False, mesh=mesh if split else None,
+                               batch_size=local_batch_size(cfg.batch_size,
+                                                           mesh)
+                               if split else None))
 
 
 def prepare(args) -> Tuple[common.Runner, Loader]:
-    """The runner (``common.setup``: model, state, checkpoints, resume)
-    and the test loader."""
+    """The runner (``common.setup``: mesh, model, state, checkpoints,
+    resume) and the test loader."""
     cfg = load_config(args.config)
-    train_loader, test_loader = build_loaders(args, cfg)
-    return common.setup(args, cfg, train_loader), test_loader
+    mesh = common.init_mesh(args, cfg)
+    train_loader, test_loader = build_loaders(args, cfg, mesh)
+    return (common.setup(args, cfg, train_loader, mesh=mesh),
+            test_loader)
 
 
 def make_batch(runner: common.Runner, raw) -> Dict[str, torch.Tensor]:
     text = runner.tokenizer([(runner.cfg.prompt, t) for t in raw["text"]],
                             padding="max_length")
-    return common.to_device(runner, {"video": raw["video"], **text})
+    return common.put_batch(runner, {"video": raw["video"], **text})
 
 
 def make_loss_fn(model: MPLUGVideo):
@@ -182,22 +203,32 @@ def evaluation(runner: common.Runner, loader: Loader
                                 "tokens": seq.tolist(), "score": score})
     finally:
         runner.model.train(training)
-    results = common.collect_records(results, dedup_key="video_id")
+    results = common.collect_records(results, dedup_key="video_id",
+                                     mesh=runner.mesh)
     metrics = caption_eval(results)
-    print("* Caption metrics:", json.dumps(metrics, ensure_ascii=False),
-          flush=True)
+    if common.main_rank(runner):
+        print("* Caption metrics:", json.dumps(metrics, ensure_ascii=False),
+              flush=True)
     return metrics, results, stats
 
 
 def main(args) -> common.Runner:
-    runner, test_loader = prepare(args)
-    if not args.evaluate_only:
-        common.train_epochs(runner, build_train_step(runner), make_batch)
-    metrics, results, _ = evaluation(runner, test_loader)
-    with open(os.path.join(args.output_dir, "caption_results.json"),
-              "w") as f:
-        json.dump(results, f, ensure_ascii=False)
-    common.write_log(args, {"test": metrics})
+    owned = not torch.distributed.is_initialized()
+    try:
+        runner, test_loader = prepare(args)
+        if not args.evaluate_only:
+            common.train_epochs(runner, build_train_step(runner),
+                                make_batch)
+        metrics, results, _ = evaluation(runner, test_loader)
+        if common.main_rank(runner):
+            with open(os.path.join(args.output_dir, "caption_results.json"),
+                      "w") as f:
+                json.dump(results, f, ensure_ascii=False)
+            common.write_log(args, {"test": metrics})
+        runner.ckpt.close()
+    finally:
+        if owned:
+            distributed_shutdown()
     return runner
 
 

@@ -528,6 +528,7 @@ def train_setup(args) -> common.Runner:
         raise ValueError("--fp32 is a serving flag: training keeps fp32 "
                          "trainable and bf16 frozen leaves")
     cfg, raw = load_owl_config(args.config)
+    common.refuse_training_mesh(None, "Bloom / Owl's", item=3)
     tcfg = instruct_train_config(raw)
     loader = build_train_loader(args, tcfg, raw, cfg.vision.img_size)
     niter = len(loader) if args.max_steps <= 0 else min(len(loader),

@@ -17,6 +17,16 @@ epoch saves a checkpoint (``--save_ckpt_freq``) under
 resumes from its latest checkpoint; ``--resume <dir>`` resumes from
 another run's.  Profiling is ``cli/profile_train.py``.
 
+Under ``python -m torch.distributed.run`` it trains the YAML's ``mesh:``
+(data, model) split, one process a rank (``cli/common.py``): each data
+rank reads its block of every global batch, the model ranks hold their
+heads, MLP columns and vocab rows, and every step is the one an unsplit
+run takes on the same global batch; the checkpoint is the unsharded one,
+so a run saved at one split resumes at another.  ``--dist_backend nccl``
+(the default on the card) wants one card a rank; ``gloo`` runs several
+ranks on one card (``--device cuda:0``) or on CPU processes (``--device
+cpu``).
+
 Usage (GPU):
     python -m youku_mplug_tpu_torch.cli.run_pretrain \
         --config configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml \
@@ -24,6 +34,10 @@ Usage (GPU):
     python -m youku_mplug_tpu_torch.cli.run_pretrain \
         --config <a pretrain YAML whose train_file and train_video_root
                   name your files> --output_dir out --max_steps 7
+    # a YAML with mesh: {data: 2, model: 2}: four ranks on CPU processes
+    python -m torch.distributed.run --standalone --nproc_per_node=4 \
+        -m youku_mplug_tpu_torch.cli.run_pretrain --config <that YAML> \
+        --output_dir out --synthetic_data --device cpu --fp32
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from youku_mplug_tpu_torch.data.loader import MetaLoader
 from youku_mplug_tpu_torch.data.transforms import train_transform
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+from youku_mplug_tpu_torch.runtime.mesh import distributed_shutdown
 from youku_mplug_tpu_torch.train.trainer import make_train_step
 
 
@@ -49,21 +64,22 @@ def base_parser(description: str = "mPLUG-Video pretraining (PyTorch)"):
     return common.base_parser(description)
 
 
-def build_loader(args, cfg: RunConfig):
+def build_loader(args, cfg: RunConfig, mesh=None):
     """The training loader (JAX ``build_loader``): synthetic clips, the
-    ``train_file``, or ``train_file_groups`` through ``MetaLoader``."""
+    ``train_file``, or ``train_file_groups`` through ``MetaLoader``; with
+    a ``mesh``, this data rank's block of every global batch."""
     if args.synthetic_data:
         ds = SyntheticVideoDataset(length=cfg.get("synthetic_length", 64),
                                    num_frames=cfg.num_frames,
                                    size=cfg.image_res)
-        return common.make_loader(args, cfg, ds)
+        return common.make_loader(args, cfg, ds, block=mesh)
 
     def loader(ann_file):
         return common.make_loader(args, cfg, PretrainVideoDataset(
             ann_file, cfg.get("train_video_root"),
             transform=train_transform(cfg.image_res),
             num_frames=cfg.num_frames, seed=args.seed,
-            **common.decode_kwargs(cfg)))
+            **common.decode_kwargs(cfg)), block=mesh)
     groups = cfg.get("train_file_groups")
     if groups:
         return _MetaLoaderAdapter(MetaLoader([loader(g) for g in groups],
@@ -90,16 +106,18 @@ class _MetaLoaderAdapter:
 
 
 def setup(args) -> common.Runner:
-    """Config, loader and ``common.setup`` (the model on the device, the
-    train state, checkpoints and the resume).  Raises when the requested
-    device is absent: nothing falls back to the CPU."""
+    """Config, the mesh (``common.init_mesh``), loader and
+    ``common.setup`` (the model on the device, cut to this rank's shard,
+    the train state, checkpoints and the resume).  Raises when the
+    requested device is absent: nothing falls back to the CPU."""
     cfg = load_config(args.config)
-    return common.setup(args, cfg, build_loader(args, cfg))
+    mesh = common.init_mesh(args, cfg)
+    return common.setup(args, cfg, build_loader(args, cfg, mesh), mesh=mesh)
 
 
 def make_batch(runner: common.Runner, raw) -> Dict[str, torch.Tensor]:
     text = runner.tokenizer(raw["text"])
-    return common.to_device(runner, {"video": raw["video"], **text})
+    return common.put_batch(runner, {"video": raw["video"], **text})
 
 
 def make_loss_fn(model: MPLUGVideo):
@@ -119,8 +137,15 @@ def build_train_step(runner: common.Runner):
 
 
 def main(args) -> common.Runner:
-    runner = setup(args)
-    return common.train_epochs(runner, build_train_step(runner), make_batch)
+    owned = not torch.distributed.is_initialized()
+    try:
+        runner = setup(args)
+        common.train_epochs(runner, build_train_step(runner), make_batch)
+        runner.ckpt.close()
+        return runner
+    finally:
+        if owned:
+            distributed_shutdown()
 
 
 if __name__ == "__main__":

@@ -220,7 +220,7 @@ def build(args):
     if mesh.model > 1 and args.speculative > 0:
         raise NotImplementedError(
             "--speculative under model > 1 is not ported (ROADMAP Queue 1 "
-            "item 5)")
+            "item 4)")
     resume = bool(args.resume or args.evaluate_only)
     policy = FP32_POLICY if args.fp32 else (DEFAULT_POLICY if resume
                                             else BF16_POLICY)

@@ -12,8 +12,17 @@ takes every ``shard_count``-th index from ``shard_index`` on (the
 DistributedSampler contract: every shard yields as many batches); the
 last partial batch is
 dropped (kept with ``drop_last=False``, as the evaluations read every
-sample), and samples are collated the same way (arrays stacked, ints to
-int32, floats to float32, anything else kept as a list).
+sample).  A loader given ``block_index`` / ``block_count`` (training
+under a data split: the rank's data coordinate and the data degree)
+yields only its contiguous block of each of those batches, rows
+``[i * B / D, (i + 1) * B / D)`` (JAX's ``put_batch`` placement), so the
+blocks of step k together are the unsplit run's batch k and a rank
+decodes its own rows alone; with ``micro_count`` U > 1 (the step's
+``update_freq``) the rank takes its block of each of the batch's U
+micro-batches (rows ``[u * B / U, (u + 1) * B / U)``, JAX's split),
+in order, so that its u-th micro-batch is its block of the unsplit
+step's u-th.  Samples are collated the same way (arrays
+stacked, ints to int32, floats to float32, anything else kept as a list).
 
 ``num_workers=0`` makes each batch in the consumer's thread when it asks
 for it.  ``num_workers >= 1`` runs JAX's pipeline: a producer thread
@@ -90,13 +99,21 @@ class Loader:
                  shuffle: bool = True, drop_last: bool = True,
                  num_workers: int = 0, prefetch: int = 4,
                  workers_impl: str = "thread", shard_index: int = 0,
-                 shard_count: int = 1):
+                 shard_count: int = 1, block_index: int = 0,
+                 block_count: int = 1, micro_count: int = 1):
         if workers_impl not in ("thread", "process"):
             raise ValueError(f"workers_impl must be 'thread' or 'process', "
                              f"got {workers_impl!r}")
         if not 0 <= shard_index < shard_count:
             raise ValueError(f"shard {shard_index} of {shard_count}")
         self.shard_index, self.shard_count = shard_index, shard_count
+        if not 0 <= block_index < block_count or micro_count < 1 \
+                or batch_size % (block_count * micro_count):
+            raise ValueError(f"block {block_index} of {block_count} of "
+                             f"{micro_count} micro-batches of a batch of "
+                             f"{batch_size}")
+        self.block_index, self.block_count = block_index, block_count
+        self.micro_count = micro_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -131,8 +148,11 @@ class Loader:
     def batch_indices(self) -> List[np.ndarray]:
         """This epoch's batches of dataset indices, in order."""
         order = self.shard_indices()
-        return [order[i * self.batch_size:(i + 1) * self.batch_size]
-                for i in range(len(self))]
+        return [np.concatenate([
+            np.array_split(micro, self.block_count)[self.block_index]
+            for micro in np.array_split(
+                order[i * self.batch_size:(i + 1) * self.batch_size],
+                self.micro_count)]) for i in range(len(self))]
 
     def __iter__(self) -> Iterator[Dict[str, Any]]:
         if self.num_workers <= 0:

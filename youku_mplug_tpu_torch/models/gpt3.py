@@ -51,8 +51,16 @@ count from ``qkv_kernel``), F/m MLP columns and V/m vocab rows; the
 attention output and fc2 products are summed over the model ranks
 (``parallel/tensor_parallel.py``) before their biases, the embedding
 lookup and the tied logits go through the vocab-parallel lookup and
-gather, and the cache holds the rank's own heads.  Forward only: the
-training loss over a vocab-parallel table raises.
+gather, and the cache holds the rank's own heads.  In training the
+inputs of the column-parallel products (qkv, fc1) pass through
+``copy_to_model`` (Megatron's *f*), so the gradient that reaches the
+layer's input, and the frozen decoder's dgrad down to the query
+features, is the sum over the model ranks; the flash kernels run their
+forward and backward on the local heads; the LM loss is the
+vocab-parallel CE over the rank's table rows (``TiedEmbedding.loss``).
+Under a data split (``mesh``, set by ``shard_params``) the training
+loss is this rank's share of the global batch's masked mean
+(``parallel/data_parallel.py``).
 """
 
 from __future__ import annotations
@@ -87,8 +95,9 @@ from youku_mplug_tpu_torch.ops.flash_attention import (
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.ops.lora import LoRAModule, plus
 from youku_mplug_tpu_torch.ops.quant import dequantize, qscale
+from youku_mplug_tpu_torch.parallel.data_parallel import data_group_of
 from youku_mplug_tpu_torch.parallel.tensor_parallel import (
-    TRAINING_UNDER_MESH,
+    copy_to_model,
     gather_vocab_logits,
     reduce_from_model,
     vocab_parallel_embedding,
@@ -255,6 +264,7 @@ class GPT3Attention(LoRAModule):
         nd = n * d
         b, s, _ = x.shape
         dt = x.dtype
+        x = copy_to_model(x, self.tp)
         qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * nd).to(dt)
         qkv = qscaled(qkv, self, "qkv_kernel", lidx)
         qkv = qkv + self.qkv_bias[lidx].reshape(3 * nd).to(dt)
@@ -329,6 +339,7 @@ class GPT3MLP(LoRAModule):
 
     def forward(self, x, lidx: int):
         dt = x.dtype
+        x = copy_to_model(x, self.tp)
         y = qscaled(x @ self.fc1_kernel[lidx].to(dt), self, "fc1_kernel", lidx)
         y = plus(y, self.delta("fc1", x, lidx))
         # fused bias + tanh-approx gelu (megatron bias_gelu contract)
@@ -477,15 +488,27 @@ class TiedEmbedding(nn.Module):
         return y.reshape(*hidden.shape[:-1], y.shape[-1])
 
     def table(self, dtype):
-        """The [V, H] table in ``dtype`` (dequantized if int8): the
-        training loss's operand."""
-        if self.tp is not None:
-            raise NotImplementedError(f"the LM loss over a vocab-parallel "
-                                      f"table: {TRAINING_UNDER_MESH}")
+        """The [V, H] table in ``dtype`` (dequantized if int8); on a model
+        shard, where the table is this rank's rows, ``loss`` is the
+        entry."""
+        if self.tp is not None and self.tp.size > 1:
+            raise ValueError("the [V, H] table of a vocab-parallel shard: "
+                             "take the LM loss through loss()")
+        return self._rows(dtype)
+
+    def _rows(self, dtype):
         s = qscale(self, "embedding")
         if s is not None:
             return dequantize(self.embedding, s, dtype)
         return self.embedding.to(dtype)
+
+    def loss(self, hidden, labels, chunk: int = 0):
+        """fp32 per-position LM losses [B, S] of the tied logits of
+        ``hidden`` [B, S, H] against ``labels`` (already shifted), in
+        sequence chunks of ``chunk``; on a model shard the vocab-parallel
+        CE over this rank's rows (``ops/cross_entropy.py``)."""
+        return lm_cross_entropy(hidden, self._rows(hidden.dtype), labels,
+                                chunk=chunk, tp=self.tp)
 
 
 def _init_cache(cfg, policy: Policy, batch: int, max_len: int, device,
@@ -503,6 +526,8 @@ def _init_cache(cfg, policy: Policy, batch: int, max_len: int, device,
 class GPT3LM(nn.Module):
     """Tied-embedding LM over the decoder: the training forward with the
     masked-mean LM loss, and the serving entry points."""
+
+    mesh = None  # the run's mesh (parallel/sharding.shard_params)
 
     def __init__(self, cfg: GPT3Config, policy: Policy = DEFAULT_POLICY):
         super().__init__()
@@ -536,12 +561,12 @@ class GPT3LM(nn.Module):
         hidden = self.decoder(input_embeds, positions, generator=generator)
         out = {"last_hidden_state": hidden}
         if labels is not None:
-            losses = lm_cross_entropy(
-                hidden, self.word_embeddings.table(hidden.dtype), labels,
-                chunk=self.cfg.ce_chunk)
+            losses = self.word_embeddings.loss(hidden, labels,
+                                               chunk=self.cfg.ce_chunk)
             out["losses"] = losses
             if loss_mask is not None:
-                out["loss"] = masked_mean_loss(losses[:, :-1], loss_mask)
+                out["loss"] = masked_mean_loss(losses[:, :-1], loss_mask,
+                                               data_group_of(self))
         return out
 
     def init_cache(self, batch: int, max_len: int, device=None):

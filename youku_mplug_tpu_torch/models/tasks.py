@@ -11,9 +11,14 @@ methods ``encode_video`` / ``encode_queries``, ``pretrain_loss``,
 ``itm_eval_scores``, and the image pretrain variant ``image_pretrain_loss``
 (a plain image ViT, ``image_encoder``, in place of the TimeSformer: the
 reference's ViT-B/16 or EVA-ViT-g image pretraining);
-``generate_captions``.  Under a serving split (``mesh``, set by
+``generate_captions``.  Under a (data, model) split (``mesh``, set by
 ``parallel/sharding.shard_params``) the same methods run on the model
-shards: nothing here changes but the weights each module holds.
+shards: nothing here changes but the weights each module holds; in
+training mode under a data split each loss is this rank's share of the
+global batch's (``parallel/data_parallel.py``): the LM loss's masked
+mean over the global token count, and the contrastive loss's per-query
+max over the global batch (``vis`` / ``txt`` gathered over the data
+ranks, the targets global indices).
 
 Towers: the JAX module declares both vision towers and flax creates the
 parameters of the one a task method calls, so a video model's tree has
@@ -57,6 +62,10 @@ from youku_mplug_tpu_torch.models.vision import (
     VisionTransformer,
 )
 from youku_mplug_tpu_torch.ops.cross_entropy import cross_entropy_with_logits
+from youku_mplug_tpu_torch.parallel.data_parallel import (
+    data_group_of,
+    gather_rows,
+)
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 # query and ignored label slots hold token id 100; the loss mask zeroes them
@@ -270,16 +279,23 @@ class MPLUGVideo(nn.Module):
                                        last_token_index(attention_mask))
             vis = _l2_normalize(self.vision_proj(image_query.float()))
             txt = _l2_normalize(self.text_proj(pooled_text.float()))
-            # per-query max similarity over the whole batch
-            sim_i2t = torch.einsum("bqe,ce->bcq", vis, txt).amax(-1) \
-                / self.temp
-            sim_t2i = torch.einsum("ce,bqe->cbq", txt, vis).amax(-1) \
-                / self.temp
-            targets = torch.arange(vis.shape[0], device=vis.device)
+            # per-query max similarity over the whole (global) batch
+            dp = data_group_of(self)
+            b = vis.shape[0]
+            sim_i2t = torch.einsum("bqe,ce->bcq", vis,
+                                   gather_rows(txt, dp)).amax(-1) / self.temp
+            sim_t2i = torch.einsum("ce,bqe->cbq", txt,
+                                   gather_rows(vis, dp)).amax(-1) / self.temp
+            targets = torch.arange(b, device=vis.device) + (
+                0 if dp is None else dp.index * b)
             ls = self.cfg.label_smoothing
+
+            def share(rows):  # this rank's share of the global mean
+                return rows.mean() if dp is None else \
+                    rows.sum() / (b * dp.size)
             loss_contrastive = 0.5 * (
-                cross_entropy_with_logits(sim_i2t, targets, ls).mean()
-                + cross_entropy_with_logits(sim_t2i, targets, ls).mean())
+                share(cross_entropy_with_logits(sim_i2t, targets, ls))
+                + share(cross_entropy_with_logits(sim_t2i, targets, ls)))
         return {"loss": loss_caption + loss_contrastive,
                 "loss_caption": loss_caption,
                 "loss_contrastive": loss_contrastive}

@@ -84,7 +84,10 @@ from youku_mplug_tpu_torch.ops.flash_attention import (
 )
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.ops.lora import LoRAModule, plus
-from youku_mplug_tpu_torch.parallel.tensor_parallel import reduce_from_model
+from youku_mplug_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    reduce_from_model,
+)
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 
@@ -216,7 +219,11 @@ class VisionAttention(LoRAModule):
     ``packed_supported`` (ViT-B/16's 12 heads at model = 4 leave 3 of
     64, an odd count of 128-lane strips) the local heads take the
     head-major flash kernel (``flash_attention``, K4, with the same
-    period mask): still the hand-written kernel, on head views."""
+    period mask): still the hand-written kernel, on head views.  In
+    training the input and a folded ``post_kernel`` pass through
+    ``copy_to_model`` (Megatron's *f*: both enter the local heads'
+    partial product, so their gradients are summed over the model
+    ranks; the folded bias, added after the sum, is not)."""
 
     TP_PARAM = "proj_kernel"  # the row-parallel product that is summed
     tp = None
@@ -258,12 +265,12 @@ class VisionAttention(LoRAModule):
             assert self.lora_rank == 0, "post_kernel fusion takes no LoRA"
             pk32 = post_kernel.float()
             proj_kernel = torch.einsum("ndc,ce->nde", proj_kernel.float(),
-                                       pk32)
+                                       copy_to_model(pk32, self.tp))
             proj_bias = proj_bias.float() @ pk32
             if post_bias is not None:
                 proj_bias = proj_bias + post_bias.float()
         lead, s = x.shape[:-2], x.shape[-2]
-        xf = x.reshape(-1, s, c)
+        xf = copy_to_model(x.reshape(-1, s, c), self.tp)
         qkv = plus(_mm(xf, self.qkv_kernel.reshape(c, 3 * nd)),
                     self.delta("qkv", xf))
         q = qkv[..., :nd] + self.q_bias.reshape(nd).to(x.dtype)
@@ -295,7 +302,8 @@ class VisionAttention(LoRAModule):
 class Mlp(LoRAModule):
     """fc1 -> GELU -> fc2; on a model shard fc1's columns and fc2's rows
     are this rank's, fc2's partial product is summed over the model ranks
-    and ``fc2_bias`` added once, after."""
+    and ``fc2_bias`` added once, after; fc1's input passes through
+    ``copy_to_model`` in training."""
 
     TP_PARAM = "fc2_kernel"
     tp = None
@@ -313,6 +321,7 @@ class Mlp(LoRAModule):
                       {"fc1": (dim, hidden), "fc2": (hidden, dim)})
 
     def forward(self, x):
+        x = copy_to_model(x, self.tp)
         y = plus(_mm(x, self.fc1_kernel), self.delta("fc1", x))
         y = _gelu(y + self.fc1_bias.to(x.dtype), self.gelu)
         out = plus(_mm(y, self.fc2_kernel), self.delta("fc2", y))

@@ -26,7 +26,7 @@ modules written for it take a slice (``TP_PARAM``: GPT-3's attention,
 MLP and tied embedding, the vision attention and MLP); a rule that would
 split any other module's parameter raises, as do unmerged LoRA adapters
 under ``model > 1``.  The Bloom rules are here for the specs (held
-against JAX's); Bloom under a mesh comes with training under the mesh.
+against JAX's); Bloom under a mesh is ROADMAP Queue 1 item 3.
 ``unshard`` is the inverse (all-gather over the host group) and
 ``data_shard`` cuts a global batch by the data coordinate (JAX's
 ``data_sharding``).
@@ -44,10 +44,7 @@ from torch import nn
 
 from youku_mplug_tpu_torch.bridge import jax_path
 from youku_mplug_tpu_torch.ops.quant import SCALE_SUFFIX
-from youku_mplug_tpu_torch.parallel.tensor_parallel import (
-    TRAINING_UNDER_MESH,
-    ModelGroup,
-)
+from youku_mplug_tpu_torch.parallel.tensor_parallel import ModelGroup
 from youku_mplug_tpu_torch.runtime.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
@@ -165,7 +162,9 @@ def shard_params(module: nn.Module, mesh: Mesh,
     """Keep this rank's slice of every parameter the rules split over the
     model axis (an int8 parameter's scales with it), hand the modules
     that hold a slice their ``ModelGroup``, and set ``module.mesh`` and
-    ``module.tp_split`` ({name: the dim cut}).
+    ``module.tp_split`` ({name: the dim cut}), and ``mesh`` on every
+    submodule that declares one (the losses' data group,
+    ``parallel/data_parallel.py``).
     Returns ``module``.  Under ``model == 1`` nothing is split."""
     specs = sharding_for_params(module.named_parameters(), mesh, rules)
     split = {name: d for name, spec in specs.items()
@@ -177,8 +176,9 @@ def shard_params(module: nn.Module, mesh: Mesh,
     if split and any(name.rpartition(".")[2].startswith("lora_")
                      for name, _ in module.named_parameters()):
         raise NotImplementedError(
-            f"unmerged LoRA adapters under model > 1: merge them "
-            f"(ops/lora.merge_lora) first; {TRAINING_UNDER_MESH}")
+            "unmerged LoRA adapters under model > 1: merge them "
+            "(ops/lora.merge_lora) first; unmerged adapters on a model "
+            "shard are not ported (ROADMAP Queue 1 item 4)")
     tp = ModelGroup(mesh.model_group, mesh.model_index, mesh.model)
     owners = {}  # module prefix -> module
     for name, dim in split.items():
@@ -186,7 +186,8 @@ def shard_params(module: nn.Module, mesh: Mesh,
         if getattr(type(owner), "TP_PARAM", None) is None:
             raise NotImplementedError(
                 f"{name} ({type(owner).__name__}) has no model-parallel "
-                f"form: {TRAINING_UNDER_MESH}, with the Bloom / Owl rules")
+                f"form: Bloom / Owl under a mesh is not ported (ROADMAP "
+                f"Queue 1 item 3)")
         owners[name.rpartition(".")[0]] = owner
         p = getattr(owner, leaf)
         p.data = _split(p.data, dim, mesh.model_index, mesh.model)
@@ -199,34 +200,50 @@ def shard_params(module: nn.Module, mesh: Mesh,
             raise ValueError(f"{type(owner).__name__}: its row-parallel "
                              f"{owner.TP_PARAM} is not split")
         owner.tp = tp
+    for m in module.modules():
+        if hasattr(type(m), "mesh"):
+            m.mesh = mesh
     module.mesh, module.tp_split = mesh, split
     return module
 
 
 @torch.no_grad()
+def gather_split(t: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """A model-split tensor unsharded on the CPU, on every rank:
+    all-gathered over the host group and joined along ``dim`` from the
+    ranks of this rank's model line, in model order."""
+    local = t.detach().cpu().contiguous()
+    parts = [torch.empty_like(local) for _ in range(mesh.size)]
+    dist.all_gather(parts, local, group=mesh.host_group)
+    line = [mesh.data_index * mesh.model + i for i in range(mesh.model)]
+    return torch.cat([parts[r] for r in line], dim=dim)
+
+
+def local_slice(full: torch.Tensor, dim: int, mesh: Mesh) -> torch.Tensor:
+    """This rank's contiguous slice along ``dim`` of an unsharded tensor
+    (``shard_params``' cut)."""
+    return _split(full, dim, mesh.model_index, mesh.model)
+
+
+@torch.no_grad()
 def unshard(module: nn.Module, mesh: Mesh) -> Dict[str, torch.Tensor]:
     """The unsharded parameters {port name: CPU tensor} of a module that
-    ``shard_params`` split, on every rank: each split parameter
-    all-gathered over the host group and joined from the ranks of this
-    rank's model line, in model order; the others copied."""
+    ``shard_params`` split, on every rank (``gather_split``); the others
+    copied."""
     split = getattr(module, "tp_split", {})
-    line = [mesh.data_index * mesh.model + i for i in range(mesh.model)]
-    out = {}
-    for name, p in module.named_parameters():
-        local = p.detach().cpu().contiguous()
-        if name not in split:
-            out[name] = local.clone()
-            continue
-        parts = [torch.empty_like(local) for _ in range(mesh.size)]
-        dist.all_gather(parts, local, group=mesh.host_group)
-        out[name] = torch.cat([parts[r] for r in line], dim=split[name])
-    return out
+    return {name: gather_split(p, split[name], mesh) if name in split
+            else p.detach().cpu().clone()
+            for name, p in module.named_parameters()}
 
 
-def data_shard(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
+def data_shard(batch: Dict[str, Any], mesh,
+               micro: int = 1) -> Dict[str, Any]:
     """This data rank's contiguous block of a global batch: rows
     ``[i * B / D, (i + 1) * B / D)`` of every array (and list) field,
-    ``i`` the data coordinate, as JAX's ``data_sharding`` places them."""
+    ``i`` the data coordinate, as JAX's ``data_sharding`` places them;
+    with ``micro`` U > 1 (a step's ``update_freq``) its block of each of
+    the U micro-batches JAX's step splits the batch into, in order (the
+    train loader's ``micro_count``)."""
     sizes = axis_sizes(mesh)
     parts = sizes[DATA_AXIS]
     index = mesh.data_index if isinstance(mesh, Mesh) else 0
@@ -234,10 +251,20 @@ def data_shard(batch: Dict[str, Any], mesh) -> Dict[str, Any]:
     for k, v in batch.items():
         if isinstance(v, (np.ndarray, torch.Tensor, list, tuple)):
             n = len(v)
-            if n % parts:
+            if n % (parts * micro):
                 raise ValueError(f"{k}: batch {n} not divisible by "
-                                 f"data={parts}")
-            size = n // parts
-            v = v[index * size:(index + 1) * size]
+                                 f"data={parts} x {micro} micro-batches")
+            size, stride = n // (parts * micro), n // micro
+            pieces = [v[u * stride + index * size:
+                        u * stride + (index + 1) * size]
+                      for u in range(micro)]
+            if micro == 1:
+                v = pieces[0]
+            elif isinstance(v, np.ndarray):
+                v = np.concatenate(pieces)
+            elif isinstance(v, torch.Tensor):
+                v = torch.cat(pieces)
+            else:
+                v = type(v)(x for piece in pieces for x in piece)
         out[k] = v
     return out

@@ -18,14 +18,22 @@ card, and on CPU processes:
 - ``gather_vocab_logits``: each rank writes its vocab slice of the logits
   into a zeroed fp32 ``[N, V]`` and the sum gives every rank the
   unsharded logits bitwise, so greedy and sampled picks agree across the
-  model ranks.
+  model ranks;
+- ``copy_to_model`` (Megatron's *f*): the identity forward whose
+  backward sums the gradient over the model ranks; it goes on the input
+  of every column-parallel product (the qkv and fc1 projections, and the
+  tied logits of the vocab-parallel loss), so that the gradient below a
+  sharded block is the whole one and not one rank's share of it.  Its
+  twin ``reduce_from_model`` (*g*) sums forward and passes the gradient
+  through unchanged.
 
 A module that holds a sharded parameter carries ``tp``, its
 ``ModelGroup`` (set by ``parallel/sharding.shard_params``); with ``tp``
 None (or one model rank) each function is the identity and issues no
-collective.  The reductions are forward-only: a tensor that wants a
-gradient raises (the backward under the mesh is training's, not yet
-ported).
+collective.  Under autograd every collective of a forward has its
+mirror in the backward, issued in the same order on every rank (a
+checkpointed block reruns its forward collectives inside the backward,
+in the same order everywhere too).
 """
 
 from __future__ import annotations
@@ -36,9 +44,6 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 from torch import nn
-
-TRAINING_UNDER_MESH = ("training under a mesh (ROADMAP Queue 1 item 5) is "
-                       "not ported")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,20 +59,58 @@ def _active(tp: Optional[ModelGroup]) -> bool:
     return tp is not None and tp.size > 1
 
 
+def _summed(x: torch.Tensor, group, copy: bool = False) -> torch.Tensor:
+    """``x`` summed over ``group``: in place on a fresh contiguous
+    tensor, a view (or with ``copy``, any tensor) copied first."""
+    out = x if (not copy and x.is_contiguous() and x._base is None) \
+        else x.clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(out, group=group)
+    return out
+
+
+class _Reduce(torch.autograd.Function):
+    """g: sum forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _summed(x, group, copy=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _Copy(torch.autograd.Function):
+    """f: identity forward, sum backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group, copy=True), None
+
+
 def reduce_from_model(x: torch.Tensor, tp: Optional[ModelGroup]
                       ) -> torch.Tensor:
     """The sum of ``x`` over the model ranks (a new tensor; ``x`` itself
-    without a model group)."""
+    without a model group); its gradient passes through unchanged."""
     if not _active(tp):
         return x
-    if x.requires_grad:
-        raise NotImplementedError(f"a gradient through a model-parallel "
-                                  f"reduction: {TRAINING_UNDER_MESH}")
-    # in place on a fresh product; a view is copied first
-    out = x if x.is_contiguous() and x._base is None else x.clone(
-        memory_format=torch.contiguous_format)
-    dist.all_reduce(out, group=tp.group)
-    return out
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Reduce.apply(x, tp.group)
+    return _summed(x, tp.group)
+
+
+def copy_to_model(x: torch.Tensor, tp: Optional[ModelGroup]
+                  ) -> torch.Tensor:
+    """``x`` itself forward; under autograd its gradient is summed over
+    the model ranks (the input of a column-parallel product)."""
+    if not _active(tp) or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _Copy.apply(x, tp.group)
 
 
 def vocab_parallel_embedding(tokens: torch.Tensor, rows: int,
@@ -76,7 +119,8 @@ def vocab_parallel_embedding(tokens: torch.Tensor, rows: int,
     """Embedding rows of ``tokens`` from a table split by rows: ``lookup``
     maps local ids (in [0, rows)) to this rank's rows; ids outside this
     rank's slice ``[index * rows, (index + 1) * rows)`` give zeros, and
-    the sum over the model ranks fills them in."""
+    the sum over the model ranks fills them in.  Backward: each rank's
+    table slice takes the gradient of its own ids' rows alone."""
     if not _active(tp):
         return lookup(tokens)
     local = tokens - tp.index * rows
@@ -89,11 +133,16 @@ def vocab_parallel_embedding(tokens: torch.Tensor, rows: int,
 def gather_vocab_logits(logits: torch.Tensor, tp: Optional[ModelGroup]
                         ) -> torch.Tensor:
     """[..., V / m] fp32 logits of this rank's vocab slice -> the full
-    [..., V] on every rank (zeros elsewhere, summed: exact)."""
+    [..., V] on every rank (zeros elsewhere, summed: exact).  Under
+    autograd the backward keeps this rank's slice of the gradient."""
     if not _active(tp):
         return logits
     rows = logits.shape[-1]
     full = logits.new_zeros(*logits.shape[:-1], rows * tp.size)
+    if torch.is_grad_enabled() and logits.requires_grad:
+        full = torch.cat([full[..., :tp.index * rows], logits,
+                          full[..., (tp.index + 1) * rows:]], dim=-1)
+        return _Reduce.apply(full, tp.group)
     full[..., tp.index * rows:(tp.index + 1) * rows] = logits
     dist.all_reduce(full, group=tp.group)
     return full

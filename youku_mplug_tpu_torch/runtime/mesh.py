@@ -230,18 +230,18 @@ def mfu(flops_per_step: float, step_time_s: float,
     return flops_per_step / (step_time_s * peak_flops)
 
 
-# CUDA device name substring -> dense bf16 peak FLOP/s of one card
+# the CUDA device's full name -> dense bf16 peak FLOP/s of one card (the
+# SXM part; the PCIe and NVL parts also say "H100" and peak lower)
 _PEAK_FLOPS_BF16 = {
-    "H100": 989e12,
+    "NVIDIA H100 80GB HBM3": 989e12,
 }
 
 
 def device_peak_flops(device: Optional[torch.device] = None) -> float:
-    """The dense bf16 peak of the card, from its name; a card not in the
-    table raises (no other card's figure is assumed)."""
+    """The dense bf16 peak of the card, keyed on its full name; a card
+    not in the table raises (no other card's figure is assumed)."""
     name = torch.cuda.get_device_name(device)
-    for key, flops in _PEAK_FLOPS_BF16.items():
-        if key in name:
-            return flops
-    raise ValueError(f"no bf16 peak known for {name!r}; known: "
-                     f"{sorted(_PEAK_FLOPS_BF16)}")
+    if name not in _PEAK_FLOPS_BF16:
+        raise ValueError(f"no bf16 peak known for {name!r}; known: "
+                         f"{sorted(_PEAK_FLOPS_BF16)}")
+    return _PEAK_FLOPS_BF16[name]

@@ -447,7 +447,7 @@ class ServingEngine:
         if self.eager:
             raise NotImplementedError(
                 "prompt-lookup decoding on a model shard is not ported "
-                "(ROADMAP Queue 1 item 5)")
+                "(ROADMAP Queue 1 item 4)")
         finished, longest = self._begin()
         if longest < 0:
             return finished

@@ -39,6 +39,15 @@ and a background thread writes the snapshot.  Every read (``all_steps``,
 ``latest_step``, ``rollback_step``, the restores), the next save,
 ``close`` and the end of the process wait for that write first, and an
 error in it is raised there.
+
+Under a (data, model) split (a state with a distributed ``mesh``) the
+file is the unsharded one, as JAX's orbax checkpoint of a sharded tree
+is: every rank takes part in gathering the model-split leaves and their
+optimizer moments over the host group (``parallel/sharding.
+gather_split``), rank 0 alone writes (in the background too), and a
+restore reads the whole file on every rank and keeps the rank's slices,
+whatever split wrote it.  Every wait ends in a barrier of the host
+group, so every rank lists the same steps.
 """
 
 from __future__ import annotations
@@ -50,8 +59,10 @@ import threading
 from typing import Any, Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 
 from youku_mplug_tpu_torch.optim.factory import AdamW
+from youku_mplug_tpu_torch.parallel.sharding import gather_split, local_slice
 
 STATE_FILE = "state.pt"
 METADATA_FILE = "metadata.json"
@@ -70,6 +81,56 @@ def state_dict(state) -> Dict[str, Any]:
             "step": int(state.step)}
 
 
+def _sharded(state) -> bool:
+    mesh = getattr(state, "mesh", None)
+    return mesh is not None and mesh.distributed and mesh.size > 1
+
+
+def _unsharded(tree, state):
+    """``state_dict(state)`` with every model-split leaf, and its
+    optimizer tensors of the leaf's shape, gathered (collective: every
+    rank of the mesh calls it)."""
+    mesh, split = state.mesh, state.split
+    for part in ("trainable", "frozen"):
+        for k in sorted(tree[part]):
+            if k in split:
+                tree[part][k] = gather_split(tree[part][k], split[k], mesh)
+    for path in sorted(tree["optim"]):
+        if path not in split:
+            continue
+        shape = state.trainable[path].shape
+        leaf = tree["optim"][path]
+        for name in sorted(leaf):
+            if leaf[name].shape == shape:
+                leaf[name] = gather_split(leaf[name], split[path], mesh)
+    return tree
+
+
+def _local(raw, state):
+    """A whole checkpoint's tensors cut to this rank's slices of the
+    state's model-split leaves (a tensor whose split dim is the local
+    one times the model degree; anything else kept, for the shape checks
+    to judge)."""
+    mesh, split = state.mesh, state.split
+    for part in ("trainable", "frozen"):
+        for k, d in split.items():
+            t = raw[part].get(k)
+            local = getattr(state, part).get(k)
+            if t is not None and local is not None and t.dim() > d and \
+                    t.shape[d] == local.shape[d] * mesh.model:
+                raw[part][k] = local_slice(t, d, mesh)
+    opt = raw.get("optim", raw.get("adam", {}))
+    for path, leaf in opt.items():
+        if path not in split or path not in state.trainable:
+            continue
+        d, local = split[path], state.trainable[path]
+        for name, t in leaf.items():
+            if t.dim() == local.dim() and t.shape[d] == \
+                    local.shape[d] * mesh.model:
+                leaf[name] = local_slice(t, d, mesh)
+    return raw
+
+
 def _host_copy(tree):
     """Every tensor of a nested dict copied to host memory (a fresh copy
     even where it already lies there)."""
@@ -82,10 +143,13 @@ def _host_copy(tree):
 
 class CheckpointManager:
     def __init__(self, directory: str, keep: int = 10,
-                 async_save: bool = False):
+                 async_save: bool = False, mesh=None):
         self.directory = os.path.abspath(directory)
         self.keep = keep
         self.async_save = async_save
+        # a distributed mesh: rank 0 writes, every wait ends in a barrier
+        self.mesh = mesh if mesh is not None and mesh.distributed \
+            and mesh.size > 1 else None
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
@@ -102,6 +166,10 @@ class CheckpointManager:
         if latest is not None and int(step) <= latest:
             return False
         tree = state if isinstance(state, dict) else state_dict(state)
+        if not isinstance(state, dict) and _sharded(state):
+            tree = _unsharded(tree, state)
+        if self.mesh is not None and self.mesh.rank != 0:
+            return True  # rank 0 writes the gathered tree
         if not self.async_save:
             self._write(int(step), tree, metadata)
             return True
@@ -137,6 +205,8 @@ class CheckpointManager:
         if writer is not None:
             writer.join()
         error, self._error = self._error, None
+        if self.mesh is not None:
+            dist.barrier(group=self.mesh.host_group)
         if error is not None:
             raise RuntimeError("the background checkpoint write failed"
                                ) from error
@@ -171,6 +241,14 @@ class CheckpointManager:
         return torch.load(os.path.join(self._step_dir(step), STATE_FILE),
                           map_location=map_location, weights_only=True)
 
+    def restore_raw_for(self, step: int, state, map_location=None
+                        ) -> Dict[str, Any]:
+        """``restore_raw`` for ``state``: under a split on the CPU, its
+        model-split tensors cut to the rank's slices."""
+        if _sharded(state):
+            return _local(self.restore_raw(step, map_location="cpu"), state)
+        return self.restore_raw(step, map_location=map_location)
+
     def restore(self, step: int, state):
         """Load step ``step`` into ``state`` in place and return it: every
         parameter (cast to its dtype, on its device), the optimizer's
@@ -181,7 +259,7 @@ class CheckpointManager:
         optimizer."""
         device = next(iter({**state.trainable, **state.frozen}.values())
                       ).device
-        raw = self.restore_raw(step, map_location=device)
+        raw = self.restore_raw_for(step, state, device)
         for part in ("trainable", "frozen"):
             want, got = getattr(state, part), raw[part]
             if set(want) != set(got):

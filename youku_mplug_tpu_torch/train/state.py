@@ -9,12 +9,21 @@ leaves (the GPT-3 decoder; the non-temporal vision tower under
 contract).  Gradients still flow *through* a frozen module to its inputs.
 The optimizer is any of ``optim/factory.create_optimizer``'s (AdamW, or
 a zoo name): it holds state for the trainable leaves alone.
+
+On a model that ``parallel/sharding.shard_params`` cut (its ``mesh`` and
+``tp_split``), the state keeps the mesh and the JAX paths of the leaves
+split over the model ranks (``split``: path -> dim): the masks read
+paths and ranks, never a global shape, and AdamW's update is
+elementwise, so each rank updates its slices as the (1,1) state would;
+a zoo optimizer whose rule reads a whole leaf (a norm, a factored
+moment) over a model-split trainable leaf raises (ROADMAP Queue 1 item
+10).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Union
+from typing import Any, Dict, Optional, Union
 
 import torch
 from torch import nn
@@ -35,6 +44,8 @@ class TrainState:
     frozen: Dict[str, nn.Parameter]
     optimizer: Union[AdamW, ZooOptimizer]
     step: int = 0  # train steps taken, skipped ones included
+    mesh: Optional[Any] = None  # runtime/mesh.Mesh of a split model
+    split: Dict[str, int] = dataclasses.field(default_factory=dict)
 
 
 def create_train_state(model: nn.Module, config: OptimizerConfig,
@@ -56,6 +67,14 @@ def create_train_state(model: nn.Module, config: OptimizerConfig,
                 p.requires_grad_(True)
                 trainable[path] = p
     optimizer, schedule = create_optimizer(trainable, config)
+    split = {jax_path(name): d
+             for name, d in getattr(model, "tp_split", {}).items()}
+    if not isinstance(optimizer, AdamW) and set(split) & set(trainable):
+        raise NotImplementedError(
+            f"optimizer {config.opt!r} on model-split trainable leaves: "
+            f"only AdamW's elementwise update runs on a model shard "
+            f"(ROADMAP Queue 1 item 10)")
     state = TrainState(trainable=trainable, frozen=frozen,
-                       optimizer=optimizer)
+                       optimizer=optimizer,
+                       mesh=getattr(model, "mesh", None), split=split)
     return state, optimizer, schedule

@@ -18,15 +18,36 @@ Counterpart of ``youku_mplug_tpu/train/trainer.py``.  One step:
   (``dropout_generator``): a resumed run draws the dropout masks an
   unbroken run would, the role of the JAX runners' ``fold_in`` of the
   epoch and step.
+
+Under a (data, model) split (the state's ``mesh``, its model-split
+leaves ``split``) the step is the (1,1) step on the global batch, as
+JAX's GSPMD program is: each rank's loss is its share of the global one
+(``parallel/data_parallel.py``), so the gradients and the scalar
+metrics are summed over the data ranks (one ``all_reduce`` of the
+flattened gradients); ``grad_norm`` is the whole model's, the squares
+of the model-split leaves summed over the model ranks and the
+replicated leaves counted once (model rank 0's); the loss and a
+non-finite flag ride in the same reduction, so that clipping and the
+skip are decided from the same values on every rank.  ``update_freq``
+splits the rank's own rows, which the train loader orders micro-batch
+by micro-batch (``parallel/sharding.data_shard(micro=)``): the rank's
+micro-batch u is its block of the (1,1) step's micro-batch u, so a
+micro-batch's masked mean and contrastive max are over the rows JAX's
+takes.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from youku_mplug_tpu_torch.parallel.data_parallel import (
+    data_group,
+    sum_over_data,
+)
 from youku_mplug_tpu_torch.train.state import TrainState
 
 
@@ -83,10 +104,12 @@ def make_train_step(loss_fn: Callable, update_freq: int = 1,
             torch._foreach_div_(grads, float(len(micro)))
         metrics = {k: torch.stack([o[k] for o in outs]).mean()
                    for k in outs[0]}
-        grad_norm = torch.linalg.vector_norm(torch.stack(
-            [torch.linalg.vector_norm(g.float()) for g in grads]))
-        finite = bool(torch.isfinite(metrics["loss"])
-                      & torch.isfinite(grad_norm))
+        dp = data_group(state.mesh)
+        if dp is not None:
+            _sum_grads(grads, dp)
+            total = sum_over_data(torch.stack(list(metrics.values())), dp)
+            metrics = dict(zip(metrics, total))
+        grad_norm, finite = _grad_norm(state, grads, metrics["loss"])
         clip = state.optimizer.config.clip_grad
         if finite:
             if clip and grad_norm >= clip:
@@ -103,3 +126,43 @@ def make_train_step(loss_fn: Callable, update_freq: int = 1,
         return result
 
     return train_step
+
+
+def _sum_grads(grads: List[torch.Tensor], dp) -> None:
+    """Every gradient summed over the data ranks in place, in one
+    ``all_reduce`` a dtype of the flattened tensors."""
+    by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
+    for g in grads:
+        by_dtype.setdefault(g.dtype, []).append(g)
+    for group in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in group])
+        dist.all_reduce(flat, group=dp.group)
+        for g, f in zip(group, torch.split(flat, [g.numel()
+                                                  for g in group])):
+            g.copy_(f.view_as(g))
+
+
+def _grad_norm(state: TrainState, grads: List[torch.Tensor],
+               loss: torch.Tensor):
+    """(grad_norm, finite), the same on every rank: the L2 norm of the
+    whole model's gradient and whether it and the loss are finite.  On a
+    model split one ``all_reduce`` over the model group of [squares of
+    the split leaves, squares of the replicated ones and the loss from
+    model rank 0 alone, a non-finite flag]."""
+    sq = torch.stack([g.float().square().sum() for g in grads])
+    split = torch.tensor([k in state.split for k in state.trainable],
+                         device=sq.device)
+    mesh = state.mesh
+    if mesh is None or mesh.model <= 1:
+        grad_norm = sq.sum().sqrt()
+        return grad_norm, bool(torch.isfinite(loss)
+                               & torch.isfinite(grad_norm))
+    first = float(mesh.model_index == 0)
+    split_sq, rep_sq = sq[split].sum(), sq[~split].sum()
+    vec = torch.stack([split_sq, rep_sq * first, loss.float() * first,
+                       (~torch.isfinite(split_sq + rep_sq + loss)).float()])
+    dist.all_reduce(vec, group=mesh.model_group)
+    grad_norm = (vec[0] + vec[1]).sqrt()
+    finite = bool(torch.isfinite(vec[2]) & torch.isfinite(grad_norm)
+                  & (vec[3] == 0))
+    return grad_norm, finite
