@@ -9,10 +9,12 @@ zoo's tree, cut in depth, each gate taken from the cut's counts: Bloom
 at OWL_SERVE_LAYERS of its 30 layers in phases 7, 8, 8a (its sampling on
 a full-depth model of its own: a cut seeded Bloom is too peaked to
 sample), 8b, 25 and 26;
-the 1.3B decoder at GPT13_CUT_LAYERS of 24 in phases 13, 27 (pretrain13)
-and 40 (it runs whole in 3-6, 12 and 41); the 2.7B at GPT27_LAYERS of 32
-in phases 14 and 27; phase 32 over the leaves of ZOO_BLOCKS of the 12
-vision blocks.  Where a phase below says "depth", read the cut.
+the 1.3B decoder at GPT13_CUT_LAYERS of 24 in phases 13 and 27
+(pretrain13), SERVE_MESH_LAYERS in 40 and TRAIN_MESH_LAYERS in 41 (it
+runs whole in 3-6 and 12); the 2.7B at GPT27_LAYERS of 32 in phases 14
+and 27; phase 32 over the leaves of ZOO_BLOCKS of the 12 vision blocks;
+phase 42's Owl at OWL_MESH_LAYERS of Bloom's 30 layers and OWL_MESH_VIT
+of the ViT's 24 blocks.  Where a phase below says "depth", read the cut.
 
 1. device and build: require CUDA (one card: the first visible one),
    print the card's name and power limit, build the hand-written kernels
@@ -393,7 +395,7 @@ vision blocks.  Where a phase below says "depth", read the cut.
    ``build`` and ``serve_built`` (all that ``python -m
    youku_mplug_tpu_torch.cli.serve`` runs) on a copy of
    serve_gpt3_1.3B_flagship.yaml with its mesh: block set (full width,
-   the decoder at GPT13_CUT_LAYERS layers, seeded weights, 16 requests,
+   the decoder at SERVE_MESH_LAYERS layers, seeded weights, 16 requests,
    8 slots, greedy): (1,1) with NCCL and
    one rank, (1,2) and (2,2) with gloo, their 2 and 4 ranks on card 0
    (--device cuda:0; gloo copies the collectives through the host, so
@@ -414,16 +416,19 @@ vision blocks.  Where a phase below says "depth", read the cut.
    NCCL's own error.  Phase 2 holds K1 at the model = 2 shard's local
    heads ([64,197,6x64], [112,112,6x64] period 8), K4 head-major at a
    model = 4 shard's ([64,3,197,64], [112,3,112,64] period 8) and K5 at
-   the rank's cache [24,8,256,2x16x64].  [serve_mesh <split>] lines;
-41. train_mesh (with phase 40): the pretrain CLI's path (run_pretrain's
+   the rank's cache [24,8,256,2x16x64].  The same calls then run phase
+   41's and 42's splits (below), so three calls carry phases 40-42.
+   [serve_mesh <split>] lines;
+41. train_mesh (in phase 40's calls): the pretrain CLI's path (run_pretrain's
    setup under torch.distributed.run: init_mesh, the block loader,
    shard_params, the state; common.train_one_epoch) on a copy of
    configs/pretrain/pretrain_gpt3_1.3B_flagship.yaml with its mesh: block
-   (full width and depth, seeded weights, synthetic clips, batch 16, 80
-   tokens), TRAIN_MESH_STEPS steps of the same global batches in each
-   split: (1,1) with NCCL and (1,2) with gloo ranks on card 0 in phase
-   40's own torch.distributed.run calls, after their serving (the serving
-   model freed first), (2,1) with gloo in a call of its own.  Gates: every
+   (full width, the decoder at TRAIN_MESH_LAYERS layers, seeded weights,
+   synthetic clips, batch 16, 80 tokens), TRAIN_MESH_STEPS steps of the
+   same global batches in each split: (1,1) with NCCL and (1,2) with gloo
+   ranks on card 0 in phase 40's own torch.distributed.run calls, after
+   their serving (the serving model freed first), then (2,1) in the
+   (1,2) call's two ranks (a second mesh over the same group).  Gates: every
    rank's launches exactly TRAIN_MESH_LAUNCHES a step (predicted in
    PERF.md), each step finite and taken; each step's loss within
    REPLAY_LOSS_TOL and grad_norm within TRAIN_MESH_NORM_TOL (relative) of
@@ -443,8 +448,34 @@ vision blocks.  Where a phase below says "depth", read the cut.
    data rank's ([64,197,12x64], [112,112,12x64] period 8, [8,208,32x64]
    causal; K4 / K4b at [8,12,128,64] over 1570 keys), and K4 / K4b
    head-major with the period mask at a model = 4 rank's [224,3,112,64].
-   [train_mesh <split>] lines; [time] lines give the script's seconds
-   after each group of phases.
+   [train_mesh <split>] lines;
+42. instruct_mesh (in phase 40's calls, after phase 41's splits): run_instruct
+   on mPLUG-Owl at full width (configs/instruct/serve_bloomz_7b_flagship
+   .yaml and train_bloomz_7b_flagship.yaml with their mesh: blocks; Bloom
+   at OWL_MESH_LAYERS layers, the ViT at OWL_MESH_VIT blocks, seeded
+   weights, the tokenizer files of phases 25-26).  Serving at (1,1) NCCL,
+   (1,2) and (2,2) gloo: ``run_instruct.build`` once, then
+   ``serve_built`` once a run of OWL_MESH_RUNS (the batched path and the
+   engine over a bf16 cache, the batched path over an int8 one: the text
+   config's kv_cache_dtype swapped on the same weights), OWL_MESH_REQUESTS
+   requests of OWL_MESH_NEW tokens, greedy; then data rank 0's ranks
+   replay (1,1)'s batched tokens teacher-forced.  Gates: every request
+   once, each data rank its stride, the model ranks of a data rank the
+   same tokens, no graph replay on a model shard, a rank's launches a run
+   K1 OWL_MESH_VIT and K5 ALiBi (int8 ALiBi on the int8 cache) once a
+   layer a decode step and no other decode kernel, the merged tokens
+   (1,1)'s up to a near-tie (OWL_TIE_REL x (1,1)'s largest replay logit),
+   media features and logits of the replay within OWL_REL_TOL of (1,1)'s
+   largest.  Training: run_instruct --train at (1,1), (1,2), (2,1) (in
+   the (1,2) call, resuming (1,2)'s checkpoint) through phase 41's path
+   and gates (launches OWL_TRAIN_MESH_LAUNCHES a step; the abstractor's
+   k_bias, a zero gradient but for rounding, out of the move gate:
+   ZERO_GRADIENT_LEAVES).  Phase 2 holds K5 at a model = 2 rank's heads
+   16-31 of 32 ([OWL_MESH_LAYERS,8,256,2x16x128], bf16 and int8), K1 /
+   K2/K3 ALiBi at [8,105,16x128] with the slopes 16..31 and K1 at the
+   ViT's 8 local heads [64,257,8x64].  [instruct_mesh <split>] and
+   [instruct_train_mesh <split>] lines; [time] lines give the script's
+   seconds after each group of phases.
 """
 
 from __future__ import annotations
@@ -454,6 +485,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -591,12 +623,14 @@ CLS27_YAML = os.path.join(REPO, "configs", "cls",
                           "cls_gpt3_2.7B_youku_v0_sharp_2.yaml")
 # the script's budget (PERF.md §4): decoders cut in depth where a phase
 # holds a path another phase runs at full depth (the 1.3B decoder's 24
-# layers in phases 5-6 and 41, the 2.7B's in none: its kernels are the
-# same at any depth), each gate kept with its counts taken from the cut
+# layers in phases 5-6, the 2.7B's in none: its kernels are the same at
+# any depth), each gate kept with its counts taken from the cut
 GPT27_LAYERS = 8         # of 32: phases 14 and 27
-GPT13_CUT_LAYERS = 12    # of 24: phases 13, 27 (pretrain13) and 40
+GPT13_CUT_LAYERS = 12    # of 24: phases 13 and 27 (pretrain13)
+SERVE_MESH_LAYERS = 4    # of the 1.3B's 24: phase 40
+TRAIN_MESH_LAYERS = 2    # of the 1.3B's 24: phase 41
 OWL_SERVE_LAYERS = 10    # of Bloom's 30: phases 7, 8, 8a, 8b, 25, 26
-ZOO_BLOCKS = 3           # of the vision tower's 12: phase 32's leaves
+ZOO_BLOCKS = 1           # of the vision tower's 12: phase 32's leaves
 CAPTION27_CUTS = {"max_new_tokens": 32, "synthetic_length": 48,
                   "text_overrides": {"num_hidden_layers": GPT27_LAYERS}}
 CLS27_CUTS = {"eval_video_batch": DOWNSTREAM_EVAL_CLIPS,
@@ -872,7 +906,9 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
     """One training-shape check, in the layouts the model hands the
     kernels (packed slices of one qkv projection, head views of Bloom's
     head-major fused projection, or head views of AttentionPool's
-    projections): the forward kernel's o and lse against
+    projections); ``alibi``: True for the ladder of the n heads, or
+    (offset, total) for a model shard's heads offset .. offset + n - 1
+    of the ladder of total: the forward kernel's o and lse against
     flash_fwd_plain, then the dq and dk/dv kernels against
     flash_bwd_plain on the same (q, k, v, o, lse, dO); all with the
     kernel's (the lower of two blocks of calls, both printed), the plain
@@ -891,12 +927,14 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
         parts = [rand(b, s, nd).unflatten(-1, (n, d))
                  for s in (sq, sk, sk)]
     q, k, v = (t.transpose(1, 2) for t in parts)
-    slopes = (torch.from_numpy(dec.alibi_slopes(n)).to(q.device)
-              if alibi else None)
+    off, total = alibi if isinstance(alibi, tuple) else (0, n)
+    slopes = (torch.from_numpy(dec.alibi_slopes(total)[off:off + n]).to(
+        q.device) if alibi else None)
     kw = dict(scale=d ** -0.5, causal=causal, period=period, kv_len=kv_len,
               alibi_slopes=slopes)
     shape = (f"[{b},{sq},{n}x{d}] kv {sk}"
              + (" causal" if causal else "") + (" ALiBi" if alibi else "")
+             + (f" heads {off}-{off + n - 1} of {total}" if off else "")
              + (f" period {period}" if period else "")
              + (f" kv_len {kv_len}" if kv_len is not None else "")
              + f" {layout} ({path})")
@@ -1028,7 +1066,11 @@ ALIBI_SHAPES = [
      False),
     (2, 208, 208, 32, True, 0, None, "packed", 64, True, "d 64", False),
     (2, 256, 256, 32, True, 0, None, "head-major", 128, False,
-     "d 128 without ALiBi", False)]
+     "d 128 without ALiBi", False),
+    # phase 42: a model = 2 rank's 16 heads, the second half of the
+    # ladder of 32 (its slopes 16..31)
+    (8, 105, 105, 16, True, 0, None, "head-major", 128, (16, 32),
+     "instruct_train_mesh_1x2", True)]
 
 
 # head dim 96, clip-b16's AttentionPool (8 heads of 96, 128 queries over
@@ -1079,6 +1121,12 @@ CKPT_SERVE_PATHS = ("serve_imported", "serve_resumed")
 MESH_PATHS = ("serve_mesh_1x1", "serve_mesh_1x2", "serve_mesh_2x2")
 # phase 41: the pretrain step under a split, one path a split
 TRAIN_MESH_PATHS = ("train_mesh_1x1", "train_mesh_1x2", "train_mesh_2x1")
+# phase 42: run_instruct under a split, serving (every run of a split's
+# torch.distributed.run one path) and LoRA training, one path a split
+OWL_MESH_PATHS = ("instruct_mesh_1x1", "instruct_mesh_1x2",
+                  "instruct_mesh_2x2")
+OWL_TRAIN_MESH_PATHS = ("instruct_train_mesh_1x1", "instruct_train_mesh_1x2",
+                        "instruct_train_mesh_2x1")
 # the batched instruct path (phases 25-26): greedy, beam bf16, beam int8
 OWL_BATCHED_PATHS = ("instruct_batched", "instruct_beam",
                      "instruct_beam_int8")
@@ -1103,7 +1151,7 @@ BWD_PATHS = ("train", "caption_train", "instruct_train",
              "instruct_hf_train", "pretrain_files", "cls_files_train",
              "instruct_files_train", "knobs_instruct_train") \
     + D96_TRAIN_PATHS + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS \
-    + IMAGE_TRAIN_PATHS + TRAIN_MESH_PATHS
+    + IMAGE_TRAIN_PATHS + TRAIN_MESH_PATHS + OWL_TRAIN_MESH_PATHS
 
 # head dim 80, the GPT-3 2.7B decoder (32 heads of 80), on head views of
 # the fused qkv projection: the cls evaluation's decoder passes (4 clips x
@@ -1152,7 +1200,7 @@ def _rotating(n_layers):
 
 
 def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path,
-                 clens=DEC_CLEN, vfroms=DEC_VFROM):
+                 clens=DEC_CLEN, vfroms=DEC_VFROM, head_offset=0):
     """One check of the decode kernel with its cache write (K5 and K6) on
     the cache [layers, B, 256, 2*n*d] (B = len(clens) samples writing at
     ``clens`` and attending from ``vfroms``; random bf16 rows, int8:
@@ -1170,7 +1218,9 @@ def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path,
     operations over every live key, reads the live K and V rows the
     kernel takes from the cache once (int8: their lanes and 8 bytes of
     scales per head; not the new row, which it scores from registers), q
-    and the new K and V rows, and writes o and the new cache row once."""
+    and the new K and V rows, and writes o and the new cache row once.
+    ``head_offset``: the n heads are a model shard's, heads head_offset ..
+    head_offset + n - 1 of a ladder of 2n (their slopes that slice)."""
     import torch.nn.functional as F
 
     b, m, lidx = len(clens), 256, layers - 1
@@ -1186,13 +1236,18 @@ def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path,
         cache = bf16_cache = rows
     clen, vfrom = (torch.tensor(x, dtype=torch.int32, device="cuda")
                    for x in (clens, vfroms))
-    kw = dict(alibi_slopes=dec.alibi_slopes(n) if alibi else None)
+    total = 2 * n if head_offset else n
+    kw = dict(alibi_slopes=dec.alibi_slopes(total)[head_offset:
+                                                   head_offset + n]
+              if alibi else None)
+    # the kernel builds the slopes from the offset and the total
+    kkw = dict(kw, head_offset=head_offset, n_total=total)
     tag = "K5 int8" if int8 else "K5"
     copy = (lambda c: {key: t.clone() for key, t in c.items()}) if int8 \
         else (lambda c: c.clone())
     got_c, want_c = copy(cache), copy(cache)
     got = dec.write_decode_attention(q, k, v, got_c, n, lidx, clen, vfrom,
-                                     **kw)
+                                     **kkw)
     want = dec.write_decode_attention_plain(q, k, v, want_c, n, lidx, clen,
                                             vfrom, **kw)
     torch.cuda.synchronize()
@@ -1224,7 +1279,7 @@ def _decode_case(dec, kvc, rand, n, d, layers, alibi, int8, shape, on_path,
 
     def fused(layer, c=cache):
         return dec.write_decode_attention(q, k, v, c, n, layer(), clen,
-                                          vfrom, **kw)
+                                          vfrom, **kkw)
 
     def last():
         return lidx
@@ -1306,10 +1361,11 @@ K5_PATHS = {"K5": ("serve", "serve_k8", "speculative_twin",
             + KNOBS_SERVE_PATHS + MESH_PATHS,
             "K5-ALiBi": ("instruct", "instruct_k8", "instruct_sample",
                          "instruct_hf", "instruct_files", "instruct_batched",
-                         "instruct_beam"),
+                         "instruct_beam") + OWL_MESH_PATHS,
             "K5-int8": ("serve_int8kv", "serve_int8kv_k8"),
             "K5-int8-ALiBi": ("instruct_int8", "instruct_int8_k8",
-                              "instruct_serving_int8", "instruct_beam_int8"),
+                              "instruct_serving_int8", "instruct_beam_int8")
+            + OWL_MESH_PATHS,
             "K5-d80": ("caption27_eval",), "K5-int8-d80": ()}
 
 
@@ -1353,20 +1409,29 @@ def _decode_entries(dec, kvc, rand, owl_beam):
             [BEAM_VALID_FROM] * BEAM_ROWS)]
         gc.collect()
         torch.cuda.empty_cache()
-    for key, n, d, layers, alibi, int8, path in (
-            ("K5", 32, 64, 24, False, False, "serve"),
-            ("K5", 16, 64, 24, False, False, "serve_mesh_1x2"),
-            ("K5-ALiBi", 32, 128, 30, True, False, "instruct"),
-            ("K5-ALiBi", 40, 128, 8, True, False, None),
-            ("K5", 32, 128, 8, False, False, None),
-            ("K5-int8", 32, 64, 24, False, True, "serve_int8kv"),
-            ("K5-int8-ALiBi", 32, 128, 30, True, True, "instruct_int8"),
-            ("K5-int8-ALiBi", 40, 128, 8, True, True, None)):
+    # (key, heads, head dim, layers, ALiBi, int8, path, head offset): the
+    # last two are phase 42's model = 2 rank, heads 16-31 of BloomZ-7B1's
+    # 32 at its cut depth
+    for key, n, d, layers, alibi, int8, path, off in (
+            ("K5", 32, 64, 24, False, False, "serve", 0),
+            ("K5", 16, 64, 24, False, False, "serve_mesh_1x2", 0),
+            ("K5-ALiBi", 32, 128, 30, True, False, "instruct", 0),
+            ("K5-ALiBi", 40, 128, 8, True, False, None, 0),
+            ("K5", 32, 128, 8, False, False, None, 0),
+            ("K5-int8", 32, 64, 24, False, True, "serve_int8kv", 0),
+            ("K5-int8-ALiBi", 32, 128, 30, True, True, "instruct_int8", 0),
+            ("K5-int8-ALiBi", 40, 128, 8, True, True, None, 0),
+            ("K5-ALiBi", 16, 128, OWL_MESH_LAYERS, True, False,
+             "instruct_mesh_1x2", 16),
+            ("K5-int8-ALiBi", 16, 128, OWL_MESH_LAYERS, True, True,
+             "instruct_mesh_1x2", 16)):
         shape = (f"[{layers},8,256,2x{n}x{d}]" + (" int8" if int8 else "")
                  + f" d {d}" + (" ALiBi" if alibi else "")
+                 + (f" heads {off}-{off + n - 1} of {2 * n}" if off else "")
                  + (f" ({path})" if path else ""))
         cases.setdefault(key, []).append(_decode_case(
-            dec, kvc, rand, n, d, layers, alibi, int8, shape, bool(path)))
+            dec, kvc, rand, n, d, layers, alibi, int8, shape, bool(path),
+            head_offset=off))
         gc.collect()
         torch.cuda.empty_cache()
     wrapper = dec.write_decode_attention
@@ -1452,7 +1517,8 @@ def phase_kernels(dev, builds, owl_beam):
     # call's 4 clips x 45 class pairs and an ITM call's 4 clips x 8 texts
     # (128 queries + 80 tokens), and a retrieval text batch of 96 (80
     # tokens); the vision tower's local heads of a model = 2 serving split
-    # (6 of 12, phase 40); q/k/v as views of one qkv projection
+    # (6 of 12, phase 40) and the CLIP ViT-L/14's of phase 42 (8 of 16,
+    # 8 clips x 8 frames); q/k/v as views of one qkv projection
     k1 = []
     for rows, s, n, period, causal, path in (
             (64, 197, 12, 0, False, "serve"),
@@ -1461,6 +1527,7 @@ def phase_kernels(dev, builds, owl_beam):
             (112, 112, 6, 8, False, "serve_mesh_1x2"),
             (128, 257, 16, 0, False, "instruct"),
             (64, 257, 16, 0, False, "instruct_train"),
+            (64, 257, 8, 0, False, "instruct_mesh_1x2"),
             (180, 208, 32, 0, True, "cls_eval"),
             (32, 208, 32, 0, True, "itm_eval"),
             (96, 80, 32, 0, True, "retrieval")):
@@ -1576,7 +1643,8 @@ def phase_kernels(dev, builds, owl_beam):
                + KNOBS_SERVE_PATHS + ("knobs_pretrain",
                                       "knobs_instruct_train")
                + BERT_TRAIN_PATHS + BERT_EVAL_PATHS + IMAGE_TRAIN_PATHS
-               + MESH_PATHS + TRAIN_MESH_PATHS, "K1", k1),
+               + MESH_PATHS + TRAIN_MESH_PATHS + OWL_MESH_PATHS
+               + OWL_TRAIN_MESH_PATHS, "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
@@ -1600,7 +1668,7 @@ def phase_kernels(dev, builds, owl_beam):
         "K1 flash_attention_packed, ALiBi causal (Bloom training, head dim "
         "128)", FWD_SRC, f"{TPU_FLASH}:426", fa.flash_attention_packed,
         ("instruct_train", "instruct_hf_train", "instruct_files_train",
-         "knobs_instruct_train"), "K1-ALiBi",
+         "knobs_instruct_train") + OWL_TRAIN_MESH_PATHS, "K1-ALiBi",
         [c["fwd"] for c in alibi_cases],
         counter="alibi_launches"))
     for kind, wrapper, line in (("dq", fa.flash_bwd_dq_cuda, 723),
@@ -1610,7 +1678,7 @@ def phase_kernels(dev, builds, owl_beam):
             f"causal (Bloom training, head dim 128)", BWD_SRC,
             f"{TPU_FLASH}:{line}", wrapper,
             ("instruct_train", "instruct_hf_train", "instruct_files_train",
-             "knobs_instruct_train"), f"{kind}-ALiBi",
+             "knobs_instruct_train") + OWL_TRAIN_MESH_PATHS, f"{kind}-ALiBi",
             [c[kind] for c in alibi_cases],
             counter="alibi_launches"))
 
@@ -3587,6 +3655,14 @@ def phase_instruct_beam(report, model, yaml, path, tok_dir, out_dir):
         "kept_ids_in_vocabulary": share,
         "phase_s": time.perf_counter() - t_phase})
     print(f"[{path}] {json.dumps(stats)} | {CARD}", flush=True)
+
+
+def _yaml_key(path, key):
+    """The ``key`` block of a YAML (empty where it has none)."""
+    import yaml
+
+    with open(path) as f:
+        return dict(yaml.safe_load(f).get(key) or {})
 
 
 def _downstream_yaml(path, overrides, out_dir):
@@ -6757,16 +6833,16 @@ def phase_clip(report, ann):
 # collectives copy through the host), NCCL takes one rank a card
 MESH_SPLITS = (("1x1", "nccl"), ("1x2", "gloo"), ("2x2", "gloo"))
 MESH_REQUESTS = 16
-MESH_LAUNCH_S = 420  # one torch.distributed.run call's deadline
+MESH_LAUNCH_S = 600  # one torch.distributed.run call's deadline
 # launches per rank serving the 16 requests, written in PERF.md before the
 # first chip run: the (1,1) run replays k = 1 CUDA graphs, its first
 # capture after one eager warm-up step (65 + 1 decode steps of the
-# decoder's GPT13_CUT_LAYERS layers, its depth here for the time
+# decoder's SERVE_MESH_LAYERS layers, its depth here for the time
 # budget); a model shard steps eagerly (65); a data rank of (2, 2)
 # serves 8 of the requests (34 steps)
-MESH_LAUNCHES = {"1x1": {"K1": 48, "K4": 2, "K5": 66 * GPT13_CUT_LAYERS},
-                 "1x2": {"K1": 48, "K4": 2, "K5": 65 * GPT13_CUT_LAYERS},
-                 "2x2": {"K1": 24, "K4": 1, "K5": 34 * GPT13_CUT_LAYERS}}
+MESH_LAUNCHES = {"1x1": {"K1": 48, "K4": 2, "K5": 66 * SERVE_MESH_LAYERS},
+                 "1x2": {"K1": 48, "K4": 2, "K5": 65 * SERVE_MESH_LAYERS},
+                 "2x2": {"K1": 24, "K4": 1, "K5": 34 * SERVE_MESH_LAYERS}}
 MESH_COUNTERS = {"K1": "flash_attention_packed.launches",
                  "K4": "flash_attention.launches",
                  "K5": "write_decode_attention.launches"}
@@ -6789,12 +6865,16 @@ MESH_TIE_BOUND = 2 * LOGIT_TOL
 # stay
 TRAIN_MESH_STEPS = 3
 TRAIN_MESH_SPLITS = (("1x1", "nccl"), ("1x2", "gloo"), ("2x1", "gloo"))
-TRAIN_MESH_LAUNCHES = {"K1": 76, "K4": 1, "dq": 49, "dkv": 49, "delta": 49}
-TRAIN_MESH_COUNTERS = {"K1": "flash_attention_packed",
-                       "K4": "flash_attention",
-                       "dq": "flash_bwd_dq_cuda",
-                       "dkv": "flash_bwd_dkv_cuda",
-                       "delta": "flash_bwd_delta_cuda"}
+TRAIN_MESH_LAUNCHES = {"K1": 28 + 2 * TRAIN_MESH_LAYERS, "K4": 1,
+                       "dq": 25 + TRAIN_MESH_LAYERS,
+                       "dkv": 25 + TRAIN_MESH_LAYERS,
+                       "delta": 25 + TRAIN_MESH_LAYERS}
+# the counters a training rank reads, {report key: (wrapper, attribute)}
+TRAIN_MESH_COUNTERS = {"K1": ("flash_attention_packed", "launches"),
+                       "K4": ("flash_attention", "launches"),
+                       "dq": ("flash_bwd_dq_cuda", "launches"),
+                       "dkv": ("flash_bwd_dkv_cuda", "launches"),
+                       "delta": ("flash_bwd_delta_cuda", "launches")}
 # a split's grad_norm against (1,1)'s, relative: two bf16 ulps (2^-8
 # each) of a norm whose terms round in another order and on other ranks
 TRAIN_MESH_NORM_TOL = 2.0 ** -7
@@ -6809,6 +6889,13 @@ TRAIN_MESH_NORM_TOL = 2.0 ** -7
 # cancelling bf16 products), a gradient cut to one rank's share (a
 # vision MLP or attention input without f) 0.98-1.02 (PERF.md §6)
 TRAIN_MESH_MOVE_TOL = 0.2
+# leaves whose gradient is zero in exact arithmetic, kept out of the move
+# gate (their values stay gated): the Owl abstractor's k_bias adds q . b
+# to every score of a query alike, which the softmax cancels, so what
+# reaches it is the bf16 rounding of the probabilities' gradient, which
+# Adam turns into lr-sized moves of either sign on every rank alike in
+# size but not in sign (phase 42's first chip run: gated 0.34 at (1,2))
+ZERO_GRADIENT_LEAVES = r".*abstractor/layers_\d+/k_bias$"
 
 
 def _torchrun(n, argv, log_path):
@@ -6927,25 +7014,34 @@ def _mesh_replay(args, cfg, model, tokens):
 
 
 def mesh_rank(yaml_path, backend, device, out_dir, ref_path,
-              train_spec=None):
-    """One rank of phase 40 (``chip_smoke.py --mesh-rank`` under
+              train_specs="[]", owl_spec="{}"):
+    """One rank of phases 40-42 (``chip_smoke.py --mesh-rank`` under
     torch.distributed.run): the serve CLI's ``build`` and ``serve_built``
     (all ``python -m youku_mplug_tpu_torch.cli.serve`` runs) on the
     split's YAML, 16 requests on 8 slots; then, on the same model and on
     data rank 0's ranks only, ``_mesh_replay`` of ``ref_path``'s served
     tokens ((1,1)'s ``serve_results.json``, for (1,1) its own); rank 0
-    saves the replay's record as ``out_dir/forced.pt``.  With
-    ``train_spec`` (JSON) the same process then runs phase 41's split on
-    the same process group (``train_mesh_rank``), the serving model
-    freed first."""
+    saves the replay's record as ``out_dir/forced.pt``.  The same process
+    then runs, on the same process group, each training spec of
+    ``train_specs`` (a JSON list: phase 41's splits of this world, in
+    order, ``train_mesh_rank``) and phase 42's serving and training of
+    ``owl_spec`` (JSON, ``_owl_mesh_specs``'s), each model freed
+    first."""
     from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
 
     try:
         _serve_mesh_rank(yaml_path, backend, device, out_dir, ref_path)
-        gc.collect()
-        torch.cuda.empty_cache()
-        if train_spec:
-            train_mesh_rank(train_spec)
+        for spec in json.loads(train_specs):
+            gc.collect()
+            torch.cuda.empty_cache()
+            train_mesh_rank(json.dumps(spec))
+        owl = json.loads(owl_spec)
+        if owl:
+            gc.collect()
+            torch.cuda.empty_cache()
+            _owl_mesh_serve(owl["serve"])
+            for spec in owl.get("train", []):
+                train_mesh_rank(json.dumps(spec))
     finally:
         mesh_lib.distributed_shutdown()
 
@@ -6967,29 +7063,46 @@ def _serve_mesh_rank(yaml_path, backend, device, out_dir, ref_path):
             torch.save(record, os.path.join(out_dir, "forced.pt"))
 
 
-def _train_mesh_run(args, epoch, steps, init_to=None):
-    """``run_pretrain``'s setup (``common.init_mesh``, the block loader,
-    the shard, the state, the resume) and ``common.train_one_epoch`` of
-    ``steps`` steps of ``epoch``, with this rank's launch counters, peak
-    memory and ``all_reduce`` calls over them; ``init_to``: the trainable
-    leaves before the steps saved there (an unsplit run's).  Returns
-    (runner, record)."""
+def _train_cli(kind):
+    """(set-up, its build_train_step, batch maker, counters, launches a
+    step) of the training CLI phase 41 (``kind`` "pretrain":
+    run_pretrain) or 42 ("instruct": run_instruct --train) runs under a
+    split."""
+    from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
+
+    if kind == "instruct":
+        return (run_instruct.train_setup, run_instruct.build_train_step,
+                run_instruct.make_instruct_batch, OWL_TRAIN_MESH_COUNTERS,
+                OWL_TRAIN_MESH_LAUNCHES)
+    return (run_pretrain.setup, run_pretrain.build_train_step,
+            run_pretrain.make_batch, TRAIN_MESH_COUNTERS,
+            TRAIN_MESH_LAUNCHES)
+
+
+def _train_mesh_run(kind, args, epoch, steps, init_to=None):
+    """The ``kind`` CLI's training set-up (``common.init_mesh``, the block
+    loader, the shard, the state, the resume) and ``common.
+    train_one_epoch`` of ``steps`` steps of ``epoch``, with this rank's
+    launch counters, peak memory and ``all_reduce`` calls over them;
+    ``init_to``: the trainable leaves before the steps saved there (an
+    unsplit run's).  Returns (runner, record)."""
     import torch.distributed as dist
 
-    from youku_mplug_tpu_torch.cli import common, run_pretrain
+    from youku_mplug_tpu_torch.cli import common
     from youku_mplug_tpu_torch.ops import flash_attention as fa
 
+    setup, build_step, make_batch, counters, _ = _train_cli(kind)
     t0 = time.perf_counter()
-    runner = run_pretrain.setup(args)
+    runner = setup(args)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     runner.args.max_steps = steps  # the schedule was set at setup
     if init_to:
         torch.save({k: p.detach().cpu() for k, p in
                     runner.state.trainable.items()}, init_to)
-    wrappers = {k: getattr(fa, n) for k, n in TRAIN_MESH_COUNTERS.items()}
-    for w in wrappers.values():
-        w.launches = 0
+    wrappers = {k: (getattr(fa, n), a) for k, (n, a) in counters.items()}
+    for fn, attr in wrappers.values():
+        setattr(fn, attr, 0)
     calls = []
     reduce = dist.all_reduce
 
@@ -6998,22 +7111,23 @@ def _train_mesh_run(args, epoch, steps, init_to=None):
         return reduce(*a, **k)
     torch.cuda.reset_peak_memory_stats()
     with mock.patch.object(dist, "all_reduce", counted):
-        history = common.train_one_epoch(
-            runner, run_pretrain.build_train_step(runner), epoch,
-            run_pretrain.make_batch)
+        history = common.train_one_epoch(runner, build_step(runner), epoch,
+                                         make_batch)
     torch.cuda.synchronize()
     mesh = runner.mesh
     return runner, {
         "rank": mesh.rank, "coord": list(mesh.coord), "setup_s": setup_s,
         "history": history,
-        "launches": {k: w.launches for k, w in wrappers.items()},
+        "launches": {k: getattr(fn, attr)
+                     for k, (fn, attr) in wrappers.items()},
         "peak_memory_bytes": torch.cuda.max_memory_allocated(),
-        "all_reduces": len(calls), "all_reduce_bytes": sum(calls)}
+        "all_reduces": len(calls), "all_reduce_bytes": sum(calls),
+        "partial": len(runner.state.partial)}
 
 
 def train_mesh_rank(spec_json):
-    """One rank of phase 41: ``TRAIN_MESH_STEPS`` steps of the flagship
-    pretrain through ``run_pretrain`` on the split of ``spec["yaml"]``;
+    """One rank of phase 41's or 42's training: TRAIN_MESH_STEPS
+    steps of ``spec["kind"]``'s CLI on the split of ``spec["yaml"]``;
     rank 0 saves the trainable leaves unsharded (``leaves.pt``); with
     ``spec["save"]`` the state is saved as ``save_epoch`` does (every rank
     gathers, rank 0 writes), with ``spec["next"]`` (1,1)'s next step is
@@ -7021,18 +7135,24 @@ def train_mesh_rank(spec_json):
     ``spec["resume"]`` a second runner restores that directory's
     checkpoint and takes that step (``leaves_resumed.pt``).  Each rank
     writes its record as ``rank<r>.json``."""
-    from youku_mplug_tpu_torch.cli import common, run_pretrain
+    from youku_mplug_tpu_torch.cli import common, run_instruct, run_pretrain
     from youku_mplug_tpu_torch.parallel.sharding import gather_split
 
     spec = json.loads(spec_json)
-    out = spec["out"]
+    out, kind = spec["out"], spec["kind"]
+    _, build_step, make_batch, _, _ = _train_cli(kind)
 
     def argv(out_dir, *extra):
-        return run_pretrain.base_parser().parse_args([
+        parse, flags = ((run_instruct.parser().parse_args,
+                         ["--train", "--tokenizer", spec["tok"]])
+                        if kind == "instruct" else
+                        (run_pretrain.base_parser().parse_args, []))
+        return parse([
             "--config", spec["yaml"], "--output_dir", out_dir,
             "--synthetic_data", "--max_steps", str(TRAIN_MESH_STEPS),
             "--device", spec["device"], "--dist_backend", spec["backend"],
-            *extra])
+            *flags, *extra])
+
     def save_leaves(runner, name):  # every rank gathers, rank 0 writes
         state = runner.state
         leaves = {k: (gather_split(p, state.split[k], runner.mesh)
@@ -7042,7 +7162,7 @@ def train_mesh_rank(spec_json):
             torch.save(leaves, os.path.join(out, name))
 
     t0 = time.perf_counter()
-    runner, rec = _train_mesh_run(argv(out), 0, TRAIN_MESH_STEPS,
+    runner, rec = _train_mesh_run(kind, argv(out), 0, TRAIN_MESH_STEPS,
                                   init_to=os.path.join(out, "init.pt")
                                   if spec.get("init") else None)
     save_leaves(runner, "leaves.pt")
@@ -7053,9 +7173,8 @@ def train_mesh_rank(spec_json):
         rec["save_s"] = time.perf_counter() - t1
     if spec.get("next"):
         runner.args.max_steps = 1
-        rec["next"] = common.train_one_epoch(
-            runner, run_pretrain.build_train_step(runner), 1,
-            run_pretrain.make_batch)
+        rec["next"] = common.train_one_epoch(runner, build_step(runner), 1,
+                                             make_batch)
         save_leaves(runner, "leaves_next.pt")
     del runner
     gc.collect()
@@ -7063,8 +7182,8 @@ def train_mesh_rank(spec_json):
     if spec.get("resume"):
         t1 = time.perf_counter()
         resumed, rrec = _train_mesh_run(
-            argv(os.path.join(out, "resumed"), "--resume", spec["resume"]),
-            1, 1)
+            kind, argv(os.path.join(out, "resumed"), "--resume",
+                       spec["resume"]), 1, 1)
         save_leaves(resumed, "leaves_resumed.pt")
         rec["resumed"] = {"start_epoch": resumed.start_epoch,
                           "step": resumed.state.step - 1,
@@ -7132,7 +7251,7 @@ def _mesh_check_split(tag, data, merged, ranks, ref_peak):
     for rk in ranks:
         got = {k: rk["launches"][c] for k, c in MESH_COUNTERS.items()}
         if got != MESH_LAUNCHES[tag] \
-                or rk["decode_steps"] * GPT13_CUT_LAYERS != got["K5"]:
+                or rk["decode_steps"] * SERVE_MESH_LAYERS != got["K5"]:
             fail(f"serve_mesh {tag} rank {rk['rank']}: launches {got}, "
                  f"{rk['decode_steps']} decode steps; predicted "
                  f"{MESH_LAUNCHES[tag]}")
@@ -7153,14 +7272,19 @@ def _mesh_check_split(tag, data, merged, ranks, ref_peak):
                  f"decoded different tokens")
 
 
-def phase_serve_mesh(report, out_dir, train_tags=("1x1", "1x2")):
+def phase_serve_mesh(report, out_dir, tok_dir):
     """Phase 40 (see the module docstring); the gloo numbers measure host
-    copies, not NCCL.  The torch.distributed.run of each split in
-    ``train_tags`` runs phase 41's split after serving (its
-    ``serve.log`` holds both)."""
+    copies, not NCCL.  Each split's torch.distributed.run then runs, in
+    the same processes, phase 41's training splits of its world ((1,1);
+    (1,2), then (2,1) resuming it) and phase 42's serving and training
+    of its split, under ``out_dir/owl`` (their gates are those phases'
+    own; its ``serve.log`` holds them all).  Returns the seconds of each
+    call."""
     t_phase = time.perf_counter()
     ref_path = os.path.join(out_dir, "1x1", "serve_results.json")
+    owl = _owl_mesh_specs(os.path.join(out_dir, "owl"), tok_dir)
     ref = None
+    calls = {}
     for tag, backend in MESH_SPLITS:
         data, model = map(int, tag.split("x"))
         n = data * model
@@ -7168,14 +7292,14 @@ def phase_serve_mesh(report, out_dir, train_tags=("1x1", "1x2")):
         os.makedirs(d)
         yaml_path = _downstream_yaml(FLAGSHIP_YAML, {
             "mesh": {"data": data, "model": model},
-            "text_overrides": {"num_hidden_layers": GPT13_CUT_LAYERS}}, d)
+            "text_overrides": {"num_hidden_layers": SERVE_MESH_LAYERS}}, d)
         device = "cuda:0" if backend == "gloo" else "cuda"
-        train = ([json.dumps(_train_spec(out_dir, tag, backend, device)[1])]
-                 if tag in train_tags else [])
-        run_s = _torchrun(n, [
+        train = [_train_spec(out_dir, t, backend, device)[1]
+                 for t in {"1x1": ["1x1"], "1x2": ["1x2", "2x1"]}.get(tag, [])]
+        run_s = calls[tag] = _torchrun(n, [
             os.path.join(REPO, "chip_smoke.py"), "--mesh-rank", yaml_path,
-            backend, device, d, ref_path] + train,
-            os.path.join(d, "serve.log"))
+            backend, device, d, ref_path, json.dumps(train),
+            json.dumps(owl[tag])], os.path.join(d, "serve.log"))
         with open(os.path.join(d, "serve.log")) as f:
             stats = json.loads(next(line.split("* Serve stats:", 1)[1]
                                     for line in f if "* Serve stats:" in
@@ -7228,13 +7352,15 @@ def phase_serve_mesh(report, out_dir, train_tags=("1x1", "1x2")):
               f"{forced['launches_per_step']:.0f} launches, idle "
               f"{forced['idle_share']:.3f}, "
               f"{'eager' if forced['eager'] else 'k = 1 graph'} | {vs} | "
-              f"torch.distributed.run {run_s:.1f} s (replay "
-              f"{forced['replay_s']:.1f}, trace {forced['trace_s']:.1f}) | "
-              f"{CARD}", flush=True)
+              f"torch.distributed.run {run_s:.1f} s, phases 41 and 42's "
+              f"runs in it (replay {forced['replay_s']:.1f}, trace "
+              f"{forced['trace_s']:.1f}) | {CARD}", flush=True)
         del forced
     _nccl_shared_card(out_dir)
-    print(f"[serve_mesh] phase 40 in {time.perf_counter() - t_phase:.1f} s "
-          f"| {CARD}", flush=True)
+    print(f"[serve_mesh] phases 40-42's calls in "
+          f"{time.perf_counter() - t_phase:.1f} s ({json.dumps(calls)}) | "
+          f"{CARD}", flush=True)
+    return calls
 
 
 def _nccl_shared_card(out_dir):
@@ -7282,19 +7408,26 @@ def _nccl_shared_card(out_dir):
           f"{rc}, {said[:300]} | {CARD}", flush=True)
 
 
-def _train_spec(out_dir, tag, backend, device):
-    """(tag, phase 41's spec of a split): the flagship pretrain YAML with
-    its mesh block, the rank's output directory; (1,1) saves its first
-    leaves and takes the next step, (1,2) saves its state, (2,1) resumes
-    it."""
+def _train_spec(out_dir, tag, backend, device, kind="pretrain",
+                tok=None):
+    """(tag, the training spec of a split): phase 41's flagship pretrain
+    YAML, or (``kind`` "instruct", its tokenizer ``tok``) phase 42's cut
+    instruct-train YAML, with its mesh block, the rank's output
+    directory; (1,1) saves its first leaves and takes the next step,
+    (1,2) saves its state, (2,1) resumes it."""
     data, model = map(int, tag.split("x"))
     d = os.path.join(out_dir, f"train_{tag}")
     os.makedirs(d, exist_ok=True)
-    spec = {"yaml": _downstream_yaml(TRAIN_YAML, {
-                "mesh": {"data": data, "model": model}}, d),
-            "out": d, "backend": backend, "device": device,
-            "init": tag == "1x1", "next": tag == "1x1",
-            "save": tag == "1x2"}
+    yaml_path = (_owl_mesh_yaml(OWL_TRAIN_YAML, d, tag) if kind == "instruct"
+                 else _downstream_yaml(TRAIN_YAML, {
+                     "mesh": {"data": data, "model": model},
+                     "text_overrides": {**_yaml_key(TRAIN_YAML,
+                                                    "text_overrides"),
+                                        "num_hidden_layers":
+                                        TRAIN_MESH_LAYERS}}, d))
+    spec = {"kind": kind, "yaml": yaml_path, "out": d, "backend": backend,
+            "device": device, "tok": tok, "init": tag == "1x1",
+            "next": tag == "1x1", "save": tag == "1x2"}
     if tag == "2x1":
         spec["resume"] = os.path.join(out_dir, "train_1x2")
     return tag, spec
@@ -7319,28 +7452,44 @@ def _leaf_rel_l2(got, want):
 
 def _move_check(got, got_start, want, want_start):
     """A run's moves from ``got_start`` against the reference's from
-    ``want_start``, every leaf held to TRAIN_MESH_MOVE_TOL: (the worst
-    gated error, the printed verdict)."""
+    ``want_start``, every leaf but ZERO_GRADIENT_LEAVES held to
+    TRAIN_MESH_MOVE_TOL (theirs printed): (the worst gated error, the
+    printed verdict)."""
     rows = _leaf_rel_l2(
         {k: v.float() - got_start[k].float() for k, v in got.items()},
         {k: v.float() - want_start[k].float() for k, v in want.items()})
     plain = sorted((r[1], r[2]) for r in rows)
-    return rows[0][0], (
-        f"{len(rows)} leaves' moves: gated max {rows[0][0]:.4g} "
-        f"({rows[0][2]}, plain {rows[0][1]:.4g}; tol {TRAIN_MESH_MOVE_TOL}, "
+    held = [r for r in rows if not re.match(ZERO_GRADIENT_LEAVES, r[2])]
+    noise = [(round(r[0], 4), r[2]) for r in rows
+             if re.match(ZERO_GRADIENT_LEAVES, r[2])]
+    return held[0][0], (
+        f"{len(held)} leaves' moves: gated max {held[0][0]:.4g} "
+        f"({held[0][2]}, plain {held[0][1]:.4g}; tol {TRAIN_MESH_MOVE_TOL}, "
         f"floor {REPLAY_GRAD_FLOOR} x the whole move), plain max "
         f"{plain[-1][0]:.4g} ({plain[-1][1]}), plain median "
-        f"{plain[len(plain) // 2][0]:.4g}")
+        f"{plain[len(plain) // 2][0]:.4g}; not gated (a zero gradient but "
+        f"for rounding) {noise}")
 
 
-def phase_train_mesh(report, out_dir, t_phase):
-    """Phase 41 (see the module docstring): (1,1) and (1,2) ran inside
-    phase 40's calls; (2,1) runs here, then the gates.  The gloo splits
-    measure host copies, not NCCL scaling."""
-    tag, spec = _train_spec(out_dir, "2x1", "gloo", "cuda:0")
-    run_s = _torchrun(2, [os.path.join(REPO, "chip_smoke.py"),
-                          "--train-mesh-rank", json.dumps(spec)],
-                      os.path.join(spec["out"], "train.log"))
+def phase_train_mesh(report, out_dir):
+    """Phase 41's gates (see the module docstring): its splits ran inside
+    phase 40's calls, (2,1) after (1,2) in the same two ranks.  The gloo
+    splits measure host copies, not NCCL scaling."""
+    ranks = _train_mesh_gates(report, out_dir, "pretrain")
+    inside = sum(ranks[t][0]["seconds"] for t in ("1x1", "1x2", "2x1"))
+    print(f"[train_mesh] phase 41: its splits' ranks {inside:.1f} s inside "
+          f"phase 40's calls | {CARD}", flush=True)
+
+
+def _train_mesh_gates(report, out_dir, kind):
+    """The training gates of phase 41 (``kind`` "pretrain") or 42
+    ("instruct") on the splits' files under ``out_dir``: launches a rank
+    exactly as predicted, each step's loss and grad_norm against (1,1)'s,
+    every unsharded trainable leaf and its move over the steps against
+    (1,1)'s, and (2,1)'s resume of (1,2)'s checkpoint against (1,1)'s
+    next step.  Returns the ranks' records by split."""
+    _, _, _, counters, per_step = _train_cli(kind)
+    prefix = "instruct_train_mesh" if kind == "instruct" else "train_mesh"
     ranks = {}
     for tag, _ in TRAIN_MESH_SPLITS:
         d = os.path.join(out_dir, f"train_{tag}")
@@ -7352,13 +7501,11 @@ def phase_train_mesh(report, out_dir, t_phase):
     ref = ranks["1x1"][0]
     ref_leaves = torch.load(os.path.join(out_dir, "train_1x1", "leaves.pt"))
     init = torch.load(os.path.join(out_dir, "train_1x1", "init.pt"))
-    name_key = {v: k for k, v in TRAIN_MESH_COUNTERS.items()}
-    want = {k: v * TRAIN_MESH_STEPS for k, v in TRAIN_MESH_LAUNCHES.items()}
+    want = {k: v * TRAIN_MESH_STEPS for k, v in per_step.items()}
     for tag, backend in TRAIN_MESH_SPLITS:
-        path = f"train_mesh_{tag}"
+        path = f"{prefix}_{tag}"
         for r in report:
-            key = (name_key.get(r["wrapper"].__name__)
-                   if _counters(r) == ("launches",) else None)
+            key = r["key"] if r["key"] in counters else None
             r.setdefault("launches_by_path", {})[path] = sum(
                 rk["launches"][key] for rk in ranks[tag]) if key else 0
         missing = [r["name"] for r in report if path in r["paths"]
@@ -7425,7 +7572,7 @@ def phase_train_mesh(report, out_dir, t_phase):
                    f"{REPLAY_LOSS_TOL}); that step's update against (1,1)'s "
                    f"step {TRAIN_MESH_STEPS + 1}: {step_moves}; "
                    f"{res['seconds']:.1f} s")
-            one = dict(TRAIN_MESH_LAUNCHES)
+            one = dict(per_step)
             if (e_res > REPLAY_LOSS_TOL or e_step > TRAIN_MESH_MOVE_TOL
                     or res["step"] != TRAIN_MESH_STEPS
                     or res["start_epoch"] != 1 or any(
@@ -7439,24 +7586,361 @@ def phase_train_mesh(report, out_dir, t_phase):
                         for h in rk["history"])
             + f", {rk['all_reduces'] / TRAIN_MESH_STEPS:.0f} all_reduces ("
             f"{rk['all_reduce_bytes'] / TRAIN_MESH_STEPS / 2**20:.1f} MiB) "
-            f"a step, setup {rk['setup_s']:.1f} s, rank total "
+            f"a step, {rk['partial']} adapters summed over the model group, "
+            f"setup {rk['setup_s']:.1f} s, rank total "
             f"{rk['seconds']:.1f} s"
             + (f", save {rk['save_s']:.1f} s" if "save_s" in rk else "")
             for rk in ranks[tag])
         note = ("" if backend == "nccl" else
                 f", {len(ranks[tag])} ranks on card 0: gloo copies through "
                 f"the host, no measure of NCCL")
-        print(f"[train_mesh {tag}] split (data {tag[0]}, model {tag[2]}), "
+        print(f"[{prefix} {tag}] split (data {tag[0]}, model {tag[2]}), "
               f"{backend}{note} | launches a rank "
               f"{ranks[tag][0]['launches']} over {TRAIN_MESH_STEPS} steps "
               f"(predicted {want}) | {vs} | {per_rank} | {CARD}",
               flush=True)
-    inside = sum(ranks[t][0]["seconds"] for t in ("1x1", "1x2"))
-    print(f"[train_mesh] phase 41 in "
-          f"{time.perf_counter() - t_phase + inside:.1f} s: the (2,1) "
-          f"torch.distributed.run {run_s:.1f} s and the gates, and (1,1) "
-          f"and (1,2) {inside:.1f} s after serving inside phase 40's "
-          f"calls | {CARD}", flush=True)
+    return ranks
+
+
+# phase 42: run_instruct (mPLUG-Owl, BloomZ-7B1) under (data, model)
+# splits at full width, Bloom at OWL_MESH_LAYERS of 30 layers and the ViT
+# at OWL_MESH_VIT of 24 blocks (the time limit's cuts), in phase 40's
+# torch.distributed.run calls: serving at (1,1) NCCL, (1,2) and (2,2)
+# gloo on card 0, OWL_MESH_REQUESTS requests of OWL_MESH_NEW new tokens
+# (the YAML's 64, cut), greedy, once a run of OWL_MESH_RUNS on one build
+# (the int8 cache: the text config's kv_cache_dtype swapped on the same
+# weights); then, on data rank 0's ranks, the teacher-forced replay of
+# (1,1)'s batched tokens.  Training: the LoRA instruct-train YAML through
+# phase 41's path (train_mesh_rank, _train_mesh_gates), TRAIN_MESH_STEPS
+# steps at (1,1) NCCL, (1,2) gloo and (2,1) gloo in the (1,2) call, which
+# resumes (1,2)'s checkpoint and takes the step (1,1) takes next.
+# Launches a rank, written in PERF.md before the first chip run: a serving
+# run K1 OWL_MESH_VIT (one encode of the rank's requests), K5 ALiBi (int8
+# ALiBi on the int8 cache) once a Bloom layer a decode step, no other
+# kernel; a train step K1 OWL_MESH_VIT (the frozen ViT's forward), K1 /
+# dq / dk/dv ALiBi and delta once a Bloom layer
+OWL_MESH_SPLITS = (("1x1", "nccl"), ("1x2", "gloo"), ("2x2", "gloo"))
+OWL_MESH_REQUESTS = 8
+OWL_MESH_LAYERS = 2    # of Bloom's 30
+OWL_MESH_VIT = 2       # of the ViT's 24 blocks
+OWL_MESH_NEW = 16      # new tokens a request (the serving YAML's 64)
+# (run, --engine, int8 cache)
+OWL_MESH_RUNS = (("batched", False, False), ("engine", True, False),
+                 ("batched_int8kv", False, True))
+OWL_MESH_COUNTERS = {"K1": "flash_attention_packed.launches",
+                     "K5-ALiBi": "write_decode_attention.alibi_launches",
+                     "K5-int8-ALiBi":
+                     "write_decode_attention.int8_alibi_launches"}
+OWL_TRAIN_MESH_COUNTERS = {
+    "K1": ("flash_attention_packed", "launches"),
+    "K1-ALiBi": ("flash_attention_packed", "alibi_launches"),
+    "dq-ALiBi": ("flash_bwd_dq_cuda", "alibi_launches"),
+    "dkv-ALiBi": ("flash_bwd_dkv_cuda", "alibi_launches"),
+    "delta": ("flash_bwd_delta_cuda", "launches")}
+OWL_TRAIN_MESH_LAUNCHES = {"K1": OWL_MESH_VIT, "K1-ALiBi": OWL_MESH_LAYERS,
+                           "dq-ALiBi": OWL_MESH_LAYERS,
+                           "dkv-ALiBi": OWL_MESH_LAYERS,
+                           "delta": OWL_MESH_LAYERS}
+
+
+def _owl_mesh_yaml(src, out_dir, tag, **extra):
+    """A copy of an instruct YAML at phase 42's cuts with the split
+    ``tag`` as its ``mesh:`` block."""
+    import yaml
+
+    with open(src) as f:
+        vision = dict(yaml.safe_load(f)["vision_overrides"])
+    vision["depth"] = OWL_MESH_VIT
+    data, model = map(int, tag.split("x"))
+    return _owl_yaml(src, out_dir, {"num_hidden_layers": OWL_MESH_LAYERS},
+                     vision_overrides=vision,
+                     mesh={"data": data, "model": model}, **extra)
+
+
+def _owl_mesh_counts():
+    """{key: count} of the wrappers phase 42 gates."""
+    from youku_mplug_tpu_torch.ops import decode_attention as dec
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    wrappers = {"flash_attention_packed": fa.flash_attention_packed,
+                "write_decode_attention": dec.write_decode_attention}
+    return {k: getattr(wrappers[c.split(".")[0]], c.split(".")[1])
+            for k, c in OWL_MESH_COUNTERS.items()}
+
+
+def _owl_mesh_replay(args, cfg, raw, model, tokens):
+    """(1,1)'s batched tokens (``tokens``, one list a request) fed back
+    through this rank's model: the media features of every request and,
+    per request, the fp32 logits of its full causal forward over the
+    prompt and the tokens (the rows that predict each token and the one
+    after).  Returns the record rank 0 saves."""
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    t0 = time.perf_counter()
+    dev = model.text_decoder.word_embeddings.embedding.device
+    _, batch, clips = run_instruct.prepare(
+        args, cfg, raw, dev, model.policy.compute_dtype,
+        run_instruct.build_tokenizer(args, cfg))
+    lm = model.text_decoder
+    logits = []
+    with torch.inference_mode():
+        qf = model.encode_video(clips)
+        emb = model.spliced_embeds(
+            torch.as_tensor(batch["input_ids"], device=dev).long(),
+            torch.as_tensor(batch["media_mask"], device=dev), qf)
+        for i, toks in enumerate(tokens):
+            n = int(batch["prompt_len"][i])
+            e = torch.cat([emb[i, :n], lm.embed(torch.tensor(
+                toks, device=dev, dtype=torch.long))])[None]
+            h = lm(input_embeds=e)["last_hidden_state"]
+            logits.append(lm.logits(h[0, n - 1:]).float().cpu())
+    return {"qf": qf.float().cpu(), "logits": logits,
+            "replay_s": time.perf_counter() - t0}
+
+
+def _owl_mesh_serve(spec):
+    """Phase 42's serving on this rank: ``run_instruct.build`` on the
+    split's YAML, then ``serve_built`` once a run of OWL_MESH_RUNS (each
+    run's rank file holds its results and launches, counted from zero),
+    and on data rank 0's ranks the replay of (1,1)'s batched tokens
+    (``spec["ref"]``; for (1,1) its own), saved by rank 0 as
+    ``forced.pt``."""
+    import dataclasses
+
+    from youku_mplug_tpu_torch.cli import run_instruct
+
+    out = spec["out"]
+    args = run_instruct.parser().parse_args([
+        "--config", spec["yaml"], "--synthetic_data", "--input_jsonl",
+        spec["jsonl"], "--tokenizer", spec["tok"], "--num_slots", "8",
+        "--device", spec["device"], "--dist_backend", spec["backend"],
+        "--output_dir", out])
+    t0 = time.perf_counter()
+    cfg, raw, model, dev = run_instruct.build(args)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    text = model.text_decoder.cfg
+    for name, engine, int8 in OWL_MESH_RUNS:
+        args.engine, args.output_dir = engine, os.path.join(out, name)
+        model.text_decoder.cfg = dataclasses.replace(
+            text, kv_cache_dtype="int8" if int8 else "auto")
+        for fn, attr in run_instruct.COUNTERS:
+            setattr(fn, attr, 0)
+        t1 = time.perf_counter()
+        run_instruct.serve_built(args, cfg, raw, model, dev)
+        torch.cuda.synchronize()
+        with open(os.path.join(args.output_dir, "ranks",
+                               f"rank{model.mesh.rank}.json")) as f:
+            rec = json.load(f)
+        rec["seconds"], rec["build_s"] = time.perf_counter() - t1, build_s
+        with open(os.path.join(args.output_dir, "ranks",
+                               f"rank{model.mesh.rank}.json"), "w") as f:
+            json.dump(rec, f)
+    model.text_decoder.cfg = text
+    if model.mesh.data_index == 0:
+        with open(os.path.join(spec["ref"], "batched",
+                               "instruct_results.json")) as f:
+            tokens = [r["tokens"] for r in json.load(f)]
+        record = _owl_mesh_replay(args, cfg, raw, model, tokens)
+        if model.mesh.rank == 0:
+            torch.save(record, os.path.join(out, "forced.pt"))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _owl_tie_check(tag, run, got, want, base, forced):
+    """A split's merged tokens of ``run`` against (1,1)'s: equal, or
+    parting first where (1,1)'s replay (of its batched tokens ``base``,
+    which must agree with ``want`` up to there) leads its top-2 by at most
+    OWL_TIE_REL x its largest |logit|.  Returns the divergences."""
+    top = max(x.abs().max().item() for x in forced["logits"])
+    out = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a == b:
+            continue
+        t = next(j for j in range(max(len(a), len(b)) + 1)
+                 if j >= len(a) or j >= len(b) or a[j] != b[j])
+        lead = None
+        if b[:t] == base[i][:t] and t < forced["logits"][i].shape[0]:
+            two = forced["logits"][i][t].topk(2).values
+            lead = float(two[0] - two[1])
+        out.append((i, t, None if lead is None else round(lead, 4)))
+        if lead is None or lead > OWL_TIE_REL * top:
+            fail(f"instruct_mesh {tag} {run}: request {i} parts from (1,1)'s "
+                 f"tokens at {t} ((1,1)'s lead there {lead}, bound "
+                 f"{OWL_TIE_REL:.4g} x {top:.4g})")
+    return out
+
+
+def _owl_mesh_check(tag, d, ref):
+    """Phase 42's serving gates on one split's files (``ref``: (1,1)'s
+    replay and tokens, None for (1,1) itself): every request served once,
+    each data rank its stride of them, the model ranks of a data rank the
+    same tokens, no graph replay on a model shard, a rank's launches as
+    predicted, the merged tokens (1,1)'s up to near-ties
+    (``_owl_tie_check``).  Returns the printed summaries and the launches
+    by key, every rank summed."""
+    data, model = map(int, tag.split("x"))
+    n = data * model
+    sums = {k: 0 for k in OWL_MESH_COUNTERS}
+    lines = []
+    for name, engine, int8 in OWL_MESH_RUNS:
+        rd = os.path.join(d, name)
+        with open(os.path.join(rd, "instruct_results.json")) as f:
+            merged = [r["tokens"] for r in json.load(f)]
+        ranks = []
+        for r in range(n):
+            with open(os.path.join(rd, "ranks", f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        if len(merged) != OWL_MESH_REQUESTS or not all(merged):
+            fail(f"instruct_mesh {tag} {name}: merged {merged}")
+        by_data = {}
+        key = "K5-int8-ALiBi" if int8 else "K5-ALiBi"
+        other = "K5-ALiBi" if int8 else "K5-int8-ALiBi"
+        for rk in ranks:
+            got = {k: rk["launches"][c] for k, c in OWL_MESH_COUNTERS.items()}
+            steps = rk["decode_steps"]
+            if got["K1"] != OWL_MESH_VIT or got[other] \
+                    or got[key] != steps * OWL_MESH_LAYERS:
+                fail(f"instruct_mesh {tag} {name} rank {rk['rank']}: "
+                     f"launches {got}, {steps} decode steps; predicted K1 "
+                     f"{OWL_MESH_VIT}, {key} {OWL_MESH_LAYERS} a step")
+            if model > 1 and rk["graph_replays"]:
+                fail(f"instruct_mesh {tag} {name}: graph replays on a model "
+                     f"shard")
+            for k in sums:
+                sums[k] += got[k]
+            by_data.setdefault(rk["coord"][0], []).append(rk)
+        for dd, rks in sorted(by_data.items()):
+            index = [r["index"] for r in rks[0]["results"]]
+            if index != list(range(dd, OWL_MESH_REQUESTS, data)):
+                fail(f"instruct_mesh {tag} {name}: data rank {dd} served "
+                     f"{index}")
+            toks = [[r["tokens"] for r in rk["results"]] for rk in rks]
+            if any(t != toks[0] for t in toks):
+                fail(f"instruct_mesh {tag} {name}: the model ranks of data "
+                     f"rank {dd} picked different tokens")
+        if ref is None:
+            div = []
+        else:
+            div = _owl_tie_check(tag, name, merged, ref["tokens"][name],
+                                 ref["tokens"]["batched"], ref["forced"])
+        st = ranks[0]["stats"]
+        lines.append(
+            f"{name}: {st.get('kv_cache_dtype')} cache, tokens/s (rank 0's "
+            f"data rank) {st.get('tokens_per_sec', 0):.2f}, "
+            f"{[rk['decode_steps'] for rk in ranks]} decode steps a rank, "
+            f"serve peak "
+            f"{max(rk['peak_memory_bytes'] for rk in ranks) / 2**30:.3f} "
+            f"GiB, {sum(len(t) for t in merged)} tokens, divergences from "
+            f"(1,1)'s (request, position, (1,1)'s lead) {div}, "
+            f"{max(rk['seconds'] for rk in ranks):.1f} s")
+    return lines, sums
+
+
+def _owl_forced_check(tag, forced, ref):
+    """A split's replay of (1,1)'s batched tokens against (1,1)'s replay:
+    media features and every position's logits within OWL_REL_TOL of
+    (1,1)'s largest magnitude, all finite."""
+    want = ref["forced"]
+    e_q = err(forced["qf"], want["qf"])
+    top_q = want["qf"].abs().max().item()
+    e_l = max(err(a, b) for a, b in zip(forced["logits"], want["logits"]))
+    top_l = max(x.abs().max().item() for x in want["logits"])
+    finite = all(torch.isfinite(x).all() for x in forced["logits"])
+    agree = sum(int((a.argmax(-1) == b.argmax(-1)).sum())
+                for a, b in zip(forced["logits"], want["logits"]))
+    total = sum(x.shape[0] for x in want["logits"])
+    vs = (f"teacher-forced on (1,1)'s {total} batched positions: media "
+          f"features max err {e_q:.4g} of {top_q:.4g}, logits {e_l:.4g} of "
+          f"{top_l:.4g} (tol {OWL_REL_TOL:.4g} x), greedy agreement "
+          f"{agree}/{total}")
+    if not finite or e_q > OWL_REL_TOL * top_q or e_l > OWL_REL_TOL * top_l:
+        fail(f"instruct_mesh {tag}: {vs}")
+    return vs
+
+
+def _owl_mesh_specs(out_dir, tok_dir):
+    """{split: phase 42's spec of that split's ranks} under ``out_dir``:
+    the serving (its cut YAML, the requests, (1,1)'s directory as the
+    replay's reference) and the training splits of its world ((1,1);
+    (1,2), then (2,1) resuming it)."""
+    os.makedirs(out_dir)
+    jsonl = os.path.join(out_dir, "requests.jsonl")
+    with open(jsonl, "w") as f:
+        for i in range(OWL_MESH_REQUESTS):
+            f.write(json.dumps({"video": f"clip{i}.mp4",
+                                "question": OWL_QUESTIONS[i]}) + "\n")
+    specs = {}
+    for tag, backend in OWL_MESH_SPLITS:
+        d = os.path.join(out_dir, tag)
+        os.makedirs(d)
+        device = "cuda:0" if backend == "gloo" else "cuda"
+        specs[tag] = {
+            "serve": {"yaml": _owl_mesh_yaml(OWL_YAML, d, tag,
+                                             max_new_tokens=OWL_MESH_NEW),
+                      "out": d, "backend": backend, "device": device,
+                      "jsonl": jsonl, "tok": tok_dir,
+                      "ref": os.path.join(out_dir, "1x1")},
+            "train": [_train_spec(out_dir, t, backend, device, "instruct",
+                                  tok_dir)[1]
+                      for t in {"1x1": ["1x1"],
+                                "1x2": ["1x2", "2x1"]}.get(tag, [])]}
+    return specs
+
+
+def phase_instruct_mesh(report, out_dir):
+    """Phase 42's gates (see the constants above) on the files its runs
+    wrote under ``out_dir`` inside phase 40's calls.  The gloo numbers
+    measure host copies, not NCCL."""
+    ref = None
+    for tag, backend in OWL_MESH_SPLITS:
+        data, model = map(int, tag.split("x"))
+        d = os.path.join(out_dir, tag)
+        forced = torch.load(os.path.join(d, "forced.pt"))
+        lines, sums = _owl_mesh_check(tag, d, ref)
+        if ref is None:
+            ref = {"forced": forced, "tokens": {}}
+            for name, _, _ in OWL_MESH_RUNS:
+                with open(os.path.join(d, name,
+                                       "instruct_results.json")) as f:
+                    ref["tokens"][name] = [r["tokens"] for r in json.load(f)]
+            same = sum(int((lg.argmax(-1)[:len(t)] == torch.tensor(t)).sum())
+                       for lg, t in zip(forced["logits"],
+                                        ref["tokens"]["batched"]))
+            vs = (f"the reference: its replay's greedy picks equal its "
+                  f"batched tokens on {same}/"
+                  f"{sum(len(t) for t in ref['tokens']['batched'])} "
+                  f"positions")
+        else:
+            vs = _owl_forced_check(tag, forced, ref)
+        path = f"instruct_mesh_{tag}"
+        for r in report:
+            key = r["key"] if r["key"] in sums else None
+            if r["key"] == "K6":
+                r.setdefault("launches_by_path", {})[path] = \
+                    sums["K5-ALiBi"] + sums["K5-int8-ALiBi"]
+            else:
+                r.setdefault("launches_by_path", {})[path] = \
+                    sums[key] if key else 0
+        missing = [r["name"] for r in report if path in r["paths"]
+                   and r["launches_by_path"][path] == 0]
+        if missing:
+            fail(f"the {path} path never launched: {missing}")
+        note = ("" if backend == "nccl" else
+                f", {data * model} ranks on card 0: gloo copies through the "
+                f"host, no measure of NCCL")
+        print(f"[instruct_mesh {tag}] split (data {data}, model {model}), "
+              f"{backend}{note} | launches, every rank summed: "
+              f"{json.dumps(sums)} | " + " | ".join(lines)
+              + f" | {vs} | replay {forced['replay_s']:.1f} s | {CARD}",
+              flush=True)
+        del forced
+    ranks = _train_mesh_gates(report, out_dir, "instruct")
+    inside = sum(ranks[t][0]["seconds"] for t in ("1x1", "1x2", "2x1"))
+    print(f"[instruct_mesh] phase 42's training ranks {inside:.1f} s inside "
+          f"phase 40's calls | {CARD}", flush=True)
 
 
 def _mark(what):
@@ -7466,8 +7950,8 @@ def _mark(what):
 
 
 def _phases(report, files_root, tok_dir):
-    """Phases 3-41 in their order (see the module docstring); ``tok_dir``
-    holds the instruct tokenizer files of phases 25-26.  ``_mark`` prints
+    """Phases 3-42 in their order (see the module docstring); ``tok_dir``
+    holds the instruct tokenizer files of phases 25-26 and 42.  ``_mark`` prints
     the script's seconds after each group of phases (the budget's
     breakdown)."""
     from youku_mplug_tpu_torch.cli import run_instruct, run_pretrain
@@ -7637,28 +8121,19 @@ def _phases(report, files_root, tok_dir):
     gc.collect()
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
-        phase_serve_mesh(report, out_dir)
-        _mark("40 serve_mesh (with 41's (1,1) and (1,2))")
-        phase_train_mesh(report, out_dir, time.perf_counter())
-        _mark("41 train_mesh")
+        phase_serve_mesh(report, out_dir, tok_dir)
+        _mark("40 serve_mesh (with the runs of 41 and 42)")
+        phase_train_mesh(report, out_dir)
+        phase_instruct_mesh(report, os.path.join(out_dir, "owl"))
+        _mark("41-42 gates")
 
 
 def main():
     global CARD
-    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phase 40 (and 41)
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phases 40-42
         sys.path.insert(0, REPO)
         torch.backends.cuda.matmul.allow_tf32 = False
         mesh_rank(*sys.argv[2:])
-        return
-    if sys.argv[1:2] == ["--train-mesh-rank"]:  # a rank of phase 41
-        sys.path.insert(0, REPO)
-        from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
-
-        torch.backends.cuda.matmul.allow_tf32 = False
-        try:
-            train_mesh_rank(sys.argv[2])
-        finally:
-            mesh_lib.distributed_shutdown()
         return
     # one card: the first visible one (set before CUDA initializes)
     visible = os.environ.get("CUDA_VISIBLE_DEVICES")

@@ -10,8 +10,9 @@ package: ``runtime/mesh.py``, ``runtime/prng.py``,
   message; a model > 1 YAML in one process raises it from ``serve``;
 - on 2 and 4 gloo processes (``tests/torch_mesh_worker.py``, one world a
   size): ``shard_params`` then ``unshard`` round-trips every leaf
-  bitwise, the local shapes are JAX's split, and a model shard refuses
-  ``--speculative``, unmerged LoRA and prompt-lookup decoding.
+  bitwise, the local shapes are JAX's split, a model shard refuses
+  ``--speculative`` and prompt-lookup decoding, and unmerged LoRA
+  adapters shard with their model.
 """
 
 import os
@@ -247,11 +248,15 @@ def test_shard_then_unshard_round_trips_bitwise(shard_runs, tag):
             assert rec["local"][name] == want, name
         assert bool(rec["split"]) == (model > 1)
         assert rec["eager"] == (model > 1)
-        for what in ("speculative", "lora", "lookup"):
+        for what in ("speculative", "lookup"):
             if model > 1:
                 assert "ROADMAP Queue 1 item 4" in rec["refusals"][what]
             else:
                 assert rec["refusals"][what] is None
+        assert rec["refusals"]["lora"] is None  # adapters shard too
+        # and give the unsharded twin's query features and logits, the
+        # vision tower's and the decoder's adapters on split products
+        assert max(rec["lora_err"]) < 1e-4, rec["lora_err"]
 
 
 def test_vision_route_on_local_heads():

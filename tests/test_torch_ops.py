@@ -175,6 +175,141 @@ def test_decode_d80_plain_matches_pallas_interpret(n):
     _close(got[3], ckv[1, 3, 40, n * d:], 1e-6)  # one live key: its V row
 
 
+@pytest.mark.parametrize("n_total,parts,index,d,int8", [
+    (12, 2, 1, 64, False), (12, 4, 2, 64, False), (12, 4, 2, 128, True),
+    (32, 2, 1, 128, False), (32, 2, 1, 128, True)])
+def test_decode_alibi_head_slice_plain_matches_pallas_interpret(
+        n_total, parts, index, d, int8):
+    """K5 on a model shard's heads: the plain version (and the wrapper on
+    the CPU) over heads [off, off + n) of n_total, with that slice of the
+    ladder, against JAX's K5 in interpret mode over every head, compared
+    on those heads.  12 heads cut 2 ways (heads 6-11) and 4 ways (6-8)
+    straddle the half-step branch at head 8; 32 cut 2 ways is
+    BloomZ-7B1's (16-31); bf16-free fp32 and an int8 cache."""
+    rng = np.random.default_rng(n_total + parts + d)
+    L, B, M = 2, 4, 128
+    n = n_total // parts
+    off = index * n
+    nd = n_total * d
+    q = rng.normal(size=(B, nd)).astype(np.float32)
+    if int8:
+        ckv = rng.integers(-127, 128, size=(L, B, M, 2 * nd)).astype(np.int8)
+        scales = rng.uniform(0.005, 0.02, size=(L, B, M, 2 * n_total)
+                             ).astype(np.float32)
+    else:
+        ckv = rng.normal(size=(L, B, M, 2 * nd)).astype(np.float32)
+        scales = None
+    clen = np.array([5, 100, 127, 3], np.int32)
+    vfrom = np.array([0, 7, 64, 9], np.int32)  # slot 3: no live key
+    want = jdec.decode_attention(
+        jnp.asarray(q), jnp.asarray(ckv), n_total, jnp.int32(1),
+        jnp.asarray(clen), jnp.asarray(vfrom),
+        alibi_slopes=alibi_slopes(n_total),
+        kv_scales=None if scales is None else jnp.asarray(scales),
+        interpret=True)
+    lanes = slice(off * d, (off + n) * d)
+    cs = np.concatenate([ckv[..., lanes], ckv[..., nd:][..., lanes]], -1)
+    ss = None if scales is None else np.concatenate(
+        [scales[..., off:off + n], scales[..., n_total + off:
+                                          n_total + off + n]], -1)
+    slopes = alibi_slopes(n_total)[off:off + n]
+    got = decode_attention_plain(_t(q[:, lanes]), _t(cs), n, 1, _t(clen),
+                                 _t(vfrom), alibi_slopes=slopes,
+                                 kv_scales=None if ss is None else _t(ss))
+    _close(got, np.asarray(want)[:, lanes])
+    assert not got[3].any()
+    if not int8:  # the wrapper: the slice's check passes, the same values
+        step = _t(cs[:, :, :1].copy())  # any row to write: it is masked
+        k, v = step[1, :, 0, :n * d], step[1, :, 0, n * d:]
+        cache = _t(cs.copy())
+        cache[1, np.arange(B), clen] = torch.cat([k, v], -1)
+        out = write_decode_attention(
+            _t(q[:, lanes]), k, v, cache, n, 1, _t(clen), _t(vfrom),
+            alibi_slopes=slopes, head_offset=off, n_total=n_total)
+        torch.testing.assert_close(out, decode_attention_plain(
+            _t(q[:, lanes]), cache, n, 1, _t(clen), _t(vfrom),
+            alibi_slopes=slopes))
+
+
+def test_decode_ladder_check_takes_a_contiguous_slice():
+    """The wrapper's check (``_check_ladder``): heads head_offset ..
+    head_offset + n - 1 of the ladder of n_total pass, on either side of
+    the half-step branch; another offset, a strided pick, a slice past
+    the last head or another total raise."""
+    from youku_mplug_tpu_torch.ops.decode_attention import _check_ladder
+
+    ladder = alibi_slopes(12)
+    _check_ladder(ladder, 12)
+    for off, n in ((0, 6), (6, 6), (6, 3), (9, 3), (4, 4)):
+        _check_ladder(ladder[off:off + n], n, off, 12)
+    _check_ladder(alibi_slopes(32)[16:], 16, 16, 32)
+    for slopes, n, off, total in ((ladder[6:], 6, 4, 12),
+                                  (ladder[::2], 6, 0, 12),
+                                  (ladder[6:], 6, 8, 12),
+                                  (ladder[6:], 6, 6, 16),
+                                  (alibi_slopes(6), 6, 6, 12)):
+        with pytest.raises(ValueError, match="ladder"):
+            _check_ladder(slopes, n, off, total)
+    q = torch.zeros(1, 3 * 64)
+    ckv = torch.zeros(1, 1, 64, 2 * 3 * 64)
+    with pytest.raises(ValueError, match="heads 6..8 of the ladder of 12"):
+        write_decode_attention(q, q, q, ckv, 3, 0, 3,
+                               alibi_slopes=ladder[5:8], head_offset=6,
+                               n_total=12)
+    assert not ckv.any()  # nothing written
+
+
+@pytest.fixture(scope="module")
+def split_layer_norms(tmp_path_factory):
+    """Each rank's slice of the split LayerNorm's value and gradients, on
+    gloo ranks of 2 and 4 (``tests/torch_owl_mesh_worker.py units``)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_owl_mesh as owl_mesh
+
+    out = {}
+    worlds = {}
+    for world in (2, 4):
+        d = str(tmp_path_factory.mktemp(f"split_ln_{world}"))
+        worlds[world] = (d, owl_mesh.start("units", world, d,
+                                           {"dptp": [], "inputs": ""}))
+    for world, (d, procs) in worlds.items():
+        owl_mesh.finish(procs)
+        out[world] = [dict(np.load(os.path.join(d, f"layernorm_rank{r}.npz")))
+                      for r in range(world)]
+    return out
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_split_layer_norm_matches_the_unsplit_one(split_layer_norms, world):
+    """The two-pass LayerNorm over a width split on ``world`` model ranks
+    (the Owl abstractor's ffn_ln): each rank's slice of the output and of
+    the input's, scale's and bias's gradients against ``layer_norm`` over
+    the whole width, both fp32 islands, within 1e-5 (the statistics'
+    gradient summed over the ranks by ``sum_over_model``'s backward)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_owl_mesh_worker as worker
+
+    x, scale, bias, weights = worker.layernorm_draws(world)
+    x, scale, bias = (t.clone().requires_grad_(True)
+                      for t in (x, scale, bias))
+    y = tln(x, scale, bias, eps=1e-5)
+    (y * weights).sum().backward()
+    w = x.shape[-1] // world
+    for r, got in enumerate(split_layer_norms[world]):
+        sl = slice(r * w, (r + 1) * w)
+        for key, want in (("y", y), ("dx", x.grad), ("dscale", scale.grad),
+                          ("dbias", bias.grad)):
+            np.testing.assert_allclose(got[key], want.detach()[..., sl],
+                                       rtol=1e-5, atol=1e-5,
+                                       err_msg=key)
+
+
 def test_decode_rejects_slopes_off_the_ladder():
     """The kernel generates the slopes from the head index, so the wrapper
     takes the standard ladder only (the JAX wrapper's check), on every

@@ -11,8 +11,9 @@ their unsplit runs, and the refusals that stand.
   pretrain run saved at (1,2) resumes at (2,1) with the losses of an
   unbroken (1,1) run.
 - The refusals that stand: every other runner's training mesh (ROADMAP
-  Queue 1 item 8; Bloom / Owl item 3), dropout under a split (item 9), a
-  zoo optimizer on model-split leaves (item 10).
+  Queue 1 item 8), dropout under a split (item 9), a zoo optimizer on
+  model-split leaves (item 10).  ``run_instruct --train`` under a split:
+  ``tests/test_torch_owl_train_mesh.py``.
 
 The train steps against JAX are ``tests/test_torch_train_mesh.py``.
 """
@@ -369,8 +370,6 @@ REFUSING = [
      8),
     ("run_mplug_pretrain", "setup", "configs/mplug/mplug_vitb16_zh.yaml", 8),
     ("run_alpro", "prepare", "configs/alpro/alpro_vitb16_zh.yaml", 8),
-    ("run_instruct", "train_setup",
-     "configs/instruct/train_bloomz_7b_flagship.yaml", 3),
 ]
 
 
@@ -392,8 +391,7 @@ def test_other_runners_refuse_a_training_mesh(tmp_path, monkeypatch, cli,
             yaml.safe_dump(raw, f)
     argv = ["--config", config, "--synthetic_data", "--device", "cpu",
             "--output_dir", str(tmp_path / "out")]
-    args = mod.parser().parse_args(argv + (["--train"] if cli ==
-                                            "run_instruct" else []))
+    args = mod.parser().parse_args(argv)
     monkeypatch.setenv("WORLD_SIZE", "2")
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1 item {item}\)"):
@@ -430,26 +428,6 @@ def test_zoo_optimizer_on_model_split_leaves_raises_item_10():
     create_train_state(model({}), OptimizerConfig(opt="lamb"))
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10"):
         create_train_state(model(split), OptimizerConfig(opt="lamb"))
-
-
-def test_bloom_on_a_model_shard_raises_item_3():
-    from youku_mplug_tpu_torch.config import load_owl_config
-    from youku_mplug_tpu_torch.models.owl import MPLUGOwlVideo
-    from youku_mplug_tpu_torch.parallel import sharding
-    from youku_mplug_tpu_torch.runtime.mesh import Mesh
-    from youku_mplug_tpu_torch.runtime.precision import FP32_POLICY
-
-    class Grouped(Mesh):  # a (1, 2) mesh whose groups are never used
-        @property
-        def model_group(self):
-            return object()
-
-    owl = MPLUGOwlVideo(load_owl_config(
-        "configs/instruct/serve_owl_tiny.yaml")[0], FP32_POLICY)
-    with pytest.raises(NotImplementedError,
-                       match=r"Bloom / Owl .*ROADMAP Queue 1 item 3\)"):
-        sharding.shard_params(owl, Grouped(1, 2),
-                              sharding.BLOOM_SHARDING_RULES)
 
 
 def test_the_full_table_of_a_vocab_shard_is_refused():

@@ -15,8 +15,9 @@ then on the same model the query features and the first two steps' logits of ``F
 (world, 1) mesh, written as ``<output>/merges_rank<r>.json``.  ``mode``
 ``shards``: for each split of the JSON, ``shard_params`` then
 ``unshard`` of a seeded model against its unsharded twin, the local
-shapes, and the refusals a model shard makes (``--speculative``,
-unmerged LoRA, prompt-lookup decoding), written as
+shapes, the refusals a model shard makes (``--speculative``,
+prompt-lookup decoding) and whether a model with unmerged LoRA adapters
+shards (``lora``: None when it does), written as
 ``<output>/<tag>/shards_rank<r>.json``.  The
 process group comes from ``init_method=file://`` (no TCP port: pytest
 workers never collide) with an explicit timeout.  Imports torch and the
@@ -203,10 +204,9 @@ def shards(tag, yaml, out):
     refused("speculative", lambda: serve.build(serve.serve_parser(
     ).parse_args(["--config", yaml, "--synthetic_data", "--device", "cpu",
                   "--fp32", "--output_dir", d, "--speculative", "2"])))
-    lora = seeded()(MPLUGVideo(dataclasses.replace(
-        cfg.model, text=dataclasses.replace(cfg.model.text, lora_rank=2)),
-        FP32_POLICY), SEED)
+    lora = lora_twin(cfg)
     refused("lora", lambda: sharding.shard_params(lora, mesh))
+    lora_err = lora_outputs(lora, cfg, mesh)
     _, _, gen = serve._prompt(cfg)
     eng = ServingEngine(model.text_decoder, num_slots=2, max_len=32,
                         prefill_buckets=(8,), config=gen)
@@ -217,7 +217,46 @@ def shards(tag, yaml, out):
                    "split": dict(model.tp_split), "refusals": refusals,
                    "roundtrip": sorted(n for n in full
                                        if not torch.equal(back[n], full[n])),
-                   "eager": eng.eager}, f)
+                   "eager": eng.eager, "lora_err": lora_err}, f)
+
+
+def lora_twin(cfg):
+    """The seeded model with rank-2 LoRA adapters on the decoder and the
+    vision tower, every ``lora_*_b`` drawn non-zero (the same on every
+    rank)."""
+    from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+    from youku_mplug_tpu_torch.runtime.precision import FP32_POLICY
+
+    m = cfg.model
+    model = seeded()(MPLUGVideo(dataclasses.replace(
+        m, text=dataclasses.replace(m.text, lora_rank=2),
+        vision=dataclasses.replace(m.vision, lora_rank=2)), FP32_POLICY),
+        SEED)
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for n, p in sorted(model.named_parameters()):
+            if "lora_" in n and n.endswith("_b"):
+                p.copy_(torch.randn(p.shape, generator=g) * 0.5)
+    return model
+
+
+@torch.inference_mode()
+def lora_outputs(model, cfg, mesh):
+    """The largest |difference| of the query features and the decoder's
+    logits of a sharded ``lora_twin`` from its unsharded twin's (built
+    again here), on the first clips and the prompt."""
+    twin = lora_twin(cfg)
+    video = clips(cfg, 2)
+    prompt, _, _ = serve._prompt(cfg)
+    ids = torch.tensor([prompt] * 2)
+    out = {}
+    for name, m in (("got", model), ("want", twin)):
+        qe = m.encode_queries(video)
+        lm = m.text_decoder
+        h = lm(tokens=ids)["last_hidden_state"]
+        out[name] = (qe, lm.logits(h))
+    return [float((a - b).abs().max()) for a, b in zip(out["got"],
+                                                       out["want"])]
 
 
 def main(argv):

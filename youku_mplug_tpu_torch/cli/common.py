@@ -1,8 +1,9 @@
 """What the training CLIs share: the parser, setup, resume, the epoch
 loop with its non-finite watchdog, checkpoints and the log.
 
-Counterpart of ``youku_mplug_tpu/cli/common.py``.  ``run_pretrain``
-and ``run_caption`` train under the YAML's (data, model) split, one
+Counterpart of ``youku_mplug_tpu/cli/common.py``.  ``run_pretrain``,
+``run_caption`` and ``run_instruct --train`` train under the YAML's
+(data, model) split, one
 process a rank under ``python -m torch.distributed.run`` (``init_mesh``:
 ``--dist_backend``, NCCL on the card by default, gloo for several ranks
 on one card or on CPU processes): ``setup`` cuts the model with
@@ -12,7 +13,9 @@ train loader gives each data rank its contiguous block of every global
 batch (``put_batch``: JAX's data sharding), the step equals the (1,1)
 step on the global batch (``train/trainer.py``), checkpoints hold the
 unsharded tree and restore at any split (``train/checkpoint.py``), and
-only rank 0 writes the config, the log and the prints.  Every other
+only rank 0 writes the config, the log and the prints (``run_instruct``
+does the same with the Owl model, JAX's Bloom rules and its own
+loader).  Every other
 training CLI refuses a training mesh (ROADMAP Queue 1 item 8), and so
 does any split with dropout (item 9: the masks are not drawn on the
 global arrays).  ``serve`` runs under a (data, model) split, and the
@@ -70,6 +73,7 @@ from youku_mplug_tpu_torch.parallel.sharding import (
 )
 from youku_mplug_tpu_torch.runtime.mesh import (
     Mesh,
+    MeshConfig,
     distributed_init,
     local_batch_size,
     local_rank,
@@ -191,16 +195,16 @@ def make_loader(args, cfg: RunConfig, dataset, shuffle: bool = True,
                   if block and block.data > 1 else 1)
 
 
-def init_mesh(args, cfg: RunConfig) -> Mesh:
+def init_mesh(args, mesh_cfg: Optional[MeshConfig]) -> Mesh:
     """Join the run's process group (under ``torch.distributed.run``;
-    ``--dist_backend``) and build the YAML's training mesh; (1, 1) in one
-    process.  Call before the loaders: the train loader reads the
-    rank's block of each batch."""
+    ``--dist_backend``) and build the YAML's training mesh (``mesh_cfg``,
+    ``config.mesh_config``'s); (1, 1) in one process.  Call before the
+    loaders: the train loader reads the rank's block of each batch."""
     device = device_of(args)
     backend = getattr(args, "dist_backend", None) or (
         "nccl" if device.type == "cuda" else "gloo")
     distributed_init(backend, device=device)
-    return make_mesh(getattr(cfg, "mesh", None))
+    return make_mesh(mesh_cfg)
 
 
 def main_rank(runner: "Runner") -> bool:
@@ -208,8 +212,7 @@ def main_rank(runner: "Runner") -> bool:
     return runner.mesh is None or runner.mesh.rank == 0
 
 
-def refuse_training_mesh(mesh_cfg, what: str = "this runner's",
-                         item: int = 8) -> Mesh:
+def refuse_training_mesh(mesh_cfg) -> Mesh:
     """A runner without a training mesh: raise under any split, a launch
     of more than one process or a process group; else the (1, 1) mesh of
     ``mesh_cfg`` (whose resolve raises for a split in one process)."""
@@ -218,18 +221,21 @@ def refuse_training_mesh(mesh_cfg, what: str = "this runner's",
         not dist.is_initialized() else None
     if mesh is None or mesh.size > 1:
         raise NotImplementedError(
-            f"a training mesh: run_pretrain and run_caption train under a "
-            f"(data, model) split; {what} split is not ported (ROADMAP "
-            f"Queue 1 item {item})")
+            "a training mesh: run_pretrain, run_caption and run_instruct "
+            "train under a (data, model) split; this runner's split is not "
+            "ported (ROADMAP Queue 1 item 8)")
     return mesh
 
 
 def _refuse_split_dropout(cfg, mesh: Mesh):
     """Dropout under a split raises (ROADMAP Queue 1 item 9): JAX draws
-    each mask on the global array, the port's ranks would draw others."""
+    each mask on the global array, the port's ranks would draw others.
+    ``cfg``: a run config, or a model config (its ``text`` and
+    ``vision``: the Owl's)."""
     if mesh.size <= 1:
         return
-    text, vision = cfg.model.text, cfg.model.vision
+    model = getattr(cfg, "model", cfg)
+    text, vision = model.text, model.vision
     rates = {"hidden_dropout": text.hidden_dropout,
              "attention_dropout": text.attention_dropout,
              "drop_rate": vision.drop_rate,
@@ -535,7 +541,7 @@ def put_batch(runner: Runner, arrays: Dict[str, Any]
     which the train loader cuts (``make_loader(block=)``,
     ``parallel/sharding.data_shard``'s rows, micro-batch by micro-batch
     under ``update_freq``); a batch of any other size raises."""
-    mesh = runner.mesh
+    mesh = getattr(runner, "mesh", None)
     if mesh is not None and mesh.data > 1:
         rows = len(next(iter(arrays.values())))
         if rows != local_batch_size(runner.cfg.batch_size, mesh):

@@ -114,7 +114,7 @@ def prepare(args) -> Tuple[common.Runner, Loader]:
     """The runner (``common.setup``: mesh, model, state, checkpoints,
     resume) and the test loader."""
     cfg = load_config(args.config)
-    mesh = common.init_mesh(args, cfg)
+    mesh = common.init_mesh(args, cfg.mesh)
     train_loader, test_loader = build_loaders(args, cfg, mesh)
     return (common.setup(args, cfg, train_loader, mesh=mesh),
             test_loader)

@@ -61,6 +61,36 @@ from ``--resume <run dir>`` or the run's own checkpoints, as the JAX
 runner does (``async_checkpointing: true`` writes them in the background
 after a host snapshot, ``train/checkpoint.py``).
 
+Under a split (the YAML's ``mesh:`` block, ``config.mesh_config``),
+launched with ``python -m torch.distributed.run --nproc_per_node=N -m
+youku_mplug_tpu_torch.cli.run_instruct ...``: the ranks join one process
+group (``--dist_backend``: ``nccl`` on the card, one card a rank,
+``cuda:$LOCAL_RANK`` unless ``--device`` names one; ``gloo`` where
+asked, and for ``--device cpu``), data x model must be N, and a split in
+one process raises (``runtime/mesh.py``, the serve CLI's text).  Every
+rank builds the whole model from the same seed (after ``--int8``'s
+quantization, so the scales are cut with their kernels) and keeps its
+model shard (``parallel/sharding.shard_params`` with JAX's
+``BLOOM_SHARDING_RULES``).  Serving: the prompts are batched over every
+request (the unsplit run's padding), then each data rank answers its
+stride of them (request ``i`` on data rank ``i % D``), through the
+batched path or the engine as above (the engine's prefill bucket from
+the whole run's padded width, so each rank's engine is the unsplit
+run's; sampled draws with the data coordinate folded into the seed
+under data > 1); the answers are merged by request on rank 0
+(``common.collect_records``), which writes ``instruct_results.json``
+and prints the stats with the split, and every rank writes
+``ranks/rank<r>.json`` (its coordinate, answers, the kernels' launch
+counters and its peak device memory).  Training: each data rank reads its
+block of every global batch (the loader's ``block_*``), the step is the
+(1,1) step on the global batch (``train/trainer.py``: the loss is a
+share of the global masked mean, ``grad_norm`` the whole model's, the
+replicated LoRA adapters on split products summed over the model
+group), and checkpoints hold the unsharded tree, so a run resumes at any
+split; dropout under a split raises (ROADMAP Queue 1 item 9), as does a
+zoo optimizer on the split abstractor (item 10) and, when serving,
+``--lookup_k`` under model > 1 (item 4).
+
 Weights, as the JAX runner has them: a seeded init (serving) or the JAX
 ``model.init`` rules (``--train``: ``bridge.jax_init``); then with
 ``--hf_checkpoint <dir>`` an HF mPLUG-Owl checkpoint imported over them
@@ -105,12 +135,19 @@ config on the CPU):
     python -m youku_mplug_tpu_torch.cli.run_instruct \\
         --config configs/instruct/serve_bloomz_7b_int8.yaml \\
         --synthetic_data --engine --serving_ckpt out/serving
+    # a copy of a YAML with mesh: {data: 2, model: 2}: four ranks, one
+    # card each (serving; add --train to train); on one card or on CPU
+    # processes add --device cuda:0 --dist_backend gloo, or --device cpu
+    python -m torch.distributed.run --standalone --nproc_per_node=4 \\
+        -m youku_mplug_tpu_torch.cli.run_instruct --config <it> \\
+        --synthetic_data --engine
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import time
@@ -125,6 +162,7 @@ from youku_mplug_tpu_torch.config import (
     InstructTrainConfig,
     instruct_train_config,
     load_owl_config,
+    mesh_config,
 )
 from youku_mplug_tpu_torch.data.datasets import SyntheticVideoDataset
 from youku_mplug_tpu_torch.data.instruct import (
@@ -148,12 +186,18 @@ from youku_mplug_tpu_torch.models.owl import MPLUGOwlVideo, generate_instruct
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
 from youku_mplug_tpu_torch.ops import quant
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
+from youku_mplug_tpu_torch.parallel.sharding import (
+    BLOOM_SHARDING_RULES,
+    shard_params,
+)
+from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
 from youku_mplug_tpu_torch.runtime.precision import (
     BF16_POLICY,
     DEFAULT_POLICY,
     FP32_POLICY,
 )
-from youku_mplug_tpu_torch.serving.engine import ServingEngine
+from youku_mplug_tpu_torch.runtime.prng import fold_in
+from youku_mplug_tpu_torch.serving.engine import COUNTERS, ServingEngine
 from youku_mplug_tpu_torch.train.checkpoint import CheckpointManager
 from youku_mplug_tpu_torch.train.state import create_train_state
 from youku_mplug_tpu_torch.train.trainer import make_train_step
@@ -193,7 +237,12 @@ def parser() -> argparse.ArgumentParser:
                    help="--engine: k>0 adds prompt-lookup speculative "
                         "steps (greedy-only, token-exact)")
     p.add_argument("--device", default="cuda",
-                   help="cuda[:i] (default), or cpu")
+                   help="cuda[:i] (default; under torch.distributed.run "
+                        "cuda:$LOCAL_RANK), or cpu")
+    p.add_argument("--dist_backend", choices=("nccl", "gloo"), default=None,
+                   help="process group backend under torch.distributed.run "
+                        "(default nccl on the card, gloo for --device cpu); "
+                        "gloo runs several ranks on one card")
     p.add_argument("--int8", action="store_true",
                    help="int8 decoder kernels and tied embedding, quantized "
                         "in place after the init (the form export_serving "
@@ -244,14 +293,21 @@ def load_serving_ckpt(directory: str):
 
 def build(args):
     """-> (model config, raw YAML dict, model on the device, device) for
-    serving, its weights as the module docstring says.  Raises when the
-    device is absent: nothing falls back to the CPU."""
+    serving, its weights as the module docstring says, cut to this rank's
+    model shard under a split (``model.mesh``: the YAML's ``mesh:``,
+    joined as the serve CLI joins it).  Raises when the device is
+    absent: nothing falls back to the CPU."""
     device = common.device_of(args)
     if args.int8 and args.serving_ckpt:
         raise ValueError("--int8 quantizes an initialized decoder; a "
                          "--serving_ckpt is int8 exactly where "
                          "export_serving --int8 made it so")
     cfg, raw = load_owl_config(args.config)
+    mesh = common.init_mesh(args, mesh_config(raw))
+    if mesh.model > 1 and args.lookup_k > 0:
+        raise NotImplementedError(
+            "--lookup_k under model > 1 is not ported (ROADMAP Queue 1 "
+            "item 4)")
     if args.serving_ckpt:  # the export merged the adapters
         cfg = dataclasses.replace(
             cfg, text=dataclasses.replace(cfg.text, lora_rank=0),
@@ -271,14 +327,30 @@ def build(args):
             importers.import_owl(model, cfg, args.hf_checkpoint)
     if args.int8:
         quant.quantize_decoder_(model.text_decoder, include_embedding=True)
+    shard_params(model, mesh, BLOOM_SHARDING_RULES)
     return cfg, raw, model.eval(), device
 
 
-def build_tokenizer(args, cfg):
+@functools.lru_cache(maxsize=4)
+def _hf_tokenizer(path: str) -> HFTokenizer:
+    """HF tokenizer files, read once a process (BloomZ's tokenizer.json
+    of 250880 entries takes seconds to parse)."""
+    return HFTokenizer(path)
+
+
+def build_tokenizer(args, cfg, mesh=None):
     """The HF tokenizer files ``--tokenizer`` names, else the whitespace
-    hash tokenizer (the JAX runner's choice)."""
+    hash tokenizer (the JAX runner's choice).  Under a process group
+    (``mesh``) the hash tokenizer raises unless ``PYTHONHASHSEED`` is set:
+    each rank would hash the prompts with its own seed."""
     if getattr(args, "tokenizer", ""):  # profile_train's parser has none
-        return HFTokenizer(args.tokenizer)
+        return _hf_tokenizer(args.tokenizer)
+    if mesh is not None and mesh.distributed \
+            and os.environ.get("PYTHONHASHSEED", "random") == "random":
+        raise ValueError("the whitespace hash tokenizer under a process "
+                         "group: each rank hashes the prompts with its own "
+                         "PYTHONHASHSEED; pass --tokenizer or set "
+                         "PYTHONHASHSEED")
     return WhitespaceTokenizer(cfg.text.vocab_size, eos_id=cfg.text.eos_id,
                                pad_id=cfg.text.pad_id)
 
@@ -299,22 +371,24 @@ def load_rows(args):
     return rows
 
 
-def load_videos(args, raw_cfg, rows) -> np.ndarray:
-    """[B, T, H, W, C] uint8 clips, one per row: each row's ``video``
-    decoded (``middle`` sampling) and resized to ``image_res``, or under
-    --synthetic_data drawn from ``np.random.default_rng(seed)`` exactly
-    as the JAX runner draws them."""
+def load_videos(args, raw_cfg, rows, index=None) -> np.ndarray:
+    """[B, T, H, W, C] uint8 clips, one per row of ``index`` (default
+    every row): each row's ``video`` decoded (``middle`` sampling) and
+    resized to ``image_res``, or under --synthetic_data drawn for every
+    row from ``np.random.default_rng(seed)`` exactly as the JAX runner
+    draws them, then those of ``index`` kept."""
     t = int(raw_cfg.get("num_frames", 8))
     res = int(raw_cfg.get("image_res", 224))
+    index = np.arange(len(rows)) if index is None else np.asarray(index)
     if args.synthetic_data:
         rng = np.random.default_rng(args.seed)
         return rng.integers(0, 255, size=(len(rows), t, res, res, 3),
-                            dtype=np.uint8)
+                            dtype=np.uint8)[index]
     tf = test_transform(res)
     short_side = int(raw_cfg.get("decode_short_side", 0))
-    return np.stack([tf(read_frames(r["video"], num_frames=t,
+    return np.stack([tf(read_frames(rows[i]["video"], num_frames=t,
                                     sample="middle", short_side=short_side))
-                     for r in rows])
+                     for i in index])
 
 
 def generation_config(args, cfg, raw_cfg) -> GenerationConfig:
@@ -383,7 +457,9 @@ def serve_instruct(model: MPLUGOwlVideo, clips: torch.Tensor, batch,
     _sync(dev)
     t_encoded = time.perf_counter()
 
-    engine = make_engine(model.text_decoder, prompt_len, gen_cfg,
+    # the bucket from the padded width: the longest prompt of the whole
+    # run, so a data rank's engine is the unsplit run's
+    engine = make_engine(model.text_decoder, [input_ids.shape[1]], gen_cfg,
                          min(num_slots, b), generator)
     row_of = {}
     for i in range(b):
@@ -477,9 +553,13 @@ def answers(rows, seqs, tokenizer, text_cfg):
     return results
 
 
-def prepare(args, cfg, raw_cfg, device, compute_dtype, tokenizer):
-    """-> (rows, instruct batch, normalized clips on the device); the
-    prompts go through ``tokenizer``."""
+def prepare(args, cfg, raw_cfg, device, compute_dtype, tokenizer,
+            mesh=None):
+    """-> (rows, instruct batch, normalized clips on the device): every
+    request's prompt through ``tokenizer`` and batched, padded to the
+    longest; with a ``mesh`` this data rank's stride of them (request
+    ``i`` on data rank ``i % D``), rows, batch and clips alike.  The
+    batch's ``index`` holds its requests' indices in the run."""
     rows = load_rows(args)
     prompts = [r.get("prompt") or format_prompt(r["question"])
                for r in rows]
@@ -488,22 +568,32 @@ def prepare(args, cfg, raw_cfg, device, compute_dtype, tokenizer):
             raise ValueError(f"prompt lacks {VIDEO_PLACEHOLDER}: {p[:80]!r}")
     batch = build_instruct_batch(prompts, tokenizer, cfg.num_media_tokens,
                                  pad_id=cfg.text.pad_id)
-    video = load_videos(args, raw_cfg, rows)
+    index = np.arange(len(rows))
+    if mesh is not None:
+        index = index[mesh.data_index::mesh.data]
+        batch = {k: v[index] for k, v in batch.items()}
+    batch["index"] = index
+    video = load_videos(args, raw_cfg, rows, index)
     clips = normalize_clip(torch.from_numpy(video).to(device),
                            dtype=compute_dtype)
-    return rows, batch, clips
+    return [rows[i] for i in index], batch, clips
 
 
 def build_train_loader(args, tcfg: InstructTrainConfig, raw_cfg,
-                       res: int) -> Loader:
+                       res: int, mesh=None) -> Loader:
     """The training loader in the JAX runner's shuffled order: the rows of
     ``--train_jsonl`` (else the YAML's ``train_file``) on ``num_workers``
     (default 2) decode threads, or ``synthetic_length`` synthetic
-    clips."""
+    clips; under a data split (``mesh``) this data rank's block of every
+    global batch (of each micro-batch under ``update_freq``), as
+    ``common.make_loader(block=)`` cuts it."""
+    split = mesh is not None and mesh.data > 1
+    block = dict(block_index=mesh.data_index, block_count=mesh.data,
+                 micro_count=tcfg.update_freq) if split else {}
     if args.synthetic_data:
         ds = SyntheticVideoDataset(length=tcfg.synthetic_length,
                                    num_frames=tcfg.num_frames, size=res)
-        return Loader(ds, tcfg.batch_size, seed=args.seed)
+        return Loader(ds, tcfg.batch_size, seed=args.seed, **block)
     # profile_train's parser has no --train_jsonl: the YAML names the file
     src = getattr(args, "train_jsonl", "") or raw_cfg.get("train_file", "")
     if not src:
@@ -513,24 +603,27 @@ def build_train_loader(args, tcfg: InstructTrainConfig, raw_cfg,
         num_frames=tcfg.num_frames, train=True, seed=args.seed,
         decode_short_side=int(raw_cfg.get("decode_short_side", 0)))
     return Loader(ds, tcfg.batch_size, seed=args.seed,
-                  num_workers=int(raw_cfg.get("num_workers", 2)))
+                  num_workers=int(raw_cfg.get("num_workers", 2)), **block)
 
 
 def train_setup(args) -> common.Runner:
-    """Config, loader, the model on the device (``jax_init``, then
-    ``--hf_checkpoint`` imported over it), the trainable/frozen split
-    (frozen leaves in bf16; LoRA adapters stay fp32 and train), the
-    YAML's optimizer,
-    whose schedule spans ``min(len(loader), max_steps)`` updates per
-    epoch, the checkpoints and the resume (``common.resume_state``)."""
+    """The YAML's training mesh (``common.init_mesh``), config, loader,
+    the model on the device (``jax_init``, then ``--hf_checkpoint``
+    imported over it, then cut to this rank's model shard), the
+    trainable/frozen split (frozen leaves in bf16; LoRA adapters stay
+    fp32 and train), the YAML's optimizer, whose schedule spans
+    ``min(len(loader), max_steps)`` updates per epoch, the checkpoints
+    (unsharded, written by rank 0) and the resume
+    (``common.resume_state``)."""
     device = common.device_of(args)
     if getattr(args, "fp32", False):
         raise ValueError("--fp32 is a serving flag: training keeps fp32 "
                          "trainable and bf16 frozen leaves")
     cfg, raw = load_owl_config(args.config)
-    common.refuse_training_mesh(None, "Bloom / Owl's", item=3)
+    mesh = common.init_mesh(args, mesh_config(raw))
+    common._refuse_split_dropout(cfg, mesh)
     tcfg = instruct_train_config(raw)
-    loader = build_train_loader(args, tcfg, raw, cfg.vision.img_size)
+    loader = build_train_loader(args, tcfg, raw, cfg.vision.img_size, mesh)
     niter = len(loader) if args.max_steps <= 0 else min(len(loader),
                                                         args.max_steps)
     tcfg = dataclasses.replace(tcfg, optimizer=dataclasses.replace(
@@ -540,18 +633,19 @@ def train_setup(args) -> common.Runner:
     jax_init(model, args.seed)  # the JAX runner's model.init rules
     if args.hf_checkpoint:  # before the split casts the frozen leaves
         importers.import_owl(model, cfg, args.hf_checkpoint)
+    shard_params(model, mesh, BLOOM_SHARDING_RULES)
     state, _, schedule = create_train_state(
         model, tcfg.optimizer, frozen_dtype=DEFAULT_POLICY.compute_dtype)
     os.makedirs(args.output_dir, exist_ok=True)
     ckpt = CheckpointManager(
         os.path.join(args.output_dir, "checkpoints"),
-        async_save=bool(raw.get("async_checkpointing", False)))
+        async_save=bool(raw.get("async_checkpointing", False)), mesh=mesh)
     state, start_epoch = common.resume_state(args, ckpt, state)
     return common.Runner(
         args=args, cfg=tcfg, device=device, model=model.train(),
-        tokenizer=build_tokenizer(args, cfg), state=state,
+        tokenizer=build_tokenizer(args, cfg, mesh), state=state,
         schedule=schedule, loader=loader, ckpt=ckpt,
-        start_epoch=start_epoch)
+        start_epoch=start_epoch, mesh=mesh)
 
 
 def make_instruct_batch(runner: common.Runner, raw):
@@ -567,11 +661,8 @@ def make_instruct_batch(runner: common.Runner, raw):
         pairs, runner.tokenizer, runner.model.cfg.num_media_tokens,
         pad_id=text.pad_id, eos_id=text.eos_id,
         max_length=runner.cfg.max_length)
-    dev = runner.device
-    out = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    out["input_ids"] = out["input_ids"].long()
-    out["video"] = torch.from_numpy(raw["video"]).to(dev)
-    return out
+    # under a data split a data rank's block of the global batch
+    return common.put_batch(runner, {**batch, "video": raw["video"]})
 
 
 def make_loss_fn(model: MPLUGOwlVideo):
@@ -601,29 +692,102 @@ def train_main(args) -> common.Runner:
                                make_instruct_batch)
 
 
-def main(args):
-    if args.train:
-        return train_main(args)
-    cfg, raw_cfg, model, device = build(args)
-    tokenizer = build_tokenizer(args, cfg)
+def sample_seed(seed: int, mesh) -> int:
+    """The sampling generator's seed: ``--seed + 1`` (the JAX runner's),
+    the data coordinate folded in under data > 1 (the model ranks of a
+    data rank draw alike)."""
+    return seed + 1 if mesh.data <= 1 else fold_in(seed + 1,
+                                                    mesh.data_index)
+
+
+def _merge(mesh, local, stats):
+    """(results, stats) of the run: under a process group every data
+    rank's answers merged by request on every rank, the stats over them
+    (the slowest data rank's wall, each data rank's own stats under
+    ``data_ranks``, the split); else this rank's own.  The results lose
+    their ``index``."""
+    if mesh.distributed:
+        local = sorted(common.collect_records(local, "index", mesh),
+                       key=lambda r: r["index"])
+        parts = common.host_gather(stats, mesh)
+        n_tok = sum(p["new_tokens"] for p in parts)
+        wall = max(p["wall_s"] for p in parts)
+        stats = {**stats, "requests": len(local), "new_tokens": n_tok,
+                 "wall_s": wall, "tokens_per_sec": n_tok / max(wall, 1e-9),
+                 "split": {"data": mesh.data, "model": mesh.model},
+                 "data_ranks": parts}
+    return [{k: v for k, v in r.items() if k != "index"}
+            for r in local], stats
+
+
+def serve_built(args, cfg, raw_cfg, model, device):
+    """``main``'s serving after ``build``: this data rank's requests
+    through the engine or the batched path, the answers merged, rank 0
+    writing ``instruct_results.json`` and printing the stats, and under
+    a process group every rank its ``ranks/rank<r>.json``.  Returns
+    (results, stats)."""
+    mesh = model.mesh or mesh_lib.Mesh()
+    build_peak = None
+    if device.type == "cuda":  # the serve's peak, after the build's
+        build_peak = torch.cuda.max_memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+    tokenizer = build_tokenizer(args, cfg, mesh)
     rows, batch, clips = prepare(args, cfg, raw_cfg, device,
-                                 model.policy.compute_dtype, tokenizer)
+                                 model.policy.compute_dtype, tokenizer,
+                                 mesh)
     gen_cfg = generation_config(args, cfg, raw_cfg)
-    generator = torch.Generator(device).manual_seed(args.seed + 1)
-    if args.engine:
-        seqs, stats, _ = serve_instruct(
+    generator = torch.Generator(device).manual_seed(sample_seed(args.seed,
+                                                                mesh))
+    engine = None
+    if not rows:  # a data rank past the last request
+        seqs = np.zeros((0, gen_cfg.max_new_tokens), np.int32)
+        stats = {"requests": 0, "new_tokens": 0, "wall_s": 0.0}
+    elif args.engine:
+        seqs, stats, engine = serve_instruct(
             model, clips, batch, gen_cfg, num_slots=args.num_slots,
             lookup_k=args.lookup_k, generator=generator)
     else:
         seqs, stats, _ = generate_batched(model, clips, batch, gen_cfg,
                                           generator)
-    results = answers(rows, seqs, tokenizer, cfg.text)
+    local = [{**r, "index": int(i)} for r, i in zip(
+        answers(rows, seqs, tokenizer, cfg.text), batch["index"])]
+    results, merged = _merge(mesh, local, stats)
     os.makedirs(args.output_dir, exist_ok=True)
-    with open(os.path.join(args.output_dir, "instruct_results.json"),
-              "w") as f:
-        json.dump(results, f, ensure_ascii=False, indent=1)
-    print("* Instruct stats:", json.dumps(stats), flush=True)
-    return results, stats
+    if mesh.distributed:
+        os.makedirs(os.path.join(args.output_dir, "ranks"), exist_ok=True)
+        with open(os.path.join(args.output_dir, "ranks",
+                               f"rank{mesh.rank}.json"), "w") as f:
+            json.dump({
+                "rank": mesh.rank, "coord": list(mesh.coord),
+                "split": {"data": mesh.data, "model": mesh.model},
+                "device": str(device), "results": local, "stats": stats,
+                "decode_steps": getattr(engine, "decode_steps",
+                                        stats.get("decode_steps")),
+                "graph_replays": getattr(engine, "graph_replays", None),
+                "launches": {f"{fn.__name__}.{attr}": getattr(fn, attr)
+                             for fn, attr in COUNTERS},
+                "peak_memory_bytes": torch.cuda.max_memory_allocated(device)
+                if device.type == "cuda" else None,
+                "build_peak_memory_bytes": build_peak}, f,
+                ensure_ascii=False)
+    if mesh.rank == 0:
+        with open(os.path.join(args.output_dir, "instruct_results.json"),
+                  "w") as f:
+            json.dump(results, f, ensure_ascii=False, indent=1)
+        print("* Instruct stats:", json.dumps(merged), flush=True)
+    return results, merged
+
+
+def main(args):
+    owned = not torch.distributed.is_initialized()
+    try:
+        if args.train:
+            return train_main(args)
+        cfg, raw_cfg, model, device = build(args)
+        return serve_built(args, cfg, raw_cfg, model, device)
+    finally:
+        if owned:
+            mesh_lib.distributed_shutdown()
 
 
 if __name__ == "__main__":

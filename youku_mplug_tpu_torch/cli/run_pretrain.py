@@ -111,7 +111,7 @@ def setup(args) -> common.Runner:
     the train state, checkpoints and the resume).  Raises when the
     requested device is absent: nothing falls back to the CPU."""
     cfg = load_config(args.config)
-    mesh = common.init_mesh(args, cfg)
+    mesh = common.init_mesh(args, cfg.mesh)
     return common.setup(args, cfg, build_loader(args, cfg, mesh), mesh=mesh)
 
 

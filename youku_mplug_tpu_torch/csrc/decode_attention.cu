@@ -22,7 +22,10 @@
 // slope ladder is generated from the head index as the TPU kernel does
 // (decode_attention.py:104-110): 2^(-8(h+1)/c) for the first c heads, c
 // the largest power of two <= n, then 2^(-4(2(h-c)+1)/c); the wrapper
-// checks that the caller's slopes are that ladder.
+// checks that the caller's slopes are that ladder.  On a model shard the
+// launch holds a contiguous slice of the heads: its head h is head
+// h + head_offset of n_total, and takes that head's slope (the TPU kernel
+// always sees every head, so it needs no offset).
 //
 // int8 cache: a second array [L, B, M, 2*n] holds one fp32 scale per
 // (row, head of the 2n K and V heads).  The dequant follows the TPU
@@ -246,7 +249,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
                    __nv_bfloat16* __restrict__ out,
                    const int* __restrict__ cache_len,
                    const int* __restrict__ valid_from, int n, int M,
-                   int lidx, float scale) {
+                   int lidx, float scale, int head_offset, int n_total) {
   using T = std::conditional_t<kInt8, int8_t, __nv_bfloat16>;
   constexpr int E = kValues;
   constexpr int kLoad = E * sizeof(T);  // bytes a lane loads from a row
@@ -295,7 +298,7 @@ decode_attn_kernel(const __nv_bfloat16* __restrict__ q, long long q_sb,
     load_bf16<E>(k_new + b * k_sb + h * k_sh + tl * E, kraw);
     load_bf16<E>(v_new + b * v_sb + h * v_sh + tl * E, vraw);
   }
-  const float slope = kAlibi ? alibi_slope(h, n) : 0.f;
+  const float slope = kAlibi ? alibi_slope(h + head_offset, n_total) : 0.f;
   const int idx = cache_len[b];  // the new row
   const int lo = max(valid_from[b], 0), hi = min(idx, M - 1);
   const bool write = idx >= 0 && idx < M;
@@ -494,7 +497,8 @@ cudaError_t launch(const void* q, long long q_sb, long long q_sh,
                    const void* v, long long v_sb, long long v_sh, void* ckv,
                    void* kv_scales, void* out, const void* cache_len,
                    const void* valid_from, int B, int n, int M, int lidx,
-                   float scale, cudaStream_t stream) {
+                   float scale, int head_offset, int n_total,
+                   cudaStream_t stream) {
   decode_attn_kernel<D, kAlibi, kInt8>
       <<<dim3(kCluster * n, B), kThreads, 0, stream>>>(
           static_cast<const __nv_bfloat16*>(q), q_sb, q_sh,
@@ -502,7 +506,8 @@ cudaError_t launch(const void* q, long long q_sb, long long q_sh,
           static_cast<const __nv_bfloat16*>(v), v_sb, v_sh, ckv,
           static_cast<float*>(kv_scales), static_cast<__nv_bfloat16*>(out),
           static_cast<const int*>(cache_len),
-          static_cast<const int*>(valid_from), n, M, lidx, scale);
+          static_cast<const int*>(valid_from), n, M, lidx, scale,
+          head_offset, n_total);
   return cudaGetLastError();
 }
 
@@ -538,7 +543,9 @@ cudaError_t dispatch(int head_dim, int alibi, bool int8, F f) {
 // [B] on the device.  Writes k and v at row cache_len[b] of layer lidx
 // (nothing where cache_len[b] is outside [0, M)), then attends over rows
 // valid_from[b] .. min(cache_len[b], M-1).  head_dim 64, 80 or 128;
-// alibi != 0 (64 and 128 only) adds the standard ALiBi ladder.  Returns the
+// alibi != 0 (64 and 128 only) adds the standard ALiBi ladder of n_total
+// heads, of which the launch's n are heads head_offset .. head_offset + n - 1
+// (a model shard's; 0 and n unsharded).  Returns the
 // launch's error, or cudaErrorInvalidValue for a head dim (or ALiBi at a
 // head dim) it was not built for.
 extern "C" int ymt_decode_attention(
@@ -546,13 +553,14 @@ extern "C" int ymt_decode_attention(
     long long k_sb, long long k_sh, const void* v, long long v_sb,
     long long v_sh, void* ckv, void* kv_scales, void* out,
     const void* cache_len, const void* valid_from, int B, int n, int M,
-    int lidx, float scale, int head_dim, int alibi, void* stream) {
+    int lidx, float scale, int head_dim, int alibi, int head_offset,
+    int n_total, void* stream) {
   return (int)dispatch(
       head_dim, alibi, kv_scales != nullptr, [&](auto d, auto a, auto q8) {
         return launch<decltype(d)::value, decltype(a)::value,
                       decltype(q8)::value>(
             q, q_sb, q_sh, k, k_sb, k_sh, v, v_sb, v_sh, ckv, kv_scales, out,
-            cache_len, valid_from, B, n, M, lidx, scale,
-            static_cast<cudaStream_t>(stream));
+            cache_len, valid_from, B, n, M, lidx, scale, head_offset,
+            n_total, static_cast<cudaStream_t>(stream));
       });
 }

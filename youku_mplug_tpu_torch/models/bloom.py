@@ -52,6 +52,23 @@ product's output channels (the qkv scales on the head-major lanes) before
 its LoRA delta and bias; with ``kv_cache_dtype: int8`` prefill reads the
 written layer back dequantized and decode runs the int8 ALiBi decode
 kernel.
+
+Tensor parallelism (``parallel/sharding.shard_params`` with JAX's
+``BLOOM_SHARDING_RULES``), Megatron's layout as in ``models/gpt3.py``:
+each model rank holds a contiguous n/m of the heads (the head-major qkv
+kernel cut on its head dim, the head count read from it), F/m MLP
+columns and V/m vocab rows.  The qkv and fc1 inputs pass through
+``copy_to_model`` (*f*), the attention output and fc2 products are summed
+over the model ranks (*g*) before ``out_bias`` and ``fc2_bias``, and the
+cache holds the rank's own heads.  The ALiBi slopes are the rank's slice
+of the whole ladder of ``num_attention_heads``: the flash kernels read
+that slice of the fp32 array, the prefill's bias and the dropout route
+take it, and the decode kernel builds each slope from its head offset
+and the total (``ops/decode_attention.py``).  The LM loss is the
+vocab-parallel CE over the rank's table rows (``TiedEmbedding.loss``),
+and under a data split (``mesh``) the training loss is this rank's share
+of the global batch's masked mean (``parallel/data_parallel.py``).  The
+LayerNorms stay whole on every rank.
 """
 
 from __future__ import annotations
@@ -83,10 +100,7 @@ from youku_mplug_tpu_torch.ops.attention import (
     dropout,
     mha_reference,
 )
-from youku_mplug_tpu_torch.ops.cross_entropy import (
-    lm_cross_entropy,
-    masked_mean_loss,
-)
+from youku_mplug_tpu_torch.ops.cross_entropy import masked_mean_loss
 from youku_mplug_tpu_torch.ops.decode_attention import (
     alibi_slopes,
     write_decode_attention,
@@ -94,6 +108,11 @@ from youku_mplug_tpu_torch.ops.decode_attention import (
 from youku_mplug_tpu_torch.ops.flash_attention import flash_attention_packed
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.ops.lora import LoRAModule, plus
+from youku_mplug_tpu_torch.parallel.data_parallel import data_group_of
+from youku_mplug_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    reduce_from_model,
+)
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 __all__ = ["BloomConfig", "BloomLM", "alibi_slopes"]
@@ -172,12 +191,18 @@ class BloomConfig:
 class BloomAttention(LoRAModule):
     """ALiBi self-attention, head-major fused QKV: the training forward
     without a cache, prefill and decode with one.  Parameters carry a
-    leading [L] layer dimension."""
+    leading [L] layer dimension.  On a model shard (``tp``) it holds a
+    contiguous n/m of the heads and their slice of the slopes, the output
+    projection's partial products are summed over the model ranks and
+    ``out_bias`` is added once, after."""
+
+    TP_PARAM = "out_kernel"  # the row-parallel product that is summed
+    tp = None
 
     def __init__(self, cfg: BloomConfig, num_layers: int, dtype):
         super().__init__()
         n, d, h = cfg.num_attention_heads, cfg.head_dim, cfg.hidden_size
-        self.n, self.d, self.h = n, d, h
+        self.n_total, self.d, self.h = n, d, h
         self.slopes = alibi_slopes(n)
         # the flash kernels read the slopes from an fp32 device array
         self.register_buffer("slopes_fp32", torch.tensor(self.slopes),
@@ -188,6 +213,21 @@ class BloomAttention(LoRAModule):
         self.out_bias = _param(num_layers, h, dtype=dtype)
         add_lora(self, cfg, num_layers, dtype,
                  {"qkv": (h, 3 * n * d), "out": (n * d, h)})
+
+    @property
+    def n(self) -> int:
+        """The heads this module holds (n / m on a model shard)."""
+        return self.qkv_kernel.shape[-3]
+
+    @property
+    def head_offset(self) -> int:
+        """The index of this module's first head in the whole ladder."""
+        return self.tp.index * self.n if self.tp is not None else 0
+
+    def local_slopes(self):
+        """(numpy, fp32 device tensor) slopes of this module's heads."""
+        lo, hi = self.head_offset, self.head_offset + self.n
+        return self.slopes[lo:hi], self.slopes_fp32[lo:hi]
 
     def forward(self, x, lidx: int, cache: Optional[kvc.Cache] = None,
                 cache_len: CacheLen = 0,
@@ -208,7 +248,8 @@ class BloomAttention(LoRAModule):
             out = write_decode_attention(
                 qkv5[:, 0, :, 0, :], qkv5[:, 0, :, 1, :], qkv5[:, 0, :, 2, :],
                 cache, n, lidx, cache_len, valid_from,
-                alibi_slopes=self.slopes)[:, None]
+                alibi_slopes=self.local_slopes()[0],
+                head_offset=self.head_offset, n_total=self.n_total)[:, None]
         else:
             kvp = torch.cat([qkv5[..., 1, :].reshape(b, s, n * d),
                              qkv5[..., 2, :].reshape(b, s, n * d)], dim=-1)
@@ -219,9 +260,10 @@ class BloomAttention(LoRAModule):
 
     def qkv(self, x, lidx: int) -> torch.Tensor:
         """The fused projection (int8 scale, bias, LoRA delta), head-major
-        [B, S, n, 3, d]."""
+        [B, S, n, 3, d]; its input through *f* on a model shard."""
         n, d, h = self.n, self.d, self.h
         dt = x.dtype
+        x = copy_to_model(x, self.tp)
         qkv = x @ self.qkv_kernel[lidx].reshape(h, 3 * n * d).to(dt)
         qkv = qscaled(qkv, self, "qkv_kernel", lidx)
         qkv = qkv + self.qkv_bias[lidx].reshape(3 * n * d).to(dt)
@@ -234,13 +276,14 @@ class BloomAttention(LoRAModule):
         over the ALiBi bias of the key positions."""
         n, d = self.n, self.d
         b, s = qkv5.shape[:2]
+        slopes = self.local_slopes()[1]
         rate = drop.attention if drop is not None else 0.0
         if rate == 0.0:
             return flash_attention_packed(
                 qkv5[..., 0, :], qkv5[..., 1, :], qkv5[..., 2, :], n,
-                causal=True, alibi_slopes=self.slopes_fp32)
+                causal=True, alibi_slopes=slopes)
         q, k, v = (qkv5[..., i, :].transpose(1, 2) for i in range(3))
-        bias = (self.slopes_fp32[None, :, None, None]
+        bias = (slopes[None, :, None, None]
                 * torch.arange(s, dtype=torch.float32,
                                device=qkv5.device)[None, None, None, :])
         out = mha_reference(q, k, v, causal=True, bias=bias,
@@ -249,13 +292,13 @@ class BloomAttention(LoRAModule):
 
     def project(self, out, lidx: int) -> torch.Tensor:
         """The output projection of the attention [B, S, n*d] -> [B, S,
-        H] (int8 scale, LoRA delta, bias)."""
+        H] (int8 scale, LoRA delta, the sum over the model ranks, bias)."""
         nd, h = self.n * self.d, self.h
         dt = out.dtype
         y = out @ self.out_kernel[lidx].reshape(nd, h).to(dt)
         y = qscaled(y, self, "out_kernel", lidx)
         y = plus(y, self.delta("out", out, lidx))
-        return y + self.out_bias[lidx].to(dt)
+        return reduce_from_model(y, self.tp) + self.out_bias[lidx].to(dt)
 
     def _prefill_attention(self, qkv5, lidx, cache, cache_len, valid_from):
         n, d = self.n, self.d
@@ -278,7 +321,8 @@ class BloomAttention(LoRAModule):
         if valid_from is not None:
             allowed = allowed & (ki[None, None, :]
                                  >= valid_from.to(dev)[:, None, None])
-        alibi = (torch.as_tensor(self.slopes, device=dev)[:, None, None]
+        alibi = (torch.as_tensor(self.local_slopes()[0],
+                                 device=dev)[:, None, None]
                  * ki.float()[None, None, :])                    # [n, 1, M]
         bias = alibi[None] + torch.zeros(
             allowed.shape, dtype=torch.float32, device=dev).masked_fill(
@@ -288,6 +332,13 @@ class BloomAttention(LoRAModule):
 
 
 class BloomMLP(LoRAModule):
+    """fc1 -> tanh-GELU -> fc2; on a model shard fc1's columns and fc2's
+    rows are this rank's, fc2's partial product is summed over the model
+    ranks and ``fc2_bias`` added once, after."""
+
+    TP_PARAM = "fc2_kernel"
+    tp = None
+
     def __init__(self, cfg: BloomConfig, num_layers: int, dtype):
         super().__init__()
         h, f = cfg.hidden_size, cfg.ffn_dim
@@ -301,8 +352,10 @@ class BloomMLP(LoRAModule):
         return self.fc2(self.fc1(x, lidx), lidx)
 
     def fc1(self, x, lidx: int) -> torch.Tensor:
-        """``gelu(x @ fc1 + delta + bias)``, the MLP's hidden."""
+        """``gelu(x @ fc1 + delta + bias)``, the MLP's hidden; its input
+        through *f* on a model shard."""
         dt = x.dtype
+        x = copy_to_model(x, self.tp)
         y = plus(qscaled(x @ self.fc1_kernel[lidx].to(dt), self,
                          "fc1_kernel", lidx), self.delta("fc1", x, lidx))
         # BloomGelu is the tanh-approximate GELU
@@ -312,7 +365,7 @@ class BloomMLP(LoRAModule):
         dt = y.dtype
         out = plus(qscaled(y @ self.fc2_kernel[lidx].to(dt), self,
                            "fc2_kernel", lidx), self.delta("fc2", y, lidx))
-        return out + self.fc2_bias[lidx].to(dt)
+        return reduce_from_model(out, self.tp) + self.fc2_bias[lidx].to(dt)
 
 
 class BloomLayer(nn.Module):
@@ -447,6 +500,8 @@ class BloomLM(nn.Module):
     / ``init_cache`` / ``decode_step``), so the serving engine drives
     either."""
 
+    mesh = None  # the run's mesh (parallel/sharding.shard_params)
+
     def __init__(self, cfg: BloomConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
         self.cfg, self.policy = cfg, policy
@@ -476,19 +531,21 @@ class BloomLM(nn.Module):
         hidden = self.decoder(input_embeds, generator=generator)
         out = {"last_hidden_state": hidden}
         if labels is not None:
-            losses = lm_cross_entropy(
-                hidden, self.word_embeddings.table(hidden.dtype), labels,
-                chunk=self.cfg.ce_chunk)
+            losses = self.word_embeddings.loss(hidden, labels,
+                                               chunk=self.cfg.ce_chunk)
             out["losses"] = losses
             if loss_mask is not None:
-                out["loss"] = masked_mean_loss(losses[:, :-1], loss_mask)
+                out["loss"] = masked_mean_loss(losses[:, :-1], loss_mask,
+                                               data_group_of(self))
         return out
 
     def init_cache(self, batch: int, max_len: int, device=None):
         """Stacked cache [L, B, M, 2*hidden] (the int8 dict with
         ``kv_cache_dtype: int8``), M rounded up to a multiple of 128 as in
-        the JAX package (the extra rows are never attended)."""
-        return _init_cache(self.cfg, self.policy, batch, max_len, device)
+        the JAX package (the extra rows are never attended); on a model
+        shard [L, B, M, 2*(n/m)*d], its local heads' rows."""
+        return _init_cache(self.cfg, self.policy, batch, max_len, device,
+                           self.decoder.layers.attn.n)
 
     def decode_step(self, input_embeds, cache, cache_len: CacheLen,
                     valid_from=None, position_offset=None,

@@ -15,7 +15,10 @@ run.  Beam search keeps the JAX package's 2K candidates, finished pool,
 ``length_penalty`` (0: the sum of log-probs, the reference's ranking) and
 stop rule, and reorders the cache in place (``_gather_beams``); each of
 its top-k selections breaks ties by the lower index, as ``lax.top_k``
-does.
+does.  On a model shard (``parallel/sharding.shard_params``) the logits
+are the gathered full vocabulary on every model rank, so every rank
+picks, samples and ranks beams alike, and the reorder moves the rows of
+the rank's own heads.
 """
 
 from __future__ import annotations

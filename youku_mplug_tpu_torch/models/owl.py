@@ -26,6 +26,20 @@ rename.  What the port keeps:
 - ``instruct_loss`` takes the step's dropout ``generator`` to the ViT
   (attention dropout, drop-path) and to Bloom (hidden and attention
   dropout), the JAX method's ``deterministic=False``.
+
+Tensor parallelism (``parallel/sharding.shard_params`` with JAX's
+``BLOOM_SHARDING_RULES``): the ViT and Bloom as ``models/vision.py`` and
+``models/bloom.py`` cut them; in each abstractor layer q, k and v are
+cut on their columns (the rank's n/m heads), the out projection on its
+rows (summed over the model ranks before ``out_bias``), the MLP's w1 and
+w3 on their columns and w2 on its rows (summed before ``w2_bias``), and
+``ffn_ln`` normalizes the split intermediate width with statistics
+summed over the model group (``ops/layernorm.split_layer_norm``); the
+inputs of the column-parallel products pass through *f*.  The queries,
+embeddings, ``visual_fc``, ``vit_eos`` and the other LayerNorms stay
+whole.  Under a data split the instruct loss is this rank's share of the
+global batch's masked mean (Bloom's loss); ``generate_instruct`` picks
+from the gathered full-vocabulary logits on every model rank.
 """
 
 from __future__ import annotations
@@ -47,6 +61,11 @@ from youku_mplug_tpu_torch.models.vision import (
     _param,
 )
 from youku_mplug_tpu_torch.ops.attention import dot_product_attention
+from youku_mplug_tpu_torch.ops.layernorm import split_layer_norm
+from youku_mplug_tpu_torch.parallel.tensor_parallel import (
+    copy_to_model,
+    reduce_from_model,
+)
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
 
@@ -64,9 +83,31 @@ class OwlAbstractorConfig:
     max_frames: int = 32
 
 
+class SplitLayerNorm(LayerNormFP32):
+    """``LayerNormFP32`` whose width a model shard may split (its scale and
+    bias cut to the rank's slice): the statistics are then summed over
+    the model group (``split_layer_norm``)."""
+
+    TP_PARAM = "scale"  # the leaf a model shard must split
+    tp = None
+
+    def __init__(self, dim: int, eps: float = 1e-6, dtype=torch.float32):
+        super().__init__(dim, eps, dtype)
+        self.width = dim
+
+    def forward(self, x):
+        return split_layer_norm(x, self.scale, self.bias, self.tp,
+                                width=self.width, eps=self.eps)
+
+
 class OwlAbstractorMlp(nn.Module):
     """``w2(ffn_ln(silu(w1 x) * w3 x))``: the LayerNorm on the
-    intermediate width."""
+    intermediate width.  On a model shard w1 / w3 hold this rank's
+    columns, ``ffn_ln`` its slice, w2 its rows; w2's partial product is
+    summed over the model ranks and ``w2_bias`` added once, after."""
+
+    TP_PARAM = "w2_kernel"
+    tp = None
 
     def __init__(self, dim: int, hidden: int, ln_eps: float, dtype):
         super().__init__()
@@ -74,23 +115,31 @@ class OwlAbstractorMlp(nn.Module):
                             ("w2", (hidden, dim))):
             setattr(self, f"{name}_kernel", _param(*shape, dtype=dtype))
             setattr(self, f"{name}_bias", _param(shape[1], dtype=dtype))
-        self.ffn_ln = LayerNormFP32(hidden, ln_eps, dtype)
+        self.ffn_ln = SplitLayerNorm(hidden, ln_eps, dtype)
 
     def forward(self, x):
         dt = x.dtype
+        x = copy_to_model(x, self.tp)
         h = (F.silu(_mm(x, self.w1_kernel) + self.w1_bias.to(dt))
              * (_mm(x, self.w3_kernel) + self.w3_bias.to(dt)))
-        return _mm(self.ffn_ln(h), self.w2_kernel) + self.w2_bias.to(dt)
+        out = _mm(self.ffn_ln(h), self.w2_kernel)
+        return reduce_from_model(out, self.tp) + self.w2_bias.to(dt)
 
 
 class OwlAbstractorLayer(nn.Module):
     """Queries attend [normed queries ; normed visual features]; the
-    residual base is the normed queries; then the gated MLP."""
+    residual base is the normed queries; then the gated MLP.  On a model
+    shard q / k / v hold this rank's columns (its heads), the out
+    projection its rows; its partial product is summed over the model
+    ranks and ``out_bias`` added once, after."""
+
+    TP_PARAM = "out_kernel"
+    tp = None
 
     def __init__(self, cfg: OwlAbstractorConfig, dtype):
         super().__init__()
         d = cfg.hidden_size
-        self.n = cfg.num_heads
+        self.head_dim = d // cfg.num_heads
         self.norm_q = LayerNormFP32(d, cfg.ln_eps, dtype)
         self.norm_kv = LayerNormFP32(d, cfg.ln_eps, dtype)
         for name in ("q", "k", "v", "out"):
@@ -100,21 +149,28 @@ class OwlAbstractorLayer(nn.Module):
         self.mlp = OwlAbstractorMlp(d, cfg.intermediate_size, cfg.ln_eps,
                                     dtype)
 
+    @property
+    def n(self) -> int:
+        """The heads this layer holds (n / m on a model shard)."""
+        return self.q_kernel.shape[-1] // self.head_dim
+
     def forward(self, x, visual):
-        b, nq, d = x.shape
+        b, nq, _ = x.shape
         q_in = self.norm_q(x)
         kv = torch.cat([q_in, self.norm_kv(visual)], dim=1)
         dt = q_in.dtype
-        q = _mm(q_in, self.q_kernel) + self.q_bias.to(dt)
-        k = _mm(kv, self.k_kernel) + self.k_bias.to(dt)
-        v = _mm(kv, self.v_kernel) + self.v_bias.to(dt)
+        qf, kvf = copy_to_model(q_in, self.tp), copy_to_model(kv, self.tp)
+        q = _mm(qf, self.q_kernel) + self.q_bias.to(dt)
+        k = _mm(kvf, self.k_kernel) + self.k_bias.to(dt)
+        v = _mm(kvf, self.v_kernel) + self.v_bias.to(dt)
 
-        def heads(t):  # [B, S, d] -> [B, n, S, d/n] view
-            return t.unflatten(-1, (self.n, d // self.n)).transpose(1, 2)
+        def heads(t):  # [B, S, n*hd] -> [B, n, S, hd] view
+            return t.unflatten(-1, (self.n, self.head_dim)).transpose(1, 2)
 
         out = dot_product_attention(heads(q), heads(k), heads(v))
-        out = out.transpose(1, 2).reshape(b, nq, d)
-        x = q_in + (_mm(out, self.out_kernel) + self.out_bias.to(dt))
+        out = out.transpose(1, 2).reshape(b, nq, -1)
+        y = reduce_from_model(_mm(out, self.out_kernel), self.tp)
+        x = q_in + (y + self.out_bias.to(dt))
         return x + self.mlp(self.norm_mlp(x))
 
 

@@ -57,9 +57,9 @@ _SIGNATURES = {
     + [_F, _I, _I, _I, _P, _I, _P],
     # q, k, v (each pointer, batch and head stride), ckv, kv_scales (or
     # null), out, cache_len, valid_from, B, n, M, lidx, scale, head_dim,
-    # alibi, stream
+    # alibi, head_offset, n_total, stream
     "ymt_decode_attention": [_P, _LL, _LL] * 3 + [_P] * 5 + [_I] * 4
-    + [_F, _I, _I, _P],
+    + [_F, _I, _I, _I, _I, _P],
 }
 
 

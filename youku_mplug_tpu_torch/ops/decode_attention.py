@@ -12,7 +12,11 @@ the live keys ``valid_from[b] <= j <= cache_len[b]``.  A sample with no
 live key gets zeros; ``cache_len[b] >= M`` writes nothing and reads rows
 up to M-1.  With ``alibi_slopes`` the score of key j is
 ``scale * q.k + slope_h * j``.  An int8 cache is the dict of
-``ops/kv_cache.py`` (int8 rows, fp32 scales [L, B, M, 2*n]).
+``ops/kv_cache.py`` (int8 rows, fp32 scales [L, B, M, 2*n]).  On a model
+shard the step holds a contiguous slice of the heads: its n heads are
+heads ``head_offset .. head_offset + n - 1`` of ``n_total``, and their
+slopes that slice of the ladder of ``n_total`` (the kernel builds each
+slope from ``h + head_offset`` and ``n_total``).
 
 ``write_decode_attention`` runs its plain version
 (``write_decode_attention_plain``: ``kv_cache.cache_write``, then
@@ -63,20 +67,29 @@ def alibi_slopes(num_heads: int) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=64)
-def _is_ladder(n_heads: int, raw: bytes) -> bool:
+def _is_ladder(n_heads: int, head_offset: int, n_total: int,
+               raw: bytes) -> bool:
     a = np.frombuffer(raw, np.float32)
-    return a.shape == (n_heads,) and bool(
-        np.allclose(a, alibi_slopes(n_heads), rtol=1e-6))
+    return 0 <= head_offset and head_offset + n_heads <= n_total \
+        and a.shape == (n_heads,) and bool(np.allclose(
+            a, alibi_slopes(n_total)[head_offset:head_offset + n_heads],
+            rtol=1e-6))
 
 
-def _check_ladder(slopes, n_heads: int) -> None:
-    """Raise unless ``slopes`` is the standard ladder of ``n_heads``: the
-    kernel generates the slopes from the head index (the JAX kernel's
-    check, decode_attention.py:257-265)."""
+def _check_ladder(slopes, n_heads: int, head_offset: int = 0,
+                  n_total: Optional[int] = None) -> None:
+    """Raise unless ``slopes`` is heads ``head_offset .. head_offset +
+    n_heads - 1`` of the standard ladder of ``n_total`` (default
+    ``n_heads``: the whole ladder): the kernel generates the slopes from
+    the head index (the JAX kernel's check, decode_attention.py:257-265,
+    on a model shard's slice of the heads)."""
+    n_total = n_heads if n_total is None else n_total
     raw = np.ascontiguousarray(slopes, np.float32).tobytes()
-    if not _is_ladder(n_heads, raw):
-        raise ValueError("decode attention only supports the standard ALiBi "
-                         f"ladder of {n_heads} heads")
+    if not _is_ladder(n_heads, head_offset, n_total, raw):
+        raise ValueError(
+            "decode attention only supports the standard ALiBi ladder: "
+            f"heads {head_offset}..{head_offset + n_heads - 1} of the "
+            f"ladder of {n_total} heads")
 
 
 def _per_sample(x: Union[int, torch.Tensor], b: int, device) -> torch.Tensor:
@@ -88,14 +101,17 @@ def decode_attention_plain(q: torch.Tensor, ckv: torch.Tensor, n_heads: int,
                            layer_idx: int, cache_len, valid_from=None, *,
                            scale: Optional[float] = None,
                            alibi_slopes=None,
-                           kv_scales: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           kv_scales: Optional[torch.Tensor] = None,
+                           head_offset: int = 0,
+                           n_total: Optional[int] = None) -> torch.Tensor:
     """The attention half of the plain version (fp32 scores, bias,
     probabilities and accumulation), on a cache already written.
     q [B, n*d] or [B, n, d]; ckv [L, B, M, 2*n*d]; alibi_slopes: optional
-    [n] per-head slopes (any values); kv_scales: optional [L, B, M, 2*n]
-    scales of an int8 ``ckv``, which dequantizes to fp32 first; returns
-    [B, n*d] in q.dtype."""
+    [n] per-head slopes, read as given (any values: a model shard's slice
+    of a ladder too; ``head_offset`` and ``n_total``, the kernel's place
+    of the slice, are taken and not needed); kv_scales: optional [L, B,
+    M, 2*n] scales of an int8 ``ckv``, which dequantizes to fp32 first;
+    returns [B, n*d] in q.dtype."""
     b = q.shape[0]
     q = q.reshape(b, -1)
     nd = q.shape[1]
@@ -133,10 +149,13 @@ def write_decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                  n_heads: int, layer_idx: int, cache_len,
                                  valid_from=None, *,
                                  scale: Optional[float] = None,
-                                 alibi_slopes=None) -> torch.Tensor:
-    """Plain version of the kernel: ``kv_cache.cache_write`` of the [K | V]
-    rows at row cache_len[b] (in place; int8: ``quantize_rows``; a row
-    outside the cache is not written), then ``decode_attention_plain``."""
+                                 alibi_slopes=None, head_offset: int = 0,
+                                 n_total: Optional[int] = None
+                                 ) -> torch.Tensor:
+    """Plain version of the kernel, with its arguments:
+    ``kv_cache.cache_write`` of the [K | V] rows at row cache_len[b] (in
+    place; int8: ``quantize_rows``; a row outside the cache is not
+    written), then ``decode_attention_plain`` (the slopes as given)."""
     b = q.shape[0]
     rows = torch.cat([k.reshape(b, -1), v.reshape(b, -1)], -1)[:, None]
     kvc.cache_write(cache, rows, _per_sample(cache_len, b, q.device),
@@ -162,17 +181,21 @@ def write_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            cache: kvc.Cache, n_heads: int, layer_idx: int,
                            cache_len, valid_from=None, *,
                            scale: Optional[float] = None,
-                           alibi_slopes=None) -> torch.Tensor:
+                           alibi_slopes=None, head_offset: int = 0,
+                           n_total: Optional[int] = None) -> torch.Tensor:
     """One decode step of attention with its cache write.  q, k, v: the
     step's query and new K and V rows, each [B, n*d] or [B, n, d] (any
     batch and head strides with a contiguous d: views of a fused qkv row
     are fine); cache: the stacked [L, B, M, 2*n*d] cache, bf16 or the int8
     dict (``ops/kv_cache.py``), written in place at row cache_len[b] of
     layer ``layer_idx``; cache_len / valid_from: int or [B]; alibi_slopes:
-    optional [n] slopes, which must be the standard ladder
-    (``alibi_slopes(n)``).  Returns [B, n*d] in q.dtype."""
+    optional [n] slopes, which must be heads ``head_offset ..
+    head_offset + n - 1`` of the standard ladder of ``n_total`` heads
+    (default n: ``alibi_slopes(n)`` whole; a model shard's slice
+    otherwise).  Returns [B, n*d] in q.dtype."""
+    n_total = n_heads if n_total is None else n_total
     if alibi_slopes is not None:
-        _check_ladder(alibi_slopes, n_heads)
+        _check_ladder(alibi_slopes, n_heads, head_offset, n_total)
     ckv, scales = kvc.leaves(cache)
     int8 = scales is not None
     if int8 and (ckv.dtype != torch.int8 or scales.shape
@@ -222,7 +245,8 @@ def write_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         v3.data_ptr(), v3.stride(0), v3.stride(1),
         ckv.data_ptr(), scales.data_ptr() if int8 else None, out.data_ptr(),
         cl.data_ptr(), vf.data_ptr(), b, n_heads, m, layer_idx,
-        float(scale), d, int(alibi), _native.stream_handle(q))
+        float(scale), d, int(alibi), int(head_offset), int(n_total),
+        _native.stream_handle(q))
     _native.check_launch(err, "ymt_decode_attention")
     counter = ("int8_" if int8 else "") + ("alibi_" if alibi else "") \
         + ("d80_" if d == 80 else "") + "launches"

@@ -16,11 +16,23 @@ move a module's adapters to and from a flat dict keyed by JAX's
 **extract_adapters(model))`` of a few MB loads in either package; the
 injection copies into the parameters' storage, where a captured decode
 graph reads it.
+
+On a model shard (``parallel/sharding.shard_params``) the adapters stay
+whole on every rank, as JAX's rules replicate every ``lora_*`` leaf,
+while their base kernel holds this rank's slice (``lora_cut``, set by
+``shard_params``): a column-parallel product (qkv, fc1) adds ``(x @ a)
+@ b_local``, ``b``'s columns of this rank's output lanes, and a
+row-parallel one (out, proj, fc2) ``(x_local @ a_local) @ b``, ``a``'s
+rows of this rank's input lanes, before the product's sum over the model
+ranks.  With the product's input taken after Megatron's *f*, each rank's
+gradient of ``a`` and ``b`` is its share of the whole one: the train step
+sums those leaves (``shard_params``' ``tp_partial``) over the model
+group (``train/trainer.py``), so every rank updates them as (1,1) does.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -48,13 +60,65 @@ def lora_delta(pair: Optional[Tuple[torch.Tensor, torch.Tensor]],
     return (x @ a.to(dtype)) @ b.to(dtype) * (alpha / rank)
 
 
+LoRACut = Tuple[str, Tuple[int, ...], int]
+
+
+def _cut(kernel_shape: Tuple[int, ...], lead: int, fan_in: int,
+         dim: int) -> LoRACut:
+    """How a model shard cuts an adapter pair whose base kernel (its
+    unsharded ``kernel_shape``, ``lead`` stacked dims first) is split on
+    ``dim``: ("a", the dims of ``a``'s input lanes, the index among them)
+    for a row-parallel product, ("b", the dims of ``b``'s output lanes,
+    the index) for a column-parallel one.  ``fan_in``: the adapter's
+    input width (``a``'s rows)."""
+    trailing = tuple(kernel_shape[lead:])
+    k = next(k for k in range(len(trailing) + 1)
+             if int(np.prod(trailing[:k])) == fan_in)
+    rel = dim - lead
+    return ("a", trailing[:k], rel) if rel < k else \
+        ("b", trailing[k:], rel - k)
+
+
+def cut_adapters(owner: "LoRAModule", kernel: str,
+                 kernel_shape: Tuple[int, ...], dim: int) -> List[str]:
+    """Record on ``owner`` the cut of the adapters on its ``kernel`` (of
+    unsharded ``kernel_shape``), which a model shard splits on ``dim``;
+    returns their leaf names (``lora_<name>_a``, ``lora_<name>_b``): the
+    leaves whose gradient on a rank is its share."""
+    leaves = []
+    for name, target in _TARGET_KERNEL.items():
+        a = getattr(owner, f"lora_{name}_a", None)
+        if target != kernel or a is None:
+            continue
+        owner.lora_cut = {**owner.lora_cut, name: _cut(
+            tuple(kernel_shape), a.dim() - 2, a.shape[-2], dim)}
+        leaves += [f"lora_{name}_a", f"lora_{name}_b"]
+    return leaves
+
+
+def _local(t: torch.Tensor, axis: int, dims: Tuple[int, ...], dim: int,
+           tp) -> torch.Tensor:
+    """This model rank's lanes of ``t``'s flat axis ``axis`` (-2: ``a``'s
+    input lanes, -1: ``b``'s output lanes) laid out as ``dims``, cut on
+    ``dims[dim]``."""
+    size = dims[dim] // tp.size
+    start = axis - len(dims) + 1
+    t = t.unflatten(axis, dims).narrow(start + dim, tp.index * size, size)
+    return t.flatten(start, start + len(dims) - 1)
+
+
 class LoRAModule(nn.Module):
     """A module with rank-r adapters ``lora_<name>_a [(L,) in, r]`` and
     ``lora_<name>_b [(L,) r, out]`` on some of its projections
     (``add_lora``; L for an [L]-stacked module); ``delta(name, x, lidx)``
     is the alpha/r-scaled ``(x @ a) @ b`` (of layer ``lidx``), or None
     where the projection has no adapter.  ``lora_init_std`` is the std
-    of a fresh ``lora_*_a`` (``bridge``'s inits)."""
+    of a fresh ``lora_*_a`` (``bridge``'s inits).  On a model shard
+    ``lora_cut`` ({name: cut}, ``cut_adapters``) says which factor the
+    delta takes this rank's lanes of (see the module docstring)."""
+
+    lora_cut: Dict[str, LoRACut] = {}
+    tp = None  # the ModelGroup of a model shard (shard_params)
 
     def add_lora(self, rank: int, alpha: float, init_std: float, dtype,
                  shapes: Dict[str, Tuple[int, int]],
@@ -78,6 +142,13 @@ class LoRAModule(nn.Module):
         b = getattr(self, f"lora_{name}_b")
         if lidx is not None:
             a, b = a[lidx], b[lidx]
+        cut = self.lora_cut.get(name)
+        if cut is not None:
+            which, dims, dim = cut
+            if which == "a":
+                a = _local(a, -2, dims, dim, self.tp)
+            else:
+                b = _local(b, -1, dims, dim, self.tp)
         return lora_delta((a, b), x, self.lora_rank, self.lora_alpha,
                           x.dtype)
 

@@ -24,9 +24,23 @@ m)``) and hands each module that now holds a slice its ``ModelGroup``
 (``parallel/tensor_parallel.py``), which runs the reductions.  Only
 modules written for it take a slice (``TP_PARAM``: GPT-3's attention,
 MLP and tied embedding, the vision attention and MLP); a rule that would
-split any other module's parameter raises, as do unmerged LoRA adapters
-under ``model > 1``.  The Bloom rules are here for the specs (held
-against JAX's); Bloom under a mesh is ROADMAP Queue 1 item 3.
+split any other module's parameter raises.
+
+Bloom / mPLUG-Owl layout (``BLOOM_SHARDING_RULES``, ``models/bloom.py``,
+``models/owl.py``): the head-major qkv ``[H, n, 3, d]`` and its bias cut
+on the heads (the rank's ALiBi slopes are its slice of the ladder), the
+output projection, fc1 / fc2 and the tied embedding as GPT-3's; the
+per-frame ViT as the vision tower above; each abstractor layer's q / k / v
+on their columns, its out projection on its rows (``out_bias`` after the
+sum), the MLP's w1 / w3 on their columns, w2 on its rows and ``ffn_ln``
+on the split intermediate width (``ops/layernorm.split_layer_norm``).
+
+LoRA adapters stay whole on every rank, as JAX's rules replicate every
+``lora_*`` leaf: on a split product the delta takes this rank's lanes of
+``b`` (column-parallel) or of ``a`` (row-parallel) (``ops/lora.py``,
+``cut_adapters``), and ``module.tp_partial`` names those adapters, whose
+gradient on a rank is its share: the train step sums them over the model
+group (``train/trainer.py``).
 ``unshard`` is the inverse (all-gather over the host group) and
 ``data_shard`` cuts a global batch by the data coordinate (JAX's
 ``data_sharding``).
@@ -43,6 +57,7 @@ import torch.distributed as dist
 from torch import nn
 
 from youku_mplug_tpu_torch.bridge import jax_path
+from youku_mplug_tpu_torch.ops.lora import LoRAModule, cut_adapters
 from youku_mplug_tpu_torch.ops.quant import SCALE_SUFFIX
 from youku_mplug_tpu_torch.parallel.tensor_parallel import ModelGroup
 from youku_mplug_tpu_torch.runtime.mesh import (
@@ -161,10 +176,12 @@ def shard_params(module: nn.Module, mesh: Mesh,
                  rules: ShardingRules = GPT3_SHARDING_RULES) -> nn.Module:
     """Keep this rank's slice of every parameter the rules split over the
     model axis (an int8 parameter's scales with it), hand the modules
-    that hold a slice their ``ModelGroup``, and set ``module.mesh`` and
-    ``module.tp_split`` ({name: the dim cut}), and ``mesh`` on every
-    submodule that declares one (the losses' data group,
-    ``parallel/data_parallel.py``).
+    that hold a slice their ``ModelGroup`` (and the adapters on their
+    split products their cut), and set ``module.mesh``,
+    ``module.tp_split`` ({name: the dim cut}) and ``module.tp_partial``
+    (the adapters a rank computes a share of the gradient of), and
+    ``mesh`` on every submodule that declares one (the losses' data
+    group, ``parallel/data_parallel.py``).
     Returns ``module``.  Under ``model == 1`` nothing is split."""
     specs = sharding_for_params(module.named_parameters(), mesh, rules)
     split = {name: d for name, spec in specs.items()
@@ -173,23 +190,21 @@ def shard_params(module: nn.Module, mesh: Mesh,
     if split and mesh.model_group is None:
         raise ValueError(f"a {mesh.data}x{mesh.model} mesh without process "
                          f"groups cannot hold model shards")
-    if split and any(name.rpartition(".")[2].startswith("lora_")
-                     for name, _ in module.named_parameters()):
-        raise NotImplementedError(
-            "unmerged LoRA adapters under model > 1: merge them "
-            "(ops/lora.merge_lora) first; unmerged adapters on a model "
-            "shard are not ported (ROADMAP Queue 1 item 4)")
     tp = ModelGroup(mesh.model_group, mesh.model_index, mesh.model)
     owners = {}  # module prefix -> module
+    partial = []  # replicated adapters whose gradient is a rank's share
     for name, dim in split.items():
         owner, leaf = _owner(module, name)
         if getattr(type(owner), "TP_PARAM", None) is None:
             raise NotImplementedError(
                 f"{name} ({type(owner).__name__}) has no model-parallel "
-                f"form: Bloom / Owl under a mesh is not ported (ROADMAP "
-                f"Queue 1 item 3)")
-        owners[name.rpartition(".")[0]] = owner
+                f"form")
+        prefix = name.rpartition(".")[0]
+        owners[prefix] = owner
         p = getattr(owner, leaf)
+        if isinstance(owner, LoRAModule):
+            partial += [".".join(filter(None, (prefix, a))) for a in
+                        cut_adapters(owner, leaf, tuple(p.shape), dim)]
         p.data = _split(p.data, dim, mesh.model_index, mesh.model)
         scale = getattr(owner, leaf + SCALE_SUFFIX, None)
         if scale is not None and scale.shape[dim] > 1:
@@ -203,7 +218,7 @@ def shard_params(module: nn.Module, mesh: Mesh,
     for m in module.modules():
         if hasattr(type(m), "mesh"):
             m.mesh = mesh
-    module.mesh, module.tp_split = mesh, split
+    module.mesh, module.tp_split, module.tp_partial = mesh, split, partial
     return module
 
 

@@ -25,7 +25,11 @@ card, and on CPU processes:
   tied logits of the vocab-parallel loss), so that the gradient below a
   sharded block is the whole one and not one rank's share of it.  Its
   twin ``reduce_from_model`` (*g*) sums forward and passes the gradient
-  through unchanged.
+  through unchanged;
+- ``sum_over_model``: a sum whose backward sums too, for a sum whose
+  result every rank then uses on its own slice (the statistics of a
+  LayerNorm over a split width: each rank's gradient with respect to the
+  sum is its slice's share, and the whole is their sum).
 
 A module that holds a sharded parameter carries ``tp``, its
 ``ModelGroup`` (set by ``parallel/sharding.shard_params``); with ``tp``
@@ -102,6 +106,30 @@ def reduce_from_model(x: torch.Tensor, tp: Optional[ModelGroup]
     if torch.is_grad_enabled() and x.requires_grad:
         return _Reduce.apply(x, tp.group)
     return _summed(x, tp.group)
+
+
+class _SumBoth(torch.autograd.Function):
+    """Sum forward, sum backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _summed(x, group, copy=True)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _summed(grad, ctx.group, copy=True), None
+
+
+def sum_over_model(x: torch.Tensor, tp: Optional[ModelGroup]
+                   ) -> torch.Tensor:
+    """The sum of ``x`` over the model ranks whose gradient is summed
+    over them too (``x`` itself without a model group)."""
+    if not _active(tp):
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _SumBoth.apply(x, tp.group)
+    return _summed(x, tp.group, copy=True)
 
 
 def copy_to_model(x: torch.Tensor, tp: Optional[ModelGroup]

@@ -44,14 +44,17 @@ the same replay, and adapters or weights copied in place after the
 capture (``ops/lora.inject_adapters``, a checkpoint restore) reach every
 later replay; replacing a parameter tensor (``p.data = ...``) would not.
 
-On a model shard (a decoder cut by ``parallel/sharding.shard_params``,
-``model > 1``) the engine dispatches every decode step eagerly and
-captures no CUDA graph (``graph_replays`` stays 0): gloo's collectives
-cannot be captured, and a capture of NCCL's cannot be tested with one
-card.  The cache holds the rank's own heads, and the logits every rank
-picks from are the gathered full vocabulary (``parallel/
-tensor_parallel.gather_vocab_logits``), so the model ranks pick the same
-tokens.  Prompt-lookup speculation (``step_lookup``) there raises.
+On a model shard (a GPT-3 or Bloom decoder cut by
+``parallel/sharding.shard_params``, ``model > 1``) the engine dispatches
+every decode step eagerly and captures no CUDA graph (``graph_replays``
+stays 0): gloo's collectives cannot be captured, and a capture of NCCL's
+cannot be tested with one card.  The cache holds the rank's own heads
+(Bloom's decode kernel takes their slice of the ALiBi ladder), and the
+logits every rank picks from are the gathered full vocabulary
+(``parallel/tensor_parallel.gather_vocab_logits``), so the model ranks
+pick the same tokens, sampled ones too (one generator seed a data rank).
+Prompt-lookup speculation (``step_lookup``) there raises (ROADMAP Queue 1
+item 4).
 Under ``model == 1`` nothing changes.
 """
 

@@ -17,13 +17,15 @@ paths and ranks, never a global shape, and AdamW's update is
 elementwise, so each rank updates its slices as the (1,1) state would;
 a zoo optimizer whose rule reads a whole leaf (a norm, a factored
 moment) over a model-split trainable leaf raises (ROADMAP Queue 1 item
-10).
+10).  ``partial`` holds the paths of the replicated LoRA adapters on a
+model-split product (``tp_partial``): a rank's gradient of one is its
+share, which the train step sums over the model group.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -46,6 +48,7 @@ class TrainState:
     step: int = 0  # train steps taken, skipped ones included
     mesh: Optional[Any] = None  # runtime/mesh.Mesh of a split model
     split: Dict[str, int] = dataclasses.field(default_factory=dict)
+    partial: Tuple[str, ...] = ()
 
 
 def create_train_state(model: nn.Module, config: OptimizerConfig,
@@ -74,7 +77,11 @@ def create_train_state(model: nn.Module, config: OptimizerConfig,
             f"optimizer {config.opt!r} on model-split trainable leaves: "
             f"only AdamW's elementwise update runs on a model shard "
             f"(ROADMAP Queue 1 item 10)")
+    partial = tuple(p for p in (jax_path(name) for name in
+                                getattr(model, "tp_partial", ()))
+                    if p in trainable)
     state = TrainState(trainable=trainable, frozen=frozen,
                        optimizer=optimizer,
-                       mesh=getattr(model, "mesh", None), split=split)
+                       mesh=getattr(model, "mesh", None), split=split,
+                       partial=partial)
     return state, optimizer, schedule

@@ -26,7 +26,10 @@ JAX's GSPMD program is: each rank's loss is its share of the global one
 metrics are summed over the data ranks (one ``all_reduce`` of the
 flattened gradients); ``grad_norm`` is the whole model's, the squares
 of the model-split leaves summed over the model ranks and the
-replicated leaves counted once (model rank 0's); the loss and a
+replicated leaves counted once (model rank 0's); the gradients of the
+replicated LoRA adapters on split products (the state's ``partial``),
+each rank's share, are first summed over the model ranks (one more
+``all_reduce``, ``ops/lora.py``); the loss and a
 non-finite flag ride in the same reduction, so that clipping and the
 skip are decided from the same values on every rank.  ``update_freq``
 splits the rank's own rows, which the train loader orders micro-batch
@@ -104,9 +107,14 @@ def make_train_step(loss_fn: Callable, update_freq: int = 1,
             torch._foreach_div_(grads, float(len(micro)))
         metrics = {k: torch.stack([o[k] for o in outs]).mean()
                    for k in outs[0]}
-        dp = data_group(state.mesh)
+        mesh = state.mesh
+        if state.partial and mesh.model > 1:
+            shares = set(state.partial)
+            _sum_grads([g for k, g in zip(state.trainable, grads)
+                        if k in shares], mesh.model_group)
+        dp = data_group(mesh)
         if dp is not None:
-            _sum_grads(grads, dp)
+            _sum_grads(grads, dp.group)
             total = sum_over_data(torch.stack(list(metrics.values())), dp)
             metrics = dict(zip(metrics, total))
         grad_norm, finite = _grad_norm(state, grads, metrics["loss"])
@@ -128,17 +136,17 @@ def make_train_step(loss_fn: Callable, update_freq: int = 1,
     return train_step
 
 
-def _sum_grads(grads: List[torch.Tensor], dp) -> None:
-    """Every gradient summed over the data ranks in place, in one
+def _sum_grads(grads: List[torch.Tensor], group) -> None:
+    """Every gradient summed over the process ``group`` in place, in one
     ``all_reduce`` a dtype of the flattened tensors."""
     by_dtype: Dict[torch.dtype, List[torch.Tensor]] = {}
     for g in grads:
         by_dtype.setdefault(g.dtype, []).append(g)
-    for group in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in group])
-        dist.all_reduce(flat, group=dp.group)
-        for g, f in zip(group, torch.split(flat, [g.numel()
-                                                  for g in group])):
+    for same in by_dtype.values():
+        flat = torch.cat([g.reshape(-1) for g in same])
+        dist.all_reduce(flat, group=group)
+        for g, f in zip(same, torch.split(flat, [g.numel()
+                                                 for g in same])):
             g.copy_(f.view_as(g))
 
 
