@@ -474,8 +474,36 @@ of the ViT's 24 blocks.  Where a phase below says "depth", read the cut.
    16-31 of 32 ([OWL_MESH_LAYERS,8,256,2x16x128], bf16 and int8), K1 /
    K2/K3 ALiBi at [8,105,16x128] with the slopes 16..31 and K1 at the
    ViT's 8 local heads [64,257,8x64].  [instruct_mesh <split>] and
-   [instruct_train_mesh <split>] lines; [time] lines give the script's
-   seconds after each group of phases.
+   [instruct_train_mesh <split>] lines;
+43. parallel (in phase 40's (1,2) call, after phase 42's runs, on its
+   two gloo ranks on card 0; gated after phase 42): the port's context,
+   pipeline and expert parallelism, each part against the same code at
+   one rank (no group) in the same processes, forward and backward (a
+   loss of the output times fixed bf16 weights), with launches a rank
+   exactly as ``parallel_launches`` predicts, no plain or library
+   attention (patched to raise), outputs within KERNEL_TOL, gradients
+   within BWD_TOL (relative L2): ``ring_attention`` at sp = 2 on
+   SP_SHAPE ([2, 32, 8192, 64] bf16, the GPT-3 1.3B's 32 heads of 64,
+   4096 tokens a rank), causal and not, its blocks on K4 and K4b (the
+   ring's own counter for the forward's K4); ``ulysses_attention`` on the
+   same (16 heads a rank over the 8192 tokens, K4 and K4b through
+   dot_product_attention); ``gpipe`` at pipe = 2 over the 1.3B decoder's
+   24 layers at full width (12 a stage, the port's layer loop, K1 causal
+   forward and K2/K3 / delta backward) on 4 microbatches of 4 rows at
+   208 tokens, every stage leaf's gradient and the microbatches' held
+   against the 24-layer stack; ``MoEMLP`` at ep = 2 (the 1.3B's FFN
+   width, M 2048, F 8192, E 8, k 2, capacity factor 1.25, fp32 leaves) on
+   [16, 208, 2048] bf16, its experts cut by ``shard_params`` with the
+   expert rules, y, aux and the gradients of x and all five leaves (the
+   router's whole on each rank) against the whole module.  Per part the
+   ms of a forward and backward at P = 2 (both ranks, host clock) and at
+   one rank alone, exchanges and all_reduces a rank and their bytes, peak
+   memory; phase 2 holds K4 / K4b at the ring's block shapes ([2, 32,
+   4096, 64] contiguous, causal and not) and K1 / K2/K3 at GPipe's [4,
+   208, 32x64].  Two ranks on one card under gloo: the exchanges copy
+   through the host, so no number here measures NCCL.  [parallel <part>]
+   lines; [time] lines give the script's seconds after each group of
+   phases.
 """
 
 from __future__ import annotations
@@ -923,6 +951,8 @@ def _bwd_case(rand, fa, b, sq, sk, n, causal, period, kv_len, layout,
     elif layout == "head-major":
         qkv5 = rand(b, sq, n, 3, d)
         parts = [qkv5[..., i, :] for i in range(3)]
+    elif layout == "bhsd":  # contiguous [B, H, S, D], the ring's blocks
+        parts = [rand(b, n, s, d).transpose(1, 2) for s in (sq, sk, sk)]
     else:
         parts = [rand(b, s, nd).unflatten(-1, (n, d))
                  for s in (sq, sk, sk)]
@@ -1051,6 +1081,26 @@ TRAIN_MESH_SHAPES = [
      "train_mesh_2x1", True),
     (224, 112, 112, 3, False, 8, None, "heads", 64, False,
      "model = 4 shard, head-major with the period mask", False)]
+# phase 43: ring attention's K/V blocks at sp = 2 (contiguous [2, 32,
+# 4096, 64], the 1.3B's heads over 4096 tokens a rank: the diagonal block
+# causal, an earlier rank's unmasked; K4 forward and K4b backward, the
+# ring's own wrapper counting the forward), Ulysses' 16 heads a rank over
+# the whole 8192 tokens (contiguous [2, 16, 8192, 64] after its
+# all_to_all, causal and not; K4 through flash_attention and K4b), and
+# GPipe's microbatch of 4 rows through a 1.3B decoder layer (K1 causal
+# and its backward)
+RING_SHAPES = [
+    (2, 4096, 4096, 32, True, 0, None, "bhsd", 64, False, "ring_sp2", True),
+    (2, 4096, 4096, 32, False, 0, None, "bhsd", 64, False, "ring_sp2",
+     True)]
+ULYSSES_SHAPES = [
+    (2, 8192, 8192, 16, True, 0, None, "bhsd", 64, False, "ulysses_sp2",
+     True),
+    (2, 8192, 8192, 16, False, 0, None, "bhsd", 64, False, "ulysses_sp2",
+     True)]
+PARALLEL_SHAPES = [
+    (4, 208, 208, 32, True, 0, None, "packed", 64, False, "gpipe_pipe2",
+     True)]
 # Bloom's training attention, ALiBi causal at head dim 128 on head views
 # of the head-major fused projection: the instruct-train step's [8, 105,
 # 32x128] (a 99-token prompt with the 65 media positions, 5 answer words
@@ -1151,7 +1201,8 @@ BWD_PATHS = ("train", "caption_train", "instruct_train",
              "instruct_hf_train", "pretrain_files", "cls_files_train",
              "instruct_files_train", "knobs_instruct_train") \
     + D96_TRAIN_PATHS + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS \
-    + IMAGE_TRAIN_PATHS + TRAIN_MESH_PATHS + OWL_TRAIN_MESH_PATHS
+    + IMAGE_TRAIN_PATHS + TRAIN_MESH_PATHS + OWL_TRAIN_MESH_PATHS \
+    + ("ring_sp2", "ulysses_sp2", "gpipe_pipe2")
 
 # head dim 80, the GPT-3 2.7B decoder (32 heads of 80), on head views of
 # the fused qkv projection: the cls evaluation's decoder passes (4 clips x
@@ -1501,6 +1552,7 @@ def phase_kernels(dev, builds, owl_beam):
     from youku_mplug_tpu_torch.ops import decode_attention as dec
     from youku_mplug_tpu_torch.ops import flash_attention as fa
     from youku_mplug_tpu_torch.ops import kv_cache as kvc
+    from youku_mplug_tpu_torch.parallel import ring_attention as ra
 
     flash_builds = phase_flash_builds(fa, builds)
 
@@ -1610,7 +1662,9 @@ def phase_kernels(dev, builds, owl_beam):
     # the forward again, then the backward kernels, at the training shapes
     # (K1 packed and K4 head-major) and at Bloom's ALiBi shapes
     cases = [_bwd_case(rand, fa, *c)
-             for c in BWD_SHAPES + TRAIN_MESH_SHAPES]
+             for c in BWD_SHAPES + TRAIN_MESH_SHAPES + PARALLEL_SHAPES]
+    ring_cases = [_bwd_case(rand, fa, *c) for c in RING_SHAPES]
+    ulysses_cases = [_bwd_case(rand, fa, *c) for c in ULYSSES_SHAPES]
     alibi_cases = [_bwd_case(rand, fa, *c) for c in ALIBI_SHAPES]
     no_alibi_128 = alibi_cases.pop()
     d96 = [_bwd_case(rand, fa, *c) for c in D96_SHAPES]
@@ -1628,6 +1682,7 @@ def phase_kernels(dev, builds, owl_beam):
            if c["layout"] == "heads" and (not c["fwd"]["on_path"]
                                           or "train_mesh" in
                                           c["fwd"]["shape"])]
+    k4 += [c["fwd"] for c in ulysses_cases]
     report = [
         _entry("K1 flash_attention_packed (vision spatial + temporal, "
                "decoder causal, CLIP ViT-L frames)", FWD_SRC,
@@ -1644,7 +1699,7 @@ def phase_kernels(dev, builds, owl_beam):
                                       "knobs_instruct_train")
                + BERT_TRAIN_PATHS + BERT_EVAL_PATHS + IMAGE_TRAIN_PATHS
                + MESH_PATHS + TRAIN_MESH_PATHS + OWL_MESH_PATHS
-               + OWL_TRAIN_MESH_PATHS, "K1", k1),
+               + OWL_TRAIN_MESH_PATHS + ("gpipe_pipe2",), "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
@@ -1652,7 +1707,14 @@ def phase_kernels(dev, builds, owl_beam):
                 "speculative_ngram", "caption_train", "caption_eval",
                 "serve_files", "pretrain_files", "image_pretrain")
                + CKPT_SERVE_PATHS + KNOBS_SERVE_PATHS + KNOBS_TRAIN_PATHS
-               + MESH_PATHS + TRAIN_MESH_PATHS, "K4", k4)]
+               + MESH_PATHS + TRAIN_MESH_PATHS + ("ulysses_sp2",), "K4",
+               k4),
+        _entry("K4 flash_fwd_cuda as ring attention's block kernel (each "
+               "K/V block's partial o and lse, merged in fp32 by the lse; "
+               "in place of the einsum _block_attend, "
+               "youku_mplug_tpu/parallel/ring_attention.py:27)", FWD_SRC,
+               f"{TPU_FLASH}:59", ra.ring_attention, ("ring_sp2",),
+               "K4-ring", [c["fwd"] for c in ring_cases])]
     for kind, wrapper, line, line_hm in (
             ("dq", fa.flash_bwd_dq_cuda, 723, 148),
             ("dkv", fa.flash_bwd_dkv_cuda, 791, 195)):
@@ -1662,8 +1724,10 @@ def phase_kernels(dev, builds, owl_beam):
             f"{TPU_FLASH}:{line}", wrapper,
             ("train", "caption_train", "pretrain_files",
              "knobs_instruct_train") + KNOBS_TRAIN_PATHS + BERT_TRAIN_PATHS
-            + IMAGE_TRAIN_PATHS + TRAIN_MESH_PATHS, kind,
-            [c[kind] for c in cases] + [no_alibi_128[kind]]))
+            + IMAGE_TRAIN_PATHS + TRAIN_MESH_PATHS
+            + ("ring_sp2", "ulysses_sp2", "gpipe_pipe2"), kind,
+            [c[kind] for c in cases + ring_cases + ulysses_cases]
+            + [no_alibi_128[kind]]))
     report.append(_entry(
         "K1 flash_attention_packed, ALiBi causal (Bloom training, head dim "
         "128)", FWD_SRC, f"{TPU_FLASH}:426", fa.flash_attention_packed,
@@ -1742,7 +1806,8 @@ def phase_kernels(dev, builds, owl_beam):
         "every head dim (XLA-fused in the JAX package: no Pallas kernel)",
         BWD_SRC, f"{TPU_FLASH}:252 (_bwd; :951 in _bwd_packed)",
         fa.flash_bwd_delta_cuda, BWD_PATHS, "delta",
-        [c["delta"] for c in cases + alibi_cases + [no_alibi_128]
+        [c["delta"] for c in cases + ring_cases + ulysses_cases + alibi_cases
+         + [no_alibi_128]
          + train96 + [key_tiles96] + d80[1:] + d88]))
     report += _decode_entries(dec, kvc, rand, owl_beam)
     for r in report:
@@ -7014,7 +7079,7 @@ def _mesh_replay(args, cfg, model, tokens):
 
 
 def mesh_rank(yaml_path, backend, device, out_dir, ref_path,
-              train_specs="[]", owl_spec="{}"):
+              train_specs="[]", owl_spec="{}", parallel_dir=""):
     """One rank of phases 40-42 (``chip_smoke.py --mesh-rank`` under
     torch.distributed.run): the serve CLI's ``build`` and ``serve_built``
     (all ``python -m youku_mplug_tpu_torch.cli.serve`` runs) on the
@@ -7026,7 +7091,8 @@ def mesh_rank(yaml_path, backend, device, out_dir, ref_path,
     ``train_specs`` (a JSON list: phase 41's splits of this world, in
     order, ``train_mesh_rank``) and phase 42's serving and training of
     ``owl_spec`` (JSON, ``_owl_mesh_specs``'s), each model freed
-    first."""
+    first, and with ``parallel_dir`` phase 43's parts (``parallel_rank``)
+    last."""
     from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
 
     try:
@@ -7042,6 +7108,10 @@ def mesh_rank(yaml_path, backend, device, out_dir, ref_path,
             _owl_mesh_serve(owl["serve"])
             for spec in owl.get("train", []):
                 train_mesh_rank(json.dumps(spec))
+        if parallel_dir:
+            gc.collect()
+            torch.cuda.empty_cache()
+            parallel_rank(parallel_dir, device)
     finally:
         mesh_lib.distributed_shutdown()
 
@@ -7278,7 +7348,8 @@ def phase_serve_mesh(report, out_dir, tok_dir):
     the same processes, phase 41's training splits of its world ((1,1);
     (1,2), then (2,1) resuming it) and phase 42's serving and training
     of its split, under ``out_dir/owl`` (their gates are those phases'
-    own; its ``serve.log`` holds them all).  Returns the seconds of each
+    own; its ``serve.log`` holds them all), and the (1,2) call phase 43's
+    parts under ``out_dir/parallel``.  Returns the seconds of each
     call."""
     t_phase = time.perf_counter()
     ref_path = os.path.join(out_dir, "1x1", "serve_results.json")
@@ -7299,7 +7370,9 @@ def phase_serve_mesh(report, out_dir, tok_dir):
         run_s = calls[tag] = _torchrun(n, [
             os.path.join(REPO, "chip_smoke.py"), "--mesh-rank", yaml_path,
             backend, device, d, ref_path, json.dumps(train),
-            json.dumps(owl[tag])], os.path.join(d, "serve.log"))
+            json.dumps(owl[tag]),
+            os.path.join(out_dir, "parallel") if tag == "1x2" else ""],
+            os.path.join(d, "serve.log"))
         with open(os.path.join(d, "serve.log")) as f:
             stats = json.loads(next(line.split("* Serve stats:", 1)[1]
                                     for line in f if "* Serve stats:" in
@@ -7943,6 +8016,420 @@ def phase_instruct_mesh(report, out_dir):
           f"phase 40's calls | {CARD}", flush=True)
 
 
+# phase 43: context, pipeline and expert parallelism (the port's
+# parallel/ring_attention.py, pipeline.py, moe.py) on phase 40's (1,2)
+# ranks, two gloo ranks on card 0, each part against the same code at one
+# rank (no group) in the same processes.  The sequence of the ring and
+# Ulysses: [B, H, S, D] at the GPT-3 1.3B's attention width (32 heads of
+# 64), 4096 tokens a rank
+SP_SHAPE = (2, 32, 8192, 64)
+# GPipe over the 1.3B decoder's layer stack at full width and depth (12
+# layers a stage): PIPE_MICRO microbatches of PIPE_ROWS rows at
+# PIPE_TOKENS tokens, the flagship pretrain batch of 16
+PIPE_MICRO, PIPE_ROWS, PIPE_TOKENS = 4, 4, 208
+GPT13_JSON = os.path.join(REPO, "configs", "models", "config_gpt3_1.3B.json")
+# the MoE at the 1.3B's FFN width: E experts, top-k, capacity factor, on
+# [MOE_ROWS, MOE_TOKENS, 2048]; its loss adds MOE_AUX_WEIGHT x aux
+MOE_EXPERTS, MOE_K, MOE_CF = 8, 2, 1.25
+MOE_ROWS, MOE_TOKENS, MOE_AUX_WEIGHT = 16, 208, 0.01
+PARALLEL_ITERS = 3  # timed calls of each part (forward and backward)
+# the parts a rank runs: {part: (kind, causal, path)}
+PARALLEL_PARTS = {"ring_causal": ("ring", True, "ring_sp2"),
+                  "ring_full": ("ring", False, "ring_sp2"),
+                  "ulysses_causal": ("ulysses", True, "ulysses_sp2"),
+                  "ulysses_full": ("ulysses", False, "ulysses_sp2"),
+                  "gpipe": ("gpipe", False, "gpipe_pipe2"),
+                  "moe": ("moe", False, "moe_ep2")}
+PARALLEL_PATHS = ("ring_sp2", "ulysses_sp2", "gpipe_pipe2", "moe_ep2")
+def _parallel_counters():
+    """The counters a phase 43 rank reads: {report key: wrapper}, each
+    counting in its ``launches``; K4-ring is the ring's own count of its
+    K4 launches."""
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+    from youku_mplug_tpu_torch.parallel import ring_attention as ra
+
+    return {"K4-ring": ra.ring_attention, "K4": fa.flash_attention,
+            "K1": fa.flash_attention_packed, "dq": fa.flash_bwd_dq_cuda,
+            "dkv": fa.flash_bwd_dkv_cuda, "delta": fa.flash_bwd_delta_cuda}
+
+
+def _parallel_counts(reset=False):
+    """{report key: launches} since the last reset (and reset them)."""
+    out = {}
+    for key, fn in _parallel_counters().items():
+        out[key] = fn.launches
+        if reset:
+            fn.launches = 0
+    return {k: v for k, v in out.items() if v}
+
+
+def parallel_launches(kind, causal, rank, world):
+    """Launches a rank of ``world`` (1: the one-rank reference) makes in
+    one forward and backward of a phase 43 part, written in PERF.md before
+    the first chip run: the ring's K4 once a K/V block it attends (under
+    causal its own and the earlier ranks', i + 1; else all P) and K4b's dq
+    and dk/dv as often, one delta; Ulysses one K4 and one K4b over its
+    H/P heads of the whole sequence; GPipe's every tick on every stage
+    (M + P - 1 ticks of L/P layers, K1 forward, K2/K3 and delta
+    backward, the bubble ticks' zero gradients included); the MoE none."""
+    if kind == "ring":
+        blocks = rank + 1 if causal else world
+        return {"K4-ring": blocks, "dq": blocks, "dkv": blocks, "delta": 1}
+    if kind == "ulysses":
+        return {"K4": 1, "dq": 1, "dkv": 1, "delta": 1}
+    if kind == "gpipe":
+        n = (PIPE_MICRO + world - 1) * (24 // world)
+        return {"K1": n, "dq": n, "dkv": n, "delta": n}
+    return {}
+
+
+class _MoEHolder(torch.nn.Module):
+    """The MoE under a ``moe`` path, where the expert rules match it."""
+
+    def __init__(self, moe_mod):
+        super().__init__()
+        self.moe = moe_mod
+
+
+def _no_plain():
+    """Patches under which a plain attention or the library's raises:
+    the parallel paths run the kernels alone."""
+    import contextlib
+
+    from youku_mplug_tpu_torch.ops import attention
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+
+    def refuse(*a, **k):
+        raise AssertionError("a plain or library attention ran")
+    stack = contextlib.ExitStack()
+    for mod, name in ((fa, "flash_fwd_plain"), (fa, "flash_bwd_plain"),
+                      (fa, "flash_attention_plain"),
+                      (fa, "flash_attention_packed_plain"),
+                      (attention, "mha_reference"),
+                      (torch.nn.functional, "scaled_dot_product_attention")):
+        stack.enter_context(mock.patch.object(mod, name, refuse))
+    return stack
+
+
+def _split_run(run, iters):
+    """One run of ``run`` counted (launches, exchanges and all_to_alls,
+    all_reduces, peak memory), then ``iters`` timed with both ranks (host
+    clock between barriers, synchronized).  Returns (its result, the
+    record)."""
+    import torch.distributed as dist
+
+    from youku_mplug_tpu_torch.parallel import collectives
+
+    calls = []
+    reduce = dist.all_reduce
+
+    def counted(*a, **k):
+        calls.append(a[0].numel() * a[0].element_size())
+        return reduce(*a, **k)
+    _parallel_counts(reset=True)
+    collectives.Counts.reset()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _no_plain(), mock.patch.object(dist, "all_reduce", counted):
+        result = run()
+        torch.cuda.synchronize()
+    rec = {"launches": _parallel_counts(),
+           "exchanges": collectives.Counts.calls,
+           "exchange_bytes": collectives.Counts.bytes_sent,
+           "all_reduces": len(calls), "all_reduce_bytes": sum(calls),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        run()
+    torch.cuda.synchronize()
+    rec["ms"] = (time.perf_counter() - t0) / iters * 1e3
+    dist.barrier()
+    return result, rec
+
+
+def _ref_run(run, iters, rank):
+    """The one-rank reference: one run counted (launches, peak), then
+    ``iters`` timed on rank 0 alone (the other ranks wait at a barrier,
+    so it has the card to itself)."""
+    import torch.distributed as dist
+
+    _parallel_counts(reset=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with _no_plain():
+        result = run()
+        torch.cuda.synchronize()
+    rec = {"launches": _parallel_counts(),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    dist.barrier()
+    if rank == 0:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+        rec["ms"] = (time.perf_counter() - t0) / iters * 1e3
+    dist.barrier()
+    return result, rec
+
+
+def _grad_errs(got, want):
+    return {k: rel_l2(got[k], want[k]) for k in want}
+
+
+def _fwd_errs(got, want):
+    """A part's output against its one-rank reference: elementwise
+    (``within``), relative L2, and the reference's mean |value| (what
+    the elementwise limit compares with)."""
+    return {"fwd_err": err(got, want), "fwd_ok": within(got, want),
+            "fwd_rel_l2": rel_l2(got, want),
+            "ref_mean_abs": want.float().abs().mean().item()}
+
+
+def _sp_part(kind, causal, sp, dev):
+    """Ring or Ulysses attention of SP_SHAPE's bf16 q, k, v over ``sp``
+    against the same function at one rank: the output (elementwise) and
+    dq, dk, dv (relative L2) of this rank's sequence block."""
+    from youku_mplug_tpu_torch.parallel import ring_attention as ra
+
+    fn = ra.ring_attention if kind == "ring" else ra.ulysses_attention
+    b, h, s, d = SP_SHAPE
+    g = torch.Generator(device=dev).manual_seed(43)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=g, device=dev).to(
+        torch.bfloat16) for _ in range(4))
+    n = s // sp.size
+    cut = slice(sp.index * n, (sp.index + 1) * n)
+
+    def run(axis, rows):
+        leaves = [t[:, :, rows].clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves, axis=axis, causal=causal)
+        out.backward(do[:, :, rows])
+        return out.detach(), dict(zip(("dq", "dk", "dv"),
+                                      (t.grad for t in leaves)))
+    (ref_out, ref_g), ref = _ref_run(lambda: run(None, slice(None)),
+                                     PARALLEL_ITERS, sp.index)
+    (out, grads), rec = _split_run(lambda: run(sp, cut), PARALLEL_ITERS)
+    return {**rec, "ref": ref, **_fwd_errs(out, ref_out[:, :, cut]),
+            "grad_rel_l2": _grad_errs(grads, {k: t[:, :, cut]
+                                               for k, t in ref_g.items()}),
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in [out, *grads.values()])}
+
+
+def _pipe_part(pipe, dev):
+    """GPipe over the 1.3B decoder's 24 layers (L/P a stage, each the
+    port's layer loop through ``functional_call``) against the same
+    ``gpipe`` at one rank over the whole stack: the output
+    (elementwise), every stage leaf's gradient and the microbatches'
+    (relative L2)."""
+    from youku_mplug_tpu_torch import bridge
+    from youku_mplug_tpu_torch.models.gpt3 import GPT3Config, GPT3Layer
+    from youku_mplug_tpu_torch.parallel import pipeline
+
+    cfg = GPT3Config.from_json_file(GPT13_JSON, hidden_dropout=0.0,
+                                    attention_dropout=0.0)
+    n_layers = cfg.num_hidden_layers
+    with torch.device(dev):
+        full = bridge.seeded_init(GPT3Layer(cfg, n_layers, torch.bfloat16),
+                                  43)
+    with torch.device("meta"):
+        stage_mod = GPT3Layer(cfg, n_layers // pipe.size, torch.bfloat16)
+
+    def stage_fn(module, layers):
+        def fn(params, x):
+            for lidx in range(layers):
+                x = torch.func.functional_call(module, params, (x, lidx))
+            return x
+        return fn
+    g = torch.Generator(device=dev).manual_seed(44)
+    shape = (PIPE_MICRO, PIPE_ROWS, PIPE_TOKENS, cfg.hidden_size)
+    xs, w = (torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+             for _ in range(2))
+    whole = {k: p.detach() for k, p in full.named_parameters()}
+
+    def run(params, axis, fn):
+        leaves = {k: p.clone().requires_grad_() for k, p in params.items()}
+        x = xs.clone().requires_grad_()
+        out = pipeline.gpipe(fn, leaves, x, axis=axis)
+        (out.float() * w).sum().backward()
+        return out.detach(), {k: p.grad for k, p in leaves.items()}, x.grad
+    (ref_out, ref_g, ref_dx), ref = _ref_run(
+        lambda: run(whole, None, stage_fn(full, n_layers)), PARALLEL_ITERS,
+        pipe.index)
+    local = pipeline.stack_to_stages(whole, pipe)
+    (out, grads, dx), rec = _split_run(
+        lambda: run(local, pipe, stage_fn(stage_mod, n_layers // pipe.size)),
+        PARALLEL_ITERS)
+    del full
+    want_g = pipeline.stack_to_stages(ref_g, pipe)
+    errs = _grad_errs(grads, want_g)
+    errs["microbatches"] = rel_l2(dx, ref_dx)
+    return {**rec, "ref": ref, **_fwd_errs(out, ref_out),
+            "bitwise": bool(torch.equal(out, ref_out)),
+            "grad_rel_l2": errs,
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in [out, dx, *grads.values()])}
+
+
+def _moe_part(dev):
+    """MoEMLP at the 1.3B's FFN width, its experts cut over a (1, 2)
+    mesh's model axis (``shard_params`` with the expert rules), against
+    the whole module in the same process: y (elementwise), aux, and the
+    gradients of x and of all five leaves, the router's included
+    (relative L2; an expert leaf against its slice of the whole)."""
+    from youku_mplug_tpu_torch import bridge
+    from youku_mplug_tpu_torch.parallel import moe, sharding
+    from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
+
+    with open(GPT13_JSON) as f:
+        hidden = json.load(f)["hidden_size"]
+    ffn = 4 * hidden
+
+    def make():
+        return _MoEHolder(moe.MoEMLP(hidden, MOE_EXPERTS, ffn, k=MOE_K,
+                                     capacity_factor=MOE_CF).to(dev))
+    whole = bridge.seeded_init(make(), 45)
+    split = make()
+    split.load_state_dict(whole.state_dict())
+    mesh = mesh_lib.make_mesh(mesh_lib.MeshConfig(data=1, model=2))
+    sharding.shard_params(split, mesh, sharding.MOE_SHARDING_RULES
+                          + ((r".*", ()),))
+    g = torch.Generator(device=dev).manual_seed(46)
+    x, w = (torch.randn(MOE_ROWS, MOE_TOKENS, hidden, generator=g,
+                        device=dev).to(torch.bfloat16) for _ in range(2))
+
+    def run(model):
+        model.zero_grad(set_to_none=True)
+        xl = x.clone().requires_grad_()
+        y, aux = model.moe(xl)
+        ((y.float() * w).sum() + MOE_AUX_WEIGHT * aux).backward()
+        return (y.detach(), aux.detach(), xl.grad,
+                {k: p.grad for k, p in model.moe.named_parameters()})
+    (ref_y, ref_aux, ref_dx, ref_g), ref = _ref_run(
+        lambda: run(whole), PARALLEL_ITERS, mesh.model_index)
+    (y, aux, dx, grads), rec = _split_run(lambda: run(split), PARALLEL_ITERS)
+    want = {k: (sharding.local_slice(t, 0, mesh) if k in ("w1", "b1", "w2",
+                                                          "b2") else t)
+            for k, t in ref_g.items()}
+    errs = _grad_errs(grads, want)
+    errs["x"] = rel_l2(dx, ref_dx)
+    return {**rec, "ref": ref, **_fwd_errs(y, ref_y),
+            "aux": float(aux), "aux_err": abs(float(aux) - float(ref_aux)),
+            "grad_rel_l2": errs,
+            "local_shapes": {k: list(p.shape)
+                             for k, p in split.moe.named_parameters()},
+            "finite": all(bool(torch.isfinite(t).all())
+                          for t in [y, dx, *grads.values()])}
+
+
+def parallel_rank(out_dir, device):
+    """Phase 43 on this rank of phase 40's (1, 2) call (see the module
+    docstring): each part's record as ``out_dir/rank<r>.json``."""
+    import torch.distributed as dist
+
+    from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
+
+    dev = torch.device(device)
+    torch.cuda.set_device(dev)
+    world = dist.get_world_size()
+    t0 = time.perf_counter()
+    sp = mesh_lib.named_axes([("sp", world)])["sp"]
+    record = {"rank": dist.get_rank()}
+    for kind in ("ring", "ulysses"):
+        for causal in (True, False):
+            record[f"{kind}_{'causal' if causal else 'full'}"] = _sp_part(
+                kind, causal, sp, dev)
+            gc.collect()
+            torch.cuda.empty_cache()
+    pipe = mesh_lib.named_axes([("data", 1), ("pipe", world)])["pipe"]
+    record["gpipe"] = _pipe_part(pipe, dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    record["moe"] = _moe_part(dev)
+    record["seconds"] = time.perf_counter() - t0
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"rank{record['rank']}.json"),
+              "w") as f:
+        json.dump(record, f)
+
+
+def phase_parallel(report, out_dir):
+    """Phase 43's gates on its ranks' records (see the module docstring):
+    launches a rank of each part and of its one-rank reference exactly as
+    ``parallel_launches`` predicts, outputs within KERNEL_TOL
+    (elementwise) and BWD_TOL (relative L2), every gradient within
+    BWD_TOL (relative L2), MoE's aux equal; each path's launches into the
+    report."""
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    paths = {}
+    for part, (kind, causal, path) in PARALLEL_PARTS.items():
+        for rk in ranks:
+            rec = rk[part]
+            tag = f"{part} rank {rk['rank']}"
+            want = parallel_launches(kind, causal, rk["rank"], 2)
+            ref_want = parallel_launches(kind, causal, 0, 1)
+            if rec["launches"] != want or rec["ref"]["launches"] != ref_want:
+                fail(f"{tag}: launches {rec['launches']}, its one-rank "
+                     f"reference {rec['ref']['launches']}; predicted {want}, "
+                     f"{ref_want}")
+            worst = max(rec["grad_rel_l2"].values())
+            if not (rec["fwd_ok"] and rec["fwd_rel_l2"] <= BWD_TOL
+                    and rec["finite"] and worst <= BWD_TOL):
+                fail(f"{tag}: forward max err {rec['fwd_err']} (tol "
+                     f"{KERNEL_TOL} x (1 + |ref|)), relative L2 "
+                     f"{rec['fwd_rel_l2']} (tol {BWD_TOL}), gradients' "
+                     f"relative L2 "
+                     f"{rec['grad_rel_l2']} (tol {BWD_TOL}), finite "
+                     f"{rec['finite']}")
+            if kind == "moe" and rec["aux_err"] > 1e-6 * abs(rec["aux"]):
+                fail(f"{tag}: aux {rec['aux']} off the whole module's by "
+                     f"{rec['aux_err']}")
+            for key, n in rec["launches"].items():
+                paths.setdefault(path, {}).setdefault(key, 0)
+                paths[path][key] += n
+        r0, r1 = (rk[part] for rk in ranks)
+        print(f"[parallel {part}] 2 gloo ranks on card 0 (host copies, no "
+              f"NCCL) | launches rank 0 {r0['launches']}, rank 1 "
+              f"{r1['launches']}, one rank {r0['ref']['launches']} | "
+              f"forward max err {max(r0['fwd_err'], r1['fwd_err']):.4g} "
+              f"(tol {KERNEL_TOL:.4g} x (1 + |ref|)), relative L2 "
+              f"{max(r0['fwd_rel_l2'], r1['fwd_rel_l2']):.4g} (tol "
+              f"{BWD_TOL:.4g}), the reference's mean |value| "
+              f"{r0['ref_mean_abs']:.4g} / {r1['ref_mean_abs']:.4g}"
+              + (f", bitwise {r0['bitwise'] and r1['bitwise']}"
+                 if "bitwise" in r0 else "")
+              + (f", aux {r0['aux']:.6g}" if kind == "moe" else "")
+              + " | gradients' relative L2, worst of the ranks: "
+              + json.dumps({k: max(r0["grad_rel_l2"][k],
+                                   r1["grad_rel_l2"][k])
+                            for k in r0["grad_rel_l2"]})
+              + f" (tol {BWD_TOL:.4g}) | a call (forward and backward) "
+              f"{r0['ms']:.2f} ms at P = 2, {r0['ref']['ms']:.2f} ms at one "
+              f"rank alone | exchanges {r0['exchanges']} "
+              f"({r0['exchange_bytes'] / 2**20:.1f} MiB sent), all_reduces "
+              f"{r0['all_reduces']} ({r0['all_reduce_bytes'] / 2**20:.1f} "
+              f"MiB) a rank | peak {r0['peak_memory_bytes'] / 2**30:.3f} / "
+              f"{r1['peak_memory_bytes'] / 2**30:.3f} GiB (one rank "
+              f"{r0['ref']['peak_memory_bytes'] / 2**30:.3f})"
+              + (f" | local shapes {r0['local_shapes']}" if kind == "moe"
+                 else "") + f" | {CARD}", flush=True)
+    counted = _parallel_counters()
+    for path in PARALLEL_PATHS:
+        for r in report:
+            key = r["key"] if r["key"] in counted else None
+            r.setdefault("launches_by_path", {})[path] = (
+                paths.get(path, {}).get(key, 0) if key else 0)
+        missing = [r["name"] for r in report if path in r["paths"]
+                   and r["launches_by_path"][path] == 0]
+        if missing:
+            fail(f"the {path} path never launched: {missing}")
+    print(f"[parallel] phase 43 in its ranks: "
+          f"{max(rk['seconds'] for rk in ranks):.1f} s | {CARD}", flush=True)
+
+
 def _mark(what):
     """The script's seconds so far, after ``what``."""
     print(f"[time] {what} done at {time.perf_counter() - START:.1f} s",
@@ -7950,7 +8437,7 @@ def _mark(what):
 
 
 def _phases(report, files_root, tok_dir):
-    """Phases 3-42 in their order (see the module docstring); ``tok_dir``
+    """Phases 3-43 in their order (see the module docstring); ``tok_dir``
     holds the instruct tokenizer files of phases 25-26 and 42.  ``_mark`` prints
     the script's seconds after each group of phases (the budget's
     breakdown)."""
@@ -8122,15 +8609,16 @@ def _phases(report, files_root, tok_dir):
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as out_dir:
         phase_serve_mesh(report, out_dir, tok_dir)
-        _mark("40 serve_mesh (with the runs of 41 and 42)")
+        _mark("40 serve_mesh (with the runs of 41, 42 and 43)")
         phase_train_mesh(report, out_dir)
         phase_instruct_mesh(report, os.path.join(out_dir, "owl"))
-        _mark("41-42 gates")
+        phase_parallel(report, os.path.join(out_dir, "parallel"))
+        _mark("41-43 gates")
 
 
 def main():
     global CARD
-    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phases 40-42
+    if sys.argv[1:2] == ["--mesh-rank"]:  # a rank of phases 40-43
         sys.path.insert(0, REPO)
         torch.backends.cuda.matmul.allow_tf32 = False
         mesh_rank(*sys.argv[2:])

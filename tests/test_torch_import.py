@@ -50,7 +50,9 @@ _NO_JAX = textwrap.dedent("""
                  "data.vg_transforms", "data.refer", "data.remote_io",
                  "evals.grounding", "evals.vqa", "runtime.mesh",
                  "runtime.prng", "parallel.sharding",
-                 "parallel.tensor_parallel"):
+                 "parallel.tensor_parallel", "parallel.collectives",
+                 "parallel.ring_attention", "parallel.pipeline",
+                 "parallel.moe"):
         assert "youku_mplug_tpu_torch." + name in names, name
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax",

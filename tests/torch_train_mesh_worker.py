@@ -67,8 +67,9 @@ TIMEOUT_S = 120  # every collective's limit: a lost rank fails the run
 DEADLINE_S = 300  # a world's processes, all its entries
 
 
-def spawn(mode, world, out, spec, deadline=DEADLINE_S):
-    """``world`` gloo ranks of the worker; fails (after killing every
+def spawn(mode, world, out, spec, deadline=DEADLINE_S, script=__file__):
+    """``world`` gloo ranks of the worker (or of another worker
+    ``script`` with the same arguments); fails (after killing every
     rank) on a rank's error or past ``deadline``."""
     env = {**os.environ, "OMP_NUM_THREADS": "1",
            "PYTHONPATH": REPO + os.pathsep
@@ -76,7 +77,7 @@ def spawn(mode, world, out, spec, deadline=DEADLINE_S):
     env.pop("WORLD_SIZE", None)
     rdv = os.path.join(out, f"rendezvous_{mode}_{world}")
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), mode, str(r),
+        [sys.executable, os.path.abspath(script), mode, str(r),
          str(world), rdv, out, json.dumps(spec)], cwd=REPO, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(world)]

@@ -24,20 +24,15 @@ data ranks: the trainer sums the gradients and the metrics
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
+from youku_mplug_tpu_torch.runtime.mesh import AxisGroup
 
-@dataclasses.dataclass(frozen=True)
-class DataGroup:
-    """The data-axis process group of a rank, its index and size."""
-
-    group: object
-    index: int
-    size: int
+# the data-axis process group of a rank, its index and size
+DataGroup = AxisGroup
 
 
 def data_group(mesh) -> Optional[DataGroup]:

@@ -35,6 +35,11 @@ on their columns, its out projection on its rows (``out_bias`` after the
 sum), the MLP's w1 / w3 on their columns, w2 on its rows and ``ffn_ln``
 on the split intermediate width (``ops/layernorm.split_layer_norm``).
 
+Expert layout (``MOE_SHARDING_RULES``, ``parallel/moe.py``): the expert
+stacks ``w1``, ``b1``, ``w2``, ``b2`` of a module whose path names
+``moe`` or ``expert`` cut on their leading expert dim; the router
+replicated.
+
 LoRA adapters stay whole on every rank, as JAX's rules replicate every
 ``lora_*`` leaf: on a split product the delta takes this rank's lanes of
 ``b`` (column-parallel) or of ``a`` (row-parallel) (``ops/lora.py``,
@@ -114,6 +119,16 @@ BLOOM_SHARDING_RULES: ShardingRules = (
     (r".*attn/v_bias$", (M, None)),
     (r".*attn/proj_kernel$", (M, None, None)),
     (r".*", ()),
+)
+
+# expert parallelism (``parallel/moe.py``; JAX's ``moe_rules()``): the
+# leading expert dim of the expert stacks on the model axis; merged ahead
+# of a rule set's catch-all
+MOE_SHARDING_RULES: ShardingRules = (
+    (r".*(moe|expert).*/w1$", (M, None, None)),
+    (r".*(moe|expert).*/w2$", (M, None, None)),
+    (r".*(moe|expert).*/b1$", (M, None)),
+    (r".*(moe|expert).*/b2$", (M, None)),
 )
 del M
 

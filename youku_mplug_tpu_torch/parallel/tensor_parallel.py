@@ -31,6 +31,10 @@ card, and on CPU processes:
   LayerNorm over a split width: each rank's gradient with respect to the
   sum is its slice's share, and the whole is their sum).
 
+f and g take any axis's group (an ``AxisGroup``, ``runtime/mesh.py``,
+of which ``ModelGroup`` is a name): ``copy_to`` and ``reduce_over`` are
+their names where the axis is not the model's (``parallel/pipeline.py``
+runs them over the ``pipe`` and ``data`` axes).
 A module that holds a sharded parameter carries ``tp``, its
 ``ModelGroup`` (set by ``parallel/sharding.shard_params``); with ``tp``
 None (or one model rank) each function is the identity and issues no
@@ -42,21 +46,16 @@ in the same order everywhere too).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Callable, Optional
 
 import torch
 import torch.distributed as dist
 from torch import nn
 
+from youku_mplug_tpu_torch.runtime.mesh import AxisGroup
 
-@dataclasses.dataclass(frozen=True)
-class ModelGroup:
-    """The model-axis process group of a rank, its index and size."""
-
-    group: object
-    index: int
-    size: int
+# the model-axis process group of a rank, its index and size
+ModelGroup = AxisGroup
 
 
 def _active(tp: Optional[ModelGroup]) -> bool:
@@ -139,6 +138,10 @@ def copy_to_model(x: torch.Tensor, tp: Optional[ModelGroup]
     if not _active(tp) or not (torch.is_grad_enabled() and x.requires_grad):
         return x
     return _Copy.apply(x, tp.group)
+
+
+# f and g over any axis (the pipeline's pipe and data axes)
+copy_to, reduce_over = copy_to_model, reduce_from_model
 
 
 def vocab_parallel_embedding(tokens: torch.Tensor, rows: int,

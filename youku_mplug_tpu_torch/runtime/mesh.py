@@ -27,6 +27,16 @@ Which collectives run where: the model's own collectives are
 group, which NCCL runs between cards and gloo runs for CUDA tensors by
 copying them through the host (several ranks on one card, as NCCL
 refuses); everything host-side goes over the gloo host group.
+
+Axes beyond (data, model): the JAX package's context, pipeline and
+expert parallelism name their own mesh axes (``sp``, ``pipe``; experts
+stay on ``model``).  ``named_axes`` lays the run's ranks out as a mesh
+of such named dims and returns each dim's ``AxisGroup`` (this rank's
+process group along it, its index and the size), which
+``parallel/collectives.py`` and the modules on it (``ring_attention``,
+``pipeline``, ``moe``) take.  Their collectives on device tensors add
+point-to-point exchanges and ``all_to_all`` to ``all_reduce``; under
+gloo those copy CUDA tensors through the host explicitly.
 """
 
 from __future__ import annotations
@@ -34,8 +44,9 @@ from __future__ import annotations
 import dataclasses
 import datetime
 import os
-from typing import Mapping, Optional, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -115,6 +126,51 @@ class Mesh:
     @property
     def model_group(self):
         return self.group(MODEL_AXIS)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisGroup:
+    """One mesh axis of a rank: the process group of this rank's line
+    along it (None where the axis has one rank), this rank's index on it
+    and its size.  The model group (``tensor_parallel.ModelGroup``) and
+    the data group (``data_parallel.DataGroup``) are this record too."""
+
+    group: Optional[object]
+    index: int
+    size: int
+
+
+# what an axis of None stands for: one rank, no group
+ONE_RANK = AxisGroup(None, 0, 1)
+
+
+def named_axes(shape: Sequence[Tuple[str, int]]) -> Dict[str, AxisGroup]:
+    """The run's ranks as a mesh of the named dims ``shape`` (``(name,
+    size)`` pairs; the last varies fastest over the ranks, as a JAX mesh
+    reshapes its devices; a ``model`` dim must be that last one) -> {name:
+    this rank's ``AxisGroup``}.  The sizes' product must be the world's
+    size; in one process without a process group every size must be 1,
+    and no group is made.  Every rank of the run calls it (it makes the
+    groups)."""
+    names = tuple(n for n, _ in shape)
+    sizes = tuple(int(n) for _, n in shape)
+    if MODEL_AXIS in names and names[-1] != MODEL_AXIS:
+        raise ValueError(f"axes {names}: {MODEL_AXIS!r} must vary fastest")
+    world = run_world_size()
+    if int(np.prod(sizes)) != world:
+        raise ValueError(f"mesh {dict(shape)} != {world} "
+                         f"rank{'s' if world != 1 else ''}")
+    if not dist.is_initialized():
+        return {n: ONE_RANK for n in names}
+    from torch.distributed.device_mesh import DeviceMesh
+
+    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    dm = DeviceMesh(device_type, torch.arange(world).reshape(sizes),
+                    mesh_dim_names=names)
+    coord = np.unravel_index(dist.get_rank(), sizes)
+    return {n: AxisGroup(dm.get_group(n) if size > 1 else None, int(i),
+                         size)
+            for n, size, i in zip(names, sizes, coord)}
 
 
 def axis_sizes(mesh: Union[Mesh, Mapping[str, int]]) -> dict:
