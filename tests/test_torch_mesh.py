@@ -10,9 +10,9 @@ package: ``runtime/mesh.py``, ``runtime/prng.py``,
   message; a model > 1 YAML in one process raises it from ``serve``;
 - on 2 and 4 gloo processes (``tests/torch_mesh_worker.py``, one world a
   size): ``shard_params`` then ``unshard`` round-trips every leaf
-  bitwise, the local shapes are JAX's split, a model shard refuses
-  ``--speculative`` and prompt-lookup decoding, and unmerged LoRA
-  adapters shard with their model.
+  bitwise, the local shapes are JAX's split, a model shard builds for
+  ``--speculative`` and takes a prompt-lookup step (no refusal), and
+  unmerged LoRA adapters shard with their model.
 """
 
 import os
@@ -248,15 +248,27 @@ def test_shard_then_unshard_round_trips_bitwise(shard_runs, tag):
             assert rec["local"][name] == want, name
         assert bool(rec["split"]) == (model > 1)
         assert rec["eager"] == (model > 1)
+        # speculative serving and prompt lookup run on a model shard
         for what in ("speculative", "lookup"):
-            if model > 1:
-                assert "ROADMAP Queue 1 item 4" in rec["refusals"][what]
-            else:
-                assert rec["refusals"][what] is None
+            assert rec["refusals"][what] is None
         assert rec["refusals"]["lora"] is None  # adapters shard too
         # and give the unsharded twin's query features and logits, the
         # vision tower's and the decoder's adapters on split products
         assert max(rec["lora_err"]) < 1e-4, rec["lora_err"]
+
+
+@pytest.mark.parametrize("tag", ["1x2", "2x1", "1x4", "2x2"])
+def test_shard_state_is_what_a_mirror_of_a_shard_copies(shard_runs, tag):
+    """``shard_params`` sets no attribute on a module (of a model with
+    LoRA adapters or without) that ``sharding.SHARD_STATE`` leaves out,
+    so ``copy_shard_state`` (the twin draft's) carries all of a shard's
+    state; a model shard sets every one of them."""
+    _, runs = shard_runs
+    for rec in runs[tag].values():
+        got = set(rec["shard_state"])
+        assert got <= set(sharding.SHARD_STATE), got
+        if int(tag[2]) > 1:
+            assert got == set(sharding.SHARD_STATE)
 
 
 def test_vision_route_on_local_heads():

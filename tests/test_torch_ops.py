@@ -978,13 +978,15 @@ def _check_fused_on_card(rng, device, n, d, layout, clen, vfrom, *,
                    for x in (clen, vfrom))
     kw = dict(alibi_slopes=alibi_slopes(n) if alibi else None)
     names = ("launches", "alibi_launches", "int8_launches",
-             "int8_alibi_launches", "d80_launches", "int8_d80_launches")
+             "int8_alibi_launches", "d80_launches", "int8_d80_launches",
+             "d128_launches", "int8_d128_launches")
     before = [getattr(write_decode_attention, c) for c in names]
     got = write_decode_attention(*_step_views(qkv, n, d, layout), got_c, n,
                                  2, clen, vfrom, **kw)
     torch.cuda.synchronize()
     counter = ("int8_" if int8 else "") + ("alibi_" if alibi else "") \
-        + ("d80_" if d == 80 else "") + "launches"
+        + ("d80_" if d == 80 else "d128_" if d == 128 and not alibi
+           else "") + "launches"
     assert [getattr(write_decode_attention, c) - b0
             for c, b0 in zip(names, before)] == [int(c == counter)
                                                  for c in names]

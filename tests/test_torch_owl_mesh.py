@@ -5,7 +5,8 @@ Two worlds run at once (2 ranks: splits (2,1) and (1,2); 4 ranks: (2,2)
 and (1,4)), each rank running ``tests/torch_owl_mesh_worker.py`` over
 every split of its world and every serving variant (the batched path
 and the engine; greedy, beam 3 and sampled; an int8 KV cache; int8
-weights); the unsharded (1,1) runs in this process.  At fp32 on a tiny
+weights; the engine with ``--lookup_k 3``); the unsharded (1,1) runs in
+this process.  At fp32 on a tiny
 Owl whose Bloom has 12 heads of 8 (a (1,2) rank holds heads 6-11, a
 (1,4) rank heads 6-8: both straddle the ALiBi ladder's half-step branch
 at head 8) and a 512-token vocab cut 2 and 4 ways:
@@ -22,6 +23,9 @@ at head 8) and a 512-token vocab cut 2 and 4 ways:
   model split alone equal (1,1)'s for the same seed;
 - the engine's tokens are the batched path's (JAX's
   ``test_engine_serving_matches_generate``), with either cache;
+- prompt-lookup speculation (``--lookup_k 3``) gives the engine's greedy
+  tokens, and JAX's, at (1,1) and on every split, Bloom's verify chunk on
+  a shard's heads and slopes;
 - a split ``mesh:`` YAML in one process raises the serve CLI's text.
 
 Every process group has an explicit timeout; a world that outlives its
@@ -282,6 +286,13 @@ def test_engine_tokens_equal_the_batched_path(runs, tag):
                             ("int8kv_engine", "int8kv")):
         assert _tokens(runs[tag][engine][0]) == \
             _tokens(runs[tag][batched][0]), engine
+
+
+@pytest.mark.parametrize("tag", ["1x1"] + SPLITS)
+def test_lookup_tokens_equal_the_greedy_engine_and_jax(runs, jax_ref, tag):
+    got = _tokens(runs[tag]["lookup_engine"][0])
+    assert got == _tokens(runs["1x1"]["engine"][0])
+    assert got == _kept(jax_ref["engine"])
 
 
 def test_int8_weights_serve_under_a_split(runs):

@@ -11,13 +11,24 @@ then on the same model the query features and the first two steps' logits of ``F
 (``forced``, written as ``<output>/<tag>/rank<r>.npz``), and with
 ``"sample": true`` the engine's sampled tokens (``sampled``,
 ``rank<r>_sampled.json`` beside it).
+``mode`` ``speculative``: for each split of the JSON, ``serve.build``
+with ``--speculative`` (``SPEC_TWIN``: a twin draft of ``TWIN_LAYERS``
+layer) and ``serve.serve_built`` with it and again with ``SPEC_NGRAM``
+(prompt lookup) on the same model shard (results under
+``<output>/<tag>/twin`` and ``.../ngram``); then on the same shard the
+engine's ``step_lookup`` tokens of every request, the twin draft's logits
+and head count, sampled speculative tokens, and the greedy tokens of a
+twin of the whole decoder on the text prompt alone (``speculative_rank<r>
+.json`` under ``<output>/<tag>``).
 ``mode`` ``merges``: the host merges of ``cli/common.py`` over a
 (world, 1) mesh, written as ``<output>/merges_rank<r>.json``.  ``mode``
 ``shards``: for each split of the JSON, ``shard_params`` then
 ``unshard`` of a seeded model against its unsharded twin, the local
-shapes, the refusals a model shard makes (``--speculative``,
-prompt-lookup decoding) and whether a model with unmerged LoRA adapters
-shards (``lora``: None when it does), written as
+shapes, whether a model shard refuses ``--speculative`` or a
+prompt-lookup step (None when it runs: neither is refused), whether a
+model with unmerged LoRA adapters shards (``lora``: None when it does)
+and the attributes ``shard_params`` set on the two models' modules
+(``shard_state``), written as
 ``<output>/<tag>/shards_rank<r>.json``.  The
 process group comes from ``init_method=file://`` (no TCP port: pytest
 workers never collide) with an explicit timeout.  Imports torch and the
@@ -54,6 +65,10 @@ from youku_mplug_tpu_torch.ops.preprocess import normalize_clip  # noqa: E402
 from youku_mplug_tpu_torch.runtime import mesh as mesh_lib  # noqa: E402
 from youku_mplug_tpu_torch.runtime.prng import make_rngs  # noqa: E402
 from youku_mplug_tpu_torch.serving.engine import ServingEngine  # noqa: E402
+from youku_mplug_tpu_torch.serving.speculative import (  # noqa: E402
+    speculative_generate,
+    twin_draft,
+)
 
 TIMEOUT_S = 120   # every collective's limit: a lost rank fails the run
 STD = 0.1         # the weights' std: varied tokens from a tiny model
@@ -62,13 +77,19 @@ REQUESTS = 7      # an odd count: the data ranks serve 4 and 3
 FORCED = 3        # requests of the teacher-forced first steps
 SLOTS = 3
 SAMPLE = dict(do_sample=True, top_k=40, top_p=0.95)
+TWIN_LAYERS = 1   # of the tiny decoder's 2
+SPEC_TWIN = ("--speculative", "2", "--draft", "twin", "--draft_layers",
+             str(TWIN_LAYERS))
+SPEC_NGRAM = ("--speculative", "3", "--draft", "ngram")
+LOOKUP_K = 3
+WHOLE_TWIN_TOKENS = 10  # tokens of the whole decoder's twin, no EOS stop
 
 
-def serve_args(yaml, out_dir):
+def serve_args(yaml, out_dir, *extra):
     return serve.serve_parser().parse_args([
         "--config", yaml, "--synthetic_data", "--num_requests",
         str(REQUESTS), "--num_slots", str(SLOTS), "--output_dir", out_dir,
-        "--device", "cpu", "--fp32", "--seed", str(SEED)])
+        "--device", "cpu", "--fp32", "--seed", str(SEED), *extra])
 
 
 def seeded(std=STD):
@@ -142,6 +163,82 @@ def run_split(tag, yaml, out, sample=False):
     return got, toks
 
 
+@torch.inference_mode()
+def lookup_tokens(cfg, model):
+    """The engine's tokens of every request with ``step_lookup`` (k =
+    LOOKUP_K), the slots and cache of ``sampled``'s engine."""
+    lm = model.text_decoder
+    prompt, _, gen = serve._prompt(cfg)
+    qe = model.encode_queries(clips(cfg, REQUESTS))
+    eng = ServingEngine(
+        lm, num_slots=SLOTS, max_len=qe.shape[1] + 8 + gen.max_new_tokens
+        + 1, prefill_buckets=(8,), config=gen)
+    for row in qe:
+        eng.submit(prompt, query_embeds=row)
+    fin = eng.run_to_completion(lookup_k=LOOKUP_K)
+    return [t for _, t in sorted((f.rid, f.tokens) for f in fin)]
+
+
+@torch.inference_mode()
+def twin_record(cfg, model, mesh):
+    """The twin draft of the (sharded) decoder: its logits over the
+    prompt after the first FORCED clips' queries, its attention's head
+    count and whether it carries the target's model group; and sampled
+    speculative tokens of those clips (k = 2, the generator seeded as the
+    serve CLI's: the data coordinate folded in)."""
+    lm = model.text_decoder
+    draft = twin_draft(lm, TWIN_LAYERS)
+    prompt, prompt_len, gen = serve._prompt(cfg)
+    qe = model.encode_queries(clips(cfg, FORCED))
+    b = qe.shape[0]
+    ids = torch.tensor([prompt] * b)
+    plen = torch.full((b,), max(prompt_len, 1))
+    hidden = draft(input_embeds=torch.cat([qe, draft.embed(ids)], 1))[
+        "last_hidden_state"]
+    logits = draft.logits(hidden)
+    g = make_rngs(SEED, 0, ("sample",), "cpu", mesh, ("data",))["sample"]
+    out = speculative_generate(
+        lm, draft, ids, plen, config=GenerationConfig(
+            max_new_tokens=gen.max_new_tokens, eos_id=gen.eos_id,
+            pad_id=gen.pad_id, **SAMPLE), speculate_len=2, query_embeds=qe,
+        generator=g)
+    # the whole decoder's twin on the text prompt alone: the draft never
+    # reads the visual prefix, so only without one does it propose the
+    # target's greedy tokens and the rounds commit accepted drafts
+    whole = speculative_generate(
+        lm, twin_draft(lm, lm.cfg.num_hidden_layers), ids, plen,
+        config=GenerationConfig(max_new_tokens=WHOLE_TWIN_TOKENS,
+                                eos_id=-1, pad_id=gen.pad_id),
+        speculate_len=2)
+    attn = draft.decoder.layers.attn
+    return {"logits": logits.numpy(), "heads": attn.n,
+            "tp": attn.tp is not None and attn.tp is lm.decoder.layers.attn.tp,
+            "sampled": out["sequences"].tolist(), "rounds": out["rounds"],
+            "whole_twin": whole["sequences"].tolist(),
+            "whole_twin_tokens_per_round": whole["tokens_per_round"]}
+
+
+def spec_split(tag, yaml, out):
+    """See the module docstring (``mode`` ``speculative``); returns this
+    rank's record (also written under ``out/tag``)."""
+    d = os.path.join(out, tag)
+    args = serve_args(yaml, os.path.join(d, "twin"), *SPEC_TWIN)
+    with mock.patch.object(serve, "seeded_init", seeded()):
+        cfg, model, device = serve.build(args)
+    serve.serve_built(args, cfg, model, device)
+    serve.serve_built(serve_args(yaml, os.path.join(d, "ngram"),
+                                 *SPEC_NGRAM), cfg, model, device)
+    mesh = model.mesh
+    twin = twin_record(cfg, model, mesh)
+    rec = {"coord": list(mesh.coord), "lookup": lookup_tokens(cfg, model),
+           **{k: v for k, v in twin.items() if k != "logits"}}
+    rank = mesh.rank if mesh.distributed else 0
+    with open(os.path.join(d, f"speculative_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    np.save(os.path.join(d, f"twin_logits_rank{rank}.npy"), twin["logits"])
+    return rec
+
+
 def merges(out, rank):
     """cli/common's host merges over a (world, 1) mesh: the records, rows
     and counters of JAX's two-process tests, and a wrap-padded loader."""
@@ -187,7 +284,7 @@ def shards(tag, yaml, out):
     mesh = mesh_lib.make_mesh(cfg.mesh)
     model = seeded()(MPLUGVideo(cfg.model, FP32_POLICY), SEED)
     full = {n: p.detach().clone() for n, p in model.named_parameters()}
-    sharding.shard_params(model, mesh)
+    state = set_by(lambda: sharding.shard_params(model, mesh), model)
     local = {n: list(p.shape) for n, p in model.named_parameters()}
     back = sharding.unshard(model, mesh)
     refusals = {}
@@ -205,7 +302,8 @@ def shards(tag, yaml, out):
     ).parse_args(["--config", yaml, "--synthetic_data", "--device", "cpu",
                   "--fp32", "--output_dir", d, "--speculative", "2"])))
     lora = lora_twin(cfg)
-    refused("lora", lambda: sharding.shard_params(lora, mesh))
+    refused("lora", lambda: state.extend(set_by(
+        lambda: sharding.shard_params(lora, mesh), lora)))
     lora_err = lora_outputs(lora, cfg, mesh)
     _, _, gen = serve._prompt(cfg)
     eng = ServingEngine(model.text_decoder, num_slots=2, max_len=32,
@@ -217,7 +315,17 @@ def shards(tag, yaml, out):
                    "split": dict(model.tp_split), "refusals": refusals,
                    "roundtrip": sorted(n for n in full
                                        if not torch.equal(back[n], full[n])),
-                   "eager": eng.eager, "lora_err": lora_err}, f)
+                   "eager": eng.eager, "lora_err": lora_err,
+                   "shard_state": sorted(set(state))}, f)
+
+
+def set_by(fn, module):
+    """The instance attributes ``fn()`` adds to ``module``'s submodules
+    (beside their parameters and buffers), as a list."""
+    before = {n: set(vars(m)) for n, m in module.named_modules()}
+    fn()
+    return sorted({a for n, m in module.named_modules()
+                   for a in set(vars(m)) - before.get(n, set())})
 
 
 def lora_twin(cfg):
@@ -276,6 +384,9 @@ def main(argv):
         elif mode == "shards":
             for split in json.loads(spec):
                 shards(split["tag"], split["yaml"], out)
+        elif mode == "speculative":
+            for split in json.loads(spec):
+                spec_split(split["tag"], split["yaml"], out)
         else:
             merges(out, rank)
     finally:

@@ -8,7 +8,8 @@ Run as
 
 ``mode`` ``serve``: for each split of the JSON, ``run_instruct.build``
 and ``serve_built`` of every serving variant (``VARIANTS``: the batched
-path and the engine; greedy, beam, sampled; an int8 cache; int8 weights)
+path and the engine; greedy, beam, sampled; an int8 cache; int8 weights;
+the engine with prompt-lookup speculation)
 on its YAML, the files under ``<output>/<split>/<variant>``; on the
 greedy variant's model also the media features and the prefill and
 first decode step's logits of every request (``forced``, written as
@@ -78,6 +79,8 @@ VARIANTS = {
     "int8kv": ({"kv_cache_dtype": "int8"}, []),
     "int8kv_engine": ({"kv_cache_dtype": "int8"}, ["--engine"]),
     "int8": ({}, ["--engine", "--int8"]),
+    # prompt-lookup speculation through the engine (greedy tokens)
+    "lookup_engine": ({}, ["--engine", "--lookup_k", "3"]),
 }
 EPOCHS = 3  # the schedule's
 # Adam's eps at 1e-3: the abstractor's k_bias shifts every score of a

@@ -24,7 +24,10 @@ host merges here
 JAX's over the mesh's gloo host group: each data rank's contribution
 once (its model-index-0 rank's), in data order, every rank left with
 the same merged result.  ``setup`` builds the model on the device with the JAX
-``model.init`` rules (``bridge.jax_init``), imports the checkpoints the
+``model.init`` rules (``bridge.jax_init``), the leaves the run freezes in
+bf16 from the start unless ``--fp32`` (``build_train_model``: the values
+the fp32 draw rounded to bf16 gives, without an fp32 copy of the frozen
+decoder, 52 GB at the GPT-3 13B's), imports the checkpoints the
 config's ``import_torch_weights`` names (``models/importers.import_all``;
 before the split, so a frozen leaf is rounded once, from the file's dtype
 to bf16), splits the trainable and
@@ -58,11 +61,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from youku_mplug_tpu_torch.bridge import jax_init
+from youku_mplug_tpu_torch.bridge import jax_init, jax_path
 from youku_mplug_tpu_torch.config import RunConfig, dump_config
 from youku_mplug_tpu_torch.data.loader import Loader
 from youku_mplug_tpu_torch.models import importers
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
+from youku_mplug_tpu_torch.optim.factory import freeze_mask
 from youku_mplug_tpu_torch.models.tokenizer import (
     BatchTokenizer,
     load_tokenizer,
@@ -255,6 +259,38 @@ def build_tokenizer(cfg: RunConfig) -> BatchTokenizer:
                           max_length=cfg.max_length)
 
 
+def build_train_model(cfg: RunConfig, policy, device, *,
+                      proj_heads: bool = False,
+                      frozen_dtype: Optional[torch.dtype] = None
+                      ) -> torch.nn.Module:
+    """``MPLUGVideo(cfg.model, policy)`` on ``device``, its parameters
+    uninitialized, the leaves ``cfg.optimizer`` freezes
+    (``optim/factory.freeze_mask``: the text decoder, with ``freeze_vit``
+    the vision backbone) already in ``frozen_dtype`` (default: the
+    policy's ``param_dtype``): the model is built on ``meta`` and each
+    parameter materialized in its final dtype, so no fp32 copy of a
+    frozen leaf is ever allocated (as JAX's compile of the 13B step
+    builds its frozen tree in bf16, ``tools/compile_13b.py``).
+    ``create_train_state`` later finds those leaves in ``frozen_dtype``
+    and casts nothing; an init that draws in fp32 and copies (``jax_init``,
+    ``seeded_init``) gives the values a cast after an fp32 build would."""
+    frozen_dtype = frozen_dtype or policy.param_dtype
+    with torch.device("meta"):
+        model = MPLUGVideo(cfg.model, policy, proj_heads=proj_heads)
+    frozen = freeze_mask({jax_path(n): p for n, p in model.named_parameters()},
+                         cfg.optimizer.freeze_text_decoder,
+                         cfg.optimizer.freeze_vit)
+    for name, p in list(model.named_parameters()):
+        owner, _, leaf = name.rpartition(".")
+        dtype = (frozen_dtype if frozen[jax_path(name)]
+                 and p.is_floating_point() else p.dtype)
+        owner = model.get_submodule(owner)
+        owner._parameters[leaf] = torch.nn.Parameter(
+            torch.empty(p.shape, dtype=dtype, device=device),
+            requires_grad=p.requires_grad)
+    return model
+
+
 def setup(args, cfg: RunConfig, loader: Loader,
           proj_heads: bool = False,
           model_fn: Optional[Callable[[Any], torch.nn.Module]] = None,
@@ -278,9 +314,13 @@ def setup(args, cfg: RunConfig, loader: Loader,
     cfg.optimizer = dataclasses.replace(cfg.optimizer,
                                         niter_per_ep=max(niter, 1))
     policy = FP32_POLICY if args.fp32 else DEFAULT_POLICY
-    with device:
-        model = (model_fn(policy) if model_fn is not None else
-                 MPLUGVideo(cfg.model, policy, proj_heads=proj_heads))
+    if model_fn is not None:
+        with device:
+            model = model_fn(policy)
+    else:
+        model = build_train_model(
+            cfg, policy, device, proj_heads=proj_heads,
+            frozen_dtype=None if args.fp32 else policy.compute_dtype)
     jax_init(model, args.seed)  # the JAX runner's model.init rules
     if cfg.get("import_torch_weights"):
         importers.import_all(model, cfg, cfg.get("import_torch_weights"))

@@ -88,8 +88,10 @@ share of the global masked mean, ``grad_norm`` the whole model's, the
 replicated LoRA adapters on split products summed over the model
 group), and checkpoints hold the unsharded tree, so a run resumes at any
 split; dropout under a split raises (ROADMAP Queue 1 item 9), as does a
-zoo optimizer on the split abstractor (item 10) and, when serving,
-``--lookup_k`` under model > 1 (item 4).
+zoo optimizer on the split abstractor (item 10).  ``--lookup_k`` serves
+on a Bloom shard as the engine's greedy steps do (the verify chunk's
+ALiBi slopes from the shard's head offset, its logits the gathered
+vocabulary).
 
 Weights, as the JAX runner has them: a seeded init (serving) or the JAX
 ``model.init`` rules (``--train``: ``bridge.jax_init``); then with
@@ -304,10 +306,6 @@ def build(args):
                          "export_serving --int8 made it so")
     cfg, raw = load_owl_config(args.config)
     mesh = common.init_mesh(args, mesh_config(raw))
-    if mesh.model > 1 and args.lookup_k > 0:
-        raise NotImplementedError(
-            "--lookup_k under model > 1 is not ported (ROADMAP Queue 1 "
-            "item 4)")
     if args.serving_ckpt:  # the export merged the adapters
         cfg = dataclasses.replace(
             cfg, text=dataclasses.replace(cfg.text, lora_rank=0),

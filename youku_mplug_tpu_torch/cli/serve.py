@@ -48,7 +48,10 @@ results, decode steps, graph replays, the kernels' launch counters and
 the peak device memory of the build (the whole model) and of the serve
 after it (the shard).  Under ``model >
 1`` the engine steps eagerly (``serving/engine.py``), and
-``--speculative`` raises, as unmerged LoRA adapters do.
+``--speculative`` decodes each data rank's batches on its model shard
+(``serving/speculative.py``: the twin draft is the same shard of the
+shallower decoder, every model rank commits the same tokens), merged as
+the engine's results are.
 
 Usage (GPU; ``--synthetic_data`` in place of the YAML's files):
     python -m youku_mplug_tpu_torch.cli.serve \
@@ -217,10 +220,6 @@ def build(args):
     mesh_lib.distributed_init(dist_backend(args, device), device=device)
     cfg = load_config(args.config)
     mesh = mesh_lib.make_mesh(cfg.mesh)
-    if mesh.model > 1 and args.speculative > 0:
-        raise NotImplementedError(
-            "--speculative under model > 1 is not ported (ROADMAP Queue 1 "
-            "item 4)")
     resume = bool(args.resume or args.evaluate_only)
     policy = FP32_POLICY if args.fp32 else (DEFAULT_POLICY if resume
                                             else BF16_POLICY)
@@ -372,15 +371,26 @@ def serve_local(args, cfg, model, device):
     return out, wall, engine
 
 
-@torch.inference_mode()
 def run_speculative(args, cfg, model, device):
     """Lock-step speculative serving (the JAX CLI's ``_serve_speculative``):
-    the clips' batches of ``batch_size`` are each decoded through
+    ``speculative_local`` on this rank, merged as ``run`` merges.  Returns
+    (stats, per-request results, this rank's own results)."""
+    local, wall, extra = speculative_local(args, cfg, model, device)
+    return (*_merge(model.mesh or mesh_lib.Mesh(), local, wall, extra),
+            local)
+
+
+@torch.inference_mode()
+def speculative_local(args, cfg, model, device):
+    """The clips' batches of ``batch_size`` each decoded through
     ``ngram_speculative_generate`` (``--draft ngram``) or
     ``speculative_generate`` with the decoder's ``--draft_layers``-deep
-    twin as the draft.  Returns (stats, per-request results): under a
-    process group each data rank decodes its shard, merged as ``run``
-    merges them."""
+    twin as the draft; under a process group this data rank's shard of
+    them.  On a model shard the twin is the shard's (``twin_draft``),
+    and sampled rounds would draw from a generator seeded as the engine's
+    (the data coordinate folded in).  Returns (this rank's results, each
+    with its request ``index`` in the run, the wall seconds, the stats'
+    speculative keys)."""
     mesh = model.mesh or mesh_lib.Mesh()
     test = run_caption.dataset(args, cfg, train=False)
     n_local = local_requests(run_requests(args, cfg, test), mesh)
@@ -393,6 +403,8 @@ def run_speculative(args, cfg, model, device):
         d_layers = args.draft_layers \
             or max(cfg.model.text.num_hidden_layers // 4, 1)
         draft = twin_draft(lm, d_layers)
+    generator = make_rngs(args.seed, 0, ("sample",), device, mesh,
+                          ("data",))["sample"]
     results, out = [], None
     t_start = time.perf_counter()
     batches = clip_batches(args, cfg, mesh, test)
@@ -413,7 +425,7 @@ def run_speculative(args, cfg, model, device):
         else:
             out = speculative_generate(lm, draft, prompt, plen,
                                        config=gen_cfg, speculate_len=k,
-                                       query_embeds=qe)
+                                       query_embeds=qe, generator=generator)
         seqs = out["sequences"].cpu().numpy()
         dt = time.perf_counter() - t0
         for vid, seq in zip(vids[:n_local - len(results)], seqs):
@@ -426,17 +438,17 @@ def run_speculative(args, cfg, model, device):
     batches.close()
     _short(mesh, len(results), n_local)
     wall = time.perf_counter() - t_start
-    return _merge(mesh, results, wall, {
+    return results, wall, {
         "speculative_k": k, "draft": args.draft, "draft_layers": d_layers,
         "tokens_per_round": round(out["tokens_per_round"], 3)
-        if results else None})
+        if results else None}
 
 
 def rank_stats(model, device, engine, local, wall_s, build_peak) -> dict:
     """This rank's own record of a split run (``ranks/rank<r>.json``):
-    ``local`` its results (None under ``--speculative``); the peak device
-    memory of the build (the whole model, before its shard is kept) and
-    of the serve after it."""
+    ``local`` its results (``engine`` None under ``--speculative``); the
+    peak device memory of the build (the whole model, before its shard is
+    kept) and of the serve after it."""
     mesh = model.mesh
     cuda = device.type == "cuda"
     return {
@@ -464,7 +476,7 @@ def serve_built(args, cfg, model, device) -> dict:
     mesh = model.mesh
     engine = local = None
     if args.speculative > 0:
-        stats, out = run_speculative(args, cfg, model, device)
+        stats, out, local = run_speculative(args, cfg, model, device)
     else:
         local, wall, engine = serve_local(args, cfg, model, device)
         stats, out = _merge(mesh, local, wall)

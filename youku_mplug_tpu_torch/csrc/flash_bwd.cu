@@ -53,7 +53,10 @@
 // groups).
 //
 // One template on (D, ALiBi) gives six builds of each kernel, all on the
-// D-wide tiles of the forward (hopper.cuh's WideTile).  Head dims 80 (the
+// D-wide tiles of the forward (hopper.cuh's WideTile); a third parameter,
+// the output type, adds a seventh dq and dk/dv build at d 64 without ALiBi
+// that writes its gradients in fp32 (ring attention's per-block shares,
+// summed round the ring before one rounding).  Head dims 80 (the
 // GPT-3 2.7B decoder) and 96 (clip-b16's AttentionPool) keep columns 0-63
 // in a 128B-swizzled panel and the 16 or 32 columns past them in a tail
 // panel of 32- or 64-byte rows: the score products S, dP (and their
@@ -127,25 +130,24 @@ constexpr int kDqMinBlocks = D == 80 || D == 88 || D == 96 ? 3
                                                   : 1;
 
 // Write this thread's rows of a [64, D] fp32 accumulator (D / 2 values a
-// thread), rows row0 + r, as bf16 into a strided tensor (rows at or past
-// `rows` skipped).  Values i and i + 1 of a thread share a row and two
+// thread), rows row0 + r, as bf16 (or fp32) into a strided tensor (rows at
+// or past `rows` skipped).  Values i and i + 1 of a thread share a row and two
 // neighbouring columns, and value i lies in column group i / 4 (8
 // columns): at d 80, 88 and 96 the values from 32 on are the tail's,
 // columns 64 and up, as in the forward's epilogue.
-template <int D>
-__device__ __forceinline__ void store_acc(__nv_bfloat16* dst,
-                                          long long row_stride, int row0,
-                                          int rows, const float (&acc)[D / 2]) {
+template <int D, typename TO>
+__device__ __forceinline__ void store_acc(TO* dst, long long row_stride,
+                                          int row0, int rows,
+                                          const float (&acc)[D / 2]) {
 #pragma unroll
   for (int i = 0; i < D / 2; i += 2) {
     const int r = row0 + acc_row(i);
-    if (r < rows)
-      *reinterpret_cast<__nv_bfloat162*>(dst + r * row_stride + acc_col(i)) =
-          __floats2bfloat162_rn(acc[i], acc[i + 1]);
+    if (r < rows) store_pair(dst + r * row_stride + acc_col(i), acc[i],
+                             acc[i + 1]);
   }
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kF32Out>
 __global__ void __launch_bounds__(kThreads, kDqMinBlocks<D, kAlibi>)
 flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
@@ -153,7 +155,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ dout,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
-                    __nv_bfloat16* __restrict__ dq,
+                    OutT<kF32Out>* __restrict__ dq,
                     const float* __restrict__ slopes, int H, int Sq, int Sk,
                     int kv_len, long long q_sb, long long q_sh,
                     long long q_ss, long long k_sb, long long k_sh,
@@ -263,7 +265,7 @@ flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
   store_acc<D>(dq + b * dq_sb + h * dq_sh, dq_ss, q0, Sq, acc);
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kF32Out>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ k,
@@ -271,8 +273,8 @@ flash_bwd_dkv_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ dout,
                      const float* __restrict__ lse,
                      const float* __restrict__ delta,
-                     __nv_bfloat16* __restrict__ dk,
-                     __nv_bfloat16* __restrict__ dv,
+                     OutT<kF32Out>* __restrict__ dk,
+                     OutT<kF32Out>* __restrict__ dv,
                      const float* __restrict__ slopes, int H, int Sq, int Sk,
                      int kv_len, long long q_sb, long long q_sh,
                      long long q_ss, long long k_sb, long long k_sh,
@@ -608,17 +610,17 @@ enum Kind { kKindDq = 0, kKindDkv = 1, kKindShort = 2 };
 
 // The opt-in to a build's dynamic shared memory, once per template
 // instance.
-template <int D, bool kAlibi, int kKind>
+template <int D, bool kAlibi, int kKind, bool kF32Out = false>
 cudaError_t opt_in() {
   static bool attr_set = false;
   if (attr_set) return cudaSuccess;
   constexpr auto kAttr = cudaFuncAttributeMaxDynamicSharedMemorySize;
   cudaError_t err;
   if constexpr (kKind == kKindDq) {
-    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kAlibi>, kAttr,
+    err = cudaFuncSetAttribute(flash_bwd_dq_kernel<D, kAlibi, kF32Out>, kAttr,
                                BwdSmem<D, false>::kAlloc);
   } else if constexpr (kKind == kKindDkv) {
-    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kAlibi>, kAttr,
+    err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<D, kAlibi, kF32Out>, kAttr,
                                BwdSmem<D, true>::kAlloc);
   } else {
     err = cudaFuncSetAttribute(flash_bwd_dkv_short_kernel<D, kAlibi>, kAttr,
@@ -628,7 +630,7 @@ cudaError_t opt_in() {
   return err;
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kF32Out = false>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq,
               const void* slopes, int B, int H, int Sq, int Sk, int kv_len,
@@ -638,24 +640,25 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               long long do_sh, long long do_ss, long long dq_sb,
               long long dq_sh, long long dq_ss, float scale, int period,
               int causal, cudaStream_t stream) {
-  if (cudaError_t err = opt_in<D, kAlibi, kKindDq>(); err != cudaSuccess)
+  if (cudaError_t err = opt_in<D, kAlibi, kKindDq, kF32Out>();
+      err != cudaSuccess)
     return (int)err;
   dim3 grid((Sq + kRows - 1) / kRows, H, B);
-  flash_bwd_dq_kernel<D, kAlibi>
+  flash_bwd_dq_kernel<D, kAlibi, kF32Out>
       <<<grid, kThreads, BwdSmem<D, false>::kAlloc, stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
           static_cast<const __nv_bfloat16*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<__nv_bfloat16*>(dq), static_cast<const float*>(slopes),
+          static_cast<OutT<kF32Out>*>(dq), static_cast<const float*>(slopes),
           H, Sq, Sk, kv_len, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
           v_ss, do_sb, do_sh, do_ss, dq_sb, dq_sh, dq_ss, scale, period,
           causal);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kF32Out = false>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv,
                const void* slopes, int B, int H, int Sq, int Sk, int kv_len,
@@ -667,7 +670,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                long long dv_ss, float scale, int period, int causal,
                int short_splits, cudaStream_t stream) {
   if (short_splits > 0) {
-    if constexpr (D == 96) {
+    if constexpr (D == 96 && !kF32Out) {
       if (kAlibi || causal || period || Sq > 2 * kRows)
         return (int)cudaErrorInvalidValue;
       if (cudaError_t err = opt_in<D, false, kKindShort>(); err != cudaSuccess)
@@ -690,34 +693,36 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (cudaError_t err = opt_in<D, kAlibi, kKindDkv>(); err != cudaSuccess)
+  if (cudaError_t err = opt_in<D, kAlibi, kKindDkv, kF32Out>();
+      err != cudaSuccess)
     return (int)err;
   dim3 grid((Sk + kRows - 1) / kRows, H, B);
-  flash_bwd_dkv_kernel<D, kAlibi>
+  flash_bwd_dkv_kernel<D, kAlibi, kF32Out>
       <<<grid, kThreads, BwdSmem<D, true>::kAlloc, stream>>>(
           static_cast<const __nv_bfloat16*>(q),
           static_cast<const __nv_bfloat16*>(k),
           static_cast<const __nv_bfloat16*>(v),
           static_cast<const __nv_bfloat16*>(dout),
           static_cast<const float*>(lse), static_cast<const float*>(delta),
-          static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv),
+          static_cast<OutT<kF32Out>*>(dk), static_cast<OutT<kF32Out>*>(dv),
           static_cast<const float*>(slopes), H, Sq, Sk, kv_len, q_sb, q_sh,
           q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss,
           dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, scale, period, causal);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool kAlibi, int kKind>
+template <int D, bool kAlibi, int kKind, bool kF32Out = false>
 int blocks_per_sm_of(int* blocks) {
-  if (cudaError_t err = opt_in<D, kAlibi, kKind>(); err != cudaSuccess)
+  if (cudaError_t err = opt_in<D, kAlibi, kKind, kF32Out>();
+      err != cudaSuccess)
     return (int)err;
   if constexpr (kKind == kKindDq) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, flash_bwd_dq_kernel<D, kAlibi>, kThreads,
+        blocks, flash_bwd_dq_kernel<D, kAlibi, kF32Out>, kThreads,
         BwdSmem<D, false>::kAlloc);
   } else if constexpr (kKind == kKindDkv) {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        blocks, flash_bwd_dkv_kernel<D, kAlibi>, kThreads,
+        blocks, flash_bwd_dkv_kernel<D, kAlibi, kF32Out>, kThreads,
         BwdSmem<D, true>::kAlloc);
   } else {
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -852,4 +857,59 @@ extern "C" int ymt_flash_bwd_delta_bf16(const void* o, const void* dout,
   else return (int)cudaErrorInvalidValue;
 #undef YMT_DELTA
   return (int)cudaGetLastError();
+}
+
+// C entry points: the dq and dk/dv kernels with the gradients written in
+// fp32 (ring attention's per-block shares, summed in fp32 round the ring
+// before one rounding).  Arguments as ymt_flash_bwd_dq_bf16's and
+// ymt_flash_bwd_dkv_bf16's, the gradients fp32 views (8-byte aligned
+// rows); built at head dim 64 without ALiBi (the ring's blocks), the
+// key-tile dk/dv kernel (short_splits 0); cudaErrorInvalidValue elsewhere.
+extern "C" int ymt_flash_bwd_dq_f32out(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, int B, int H, int Sq,
+    int Sk, int kv_len, long long q_sb, long long q_sh, long long q_ss,
+    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
+    long long v_sh, long long v_ss, long long do_sb, long long do_sh,
+    long long do_ss, long long dq_sb, long long dq_sh, long long dq_ss,
+    float scale, int period, int causal, int head_dim, const void* slopes,
+    void* stream) {
+  if (head_dim != 64 || slopes != nullptr) return (int)cudaErrorInvalidValue;
+  return launch_dq<64, false, true>(
+      q, k, v, dout, lse, delta, dq, slopes, B, H, Sq, Sk, kv_len, q_sb, q_sh,
+      q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss, dq_sb,
+      dq_sh, dq_ss, scale, period, causal, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int ymt_flash_bwd_dkv_f32out(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv, int B, int H,
+    int Sq, int Sk, int kv_len, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long do_sb,
+    long long do_sh, long long do_ss, long long dk_sb, long long dk_sh,
+    long long dk_ss, long long dv_sb, long long dv_sh, long long dv_ss,
+    float scale, int period, int causal, int head_dim, const void* slopes,
+    int short_splits, void* stream) {
+  if (head_dim != 64 || slopes != nullptr || short_splits != 0)
+    return (int)cudaErrorInvalidValue;
+  return launch_dkv<64, false, true>(
+      q, k, v, dout, lse, delta, dk, dv, slopes, B, H, Sq, Sk, kv_len, q_sb,
+      q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, do_sb, do_sh, do_ss,
+      dk_sb, dk_sh, dk_ss, dv_sb, dv_sh, dv_ss, scale, period, causal, 0,
+      static_cast<cudaStream_t>(stream));
+}
+
+// C entry point: the fp32-output dq (kind 0) or dk/dv (kind 1) kernel's
+// blocks resident on one SM at a head dim, as ymt_flash_bwd_blocks_per_sm
+// counts them; cudaErrorInvalidValue for a build or kind that does not
+// exist.
+extern "C" int ymt_flash_bwd_f32out_blocks_per_sm(int head_dim, int kind,
+                                                  int* blocks) {
+  if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  if (kind == kKindDq)
+    return blocks_per_sm_of<64, false, kKindDq, true>(blocks);
+  if (kind == kKindDkv)
+    return blocks_per_sm_of<64, false, kKindDkv, true>(blocks);
+  return (int)cudaErrorInvalidValue;
 }

@@ -51,7 +51,10 @@
 // accumulator layout.  The softmax runs in base 2 (scores times log2 e,
 // exp2, lse converted back to base e); a key tile that every row of the
 // query tile sees whole skips the mask arithmetic.  One template on (D,
-// ALiBi) gives the seven builds; shared memory is Q plus the K/V ring:
+// ALiBi, output type) gives the seven bf16 builds and an eighth, at d = 64,
+// that writes o in fp32
+// (kF32Out: ring attention's partials, rounded once after their merge);
+// shared memory is Q plus the K/V ring:
 // 41 KB at d = 64, 51 KB at 80, 49 KB at 88 and 96 (a three-slot ring),
 // 81 KB at 128.
 //
@@ -121,12 +124,12 @@ static_assert(FwdSmem<128>::kAlloc <= kMaxSmem, "d = 128 tiles exceed 227 KB");
 template <int D>
 constexpr int kFwdMinBlocks = D == 80 ? 4 : D == 96 || D == 88 ? 3 : 1;
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kF32Out>
 __global__ void __launch_bounds__(kThreads, kFwdMinBlocks<D>)
 flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                  const __nv_bfloat16* __restrict__ k,
                  const __nv_bfloat16* __restrict__ v,
-                 __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                 OutT<kF32Out>* __restrict__ o, float* __restrict__ lse,
                  float* __restrict__ o_part, float* __restrict__ lse_part,
                  const float* __restrict__ slopes, int B, int H, int Sq,
                  int Sk, int kv_len, int splits, long long q_sb,
@@ -305,11 +308,9 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < D / 2; i += 2) {
       const int r = (i >> 1) & 1, qi = qi0 + 8 * r;
-      if (qi < Sq) {
-        *reinterpret_cast<__nv_bfloat162*>(
-            o + b * o_sb + h * o_sh + qi * o_ss + acc_col(i)) =
-            __floats2bfloat162_rn(acc[i] * inv[r], acc[i + 1] * inv[r]);
-      }
+      if (qi < Sq)
+        store_pair(o + b * o_sb + h * o_sh + qi * o_ss + acc_col(i),
+                   acc[i] * inv[r], acc[i + 1] * inv[r]);
     }
   } else {
     float* op = o_part + (((long long)split * B * H + bh) * Sq) * D;
@@ -339,11 +340,11 @@ flash_fwd_kernel(const __nv_bfloat16* __restrict__ q,
 // of the warp is one contiguous run of columns whatever D is.  With the
 // shares' lse_s, lse = log(sum_s exp(lse_s)) and O = sum_s exp(lse_s -
 // lse) o_s (o_s already normalised), summed in split order.
-template <int D>
+template <int D, bool kF32Out>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_merge_kernel(const float* __restrict__ o_part,
                        const float* __restrict__ lse_part,
-                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       OutT<kF32Out>* __restrict__ o, float* __restrict__ lse,
                        int B, int H, int Sq, int splits, long long o_sb,
                        long long o_sh, long long o_ss) {
   // columns a lane: 2 at d = 64, 3 at 80 (lanes 0-15), 88 (lanes 0-23)
@@ -373,27 +374,27 @@ flash_fwd_merge_kernel(const float* __restrict__ o_part,
         if (lane + 32 * c < D) out[c] += w * src[32 * c];
     }
   }
-  __nv_bfloat16* dst = o + b * o_sb + h * o_sh + qi * o_ss + lane;
+  OutT<kF32Out>* dst = o + b * o_sb + h * o_sh + qi * o_ss + lane;
 #pragma unroll
   for (int c = 0; c < kPer; ++c)
-    if (lane + 32 * c < D) dst[32 * c] = __float2bfloat16_rn(out[c]);
+    if (lane + 32 * c < D) store_one(dst + 32 * c, out[c]);
   if (lane == 0) lse[row] = m == -INFINITY ? -INFINITY : m + logf(total);
 }
 
 // The opt-in to the build's dynamic shared memory, once per template
 // instance.
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kF32Out>
 cudaError_t opt_in() {
   static bool attr_set = false;
   if (attr_set) return cudaSuccess;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D, kAlibi>,
+      flash_fwd_kernel<D, kAlibi, kF32Out>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, FwdSmem<D>::kAlloc);
   attr_set = err == cudaSuccess;
   return err;
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kF32Out = false>
 int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            void* o_part, void* lse_part, const void* slopes, int B, int H,
            int Sq, int Sk, int kv_len, int splits, long long q_sb,
@@ -401,35 +402,37 @@ int launch(const void* q, const void* k, const void* v, void* o, void* lse,
            long long k_ss, long long v_sb, long long v_sh, long long v_ss,
            long long o_sb, long long o_sh, long long o_ss, float scale,
            int period, int causal, cudaStream_t stream) {
-  if (cudaError_t err = opt_in<D, kAlibi>(); err != cudaSuccess)
+  using TO = OutT<kF32Out>;
+  if (cudaError_t err = opt_in<D, kAlibi, kF32Out>(); err != cudaSuccess)
     return (int)err;
   dim3 grid((Sq + kRows - 1) / kRows, H, B * splits);
-  flash_fwd_kernel<D, kAlibi><<<grid, kThreads, FwdSmem<D>::kAlloc, stream>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
-      static_cast<float*>(lse), static_cast<float*>(o_part),
-      static_cast<float*>(lse_part), static_cast<const float*>(slopes), B, H,
-      Sq, Sk, kv_len, splits, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh,
-      v_ss, o_sb, o_sh, o_ss, scale, period, causal);
+  flash_fwd_kernel<D, kAlibi, kF32Out>
+      <<<grid, kThreads, FwdSmem<D>::kAlloc, stream>>>(
+          static_cast<const __nv_bfloat16*>(q),
+          static_cast<const __nv_bfloat16*>(k),
+          static_cast<const __nv_bfloat16*>(v), static_cast<TO*>(o),
+          static_cast<float*>(lse), static_cast<float*>(o_part),
+          static_cast<float*>(lse_part), static_cast<const float*>(slopes),
+          B, H, Sq, Sk, kv_len, splits, q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,
+          v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, scale, period, causal);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const long long rows = (long long)B * H * Sq;
-  flash_fwd_merge_kernel<D>
+  flash_fwd_merge_kernel<D, kF32Out>
       <<<(unsigned)((rows + 3) / 4), kThreads, 0, stream>>>(
           static_cast<const float*>(o_part),
-          static_cast<const float*>(lse_part),
-          static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), B, H, Sq,
-          splits, o_sb, o_sh, o_ss);
+          static_cast<const float*>(lse_part), static_cast<TO*>(o),
+          static_cast<float*>(lse), B, H, Sq, splits, o_sb, o_sh, o_ss);
   return (int)cudaGetLastError();
 }
 
-template <int D, bool kAlibi>
+template <int D, bool kAlibi, bool kF32Out = false>
 int blocks_per_sm(int* blocks) {
-  if (cudaError_t err = opt_in<D, kAlibi>(); err != cudaSuccess)
+  if (cudaError_t err = opt_in<D, kAlibi, kF32Out>(); err != cudaSuccess)
     return (int)err;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, flash_fwd_kernel<D, kAlibi>, kThreads, FwdSmem<D>::kAlloc);
+      blocks, flash_fwd_kernel<D, kAlibi, kF32Out>, kThreads,
+      FwdSmem<D>::kAlloc);
 }
 
 }  // namespace
@@ -488,4 +491,33 @@ extern "C" int ymt_flash_fwd_blocks_per_sm(int head_dim, int alibi,
   if (head_dim == 88 && !alibi) return blocks_per_sm<88, false>(blocks);
   if (head_dim == 96 && !alibi) return blocks_per_sm<96, false>(blocks);
   return (int)cudaErrorInvalidValue;
+}
+
+// C entry point: the forward with o written in fp32 (ring attention's
+// per-block partials, merged by their lse in fp32 before one rounding).
+// Arguments as ymt_flash_fwd_bf16's, o an fp32 [B, H, Sq, head_dim] view
+// (8-byte aligned rows); built at head dim 64 without ALiBi (the ring's
+// blocks), cudaErrorInvalidValue elsewhere.
+extern "C" int ymt_flash_fwd_f32out(
+    const void* q, const void* k, const void* v, void* o, void* lse, int B,
+    int H, int Sq, int Sk, int kv_len, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, float scale, int period, int causal,
+    int head_dim, const void* slopes, int splits, void* o_part,
+    void* lse_part, void* stream) {
+  if (splits < 1 || head_dim != 64 || slopes != nullptr)
+    return (int)cudaErrorInvalidValue;
+  return launch<64, false, true>(
+      q, k, v, o, lse, o_part, lse_part, slopes, B, H, Sq, Sk, kv_len, splits,
+      q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss,
+      scale, period, causal, static_cast<cudaStream_t>(stream));
+}
+
+// C entry point: the fp32-output forward's blocks resident on one SM at a
+// head dim, as ymt_flash_fwd_blocks_per_sm counts them;
+// cudaErrorInvalidValue for a head dim it was not built for.
+extern "C" int ymt_flash_fwd_f32out_blocks_per_sm(int head_dim, int* blocks) {
+  if (head_dim != 64) return (int)cudaErrorInvalidValue;
+  return blocks_per_sm<64, false, true>(blocks);
 }

@@ -33,6 +33,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace ymt {
 
 constexpr int kRows = 64;            // rows of every tile
@@ -260,6 +262,28 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
+
+// The element type a kernel writes its output in: bf16 (every model path),
+// or fp32 where the caller merges the output with others before one
+// rounding (ring attention's per-block partials).  A template parameter,
+// so that neither epilogue carries a branch.
+template <bool kF32Out>
+using OutT = std::conditional_t<kF32Out, float, __nv_bfloat16>;
+
+// Two neighbouring columns of an output row (8-byte aligned in fp32,
+// 4-byte in bf16, as the callers' rows are).
+__device__ __forceinline__ void store_pair(__nv_bfloat16* dst, float lo,
+                                           float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(lo, hi);
+}
+__device__ __forceinline__ void store_pair(float* dst, float lo, float hi) {
+  *reinterpret_cast<float2*>(dst) = make_float2(lo, hi);
+}
+
+__device__ __forceinline__ void store_one(__nv_bfloat16* dst, float x) {
+  *dst = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_one(float* dst, float x) { *dst = x; }
 
 // A 64 x 64 fp32 accumulator rounded to bf16 as the A operand of four
 // m64k16 steps (columns 16 kk .. 16 kk + 15 for step kk).

@@ -44,6 +44,11 @@ _SIGNATURES = {
     + [_F, _I, _I, _I, _P, _I, _P, _P, _P],
     # head_dim, alibi, the int it writes the count to
     "ymt_flash_fwd_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)],
+    # the forward with o in fp32 (ring attention's partials): as above
+    "ymt_flash_fwd_f32out": [_P] * 5 + [_I] * 5 + [_LL] * 12
+    + [_F, _I, _I, _I, _P, _I, _P, _P, _P],
+    # head_dim, the int it writes the count to
+    "ymt_flash_fwd_f32out_blocks_per_sm": [_I, ctypes.POINTER(_I)],
     # o, dout, delta, B, H, Sq, the strides of o and dout, head_dim, stream
     "ymt_flash_bwd_delta_bf16": [_P] * 3 + [_I] * 3 + [_LL] * 6 + [_I, _P],
     # head_dim, alibi, kind (0 dq, 1 dk/dv, 2 short-query dk/dv), the int
@@ -55,6 +60,13 @@ _SIGNATURES = {
     # stream
     "ymt_flash_bwd_dkv_bf16": [_P] * 8 + [_I] * 5 + [_LL] * 18
     + [_F, _I, _I, _I, _P, _I, _P],
+    # the dq and dk/dv kernels with fp32 gradients: as above
+    "ymt_flash_bwd_dq_f32out": [_P] * 7 + [_I] * 5 + [_LL] * 15
+    + [_F, _I, _I, _I, _P, _P],
+    "ymt_flash_bwd_dkv_f32out": [_P] * 8 + [_I] * 5 + [_LL] * 18
+    + [_F, _I, _I, _I, _P, _I, _P],
+    # head_dim, kind (0 dq, 1 dk/dv), the int it writes the count to
+    "ymt_flash_bwd_f32out_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)],
     # q, k, v (each pointer, batch and head stride), ckv, kv_scales (or
     # null), out, cache_len, valid_from, B, n, M, lidx, scale, head_dim,
     # alibi, head_offset, n_total, stream
@@ -147,7 +159,9 @@ def ptxas_report(log: str) -> dict:
     ``-Xptxas -v`` report (``build()``'s log), keyed by template instance
     as ``flash_bwd_dq<96,plain>``, ``flash_bwd_dkv_short<96,plain>``,
     ``decode_attn<64,alibi,int8>``, ``flash_fwd_merge<80>`` or
-    ``flash_bwd_delta<96>``: {"registers", "spill_stores",
+    ``flash_bwd_delta<96>`` (an fp32-output flash build with ``,f32``
+    after its last field: ``flash_fwd<64,plain,f32>``,
+    ``flash_fwd_merge<64,f32>``): {"registers", "spill_stores",
     "spill_loads"}."""
     builds, entry, spill = {}, "?", (None, None)
     for line in log.splitlines():
@@ -156,10 +170,15 @@ def ptxas_report(log: str) -> dict:
                           r"flash_bwd_dkv|decode_attn)_kernelILi(\d+)ELb"
                           r"([01])E(?:Lb([01])E)?", line)
             merge = re.search(r"(flash_fwd_merge|flash_bwd_delta)_kernel"
-                              r"ILi(\d+)E", line)
+                              r"ILi(\d+)E(?:Lb([01])E)?", line)
+            # the third flag: int8 for the decode kernel, fp32 output for
+            # the flash kernels
+            flag = (",int8" if m and m[1] == "decode_attn" else ",f32")
             entry = (f"{m[1]}<{m[2]},{'alibi' if m[3] == '1' else 'plain'}"
-                     f"{',int8' if m[4] == '1' else ''}>" if m
-                     else f"{merge[1]}<{merge[2]}>" if merge else "?")
+                     f"{flag if m[4] == '1' else ''}>" if m
+                     else f"{merge[1]}<{merge[2]}"
+                     f"{',f32' if merge[3] == '1' else ''}>" if merge
+                     else "?")
         elif "spill stores" in line:
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)

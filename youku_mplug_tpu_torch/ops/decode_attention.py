@@ -26,7 +26,9 @@ slope from ``h + head_offset`` and ``n_total``).
 CUDA tensors, or raises.  Its ``launches`` counts kernel launches on a
 bf16 cache without ALiBi, ``alibi_launches`` those with it,
 ``int8_launches`` and ``int8_alibi_launches`` the same on an int8 cache,
-and ``d80_launches`` and ``int8_d80_launches`` those at head dim 80.
+``d80_launches`` and ``int8_d80_launches`` those at head dim 80, and
+``d128_launches`` and ``int8_d128_launches`` those at head dim 128
+without ALiBi (the GPT-3 13B decoder's 40 heads of 128).
 Like the JAX package, which runs its kernel where the cache width M is a
 multiple of 64 (``decode_attention_supported``), the port's callers make
 caches of a multiple of 128 rows (``GPT3LM.init_cache``); the kernel
@@ -249,7 +251,8 @@ def write_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         _native.stream_handle(q))
     _native.check_launch(err, "ymt_decode_attention")
     counter = ("int8_" if int8 else "") + ("alibi_" if alibi else "") \
-        + ("d80_" if d == 80 else "") + "launches"
+        + ("d80_" if d == 80 else "d128_" if d == 128 and not alibi
+           else "") + "launches"
     setattr(write_decode_attention, counter,
             getattr(write_decode_attention, counter) + 1)
     return out
@@ -261,3 +264,5 @@ write_decode_attention.int8_launches = 0
 write_decode_attention.int8_alibi_launches = 0
 write_decode_attention.d80_launches = 0
 write_decode_attention.int8_d80_launches = 0
+write_decode_attention.d128_launches = 0
+write_decode_attention.int8_d128_launches = 0

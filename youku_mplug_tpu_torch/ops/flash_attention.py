@@ -36,15 +36,24 @@ ALiBi (``alibi_slopes``: any fp32 per-head values, as the JAX flash takes
 them) adds ``slope_h * key_index`` in fp32 to the scaled score before the
 mask, in the forward and when the backward rebuilds p; it requires
 ``causal``.
+At head dim 64 without ALiBi (``F32_OUT_HEAD_DIMS``) each kernel has a
+second build that writes its output in fp32: ``flash_fwd_cuda``,
+``flash_bwd_dq_cuda`` and ``flash_bwd_dkv_cuda`` take it when handed fp32
+output tensors (ring attention's per-block partials, merged in fp32 and
+rounded once, ``parallel/ring_attention.py``); fp32 outputs at another
+head dim raise.  The plain versions take the same ``out_dtype``.
 
 Both wrappers go through a ``torch.autograd.Function`` that saves
 (q, k, v, o, lse) where a gradient is wanted.  Each runs its
 plain PyTorch version (``flash_fwd_plain``, ``flash_bwd_plain``) for CPU
 tensors and launches the kernels for CUDA tensors, or raises; it never
 falls back.  ``<wrapper>.launches`` counts kernel launches at head dim
-64 or 128 without ALiBi, ``<wrapper>.d80_launches``,
-``<wrapper>.d88_launches`` and ``<wrapper>.d96_launches`` those at head
-dim 80, 88 and 96, and
+64 without ALiBi, ``<wrapper>.d80_launches``, ``<wrapper>.d88_launches``,
+``<wrapper>.d96_launches`` and ``<wrapper>.d128_launches`` those at head
+dim 80, 88, 96 and 128 (the GPT-3 13B decoder's),
+``flash_bwd_dq_cuda.f32_launches`` and ``flash_bwd_dkv_cuda.f32_launches``
+those of the fp32-output builds (the forward's count in the ring's own
+``ring_attention.launches``), and
 ``<wrapper>.alibi_launches`` those with ALiBi: ``flash_attention_packed``
 and ``flash_attention`` the forward's, ``flash_bwd_dq_cuda`` and
 ``flash_bwd_dkv_cuda`` the backward's; ``flash_bwd_dkv_cuda.
@@ -85,6 +94,15 @@ FWD_BLOCKS_PER_SM = {64: 4, 80: 4, 88: 3, 96: 3, 128: 2}
 BWD_BLOCKS_PER_SM = {64: (4, 3, None), 80: (3, 2, None), 88: (3, 2, None),
                      96: (3, 2, 2), 128: (2, 2, None)}
 SHORT_HEAD_DIMS = (96,)  # the short-query dk/dv kernel's build
+# the fp32-output builds' blocks on one multiprocessor, by head dim:
+# (forward, dq, dk/dv), the bf16 builds' counts (the same tiles; only the
+# epilogue's stores differ).  chip_smoke.py holds these against the
+# card's own count (f32_out_blocks_per_sm)
+F32_OUT_BLOCKS_PER_SM = {64: (4, 4, 3)}
+# the head dims of the builds that write their output in fp32 (the
+# forward's o, the backward's dq, dk and dv; without ALiBi): ring
+# attention's per-block partials, merged in fp32 and rounded once
+F32_OUT_HEAD_DIMS = tuple(F32_OUT_BLOCKS_PER_SM)
 SHORT_SQ = 2 * TILE  # ... which keeps at most this many queries resident
 # key tiles a short-query dk/dv block walks, at most: its share of a
 # (head, batch)'s key tiles (2-6, 8, 16 and all measured on the H100,
@@ -150,6 +168,24 @@ def dkv_short_splits(b: int, h: int, sq: int, sk: int, *, head_dim: int,
     return -(-tiles // SHORT_TILES_PER_BLOCK)
 
 
+def f32_out_blocks_per_sm(head_dim: int) -> tuple:
+    """The fp32-output builds' resident blocks on one multiprocessor of
+    the current card, as ``fwd_blocks_per_sm`` counts them: (forward, dq,
+    dk/dv); builds the kernels if needed."""
+    lib, counts = _native.library(), []
+    for kind in ("fwd", 0, 1):
+        blocks = ctypes.c_int()
+        if kind == "fwd":
+            err = lib.ymt_flash_fwd_f32out_blocks_per_sm(
+                int(head_dim), ctypes.byref(blocks))
+        else:
+            err = lib.ymt_flash_bwd_f32out_blocks_per_sm(
+                int(head_dim), kind, ctypes.byref(blocks))
+        _native.check_launch(err, "f32out blocks_per_sm")
+        counts.append(blocks.value)
+    return tuple(counts)
+
+
 def bwd_blocks_per_sm(head_dim: int, alibi: bool = False) -> tuple:
     """The backward builds' resident blocks on one multiprocessor of the
     current card, as ``fwd_blocks_per_sm`` counts them: (dq, dk/dv,
@@ -207,20 +243,25 @@ def _scores(q, k, scale: float, alibi_slopes) -> torch.Tensor:
 
 def flash_fwd_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, causal: bool = False, period: int = 0,
-                    kv_len: Optional[int] = None, alibi_slopes=None):
+                    kv_len: Optional[int] = None, alibi_slopes=None,
+                    out_dtype: Optional[torch.dtype] = None):
     """Plain version of the forward kernel. q [B,H,Sq,D], k/v [B,H,Sk,D]
     -> (o [B,H,Sq,D] in q.dtype, lse [B,H,Sq] fp32).  Keys at or past
     ``kv_len`` are masked; ``period > 0`` keeps only keys with
     ``qi // period == ki // period``; ``causal`` keeps ``ki <= qi``;
-    ``alibi_slopes`` [H] adds ``slope_h * ki`` before the mask."""
+    ``alibi_slopes`` [H] adds ``slope_h * ki`` before the mask.
+    ``out_dtype`` fp32 (the fp32-output build): p still goes to q.dtype
+    before P V, as in the kernel, and o leaves the fp32 sum unrounded."""
     s = _scores(q, k, scale, alibi_slopes)
     allowed = _allowed(q.shape[2], k.shape[2], causal=causal, period=period,
                        kv_len=kv_len, device=q.device)
     s = s.masked_fill(~allowed, float("-inf"))
     lse = torch.logsumexp(s, dim=-1)
     p = torch.exp(s - lse[..., None])
-    o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
-    return o, lse
+    if out_dtype is None or out_dtype == q.dtype:
+        return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v), lse
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), v.float())
+    return o.to(out_dtype), lse
 
 
 def flash_bwd_delta_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -231,14 +272,16 @@ def flash_bwd_delta_plain(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
 
 def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float,
                     causal: bool = False, period: int = 0,
-                    kv_len: Optional[int] = None, alibi_slopes=None):
+                    kv_len: Optional[int] = None, alibi_slopes=None,
+                    out_dtype: Optional[torch.dtype] = None):
     """Plain version of the backward kernels (the FlashAttention-2 recipe,
     ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``): p = exp(s - lse) with the
     forward's bias in s, dp = dO V^T, dS = p * (dp - delta) * scale with
     delta = rowsum(dO * O) in fp32; p and dS are cast to the input dtype
     before their products, which accumulate in fp32.  Same layouts, masks
     and ALiBi as ``flash_fwd_plain``; returns (dq, dk, dv) in the input
-    dtypes."""
+    dtypes, or in ``out_dtype`` (fp32: the fp32-output builds' sums,
+    unrounded)."""
     dt = q.dtype
     allowed = _allowed(q.shape[2], k.shape[2], causal=causal, period=period,
                        kv_len=kv_len, device=q.device)
@@ -251,11 +294,18 @@ def flash_bwd_plain(q, k, v, o, lse, do, *, scale: float,
     dv = torch.einsum("bhqk,bhqd->bhkd", p_in, do.float())
     dq = torch.einsum("bhqk,bhkd->bhqd", ds_in, k.float())
     dk = torch.einsum("bhqk,bhqd->bhkd", ds_in, q.float())
+    if out_dtype is not None:
+        return dq.to(out_dtype), dk.to(out_dtype), dv.to(out_dtype)
     return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _check_operand(name: str, t: torch.Tensor, device) -> None:
-    if t.device != device or t.dtype != torch.bfloat16:
+def _check_operand(name: str, t: torch.Tensor, device,
+                   f32_ok: bool = False) -> None:
+    """A bf16 operand on ``device`` (with ``f32_ok`` an output, which may
+    be fp32: the fp32-output builds) at a built head dim, strided as the
+    kernels read it."""
+    if t.device != device or not (t.dtype == torch.bfloat16 or (
+            f32_ok and t.dtype == torch.float32)):
         raise TypeError(f"flash kernel: {name} must be bf16 on {device}; got "
                         f"{t.dtype} on {t.device}")
     if t.shape[-1] not in HEAD_DIMS:
@@ -309,6 +359,25 @@ def _strides(*ts) -> list:
     return [s for t in ts for s in (t.stride(0), t.stride(1), t.stride(2))]
 
 
+def _f32_out(outs, head_dim: int, alibi_slopes, what: str) -> bool:
+    """Whether the outputs ``outs`` ask for an fp32-output build (all fp32;
+    bf16 and fp32 mixed raise), which exists at F32_OUT_HEAD_DIMS without
+    ALiBi: another head dim raises a ValueError naming it, never a bf16
+    launch in its place."""
+    kinds = {t.dtype for t in outs}
+    if kinds == {torch.bfloat16}:
+        return False
+    if kinds != {torch.float32}:
+        raise TypeError(f"flash kernel: {what} outputs mix dtypes {kinds}")
+    if head_dim not in F32_OUT_HEAD_DIMS or alibi_slopes is not None:
+        raise ValueError(f"flash kernel: fp32 {what} output is built at head "
+                         f"dims {F32_OUT_HEAD_DIMS} without ALiBi; got head "
+                         f"dim {head_dim}"
+                         + (" with ALiBi" if alibi_slopes is not None
+                            else ""))
+    return True
+
+
 def _kv(kv_len: Optional[int], sk: int) -> int:
     return sk if kv_len is None else min(int(kv_len), sk)
 
@@ -322,6 +391,8 @@ def _count(fn, alibi_slopes, head_dim: int) -> None:
         fn.d88_launches += 1
     elif head_dim == 96:
         fn.d96_launches += 1
+    elif head_dim == 128:
+        fn.d128_launches += 1
     else:
         fn.launches += 1
 
@@ -340,13 +411,18 @@ def flash_fwd_cuda(q, k, v, o, *, scale: float, causal: bool = False,
                    alibi_slopes: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """Launch the forward kernel on [B,H,S,D] views, D 64, 80, 88, 96 or 128 (any
-    batch/head/sequence strides), writing ``o`` in place.  Returns the
-    fp32 lse [B,H,Sq]."""
+    batch/head/sequence strides), writing ``o`` in place: bf16, or fp32
+    (the fp32-output build, at F32_OUT_HEAD_DIMS without ALiBi).  Returns
+    the fp32 lse [B,H,Sq]."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    for name, t in (("q", q), ("k", k), ("v", v), ("o", o)):
+    for name, t in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, t, q.device)
+    _check_operand("o", o, q.device, f32_ok=True)
     _check_shapes(q, k, v, (o, q), causal=causal)
+    entry = ("ymt_flash_fwd_f32out" if _f32_out((o,), d, alibi_slopes,
+                                                "forward")
+             else "ymt_flash_fwd_bf16")
     slopes = _slopes_ptr(alibi_slopes, q, causal)
     lse = torch.empty(b, h, sq, dtype=torch.float32, device=q.device)
     if q.numel() == 0:
@@ -356,12 +432,12 @@ def flash_fwd_cuda(q, k, v, o, *, scale: float, causal: bool = False,
                        sms=_device_sms(q.device.index))
     o_part, lse_part = (_scratch(t, q.device) for t in split_scratch_shapes(
         b, h, sq, d, splits) or (None, None))
-    err = _native.library().ymt_flash_fwd_bf16(
+    err = getattr(_native.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, h, sq, sk, _kv(kv_len, sk), *_strides(q, k, v, o),
         float(scale), int(period), int(causal), d, slopes, splits,
         _ptr(o_part), _ptr(lse_part), _native.stream_handle(q))
-    _native.check_launch(err, "ymt_flash_fwd_bf16")
+    _native.check_launch(err, entry)
     return lse
 
 
@@ -370,7 +446,7 @@ def _check_bwd(q, k, v, do, lse, delta, grads, causal):
     for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
         _check_operand(name, t, q.device)
     for t, _ in grads:
-        _check_operand("gradient", t, q.device)
+        _check_operand("gradient", t, q.device, f32_ok=True)
     b, h, sq, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or t.shape != (b, h, sq) \
@@ -410,24 +486,33 @@ def flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, *, scale: float,
                       kv_len: Optional[int] = None,
                       alibi_slopes: Optional[torch.Tensor] = None) -> None:
     """Launch the dq kernel (one block per 64-query tile, looping over
-    key tiles), writing ``dq`` [B,H,Sq,D] in place."""
+    key tiles), writing ``dq`` [B,H,Sq,D] in place (bf16, or fp32: the
+    fp32-output build, at F32_OUT_HEAD_DIMS without ALiBi)."""
     _check_bwd(q, k, v, do, lse, delta, ((dq, q),), causal)
     slopes = _slopes_ptr(alibi_slopes, q, causal)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    err = _native.library().ymt_flash_bwd_dq_bf16(
+    entry = ("ymt_flash_bwd_dq_f32out" if _f32_out((dq,), d, alibi_slopes,
+                                                   "dq")
+             else "ymt_flash_bwd_dq_bf16")
+    err = getattr(_native.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, h, sq, sk,
         _kv(kv_len, sk), *_strides(q, k, v, do, dq), float(scale),
         int(period), int(causal), d, slopes, _native.stream_handle(q))
-    _native.check_launch(err, "ymt_flash_bwd_dq_bf16")
-    _count(flash_bwd_dq_cuda, alibi_slopes, d)
+    _native.check_launch(err, entry)
+    if entry == "ymt_flash_bwd_dq_f32out":
+        flash_bwd_dq_cuda.f32_launches += 1
+    else:
+        _count(flash_bwd_dq_cuda, alibi_slopes, d)
 
 
 flash_bwd_dq_cuda.launches = 0
 flash_bwd_dq_cuda.d80_launches = 0
 flash_bwd_dq_cuda.d88_launches = 0
 flash_bwd_dq_cuda.d96_launches = 0
+flash_bwd_dq_cuda.d128_launches = 0
+flash_bwd_dq_cuda.f32_launches = 0  # the fp32-output build's
 flash_bwd_dq_cuda.alibi_launches = 0
 
 
@@ -438,7 +523,9 @@ def flash_bwd_dkv_cuda(q, k, v, do, lse, delta, dk, dv, *, scale: float,
     """Launch the dk/dv kernel (one block per 64-key tile, looping over
     query tiles; or, where ``dkv_short_splits`` says so, the short-query
     kernel: a block per share of a (head, batch)'s key tiles, every query
-    resident), writing ``dk`` and ``dv`` [B,H,Sk,D] in place."""
+    resident), writing ``dk`` and ``dv`` [B,H,Sk,D] in place (bf16, or
+    both fp32: the fp32-output build of the key-tile kernel, at
+    F32_OUT_HEAD_DIMS without ALiBi)."""
     _check_bwd(q, k, v, do, lse, delta, ((dk, k), (dv, v)), causal)
     b, h, sq, d = q.shape
     _launch_dkv(q, k, v, do, lse, delta, dk, dv, scale=scale, causal=causal,
@@ -458,14 +545,22 @@ def _launch_dkv(q, k, v, do, lse, delta, dk, dv, *, scale, causal, period,
     slopes = _slopes_ptr(alibi_slopes, q, causal)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    err = _native.library().ymt_flash_bwd_dkv_bf16(
+    f32 = _f32_out((dk, dv), d, alibi_slopes, "dk/dv")
+    if f32 and splits:
+        raise ValueError("flash kernel: the short-query dk/dv kernel has no "
+                         "fp32-output build")
+    entry = "ymt_flash_bwd_dkv_f32out" if f32 else "ymt_flash_bwd_dkv_bf16"
+    err = getattr(_native.library(), entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, h,
         sq, sk, _kv(kv_len, sk), *_strides(q, k, v, do, dk, dv),
         float(scale), int(period), int(causal), d, slopes, int(splits),
         _native.stream_handle(q))
-    _native.check_launch(err, "ymt_flash_bwd_dkv_bf16")
-    _count(flash_bwd_dkv_cuda, alibi_slopes, d)
+    _native.check_launch(err, entry)
+    if f32:
+        flash_bwd_dkv_cuda.f32_launches += 1
+    else:
+        _count(flash_bwd_dkv_cuda, alibi_slopes, d)
     if splits:
         flash_bwd_dkv_cuda.d96_short_launches += 1
 
@@ -474,6 +569,8 @@ flash_bwd_dkv_cuda.launches = 0
 flash_bwd_dkv_cuda.d80_launches = 0
 flash_bwd_dkv_cuda.d88_launches = 0
 flash_bwd_dkv_cuda.d96_launches = 0
+flash_bwd_dkv_cuda.d128_launches = 0
+flash_bwd_dkv_cuda.f32_launches = 0  # the fp32-output build's
 flash_bwd_dkv_cuda.alibi_launches = 0
 # ... and of those at head dim 96, the short-query kernel's
 flash_bwd_dkv_cuda.d96_short_launches = 0
@@ -533,8 +630,8 @@ class _Flash(torch.autograd.Function):
     (q, k, v, o, lse); the plain versions run for CPU tensors, the kernels
     for CUDA tensors (each forward launch adds one to ``counter.launches``,
     to ``counter.d80_launches``, ``counter.d88_launches`` or
-    ``counter.d96_launches`` at head dim 80, 88 or 96, or to
-    ``counter.alibi_launches`` with ALiBi)."""
+    ``counter.d96_launches`` or ``counter.d128_launches`` at head dim 80,
+    88, 96 or 128, or to ``counter.alibi_launches`` with ALiBi)."""
 
     @staticmethod
     def forward(ctx, q, k, v, kw, counter):
@@ -623,6 +720,7 @@ flash_attention_packed.launches = 0
 flash_attention_packed.d80_launches = 0
 flash_attention_packed.d88_launches = 0
 flash_attention_packed.d96_launches = 0
+flash_attention_packed.d128_launches = 0
 flash_attention_packed.alibi_launches = 0
 
 
@@ -659,4 +757,5 @@ flash_attention.launches = 0
 flash_attention.d80_launches = 0
 flash_attention.d88_launches = 0
 flash_attention.d96_launches = 0
+flash_attention.d128_launches = 0
 flash_attention.alibi_launches = 0

@@ -13,9 +13,10 @@ ring (``parallel/collectives.ppermute``, one exchange a step).  At step
 computes that block's partial ``(o_b, lse_b)`` with the flash forward
 (K4: ``ops/flash_attention.flash_fwd_cuda`` on CUDA tensors, its plain
 version ``flash_fwd_plain`` on CPU ones); the partials merge in fp32 by
-their lse.  Each partial o_b leaves the kernel in q's dtype, so a bf16
-rank's output takes one bf16 rounding per attended block before the
-merge, where JAX's fp32 accumulator rounds once.  Under ``causal`` the
+their lse.  Each partial o_b leaves the kernel in fp32 (K4's fp32-output
+build: P is rounded to the inputs' dtype before P V, as in every build,
+but the sum is not), so a bf16 rank's output is rounded once, after the
+merge, as JAX's fp32 accumulator is.  Under ``causal`` the
 diagonal block (``src == i``) runs the causal kernel (its local mask is
 the global one there), earlier blocks run unmasked and later blocks are
 skipped: JAX's mask on global positions, without its fully masked
@@ -24,11 +25,13 @@ FlashAttention-2's over the ring, on K4b: delta = rowsum(dO * O) once
 (``flash_bwd_delta_cuda``), then for each block the dq and dk/dv kernels
 with the global lse and delta; dq accumulates here in fp32, the fp32
 dk/dv accumulators travel with their K/V block and reach its owner after
-P hops.  It is the gradient JAX's autodiff of ``_block_attend`` gives,
-but for the kernels' outputs: dq_b, dk_b and dv_b leave K4b in the
-inputs' dtype, one bf16 rounding per block before the fp32 sums, so the
-error grows with P (``tests/test_torch_ring_attention.py`` holds a bf16
-ring at sp 8 against JAX in fp32).
+P hops.  It is the gradient JAX's autodiff of ``_block_attend`` gives:
+dq_b, dk_b and dv_b leave K4b in fp32 (its fp32-output builds) and are
+summed in fp32, so a bf16 rank's gradients are rounded once, at the end,
+and the error does not grow with P (``tests/test_torch_ring_attention.py``
+holds a bf16 ring at sp 8 against JAX in fp32, and its error against the
+one-rank form's).  The fp32-output builds exist at head dim 64 (the 1.3B
+decoder's heads); on the card another head dim raises.
 ``ring_attention.launches`` counts the forward's K4 launches (the
 backward's count in ``flash_bwd_dq_cuda``, ``flash_bwd_dkv_cuda`` and
 ``flash_bwd_delta_cuda`` as everywhere).
@@ -53,23 +56,24 @@ from youku_mplug_tpu_torch.runtime.mesh import ONE_RANK, AxisGroup
 
 
 def _block_fwd(q, k, v, scale, causal):
-    """(o_b in q.dtype, lse_b fp32) of one K/V block."""
+    """(o_b fp32, lse_b fp32) of one K/V block."""
     if fa._on_cpu(q):
-        return fa.flash_fwd_plain(q, k, v, scale=scale, causal=causal)
-    o = torch.empty_like(q, memory_format=torch.contiguous_format)
+        return fa.flash_fwd_plain(q, k, v, scale=scale, causal=causal,
+                                  out_dtype=torch.float32)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = fa.flash_fwd_cuda(q, k, v, o, scale=scale, causal=causal)
     ring_attention.launches += 1
     return o, lse
 
 
 def _block_bwd(q, k, v, o, lse, do, delta, scale, causal):
-    """(dq_b, dk_b, dv_b) of one K/V block with the global lse and
+    """(dq_b, dk_b, dv_b) of one K/V block in fp32 with the global lse and
     delta (on the CPU the plain backward, which rebuilds delta from the
     global o and dO)."""
     if fa._on_cpu(q):
         return fa.flash_bwd_plain(q, k, v, o, lse, do, scale=scale,
-                                  causal=causal)
-    dq, dk, dv = (torch.empty_like(t, memory_format=torch.contiguous_format)
+                                  causal=causal, out_dtype=torch.float32)
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=t.device)
                   for t in (q, k, v))
     fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, dq, scale=scale,
                          causal=causal)
@@ -90,11 +94,11 @@ class _Ring(torch.autograd.Function):
             if not (causal and src > i):
                 o_b, lse_b = _block_fwd(q, kk, vv, scale, causal and src == i)
                 if o_acc is None:
-                    o_acc, lse = o_b.float(), lse_b
+                    o_acc, lse = o_b, lse_b
                 else:
                     new = torch.logaddexp(lse, lse_b)
                     o_acc = (o_acc * torch.exp(lse - new)[..., None]
-                             + o_b.float() * torch.exp(lse_b - new)[..., None])
+                             + o_b * torch.exp(lse_b - new)[..., None])
                     lse = new
             if t < p - 1:
                 kk, vv = ppermute([kk, vv], axis)

@@ -186,6 +186,25 @@ def _split(t: torch.Tensor, dim: int, index: int, parts: int
     return t.narrow(dim, index * size, size).clone()
 
 
+# what ``shard_params`` (and ``ops/lora.cut_adapters``) set on a module of
+# a model shard besides its parameters: a module that mirrors a shard
+# takes these over with ``copy_shard_state``
+SHARD_STATE = ("tp", "mesh", "tp_split", "tp_partial", "lora_cut")
+
+
+def copy_shard_state(src: nn.Module, dst: nn.Module) -> nn.Module:
+    """Give each submodule of ``dst`` the SHARD_STATE its namesake in
+    ``src`` holds (the model group, the mesh, the split and adapter
+    cuts), e.g. a shallower twin of a shard (``serving/speculative.
+    twin_draft``).  Returns ``dst``."""
+    for name, mod in src.named_modules():
+        twin = dst.get_submodule(name)
+        for attr in SHARD_STATE:
+            if attr in vars(mod):
+                setattr(twin, attr, getattr(mod, attr))
+    return dst
+
+
 @torch.no_grad()
 def shard_params(module: nn.Module, mesh: Mesh,
                  rules: ShardingRules = GPT3_SHARDING_RULES) -> nn.Module:

@@ -179,6 +179,24 @@ def gather_vocab_logits(logits: torch.Tensor, tp: Optional[ModelGroup]
     return full
 
 
+def agree_over_model(flag: bool, tp: Optional[ModelGroup],
+                     device=None) -> bool:
+    """``flag``, checked equal on every model rank (one all_reduce of two
+    ints): a host decision that steers the ranks' collectives, such as
+    whether a decode loop runs another round, must be the same on all of
+    them, or their collectives pair up wrongly.  Raises when the ranks
+    disagree."""
+    if not _active(tp):
+        return flag
+    both = torch.tensor([int(flag), -int(flag)], dtype=torch.int64,
+                        device=device)
+    dist.all_reduce(both, op=dist.ReduceOp.MAX, group=tp.group)
+    if int(both[0]) != -int(both[1]):
+        raise RuntimeError(f"model rank {tp.index}: the model ranks disagree "
+                           f"on a host flag ({flag} here)")
+    return flag
+
+
 def model_parallel(module: nn.Module) -> bool:
     """Whether any submodule of ``module`` runs on a model shard."""
     return any(_active(getattr(m, "tp", None)) for m in module.modules())

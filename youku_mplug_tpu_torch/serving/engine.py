@@ -53,8 +53,10 @@ cannot be tested with one card.  The cache holds the rank's own heads
 logits every rank picks from are the gathered full vocabulary
 (``parallel/tensor_parallel.gather_vocab_logits``), so the model ranks
 pick the same tokens, sampled ones too (one generator seed a data rank).
-Prompt-lookup speculation (``step_lookup``) there raises (ROADMAP Queue 1
-item 4).
+Prompt-lookup speculation (``step_lookup``) runs there as ``step`` does,
+eagerly: the verify chunk's [B, k+1, V] logits are the gathered full
+vocabulary too, so every model rank commits the same tokens and proposes
+the same drafts from the same histories.
 Under ``model == 1`` nothing changes.
 """
 
@@ -87,10 +89,11 @@ COUNTERS = tuple(
     (fn, attr) for fn, attrs in (
         (dec.write_decode_attention, ("launches", "alibi_launches",
                                       "int8_launches",
-                                      "int8_alibi_launches")),
+                                      "int8_alibi_launches",
+                                      "d128_launches")),
         (fa.flash_attention_packed, ("launches", "d96_launches",
-                                     "alibi_launches")),
-        (fa.flash_attention, ("launches", "d96_launches",
+                                     "d128_launches", "alibi_launches")),
+        (fa.flash_attention, ("launches", "d96_launches", "d128_launches",
                               "alibi_launches")))
     for attr in attrs)
 
@@ -447,10 +450,6 @@ class ServingEngine:
         Greedy-only."""
         if self.config.do_sample:
             raise ValueError("step_lookup is greedy-only")
-        if self.eager:
-            raise NotImplementedError(
-                "prompt-lookup decoding on a model shard is not ported "
-                "(ROADMAP Queue 1 item 4)")
         finished, longest = self._begin()
         if longest < 0:
             return finished

@@ -19,9 +19,20 @@ greedy decoding for any draft.  Each round:
 
 Per-sample accepted counts differ, so lengths are [B] tensors throughout.
 The JAX package's ``lax.while_loop`` is a Python loop over rounds here,
-which reads one flag from the device a round.  ``twin_draft`` builds the
-draft the serve CLI uses: the target's first layers, as views of its
-stacked weights.
+which reads one flag from the device a round.
+
+On a model shard (a decoder cut by ``parallel/sharding.shard_params``,
+as the JAX package runs both functions under ``jax.set_mesh``) every
+model rank runs the same rounds: the logits of the prefill, of the
+draft's steps and of the verify chunk are the gathered full vocabulary
+on every rank (``TiedEmbedding.attend``, for a [B, k+1, V] chunk as for
+one token), so the ranks pick, accept and commit the same tokens; with
+``do_sample`` they draw the same numbers when they share the generator's
+seed (the serve CLI seeds it by the data coordinate, as the engine's);
+the round's flag is checked equal over the model group
+(``tensor_parallel.agree_over_model``) before it steers another round.
+``twin_draft`` builds the draft the serve CLI uses: the target's first
+layers, as views of its stacked weights.
 
 ``ngram_speculative_generate`` is the draft-free variant (greedy only):
 proposals are the continuation of the most recent earlier occurrence of
@@ -45,6 +56,8 @@ from youku_mplug_tpu_torch.models.generation import (
     top_k_top_p_filter,
 )
 from youku_mplug_tpu_torch.models.gpt3 import GPT3LM
+from youku_mplug_tpu_torch.parallel.sharding import copy_shard_state
+from youku_mplug_tpu_torch.parallel.tensor_parallel import agree_over_model
 
 
 def _spec_accept(generator: torch.Generator, drafts: torch.Tensor,
@@ -113,6 +126,14 @@ def _commit_round(st: dict, commit: torch.Tensor, n_commit: torch.Tensor,
     st["last"] = torch.where(n_live > 0, new_last, st["last"])
     st["done"] = st["done"] | hit_eos | (st["t"] + n_live >= max_new)
     return n_live
+
+
+def _more_rounds(st: dict, max_new: int, model: GPT3LM) -> bool:
+    """Whether a sample still decodes: the round's one flag from the
+    device, the same on every model rank of a shard."""
+    more = not bool((st["done"] | (st["t"] >= max_new)).all())
+    return agree_over_model(more, model.word_embeddings.tp,
+                            st["done"].device)
 
 
 def _result(st: dict, rounds: int, b: int, max_new: int) -> dict:
@@ -187,7 +208,7 @@ def speculative_generate(model: GPT3LM, draft_model: GPT3LM,
           "d_len": torch.full((b,), p, dtype=torch.int32, device=dev),
           "last": first, "done": first == config.eos_id}
     rounds = 0
-    while not bool((st["done"] | (st["t"] >= max_new)).all()):
+    while _more_rounds(st, max_new, model):
         # ---- 1. the draft proposes k tokens --------------------------
         tok, length = st["last"], st["d_len"]
         drafts, d_probs = [], []
@@ -310,7 +331,7 @@ def ngram_speculative_generate(model: GPT3LM, prompt_ids: torch.Tensor,
           "t_len": torch.full((b,), nq + p, dtype=torch.int32, device=dev),
           "last": first, "done": first == config.eos_id}
     rounds = 0
-    while not bool((st["done"] | (st["t"] >= max_new)).all()):
+    while _more_rounds(st, max_new, model):
         cur = p + st["t"]  # one past the last committed token in hist
         drafts = _ngram_propose(hist, cur, ngram, k, valid_from).int()
         chunk = torch.cat([st["last"][:, None], drafts], 1)
@@ -337,7 +358,12 @@ def twin_draft(lm: GPT3LM, layers: int) -> GPT3LM:
     """A draft for ``speculative_generate``: a ``GPT3LM`` of the first
     ``layers`` layers of ``lm`` whose parameters (and int8 scales) are
     views of ``lm``'s — its stacked [L] layer tensors sliced, the
-    embeddings and final norm shared; nothing is copied."""
+    embeddings and final norm shared; nothing is copied.  The twin of a
+    model shard is the same shard of the shallower model: each of its
+    modules carries the target's shard state (the model group ``tp``, the
+    ``mesh``, the split and adapter cuts), so its heads are the rank's
+    local heads and its embedding and logits the vocab-parallel lookup
+    and gather."""
     if not isinstance(lm, GPT3LM):
         raise TypeError(f"twin_draft takes a GPT3LM, got {type(lm).__name__}")
     depth = lm.cfg.num_hidden_layers
@@ -357,4 +383,4 @@ def twin_draft(lm: GPT3LM, layers: int) -> GPT3LM:
     for name, buf in lm.named_buffers():
         mod, _, attr = name.rpartition(".")
         draft.get_submodule(mod).register_buffer(attr, view(name, buf))
-    return draft.train(lm.training)
+    return copy_shard_state(lm, draft).train(lm.training)
