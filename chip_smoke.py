@@ -10,8 +10,9 @@ at OWL_SERVE_LAYERS of its 30 layers in phases 7, 8, 8a (its sampling on
 a full-depth model of its own: a cut seeded Bloom is too peaked to
 sample), 8b, 25 and 26;
 the 1.3B decoder at GPT13_CUT_LAYERS of 24 in phases 13 and 27
-(pretrain13), SERVE_MESH_LAYERS in 40 and TRAIN_MESH_LAYERS in 41 (it
-runs whole in 3-6 and 12); the 2.7B at GPT27_LAYERS of 32 in phases 14
+(pretrain13), SERVE_MESH_LAYERS in 40, TRAIN_MESH_LAYERS in 41 and
+DOWNSTREAM_MESH_LAYERS in 45, with clip-b16 at DOWNSTREAM_MESH_BLOCKS of
+its 12 blocks (it runs whole in 3-6 and 12); the 2.7B at GPT27_LAYERS of 32 in phases 14
 and 27; phase 32 over the leaves of ZOO_BLOCKS of the 12 vision blocks;
 phase 42's Owl at OWL_MESH_LAYERS of Bloom's 30 layers and OWL_MESH_VIT
 of the ViT's 24 blocks.  Where a phase below says "depth", read the cut.
@@ -552,7 +553,35 @@ of the ViT's 24 blocks.  Where a phase below says "depth", read the cut.
    sums unchanged; phase 6's plain replay of one step.  Printed: tokens/s,
    peak memory of the serve, the setup and the steps, step ms.  Phase 2
    holds K1 / K2/K3 at d 128 at its [4, 208, 40x128] causal and K5 at
-   its cache.  [slice gpt3_13b_serve], [gpt3-13B ...] lines.
+   its cache.  [slice gpt3_13b_serve], [gpt3-13B ...] lines;
+45. downstream_mesh (in phase 40's (1,1) and (1,2) calls, after phase
+   41's splits; gated after phase 41): run_cls, run_retrieval and
+   run_retrieval_itm through their own prepare / build_train_step /
+   make_batch / evaluation on their shipped YAMLs with a mesh: block at
+   full width (clip-b16 768 wide, 8 heads of 96; the 1.3B 2048 wide, 32
+   heads of 64; the decoder at DOWNSTREAM_MESH_LAYERS of 24 layers,
+   clip-b16 at DOWNSTREAM_MESH_BLOCKS of 12 blocks, seeded weights,
+   synthetic clips; the shipped 0.1 decoder dropouts on, run_cls's vision
+   rates set to 0.1; ITM at num_classes 2 and batch 32, phase 13's cuts),
+   DOWNSTREAM_MESH_STEPS train steps of the same global batches at (1,1)
+   NCCL, (1,2) and (2,1) gloo on card 0, then one evaluation (a test
+   batch of cls, DOWNSTREAM_MESH_SPLIT clips and texts of retrieval and
+   ITM).  Gates: every rank's launches exactly DOWNSTREAM_MESH_LAUNCHES a
+   step and an evaluation call (K4 / K4b at d 96 in the cls and ITM
+   steps, K1 in the evaluations and the retrieval text tower); phase 41's
+   gates on the steps, the leaves and their moves against (1,1)'s; every
+   dropout draw's kept elements, summed over the blocks the ranks keep,
+   equal to (1,1)'s exactly (the masks are drawn at the global shape);
+   the evaluation's scores against (1,1)'s within phase 13's replay
+   bounds and its metrics (1,1)'s but where a decision moved at a near
+   tie; and AttentionPool's k_bias gradient as the port takes it (-dk of
+   the appended bias key) from K4 / K4b at POOL_BIAS_SHAPE, bf16, against
+   an fp64 plain reference within POOL_BIAS_TOL (the same gradient as the
+   sum of every other key's dk rows printed beside it).  Phase 2 holds
+   K4 / K4b d 96 at a (2,1) rank's [16,8,128,96]
+   over 1570 keys and K1 at a model = 2 rank's [180,208,16x64],
+   [32,208,16x64], [96,80,16x64] and a (2,1) rank's [48,80,32x64].
+   [downstream_mesh <recipe> <split>] lines.
 [time] lines give the script's seconds after each group of phases.
 """
 
@@ -612,10 +641,9 @@ FORCED_STEPS = 4
 REPLAY_LOSS_TOL = 1e-2   # |loss_kernels - loss_plain|, loss ~ ln(51200)
 # per trainable leaf: |g_kernels - g_plain| <= REPLAY_GRAD_TOL x
 # max(|g_plain|, REPLAY_GRAD_FLOOR x |whole gradient|) (L2 norms).  The
-# floor holds a leaf whose exact gradient nearly cancels to an absolute
-# bound: AttentionPool's k_bias shifts every key but the appended bias
-# key, and softmax ignores a shift of all keys, so its gradient is a small
-# residue of large terms and its bf16 rounding noise is of its own size.
+# floor holds a leaf whose gradient is tiny against the whole to an
+# absolute bound (AttentionPool's k_bias: the softmax ignores a shift of
+# every key, so only the appended bias key's score moves it).
 REPLAY_GRAD_TOL = 0.05
 REPLAY_GRAD_FLOOR = 1e-3
 TRAIN_YAML = os.path.join(REPO, "configs", "pretrain",
@@ -1314,8 +1342,11 @@ D96_SHAPES = [
     # and the ITM 2.7B step's 16 clips x 4 frames (phase 27)
     (48, 128, 786, 8, False, 0, None, "heads", 96, False,
      "pretrain13_train, pretrain27_train", True),
-    (16, 128, 786, 8, False, 0, None, "heads", 96, False, "itm27_train",
-     True),
+    (16, 128, 786, 8, False, 0, None, "heads", 96, False,
+     "itm27_train, itm_mesh_2x1_train", True),
+    # phase 45's (2,1) data rank of the cls step: 16 of its 32 clips
+    (16, 128, 1570, 8, False, 0, None, "heads", 96, False,
+     "cls_mesh_2x1_train", True),
     # more than 128 queries (ragged keys, kv_len < Sk): the key-tile dk/dv
     # kernel, which no path runs at d 96
     (4, 256, 1570, 8, False, 0, 1500, "heads", 96, False, "key-tile dk/dv",
@@ -1327,13 +1358,25 @@ D96_SHAPES = [
 D88_SHAPES = [
     (16, 128, 258, 16, False, 0, None, "heads", 88, False, "eva_pretrain",
      True)]
+# phase 45: each downstream recipe under each split, its train steps and
+# its evaluation, one path each ("cls_mesh_1x2_train", ...)
+DOWNSTREAM_MESH_TAGS = ("1x1", "1x2", "2x1")
+
+
+def _ds_mesh_paths(kinds, part):
+    return tuple(f"{k}_mesh_{t}_{part}" for k in kinds
+                 for t in DOWNSTREAM_MESH_TAGS)
+
+
 D96_PATHS = ("cls_train", "cls_eval", "itm_train", "itm_eval",
              "caption27_train", "caption27_eval", "cls27_train", "cls27_eval",
              "cls_files_train", "cls_files_eval", "pretrain13_train",
-             "pretrain27_train", "itm27_train", "itm27_eval")
+             "pretrain27_train", "itm27_train", "itm27_eval") \
+    + _ds_mesh_paths(("cls", "itm"), "train") \
+    + _ds_mesh_paths(("cls", "itm"), "eval")
 D96_TRAIN_PATHS = ("cls_train", "itm_train", "caption27_train", "cls27_train",
                    "cls_files_train", "pretrain13_train", "pretrain27_train",
-                   "itm27_train")
+                   "itm27_train") + _ds_mesh_paths(("cls", "itm"), "train")
 # the paths of the checkpoint phases (15-19): caption serving with the
 # imported and the resumed weights; Owl serving from the HF import, its
 # LoRA training and the int8 serving export
@@ -1768,7 +1811,14 @@ def phase_kernels(dev, builds, owl_beam):
             (64, 257, 8, 0, False, "instruct_mesh_1x2"),
             (180, 208, 32, 0, True, "cls_eval"),
             (32, 208, 32, 0, True, "itm_eval"),
-            (96, 80, 32, 0, True, "retrieval")):
+            (96, 80, 32, 0, True, "retrieval"),
+            # phase 45: a model = 2 rank's 16 decoder heads in a cls and
+            # an ITM evaluation call and the retrieval text tower, and a
+            # (2,1) data rank's 48 texts of a retrieval train step
+            (180, 208, 16, 0, True, "cls_mesh_1x2_eval"),
+            (32, 208, 16, 0, True, "itm_mesh_1x2_eval"),
+            (96, 80, 16, 0, True, "retrieval_mesh_1x2"),
+            (48, 80, 32, 0, True, "retrieval_mesh_2x1_train")):
         nd = n * 64
         qkv = rand(rows, s, 3 * nd)
         q, k, v = qkv[..., :nd], qkv[..., nd:2 * nd], qkv[..., 2 * nd:]
@@ -1888,7 +1938,9 @@ def phase_kernels(dev, builds, owl_beam):
                + BERT_TRAIN_PATHS + BERT_EVAL_PATHS + IMAGE_TRAIN_PATHS
                + MESH_PATHS + TRAIN_MESH_PATHS + OWL_MESH_PATHS
                + OWL_TRAIN_MESH_PATHS + ("gpipe_pipe2",) + GPT13B_PATHS
-               + SPEC_MESH_PATHS, "K1", k1),
+               + SPEC_MESH_PATHS + _ds_mesh_paths(("cls", "itm"), "eval")
+               + _ds_mesh_paths(("retrieval",), "train")
+               + _ds_mesh_paths(("retrieval",), "eval"), "K1", k1),
         _entry("K4 flash_attention (AttentionPool; split-KV shares merged "
                "by flash_fwd_merge_kernel)", FWD_SRC,
                f"{TPU_FLASH}:59", fa.flash_attention,
@@ -7385,19 +7437,68 @@ TRAIN_MESH_NORM_TOL = 2.0 ** -7
 # (REPLAY_GRAD_FLOOR x the whole move's norm as the floor): the leaves
 # barely move in 3 steps, so a gate on their values cannot see a wrong
 # update.  Adam's first updates are about +-lr an element whatever the
-# gradient's size: bf16 noise read 0.046-0.074 (LN scales; AttentionPool's
-# k_bias, 0.37-0.56 plain: it shifts the 1570 pooled keys' logits but not
-# the appended bias_k's, so its gradient is what is left of 1570
-# cancelling bf16 products), a gradient cut to one rank's share (a
-# vision MLP or attention input without f) 0.98-1.02 (PERF.md §6)
+# gradient's size: bf16 noise read 0.046-0.074 (LN scales), a gradient
+# cut to one rank's share (a vision MLP or attention input without f)
+# 0.98-1.02 (PERF.md §6).  AttentionPool's k_bias moves as its bias_k
+# does: its gradient is -dk of the appended bias key (models/vision.py)
 TRAIN_MESH_MOVE_TOL = 0.2
-# leaves whose gradient is zero in exact arithmetic, kept out of the move
-# gate (their values stay gated): the Owl abstractor's k_bias adds q . b
+# leaves whose gradient is zero in exact arithmetic, kept out of the
+# move gate (their values stay gated, their moves printed): the Owl
+# abstractor's k_bias adds q . b
 # to every score of a query alike, which the softmax cancels, so what
 # reaches it is the bf16 rounding of the probabilities' gradient, which
 # Adam turns into lr-sized moves of either sign on every rank alike in
 # size but not in sign (phase 42's first chip run: gated 0.34 at (1,2))
 ZERO_GRADIENT_LEAVES = r".*abstractor/layers_\d+/k_bias$"
+
+# phase 45: run_cls, run_retrieval and run_retrieval_itm on their shipped
+# YAMLs under (1,1) NCCL, (1,2) and (2,1) gloo on card 0 (phase 41's
+# splits, in phase 40's calls): full width (clip-b16 768 wide, 8 heads of
+# 96; the 1.3B 2048 wide, 32 heads of 64), the decoder at
+# DOWNSTREAM_MESH_LAYERS of 24 layers and clip-b16 at
+# DOWNSTREAM_MESH_BLOCKS of 12 blocks, the shipped 0.1 decoder dropouts
+# on (and run_cls's vision rates set to 0.1), DOWNSTREAM_MESH_STEPS train
+# steps of the same global batches, then one evaluation: a test batch of
+# cls (eval_video_batch 4 clips a call), DOWNSTREAM_MESH_SPLIT clips and
+# texts of retrieval and ITM; ITM at phase 13's batch of 32 clips
+DOWNSTREAM_MESH_LAYERS = 2
+DOWNSTREAM_MESH_BLOCKS = 2
+DOWNSTREAM_MESH_STEPS = 2
+DOWNSTREAM_MESH_SPLIT = {"itm": 8, "retrieval": 96}
+DOWNSTREAM_MESH_KINDS = ("cls", "retrieval", "itm")
+# launches per rank, written in PERF.md before the first chip run: a
+# cls / ITM train step runs AttentionPool's K4 at d 96 and its backward
+# (dq, the short-query dk/dv, delta) once (the decoder trains under
+# attention dropout on the plain path, clip-b16 on einsum), a retrieval
+# step the text tower's K1 once a layer (the frozen decoder takes no
+# backward); an evaluation call of cls / ITM one K4 at d 96 and K1 twice a
+# layer (the pairs, the head's prompts), a retrieval text call K1 once a
+# layer; a model = 2 rank runs every kernel once as (1,1) does (16 of the
+# decoder's 32 heads, AttentionPool replicated), a data rank of (2,1) its
+# half of the evaluation calls (every text call of retrieval: the texts
+# stay whole on every rank)
+DOWNSTREAM_MESH_LAUNCHES = {
+    "cls": ({"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1, "delta": 1},
+            {"K4-d96": 1, "K1": 2 * DOWNSTREAM_MESH_LAYERS}),
+    "itm": ({"K4-d96": 1, "dq-d96": 1, "dkv-d96": 1, "delta": 1},
+            {"K4-d96": 1, "K1": 2 * DOWNSTREAM_MESH_LAYERS}),
+    "retrieval": ({"K1": DOWNSTREAM_MESH_LAYERS},
+                  {"K1": DOWNSTREAM_MESH_LAYERS})}
+# the counters a phase 45 rank reads, {report key: (wrapper, attribute)}:
+# every flash kernel its paths could reach, the unpredicted ones at zero
+DOWNSTREAM_MESH_COUNTERS = {
+    **TRAIN_MESH_COUNTERS,
+    "K4-d96": ("flash_attention", "d96_launches"),
+    "dq-d96": ("flash_bwd_dq_cuda", "d96_launches"),
+    "dkv-d96": ("flash_bwd_dkv_cuda", "d96_short_launches")}
+# AttentionPool's k_bias gradient from K4 / K4b on a (2,1) cls rank's
+# (B, heads, queries, head dim, keys + the bias key), bf16 inputs of unit
+# variance: the port's form, -dk of the appended bias key summed over the
+# batch, against an fp64 plain reference within the kernels' gradient
+# gate; the sum of every other key's dk rows (the same gradient in exact
+# arithmetic, a k_bias on every key) is printed beside it
+POOL_BIAS_SHAPE = (16, 8, 128, 96, 1570)
+POOL_BIAS_TOL = 2.0 ** -7
 
 
 def _torchrun(n, argv, log_path):
@@ -7516,7 +7617,8 @@ def _mesh_replay(args, cfg, model, tokens):
 
 
 def mesh_rank(yaml_path, backend, device, out_dir, ref_path,
-              train_specs="[]", owl_spec="{}", parallel_dir=""):
+              train_specs="[]", owl_spec="{}", parallel_dir="",
+              downstream_specs="[]"):
     """One rank of phases 40-42 (``chip_smoke.py --mesh-rank`` under
     torch.distributed.run): the serve CLI's ``build`` and ``serve_built``
     (all ``python -m youku_mplug_tpu_torch.cli.serve`` runs) on the
@@ -7526,10 +7628,11 @@ def mesh_rank(yaml_path, backend, device, out_dir, ref_path,
     saves the replay's record as ``out_dir/forced.pt``.  The same process
     then runs, on the same process group, each training spec of
     ``train_specs`` (a JSON list: phase 41's splits of this world, in
-    order, ``train_mesh_rank``) and phase 42's serving and training of
-    ``owl_spec`` (JSON, ``_owl_mesh_specs``'s), each model freed
-    first, and with ``parallel_dir`` phase 43's parts (``parallel_rank``)
-    last."""
+    order, ``train_mesh_rank``), phase 45's downstream recipes of
+    ``downstream_specs`` (``downstream_mesh_rank``), phase 42's serving
+    and training of ``owl_spec`` (JSON, ``_owl_mesh_specs``'s), each
+    model freed first, and with ``parallel_dir`` phase 43's parts
+    (``parallel_rank``) last."""
     from youku_mplug_tpu_torch.runtime import mesh as mesh_lib
 
     try:
@@ -7538,6 +7641,10 @@ def mesh_rank(yaml_path, backend, device, out_dir, ref_path,
             gc.collect()
             torch.cuda.empty_cache()
             train_mesh_rank(json.dumps(spec))
+        for spec in json.loads(downstream_specs):
+            gc.collect()
+            torch.cuda.empty_cache()
+            downstream_mesh_rank(json.dumps(spec))
         owl = json.loads(owl_spec)
         if owl:
             gc.collect()
@@ -7778,6 +7885,164 @@ def train_mesh_rank(spec_json):
         json.dump(rec, f)
 
 
+def _downstream_mesh_specs(out_dir, tag, backend, device):
+    """Phase 45's specs of one split (written before its ranks start):
+    each recipe's shipped YAML with the split's mesh block and the
+    phase's cuts, its rank directory."""
+    data, model = map(int, tag.split("x"))
+    specs = []
+    for kind in DOWNSTREAM_MESH_KINDS:
+        d = os.path.join(out_dir, f"downstream_{kind}_{tag}")
+        os.makedirs(d)
+        path = {"cls": CLS_YAML, "itm": ITM_YAML,
+                "retrieval": RETRIEVAL_YAML}[kind]
+        vision = {"depth": DOWNSTREAM_MESH_BLOCKS}
+        cuts = {"mesh": {"data": data, "model": model},
+                "text_overrides": {"num_hidden_layers":
+                                   DOWNSTREAM_MESH_LAYERS},
+                "eval_video_batch": DOWNSTREAM_EVAL_CLIPS}
+        if kind == "cls":  # its vision rates on too
+            vision.update(drop_rate=0.1, attn_drop_rate=0.1, drop_path=0.1)
+            cuts["synthetic_length"] = 64
+        elif kind == "itm":
+            cuts.update(num_classes=2, batch_size=32, synthetic_length=64)
+        else:
+            cuts["synthetic_length"] = 192
+        cuts["visual_overrides"] = vision
+        specs.append({"kind": kind, "tag": tag, "out": d,
+                      "yaml": _downstream_yaml(path, cuts, d),
+                      "backend": backend, "device": device})
+    return specs
+
+
+def downstream_mesh_rank(spec_json):
+    """One rank of phase 45: ``spec["kind"]``'s CLI on the split of
+    ``spec["yaml"]`` through its own functions (``prepare``,
+    ``build_train_step``, ``make_batch``; ``common.train_one_epoch`` of
+    DOWNSTREAM_MESH_STEPS steps, then ``evaluation`` of one test batch
+    (cls) or of a synthetic split of DOWNSTREAM_MESH_SPLIT clips and
+    texts), with this rank's launches, every dropout mask's kept count
+    and blocks in order, and the evaluation's scores; rank 0 saves the
+    trainable leaves unsharded after the steps (``leaves.pt``; (1,1)
+    also before them, ``init.pt``).  Each rank writes ``rank<r>.json`` and
+    ``scores_rank<r>.pt``."""
+    import numpy as np
+
+    from youku_mplug_tpu_torch.cli import common, run_cls, run_retrieval
+    from youku_mplug_tpu_torch.cli import run_retrieval_itm
+    from youku_mplug_tpu_torch.data.datasets import SyntheticRetrievalSplit
+    from youku_mplug_tpu_torch.ops import attention
+    from youku_mplug_tpu_torch.ops import flash_attention as fa
+    from youku_mplug_tpu_torch.parallel.sharding import gather_split
+
+    spec = json.loads(spec_json)
+    kind, out = spec["kind"], spec["out"]
+    module = {"cls": run_cls, "itm": run_retrieval_itm,
+              "retrieval": run_retrieval}[kind]
+    t0 = time.perf_counter()
+    args = module.parser().parse_args([
+        "--config", spec["yaml"], "--output_dir", out, "--synthetic_data",
+        "--max_steps", str(DOWNSTREAM_MESH_STEPS), "--device",
+        spec["device"], "--dist_backend", spec["backend"]])
+    prepared = module.prepare(args)
+    runner = prepared[0]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    mesh, state = runner.mesh, runner.state
+
+    def save_leaves(name):  # every rank gathers, rank 0 writes
+        leaves = {k: (gather_split(p, state.split[k], mesh)
+                      if k in state.split else p.detach().cpu())
+                  for k, p in state.trainable.items()}
+        if mesh.rank == 0:
+            torch.save(leaves, os.path.join(out, name))
+    if spec["tag"] == "1x1":
+        save_leaves("init.pt")
+    wrappers = {k: (getattr(fa, n), a)
+                for k, (n, a) in DOWNSTREAM_MESH_COUNTERS.items()}
+
+    def counts():
+        return {k: getattr(fn, attr) for k, (fn, attr) in wrappers.items()}
+
+    def zero():
+        for fn, attr in wrappers.values():
+            setattr(fn, attr, 0)
+    kept, keep_mask = [], attention._keep_mask
+
+    def counted(shape, rate, generator, device, blocks=()):
+        keep = keep_mask(shape, rate, generator, device, blocks)
+        kept.append([[list(b) for b in blocks], int(keep.sum())])
+        return keep
+    make_batch = (run_cls.make_batch_factory(prepared[3],
+                                             runner.cfg.max_length)
+                  if kind == "cls" else module.make_batch)
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with mock.patch.object(attention, "_keep_mask", counted):
+        history = common.train_one_epoch(runner,
+                                         module.build_train_step(runner), 0,
+                                         make_batch)
+    torch.cuda.synchronize()
+    rec = {"rank": mesh.rank, "coord": list(mesh.coord), "setup_s": setup_s,
+           "train_s": time.perf_counter() - t1, "history": history,
+           "launches_train": counts(), "kept": kept,
+           "train_peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    save_leaves("leaves.pt")
+
+    # the evaluation: its scores as the merge hands them to the metrics
+    scores, calls = [], []
+    runner.args.max_steps = 1  # one test batch (cls)
+    if kind == "cls":
+        score_batch = run_cls.score_batch
+
+        def scored(runner_, raw, classnames):
+            res = score_batch(runner_, raw, classnames)
+            text = runner_.tokenizer(
+                [(run_cls._title(t, runner_.cfg.max_length), c)
+                 for t in raw["text"] for c in classnames])
+            scores.append({
+                "index": np.asarray(raw["index"]),
+                "label": np.asarray(raw["label"]), **res,
+                "scored": int((text["attention_mask"].sum(1) - 1
+                               - text["prompt_lengths"]).max())})
+            calls.append(-(-len(raw["text"]) // DOWNSTREAM_EVAL_CLIPS))
+            return res
+        patch = mock.patch.object(run_cls, "score_batch", scored)
+        split = prepared[2]
+    else:
+        split = SyntheticRetrievalSplit(DOWNSTREAM_MESH_SPLIT[kind],
+                                        num_frames=runner.cfg.num_frames,
+                                        size=runner.cfg.image_res)
+        rank_of = module.itm_eval
+
+        def ranked(matrix, *a, **k):
+            scores.append(np.asarray(matrix))
+            return rank_of(matrix, *a, **k)
+        patch = mock.patch.object(module, "itm_eval", ranked)
+    zero()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    with patch:
+        metrics = (module.evaluation(runner, split, prepared[3])
+                   if kind == "cls" else module.evaluation(runner, split))
+    torch.cuda.synchronize()
+    if kind == "itm":  # its calls: this rank's clips x the text calls
+        clips = len(range(mesh.data_index, len(split), mesh.data))
+        calls = [-(-clips // DOWNSTREAM_EVAL_CLIPS)
+                 * -(-len(split) // module.TEXTS_PER_CALL)]
+    elif kind == "retrieval":  # the text calls: every text on every rank
+        calls = [-(-len(split.text) // runner.cfg.batch_size)]
+    rec |= {"eval_s": time.perf_counter() - t1, "metrics": metrics,
+            "launches_eval": counts(), "eval_calls": sum(calls),
+            "eval_peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t0}
+    torch.save(scores, os.path.join(out, f"scores_rank{mesh.rank}.pt"))
+    with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(rec, f)
+    runner.ckpt.close()
+
+
 def _mesh_forced_check(tag, forced, ref, toks):
     """A split's replay of (1,1)'s served tokens against (1,1)'s replay:
     the query features within QUERY_TOL and the logits at every position
@@ -7972,14 +8237,17 @@ def phase_serve_mesh(report, out_dir, tok_dir):
             "mesh": {"data": data, "model": model},
             "text_overrides": {"num_hidden_layers": SERVE_MESH_LAYERS}}, d)
         device = "cuda:0" if backend == "gloo" else "cuda"
+        trained = {"1x1": ["1x1"], "1x2": ["1x2", "2x1"]}.get(tag, [])
         train = [_train_spec(out_dir, t, backend, device)[1]
-                 for t in {"1x1": ["1x1"], "1x2": ["1x2", "2x1"]}.get(tag, [])]
+                 for t in trained]
+        downstream = [s for t in trained for s in _downstream_mesh_specs(
+            out_dir, t, backend, device)]
         run_s = calls[tag] = _torchrun(n, [
             os.path.join(REPO, "chip_smoke.py"), "--mesh-rank", yaml_path,
             backend, device, d, ref_path, json.dumps(train),
             json.dumps(owl[tag]),
-            os.path.join(out_dir, "parallel") if tag == "1x2" else ""],
-            os.path.join(d, "serve.log"))
+            os.path.join(out_dir, "parallel") if tag == "1x2" else "",
+            json.dumps(downstream)], os.path.join(d, "serve.log"))
         with open(os.path.join(d, "serve.log")) as f:
             stats = json.loads(next(line.split("* Serve stats:", 1)[1]
                                     for line in f if "* Serve stats:" in
@@ -8123,8 +8391,8 @@ def _leaf_rel_l2(got, want):
     """Per leaf of ``want``, worst first: (|got - want| over max(|want|,
     REPLAY_GRAD_FLOOR x the whole tree's norm), the plain relative L2,
     the leaf), as the replay gates a gradient (L2 norms): a leaf that
-    starts at zero (AttentionPool's k_bias, whose gradient nearly
-    cancels) is held to the absolute floor."""
+    is tiny against the whole (AttentionPool's k_bias) is held to the
+    absolute floor."""
     whole = torch.stack([w.float().norm() for w in want.values()]
                         ).norm().item()
     rows = []
@@ -8151,10 +8419,12 @@ def _move_check(got, got_start, want, want_start):
     return held[0][0], (
         f"{len(held)} leaves' moves: gated max {held[0][0]:.4g} "
         f"({held[0][2]}, plain {held[0][1]:.4g}; tol {TRAIN_MESH_MOVE_TOL}, "
-        f"floor {REPLAY_GRAD_FLOOR} x the whole move), plain max "
+        f"floor {REPLAY_GRAD_FLOOR} x the whole move), next "
+        f"{[(round(r[0], 4), r[2]) for r in held[1:3]]}, plain max "
         f"{plain[-1][0]:.4g} ({plain[-1][1]}), plain median "
-        f"{plain[len(plain) // 2][0]:.4g}; not gated (a zero gradient but "
-        f"for rounding) {noise}")
+        f"{plain[len(plain) // 2][0]:.4g}" + (
+            f"; not gated (a zero gradient but for rounding) {noise}"
+            if noise else ""))
 
 
 def phase_train_mesh(report, out_dir):
@@ -8165,6 +8435,283 @@ def phase_train_mesh(report, out_dir):
     inside = sum(ranks[t][0]["seconds"] for t in ("1x1", "1x2", "2x1"))
     print(f"[train_mesh] phase 41: its splits' ranks {inside:.1f} s inside "
           f"phase 40's calls | {CARD}", flush=True)
+
+
+def _kept_check(tag, kept, ref):
+    """Every dropout site's kept elements at a split against (1,1)'s: the
+    same sites in the same order, the ranks that hold one block of a
+    site alike, the blocks' counts summing to (1,1)'s count exactly (the
+    masks are (1,1)'s).  Returns the number of sites."""
+    sites = len(ref)
+    if any(len(k) != sites for k in kept):
+        fail(f"{tag}: {[len(k) for k in kept]} dropout draws on the ranks, "
+             f"(1,1) drew {sites}")
+    for i, (_, want) in enumerate(ref):
+        blocks = {}
+        for rank in kept:
+            blk, n = rank[i]
+            key = tuple(tuple(b) for b in blk)
+            if blocks.setdefault(key, n) != n:
+                fail(f"{tag}: draw {i}: ranks holding block {key} kept "
+                     f"{blocks[key]} and {n}")
+        if sum(blocks.values()) != want:
+            fail(f"{tag}: draw {i}: the blocks {blocks} kept "
+                 f"{sum(blocks.values())} elements, (1,1) {want}")
+    return sites
+
+
+def _near_tie_rows(got, want, gt_of, tol):
+    """Rows of score matrices whose ground truth ranks differently at a
+    split (``got``) than at (1,1) (``want``); each must be a near tie in
+    (1,1)'s row (another item within ``tol`` of the ground truth's
+    score).  Returns (rows differing, rows not explained)."""
+    import numpy as np
+
+    differ, unexplained = 0, 0
+    for i, (g, w) in enumerate(zip(got, want)):
+        t = gt_of(i)
+        rank_g = int((g > g[t]).sum())
+        rank_w = int((w > w[t]).sum())
+        if rank_g != rank_w:
+            differ += 1
+            others = np.delete(w, t)
+            if np.abs(others - w[t]).min() > tol:
+                unexplained += 1
+    return differ, unexplained
+
+
+def _eval_check(kind, tag, got, want, scores, ref_scores):
+    """A split's evaluation against (1,1)'s: the scores within the phase
+    13 plain-replay bounds (cls: log-probabilities twice
+    RESCORE_TOL_PER_TOKEN a scored token, head logits LOGIT_TOL; ITM:
+    generative scores RESCORE_TOL_PER_TOKEN a token of 2, P(match)
+    LOGIT_TOL / 2; retrieval: similarities 2 x FEATURE_TOL), and the
+    metrics (1,1)'s, or where one differs, every decision that moved a
+    near tie in (1,1)'s scores (within twice the error read).  Returns
+    the verdict."""
+    import numpy as np
+
+    if kind == "cls":
+        def merged(parts):
+            index = np.concatenate([p["index"] for p in parts])
+            order = np.argsort(index, kind="stable")
+            return {k: np.concatenate([p[k] for p in parts])[order]
+                    for k in ("index", "label", "generation_logits",
+                              "cls_logits")}
+        g, w = merged(scores), merged(ref_scores)
+        if not np.array_equal(g["index"], w["index"]):
+            fail(f"cls_mesh {tag}: scored clips {g['index']} against "
+                 f"(1,1)'s {w['index']}")
+        scored = max(p["scored"] for p in ref_scores)
+        lg, lw = (np.log(np.maximum(x["generation_logits"], 1e-30))
+                  for x in (g, w))
+        live = (lg > -69) & (lw > -69)
+        errs = {"gen": (float(np.abs(lg - lw)[live].max()),
+                        2 * RESCORE_TOL_PER_TOKEN * scored),
+                "cls": (float(np.abs(g["cls_logits"]
+                                     - w["cls_logits"]).max()), LOGIT_TOL)}
+        moved = {}
+        for name, key, err_key in (("gen", "generation_logits", "gen"),
+                                   ("cls", "cls_logits", "cls")):
+            label = w["label"]
+            sg = lg if name == "gen" else g[key]
+            sw = lw if name == "gen" else w[key]
+            moved[name] = _near_tie_rows(sg, sw, lambda i: label[i],
+                                         2 * errs[err_key][0])
+    else:
+        g, w = scores, ref_scores
+        if len(g) != len(w) or any(a.shape != b.shape for a, b in zip(g, w)):
+            fail(f"{kind}_mesh {tag}: matrices {[a.shape for a in g]} "
+                 f"against (1,1)'s {[b.shape for b in w]}")
+        names = ("gen", "cls") if kind == "itm" else ("sims",)
+        bounds = ({"gen": RESCORE_TOL_PER_TOKEN * 2, "cls": LOGIT_TOL / 2}
+                  if kind == "itm" else {"sims": 2 * FEATURE_TOL})
+        errs = {n: (float(np.abs(a - b).max()), bounds[n])
+                for n, a, b in zip(names, g, w)}
+        moved = {}
+        for n, a, b in zip(names, g, w):
+            rows = _near_tie_rows(a, b, lambda i: i, 2 * errs[n][0])
+            cols = _near_tie_rows(a.T, b.T, lambda i: i, 2 * errs[n][0])
+            moved[n] = (rows[0] + cols[0], rows[1] + cols[1])
+    vs = (f"scores against (1,1)'s: "
+          + ", ".join(f"{n} max err {e:.4g} (tol {b:.4g})"
+                      for n, (e, b) in errs.items())
+          + f"; metrics {'equal' if got == want else 'differ'}"
+          + ("" if got == want else f" ({got} against {want})")
+          + f"; decisions moved (near ties in (1,1)'s scores) "
+          + json.dumps(moved))
+    if any(not math.isfinite(e) or e > b for e, b in errs.values()) or any(
+            unexplained for _, unexplained in moved.values()) or (
+            got != want and not any(d for d, _ in moved.values())):
+        fail(f"{kind}_mesh {tag}: evaluation {vs}")
+    return vs
+
+
+def _pool_bias_witness():
+    """AttentionPool's k_bias gradient on the card (POOL_BIAS_SHAPE):
+    (the port's form's relative L2 error, the every-key sum's, the fp64
+    forms' disagreement), each against the fp64 bias-key form."""
+    from youku_mplug_tpu_torch.ops.attention import dot_product_attention
+
+    b, h, sq, d, skv = POOL_BIAS_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(45)
+    q, k, v, do = (torch.randn(b, h, s, d, generator=gen, device="cuda"
+                               ).to(torch.bfloat16)
+                   for s in (sq, skv, skv, sq))
+
+    def dk_of(dtype, attend):
+        leaves = [t.detach().to(dtype).requires_grad_() for t in (q, k, v)]
+        attend(*leaves).backward(do.to(dtype))
+        return leaves[1].grad.double()
+
+    def plain(q_, k_, v_):
+        p = torch.softmax(q_ @ k_.transpose(-1, -2) * d ** -0.5, dim=-1)
+        return p @ v_
+
+    def forms(dk):  # (bias key, every other key): [heads, head dim] each
+        return -dk[:, :, -1].sum(0), dk[:, :, :-1].sum((0, 2))
+
+    got_bias, got_sum = forms(dk_of(torch.bfloat16, dot_product_attention))
+    want, want_sum = forms(dk_of(torch.float64, plain))
+    norm = want.norm().item()
+    return tuple((g - want).norm().item() / norm
+                 for g in (got_bias, got_sum, want_sum))
+
+
+def phase_downstream_mesh(report, out_dir):
+    """Phase 45's gates on the files its ranks wrote inside phase 40's
+    calls: per recipe and split, the launches a rank exactly
+    DOWNSTREAM_MESH_LAUNCHES a step and an evaluation call, each step
+    finite and its loss within REPLAY_LOSS_TOL and grad_norm within
+    TRAIN_MESH_NORM_TOL (relative) of (1,1)'s, the unsharded trainable
+    leaves after the steps against (1,1)'s (REPLAY_GRAD_TOL with its
+    floor) and their moves (TRAIN_MESH_MOVE_TOL), every dropout site's
+    kept count (``_kept_check``) and the evaluation (``_eval_check``).
+    The gloo splits measure host copies, not NCCL."""
+    t_phase = time.perf_counter()
+    e_bias, e_sum, e_exact = _pool_bias_witness()
+    print(f"[downstream_mesh pool_bias] AttentionPool's k_bias gradient "
+          f"from K4 / K4b at {list(POOL_BIAS_SHAPE)} (B, heads, queries, "
+          f"head dim, keys) bf16 against fp64 plain: as -dk of the bias key "
+          f"(the port's) rel L2 {e_bias:.4g} (tol {POOL_BIAS_TOL:.4g}); as "
+          f"the sum of the other {POOL_BIAS_SHAPE[-1] - 1} keys' dk rows "
+          f"{e_sum:.4g}; the two forms in fp64 {e_exact:.3g} | {CARD}",
+          flush=True)
+    if not e_bias <= POOL_BIAS_TOL:
+        fail(f"AttentionPool's k_bias gradient: rel L2 {e_bias:.4g} > "
+             f"{POOL_BIAS_TOL:.4g}")
+    inside = 0.0
+    for kind in DOWNSTREAM_MESH_KINDS:
+        ref = ref_leaves = init = ref_scores = None
+        for tag, backend in TRAIN_MESH_SPLITS:
+            d = os.path.join(out_dir, f"downstream_{kind}_{tag}")
+            data, model = map(int, tag.split("x"))
+            ranks, scores = [], []
+            for r in range(data * model):
+                with open(os.path.join(d, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+                scores.append(torch.load(os.path.join(
+                    d, f"scores_rank{r}.pt"), weights_only=False))
+            inside += max(rk["seconds"] for rk in ranks)
+            per_step, per_call = DOWNSTREAM_MESH_LAUNCHES[kind]
+            for part in ("train", "eval"):
+                path = f"{kind}_mesh_{tag}_{part}"
+                for r in report:
+                    key = (r["key"] if r["key"] in DOWNSTREAM_MESH_COUNTERS
+                           else None)
+                    r.setdefault("launches_by_path", {})[path] = sum(
+                        rk[f"launches_{part}"][key] for rk in ranks) \
+                        if key else 0
+                missing = [r["name"] for r in report if path in r["paths"]
+                           and r["launches_by_path"][path] == 0]
+                if missing:
+                    fail(f"the {path} path never launched: {missing}")
+            for rk in ranks:
+                want_train = {k: per_step.get(k, 0) * DOWNSTREAM_MESH_STEPS
+                              for k in DOWNSTREAM_MESH_COUNTERS}
+                want_eval = {k: per_call.get(k, 0) * rk["eval_calls"]
+                             for k in DOWNSTREAM_MESH_COUNTERS}
+                hist = rk["history"]
+                if (rk["launches_train"] != want_train
+                        or rk["launches_eval"] != want_eval
+                        or len(hist) != DOWNSTREAM_MESH_STEPS):
+                    fail(f"{kind}_mesh {tag} rank {rk['rank']}: launches "
+                         f"{rk['launches_train']} over {len(hist)} steps, "
+                         f"{rk['launches_eval']} over {rk['eval_calls']} "
+                         f"evaluation calls; predicted {want_train}, "
+                         f"{want_eval}")
+                if any(not (math.isfinite(h["loss"])
+                            and math.isfinite(h["grad_norm"]))
+                       or h["skipped_nonfinite"] != 0 for h in hist):
+                    fail(f"{kind}_mesh {tag} rank {rk['rank']}: steps "
+                         f"{hist}")
+            leaves = torch.load(os.path.join(d, "leaves.pt"))
+            if ref is None:
+                ref, ref_leaves, ref_scores = ranks[0], leaves, scores[0]
+                init = torch.load(os.path.join(d, "init.pt"))
+                sites = len(ref["kept"])
+                kept_share = (sum(n for _, n in ref["kept"]), sites)
+                vs = (f"the reference: {sites} dropout draws over the "
+                      f"steps (kept {kept_share[0]} elements), evaluation "
+                      f"{json.dumps(ref['metrics'])}")
+            else:
+                losses = [[h["loss"] for h in rk["history"]] for rk in ranks]
+                ref_loss = [h["loss"] for h in ref["history"]]
+                e_loss = max(abs(a - b) for row in losses
+                             for a, b in zip(row, ref_loss))
+                e_norm = max(abs(h["grad_norm"] - b["grad_norm"])
+                             / b["grad_norm"] for rk in ranks
+                             for h, b in zip(rk["history"], ref["history"]))
+                if set(leaves) != set(ref_leaves):
+                    fail(f"{kind}_mesh {tag}: leaves differ: "
+                         f"{sorted(set(leaves) ^ set(ref_leaves))[:8]}")
+                rows = _leaf_rel_l2(leaves, ref_leaves)
+                e_move, moves = _move_check(leaves, init, ref_leaves, init)
+                sites = _kept_check(f"{kind}_mesh {tag}",
+                                    [rk["kept"] for rk in ranks],
+                                    ref["kept"])
+                ev = _eval_check(kind, tag, ranks[0]["metrics"],
+                                 ref["metrics"],
+                                 [p for rk_scores in scores[::model]
+                                  for p in rk_scores]
+                                 if kind == "cls" else scores[0],
+                                 ref_scores)
+                vs = (f"losses {losses[0]} against (1,1)'s {ref_loss}: "
+                      f"max err {e_loss:.4g} (tol {REPLAY_LOSS_TOL}); "
+                      f"grad_norm max rel err {e_norm:.4g} (tol "
+                      f"{TRAIN_MESH_NORM_TOL:.4g}); {len(rows)} trainable "
+                      f"leaves against (1,1)'s: values gated max "
+                      f"{rows[0][0]:.4g} ({rows[0][2]}; tol "
+                      f"{REPLAY_GRAD_TOL}); moves {moves}; {sites} dropout "
+                      f"draws, each block's kept count (1,1)'s exactly; "
+                      f"evaluation {ev}")
+                if (e_loss > REPLAY_LOSS_TOL or e_norm > TRAIN_MESH_NORM_TOL
+                        or rows[0][0] > REPLAY_GRAD_TOL
+                        or e_move > TRAIN_MESH_MOVE_TOL):
+                    fail(f"{kind}_mesh {tag}: {vs}")
+            per_rank = " ; ".join(
+                f"rank {rk['rank']} {tuple(rk['coord'])}: setup "
+                f"{rk['setup_s']:.1f} s, step ms "
+                + ", ".join(f"{h['step_time'] * 1e3:.1f}"
+                            for h in rk["history"])
+                + f", train peak {rk['train_peak_memory_bytes'] / 2**30:.3f}"
+                f" GiB, {rk['eval_calls']} evaluation calls in "
+                f"{rk['eval_s']:.2f} s (peak "
+                f"{rk['eval_peak_memory_bytes'] / 2**30:.3f} GiB), rank "
+                f"total {rk['seconds']:.1f} s" for rk in ranks)
+            note = ("" if backend == "nccl" else
+                    f", {len(ranks)} ranks on card 0: gloo copies through "
+                    f"the host, no measure of NCCL")
+            print(f"[downstream_mesh {kind} {tag}] split (data {data}, "
+                  f"model {model}), {backend}{note} | launches a rank: "
+                  f"train {ranks[0]['launches_train']} over "
+                  f"{DOWNSTREAM_MESH_STEPS} steps, evaluation "
+                  f"{ranks[0]['launches_eval']} over "
+                  f"{ranks[0]['eval_calls']} calls | {vs} | {per_rank} | "
+                  f"{CARD}", flush=True)
+    print(f"[downstream_mesh] phase 45: its ranks {inside:.1f} s inside "
+          f"phase 40's calls, gates {time.perf_counter() - t_phase:.1f} s "
+          f"| {CARD}", flush=True)
 
 
 def _train_mesh_gates(report, out_dir, kind):
@@ -9305,9 +9852,10 @@ def _phases(report, files_root, tok_dir):
         phase_serve_mesh(report, out_dir, tok_dir)
         _mark("40 serve_mesh (with the runs of 41, 42 and 43)")
         phase_train_mesh(report, out_dir)
+        phase_downstream_mesh(report, out_dir)
         phase_instruct_mesh(report, os.path.join(out_dir, "owl"))
         phase_parallel(report, os.path.join(out_dir, "parallel"))
-        _mark("41-43 gates")
+        _mark("41-43, 45 gates")
 
 
 def main():

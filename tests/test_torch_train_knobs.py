@@ -350,8 +350,8 @@ def test_temporal_attention_keeps_its_period_mask_under_dropout():
                        deterministic=False,
                        rngs={"dropout": jax.random.key(0)})
     tmod = bridge.load_jax_params(tvision.VisionAttention(c, n), params)
-    got = tmod(_t(x), period=t, attn_drop=1e-7,
-               generator=torch.Generator().manual_seed(0))
+    got = tmod(_t(x), period=t, drop=tattn.Dropout(
+        torch.Generator().manual_seed(0), attention=1e-7))
     _close(got, ref)
     assert np.abs(np.asarray(jdrop) - np.asarray(ref)).max() > 1e-2
 

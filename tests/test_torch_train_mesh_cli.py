@@ -10,10 +10,12 @@ their unsplit runs, and the refusals that stand.
   (2,1) and (1,2) against (1,1): the same step losses and captions; a
   pretrain run saved at (1,2) resumes at (2,1) with the losses of an
   unbroken (1,1) run.
-- The refusals that stand: every other runner's training mesh (ROADMAP
-  Queue 1 item 8), dropout under a split (item 9), a zoo optimizer on
-  model-split leaves (item 10).  ``run_instruct --train`` under a split:
-  ``tests/test_torch_owl_train_mesh.py``.
+- The refusals that stand: the BERT family's training mesh (ROADMAP
+  Queue 1 item 8), a zoo optimizer on model-split leaves (item 10).
+  ``run_instruct --train`` under a split:
+  ``tests/test_torch_owl_train_mesh.py``; ``run_cls``, ``run_retrieval``
+  and ``run_retrieval_itm``: ``tests/test_torch_downstream_mesh.py``;
+  dropout under a split: ``tests/test_torch_dropout_mesh.py``.
 
 The train steps against JAX are ``tests/test_torch_train_mesh.py``.
 """
@@ -360,12 +362,6 @@ def test_split_checkpoint_is_the_unsharded_one_and_resumes_elsewhere(
 # ----- the refusals that stand -----
 
 REFUSING = [
-    ("run_cls", "prepare", "configs/cls/cls_gpt3_1.3B_youku_v0_sharp_2.yaml",
-     8),
-    ("run_retrieval", "prepare",
-     "configs/retrieval/retrieval_gpt3_1.3B_youku_v0.yaml", 8),
-    ("run_retrieval_itm", "prepare",
-     "configs/retrieval/retrieval_itm_gpt3_1.3B_youku_v0.yaml", 8),
     ("run_mplug_downstream", "prepare", "configs/mplug/mplug_vitb16_zh.yaml",
      8),
     ("run_mplug_pretrain", "setup", "configs/mplug/mplug_vitb16_zh.yaml", 8),
@@ -377,18 +373,11 @@ REFUSING = [
                          ids=[c[0] for c in REFUSING])
 def test_other_runners_refuse_a_training_mesh(tmp_path, monkeypatch, cli,
                                               fn, config, item):
-    """Launched as one of two ranks, every other training CLI raises
-    before it builds a model, naming its ROADMAP item."""
+    """Launched as one of two ranks, every BERT-family training CLI
+    raises before it builds a model, naming its ROADMAP item."""
     import importlib
 
     mod = importlib.import_module(f"youku_mplug_tpu_torch.cli.{cli}")
-    if cli == "run_retrieval_itm":  # the 2-way match head (Queue 3)
-        with open(config) as f:
-            raw = yaml.safe_load(f)
-        raw["num_classes"] = 2
-        config = str(tmp_path / "itm.yaml")
-        with open(config, "w") as f:
-            yaml.safe_dump(raw, f)
     argv = ["--config", config, "--synthetic_data", "--device", "cpu",
             "--output_dir", str(tmp_path / "out")]
     args = mod.parser().parse_args(argv)
@@ -396,19 +385,6 @@ def test_other_runners_refuse_a_training_mesh(tmp_path, monkeypatch, cli,
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP Queue 1 item {item}\)"):
         getattr(mod, fn)(args)
-
-
-def test_dropout_under_a_split_raises_item_9():
-    from youku_mplug_tpu_torch.cli import common
-    from youku_mplug_tpu_torch.config import load_config
-    from youku_mplug_tpu_torch.runtime.mesh import Mesh
-
-    cfg = load_config("configs/pretrain_tiny.yaml")  # hidden_dropout 0.1
-    common._refuse_split_dropout(cfg, Mesh())  # (1,1): drops as before
-    for split in (Mesh(2, 1), Mesh(1, 2)):
-        with pytest.raises(NotImplementedError,
-                           match=r"hidden_dropout.*ROADMAP Queue 1 item 9"):
-            common._refuse_split_dropout(cfg, split)
 
 
 def test_zoo_optimizer_on_model_split_leaves_raises_item_10():

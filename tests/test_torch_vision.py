@@ -175,6 +175,53 @@ def test_attention_pool_matches_jax():
     _close(tmod(_t(qs), _t(ks)), want)
 
 
+def test_attention_pool_gradients_match_jax():
+    """Every leaf's gradient against jax.grad, k_bias's included: the
+    port applies k_bias as -k_bias on the appended bias key alone (the
+    softmax ignores a shift of every score of a query), the same function
+    as JAX's k_bias on every key."""
+    rng = np.random.default_rng(4)
+    d, n = 32, 4
+    qs = rng.normal(size=(2, 5, d)).astype(np.float32)
+    ks = rng.normal(size=(2, 9, d)).astype(np.float32)
+    w = rng.normal(size=(2, 5, d)).astype(np.float32)
+    jmod = jvision.AttentionPool(d, n, mlp_ratio=2.0)
+    params = redraw(_init(jmod, jnp.asarray(qs), jnp.asarray(ks)), rng)
+    want = bridge.flatten(jax.grad(lambda p: jnp.sum(jmod.apply(
+        {"params": p}, jnp.asarray(qs), jnp.asarray(ks)) * w))(params))
+    tmod = bridge.load_jax_params(
+        tvision.AttentionPool(d, n, mlp_ratio=2.0), params)
+    tmod.requires_grad_(True)
+    (tmod(_t(qs), _t(ks)) * _t(w)).sum().backward()
+    got = {bridge.jax_path(k): p.grad for k, p in tmod.named_parameters()}
+    assert set(got) == set(want)
+    for k in want:
+        _close(got[k], want[k], 1e-5)
+
+
+def test_attention_pool_k_bias_gradient_holds_in_bf16():
+    """k_bias's gradient in bf16 compute over 1569 keys within 2^-7 of the
+    fp32 one: it is one key's dk.  As the sum of every other key's bf16
+    dk rows (JAX's k_bias on every key), which nearly cancel, it read
+    0.020 at this shape."""
+    torch.manual_seed(0)
+    d, n, b, q, k = 128, 4, 8, 32, 1569
+    pool = tvision.AttentionPool(d, n)
+    for p in pool.parameters():
+        p.data.normal_(0, 0.05)
+    pool.requires_grad_(True)
+    qs, ks, w = torch.randn(b, q, d), torch.randn(b, k, d), torch.randn(
+        b, q, d)
+
+    def grad(dtype):
+        pool.zero_grad()
+        (pool(qs.to(dtype), ks.to(dtype)).float() * w).sum().backward()
+        return pool.k_bias.grad.clone()
+    want = grad(torch.float32)
+    err = (grad(torch.bfloat16) - want).norm() / want.norm()
+    assert err <= 2.0 ** -7, err
+
+
 def test_temporal_group_matches_jax_geometry():
     # flagship: 196 patches x 8 frames -> 14 patches per call, S = 112
     assert tvision.temporal_group(196, 8) == 14

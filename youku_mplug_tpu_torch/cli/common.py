@@ -2,8 +2,9 @@
 loop with its non-finite watchdog, checkpoints and the log.
 
 Counterpart of ``youku_mplug_tpu/cli/common.py``.  ``run_pretrain``,
-``run_caption`` and ``run_instruct --train`` train under the YAML's
-(data, model) split, one
+``run_caption``, ``run_cls``, ``run_retrieval``, ``run_retrieval_itm``
+and ``run_instruct --train`` train under the YAML's (data, model) split,
+one
 process a rank under ``python -m torch.distributed.run`` (``init_mesh``:
 ``--dist_backend``, NCCL on the card by default, gloo for several ranks
 on one card or on CPU processes): ``setup`` cuts the model with
@@ -11,15 +12,21 @@ on one card or on CPU processes): ``setup`` cuts the model with
 imports and before the train state (JAX ``cli/common.py:127-138``), the
 train loader gives each data rank its contiguous block of every global
 batch (``put_batch``: JAX's data sharding), the step equals the (1,1)
-step on the global batch (``train/trainer.py``), checkpoints hold the
+step on the global batch, dropout included (``train/trainer.py``: the
+step's generator is the same on every rank, and every mask is drawn at
+the global array's shape, each rank keeping its block,
+``ops/attention.py``), checkpoints hold the
 unsharded tree and restore at any split (``train/checkpoint.py``), and
 only rank 0 writes the config, the log and the prints (``run_instruct``
 does the same with the Owl model, JAX's Bloom rules and its own
-loader).  Every other
-training CLI refuses a training mesh (ROADMAP Queue 1 item 8), and so
-does any split with dropout (item 9: the masks are not drawn on the
-global arrays).  ``serve`` runs under a (data, model) split, and the
-host merges here
+loader).  The BERT family's training CLIs (``run_mplug_pretrain``,
+``run_mplug_downstream``, ``run_alpro``) refuse a training mesh
+(``refuse_training_mesh``, ROADMAP Queue 1 item 8).  The evaluations
+run on the model shards over their data rank's stride of the split
+(``eval_loader``).  Every CLI's ``main`` is ``run_main``: it shuts down
+the process group it joined, and ``finish`` has rank 0 write the last
+log line.  ``serve`` runs under a (data, model) split,
+and the host merges here
 (``gather_eval_rows``, ``sum_across_hosts``, ``collect_records``) are
 JAX's over the mesh's gloo host group: each data rank's contribution
 once (its model-index-0 rank's), in data order, every rank left with
@@ -79,6 +86,7 @@ from youku_mplug_tpu_torch.runtime.mesh import (
     Mesh,
     MeshConfig,
     distributed_init,
+    distributed_shutdown,
     local_batch_size,
     local_rank,
     make_mesh,
@@ -199,6 +207,41 @@ def make_loader(args, cfg: RunConfig, dataset, shuffle: bool = True,
                   if block and block.data > 1 else 1)
 
 
+def eval_loader(args, cfg: RunConfig, dataset, mesh: Optional[Mesh],
+                batch_size: Optional[int] = None,
+                drop_last: bool = True) -> Loader:
+    """An evaluation's loader (``run_caption``'s, ``run_cls``'s,
+    ``run_retrieval``'s): in order, this data rank's stride of the
+    dataset at its share of ``batch_size`` (default the YAML's) a batch
+    (``local_batch_size``), so that the data ranks read the unsplit run's
+    clips wherever the data degree divides the batch."""
+    batch_size = batch_size or cfg.batch_size
+    return make_loader(args, cfg, dataset, shuffle=False,
+                       drop_last=drop_last, mesh=mesh,
+                       batch_size=local_batch_size(batch_size, mesh)
+                       if mesh else batch_size)
+
+
+def run_main(body: Callable[[], Any]) -> Any:
+    """A CLI's ``main``: ``body()``, then the process group shut down
+    if ``body`` joined it (``init_mesh``); a caller's group (a test's, a
+    harness's) stays up."""
+    owned = not dist.is_initialized()
+    try:
+        return body()
+    finally:
+        if owned:
+            distributed_shutdown()
+
+
+def finish(runner: "Runner", entry: dict):
+    """A run's end: rank 0 writes ``entry`` to ``log.txt``, and every
+    rank closes its checkpoints."""
+    if main_rank(runner):
+        write_log(runner.args, entry)
+    runner.ckpt.close()
+
+
 def init_mesh(args, mesh_cfg: Optional[MeshConfig]) -> Mesh:
     """Join the run's process group (under ``torch.distributed.run``;
     ``--dist_backend``) and build the YAML's training mesh (``mesh_cfg``,
@@ -217,40 +260,20 @@ def main_rank(runner: "Runner") -> bool:
 
 
 def refuse_training_mesh(mesh_cfg) -> Mesh:
-    """A runner without a training mesh: raise under any split, a launch
-    of more than one process or a process group; else the (1, 1) mesh of
-    ``mesh_cfg`` (whose resolve raises for a split in one process)."""
+    """A runner without a training mesh (the BERT family's): raise under
+    any split, a launch of more than one process or a process group;
+    else the (1, 1) mesh of ``mesh_cfg`` (whose resolve raises for a
+    split in one process)."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
     mesh = make_mesh(mesh_cfg) if world == 1 and \
         not dist.is_initialized() else None
     if mesh is None or mesh.size > 1:
         raise NotImplementedError(
-            "a training mesh: run_pretrain, run_caption and run_instruct "
-            "train under a (data, model) split; this runner's split is not "
-            "ported (ROADMAP Queue 1 item 8)")
+            "a training mesh: run_pretrain, run_caption, run_cls, "
+            "run_retrieval, run_retrieval_itm and run_instruct train under "
+            "a (data, model) split; this runner's split is not ported "
+            "(ROADMAP Queue 1 item 8)")
     return mesh
-
-
-def _refuse_split_dropout(cfg, mesh: Mesh):
-    """Dropout under a split raises (ROADMAP Queue 1 item 9): JAX draws
-    each mask on the global array, the port's ranks would draw others.
-    ``cfg``: a run config, or a model config (its ``text`` and
-    ``vision``: the Owl's)."""
-    if mesh.size <= 1:
-        return
-    model = getattr(cfg, "model", cfg)
-    text, vision = model.text, model.vision
-    rates = {"hidden_dropout": text.hidden_dropout,
-             "attention_dropout": text.attention_dropout,
-             "drop_rate": vision.drop_rate,
-             "attn_drop_rate": vision.attn_drop_rate,
-             "drop_path": vision.drop_path}
-    on = {k: v for k, v in rates.items() if v > 0}
-    if on:
-        raise NotImplementedError(
-            f"dropout under a {mesh.data}x{mesh.model} split ({on}): the "
-            f"global-array masks are not ported (ROADMAP Queue 1 item 9); "
-            f"set the rates to 0")
 
 
 def build_tokenizer(cfg: RunConfig) -> BatchTokenizer:
@@ -302,13 +325,12 @@ def setup(args, cfg: RunConfig, loader: Loader,
     model (the BERT family's ``MPLUG`` / ``ALPRO``) with its
     ``tokenizer``; ``resume=False`` starts fresh whatever the output
     directory holds (JAX's mPLUG pretrain runner never restores).
-    ``mesh``: the training split of ``init_mesh`` (run_pretrain and
-    run_caption); a runner that passes none refuses any split."""
+    ``mesh``: the training split of ``init_mesh``; a runner that passes
+    none (the BERT family's) refuses any split."""
     device = device_of(args)
     split = mesh is not None
     mesh = mesh if split else refuse_training_mesh(getattr(cfg, "mesh",
                                                            None))
-    _refuse_split_dropout(cfg, mesh)
     niter = len(loader) if args.max_steps <= 0 else min(len(loader),
                                                         args.max_steps)
     cfg.optimizer = dataclasses.replace(cfg.optimizer,

@@ -66,10 +66,6 @@ from youku_mplug_tpu_torch.evals.metrics import caption_eval
 from youku_mplug_tpu_torch.models.generation import GenerationConfig
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo, generate_captions
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
-from youku_mplug_tpu_torch.runtime.mesh import (
-    distributed_shutdown,
-    local_batch_size,
-)
 from youku_mplug_tpu_torch.train.trainer import make_train_step
 
 PROMPT_LENGTH = 20  # tokens the evaluation prompt is padded to
@@ -100,14 +96,9 @@ def build_loaders(args, cfg: RunConfig, mesh=None) -> Tuple[Loader, Loader]:
     loader's block of every global batch and the test loader's stride of
     the clips at ``local_batch_size`` a batch (the same clips as the
     unsplit run's wherever the data degree divides the split)."""
-    split = mesh is not None and mesh.data > 1
     return (common.make_loader(args, cfg, dataset(args, cfg, True),
                                block=mesh),
-            common.make_loader(args, cfg, dataset(args, cfg, False),
-                               shuffle=False, mesh=mesh if split else None,
-                               batch_size=local_batch_size(cfg.batch_size,
-                                                           mesh)
-                               if split else None))
+            common.eval_loader(args, cfg, dataset(args, cfg, False), mesh))
 
 
 def prepare(args) -> Tuple[common.Runner, Loader]:
@@ -213,8 +204,7 @@ def evaluation(runner: common.Runner, loader: Loader
 
 
 def main(args) -> common.Runner:
-    owned = not torch.distributed.is_initialized()
-    try:
+    def body():
         runner, test_loader = prepare(args)
         if not args.evaluate_only:
             common.train_epochs(runner, build_train_step(runner),
@@ -224,12 +214,9 @@ def main(args) -> common.Runner:
             with open(os.path.join(args.output_dir, "caption_results.json"),
                       "w") as f:
                 json.dump(results, f, ensure_ascii=False)
-            common.write_log(args, {"test": metrics})
-        runner.ckpt.close()
-    finally:
-        if owned:
-            distributed_shutdown()
-    return runner
+        common.finish(runner, {"test": metrics})
+        return runner
+    return common.run_main(body)
 
 
 if __name__ == "__main__":

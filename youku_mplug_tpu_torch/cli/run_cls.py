@@ -26,6 +26,14 @@ from the YAML's ``train_file``, ``val_file`` and ``test_file`` under
 ``video_id:FILE, video_title, category_id`` keeps its title and label,
 which JAX's CSV reader drops: ROADMAP.md, Queue 3), decoded on
 ``num_workers`` threads; or with ``--synthetic_data`` procedural clips.
+Under ``python -m torch.distributed.run`` it trains and evaluates under
+the YAML's ``mesh:`` split (``cli/common.py``): each data rank reads its
+block of every global batch and the step equals the unsplit one on the
+global batch, dropout included (the decoder's and the vision tower's
+masks are the unsplit run's); the evaluation runs on the model shards
+over each data rank's stride of the split, ``local_batch_size`` clips a
+batch, its hit counts summed over the data ranks (``sum_across_hosts``,
+JAX's merge); rank 0 alone prints and writes.
 
 Usage (the card is the default device; ``--device cpu --fp32`` runs a
 tiny config on the CPU), on a copy of
@@ -34,7 +42,14 @@ tiny config on the CPU), on a copy of
     python -m youku_mplug_tpu_torch.cli.run_cls --config <that copy> \\
         --synthetic_data --max_steps 2 --output_dir out
 and without ``--synthetic_data`` where the copy's ``train_file``,
-``val_file``, ``test_file`` and ``video_root`` name your files.
+``val_file``, ``test_file`` and ``video_root`` name your files.  Under a
+split, e.g. ``mesh: {data: 2, model: 2}`` in the copy (the shipped
+``data: -1`` takes every rank of the launch for data):
+    python -m torch.distributed.run --standalone --nproc_per_node=4 \\
+        -m youku_mplug_tpu_torch.cli.run_cls --config <that copy> \\
+        --synthetic_data --max_steps 2 --output_dir out
+one card a rank (NCCL); ``--device cuda:0 --dist_backend gloo`` puts the
+ranks on one card, ``--device cpu --fp32`` on CPU processes (gloo).
 """
 
 from __future__ import annotations
@@ -83,10 +98,13 @@ def load_classnames(cfg: RunConfig) -> List[str]:
     return [f"类目{i}" for i in range(cfg.get("num_classes", 45))]
 
 
-def build_loaders(args, cfg: RunConfig) -> Tuple[Loader, Loader, Loader]:
+def build_loaders(args, cfg: RunConfig, mesh=None
+                  ) -> Tuple[Loader, Loader, Loader]:
     """Train (shuffled), validation and test loaders (JAX
     ``build_loaders``): the YAML's files, or synthetic clips labelled
-    index mod ``num_classes``."""
+    index mod ``num_classes``; with a ``mesh``, the train loader's block
+    of every global batch and the evaluation loaders' stride of their
+    split (``common.eval_loader``)."""
     def dataset(key):
         if args.synthetic_data:
             return SyntheticVideoDataset(
@@ -100,18 +118,19 @@ def build_loaders(args, cfg: RunConfig) -> Tuple[Loader, Loader, Loader]:
                 cfg.image_res),
             num_frames=cfg.num_frames, train=train,
             seed=args.seed if train else 0, **common.decode_kwargs(cfg))
-    return (common.make_loader(args, cfg, dataset("train_file")),
-            common.make_loader(args, cfg, dataset("val_file"), shuffle=False),
-            common.make_loader(args, cfg, dataset("test_file"),
-                               shuffle=False))
+    return (common.make_loader(args, cfg, dataset("train_file"),
+                               block=mesh),
+            common.eval_loader(args, cfg, dataset("val_file"), mesh),
+            common.eval_loader(args, cfg, dataset("test_file"), mesh))
 
 
 def prepare(args) -> Tuple[common.Runner, Loader, Loader, List[str]]:
-    """The runner (``common.setup``), the validation and test loaders and
-    the class names."""
+    """The runner (``common.setup`` on the YAML's mesh), the validation
+    and test loaders and the class names."""
     cfg = load_config(args.config)
-    train_loader, val_loader, test_loader = build_loaders(args, cfg)
-    runner = common.setup(args, cfg, train_loader)
+    mesh = common.init_mesh(args, cfg.mesh)
+    train_loader, val_loader, test_loader = build_loaders(args, cfg, mesh)
+    runner = common.setup(args, cfg, train_loader, mesh=mesh)
     classnames = load_classnames(cfg)
     if args.synthetic_data:
         classnames = classnames[:cfg.get("num_classes", 5)]
@@ -130,7 +149,7 @@ def make_batch_factory(classnames: List[str], max_length: int):
                                  for t, la in zip(titles, labels)],
                                 padding="max_length")
         prompt = runner.tokenizer(list(titles), padding="max_length")
-        return common.to_device(runner, {
+        return common.put_batch(runner, {
             "video": raw["video"], "input_ids": text["input_ids"],
             "attention_mask": text["attention_mask"],
             "prompt_lengths": text["prompt_lengths"],
@@ -193,7 +212,9 @@ def score_batch(runner: common.Runner, raw, classnames: List[str]
 def evaluation(runner: common.Runner, loader: Loader,
                classnames: List[str]) -> Dict[str, float]:
     """Top-1 / top-5 accuracy (percent) over the loader's batches (at most
-    --max_steps of them): generative, and the head's under ``use_cls``."""
+    --max_steps of them): generative, and the head's under ``use_cls``;
+    under a data split each data rank's hits and clips summed
+    (``sum_across_hosts``)."""
     num_cls, max_steps = len(classnames), runner.args.max_steps
     topk = (1, min(5, num_cls))
     gen_hits, cls_hits, n_total = np.zeros(2), np.zeros(2), 0
@@ -214,27 +235,32 @@ def evaluation(runner: common.Runner, loader: Loader,
                 n_total += len(labels)
     finally:
         runner.model.train(training)
-    n = max(n_total, 1)
+    gen_hits, cls_hits, counted = common.sum_across_hosts(
+        np.stack([gen_hits, cls_hits, [n_total, n_total]]), runner.mesh)
+    n = max(counted[0], 1)
     res = {"gen_top1_accuracy": gen_hits[0] / n,
            "gen_top5_accuracy": gen_hits[1] / n}
     if runner.cfg.model.use_cls:
         res.update(cls_top1_accuracy=cls_hits[0] / n,
                    cls_top5_accuracy=cls_hits[1] / n)
-    print(f"* Generation Top-1 Accuracy {res['gen_top1_accuracy']:.3f}",
-          flush=True)
+    if common.main_rank(runner):
+        print(f"* Generation Top-1 Accuracy "
+              f"{res['gen_top1_accuracy']:.3f}", flush=True)
     return res
 
 
 def main(args) -> common.Runner:
-    runner, val_loader, test_loader, classnames = prepare(args)
-    if not args.evaluate_only:
-        common.train_epochs(
-            runner, build_train_step(runner),
-            make_batch_factory(classnames, runner.cfg.max_length),
-            validate=lambda r: evaluation(r, val_loader, classnames))
-    common.write_log(args, {"test": evaluation(runner, test_loader,
-                                               classnames)})
-    return runner
+    def body():
+        runner, val_loader, test_loader, classnames = prepare(args)
+        if not args.evaluate_only:
+            common.train_epochs(
+                runner, build_train_step(runner),
+                make_batch_factory(classnames, runner.cfg.max_length),
+                validate=lambda r: evaluation(r, val_loader, classnames))
+        common.finish(runner, {"test": evaluation(runner, test_loader,
+                                                  classnames)})
+        return runner
+    return common.run_main(body)
 
 
 if __name__ == "__main__":

@@ -87,8 +87,9 @@ block of every global batch (the loader's ``block_*``), the step is the
 share of the global masked mean, ``grad_norm`` the whole model's, the
 replicated LoRA adapters on split products summed over the model
 group), and checkpoints hold the unsharded tree, so a run resumes at any
-split; dropout under a split raises (ROADMAP Queue 1 item 9), as does a
-zoo optimizer on the split abstractor (item 10).  ``--lookup_k`` serves
+split; dropout under a split draws the (1,1) run's masks (each at the
+global batch's shape, this rank keeping its rows and heads), and a zoo
+optimizer on the split abstractor raises (ROADMAP Queue 1 item 10).  ``--lookup_k`` serves
 on a Bloom shard as the engine's greedy steps do (the verify chunk's
 ALiBi slopes from the shard's head offset, its logits the gathered
 vocabulary).
@@ -619,7 +620,6 @@ def train_setup(args) -> common.Runner:
                          "trainable and bf16 frozen leaves")
     cfg, raw = load_owl_config(args.config)
     mesh = common.init_mesh(args, mesh_config(raw))
-    common._refuse_split_dropout(cfg, mesh)
     tcfg = instruct_train_config(raw)
     loader = build_train_loader(args, tcfg, raw, cfg.vision.img_size, mesh)
     niter = len(loader) if args.max_steps <= 0 else min(len(loader),
@@ -777,15 +777,12 @@ def serve_built(args, cfg, raw_cfg, model, device):
 
 
 def main(args):
-    owned = not torch.distributed.is_initialized()
-    try:
+    def body():
         if args.train:
             return train_main(args)
         cfg, raw_cfg, model, device = build(args)
         return serve_built(args, cfg, raw_cfg, model, device)
-    finally:
-        if owned:
-            mesh_lib.distributed_shutdown()
+    return common.run_main(body)
 
 
 if __name__ == "__main__":

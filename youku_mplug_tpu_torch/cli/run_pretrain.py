@@ -56,7 +56,6 @@ from youku_mplug_tpu_torch.data.loader import MetaLoader
 from youku_mplug_tpu_torch.data.transforms import train_transform
 from youku_mplug_tpu_torch.models.tasks import MPLUGVideo
 from youku_mplug_tpu_torch.ops.preprocess import normalize_clip
-from youku_mplug_tpu_torch.runtime.mesh import distributed_shutdown
 from youku_mplug_tpu_torch.train.trainer import make_train_step
 
 
@@ -137,15 +136,12 @@ def build_train_step(runner: common.Runner):
 
 
 def main(args) -> common.Runner:
-    owned = not torch.distributed.is_initialized()
-    try:
+    def body():
         runner = setup(args)
         common.train_epochs(runner, build_train_step(runner), make_batch)
         runner.ckpt.close()
         return runner
-    finally:
-        if owned:
-            distributed_shutdown()
+    return common.run_main(body)
 
 
 if __name__ == "__main__":

@@ -18,12 +18,27 @@ evaluates the test split.  The splits are the YAML's ``train_file``,
 (``data/datasets.RetrievalVideoDataset``: an evaluation split's ``text``,
 ``vid2txt`` and ``txt2vid`` come from its rows), decoded on
 ``num_workers`` threads; or with ``--synthetic_data`` procedural clips.
+Under ``python -m torch.distributed.run`` it trains and evaluates under
+the YAML's ``mesh:`` split (``cli/common.py``): each data rank reads its
+block of every global batch, and the NCE is the global batch's (each
+rank's clips against every rank's texts and the reverse, the soft
+targets from every rank's clip ids), so the step equals the unsplit
+one; the evaluation extracts every text on every rank (JAX keeps the
+texts replicated) and each data rank's stride of the clips,
+``local_batch_size`` a batch, merged on the host
+(``gather_eval_rows``); rank 0 alone prints and writes.
 
 Usage:
     python -m youku_mplug_tpu_torch.cli.run_retrieval \\
         --config configs/retrieval/retrieval_gpt3_1.3B_youku_v0.yaml \\
         --synthetic_data --max_steps 2 --output_dir out
-and without ``--synthetic_data`` on a copy whose files name yours.
+and without ``--synthetic_data`` on a copy whose files name yours.  The
+shipped ``mesh: {data: -1, model: 1}`` takes every rank of a launch for
+data; a copy with ``mesh: {data: 2, model: 2}`` on four:
+    python -m torch.distributed.run --standalone --nproc_per_node=4 \\
+        -m youku_mplug_tpu_torch.cli.run_retrieval --config <that copy> \\
+        --synthetic_data --max_steps 2 --output_dir out
+(NCCL, a card a rank; ``--device cpu --fp32`` on CPU processes).
 """
 
 from __future__ import annotations
@@ -79,18 +94,21 @@ def build_datasets(args, cfg: RunConfig):
 
 
 def prepare(args):
-    """The runner (``common.setup``, the model with ``vision_proj`` and
-    ``text_proj``), the validation and test splits."""
+    """The runner (``common.setup`` on the YAML's mesh, the model with
+    ``vision_proj`` and ``text_proj``), the validation and test
+    splits."""
     cfg = load_config(args.config)
+    mesh = common.init_mesh(args, cfg.mesh)
     train_ds, val_ds, test_ds = build_datasets(args, cfg)
-    runner = common.setup(args, cfg, common.make_loader(args, cfg, train_ds),
-                          proj_heads=True)
+    runner = common.setup(args, cfg, common.make_loader(args, cfg, train_ds,
+                                                        block=mesh),
+                          proj_heads=True, mesh=mesh)
     return runner, val_ds, test_ds
 
 
 def make_batch(runner: common.Runner, raw) -> Dict[str, torch.Tensor]:
     text = runner.tokenizer(raw["text"], padding="max_length")
-    return common.to_device(runner, {
+    return common.put_batch(runner, {
         "video": raw["video"], "input_ids": text["input_ids"],
         "attention_mask": text["attention_mask"],
         "idx": np.asarray(raw["match_id"], np.int64)})
@@ -113,8 +131,9 @@ def build_train_step(runner: common.Runner):
 @torch.inference_mode()
 def features(runner: common.Runner, dataset, batch_size=None
              ) -> Tuple[np.ndarray, np.ndarray]:
-    """fp32 (clip features [V, E], text features [T, E]) of a split."""
-    model, cfg = runner.model, runner.cfg
+    """fp32 (clip features [V, E], text features [T, E]) of a split; under
+    a data split the clips' by data rank, merged (``gather_eval_rows``)."""
+    model, cfg, mesh = runner.model, runner.cfg, runner.mesh
     bs = batch_size or cfg.batch_size
     tfeats, vfeats = [], []
     for i in range(0, len(dataset.text), bs):
@@ -126,14 +145,18 @@ def features(runner: common.Runner, dataset, batch_size=None
                                           "attention_mask"]})
         f = model.extract_text_feature(b["input_ids"], b["attention_mask"])
         tfeats.append(f.float().cpu().numpy()[:len(chunk)])
-    for raw in common.make_loader(runner.args, cfg, dataset, shuffle=False,
-                                  batch_size=bs, drop_last=False):
+    order = []
+    for raw in common.eval_loader(runner.args, cfg, dataset, mesh, bs,
+                                  drop_last=False):
         video = normalize_clip(
             torch.from_numpy(raw["video"]).to(runner.device),
             dtype=model.policy.compute_dtype)
         vfeats.append(model.extract_vision_feature(video).float()
                       .cpu().numpy())
-    return np.concatenate(vfeats), np.concatenate(tfeats)
+        order.append(np.asarray(raw["index"]))
+    vfeats, _ = common.gather_eval_rows(np.concatenate(vfeats),
+                                        np.concatenate(order), mesh)
+    return vfeats, np.concatenate(tfeats)
 
 
 def evaluation(runner: common.Runner, dataset, batch_size=None
@@ -147,17 +170,21 @@ def evaluation(runner: common.Runner, dataset, batch_size=None
         runner.model.train(training)
     sims = vfeats @ tfeats.T
     res = itm_eval(sims, sims.T, dataset.txt2vid, dataset.vid2txt)
-    print("* Retrieval:", res, flush=True)
+    if common.main_rank(runner):
+        print("* Retrieval:", res, flush=True)
     return res
 
 
 def main(args) -> common.Runner:
-    runner, val_ds, test_ds = prepare(args)
-    if not args.evaluate_only:
-        common.train_epochs(runner, build_train_step(runner), make_batch,
-                            validate=lambda r: evaluation(r, val_ds))
-    common.write_log(args, {"test": evaluation(runner, test_ds)})
-    return runner
+    def body():
+        runner, val_ds, test_ds = prepare(args)
+        if not args.evaluate_only:
+            common.train_epochs(runner, build_train_step(runner),
+                                make_batch,
+                                validate=lambda r: evaluation(r, val_ds))
+        common.finish(runner, {"test": evaluation(runner, test_ds)})
+        return runner
+    return common.run_main(body)
 
 
 if __name__ == "__main__":

@@ -497,13 +497,10 @@ def serve_built(args, cfg, model, device) -> dict:
 
 
 def main(args):
-    owned = not torch.distributed.is_initialized()
-    cfg, model, device = build(args)
-    try:
+    def body():
+        cfg, model, device = build(args)
         return serve_built(args, cfg, model, device)
-    finally:
-        if owned:
-            mesh_lib.distributed_shutdown()
+    return common.run_main(body)
 
 
 if __name__ == "__main__":

@@ -25,7 +25,9 @@ applies it with ``deterministic=False``: given a ``generator`` in
 training mode, the embeddings after their LayerNorm and the attention
 and MLP outputs take ``hidden_dropout``, and the attention probabilities
 ``attention_dropout`` on the plain path (``mha_reference`` with the ALiBi
-bias: JAX's rule leaves the flash kernel under attention dropout).
+bias: JAX's rule leaves the flash kernel under attention dropout); under a
+split each mask at the global batch's shape, this rank keeping its data
+rank's rows and its model shard's heads (``models/gpt3.py``).
 ``remat`` checkpoints every layer in training (JAX
 ``bloom.py:442-452``): ``remat_policy`` "nothing" recomputes the whole
 layer, attention included; "names" and "narrow" keep the attention's
@@ -96,6 +98,7 @@ from youku_mplug_tpu_torch.models.gpt3 import (
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
 from youku_mplug_tpu_torch.ops.attention import (
     NEG_INF,
+    block_of,
     checkpoint_replaying,
     dropout,
     mha_reference,
@@ -287,7 +290,8 @@ class BloomAttention(LoRAModule):
                 * torch.arange(s, dtype=torch.float32,
                                device=qkv5.device)[None, None, None, :])
         out = mha_reference(q, k, v, causal=True, bias=bias,
-                            dropout_rate=rate, generator=drop.generator)
+                            dropout_rate=rate, generator=drop.generator,
+                            dropout_blocks=drop.rows + block_of(1, self.tp))
         return out.transpose(1, 2).reshape(b, s, n * d)
 
     def project(self, out, lidx: int) -> torch.Tensor:
@@ -398,7 +402,8 @@ class BloomLayer(nn.Module):
 
     def _attn_residual(self, x, a, attn_out, drop):
         if drop is not None:
-            attn_out = dropout(attn_out, drop.hidden, drop.generator)
+            attn_out = dropout(attn_out, drop.hidden, drop.generator,
+                               drop.rows)
         return (a if self.post_ln_residual else x) + attn_out
 
     def _mlp_block(self, x, lidx, drop):
@@ -413,7 +418,7 @@ class BloomLayer(nn.Module):
     def _mlp_out(self, x, hidden, lidx, drop, m=None):
         out = self.mlp.fc2(hidden, lidx)
         if drop is not None:
-            out = dropout(out, drop.hidden, drop.generator)
+            out = dropout(out, drop.hidden, drop.generator, drop.rows)
         if self.post_ln_residual:
             if m is None:
                 m = layer_norm(x, self.ln2_scale[lidx], self.ln2_bias[lidx],
@@ -457,6 +462,8 @@ class BloomDecoder(nn.Module):
     embeddings arrive raw (spliced video features included) and pass the
     embedding LayerNorm here, as in the HF model."""
 
+    mesh = None  # the run's mesh (parallel/sharding.shard_params)
+
     def __init__(self, cfg: BloomConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
         dt = policy.param_dtype
@@ -478,13 +485,14 @@ class BloomDecoder(nn.Module):
         if (generator is not None and cache is None and self.training
                 and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0)):
             drop = Dropout(generator, cfg.hidden_dropout,
-                           cfg.attention_dropout)
+                           cfg.attention_dropout,
+                           block_of(0, data_group_of(self)))
         eps = cfg.layernorm_epsilon
         x = input_embeds
         if not skip_emb_ln:
             x = layer_norm(x, self.emb_ln_scale, self.emb_ln_bias, eps=eps)
         if drop is not None:
-            x = dropout(x, drop.hidden, drop.generator)
+            x = dropout(x, drop.hidden, drop.generator, drop.rows)
         remat = cache is None and cfg.remat and torch.is_grad_enabled()
         for lidx in range(cfg.num_hidden_layers):
             if remat:

@@ -24,7 +24,11 @@ probabilities ``attention_dropout``, the latter on the plain path
 (``mha_reference``), as the JAX package leaves its flash kernels under
 attention dropout; a checkpointed layer replays its masks from the
 generator state it started with.  Without a generator, or in eval mode,
-nothing is drawn.  The cache is ``[L, B, M, 2*hidden]`` with rows
+nothing is drawn.  Under a split (the decoder's ``mesh``) each mask is
+drawn at the global batch's shape and this rank keeps its block: its data
+rank's rows, and for the attention probabilities its model shard's heads
+(``ops/attention.block_of``), so every rank draws what the (1,1) run
+draws, replays included.  The cache is ``[L, B, M, 2*hidden]`` with rows
 [K | V] taken straight from the qkv projection's output (``qkv[..., n*d:]``);
 the new rows are written in place before attention reads them.
 
@@ -77,6 +81,8 @@ from torch.utils.checkpoint import checkpoint
 from youku_mplug_tpu_torch.ops import kv_cache as kvc
 from youku_mplug_tpu_torch.ops.attention import (
     NEG_INF,
+    Dropout,
+    block_of,
     dot_product_attention,
     dropout,
     mha_reference,
@@ -206,16 +212,6 @@ def qscaled(y: torch.Tensor, mod: nn.Module, name: str,
     return y * (s if lidx is None else s[lidx]).reshape(-1).to(y.dtype)
 
 
-@dataclasses.dataclass(frozen=True)
-class Dropout:
-    """Dropout of one training forward: the generator its masks come from
-    and the hidden and attention-probability rates."""
-
-    generator: torch.Generator
-    hidden: float
-    attention: float
-
-
 class GPT3Attention(LoRAModule):
     """Self-attention with a fused QKV projection and the stacked cache.
     Parameters carry a leading [L] layer dimension.  On a model shard
@@ -278,7 +274,9 @@ class GPT3Attention(LoRAModule):
                 -1, (n, d)).transpose(1, 2) for i in range(3))
             out = dot_product_attention(
                 q, k, v, causal=True, dropout_rate=rate,
-                generator=drop.generator if rate > 0 else None)
+                generator=drop.generator if rate > 0 else None,
+                dropout_blocks=drop.rows + block_of(1, self.tp)
+                if rate > 0 else ())
             out = out.transpose(1, 2).reshape(b, s, nd)
         else:
             out = self._cache_attention(qkv, lidx, cache, cache_len,
@@ -371,25 +369,27 @@ class GPT3Layer(nn.Module):
                        eps=self.eps)
         a = self.attn(a, lidx, cache, cache_len, valid_from, drop)
         if drop is not None:
-            a = dropout(a, drop.hidden, drop.generator)
+            a = dropout(a, drop.hidden, drop.generator, drop.rows)
         x = x + a
         m = layer_norm(x, self.ln2_scale[lidx], self.ln2_bias[lidx],
                        eps=self.eps)
         m = self.mlp(m, lidx)
         if drop is not None:
-            m = dropout(m, drop.hidden, drop.generator)
+            m = dropout(m, drop.hidden, drop.generator, drop.rows)
         return x + m
 
     def replay(self, x, lidx: int, drop: Dropout, state: torch.Tensor):
         """Layer ``lidx`` with its generator first set to ``state``: run
         under ``torch.utils.checkpoint``, the recompute draws the masks
-        the forward drew."""
+        the forward drew (at the global shape, as the forward did)."""
         drop.generator.set_state(state)
         return self(x, lidx, drop=drop)
 
 
 class GPT3Decoder(nn.Module):
     """Position embedding + the layer stack + final layernorm."""
+
+    mesh = None  # the run's mesh (parallel/sharding.shard_params)
 
     def __init__(self, cfg: GPT3Config, policy: Policy = DEFAULT_POLICY):
         super().__init__()
@@ -411,11 +411,12 @@ class GPT3Decoder(nn.Module):
         if (generator is not None and cache is None and self.training
                 and (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0)):
             drop = Dropout(generator, cfg.hidden_dropout,
-                           cfg.attention_dropout)
+                           cfg.attention_dropout,
+                           block_of(0, data_group_of(self)))
         x = input_embeds + F.embedding(positions, self.position_embeddings
                                        ).to(input_embeds.dtype)
         if drop is not None:
-            x = dropout(x, drop.hidden, drop.generator)
+            x = dropout(x, drop.hidden, drop.generator, drop.rows)
         remat = cache is None and cfg.remat and torch.is_grad_enabled()
         for lidx in range(cfg.num_hidden_layers):
             if remat and drop is not None:

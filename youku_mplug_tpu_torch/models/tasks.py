@@ -16,9 +16,15 @@ reference's ViT-B/16 or EVA-ViT-g image pretraining);
 shards: nothing here changes but the weights each module holds; in
 training mode under a data split each loss is this rank's share of the
 global batch's (``parallel/data_parallel.py``): the LM loss's masked
-mean over the global token count, and the contrastive loss's per-query
-max over the global batch (``vis`` / ``txt`` gathered over the data
-ranks, the targets global indices).
+mean over the global token count, the cls / match head's cross-entropy
+over the global rows, the contrastive loss's per-query max over the
+global batch (``vis`` / ``txt`` gathered over the data ranks, the
+targets global indices), the retrieval NCE over the global batch (each
+rank's rows against every rank's features, the soft targets from the
+gathered clip ids), and ITM's 3B pair rows cut into one contiguous block
+a data rank, each pair's clip taken from the gathered query features
+(a negative may be another rank's clip).  The dropout masks of the
+towers are the (1,1) run's (``ops/attention.py``).
 
 Towers: the JAX module declares both vision towers and flax creates the
 parameters of the one a task method calls, so a video model's tree has
@@ -65,6 +71,7 @@ from youku_mplug_tpu_torch.ops.cross_entropy import cross_entropy_with_logits
 from youku_mplug_tpu_torch.parallel.data_parallel import (
     data_group_of,
     gather_rows,
+    share,
 )
 from youku_mplug_tpu_torch.runtime.precision import DEFAULT_POLICY, Policy
 
@@ -289,13 +296,10 @@ class MPLUGVideo(nn.Module):
             targets = torch.arange(b, device=vis.device) + (
                 0 if dp is None else dp.index * b)
             ls = self.cfg.label_smoothing
-
-            def share(rows):  # this rank's share of the global mean
-                return rows.mean() if dp is None else \
-                    rows.sum() / (b * dp.size)
             loss_contrastive = 0.5 * (
-                share(cross_entropy_with_logits(sim_i2t, targets, ls))
-                + share(cross_entropy_with_logits(sim_t2i, targets, ls)))
+                share(cross_entropy_with_logits(sim_i2t, targets, ls), dp)
+                + share(cross_entropy_with_logits(sim_t2i, targets, ls),
+                        dp))
         return {"loss": loss_caption + loss_contrastive,
                 "loss_caption": loss_caption,
                 "loss_contrastive": loss_contrastive}
@@ -327,7 +331,9 @@ class MPLUGVideo(nn.Module):
         if self.cfg.use_cls and labels is not None:
             logits = self.cls_logits_from_prompt(
                 query_features, prompt_ids, prompt_mask, generator)
-            loss_cls = cross_entropy_with_logits(logits, labels.long()).mean()
+            loss_cls = share(cross_entropy_with_logits(logits,
+                                                       labels.long()),
+                             data_group_of(self))
         return {"loss": loss_caption + loss_cls,
                 "loss_caption": loss_caption, "loss_cls": loss_cls}
 
@@ -369,30 +375,44 @@ class MPLUGVideo(nn.Module):
     def retrieval_loss(self, video, input_ids, attention_mask, idx):
         """In-batch NCE of the dual encoder with soft targets: every pair
         that shares a clip id ``idx`` counts as a positive, weighted
-        evenly.  Returns {"loss": fp32 scalar}."""
+        evenly.  Under a data split the batch is the global one: this
+        rank's clips against every rank's texts and its texts against
+        every rank's clips, positives from every rank's ids.  Returns
+        {"loss": fp32 scalar}."""
+        dp = data_group_of(self)
         vis = self.extract_vision_feature(video)
         txt = self.extract_text_feature(input_ids, attention_mask)
-        sim_i2t = vis @ txt.t() / self.temp
-        sim_t2i = txt @ vis.t() / self.temp
-        pos = (idx[:, None] == idx[None, :]).float()
+        sim_i2t = vis @ gather_rows(txt, dp).t() / self.temp
+        sim_t2i = txt @ gather_rows(vis, dp).t() / self.temp
+        pos = (idx[:, None] == gather_rows(idx, dp)[None, :]).float()
         targets = pos / pos.sum(1, keepdim=True)
         loss_i2t = -(torch.log_softmax(sim_i2t, 1) * targets).sum(1)
         loss_t2i = -(torch.log_softmax(sim_t2i, 1) * targets).sum(1)
-        return {"loss": 0.5 * (loss_i2t.mean() + loss_t2i.mean())}
+        return {"loss": 0.5 * (share(loss_i2t, dp) + share(loss_t2i, dp))}
 
     def itm_train_loss(self, video, input_ids, attention_mask,
                        prompt_lengths, negative_indices, prompt_ids=None,
                        prompt_mask=None, labels=None, generator=None):
-        """ITM rerank finetune: ``input_ids`` holds 3B rows, the B
+        """ITM rerank finetune: the batch's 3B pair rows are the B
         positives and then the 2B pairs of ``negative_indices`` (two
         derangements of the batch), whose query features are the clips
         they index.  The prefix-LM loss of the (prompt, yes / no) pairs,
         plus (``use_cls`` with ``labels``) the match head's
-        cross-entropy.  Returns fp32 scalars loss, loss_caption,
+        cross-entropy.  Under a data split ``video`` is this rank's block
+        of the B clips, ``negative_indices`` the global batch's, and
+        ``input_ids`` (and the prompts and labels) this rank's contiguous
+        block of the 3B pair rows, whose clips come from every rank's
+        query features.  Returns fp32 scalars loss, loss_caption,
         loss_cls."""
-        query_features = self.encode_video(video, generator)[1]
-        qf = torch.cat([query_features,
-                        query_features[negative_indices.long()]], dim=0)
+        dp = data_group_of(self)
+        query_features = gather_rows(
+            self.encode_video(video, generator)[1], dp)
+        rows = input_ids.shape[0]
+        pairs = torch.cat([torch.arange(query_features.shape[0],
+                                        device=negative_indices.device),
+                           negative_indices.long()])
+        lo = 0 if dp is None else dp.index * rows
+        qf = query_features[pairs[lo:lo + rows].to(query_features.device)]
         loss_caption = self._prefix_forward(
             qf, input_ids, attention_mask, prompt_lengths=prompt_lengths,
             generator=generator)["loss"]
@@ -401,7 +421,8 @@ class MPLUGVideo(nn.Module):
         if self.cfg.use_cls and labels is not None:
             logits = self.cls_logits_from_prompt(qf, prompt_ids, prompt_mask,
                                                  generator)
-            loss_cls = cross_entropy_with_logits(logits, labels.long()).mean()
+            loss_cls = share(cross_entropy_with_logits(logits,
+                                                       labels.long()), dp)
         return {"loss": loss_caption + loss_cls,
                 "loss_caption": loss_caption, "loss_cls": loss_cls}
 

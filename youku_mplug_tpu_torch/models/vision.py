@@ -17,7 +17,12 @@ can lose silently, all kept here:
   block-diagonal mask, and ``temporal_fc`` is folded into the temporal
   output projection in fp32 before the cast to the compute dtype;
 - AttentionPool appends learnable ``bias_k`` / ``bias_v`` as one extra
-  key, and its residual base is the *normed* queries;
+  key, and its residual base is the *normed* queries; its ``k_bias`` is
+  applied as ``-k_bias`` on that extra key alone, not on the other keys:
+  the softmax ignores a shift of a query's every score by q . k_bias,
+  so the attention is the same, and the bias's gradient is one key's dk
+  (-sum dS(bias key) . q) instead of the small residue of every key's dk,
+  which the kernel's bf16 dk rows swamp with their rounding;
 - a ``clip_model`` tower (the TimeSformer of clip-b16 and the per-frame
   ViT) has a bias-free patch embedding and a ``norm_pre`` LayerNorm over
   [cls; tokens] before the blocks; the MLP's GELU is tanh, erf or CLIP's
@@ -50,7 +55,12 @@ attention and its MLP); ``attn_drop_rate`` drops attention probabilities
 on the plain path (``mha_reference``), as JAX's rule takes attention
 dropout off its kernels — the temporal attention keeps its period mask
 there as an additive bias (JAX's dropout path drops the mask, ROADMAP
-Queue 3).  LoRA (``lora_rank > 0``): ``lora_{qkv,proj,fc1,fc2}_{a,b}``
+Queue 3).  Under a split (the tower's ``mesh``) every mask is drawn at
+the global batch's shape and this rank keeps its block
+(``ops/attention.block_of``): the data rank's rows of the patch tokens
+and of each drop-path draw, and of the attention probabilities its rows
+and its model shard's heads; a checkpointed block replays those global
+draws.  LoRA (``lora_rank > 0``): ``lora_{qkv,proj,fc1,fc2}_{a,b}``
 on every attention and MLP of the blocks (qkv's delta before the q / v
 biases, the others before their bias), in every attention route; with
 adapters the temporal attention applies ``temporal_fc`` after its
@@ -71,6 +81,8 @@ from torch.utils.checkpoint import checkpoint
 
 from youku_mplug_tpu_torch.ops.attention import (
     NEG_INF,
+    Dropout,
+    block_of,
     checkpoint_replaying,
     dot_product_attention,
     drop_path,
@@ -84,6 +96,7 @@ from youku_mplug_tpu_torch.ops.flash_attention import (
 )
 from youku_mplug_tpu_torch.ops.layernorm import layer_norm
 from youku_mplug_tpu_torch.ops.lora import LoRAModule, plus
+from youku_mplug_tpu_torch.parallel.data_parallel import data_group_of
 from youku_mplug_tpu_torch.parallel.tensor_parallel import (
     copy_to_model,
     reduce_from_model,
@@ -147,6 +160,24 @@ def _param(*shape, dtype) -> nn.Parameter:
 
 
 LORA_INIT_STD = 0.015  # JAX VisionConfig.init_std, of lora_*_a
+
+
+def _tower_dropout(tower: nn.Module, generator: Optional[torch.Generator]
+                   ) -> Optional[Dropout]:
+    """A tower's dropout in a training forward with a ``generator``: the
+    config's token (``drop_rate``) and attention rates and the data
+    rank's rows (``block_of``); None otherwise.  Each block adds its own
+    drop-path rate."""
+    if generator is None or not tower.training:
+        return None
+    return Dropout(generator, tower.cfg.drop_rate, tower.cfg.attn_drop_rate,
+                   block_of(0, data_group_of(tower)))
+
+
+def _drop_path(x: torch.Tensor, rate: float,
+               drop: Optional[Dropout]) -> torch.Tensor:
+    return x if drop is None else drop_path(x, rate, drop.generator,
+                                            drop.rows)
 
 
 def _mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -249,14 +280,15 @@ class VisionAttention(LoRAModule):
     def forward(self, x, *, period: int = 0,
                 post_kernel: Optional[torch.Tensor] = None,
                 post_bias: Optional[torch.Tensor] = None,
-                attn_drop: float = 0.0,
-                generator: Optional[torch.Generator] = None):
+                drop: Optional[Dropout] = None):
         """x [..., S, C].  ``period > 0``: tokens attend only within their
         own period group.  post_kernel/post_bias: a trailing [C, C] affine
         folded into the output projection, (x@P)@T == x@(P@T), with the
         weight product in fp32 and the cast to the compute dtype after
-        (without adapters only).  ``attn_drop`` > 0 (with ``generator``):
-        attention dropout on the plain path."""
+        (without adapters only).  ``drop`` with an ``attention`` rate > 0:
+        attention dropout on the plain path, its mask at the global shape
+        of ``drop.rows`` (x's rows: a data rank's block) and of this
+        module's heads."""
         n, c = self.num_heads, self.dim
         d = self.qkv_kernel.shape[-1]
         nd = n * d
@@ -280,10 +312,13 @@ class VisionAttention(LoRAModule):
 
         def heads(t):
             return t.unflatten(-1, (n, d)).transpose(1, 2)
-        if attn_drop > 0.0:
+        if drop is not None and drop.attention > 0.0:
             out = mha_reference(heads(q), heads(k), heads(v),
                                 bias=_period_bias(s, period, x.device),
-                                dropout_rate=attn_drop, generator=generator)
+                                dropout_rate=drop.attention,
+                                generator=drop.generator,
+                                dropout_blocks=drop.rows
+                                + block_of(1, self.tp))
             out = out.transpose(1, 2).reshape(b, s, nd)
         elif not packed_kernel_takes(c // d, d, s, period):
             out = _einsum_attention(q, k, v, n, period)
@@ -346,7 +381,6 @@ class SpaceTimeBlock(nn.Module):
         super().__init__()
         c = cfg.embed_dim
         lora = dict(lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
-        self.attn_drop = cfg.attn_drop_rate
         self.drop_path = drop_path_rate
         self.temporal_ln = LayerNormFP32(c, cfg.ln_eps, dtype)
         self.temporal_fc_kernel = _param(c, c, dtype=dtype)
@@ -357,11 +391,9 @@ class SpaceTimeBlock(nn.Module):
         self.norm2 = LayerNormFP32(c, cfg.ln_eps, dtype)
         self.mlp = Mlp(c, int(c * cfg.mlp_ratio), cfg.gelu, dtype, **lora)
 
-    def forward(self, x, cls, generator: Optional[torch.Generator] = None):
-        """``generator``: the dropout masks (None: deterministic)."""
+    def forward(self, x, cls, drop: Optional[Dropout] = None):
+        """``drop``: the tower's dropout (None: deterministic)."""
         b, n_p, t, c = x.shape
-        drop = dict(attn_drop=self.attn_drop if generator is not None
-                    else 0.0, generator=generator)
         # temporal attention: g patches x T frames per call, period-T mask
         g = temporal_group(n_p, t)
         xt = self.temporal_ln(x).reshape(b, n_p // g, g * t, c)
@@ -369,9 +401,9 @@ class SpaceTimeBlock(nn.Module):
         if self.temporal_attn.lora_rank == 0:
             xt = self.temporal_attn(xt, period=period,
                                     post_kernel=self.temporal_fc_kernel,
-                                    post_bias=self.temporal_fc_bias, **drop)
+                                    post_bias=self.temporal_fc_bias, drop=drop)
         else:  # the adapters' delta lands after proj: no folding
-            xt = self.temporal_attn(xt, period=period, **drop)
+            xt = self.temporal_attn(xt, period=period, drop=drop)
             xt = _mm(xt, self.temporal_fc_kernel) \
                 + self.temporal_fc_bias.to(xt.dtype)
         xt = x + xt.reshape(b, n_p, t, c)
@@ -379,7 +411,7 @@ class SpaceTimeBlock(nn.Module):
         # spatial attention: per frame, the one cls token repeated per frame
         xs = xt.transpose(1, 2)  # [B, T, N, C]
         cls_rep = cls[:, None, None, :].expand(b, t, 1, c)
-        xs = self.attn(self.norm1(torch.cat([cls_rep, xs], dim=2)), **drop)
+        xs = self.attn(self.norm1(torch.cat([cls_rep, xs], dim=2)), drop=drop)
         cls_new = xs[:, :, 0, :].mean(dim=1)  # mean over frames
         xs = xs[:, :, 1:, :].transpose(1, 2)  # [B, N, T, C]
 
@@ -387,9 +419,8 @@ class SpaceTimeBlock(nn.Module):
         res = torch.cat([cls[:, None, :], xt.reshape(b, n_p * t, c)], dim=1)
         upd = torch.cat([cls_new[:, None, :], xs.reshape(b, n_p * t, c)],
                         dim=1)
-        rate = self.drop_path if generator is not None else 0.0
-        y = res + drop_path(upd, rate, generator)
-        y = y + drop_path(self.mlp(self.norm2(y)), rate, generator)
+        y = res + _drop_path(upd, self.drop_path, drop)
+        y = y + _drop_path(self.mlp(self.norm2(y)), self.drop_path, drop)
         return y[:, 1:, :].reshape(b, n_p, t, c), y[:, 0, :]
 
 
@@ -419,6 +450,8 @@ class TimeSformer(nn.Module):
     """forward(video [B, C, T, H, W]) -> (pooled cls [B, D],
     tokens [B, 1 + T*N, D])."""
 
+    mesh = None  # the run's mesh (parallel/sharding.shard_params)
+
     def __init__(self, cfg: VisionConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
         self.cfg, self.policy = cfg, policy
@@ -437,8 +470,7 @@ class TimeSformer(nn.Module):
         """``generator``: the dropout masks of a training forward
         (training mode); ignored otherwise."""
         cfg = self.cfg
-        if not self.training:
-            generator = None
+        drop = _tower_dropout(self, generator)
         b, c, t, hh, ww = video.shape
         d = self.cfg.embed_dim
         p = self.cfg.patch_size
@@ -452,8 +484,8 @@ class TimeSformer(nn.Module):
         x = x + (tile_pos + tile_temp).to(x.dtype)
         cls = (self.cls_token.expand(b, 1, d)
                + self.pos_embed[:, :1, :]).to(x.dtype)[:, 0]
-        if generator is not None:
-            x = dropout(x, cfg.drop_rate, generator)
+        if drop is not None:
+            x = dropout(x, drop.hidden, drop.generator, drop.rows)
         if cfg.clip_model:  # norm_pre over [cls; tokens] jointly
             joint = self.norm_pre(torch.cat([cls[:, None], x], dim=1))
             cls, x = joint[:, 0], joint[:, 1:]
@@ -461,13 +493,13 @@ class TimeSformer(nn.Module):
         x = x.reshape(b, t, n_p, d).transpose(1, 2)  # n-major for the blocks
         remat = cfg.grad_ckpt and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks):
-            if remat and i % cfg.remat_stride == 0 and generator is None:
+            if remat and i % cfg.remat_stride == 0 and drop is None:
                 x, cls = checkpoint(blk, x, cls, use_reentrant=False)
             elif remat and i % cfg.remat_stride == 0:
-                x, cls = checkpoint_replaying(blk, generator, x, cls,
-                                              generator)
+                x, cls = checkpoint_replaying(blk, drop.generator, x, cls,
+                                              drop)
             else:
-                x, cls = blk(x, cls, generator)
+                x, cls = blk(x, cls, drop)
         x = x.transpose(1, 2).reshape(b, t * n_p, d)  # back to time-major
         tokens = self.norm(torch.cat([cls[:, None, :], x], dim=1))
         return tokens[:, 0], tokens
@@ -482,20 +514,17 @@ class PlainBlock(nn.Module):
         super().__init__()
         c = cfg.embed_dim
         lora = dict(lora_rank=cfg.lora_rank, lora_alpha=cfg.lora_alpha)
-        self.attn_drop = cfg.attn_drop_rate
         self.drop_path = drop_path_rate
         self.norm1 = LayerNormFP32(c, cfg.ln_eps, dtype)
         self.attn = VisionAttention(c, cfg.num_heads, dtype, **lora)
         self.norm2 = LayerNormFP32(c, cfg.ln_eps, dtype)
         self.mlp = Mlp(c, int(c * cfg.mlp_ratio), cfg.gelu, dtype, **lora)
 
-    def forward(self, x, generator: Optional[torch.Generator] = None):
-        rate = self.drop_path if generator is not None else 0.0
-        h = self.attn(self.norm1(x), generator=generator,
-                      attn_drop=self.attn_drop if generator is not None
-                      else 0.0)
-        x = x + drop_path(h, rate, generator)
-        return x + drop_path(self.mlp(self.norm2(x)), rate, generator)
+    def forward(self, x, drop: Optional[Dropout] = None):
+        """``drop``: the tower's dropout (None: deterministic)."""
+        x = x + _drop_path(self.attn(self.norm1(x), drop=drop),
+                           self.drop_path, drop)
+        return x + _drop_path(self.mlp(self.norm2(x)), self.drop_path, drop)
 
 
 class VisionTransformer(nn.Module):
@@ -507,6 +536,8 @@ class VisionTransformer(nn.Module):
     attention.  Under ``grad_ckpt`` (with autograd on) every
     block is checkpointed, its drop-path and dropout masks replayed from
     the generator state it started with."""
+
+    mesh = None  # the run's mesh (parallel/sharding.shard_params)
 
     def __init__(self, cfg: VisionConfig, policy: Policy = DEFAULT_POLICY):
         super().__init__()
@@ -525,8 +556,7 @@ class VisionTransformer(nn.Module):
         """``generator``: the attention dropout and drop-path masks of a
         training forward (training mode); ignored otherwise."""
         cfg = self.cfg
-        if not self.training:
-            generator = None
+        drop = _tower_dropout(self, generator)
         x = self.patch_embed(images.to(self.policy.compute_dtype))
         b, _, d = x.shape
         x = torch.cat([self.cls_token.to(x.dtype).expand(b, 1, d), x], dim=1)
@@ -535,8 +565,8 @@ class VisionTransformer(nn.Module):
             x = self.norm_pre(x)
         remat = cfg.grad_ckpt and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = (checkpoint_replaying(blk, generator, x, generator)
-                 if remat else blk(x, generator))
+            x = (checkpoint_replaying(blk, drop and drop.generator, x, drop)
+                 if remat else blk(x, drop))
         x = self.norm(x)
         return x[:, 0], x
 
@@ -568,9 +598,10 @@ class AttentionPool(nn.Module):
         dt = q_in.dtype
         b = q_in.shape[0]
         q = _mm(q_in, self.q_kernel) + self.q_bias.to(dt)
-        k = _mm(k_in, self.k_kernel) + self.k_bias.to(dt)
+        k = _mm(k_in, self.k_kernel)  # k_bias on the extra key (above)
         v = _mm(k_in, self.v_kernel) + self.v_bias.to(dt)
-        k = torch.cat([k, self.bias_k.to(dt).expand(b, 1, d)], dim=1)
+        k = torch.cat([k, (self.bias_k - self.k_bias).to(dt).expand(b, 1, d)],
+                      dim=1)
         v = torch.cat([v, self.bias_v.to(dt).expand(b, 1, d)], dim=1)
 
         def split(t):  # [B, S, d] -> [B, n, S, hd] view

@@ -17,39 +17,79 @@ probabilities there (``_DropoutAttention``): autograd of the plain
 formula would hold the fp32 scores, probabilities and dropped
 probabilities of every decoder layer, ~1.5 GB a layer at 96 rows of 208
 tokens and 32 heads.
+
+Under a (data, model) split each mask is drawn at the global array's
+shape and the rank keeps its block (``blocks``: ``block_of``'s rows of a
+data rank, a model shard's heads or columns), so every rank consumes the
+step's generator as the (1,1) run does and keeps the (1,1) run's masks
+bitwise (JAX draws each mask on the global array too).  The draw costs
+data x model times what a rank keeps: the whole mask is drawn on every
+rank, then cut (a per-block counter scheme would draw only the block).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import dataclasses
+from typing import Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 NEG_INF = torch.finfo(torch.float32).min
 
+# where a rank's tensor lies in the global array of a split: for each
+# (dim, index, count), block ``index`` of ``count`` equal blocks along dim
+Blocks = Tuple[Tuple[int, int, int], ...]
+
+
+def block_of(dim: int, group) -> Blocks:
+    """The block along ``dim`` that ``group`` (an ``AxisGroup``: the data
+    group's rows, a model group's heads or columns) holds; () without a
+    group or with one rank on it."""
+    if group is None or group.size <= 1:
+        return ()
+    return ((dim, group.index, group.size),)
+
+
+@dataclasses.dataclass(frozen=True)
+class Dropout:
+    """Dropout of one training forward: the generator its masks come from,
+    the hidden (or token) and attention-probability rates, and ``rows``,
+    the block of the global batch this rank's rows are (a data rank's:
+    ``block_of(0, data group)``).  The decoders and the vision towers pass
+    it down to every site."""
+
+    generator: torch.Generator
+    hidden: float = 0.0
+    attention: float = 0.0
+    rows: Blocks = ()
+
 
 def dropout(x: torch.Tensor, rate: float,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator],
+            blocks: Blocks = ()) -> torch.Tensor:
     """Inverted dropout: ``x / (1 - rate)`` where a uniform draw from
     ``generator`` falls below ``1 - rate``, else 0; ``x`` itself at rate
-    0."""
+    0.  ``blocks``: ``x`` is that block of the global array, whose mask
+    is drawn (module docstring)."""
     if rate <= 0.0:
         return x
-    keep = _keep_mask(x.shape, rate, generator, x.device)
+    keep = _keep_mask(x.shape, rate, generator, x.device, blocks)
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
 
 def drop_path(x: torch.Tensor, rate: float,
-              generator: Optional[torch.Generator]) -> torch.Tensor:
+              generator: Optional[torch.Generator],
+              blocks: Blocks = ()) -> torch.Tensor:
     """Stochastic depth: each sample (leading dim) kept whole with
     probability ``1 - rate`` and divided by it, else zeroed; ``x`` itself
-    at rate 0."""
+    at rate 0.  ``blocks``: as ``dropout``'s (the samples' one counts)."""
     if rate <= 0.0:
         return x
     shape = (x.shape[0],) + (1,) * (x.dim() - 1)
-    keep = _keep_mask(shape, rate, generator, x.device)
+    keep = _keep_mask(shape, rate, generator, x.device,
+                      tuple(b for b in blocks if b[0] == 0))
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -68,10 +108,22 @@ def checkpoint_replaying(fn, generator: Optional[torch.Generator], *args):
     return checkpoint(replay, *args, use_reentrant=False)
 
 
-def _keep_mask(shape, rate: float, generator, device) -> torch.Tensor:
+def _keep_mask(shape, rate: float, generator, device,
+               blocks: Blocks = ()) -> torch.Tensor:
+    """The bool keep mask of a tensor of ``shape``: drawn at the global
+    shape of ``blocks`` and cut to this block (a copy: the global mask
+    is not held)."""
     if generator is None:
         raise ValueError("dropout needs a torch.Generator")
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - rate
+    full = list(shape)
+    for dim, _, count in blocks:
+        full[dim] *= count
+    keep = torch.rand(full, generator=generator, device=device) < 1.0 - rate
+    if not blocks:
+        return keep
+    for dim, index, _ in blocks:
+        keep = keep.narrow(dim, index * shape[dim], shape[dim])
+    return keep.clone(memory_format=torch.contiguous_format)
 
 
 def _masked_scores(q, k, *, causal, kv_len, bias, scale) -> torch.Tensor:
@@ -100,10 +152,10 @@ class _DropoutAttention(torch.autograd.Function):
     gradient in fp32, cast to each input's dtype."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask_kw, scale, rate, generator):
+    def forward(ctx, q, k, v, mask_kw, scale, rate, generator, blocks):
         s = _masked_scores(q, k, scale=scale, **mask_kw)
         lse = torch.logsumexp(s, dim=-1, keepdim=True)
-        keep = _keep_mask(s.shape, rate, generator, s.device)
+        keep = _keep_mask(s.shape, rate, generator, s.device, blocks)
         pd = torch.where(keep, torch.exp(s - lse) / (1.0 - rate), 0.0)
         del s
         ctx.save_for_backward(q, k, v, lse, keep)
@@ -127,7 +179,7 @@ class _DropoutAttention(torch.autograd.Function):
         dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float())
         dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float())
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
-                None, None)
+                None, None, None)
 
 
 def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -136,8 +188,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   bias: Optional[torch.Tensor] = None,
                   scale: Optional[float] = None,
                   dropout_rate: float = 0.0,
-                  generator: Optional[torch.Generator] = None
-                  ) -> torch.Tensor:
+                  generator: Optional[torch.Generator] = None,
+                  dropout_blocks: Blocks = ()) -> torch.Tensor:
     """Plain attention. q, k, v: [B, H, S, D]. fp32 scores and softmax,
     probabilities cast back to q.dtype for PV; returns q.dtype.
 
@@ -145,7 +197,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     masked.  bias: optional additive score bias broadcastable to
     [B, H, Sq, Sk] (a mask: it takes no gradient under dropout).
     dropout_rate > 0: the probabilities' inverted dropout, the keep mask
-    drawn from ``generator`` (required then)."""
+    drawn from ``generator`` (required then), at the global shape of
+    ``dropout_blocks`` (a data rank's rows, a model shard's heads)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     mask_kw = dict(causal=causal, kv_len=kv_len, bias=bias)
@@ -153,7 +206,8 @@ def mha_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if generator is None:
             raise ValueError("dropout_rate > 0 requires a generator")
         return _DropoutAttention.apply(q, k, v, mask_kw, scale,
-                                       float(dropout_rate), generator)
+                                       float(dropout_rate), generator,
+                                       tuple(dropout_blocks))
     p = torch.softmax(_masked_scores(q, k, scale=scale, **mask_kw), dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
 
@@ -164,8 +218,8 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           bias: Optional[torch.Tensor] = None,
                           scale: Optional[float] = None,
                           dropout_rate: float = 0.0,
-                          generator: Optional[torch.Generator] = None
-                          ) -> torch.Tensor:
+                          generator: Optional[torch.Generator] = None,
+                          dropout_blocks: Blocks = ()) -> torch.Tensor:
     """Dispatched attention. q, k, v: [B, H, S, D].
 
     Unbiased attention without dropout, causal or not, with at least one
@@ -185,4 +239,4 @@ def dot_product_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         kv_len = torch.full((q.shape[0],), kv_len, device=q.device)
     return mha_reference(q, k, v, causal=causal, kv_len=kv_len, bias=bias,
                          scale=scale, dropout_rate=dropout_rate,
-                         generator=generator)
+                         generator=generator, dropout_blocks=dropout_blocks)

@@ -11,7 +11,10 @@ device tensors):
 - ``gather_rows``: the rows of every data rank in data order, under
   autograd (a zero-filled buffer plus ``all_reduce``; the backward sums
   the gradient over the data ranks and keeps this rank's rows): the
-  contrastive loss's per-query max over the global batch;
+  contrastive loss's per-query max over the global batch, the
+  retrieval NCE's features, the ITM pairs' query features, and integer
+  rows that take no gradient (the retrieval ``idx``: its soft targets
+  are global);
 - ``data_group_of``: the ``DataGroup`` a module's losses reduce over,
   set on a model by ``parallel/sharding.shard_params`` and only in
   training mode, so that evaluation keeps its per-rank losses.
@@ -77,9 +80,18 @@ class _GatherRows(torch.autograd.Function):
         return grad[i * n:(i + 1) * n], None
 
 
+def share(rows: torch.Tensor, dp: Optional[DataGroup]) -> torch.Tensor:
+    """This rank's share of the mean over the global batch of per-row
+    values ``rows`` (its rows' sum over the global count); the mean
+    without a data group."""
+    return rows.mean() if dp is None else \
+        rows.sum() / (rows.shape[0] * dp.size)
+
+
 def gather_rows(x: torch.Tensor, dp: Optional[DataGroup]) -> torch.Tensor:
     """[B, ...] rows of this data rank -> [D * B, ...], every data rank's
-    rows in data order, on every rank; differentiable."""
+    rows in data order, on every rank; differentiable (integer rows go
+    through too, taking no gradient)."""
     if dp is None:
         return x
     return _GatherRows.apply(x, dp)

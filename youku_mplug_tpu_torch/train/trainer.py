@@ -36,7 +36,10 @@ splits the rank's own rows, which the train loader orders micro-batch
 by micro-batch (``parallel/sharding.data_shard(micro=)``): the rank's
 micro-batch u is its block of the (1,1) step's micro-batch u, so a
 micro-batch's masked mean and contrastive max are over the rows JAX's
-takes.
+takes.  The step's ``dropout_generator`` is the same on every rank (no
+rank folded in) and every mask is drawn at the global micro-batch's
+shape, each rank keeping its block (``ops/attention.py``): a split's
+micro-batch u drops what the (1,1) step's micro-batch u drops.
 """
 
 from __future__ import annotations
